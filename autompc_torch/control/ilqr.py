@@ -1,0 +1,358 @@
+"""Batched iterative LQR with converged-lane compaction (port of
+``autompc_tpu/control/ilqr.py``: the lanes-last fused path of
+``make_batched_ilqr_solver`` and ``make_scheduled_ilqr_solver``).
+
+Semantics are the JAX package's: dt-scaled stage expansions, the Riccati
+backward pass, ``alpha = ls_discount**i`` line search with the
+expected-reduction acceptance test, Jacobians relinearized only after a
+successful line search, a lane fails when its objective worsens by more
+than 1e-3, and converges when ``||u_new - u_old|| < u_threshold``.
+
+The carry stays in the kernels' lanes-last layout for the whole solve —
+xs (H+1, ds, B), us (H, B), gains (H, ds, B)/(H, B) and the packed
+Jacobian plane jac (H, ds*(ds+1), B) — packed once at entry and unpacked
+once by ``finalize``. Each iteration is two kernel launches
+(``ops/cuda_riccati.py`` and ``ops/cuda_linesearch.py``, which applies
+the carry select itself) plus a few lane-vector ops, and the loop reads
+the active-lane count on the host once per iteration; the entry
+relinearization is ``ops/cuda_relin.py``.
+
+Only that path is ported: dc = 1, a fixed diagonal QuadCost, a
+linear-in-features model (``feature_spec``), ``lanes_last=True``,
+``fuse_ls=True``. Every other option of the JAX solver raises
+``ValueError`` naming it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.cuda_linesearch import fused_line_search
+from ..ops.cuda_relin import relin_jacobians
+from ..ops.cuda_riccati import backward_quad_ll
+
+
+def _unsupported(name, why="is not ported to autompc_torch yet"):
+    return ValueError(f"{name} {why}")
+
+
+def _fixed_diag(cost, obsdim):
+    """(qd, rd, fd, goal) host tuples of a diagonal QuadCost, else
+    None."""
+    if cost is None or not getattr(cost, "is_quad", False) \
+            or getattr(cost, "_Q", None) is None:
+        return None
+    Q, R, F = (np.asarray(M.cpu().numpy()) for M in (cost._Q, cost._R, cost._F))
+    if not all(np.allclose(M, np.diag(np.diag(M))) for M in (Q, R, F)):
+        return None
+    g = cost._goal
+    goal = np.zeros(obsdim) if g is None else g.cpu().numpy()
+    return (
+        tuple(float(v) for v in np.diag(Q)),
+        tuple(float(v) for v in np.diag(R)),
+        tuple(float(v) for v in np.diag(F)),
+        tuple(float(v) for v in goal),
+    )
+
+
+def make_batched_ilqr_solver(
+    pred_core,
+    cost,
+    H: int,
+    ds: int,
+    dc: int,
+    obsdim: int,
+    dt: float,
+    ubounds=None,
+    u_threshold: float = 1e-3,
+    max_iter: int = 50,
+    ls_max_iter: int = 10,
+    ls_discount: float = 0.2,
+    ls_cost_threshold: float = 0.3,
+    backward: str = "pallas",
+    feature_spec=None,
+    relin: str = "auto",
+    feature_mask=None,
+    fuse_ls: bool = False,
+    lanes_last: bool = False,
+    return_pieces: bool = False,
+    quad_cost_batch: bool = False,
+    batch_params: bool = False,
+    reg_matrix=None,
+    mlp_ls=None,
+    ls_wide: bool = False,
+    jac_dtype: str = "f32",
+    horizon_mask: bool = False,
+    pad_to=None,
+):
+    """Batch-native iLQR solve: ``solve(params, x0s (B, ds), uguess
+    (B, H, dc)) -> (converged (B,), xs (B, H+1, ds), us (B, H, dc),
+    Ks (B, H, dc, ds), ks (B, H, dc))`` on the device of ``x0s``.
+
+    ``params`` is the model's parameter dict; ``feature_spec =
+    (library, coeffs_key)`` names the linear-in-features model behind
+    ``pred_core`` (``x' = params[coeffs_key] @ library(z)``).
+    ``feature_mask`` (bool sequence or tuple of active feature indices)
+    restricts the kernels to the features whose coefficient columns are
+    nonzero; the solve is then only correct for such coefficients.
+    ``backward="pallas"`` keeps the JAX package's name for the kernel
+    backward pass (here the CUDA kernel). ``return_pieces=True`` also
+    returns ``(make_carry0, cond, make_body)`` for callers that run the
+    iteration themselves.
+    """
+    if dc != 1:
+        raise _unsupported("dc > 1")
+    if not lanes_last:
+        raise _unsupported("the batch-major body (lanes_last=False)")
+    for name, on in (
+        ("horizon_mask", horizon_mask), ("pad_to", pad_to is not None),
+        ("batch_params", batch_params),
+        ("per-lane costs (quad_cost_batch)", quad_cost_batch),
+        ("reg_matrix", reg_matrix is not None), ("mlp_ls", mlp_ls is not None),
+        ("ls_wide", ls_wide),
+    ):
+        if on:
+            raise _unsupported(name)
+    if jac_dtype == "bf16":
+        raise _unsupported("jac_dtype='bf16'")
+    if jac_dtype != "f32":
+        raise ValueError(f"jac_dtype must be f32/bf16, got {jac_dtype!r}")
+    if backward != "pallas":
+        raise _unsupported(f"backward={backward!r}")
+    if relin not in ("auto", "pallas"):
+        raise _unsupported(f"relin={relin!r}")
+    fixed_diag = _fixed_diag(cost, obsdim)
+    if not (fuse_ls and feature_spec is not None and fixed_diag is not None):
+        raise ValueError(
+            "lanes_last=True requires the fully-fused dc=1 "
+            "diagonal-quadratic path: fuse_ls=True, a feature_spec, and a "
+            f"diagonal QuadCost; got fuse_ls={fuse_ls}, feature_spec="
+            f"{'set' if feature_spec is not None else 'None'}, "
+            f"diagonal_cost={fixed_diag is not None}"
+        )
+
+    library, coeffs_key = feature_spec
+    if feature_mask is not None:
+        fm = tuple(feature_mask)
+        if all(isinstance(b, (bool, np.bool_)) for b in fm):
+            active_idx = tuple(i for i, b in enumerate(fm) if b)
+        else:
+            active_idx = tuple(int(i) for i in fm)
+        if not active_idx:
+            raise ValueError("feature_mask masks out every feature")
+    else:
+        active_idx = tuple(range(library.n_features))
+    terms = tuple(library.terms[k] for k in active_idx)
+    qd, rd, fd, goal = fixed_diag
+    if ubounds is not None:
+        umin = float(np.asarray(ubounds[0], dtype=float).reshape(-1)[0])
+        umax = float(np.asarray(ubounds[1], dtype=float).reshape(-1)[0])
+    else:
+        umin, umax = -float("inf"), float("inf")
+    alphas = tuple(ls_discount ** k for k in range(ls_max_iter))
+
+    def active_coeffs(params):
+        c = params[coeffs_key]
+        return c[:, list(active_idx)].contiguous()
+
+    def eval_obj(xs, us):
+        oc = cost.eval_obs_cost(xs[:, :H, :obsdim]).sum(-1)
+        cc = cost.eval_ctrl_cost(us).sum(-1)
+        return dt * (oc + cc) + cost.eval_term_obs_cost(xs[:, H, :obsdim])
+
+    def make_carry0(params, x0s, uguess):
+        B = x0s.shape[0]
+        xs = [x0s]
+        for t in range(H):
+            xs.append(pred_core(params, xs[-1], uguess[:, t]))
+        xs0 = torch.stack(xs, dim=1)                          # (B, H+1, ds)
+        xsT = xs0.permute(1, 2, 0).contiguous()
+        usT = uguess[:, :, 0].T.contiguous()
+        jac = relin_jacobians(terms, xsT, usT, active_coeffs(params))
+        return dict(
+            x0s=x0s.T.contiguous(), xs=xsT, us=usT, jac=jac,
+            obj=eval_obj(xs0, uguess),
+            Ks=x0s.new_zeros((H, ds, B)), ks=x0s.new_zeros((H, B)),
+            itr=0,
+            converged=torch.zeros(B, dtype=torch.bool, device=x0s.device),
+            failed=torch.zeros(B, dtype=torch.bool, device=x0s.device),
+        )
+
+    def cond(c):
+        if c["itr"] >= max_iter:
+            return False
+        return bool((~c["converged"] & ~c["failed"]).any())
+
+    def make_body(params):
+        coeffs = active_coeffs(params)
+
+        def body(c):
+            active = ~c["converged"] & ~c["failed"]
+            KsT, ksT, lin_red, quad_red = backward_quad_ll(
+                c["jac"], c["xs"], c["us"], qd, rd, fd, goal, dt, obsdim,
+                carry=(active, c["Ks"], c["ks"]),
+            )
+            # Inactive lanes' ksT rows hold their OLD gains (the carry
+            # select); their line-search outcome is discarded by the
+            # same masks, so the stale ks_small is inert.
+            ks_small = torch.sqrt((ksT * ksT).sum(0)) < u_threshold
+            xs, us, obj, _, failed_now, jac, du2 = fused_line_search(
+                terms, c["x0s"], c["xs"], c["us"], KsT, ksT, coeffs, alphas,
+                umin, umax, qd, rd, fd, goal, dt, c["obj"], lin_red,
+                quad_red, ks_small, active, c["jac"],
+                ls_cost_threshold=ls_cost_threshold,
+            )
+            converged_now = (torch.sqrt(du2) < u_threshold) & ~failed_now
+            return dict(
+                x0s=c["x0s"], xs=xs, us=us, jac=jac, obj=obj, Ks=KsT, ks=ksT,
+                itr=c["itr"] + 1,
+                converged=c["converged"] | (converged_now & active),
+                failed=c["failed"] | (failed_now & active),
+            )
+
+        return body
+
+    def finalize(out):
+        """Lanes-last carry -> the batch-major (converged, xs, us, Ks,
+        ks) contract."""
+        return (
+            out["converged"],
+            out["xs"].permute(2, 0, 1),
+            out["us"].T[:, :, None],
+            out["Ks"].permute(2, 0, 1)[:, :, None, :],
+            out["ks"].T[:, :, None],
+        )
+
+    def solve(params, x0s, uguess):
+        carry = make_carry0(params, x0s, uguess)
+        body = make_body(params)
+        while cond(carry):
+            carry = body(carry)
+        return finalize(carry)
+
+    solve._finalize = finalize
+    if return_pieces:
+        return solve, make_carry0, cond, make_body
+    return solve
+
+
+def _batch_gather(tree, idx, B, lanes_last=False):
+    """Gather lanes ``idx`` from every batch-axis tensor of the carry:
+    lanes-last tensors (ndim >= 2, last dim B) on their last axis, (B,)
+    and batch-leading tensors on axis 0; everything else (``itr``)
+    passes through."""
+
+    def g(a):
+        if isinstance(a, dict):
+            return {k: g(v) for k, v in a.items()}
+        if not isinstance(a, torch.Tensor):
+            return a
+        if lanes_last and a.ndim >= 2 and a.shape[-1] == B:
+            return a[..., idx]
+        if a.ndim >= 1 and a.shape[0] == B:
+            return a[idx]
+        return a
+
+    return g(tree)
+
+
+def _batch_scatter(full, front, idx, B, lanes_last=False):
+    """Inverse of ``_batch_gather``: write ``front``'s lanes back at
+    ``idx``. Updates ``full``'s tensors in place (the full carry is dead
+    after the scatter, and this saves a copy of every carry array);
+    non-batch leaves take the front's value."""
+
+    def s(f, fr):
+        if isinstance(f, dict):
+            return {k: s(f[k], fr[k]) for k in f}
+        if not isinstance(f, torch.Tensor):
+            return fr
+        if lanes_last and f.ndim >= 2 and f.shape[-1] == B:
+            f[..., idx] = fr
+        elif f.ndim >= 1 and f.shape[0] == B:
+            f[idx] = fr
+        else:
+            return fr
+        return f
+
+    return s(full, front)
+
+
+def parse_schedule(s):
+    """Parse ``"cut:frac,cut:frac,..."`` (e.g. ``"20:0.5,38:0.25"``) into
+    ``((cut_iter, size_frac), ...)``. Empty/None -> None."""
+    if not s:
+        return None
+    out = []
+    for chunk in s.split(","):
+        cut, frac = chunk.split(":")
+        frac = float(frac)
+        if not 0.0 < frac <= 1.0:
+            raise ValueError(f"schedule size_frac must be in (0, 1], got {frac}")
+        out.append((int(cut), frac))
+    return tuple(out)
+
+
+def make_scheduled_ilqr_solver(
+    pred_core,
+    cost,
+    H: int,
+    ds: int,
+    dc: int,
+    obsdim: int,
+    dt: float,
+    ubounds=None,
+    schedule=((20, 0.5), (38, 0.25)),
+    max_iter: int = 50,
+    **kwargs,
+):
+    """Batched iLQR with converged-lane compaction at static cut points.
+
+    Same contract as ``make_batched_ilqr_solver``. ``schedule`` is a
+    list of ``(cut_iter, size_frac)`` with ``size_frac`` relative to the
+    ORIGINAL batch: at each cut the host reads the active count; if the
+    active lanes fit, they are stably moved to the front and the front
+    ``round(size_frac * B)`` lanes continue alone (every kernel shrinks),
+    to be scattered back at the end. If they do not fit, the solve stays
+    at its size and the later cuts stay alive — the schedule is a
+    performance hint, never a correctness bound. Per-lane results equal
+    the uncompacted solver's.
+    """
+    solve0, make_carry0, cond, make_body = make_batched_ilqr_solver(
+        pred_core, cost, H=H, ds=ds, dc=dc, obsdim=obsdim, dt=dt,
+        ubounds=ubounds, max_iter=max_iter, return_pieces=True, **kwargs,
+    )
+    ll = bool(kwargs.get("lanes_last"))
+
+    def solve(params, x0s, uguess):
+        B = x0s.shape[0]
+        body = make_body(params)
+
+        def run_until(carry, upto):
+            while carry["itr"] < upto and cond(carry):
+                carry = body(carry)
+            return carry
+
+        def recurse(carry, sched):
+            B_cur = carry["converged"].shape[0]
+            if not sched:
+                return run_until(carry, max_iter)
+            cut, frac = sched[0]
+            B_next = max(1, int(round(B * frac)))
+            if B_next >= B_cur:
+                return recurse(carry, sched[1:])
+            carry = run_until(carry, cut)
+            done = carry["converged"] | carry["failed"]
+            if int((~done).sum()) > B_next:
+                return recurse(carry, sched[1:])
+            perm = torch.argsort(done.to(torch.int8), stable=True)
+            front_idx = perm[:B_next]
+            front = _batch_gather(carry, front_idx, B_cur, lanes_last=ll)
+            front = recurse(front, sched[1:])
+            return _batch_scatter(carry, front, front_idx, B_cur, lanes_last=ll)
+
+        out = recurse(make_carry0(params, x0s, uguess), tuple(schedule))
+        return solve0._finalize(out)
+
+    return solve

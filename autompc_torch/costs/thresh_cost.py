@@ -1,0 +1,27 @@
+"""Threshold cost (port of ``autompc_tpu/costs/thresh_cost.py``)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .cost import Cost
+
+
+class ThresholdCost(Cost):
+    r"""Returns 1 for every time step where
+    :math:`\|x - x_\mathrm{goal}\|_\infty > \mathrm{threshold}`, checked
+    only over observation dimensions ``obs_range[0]:obs_range[1]``."""
+
+    def __init__(self, system, goal, obs_range, threshold):
+        super().__init__(system)
+        self._goal = torch.as_tensor(np.asarray(goal, dtype=np.float64))
+        self._threshold = float(np.asarray(threshold))
+        self._obs_range = (int(obs_range[0]), int(obs_range[1]))
+        self._has_goal = True
+
+    def eval_obs_cost(self, obs):
+        lo, hi = self._obs_range
+        goal = self._mat(self._goal, obs)
+        err = (obs[..., lo:hi] - goal[lo:hi]).abs().amax(-1)
+        return (err > self._threshold).to(obs.dtype)

@@ -1,0 +1,220 @@
+// Feature-term descriptors and the summation order shared by the
+// relinearization kernel (relin.cu) and the fused line-search kernel
+// (linesearch_fused.cu).
+//
+// A term is  prod_c z_c^exps[c] * trig(freq * z[comp])  with trig one of
+// none / sin / cos (autompc_torch/sysid/basis.py: TermDesc). The table
+// holds only the ACTIVE terms (after the solver's feature mask) and is
+// passed by value as a __grid_constant__ kernel parameter: every thread
+// reads the same entry at the same time, which the constant cache
+// broadcasts. Component indices of the per-thread input vector z are
+// compile-time constants after unrolling, so z stays in registers; only
+// the term index k is a runtime loop variable.
+//
+// Summation order: the JAX kernels sum the per-term contributions with a
+// balanced pairwise tree (_tree_sum, ops/pallas_linesearch.py), because
+// a float32 left fold over many terms visibly changes iLQR convergence.
+// TreeAcc reproduces that exact tree for a runtime term count with a
+// binary counter: slot l holds the sum of a block of 2^l consecutive
+// terms; pushing term k merges the blocks given by the trailing one-bits
+// of k (earlier block on the left), and total(n) folds the blocks named
+// by the one-bits of n from the newest (lowest bit) to the oldest.
+// tests/test_torch_basis.py checks the grouping against _tree_sum.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define AMPC_MAX_F 64  // active terms per table
+#define AMPC_MAX_D 8   // input components d = ds + dc
+#define AMPC_TREE_SLOTS 7  // 2^7 > AMPC_MAX_F
+
+struct FeatTable {
+  int n;  // active terms
+  int d;  // input components
+  signed char exps[AMPC_MAX_F][AMPC_MAX_D];
+  signed char kind[AMPC_MAX_F];  // 0 none, 1 sin, 2 cos
+  signed char comp[AMPC_MAX_F];  // trig component
+  float freq[AMPC_MAX_F];
+};
+
+struct TreeAcc {
+  float slot[AMPC_TREE_SLOTS];
+
+  // Add the k-th term (k = number of terms pushed before it).
+  __device__ __forceinline__ void push(float v, int k) {
+    float carry = v;
+    bool go = true;
+#pragma unroll
+    for (int l = 0; l < AMPC_TREE_SLOTS; ++l) {
+      if (go) {
+        if ((k >> l) & 1) {
+          carry = slot[l] + carry;
+        } else {
+          slot[l] = carry;
+          go = false;
+        }
+      }
+    }
+  }
+
+  // Sum of the n terms pushed; 0 when n == 0.
+  __device__ __forceinline__ float total(int n) const {
+    float r = 0.f;
+    bool any = false;
+#pragma unroll
+    for (int l = 0; l < AMPC_TREE_SLOTS; ++l) {
+      if ((n >> l) & 1) {
+        r = any ? slot[l] + r : slot[l];
+        any = true;
+      }
+    }
+    return r;
+  }
+};
+
+// x^e for e >= 1 by binary exponentiation (lax.integer_pow's order).
+__device__ __forceinline__ float ampc_ipow(float x, int e) {
+  float acc = 1.f;
+  bool have = false;
+  while (e > 0) {
+    if (e & 1) {
+      acc = have ? acc * x : x;
+      have = true;
+    }
+    e >>= 1;
+    if (e) x = x * x;
+  }
+  return acc;
+}
+
+template <int D>
+__device__ __forceinline__ float ampc_select(const float (&z)[D], int c) {
+  float a = 0.f;
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+    if (i == c) a = z[i];
+  return a;
+}
+
+// Product of z_c^e_c over the term's monomial components other than
+// `skip`; returns false when there is none.
+template <int D>
+__device__ __forceinline__ bool ampc_monomial(const FeatTable& T, int k,
+                                              const float (&z)[D], int skip,
+                                              float& out) {
+  bool have = false;
+  float v = 1.f;
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    const int e = T.exps[k][c];
+    if (e > 0 && c != skip) {
+      const float p = ampc_ipow(z[c], e);
+      v = have ? v * p : p;
+      have = true;
+    }
+  }
+  out = v;
+  return have;
+}
+
+template <int D>
+__device__ __forceinline__ float ampc_term_value(const FeatTable& T, int k,
+                                                 const float (&z)[D]) {
+  float mono;
+  const bool hm = ampc_monomial<D>(T, k, z, -1, mono);
+  const int kind = T.kind[k];
+  if (kind == 0) return mono;
+  const float a = T.freq[k] * ampc_select<D>(z, T.comp[k]);
+  const float tv = (kind == 1) ? sinf(a) : cosf(a);
+  return hm ? mono * tv : tv;
+}
+
+// d(term k)/d(z_c) by the product rule; false where structurally zero.
+template <int D>
+__device__ __forceinline__ bool ampc_term_partial(const FeatTable& T, int k,
+                                                  int c, const float (&z)[D],
+                                                  float& g) {
+  const int e = T.exps[k][c];
+  const int kind = T.kind[k];
+  const bool trig_here = kind != 0 && T.comp[k] == c;
+  if (e == 0 && !trig_here) return false;
+  bool have = false;
+  float out = 0.f;
+  if (e > 0) {
+    float dm = (e == 1) ? 1.f : (float)e * ampc_ipow(z[c], e - 1);
+#pragma unroll
+    for (int c2 = 0; c2 < D; ++c2) {
+      const int e2 = T.exps[k][c2];
+      if (c2 != c && e2 > 0) dm = dm * ampc_ipow(z[c2], e2);
+    }
+    out = dm;
+    have = true;
+  }
+  if (kind != 0) {
+    const float f = T.freq[k];
+    const float a = f * ampc_select<D>(z, T.comp[k]);
+    const float s = sinf(a), co = cosf(a);
+    const float tv = (kind == 1) ? s : co;
+    if (have) out = out * tv;
+    if (trig_here) {
+      const float dtv = (kind == 1) ? f * co : (-f) * s;
+      float mono;
+      const bool hm = ampc_monomial<D>(T, k, z, -1, mono);
+      const float d2 = hm ? mono * dtv : dtv;
+      out = have ? out + d2 : d2;
+      have = true;
+    }
+  }
+  g = out;
+  return true;
+}
+
+// x'_i = sum_k coef[i][k] * term_k(z), i < DS (coef row-major (DS, n)).
+template <int DS, int D>
+__device__ __forceinline__ void ampc_dynamics(const FeatTable& T,
+                                              const float* coef,
+                                              const float (&z)[D],
+                                              float (&xn)[DS]) {
+  TreeAcc acc[DS];
+  const int n = T.n;
+  for (int k = 0; k < n; ++k) {
+    const float th = ampc_term_value<D>(T, k, z);
+#pragma unroll
+    for (int i = 0; i < DS; ++i) acc[i].push(coef[i * n + k] * th, k);
+  }
+#pragma unroll
+  for (int i = 0; i < DS; ++i) xn[i] = acc[i].total(n);
+}
+
+// Packed Jacobian rows at z: rows[i*D + dd] = d x'_i / d z_dd, summed
+// over the terms with a nonzero partial only (0 if none touches z_dd).
+template <int DS, int D>
+__device__ __forceinline__ void ampc_jac_rows(const FeatTable& T,
+                                              const float* coef,
+                                              const float (&z)[D],
+                                              float (&rows)[DS * D]) {
+  const int n = T.n;
+#pragma unroll
+  for (int dd = 0; dd < D; ++dd) {
+    TreeAcc acc[DS];
+    int cnt = 0;
+    for (int k = 0; k < n; ++k) {
+      float g;
+      if (ampc_term_partial<D>(T, k, dd, z, g)) {
+#pragma unroll
+        for (int i = 0; i < DS; ++i) acc[i].push(coef[i * n + k] * g, cnt);
+        ++cnt;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < DS; ++i) rows[i * D + dd] = acc[i].total(cnt);
+  }
+}
+
+// Block-wide copy of the (DS, n) coefficient plane into shared memory.
+__device__ __forceinline__ void ampc_load_coef(float* s_coef,
+                                               const float* coeffs, int count) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) s_coef[i] = coeffs[i];
+  __syncthreads();
+}

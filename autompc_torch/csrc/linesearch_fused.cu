@@ -1,0 +1,260 @@
+// K3: fused iLQR line search with acceptance, re-roll, relinearization and
+// carry select, lanes-last, dc=1, fixed diagonal quadratic cost.
+//
+// Replaces the Pallas TPU kernel autompc_tpu/ops/pallas_linesearch.py:
+// _fused_kernel, entry pallas_fused_line_search with ll_io=True,
+// carry=(act, old_jac), grad_terms and one shared (ds, F) coefficient
+// plane. Per lane:
+//   pass 1  rolls all L step sizes alpha_l through the feature-library
+//           dynamics, u = clip(alpha k + ubar + K (x - xbar)), and sums
+//           the objective dt * sum_t ((x-g)'Q(x-g) + R u^2) + (x_H-g)'F(x_H-g);
+//   accept  the reference rule: the first alpha whose expected-reduction
+//           ratio exceeds the threshold, else the strict-< argmin; a tiny
+//           ||k|| forces alpha index 0 and success; the lane fails when it
+//           did not succeed and its last objective worsens obj0 by > 1e-3;
+//   pass 2  re-rolls the chosen alpha, writes xs/us where the lane is
+//           active and did not fail, the packed Jacobians (relinearization
+//           fused into the re-roll) where it also succeeded, old values
+//           elsewhere, plus obj, success, failure and du2 = sum_t (u-ubar)^2.
+// Only the chosen trajectory ever reaches device memory.
+//
+// What bounds it on an H100: arithmetic, not bytes. Per lane and step
+// pass 1 evaluates the active terms (sinf/cosf) for each of the L
+// candidates; the lane's streams are ~10 floats in per step for pass 1
+// and ~50 in/out for pass 2. With one thread per lane and B = 16384 lanes
+// only 512 warps exist, so each SM runs a handful of warps and the long
+// dependent chain of 200 steps x L candidates sets the time. Design for
+// now (simple and right first): one thread holds all L candidate states
+// (L * ds floats) and objectives in registers through pass 1, so the
+// candidates never leave registers; lanes-last layout for coalesced
+// streams; coefficient plane in shared memory, term table in the
+// constant bank; 64-thread blocks to spread the warps over the SMs.
+// Splitting the candidates across threads is the obvious next step.
+#include "features.cuh"
+
+#define AMPC_MAX_L 10
+#define AMPC_MAX_OBS 8
+
+struct LSParams {
+  int L;
+  int obsdim;
+  float alphas[AMPC_MAX_L];
+  float umin, umax;
+  float qd[AMPC_MAX_OBS];  // diag Q
+  float rd;                // R (dc = 1)
+  float fd[AMPC_MAX_OBS];  // diag F
+  float goal[AMPC_MAX_OBS];
+  float dt;
+  float thresh;  // expected-reduction acceptance threshold
+};
+
+template <int DS>
+__device__ __forceinline__ float ls_control(const LSParams& P,
+                                            const float (&x)[DS],
+                                            const float (&xbar)[DS],
+                                            const float (&K)[DS], float ubar,
+                                            float kk, float alpha) {
+  TreeAcc fb;
+#pragma unroll
+  for (int i = 0; i < DS; ++i) fb.push(K[i] * (x[i] - xbar[i]), i);
+  const float u = alpha * kk + ubar + fb.total(DS);
+  return fminf(fmaxf(u, P.umin), P.umax);
+}
+
+// Balanced sum over the obs dims of w_i (x_i - g_i)^2.
+template <int DS>
+__device__ __forceinline__ float ls_quad_form(const LSParams& P,
+                                              const float (&x)[DS],
+                                              const float* w) {
+  TreeAcc acc;
+#pragma unroll
+  for (int i = 0; i < DS; ++i) {
+    if (i < P.obsdim) {
+      const float d = x[i] - P.goal[i];
+      acc.push(w[i] * d * d, i);
+    }
+  }
+  return acc.total(P.obsdim);
+}
+
+template <int DS>
+__global__ void fused_ls_kernel(
+    const __grid_constant__ FeatTable T, const __grid_constant__ LSParams P,
+    const float* __restrict__ coeffs, const float* __restrict__ x0T,
+    const float* __restrict__ xsT, const float* __restrict__ usT,
+    const float* __restrict__ KsT, const float* __restrict__ ksT,
+    const float* __restrict__ obj0_in, const float* __restrict__ lin_in,
+    const float* __restrict__ quad_in, const uint8_t* __restrict__ ks_small_in,
+    const uint8_t* __restrict__ act_in, const float* __restrict__ old_jac,
+    float* __restrict__ out_xs, float* __restrict__ out_us,
+    float* __restrict__ out_obj, uint8_t* __restrict__ out_succ,
+    uint8_t* __restrict__ out_fail, float* __restrict__ out_jac,
+    float* __restrict__ out_du2, int H, int B) {
+  constexpr int D = DS + 1;
+  __shared__ float s_coef[DS * AMPC_MAX_F];
+  ampc_load_coef(s_coef, coeffs, DS * T.n);
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int L = P.L;
+
+  float x0[DS];
+#pragma unroll
+  for (int i = 0; i < DS; ++i) x0[i] = x0T[(long long)i * B + b];
+
+  // ---- pass 1: every candidate step size, objective only -------------
+  float x[AMPC_MAX_L][DS], obj[AMPC_MAX_L];
+#pragma unroll
+  for (int l = 0; l < AMPC_MAX_L; ++l) {
+    obj[l] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DS; ++i) x[l][i] = x0[i];
+  }
+  for (int t = 0; t < H; ++t) {
+    float xbar[DS], K[DS];
+#pragma unroll
+    for (int i = 0; i < DS; ++i) {
+      xbar[i] = xsT[((long long)t * DS + i) * B + b];
+      K[i] = KsT[((long long)t * DS + i) * B + b];
+    }
+    const float ubar = usT[(long long)t * B + b];
+    const float kk = ksT[(long long)t * B + b];
+#pragma unroll
+    for (int l = 0; l < AMPC_MAX_L; ++l) {
+      if (l < L) {
+        const float u = ls_control<DS>(P, x[l], xbar, K, ubar, kk, P.alphas[l]);
+        const float oc = ls_quad_form<DS>(P, x[l], P.qd);
+        const float cc = P.rd * u * u;
+        obj[l] = obj[l] + P.dt * (oc + cc);
+        float z[D];
+#pragma unroll
+        for (int i = 0; i < DS; ++i) z[i] = x[l][i];
+        z[DS] = u;
+        ampc_dynamics<DS, D>(T, s_coef, z, x[l]);
+      }
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < AMPC_MAX_L; ++l)
+    if (l < L) obj[l] = obj[l] + ls_quad_form<DS>(P, x[l], P.fd);
+
+  // ---- acceptance -----------------------------------------------------
+  const float obj0 = obj0_in[b];
+  const float lin = lin_in[b];
+  const float quad = quad_in[b];
+  const bool ks_small = ks_small_in[b] != 0;
+  int first_acc = L;
+  int best = 0;
+  float best_val = obj[0];
+#pragma unroll
+  for (int l = AMPC_MAX_L - 1; l >= 0; --l) {
+    if (l < L) {
+      const float a = P.alphas[l];
+      const float expect = a * lin + (a * a) * quad * 0.5f;
+      const float denom = -expect;
+      const float ratio =
+          fabsf(denom) > 1e-30f ? (obj0 - obj[l]) / denom : -__int_as_float(0x7f800000);
+      if (ratio > P.thresh) first_acc = l;
+    }
+  }
+#pragma unroll
+  for (int l = 1; l < AMPC_MAX_L; ++l) {
+    if (l < L && obj[l] < best_val) {
+      best = l;
+      best_val = obj[l];
+    }
+  }
+  const bool any_acc = first_acc < L;
+  const int chosen = ks_small ? 0 : (any_acc ? first_acc : best);
+  const int idx_last = ks_small ? 0 : (any_acc ? first_acc : L - 1);
+  float chosen_obj = obj[0], last_obj = obj[0], alpha_chosen = P.alphas[0],
+        alpha_last = P.alphas[0];
+#pragma unroll
+  for (int l = 1; l < AMPC_MAX_L; ++l) {
+    if (l == chosen) {
+      chosen_obj = obj[l];
+      alpha_chosen = P.alphas[l];
+    }
+    if (l == idx_last) {
+      last_obj = obj[l];
+      alpha_last = P.alphas[l];
+    }
+  }
+  const bool success = (chosen_obj < obj0) || ks_small;
+  const bool failed = !success && (last_obj > obj0 + 1e-3f);
+  const float new_obj = success ? chosen_obj : last_obj;
+  const float a_sel = success ? alpha_chosen : alpha_last;
+
+  const bool act = act_in[b] != 0;
+  const bool traj_mask = act && !failed;
+  const bool jac_mask = traj_mask && success;
+  out_obj[b] = traj_mask ? new_obj : obj0;
+  out_succ[b] = success ? 1 : 0;
+  out_fail[b] = failed ? 1 : 0;
+
+  // ---- pass 2: re-roll the chosen step size ---------------------------
+  float x2[DS];
+#pragma unroll
+  for (int i = 0; i < DS; ++i) {
+    x2[i] = x0[i];
+    const long long o = (long long)i * B + b;
+    out_xs[o] = traj_mask ? x0[i] : xsT[o];
+  }
+  float du2 = 0.f;
+  for (int t = 0; t < H; ++t) {
+    float xbar[DS], K[DS];
+#pragma unroll
+    for (int i = 0; i < DS; ++i) {
+      xbar[i] = xsT[((long long)t * DS + i) * B + b];
+      K[i] = KsT[((long long)t * DS + i) * B + b];
+    }
+    const long long ot = (long long)t * B + b;
+    const float ubar = usT[ot];
+    const float u = ls_control<DS>(P, x2, xbar, K, ubar, ksT[ot], a_sel);
+    float z[D];
+#pragma unroll
+    for (int i = 0; i < DS; ++i) z[i] = x2[i];
+    z[DS] = u;
+    float xn[DS];
+    ampc_dynamics<DS, D>(T, s_coef, z, xn);
+#pragma unroll
+    for (int i = 0; i < DS; ++i) {
+      const long long o = ((long long)(t + 1) * DS + i) * B + b;
+      out_xs[o] = traj_mask ? xn[i] : xsT[o];
+    }
+    const float du = u - ubar;
+    du2 = du2 + du * du;
+    out_us[ot] = traj_mask ? u : ubar;
+    float rows[DS * D];
+    ampc_jac_rows<DS, D>(T, s_coef, z, rows);
+#pragma unroll
+    for (int r = 0; r < DS * D; ++r) {
+      const long long o = ((long long)t * DS * D + r) * B + b;
+      out_jac[o] = jac_mask ? rows[r] : old_jac[o];
+    }
+#pragma unroll
+    for (int i = 0; i < DS; ++i) x2[i] = xn[i];
+  }
+  out_du2[b] = du2;
+}
+
+extern "C" int ampc_fused_line_search(
+    const FeatTable* T, const LSParams* P, const float* coeffs,
+    const float* x0T, const float* xsT, const float* usT, const float* KsT,
+    const float* ksT, const float* obj0, const float* lin, const float* quad,
+    const uint8_t* ks_small, const uint8_t* act, const float* old_jac,
+    float* out_xs, float* out_us, float* out_obj, uint8_t* out_succ,
+    uint8_t* out_fail, float* out_jac, float* out_du2, int ds, int H, int B,
+    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (ds != 4 || T->d != ds + 1 || T->n < 1 || T->n > AMPC_MAX_F ||
+      P->L < 1 || P->L > AMPC_MAX_L || P->obsdim < 1 || P->obsdim > ds)
+    return (int)cudaErrorInvalidValue;
+  const int threads = 64;
+  const unsigned blocks = (unsigned)((B + threads - 1) / threads);
+  fused_ls_kernel<4><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      *T, *P, coeffs, x0T, xsT, usT, KsT, ksT, obj0, lin, quad, ks_small, act,
+      old_jac, out_xs, out_us, out_obj, out_succ, out_fail, out_jac, out_du2,
+      H, B);
+  return (int)cudaGetLastError();
+}

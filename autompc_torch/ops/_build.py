@@ -1,0 +1,240 @@
+"""Build, load and call the hand-written CUDA kernels.
+
+All sources under ``autompc_torch/csrc/`` compile with ``nvcc`` into one
+shared library with a plain C interface (no PyTorch headers, so the
+build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o _build/libautompc_kernels_<hash>.so
+         csrc/*.cu
+
+The library is built at first use, into ``autompc_torch/_build/`` under
+a name keyed by the hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads. No fast-math flag: the line
+search's acceptance test is knife-edge (ROADMAP §C), so the kernels keep
+IEEE division and the accurate ``sinf``/``cosf``. The compiler's
+``-Xptxas -v`` report (registers, spills) lands beside the library in a
+``.log`` file.
+
+The ctypes mirrors of the C parameter structs and the checks every
+wrapper applies to a CUDA tensor live here too.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+# Compile-time limits of csrc/ (features.cuh, riccati_quad.cu,
+# linesearch_fused.cu); the wrappers raise before a call would exceed them.
+MAX_F = 64
+MAX_D = 8
+MAX_OBS = 8
+MAX_L = 10
+KERNEL_DS = (4,)
+
+
+class FeatTable(ctypes.Structure):
+    _fields_ = [
+        ("n", ctypes.c_int),
+        ("d", ctypes.c_int),
+        ("exps", (ctypes.c_int8 * MAX_D) * MAX_F),
+        ("kind", ctypes.c_int8 * MAX_F),
+        ("comp", ctypes.c_int8 * MAX_F),
+        ("freq", ctypes.c_float * MAX_F),
+    ]
+
+
+class QuadDiag(ctypes.Structure):
+    _fields_ = [
+        ("obsdim", ctypes.c_int),
+        ("two_dt", ctypes.c_float),
+        ("qd", ctypes.c_float * MAX_OBS),
+        ("rd", ctypes.c_float),
+        ("fd", ctypes.c_float * MAX_OBS),
+        ("goal", ctypes.c_float * MAX_OBS),
+    ]
+
+
+class LSParams(ctypes.Structure):
+    _fields_ = [
+        ("L", ctypes.c_int),
+        ("obsdim", ctypes.c_int),
+        ("alphas", ctypes.c_float * MAX_L),
+        ("umin", ctypes.c_float),
+        ("umax", ctypes.c_float),
+        ("qd", ctypes.c_float * MAX_OBS),
+        ("rd", ctypes.c_float),
+        ("fd", ctypes.c_float * MAX_OBS),
+        ("goal", ctypes.c_float * MAX_OBS),
+        ("dt", ctypes.c_float),
+        ("thresh", ctypes.c_float),
+    ]
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "ampc_relin_jacobians": (
+        [ctypes.POINTER(FeatTable), _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    ),
+    "ampc_backward_quad_ll": (
+        [ctypes.POINTER(QuadDiag)] + [_P] * 10 + [_I, _I, _I, _I, _P]
+    ),
+    "ampc_fused_line_search": (
+        [ctypes.POINTER(FeatTable), ctypes.POINTER(LSParams)]
+        + [_P] * 19 + [_I, _I, _I, _I, _P]
+    ),
+}
+
+
+def sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def source_digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libautompc_kernels_{source_digest()}.so"
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else under ``$CUDA_HOME``
+    (default /usr/local/cuda)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+        "autompc_torch are built from source at first use on a machine "
+        "with the CUDA toolkit"
+    )
+
+
+def build() -> Path:
+    """Compile every source into the library (atomic rename into
+    place) and return its path."""
+    out = library_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp] + [
+        str(p) for p in sources() if p.suffix == ".cu"
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def build_log() -> str:
+    p = library_path().with_suffix(".log")
+    return p.read_text() if p.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its sources changed."""
+    path = library_path()
+    if not path.exists():
+        build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def feat_table(terms) -> FeatTable:
+    """The C table of the (active) term descriptors ``terms`` (a tuple
+    of sysid.basis.TermDesc). Cached per tuple; treat as read-only."""
+    if not 1 <= len(terms) <= MAX_F:
+        raise ValueError(f"kernels take 1..{MAX_F} active terms, got {len(terms)}")
+    d = len(terms[0].exps)
+    if d > MAX_D:
+        raise ValueError(f"kernels take at most {MAX_D} inputs, got {d}")
+    tab = FeatTable()
+    tab.n, tab.d = len(terms), d
+    kinds = {"": 0, "sin": 1, "cos": 2}
+    for k, t in enumerate(terms):
+        for c, e in enumerate(t.exps):
+            tab.exps[k][c] = int(e)
+        tab.kind[k] = kinds[t.trig]
+        tab.comp[k] = max(int(t.trig_comp), 0)
+        tab.freq[k] = float(t.freq)
+    return tab
+
+
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda(name: str, t: torch.Tensor, shape, dtype, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
+    on ``device``."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def check_rc(name: str, rc: int):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def device_kind(t: torch.Tensor) -> str:
+    """"cpu" (plain PyTorch twin) or "cuda" (the kernel); anything else
+    raises."""
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(
+            f"tensors on {t.device}: the kernel wrappers take CPU tensors "
+            "(plain PyTorch twin) or CUDA tensors (the CUDA kernel)"
+        )
+    return kind

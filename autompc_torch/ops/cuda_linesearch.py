@@ -1,0 +1,224 @@
+"""K3: fused iLQR line search (port of
+``autompc_tpu/ops/pallas_linesearch.py``'s ``pallas_fused_line_search``
+with ``ll_io=True``, ``carry=(act, old_jac)``, ``grad_terms`` and shared
+coefficients; kernel in ``csrc/linesearch_fused.cu``).
+
+One call rolls all L step sizes through the feature-library dynamics,
+sums the quadratic objective, applies the reference acceptance rule,
+re-rolls the chosen step, relinearizes along it and applies the iLQR
+carry select. Inputs and outputs are lanes-last and dc = 1; the cost is
+a fixed diagonal QuadCost given as host sequences. The unfused, wide
+and per-lane variants of the TPU module are not ported yet
+(ROADMAP.md §B).
+
+A CPU tensor takes the plain PyTorch twin ``fused_line_search_plain``;
+a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..sysid.basis import feature_dynamics, feature_jacobian_rows, tree_sum
+from . import _build
+
+
+def _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, qd, fd, goal, act, old_jac):
+    Hp1, ds, B = xsT.shape
+    H = Hp1 - 1
+    want = {
+        "x0T": (x0T, (ds, B)), "usT": (usT, (H, B)), "KsT": (KsT, (H, ds, B)),
+        "ksT": (ksT, (H, B)), "coeffs": (coeffs, (ds, len(terms))),
+        "act": (act, (B,)), "old_jac": (old_jac, (H, ds * (ds + 1), B)),
+    }
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if len(terms[0].exps) != ds + 1:
+        raise ValueError(
+            f"terms take {len(terms[0].exps)} inputs, expected ds + 1 = {ds + 1}"
+        )
+    obsdim = len(qd)
+    if not 1 <= obsdim <= ds or len(fd) != obsdim or len(goal) != obsdim:
+        raise ValueError("qd/fd/goal must share one length obsdim <= ds")
+    if not 1 <= len(alphas) <= _build.MAX_L:
+        raise ValueError(f"1..{_build.MAX_L} step sizes supported, got {len(alphas)}")
+    return H, ds, B, obsdim
+
+
+def _consts(like, alphas, qd, rd, fd, goal, dt):
+    def c(v):
+        return torch.tensor(float(v), dtype=like.dtype, device=like.device)
+
+    return (
+        torch.tensor([float(a) for a in alphas], dtype=like.dtype,
+                     device=like.device)[:, None],
+        [c(v) for v in qd], c(rd[0]), [c(v) for v in fd], [c(v) for v in goal],
+        c(dt),
+    )
+
+
+def _controls(x, xbar, K, ubar, k, alpha, umin, umax):
+    fb = tree_sum([K[i] * (x[i] - xbar[i]) for i in range(len(x))])
+    return torch.clamp(alpha * k + ubar + fb, umin, umax)
+
+
+def _quad_form(w, x, goal):
+    return tree_sum([w[i] * (x[i] - goal[i]) * (x[i] - goal[i]) for i in range(len(w))])
+
+
+def line_search_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
+                           umin, umax, qd, rd, fd, goal, dt):
+    """Pass 1 of the plain twin: the objective of every candidate step
+    size, (L, B)."""
+    H, ds = usT.shape[0], xsT.shape[1]
+    a_col, qdv, rdv, fdv, gl, dtv = _consts(xsT, alphas, qd, rd, fd, goal, dt)
+    x = [x0T[i][None, :].expand(len(alphas), -1) for i in range(ds)]
+    obj = xsT.new_zeros((len(alphas), xsT.shape[2]))
+    for t in range(H):
+        xbar = [xsT[t, i][None, :] for i in range(ds)]
+        K = [KsT[t, i][None, :] for i in range(ds)]
+        u = _controls(x, xbar, K, usT[t][None, :], ksT[t][None, :], a_col, umin, umax)
+        oc = _quad_form(qdv, x, gl)
+        cc = rdv * u * u
+        obj = obj + dtv * (oc + cc)
+        x = feature_dynamics(terms, coeffs, x + [u], ds)
+    return obj + _quad_form(fdv, x, gl)
+
+
+def fused_line_search_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
+                            umin, umax, qd, rd, fd, goal, dt, obj0, lin_red,
+                            quad_red, ks_small, act, old_jac,
+                            ls_cost_threshold=0.3):
+    """Plain PyTorch twin of the kernel (same math, same summation
+    order; the JAX kernel's acceptance rule line for line)."""
+    H, ds, B, obsdim = _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
+                               qd, fd, goal, act, old_jac)
+    L = len(alphas)
+    objs = line_search_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs,
+                                  alphas, umin, umax, qd, rd, fd, goal, dt)
+    a_col = _consts(xsT, alphas, qd, rd, fd, goal, dt)[0][:, 0]
+
+    # ---- acceptance (pallas_linesearch.py:_fused_kernel) -------------
+    accept = []
+    for l in range(L):
+        expect = a_col[l] * lin_red + (a_col[l] ** 2) * quad_red * 0.5
+        denom = -expect
+        ratio = torch.where(
+            denom.abs() > 1e-30, (obj0 - objs[l]) / denom,
+            torch.full_like(denom, -float("inf")),
+        )
+        accept.append(ratio > ls_cost_threshold)
+    any_acc = torch.stack(accept).any(0)
+    first_acc = torch.full((B,), L, dtype=torch.long, device=xsT.device)
+    for l in range(L - 1, -1, -1):
+        first_acc = torch.where(accept[l], l, first_acc)
+    best_idx = torch.zeros((B,), dtype=torch.long, device=xsT.device)
+    best_val = objs[0]
+    for l in range(1, L):
+        better = objs[l] < best_val
+        best_idx = torch.where(better, l, best_idx)
+        best_val = torch.where(better, objs[l], best_val)
+    chosen = torch.where(ks_small, 0, torch.where(any_acc, first_acc, best_idx))
+    idx_last = torch.where(ks_small, 0, torch.where(any_acc, first_acc, L - 1))
+    chosen_obj = objs.gather(0, chosen[None])[0]
+    last_obj = objs.gather(0, idx_last[None])[0]
+    success = (chosen_obj < obj0) | ks_small
+    failed = ~success & (last_obj > obj0 + 1e-3)
+    sel = torch.where(success, chosen, idx_last)
+    new_obj = torch.where(success, chosen_obj, last_obj)
+    a_sel = a_col[sel]
+    traj_mask = act & ~failed
+    jac_mask = traj_mask & success
+
+    # ---- pass 2: re-roll the chosen step size ------------------------
+    out_xs = torch.empty_like(xsT)
+    out_us = torch.empty_like(usT)
+    out_jac = torch.empty_like(old_jac)
+    x = [x0T[i] for i in range(ds)]
+    out_xs[0] = torch.where(traj_mask, x0T, xsT[0])
+    du2 = xsT.new_zeros((B,))
+    for t in range(H):
+        xbar = [xsT[t, i] for i in range(ds)]
+        K = [KsT[t, i] for i in range(ds)]
+        u = _controls(x, xbar, K, usT[t], ksT[t], a_sel, umin, umax)
+        z = x + [u]
+        xn = feature_dynamics(terms, coeffs, z, ds)
+        out_xs[t + 1] = torch.where(traj_mask, torch.stack(xn), xsT[t + 1])
+        du2 = du2 + (u - usT[t]) ** 2
+        out_us[t] = torch.where(traj_mask, u, usT[t])
+        rows = torch.stack(feature_jacobian_rows(terms, coeffs, z, ds))
+        out_jac[t] = torch.where(jac_mask, rows, old_jac[t])
+        x = xn
+    new_obj = torch.where(traj_mask, new_obj, obj0)
+    return out_xs, out_us, new_obj, success, failed, out_jac, du2
+
+
+def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
+                      umin, umax, qd, rd, fd, goal, dt, obj0, lin_red,
+                      quad_red, ks_small, act, old_jac,
+                      ls_cost_threshold=0.3):
+    """Fused line search + acceptance + re-roll + relinearization +
+    carry select.
+
+    terms: tuple of active ``TermDesc``; x0T (ds, B); xsT (H+1, ds, B);
+    usT (H, B); KsT (H, ds, B); ksT (H, B); coeffs (ds, len(terms));
+    alphas, qd/fd/goal (obsdim,), rd (1,): host sequences; umin/umax,
+    dt: floats; obj0/lin_red/quad_red (B,); ks_small/act (B,) bool;
+    old_jac (H, ds*(ds+1), B).
+
+    Returns (xsT, usT, obj, success, failed, jac_p, du2) — the next
+    carry values: active lanes that did not fail take the re-rolled
+    trajectory, those that also succeeded take its Jacobians."""
+    if _build.device_kind(xsT) == "cpu":
+        return fused_line_search_plain(
+            terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax, qd,
+            rd, fd, goal, dt, obj0, lin_red, quad_red, ks_small, act, old_jac,
+            ls_cost_threshold,
+        )
+    H, ds, B, obsdim = _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
+                               qd, fd, goal, act, old_jac)
+    if ds not in _build.KERNEL_DS:
+        raise ValueError(f"line-search kernel is built for ds in {_build.KERNEL_DS}, got {ds}")
+    dev, f32, b8 = xsT.device, torch.float32, torch.bool
+    dsd = ds * (ds + 1)
+    for name, t, shape, dt_ in (
+        ("x0T", x0T, (ds, B), f32), ("xsT", xsT, (H + 1, ds, B), f32),
+        ("usT", usT, (H, B), f32), ("KsT", KsT, (H, ds, B), f32),
+        ("ksT", ksT, (H, B), f32), ("coeffs", coeffs, (ds, len(terms)), f32),
+        ("obj0", obj0, (B,), f32), ("lin_red", lin_red, (B,), f32),
+        ("quad_red", quad_red, (B,), f32), ("ks_small", ks_small, (B,), b8),
+        ("act", act, (B,), b8), ("old_jac", old_jac, (H, dsd, B), f32),
+    ):
+        _build.check_cuda(name, t, shape, dt_, dev)
+    P = _build.LSParams()
+    P.L, P.obsdim = len(alphas), obsdim
+    for l, a in enumerate(alphas):
+        P.alphas[l] = float(a)
+    P.umin, P.umax, P.rd = float(umin), float(umax), float(rd[0])
+    for i in range(obsdim):
+        P.qd[i], P.fd[i], P.goal[i] = float(qd[i]), float(fd[i]), float(goal[i])
+    P.dt, P.thresh = float(dt), float(ls_cost_threshold)
+    out_xs = torch.empty((H + 1, ds, B), dtype=f32, device=dev)
+    out_us = torch.empty((H, B), dtype=f32, device=dev)
+    out_obj = torch.empty((B,), dtype=f32, device=dev)
+    succ = torch.empty((B,), dtype=b8, device=dev)
+    fail = torch.empty((B,), dtype=b8, device=dev)
+    out_jac = torch.empty((H, dsd, B), dtype=f32, device=dev)
+    du2 = torch.empty((B,), dtype=f32, device=dev)
+    p = _build.ptr
+    rc = _build.library().ampc_fused_line_search(
+        ctypes.byref(_build.feat_table(tuple(terms))), ctypes.byref(P),
+        p(coeffs), p(x0T), p(xsT), p(usT), p(KsT), p(ksT), p(obj0), p(lin_red),
+        p(quad_red), p(ks_small), p(act), p(old_jac), p(out_xs), p(out_us),
+        p(out_obj), p(succ), p(fail), p(out_jac), p(du2),
+        ds, H, B, dev.index or 0, _build.stream_of(xsT),
+    )
+    _build.check_rc("fused_line_search", rc)
+    fused_line_search.launches += 1
+    return out_xs, out_us, out_obj, succ, fail, out_jac, du2
+
+
+fused_line_search.launches = 0
