@@ -10,6 +10,9 @@ Numeric policy, kept in this one place:
 
 * float64 on the CPU (the parity tests against the JAX package, which
   run it under x64) and float32 on CUDA (the kernels' working type);
+* entry points that create tensors (data generation, the models) run on
+  the card unless the caller passes ``device`` (``resolve_device``);
+  the solvers run where their input tensors lie;
 * TF32 off for every float32 matmul and convolution on the card — a
   reduced-precision product drifts the Riccati recursion and the
   knife-edge line-search acceptance (ROADMAP §C).
@@ -33,6 +36,19 @@ def default_dtype(device) -> torch.dtype:
     return torch.float64 if torch.device(device).type == "cpu" else torch.float32
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card (``cuda:0``) unless
+    the caller names one. Raises when no device is named and there is
+    no card — nothing falls back to the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda", 0)
+
+
 __all__ = [
     "System",
     "Task",
@@ -41,4 +57,5 @@ __all__ = [
     "TrajectoryBatch",
     "batch",
     "default_dtype",
+    "resolve_device",
 ]

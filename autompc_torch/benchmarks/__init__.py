@@ -1,2 +1,3 @@
 from .benchmark import Benchmark
 from .cartpole import CartpoleSwingupBenchmark
+from .halfcheetah import HalfcheetahBenchmark

@@ -24,6 +24,7 @@ class Benchmark(ABC):
         raise NotImplementedError
 
     @abstractmethod
-    def gen_trajs_batch(self, seed, n_trajs, traj_len=None, device="cpu"):
-        """Generate a training set as a TrajectoryBatch on ``device``."""
+    def gen_trajs_batch(self, seed, n_trajs, traj_len=None, device=None):
+        """Generate a training set as a TrajectoryBatch on ``device``
+        (None: the card)."""
         raise NotImplementedError

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..core.system import System
 from ..core.task import Task
 from ..costs import ThresholdCost
@@ -63,8 +64,8 @@ class CartpoleSwingupBenchmark(Benchmark):
     def dynamics(self, x, u):
         return dt_cartpole_dynamics(x, u, self.system.dt, g=9.8, m=1, L=1, b=1.0)
 
-    def gen_trajs_batch(self, seed, n_trajs, traj_len=200, device="cpu"):
-        rng = torch.Generator(device=device).manual_seed(int(seed))
+    def gen_trajs_batch(self, seed, n_trajs, traj_len=200, device=None):
+        rng = torch.Generator(device=resolve_device(device)).manual_seed(int(seed))
         return dg.uniform_random_generate_batch(
             system=self.system, task=self.task, dynamics=self.dynamics,
             rng=rng, init_min=np.array([-1.0, 0.0, 0.0, 0.0]),

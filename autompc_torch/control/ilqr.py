@@ -1,6 +1,6 @@
 """Batched iterative LQR with converged-lane compaction (port of
-``autompc_tpu/control/ilqr.py``: the lanes-last fused path of
-``make_batched_ilqr_solver`` and ``make_scheduled_ilqr_solver``).
+``autompc_tpu/control/ilqr.py``: ``make_batched_ilqr_solver`` and
+``make_scheduled_ilqr_solver``).
 
 Semantics are the JAX package's: dt-scaled stage expansions, the Riccati
 backward pass, ``alpha = ls_discount**i`` line search with the
@@ -8,19 +8,32 @@ expected-reduction acceptance test, Jacobians relinearized only after a
 successful line search, a lane fails when its objective worsens by more
 than 1e-3, and converges when ``||u_new - u_old|| < u_threshold``.
 
-The carry stays in the kernels' lanes-last layout for the whole solve —
-xs (H+1, ds, B), us (H, B), gains (H, ds, B)/(H, B) and the packed
-Jacobian plane jac (H, ds*(ds+1), B) — packed once at entry and unpacked
-once by ``finalize``. Each iteration is two kernel launches
+Two bodies of the iteration are ported.
+
+``lanes_last=True`` — dc = 1, a fixed diagonal QuadCost, a
+linear-in-features model (``feature_spec``), ``fuse_ls=True``. The carry
+stays in the kernels' lanes-last layout for the whole solve — xs
+(H+1, ds, B), us (H, B), gains (H, ds, B)/(H, B) and the packed Jacobian
+plane jac (H, ds*(ds+1), B) — packed once at entry and unpacked once by
+``finalize``. Each iteration is two kernel launches
 (``ops/cuda_riccati.py`` and ``ops/cuda_linesearch.py``, which applies
-the carry select itself) plus a few lane-vector ops, and the loop reads
-the active-lane count on the host once per iteration; the entry
+the carry select itself) plus a few lane-vector ops; the entry
 relinearization is ``ops/cuda_relin.py``.
 
-Only that path is ported: dc = 1, a fixed diagonal QuadCost, a
-linear-in-features model (``feature_spec``), ``lanes_last=True``,
-``fuse_ls=True``. Every other option of the JAX solver raises
-``ValueError`` naming it.
+``lanes_last=False`` — the batch-major body: any (ds, dc), any cost with
+``eval_*_cost_hess``, a model with a closed-form Jacobian
+(``pred_diff``). The carry is batch-major: xs (B, H+1, ds), us
+(B, H, dc), Jx (B, H, ds, ds), Ju (B, H, ds, dc), gains (B, H, dc, ds)/
+(B, H, dc). Each iteration builds the dense stage expansions, runs the
+backward pass (``backward="pallas"``: the kernel of
+``ops/cuda_riccati_general.py``; ``"scan"``: ``ops/riccati.py``), rolls
+out every step size (``mlp_ls`` set: the kernel of
+``ops/cuda_mlp_linesearch.py``; unset: a batched loop over H through
+``pred_core``), applies the acceptance rule in tensor ops and
+relinearizes the chosen trajectory with ``pred_diff``.
+
+Both loops read the active-lane count on the host once per iteration.
+Every other option of the JAX solver raises ``ValueError`` naming it.
 """
 
 from __future__ import annotations
@@ -29,8 +42,11 @@ import numpy as np
 import torch
 
 from ..ops.cuda_linesearch import fused_line_search
+from ..ops.cuda_mlp_linesearch import fold_mlp_params, mlp_line_search
 from ..ops.cuda_relin import relin_jacobians
 from ..ops.cuda_riccati import backward_quad_ll
+from ..ops.cuda_riccati_general import riccati_general
+from ..ops.riccati import tvlqr_backward_scan
 
 
 def _unsupported(name, why="is not ported to autompc_torch yet"):
@@ -72,6 +88,7 @@ def make_batched_ilqr_solver(
     ls_cost_threshold: float = 0.3,
     backward: str = "pallas",
     feature_spec=None,
+    analytic_jac: bool = False,
     relin: str = "auto",
     feature_mask=None,
     fuse_ls: bool = False,
@@ -80,6 +97,7 @@ def make_batched_ilqr_solver(
     quad_cost_batch: bool = False,
     batch_params: bool = False,
     reg_matrix=None,
+    pred_diff=None,
     mlp_ls=None,
     ls_wide: bool = False,
     jac_dtype: str = "f32",
@@ -90,27 +108,34 @@ def make_batched_ilqr_solver(
     (B, H, dc)) -> (converged (B,), xs (B, H+1, ds), us (B, H, dc),
     Ks (B, H, dc, ds), ks (B, H, dc))`` on the device of ``x0s``.
 
-    ``params`` is the model's parameter dict; ``feature_spec =
-    (library, coeffs_key)`` names the linear-in-features model behind
+    ``params`` is the model's parameter dict. ``backward="pallas"``
+    keeps the JAX package's name for the kernel backward pass (here a
+    CUDA kernel); ``"scan"`` (batch-major body only) is the plain
+    recursion. ``return_pieces=True`` also returns ``(make_carry0,
+    cond, make_body)`` for callers that run the iteration themselves.
+
+    Lanes-last body (``lanes_last=True``): ``feature_spec = (library,
+    coeffs_key)`` names the linear-in-features model behind
     ``pred_core`` (``x' = params[coeffs_key] @ library(z)``).
     ``feature_mask`` (bool sequence or tuple of active feature indices)
     restricts the kernels to the features whose coefficient columns are
     nonzero; the solve is then only correct for such coefficients.
-    ``backward="pallas"`` keeps the JAX package's name for the kernel
-    backward pass (here the CUDA kernel). ``return_pieces=True`` also
-    returns ``(make_carry0, cond, make_body)`` for callers that run the
-    iteration themselves.
+
+    Batch-major body (``lanes_last=False``): ``pred_diff(params, x, u)
+    -> (pred, Jx, Ju)`` is the model's closed-form Jacobian, batched
+    over every leading axis (``MLP.pred_diff_core``). ``mlp_ls`` — a
+    dict with ``nonlin`` (required), ``layout`` and ``precision`` —
+    routes the line-search rollouts through the MLP kernel; ``params``
+    must then be an MLP's. The kernel computes in true float32, so
+    ``precision`` must be "highest"; ``layout``, ``block_b`` and
+    ``interpret`` are choices of the TPU kernel and are ignored.
     """
-    if dc != 1:
-        raise _unsupported("dc > 1")
-    if not lanes_last:
-        raise _unsupported("the batch-major body (lanes_last=False)")
     for name, on in (
         ("horizon_mask", horizon_mask), ("pad_to", pad_to is not None),
         ("batch_params", batch_params),
         ("per-lane costs (quad_cost_batch)", quad_cost_batch),
-        ("reg_matrix", reg_matrix is not None), ("mlp_ls", mlp_ls is not None),
-        ("ls_wide", ls_wide),
+        ("reg_matrix", reg_matrix is not None), ("ls_wide", ls_wide),
+        ("analytic_jac", analytic_jac),
     ):
         if on:
             raise _unsupported(name)
@@ -118,111 +143,303 @@ def make_batched_ilqr_solver(
         raise _unsupported("jac_dtype='bf16'")
     if jac_dtype != "f32":
         raise ValueError(f"jac_dtype must be f32/bf16, got {jac_dtype!r}")
-    if backward != "pallas":
-        raise _unsupported(f"backward={backward!r}")
     if relin not in ("auto", "pallas"):
         raise _unsupported(f"relin={relin!r}")
-    fixed_diag = _fixed_diag(cost, obsdim)
-    if not (fuse_ls and feature_spec is not None and fixed_diag is not None):
-        raise ValueError(
-            "lanes_last=True requires the fully-fused dc=1 "
-            "diagonal-quadratic path: fuse_ls=True, a feature_spec, and a "
-            f"diagonal QuadCost; got fuse_ls={fuse_ls}, feature_spec="
-            f"{'set' if feature_spec is not None else 'None'}, "
-            f"diagonal_cost={fixed_diag is not None}"
-        )
-
-    library, coeffs_key = feature_spec
-    if feature_mask is not None:
-        fm = tuple(feature_mask)
-        if all(isinstance(b, (bool, np.bool_)) for b in fm):
-            active_idx = tuple(i for i, b in enumerate(fm) if b)
-        else:
-            active_idx = tuple(int(i) for i in fm)
-        if not active_idx:
-            raise ValueError("feature_mask masks out every feature")
-    else:
-        active_idx = tuple(range(library.n_features))
-    terms = tuple(library.terms[k] for k in active_idx)
-    qd, rd, fd, goal = fixed_diag
     if ubounds is not None:
-        umin = float(np.asarray(ubounds[0], dtype=float).reshape(-1)[0])
-        umax = float(np.asarray(ubounds[1], dtype=float).reshape(-1)[0])
+        umin = np.asarray(ubounds[0], dtype=float).reshape(-1)
+        umax = np.asarray(ubounds[1], dtype=float).reshape(-1)
     else:
-        umin, umax = -float("inf"), float("inf")
+        umin, umax = np.full(dc, -np.inf), np.full(dc, np.inf)
     alphas = tuple(ls_discount ** k for k in range(ls_max_iter))
-
-    def active_coeffs(params):
-        c = params[coeffs_key]
-        return c[:, list(active_idx)].contiguous()
+    fixed_diag = _fixed_diag(cost, obsdim)
 
     def eval_obj(xs, us):
-        oc = cost.eval_obs_cost(xs[:, :H, :obsdim]).sum(-1)
+        """Objective of trajectories xs (..., H+1, ds), us (..., H, dc)."""
+        oc = cost.eval_obs_cost(xs[..., :H, :obsdim]).sum(-1)
         cc = cost.eval_ctrl_cost(us).sum(-1)
-        return dt * (oc + cc) + cost.eval_term_obs_cost(xs[:, H, :obsdim])
-
-    def make_carry0(params, x0s, uguess):
-        B = x0s.shape[0]
-        xs = [x0s]
-        for t in range(H):
-            xs.append(pred_core(params, xs[-1], uguess[:, t]))
-        xs0 = torch.stack(xs, dim=1)                          # (B, H+1, ds)
-        xsT = xs0.permute(1, 2, 0).contiguous()
-        usT = uguess[:, :, 0].T.contiguous()
-        jac = relin_jacobians(terms, xsT, usT, active_coeffs(params))
-        return dict(
-            x0s=x0s.T.contiguous(), xs=xsT, us=usT, jac=jac,
-            obj=eval_obj(xs0, uguess),
-            Ks=x0s.new_zeros((H, ds, B)), ks=x0s.new_zeros((H, B)),
-            itr=0,
-            converged=torch.zeros(B, dtype=torch.bool, device=x0s.device),
-            failed=torch.zeros(B, dtype=torch.bool, device=x0s.device),
-        )
+        return dt * (oc + cc) + cost.eval_term_obs_cost(xs[..., H, :obsdim])
 
     def cond(c):
         if c["itr"] >= max_iter:
             return False
         return bool((~c["converged"] & ~c["failed"]).any())
 
-    def make_body(params):
-        coeffs = active_coeffs(params)
+    def lanes_last_pieces():
+        if dc != 1:
+            raise _unsupported("dc > 1 with lanes_last=True")
+        if mlp_ls is not None:
+            raise ValueError("mlp_ls needs the batch-major body (lanes_last=False)")
+        if backward != "pallas":
+            raise _unsupported(f"backward={backward!r} with lanes_last=True")
+        if not (fuse_ls and feature_spec is not None and fixed_diag is not None):
+            raise ValueError(
+                "lanes_last=True requires the fully-fused dc=1 "
+                "diagonal-quadratic path: fuse_ls=True, a feature_spec, and a "
+                f"diagonal QuadCost; got fuse_ls={fuse_ls}, feature_spec="
+                f"{'set' if feature_spec is not None else 'None'}, "
+                f"diagonal_cost={fixed_diag is not None}"
+            )
+        library, coeffs_key = feature_spec
+        if feature_mask is not None:
+            fm = tuple(feature_mask)
+            if all(isinstance(b, (bool, np.bool_)) for b in fm):
+                active_idx = tuple(i for i, b in enumerate(fm) if b)
+            else:
+                active_idx = tuple(int(i) for i in fm)
+            if not active_idx:
+                raise ValueError("feature_mask masks out every feature")
+        else:
+            active_idx = tuple(range(library.n_features))
+        terms = tuple(library.terms[k] for k in active_idx)
+        qd, rd, fd, goal = fixed_diag
+        ulo, uhi = float(umin[0]), float(umax[0])
 
-        def body(c):
-            active = ~c["converged"] & ~c["failed"]
-            KsT, ksT, lin_red, quad_red = backward_quad_ll(
-                c["jac"], c["xs"], c["us"], qd, rd, fd, goal, dt, obsdim,
-                carry=(active, c["Ks"], c["ks"]),
-            )
-            # Inactive lanes' ksT rows hold their OLD gains (the carry
-            # select); their line-search outcome is discarded by the
-            # same masks, so the stale ks_small is inert.
-            ks_small = torch.sqrt((ksT * ksT).sum(0)) < u_threshold
-            xs, us, obj, _, failed_now, jac, du2 = fused_line_search(
-                terms, c["x0s"], c["xs"], c["us"], KsT, ksT, coeffs, alphas,
-                umin, umax, qd, rd, fd, goal, dt, c["obj"], lin_red,
-                quad_red, ks_small, active, c["jac"],
-                ls_cost_threshold=ls_cost_threshold,
-            )
-            converged_now = (torch.sqrt(du2) < u_threshold) & ~failed_now
+        def active_coeffs(params):
+            c = params[coeffs_key]
+            return c[:, list(active_idx)].contiguous()
+
+        def make_carry0(params, x0s, uguess):
+            B = x0s.shape[0]
+            xs = [x0s]
+            for t in range(H):
+                xs.append(pred_core(params, xs[-1], uguess[:, t]))
+            xs0 = torch.stack(xs, dim=1)                          # (B, H+1, ds)
+            xsT = xs0.permute(1, 2, 0).contiguous()
+            usT = uguess[:, :, 0].T.contiguous()
+            jac = relin_jacobians(terms, xsT, usT, active_coeffs(params))
             return dict(
-                x0s=c["x0s"], xs=xs, us=us, jac=jac, obj=obj, Ks=KsT, ks=ksT,
-                itr=c["itr"] + 1,
-                converged=c["converged"] | (converged_now & active),
-                failed=c["failed"] | (failed_now & active),
+                x0s=x0s.T.contiguous(), xs=xsT, us=usT, jac=jac,
+                obj=eval_obj(xs0, uguess),
+                Ks=x0s.new_zeros((H, ds, B)), ks=x0s.new_zeros((H, B)),
+                itr=0,
+                converged=torch.zeros(B, dtype=torch.bool, device=x0s.device),
+                failed=torch.zeros(B, dtype=torch.bool, device=x0s.device),
             )
 
-        return body
+        def make_body(params):
+            coeffs = active_coeffs(params)
 
-    def finalize(out):
-        """Lanes-last carry -> the batch-major (converged, xs, us, Ks,
-        ks) contract."""
-        return (
-            out["converged"],
-            out["xs"].permute(2, 0, 1),
-            out["us"].T[:, :, None],
-            out["Ks"].permute(2, 0, 1)[:, :, None, :],
-            out["ks"].T[:, :, None],
-        )
+            def body(c):
+                active = ~c["converged"] & ~c["failed"]
+                KsT, ksT, lin_red, quad_red = backward_quad_ll(
+                    c["jac"], c["xs"], c["us"], qd, rd, fd, goal, dt, obsdim,
+                    carry=(active, c["Ks"], c["ks"]),
+                )
+                # Inactive lanes' ksT rows hold their OLD gains (the carry
+                # select); their line-search outcome is discarded by the
+                # same masks, so the stale ks_small is inert.
+                ks_small = torch.sqrt((ksT * ksT).sum(0)) < u_threshold
+                xs, us, obj, _, failed_now, jac, du2 = fused_line_search(
+                    terms, c["x0s"], c["xs"], c["us"], KsT, ksT, coeffs, alphas,
+                    ulo, uhi, qd, rd, fd, goal, dt, c["obj"], lin_red,
+                    quad_red, ks_small, active, c["jac"],
+                    ls_cost_threshold=ls_cost_threshold,
+                )
+                converged_now = (torch.sqrt(du2) < u_threshold) & ~failed_now
+                return dict(
+                    x0s=c["x0s"], xs=xs, us=us, jac=jac, obj=obj, Ks=KsT, ks=ksT,
+                    itr=c["itr"] + 1,
+                    converged=c["converged"] | (converged_now & active),
+                    failed=c["failed"] | (failed_now & active),
+                )
+
+            return body
+
+        def finalize(out):
+            """Lanes-last carry -> the batch-major (converged, xs, us, Ks,
+            ks) contract."""
+            return (
+                out["converged"],
+                out["xs"].permute(2, 0, 1),
+                out["us"].T[:, :, None],
+                out["Ks"].permute(2, 0, 1)[:, :, None, :],
+                out["ks"].T[:, :, None],
+            )
+
+        return make_carry0, make_body, finalize
+
+    def batch_major_pieces():
+        if feature_spec is not None or fuse_ls or feature_mask is not None:
+            raise _unsupported(
+                "feature_spec (and fuse_ls, feature_mask) with the "
+                "batch-major body (lanes_last=False)"
+            )
+        if pred_diff is None:
+            raise _unsupported(
+                "a model with neither pred_diff nor feature_spec (the "
+                "jacfwd relinearization)"
+            )
+        if backward not in ("pallas", "scan"):
+            raise _unsupported(f"backward={backward!r}")
+        if backward == "pallas" and dc == 1 and fixed_diag is not None:
+            raise _unsupported(
+                "backward='pallas' at dc=1 with a diagonal QuadCost and "
+                "lanes_last=False (the inline-expansion batch-major kernel)"
+            )
+        if mlp_ls is not None:
+            if "nonlin" not in mlp_ls:
+                raise ValueError("mlp_ls needs the activation name under 'nonlin'")
+            precision = str(mlp_ls.get("precision", "highest"))
+            if precision != "highest":
+                raise _unsupported(f"mlp_ls precision={precision!r}")
+
+        def expansions(xs, us, quad_hess):
+            """dt-scaled stage expansions Cxx (B, H, ds, ds), Cuu
+            (B, H, dc, dc), cx (B, H, ds), cu (B, H, dc) and the terminal
+            Vn (B, ds, ds), vn (B, ds). ``quad_hess`` caches (Cxx, Cuu)
+            of a quadratic cost by batch size for one solve."""
+            B = xs.shape[0]
+            _, qx, Qh = cost.eval_obs_cost_hess(xs[:, :H, :obsdim])
+            _, ru, Rh = cost.eval_ctrl_cost_hess(us)
+            # A quadratic cost's hessians do not depend on the trajectory:
+            # build them once for each batch size the solve runs at.
+            if not cost.is_quad or B not in quad_hess:
+                Cxx = xs.new_zeros((B, H, ds, ds))
+                Cxx[:, :, :obsdim, :obsdim] = Qh * dt
+                Cuu = (Rh * dt).expand(B, H, dc, dc).contiguous()
+                quad_hess[B] = (Cxx, Cuu)
+            Cxx, Cuu = quad_hess[B]
+            cx = xs.new_zeros((B, H, ds))
+            cx[:, :, :obsdim] = qx * dt
+            _, tg, th = cost.eval_term_obs_cost_hess(xs[:, H, :obsdim])
+            Vn = xs.new_zeros((B, ds, ds))
+            Vn[:, :obsdim, :obsdim] = th
+            vn = xs.new_zeros((B, ds))
+            vn[:, :obsdim] = tg
+            return Cxx, Cuu, cx, (ru * dt).contiguous(), Vn, vn
+
+        def line_search_rollouts(params, x0s, xs, us, Ks, ks):
+            """Closed-loop rollouts of every step size through
+            ``pred_core``: (B, L, H+1, ds), (B, L, H, dc)."""
+            B, L = x0s.shape[0], len(alphas)
+            a = x0s.new_tensor(alphas)[None, :, None]
+            lo, hi = x0s.new_tensor(umin), x0s.new_tensor(umax)
+            x = x0s[:, None, :].expand(B, L, ds)
+            ls_xs, ls_us = [x], []
+            for t in range(H):
+                fb = (x - xs[:, t][:, None, :]) @ Ks[:, t].transpose(1, 2)
+                u = a * ks[:, t][:, None, :] + us[:, t][:, None, :] + fb
+                u = torch.minimum(torch.maximum(u, lo), hi)
+                x = pred_core(params, x, u)
+                ls_xs.append(x)
+                ls_us.append(u)
+            return torch.stack(ls_xs, dim=2), torch.stack(ls_us, dim=2)
+
+        def make_carry0(params, x0s, uguess):
+            B = x0s.shape[0]
+            x, xs, Jx, Ju = x0s, [x0s], [], []
+            for t in range(H):
+                x, jx, ju = pred_diff(params, x, uguess[:, t])
+                xs.append(x)
+                Jx.append(jx)
+                Ju.append(ju)
+            xs0 = torch.stack(xs, dim=1)
+            return dict(
+                x0s=x0s.contiguous(), xs=xs0, us=uguess.contiguous(),
+                Jx=torch.stack(Jx, dim=1), Ju=torch.stack(Ju, dim=1),
+                obj=eval_obj(xs0, uguess),
+                Ks=x0s.new_zeros((B, H, dc, ds)), ks=x0s.new_zeros((B, H, dc)),
+                itr=0,
+                converged=torch.zeros(B, dtype=torch.bool, device=x0s.device),
+                failed=torch.zeros(B, dtype=torch.bool, device=x0s.device),
+            )
+
+        def make_body(params):
+            layers = (
+                fold_mlp_params(params)
+                if mlp_ls is not None else None
+            )
+            quad_hess = {}
+
+            def body(c):
+                x0s, xs, us = c["x0s"], c["xs"], c["us"]
+                B = x0s.shape[0]
+                active = ~c["converged"] & ~c["failed"]
+                Cxx, Cuu, cx, cu, Vn, vn = expansions(xs, us, quad_hess)
+                run_backward = (
+                    riccati_general if backward == "pallas" else tvlqr_backward_scan
+                )
+                Ks, ks, lin_red, quad_red = run_backward(
+                    c["Jx"], c["Ju"], Cxx, Cuu, cx, cu, Vn, vn
+                )
+                ks_small = torch.sqrt((ks * ks).sum(dim=(1, 2))) < u_threshold
+
+                if layers is not None:
+                    ls_xs, ls_us = mlp_line_search(
+                        layers, mlp_ls["nonlin"], x0s, xs, us, Ks, ks, alphas,
+                        umin, umax, layout=str(mlp_ls.get("layout", "slab")),
+                    )
+                else:
+                    ls_xs, ls_us = line_search_rollouts(params, x0s, xs, us, Ks, ks)
+                new_objs = eval_obj(ls_xs, ls_us)                  # (B, L)
+                a = new_objs.new_tensor(alphas)[None, :]
+                expect = a * lin_red[:, None] + (a ** 2) * quad_red[:, None] / 2
+                denom = -expect
+                ratios = torch.where(
+                    denom.abs() > 1e-30,
+                    (c["obj"][:, None] - new_objs) / denom,
+                    torch.full_like(denom, -float("inf")),
+                )
+                accept = ratios > ls_cost_threshold
+                any_acc = accept.any(dim=1)
+                # argmax of 0/1 returns the FIRST accepted step size.
+                first_acc = accept.to(torch.int8).argmax(dim=1)
+                zero = torch.zeros_like(first_acc)
+                chosen = torch.where(
+                    ks_small, zero,
+                    torch.where(any_acc, first_acc, new_objs.argmin(dim=1)),
+                )
+
+                def take(arr, idx):
+                    return arr[torch.arange(B, device=arr.device), idx]
+
+                best_obj = take(new_objs, chosen)
+                ls_success = (best_obj < c["obj"]) | ks_small
+                idx_last = torch.where(
+                    ks_small, zero,
+                    torch.where(any_acc, first_acc,
+                                torch.full_like(first_acc, ls_max_iter - 1)),
+                )
+                last_obj = take(new_objs, idx_last)
+                failed_now = ~ls_success & (last_obj > c["obj"] + 1e-3)
+                sel = torch.where(ls_success, chosen, idx_last)
+                new_xs, new_us = take(ls_xs, sel), take(ls_us, sel)
+                new_obj = torch.where(ls_success, best_obj, last_obj)
+
+                _, Jx_lin, Ju_lin = pred_diff(params, new_xs[:, :H], new_us)
+                succ = ls_success[:, None, None, None]
+                Jx_new = torch.where(succ, Jx_lin, c["Jx"])
+                Ju_new = torch.where(succ, Ju_lin, c["Ju"])
+
+                du_norm = torch.sqrt(((new_us - us) ** 2).sum(dim=(1, 2)))
+                converged_now = (du_norm < u_threshold) & ~failed_now
+
+                def upd(new, old, keep):
+                    m = keep.reshape((-1,) + (1,) * (new.ndim - 1))
+                    return torch.where(m, new, old)
+
+                moved = active & ~failed_now
+                return dict(
+                    x0s=x0s,
+                    xs=upd(new_xs, xs, moved), us=upd(new_us, us, moved),
+                    Jx=upd(Jx_new, c["Jx"], moved), Ju=upd(Ju_new, c["Ju"], moved),
+                    obj=upd(new_obj, c["obj"], moved),
+                    Ks=upd(Ks, c["Ks"], active), ks=upd(ks, c["ks"], active),
+                    itr=c["itr"] + 1,
+                    converged=c["converged"] | (converged_now & active),
+                    failed=c["failed"] | (failed_now & active),
+                )
+
+            return body
+
+        def finalize(out):
+            return out["converged"], out["xs"], out["us"], out["Ks"], out["ks"]
+
+        return make_carry0, make_body, finalize
+
+    make_carry0, make_body, finalize = (
+        lanes_last_pieces() if lanes_last else batch_major_pieces()
+    )
 
     def solve(params, x0s, uguess):
         carry = make_carry0(params, x0s, uguess)

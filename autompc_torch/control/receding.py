@@ -5,9 +5,9 @@ Per plant step: solve from the current state (warm-started by the
 previous solution shifted one step), apply ``us[0]``, advance the true
 plant, count the steps whose solve converged. The JAX package vmaps a
 single-lane solver over the lanes; here the inner solve is the batched
-lanes-last solver over all lanes at once, so every step runs the CUDA
-kernels on the card (tests/test_batched_ilqr.py pins the batched solver
-lane for lane to the vmapped single-lane one in the JAX package).
+solver over all lanes at once, so every step runs the CUDA kernels on
+the card (tests/test_batched_ilqr.py pins the batched solver lane for
+lane to the vmapped single-lane one in the JAX package).
 """
 
 from __future__ import annotations
@@ -37,11 +37,14 @@ def make_receding_ilqr_loop(
 
     ``pred_core`` is the controller's model, ``plant_step(x, u)`` the
     batched true dynamics. ``solver_kw`` go to
-    ``make_batched_ilqr_solver`` and must name the model's
-    ``feature_spec`` (and may give ``feature_mask``); the lanes-last
-    fused kernel path is selected here.
+    ``make_batched_ilqr_solver``: with the model's ``feature_spec`` (and
+    maybe ``feature_mask``) the lanes-last fused kernel path is selected
+    here; with ``pred_diff`` (any ds, dc; maybe ``mlp_ls``) the
+    batch-major body runs.
     """
-    kw = dict(lanes_last=True, fuse_ls=True, backward="pallas")
+    kw = dict(backward="pallas")
+    if solver_kw.get("feature_spec") is not None:
+        kw.update(lanes_last=True, fuse_ls=True)
     kw.update(solver_kw)
     solve = make_batched_ilqr_solver(
         pred_core, cost, H=H, ds=ds, dc=dc, obsdim=obsdim, dt=dt,

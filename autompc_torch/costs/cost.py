@@ -40,9 +40,25 @@ class Cost:
             return _quad(obs - self._mat(self._goal, obs), self._mat(self._Q, obs))
         raise NotImplementedError
 
+    def eval_obs_cost_hess(self, obs):
+        """(value, gradient, hessian) of the stage observation cost;
+        the hessian is one (n, n) matrix for every leading axis."""
+        if self.is_quad:
+            d = obs - self._mat(self._goal, obs)
+            Q = self._mat(self._Q, obs)
+            return _quad(d, Q), d @ (Q + Q.T).T, Q + Q.T
+        raise NotImplementedError
+
     def eval_ctrl_cost(self, ctrl):
         if self.is_quad:
             return _quad(ctrl, self._mat(self._R, ctrl))
+        raise NotImplementedError
+
+    def eval_ctrl_cost_hess(self, ctrl):
+        """(value, gradient, hessian) of the stage control cost."""
+        if self.is_quad:
+            R = self._mat(self._R, ctrl)
+            return _quad(ctrl, R), ctrl @ (R + R.T).T, R + R.T
         raise NotImplementedError
 
     def eval_term_obs_cost(self, obs):

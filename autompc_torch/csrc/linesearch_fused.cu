@@ -58,7 +58,9 @@ __device__ __forceinline__ float ls_control(const LSParams& P,
 #pragma unroll
   for (int i = 0; i < DS; ++i) fb.push(K[i] * (x[i] - xbar[i]), i);
   const float u = alpha * kk + ubar + fb.total(DS);
-  return fminf(fmaxf(u, P.umin), P.umax);
+  // Comparisons, not fminf/fmaxf: a NaN control (NaN gains) stays NaN,
+  // as in the plain version, and the lane then fails its line search.
+  return u < P.umin ? P.umin : (u > P.umax ? P.umax : u);
 }
 
 // Balanced sum over the obs dims of w_i (x_i - g_i)^2.

@@ -2,11 +2,12 @@
 
 All sources under ``autompc_torch/csrc/`` compile with ``nvcc`` into one
 shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds):
+build takes seconds). Each source is compiled to an object by its own
+``nvcc`` process, all started together, and one more call links them:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o _build/libautompc_kernels_<hash>.so
-         csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o _build/<name>_<hash>.o csrc/<name>.cu
+    nvcc -shared -o _build/libautompc_kernels_<hash>.so _build/*_<hash>.o
 
 The library is built at first use, into ``autompc_torch/_build/`` under
 a name keyed by the hash of the sources and flags, so an edited source
@@ -38,17 +39,33 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
 # Compile-time limits of csrc/ (features.cuh, riccati_quad.cu,
-# linesearch_fused.cu); the wrappers raise before a call would exceed them.
+# linesearch_fused.cu, mlp_linesearch.cu); the wrappers raise before a
+# call would exceed them.
 MAX_F = 64
 MAX_D = 8
 MAX_OBS = 8
 MAX_L = 10
-KERNEL_DS = (4,)
+MLP_MAX_LAYERS = 5
+MLP_MAX_W = 128
+MLP_MAX_DC = 32
+MLP_RPT = 5
+MLP_TX = 64
+MLP_PF = 8
+MAX_SMEM_BYTES = 227 * 1024
+# The (ds, dc) pairs each shape-templated kernel is instantiated for;
+# the MLP line search takes its widths at run time, up to the limits
+# above.
+KERNEL_SHAPES = {
+    "relin": ((4, 1),),
+    "riccati_quad": ((4, 1),),
+    "linesearch_fused": ((4, 1),),
+    "riccati_general": ((18, 6), (4, 1)),
+}
 
 
 class FeatTable(ctypes.Structure):
@@ -89,6 +106,20 @@ class LSParams(ctypes.Structure):
     ]
 
 
+class MlpLS(ctypes.Structure):
+    _fields_ = [
+        ("n_layers", ctypes.c_int),
+        ("widths", ctypes.c_int * (MLP_MAX_LAYERS + 1)),
+        ("act", ctypes.c_int),
+        ("ds", ctypes.c_int),
+        ("dc", ctypes.c_int),
+        ("L", ctypes.c_int),
+        ("alphas", ctypes.c_float * MAX_L),
+        ("umin", ctypes.c_float * MLP_MAX_DC),
+        ("umax", ctypes.c_float * MLP_MAX_DC),
+    ]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
@@ -101,6 +132,10 @@ _SIGNATURES = {
     "ampc_fused_line_search": (
         [ctypes.POINTER(FeatTable), ctypes.POINTER(LSParams)]
         + [_P] * 19 + [_I, _I, _I, _I, _P]
+    ),
+    "ampc_riccati_general": [_P] * 12 + [_I, _I, _I, _I, _I, _P],
+    "ampc_mlp_line_search": (
+        [ctypes.POINTER(MlpLS)] + [_P] * 8 + [_I, _I, _I, _P]
     ),
 }
 
@@ -138,24 +173,41 @@ def nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile every source into the library (atomic rename into
+    """Compile every source to an object (one ``nvcc`` process each, all
+    started together), link them into the library (atomic rename into
     place) and return its path."""
     out = library_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp] + [
-        str(p) for p in sources() if p.suffix == ".cu"
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+    cc, tag = nvcc(), source_digest()
+    jobs = []
+    for src in sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{src.stem}_{tag}.o"
+        cmd = [cc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        )))
+    log, failed = [], []
+    for cmd, obj, proc in jobs:
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{stderr[-4000:]}")
+    if not failed:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [cc, "-shared", "-o", tmp] + [str(obj) for _, obj, _ in jobs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    out.with_suffix(".log").write_text("\n".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 

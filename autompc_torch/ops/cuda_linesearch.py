@@ -180,8 +180,11 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
         )
     H, ds, B, obsdim = _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
                                qd, fd, goal, act, old_jac)
-    if ds not in _build.KERNEL_DS:
-        raise ValueError(f"line-search kernel is built for ds in {_build.KERNEL_DS}, got {ds}")
+    built = _build.KERNEL_SHAPES["linesearch_fused"]
+    if (ds, 1) not in built:
+        raise ValueError(
+            f"line-search kernel is built for (ds, dc) in {built}, got {(ds, 1)}"
+        )
     dev, f32, b8 = xsT.device, torch.float32, torch.bool
     dsd = ds * (ds + 1)
     for name, t, shape, dt_ in (

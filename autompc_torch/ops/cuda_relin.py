@@ -58,8 +58,11 @@ def relin_jacobians(terms, xsT, usT, coeffs):
     if _build.device_kind(xsT) == "cpu":
         return relin_jacobians_plain(terms, xsT, usT, coeffs)
     H, ds, B = _shapes(terms, xsT, usT, coeffs)
-    if ds not in _build.KERNEL_DS:
-        raise ValueError(f"relin kernel is built for ds in {_build.KERNEL_DS}, got {ds}")
+    built = _build.KERNEL_SHAPES["relin"]
+    if (ds, 1) not in built:
+        raise ValueError(
+            f"relin kernel is built for (ds, dc) in {built}, got {(ds, 1)}"
+        )
     dev, f32 = xsT.device, torch.float32
     _build.check_cuda("xsT", xsT, (H + 1, ds, B), f32, dev)
     _build.check_cuda("usT", usT, (H, B), f32, dev)

@@ -116,8 +116,11 @@ def backward_quad_ll(jac_p, xsT, usT, qd, rd, fd, goal, dt, obsdim, carry):
             jac_p, xsT, usT, qd, rd, fd, goal, dt, obsdim, carry
         )
     H, ds, B = _shapes(jac_p, xsT, usT, qd, rd, fd, goal, obsdim, carry)
-    if ds not in _build.KERNEL_DS:
-        raise ValueError(f"backward kernel is built for ds in {_build.KERNEL_DS}, got {ds}")
+    built = _build.KERNEL_SHAPES["riccati_quad"]
+    if (ds, 1) not in built:
+        raise ValueError(
+            f"backward kernel is built for (ds, dc) in {built}, got {(ds, 1)}"
+        )
     dev, f32 = xsT.device, torch.float32
     _build.check_cuda("jac_p", jac_p, (H, ds * (ds + 1), B), f32, dev)
     _build.check_cuda("xsT", xsT, (H + 1, ds, B), f32, dev)

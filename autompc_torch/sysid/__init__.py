@@ -1,2 +1,3 @@
 from .model import Model
 from .sindy import SINDy
+from .mlp import MLP

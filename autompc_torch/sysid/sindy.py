@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import default_dtype
+from .. import default_dtype, resolve_device
 from ..core.trajectory import batch as traj_batch
 from ..ops.lstsq import gram_stage, stlsq, stlsq_gram
 from .basis import FeatureLibrary, finite_difference
@@ -38,7 +38,7 @@ class SINDy(Model):
         trig_freq=1,
         trig_interaction=False,
         time_mode="discrete",
-        device="cpu",
+        device=None,
     ):
         super().__init__(system)
         if method != "lstsq":
@@ -51,7 +51,7 @@ class SINDy(Model):
         self.lasso_alpha = lasso_alpha
         self.threshold = threshold
         self.time_mode = time_mode
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.poly_basis = _as_bool(poly_basis)
         self.poly_degree = int(poly_degree)
         self.poly_cross_terms = _as_bool(poly_cross_terms)

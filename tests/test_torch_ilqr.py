@@ -27,7 +27,7 @@ def setup():
               trig_interaction=True)
     m = SINDy(b.system, **kw)
     m.train(b.gen_trajs_batch(seed=42, n_trajs=60, traj_len=80))
-    t = TSINDy(b.system, **kw)
+    t = TSINDy(b.system, device="cpu", **kw)
     t.set_parameters({**m.get_parameters(), "feature_names": m.get_feature_names()})
     jcost = JQuad(b.system, jnp.asarray(QD), 0.001 * jnp.eye(1), jnp.asarray(QD),
                   goal=jnp.zeros(4))

@@ -16,16 +16,23 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_MODULES = [
     "autompc_torch",
     "autompc_torch.benchmarks",
+    "autompc_torch.benchmarks.halfcheetah",
     "autompc_torch.control",
     "autompc_torch.control.ilqr",
     "autompc_torch.control.receding",
     "autompc_torch.costs",
     "autompc_torch.ops._build",
     "autompc_torch.ops.cuda_linesearch",
+    "autompc_torch.ops.cuda_mlp_linesearch",
     "autompc_torch.ops.cuda_relin",
     "autompc_torch.ops.cuda_riccati",
+    "autompc_torch.ops.cuda_riccati_general",
     "autompc_torch.ops.lstsq",
+    "autompc_torch.ops.riccati",
     "autompc_torch.sysid",
+    "autompc_torch.sysid.mlp",
+    "autompc_torch.utils",
+    "autompc_torch.utils.profiling",
 ]
 
 
@@ -94,7 +101,8 @@ def test_build_flags_target_sm90a_without_fast_math():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     names = {p.name for p in _build.sources()}
-    assert {"relin.cu", "riccati_quad.cu", "linesearch_fused.cu", "features.cuh"} <= names
+    assert {"relin.cu", "riccati_quad.cu", "linesearch_fused.cu", "features.cuh",
+            "riccati_general.cu", "mlp_linesearch.cu"} <= names
     for p in _build.sources():
         src = p.read_text()
         assert "__sinf" not in src and "__cosf" not in src and "__expf" not in src
@@ -127,3 +135,95 @@ def test_feat_table_mirrors_descriptors():
             assert tab.comp[k] == t.trig_comp and tab.freq[k] == t.freq
     with pytest.raises(ValueError):
         _build.feat_table(tuple(lib.terms) * 2)
+
+
+def test_every_port_module_is_in_the_import_check():
+    """A module added to the port joins PORT_MODULES (packages count
+    through their __init__)."""
+    pkg = ROOT / "autompc_torch"
+    found = {
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in pkg.rglob("*.py") if "_build" not in p.parts
+    }
+    found = {m[: -len(".__init__")] if m.endswith(".__init__") else m for m in found}
+    code = (
+        "import importlib, sys\n"
+        f"for m in {sorted(found)!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('autompc_tpu') or m.startswith('jaxlib'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert set(PORT_MODULES) <= found
+
+
+def test_kernel_shapes_and_mlp_struct_mirror_the_sources():
+    """The built (ds, dc) pairs and the compile-time limits in _build
+    are the ones the CUDA sources instantiate and define."""
+    import ctypes
+    import re
+
+    from autompc_torch.ops import _build
+
+    src = (_build.CSRC_DIR / "riccati_general.cu").read_text()
+    pairs = {(int(a), int(b)) for a, b in
+             re.findall(r"riccati_general_kernel<(\d+), (\d+), \d+><<<", src)}
+    assert pairs == set(_build.KERNEL_SHAPES["riccati_general"]) == {(18, 6), (4, 1)}
+    mlp = (_build.CSRC_DIR / "mlp_linesearch.cu").read_text()
+    defs = dict(re.findall(r"#define AMPC_MLP_(\w+) (\d+)", mlp))
+    assert int(defs["MAX_LAYERS"]) == _build.MLP_MAX_LAYERS
+    assert int(defs["MAX_W"]) == _build.MLP_MAX_W
+    assert int(defs["MAX_DC"]) == _build.MLP_MAX_DC
+    assert int(defs["MAX_L"]) == _build.MAX_L
+    assert int(defs["RPT"]) == _build.MLP_RPT
+    assert int(defs["TX"]) == _build.MLP_TX and int(defs["PF"]) == _build.MLP_PF
+    n_int = 1 + (_build.MLP_MAX_LAYERS + 1) + 4
+    n_float = _build.MAX_L + 2 * _build.MLP_MAX_DC
+    assert ctypes.sizeof(_build.MlpLS) == 4 * (n_int + n_float)
+    for name in ("ampc_riccati_general", "ampc_mlp_line_search"):
+        assert f'extern "C" int {name}(' in src + mlp
+        assert name in _build._SIGNATURES
+
+
+def test_timeit_distinct_runs_every_input_and_excludes_warmup():
+    from autompc_torch.utils.profiling import timeit_distinct
+
+    seen = []
+
+    def fn(a, b):
+        seen.append((a, b))
+        return a + b
+
+    mean, out = timeit_distinct(fn, [(1, 2), (3, 4), (5, 6)], silent=True)
+    assert seen == [(1, 2), (3, 4), (5, 6)] and out == 11 and mean >= 0.0
+    mean, out = timeit_distinct(fn, [(7, 8)], warmup=0, silent=True)
+    assert out == 15
+
+
+def _entry_points():
+    from autompc_torch.benchmarks import CartpoleSwingupBenchmark, HalfcheetahBenchmark
+    from autompc_torch.sysid import MLP, SINDy
+
+    system = CartpoleSwingupBenchmark().system
+    return {
+        "cartpole data": lambda **kw: CartpoleSwingupBenchmark().gen_trajs_batch(
+            seed=0, n_trajs=2, traj_len=3, **kw).obs.device,
+        "halfcheetah data": lambda **kw: HalfcheetahBenchmark().gen_trajs_batch(
+            seed=0, n_trajs=2, traj_len=3, **kw).obs.device,
+        "SINDy": lambda **kw: SINDy(system, method="lstsq", **kw).device,
+        "MLP": lambda **kw: MLP(system, n_hidden_layers=1, hidden_size=4, **kw).net.Ws[0].device,
+    }
+
+
+@pytest.mark.parametrize("name", ["cartpole data", "halfcheetah data", "SINDy", "MLP"])
+def test_entry_points_take_the_card_unless_told(name, monkeypatch):
+    """With no ``device`` an entry point asks for the card and raises
+    when there is none; it runs on the CPU only when told to."""
+    make = _entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    assert make(device="cpu") == torch.device("cpu")

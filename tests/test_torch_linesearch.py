@@ -25,7 +25,7 @@ def model():
     m = SINDy(b.system, method="lstsq", threshold=1e-3, trig_basis=True,
               trig_freq=1, trig_interaction=True)
     m.train(b.gen_trajs_batch(seed=42, n_trajs=40, traj_len=60))
-    t = TSINDy(b.system, method="lstsq", trig_basis=True, trig_freq=1,
+    t = TSINDy(b.system, device="cpu", method="lstsq", trig_basis=True, trig_freq=1,
                trig_interaction=True)
     t.set_parameters({**m.get_parameters(), "feature_names": m.get_feature_names()})
     active = tuple(int(k) for k in np.flatnonzero(np.any(np.asarray(m.coeffs) != 0, axis=0)))

@@ -28,7 +28,7 @@ def setup():
               trig_interaction=True)
     m = SINDy(jb.system, **kw)
     m.train(jb.gen_trajs_batch(seed=42, n_trajs=50, traj_len=100))
-    t = TSINDy(tb.system, **kw)
+    t = TSINDy(tb.system, device="cpu", **kw)
     t.set_parameters({**m.get_parameters(), "feature_names": m.get_feature_names()})
     active = tuple(int(k) for k in np.flatnonzero(np.any(np.asarray(m.coeffs) != 0, axis=0)))
     bounds = jb.task.get_ctrl_bounds()

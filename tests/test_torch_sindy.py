@@ -42,12 +42,12 @@ def test_cartpole_rollout_matches(data):
 
 
 def test_gen_trajs_batch_shapes_and_bounds():
-    tb = TBench().gen_trajs_batch(seed=42, n_trajs=5, traj_len=7)
+    tb = TBench().gen_trajs_batch(seed=42, n_trajs=5, traj_len=7, device="cpu")
     assert tb.obs.shape == (5, 7, 4) and tb.ctrls.shape == (5, 7, 1)
     assert tb.obs.dtype == torch.float64
     assert float(tb.ctrls.abs().max()) <= 20.0
     np.testing.assert_array_equal(tb.obs[:, 0, 1:].numpy(), 0.0)
-    again = TBench().gen_trajs_batch(seed=42, n_trajs=5, traj_len=7)
+    again = TBench().gen_trajs_batch(seed=42, n_trajs=5, traj_len=7, device="cpu")
     assert torch.equal(tb.obs, again.obs)
 
 
@@ -69,7 +69,7 @@ def test_sindy_fit_matches(data, time_mode):
     jb, tb, trajs, tt = data
     jm = JSINDy(jb.system, time_mode=time_mode, **SINDY_KW)
     jm.train(trajs)
-    tm = TSINDy(tb.system, time_mode=time_mode, **SINDY_KW)
+    tm = TSINDy(tb.system, device="cpu", time_mode=time_mode, **SINDY_KW)
     tm.train(tt)
     jc = np.asarray(jm.coeffs)
     tc = tm.coeffs.numpy()
@@ -114,7 +114,7 @@ def test_set_parameters_carries_the_jax_model_over(data):
     jb, tb, trajs, _ = data
     jm = JSINDy(jb.system, **SINDY_KW)
     jm.train(trajs)
-    tm = TSINDy(tb.system, **SINDY_KW)
+    tm = TSINDy(tb.system, device="cpu", **SINDY_KW)
     tm.set_parameters({**jm.get_parameters(), "feature_names": jm.get_feature_names()})
     rng = np.random.default_rng(6)
     x, u = rng.uniform(-2, 2, (10, 4)), rng.uniform(-5, 5, (10, 1))
@@ -122,7 +122,7 @@ def test_set_parameters_carries_the_jax_model_over(data):
                     for a, b in zip(x, u)])
     got = tm.pred_core(tm.params, torch.as_tensor(x), torch.as_tensor(u)).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
-    round_trip = TSINDy(tb.system, **SINDY_KW)
+    round_trip = TSINDy(tb.system, device="cpu", **SINDY_KW)
     round_trip.set_parameters(tm.get_parameters())
     assert torch.equal(round_trip.coeffs, tm.coeffs)
 
@@ -131,10 +131,10 @@ def test_set_parameters_rejects_another_library(data):
     jb, tb, trajs, _ = data
     jm = JSINDy(jb.system, **SINDY_KW)
     jm.train(trajs)
-    poly = TSINDy(tb.system, method="lstsq", poly_basis=True, poly_degree=2)
+    poly = TSINDy(tb.system, device="cpu", method="lstsq", poly_basis=True, poly_degree=2)
     with pytest.raises(ValueError, match="shape"):
         poly.set_parameters(jm.get_parameters())
-    tm = TSINDy(tb.system, **SINDY_KW)
+    tm = TSINDy(tb.system, device="cpu", **SINDY_KW)
     names = jm.get_feature_names()
     with pytest.raises(ValueError, match="another feature library"):
         tm.set_parameters({"coeffs": np.asarray(jm.coeffs),
@@ -144,7 +144,7 @@ def test_set_parameters_rejects_another_library(data):
 def test_unported_options_raise():
     tb = TBench()
     with pytest.raises(ValueError, match="lasso"):
-        TSINDy(tb.system, method="lasso")
+        TSINDy(tb.system, device="cpu", method="lasso")
     with pytest.raises(ValueError, match="prbs"):
         TBench(data_gen_method="prbs")
 
