@@ -10,7 +10,8 @@ than 1e-3, and converges when ``||u_new - u_old|| < u_threshold``.
 
 Two bodies of the iteration are ported.
 
-``lanes_last=True`` — dc = 1, a fixed diagonal QuadCost, a
+``lanes_last=True`` — dc = 1, a diagonal quadratic cost (one fixed
+QuadCost, or one per lane with ``quad_cost_batch``), a
 linear-in-features model (``feature_spec``), ``fuse_ls=True``. The carry
 stays in the kernels' lanes-last layout for the whole solve — xs
 (H+1, ds, B), us (H, B), gains (H, ds, B)/(H, B) and the packed Jacobian
@@ -21,16 +22,22 @@ the carry select itself) plus a few lane-vector ops; the entry
 relinearization is ``ops/cuda_relin.py``.
 
 ``lanes_last=False`` — the batch-major body: any (ds, dc), any cost with
-``eval_*_cost_hess``, a model with a closed-form Jacobian
-(``pred_diff``). The carry is batch-major: xs (B, H+1, ds), us
-(B, H, dc), Jx (B, H, ds, ds), Ju (B, H, ds, dc), gains (B, H, dc, ds)/
-(B, H, dc). Each iteration builds the dense stage expansions, runs the
-backward pass (``backward="pallas"``: the kernel of
-``ops/cuda_riccati_general.py``; ``"scan"``: ``ops/riccati.py``), rolls
-out every step size (``mlp_ls`` set: the kernel of
-``ops/cuda_mlp_linesearch.py``; unset: a batched loop over H through
-``pred_core``), applies the acceptance rule in tensor ops and
-relinearizes the chosen trajectory with ``pred_diff``.
+``eval_*_cost_hess`` or per-lane diagonal costs, a model with a
+closed-form Jacobian (``pred_diff``) or a linear-in-features model
+(``feature_spec``, dc = 1). The carry is batch-major: xs (B, H+1, ds),
+us (B, H, dc), Jx (B, H, ds, ds), Ju (B, H, ds, dc), gains
+(B, H, dc, ds)/(B, H, dc). Each iteration runs the backward pass
+(``backward="pallas"``: at dc = 1 with a diagonal cost the
+inline-expansion kernel ``ops/cuda_riccati.py::backward_quad``, else the
+dense stage expansions into the kernel of
+``ops/cuda_riccati_general.py``; ``"scan"``: the expansions into
+``ops/riccati.py``), rolls out every step size (``feature_spec``: the
+kernel ``ops/cuda_linesearch.py::sindy_line_search``; ``mlp_ls``: the
+kernel of ``ops/cuda_mlp_linesearch.py``; neither: a batched loop over H
+through ``pred_core``), evaluates the L objectives and applies the
+acceptance rule in tensor ops, and relinearizes the chosen trajectory
+(``feature_spec``: ``ops/cuda_relin.py`` behind a layout adapter; else
+``pred_diff``).
 
 Both loops read the active-lane count on the host once per iteration.
 Every other option of the JAX solver raises ``ValueError`` naming it.
@@ -41,10 +48,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.cuda_linesearch import fused_line_search
+from ..ops.cuda_linesearch import fused_line_search, sindy_line_search
 from ..ops.cuda_mlp_linesearch import fold_mlp_params, mlp_line_search
 from ..ops.cuda_relin import relin_jacobians
-from ..ops.cuda_riccati import backward_quad_ll
+from ..ops.cuda_riccati import backward_quad, backward_quad_ll
 from ..ops.cuda_riccati_general import riccati_general
 from ..ops.riccati import tvlqr_backward_scan
 
@@ -95,6 +102,7 @@ def make_batched_ilqr_solver(
     lanes_last: bool = False,
     return_pieces: bool = False,
     quad_cost_batch: bool = False,
+    quad_goal=None,
     batch_params: bool = False,
     reg_matrix=None,
     pred_diff=None,
@@ -105,8 +113,9 @@ def make_batched_ilqr_solver(
     pad_to=None,
 ):
     """Batch-native iLQR solve: ``solve(params, x0s (B, ds), uguess
-    (B, H, dc)) -> (converged (B,), xs (B, H+1, ds), us (B, H, dc),
-    Ks (B, H, dc, ds), ks (B, H, dc))`` on the device of ``x0s``.
+    (B, H, dc)[, cost_params]) -> (converged (B,), xs (B, H+1, ds),
+    us (B, H, dc), Ks (B, H, dc, ds), ks (B, H, dc))`` on the device of
+    ``x0s``.
 
     ``params`` is the model's parameter dict. ``backward="pallas"``
     keeps the JAX package's name for the kernel backward pass (here a
@@ -114,26 +123,37 @@ def make_batched_ilqr_solver(
     recursion. ``return_pieces=True`` also returns ``(make_carry0,
     cond, make_body)`` for callers that run the iteration themselves.
 
-    Lanes-last body (``lanes_last=True``): ``feature_spec = (library,
-    coeffs_key)`` names the linear-in-features model behind
-    ``pred_core`` (``x' = params[coeffs_key] @ library(z)``).
-    ``feature_mask`` (bool sequence or tuple of active feature indices)
-    restricts the kernels to the features whose coefficient columns are
-    nonzero; the solve is then only correct for such coefficients.
+    ``quad_cost_batch=True`` gives every lane its own diagonal quadratic
+    cost: the solve takes a fourth argument ``cost_params``, a dict of
+    tensors ``Qdiag (B, obsdim)``, ``Rdiag (B, dc)``, ``Fdiag
+    (B, obsdim)`` with the shared ``quad_goal`` (None: zeros); ``cost``
+    is ignored and may be None. Semantics are the QuadCost closed forms
+    (value ``(x-g)'Q(x-g)``, gradient ``2Q(x-g)``, hessian ``2Q``). The
+    diagonals ride the carry (``c["cost"]``, lanes-last planes in the
+    lanes-last body), so compaction moves them with their lanes.
 
-    Batch-major body (``lanes_last=False``): ``pred_diff(params, x, u)
-    -> (pred, Jx, Ju)`` is the model's closed-form Jacobian, batched
-    over every leading axis (``MLP.pred_diff_core``). ``mlp_ls`` — a
-    dict with ``nonlin`` (required), ``layout`` and ``precision`` —
-    routes the line-search rollouts through the MLP kernel; ``params``
-    must then be an MLP's. The kernel computes in true float32, so
-    ``precision`` must be "highest"; ``layout``, ``block_b`` and
-    ``interpret`` are choices of the TPU kernel and are ignored.
+    ``feature_spec = (library, coeffs_key)`` names the
+    linear-in-features model behind ``pred_core`` (``x' =
+    params[coeffs_key] @ library(z)``). The lanes-last body needs it;
+    the batch-major body then takes its rollouts and Jacobians from the
+    feature kernels (dc = 1). ``feature_mask`` (bool sequence or tuple
+    of active feature indices) restricts the kernels to the features
+    whose coefficient columns are nonzero; the solve is then only
+    correct for such coefficients.
+
+    Batch-major body (``lanes_last=False``) without ``feature_spec``:
+    ``pred_diff(params, x, u) -> (pred, Jx, Ju)`` is the model's
+    closed-form Jacobian, batched over every leading axis
+    (``MLP.pred_diff_core``). ``mlp_ls`` — a dict with ``nonlin``
+    (required), ``layout`` and ``precision`` — routes the line-search
+    rollouts through the MLP kernel; ``params`` must then be an MLP's.
+    The kernel computes in true float32, so ``precision`` must be
+    "highest"; ``layout``, ``block_b`` and ``interpret`` are choices of
+    the TPU kernel and are ignored.
     """
     for name, on in (
         ("horizon_mask", horizon_mask), ("pad_to", pad_to is not None),
         ("batch_params", batch_params),
-        ("per-lane costs (quad_cost_batch)", quad_cost_batch),
         ("reg_matrix", reg_matrix is not None), ("ls_wide", ls_wide),
         ("analytic_jac", analytic_jac),
     ):
@@ -145,40 +165,25 @@ def make_batched_ilqr_solver(
         raise ValueError(f"jac_dtype must be f32/bf16, got {jac_dtype!r}")
     if relin not in ("auto", "pallas"):
         raise _unsupported(f"relin={relin!r}")
+    if feature_mask is not None and feature_spec is None:
+        raise ValueError("feature_mask needs feature_spec")
     if ubounds is not None:
         umin = np.asarray(ubounds[0], dtype=float).reshape(-1)
         umax = np.asarray(ubounds[1], dtype=float).reshape(-1)
     else:
         umin, umax = np.full(dc, -np.inf), np.full(dc, np.inf)
     alphas = tuple(ls_discount ** k for k in range(ls_max_iter))
-    fixed_diag = _fixed_diag(cost, obsdim)
+    fixed_diag = None if quad_cost_batch else _fixed_diag(cost, obsdim)
+    goal_q = tuple(
+        float(v) for v in
+        (np.zeros(obsdim) if quad_goal is None else np.asarray(quad_goal).reshape(-1))
+    )
+    if quad_cost_batch and len(goal_q) != obsdim:
+        raise ValueError(f"quad_goal must have length obsdim = {obsdim}")
 
-    def eval_obj(xs, us):
-        """Objective of trajectories xs (..., H+1, ds), us (..., H, dc)."""
-        oc = cost.eval_obs_cost(xs[..., :H, :obsdim]).sum(-1)
-        cc = cost.eval_ctrl_cost(us).sum(-1)
-        return dt * (oc + cc) + cost.eval_term_obs_cost(xs[..., H, :obsdim])
-
-    def cond(c):
-        if c["itr"] >= max_iter:
-            return False
-        return bool((~c["converged"] & ~c["failed"]).any())
-
-    def lanes_last_pieces():
-        if dc != 1:
-            raise _unsupported("dc > 1 with lanes_last=True")
-        if mlp_ls is not None:
-            raise ValueError("mlp_ls needs the batch-major body (lanes_last=False)")
-        if backward != "pallas":
-            raise _unsupported(f"backward={backward!r} with lanes_last=True")
-        if not (fuse_ls and feature_spec is not None and fixed_diag is not None):
-            raise ValueError(
-                "lanes_last=True requires the fully-fused dc=1 "
-                "diagonal-quadratic path: fuse_ls=True, a feature_spec, and a "
-                f"diagonal QuadCost; got fuse_ls={fuse_ls}, feature_spec="
-                f"{'set' if feature_spec is not None else 'None'}, "
-                f"diagonal_cost={fixed_diag is not None}"
-            )
+    def feature_pieces():
+        """(active terms, params -> active coefficient columns) of
+        ``feature_spec`` under ``feature_mask``."""
         library, coeffs_key = feature_spec
         if feature_mask is not None:
             fm = tuple(feature_mask)
@@ -191,25 +196,95 @@ def make_batched_ilqr_solver(
         else:
             active_idx = tuple(range(library.n_features))
         terms = tuple(library.terms[k] for k in active_idx)
-        qd, rd, fd, goal = fixed_diag
-        ulo, uhi = float(umin[0]), float(umax[0])
 
         def active_coeffs(params):
-            c = params[coeffs_key]
-            return c[:, list(active_idx)].contiguous()
+            return params[coeffs_key][:, list(active_idx)].contiguous()
 
-        def make_carry0(params, x0s, uguess):
+        return terms, active_coeffs
+
+    def lane_costs(cost_params, like):
+        """The per-lane diagonals of a ``quad_cost_batch`` solve as
+        contiguous (B, .) tensors like ``like``; {} for a fixed cost."""
+        if not quad_cost_batch:
+            return {}
+        if cost_params is None:
+            raise ValueError("quad_cost_batch solve needs cost_params")
+        out = {}
+        for key, width in (("Qdiag", obsdim), ("Rdiag", dc), ("Fdiag", obsdim)):
+            v = torch.as_tensor(cost_params[key], dtype=like.dtype, device=like.device)
+            if tuple(v.shape) != (like.shape[0], width):
+                raise ValueError(
+                    f"cost_params[{key!r}]: shape {tuple(v.shape)}, expected "
+                    f"{(like.shape[0], width)}"
+                )
+            out[key] = v.contiguous()
+        return out
+
+    def eval_obj(xs, us, cp):
+        """Objective of trajectories xs (B, ..., H+1, ds), us
+        (B, ..., H, dc) under the fixed cost (``cp`` empty) or the
+        batch-major per-lane diagonals ``cp``."""
+        if not quad_cost_batch:
+            oc = cost.eval_obs_cost(xs[..., :H, :obsdim]).sum(-1)
+            cc = cost.eval_ctrl_cost(us).sum(-1)
+            return dt * (oc + cc) + cost.eval_term_obs_cost(xs[..., H, :obsdim])
+
+        def w(a, n_tail):
+            """(B, n) -> (B, 1, ..., 1, n) against ``n_tail`` trailing axes."""
+            return a.reshape(a.shape[:1] + (1,) * (xs.ndim - 3 + n_tail - 1) + a.shape[1:])
+
+        goal = xs.new_tensor(goal_q)
+        dx = xs[..., :H, :obsdim] - goal
+        oc = (dx * dx * w(cp["Qdiag"], 2)).sum(dim=(-2, -1))
+        cc = (us * us * w(cp["Rdiag"], 2)).sum(dim=(-2, -1))
+        dxt = xs[..., H, :obsdim] - goal
+        return dt * (oc + cc) + (dxt * dxt * w(cp["Fdiag"], 1)).sum(-1)
+
+    def cond(c):
+        if c["itr"] >= max_iter:
+            return False
+        return bool((~c["converged"] & ~c["failed"]).any())
+
+    def rollout(params, x0s, uguess):
+        xs = [x0s]
+        for t in range(H):
+            xs.append(pred_core(params, xs[-1], uguess[:, t]))
+        return torch.stack(xs, dim=1)                              # (B, H+1, ds)
+
+    def lanes_last_pieces():
+        if dc != 1:
+            raise _unsupported("dc > 1 with lanes_last=True")
+        if mlp_ls is not None:
+            raise ValueError("mlp_ls needs the batch-major body (lanes_last=False)")
+        if backward != "pallas":
+            raise _unsupported(f"backward={backward!r} with lanes_last=True")
+        diag_cost = quad_cost_batch or fixed_diag is not None
+        if not (fuse_ls and feature_spec is not None and diag_cost):
+            raise ValueError(
+                "lanes_last=True requires the fully-fused dc=1 "
+                "diagonal-quadratic path: fuse_ls=True, a feature_spec, and a "
+                "diagonal quadratic cost (a fixed QuadCost or quad_cost_batch); "
+                f"got fuse_ls={fuse_ls}, feature_spec="
+                f"{'set' if feature_spec is not None else 'None'}, "
+                f"diagonal_cost={diag_cost}"
+            )
+        terms, active_coeffs = feature_pieces()
+        goal = goal_q if quad_cost_batch else fixed_diag[3]
+        ulo, uhi = float(umin[0]), float(umax[0])
+
+        def make_carry0(params, x0s, uguess, cost_params=None):
             B = x0s.shape[0]
-            xs = [x0s]
-            for t in range(H):
-                xs.append(pred_core(params, xs[-1], uguess[:, t]))
-            xs0 = torch.stack(xs, dim=1)                          # (B, H+1, ds)
+            cp = lane_costs(cost_params, x0s)
+            xs0 = rollout(params, x0s, uguess)
             xsT = xs0.permute(1, 2, 0).contiguous()
             usT = uguess[:, :, 0].T.contiguous()
             jac = relin_jacobians(terms, xsT, usT, active_coeffs(params))
             return dict(
                 x0s=x0s.T.contiguous(), xs=xsT, us=usT, jac=jac,
-                obj=eval_obj(xs0, uguess),
+                # Lanes-last planes (obsdim, B) / (1, B): compaction
+                # gathers them with the lanes.
+                cost={k: v.T.contiguous() for k, v in cp.items()},
+                obj=eval_obj(xs0, uguess, cp),
                 Ks=x0s.new_zeros((H, ds, B)), ks=x0s.new_zeros((H, B)),
                 itr=0,
                 converged=torch.zeros(B, dtype=torch.bool, device=x0s.device),
@@ -221,6 +296,11 @@ def make_batched_ilqr_solver(
 
             def body(c):
                 active = ~c["converged"] & ~c["failed"]
+                if quad_cost_batch:
+                    cp = c["cost"]
+                    qd, rd, fd = cp["Qdiag"], cp["Rdiag"], cp["Fdiag"]
+                else:
+                    qd, rd, fd = fixed_diag[:3]
                 KsT, ksT, lin_red, quad_red = backward_quad_ll(
                     c["jac"], c["xs"], c["us"], qd, rd, fd, goal, dt, obsdim,
                     carry=(active, c["Ks"], c["ks"]),
@@ -237,7 +317,8 @@ def make_batched_ilqr_solver(
                 )
                 converged_now = (torch.sqrt(du2) < u_threshold) & ~failed_now
                 return dict(
-                    x0s=c["x0s"], xs=xs, us=us, jac=jac, obj=obj, Ks=KsT, ks=ksT,
+                    x0s=c["x0s"], cost=c["cost"], xs=xs, us=us, jac=jac, obj=obj,
+                    Ks=KsT, ks=ksT,
                     itr=c["itr"] + 1,
                     converged=c["converged"] | (converged_now & active),
                     failed=c["failed"] | (failed_now & active),
@@ -259,35 +340,79 @@ def make_batched_ilqr_solver(
         return make_carry0, make_body, finalize
 
     def batch_major_pieces():
-        if feature_spec is not None or fuse_ls or feature_mask is not None:
+        if fuse_ls:
             raise _unsupported(
-                "feature_spec (and fuse_ls, feature_mask) with the "
-                "batch-major body (lanes_last=False)"
+                "fuse_ls with the batch-major body (lanes_last=False)"
             )
-        if pred_diff is None:
+        if feature_spec is not None and dc != 1:
+            raise _unsupported(
+                "feature_spec with dc > 1 (the feature kernels are built for dc = 1)"
+            )
+        if pred_diff is None and feature_spec is None:
             raise _unsupported(
                 "a model with neither pred_diff nor feature_spec (the "
                 "jacfwd relinearization)"
             )
         if backward not in ("pallas", "scan"):
             raise _unsupported(f"backward={backward!r}")
-        if backward == "pallas" and dc == 1 and fixed_diag is not None:
-            raise _unsupported(
-                "backward='pallas' at dc=1 with a diagonal QuadCost and "
-                "lanes_last=False (the inline-expansion batch-major kernel)"
-            )
-        if mlp_ls is not None:
+        if mlp_ls is not None and feature_spec is None:
             if "nonlin" not in mlp_ls:
                 raise ValueError("mlp_ls needs the activation name under 'nonlin'")
             precision = str(mlp_ls.get("precision", "highest"))
             if precision != "highest":
                 raise _unsupported(f"mlp_ls precision={precision!r}")
+        # The inline-expansion kernel: dc = 1 and a diagonal cost, fixed
+        # (its diagonals broadcast to the batch) or per lane.
+        quad_backward = (
+            backward == "pallas" and dc == 1
+            and (quad_cost_batch or fixed_diag is not None)
+        )
+        if feature_spec is not None:
+            terms, active_coeffs = feature_pieces()
 
-        def expansions(xs, us, quad_hess):
+        def relinearize(params, xs, us):
+            """Jx (B, H, ds, ds), Ju (B, H, ds, dc) at the first H points
+            of xs (B, H+1, ds), us (B, H, dc)."""
+            if feature_spec is None:
+                _, Jx, Ju = pred_diff(params, xs[:, :H], us)
+                return Jx, Ju
+            # The relinearization kernel speaks the lanes-last layout:
+            # permute in, unpack its packed rows i*(ds+1)+dd out.
+            B = xs.shape[0]
+            jac = relin_jacobians(
+                terms, xs.permute(1, 2, 0).contiguous(),
+                us[:, :, 0].T.contiguous(), active_coeffs(params),
+            )
+            jac = jac.reshape(H, ds, ds + 1, B).permute(3, 0, 1, 2)
+            return jac[..., :ds].contiguous(), jac[..., ds:].contiguous()
+
+        def lane_expansions(xs, us, cp):
+            """``expansions`` for per-lane diagonal costs."""
+            B = xs.shape[0]
+            goal = xs.new_tensor(goal_q)
+            Qd, Rd, Fd = cp["Qdiag"], cp["Rdiag"], cp["Fdiag"]
+            oi = torch.arange(obsdim, device=xs.device)
+            ci = torch.arange(dc, device=xs.device)
+            cx = xs.new_zeros((B, H, ds))
+            cx[:, :, :obsdim] = 2.0 * (xs[:, :H, :obsdim] - goal) * Qd[:, None, :] * dt
+            Cxx = xs.new_zeros((B, H, ds, ds))
+            Cxx[:, :, oi, oi] = (2.0 * Qd * dt)[:, None, :]
+            Cuu = xs.new_zeros((B, H, dc, dc))
+            Cuu[:, :, ci, ci] = (2.0 * Rd * dt)[:, None, :]
+            cu = 2.0 * us * Rd[:, None, :] * dt
+            Vn = xs.new_zeros((B, ds, ds))
+            Vn[:, oi, oi] = 2.0 * Fd
+            vn = xs.new_zeros((B, ds))
+            vn[:, :obsdim] = 2.0 * Fd * (xs[:, H, :obsdim] - goal)
+            return Cxx, Cuu, cx, cu, Vn, vn
+
+        def expansions(xs, us, cp, quad_hess):
             """dt-scaled stage expansions Cxx (B, H, ds, ds), Cuu
             (B, H, dc, dc), cx (B, H, ds), cu (B, H, dc) and the terminal
             Vn (B, ds, ds), vn (B, ds). ``quad_hess`` caches (Cxx, Cuu)
-            of a quadratic cost by batch size for one solve."""
+            of a fixed quadratic cost by batch size for one solve."""
+            if quad_cost_batch:
+                return lane_expansions(xs, us, cp)
             B = xs.shape[0]
             _, qx, Qh = cost.eval_obs_cost_hess(xs[:, :H, :obsdim])
             _, ru, Rh = cost.eval_ctrl_cost_hess(us)
@@ -325,19 +450,25 @@ def make_batched_ilqr_solver(
                 ls_us.append(u)
             return torch.stack(ls_xs, dim=2), torch.stack(ls_us, dim=2)
 
-        def make_carry0(params, x0s, uguess):
+        def make_carry0(params, x0s, uguess, cost_params=None):
             B = x0s.shape[0]
-            x, xs, Jx, Ju = x0s, [x0s], [], []
-            for t in range(H):
-                x, jx, ju = pred_diff(params, x, uguess[:, t])
-                xs.append(x)
-                Jx.append(jx)
-                Ju.append(ju)
-            xs0 = torch.stack(xs, dim=1)
+            cp = lane_costs(cost_params, x0s)
+            if feature_spec is not None:
+                xs0 = rollout(params, x0s, uguess)
+                Jx0, Ju0 = relinearize(params, xs0, uguess)
+            else:
+                x, xs, Jx, Ju = x0s, [x0s], [], []
+                for t in range(H):
+                    x, jx, ju = pred_diff(params, x, uguess[:, t])
+                    xs.append(x)
+                    Jx.append(jx)
+                    Ju.append(ju)
+                xs0 = torch.stack(xs, dim=1)
+                Jx0, Ju0 = torch.stack(Jx, dim=1), torch.stack(Ju, dim=1)
             return dict(
-                x0s=x0s.contiguous(), xs=xs0, us=uguess.contiguous(),
-                Jx=torch.stack(Jx, dim=1), Ju=torch.stack(Ju, dim=1),
-                obj=eval_obj(xs0, uguess),
+                x0s=x0s.contiguous(), cost=cp, xs=xs0, us=uguess.contiguous(),
+                Jx=Jx0, Ju=Ju0,
+                obj=eval_obj(xs0, uguess, cp),
                 Ks=x0s.new_zeros((B, H, dc, ds)), ks=x0s.new_zeros((B, H, dc)),
                 itr=0,
                 converged=torch.zeros(B, dtype=torch.bool, device=x0s.device),
@@ -347,31 +478,56 @@ def make_batched_ilqr_solver(
         def make_body(params):
             layers = (
                 fold_mlp_params(params)
-                if mlp_ls is not None else None
+                if mlp_ls is not None and feature_spec is None else None
             )
-            quad_hess = {}
+            coeffs = active_coeffs(params) if feature_spec is not None else None
+            quad_hess, fixed_rows = {}, {}
+
+            def diag_rows(c):
+                """The lane diagonals the inline-expansion kernel takes:
+                the carry's, or the fixed cost's broadcast to (B, .),
+                built once for each batch size."""
+                if quad_cost_batch:
+                    cp = c["cost"]
+                    return cp["Qdiag"], cp["Rdiag"], cp["Fdiag"], goal_q
+                B = c["x0s"].shape[0]
+                if B not in fixed_rows:
+                    fixed_rows[B] = tuple(
+                        c["x0s"].new_tensor(v).expand(B, len(v)).contiguous()
+                        for v in fixed_diag[:3]
+                    )
+                return (*fixed_rows[B], fixed_diag[3])
 
             def body(c):
-                x0s, xs, us = c["x0s"], c["xs"], c["us"]
+                x0s, xs, us, cp = c["x0s"], c["xs"], c["us"], c["cost"]
                 B = x0s.shape[0]
                 active = ~c["converged"] & ~c["failed"]
-                Cxx, Cuu, cx, cu, Vn, vn = expansions(xs, us, quad_hess)
-                run_backward = (
-                    riccati_general if backward == "pallas" else tvlqr_backward_scan
-                )
-                Ks, ks, lin_red, quad_red = run_backward(
-                    c["Jx"], c["Ju"], Cxx, Cuu, cx, cu, Vn, vn
-                )
+                if quad_backward:
+                    Qd, Rd, Fd, goal = diag_rows(c)
+                    Ks, ks, lin_red, quad_red = backward_quad(
+                        c["Jx"], c["Ju"], xs, us, Qd, Rd, Fd, goal, dt, obsdim
+                    )
+                else:
+                    run_backward = (
+                        riccati_general if backward == "pallas" else tvlqr_backward_scan
+                    )
+                    Ks, ks, lin_red, quad_red = run_backward(
+                        c["Jx"], c["Ju"], *expansions(xs, us, cp, quad_hess)
+                    )
                 ks_small = torch.sqrt((ks * ks).sum(dim=(1, 2))) < u_threshold
 
-                if layers is not None:
+                if feature_spec is not None:
+                    ls_xs, ls_us = sindy_line_search(
+                        terms, x0s, xs, us, Ks, ks, coeffs, alphas, umin, umax
+                    )
+                elif layers is not None:
                     ls_xs, ls_us = mlp_line_search(
                         layers, mlp_ls["nonlin"], x0s, xs, us, Ks, ks, alphas,
                         umin, umax, layout=str(mlp_ls.get("layout", "slab")),
                     )
                 else:
                     ls_xs, ls_us = line_search_rollouts(params, x0s, xs, us, Ks, ks)
-                new_objs = eval_obj(ls_xs, ls_us)                  # (B, L)
+                new_objs = eval_obj(ls_xs, ls_us, cp)              # (B, L)
                 a = new_objs.new_tensor(alphas)[None, :]
                 expect = a * lin_red[:, None] + (a ** 2) * quad_red[:, None] / 2
                 denom = -expect
@@ -406,7 +562,7 @@ def make_batched_ilqr_solver(
                 new_xs, new_us = take(ls_xs, sel), take(ls_us, sel)
                 new_obj = torch.where(ls_success, best_obj, last_obj)
 
-                _, Jx_lin, Ju_lin = pred_diff(params, new_xs[:, :H], new_us)
+                Jx_lin, Ju_lin = relinearize(params, new_xs, new_us)
                 succ = ls_success[:, None, None, None]
                 Jx_new = torch.where(succ, Jx_lin, c["Jx"])
                 Ju_new = torch.where(succ, Ju_lin, c["Ju"])
@@ -420,7 +576,7 @@ def make_batched_ilqr_solver(
 
                 moved = active & ~failed_now
                 return dict(
-                    x0s=x0s,
+                    x0s=x0s, cost=cp,
                     xs=upd(new_xs, xs, moved), us=upd(new_us, us, moved),
                     Jx=upd(Jx_new, c["Jx"], moved), Ju=upd(Ju_new, c["Ju"], moved),
                     obj=upd(new_obj, c["obj"], moved),
@@ -441,8 +597,8 @@ def make_batched_ilqr_solver(
         lanes_last_pieces() if lanes_last else batch_major_pieces()
     )
 
-    def solve(params, x0s, uguess):
-        carry = make_carry0(params, x0s, uguess)
+    def solve(params, x0s, uguess, cost_params=None):
+        carry = make_carry0(params, x0s, uguess, cost_params)
         body = make_body(params)
         while cond(carry):
             carry = body(carry)
@@ -455,10 +611,11 @@ def make_batched_ilqr_solver(
 
 
 def _batch_gather(tree, idx, B, lanes_last=False):
-    """Gather lanes ``idx`` from every batch-axis tensor of the carry:
-    lanes-last tensors (ndim >= 2, last dim B) on their last axis, (B,)
-    and batch-leading tensors on axis 0; everything else (``itr``)
-    passes through."""
+    """Gather lanes ``idx`` from every batch-axis tensor of the carry,
+    the per-lane cost dict ``c["cost"]`` included: lanes-last tensors
+    (ndim >= 2, last dim B; checked first) on their last axis, (B,) and
+    batch-leading tensors on axis 0; everything else (``itr``) passes
+    through."""
 
     def g(a):
         if isinstance(a, dict):
@@ -478,11 +635,13 @@ def _batch_scatter(full, front, idx, B, lanes_last=False):
     """Inverse of ``_batch_gather``: write ``front``'s lanes back at
     ``idx``. Updates ``full``'s tensors in place (the full carry is dead
     after the scatter, and this saves a copy of every carry array);
-    non-batch leaves take the front's value."""
+    non-batch leaves take the front's value. The per-lane cost
+    ``c["cost"]`` never changes during a solve, so the full carry keeps
+    its own and nothing is written into it."""
 
     def s(f, fr):
         if isinstance(f, dict):
-            return {k: s(f[k], fr[k]) for k in f}
+            return {k: f[k] if k == "cost" else s(f[k], fr[k]) for k in f}
         if not isinstance(f, torch.Tensor):
             return fr
         if lanes_last and f.ndim >= 2 and f.shape[-1] == B:
@@ -542,7 +701,7 @@ def make_scheduled_ilqr_solver(
     )
     ll = bool(kwargs.get("lanes_last"))
 
-    def solve(params, x0s, uguess):
+    def solve(params, x0s, uguess, cost_params=None):
         B = x0s.shape[0]
         body = make_body(params)
 
@@ -569,7 +728,7 @@ def make_scheduled_ilqr_solver(
             front = recurse(front, sched[1:])
             return _batch_scatter(carry, front, front_idx, B_cur, lanes_last=ll)
 
-        out = recurse(make_carry0(params, x0s, uguess), tuple(schedule))
+        out = recurse(make_carry0(params, x0s, uguess, cost_params), tuple(schedule))
         return solve0._finalize(out)
 
     return solve

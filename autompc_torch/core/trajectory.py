@@ -70,6 +70,12 @@ class Trajectory:
             raise IndexError("Time index out of range.")
         return TimeStep(self._obs[idx, :], self._ctrls[idx, :])
 
+    def set_obs(self, t, value) -> "Trajectory":
+        """A copy with ``obs[t] = value``."""
+        obs = self._obs.clone()
+        obs[t] = _tensor(value, like=obs)
+        return Trajectory(self._system, self._size, obs, self._ctrls)
+
     def __str__(self):
         return f"Trajectory, length={self._size}, system={self._system}"
 
@@ -141,6 +147,15 @@ class TrajectoryBatch:
         return TrajectoryBatch(
             system, obs, ctrls, [min(n, T) for n in lengths]
         )
+
+
+def zeros(system: System, size: int, dtype=torch.float64, device="cpu") -> Trajectory:
+    """An all-zero trajectory of ``size`` steps."""
+    return Trajectory(
+        system, size,
+        torch.zeros((size, system.obs_dim), dtype=dtype, device=device),
+        torch.zeros((size, system.ctrl_dim), dtype=dtype, device=device),
+    )
 
 
 def batch(trajs, max_len=None) -> TrajectoryBatch:

@@ -75,6 +75,12 @@ class Cost:
             return _quad(d, F), d @ (F + F.T).T, F + F.T
         raise NotImplementedError
 
+    def get_goal(self):
+        """The goal as a host array; raises when the cost has none."""
+        if self.has_goal:
+            return self._goal.detach().cpu().numpy().copy()
+        raise ValueError("Cost does not have goal")
+
     @property
     def is_quad(self):
         return self._is_quad

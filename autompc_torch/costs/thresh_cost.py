@@ -25,3 +25,9 @@ class ThresholdCost(Cost):
         goal = self._mat(self._goal, obs)
         err = (obs[..., lo:hi] - goal[lo:hi]).abs().amax(-1)
         return (err > self._threshold).to(obs.dtype)
+
+    def eval_ctrl_cost(self, ctrl):
+        return ctrl.new_zeros(ctrl.shape[:-1])
+
+    def eval_term_obs_cost(self, obs):
+        return obs.new_zeros(obs.shape[:-1])

@@ -1,5 +1,9 @@
 // K3: fused iLQR line search with acceptance, re-roll, relinearization and
-// carry select, lanes-last, dc=1, fixed diagonal quadratic cost.
+// carry select, lanes-last, dc=1, diagonal quadratic cost: one fixed cost
+// for every lane (host constants in LSParams) or one cost per lane
+// (lanes-last device planes qdT/fdT (obsdim, B), rdT (1, B): the TPU
+// kernel's per_lane_diag_cost=True, the tuner's cost fan-out). The two
+// forms are a template switch over one kernel body.
 //
 // Replaces the Pallas TPU kernel autompc_tpu/ops/pallas_linesearch.py:
 // _fused_kernel, entry pallas_fused_line_search with ll_io=True,
@@ -63,7 +67,8 @@ __device__ __forceinline__ float ls_control(const LSParams& P,
   return u < P.umin ? P.umin : (u > P.umax ? P.umax : u);
 }
 
-// Balanced sum over the obs dims of w_i (x_i - g_i)^2.
+// Balanced sum over the obs dims of w_i (x_i - g_i)^2; w is P.qd / P.fd
+// or the lane's own diagonal in registers.
 template <int DS>
 __device__ __forceinline__ float ls_quad_form(const LSParams& P,
                                               const float (&x)[DS],
@@ -79,13 +84,14 @@ __device__ __forceinline__ float ls_quad_form(const LSParams& P,
   return acc.total(P.obsdim);
 }
 
-template <int DS>
+template <int DS, bool LANE_COST>
 __global__ void fused_ls_kernel(
     const __grid_constant__ FeatTable T, const __grid_constant__ LSParams P,
     const float* __restrict__ coeffs, const float* __restrict__ x0T,
     const float* __restrict__ xsT, const float* __restrict__ usT,
     const float* __restrict__ KsT, const float* __restrict__ ksT,
-    const float* __restrict__ obj0_in, const float* __restrict__ lin_in,
+    const float* __restrict__ qdT, const float* __restrict__ rdT,
+    const float* __restrict__ fdT, const float* __restrict__ obj0_in, const float* __restrict__ lin_in,
     const float* __restrict__ quad_in, const uint8_t* __restrict__ ks_small_in,
     const uint8_t* __restrict__ act_in, const float* __restrict__ old_jac,
     float* __restrict__ out_xs, float* __restrict__ out_us,
@@ -102,6 +108,18 @@ __global__ void fused_ls_kernel(
   float x0[DS];
 #pragma unroll
   for (int i = 0; i < DS; ++i) x0[i] = x0T[(long long)i * B + b];
+
+  // The stage-cost diagonal: the lane's own, held in registers through
+  // pass 1, or the shared constants.
+  float q_lane[DS];
+  float rd = P.rd;
+  if constexpr (LANE_COST) {
+#pragma unroll
+    for (int i = 0; i < DS; ++i)
+      q_lane[i] = i < P.obsdim ? qdT[(long long)i * B + b] : 0.f;
+    rd = rdT[b];
+  }
+  const float* wq = LANE_COST ? q_lane : P.qd;
 
   // ---- pass 1: every candidate step size, objective only -------------
   float x[AMPC_MAX_L][DS], obj[AMPC_MAX_L];
@@ -124,8 +142,8 @@ __global__ void fused_ls_kernel(
     for (int l = 0; l < AMPC_MAX_L; ++l) {
       if (l < L) {
         const float u = ls_control<DS>(P, x[l], xbar, K, ubar, kk, P.alphas[l]);
-        const float oc = ls_quad_form<DS>(P, x[l], P.qd);
-        const float cc = P.rd * u * u;
+        const float oc = ls_quad_form<DS>(P, x[l], wq);
+        const float cc = rd * u * u;
         obj[l] = obj[l] + P.dt * (oc + cc);
         float z[D];
 #pragma unroll
@@ -135,9 +153,17 @@ __global__ void fused_ls_kernel(
       }
     }
   }
+  // The terminal diagonal is fetched only now, after the rollouts.
+  float f_lane[DS];
+  if constexpr (LANE_COST) {
+#pragma unroll
+    for (int i = 0; i < DS; ++i)
+      f_lane[i] = i < P.obsdim ? fdT[(long long)i * B + b] : 0.f;
+  }
+  const float* wf = LANE_COST ? f_lane : P.fd;
 #pragma unroll
   for (int l = 0; l < AMPC_MAX_L; ++l)
-    if (l < L) obj[l] = obj[l] + ls_quad_form<DS>(P, x[l], P.fd);
+    if (l < L) obj[l] = obj[l] + ls_quad_form<DS>(P, x[l], wf);
 
   // ---- acceptance -----------------------------------------------------
   const float obj0 = obj0_in[b];
@@ -242,21 +268,33 @@ __global__ void fused_ls_kernel(
 extern "C" int ampc_fused_line_search(
     const FeatTable* T, const LSParams* P, const float* coeffs,
     const float* x0T, const float* xsT, const float* usT, const float* KsT,
-    const float* ksT, const float* obj0, const float* lin, const float* quad,
+    const float* ksT, const float* qdT, const float* rdT, const float* fdT,
+    const float* obj0, const float* lin, const float* quad,
     const uint8_t* ks_small, const uint8_t* act, const float* old_jac,
     float* out_xs, float* out_us, float* out_obj, uint8_t* out_succ,
     uint8_t* out_fail, float* out_jac, float* out_du2, int ds, int H, int B,
     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  // qdT/rdT/fdT: per-lane cost planes, or all three null for the fixed
+  // cost held in P.
+  const bool lane = qdT != nullptr;
   if (ds != 4 || T->d != ds + 1 || T->n < 1 || T->n > AMPC_MAX_F ||
-      P->L < 1 || P->L > AMPC_MAX_L || P->obsdim < 1 || P->obsdim > ds)
+      P->L < 1 || P->L > AMPC_MAX_L || P->obsdim < 1 || P->obsdim > ds ||
+      (rdT != nullptr) != lane || (fdT != nullptr) != lane)
     return (int)cudaErrorInvalidValue;
   const int threads = 64;
   const unsigned blocks = (unsigned)((B + threads - 1) / threads);
-  fused_ls_kernel<4><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      *T, *P, coeffs, x0T, xsT, usT, KsT, ksT, obj0, lin, quad, ks_small, act,
-      old_jac, out_xs, out_us, out_obj, out_succ, out_fail, out_jac, out_du2,
-      H, B);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (lane)
+    fused_ls_kernel<4, true><<<blocks, threads, 0, s>>>(
+        *T, *P, coeffs, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT, obj0, lin,
+        quad, ks_small, act, old_jac, out_xs, out_us, out_obj, out_succ,
+        out_fail, out_jac, out_du2, H, B);
+  else
+    fused_ls_kernel<4, false><<<blocks, threads, 0, s>>>(
+        *T, *P, coeffs, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT, obj0, lin,
+        quad, ks_small, act, old_jac, out_xs, out_us, out_obj, out_succ,
+        out_fail, out_jac, out_du2, H, B);
   return (int)cudaGetLastError();
 }

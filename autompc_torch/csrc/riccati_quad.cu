@@ -16,6 +16,13 @@
 // In-kernel carry select: a lane that is no longer active writes its old
 // K/k back, so the solver needs no separate select pass.
 //
+// The cost diagonals come in one of two forms, as a template switch over
+// one recursion (riccati_quad_step.cuh): host constants in QuadDiag (one
+// fixed cost for every lane), or lanes-last device planes qdT/fdT
+// (obsdim, B) and rdT (1, B), one cost per lane (the tuner's cost
+// fan-out). The TPU kernel only ever sees planes; its fixed cost is a
+// broadcast.
+//
 // What bounds it on an H100: the recursion is sequential in t and
 // independent across lanes, so the kernel runs one thread per lane with
 // V (ds x ds) and v in registers, ~300 flops per step. Each step streams
@@ -26,28 +33,17 @@
 // warp's loads and stores of one row are coalesced, small blocks (64
 // threads) to spread the few warps over all SMs. The TPU's (8, 128) wide
 // tiles and in-VMEM casts have no counterpart here.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "riccati_quad_step.cuh"
 
-#define AMPC_MAX_OBS 8
-
-struct QuadDiag {
-  int obsdim;
-  float two_dt;  // 2 * dt
-  float qd[AMPC_MAX_OBS];
-  float rd;
-  float fd[AMPC_MAX_OBS];
-  float goal[AMPC_MAX_OBS];
-};
-
-template <int DS>
+template <int DS, bool LANE_COST>
 __global__ void backward_quad_kernel(
     const __grid_constant__ QuadDiag P, const float* __restrict__ jac,
     const float* __restrict__ xsT, const float* __restrict__ usT,
-    const uint8_t* __restrict__ act, const float* __restrict__ oldK,
-    const float* __restrict__ oldk, float* __restrict__ KsT,
-    float* __restrict__ ksT, float* __restrict__ lin_out,
-    float* __restrict__ quad_out, int H, int B) {
+    const float* __restrict__ qdT, const float* __restrict__ rdT,
+    const float* __restrict__ fdT, const uint8_t* __restrict__ act,
+    const float* __restrict__ oldK, const float* __restrict__ oldk,
+    float* __restrict__ KsT, float* __restrict__ ksT,
+    float* __restrict__ lin_out, float* __restrict__ quad_out, int H, int B) {
   constexpr int D = DS + 1;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -57,16 +53,20 @@ __global__ void backward_quad_kernel(
   float qd[DS], goal[DS];
 #pragma unroll
   for (int i = 0; i < DS; ++i) {
-    qd[i] = i < obsdim ? P.qd[i] * P.two_dt : 0.f;
+    const float q = LANE_COST ? (i < obsdim ? qdT[(long long)i * B + b] : 0.f)
+                              : P.qd[i];
+    qd[i] = i < obsdim ? q * P.two_dt : 0.f;
     goal[i] = i < obsdim ? P.goal[i] : 0.f;
   }
-  const float rd2 = P.rd * P.two_dt;
+  const float rd2 = (LANE_COST ? rdT[b] : P.rd) * P.two_dt;
 
   // Terminal expansion.
   float V[DS][DS], v[DS];
 #pragma unroll
   for (int i = 0; i < DS; ++i) {
-    const float fd2 = i < obsdim ? P.fd[i] * 2.f : 0.f;
+    const float f = LANE_COST ? (i < obsdim ? fdT[(long long)i * B + b] : 0.f)
+                              : P.fd[i];
+    const float fd2 = i < obsdim ? f * 2.f : 0.f;
 #pragma unroll
     for (int j = 0; j < DS; ++j) V[i][j] = (i == j) ? fd2 : 0.f;
     v[i] = i < obsdim ? fd2 * (xsT[((long long)H * DS + i) * B + b] - goal[i])
@@ -91,69 +91,8 @@ __global__ void backward_quad_kernel(
                   : 0.f;
     const float cu = rd2 * usT[(long long)t * B + b];
 
-    float JuV[DS];
-#pragma unroll
-    for (int j = 0; j < DS; ++j) {
-      float s = Ju[0] * V[0][j];
-#pragma unroll
-      for (int k = 1; k < DS; ++k) s = s + Ju[k] * V[k][j];
-      JuV[j] = s;
-    }
-    float sq = JuV[0] * Ju[0];
-#pragma unroll
-    for (int k = 1; k < DS; ++k) sq = sq + JuV[k] * Ju[k];
-    const float Quu = rd2 + sq;
-    const float inv_quu = 1.f / Quu;
-    float Qux[DS];
-#pragma unroll
-    for (int j = 0; j < DS; ++j) {
-      float s = JuV[0] * Jx[0][j];
-#pragma unroll
-      for (int k = 1; k < DS; ++k) s = s + JuV[k] * Jx[k][j];
-      Qux[j] = s;
-    }
-    float sv = Ju[0] * v[0];
-#pragma unroll
-    for (int k = 1; k < DS; ++k) sv = sv + Ju[k] * v[k];
-    const float qu = cu + sv;
-    float K[DS];
-#pragma unroll
-    for (int j = 0; j < DS; ++j) K[j] = -Qux[j] * inv_quu;
-    const float kff = -qu * inv_quu;
-    lin = lin + qu * kff;
-    quad = quad + kff * Quu * kff;
-
-    float JxV[DS][DS];
-#pragma unroll
-    for (int i = 0; i < DS; ++i)
-#pragma unroll
-      for (int j = 0; j < DS; ++j) {
-        float s = Jx[0][i] * V[0][j];
-#pragma unroll
-        for (int k = 1; k < DS; ++k) s = s + Jx[k][i] * V[k][j];
-        JxV[i][j] = s;
-      }
-    float qx[DS];
-#pragma unroll
-    for (int i = 0; i < DS; ++i) {
-      float s = Jx[0][i] * v[0];
-#pragma unroll
-      for (int k = 1; k < DS; ++k) s = s + Jx[k][i] * v[k];
-      qx[i] = cx[i] + s;
-    }
-#pragma unroll
-    for (int i = 0; i < DS; ++i)
-#pragma unroll
-      for (int j = 0; j < DS; ++j) {
-        float s = JxV[i][0] * Jx[0][j];
-#pragma unroll
-        for (int k = 1; k < DS; ++k) s = s + JxV[i][k] * Jx[k][j];
-        const float qxx = s + ((i == j) ? qd[i] : 0.f);
-        V[i][j] = qxx + Qux[i] * K[j] + K[i] * Qux[j] + K[i] * K[j] * Quu;
-      }
-    const float resid = qu + Quu * kff;
-#pragma unroll
-    for (int i = 0; i < DS; ++i) v[i] = qx[i] + Qux[i] * kff + K[i] * resid;
+    float K[DS], kff;
+    ampc_bq_step<DS>(Jx, Ju, cx, cu, rd2, qd, V, v, K, kff, lin, quad);
 
 #pragma unroll
     for (int j = 0; j < DS; ++j) {
@@ -166,20 +105,32 @@ __global__ void backward_quad_kernel(
   quad_out[b] = quad;
 }
 
+// qdT/rdT/fdT: per-lane cost planes, or all three null for the fixed
+// cost held in P.
 extern "C" int ampc_backward_quad_ll(const QuadDiag* P, const float* jac,
                                      const float* xsT, const float* usT,
-                                     const uint8_t* act, const float* oldK,
-                                     const float* oldk, float* KsT,
-                                     float* ksT, float* lin, float* quad,
-                                     int ds, int H, int B, int device,
-                                     void* stream) {
+                                     const float* qdT, const float* rdT,
+                                     const float* fdT, const uint8_t* act,
+                                     const float* oldK, const float* oldk,
+                                     float* KsT, float* ksT, float* lin,
+                                     float* quad, int ds, int H, int B,
+                                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ds != 4 || P->obsdim < 1 || P->obsdim > ds)
+  const bool lane = qdT != nullptr;
+  if (ds != 4 || P->obsdim < 1 || P->obsdim > ds ||
+      (rdT != nullptr) != lane || (fdT != nullptr) != lane)
     return (int)cudaErrorInvalidValue;
   const int threads = 64;
   const unsigned blocks = (unsigned)((B + threads - 1) / threads);
-  backward_quad_kernel<4><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      *P, jac, xsT, usT, act, oldK, oldk, KsT, ksT, lin, quad, H, B);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (lane)
+    backward_quad_kernel<4, true><<<blocks, threads, 0, s>>>(
+        *P, jac, xsT, usT, qdT, rdT, fdT, act, oldK, oldk, KsT, ksT, lin,
+        quad, H, B);
+  else
+    backward_quad_kernel<4, false><<<blocks, threads, 0, s>>>(
+        *P, jac, xsT, usT, qdT, rdT, fdT, act, oldK, oldk, KsT, ksT, lin,
+        quad, H, B);
   return (int)cudaGetLastError();
 }

@@ -43,9 +43,9 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-# Compile-time limits of csrc/ (features.cuh, riccati_quad.cu,
-# linesearch_fused.cu, mlp_linesearch.cu); the wrappers raise before a
-# call would exceed them.
+# Compile-time limits of csrc/ (features.cuh, riccati_quad_step.cuh,
+# linesearch_fused.cu, sindy_linesearch.cu, mlp_linesearch.cu); the
+# wrappers raise before a call would exceed them.
 MAX_F = 64
 MAX_D = 8
 MAX_OBS = 8
@@ -63,7 +63,9 @@ MAX_SMEM_BYTES = 227 * 1024
 KERNEL_SHAPES = {
     "relin": ((4, 1),),
     "riccati_quad": ((4, 1),),
+    "riccati_quad_bm": ((4, 1),),
     "linesearch_fused": ((4, 1),),
+    "sindy_linesearch": ((4, 1),),
     "riccati_general": ((18, 6), (4, 1)),
 }
 
@@ -106,6 +108,15 @@ class LSParams(ctypes.Structure):
     ]
 
 
+class SindyLS(ctypes.Structure):
+    _fields_ = [
+        ("L", ctypes.c_int),
+        ("alphas", ctypes.c_float * MAX_L),
+        ("umin", ctypes.c_float),
+        ("umax", ctypes.c_float),
+    ]
+
+
 class MlpLS(ctypes.Structure):
     _fields_ = [
         ("n_layers", ctypes.c_int),
@@ -127,11 +138,18 @@ _SIGNATURES = {
         [ctypes.POINTER(FeatTable), _P, _P, _P, _P, _I, _I, _I, _I, _P]
     ),
     "ampc_backward_quad_ll": (
-        [ctypes.POINTER(QuadDiag)] + [_P] * 10 + [_I, _I, _I, _I, _P]
+        [ctypes.POINTER(QuadDiag)] + [_P] * 13 + [_I, _I, _I, _I, _P]
+    ),
+    "ampc_backward_quad_bm": (
+        [ctypes.POINTER(QuadDiag)] + [_P] * 11 + [_I, _I, _I, _I, _P]
     ),
     "ampc_fused_line_search": (
         [ctypes.POINTER(FeatTable), ctypes.POINTER(LSParams)]
-        + [_P] * 19 + [_I, _I, _I, _I, _P]
+        + [_P] * 22 + [_I, _I, _I, _I, _P]
+    ),
+    "ampc_sindy_line_search": (
+        [ctypes.POINTER(FeatTable), ctypes.POINTER(SindyLS)]
+        + [_P] * 8 + [_I, _I, _I, _I, _P]
     ),
     "ampc_riccati_general": [_P] * 12 + [_I, _I, _I, _I, _I, _P],
     "ampc_mlp_line_search": (
@@ -273,6 +291,42 @@ def check_cuda(name: str, t: torch.Tensor, shape, dtype, device):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def lane_cost_planes(qd, rd, fd, obsdim, B):
+    """Which of the two cost forms the dc=1 diagonal-cost wrappers were
+    given: True for per-lane lanes-last planes qd/fd (obsdim, B) and rd
+    (1, B) (tensors), False for one fixed cost as host sequences of
+    length obsdim and 1. A mixture or a wrong shape raises. A wrapper
+    decides this once per call and hands the answer on."""
+    as_planes = [isinstance(v, torch.Tensor) and v.ndim == 2 for v in (qd, rd, fd)]
+    if not any(as_planes):
+        if len(qd) != obsdim or len(fd) != obsdim or len(rd) != 1:
+            raise ValueError(
+                f"cost diagonals must be qd/fd of length obsdim = {obsdim} "
+                "and rd of length 1 (dc = 1)"
+            )
+        return False
+    if not all(as_planes):
+        raise ValueError(
+            "qd, rd, fd must be all host sequences (one fixed cost) or all "
+            "lanes-last tensors (obsdim, B), (1, B), (obsdim, B)"
+        )
+    for name, v, shape in (("qd", qd, (obsdim, B)), ("rd", rd, (1, B)),
+                           ("fd", fd, (obsdim, B))):
+        if tuple(v.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(v.shape)}, expected {shape}")
+    return True
+
+
+def cost_plane_ptrs(lane, qd, rd, fd, dtype, device):
+    """The three plane pointers a kernel launch takes: the checked
+    tensors' for per-lane planes (``lane``), nulls for a fixed cost."""
+    if not lane:
+        return [None, None, None]
+    for name, v in (("qd", qd), ("rd", rd), ("fd", fd)):
+        check_cuda(name, v, v.shape, dtype, device)
+    return [ptr(v) for v in (qd, rd, fd)]
 
 
 def check_rc(name: str, rc: int):

@@ -1,18 +1,27 @@
-"""K3: fused iLQR line search (port of
-``autompc_tpu/ops/pallas_linesearch.py``'s ``pallas_fused_line_search``
-with ``ll_io=True``, ``carry=(act, old_jac)``, ``grad_terms`` and shared
-coefficients; kernel in ``csrc/linesearch_fused.cu``).
+"""K3 and K7: the iLQR line search for linear-in-features models (port
+of ``autompc_tpu/ops/pallas_linesearch.py``).
 
-One call rolls all L step sizes through the feature-library dynamics,
-sums the quadratic objective, applies the reference acceptance rule,
-re-rolls the chosen step, relinearizes along it and applies the iLQR
-carry select. Inputs and outputs are lanes-last and dc = 1; the cost is
-a fixed diagonal QuadCost given as host sequences. The unfused, wide
-and per-lane variants of the TPU module are not ported yet
-(ROADMAP.md §B).
+``fused_line_search`` (K3, ``pallas_fused_line_search`` with
+``ll_io=True``, ``carry=(act, old_jac)``, ``grad_terms`` and shared
+coefficients; kernel in ``csrc/linesearch_fused.cu``): one call rolls
+all L step sizes through the feature-library dynamics, sums the
+quadratic objective, applies the reference acceptance rule, re-rolls the
+chosen step, relinearizes along it and applies the iLQR carry select.
+Inputs and outputs are lanes-last and dc = 1; the cost is a diagonal
+QuadCost, either one fixed cost as host sequences or per-lane lanes-last
+planes (``per_lane_diag_cost=True`` of the TPU kernel).
 
-A CPU tensor takes the plain PyTorch twin ``fused_line_search_plain``;
-a CUDA tensor launches the kernel or raises.
+``sindy_line_search`` (K7, ``pallas_sindy_line_search``; kernel in
+``csrc/sindy_linesearch.cu``): the unfused form on the batch-major
+carry, which rolls out every step size and returns all L trajectories;
+the objective and the choice are the caller's.
+
+The wide variant, the GaussReg term (``reg=``) and per-lane coefficients
+are not ported yet (ROADMAP.md §B, §A 7a).
+
+A CPU tensor takes the plain PyTorch version (``fused_line_search_plain``,
+``sindy_line_search_plain``); a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -25,7 +34,8 @@ from ..sysid.basis import feature_dynamics, feature_jacobian_rows, tree_sum
 from . import _build
 
 
-def _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, qd, fd, goal, act, old_jac):
+def _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, qd, rd, fd, goal, act,
+            old_jac):
     Hp1, ds, B = xsT.shape
     H = Hp1 - 1
     want = {
@@ -40,24 +50,26 @@ def _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, qd, fd, goal, act, o
         raise ValueError(
             f"terms take {len(terms[0].exps)} inputs, expected ds + 1 = {ds + 1}"
         )
-    obsdim = len(qd)
-    if not 1 <= obsdim <= ds or len(fd) != obsdim or len(goal) != obsdim:
-        raise ValueError("qd/fd/goal must share one length obsdim <= ds")
+    obsdim = len(goal)
+    if not 1 <= obsdim <= ds:
+        raise ValueError(f"goal must have length obsdim <= ds = {ds}")
+    lane = _build.lane_cost_planes(qd, rd, fd, obsdim, B)
     if not 1 <= len(alphas) <= _build.MAX_L:
         raise ValueError(f"1..{_build.MAX_L} step sizes supported, got {len(alphas)}")
-    return H, ds, B, obsdim
+    return H, ds, B, obsdim, lane
 
 
-def _consts(like, alphas, qd, rd, fd, goal, dt):
+def _consts(like, alphas, qd, rd, fd, goal, dt, lane):
     def c(v):
         return torch.tensor(float(v), dtype=like.dtype, device=like.device)
 
-    return (
-        torch.tensor([float(a) for a in alphas], dtype=like.dtype,
-                     device=like.device)[:, None],
-        [c(v) for v in qd], c(rd[0]), [c(v) for v in fd], [c(v) for v in goal],
-        c(dt),
-    )
+    a_col = torch.tensor([float(a) for a in alphas], dtype=like.dtype,
+                         device=like.device)[:, None]
+    gl = [c(v) for v in goal]
+    if lane:
+        # Per-lane planes: row i is the (B,) vector of lane diagonals.
+        return a_col, list(qd), rd[0], list(fd), gl, c(dt)
+    return a_col, [c(v) for v in qd], c(rd[0]), [c(v) for v in fd], gl, c(dt)
 
 
 def _controls(x, xbar, K, ubar, k, alpha, umin, umax):
@@ -70,11 +82,14 @@ def _quad_form(w, x, goal):
 
 
 def line_search_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
-                           umin, umax, qd, rd, fd, goal, dt):
+                           umin, umax, qd, rd, fd, goal, dt, lane=None):
     """Pass 1 of the plain twin: the objective of every candidate step
-    size, (L, B)."""
+    size, (L, B). ``lane`` says whether the cost is per-lane planes
+    (None: decided from the arguments)."""
     H, ds = usT.shape[0], xsT.shape[1]
-    a_col, qdv, rdv, fdv, gl, dtv = _consts(xsT, alphas, qd, rd, fd, goal, dt)
+    if lane is None:
+        lane = _build.lane_cost_planes(qd, rd, fd, len(goal), xsT.shape[2])
+    a_col, qdv, rdv, fdv, gl, dtv = _consts(xsT, alphas, qd, rd, fd, goal, dt, lane)
     x = [x0T[i][None, :].expand(len(alphas), -1) for i in range(ds)]
     obj = xsT.new_zeros((len(alphas), xsT.shape[2]))
     for t in range(H):
@@ -94,12 +109,12 @@ def fused_line_search_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
                             ls_cost_threshold=0.3):
     """Plain PyTorch twin of the kernel (same math, same summation
     order; the JAX kernel's acceptance rule line for line)."""
-    H, ds, B, obsdim = _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
-                               qd, fd, goal, act, old_jac)
+    H, ds, B, obsdim, lane = _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
+                                     qd, rd, fd, goal, act, old_jac)
     L = len(alphas)
     objs = line_search_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs,
-                                  alphas, umin, umax, qd, rd, fd, goal, dt)
-    a_col = _consts(xsT, alphas, qd, rd, fd, goal, dt)[0][:, 0]
+                                  alphas, umin, umax, qd, rd, fd, goal, dt, lane)
+    a_col = torch.tensor([float(a) for a in alphas], dtype=xsT.dtype, device=xsT.device)
 
     # ---- acceptance (pallas_linesearch.py:_fused_kernel) -------------
     accept = []
@@ -165,9 +180,10 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
 
     terms: tuple of active ``TermDesc``; x0T (ds, B); xsT (H+1, ds, B);
     usT (H, B); KsT (H, ds, B); ksT (H, B); coeffs (ds, len(terms));
-    alphas, qd/fd/goal (obsdim,), rd (1,): host sequences; umin/umax,
-    dt: floats; obj0/lin_red/quad_red (B,); ks_small/act (B,) bool;
-    old_jac (H, ds*(ds+1), B).
+    alphas, goal (obsdim,): host sequences; the cost either fixed —
+    qd/fd (obsdim,), rd (1,) host sequences — or per lane — qd/fd
+    (obsdim, B), rd (1, B) lanes-last tensors; umin/umax, dt: floats;
+    obj0/lin_red/quad_red (B,); ks_small/act (B,) bool; old_jac (H, ds*(ds+1), B).
 
     Returns (xsT, usT, obj, success, failed, jac_p, du2) — the next
     carry values: active lanes that did not fail take the re-rolled
@@ -178,8 +194,8 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
             rd, fd, goal, dt, obj0, lin_red, quad_red, ks_small, act, old_jac,
             ls_cost_threshold,
         )
-    H, ds, B, obsdim = _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
-                               qd, fd, goal, act, old_jac)
+    H, ds, B, obsdim, lane = _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
+                                     qd, rd, fd, goal, act, old_jac)
     built = _build.KERNEL_SHAPES["linesearch_fused"]
     if (ds, 1) not in built:
         raise ValueError(
@@ -200,9 +216,14 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
     P.L, P.obsdim = len(alphas), obsdim
     for l, a in enumerate(alphas):
         P.alphas[l] = float(a)
-    P.umin, P.umax, P.rd = float(umin), float(umax), float(rd[0])
+    P.umin, P.umax = float(umin), float(umax)
     for i in range(obsdim):
-        P.qd[i], P.fd[i], P.goal[i] = float(qd[i]), float(fd[i]), float(goal[i])
+        P.goal[i] = float(goal[i])
+    if not lane:
+        P.rd = float(rd[0])
+        for i in range(obsdim):
+            P.qd[i], P.fd[i] = float(qd[i]), float(fd[i])
+    planes = _build.cost_plane_ptrs(lane, qd, rd, fd, f32, dev)
     P.dt, P.thresh = float(dt), float(ls_cost_threshold)
     out_xs = torch.empty((H + 1, ds, B), dtype=f32, device=dev)
     out_us = torch.empty((H, B), dtype=f32, device=dev)
@@ -214,7 +235,7 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
     p = _build.ptr
     rc = _build.library().ampc_fused_line_search(
         ctypes.byref(_build.feat_table(tuple(terms))), ctypes.byref(P),
-        p(coeffs), p(x0T), p(xsT), p(usT), p(KsT), p(ksT), p(obj0), p(lin_red),
+        p(coeffs), p(x0T), p(xsT), p(usT), p(KsT), p(ksT), *planes, p(obj0), p(lin_red),
         p(quad_red), p(ks_small), p(act), p(old_jac), p(out_xs), p(out_us),
         p(out_obj), p(succ), p(fail), p(out_jac), p(du2),
         ds, H, B, dev.index or 0, _build.stream_of(xsT),
@@ -225,3 +246,110 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
 
 
 fused_line_search.launches = 0
+
+
+def _shapes_sindy(terms, x0, xs, us, Ks, ks, coeffs, alphas):
+    if getattr(coeffs, "ndim", 2) == 3:
+        raise ValueError(
+            "per-lane coefficients (coeffs.ndim == 3, the joint fan-outs) are "
+            "not ported to autompc_torch yet"
+        )
+    B, Hp1, ds = xs.shape
+    H, dc = Hp1 - 1, us.shape[-1]
+    want = {
+        "x0": (x0, (B, ds)), "us": (us, (B, H, dc)), "Ks": (Ks, (B, H, dc, ds)),
+        "ks": (ks, (B, H, dc)), "coeffs": (coeffs, (ds, len(terms))),
+    }
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if len(terms[0].exps) != ds + dc:
+        raise ValueError(
+            f"terms take {len(terms[0].exps)} inputs, expected ds + dc = {ds + dc}"
+        )
+    if not 1 <= len(alphas) <= _build.MAX_L:
+        raise ValueError(f"1..{_build.MAX_L} step sizes supported, got {len(alphas)}")
+    return B, H, ds, dc
+
+
+def _bounds(v, dc):
+    """A scalar or (dc,) bound as a list of dc floats."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    flat = [float(a) for a in (v.reshape(-1) if hasattr(v, "reshape") else [v])]
+    return flat * dc if len(flat) == 1 else flat
+
+
+def sindy_line_search_plain(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax):
+    """Plain PyTorch version of the rollout kernel, any dc: the feedback
+    sum is a left fold over the state components, the feature sum the
+    balanced tree, and the clip propagates NaN."""
+    B, H, ds, dc = _shapes_sindy(terms, x0, xs, us, Ks, ks, coeffs, alphas)
+    L = len(alphas)
+    a_row = torch.tensor([float(a) for a in alphas], dtype=xs.dtype,
+                         device=xs.device)[None, :]
+    lo, hi = _bounds(umin, dc), _bounds(umax, dc)
+    x = [x0[:, i][:, None].expand(B, L) for i in range(ds)]
+    out_xs, out_us = [torch.stack(x, dim=-1)], []
+    for t in range(H):
+        dx = [x[i] - xs[:, t, i][:, None] for i in range(ds)]
+        u = []
+        for j in range(dc):
+            fb = Ks[:, t, j, 0][:, None] * dx[0]
+            for i in range(1, ds):
+                fb = fb + Ks[:, t, j, i][:, None] * dx[i]
+            uj = a_row * ks[:, t, j][:, None] + us[:, t, j][:, None] + fb
+            u.append(torch.clamp(uj, lo[j], hi[j]))
+        x = feature_dynamics(terms, coeffs, x + u, ds)
+        out_xs.append(torch.stack(x, dim=-1))
+        out_us.append(torch.stack(u, dim=-1))
+    return torch.stack(out_xs, dim=2), torch.stack(out_us, dim=2)
+
+
+def sindy_line_search(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax):
+    """Rollouts of every line-search step size, written out.
+
+    terms: tuple of active ``TermDesc``; x0 (B, ds); xs (B, H+1, ds);
+    us (B, H, dc); Ks (B, H, dc, ds); ks (B, H, dc); coeffs
+    (ds, len(terms)) shared by every lane; alphas: host sequence of L
+    step sizes; umin/umax: scalars or (dc,).
+    Returns (ls_xs (B, L, H+1, ds), ls_us (B, L, H, dc)) with
+    ``u = clip(alpha k + ubar + K (x - xbar))``, ``x' = coeffs @
+    features([x, u])``."""
+    if _build.device_kind(xs) == "cpu":
+        return sindy_line_search_plain(terms, x0, xs, us, Ks, ks, coeffs, alphas,
+                                       umin, umax)
+    B, H, ds, dc = _shapes_sindy(terms, x0, xs, us, Ks, ks, coeffs, alphas)
+    built = _build.KERNEL_SHAPES["sindy_linesearch"]
+    if (ds, dc) not in built:
+        raise ValueError(
+            f"rollout line-search kernel is built for (ds, dc) in {built}, "
+            f"got {(ds, dc)}"
+        )
+    dev, f32 = xs.device, torch.float32
+    for name, t, shape in (
+        ("x0", x0, (B, ds)), ("xs", xs, (B, H + 1, ds)), ("us", us, (B, H, dc)),
+        ("Ks", Ks, (B, H, dc, ds)), ("ks", ks, (B, H, dc)),
+        ("coeffs", coeffs, (ds, len(terms))),
+    ):
+        _build.check_cuda(name, t, shape, f32, dev)
+    L = len(alphas)
+    P = _build.SindyLS()
+    P.L = L
+    for l, a in enumerate(alphas):
+        P.alphas[l] = float(a)
+    P.umin, P.umax = _bounds(umin, dc)[0], _bounds(umax, dc)[0]
+    ls_xs = torch.empty((B, L, H + 1, ds), dtype=f32, device=dev)
+    ls_us = torch.empty((B, L, H, dc), dtype=f32, device=dev)
+    p = _build.ptr
+    rc = _build.library().ampc_sindy_line_search(
+        ctypes.byref(_build.feat_table(tuple(terms))), ctypes.byref(P),
+        p(coeffs), p(x0), p(xs), p(us), p(Ks), p(ks), p(ls_xs), p(ls_us),
+        ds, H, B, dev.index or 0, _build.stream_of(xs),
+    )
+    _build.check_rc("sindy_line_search", rc)
+    sindy_line_search.launches += 1
+    return ls_xs, ls_us
+
+
+sindy_line_search.launches = 0

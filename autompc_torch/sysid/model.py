@@ -25,6 +25,13 @@ class Model(ABC):
         """Batched single-step prediction over every leading axis."""
         raise NotImplementedError
 
+    def update_state_core(self, params, state, new_ctrl, new_obs):
+        """Pure model-state update on a new measurement, batched over
+        every leading axis. Default: a model whose state is the
+        observation adopts the new observation."""
+        del params, state, new_ctrl
+        return new_obs
+
     @abstractmethod
     def traj_to_state(self, traj):
         """Map a trajectory history to the current model state."""

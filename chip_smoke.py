@@ -26,21 +26,37 @@ Phases (each raises on failure, so the exit code is non-zero):
 7. dense-cost dc=1 path: a cartpole MLP (5-64-64-4) with a non-diagonal
    QuadCost through the batch-major body at B=4096, H=200: the general
    Riccati kernel at (ds, dc) = (4, 1);
+8. the tuner's cost fan-out: ``QuadCostFanout`` on the phase-2 model at
+   the scaling harness's shape (1,024 candidate cost weightings, H=10,
+   50 closed-loop steps, compaction ``4:0.5,8:0.25,14:0.125``), once
+   per solver configuration: (a) the lanes-last fused body with per-lane
+   cost planes, (b) the batch-major body with the inline-expansion
+   backward kernel and the rollout line-search kernel; one warm call and
+   3 timed calls each, evals/s printed; every score finite or inf; and
+   the two configurations' first MPC-step solves agree on the accepted
+   objective. 8q: the sensible and the absurd weighting of
+   tests/test_parallel.py at H=20, 150 steps: the sensible one must
+   score lower in both configurations;
 3. kernels vs plain twins: each CUDA kernel against its plain PyTorch
-   twin on the card, on inputs taken from its path (the lanes-last carry
-   after make_carry0 at B=4096, H=200 and one iteration's backward
-   outputs; the batch-major carries of phases 6 and 7 after three
-   iterations), within stated tolerances, both timed with CUDA events,
-   beside the least time the card could take (``bound_ms``).
+   twin on the card, on inputs taken from every path that launches it,
+   at that path's shape: the lanes-last kernels on the main path's carry
+   after make_carry0 at B=4096, H=200 (fixed cost; random per-lane cost
+   planes too) and on fan-out configuration (a)'s carry after three
+   iterations at B=1,024, H=10 with its own per-lane planes; the
+   batch-major kernels on the carries of phases 6, 7 and 8(b) after
+   three iterations; the two fan-out kernels also at B=4096, H=200 on
+   the main path's carry. Within stated tolerances, both timed with CUDA
+   events, beside the least time the card could take (``bound_ms``).
 
 Each path is driven with its kernels' launch counters set to 0 just
 before and read just after: phases 2-5 for the lanes-last kernels,
-phase 6 and phase 7 for the batch-major ones. A kernel that never ran on
-its path fails the run. Phase 3 runs after those reads, so its launches
-do not count.
+phase 6 and phase 7 for the batch-major ones, each configuration of
+phase 8 for its three. A kernel that never ran on its path fails the
+run. Phase 3 runs after those reads, so its launches do not count.
 
-``--profile`` adds one more phase-6 solve under ``torch.profiler`` and
-prints the device time by kernel and the device's busy share.
+``--profile`` adds one more phase-6 solve, and five closed-loop steps of
+each fan-out configuration, under ``torch.profiler`` and prints the
+device time by kernel and the device's busy share.
 
 Output: progress lines, then a JSON line ``{"kernels": [...]}``, the
 nvidia-smi name/power-limit line, and as the last line
@@ -103,6 +119,31 @@ TOL_K2 = 1e-3
 #     (ROADMAP §C1), so it must match on >= 99.9% of lanes.
 TOL_K3 = 1e-4
 K3_AGREE_MIN = 0.999
+# Two objectives within K3_TIE (8 float32 ulp) of each other cannot be
+# told apart: step sizes whose objectives tie count as the same choice
+# (the smallest of the ten, 0.2**6 and below, nearly always tie at
+# H=10), and a lane whose returned objective ties with the one it came
+# in with is stalled: whether "chosen < old" holds is then a coin toss
+# between two summation orders, and kernel and twin count as agreeing.
+K3_TIE = 1e-6
+# K3 at the shape the fan-out gives it (B=1,024, H=10, the lanes-last
+# carry three iterations into the first MPC step, about a third of the
+# lanes still active). Near convergence the acceptance ratio is a
+# quotient of two small float32 differences, so the knife edge is
+# commoner than on the main path's first iteration: the first run on an
+# H100 had 2 of 364 active lanes on another step size than the twin
+# (0.9945; 0.9935-0.9971 after 1, 2 and 5 iterations), so the floor
+# leaves room for three times as many. A lane of equal decisions still
+# has gains of ~1e3 that amplify last-digit differences over the
+# horizon: per lane, relative to the lane's own largest state, the
+# kernel's states were within TOL_K3 of the twin's on 0.9971 of the 341
+# lanes of equal decisions, so they are gated as K5's and K7's rollouts
+# are, by share. What does not depend on the twin's choice is gated at
+# the same tolerances as on the main path: the float64 checks at the
+# kernel's own states (controls, next states, the objective under the
+# lane's own cost planes, Jacobians, du2) and the carry select.
+K3_FAN_AGREE_MIN = 0.98
+K3_FAN_WITHIN_MIN = 0.99
 # K3 controls, du2 and Jacobians are functions of the state through the
 # feedback gains, which reach |K| ~ 1e3 on the first iteration from a
 # zero guess: a 1e-5 state difference between kernel and twin becomes a
@@ -141,6 +182,45 @@ TOL_K5_HEAD = 1e-5
 TOL_K5 = 1e-4
 K5_WITHIN_MIN = 0.99
 TOL_K5_SUM = 2e-5
+
+# Phase 8: the scaling harness's fixed-model fan-out, nothing cut.
+FAN_B, FAN_H, FAN_STEPS = 1024, 10, 50
+FAN_SCHEDULE = "4:0.5,8:0.25,14:0.125"
+FAN_CONFIGS = {
+    "a": dict(backward="pallas", fuse_ls=True, lanes_last=True),
+    "b": dict(backward="pallas", fuse_ls=False, lanes_last=False),
+}
+FANQ_H, FANQ_STEPS = 20, 150
+# First MPC step, configuration (a) against (b): both run the same
+# algorithm in float32 with different summation orders (the fused
+# kernel's in-register objective against a tensor reduction; the packed
+# against the split Jacobian layout), and the acceptance rule is
+# knife-edge (ROADMAP §C1): a lane whose step size flips on a last-digit
+# difference ends at another local solution. So the accepted objectives
+# of the lanes converged in both must agree within FAN_OBJ_TOL
+# (relative) on at least FAN_AGREE_MIN of them. The first run on an H100
+# had all 1,024 lanes converged in both, the difference at 7.6e-9 in the
+# median and 1.8e-7 at the 90th percentile, and 25 lanes (0.024) beyond
+# 1e-3, up to 8.9e-2: the tolerance sits between the two populations,
+# the share leaves room for twice as many flipped lanes.
+FAN_OBJ_TOL = 1e-3
+FAN_AGREE_MIN = 0.95
+# K6: as K2 (the same recursion), normwise.
+TOL_K6 = 1e-3
+# K7: float32 closed-loop rollouts through the feature model, held
+#     against the plain version per rollout as K5 is: relative to the
+#     rollout's own largest state, over the first K7_HEAD steps every
+#     rollout within TOL_K7_HEAD, over the whole horizon K7_WITHIN_MIN of
+#     them within TOL_K7 (gains of ~1e3 amplify last-digit differences
+#     over 200 steps); each control and next state against a float64
+#     evaluation at the kernel's OWN states to TOL_K7_SUM of the summed
+#     magnitudes of their terms.
+K7_HEAD = 10
+TOL_K7_HEAD = 1e-5
+TOL_K7 = 1e-4
+K7_WITHIN_MIN = 0.99
+TOL_K7_SUM = 1e-5
+
 
 def check_device():
     """The CUDA device to run on; raises when there is none."""
@@ -435,9 +515,195 @@ def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
     return rows, failures
 
 
-def profile_solve(solve, args):
-    """One solve under torch.profiler: device time by kernel and the
-    device's busy share of the solve's wall time."""
+def fanout_candidates(dev, n, seed=0):
+    """The harness's candidate batch: Qdiag, Fdiag = 10**U(-1, 1.5),
+    Rdiag = 10**U(-3, 0), as tensors on the card."""
+    from autompc_torch import default_dtype
+
+    rng = np.random.default_rng(seed)
+    batch = {"Qdiag": 10 ** rng.uniform(-1, 1.5, (n, 4)),
+             "Fdiag": 10 ** rng.uniform(-1, 1.5, (n, 4)),
+             "Rdiag": 10 ** rng.uniform(-3, 0, (n, 1))}
+    return {k: torch.as_tensor(v, dtype=default_dtype(dev), device=dev)
+            for k, v in batch.items()}
+
+
+def lane_objective(xs, us, cp, dt):
+    """The per-lane-cost objective of batch-major trajectories, float64."""
+    xs, us = xs.double(), us.double()
+    H = us.shape[1]
+    oc = (xs[:, :H] ** 2 * cp["Qdiag"].double()[:, None, :]).sum(dim=(1, 2))
+    cc = (us ** 2 * cp["Rdiag"].double()[:, None, :]).sum(dim=(1, 2))
+    return dt * (oc + cc) + (xs[:, H] ** 2 * cp["Fdiag"].double()).sum(1)
+
+
+def fanout_phase(bench, model, dev, card, wrappers, profile=False):
+    """Phase 8 and 8q. ``wrappers`` maps a configuration to the three
+    kernel wrappers of its path. Returns ({config: launches}, {config:
+    the fan-out's solver keywords}, the candidate batch)."""
+    from autompc_torch.control import make_scheduled_ilqr_solver, parse_schedule
+    from autompc_torch.costs import ThresholdCost
+    from autompc_torch.parallel import QuadCostFanout
+
+    batch = fanout_candidates(dev, FAN_B)
+    spec = (model.library, "coeffs")
+
+    def make(cfg, task, horizon, n_steps, schedule=FAN_SCHEDULE):
+        return QuadCostFanout(bench.system, task, model, model, horizon=horizon,
+                              n_steps=n_steps, goal=np.zeros(4), compact_schedule=schedule,
+                              feature_spec=spec, **FAN_CONFIGS[cfg])
+
+    counts, solver_kw = {}, {}
+    for cfg in FAN_CONFIGS:
+        fanout = make(cfg, bench.task, FAN_H, FAN_STEPS)
+        solver_kw[cfg] = fanout.solver_kw
+        for w in wrappers[cfg]:
+            w.launches = 0
+        t0 = time.perf_counter()
+        scores = fanout(batch)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(3):
+            scores = fanout(batch)
+            torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts[cfg] = {w.__name__: w.launches for w in wrappers[cfg]}
+        if tuple(scores.shape) != (FAN_B,) or torch.isnan(scores).any():
+            raise RuntimeError(f"fan-out ({cfg}): malformed or NaN scores")
+        fin = torch.isfinite(scores)
+        print(f"[8] fan-out ({cfg}) {FAN_CONFIGS[cfg]}: B={FAN_B} H={FAN_H} "
+              f"{FAN_STEPS} steps: warm call {warm_s:.2f} s; 3 timed calls {elapsed:.3f} s -> "
+              f"{3 * FAN_B / elapsed:.1f} evals/s on {card}; scores finite {int(fin.sum())}, "
+              f"inf {int((~fin).sum())}, mean of finite {float(scores[fin].mean()):.2f}; "
+              f"launches in 4 calls {counts[cfg]}", flush=True)
+        if min(counts[cfg].values()) == 0:
+            raise RuntimeError(f"a kernel never ran on the fan-out path ({cfg}): {counts[cfg]}")
+        if profile:
+            short = make(cfg, bench.task, FAN_H, 5)
+            profile_solve(short, (batch,), f"5 closed-loop steps of fan-out ({cfg})")
+
+    # The first MPC step's solve, (a) against (b), same candidates and start.
+    x0 = batch["Qdiag"].new_tensor(np.tile(bench.task.get_init_obs(), (FAN_B, 1)))
+    ug = x0.new_zeros((FAN_B, FAN_H, 1))
+    outs = {
+        cfg: make_scheduled_ilqr_solver(
+            model.pred_core, None, schedule=parse_schedule(FAN_SCHEDULE), **solver_kw[cfg]
+        )(model.params, x0, ug, batch)
+        for cfg in FAN_CONFIGS
+    }
+    dt = bench.system.dt
+    obj = {cfg: lane_objective(o[1], o[2], batch, dt) for cfg, o in outs.items()}
+    both = outs["a"][0] & outs["b"][0]
+    rel = ((obj["a"] - obj["b"]).abs() / obj["b"].abs().clamp_min(1e-30))[both]
+    share = float((rel <= FAN_OBJ_TOL).float().mean()) if both.any() else 0.0
+    print(f"[8] first MPC step, (a) vs (b): converged (a) {int(outs['a'][0].sum())}, (b) "
+          f"{int(outs['b'][0].sum())}, both {int(both.sum())} of {FAN_B}; accepted objective "
+          f"relative difference on those: median {float(rel.median()):.3e}, 90% "
+          f"{float(rel.quantile(0.9)):.3e}, 99% {float(rel.quantile(0.99)):.3e}, max "
+          f"{float(rel.max()):.3e}; within {FAN_OBJ_TOL} on {share:.4f} (min {FAN_AGREE_MIN})",
+          flush=True)
+    if int(both.sum()) < FAN_B // 4 or share < FAN_AGREE_MIN:
+        raise RuntimeError(f"fan-out first step: {int(both.sum())} lanes converged in both, "
+                           f"objectives agree on {share:.4f}")
+
+    # 8q: a shape that discriminates (the pole-only metric of
+    # tests/test_parallel.py; the full metric saturates at this shape).
+    task = bench.task.copy()
+    task.set_cost(ThresholdCost(bench.system, goal=np.zeros(4), threshold=0.2,
+                                obs_range=(0, 2)))
+    pair = {"Qdiag": [[10.0, 0.1, 0.01, 0.01], [0.001, 0.001, 100.0, 100.0]],
+            "Fdiag": [[10.0, 0.1, 0.01, 0.01], [0.001, 0.001, 100.0, 100.0]],
+            "Rdiag": [[0.001], [10.0]]}
+    pair = {k: np.asarray(v) for k, v in pair.items()}
+    for cfg in FAN_CONFIGS:
+        t0 = time.perf_counter()
+        good, bad = make(cfg, task, FANQ_H, FANQ_STEPS, schedule=None)(pair).tolist()
+        print(f"[8q] fan-out ({cfg}) H={FANQ_H}, {FANQ_STEPS} steps, pole-only metric: sensible "
+              f"weighting {good:.1f}, absurd weighting {bad:.1f} "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        if not good < bad:
+            raise RuntimeError(f"fan-out ({cfg}): sensible weighting {good} does not beat "
+                               f"the absurd one {bad}")
+    return counts, solver_kw, batch
+
+
+def check_fanout_kernels(tag, K6, K7, terms, coeffs, carry, cp, goal, dt, alphas, bound):
+    """K6 and K7 against their plain versions on a batch-major carry
+    (x0s, xs, us, Jx, Ju) with per-lane costs ``cp``; K7 on K6's gains.
+    Returns (the two kernels' measurements, failure strings)."""
+    x0s, xs, us, Jx, Ju = (carry[k] for k in ("x0s", "xs", "us", "Jx", "Ju"))
+    B, H = us.shape[:2]
+    rows, failures = [], []
+    k6_args = (Jx, Ju, xs, us, cp["Qdiag"], cp["Rdiag"], cp["Fdiag"], goal, dt, 4)
+    gk, gp = K6.backward_quad(*k6_args), K6.backward_quad_plain(*k6_args)
+    e6 = [rel_err(a, b) for a, b in zip(gk, gp)]
+    rows.append(dict(
+        max_abs_err=max(abs_err(a, b) for a, b in zip(gk, gp)),
+        ms=time_ms(lambda: K6.backward_quad(*k6_args)),
+        plain_ms=time_ms(lambda: K6.backward_quad_plain(*k6_args), reps=3),
+        **bound_keys(n_bytes(*k6_args[:7], *gk), B * H * (riccati_flops(4, 1) + 16)),
+    ))
+    print(f"[3] K6 batch-major backward {tag} B={B} H={H}: rel err K/k/lin/quad "
+          f"{[f'{e:.3e}' for e in e6]} (tol {TOL_K6})", flush=True)
+    if not max(e6) <= TOL_K6:
+        failures.append(f"K6 {tag} rel err {max(e6):.3e} > {TOL_K6}")
+
+    Ks, ks = gk[0], gk[1]
+    k7_args = (terms, x0s, xs, us, Ks, ks, coeffs, alphas, -bound, bound)
+    (kx, ku), (px, pu) = K7.sindy_line_search(*k7_args), K7.sindy_line_search_plain(*k7_args)
+    finite = torch.isfinite(kx).all(dim=(2, 3)) & torch.isfinite(px).all(dim=(2, 3))
+    same_finite = (torch.isfinite(kx).all(dim=(2, 3))
+                   == torch.isfinite(px).all(dim=(2, 3))).float().mean().item()
+
+    def rollout_err(upto):
+        d = (kx[:, :, :upto].double() - px[:, :, :upto].double()).abs().amax(dim=(2, 3))
+        return (d / px[:, :, :upto].double().abs().amax(dim=(2, 3)).clamp_min(1e-30))[finite]
+
+    head = min(K7_HEAD, H)
+    e_head = float(rollout_err(head + 1).max())
+    e_full = rollout_err(H + 1)
+    full_within = (e_full <= TOL_K7).float().mean().item()
+    # float64 evaluation at the kernel's own states.
+    a64 = torch.tensor(alphas, dtype=torch.float64, device=xs.device)[None, :, None]
+    fb = Ks[:, None, :, 0].double() * (kx[:, :, :-1].double() - xs[:, None, :-1].double())
+    step, ubar = a64 * ks[:, None, :, 0].double(), us[:, None, :, 0].double()
+    u64 = (step + ubar + fb.sum(-1)).clamp(-bound, bound)
+    scale = step.abs() + ubar.abs() + fb.abs().sum(-1)
+    e_u = float(((ku[..., 0].double() - u64).abs() / scale.clamp_min(1e-30))[finite].max())
+    from autompc_torch.sysid.basis import term_value
+
+    z = [kx[:, :, :-1, i].double() for i in range(4)] + [ku[..., 0].double()]
+    theta = torch.stack([term_value(t, z) for t in terms], dim=-1)     # (B, L, H, F)
+    c64 = coeffs.double()
+    x64 = theta @ c64.T
+    mag = theta.abs() @ c64.abs().T
+    e_x = float(((kx[:, :, 1:].double() - x64).abs() / mag.clamp_min(1e-30))[finite].max())
+    rows.append(dict(
+        max_abs_err=max(abs_err(kx[finite], px[finite]), abs_err(ku[finite], pu[finite])),
+        ms=time_ms(lambda: K7.sindy_line_search(*k7_args)),
+        plain_ms=time_ms(lambda: K7.sindy_line_search_plain(*k7_args), reps=3),
+        **bound_keys(n_bytes(x0s, xs, us, Ks, ks, coeffs, kx, ku),
+                     B * len(alphas) * H * (len(terms) * 13 + 20)),
+    ))
+    print(f"[3] K7 rollout line search {tag} B={B} H={H} L={len(alphas)}: rollouts finite in "
+          f"both {int(finite.sum())} of {finite.numel()} (flags agree {same_finite:.4f}); per "
+          f"rollout vs plain: first {head} steps worst {e_head:.3e} (tol {TOL_K7_HEAD}); all "
+          f"{H} steps median {float(e_full.median()):.3e}, 99% "
+          f"{float(e_full.quantile(0.99)):.3e}, worst {float(e_full.max()):.3e}, within "
+          f"{TOL_K7} on {full_within:.4f} (min {K7_WITHIN_MIN}); vs float64 at the kernel's "
+          f"states: u {e_u:.3e}, next x {e_x:.3e} of term magnitudes (tol {TOL_K7_SUM})",
+          flush=True)
+    if not (e_head <= TOL_K7_HEAD and full_within >= K7_WITHIN_MIN and same_finite >= 0.999
+            and e_u <= TOL_K7_SUM and e_x <= TOL_K7_SUM):
+        failures.append(f"K7 {tag} head {e_head:.3e} full within {full_within:.4f} finite flags "
+                        f"{same_finite:.4f} u {e_u:.3e} next x {e_x:.3e}")
+    return rows, failures
+
+
+def profile_solve(solve, args, label="one phase-6 solve"):
+    """One call under torch.profiler: device time by kernel and the
+    device's busy share of the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -453,7 +719,7 @@ def profile_solve(solve, args):
     if busy_ms == 0:
         print("[profile] the profiler recorded no device time")
         return
-    print(f"[profile] one phase-6 solve: wall {wall_ms:.1f} ms under the profiler, "
+    print(f"[profile] {label}: wall {wall_ms:.1f} ms under the profiler, "
           f"device kernels {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f}, "
           f"{sum(r[2] for r in rows)} device launches")
     for key, ms, count in rows[:14]:
@@ -474,7 +740,7 @@ def main(profile=False):
     from autompc_torch.ops import cuda_linesearch as K3
     from autompc_torch.ops import cuda_mlp_linesearch as K5
     from autompc_torch.ops import cuda_relin as K1
-    from autompc_torch.ops import cuda_riccati as K2
+    from autompc_torch.ops import cuda_riccati as K2  # also K6, backward_quad
     from autompc_torch.ops import cuda_riccati_general as K4
     from autompc_torch.sysid import MLP, SINDy
 
@@ -723,6 +989,14 @@ def main(profile=False):
         raise RuntimeError(f"dense-cost dc=1 solve: finite lanes {cp_finite:.4f} (min 0.99), "
                            f"converged {cp_conv:.4f} (min {CP_CONV_MIN})")
 
+    # ---- [8] the cost fan-out, both solver configurations ----------------
+    fan_wrappers = {
+        "a": (K1.relin_jacobians, K2.backward_quad_ll, K3.fused_line_search),
+        "b": (K1.relin_jacobians, K2.backward_quad, K3.sindy_line_search),
+    }
+    fan_launches, fan_kw, fan_batch = fanout_phase(bench, model, dev, card, fan_wrappers,
+                                                   profile=profile)
+
     # ---- [3] kernels vs plain twins on path inputs -----------------------
     _, make_carry0, _, _ = make_batched_ilqr_solver(
         model.pred_core, cost, H=H, return_pieces=True, **common
@@ -732,108 +1006,278 @@ def main(profile=False):
     terms = tuple(model.library.terms[k] for k in active)
     ca = model.coeffs[:, list(active)].contiguous()
     diag = (tuple(np.diag(qd)), (0.001,), tuple(np.diag(qd)), (0.0,) * 4)
-    act = ~c["converged"]
     dt = bench.system.dt
-    report = []
-
-    k1_args = (terms, c["xs"], c["us"], ca)
-    jk, jp = K1.relin_jacobians(*k1_args), K1.relin_jacobians_plain(*k1_args)
-    e1 = rel_err(jk, jp)
-    report.append(dict(
-        name="relin_jacobians", route="cuda", source="autompc_torch/csrc/relin.cu",
-        replaces="autompc_tpu/ops/pallas_relin.py:192",
-        launches=launches["relin_jacobians"], max_abs_err=abs_err(jk, jp),
-        ms=time_ms(lambda: K1.relin_jacobians(*k1_args)),
-        plain_ms=time_ms(lambda: K1.relin_jacobians_plain(*k1_args)),
-        **bound_keys(n_bytes(c["xs"], c["us"], ca, jk),
-                     B_KERNEL * H * feature_flops(len(terms), 5, 4)),
-    ))
-    print(f"[3] K1 relin: rel err {e1:.3e} (tol {TOL_K1})", flush=True)
-
-    k2_args = (c["jac"], c["xs"], c["us"], *diag, dt, 4)
-    k2_kw = dict(carry=(act, c["Ks"], c["ks"]))
-    bk = K2.backward_quad_ll(*k2_args, **k2_kw)
-    bp = K2.backward_quad_ll_plain(*k2_args, **k2_kw)
-    e2 = max(rel_err(a, b) for a, b in zip(bk, bp))
-    report.append(dict(
-        name="backward_quad_ll", route="cuda",
-        source="autompc_torch/csrc/riccati_quad.cu",
-        replaces="autompc_tpu/ops/pallas_riccati.py:773",
-        launches=launches["backward_quad_ll"],
-        max_abs_err=max(abs_err(a, b) for a, b in zip(bk, bp)),
-        ms=time_ms(lambda: K2.backward_quad_ll(*k2_args, **k2_kw)),
-        plain_ms=time_ms(lambda: K2.backward_quad_ll_plain(*k2_args, **k2_kw), reps=5),
-        **bound_keys(n_bytes(c["jac"], c["xs"], c["us"], act, c["Ks"], c["ks"], *bk),
-                     B_KERNEL * H * (riccati_flops(4, 1) + 16)),
-    ))
-    print(f"[3] K2 backward: rel err K/k/lin/quad "
-          f"{[f'{rel_err(a, b):.3e}' for a, b in zip(bk, bp)]} (tol {TOL_K2})",
-          flush=True)
-
-    KsT, ksT, lin, quad = bk
-    ks_small = torch.sqrt((ksT * ksT).sum(0)) < 1e-3
     alphas = tuple(0.2 ** k for k in range(10))
-    ls_common = (terms, c["x0s"], c["xs"], c["us"], KsT, ksT, ca, alphas,
-                 float(bounds[0, 0]), float(bounds[0, 1]), *diag, dt)
-    k3_args = ls_common + (c["obj"], lin, quad, ks_small, act, c["jac"])
-    lk = K3.fused_line_search(*k3_args)
-    lp = K3.fused_line_search_plain(*k3_args)
-    objs = K3.line_search_objectives(*ls_common)
+    report, failures = [], []
 
-    def choice(obj_out):
-        return (objs - obj_out[None]).abs().argmin(0)
+    def check_k1(tag, c, n_launches):
+        """The relinearization kernel on the trajectory of the lanes-last
+        carry ``c``: one report row."""
+        Hc, Bc = c["us"].shape
+        k1_args = (terms, c["xs"], c["us"], ca)
+        jk, jp = K1.relin_jacobians(*k1_args), K1.relin_jacobians_plain(*k1_args)
+        e1 = rel_err(jk, jp)
+        print(f"[3] K1 relin, {tag}: rel err {e1:.3e} (tol {TOL_K1})", flush=True)
+        if e1 > TOL_K1:
+            failures.append(f"K1 ({tag}) rel err {e1:.3e} > {TOL_K1}")
+        return dict(
+            name=f"relin_jacobians[B={Bc},H={Hc}]", route="cuda",
+            source="autompc_torch/csrc/relin.cu",
+            replaces="autompc_tpu/ops/pallas_relin.py:192",
+            launches=n_launches, max_abs_err=abs_err(jk, jp),
+            ms=time_ms(lambda: K1.relin_jacobians(*k1_args)),
+            plain_ms=time_ms(lambda: K1.relin_jacobians_plain(*k1_args)),
+            **bound_keys(n_bytes(c["xs"], c["us"], ca, jk),
+                         Bc * Hc * feature_flops(len(terms), 5, 4)),
+        )
 
-    moved = ~lk[4] & ~lp[4]
-    ck = choice(lk[2])
-    agree = (lk[3] == lp[3]) & (lk[4] == lp[4]) & (~moved | (ck == choice(lp[2])))
-    frac = agree.float().mean().item()
-    lanes = agree & moved
-    twin = {
-        "xs": (lk[0][:, :, lanes], lp[0][:, :, lanes]),
-        "obj": (lk[2][lanes], lp[2][lanes]),
-        "us": (lk[1][:, lanes], lp[1][:, lanes]),
-        "jac": (lk[5][:, :, lanes], lp[5][:, :, lanes]),
-        "du2": (lk[6][lanes], lp[6][lanes]),
-    }
-    e3 = max(rel_err(*twin[k]) for k in ("xs", "obj"))
-    # float64 evaluation at the kernel's own states (see TOL_K3_SUM).
-    a_sel = torch.tensor(alphas, dtype=torch.float64, device=dev)[ck]
-    fb = KsT.double() * (lk[0][:-1].double() - c["xs"][:-1].double())
-    base = a_sel[None] * ksT.double() + c["us"].double()
-    u64 = (base + fb.sum(1)).clamp(float(bounds[0, 0]), float(bounds[0, 1]))
-    scale = (a_sel[None] * ksT.double()).abs() + c["us"].double().abs() + fb.abs().sum(1)
-    e_u = float(((lk[1].double() - u64).abs() / scale.clamp_min(1e-30))[:, lanes].max())
-    du2_64 = ((lk[1].double() - c["us"].double()) ** 2).sum(0)
-    e_du2 = rel_err(lk[6][lanes], du2_64[lanes])
-    jl = lanes & lk[3]
-    jac64 = K1.relin_jacobians_plain(
-        terms, lk[0][:, :, jl].double(), lk[1][:, jl].double(), ca.double()
+    def check_k2_k3(tag, c, cost, agree_min=K3_AGREE_MIN, within_min=None):
+        """One backward pass and one line search on the lanes-last carry
+        ``c`` under ``cost = (qd, rd, fd, goal)``; returns the kernels'
+        outputs, the twin pairs and the timed closures, and appends to
+        ``failures``. The twins' states are gated normwise, or, with
+        ``within_min``, per lane on that share of the lanes."""
+        Hc, Bc = c["us"].shape
+        act = ~c["converged"] & ~c["failed"]
+        k2_kw = dict(carry=(act, c["Ks"], c["ks"]))
+        k2_args = (c["jac"], c["xs"], c["us"], *cost, dt, 4)
+        bk = K2.backward_quad_ll(*k2_args, **k2_kw)
+        bp = K2.backward_quad_ll_plain(*k2_args, **k2_kw)
+        print(f"[3] K2 backward, {tag}: rel err K/k/lin/quad "
+              f"{[f'{rel_err(a, b):.3e}' for a, b in zip(bk, bp)]} (tol {TOL_K2})",
+              flush=True)
+        KsT, ksT, lin, quad = bk
+        ks_small = torch.sqrt((ksT * ksT).sum(0)) < 1e-3
+        lo, hi = float(bounds[0, 0]), float(bounds[0, 1])
+        ls_common = (terms, c["x0s"], c["xs"], c["us"], KsT, ksT, ca, alphas, lo, hi,
+                     *cost, dt)
+        k3_args = ls_common + (c["obj"], lin, quad, ks_small, act, c["jac"])
+        lk = K3.fused_line_search(*k3_args)
+        lp = K3.fused_line_search_plain(*k3_args)
+        objs = K3.line_search_objectives(*ls_common)
+
+        def choice(obj_out):
+            return (objs - obj_out[None]).abs().argmin(0)
+
+        def pick(idx):
+            return objs.gather(0, idx[None])[0]
+
+        # Decisions against the twin, on the active lanes (see K3_TIE).
+        ck, cp = choice(lk[2]), choice(lp[2])
+        same_choice = (ck == cp) | ((pick(ck) - pick(cp)).abs() <= K3_TIE * pick(cp).abs())
+        same_flags = (lk[3] == lp[3]) & (lk[4] == lp[4])
+        obj0 = c["obj"]
+        stalled = ((lk[2] - obj0).abs() <= K3_TIE * obj0.abs()) \
+            & ((lp[2] - obj0).abs() <= K3_TIE * obj0.abs())
+        moved = act & ~lk[4] & ~lp[4]
+        agree = stalled | (same_flags & (~moved | same_choice))
+        lanes = moved & same_flags & (ck == cp)
+        twin = {
+            "xs": (lk[0][:, :, lanes], lp[0][:, :, lanes]),
+            "obj": (lk[2][lanes], lp[2][lanes]),
+            "us": (lk[1][:, lanes], lp[1][:, lanes]),
+            "jac": (lk[5][:, :, lanes], lp[5][:, :, lanes]),
+            "du2": (lk[6][lanes], lp[6][lanes]),
+        }
+        dx = (twin["xs"][0].double() - twin["xs"][1].double()).abs().amax(dim=(0, 1))
+        per_lane = dx / twin["xs"][1].double().abs().amax(dim=(0, 1)).clamp_min(1e-30)
+        # The carry select: an inactive lane comes back bit for bit.
+        held = all(torch.equal(new[..., ~act], old[..., ~act]) for new, old in (
+            (lk[0], c["xs"]), (lk[1], c["us"]), (lk[2], obj0), (lk[5], c["jac"])))
+        # float64 evaluation at the kernel's own states (see TOL_K3_SUM),
+        # on every lane the kernel moved: the controls of a step size
+        # whose objective is the one returned, the next states, the
+        # objective of the returned trajectory under the lane's cost, du2
+        # and, where the Jacobians were taken anew, the Jacobians.
+        own = act & ~lk[4]
+        a64 = torch.tensor(alphas, dtype=torch.float64, device=dev)[:, None, None]
+        ubar = c["us"].double()
+        fb = KsT.double() * (lk[0][:-1].double() - c["xs"][:-1].double())
+        step = a64 * ksT.double()[None]                                     # (L, H, B)
+        u64 = (step + ubar[None] + fb.sum(1)[None]).clamp(lo, hi)
+        scale = step.abs() + ubar.abs()[None] + fb.abs().sum(1)[None]
+        e_l = ((lk[1].double()[None] - u64).abs() / scale.clamp_min(1e-30)).amax(1)
+        near = (objs - pick(ck)[None]).abs() <= K3_TIE * pick(ck).abs()[None]
+        e_u = torch.where(near, e_l, torch.full_like(e_l, float("inf"))).amin(0)
+        from autompc_torch.sysid.basis import term_value
+
+        z = [lk[0][:-1, i].double() for i in range(4)] + [lk[1].double()]
+        theta = torch.stack([term_value(t, z) for t in terms], dim=-1)      # (H, B, F)
+        x64 = theta @ ca.double().T
+        mag = theta.abs() @ ca.double().abs().T
+        e_x = (lk[0][1:].permute(0, 2, 1).double() - x64).abs() / mag.clamp_min(1e-30)
+        qd_, rd_, fd_ = cost[:3]
+        if isinstance(qd_, torch.Tensor):
+            rows = dict(Qdiag=qd_.T, Rdiag=rd_.T, Fdiag=fd_.T)
+        else:
+            rows = {k: obj0.new_tensor(v).expand(Bc, len(v))
+                    for k, v in (("Qdiag", qd_), ("Rdiag", rd_), ("Fdiag", fd_))}
+        obj64 = lane_objective(lk[0].permute(2, 0, 1), lk[1].T[:, :, None], rows, dt)
+        du2_64 = ((lk[1].double() - ubar) ** 2).sum(0)
+        jl = own & lk[3]
+        jac64 = K1.relin_jacobians_plain(
+            terms, lk[0][:, :, jl].double(), lk[1][:, jl].double(), ca.double()
+        )
+        err = dict(
+            k2=max(rel_err(a, b) for a, b in zip(bk, bp)),
+            frac=agree[act].float().mean().item(),
+            xs=rel_err(*twin["xs"]), obj=rel_err(*twin["obj"]),
+            within=(per_lane <= TOL_K3).float().mean().item(),
+            u=float(e_u[own].max()), x=float(e_x[:, own].max()),
+            obj64=float(((lk[2].double() - obj64).abs() / obj64.abs().clamp_min(1e-30))[own].max()),
+            du2=rel_err(lk[6][own], du2_64[own]),
+            jac=rel_err(lk[5][:, :, jl], jac64),
+        )
+        xs_gate = (f"normwise, gated at {TOL_K3}" if within_min is None else
+                   f"per lane within {TOL_K3} on {err['within']:.4f}, min {within_min}")
+        print(f"[3] K3 line search, {tag}: active lanes {int(act.sum())} of {Bc}, inactive "
+              f"returned bit for bit: {held}; decisions agree with the twin on "
+              f"{err['frac']:.5f} of the active lanes (min {agree_min}; flags differ on "
+              f"{int((act & ~same_flags).sum())}, of which stalled {int((act & ~same_flags & stalled).sum())}; "
+              f"step size differs on {int((moved & same_flags & ~same_choice).sum())}); vs twin on "
+              f"the {int(lanes.sum())} lanes of equal decisions "
+              f"{({k: f'{rel_err(a, b):.3e}' for k, (a, b) in twin.items()})} (obj gated at "
+              f"{TOL_K3}; xs {xs_gate}); vs float64 at the kernel's states on the "
+              f"{int(own.sum())} lanes it moved: u {err['u']:.3e}, next x {err['x']:.3e} of term "
+              f"magnitudes (tol {TOL_K3_SUM}), objective of the returned trajectory "
+              f"{err['obj64']:.3e} (tol {TOL_K3}), jac {err['jac']:.3e} (tol {TOL_K1}), du2 "
+              f"{err['du2']:.3e} (tol {TOL_K3})", flush=True)
+        if err["k2"] > TOL_K2:
+            failures.append(f"K2 ({tag}) rel err {err['k2']:.3e} > {TOL_K2}")
+        if not held:
+            failures.append(f"K3 ({tag}) changed an inactive lane")
+        if err["frac"] < agree_min:
+            failures.append(f"K3 ({tag}) decisions agree on {err['frac']:.5f} < {agree_min}")
+        if err["obj"] > TOL_K3 or (err["xs"] > TOL_K3 if within_min is None
+                                   else err["within"] < within_min):
+            failures.append(f"K3 ({tag}) vs twin: xs {err['xs']:.3e} (within on "
+                            f"{err['within']:.4f}), obj {err['obj']:.3e}")
+        if max(err["u"], err["x"]) > TOL_K3_SUM or err["jac"] > TOL_K1 \
+                or max(err["du2"], err["obj64"]) > TOL_K3:
+            failures.append(f"K3 ({tag}) float64 check u {err['u']:.3e} x {err['x']:.3e} obj "
+                            f"{err['obj64']:.3e} jac {err['jac']:.3e} du2 {err['du2']:.3e}")
+        return dict(
+            bk=bk, bp=bp, lk=lk, twin=twin, k3_args=k3_args, act=act,
+            k2=lambda: K2.backward_quad_ll(*k2_args, **k2_kw),
+            k2_plain=lambda: K2.backward_quad_ll_plain(*k2_args, **k2_kw),
+            k3=lambda: K3.fused_line_search(*k3_args),
+            k3_plain=lambda: K3.fused_line_search_plain(*k3_args),
+        )
+
+    def k2_k3_rows(res, c, form, n_launches, **extra):
+        """The two report rows of one ``check_k2_k3`` result on carry
+        ``c``; ``extra[kernel]`` adds keys to that kernel's row."""
+        Hc, Bc = c["us"].shape
+        bk, lk = res["bk"], res["lk"]
+        tensors = [t for t in res["k3_args"] if isinstance(t, torch.Tensor)]
+        return [
+            dict(
+                name=f"backward_quad_ll[B={Bc},H={Hc},{form}]", route="cuda",
+                source="autompc_torch/csrc/riccati_quad.cu",
+                replaces="autompc_tpu/ops/pallas_riccati.py:773",
+                launches=n_launches["backward_quad_ll"],
+                max_abs_err=max(abs_err(a, b) for a, b in zip(bk, res["bp"])),
+                ms=time_ms(res["k2"]), plain_ms=time_ms(res["k2_plain"], reps=5),
+                **extra.get("backward_quad_ll", {}),
+                **bound_keys(n_bytes(c["jac"], c["xs"], c["us"], res["act"], c["Ks"],
+                                     c["ks"], *c["cost"].values(), *bk),
+                             Bc * Hc * (riccati_flops(4, 1) + 16)),
+            ),
+            dict(
+                name=f"fused_line_search[B={Bc},H={Hc},{form}]", route="cuda",
+                source="autompc_torch/csrc/linesearch_fused.cu",
+                replaces="autompc_tpu/ops/pallas_linesearch.py:803",
+                launches=n_launches["fused_line_search"],
+                max_abs_err=max(abs_err(a, b) for a, b in res["twin"].values()),
+                ms=time_ms(res["k3"]), plain_ms=time_ms(res["k3_plain"], reps=5),
+                **extra.get("fused_line_search", {}),
+                # All 10 step sizes are rolled out, the chosen one again
+                # with its Jacobians; a rollout-step is the term values,
+                # the coefficient products, the feedback law and the
+                # stage cost.
+                **bound_keys(
+                    n_bytes(*tensors, *lk),
+                    Bc * Hc * (11 * (len(terms) * 13 + 20) + feature_flops(len(terms), 5, 4)),
+                ),
+            ),
+        ]
+
+    # K1-K3 at the main path's shape: the carry after make_carry0 at
+    # B=4096, H=200, K2 and K3 under the main path's fixed cost as host
+    # constants. The same carry under random per-lane planes is checked
+    # and timed too (no path gives that shape per-lane planes, so it
+    # adds keys to the fixed-cost rows, not rows of its own).
+    report.append(check_k1("main-path carry", c, launches["relin_jacobians"]))
+    lane_cp = fanout_candidates(dev, B_KERNEL, seed=3)
+    planes = tuple(lane_cp[k].T.contiguous() for k in ("Qdiag", "Rdiag", "Fdiag"))
+    fixed = check_k2_k3("fixed cost, main-path carry", c, diag)
+    lane = check_k2_k3("per-lane cost, main-path carry", c, (*planes, (0.0,) * 4))
+    report += k2_k3_rows(
+        fixed, c, "fixed cost", launches,
+        backward_quad_ll=dict(lane_cost_ms=time_ms(lane["k2"])),
+        fused_line_search=dict(lane_cost_ms=time_ms(lane["k3"])),
     )
-    e_jac = rel_err(lk[5][:, :, jl], jac64)
+
+    # K1-K3 at the shape the fan-out gives them: configuration (a)'s
+    # lanes-last carry after three iterations (B=1,024, H=10), K2 and K3
+    # reading the carry's own per-lane cost planes.
+    x0f = fan_batch["Qdiag"].new_tensor(np.tile(bench.task.get_init_obs(), (FAN_B, 1)))
+    ugf = x0f.new_zeros((FAN_B, FAN_H, 1))
+
+    def fan_carry(cfg):
+        _, carry0, _, make_body = make_batched_ilqr_solver(
+            model.pred_core, None, return_pieces=True, **fan_kw[cfg]
+        )
+        carry, body = carry0(model.params, x0f, ugf, fan_batch), make_body(model.params)
+        for _ in range(3):
+            carry = body(carry)
+        return carry
+
+    cfa = fan_carry("a")
+    # Configuration (b) launches K1 at the same shape behind its layout
+    # adapter; its count stands beside (a)'s.
     report.append(dict(
-        name="fused_line_search", route="cuda",
-        source="autompc_torch/csrc/linesearch_fused.cu",
-        replaces="autompc_tpu/ops/pallas_linesearch.py:803",
-        launches=launches["fused_line_search"],
-        max_abs_err=max(abs_err(a, b) for a, b in twin.values()),
-        ms=time_ms(lambda: K3.fused_line_search(*k3_args)),
-        plain_ms=time_ms(lambda: K3.fused_line_search_plain(*k3_args), reps=5),
-        # All 10 step sizes are rolled out, the chosen one again with
-        # its Jacobians; a rollout-step is the term values, the
-        # coefficient products, the feedback law and the stage cost.
-        **bound_keys(
-            n_bytes(c["x0s"], c["xs"], c["us"], KsT, ksT, ca, c["obj"], lin, quad,
-                    ks_small, act, c["jac"], *lk),
-            B_KERNEL * H * (11 * (len(terms) * 13 + 20) + feature_flops(len(terms), 5, 4)),
-        ),
+        check_k1("fan-out (a) carry", cfa, fan_launches["a"]["relin_jacobians"]),
+        launches_config_b=fan_launches["b"]["relin_jacobians"],
     ))
-    print(f"[3] K3 line search: choice/flags agree on {frac:.5f} of lanes "
-          f"(min {K3_AGREE_MIN}); moved lanes {int(moved.sum())}; vs twin on "
-          f"agreeing lanes {({k: f'{rel_err(a, b):.3e}' for k, (a, b) in twin.items()})} "
-          f"(xs, obj gated at {TOL_K3}); vs float64 at the kernel's states: "
-          f"u {e_u:.3e} of term magnitudes (tol {TOL_K3_SUM}), jac {e_jac:.3e} "
-          f"(tol {TOL_K1}), du2 {e_du2:.3e} (tol {TOL_K3})", flush=True)
-    failures = []
+    fan_cost = (*(cfa["cost"][k] for k in ("Qdiag", "Rdiag", "Fdiag")), (0.0,) * 4)
+    report += k2_k3_rows(
+        check_k2_k3("per-lane cost, fan-out (a) carry", cfa, fan_cost,
+                    agree_min=K3_FAN_AGREE_MIN, within_min=K3_FAN_WITHIN_MIN),
+        cfa, "per-lane cost", fan_launches["a"],
+    )
+
+    # K6 and K7: on configuration (b)'s carry after three iterations at
+    # the fan-out's shape, the one its path gives them, and at B=4096,
+    # H=200 on the main path's carry (unpacked to batch-major) with the
+    # random per-lane costs above. No path runs them at that second
+    # shape: its measurements go under ``at_B4096_H200`` of the same row.
+    jac_bm = c["jac"].reshape(H, 4, 5, B_KERNEL).permute(3, 0, 1, 2)
+    c_bm = dict(
+        x0s=c["x0s"].T.contiguous(), xs=c["xs"].permute(2, 0, 1).contiguous(),
+        us=c["us"].T[:, :, None].contiguous(), Jx=jac_bm[..., :4].contiguous(),
+        Ju=jac_bm[..., 4:].contiguous(),
+    )
+    k67 = {}
+    for tag, carry, cp in (("fan-out (b) carry", fan_carry("b"), fan_batch),
+                           ("main-path carry", c_bm, lane_cp)):
+        k67[tag], fails = check_fanout_kernels(
+            tag, K2, K3, terms, ca, carry, cp, (0.0,) * 4, dt, alphas, float(bounds[0, 1]),
+        )
+        failures += fails
+    for k, (name, source, replaces) in enumerate((
+        ("backward_quad", "autompc_torch/csrc/riccati_quad_bm.cu",
+         "autompc_tpu/ops/pallas_riccati.py:456"),
+        ("sindy_line_search", "autompc_torch/csrc/sindy_linesearch.cu",
+         "autompc_tpu/ops/pallas_linesearch.py:191"),
+    )):
+        wide = dict(k67["main-path carry"][k])
+        wide.pop("library_ms")
+        report.append(dict(
+            name=f"{name}[B={FAN_B},H={FAN_H}]", route="cuda", source=source,
+            replaces=replaces, launches=fan_launches["b"][name],
+            **k67["fan-out (b) carry"][k], **{f"at_B{B_KERNEL}_H{H}": wide},
+        ))
     for tag, mdl, cst, kw, x0s, counts in (
         ("cheetah", hc_model, hc_cost, dict(hc_kw, H=H_HC), hc_x0, hc_launches),
         ("cartpole", cp_model, cp_cost, cp_kw, cp_x0, cp_launches),
@@ -845,17 +1289,14 @@ def main(profile=False):
         print(f"    {r['name']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"{r['launches']} launches on its path")
+        if "lane_cost_ms" in r:
+            print(f"        with per-lane cost planes at this shape: kernel "
+                  f"{r['lane_cost_ms']:.3f} ms (no path launches it so)")
+        for key, w in r.items():
+            if key.startswith("at_B"):
+                print(f"        {key[3:]}, no path's shape: kernel {w['ms']:.3f} ms, plain "
+                      f"{w['plain_ms']:.3f} ms, bound {w['bound_ms']:.4f} ms ({w['bound_by']})")
 
-    if e1 > TOL_K1:
-        failures.append(f"K1 rel err {e1:.3e} > {TOL_K1}")
-    if e2 > TOL_K2:
-        failures.append(f"K2 rel err {e2:.3e} > {TOL_K2}")
-    if frac < K3_AGREE_MIN:
-        failures.append(f"K3 choice agreement {frac:.5f} < {K3_AGREE_MIN}")
-    if e3 > TOL_K3:
-        failures.append(f"K3 xs/obj rel err {e3:.3e} > {TOL_K3}")
-    if e_u > TOL_K3_SUM or e_jac > TOL_K1 or e_du2 > TOL_K3:
-        failures.append(f"K3 float64 check u {e_u:.3e} jac {e_jac:.3e} du2 {e_du2:.3e}")
     if failures:
         raise RuntimeError("kernel check failed: " + "; ".join(failures))
 

@@ -113,7 +113,7 @@ def test_parse_schedule_matches():
     ("horizon_mask", True, "horizon_mask"),
     ("pad_to", 64, "pad_to"),
     ("batch_params", True, "batch_params"),
-    ("quad_cost_batch", True, "per-lane costs"),
+    ("feature_mask", (), "masks out every feature"),
     ("reg_matrix", np.eye(4), "reg_matrix"),
     ("mlp_ls", object(), "mlp_ls"),
     ("ls_wide", True, "ls_wide"),

@@ -227,12 +227,12 @@ def test_receding_loop_matches_jax_at_dc6(cheetah):
 
 
 @pytest.mark.parametrize("kwargs, match", [
-    (dict(quad_cost_batch=True), "per-lane costs"),
+    (dict(quad_cost_batch=True, quad_goal=np.zeros(3)), "quad_goal"),
     (dict(batch_params=True), "batch_params"),
     (dict(reg_matrix=np.eye(4)), "reg_matrix"),
     (dict(horizon_mask=True), "horizon_mask"),
     (dict(pad_to=64), "pad_to"),
-    (dict(feature_spec=(None, "coeffs")), "batch-major"),
+    (dict(feature_spec=(None, "coeffs"), fuse_ls=True), "batch-major"),
     (dict(fuse_ls=True), "batch-major"),
     (dict(ls_wide=True), "ls_wide"),
     (dict(jac_dtype="bf16"), "bf16"),
@@ -241,7 +241,7 @@ def test_receding_loop_matches_jax_at_dc6(cheetah):
     (dict(relin="xla"), "relin"),
     (dict(analytic_jac=True), "analytic_jac"),
     (dict(pred_diff=None), "jacfwd"),
-    (dict(backward="pallas", diag=True), "diagonal"),
+    (dict(feature_mask=(0, 1)), "feature_mask needs feature_spec"),
     (dict(mlp_ls=dict(nonlin="relu", precision="default")), "precision"),
     (dict(mlp_ls=dict(nonlin="relu", precision="bf16x3", layout="feat")), "precision"),
     (dict(mlp_ls=dict(layout="feat")), "nonlin"),

@@ -29,6 +29,9 @@ PORT_MODULES = [
     "autompc_torch.ops.cuda_riccati_general",
     "autompc_torch.ops.lstsq",
     "autompc_torch.ops.riccati",
+    "autompc_torch.parallel",
+    "autompc_torch.parallel.fanout",
+    "autompc_torch.parallel.mesh",
     "autompc_torch.sysid",
     "autompc_torch.sysid.mlp",
     "autompc_torch.utils",
@@ -102,7 +105,9 @@ def test_build_flags_target_sm90a_without_fast_math():
     assert "fast_math" not in flags and "fast-math" not in flags
     names = {p.name for p in _build.sources()}
     assert {"relin.cu", "riccati_quad.cu", "linesearch_fused.cu", "features.cuh",
-            "riccati_general.cu", "mlp_linesearch.cu"} <= names
+            "riccati_general.cu", "mlp_linesearch.cu", "riccati_quad_bm.cu",
+            "sindy_linesearch.cu", "riccati_quad_step.cuh"} <= names
+    assert sum(n.endswith(".cu") for n in names) == 7
     for p in _build.sources():
         src = p.read_text()
         assert "__sinf" not in src and "__cosf" not in src and "__expf" not in src
@@ -186,6 +191,92 @@ def test_kernel_shapes_and_mlp_struct_mirror_the_sources():
     for name in ("ampc_riccati_general", "ampc_mlp_line_search"):
         assert f'extern "C" int {name}(' in src + mlp
         assert name in _build._SIGNATURES
+
+
+def test_fanout_kernel_entries_mirror_the_sources():
+    """Every C entry point has a ctypes signature with as many
+    arguments as the source declares, the new kernels are __global__
+    functions of their own, and the structs they share with Python have
+    the same size on both sides."""
+    import ctypes
+    import re
+
+    from autompc_torch.ops import _build
+
+    text = "".join(p.read_text() for p in _build.sources())
+    entries = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text)
+    assert {n for n, _ in entries} == set(_build._SIGNATURES)
+    for name, args in entries:
+        assert len(_build._SIGNATURES[name]) == args.count(",") + 1, name
+    for kernel in ("backward_quad_bm_kernel", "sindy_ls_kernel"):
+        assert re.search(r"__global__ void " + kernel + r"\(", text)
+    assert ctypes.sizeof(_build.SindyLS) == 4 * (1 + _build.MAX_L + 2)
+    assert ctypes.sizeof(_build.QuadDiag) == 4 * (2 + 3 * _build.MAX_OBS + 1)
+    for key in ("riccati_quad_bm", "sindy_linesearch"):
+        assert _build.KERNEL_SHAPES[key] == ((4, 1),)
+
+
+def _fanout(**kw):
+    from autompc_torch.benchmarks import CartpoleSwingupBenchmark
+    from autompc_torch.parallel import QuadCostFanout
+    from autompc_torch.sysid import SINDy
+
+    b = CartpoleSwingupBenchmark()
+    m = SINDy(b.system, method="lstsq", trig_basis=True, device="cpu")
+    m.set_parameters({"coeffs": 0.1 * torch.ones(4, m.library.n_features).numpy()})
+    base = dict(horizon=4, n_steps=2, goal=torch.zeros(4).numpy(),
+                feature_spec=(m.library, "coeffs"), device="cpu")
+    base.update(kw)
+    return QuadCostFanout(b.system, b.task, m, m, **base)
+
+
+@pytest.mark.parametrize("kwargs, match", [
+    (dict(impl="vmap"), "impl='vmap'"),
+    (dict(impl="other"), "impl must be"),
+    (dict(mesh=object()), "mesh"),
+    (dict(reg_matrix=[[1.0]]), "reg_matrix"),
+    (dict(fuse_ls=True, lanes_last=False), "fuse_ls with the batch-major"),
+    (dict(feature_spec=None), "jacfwd"),
+])
+def test_fanout_options_that_still_raise(kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        _fanout(**kwargs)
+
+
+def test_fanout_takes_the_card_unless_told(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _fanout(device=None)
+    assert _fanout().device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("which, match", [
+    ("K6 ds", "batch-major backward kernel is built for"),
+    ("K7 ds", "rollout line-search kernel is built for"),
+    ("K7 dc", "rollout line-search kernel is built for"),
+    ("K7 per-lane coeffs", "per-lane coefficients"),
+])
+def test_new_kernels_raise_at_unbuilt_shapes(which, match, monkeypatch):
+    """At a (ds, dc) with no instance the wrapper of a tensor that is not
+    on the CPU raises before any launch (device_kind is patched so that
+    meta tensors stand in for the card's)."""
+    from autompc_torch.ops import _build, cuda_linesearch, cuda_riccati
+    from autompc_torch.sysid.basis import FeatureLibrary
+
+    monkeypatch.setattr(_build, "device_kind", lambda t: "cuda")
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device="meta")
+    if which == "K6 ds":
+        with pytest.raises(ValueError, match=match):
+            cuda_riccati.backward_quad(z(2, 3, 5, 5), z(2, 3, 5, 1), z(2, 4, 5), z(2, 3, 1),
+                                       z(2, 5), z(2, 1), z(2, 5), (0.0,) * 5, 0.05, 5)
+        return
+    ds, dc = {"K7 ds": (3, 1), "K7 dc": (4, 2), "K7 per-lane coeffs": (4, 1)}[which]
+    terms = FeatureLibrary.from_config(ds + dc, trig_basis=True).terms
+    coeffs = z(2, ds, len(terms)) if "coeffs" in which else z(ds, len(terms))
+    with pytest.raises(ValueError, match=match):
+        cuda_linesearch.sindy_line_search(
+            terms, z(2, ds), z(2, 4, ds), z(2, 3, dc), z(2, 3, dc, ds), z(2, 3, dc),
+            coeffs, (1.0, 0.2), -1.0, 1.0)
 
 
 def test_timeit_distinct_runs_every_input_and_excludes_warmup():

@@ -1,7 +1,8 @@
 """K3 plain twin (ops/cuda_linesearch.py) vs the JAX Pallas kernel
 pallas_fused_line_search(ll_io=True, carry=(act, old_jac), grad_terms)
 in interpret mode, float64: success/failure flags exactly, every other
-output to 1e-12."""
+output to 1e-12; with the fixed cost and with per-lane cost planes
+(per_lane_diag_cost=True)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -119,3 +120,69 @@ def test_objectives_pick_the_twin_choice(model):
     moved = ~out[4].numpy()
     dist = (objs - out[2][None]).abs().min(0).values.numpy()
     np.testing.assert_array_equal(dist[moved], 0.0)
+
+
+def _run_both_per_lane(model, d, qd, rd, fd, goal, dt=0.05):
+    m, t, active = model
+    gts = m.library.grad_terms
+    ref = pallas_fused_line_search(
+        tuple(m.library._fns[k] for k in active), *(jnp.asarray(d[k]) for k in
+                                                    ("x0", "xs", "us", "Ks", "ks")),
+        m.coeffs[:, jnp.asarray(active)], jnp.asarray(ALPHAS), -20.0, 20.0,
+        jnp.asarray(qd), jnp.asarray(rd), jnp.asarray(fd), jnp.asarray(goal), dt,
+        *(jnp.asarray(d[k]) for k in ("obj0", "lin", "quad", "ks_small")),
+        grad_terms=tuple(gts[k] for k in active), block_b=d["us"].shape[1],
+        interpret=True, ll_io=True, per_lane_diag_cost=True,
+        carry=(jnp.asarray(d["act"]), jnp.asarray(d["old_jac"])),
+    )
+    T = torch.as_tensor
+    got = fused_line_search(
+        tuple(t.library.terms[k] for k in active),
+        *(T(d[k]) for k in ("x0", "xs", "us", "Ks", "ks")),
+        t.coeffs[:, list(active)], ALPHAS, -20.0, 20.0, T(qd), T(rd), T(fd),
+        tuple(goal), dt,
+        *(T(d[k]) for k in ("obj0", "lin", "quad", "ks_small", "act", "old_jac")),
+    )
+    return ref, got
+
+
+@pytest.mark.parametrize("seed", [20, 21, 22])
+def test_fused_line_search_per_lane_cost_matches_pallas(model, seed):
+    d = _inputs(seed)
+    B = d["us"].shape[1]
+    rng = np.random.default_rng(seed + 100)
+    qd = 10 ** rng.uniform(-1, 1.5, (4, B))
+    rd = 10 ** rng.uniform(-3, 0, (1, B))
+    fd = 10 ** rng.uniform(-1, 1.5, (4, B))
+    goal = np.array([0.1, 0.0, -0.2, 0.0]) if seed == 22 else np.zeros(4)
+    ref, got = _run_both_per_lane(model, d, qd, rd, fd, goal)
+    names = ("xs", "us", "obj", "succ", "fail", "jac", "du2")
+    for name, g, r in zip(names, got, ref):
+        if name in ("succ", "fail"):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=name)
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-10,
+                                       atol=1e-10, err_msg=name)
+    assert got[3].numpy().any()
+
+
+def test_fused_line_search_identical_rows_equal_fixed_cost(model):
+    """Per-lane planes that repeat the fixed cost give the fixed-cost
+    call's outputs exactly."""
+    _, t, active = model
+    d = _inputs(23)
+    B = d["us"].shape[1]
+    T = torch.as_tensor
+    F = np.diag([3.0, 0.5, 0.2, 0.1])
+    head = (tuple(t.library.terms[k] for k in active),
+            *(T(d[k]) for k in ("x0", "xs", "us", "Ks", "ks")),
+            t.coeffs[:, list(active)], ALPHAS, -20.0, 20.0)
+    tail = (tuple(np.zeros(4)), 0.05,
+            *(T(d[k]) for k in ("obj0", "lin", "quad", "ks_small", "act", "old_jac")))
+    fixed = fused_line_search(*head, tuple(np.diag(Q)), tuple(np.diag(R)),
+                              tuple(np.diag(F)), *tail)
+    rows = lambda v: T(np.repeat(np.asarray(v, dtype=float)[:, None], B, axis=1))
+    lane = fused_line_search(*head, rows(np.diag(Q)), rows(np.diag(R)),
+                             rows(np.diag(F)), *tail)
+    for f, l in zip(fixed, lane):
+        np.testing.assert_array_equal(f.numpy(), l.numpy())
