@@ -15,11 +15,16 @@ QuadCost, or one per lane with ``quad_cost_batch``), a
 linear-in-features model (``feature_spec``), ``fuse_ls=True``. The carry
 stays in the kernels' lanes-last layout for the whole solve — xs
 (H+1, ds, B), us (H, B), gains (H, ds, B)/(H, B) and the packed Jacobian
-plane jac (H, ds*(ds+1), B) — packed once at entry and unpacked once by
-``finalize``. Each iteration is two kernel launches
-(``ops/cuda_riccati.py`` and ``ops/cuda_linesearch.py``, which applies
-the carry select itself) plus a few lane-vector ops; the entry
-relinearization is ``ops/cuda_relin.py``.
+plane jac (H, ds*(ds+1), B), float32 or, with ``jac_dtype="bf16"``,
+bfloat16 — packed once at entry and unpacked once by ``finalize``. Each
+iteration is two kernel launches (``ops/cuda_riccati.py`` and
+``ops/cuda_linesearch.py``, which applies the carry select itself) plus
+a few lane-vector ops; the entry relinearization is
+``ops/cuda_relin.py``. With ``ls_wide=True`` an iteration whose batch
+is a multiple of 1024 takes the split line search instead (two kernels
+and the acceptance rule in tensor ops between them); the environment
+variable ``AMPC_BQ_WIDE_IO`` ("cast", the default, or "reshape") picks
+the backward pass's entry, as in the JAX package.
 
 ``lanes_last=False`` — the batch-major body: any (ds, dc), any cost with
 ``eval_*_cost_hess`` or per-lane diagonal costs, a model with a
@@ -45,10 +50,13 @@ Every other option of the JAX solver raises ``ValueError`` naming it.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from ..ops.cuda_linesearch import fused_line_search, sindy_line_search
+from ..ops._build import WIDE_B
+from ..ops.cuda_linesearch import fused_line_search, fused_line_search_wide, sindy_line_search
 from ..ops.cuda_mlp_linesearch import fold_mlp_params, mlp_line_search
 from ..ops.cuda_relin import relin_jacobians
 from ..ops.cuda_riccati import backward_quad, backward_quad_ll
@@ -150,19 +158,31 @@ def make_batched_ilqr_solver(
     The kernel computes in true float32, so ``precision`` must be
     "highest"; ``layout``, ``block_b`` and ``interpret`` are choices of
     the TPU kernel and are ignored.
+
+    ``ls_wide`` (lanes-last body; the batch-major body ignores it, as the
+    JAX package's does): an iteration whose batch is a multiple of 1024
+    takes the split line search (``fused_line_search_wide``), any other
+    the fused kernel; decided per call, so each compaction stage of the
+    scheduled solver decides for its own size. ``jac_dtype="bf16"``
+    (lanes-last body only) stores the Jacobian carry in bfloat16; the
+    kernels compute in float32 and round at the write.
     """
     for name, on in (
         ("horizon_mask", horizon_mask), ("pad_to", pad_to is not None),
         ("batch_params", batch_params),
-        ("reg_matrix", reg_matrix is not None), ("ls_wide", ls_wide),
+        ("reg_matrix", reg_matrix is not None),
         ("analytic_jac", analytic_jac),
     ):
         if on:
             raise _unsupported(name)
-    if jac_dtype == "bf16":
-        raise _unsupported("jac_dtype='bf16'")
-    if jac_dtype != "f32":
+    if jac_dtype not in ("f32", "bf16"):
         raise ValueError(f"jac_dtype must be f32/bf16, got {jac_dtype!r}")
+    if jac_dtype == "bf16" and not lanes_last:
+        raise ValueError(
+            "jac_dtype='bf16' (half-stream jac carry; the B=131072 "
+            "HBM fit) is implemented for the lanes-last packed-jac "
+            "carry only"
+        )
     if relin not in ("auto", "pallas"):
         raise _unsupported(f"relin={relin!r}")
     if feature_mask is not None and feature_spec is None:
@@ -279,6 +299,8 @@ def make_batched_ilqr_solver(
             xsT = xs0.permute(1, 2, 0).contiguous()
             usT = uguess[:, :, 0].T.contiguous()
             jac = relin_jacobians(terms, xsT, usT, active_coeffs(params))
+            if jac_dtype == "bf16":
+                jac = jac.to(torch.bfloat16)
             return dict(
                 x0s=x0s.T.contiguous(), xs=xsT, us=usT, jac=jac,
                 # Lanes-last planes (obsdim, B) / (1, B): compaction
@@ -293,6 +315,9 @@ def make_batched_ilqr_solver(
 
         def make_body(params):
             coeffs = active_coeffs(params)
+            # Read once per solve, as the JAX package reads it once per
+            # trace.
+            wide_io = os.environ.get("AMPC_BQ_WIDE_IO", "cast")
 
             def body(c):
                 active = ~c["converged"] & ~c["failed"]
@@ -303,13 +328,17 @@ def make_batched_ilqr_solver(
                     qd, rd, fd = fixed_diag[:3]
                 KsT, ksT, lin_red, quad_red = backward_quad_ll(
                     c["jac"], c["xs"], c["us"], qd, rd, fd, goal, dt, obsdim,
-                    carry=(active, c["Ks"], c["ks"]),
+                    carry=(active, c["Ks"], c["ks"]), wide_io=wide_io,
                 )
                 # Inactive lanes' ksT rows hold their OLD gains (the carry
                 # select); their line-search outcome is discarded by the
                 # same masks, so the stale ks_small is inert.
                 ks_small = torch.sqrt((ksT * ksT).sum(0)) < u_threshold
-                xs, us, obj, _, failed_now, jac, du2 = fused_line_search(
+                search = (
+                    fused_line_search_wide
+                    if ls_wide and active.shape[0] % WIDE_B == 0 else fused_line_search
+                )
+                xs, us, obj, _, failed_now, jac, du2 = search(
                     terms, c["x0s"], c["xs"], c["us"], KsT, ksT, coeffs, alphas,
                     ulo, uhi, qd, rd, fd, goal, dt, c["obj"], lin_red,
                     quad_red, ks_small, active, c["jac"],

@@ -39,8 +39,9 @@ def make_receding_ilqr_loop(
     batched true dynamics. ``solver_kw`` go to
     ``make_batched_ilqr_solver``: with the model's ``feature_spec`` (and
     maybe ``feature_mask``) the lanes-last fused kernel path is selected
-    here; with ``pred_diff`` (any ds, dc; maybe ``mlp_ls``) the
-    batch-major body runs.
+    here, and its options (``ls_wide``, ``jac_dtype``) pass through; with
+    ``pred_diff`` (any ds, dc; maybe ``mlp_ls``) the batch-major body
+    runs.
     """
     kw = dict(backward="pallas")
     if solver_kw.get("feature_spec") is not None:

@@ -33,58 +33,16 @@
 // candidates never leave registers; lanes-last layout for coalesced
 // streams; coefficient plane in shared memory, term table in the
 // constant bank; 64-thread blocks to spread the warps over the SMs.
-// Splitting the candidates across threads is the obvious next step.
-#include "features.cuh"
+// Splitting the candidates across threads is the obvious next step; the
+// split line search (K8 + acceptance + K9) is that split, and shares this
+// kernel's step arithmetic (ls_step.cuh).
+//
+// The Jacobian carry is float or bfloat16 (jac_io.cuh): old rows are
+// read, and new rows written, in the carry's own storage type (the TPU
+// wrapper's jac_dtype), a second template switch.
+#include "ls_step.cuh"
 
-#define AMPC_MAX_L 10
-#define AMPC_MAX_OBS 8
-
-struct LSParams {
-  int L;
-  int obsdim;
-  float alphas[AMPC_MAX_L];
-  float umin, umax;
-  float qd[AMPC_MAX_OBS];  // diag Q
-  float rd;                // R (dc = 1)
-  float fd[AMPC_MAX_OBS];  // diag F
-  float goal[AMPC_MAX_OBS];
-  float dt;
-  float thresh;  // expected-reduction acceptance threshold
-};
-
-template <int DS>
-__device__ __forceinline__ float ls_control(const LSParams& P,
-                                            const float (&x)[DS],
-                                            const float (&xbar)[DS],
-                                            const float (&K)[DS], float ubar,
-                                            float kk, float alpha) {
-  TreeAcc fb;
-#pragma unroll
-  for (int i = 0; i < DS; ++i) fb.push(K[i] * (x[i] - xbar[i]), i);
-  const float u = alpha * kk + ubar + fb.total(DS);
-  // Comparisons, not fminf/fmaxf: a NaN control (NaN gains) stays NaN,
-  // as in the plain version, and the lane then fails its line search.
-  return u < P.umin ? P.umin : (u > P.umax ? P.umax : u);
-}
-
-// Balanced sum over the obs dims of w_i (x_i - g_i)^2; w is P.qd / P.fd
-// or the lane's own diagonal in registers.
-template <int DS>
-__device__ __forceinline__ float ls_quad_form(const LSParams& P,
-                                              const float (&x)[DS],
-                                              const float* w) {
-  TreeAcc acc;
-#pragma unroll
-  for (int i = 0; i < DS; ++i) {
-    if (i < P.obsdim) {
-      const float d = x[i] - P.goal[i];
-      acc.push(w[i] * d * d, i);
-    }
-  }
-  return acc.total(P.obsdim);
-}
-
-template <int DS, bool LANE_COST>
+template <int DS, bool LANE_COST, typename JT>
 __global__ void fused_ls_kernel(
     const __grid_constant__ FeatTable T, const __grid_constant__ LSParams P,
     const float* __restrict__ coeffs, const float* __restrict__ x0T,
@@ -93,12 +51,11 @@ __global__ void fused_ls_kernel(
     const float* __restrict__ qdT, const float* __restrict__ rdT,
     const float* __restrict__ fdT, const float* __restrict__ obj0_in, const float* __restrict__ lin_in,
     const float* __restrict__ quad_in, const uint8_t* __restrict__ ks_small_in,
-    const uint8_t* __restrict__ act_in, const float* __restrict__ old_jac,
+    const uint8_t* __restrict__ act_in, const JT* __restrict__ old_jac,
     float* __restrict__ out_xs, float* __restrict__ out_us,
     float* __restrict__ out_obj, uint8_t* __restrict__ out_succ,
-    uint8_t* __restrict__ out_fail, float* __restrict__ out_jac,
+    uint8_t* __restrict__ out_fail, JT* __restrict__ out_jac,
     float* __restrict__ out_du2, int H, int B) {
-  constexpr int D = DS + 1;
   __shared__ float s_coef[DS * AMPC_MAX_F];
   ampc_load_coef(s_coef, coeffs, DS * T.n);
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -130,28 +87,13 @@ __global__ void fused_ls_kernel(
     for (int i = 0; i < DS; ++i) x[l][i] = x0[i];
   }
   for (int t = 0; t < H; ++t) {
-    float xbar[DS], K[DS];
+    float xbar[DS], K[DS], ubar, kk;
+    ls_load_row<DS>(xsT, usT, KsT, ksT, t, B, b, xbar, K, ubar, kk);
 #pragma unroll
-    for (int i = 0; i < DS; ++i) {
-      xbar[i] = xsT[((long long)t * DS + i) * B + b];
-      K[i] = KsT[((long long)t * DS + i) * B + b];
-    }
-    const float ubar = usT[(long long)t * B + b];
-    const float kk = ksT[(long long)t * B + b];
-#pragma unroll
-    for (int l = 0; l < AMPC_MAX_L; ++l) {
-      if (l < L) {
-        const float u = ls_control<DS>(P, x[l], xbar, K, ubar, kk, P.alphas[l]);
-        const float oc = ls_quad_form<DS>(P, x[l], wq);
-        const float cc = rd * u * u;
-        obj[l] = obj[l] + P.dt * (oc + cc);
-        float z[D];
-#pragma unroll
-        for (int i = 0; i < DS; ++i) z[i] = x[l][i];
-        z[DS] = u;
-        ampc_dynamics<DS, D>(T, s_coef, z, x[l]);
-      }
-    }
+    for (int l = 0; l < AMPC_MAX_L; ++l)
+      if (l < L)
+        ls_obj_step<DS>(T, s_coef, P, x[l], xbar, K, ubar, kk, P.alphas[l],
+                        wq, rd, obj[l]);
   }
   // The terminal diagonal is fetched only now, after the rollouts.
   float f_lane[DS];
@@ -220,81 +162,63 @@ __global__ void fused_ls_kernel(
   out_fail[b] = failed ? 1 : 0;
 
   // ---- pass 2: re-roll the chosen step size ---------------------------
-  float x2[DS];
-#pragma unroll
-  for (int i = 0; i < DS; ++i) {
-    x2[i] = x0[i];
-    const long long o = (long long)i * B + b;
-    out_xs[o] = traj_mask ? x0[i] : xsT[o];
-  }
-  float du2 = 0.f;
-  for (int t = 0; t < H; ++t) {
-    float xbar[DS], K[DS];
-#pragma unroll
-    for (int i = 0; i < DS; ++i) {
-      xbar[i] = xsT[((long long)t * DS + i) * B + b];
-      K[i] = KsT[((long long)t * DS + i) * B + b];
-    }
-    const long long ot = (long long)t * B + b;
-    const float ubar = usT[ot];
-    const float u = ls_control<DS>(P, x2, xbar, K, ubar, ksT[ot], a_sel);
-    float z[D];
-#pragma unroll
-    for (int i = 0; i < DS; ++i) z[i] = x2[i];
-    z[DS] = u;
-    float xn[DS];
-    ampc_dynamics<DS, D>(T, s_coef, z, xn);
-#pragma unroll
-    for (int i = 0; i < DS; ++i) {
-      const long long o = ((long long)(t + 1) * DS + i) * B + b;
-      out_xs[o] = traj_mask ? xn[i] : xsT[o];
-    }
-    const float du = u - ubar;
-    du2 = du2 + du * du;
-    out_us[ot] = traj_mask ? u : ubar;
-    float rows[DS * D];
-    ampc_jac_rows<DS, D>(T, s_coef, z, rows);
-#pragma unroll
-    for (int r = 0; r < DS * D; ++r) {
-      const long long o = ((long long)t * DS * D + r) * B + b;
-      out_jac[o] = jac_mask ? rows[r] : old_jac[o];
-    }
-#pragma unroll
-    for (int i = 0; i < DS; ++i) x2[i] = xn[i];
-  }
+  const float du2 =
+      ls_reroll_lane<DS, JT>(T, s_coef, P, x0, a_sel, traj_mask, jac_mask,
+                             xsT, usT, KsT, ksT, old_jac, out_xs, out_us,
+                             out_jac, H, B, b);
   out_du2[b] = du2;
 }
 
+template <bool LANE_COST, typename JT>
+static void launch(const FeatTable* T, const LSParams* P, const float* coeffs,
+                   const float* x0T, const float* xsT, const float* usT,
+                   const float* KsT, const float* ksT, const float* qdT,
+                   const float* rdT, const float* fdT, const float* obj0,
+                   const float* lin, const float* quad,
+                   const uint8_t* ks_small, const uint8_t* act,
+                   const void* old_jac, float* out_xs, float* out_us,
+                   float* out_obj, uint8_t* out_succ, uint8_t* out_fail,
+                   void* out_jac, float* out_du2, int H, int B,
+                   cudaStream_t s) {
+  const int threads = 64;
+  const unsigned blocks = (unsigned)((B + threads - 1) / threads);
+  fused_ls_kernel<4, LANE_COST, JT><<<blocks, threads, 0, s>>>(
+      *T, *P, coeffs, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT, obj0, lin,
+      quad, ks_small, act, (const JT*)old_jac, out_xs, out_us, out_obj,
+      out_succ, out_fail, (JT*)out_jac, out_du2, H, B);
+}
+
+// qdT/rdT/fdT: per-lane cost planes, or all three null for the fixed
+// cost held in P. jac_bf16: old_jac and out_jac are bfloat16, else float.
 extern "C" int ampc_fused_line_search(
     const FeatTable* T, const LSParams* P, const float* coeffs,
     const float* x0T, const float* xsT, const float* usT, const float* KsT,
     const float* ksT, const float* qdT, const float* rdT, const float* fdT,
     const float* obj0, const float* lin, const float* quad,
-    const uint8_t* ks_small, const uint8_t* act, const float* old_jac,
+    const uint8_t* ks_small, const uint8_t* act, const void* old_jac,
     float* out_xs, float* out_us, float* out_obj, uint8_t* out_succ,
-    uint8_t* out_fail, float* out_jac, float* out_du2, int ds, int H, int B,
-    int device, void* stream) {
+    uint8_t* out_fail, void* out_jac, float* out_du2, int jac_bf16, int ds,
+    int H, int B, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  // qdT/rdT/fdT: per-lane cost planes, or all three null for the fixed
-  // cost held in P.
   const bool lane = qdT != nullptr;
   if (ds != 4 || T->d != ds + 1 || T->n < 1 || T->n > AMPC_MAX_F ||
       P->L < 1 || P->L > AMPC_MAX_L || P->obsdim < 1 || P->obsdim > ds ||
       (rdT != nullptr) != lane || (fdT != nullptr) != lane)
     return (int)cudaErrorInvalidValue;
-  const int threads = 64;
-  const unsigned blocks = (unsigned)((B + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
-  if (lane)
-    fused_ls_kernel<4, true><<<blocks, threads, 0, s>>>(
-        *T, *P, coeffs, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT, obj0, lin,
-        quad, ks_small, act, old_jac, out_xs, out_us, out_obj, out_succ,
-        out_fail, out_jac, out_du2, H, B);
+#define AMPC_LAUNCH(LC, JT_)                                                 \
+  launch<LC, JT_>(T, P, coeffs, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT, obj0, \
+                  lin, quad, ks_small, act, old_jac, out_xs, out_us, out_obj, \
+                  out_succ, out_fail, out_jac, out_du2, H, B, s)
+  if (lane && jac_bf16)
+    AMPC_LAUNCH(true, __nv_bfloat16);
+  else if (lane)
+    AMPC_LAUNCH(true, float);
+  else if (jac_bf16)
+    AMPC_LAUNCH(false, __nv_bfloat16);
   else
-    fused_ls_kernel<4, false><<<blocks, threads, 0, s>>>(
-        *T, *P, coeffs, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT, obj0, lin,
-        quad, ks_small, act, old_jac, out_xs, out_us, out_obj, out_succ,
-        out_fail, out_jac, out_du2, H, B);
+    AMPC_LAUNCH(false, float);
+#undef AMPC_LAUNCH
   return (int)cudaGetLastError();
 }

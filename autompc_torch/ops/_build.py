@@ -44,8 +44,8 @@ NVCC_FLAGS = (
 )
 
 # Compile-time limits of csrc/ (features.cuh, riccati_quad_step.cuh,
-# linesearch_fused.cu, sindy_linesearch.cu, mlp_linesearch.cu); the
-# wrappers raise before a call would exceed them.
+# ls_step.cuh, sindy_linesearch.cu, mlp_linesearch.cu); the wrappers
+# raise before a call would exceed them.
 MAX_F = 64
 MAX_D = 8
 MAX_OBS = 8
@@ -57,6 +57,10 @@ MLP_RPT = 5
 MLP_TX = 64
 MLP_PF = 8
 MAX_SMEM_BYTES = 227 * 1024
+# Lanes of one TPU wide tile, (8, 128): the TPU package's wide kernels
+# (and their options here: the split line search, the reshape-IO
+# backward) take a batch only when it is a multiple of WIDE_B.
+WIDE_B = 1024
 # The (ds, dc) pairs each shape-templated kernel is instantiated for;
 # the MLP line search takes its widths at run time, up to the limits
 # above.
@@ -65,6 +69,8 @@ KERNEL_SHAPES = {
     "riccati_quad": ((4, 1),),
     "riccati_quad_bm": ((4, 1),),
     "linesearch_fused": ((4, 1),),
+    "ls_obj_wide": ((4, 1),),
+    "ls_reroll_wide": ((4, 1),),
     "sindy_linesearch": ((4, 1),),
     "riccati_general": ((18, 6), (4, 1)),
 }
@@ -138,14 +144,22 @@ _SIGNATURES = {
         [ctypes.POINTER(FeatTable), _P, _P, _P, _P, _I, _I, _I, _I, _P]
     ),
     "ampc_backward_quad_ll": (
-        [ctypes.POINTER(QuadDiag)] + [_P] * 13 + [_I, _I, _I, _I, _P]
+        [ctypes.POINTER(QuadDiag)] + [_P] * 14 + [_I] * 5 + [_P]
     ),
     "ampc_backward_quad_bm": (
         [ctypes.POINTER(QuadDiag)] + [_P] * 11 + [_I, _I, _I, _I, _P]
     ),
     "ampc_fused_line_search": (
         [ctypes.POINTER(FeatTable), ctypes.POINTER(LSParams)]
-        + [_P] * 22 + [_I, _I, _I, _I, _P]
+        + [_P] * 22 + [_I] * 5 + [_P]
+    ),
+    "ampc_ls_obj_wide": (
+        [ctypes.POINTER(FeatTable), ctypes.POINTER(LSParams)]
+        + [_P] * 10 + [_I] * 4 + [_P]
+    ),
+    "ampc_ls_reroll_wide": (
+        [ctypes.POINTER(FeatTable), ctypes.POINTER(LSParams)]
+        + [_P] * 14 + [_I] * 5 + [_P]
     ),
     "ampc_sindy_line_search": (
         [ctypes.POINTER(FeatTable), ctypes.POINTER(SindyLS)]
@@ -327,6 +341,18 @@ def cost_plane_ptrs(lane, qd, rd, fd, dtype, device):
     for name, v in (("qd", qd), ("rd", rd), ("fd", fd)):
         check_cuda(name, v, v.shape, dtype, device)
     return [ptr(v) for v in (qd, rd, fd)]
+
+
+JAC_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def jac_bf16(name: str, jac: torch.Tensor) -> int:
+    """1 for a bfloat16 Jacobian carry, 0 for float32; any other storage
+    type raises."""
+    if jac.dtype not in JAC_DTYPES:
+        raise ValueError(f"{name}: dtype {jac.dtype}, the kernels store the "
+                         "Jacobian carry as float32 or bfloat16")
+    return int(jac.dtype == torch.bfloat16)
 
 
 def check_rc(name: str, rc: int):

@@ -1,5 +1,5 @@
-"""K3 and K7: the iLQR line search for linear-in-features models (port
-of ``autompc_tpu/ops/pallas_linesearch.py``).
+"""K3, K7, K8 and K9: the iLQR line search for linear-in-features models
+(port of ``autompc_tpu/ops/pallas_linesearch.py``).
 
 ``fused_line_search`` (K3, ``pallas_fused_line_search`` with
 ``ll_io=True``, ``carry=(act, old_jac)``, ``grad_terms`` and shared
@@ -9,19 +9,31 @@ quadratic objective, applies the reference acceptance rule, re-rolls the
 chosen step, relinearizes along it and applies the iLQR carry select.
 Inputs and outputs are lanes-last and dc = 1; the cost is a diagonal
 QuadCost, either one fixed cost as host sequences or per-lane lanes-last
-planes (``per_lane_diag_cost=True`` of the TPU kernel).
+planes (``per_lane_diag_cost=True`` of the TPU kernel). The Jacobian
+carry is float32 or bfloat16 (``jac_dtype="bf16"`` of the solver): old
+rows are read and new rows written in its own storage type.
+
+``fused_line_search_wide`` (``pallas_fused_line_search_wide``, the
+solver's ``ls_wide=True``): the same contract split in three. K8
+(``wide_objectives``, ``csrc/ls_obj_wide.cu``) scores every (lane, step
+size) and returns the (L, B) objectives only; the acceptance rule runs
+in tensor ops (``wide_accept``), as the TPU package runs it in XLA; K9
+(``wide_reroll``, ``csrc/ls_reroll_wide.cu``) re-rolls the selected
+step size, relinearizes and applies the carry select. The rollout and
+re-roll arithmetic is one header shared with K3 (``csrc/ls_step.cuh``).
 
 ``sindy_line_search`` (K7, ``pallas_sindy_line_search``; kernel in
 ``csrc/sindy_linesearch.cu``): the unfused form on the batch-major
 carry, which rolls out every step size and returns all L trajectories;
 the objective and the choice are the caller's.
 
-The wide variant, the GaussReg term (``reg=``) and per-lane coefficients
-are not ported yet (ROADMAP.md §B, §A 7a).
+The GaussReg term (``reg=``) and per-lane coefficients are not ported
+yet (ROADMAP.md §A 7a).
 
 A CPU tensor takes the plain PyTorch version (``fused_line_search_plain``,
-``sindy_line_search_plain``); a CUDA tensor launches the kernel or
-raises.
+``sindy_line_search_plain``, ``line_search_objectives``,
+``wide_reroll_plain``, ``fused_line_search_wide_plain``); a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -108,7 +120,9 @@ def fused_line_search_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
                             quad_red, ks_small, act, old_jac,
                             ls_cost_threshold=0.3):
     """Plain PyTorch twin of the kernel (same math, same summation
-    order; the JAX kernel's acceptance rule line for line)."""
+    order; the JAX kernel's acceptance rule line for line). New Jacobian
+    rows are rounded to ``old_jac``'s storage type (a float64 -> bfloat16
+    cast goes through float32, in PyTorch as in JAX)."""
     H, ds, B, obsdim, lane = _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
                                      qd, rd, fd, goal, act, old_jac)
     L = len(alphas)
@@ -165,7 +179,7 @@ def fused_line_search_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
         du2 = du2 + (u - usT[t]) ** 2
         out_us[t] = torch.where(traj_mask, u, usT[t])
         rows = torch.stack(feature_jacobian_rows(terms, coeffs, z, ds))
-        out_jac[t] = torch.where(jac_mask, rows, old_jac[t])
+        out_jac[t] = torch.where(jac_mask, rows, old_jac[t].to(rows.dtype))
         x = xn
     new_obj = torch.where(traj_mask, new_obj, obj0)
     return out_xs, out_us, new_obj, success, failed, out_jac, du2
@@ -187,7 +201,8 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
 
     Returns (xsT, usT, obj, success, failed, jac_p, du2) — the next
     carry values: active lanes that did not fail take the re-rolled
-    trajectory, those that also succeeded take its Jacobians."""
+    trajectory, those that also succeeded take its Jacobians, stored in
+    ``old_jac``'s type (float32 or bfloat16)."""
     if _build.device_kind(xsT) == "cpu":
         return fused_line_search_plain(
             terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax, qd,
@@ -209,28 +224,18 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
         ("ksT", ksT, (H, B), f32), ("coeffs", coeffs, (ds, len(terms)), f32),
         ("obj0", obj0, (B,), f32), ("lin_red", lin_red, (B,), f32),
         ("quad_red", quad_red, (B,), f32), ("ks_small", ks_small, (B,), b8),
-        ("act", act, (B,), b8), ("old_jac", old_jac, (H, dsd, B), f32),
+        ("act", act, (B,), b8), ("old_jac", old_jac, (H, dsd, B), old_jac.dtype),
     ):
         _build.check_cuda(name, t, shape, dt_, dev)
-    P = _build.LSParams()
-    P.L, P.obsdim = len(alphas), obsdim
-    for l, a in enumerate(alphas):
-        P.alphas[l] = float(a)
-    P.umin, P.umax = float(umin), float(umax)
-    for i in range(obsdim):
-        P.goal[i] = float(goal[i])
-    if not lane:
-        P.rd = float(rd[0])
-        for i in range(obsdim):
-            P.qd[i], P.fd[i] = float(qd[i]), float(fd[i])
+    bf16 = _build.jac_bf16("old_jac", old_jac)
+    P = _ls_params(alphas, umin, umax, qd, rd, fd, goal, dt, ls_cost_threshold, lane)
     planes = _build.cost_plane_ptrs(lane, qd, rd, fd, f32, dev)
-    P.dt, P.thresh = float(dt), float(ls_cost_threshold)
     out_xs = torch.empty((H + 1, ds, B), dtype=f32, device=dev)
     out_us = torch.empty((H, B), dtype=f32, device=dev)
     out_obj = torch.empty((B,), dtype=f32, device=dev)
     succ = torch.empty((B,), dtype=b8, device=dev)
     fail = torch.empty((B,), dtype=b8, device=dev)
-    out_jac = torch.empty((H, dsd, B), dtype=f32, device=dev)
+    out_jac = torch.empty((H, dsd, B), dtype=old_jac.dtype, device=dev)
     du2 = torch.empty((B,), dtype=f32, device=dev)
     p = _build.ptr
     rc = _build.library().ampc_fused_line_search(
@@ -238,14 +243,240 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
         p(coeffs), p(x0T), p(xsT), p(usT), p(KsT), p(ksT), *planes, p(obj0), p(lin_red),
         p(quad_red), p(ks_small), p(act), p(old_jac), p(out_xs), p(out_us),
         p(out_obj), p(succ), p(fail), p(out_jac), p(du2),
-        ds, H, B, dev.index or 0, _build.stream_of(xsT),
+        bf16, ds, H, B, dev.index or 0, _build.stream_of(xsT),
     )
     _build.check_rc("fused_line_search", rc)
     fused_line_search.launches += 1
+    fused_line_search.launches_bf16 += bf16
     return out_xs, out_us, out_obj, succ, fail, out_jac, du2
 
 
 fused_line_search.launches = 0
+fused_line_search.launches_bf16 = 0
+
+
+def _ls_params(alphas, umin, umax, qd, rd, fd, goal, dt, thresh, lane):
+    """The line-search kernels' constant block; the cost diagonals only
+    for a fixed cost (``lane`` False)."""
+    P = _build.LSParams()
+    P.L, P.obsdim = len(alphas), len(goal)
+    for l, a in enumerate(alphas):
+        P.alphas[l] = float(a)
+    P.umin, P.umax = float(umin), float(umax)
+    for i in range(len(goal)):
+        P.goal[i] = float(goal[i])
+    if not lane:
+        P.rd = float(rd[0])
+        for i in range(len(goal)):
+            P.qd[i], P.fd[i] = float(qd[i]), float(fd[i])
+    P.dt, P.thresh = float(dt), float(thresh)
+    return P
+
+
+def _check_wide(B, coeffs):
+    if B % _build.WIDE_B != 0:
+        raise ValueError(f"wide line search needs B % {_build.WIDE_B} == 0, got {B}")
+    if coeffs.ndim == 3:
+        raise ValueError(
+            "per-lane coefficients (coeffs (ds, F, B), the solver's batch_params) "
+            "are not ported to the wide line search in autompc_torch yet"
+        )
+
+
+def wide_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax,
+                    qd, rd, fd, goal, dt, lane=None):
+    """K8: the objective of every candidate step size, (L, B), and
+    nothing else; arguments as ``fused_line_search``'s first fifteen,
+    B % 1024 == 0; ``lane`` as in ``line_search_objectives``. A CPU
+    tensor takes ``line_search_objectives``."""
+    Hp1, ds, B = xsT.shape
+    _check_wide(B, coeffs)
+    if lane is None:
+        lane = _build.lane_cost_planes(qd, rd, fd, len(goal), B)
+    if _build.device_kind(xsT) == "cpu":
+        return line_search_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
+                                      umin, umax, qd, rd, fd, goal, dt, lane)
+    H = Hp1 - 1
+    built = _build.KERNEL_SHAPES["ls_obj_wide"]
+    if (ds, 1) not in built:
+        raise ValueError(f"objective-sweep kernel is built for (ds, dc) in {built}, "
+                         f"got {(ds, 1)}")
+    if not 1 <= len(alphas) <= _build.MAX_L:
+        raise ValueError(f"1..{_build.MAX_L} step sizes supported, got {len(alphas)}")
+    dev, f32 = xsT.device, torch.float32
+    for name, t, shape in (
+        ("x0T", x0T, (ds, B)), ("xsT", xsT, (H + 1, ds, B)), ("usT", usT, (H, B)),
+        ("KsT", KsT, (H, ds, B)), ("ksT", ksT, (H, B)),
+        ("coeffs", coeffs, (ds, len(terms))),
+    ):
+        _build.check_cuda(name, t, shape, f32, dev)
+    P = _ls_params(alphas, umin, umax, qd, rd, fd, goal, dt, 0.0, lane)
+    planes = _build.cost_plane_ptrs(lane, qd, rd, fd, f32, dev)
+    objs = torch.empty((len(alphas), B), dtype=f32, device=dev)
+    p = _build.ptr
+    rc = _build.library().ampc_ls_obj_wide(
+        ctypes.byref(_build.feat_table(tuple(terms))), ctypes.byref(P), p(coeffs),
+        p(x0T), p(xsT), p(usT), p(KsT), p(ksT), *planes, p(objs),
+        ds, H, B, dev.index or 0, _build.stream_of(xsT),
+    )
+    _build.check_rc("wide_objectives", rc)
+    wide_objectives.launches += 1
+    return objs
+
+
+wide_objectives.launches = 0
+
+
+def wide_accept(objs, alphas, obj0, lin_red, quad_red, ks_small, act,
+                ls_cost_threshold=0.3):
+    """The reference acceptance rule on the (L, B) objectives, in tensor
+    ops, line for line as ``pallas_linesearch.py:1155-1184``. Returns
+    (alpha_sel, traj_mask, jac_mask, new_obj, ls_success, failed), all
+    (B,)."""
+    L = objs.shape[0]
+    a = objs.new_tensor([float(v) for v in alphas])
+    expect = a[:, None] * lin_red[None] + (a[:, None] ** 2) * (quad_red[None] * 0.5)
+    denom = -expect
+    ratio = torch.where(denom.abs() > 1e-30, (obj0[None] - objs) / denom,
+                        torch.full_like(denom, -float("inf")))
+    accept = ratio > ls_cost_threshold
+    any_acc = accept.any(0)
+    first_acc = accept.to(torch.uint8).argmax(0)       # the first accepted
+    best_idx = objs.argmin(0)
+    zero = torch.zeros_like(first_acc)
+    chosen = torch.where(ks_small, zero, torch.where(any_acc, first_acc, best_idx))
+
+    def take(idx):
+        return objs.gather(0, idx[None])[0]
+
+    chosen_obj = take(chosen)
+    ls_success = (chosen_obj < obj0) | ks_small
+    idx_last = torch.where(ks_small, zero,
+                           torch.where(any_acc, first_acc, torch.full_like(zero, L - 1)))
+    last_obj = take(idx_last)
+    failed = ~ls_success & (last_obj > obj0 + 1e-3)
+    sel = torch.where(ls_success, chosen, idx_last)
+    new_obj_raw = torch.where(ls_success, chosen_obj, last_obj)
+    alpha_sel = a[sel]
+    traj_mask = act & ~failed
+    jac_mask = traj_mask & ls_success
+    new_obj = torch.where(traj_mask, new_obj_raw, obj0)
+    return alpha_sel, traj_mask, jac_mask, new_obj, ls_success, failed
+
+
+def wide_reroll_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alpha_sel, umin, umax,
+                      traj_mask, jac_mask, old_jac):
+    """Plain PyTorch version of K9 (the fused twin's pass 2 with the
+    step size and masks given)."""
+    H, ds = usT.shape[0], xsT.shape[1]
+    out_xs, out_us = torch.empty_like(xsT), torch.empty_like(usT)
+    out_jac = torch.empty_like(old_jac)
+    x = [x0T[i] for i in range(ds)]
+    out_xs[0] = torch.where(traj_mask, x0T, xsT[0])
+    du2 = xsT.new_zeros((xsT.shape[2],))
+    for t in range(H):
+        xbar = [xsT[t, i] for i in range(ds)]
+        K = [KsT[t, i] for i in range(ds)]
+        u = _controls(x, xbar, K, usT[t], ksT[t], alpha_sel, umin, umax)
+        z = x + [u]
+        xn = feature_dynamics(terms, coeffs, z, ds)
+        out_xs[t + 1] = torch.where(traj_mask, torch.stack(xn), xsT[t + 1])
+        du2 = du2 + (u - usT[t]) ** 2
+        out_us[t] = torch.where(traj_mask, u, usT[t])
+        rows = torch.stack(feature_jacobian_rows(terms, coeffs, z, ds))
+        out_jac[t] = torch.where(jac_mask, rows, old_jac[t].to(rows.dtype))
+        x = xn
+    return out_xs, out_us, out_jac, du2
+
+
+def wide_reroll(terms, x0T, xsT, usT, KsT, ksT, coeffs, alpha_sel, umin, umax,
+                traj_mask, jac_mask, old_jac):
+    """K9: re-roll every lane at its step size ``alpha_sel`` (B,) with
+    the fused relinearization and the carry select (``traj_mask``,
+    ``jac_mask`` (B,) bool). Returns (xs (H+1, ds, B), us (H, B), jac
+    (H, ds*(ds+1), B) in ``old_jac``'s type, du2 (B,))."""
+    if _build.device_kind(xsT) == "cpu":
+        return wide_reroll_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alpha_sel,
+                                 umin, umax, traj_mask, jac_mask, old_jac)
+    Hp1, ds, B = xsT.shape
+    H, dsd = Hp1 - 1, ds * (ds + 1)
+    built = _build.KERNEL_SHAPES["ls_reroll_wide"]
+    if (ds, 1) not in built:
+        raise ValueError(f"re-roll kernel is built for (ds, dc) in {built}, got {(ds, 1)}")
+    if len(terms[0].exps) != ds + 1:
+        raise ValueError(f"terms take {len(terms[0].exps)} inputs, expected ds + 1")
+    dev, f32, b8 = xsT.device, torch.float32, torch.bool
+    for name, t, shape, dt_ in (
+        ("x0T", x0T, (ds, B), f32), ("xsT", xsT, (H + 1, ds, B), f32),
+        ("usT", usT, (H, B), f32), ("KsT", KsT, (H, ds, B), f32),
+        ("ksT", ksT, (H, B), f32), ("coeffs", coeffs, (ds, len(terms)), f32),
+        ("alpha_sel", alpha_sel, (B,), f32), ("traj_mask", traj_mask, (B,), b8),
+        ("jac_mask", jac_mask, (B,), b8), ("old_jac", old_jac, (H, dsd, B), old_jac.dtype),
+    ):
+        _build.check_cuda(name, t, shape, dt_, dev)
+    bf16 = _build.jac_bf16("old_jac", old_jac)
+    P = _ls_params((1.0,), umin, umax, None, None, None, (), 0.0, 0.0, True)
+    out_xs = torch.empty((H + 1, ds, B), dtype=f32, device=dev)
+    out_us = torch.empty((H, B), dtype=f32, device=dev)
+    out_jac = torch.empty((H, dsd, B), dtype=old_jac.dtype, device=dev)
+    du2 = torch.empty((B,), dtype=f32, device=dev)
+    p = _build.ptr
+    rc = _build.library().ampc_ls_reroll_wide(
+        ctypes.byref(_build.feat_table(tuple(terms))), ctypes.byref(P), p(coeffs),
+        p(x0T), p(xsT), p(usT), p(KsT), p(ksT), p(old_jac), p(alpha_sel), p(traj_mask),
+        p(jac_mask), p(out_xs), p(out_us), p(out_jac), p(du2),
+        bf16, ds, H, B, dev.index or 0, _build.stream_of(xsT),
+    )
+    _build.check_rc("wide_reroll", rc)
+    wide_reroll.launches += 1
+    wide_reroll.launches_bf16 += bf16
+    return out_xs, out_us, out_jac, du2
+
+
+wide_reroll.launches = 0
+wide_reroll.launches_bf16 = 0
+
+
+def _wide(objectives, reroll, terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin,
+          umax, qd, rd, fd, goal, dt, obj0, lin_red, quad_red, ks_small, act, old_jac,
+          ls_cost_threshold):
+    lane = _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, qd, rd, fd, goal,
+                   act, old_jac)[4]
+    _check_wide(xsT.shape[2], coeffs)
+    objs = objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax,
+                      qd, rd, fd, goal, dt, lane)
+    a_sel, tmask, jmask, new_obj, success, failed = wide_accept(
+        objs, alphas, obj0, lin_red, quad_red, ks_small, act, ls_cost_threshold)
+    xs, us, jac, du2 = reroll(terms, x0T, xsT, usT, KsT, ksT, coeffs, a_sel, umin,
+                              umax, tmask, jmask, old_jac)
+    return xs, us, new_obj, success, failed, jac, du2
+
+
+def fused_line_search_wide_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
+                                 umin, umax, qd, rd, fd, goal, dt, obj0, lin_red,
+                                 quad_red, ks_small, act, old_jac,
+                                 ls_cost_threshold=0.3):
+    """Plain PyTorch version of the split line search: the plain pass 1
+    (``line_search_objectives``), ``wide_accept``, ``wide_reroll_plain``."""
+    return _wide(line_search_objectives, wide_reroll_plain, terms, x0T, xsT, usT, KsT,
+                 ksT, coeffs, alphas, umin, umax, qd, rd, fd, goal, dt, obj0, lin_red,
+                 quad_red, ks_small, act, old_jac, ls_cost_threshold)
+
+
+def fused_line_search_wide(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
+                           umin, umax, qd, rd, fd, goal, dt, obj0, lin_red,
+                           quad_red, ks_small, act, old_jac,
+                           ls_cost_threshold=0.3):
+    """The split ("wide") line search: ``fused_line_search``'s contract
+    and return tuple (xsT (H+1, ds, B), usT (H, B), obj, success, failed,
+    jac_p (H, ds*(ds+1), B), du2), B % 1024 == 0, as K8 (every
+    candidate's objective), the acceptance rule in tensor ops and K9 (the
+    chosen step size re-rolled, relinearized and carry-selected). Every
+    term descriptor carries its partials, which is what the TPU entry's
+    ``grad_terms`` gives it; per-lane coefficients raise."""
+    return _wide(wide_objectives, wide_reroll, terms, x0T, xsT, usT, KsT, ksT, coeffs,
+                 alphas, umin, umax, qd, rd, fd, goal, dt, obj0, lin_red, quad_red,
+                 ks_small, act, old_jac, ls_cost_threshold)
 
 
 def _shapes_sindy(terms, x0, xs, us, Ks, ks, coeffs, alphas):

@@ -3,9 +3,18 @@ cost (port of ``autompc_tpu/ops/pallas_riccati.py``).
 
 ``backward_quad_ll`` (K2, ``pallas_tvlqr_backward_quad_ll``; kernel in
 ``csrc/riccati_quad.cu``) works on the lanes-last carry: the packed
-Jacobian plane, the trajectory, an in-kernel carry select. Its cost is
-either one fixed diagonal QuadCost as host sequences or per-lane
-lanes-last planes (the tuner's cost fan-out).
+Jacobian plane (float32, or bfloat16 for the ``jac_dtype="bf16"`` carry,
+upcast at the read), the trajectory, an in-kernel carry select. Its cost
+is either one fixed diagonal QuadCost as host sequences or per-lane
+lanes-last planes (the tuner's cost fan-out). ``wide`` and ``wide_io``
+keep the TPU entry's names, defaults and dispatch: at B % 1024 == 0 the
+TPU runs its wide-tile kernel, through in-VMEM layout casts
+(``wide_io="cast"``) or through arrays pre-split to ``(..., B/128, 128)``
+(``"reshape"``, the entry ``_backward_quad_ll_wide_4d``). One kernel
+serves all three here: the cast form is K2 itself, and the reshape form
+goes through ``backward_quad_ll_wide_4d``, which launches K2 on views of
+the 4D arrays (a split of the last axis is a view of the lanes-last
+layout, so nothing is copied) and counts its own launches.
 
 ``backward_quad`` (K6, ``pallas_tvlqr_backward_quad``; kernel in
 ``csrc/riccati_quad_bm.cu``) works on the batch-major carry with
@@ -13,9 +22,10 @@ per-lane cost diagonals and no carry select.
 
 Both build the stage and terminal expansions inline from the trajectory
 and share one recursion (``csrc/riccati_quad_step.cuh``; ``_recursion``
-here). The wide-tile reshape-IO variant of the TPU module is not ported
-yet (ROADMAP.md §B); the dense-expansion kernels are
-``ops/cuda_riccati_general.py``.
+here). The TPU's wide-kernel tile knobs (``AMPC_BQ_WIDE_S``,
+``AMPC_BQ_WIDE_T``) are layout choices and are not read; its
+``AMPC_BQ_WIDE_STEP`` variants are not ported (ROADMAP.md §B). The
+dense-expansion kernels are ``ops/cuda_riccati_general.py``.
 
 A CPU tensor takes the plain PyTorch version (``backward_quad_ll_plain``,
 ``backward_quad_plain``); a CUDA tensor launches the kernel or raises.
@@ -25,21 +35,28 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
 
 
-def _shapes(jac_p, xsT, usT, qd, rd, fd, goal, obsdim, carry):
+def _shapes(jac_p, xsT, usT, qd, rd, fd, goal, obsdim, carry, xterm=None):
+    """Check the lanes-last arguments; ``xsT`` is (H+1, ds, B), or
+    (H, ds, B) beside a separate terminal state ``xterm`` (ds, B).
+    Returns (H, ds, B, lane)."""
     H, dsd, B = jac_p.shape
     ds = xsT.shape[1]
     if dsd != ds * (ds + 1):
         raise ValueError(f"jac_p rows {dsd} != ds*(ds+1) = {ds * (ds + 1)}")
-    if tuple(xsT.shape) != (H + 1, ds, B) or tuple(usT.shape) != (H, B):
+    rows = H + 1 if xterm is None else H
+    if tuple(xsT.shape) != (rows, ds, B) or tuple(usT.shape) != (H, B):
         raise ValueError(
             f"xsT {tuple(xsT.shape)} / usT {tuple(usT.shape)} must be "
             f"(H+1, ds, B) / (H, B) for jac_p {tuple(jac_p.shape)}"
         )
+    if xterm is not None and tuple(xterm.shape) != (ds, B):
+        raise ValueError(f"xterm {tuple(xterm.shape)} must be (ds, B) = {(ds, B)}")
     if not 1 <= obsdim <= ds or len(goal) != obsdim:
         raise ValueError(
             f"goal must have length obsdim ({obsdim} <= ds = {ds})"
@@ -50,6 +67,18 @@ def _shapes(jac_p, xsT, usT, qd, rd, fd, goal, obsdim, carry):
             or tuple(ok.shape) != (H, B):
         raise ValueError("carry must be (act (B,), Ks (H, ds, B), ks (H, B))")
     return H, ds, B, lane
+
+
+def _reshape_io(wide, wide_io, B):
+    """The TPU entry's option checks (``pallas_riccati.py:706-711``);
+    True where it would take the reshape-IO wide kernel."""
+    if wide not in ("auto", "on", "off"):
+        raise ValueError(f"wide must be auto/on/off, got {wide!r}")
+    if wide_io not in ("cast", "reshape"):
+        raise ValueError(f"wide_io must be cast/reshape, got {wide_io!r}")
+    if wide == "on" and B % _build.WIDE_B != 0:
+        raise ValueError(f"wide='on' needs B % {_build.WIDE_B} == 0, got {B}")
+    return wide != "off" and B % _build.WIDE_B == 0 and wide_io == "reshape"
 
 
 def _recursion(H, ds, obsdim, load_jac, x_at, u_at, qd, rd, fd, goal, dt, zero):
@@ -104,27 +133,34 @@ def _scalars(vals, like):
     return [torch.tensor(float(v), dtype=like.dtype, device=like.device) for v in vals]
 
 
-def backward_quad_ll_plain(jac_p, xsT, usT, qd, rd, fd, goal, dt, obsdim,
-                           carry):
-    """Plain PyTorch version of the lanes-last kernel; the cost in either
-    form (see ``backward_quad_ll``)."""
-    H, ds, B, lane = _shapes(jac_p, xsT, usT, qd, rd, fd, goal, obsdim, carry)
+def _plain_ll(jac_p, xsT, xterm, usT, qd, rd, fd, goal, dt, obsdim, carry, lane):
+    H, _, B = jac_p.shape
+    ds = xsT.shape[1]
     d = ds + 1
     if not lane:
         qd, rd, fd = _scalars(qd, xsT), _scalars(rd, xsT), _scalars(fd, xsT)
 
     def load_jac(t):
-        row = jac_p[t]
+        row = jac_p[t].to(xsT.dtype)     # a bfloat16 carry is upcast at the read
         return ([[row[k * d + j] for j in range(ds)] for k in range(ds)],
                 [row[k * d + ds] for k in range(ds)])
 
     Ks, ks, lin, quad = _recursion(
-        H, ds, obsdim, load_jac, lambda t, i: xsT[t, i], lambda t: usT[t],
-        qd, rd[0], fd, _scalars(goal, xsT), dt, xsT.new_zeros((B,)),
+        H, ds, obsdim, load_jac, lambda t, i: xsT[t, i] if t < H else xterm[i],
+        lambda t: usT[t], qd, rd[0], fd, _scalars(goal, xsT), dt, xsT.new_zeros((B,)),
     )
     act, oK, ok = carry
     return (torch.where(act, torch.stack(Ks), oK),
             torch.where(act, torch.stack(ks), ok), lin, quad)
+
+
+def backward_quad_ll_plain(jac_p, xsT, usT, qd, rd, fd, goal, dt, obsdim,
+                           carry):
+    """Plain PyTorch version of the lanes-last kernel; the cost in either
+    form, the Jacobian plane in either storage type (see
+    ``backward_quad_ll``)."""
+    H, ds, B, lane = _shapes(jac_p, xsT, usT, qd, rd, fd, goal, obsdim, carry)
+    return _plain_ll(jac_p, xsT, xsT[H], usT, qd, rd, fd, goal, dt, obsdim, carry, lane)
 
 
 def _quad_diag(obsdim, dt, goal, fixed=None):
@@ -142,30 +178,22 @@ def _quad_diag(obsdim, dt, goal, fixed=None):
     return P
 
 
-def backward_quad_ll(jac_p, xsT, usT, qd, rd, fd, goal, dt, obsdim, carry):
-    """Riccati backward pass on the packed lanes-last Jacobian plane.
-
-    jac_p (H, ds*(ds+1), B); xsT (H+1, ds, B); usT (H, B). The cost is
-    either one fixed diagonal cost — qd/fd (obsdim,) and rd (1,) as host
-    sequences — or one cost per lane — qd/fd (obsdim, B) and rd (1, B)
-    as lanes-last tensors; goal (obsdim,) is a host sequence shared by
-    every lane; dt, obsdim Python scalars. ``carry = (act (B,) bool, old Ks
-    (H, ds, B), old ks (H, B))``: lanes with ``act`` False return their
-    old gains.
-    Returns (KsT (H, ds, B), ksT (H, B), lin_red (B,), quad_red (B,))."""
-    if _build.device_kind(xsT) == "cpu":
-        return backward_quad_ll_plain(
-            jac_p, xsT, usT, qd, rd, fd, goal, dt, obsdim, carry
-        )
-    H, ds, B, lane = _shapes(jac_p, xsT, usT, qd, rd, fd, goal, obsdim, carry)
+def _launch_ll(name, jac_p, xsT, xterm, usT, qd, rd, fd, goal, dt, obsdim,
+               carry, lane):
+    """Check the CUDA tensors and launch K2; ``xsT`` holds rows 0..H-1
+    (or 0..H) and ``xterm`` the terminal state."""
+    H, dsd, B = jac_p.shape
+    ds = xsT.shape[1]
     built = _build.KERNEL_SHAPES["riccati_quad"]
     if (ds, 1) not in built:
         raise ValueError(
             f"backward kernel is built for (ds, dc) in {built}, got {(ds, 1)}"
         )
     dev, f32 = xsT.device, torch.float32
-    _build.check_cuda("jac_p", jac_p, (H, ds * (ds + 1), B), f32, dev)
-    _build.check_cuda("xsT", xsT, (H + 1, ds, B), f32, dev)
+    bf16 = _build.jac_bf16("jac_p", jac_p)
+    _build.check_cuda("jac_p", jac_p, (H, dsd, B), jac_p.dtype, dev)
+    _build.check_cuda("xsT", xsT, tuple(xsT.shape), f32, dev)
+    _build.check_cuda("xterm", xterm, (ds, B), f32, dev)
     _build.check_cuda("usT", usT, (H, B), f32, dev)
     act, oK, ok = carry
     _build.check_cuda("act", act, (B,), torch.bool, dev)
@@ -177,18 +205,108 @@ def backward_quad_ll(jac_p, xsT, usT, qd, rd, fd, goal, dt, obsdim, carry):
     ksT = torch.empty((H, B), dtype=f32, device=dev)
     lin = torch.empty((B,), dtype=f32, device=dev)
     quad = torch.empty((B,), dtype=f32, device=dev)
+    p = _build.ptr
     rc = _build.library().ampc_backward_quad_ll(
-        ctypes.byref(P), _build.ptr(jac_p), _build.ptr(xsT), _build.ptr(usT),
-        *planes, _build.ptr(act), _build.ptr(oK), _build.ptr(ok), _build.ptr(KsT),
-        _build.ptr(ksT), _build.ptr(lin), _build.ptr(quad), ds, H, B,
-        dev.index or 0, _build.stream_of(xsT),
+        ctypes.byref(P), p(jac_p), p(xsT), p(xterm), p(usT), *planes, p(act), p(oK),
+        p(ok), p(KsT), p(ksT), p(lin), p(quad), bf16, ds, H, B, dev.index or 0,
+        _build.stream_of(xsT),
     )
-    _build.check_rc("backward_quad_ll", rc)
-    backward_quad_ll.launches += 1
+    _build.check_rc(name, rc)
     return KsT, ksT, lin, quad
 
 
+def backward_quad_ll(jac_p, xsT, usT, qd, rd, fd, goal, dt, obsdim, carry,
+                     wide="auto", wide_io="cast"):
+    """Riccati backward pass on the packed lanes-last Jacobian plane.
+
+    jac_p (H, ds*(ds+1), B), float32 or bfloat16; xsT (H+1, ds, B); usT
+    (H, B). The cost is either one fixed diagonal cost — qd/fd (obsdim,)
+    and rd (1,) as host sequences — or one cost per lane — qd/fd
+    (obsdim, B) and rd (1, B) as lanes-last tensors; goal (obsdim,) is a
+    host sequence shared by every lane; dt, obsdim Python scalars.
+    ``carry = (act (B,) bool, old Ks (H, ds, B), old ks (H, B))``: lanes
+    with ``act`` False return their old gains. ``wide`` ("auto", "on",
+    "off") and ``wide_io`` ("cast", "reshape") as in the TPU entry: with
+    B % 1024 == 0 and ``wide`` not "off", "reshape" takes the route of
+    ``backward_quad_ll_wide_4d`` (fixed costs as planes, as the TPU's
+    wrapper hands them over; counted as its launch); the values are the
+    same in every form.
+    Returns (KsT (H, ds, B), ksT (H, B), lin_red (B,), quad_red (B,))."""
+    H, ds, B, lane = _shapes(jac_p, xsT, usT, qd, rd, fd, goal, obsdim, carry)
+    if _reshape_io(wide, wide_io, B):
+        if not lane:
+            # One fill per row: no host-to-device copy on the way.
+            rows = xsT.new_empty((2 * obsdim + 1, B))
+            for row, v in zip(rows, (*qd, *rd, *fd)):
+                row.fill_(float(v))
+            qd, rd, fd = rows[:obsdim], rows[obsdim:obsdim + 1], rows[obsdim + 1:]
+        return _run_4d(jac_p, xsT[:H], xsT[H], usT, qd, rd, fd, goal, dt, obsdim, carry)
+    if _build.device_kind(xsT) == "cpu":
+        return _plain_ll(jac_p, xsT, xsT[H], usT, qd, rd, fd, goal, dt, obsdim,
+                         carry, lane)
+    out = _launch_ll("backward_quad_ll", jac_p, xsT, xsT[H], usT, qd, rd, fd, goal,
+                     dt, obsdim, carry, lane)
+    backward_quad_ll.launches += 1
+    backward_quad_ll.launches_bf16 += int(jac_p.dtype == torch.bfloat16)
+    return out
+
+
 backward_quad_ll.launches = 0
+backward_quad_ll.launches_bf16 = 0
+
+
+def backward_quad_ll_wide_4d(jac4, xs4, xterm, us4, Qd4, Rd4, Fd4, goal2, dt,
+                             obsdim, carry):
+    """The reshape-IO entry (``_backward_quad_ll_wide_4d``): every batch
+    array arrives pre-split as ``(..., nl, 128)``, B = 128 nl, B % 1024
+    == 0. jac4 (H, ds*(ds+1), nl, 128) float32 or bfloat16; xs4 (H, ds,
+    nl, 128) the first H states; xterm (ds, nl, 128) the terminal state;
+    us4 (H, nl, 128); cost planes Qd4/Fd4 (obsdim, nl, 128), Rd4 (1, nl,
+    128); goal2 (obsdim, 1) or (obsdim,); ``carry = (act4 (1, nl, 128),
+    old Ks (H, ds, nl, 128), old ks (H, nl, 128))``, act4 bool or a 0/1
+    float plane (> 0.5 is active, as the TPU's).
+    Returns (Ks (H, ds, nl, 128), ks (H, nl, 128), lin (1, nl, 128),
+    quad (1, nl, 128)). On the card K2 runs on views of these arrays
+    (they must be contiguous), its terminal row read from ``xterm``."""
+    if jac4.ndim != 4 or jac4.shape[-1] != 128 or jac4.shape[-2] % 8:
+        raise ValueError(
+            f"jac4 {tuple(jac4.shape)}: the wide backward takes (H, ds*(ds+1), "
+            f"B/128, 128) arrays with B % {_build.WIDE_B} == 0"
+        )
+    H, dsd, nl, _ = jac4.shape
+    B, ds = nl * 128, xs4.shape[1]
+    goal = [float(v) for v in np.asarray(
+        goal2.detach().cpu() if isinstance(goal2, torch.Tensor) else goal2).reshape(-1)]
+    act4, oK4, ok4 = carry
+    act = act4.view(B)
+    if act.is_floating_point():
+        act = act > 0.5
+    flat = lambda t, *lead: t.view(*lead, B)
+    jac, xs, xt, us = flat(jac4, H, dsd), flat(xs4, H, ds), flat(xterm, ds), flat(us4, H)
+    qd, rd, fd = flat(Qd4, obsdim), flat(Rd4, 1), flat(Fd4, obsdim)
+    carry3 = (act, flat(oK4, H, ds), flat(ok4, H))
+    if not _shapes(jac, xs, us, qd, rd, fd, goal, obsdim, carry3, xterm=xt)[3]:
+        raise ValueError("the wide backward takes its cost as planes (obsdim, nl, 128)")
+    Ks, ks, lin, quad = _run_4d(jac, xs, xt, us, qd, rd, fd, goal, dt, obsdim, carry3)
+    return (Ks.view(H, ds, nl, 128), ks.view(H, nl, 128), lin.view(1, nl, 128),
+            quad.view(1, nl, 128))
+
+
+def _run_4d(jac, xs, xterm, us, qd, rd, fd, goal, dt, obsdim, carry):
+    """The reshape-IO route on lanes-last views of the split arrays, cost
+    planes: K2 as the 4D entry's launch, or the plain version on the
+    CPU."""
+    args = (jac, xs, xterm, us, qd, rd, fd, goal, dt, obsdim, carry, True)
+    if _build.device_kind(xs) == "cpu":
+        return _plain_ll(*args)
+    out = _launch_ll("backward_quad_ll_wide_4d", *args)
+    backward_quad_ll_wide_4d.launches += 1
+    backward_quad_ll_wide_4d.launches_bf16 += int(jac.dtype == torch.bfloat16)
+    return out
+
+
+backward_quad_ll_wide_4d.launches = 0
+backward_quad_ll_wide_4d.launches_bf16 = 0
 
 
 def _shapes_bm(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, obsdim):

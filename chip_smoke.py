@@ -37,26 +37,43 @@ Phases (each raises on failure, so the exit code is non-zero):
    objective. 8q: the sensible and the absurd weighting of
    tests/test_parallel.py at H=20, 150 steps: the sensible one must
    score lower in both configurations;
+9. the main path's wide options, phase 4's solve again in three
+   variants, each with 2 warm and 3 timed runs on phase 4's draws:
+   ``llw`` (``ls_wide=True``: the split line search, K8 + acceptance +
+   K9, at every compaction stage), ``ll`` (``AMPC_BQ_WIDE_IO=reshape``:
+   K2 through its 4D entry) and ``llb`` (``jac_dtype="bf16"``: K2 reads
+   and K3 writes a bfloat16 Jacobian carry). ``ll`` must equal the
+   default solve bit for bit, ``llw``'s accepted objectives must agree
+   with the default's within 1e-3 on >= 0.95 of the lanes converged in
+   both, and ``llb`` must pass phase 5's closed-loop gate;
 3. kernels vs plain twins: each CUDA kernel against its plain PyTorch
    twin on the card, on inputs taken from every path that launches it,
    at that path's shape: the lanes-last kernels on the main path's carry
    after make_carry0 at B=4096, H=200 (fixed cost; random per-lane cost
    planes too) and on fan-out configuration (a)'s carry after three
-   iterations at B=1,024, H=10 with its own per-lane planes; the
-   batch-major kernels on the carries of phases 6, 7 and 8(b) after
-   three iterations; the two fan-out kernels also at B=4096, H=200 on
-   the main path's carry. Within stated tolerances, both timed with CUDA
-   events, beside the least time the card could take (``bound_ms``).
+   iterations at B=1,024, H=10 with its own per-lane planes; the wide
+   options' kernels (K2's 4D entry and bfloat16 instances, K3's
+   bfloat16 instances, K8, K9 on both carry types) on the main path's
+   carry at B=4096 and B=16384, and the split search against K3 there
+   (decisions agree on >= 0.999 of lanes, and then the same trajectory
+   bit for bit); the batch-major kernels on the carries of phases 6, 7
+   and 8(b) after three iterations; the two fan-out kernels also at
+   B=4096, H=200 on the main path's carry. Within stated tolerances,
+   both timed with CUDA events, beside the least time the card could
+   take (``bound_ms``).
 
 Each path is driven with its kernels' launch counters set to 0 just
 before and read just after: phases 2-5 for the lanes-last kernels,
 phase 6 and phase 7 for the batch-major ones, each configuration of
-phase 8 for its three. A kernel that never ran on its path fails the
-run. Phase 3 runs after those reads, so its launches do not count.
+phase 8 for its three, each variant of phase 9 for the main path's
+kernels (``launches_bf16`` counts a wrapper's bfloat16 instances). A
+kernel that never ran on its path fails the run. Phase 3 runs after
+those reads, so its launches do not count.
 
-``--profile`` adds one more phase-6 solve, and five closed-loop steps of
-each fan-out configuration, under ``torch.profiler`` and prints the
-device time by kernel and the device's busy share.
+``--profile`` adds one more phase-6 solve, five closed-loop steps of
+each fan-out configuration, and one default and one ``llw`` main-path
+solve under ``torch.profiler`` and prints the device time by kernel and
+the device's busy share.
 
 Output: progress lines, then a JSON line ``{"kernels": [...]}``, the
 nvidia-smi name/power-limit line, and as the last line
@@ -220,6 +237,37 @@ TOL_K7_HEAD = 1e-5
 TOL_K7 = 1e-4
 K7_WITHIN_MIN = 0.99
 TOL_K7_SUM = 1e-5
+
+# Phase 9: the main path's wide options at its own shape (B_SOLVE, H,
+# SCHEDULE: every compaction stage is a multiple of 1024, so the wide
+# kernels run at every stage). ``env`` is AMPC_BQ_WIDE_IO for the solve.
+WIDE_VARIANTS = {
+    "llw": dict(kw=dict(ls_wide=True), env="cast"),
+    "ll": dict(kw={}, env="reshape"),
+    "llb": dict(kw=dict(jac_dtype="bf16"), env="cast"),
+}
+# The counters each variant must show above zero.
+WIDE_REQUIRED = {
+    "llw": ("wide_objectives", "wide_reroll"),
+    "ll": ("backward_quad_ll_wide_4d",),
+    "llb": ("backward_quad_ll[bf16]", "fused_line_search[bf16]"),
+}
+# K8's objectives against the plain version's, per (lane, step size),
+# relative: the large step sizes' rollouts amplify last-digit state
+# differences through gains of ~1e3 (as K7's do), so by share, as K7's
+# rollouts are gated. K8 against K3 is exact: one shared step.
+K8_WITHIN_MIN = 0.99
+# K2 on the wide options' paths and K9 against their plain versions, per
+# lane: a 200-step float32 recursion or rollout leaves a few lanes
+# ill-conditioned, more of them at B=16384 (K2 normwise 8.7e-4 there
+# against 1.4e-5 at B=4096; K9's states 1.2e-4 against 3.6e-5, on an
+# H100). K2's lanes within TOL_K2 of the output's largest value, K9's
+# states within TOL_K3 of the lane's own largest state, each on this
+# share of the lanes; what does not depend on the plain version (the
+# float64 checks at K9's own states, the bit-for-bit checks) keeps its
+# tolerance.
+K2_WITHIN_MIN = 0.999
+K9_WITHIN_MIN = 0.99
 
 
 def check_device():
@@ -537,6 +585,75 @@ def lane_objective(xs, us, cp, dt):
     return dt * (oc + cc) + (xs[:, H] ** 2 * cp["Fdiag"].double()).sum(1)
 
 
+def bits_equal(a, b):
+    """Bit-for-bit equality (NaN equal to the same NaN)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+                torch.float64: torch.int64}[a.dtype]
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a, b)
+
+
+def lane_share(a, b, tol, own_scale=False):
+    """Share of lanes (the last axis) whose largest difference between
+    ``a`` and ``b`` is within ``tol`` of ``b``'s largest magnitude: over
+    all lanes, or with ``own_scale`` over the lane's own."""
+    a, b = a.double().reshape(-1, a.shape[-1]), b.double().reshape(-1, b.shape[-1])
+    d = (a - b).abs().amax(0)
+    scale = b.abs().amax(0) if own_scale else b.abs().max()
+    return (d <= tol * scale.clamp_min(1e-30)).float().mean().item()
+
+
+def wide_counters(K1, K2, K3):
+    """Launch counters of the main path's kernels, by name: (wrapper,
+    attribute). ``launches_bf16`` counts a wrapper's bfloat16 instances
+    (a share of its ``launches``)."""
+    return {
+        "relin_jacobians": (K1.relin_jacobians, "launches"),
+        "backward_quad_ll": (K2.backward_quad_ll, "launches"),
+        "backward_quad_ll[bf16]": (K2.backward_quad_ll, "launches_bf16"),
+        "backward_quad_ll_wide_4d": (K2.backward_quad_ll_wide_4d, "launches"),
+        "fused_line_search": (K3.fused_line_search, "launches"),
+        "fused_line_search[bf16]": (K3.fused_line_search, "launches_bf16"),
+        "wide_objectives": (K3.wide_objectives, "launches"),
+        "wide_reroll": (K3.wide_reroll, "launches"),
+        "wide_reroll[bf16]": (K3.wide_reroll, "launches_bf16"),
+    }
+
+
+def reset_counters(counters):
+    for w, attr in counters.values():
+        setattr(w, attr, 0)
+
+
+def read_counters(counters):
+    return {name: getattr(w, attr) for name, (w, attr) in counters.items()}
+
+
+class wide_io_env:
+    """AMPC_BQ_WIDE_IO set for the ``with`` block (the solver reads it
+    once per solve, as the JAX solver reads it once per trace)."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        import os
+
+        self.old = os.environ.get("AMPC_BQ_WIDE_IO")
+        os.environ["AMPC_BQ_WIDE_IO"] = self.value
+
+    def __exit__(self, *exc):
+        import os
+
+        if self.old is None:
+            os.environ.pop("AMPC_BQ_WIDE_IO", None)
+        else:
+            os.environ["AMPC_BQ_WIDE_IO"] = self.old
+
+
 def fanout_phase(bench, model, dev, card, wrappers, profile=False):
     """Phase 8 and 8q. ``wrappers`` maps a configuration to the three
     kernel wrappers of its path. Returns ({config: launches}, {config:
@@ -701,6 +818,72 @@ def check_fanout_kernels(tag, K6, K7, terms, coeffs, carry, cp, goal, dt, alphas
     return rows, failures
 
 
+def wide_phase(make_solve, params, warm, pool, ref, ref_rate, rows, dt, gate, counters,
+               card, profile=False):
+    """Phase 9: the main path's three wide options at its own shape, each
+    through ``make_solve(**kw)`` (the scheduled solver with the main
+    path's options and ``kw``) with 2 warm runs on ``warm`` and 3 timed
+    runs on phase 4's draws ``pool``, against the default solve's outputs
+    ``ref`` on the same draws (``ref_rate`` its solves/s). ``rows`` holds
+    the fixed cost's diagonals for ``lane_objective``; ``gate(**kw)``
+    runs phase 5's closed loop and returns its success. Each variant's
+    counters are set to 0 before it and read after it. Returns
+    ({variant: launches}, failure strings)."""
+    ug = torch.zeros_like(ref[0][2])
+    ref_conv = float(torch.stack([r[0].float().mean() for r in ref]).mean())
+    ref_obj = [lane_objective(r[1], r[2], rows, dt) for r in ref]
+    counts, failures = {}, []
+    if profile:
+        profile_solve(make_solve(), (params, pool[0], ug), "one default main-path solve")
+    for name, v in WIDE_VARIANTS.items():
+        solve = make_solve(**v["kw"])
+        reset_counters(counters)
+        with wide_io_env(v["env"]):
+            for x in warm:
+                solve(params, x, ug)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = [solve(params, x, ug) for x in pool]
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            success = gate(**v["kw"]) if name == "llb" else None
+            if profile and name == "llw":
+                profile_solve(solve, (params, pool[0], ug), "one main-path solve, llw")
+        counts[name] = read_counters(counters)
+        rate = B_SOLVE * len(pool) / elapsed
+        conv = float(torch.stack([o[0].float().mean() for o in outs]).mean())
+        finite = all(torch.isfinite(o[1]).all() for o in outs)
+        rel, n_both = [], 0
+        for o, r, ro in zip(outs, ref, ref_obj):
+            both = o[0] & r[0]
+            n_both += int(both.sum())
+            obj = lane_objective(o[1], o[2], rows, dt)
+            rel.append(((obj - ro).abs() / ro.abs().clamp_min(1e-30))[both])
+        rel = torch.cat(rel)
+        share = float((rel <= FAN_OBJ_TOL).float().mean()) if rel.numel() else 0.0
+        same = all(bits_equal(a, b) for o, r in zip(outs, ref) for a, b in zip(o, r))
+        gate_txt = "" if success is None else f"; closed-loop gate success {success:.4f} (min {GATE_MIN})"
+        print(f"[9] {name} {v['kw'] or {}} AMPC_BQ_WIDE_IO={v['env']}: B={B_SOLVE} H={H}: 3 timed "
+              f"runs {elapsed:.3f} s -> {rate:.1f} solves/s (default {ref_rate:.1f}) on {card}; "
+              f"converged {conv:.4f} (default {ref_conv:.4f}); lanes converged in both "
+              f"{n_both}, accepted objectives within {FAN_OBJ_TOL} on {share:.4f}, median "
+              f"{float(rel.median()) if rel.numel() else float('nan'):.3e}, max "
+              f"{float(rel.max()) if rel.numel() else float('nan'):.3e}; bit for bit equal to "
+              f"the default: {same}{gate_txt}; launches {counts[name]}", flush=True)
+        missing = [k for k in WIDE_REQUIRED[name] if counts[name][k] == 0]
+        if missing:
+            failures.append(f"{name}: {missing} never ran on its path")
+        if not finite:
+            failures.append(f"{name}: non-finite states")
+        if name == "ll" and not same:
+            failures.append("ll: not bit for bit the default solve")
+        if name == "llw" and (share < FAN_AGREE_MIN or n_both < len(pool) * B_SOLVE // 4):
+            failures.append(f"llw: objectives within {FAN_OBJ_TOL} on {share:.4f} of {n_both} lanes")
+        if name == "llb" and success < GATE_MIN:
+            failures.append(f"llb: closed-loop success {success:.4f} < {GATE_MIN}")
+    return counts, failures
+
+
 def profile_solve(solve, args, label="one phase-6 solve"):
     """One call under torch.profiler: device time by kernel and the
     device's busy share of the call's wall time."""
@@ -802,12 +985,13 @@ def main(profile=False):
     solve(model.params, x0 - 0.01, ug)  # second warm run
     pool = [draw_x0(rng, B_SOLVE, dev) for _ in range(3)]
     torch.cuda.synchronize()
-    conv, fth = [], []
+    conv, fth, outs4 = [], [], []
     t0 = time.perf_counter()
     for x0r in pool:
         out = solve(model.params, x0r, ug)
         conv.append(out[0].float().mean())
         fth.append(out[1][:, -1, 0].abs())
+        outs4.append(out)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     xs_f = out[1]
@@ -826,9 +1010,9 @@ def main(profile=False):
         model.pred_core, cost, bench.dynamics, H=H_GATE, n_steps=STEPS_GATE,
         **common
     )
-    x0q = draw_x0(rng, B_GATE, dev)
+    x0_gate = draw_x0(rng, B_GATE, dev)
     t0 = time.perf_counter()
-    xs_cl, us_cl, nconv = run_cl(model.params, x0q)
+    xs_cl, us_cl, nconv = run_cl(model.params, x0_gate)
     torch.cuda.synchronize()
     t_cl = time.perf_counter() - t0
     if not torch.isfinite(xs_cl).all():
@@ -997,6 +1181,25 @@ def main(profile=False):
     fan_launches, fan_kw, fan_batch = fanout_phase(bench, model, dev, card, fan_wrappers,
                                                    profile=profile)
 
+    # ---- [9] the main path's wide options ----------------------------------
+    def make_solve(**kw):
+        return make_scheduled_ilqr_solver(
+            model.pred_core, cost, H=H, schedule=parse_schedule(SCHEDULE), **common, **kw
+        )
+
+    def gate(**kw):
+        run = make_receding_ilqr_loop(model.pred_core, cost, bench.dynamics, H=H_GATE,
+                                      n_steps=STEPS_GATE, **common, **kw)
+        fx = run(model.params, x0_gate)[0][:, -1]
+        return ((fx[:, 0].abs() < 0.2) & (fx[:, 1].abs() < 0.2)).float().mean().item()
+
+    fixed_rows = {k: x0.new_tensor(v).expand(B_SOLVE, len(v)) for k, v in (
+        ("Qdiag", np.diag(qd)), ("Rdiag", (0.001,)), ("Fdiag", np.diag(qd)))}
+    wide_launches, failures = wide_phase(
+        make_solve, model.params, (x0, x0 - 0.01), pool, outs4, solves_per_s, fixed_rows,
+        bench.system.dt, gate, wide_counters(K1, K2, K3), card, profile=profile,
+    )
+
     # ---- [3] kernels vs plain twins on path inputs -----------------------
     _, make_carry0, _, _ = make_batched_ilqr_solver(
         model.pred_core, cost, H=H, return_pieces=True, **common
@@ -1008,7 +1211,7 @@ def main(profile=False):
     diag = (tuple(np.diag(qd)), (0.001,), tuple(np.diag(qd)), (0.0,) * 4)
     dt = bench.system.dt
     alphas = tuple(0.2 ** k for k in range(10))
-    report, failures = [], []
+    report = []
 
     def check_k1(tag, c, n_launches):
         """The relinearization kernel on the trajectory of the lanes-last
@@ -1174,7 +1377,9 @@ def main(profile=False):
             dict(
                 name=f"backward_quad_ll[B={Bc},H={Hc},{form}]", route="cuda",
                 source="autompc_torch/csrc/riccati_quad.cu",
-                replaces="autompc_tpu/ops/pallas_riccati.py:773",
+                # At B % 1024 == 0 the TPU entry takes its cast-IO wide
+                # kernel (:865), else the loop kernel (:773); K2 is both.
+                replaces="autompc_tpu/ops/pallas_riccati.py:773, :865",
                 launches=n_launches["backward_quad_ll"],
                 max_abs_err=max(abs_err(a, b) for a, b in zip(bk, res["bp"])),
                 ms=time_ms(res["k2"]), plain_ms=time_ms(res["k2_plain"], reps=5),
@@ -1202,6 +1407,173 @@ def main(profile=False):
             ),
         ]
 
+    def check_wide(tag, c, cost, plain_reps=3):
+        """K2's reshape-IO entry and bfloat16 instances, K3's bfloat16
+        instances, K8 and K9 (both storage types) against their plain
+        versions on the lanes-last carry ``c`` under ``cost``, and the
+        split search (K8 + acceptance + K9) against K3. Appends to
+        ``failures``; returns the timings: {row: dict}."""
+        Hc, Bc = c["us"].shape
+        act = ~c["converged"] & ~c["failed"]
+        carry = dict(carry=(act, c["Ks"], c["ks"]))
+        jb = c["jac"].to(torch.bfloat16)
+        k2 = lambda jac: (jac, c["xs"], c["us"], *cost, dt, 4)
+        bk = K2.backward_quad_ll(*k2(c["jac"]), **carry)
+        b4 = K2.backward_quad_ll(*k2(c["jac"]), **carry, wide_io="reshape")
+        bp = K2.backward_quad_ll_plain(*k2(c["jac"]), **carry)
+        bkb = K2.backward_quad_ll(*k2(jb), **carry)
+        b4b = K2.backward_quad_ll(*k2(jb), **carry, wide_io="reshape")
+        bpb = K2.backward_quad_ll_plain(*k2(jb), **carry)
+        # A few lanes of a 200-step float32 recursion run ill-conditioned
+        # (normwise 1.4e-5 at B=4096, 8.7e-4 at B=16384 on an H100), so the
+        # recursion is gated per lane, by share.
+        err = dict(
+            k2_4d=max(rel_err(a, b) for a, b in zip(b4, bp)),
+            k2_bf16=max(rel_err(a, b) for a, b in zip(bkb, bpb)),
+            k2_within=min(lane_share(a, b, TOL_K2) for a, b in (*zip(b4, bp), *zip(bkb, bpb))),
+        )
+        same4 = all(bits_equal(a, b) for a, b in zip(b4, bk)) and \
+            all(bits_equal(a, b) for a, b in zip(b4b, bkb))
+        KsT, ksT, lin, quad = bk
+        ks_small = torch.sqrt((ksT * ksT).sum(0)) < 1e-3
+        lo, hi = float(bounds[0, 0]), float(bounds[0, 1])
+        ls = (terms, c["x0s"], c["xs"], c["us"], KsT, ksT, ca, alphas, lo, hi, *cost, dt)
+        tail = (c["obj"], lin, quad, ks_small, act)
+        lk = K3.fused_line_search(*ls, *tail, c["jac"])
+        lkb = K3.fused_line_search(*ls, *tail, jb)
+        lpb = K3.fused_line_search_plain(*ls, *tail, jb)
+        twin_b = (lkb[3] == lpb[3]) & (lkb[4] == lpb[4]) \
+            & ((lkb[2] - lpb[2]).abs() <= K3_TIE * lpb[2].abs())
+        k3_bf16 = all(bits_equal(a, b) for a, b in zip(lkb[:5] + lkb[6:], lk[:5] + lk[6:])) \
+            and bits_equal(lkb[5], lk[5].to(torch.bfloat16))
+        # K8 against its plain version, per (step size, lane), and against
+        # K3: the objective K3 returned is one of K8's, to the bit.
+        ok = K3.wide_objectives(*ls)
+        op = K3.line_search_objectives(*ls)
+        fin = torch.isfinite(ok) & torch.isfinite(op)
+        e8 = ((ok.double() - op.double()).abs() / op.double().abs().clamp_min(1e-30))[fin]
+        err["k8_within"] = (e8 <= TOL_K3).float().mean().item()
+        moved = act & ~lk[4]
+        err["k8_k3"] = ((ok - lk[2][None]).abs().amin(0)[moved] == 0).float().mean().item()
+        a_sel, tm, jm, new_obj, succ, fail = K3.wide_accept(ok, alphas, *tail)
+        rr = (terms, c["x0s"], c["xs"], c["us"], KsT, ksT, ca, a_sel, lo, hi, tm, jm)
+        rk = K3.wide_reroll(*rr, c["jac"])
+        rp = K3.wide_reroll_plain(*rr, c["jac"])
+        rkb = K3.wide_reroll(*rr, jb)
+        rpb = K3.wide_reroll_plain(*rr, jb)
+        k9_bf16 = all(bits_equal(rkb[i], rk[i]) for i in (0, 1, 3)) \
+            and bits_equal(rkb[2], rk[2].to(torch.bfloat16))
+        err["k9_xs"] = rel_err(rk[0], rp[0])
+        err["k9_within"] = lane_share(rk[0], rp[0], TOL_K3, own_scale=True)
+        held = all(bits_equal(new[..., ~tm], old[..., ~tm]) for new, old in (
+            (rk[0], c["xs"]), (rk[1], c["us"]))) and bits_equal(rk[2][..., ~jm], c["jac"][..., ~jm])
+        # float64 at K9's own states: controls at the lane's a_sel, next
+        # states, Jacobians where taken anew, du2, and the objective of
+        # the re-rolled trajectory against K8's chosen one.
+        fb = (KsT.double() * (rk[0][:-1].double() - c["xs"][:-1].double())).sum(1)
+        step = a_sel.double()[None] * ksT.double()
+        u64 = (step + c["us"].double() + fb).clamp(lo, hi)
+        scale = step.abs() + c["us"].double().abs() + \
+            (KsT.double() * (rk[0][:-1].double() - c["xs"][:-1].double())).abs().sum(1)
+        err["u"] = float(((rk[1].double() - u64).abs() / scale.clamp_min(1e-30))[:, tm].max())
+        from autompc_torch.sysid.basis import term_value
+
+        z = [rk[0][:-1, i].double() for i in range(4)] + [rk[1].double()]
+        theta = torch.stack([term_value(t, z) for t in terms], dim=-1)
+        x64 = theta @ ca.double().T
+        mag = theta.abs() @ ca.double().abs().T
+        err["x"] = float(((rk[0][1:].permute(0, 2, 1).double() - x64).abs()
+                          / mag.clamp_min(1e-30))[:, tm].max())
+        err["jac"] = rel_err(rk[2][:, :, jm], K1.relin_jacobians_plain(
+            terms, rk[0][:, :, jm].double(), rk[1][:, jm].double(), ca.double()))
+        err["du2"] = rel_err(rk[3][tm], ((rk[1].double() - c["us"].double()) ** 2).sum(0)[tm])
+        qd_, rd_, fd_ = cost[:3]
+        if isinstance(qd_, torch.Tensor):
+            rows = dict(Qdiag=qd_.T, Rdiag=rd_.T, Fdiag=fd_.T)
+        else:
+            rows = {k: c["obj"].new_tensor(v).expand(Bc, len(v))
+                    for k, v in (("Qdiag", qd_), ("Rdiag", rd_), ("Fdiag", fd_))}
+        obj64 = lane_objective(rk[0].permute(2, 0, 1), rk[1].T[:, :, None], rows, dt)
+        err["obj64"] = float(((new_obj.double() - obj64).abs()
+                              / obj64.abs().clamp_min(1e-30))[tm].max())
+        # The split search against K3: the same decision on a lane, then
+        # the same trajectory, Jacobians and du2, bit for bit.
+        agree = (succ == lk[3]) & (fail == lk[4]) & (new_obj == lk[2])
+        err["split_agree"] = agree[act].float().mean().item()
+        split_bits = all(bits_equal(a[..., agree], b[..., agree]) for a, b in (
+            (rk[0], lk[0]), (rk[1], lk[1]), (rk[2], lk[5]), (rk[3], lk[6])))
+        print(f"[3] wide kernels, {tag}: K2 4D entry vs plain {err['k2_4d']:.3e}, bf16 Jacobians "
+              f"vs plain {err['k2_bf16']:.3e}, lanes within {TOL_K2} {err['k2_within']:.5f} (min "
+              f"{K2_WITHIN_MIN}); 4D entry bit for bit the 3D call: "
+              f"{same4}; K3 with a bf16 carry = K3 f32 with its rows rounded: {k3_bf16}; K8 vs "
+              f"plain within {TOL_K3} on {err['k8_within']:.4f} of {int(fin.sum())} candidates "
+              f"(min {K8_WITHIN_MIN}; median {float(e8.median()):.3e}, max {float(e8.max()):.3e}); "
+              f"K3's objective found bit for bit among K8's on {err['k8_k3']:.5f} of the "
+              f"{int(moved.sum())} lanes it moved; K9 vs plain xs {err['k9_xs']:.3e}, lanes within "
+              f"{TOL_K3} of their own scale {err['k9_within']:.5f} (min {K9_WITHIN_MIN}), "
+              f"carry select held {held}, bf16 = f32 rounded {k9_bf16}; vs float64 at K9's states "
+              f"u {err['u']:.3e}, next x {err['x']:.3e} (tol {TOL_K3_SUM}), jac {err['jac']:.3e} "
+              f"(tol {TOL_K1}), du2 {err['du2']:.3e}, re-rolled objective vs K8's {err['obj64']:.3e} "
+              f"(tol {TOL_K3}); split vs K3: decisions agree on {err['split_agree']:.5f} of "
+              f"{int(act.sum())} active lanes (min {K3_AGREE_MIN}), bit for bit on those "
+              f"{split_bits}", flush=True)
+        if err["k2_within"] < K2_WITHIN_MIN or not same4:
+            failures.append(f"K2 wide/bf16 ({tag}) within {err['k2_within']:.5f}, 4D == 3D {same4}")
+        if not (k3_bf16 and k9_bf16 and held and split_bits):
+            failures.append(f"bf16/select/split bits ({tag}): K3 {k3_bf16} K9 {k9_bf16} "
+                            f"held {held} split {split_bits}")
+        if err["k8_within"] < K8_WITHIN_MIN or err["k8_k3"] < K3_AGREE_MIN \
+                or err["split_agree"] < K3_AGREE_MIN:
+            failures.append(f"K8/split ({tag}) within {err['k8_within']:.4f} vs K3 "
+                            f"{err['k8_k3']:.5f} agree {err['split_agree']:.5f}")
+        if err["k9_within"] < K9_WITHIN_MIN or max(err["u"], err["x"]) > TOL_K3_SUM \
+                or err["jac"] > TOL_K1 or max(err["du2"], err["obj64"]) > TOL_K3:
+            failures.append(f"K9 ({tag}) xs {err['k9_xs']:.3e} u {err['u']:.3e} x {err['x']:.3e} "
+                            f"jac {err['jac']:.3e} du2 {err['du2']:.3e} obj {err['obj64']:.3e}")
+        k2_bytes = n_bytes(c["jac"], c["xs"], c["us"], act, c["Ks"], c["ks"], *bk)
+        k2_ops = Bc * Hc * (riccati_flops(4, 1) + 16)
+        ls_bytes = n_bytes(c["x0s"], c["xs"], c["us"], KsT, ksT, ca)
+        step_ops = len(terms) * 13 + 20
+        k9_ops = Bc * Hc * (step_ops + feature_flops(len(terms), 5, 4))
+        plain = lambda fn: time_ms(fn, reps=plain_reps)
+        return {
+            "k2_4d": dict(
+                max_abs_err=max(abs_err(a, b) for a, b in zip(b4, bp)),
+                ms=time_ms(lambda: K2.backward_quad_ll(*k2(c["jac"]), **carry, wide_io="reshape")),
+                plain_ms=plain(lambda: K2.backward_quad_ll_plain(*k2(c["jac"]), **carry)),
+                **bound_keys(k2_bytes, k2_ops)),
+            "k2_bf16": dict(
+                max_abs_err=max(abs_err(a, b) for a, b in zip(bkb, bpb)),
+                ms=time_ms(lambda: K2.backward_quad_ll(*k2(jb), **carry)),
+                plain_ms=plain(lambda: K2.backward_quad_ll_plain(*k2(jb), **carry)),
+                **bound_keys(k2_bytes - n_bytes(c["jac"]) + n_bytes(jb), k2_ops)),
+            "k3_bf16": dict(
+                max_abs_err=abs_err(lkb[0][..., twin_b], lpb[0][..., twin_b]),
+                ms=time_ms(lambda: K3.fused_line_search(*ls, *tail, jb)),
+                plain_ms=plain(lambda: K3.fused_line_search_plain(*ls, *tail, jb)),
+                **bound_keys(ls_bytes + n_bytes(*tail, jb, *lkb),
+                             Bc * Hc * (11 * step_ops + feature_flops(len(terms), 5, 4)))),
+            "k8": dict(
+                max_abs_err=abs_err(ok[fin], op[fin]),
+                # The whole split entry (K8 + acceptance + K9) and K3 on
+                # the same carry.
+                split_entry_ms=time_ms(lambda: K3.fused_line_search_wide(*ls, *tail, c["jac"])),
+                fused_k3_ms=time_ms(lambda: K3.fused_line_search(*ls, *tail, c["jac"])),
+                ms=time_ms(lambda: K3.wide_objectives(*ls)),
+                plain_ms=plain(lambda: K3.line_search_objectives(*ls)),
+                **bound_keys(ls_bytes + n_bytes(ok), Bc * len(alphas) * Hc * (step_ops + 12))),
+            "k9": dict(
+                max_abs_err=abs_err(rk[0], rp[0]),
+                ms=time_ms(lambda: K3.wide_reroll(*rr, c["jac"])),
+                plain_ms=plain(lambda: K3.wide_reroll_plain(*rr, c["jac"])),
+                **bound_keys(ls_bytes + n_bytes(a_sel, tm, jm, c["jac"], *rk), k9_ops)),
+            "k9_bf16": dict(
+                max_abs_err=abs_err(rkb[0], rpb[0]),
+                ms=time_ms(lambda: K3.wide_reroll(*rr, jb)),
+                plain_ms=plain(lambda: K3.wide_reroll_plain(*rr, jb)),
+                **bound_keys(ls_bytes + n_bytes(a_sel, tm, jm, jb, *rkb), k9_ops)),
+        }
+
     # K1-K3 at the main path's shape: the carry after make_carry0 at
     # B=4096, H=200, K2 and K3 under the main path's fixed cost as host
     # constants. The same carry under random per-lane planes is checked
@@ -1217,6 +1589,42 @@ def main(profile=False):
         backward_quad_ll=dict(lane_cost_ms=time_ms(lane["k2"])),
         fused_line_search=dict(lane_cost_ms=time_ms(lane["k3"])),
     )
+
+    # The wide options' kernels on the main path's carry at B=4096 and,
+    # the shape of the main path's first compaction stage, at B=16384.
+    wide4 = check_wide("main-path carry", c, diag)
+    c16 = make_carry0(model.params, draw_x0(np.random.default_rng(4), B_SOLVE, dev), ug)
+    wide16 = check_wide(f"main-path carry B={B_SOLVE}", c16, diag, plain_reps=1)
+    del c16
+
+    def wide_row(key, name, source, replaces, n_launches, form="fixed cost", **extra):
+        at16 = dict(wide16[key])
+        at16.pop("library_ms")
+        return dict(name=f"{name}[B={B_KERNEL},H={H},{form}]", route="cuda", source=source,
+                    replaces=replaces, launches=n_launches, **wide4[key],
+                    **{f"at_B{B_SOLVE}_H{H}": at16}, **extra)
+
+    k9_bf16 = dict(wide4["k9_bf16"])
+    k9_bf16.pop("library_ms")
+    report += [
+        wide_row("k2_4d", "backward_quad_ll_wide_4d", "autompc_torch/csrc/riccati_quad.cu",
+                 "autompc_tpu/ops/pallas_riccati.py:1012",
+                 wide_launches["ll"]["backward_quad_ll_wide_4d"]),
+        wide_row("k2_bf16", "backward_quad_ll", "autompc_torch/csrc/riccati_quad.cu",
+                 "autompc_tpu/ops/pallas_riccati.py:773, :865",
+                 wide_launches["llb"]["backward_quad_ll[bf16]"], "fixed cost,bf16 jac"),
+        wide_row("k3_bf16", "fused_line_search", "autompc_torch/csrc/linesearch_fused.cu",
+                 "autompc_tpu/ops/pallas_linesearch.py:803",
+                 wide_launches["llb"]["fused_line_search[bf16]"], "fixed cost,bf16 jac"),
+        wide_row("k8", "wide_objectives", "autompc_torch/csrc/ls_obj_wide.cu",
+                 "autompc_tpu/ops/pallas_linesearch.py:1129",
+                 wide_launches["llw"]["wide_objectives"]),
+        # No path runs K9 on a bfloat16 carry (llw's is float32): its
+        # measurement is a key of the row, with no launch count.
+        wide_row("k9", "wide_reroll", "autompc_torch/csrc/ls_reroll_wide.cu",
+                 "autompc_tpu/ops/pallas_linesearch.py:1200",
+                 wide_launches["llw"]["wide_reroll"], bf16_jac=k9_bf16),
+    ]
 
     # K1-K3 at the shape the fan-out gives them: configuration (a)'s
     # lanes-last carry after three iterations (B=1,024, H=10), K2 and K3
@@ -1292,10 +1700,15 @@ def main(profile=False):
         if "lane_cost_ms" in r:
             print(f"        with per-lane cost planes at this shape: kernel "
                   f"{r['lane_cost_ms']:.3f} ms (no path launches it so)")
+        if "split_entry_ms" in r:
+            print(f"        split entry (K8 + acceptance + K9) {r['split_entry_ms']:.3f} ms, "
+                  f"K3 on the same carry {r['fused_k3_ms']:.3f} ms")
         for key, w in r.items():
-            if key.startswith("at_B"):
-                print(f"        {key[3:]}, no path's shape: kernel {w['ms']:.3f} ms, plain "
-                      f"{w['plain_ms']:.3f} ms, bound {w['bound_ms']:.4f} ms ({w['bound_by']})")
+            if key.startswith("at_B") or key == "bf16_jac":
+                print(f"        {key}: kernel {w['ms']:.3f} ms, plain "
+                      f"{w['plain_ms']:.3f} ms, bound {w['bound_ms']:.4f} ms ({w['bound_by']})"
+                      + (f"; split entry {w['split_entry_ms']:.3f} ms, K3 {w['fused_k3_ms']:.3f} ms"
+                         if "split_entry_ms" in w else ""))
 
     if failures:
         raise RuntimeError("kernel check failed: " + "; ".join(failures))

@@ -116,8 +116,8 @@ def test_parse_schedule_matches():
     ("feature_mask", (), "masks out every feature"),
     ("reg_matrix", np.eye(4), "reg_matrix"),
     ("mlp_ls", object(), "mlp_ls"),
-    ("ls_wide", True, "ls_wide"),
-    ("jac_dtype", "bf16", "bf16"),
+    ("analytic_jac", True, "analytic_jac"),
+    ("jac_dtype", "f16", "jac_dtype must be"),
     ("dc", 2, "dc > 1"),
     ("backward", "scan", "backward"),
     ("relin", "xla", "relin"),

@@ -234,7 +234,7 @@ def test_receding_loop_matches_jax_at_dc6(cheetah):
     (dict(pad_to=64), "pad_to"),
     (dict(feature_spec=(None, "coeffs"), fuse_ls=True), "batch-major"),
     (dict(fuse_ls=True), "batch-major"),
-    (dict(ls_wide=True), "ls_wide"),
+    (dict(ls_wide=True, jac_dtype="bf16"), "lanes-last"),
     (dict(jac_dtype="bf16"), "bf16"),
     (dict(jac_dtype="f16"), "jac_dtype"),
     (dict(backward="assoc"), "assoc"),
@@ -255,6 +255,24 @@ def test_options_that_still_raise(dense, kwargs, match):
     kw.update(kwargs)
     with pytest.raises(ValueError, match=match):
         tilqr.make_batched_ilqr_solver(dense["tm"].pred_core, cost, **kw)
+
+
+def test_ls_wide_is_ignored_by_the_batch_major_body(dense):
+    """``ls_wide`` picks a line search of the lanes-last body only, as in
+    the JAX package: at a batch the split search would take (B = 1024)
+    the batch-major solve with it equals the solve without it."""
+    x0 = torch.as_tensor(np.random.default_rng(5).uniform(-0.5, 0.5, (1024, 4)))
+    kw = dict(dense["common"], max_iter=3)
+    outs = [
+        tilqr.make_batched_ilqr_solver(
+            dense["tm"].pred_core, dense["tcost"], pred_diff=dense["tm"].pred_diff_core,
+            ls_wide=wide, **kw,
+        )(dense["tm"].params, x0, torch.zeros((1024, 10, 1), dtype=torch.float64))
+        for wide in (False, True)
+    ]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert outs[0][0].any()
 
 
 def test_unbuilt_shape_raises_on_the_kernel_path_only():

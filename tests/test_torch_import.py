@@ -106,8 +106,9 @@ def test_build_flags_target_sm90a_without_fast_math():
     names = {p.name for p in _build.sources()}
     assert {"relin.cu", "riccati_quad.cu", "linesearch_fused.cu", "features.cuh",
             "riccati_general.cu", "mlp_linesearch.cu", "riccati_quad_bm.cu",
-            "sindy_linesearch.cu", "riccati_quad_step.cuh"} <= names
-    assert sum(n.endswith(".cu") for n in names) == 7
+            "sindy_linesearch.cu", "riccati_quad_step.cuh", "ls_obj_wide.cu",
+            "ls_reroll_wide.cu", "ls_step.cuh", "jac_io.cuh"} <= names
+    assert sum(n.endswith(".cu") for n in names) == 9
     for p in _build.sources():
         src = p.read_text()
         assert "__sinf" not in src and "__cosf" not in src and "__expf" not in src
