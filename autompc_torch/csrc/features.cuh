@@ -1,6 +1,6 @@
 // Feature-term descriptors and the summation order shared by the
-// relinearization kernel (relin.cu) and the fused line-search kernel
-// (linesearch_fused.cu).
+// relinearization kernel (relin.cu) and the line-search kernels
+// (linesearch_fused.cu, ls_obj_wide.cu, ls_reroll_wide.cu).
 //
 // A term is  prod_c z_c^exps[c] * trig(freq * z[comp])  with trig one of
 // none / sin / cos (autompc_torch/sysid/basis.py: TermDesc). The table
@@ -187,28 +187,41 @@ __device__ __forceinline__ void ampc_dynamics(const FeatTable& T,
   for (int i = 0; i < DS; ++i) xn[i] = acc[i].total(n);
 }
 
-// Packed Jacobian rows at z: rows[i*D + dd] = d x'_i / d z_dd, summed
+// Column dd of the packed Jacobian at z: col[i] = d x'_i / d z_dd, summed
 // over the terms with a nonzero partial only (0 if none touches z_dd).
+template <int DS, int D>
+__device__ __forceinline__ void ampc_jac_col(const FeatTable& T,
+                                             const float* coef,
+                                             const float (&z)[D], int dd,
+                                             float (&col)[DS]) {
+  const int n = T.n;
+  TreeAcc acc[DS];
+  int cnt = 0;
+  for (int k = 0; k < n; ++k) {
+    float g;
+    if (ampc_term_partial<D>(T, k, dd, z, g)) {
+#pragma unroll
+      for (int i = 0; i < DS; ++i) acc[i].push(coef[i * n + k] * g, cnt);
+      ++cnt;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < DS; ++i) col[i] = acc[i].total(cnt);
+}
+
+// Packed Jacobian rows at z: rows[i*D + dd] = d x'_i / d z_dd, column by
+// column (ampc_jac_col).
 template <int DS, int D>
 __device__ __forceinline__ void ampc_jac_rows(const FeatTable& T,
                                               const float* coef,
                                               const float (&z)[D],
                                               float (&rows)[DS * D]) {
-  const int n = T.n;
 #pragma unroll
   for (int dd = 0; dd < D; ++dd) {
-    TreeAcc acc[DS];
-    int cnt = 0;
-    for (int k = 0; k < n; ++k) {
-      float g;
-      if (ampc_term_partial<D>(T, k, dd, z, g)) {
+    float col[DS];
+    ampc_jac_col<DS, D>(T, coef, z, dd, col);
 #pragma unroll
-        for (int i = 0; i < DS; ++i) acc[i].push(coef[i * n + k] * g, cnt);
-        ++cnt;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < DS; ++i) rows[i * D + dd] = acc[i].total(cnt);
+    for (int i = 0; i < DS; ++i) rows[i * D + dd] = col[i];
   }
 }
 

@@ -15,8 +15,8 @@
 // Only the (L, B) objectives leave the kernel: the acceptance rule runs in
 // tensor code and K9 (ls_reroll_wide.cu) re-rolls the chosen step size.
 // The step is ls_step.cuh's ls_obj_step, the same code as the fused
-// kernel's pass 1 (linesearch_fused.cu), so the two score a candidate
-// identically.
+// kernel's candidate threads (linesearch_fused.cu), so the two score a
+// candidate identically.
 //
 // Design: the TPU kernel puts the L candidates of a (S, 128) lane slab on
 // the vector unit together; here each (lane, step size) is a thread of its

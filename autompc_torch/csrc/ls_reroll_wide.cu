@@ -15,9 +15,9 @@
 //   du2           sum_t (u_t - ubar_t)^2 over every lane.
 // The TPU kernel writes xs[0..H-1] and the terminal row through separate
 // outputs so that its blocks stay aligned; here xs (H+1, ds, B) is
-// written directly. The whole lane is ls_step.cuh's ls_reroll_lane, the
-// same code as the fused kernel's pass 2 (linesearch_fused.cu), and its
-// rollout step is the one K8 scored.
+// written directly. The whole lane is ls_step.cuh's ls_reroll_lane: its
+// rollout step is the one K8 and the fused kernel (linesearch_fused.cu)
+// scored, and its Jacobian columns are the fused kernel's.
 //
 // Design: one thread per lane (one chain of H steps, the Jacobian terms
 // from features.cuh as in K1 and K3), lanes-last so that a warp's reads

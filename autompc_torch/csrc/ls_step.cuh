@@ -3,14 +3,18 @@
 // fused kernel (linesearch_fused.cu, K3) and the two kernels of the split
 // line search (ls_obj_wide.cu, K8, and ls_reroll_wide.cu, K9):
 //   ls_obj_step     one step of one candidate rollout with its stage cost
-//                   (K3's pass 1 and K8);
+//                   (K3's candidate threads and K8);
 //   ls_reroll_lane  the whole re-roll of one lane at its selected step
 //                   size with the fused relinearization and the carry
-//                   select (K3's pass 2 and K9).
-// Written once, the kernels compile to the same instructions for the same
-// inputs (FMA contraction included), so K9 re-rolls exactly the
-// trajectory whose objective K8 scored, and the split search returns what
-// the fused kernel returns wherever the two choose the same step size.
+//                   select (K9).
+// Both take the control from ls_control and the next state from
+// ampc_dynamics (features.cuh), and K3 takes its Jacobians from
+// ampc_jac_col, the function ampc_jac_rows is made of. Written once, the
+// kernels compile to the same instructions for the same inputs (FMA
+// contraction included), so K3's candidate threads, K8 and K9 roll the
+// same trajectory for the same step size, and the split search returns
+// what the fused kernel returns wherever the two choose the same step
+// size.
 //
 // Orders follow autompc_tpu/ops/pallas_linesearch.py (_fused_kernel,
 // _ls_obj_kernel_wide, _ls_reroll_kernel_wide): the feedback sum and the
@@ -92,9 +96,9 @@ __device__ __forceinline__ void ls_load_row(const float* xsT,
 }
 
 // One step of a candidate rollout: u = clip(alpha k + ubar + K (x - xbar)),
-// obj += dt (q-form(x) + R u^2), x <- coeffs @ features([x, u]).
+// obj += dt (q-form(x) + R u^2), x <- coeffs @ features([x, u]); returns u.
 template <int DS>
-__device__ __forceinline__ void ls_obj_step(
+__device__ __forceinline__ float ls_obj_step(
     const FeatTable& T, const float* s_coef, const LSParams& P,
     float (&x)[DS], const float (&xbar)[DS], const float (&K)[DS],
     float ubar, float kk, float alpha, const float* wq, float rd,
@@ -109,6 +113,7 @@ __device__ __forceinline__ void ls_obj_step(
   for (int i = 0; i < DS; ++i) z[i] = x[i];
   z[DS] = u;
   ampc_dynamics<DS, D>(T, s_coef, z, x);
+  return u;
 }
 
 // Re-roll lane b at step size a_sel from x0. Writes xs (H+1, DS, B) and

@@ -44,8 +44,8 @@ NVCC_FLAGS = (
 )
 
 # Compile-time limits of csrc/ (features.cuh, riccati_quad_step.cuh,
-# ls_step.cuh, sindy_linesearch.cu, mlp_linesearch.cu); the wrappers
-# raise before a call would exceed them.
+# ls_step.cuh, linesearch_fused.cu, sindy_linesearch.cu,
+# mlp_linesearch.cu); the wrappers raise before a call would exceed them.
 MAX_F = 64
 MAX_D = 8
 MAX_OBS = 8
@@ -53,10 +53,17 @@ MAX_L = 10
 MLP_MAX_LAYERS = 5
 MLP_MAX_W = 128
 MLP_MAX_DC = 32
-MLP_RPT = 5
-MLP_TX = 64
-MLP_PF = 8
+# Threads of a block: K3's lanes x step sizes (linesearch_fused.cu) and
+# K5's (mlp_linesearch.cu); both kernels cap registers so that two such
+# blocks share an SM. K5's largest register tile is MLP_TILE rollouts x
+# MLP_TILE units.
+LS_MAX_THREADS = 256
+MLP_MAX_THREADS = 320
+MLP_TILE = 4
 MAX_SMEM_BYTES = 227 * 1024
+# Streaming multiprocessors of an H100 SXM: the geometry helpers' default
+# where no card is asked (the CPU tests).
+H100_SMS = 132
 # Lanes of one TPU wide tile, (8, 128): the TPU package's wide kernels
 # (and their options here: the split line search, the reshape-IO
 # backward) take a batch only when it is a multiple of WIDE_B.
@@ -151,8 +158,9 @@ _SIGNATURES = {
     ),
     "ampc_fused_line_search": (
         [ctypes.POINTER(FeatTable), ctypes.POINTER(LSParams)]
-        + [_P] * 22 + [_I] * 5 + [_P]
+        + [_P] * 23 + [_I] * 6 + [_P]
     ),
+    "ampc_fused_line_search_occupancy": [_I] * 4 + [_P],
     "ampc_ls_obj_wide": (
         [ctypes.POINTER(FeatTable), ctypes.POINTER(LSParams)]
         + [_P] * 10 + [_I] * 4 + [_P]
@@ -167,8 +175,9 @@ _SIGNATURES = {
     ),
     "ampc_riccati_general": [_P] * 12 + [_I, _I, _I, _I, _I, _P],
     "ampc_mlp_line_search": (
-        [ctypes.POINTER(MlpLS)] + [_P] * 8 + [_I, _I, _I, _P]
+        [ctypes.POINTER(MlpLS)] + [_P] * 8 + [_I] * 5 + [_P]
     ),
+    "ampc_mlp_line_search_occupancy": [ctypes.POINTER(MlpLS)] + [_I] * 3 + [_P],
 }
 
 
@@ -282,6 +291,22 @@ def feat_table(terms) -> FeatTable:
         tab.comp[k] = max(int(t.trig_comp), 0)
         tab.freq[k] = float(t.freq)
     return tab
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def occupancy(entry: str, *args) -> dict:
+    """A kernel's registers and local (spill) bytes a thread and its
+    resident blocks an SM, from the C entry ``entry`` (the
+    ``*_occupancy`` query of its source) called with ``args`` and an
+    output array."""
+    out = (ctypes.c_int * 3)()
+    check_rc(entry, getattr(library(), entry)(*args, out))
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2])
 
 
 def ptr(t: torch.Tensor) -> int:

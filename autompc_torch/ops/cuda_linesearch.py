@@ -5,8 +5,12 @@
 ``ll_io=True``, ``carry=(act, old_jac)``, ``grad_terms`` and shared
 coefficients; kernel in ``csrc/linesearch_fused.cu``): one call rolls
 all L step sizes through the feature-library dynamics, sums the
-quadratic objective, applies the reference acceptance rule, re-rolls the
-chosen step, relinearizes along it and applies the iLQR carry select.
+quadratic objective, applies the reference acceptance rule, writes the
+chosen rollout, relinearizes along it and applies the iLQR carry
+select. The kernel runs each (lane, step size) in a thread of its own
+and keeps every candidate's trajectory in a scratch buffer that the
+wrapper allocates, (H, ds+1, L, B) floats, so the chosen one is read
+back instead of rolled again (``fused_geometry`` sets the block).
 Inputs and outputs are lanes-last and dc = 1; the cost is a diagonal
 QuadCost, either one fixed cost as host sequences or per-lane lanes-last
 planes (``per_lane_diag_cost=True`` of the TPU kernel). The Jacobian
@@ -189,8 +193,7 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
                       umin, umax, qd, rd, fd, goal, dt, obj0, lin_red,
                       quad_red, ks_small, act, old_jac,
                       ls_cost_threshold=0.3):
-    """Fused line search + acceptance + re-roll + relinearization +
-    carry select.
+    """Fused line search + acceptance + relinearization + carry select.
 
     terms: tuple of active ``TermDesc``; x0T (ds, B); xsT (H+1, ds, B);
     usT (H, B); KsT (H, ds, B); ksT (H, B); coeffs (ds, len(terms));
@@ -200,10 +203,14 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
     obj0/lin_red/quad_red (B,); ks_small/act (B,) bool; old_jac (H, ds*(ds+1), B).
 
     Returns (xsT, usT, obj, success, failed, jac_p, du2) — the next
-    carry values: active lanes that did not fail take the re-rolled
+    carry values: active lanes that did not fail take the chosen
     trajectory, those that also succeeded take its Jacobians, stored in
-    ``old_jac``'s type (float32 or bfloat16)."""
-    if _build.device_kind(xsT) == "cpu":
+    ``old_jac``'s type (float32 or bfloat16). The kernel's limit on the
+    step sizes holds on every device."""
+    on_cpu = _build.device_kind(xsT) == "cpu"
+    geom = fused_geometry(xsT.shape[2], len(alphas),
+                          _build.H100_SMS if on_cpu else _build.sm_count(xsT.device))
+    if on_cpu:
         return fused_line_search_plain(
             terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax, qd,
             rd, fd, goal, dt, obj0, lin_red, quad_red, ks_small, act, old_jac,
@@ -230,6 +237,7 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
     bf16 = _build.jac_bf16("old_jac", old_jac)
     P = _ls_params(alphas, umin, umax, qd, rd, fd, goal, dt, ls_cost_threshold, lane)
     planes = _build.cost_plane_ptrs(lane, qd, rd, fd, f32, dev)
+    stash = torch.empty((H, ds + 1, len(alphas), B), dtype=f32, device=dev)
     out_xs = torch.empty((H + 1, ds, B), dtype=f32, device=dev)
     out_us = torch.empty((H, B), dtype=f32, device=dev)
     out_obj = torch.empty((B,), dtype=f32, device=dev)
@@ -241,9 +249,9 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
     rc = _build.library().ampc_fused_line_search(
         ctypes.byref(_build.feat_table(tuple(terms))), ctypes.byref(P),
         p(coeffs), p(x0T), p(xsT), p(usT), p(KsT), p(ksT), *planes, p(obj0), p(lin_red),
-        p(quad_red), p(ks_small), p(act), p(old_jac), p(out_xs), p(out_us),
+        p(quad_red), p(ks_small), p(act), p(old_jac), p(stash), p(out_xs), p(out_us),
         p(out_obj), p(succ), p(fail), p(out_jac), p(du2),
-        bf16, ds, H, B, dev.index or 0, _build.stream_of(xsT),
+        bf16, ds, H, B, geom["lanes_per_block"], dev.index or 0, _build.stream_of(xsT),
     )
     _build.check_rc("fused_line_search", rc)
     fused_line_search.launches += 1
@@ -253,6 +261,29 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
 
 fused_line_search.launches = 0
 fused_line_search.launches_bf16 = 0
+
+# Lanes a K3 block may hold, each with its L step sizes in L threads:
+# the groups that the paths' L = 10 selects (16 at B >= 4096, 8 at the
+# fan-out's 1,024).
+_LANE_GROUPS = (16, 8)
+
+
+def fused_geometry(B, L, n_sm=_build.H100_SMS):
+    """K3's launch: ``lanes_per_block`` lanes of L threads each (thread
+    ``l * lanes_per_block + j`` rolls step size l of the block's lane j),
+    ``blocks`` of them. The lanes per block are the most that still keep
+    the most SMs busy, at most 256 threads a block."""
+    if not 1 <= L <= _build.MAX_L:
+        raise ValueError(f"fused_line_search: 1..{_build.MAX_L} step sizes supported, "
+                         f"got {L}")
+    fits = [n for n in _LANE_GROUPS if n * L <= _build.LS_MAX_THREADS]
+
+    def busy(n):
+        return min(-(-B // n), n_sm)
+
+    most = max(busy(n) for n in fits)
+    nl = max(n for n in fits if busy(n) == most)
+    return dict(lanes_per_block=nl, threads=nl * L, blocks=-(-B // nl))
 
 
 def _ls_params(alphas, umin, umax, qd, rd, fd, goal, dt, thresh, lane):

@@ -143,16 +143,77 @@ def mlp_line_search_plain(layers, nonlin, x0, xs, us, Ks, ks, alphas, umin,
     return ls_xs, ls_us
 
 
-def _smem_bytes(widths, ds, dc, L, lanes_per_block=1):
-    """Shared memory the kernel needs (the C launcher's formula)."""
-    def r4(n):
-        return (n + 3) & ~3
+def _r4(n):
+    return (n + 3) & ~3
 
-    lp = -(-L // _build.MLP_RPT) * 8
-    wtot = sum((widths[i] + 1) * widths[i + 1] for i in range(len(widths) - 1))
-    lane = (r4((ds + dc) * lp) + 2 * r4(max(widths[1:]) * lp)
-            + r4(dc * ds + ds + 2 * dc))
-    return 4 * (r4(wtot) + lanes_per_block * lane)
+
+def _smem_floats(widths, ds, dc, L, lanes_per_block):
+    """Shared memory of a K5 block, in floats (``mlp_smem`` of the
+    source): the weights with each layer's columns padded to 4, the
+    activations (ds + dc rows) and two hidden buffers of the block's
+    rollouts padded to 4, and two buffers of each lane's staged step
+    inputs."""
+    rp = _r4(lanes_per_block * L)
+    nin = dc * ds + ds + 2 * dc
+    weights = sum((widths[i] + 1) * _r4(widths[i + 1]) for i in range(len(widths) - 1))
+    return (weights + (ds + dc) * rp + 2 * max(widths[1:]) * rp
+            + 2 * lanes_per_block * _r4(nin))
+
+
+def mlp_geometry(widths, ds, dc, L, B, n_sm=_build.H100_SMS):
+    """K5's launch for ``widths`` (ds + dc, hidden..., ds), L step sizes
+    and B lanes: a block takes ``lanes_per_block`` lanes with all their
+    step sizes, ``rollouts`` = lanes_per_block x L of them (rollout r of
+    block k is output rollout k x rollouts + r). Up to 40 rollouts a
+    block (4 lanes at L = 10). Where those blocks would all be resident
+    at once (at most two an SM: B = 1024 at L = 10), the kernel is bound
+    by each thread's chain of loads and FMAs, so a block takes half the
+    lanes and ``threads`` gives one 2 x 4 tile (rollouts x units) of the
+    widest layer to each thread; with more blocks than that it is bound
+    by throughput, and each thread takes a 4 x 4 tile (fewer
+    shared-memory loads an FMA). Fewer lanes where the shared memory
+    would pass 227 KB; 64..320 threads. Raises, naming the wrapper, for
+    shapes the kernel does not take."""
+    n_layers = len(widths) - 1
+    if not 1 <= L <= _build.MAX_L:
+        raise ValueError(f"mlp_line_search: 1..{_build.MAX_L} step sizes supported, "
+                         f"got {L}")
+    if n_layers > _build.MLP_MAX_LAYERS or max(widths) > _build.MLP_MAX_W \
+            or dc > _build.MLP_MAX_DC:
+        raise ValueError(
+            f"mlp_line_search: the kernel takes <= {_build.MLP_MAX_LAYERS} layers "
+            f"of width <= {_build.MLP_MAX_W} and dc <= {_build.MLP_MAX_DC}; "
+            f"got widths {list(widths)}, dc {dc}"
+        )
+    tile = _build.MLP_TILE
+    full = max(1, 40 // L)
+    one_wave = -(-B // full) <= 2 * n_sm
+    nl = max(1, full // 2) if one_wave else full
+    while nl > 1 and 4 * _smem_floats(widths, ds, dc, L, nl) > _build.MAX_SMEM_BYTES:
+        nl -= 1
+    smem = 4 * _smem_floats(widths, ds, dc, L, nl)
+    if smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(
+            f"mlp_line_search: an MLP of widths {list(widths)} needs {smem} bytes of "
+            f"shared memory, over the {_build.MAX_SMEM_BYTES} a block can use"
+        )
+    tiles = (_r4(nl * L) // (2 if one_wave else tile)) * max(-(-w // tile) for w in widths[1:])
+    threads = min(_build.MLP_MAX_THREADS, max(64, -(-tiles // 32) * 32))
+    return dict(lanes_per_block=nl, rollouts=nl * L, threads=threads,
+                blocks=-(-B // nl), smem=smem)
+
+
+def _mlp_params(widths, nonlin, ds, dc, alphas, umin, umax):
+    P = _build.MlpLS()
+    P.n_layers, P.act = len(widths) - 1, ACTIVATIONS.index(nonlin)
+    for i, w in enumerate(widths):
+        P.widths[i] = w
+    P.ds, P.dc, P.L = ds, dc, len(alphas)
+    for l, a in enumerate(alphas):
+        P.alphas[l] = a
+    for j, (lo, hi) in enumerate(zip(_bounds(umin, dc), _bounds(umax, dc))):
+        P.umin[j], P.umax[j] = lo, hi
+    return P
 
 
 def mlp_line_search(layers, nonlin, x0, xs, us, Ks, ks, alphas, umin, umax,
@@ -165,35 +226,19 @@ def mlp_line_search(layers, nonlin, x0, xs, us, Ks, ks, alphas, umin, umax,
     alphas: the L step sizes, umin/umax: scalars or dc values — host
     numbers (a tensor is read back to the host, which synchronizes).
 
-    Returns (ls_xs (B, L, H+1, ds), ls_us (B, L, H, dc))."""
-    if _build.device_kind(xs) == "cpu":
-        return mlp_line_search_plain(layers, nonlin, x0, xs, us, Ks, ks,
-                                     alphas, umin, umax, layout, precision)
+    Returns (ls_xs (B, L, H+1, ds), ls_us (B, L, H, dc)). The kernel's
+    limits (``mlp_geometry``) hold on every device: the CPU's plain
+    version is the kernel's twin, not a wider function."""
     alphas = _alphas(alphas)
     B, H, ds, dc, widths = _check(layers, nonlin, x0, xs, us, Ks, ks, alphas,
                                   layout, precision)
+    on_cpu = _build.device_kind(xs) == "cpu"
+    geom = mlp_geometry(widths, ds, dc, len(alphas), B,
+                        _build.H100_SMS if on_cpu else _build.sm_count(xs.device))
+    if on_cpu:
+        return mlp_line_search_plain(layers, nonlin, x0, xs, us, Ks, ks,
+                                     alphas, umin, umax, layout, precision)
     L = len(alphas)
-    n_layers = len(layers)
-    if n_layers > _build.MLP_MAX_LAYERS or max(widths) > _build.MLP_MAX_W \
-            or dc > _build.MLP_MAX_DC:
-        raise ValueError(
-            f"MLP line-search kernel takes <= {_build.MLP_MAX_LAYERS} layers "
-            f"of width <= {_build.MLP_MAX_W} and dc <= {_build.MLP_MAX_DC}; "
-            f"got widths {widths}, dc {dc}"
-        )
-    groups = -(-L // _build.MLP_RPT)
-    if dc * ds + ds + 2 * dc > _build.MLP_PF * _build.MLP_TX * groups:
-        raise ValueError(
-            f"MLP line-search kernel stages at most "
-            f"{_build.MLP_PF * _build.MLP_TX * groups} gain and trajectory "
-            f"values per step; ds={ds}, dc={dc} needs {dc * ds + ds + 2 * dc}"
-        )
-    if _smem_bytes(widths, ds, dc, L) > _build.MAX_SMEM_BYTES:
-        raise ValueError(
-            f"MLP of widths {widths} needs {_smem_bytes(widths, ds, dc, L)} "
-            f"bytes of shared memory, over the {_build.MAX_SMEM_BYTES} a "
-            "block can use"
-        )
     dev, f32 = xs.device, torch.float32
     for name, t in (("x0", x0), ("xs", xs), ("us", us), ("Ks", Ks), ("ks", ks)):
         _build.check_cuda(name, t, t.shape, f32, dev)
@@ -205,25 +250,29 @@ def mlp_line_search(layers, nonlin, x0, xs, us, Ks, ks, alphas, umin, umax,
                     f"{f32} on {dev}"
                 )
     weights = torch.cat([t.reshape(-1) for W, b in layers for t in (W, b)])
-    P = _build.MlpLS()
-    P.n_layers, P.act = n_layers, ACTIVATIONS.index(nonlin)
-    for i, w in enumerate(widths):
-        P.widths[i] = w
-    P.ds, P.dc, P.L = ds, dc, L
-    for l, a in enumerate(alphas):
-        P.alphas[l] = a
-    for j, (lo, hi) in enumerate(zip(_bounds(umin, dc), _bounds(umax, dc))):
-        P.umin[j], P.umax[j] = lo, hi
+    P = _mlp_params(widths, nonlin, ds, dc, alphas, umin, umax)
     ls_xs = torch.empty((B, L, H + 1, ds), dtype=f32, device=dev)
     ls_us = torch.empty((B, L, H, dc), dtype=f32, device=dev)
     p = _build.ptr
     rc = _build.library().ampc_mlp_line_search(
         ctypes.byref(P), p(weights), p(x0), p(xs), p(us), p(Ks), p(ks),
-        p(ls_xs), p(ls_us), H, B, dev.index or 0, _build.stream_of(xs),
+        p(ls_xs), p(ls_us), H, B, geom["lanes_per_block"], geom["threads"],
+        dev.index or 0, _build.stream_of(xs),
     )
     _build.check_rc("mlp_line_search", rc)
     mlp_line_search.launches += 1
     return ls_xs, ls_us
+
+
+def mlp_line_search_occupancy(widths, nonlin, ds, dc, L, B, device):
+    """The compiled kernel's registers and local bytes a thread, its
+    resident blocks an SM and the launch geometry at this shape on the
+    CUDA ``device``."""
+    geom = mlp_geometry(widths, ds, dc, L, B, _build.sm_count(device))
+    P = _mlp_params(widths, nonlin, ds, dc, (1.0,) * L, 0.0, 0.0)
+    occ = _build.occupancy("ampc_mlp_line_search_occupancy", ctypes.byref(P),
+                           geom["lanes_per_block"], geom["threads"], device.index or 0)
+    return {**geom, **occ}
 
 
 mlp_line_search.launches = 0

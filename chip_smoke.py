@@ -8,6 +8,9 @@ Phases (each raises on failure, so the exit code is non-zero):
    the torch and CUDA versions; no CUDA device -> error, nothing runs on
    the CPU;
 1. build: compile (or load) the CUDA kernels from ``autompc_torch/csrc``;
+   print every kernel's registers and spills (the ptxas log) and, for K3
+   and K5, the block shape and resident warps an SM at each shape their
+   paths launch (the CUDA occupancy query);
 2. data + fit: cartpole swing-up data (50 x 100, seed 42, a
    torch.Generator on the card) and the SINDy fit (trig + interaction
    library, 55 features);
@@ -55,8 +58,9 @@ Phases (each raises on failure, so the exit code is non-zero):
    options' kernels (K2's 4D entry and bfloat16 instances, K3's
    bfloat16 instances, K8, K9 on both carry types) on the main path's
    carry at B=4096 and B=16384, and the split search against K3 there
-   (decisions agree on >= 0.999 of lanes, and then the same trajectory
-   bit for bit); the batch-major kernels on the carries of phases 6, 7
+   and on fan-out (a)'s carry (decisions agree on >= 0.999 of lanes,
+   0.98 at the fan-out's shape, and then the same trajectory, Jacobians
+   and du2 bit for bit); the batch-major kernels on the carries of phases 6, 7
    and 8(b) after three iterations; the two fan-out kernels also at
    B=4096, H=200 on the main path's carry. Within stated tolerances,
    both timed with CUDA events, beside the least time the card could
@@ -316,6 +320,35 @@ def abs_err(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
+def ptxas_report(log):
+    """(kernel, registers, spill-store bytes) of each kernel instance in
+    the ``-Xptxas -v`` build log, the instance named by its function and
+    template arguments (``fused_ls_kernel<4,1,bf16>``)."""
+    import re
+
+    rows, entry, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+        if m:
+            n, rest = int(m[1]), m[2]
+            args, tail = [], rest[n:]
+            if tail.startswith("I"):
+                for tok in re.finditer(r"Li(\d+)E|Lb([01])E|13__nv_bfloat16|f|(E)", tail[1:]):
+                    if tok[3]:
+                        break
+                    args.append(tok[1] or tok[2] or ("bf16" if tok[0] != "f" else "f32"))
+            entry, spill = rest[:n] + (f"<{','.join(args)}>" if args else ""), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and entry:
+            spill = int(m[1])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            rows.append((entry, int(m[1]), spill))
+            entry = None
+    return rows
+
+
 def draw_x0(rng, n, dev):
     from autompc_torch import default_dtype
 
@@ -327,13 +360,14 @@ def bound_keys(total_bytes, total_ops):
     """The report's ``bound_ms`` and ``bound_by``: the least time the
     card could take to move ``total_bytes`` (every input read once,
     every output written once) and to do ``total_ops`` float32
-    operations. No single PyTorch call computes any of these kernels'
-    functions, so ``library_ms`` is None for all of them."""
+    operations, the larger of the two (each also given on its own). No
+    single PyTorch call computes any of these kernels' functions, so
+    ``library_ms`` is None for all of them."""
     t_bytes = total_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = total_ops / F32_FLOPS * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None)
+                bound_bytes_ms=t_bytes, bound_ops_ms=t_ops, library_ms=None)
 
 
 def n_bytes(*tensors):
@@ -357,6 +391,20 @@ def feature_flops(n_terms, d, ds):
     with its Jacobian: each term's value and d partials (a product of up
     to d factors each) and the coefficient products."""
     return n_terms * (d + 1) * (d + 2 * ds)
+
+
+def k3_bound(io_bytes, B, H, n_terms, L, ds=4):
+    """K3's bound keys. Bytes: its inputs and outputs only. Operations:
+    L rollout-steps a lane-step (the term values, the coefficient
+    products, the feedback law, the stage cost and the du2 term) and one
+    evaluation of the Jacobian. ``scratch_bytes_ms`` is beside the
+    bound, not in it: the time the kernel's own scratch traffic takes at
+    the memory rate (every candidate's states and controls written, L
+    (ds + 1) floats a lane-step, and the selected candidate's read
+    back), which the function itself does not need."""
+    stash = 4 * (ds + 1) * H * B * (L + 1)
+    ops = B * H * (L * (n_terms * 13 + 34) + feature_flops(n_terms, ds + 1, ds))
+    return dict(bound_keys(io_bytes, ops), scratch_bytes_ms=stash / HBM_BYTES_PER_S * 1e3)
 
 
 def mlp_rollout_flops(widths, ds, dc):
@@ -418,10 +466,13 @@ def cheetah_x0(dev):
 
 
 def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
-                              n_iters=3):
+                              n_iters=3, k4=True, head_f64=False):
     """K4 and K5 against their plain versions on the carry of the
-    batch-major solver after ``n_iters`` iterations. Returns (report
-    rows, failure strings)."""
+    batch-major solver after ``n_iters`` iterations (with ``k4`` False,
+    K5 alone, on K4's gains). With ``head_f64``, a K5 rollout whose first
+    K5_HEAD steps miss TOL_K5_HEAD against the plain version passes if
+    it is no farther from the plain version run in float64 than the
+    plain float32 version is. Returns (report rows, failure strings)."""
     from autompc_torch.control import make_batched_ilqr_solver
 
     H, dt = solver_kw["H"], solver_kw["dt"]
@@ -462,29 +513,30 @@ def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
     within = (ek <= torch.clamp(10.0 * ep, min=TOL_K4)).float().mean().item()
     well = ok.clone()
     well[ok] = wc
-    rows.append(dict(
-        name=f"riccati_general[{ds},{dc}]", route="cuda",
-        source="autompc_torch/csrc/riccati_general.cu",
-        replaces="autompc_tpu/ops/pallas_riccati.py:" + ("1260" if dc > 1 else "1338"),
-        launches=launches["K4"],
-        max_abs_err=max(abs_err(a[well], b[well]) for a, b in zip(gk, gp)),
-        ms=time_ms(lambda: K4.riccati_general(*k4_args)),
-        plain_ms=time_ms(lambda: K4.riccati_general_plain(*k4_args), reps=3),
-        **bound_keys(n_bytes(*k4_args, *gk), B * H * riccati_flops(ds, dc)),
-    ))
-    print(f"[3] K4 general backward {tag} ({ds},{dc}) B={B}: finite lanes {int(ok.sum())} "
-          f"(kernel and plain agree on which: {same_finite:.4f}); per-lane error vs float64: "
-          f"kernel median {float(ek.median()):.3e} max {float(ek.max()):.3e}, plain float32 "
-          f"median {float(ep.median()):.3e} max {float(ep.max()):.3e}; {int(wc.sum())} "
-          f"well-conditioned lanes (plain within {TOL_K4 / 10}): kernel's worst "
-          f"{worst_well:.3e} (tol {TOL_K4}); kernel within max({TOL_K4}, 10 x plain's) on "
-          f"{within:.4f} of all lanes (min {K4_WITHIN_MIN}); kernel's error over plain's: "
-          f"median {float((ek / ep.clamp_min(1e-30)).median()):.2f}, 99% "
-          f"{float((ek / ep.clamp_min(1e-30)).quantile(0.99)):.2f}", flush=True)
-    if worst_well > TOL_K4 or within < K4_WITHIN_MIN or same_finite < K4_WITHIN_MIN:
-        failures.append(f"K4 {tag}: worst well-conditioned lane {worst_well:.3e}, within "
-                        f"tolerance on {within:.4f} of lanes, finite flags agree on "
-                        f"{same_finite:.4f}")
+    if k4:
+        rows.append(dict(
+            name=f"riccati_general[{ds},{dc}]", route="cuda",
+            source="autompc_torch/csrc/riccati_general.cu",
+            replaces="autompc_tpu/ops/pallas_riccati.py:" + ("1260" if dc > 1 else "1338"),
+            launches=launches["K4"],
+            max_abs_err=max(abs_err(a[well], b[well]) for a, b in zip(gk, gp)),
+            ms=time_ms(lambda: K4.riccati_general(*k4_args)),
+            plain_ms=time_ms(lambda: K4.riccati_general_plain(*k4_args), reps=3),
+            **bound_keys(n_bytes(*k4_args, *gk), B * H * riccati_flops(ds, dc)),
+        ))
+        print(f"[3] K4 general backward {tag} ({ds},{dc}) B={B}: finite lanes {int(ok.sum())} "
+              f"(kernel and plain agree on which: {same_finite:.4f}); per-lane error vs float64: "
+              f"kernel median {float(ek.median()):.3e} max {float(ek.max()):.3e}, plain float32 "
+              f"median {float(ep.median()):.3e} max {float(ep.max()):.3e}; {int(wc.sum())} "
+              f"well-conditioned lanes (plain within {TOL_K4 / 10}): kernel's worst "
+              f"{worst_well:.3e} (tol {TOL_K4}); kernel within max({TOL_K4}, 10 x plain's) on "
+              f"{within:.4f} of all lanes (min {K4_WITHIN_MIN}); kernel's error over plain's: "
+              f"median {float((ek / ep.clamp_min(1e-30)).median()):.2f}, 99% "
+              f"{float((ek / ep.clamp_min(1e-30)).quantile(0.99)):.2f}", flush=True)
+        if worst_well > TOL_K4 or within < K4_WITHIN_MIN or same_finite < K4_WITHIN_MIN:
+            failures.append(f"K4 {tag}: worst well-conditioned lane {worst_well:.3e}, within "
+                            f"tolerance on {within:.4f} of lanes, finite flags agree on "
+                            f"{same_finite:.4f}")
 
     nonlin = model.nonlintype
     layers = K5.fold_mlp_params(model.params)
@@ -496,6 +548,8 @@ def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
     k5_path_args = (layers, nonlin, c["x0s"], c["xs"], c["us"], gk[0], gk[1], alphas,
                     ub[0], ub[1])
     live = ok & torch.isfinite(c["xs"]).all(dim=(1, 2))
+    if not live.any():
+        return rows, failures + [f"K5 {tag}: no lane with finite gains and carry to compare"]
     c = {k: c[k][live].contiguous() for k in ("x0s", "xs", "us")}
     Ks, ks = gk[0][live].contiguous(), gk[1][live].contiguous()
     k5_args = (layers, nonlin, c["x0s"], c["xs"], c["us"], Ks, ks, alphas, ub[0], ub[1])
@@ -510,6 +564,19 @@ def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
     e_head = float(rollout_err(K5_HEAD + 1).max())
     e_full = rollout_err(H + 1).reshape(-1)
     full_within = (e_full <= TOL_K5).float().mean().item()
+    # The plain version's rollouts in float64: how far the kernel and the
+    # plain float32 version each are from them over the first K5_HEAD
+    # steps, per rollout, relative to its largest float64 state there.
+    rx64, _ = K5.mlp_line_search_plain(
+        tuple((W.double(), b.double()) for W, b in layers), nonlin,
+        *(t.double() for t in k5_args[2:7]), *k5_args[7:])
+    n_head = K5_HEAD + 1
+    ref = rx64[:, :, :n_head].abs().amax(dim=(2, 3)).clamp_min(1e-30)
+    e_k64, e_p64 = ((a[:, :, :n_head].double() - rx64[:, :, :n_head]).abs().amax(dim=(2, 3))
+                    / ref for a in (kx, px))
+    head_ok = rollout_err(n_head) <= TOL_K5_HEAD
+    if head_f64:
+        head_ok |= e_k64 <= e_p64
     # float64 evaluation at the kernel's own states (see TOL_K5_SUM).
     a64 = torch.tensor(alphas, dtype=torch.float64, device=x0.device)[None, :, None, None]
     dx = kx[:, :, :-1].double() - c["xs"][:, None, :-1].double()
@@ -555,8 +622,14 @@ def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
           f"{float(e_full.max()):.3e}, within {TOL_K5} on {full_within:.4f} (min "
           f"{K5_WITHIN_MIN}); normwise xs {rel_err(kx, px):.3e}, us {rel_err(ku, pu):.3e}; "
           f"vs float64 at the kernel's states: u {e_u:.3e}, next x {e_x:.3e} of term "
-          f"magnitudes (tol {TOL_K5_SUM})", flush=True)
-    if not (e_head <= TOL_K5_HEAD and full_within >= K5_WITHIN_MIN
+          f"magnitudes (tol {TOL_K5_SUM}); first {K5_HEAD} steps vs the float64 rollouts: "
+          f"kernel worst {float(e_k64.max()):.3e}, plain float32 worst "
+          f"{float(e_p64.max()):.3e}; rollouts over {TOL_K5_HEAD} against plain "
+          f"{int((rollout_err(n_head) > TOL_K5_HEAD).sum())}"
+          + (f", of them no farther from float64 than plain float32 "
+             f"{int(((rollout_err(n_head) > TOL_K5_HEAD) & (e_k64 <= e_p64)).sum())}"
+             if head_f64 else ""), flush=True)
+    if not (bool(head_ok.all()) and full_within >= K5_WITHIN_MIN
             and e_u <= TOL_K5_SUM and e_x <= TOL_K5_SUM):
         failures.append(f"K5 {tag} head {e_head:.3e} full within {full_within:.4f} "
                         f"u {e_u:.3e} next x {e_x:.3e}")
@@ -594,6 +667,17 @@ def bits_equal(a, b):
                 torch.float64: torch.int64}[a.dtype]
         a, b = a.view(view), b.view(view)
     return torch.equal(a, b)
+
+
+def split_agreement(split, fused, act):
+    """The split search's outputs against K3's (both the
+    ``fused_line_search`` tuple): the share of the active lanes on which
+    the two make the same decision (flags and accepted objective), and
+    whether xs, us, jac and du2 are equal bit for bit on every lane of
+    the same decision."""
+    agree = (split[3] == fused[3]) & (split[4] == fused[4]) & (split[2] == fused[2])
+    bits = all(bits_equal(split[i][..., agree], fused[i][..., agree]) for i in (0, 1, 5, 6))
+    return agree[act].float().mean().item(), bits
 
 
 def lane_share(a, b, tol, own_scale=False):
@@ -936,9 +1020,33 @@ def main(profile=False):
     _build.library()
     print(f"[1] build/load kernels: {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name})", flush=True)
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"    ptxas: {line.strip()}")
+    # Registers a thread (ptxas) and resident warps an SM: K3 and K5 from
+    # the CUDA occupancy query at each shape their paths launch; the other
+    # kernels' 64-thread blocks bounded by registers alone.
+    for name, regs, spill in ptxas_report(_build.build_log()):
+        print(f"    ptxas: {name}: {regs} registers, {spill} bytes spilled, <= "
+              f"{min(64, 65536 // (-(-regs // 8) * 8 * 32))} warps an SM by registers")
+    for tag, B, lane, bf16 in (("main path", B_SOLVE, 0, 0), ("main path", B_KERNEL, 0, 0),
+                               ("fan-out, per-lane cost", FAN_B, 1, 0),
+                               ("llb, bf16 carry", B_SOLVE, 0, 1)):
+        g = K3.fused_geometry(B, 10, _build.sm_count(dev))
+        o = _build.occupancy("ampc_fused_line_search_occupancy", lane, bf16, g["threads"],
+                             dev.index or 0)
+        print(f"[1] K3 {tag} B={B}: {g['lanes_per_block']} lanes x 10 = {g['threads']} threads, "
+              f"{g['blocks']} blocks; {o['registers']} registers, {o['local_bytes']} local "
+              f"bytes; {o['blocks_per_sm']} blocks = "
+              f"{o['blocks_per_sm'] * -(-g['threads'] // 32)} warps resident an SM", flush=True)
+    for tag, widths, ds, dc, B, H_ in (("cheetah", [24, 64, 64, 18], 18, 6, B_HC, H_HC),
+                                       ("cheetah closed loop", [24, 64, 64, 18], 18, 6, B_HCQ,
+                                        H_HCQ),
+                                       ("dense cartpole", [5, 64, 64, 4], 4, 1, B_DENSE, H)):
+        o = K5.mlp_line_search_occupancy(widths, "relu", ds, dc, 10, B, dev)
+        print(f"[1] K5 {tag} {widths} B={B}, H={H_}: {o['rollouts']} rollouts, "
+              f"{o['threads']} threads, "
+              f"{o['smem']} bytes of shared memory a block, {o['blocks']} blocks; "
+              f"{o['registers']} registers, {o['local_bytes']} local bytes; "
+              f"{o['blocks_per_sm']} blocks = {o['blocks_per_sm'] * -(-o['threads'] // 32)} "
+              f"warps resident an SM", flush=True)
 
     wrappers = (K1.relin_jacobians, K2.backward_quad_ll, K3.fused_line_search)
     for w in wrappers:
@@ -1234,12 +1342,15 @@ def main(profile=False):
                          Bc * Hc * feature_flops(len(terms), 5, 4)),
         )
 
-    def check_k2_k3(tag, c, cost, agree_min=K3_AGREE_MIN, within_min=None):
+    def check_k2_k3(tag, c, cost, agree_min=K3_AGREE_MIN, within_min=None, split=False):
         """One backward pass and one line search on the lanes-last carry
         ``c`` under ``cost = (qd, rd, fd, goal)``; returns the kernels'
         outputs, the twin pairs and the timed closures, and appends to
         ``failures``. The twins' states are gated normwise, or, with
-        ``within_min``, per lane on that share of the lanes."""
+        ``within_min``, per lane on that share of the lanes. With
+        ``split``, the split search (K8 + acceptance + K9) is held
+        against K3 on the same inputs: decisions on ``agree_min`` of the
+        active lanes, and bit for bit where they agree."""
         Hc, Bc = c["us"].shape
         act = ~c["converged"] & ~c["failed"]
         k2_kw = dict(carry=(act, c["Ks"], c["ks"]))
@@ -1359,6 +1470,13 @@ def main(profile=False):
                 or max(err["du2"], err["obj64"]) > TOL_K3:
             failures.append(f"K3 ({tag}) float64 check u {err['u']:.3e} x {err['x']:.3e} obj "
                             f"{err['obj64']:.3e} jac {err['jac']:.3e} du2 {err['du2']:.3e}")
+        if split:
+            frac, bits = split_agreement(K3.fused_line_search_wide(*k3_args), lk, act)
+            print(f"[3] split search vs K3, {tag}: decisions agree on {frac:.5f} of "
+                  f"{int(act.sum())} active lanes (min {agree_min}), xs/us/jac/du2 bit for "
+                  f"bit on those {bits}", flush=True)
+            if frac < agree_min or not bits:
+                failures.append(f"split vs K3 ({tag}): agree {frac:.5f}, bits {bits}")
         return dict(
             bk=bk, bp=bp, lk=lk, twin=twin, k3_args=k3_args, act=act,
             k2=lambda: K2.backward_quad_ll(*k2_args, **k2_kw),
@@ -1396,14 +1514,7 @@ def main(profile=False):
                 max_abs_err=max(abs_err(a, b) for a, b in res["twin"].values()),
                 ms=time_ms(res["k3"]), plain_ms=time_ms(res["k3_plain"], reps=5),
                 **extra.get("fused_line_search", {}),
-                # All 10 step sizes are rolled out, the chosen one again
-                # with its Jacobians; a rollout-step is the term values,
-                # the coefficient products, the feedback law and the
-                # stage cost.
-                **bound_keys(
-                    n_bytes(*tensors, *lk),
-                    Bc * Hc * (11 * (len(terms) * 13 + 20) + feature_flops(len(terms), 5, 4)),
-                ),
+                **k3_bound(n_bytes(*tensors, *lk), Bc, Hc, len(terms), len(alphas)),
             ),
         ]
 
@@ -1498,10 +1609,8 @@ def main(profile=False):
                               / obj64.abs().clamp_min(1e-30))[tm].max())
         # The split search against K3: the same decision on a lane, then
         # the same trajectory, Jacobians and du2, bit for bit.
-        agree = (succ == lk[3]) & (fail == lk[4]) & (new_obj == lk[2])
-        err["split_agree"] = agree[act].float().mean().item()
-        split_bits = all(bits_equal(a[..., agree], b[..., agree]) for a, b in (
-            (rk[0], lk[0]), (rk[1], lk[1]), (rk[2], lk[5]), (rk[3], lk[6])))
+        err["split_agree"], split_bits = split_agreement(
+            (rk[0], rk[1], new_obj, succ, fail, rk[2], rk[3]), lk, act)
         print(f"[3] wide kernels, {tag}: K2 4D entry vs plain {err['k2_4d']:.3e}, bf16 Jacobians "
               f"vs plain {err['k2_bf16']:.3e}, lanes within {TOL_K2} {err['k2_within']:.5f} (min "
               f"{K2_WITHIN_MIN}); 4D entry bit for bit the 3D call: "
@@ -1551,8 +1660,8 @@ def main(profile=False):
                 max_abs_err=abs_err(lkb[0][..., twin_b], lpb[0][..., twin_b]),
                 ms=time_ms(lambda: K3.fused_line_search(*ls, *tail, jb)),
                 plain_ms=plain(lambda: K3.fused_line_search_plain(*ls, *tail, jb)),
-                **bound_keys(ls_bytes + n_bytes(*tail, jb, *lkb),
-                             Bc * Hc * (11 * step_ops + feature_flops(len(terms), 5, 4)))),
+                **k3_bound(ls_bytes + n_bytes(*tail, jb, *lkb), Bc, Hc, len(terms),
+                           len(alphas))),
             "k8": dict(
                 max_abs_err=abs_err(ok[fin], op[fin]),
                 # The whole split entry (K8 + acceptance + K9) and K3 on
@@ -1651,7 +1760,7 @@ def main(profile=False):
     fan_cost = (*(cfa["cost"][k] for k in ("Qdiag", "Rdiag", "Fdiag")), (0.0,) * 4)
     report += k2_k3_rows(
         check_k2_k3("per-lane cost, fan-out (a) carry", cfa, fan_cost,
-                    agree_min=K3_FAN_AGREE_MIN, within_min=K3_FAN_WITHIN_MIN),
+                    agree_min=K3_FAN_AGREE_MIN, within_min=K3_FAN_WITHIN_MIN, split=True),
         cfa, "per-lane cost", fan_launches["a"],
     )
 
@@ -1693,10 +1802,25 @@ def main(profile=False):
         rows, fails = check_batch_major_kernels(tag, mdl, cst, kw, x0s, K4, K5, counts)
         report += rows
         failures += fails
+        if tag == "cheetah":
+            # K5 at the closed loop's shape (B=32, H=20), where the
+            # cheetah path makes most of its launches: its row's
+            # ``launches`` are the path's, split by shape here.
+            rows[-1][f"launches_B{B_HC}_H{H_HC}"] = open_launches["K5"]
+            cl_rows, fails = check_batch_major_kernels(
+                "cheetah closed loop", mdl, cst, dict(kw, H=H_HCQ), x0q, K4, K5,
+                dict(K5=loop_launches["K5"]), k4=False, head_f64=True)
+            failures += fails
+            for r in cl_rows:
+                rows[-1][f"at_B{B_HCQ}_H{H_HCQ}"] = {
+                    k: v for k, v in r.items() if k not in ("name", "route", "source", "replaces")}
     for r in report:
         print(f"    {r['name']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-              f"{r['launches']} launches on its path")
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; bytes "
+              f"{r['bound_bytes_ms']:.4f}, operations {r['bound_ops_ms']:.4f}"
+              + (f"; its scratch {r['scratch_bytes_ms']:.4f} ms at the memory rate"
+                 if "scratch_bytes_ms" in r else "")
+              + f"), {r['launches']} launches on its path")
         if "lane_cost_ms" in r:
             print(f"        with per-lane cost planes at this shape: kernel "
                   f"{r['lane_cost_ms']:.3f} ms (no path launches it so)")
@@ -1707,6 +1831,9 @@ def main(profile=False):
             if key.startswith("at_B") or key == "bf16_jac":
                 print(f"        {key}: kernel {w['ms']:.3f} ms, plain "
                       f"{w['plain_ms']:.3f} ms, bound {w['bound_ms']:.4f} ms ({w['bound_by']})"
+                      + (f", {w['launches']} launches" if "launches" in w else "")
+                      + (f"; its scratch {w['scratch_bytes_ms']:.4f} ms"
+                         if "scratch_bytes_ms" in w else "")
                       + (f"; split entry {w['split_entry_ms']:.3f} ms, K3 {w['fused_k3_ms']:.3f} ms"
                          if "split_entry_ms" in w else ""))
 

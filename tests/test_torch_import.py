@@ -184,8 +184,11 @@ def test_kernel_shapes_and_mlp_struct_mirror_the_sources():
     assert int(defs["MAX_W"]) == _build.MLP_MAX_W
     assert int(defs["MAX_DC"]) == _build.MLP_MAX_DC
     assert int(defs["MAX_L"]) == _build.MAX_L
-    assert int(defs["RPT"]) == _build.MLP_RPT
-    assert int(defs["TX"]) == _build.MLP_TX and int(defs["PF"]) == _build.MLP_PF
+    assert int(defs["TILE"]) == _build.MLP_TILE
+    assert int(defs["MAX_THREADS"]) == _build.MLP_MAX_THREADS
+    ls = (_build.CSRC_DIR / "linesearch_fused.cu").read_text()
+    assert int(re.search(r"#define AMPC_LS_MAX_THREADS (\d+)", ls)[1]) == \
+        _build.LS_MAX_THREADS
     n_int = 1 + (_build.MLP_MAX_LAYERS + 1) + 4
     n_float = _build.MAX_L + 2 * _build.MLP_MAX_DC
     assert ctypes.sizeof(_build.MlpLS) == 4 * (n_int + n_float)

@@ -160,13 +160,18 @@ def test_rejected_arguments(kwargs, match):
 
 def test_shared_memory_formula_fits_the_main_path_widths():
     """The launcher's shared-memory need at the widths the solver uses
-    (24-64-64-18 and 5-64-64-4, 10 step sizes) and at the compiled
-    maximum stays under what a block can use."""
-    assert K5._smem_bytes([24, 64, 64, 18], 18, 6, 10, lanes_per_block=2) < 110 * 1024
-    assert K5._smem_bytes([5, 64, 64, 4], 4, 1, 10, lanes_per_block=2) < 110 * 1024
+    (24-64-64-18 and 5-64-64-4, 10 step sizes, the main path's batches)
+    leaves room for two blocks an SM, and at the compiled maximum it
+    stays under what a block can use, or the geometry raises."""
+    for widths, ds, dc, B in (([24, 64, 64, 18], 18, 6, 1024),
+                              ([5, 64, 64, 4], 4, 1, 4096)):
+        g = K5.mlp_geometry(widths, ds, dc, 10, B)
+        assert g["lanes_per_block"] >= 2 and g["smem"] < 110 * 1024
     w = _build.MLP_MAX_W
-    assert K5._smem_bytes([w, w, w, w - 32], w - 32, 32, 10) < _build.MAX_SMEM_BYTES
-    assert K5._smem_bytes([w] * 6, w // 2, w // 2, 10) > _build.MAX_SMEM_BYTES
+    g = K5.mlp_geometry([w, w, w, w - 32], w - 32, 32, 10, 1024)
+    assert g["lanes_per_block"] == 1 and g["smem"] <= _build.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="mlp_line_search: .* shared memory"):
+        K5.mlp_geometry([w] * 5 + [w - 32], w - 32, 32, 10, 1024)
 
 
 def test_nan_gains_stay_nan_through_clip_and_relu():
