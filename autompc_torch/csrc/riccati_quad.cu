@@ -29,21 +29,44 @@
 // broadcast. The Jacobian plane is float or bfloat16 (jac_io.cuh), a
 // second template switch; the recursion runs in float32 either way.
 //
-// What bounds it on an H100: the recursion is sequential in t and
-// independent across lanes, so the kernel runs one thread per lane with
-// V (ds x ds) and v in registers, ~300 flops per step. Each step streams
-// ds*(ds+1) Jacobian floats in and ds+1 gain floats out per lane; with
-// B=16384 lanes there are only 16384 threads, far fewer than the card
-// holds, so the kernel is latency-bound on the dependent chain of each
-// step rather than on bandwidth. Design for now: lanes-last layout so a
-// warp's loads and stores of one row are coalesced, small blocks (64
-// threads) to spread the few warps over all SMs. The TPU's (8, 128) wide
-// tiles and in-VMEM casts have no counterpart here.
+// What bounds it on an H100: the latency of device memory. The recursion
+// is sequential in t and independent across lanes, so one thread owns one
+// lane, with V (ds x ds) and v in registers: ~300 dependent flops a step,
+// ~0.1-0.2 us. A step's inputs (ds*(ds+1) Jacobian rows, ds+1 trajectory
+// rows, and for an inactive lane ds+1 rows of old gains) head that step's
+// chain; loaded at the step, as they were, each step waits a full trip to
+// device memory (~1.35 us a step measured), and with one or two warps an
+// SM there is nothing to hide it behind. So the inputs stream through a
+// ring of AMPC_BQ_RING steps in shared memory, each thread copying its
+// own lane's elements with cp.async (lanes-last rows: a warp's copies of
+// one row are 128 contiguous bytes) AMPC_BQ_RING - 1 steps ahead of the
+// step that reads them. A bfloat16 Jacobian row is copied in pairs of
+// lanes by the even thread when B is even (4-byte copies stay aligned),
+// and loaded directly, without the ring, when it is not. The step's
+// arithmetic is unchanged (ampc_bq_step), so the outputs are the same
+// bits as a kernel that loads at the step. Blocks are small (the
+// wrapper's bq_geometry: 32 lanes up to B = 4 x SMs x 32) so the few
+// warps spread over as many SMs as they can. The TPU's (8, 128) wide tiles
+// and in-VMEM casts have no counterpart here.
+#include "cp_async.cuh"
 #include "jac_io.cuh"
 #include "riccati_quad_step.cuh"
 
+// Steps of inputs held in shared memory; the copies run this many steps
+// minus one ahead of the step that reads them.
+#define AMPC_BQ_RING 8
+// Lanes (threads) a block may take: bq_geometry in ops/cuda_riccati.py.
+#define AMPC_BQ_MAX_LANES 128
+
+template <int DS, typename JT>
+constexpr int bq_ring_bytes_per_lane() {
+  // Jacobian rows, then the trajectory rows (ds states, the control) and
+  // the old gains (ds + 1) in float.
+  return AMPC_BQ_RING * (DS * (DS + 1) * (int)sizeof(JT) + 2 * (DS + 1) * 4);
+}
+
 template <int DS, bool LANE_COST, typename JT>
-__global__ void backward_quad_kernel(
+__global__ void __launch_bounds__(AMPC_BQ_MAX_LANES) backward_quad_kernel(
     const __grid_constant__ QuadDiag P, const JT* __restrict__ jac,
     const float* __restrict__ xsT, const float* __restrict__ xterm,
     const float* __restrict__ usT,
@@ -51,85 +74,152 @@ __global__ void backward_quad_kernel(
     const float* __restrict__ fdT, const uint8_t* __restrict__ act,
     const float* __restrict__ oldK, const float* __restrict__ oldk,
     float* __restrict__ KsT, float* __restrict__ ksT,
-    float* __restrict__ lin_out, float* __restrict__ quad_out, int H, int B) {
-  constexpr int D = DS + 1;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const bool active = act[b] != 0;
+    float* __restrict__ lin_out, float* __restrict__ quad_out, int H, int B,
+    bool pairs) {
+  constexpr int D = DS + 1, NJ = DS * D, NF = 2 * D;
+  constexpr bool BF16 = sizeof(JT) == 2;
+  extern __shared__ float4 bq_smem[];
+  const int nl = blockDim.x, tid = threadIdx.x;
+  // Ring slot k: NF float rows of nl lanes (xs rows 0..DS-1, us, old K
+  // rows, old k), then NJ Jacobian rows of nl lanes.
+  float* fring = reinterpret_cast<float*>(bq_smem);
+  JT* jring = reinterpret_cast<JT*>(fring + AMPC_BQ_RING * NF * nl);
+  const int b = blockIdx.x * nl + tid;
+  const bool valid = b < B;
+  // Threads past the batch run the recursion on the last lane's inputs
+  // and store nothing, so every thread of a warp reaches each __syncwarp.
+  const long long bl = valid ? b : B - 1;
+  const bool active = act[bl] != 0;
   const int obsdim = P.obsdim;
 
   float qd[DS], goal[DS];
 #pragma unroll
   for (int i = 0; i < DS; ++i) {
-    const float q = LANE_COST ? (i < obsdim ? qdT[(long long)i * B + b] : 0.f)
+    const float q = LANE_COST ? (i < obsdim ? qdT[(long long)i * B + bl] : 0.f)
                               : P.qd[i];
     qd[i] = i < obsdim ? q * P.two_dt : 0.f;
     goal[i] = i < obsdim ? P.goal[i] : 0.f;
   }
-  const float rd2 = (LANE_COST ? rdT[b] : P.rd) * P.two_dt;
+  const float rd2 = (LANE_COST ? rdT[bl] : P.rd) * P.two_dt;
+
+  // Step t's inputs into its ring slot (t counts down from H-1).
+  auto fetch_step = [&](int t) {
+    const int k = (H - 1 - t) % AMPC_BQ_RING;
+    float* fr = fring + k * NF * nl + tid;
+    JT* jr = jring + k * NJ * nl + tid;
+    const long long jrow = (long long)t * NJ * B;
+    if constexpr (!BF16) {
+#pragma unroll
+      for (int r = 0; r < NJ; ++r)
+        ampc_cp_async4(jr + r * nl, jac + jrow + (long long)r * B + bl);
+    } else if (pairs) {
+      if ((tid & 1) == 0 && valid) {
+#pragma unroll
+        for (int r = 0; r < NJ; ++r)
+          ampc_cp_async4(jr + r * nl, jac + jrow + (long long)r * B + bl);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < DS; ++i)
+      ampc_cp_async4(fr + i * nl, xsT + ((long long)t * DS + i) * B + bl);
+    ampc_cp_async4(fr + DS * nl, usT + (long long)t * B + bl);
+    if (!active) {
+#pragma unroll
+      for (int j = 0; j < DS; ++j)
+        ampc_cp_async4(fr + (D + j) * nl, oldK + ((long long)t * DS + j) * B + bl);
+      ampc_cp_async4(fr + (D + DS) * nl, oldk + (long long)t * B + bl);
+    }
+  };
 
   // Terminal expansion.
   float V[DS][DS], v[DS];
 #pragma unroll
   for (int i = 0; i < DS; ++i) {
-    const float f = LANE_COST ? (i < obsdim ? fdT[(long long)i * B + b] : 0.f)
+    const float f = LANE_COST ? (i < obsdim ? fdT[(long long)i * B + bl] : 0.f)
                               : P.fd[i];
     const float fd2 = i < obsdim ? f * 2.f : 0.f;
 #pragma unroll
     for (int j = 0; j < DS; ++j) V[i][j] = (i == j) ? fd2 : 0.f;
-    v[i] = i < obsdim ? fd2 * (xterm[(long long)i * B + b] - goal[i]) : 0.f;
+    v[i] = i < obsdim ? fd2 * (xterm[(long long)i * B + bl] - goal[i]) : 0.f;
   }
 
+  for (int s = 0; s < AMPC_BQ_RING - 1; ++s) {
+    if (H - 1 - s >= 0) fetch_step(H - 1 - s);
+    ampc_cp_async_commit();
+  }
   float lin = 0.f, quad = 0.f;
   for (int t = H - 1; t >= 0; --t) {
-    const JT* row = jac + (long long)t * DS * D * B + b;
+    if (t - (AMPC_BQ_RING - 1) >= 0) fetch_step(t - (AMPC_BQ_RING - 1));
+    ampc_cp_async_commit();
+    ampc_cp_async_wait<AMPC_BQ_RING - 1>();
+    if constexpr (BF16) __syncwarp();  // the even thread copied the pair
+    const int k = (H - 1 - t) % AMPC_BQ_RING;
+    const float* fr = fring + k * NF * nl + tid;
+    const JT* jr = jring + k * NJ * nl + tid;
+    const JT* row = jac + (long long)t * NJ * B + bl;
     float Jx[DS][DS], Ju[DS];
 #pragma unroll
-    for (int k = 0; k < DS; ++k) {
+    for (int kk = 0; kk < DS; ++kk) {
 #pragma unroll
       for (int j = 0; j < DS; ++j)
-        Jx[k][j] = ampc_jac_load(row[(long long)(k * D + j) * B]);
-      Ju[k] = ampc_jac_load(row[(long long)(k * D + DS) * B]);
+        Jx[kk][j] = ampc_jac_load(BF16 && !pairs ? row[(long long)(kk * D + j) * B]
+                                                 : jr[(kk * D + j) * nl]);
+      Ju[kk] = ampc_jac_load(BF16 && !pairs ? row[(long long)(kk * D + DS) * B]
+                                            : jr[(kk * D + DS) * nl]);
     }
     float cx[DS];
 #pragma unroll
     for (int i = 0; i < DS; ++i)
-      cx[i] = i < obsdim
-                  ? qd[i] * (xsT[((long long)t * DS + i) * B + b] - goal[i])
-                  : 0.f;
-    const float cu = rd2 * usT[(long long)t * B + b];
+      cx[i] = i < obsdim ? qd[i] * (fr[i * nl] - goal[i]) : 0.f;
+    const float cu = rd2 * fr[DS * nl];
 
     float K[DS], kff;
     ampc_bq_step<DS>(Jx, Ju, cx, cu, rd2, qd, V, v, K, kff, lin, quad);
 
+    if (valid) {
 #pragma unroll
-    for (int j = 0; j < DS; ++j) {
-      const long long o = ((long long)t * DS + j) * B + b;
-      KsT[o] = active ? K[j] : oldK[o];
+      for (int j = 0; j < DS; ++j)
+        KsT[((long long)t * DS + j) * B + b] = active ? K[j] : fr[(D + j) * nl];
+      ksT[(long long)t * B + b] = active ? kff : fr[(D + DS) * nl];
     }
-    ksT[(long long)t * B + b] = active ? kff : oldk[(long long)t * B + b];
+    if constexpr (BF16) __syncwarp();  // the slot is refilled next step
   }
-  lin_out[b] = lin;
-  quad_out[b] = quad;
+  if (valid) {
+    lin_out[b] = lin;
+    quad_out[b] = quad;
+  }
 }
 
 template <bool LANE_COST, typename JT>
-static void launch(const QuadDiag* P, const void* jac, const float* xsT,
-                   const float* xterm, const float* usT, const float* qdT,
-                   const float* rdT, const float* fdT, const uint8_t* act,
-                   const float* oldK, const float* oldk, float* KsT,
-                   float* ksT, float* lin, float* quad, int H, int B,
-                   cudaStream_t s) {
-  const int threads = 64;
-  const unsigned blocks = (unsigned)((B + threads - 1) / threads);
-  backward_quad_kernel<4, LANE_COST, JT><<<blocks, threads, 0, s>>>(
-      *P, (const JT*)jac, xsT, xterm, usT, qdT, rdT, fdT, act, oldK, oldk,
-      KsT, ksT, lin, quad, H, B);
+static int launch(const QuadDiag* P, const void* jac, const float* xsT,
+                  const float* xterm, const float* usT, const float* qdT,
+                  const float* rdT, const float* fdT, const uint8_t* act,
+                  const float* oldK, const float* oldk, float* KsT, float* ksT,
+                  float* lin, float* quad, int H, int B, int lanes,
+                  cudaStream_t s) {
+  auto kernel = backward_quad_kernel<4, LANE_COST, JT>;
+  const int smem = lanes * bq_ring_bytes_per_lane<4, JT>();
+  static int allowed = 48 * 1024;  // dynamic shared memory opted into
+  if (smem > allowed) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed = smem;
+  }
+  const unsigned blocks = (unsigned)((B + lanes - 1) / lanes);
+  // bfloat16 rows go through the ring in pairs of lanes when every pair
+  // starts on a 4-byte boundary.
+  const bool pairs = B % 2 == 0 && (uintptr_t)jac % 4 == 0;
+  kernel<<<blocks, lanes, smem, s>>>(*P, (const JT*)jac, xsT, xterm, usT, qdT,
+                                     rdT, fdT, act, oldK, oldk, KsT, ksT, lin,
+                                     quad, H, B, pairs);
+  return (int)cudaGetLastError();
 }
 
 // qdT/rdT/fdT: per-lane cost planes, or all three null for the fixed
 // cost held in P. jac_bf16: the Jacobian plane is bfloat16, else float.
-// xterm: the terminal state (ds, B).
+// xterm: the terminal state (ds, B). lanes: lanes (threads) a block, a
+// multiple of 32 up to AMPC_BQ_MAX_LANES (bq_geometry).
 extern "C" int ampc_backward_quad_ll(const QuadDiag* P, const void* jac,
                                      const float* xsT, const float* xterm,
                                      const float* usT, const float* qdT,
@@ -138,25 +228,26 @@ extern "C" int ampc_backward_quad_ll(const QuadDiag* P, const void* jac,
                                      const float* oldk, float* KsT,
                                      float* ksT, float* lin, float* quad,
                                      int jac_bf16, int ds, int H, int B,
-                                     int device, void* stream) {
+                                     int lanes, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool lane = qdT != nullptr;
-  if (ds != 4 || P->obsdim < 1 || P->obsdim > ds ||
-      (rdT != nullptr) != lane || (fdT != nullptr) != lane)
+  if (ds != 4 || H < 1 || B < 1 || P->obsdim < 1 || P->obsdim > ds ||
+      (rdT != nullptr) != lane || (fdT != nullptr) != lane ||
+      lanes < 32 || lanes > AMPC_BQ_MAX_LANES || lanes % 32 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (lane && jac_bf16)
-    launch<true, __nv_bfloat16>(P, jac, xsT, xterm, usT, qdT, rdT, fdT, act,
-                                oldK, oldk, KsT, ksT, lin, quad, H, B, s);
-  else if (lane)
-    launch<true, float>(P, jac, xsT, xterm, usT, qdT, rdT, fdT, act, oldK,
-                        oldk, KsT, ksT, lin, quad, H, B, s);
-  else if (jac_bf16)
-    launch<false, __nv_bfloat16>(P, jac, xsT, xterm, usT, qdT, rdT, fdT, act,
-                                 oldK, oldk, KsT, ksT, lin, quad, H, B, s);
-  else
-    launch<false, float>(P, jac, xsT, xterm, usT, qdT, rdT, fdT, act, oldK,
-                         oldk, KsT, ksT, lin, quad, H, B, s);
-  return (int)cudaGetLastError();
+    return launch<true, __nv_bfloat16>(P, jac, xsT, xterm, usT, qdT, rdT, fdT,
+                                       act, oldK, oldk, KsT, ksT, lin, quad,
+                                       H, B, lanes, s);
+  if (lane)
+    return launch<true, float>(P, jac, xsT, xterm, usT, qdT, rdT, fdT, act,
+                               oldK, oldk, KsT, ksT, lin, quad, H, B, lanes, s);
+  if (jac_bf16)
+    return launch<false, __nv_bfloat16>(P, jac, xsT, xterm, usT, qdT, rdT,
+                                        fdT, act, oldK, oldk, KsT, ksT, lin,
+                                        quad, H, B, lanes, s);
+  return launch<false, float>(P, jac, xsT, xterm, usT, qdT, rdT, fdT, act,
+                              oldK, oldk, KsT, ksT, lin, quad, H, B, lanes, s);
 }

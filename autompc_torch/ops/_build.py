@@ -61,6 +61,10 @@ LS_MAX_THREADS = 256
 MLP_MAX_THREADS = 320
 MLP_TILE = 4
 MAX_SMEM_BYTES = 227 * 1024
+# K2's ring of time steps in shared memory and its largest block
+# (riccati_quad.cu: AMPC_BQ_RING, AMPC_BQ_MAX_LANES).
+BQ_RING = 8
+BQ_MAX_LANES = 128
 # Streaming multiprocessors of an H100 SXM: the geometry helpers' default
 # where no card is asked (the CPU tests).
 H100_SMS = 132
@@ -151,7 +155,7 @@ _SIGNATURES = {
         [ctypes.POINTER(FeatTable), _P, _P, _P, _P, _I, _I, _I, _I, _P]
     ),
     "ampc_backward_quad_ll": (
-        [ctypes.POINTER(QuadDiag)] + [_P] * 14 + [_I] * 5 + [_P]
+        [ctypes.POINTER(QuadDiag)] + [_P] * 14 + [_I] * 6 + [_P]
     ),
     "ampc_backward_quad_bm": (
         [ctypes.POINTER(QuadDiag)] + [_P] * 11 + [_I, _I, _I, _I, _P]
@@ -173,7 +177,8 @@ _SIGNATURES = {
         [ctypes.POINTER(FeatTable), ctypes.POINTER(SindyLS)]
         + [_P] * 8 + [_I, _I, _I, _I, _P]
     ),
-    "ampc_riccati_general": [_P] * 12 + [_I, _I, _I, _I, _I, _P],
+    "ampc_riccati_general": [_P] * 12 + [_I] * 7 + [_P],
+    "ampc_riccati_general_lane_bytes": [_I, _I, _I],
     "ampc_mlp_line_search": (
         [ctypes.POINTER(MlpLS)] + [_P] * 8 + [_I] * 5 + [_P]
     ),

@@ -27,6 +27,7 @@ here). The TPU's wide-kernel tile knobs (``AMPC_BQ_WIDE_S``,
 ``AMPC_BQ_WIDE_STEP`` variants are not ported (ROADMAP.md §B). The
 dense-expansion kernels are ``ops/cuda_riccati_general.py``.
 
+K2's launch geometry (lanes a block) is chosen here, by ``bq_geometry``.
 A CPU tensor takes the plain PyTorch version (``backward_quad_ll_plain``,
 ``backward_quad_plain``); a CUDA tensor launches the kernel or raises.
 """
@@ -34,6 +35,7 @@ A CPU tensor takes the plain PyTorch version (``backward_quad_ll_plain``,
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -178,19 +180,37 @@ def _quad_diag(obsdim, dt, goal, fixed=None):
     return P
 
 
+@functools.lru_cache(maxsize=256)
+def bq_geometry(B, ds=4, jac_bf16=False, sm_count=None):
+    """K2's launch geometry: one thread a lane, ``lanes_per_block``
+    lanes a block, the smallest block (32, 64 or 128 lanes) that keeps
+    the grid within about four blocks an SM of ``sm_count`` (an H100's
+    132 when not given), so that the few warps a batch makes spread over
+    as many SMs as they can; ``smem`` bytes of shared memory a block hold
+    its ring of ``_build.BQ_RING`` time steps (riccati_quad.cu). Raises
+    ``ValueError`` for a ds the kernel is not built for."""
+    built = _build.KERNEL_SHAPES["riccati_quad"]
+    if (ds, 1) not in built:
+        raise ValueError(
+            f"backward kernel is built for (ds, dc) in {built}, got {(ds, 1)}"
+        )
+    sms = sm_count or _build.H100_SMS
+    lanes = 32
+    while -(-B // lanes) > 4 * sms and lanes < _build.BQ_MAX_LANES:
+        lanes *= 2
+    per_lane = _build.BQ_RING * (ds * (ds + 1) * (2 if jac_bf16 else 4) + 2 * (ds + 1) * 4)
+    return dict(lanes_per_block=lanes, blocks=-(-B // lanes), smem=lanes * per_lane)
+
+
 def _launch_ll(name, jac_p, xsT, xterm, usT, qd, rd, fd, goal, dt, obsdim,
                carry, lane):
     """Check the CUDA tensors and launch K2; ``xsT`` holds rows 0..H-1
     (or 0..H) and ``xterm`` the terminal state."""
     H, dsd, B = jac_p.shape
     ds = xsT.shape[1]
-    built = _build.KERNEL_SHAPES["riccati_quad"]
-    if (ds, 1) not in built:
-        raise ValueError(
-            f"backward kernel is built for (ds, dc) in {built}, got {(ds, 1)}"
-        )
     dev, f32 = xsT.device, torch.float32
     bf16 = _build.jac_bf16("jac_p", jac_p)
+    g = bq_geometry(B, ds, bf16, _build.sm_count(dev))
     _build.check_cuda("jac_p", jac_p, (H, dsd, B), jac_p.dtype, dev)
     _build.check_cuda("xsT", xsT, tuple(xsT.shape), f32, dev)
     _build.check_cuda("xterm", xterm, (ds, B), f32, dev)
@@ -201,6 +221,9 @@ def _launch_ll(name, jac_p, xsT, xterm, usT, qd, rd, fd, goal, dt, obsdim,
     _build.check_cuda("old ks", ok, (H, B), f32, dev)
     P = _quad_diag(obsdim, dt, goal, None if lane else (qd, rd, fd))
     planes = _build.cost_plane_ptrs(lane, qd, rd, fd, f32, dev)
+    if g["smem"] > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: a block of {g['lanes_per_block']} lanes needs "
+                         f"{g['smem']} bytes of shared memory")
     KsT = torch.empty((H, ds, B), dtype=f32, device=dev)
     ksT = torch.empty((H, B), dtype=f32, device=dev)
     lin = torch.empty((B,), dtype=f32, device=dev)
@@ -208,8 +231,8 @@ def _launch_ll(name, jac_p, xsT, xterm, usT, qd, rd, fd, goal, dt, obsdim,
     p = _build.ptr
     rc = _build.library().ampc_backward_quad_ll(
         ctypes.byref(P), p(jac_p), p(xsT), p(xterm), p(usT), *planes, p(act), p(oK),
-        p(ok), p(KsT), p(ksT), p(lin), p(quad), bf16, ds, H, B, dev.index or 0,
-        _build.stream_of(xsT),
+        p(ok), p(KsT), p(ksT), p(lin), p(quad), bf16, ds, H, B, g["lanes_per_block"],
+        dev.index or 0, _build.stream_of(xsT),
     )
     _build.check_rc(name, rc)
     return KsT, ksT, lin, quad

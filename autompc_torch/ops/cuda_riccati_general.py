@@ -14,11 +14,15 @@ regularizes it.
 
 The kernel is instantiated for the (ds, dc) pairs of
 ``_build.KERNEL_SHAPES["riccati_general"]``; another pair raises
-``ValueError``. A CPU tensor takes the plain PyTorch version
-``riccati_general_plain``; a CUDA tensor launches the kernel or raises.
+``ValueError``. Its launch geometry (threads a lane, lanes a block) is
+chosen here, by ``general_geometry``. A CPU tensor takes the plain
+PyTorch version ``riccati_general_plain``; a CUDA tensor launches the
+kernel or raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -85,6 +89,71 @@ def _shapes(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):
     return B, H, ds, dc
 
 
+# Per instance (ds, dc) and threads a lane: the most lanes a block
+# takes, register tiles (rows x columns) of the products ([Jx|Ju]'[V|v];
+# Qxx and Qux; Quu; the next V) and steps in the input ring; a mirror of
+# RgShape in csrc/riccati_general.cu. With 64 or more threads a lane the
+# last warp forms and factors Quu while the others form Qxx and Qux.
+GENERAL_SHAPES = {
+    (18, 6): {
+        64: dict(max_lanes=4, p1=(4, 2), p2=(3, 6), pu=(2, 2), p5=(2, 3), ring=3),
+        128: dict(max_lanes=1, p1=(4, 1), p2=(2, 3), pu=(2, 2), p5=(1, 4), ring=3),
+    },
+    (4, 1): {
+        8: dict(max_lanes=32, p1=(1, 5), p2=(1, 4), pu=(1, 1), p5=(1, 4), ring=6),
+    },
+}
+
+
+def _up4(n):
+    return -(-n // 4) * 4
+
+
+def general_lane_bytes(ds, dc, threads_per_lane):
+    """Shared memory of one lane (RgLayout in csrc/riccati_general.cu):
+    the input ring and the recursion's matrices, each region padded to
+    16 bytes, the row strides to whole tiles."""
+    sh = GENERAL_SHAPES[(ds, dc)][threads_per_lane]
+    nj, nv = ds + dc, ds + 1
+    sv = _up4(-(-nv // sh["p1"][1]) * sh["p1"][1])
+    sq = _up4(max(-(-ds // sh["p5"][1]) * sh["p5"][1], nv))
+    slot = _up4(ds * nj) + _up4(ds * ds) + _up4(dc * dc) + _up4(ds) + _up4(dc)
+    work = (_up4(ds * sv) + _up4(ds * nj) + _up4(nj * sq) + _up4(dc * dc) + _up4(dc)
+            + _up4(dc * sq) + _up4(dc * ds) + _up4(dc * dc) + _up4(dc))
+    return 4 * (sh["ring"] * slot + work)
+
+
+@functools.lru_cache(maxsize=256)
+def general_geometry(ds, dc, B, sm_count=None, threads_per_lane=None):
+    """K4's launch geometry at (ds, dc) for B lanes. ``threads_per_lane``
+    threads share a lane: at (18, 6) four warps when the batch has fewer
+    lanes than ``sm_count`` SMs (an H100's 132 when not given), so that a
+    lane's step is spread over more threads where the card is mostly
+    empty, else two; 8 at (4, 1). A block takes
+    ``lanes_per_block`` lanes, the most (up to the instance's limit, in
+    powers of two from one warp) that still leaves a block for every SM,
+    so a small batch spreads over as many SMs as it has lanes and a large
+    one makes fewer, larger blocks. ``threads_per_lane`` may be given to
+    take another instance. Raises ``ValueError`` for a pair the kernel is
+    not built for."""
+    built = _build.KERNEL_SHAPES["riccati_general"]
+    if (ds, dc) not in built:
+        raise ValueError(
+            f"general backward kernel is built for (ds, dc) in {built}, got {(ds, dc)}"
+        )
+    sms = sm_count or _build.H100_SMS
+    shapes = GENERAL_SHAPES[(ds, dc)]
+    tpl = threads_per_lane or (min(shapes) if B >= sms else max(shapes))
+    if tpl not in shapes:
+        raise ValueError(f"general backward kernel at {(ds, dc)} takes {sorted(shapes)} "
+                         f"threads a lane, got {tpl}")
+    lanes = max(1, 32 // tpl)
+    while 2 * lanes <= shapes[tpl]["max_lanes"] and -(-B // (2 * lanes)) >= sms:
+        lanes *= 2
+    return dict(threads_per_lane=tpl, lanes_per_block=lanes, threads=lanes * tpl,
+                blocks=-(-B // lanes), smem=lanes * general_lane_bytes(ds, dc, tpl))
+
+
 def riccati_general_plain(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):
     """Plain PyTorch version of the kernel: the batched scan recursion
     with the kernel's Cholesky solve."""
@@ -102,13 +171,8 @@ def riccati_general(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):
     if _build.device_kind(Jx) == "cpu":
         return riccati_general_plain(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn)
     B, H, ds, dc = _shapes(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn)
-    built = _build.KERNEL_SHAPES["riccati_general"]
-    if (ds, dc) not in built:
-        raise ValueError(
-            f"general backward kernel is built for (ds, dc) in {built}, "
-            f"got {(ds, dc)}"
-        )
     dev, f32 = Jx.device, torch.float32
+    g = general_geometry(ds, dc, B, _build.sm_count(dev))
     for name, t in (("Jx", Jx), ("Ju", Ju), ("Cxx", Cxx), ("Cuu", Cuu),
                     ("cx", cx), ("cu", cu), ("Vn", Vn), ("vn", vn)):
         _build.check_cuda(name, t, t.shape, f32, dev)
@@ -119,8 +183,8 @@ def riccati_general(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):
     p = _build.ptr
     rc = _build.library().ampc_riccati_general(
         p(Jx), p(Ju), p(Cxx), p(Cuu), p(cx), p(cu), p(Vn), p(vn),
-        p(Ks), p(ks), p(lin), p(quad), ds, dc, H, B,
-        dev.index or 0, _build.stream_of(Jx),
+        p(Ks), p(ks), p(lin), p(quad), ds, dc, H, B, g["lanes_per_block"],
+        g["threads_per_lane"], dev.index or 0, _build.stream_of(Jx),
     )
     _build.check_rc("riccati_general", rc)
     riccati_general.launches += 1

@@ -62,6 +62,23 @@ def test_port_imports_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
+def test_ab_tool_imports_without_jax():
+    """tools/ab_torch_kernels.py and the port modules it times import no
+    JAX and nothing of the JAX package."""
+    proc = _run(
+        "import runpy, sys\n"
+        "runpy.run_path('tools/ab_torch_kernels.py', run_name='ab')\n"
+        "from autompc_torch.ops import cuda_mlp_linesearch, cuda_riccati, "
+        "cuda_riccati_general\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('autompc_tpu') or m.startswith('jaxlib'))\n"
+        "assert not bad, bad\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    src = (ROOT / "tools" / "ab_torch_kernels.py").read_text()
+    assert "import jax" not in src and "autompc_tpu" not in src
+
+
 def test_chip_smoke_imports_without_jax():
     proc = _run(
         "import sys, chip_smoke\n"
@@ -176,7 +193,7 @@ def test_kernel_shapes_and_mlp_struct_mirror_the_sources():
 
     src = (_build.CSRC_DIR / "riccati_general.cu").read_text()
     pairs = {(int(a), int(b)) for a, b in
-             re.findall(r"riccati_general_kernel<(\d+), (\d+), \d+><<<", src)}
+             re.findall(r"rg_launch<(\d+), (\d+), \d+>\(", src)}
     assert pairs == set(_build.KERNEL_SHAPES["riccati_general"]) == {(18, 6), (4, 1)}
     mlp = (_build.CSRC_DIR / "mlp_linesearch.cu").read_text()
     defs = dict(re.findall(r"#define AMPC_MLP_(\w+) (\d+)", mlp))

@@ -1,6 +1,7 @@
-"""The launch geometry that the wrappers of K3 (fused line search) and
-K5 (MLP line search) choose in Python: every (lane, step size) falls to
-exactly one thread (K3) or block slot (K5) under the kernels' own index
+"""The launch geometry that the wrappers of K2 (lanes-last backward), K3
+(fused line search), K4 (general backward) and K5 (MLP line search)
+choose in Python: every lane, (lane, step size) or product output falls
+to exactly one thread, block slot or tile under the kernels' own index
 arithmetic, the blocks stay within the card's limits, and the wrappers
 refuse, by name and without a card, the shapes the kernels do not take."""
 
@@ -11,6 +12,10 @@ import torch
 from autompc_torch.ops import _build
 from autompc_torch.ops import cuda_linesearch as K3
 from autompc_torch.ops import cuda_mlp_linesearch as K5
+from autompc_torch.ops import cuda_riccati as K2
+from autompc_torch.ops import cuda_riccati_general as K4
+
+torch.set_num_threads(1)
 
 BATCHES = (1, 7, 1024, 4096, 16384)
 STEPS = tuple(range(1, _build.MAX_L + 1))
@@ -121,3 +126,152 @@ def test_mlp_line_search_refuses_kernel_limits_by_name(widths, ds, dc):
                            t(B, H, dc, ds), t(B, H, dc), (1.0, 0.5), -1.0, 1.0)
     with pytest.raises(ValueError, match="mlp_line_search: 1..10 step sizes"):
         K5.mlp_geometry([7, 8, 5], 5, 2, _build.MAX_L + 1, 16)
+
+
+# K2 (lanes-last backward) and K4 (general backward): the batches their
+# paths give them and the edges of their pickers.
+BACKWARD_BATCHES = (1, 7, 32, 256, 1024, 4096, 16384)
+
+
+@pytest.mark.parametrize("B", BACKWARD_BATCHES)
+def test_bq_geometry_covers_every_lane_once(B):
+    for bf16 in (False, True):
+        g = K2.bq_geometry(B, 4, bf16)
+        nl = g["lanes_per_block"]
+        assert 32 <= nl <= _build.BQ_MAX_LANES and nl % 32 == 0
+        assert g["blocks"] == -(-B // nl)
+        assert g["smem"] <= _build.MAX_SMEM_BYTES
+        # riccati_quad.cu: b = blockIdx.x * blockDim.x + threadIdx.x.
+        blk, tid = np.divmod(np.arange(g["blocks"] * nl), nl)
+        b = blk * nl + tid
+        assert _covered_once(b, np.zeros_like(b), B, 1), (B, bf16)
+
+
+def test_bq_geometry_spreads_the_gate_and_the_main_path():
+    """One warp a block up to ~4 blocks an SM: the gate's 256 lanes reach
+    8 SMs and the main path's 4096 reach 128 (64-thread blocks reached 4
+    and 64); past that the blocks grow."""
+    assert K2.bq_geometry(256)["blocks"] == 8
+    assert K2.bq_geometry(4096)["blocks"] == 128
+    assert K2.bq_geometry(16384)["lanes_per_block"] == 32
+    assert K2.bq_geometry(65536)["lanes_per_block"] == 128
+
+
+K4_INSTANCES = [(ds, dc, tpl) for (ds, dc), shapes in K4.GENERAL_SHAPES.items()
+                for tpl in shapes]
+
+
+@pytest.mark.parametrize("B", BACKWARD_BATCHES)
+@pytest.mark.parametrize("ds, dc, tpl", K4_INSTANCES)
+def test_general_geometry_covers_every_lane_once(ds, dc, tpl, B):
+    g = K4.general_geometry(ds, dc, B, threads_per_lane=tpl)
+    nl = g["lanes_per_block"]
+    assert g["threads_per_lane"] == tpl
+    assert g["threads"] == tpl * nl <= 1024 and g["threads"] % 32 == 0
+    assert nl <= K4.GENERAL_SHAPES[(ds, dc)][tpl]["max_lanes"]
+    assert g["smem"] <= _build.MAX_SMEM_BYTES
+    # riccati_general.cu: lt = threadIdx.x % TPL, lane = blockIdx.x * lanes
+    # + threadIdx.x / TPL: each lane gets TPL threads, one of each lt.
+    blk, tid = np.divmod(np.arange(g["blocks"] * g["threads"]), g["threads"])
+    lane, lt = blk * nl + tid // tpl, tid % tpl
+    assert _covered_once(lane, lt, B, tpl), (ds, dc, B)
+
+
+@pytest.mark.parametrize("ds, dc, tpl", K4_INSTANCES)
+def test_general_tiles_cover_each_product_once(ds, dc, tpl):
+    """Under the kernel's tile arithmetic (tile = first, first + step,
+    ...; row group tile / column groups, column group tile % column
+    groups) every output of the products the recursion needs falls to
+    exactly one thread of the lane: [Jx|Ju]'[V|v] (NJ x (ds+1)) on all
+    threads; Qxx and Qux (NJ x ds) on all threads, or with 64 or more
+    threads a lane on all warps but the last; Quu (dc x dc) on the last
+    warp, or else counted down from the last thread; the next V (ds x
+    ds) on all threads; the next v one element each of threads 0..ds-1."""
+    sh = K4.GENERAL_SHAPES[(ds, dc)][tpl]
+    nj, nv = ds + dc, ds + 1
+    split = tpl >= 64
+    qt = tpl - 32 if split else tpl
+
+    def cover(tile, rows, cols, starts, step, need=lambda r, c: True):
+        (tr, tc), seen = tile, {}
+        groups = -(-cols // tc)
+        for first in starts:
+            for t in range(first, (rows // tr) * groups, step):
+                r0, c0 = (t // groups) * tr, (t % groups) * tc
+                for r in range(r0, r0 + tr):
+                    for c in range(c0, c0 + tc):
+                        if need(r, c):
+                            seen[(r, c)] = seen.get((r, c), 0) + 1
+        return seen
+
+    p1 = cover(sh["p1"], nj, nv, range(tpl), tpl, lambda c, j: j < nv)
+    p2 = cover(sh["p2"], nj, ds, range(qt), qt)
+    pu = cover(sh["pu"], dc, dc, range(32) if split else [tpl - 1 - lt for lt in range(tpl)],
+               32 if split else tpl)
+    p5 = cover(sh["p5"], ds, ds, range(tpl), tpl, lambda i, j: j < ds)
+    assert len(p1) == nj * nv and set(p1.values()) == {1}
+    assert len(p2) == nj * ds and set(p2.values()) == {1}
+    assert len(pu) == dc * dc and set(pu.values()) == {1}
+    assert len(p5) == ds * ds and set(p5.values()) == {1}
+    assert ds < qt
+
+
+def test_general_geometry_fills_the_card_at_the_cheetah_batch():
+    """B=1024: two warps a lane, 4 lanes a block, 256 blocks; the closed
+    loop's B=32: four warps a lane, a lane a block on 32 SMs; the dense
+    path's B=4096 at (4, 1): 16 lanes of 8 threads a block, 256 blocks."""
+    g = K4.general_geometry(18, 6, 1024)
+    assert (g["threads_per_lane"], g["lanes_per_block"], g["blocks"]) == (64, 4, 256)
+    g = K4.general_geometry(18, 6, 32)
+    assert (g["threads_per_lane"], g["lanes_per_block"], g["blocks"]) == (128, 1, 32)
+    g = K4.general_geometry(4, 1, 4096)
+    assert (g["lanes_per_block"], g["threads"], g["blocks"]) == (16, 128, 256)
+
+
+@pytest.mark.parametrize("which", ["K2", "K4"])
+def test_backward_kernels_refuse_unbuilt_shapes_by_name(which, monkeypatch):
+    """The pickers and the wrappers of tensors that are not on the CPU
+    raise at a shape with no instance, before any launch (device_kind and
+    the SM count are patched, meta tensors stand in for the card's)."""
+    monkeypatch.setattr(_build, "device_kind", lambda t: "cuda")
+    monkeypatch.setattr(_build, "sm_count", lambda device: _build.H100_SMS)
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device="meta")
+    if which == "K2":
+        with pytest.raises(ValueError, match="backward kernel is built for"):
+            K2.bq_geometry(64, ds=5)
+        carry = (torch.zeros(3, dtype=torch.bool, device="meta"), z(2, 5, 3), z(2, 3))
+        with pytest.raises(ValueError, match="backward kernel is built for"):
+            K2.backward_quad_ll(z(2, 30, 3), z(3, 5, 3), z(2, 3), (1.0,) * 5, (0.1,),
+                                (1.0,) * 5, (0.0,) * 5, 0.05, 5, carry)
+        return
+    with pytest.raises(ValueError, match="general backward kernel is built for"):
+        K4.general_geometry(5, 2, 64)
+    with pytest.raises(ValueError, match="threads a lane"):
+        K4.general_geometry(18, 6, 64, threads_per_lane=32)
+    B, H, ds, dc = 3, 2, 5, 2
+    with pytest.raises(ValueError, match="general backward kernel is built for"):
+        K4.riccati_general(z(B, H, ds, ds), z(B, H, ds, dc), z(B, H, ds, ds), z(B, H, dc, dc),
+                           z(B, H, ds), z(B, H, dc), z(B, ds, ds), z(B, ds))
+
+
+def test_backward_geometry_mirrors_the_sources():
+    """The pickers' constants are the ones the CUDA sources compile in:
+    K2's ring depth and largest block, K4's threads a lane, lanes a
+    block, tiles and ring depth per instance."""
+    import re
+
+    quad = (_build.CSRC_DIR / "riccati_quad.cu").read_text()
+    assert int(re.search(r"#define AMPC_BQ_RING (\d+)", quad)[1]) == _build.BQ_RING
+    assert int(re.search(r"#define AMPC_BQ_MAX_LANES (\d+)", quad)[1]) == _build.BQ_MAX_LANES
+    gen = (_build.CSRC_DIR / "riccati_general.cu").read_text()
+    instances = {(int(a), int(b), int(c)) for a, b, c in
+                 re.findall(r"rg_launch<(\d+), (\d+), (\d+)>\(", gen)}
+    assert instances == set(K4_INSTANCES)
+    for ds, dc, tpl in K4_INSTANCES:
+        sh = K4.GENERAL_SHAPES[(ds, dc)][tpl]
+        body = re.search(r"struct RgShape<%d, %d, %d> \{(.*?)\};" % (ds, dc, tpl), gen,
+                         re.S)[1]
+        v = {k: int(n) for k, n in re.findall(r"(\w+) = (\d+)", body)}
+        assert (v["P1R"], v["P1C"]) == sh["p1"] and (v["P2R"], v["P2C"]) == sh["p2"]
+        assert (v["PUR"], v["PUC"]) == sh["pu"] and (v["P5R"], v["P5C"]) == sh["p5"]
+        assert (v["RING"], v["MAX_LANES"]) == (sh["ring"], sh["max_lanes"])
