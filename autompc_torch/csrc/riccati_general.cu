@@ -32,8 +32,8 @@
 //   once per tile row or column in the contraction loop (vector loads
 //   where a tile row is aligned), under one load per FMA, with R x C
 //   independent chains a thread;
-// - a lane is two or four warps at (18, 6) (TPL = 64, 128, with a named
-//   barrier of its own) and 8 threads at (4, 1) (four lanes a warp,
+// - a lane is two warps at (18, 6) (TPL = 64, with a named barrier of
+//   its own) and 8 threads at (4, 1) (four lanes a warp,
 //   __syncwarp), so a step's phases are separated by the lane's own
 //   barrier, not block barriers;
 // - with two or more warps, the last one forms Quu and factors it while
@@ -68,11 +68,6 @@ template <>
 struct RgShape<18, 6, 64> {
   static constexpr int P1R = 4, P1C = 2, P2R = 3, P2C = 6, PUR = 2, PUC = 2, P5R = 2, P5C = 3;
   static constexpr int RING = 3, MAX_LANES = 4;
-};
-template <>
-struct RgShape<18, 6, 128> {
-  static constexpr int P1R = 4, P1C = 1, P2R = 2, P2C = 3, PUR = 2, PUC = 2, P5R = 1, P5C = 4;
-  static constexpr int RING = 3, MAX_LANES = 1;
 };
 template <>
 struct RgShape<4, 1, 8> {
@@ -609,8 +604,8 @@ static int rg_launch(const float* Jx, const float* Ju, const float* Cxx,
   return (int)cudaGetLastError();
 }
 
-// lanes: lanes a block; threads_per_lane: one of the instance's (64 or
-// 128 at (18, 6), 8 at (4, 1)); general_geometry picks both.
+// lanes: lanes a block; threads_per_lane: the instance's (64 at
+// (18, 6), 8 at (4, 1)); general_geometry picks both.
 extern "C" int ampc_riccati_general(
     const float* Jx, const float* Ju, const float* Cxx, const float* Cuu,
     const float* cx, const float* cu, const float* Vn, const float* vn,
@@ -623,23 +618,8 @@ extern "C" int ampc_riccati_general(
   if (ds == 18 && dc == 6 && threads_per_lane == 64)
     return rg_launch<18, 6, 64>(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn, Ks, ks, lin,
                                 quad, H, B, lanes, st);
-  if (ds == 18 && dc == 6 && threads_per_lane == 128)
-    return rg_launch<18, 6, 128>(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn, Ks, ks, lin,
-                                 quad, H, B, lanes, st);
   if (ds == 4 && dc == 1 && threads_per_lane == 8)
     return rg_launch<4, 1, 8>(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn, Ks, ks, lin,
                               quad, H, B, lanes, st);
   return (int)cudaErrorInvalidValue;
-}
-
-// The shared memory (bytes) of one lane of the instance (ds, dc,
-// threads_per_lane), for the wrapper's geometry check; 0 for none.
-extern "C" int ampc_riccati_general_lane_bytes(int ds, int dc, int threads_per_lane) {
-  if (ds == 18 && dc == 6 && threads_per_lane == 64)
-    return RgLayout<18, 6, 64>::LANE * (int)sizeof(float);
-  if (ds == 18 && dc == 6 && threads_per_lane == 128)
-    return RgLayout<18, 6, 128>::LANE * (int)sizeof(float);
-  if (ds == 4 && dc == 1 && threads_per_lane == 8)
-    return RgLayout<4, 1, 8>::LANE * (int)sizeof(float);
-  return 0;
 }

@@ -40,9 +40,12 @@
 // ring of AMPC_BQ_RING steps in shared memory, each thread copying its
 // own lane's elements with cp.async (lanes-last rows: a warp's copies of
 // one row are 128 contiguous bytes) AMPC_BQ_RING - 1 steps ahead of the
-// step that reads them. A bfloat16 Jacobian row is copied in pairs of
-// lanes by the even thread when B is even (4-byte copies stay aligned),
-// and loaded directly, without the ring, when it is not. The step's
+// step that reads them. A bfloat16 Jacobian row goes through the ring in
+// 4-byte words too: when B is even, each thread copies the aligned pair
+// of lanes that holds its own into a word of its own and reads its half
+// (so no thread reads another's copy and a warp needs no barrier); when
+// B is odd it is read at the step, by an instance of its own (JRING), so
+// that neither instance's step waits behind a run-time branch. The step's
 // arithmetic is unchanged (ampc_bq_step), so the outputs are the same
 // bits as a kernel that loads at the step. Blocks are small (the
 // wrapper's bq_geometry: 32 lanes up to B = 4 x SMs x 32) so the few
@@ -58,14 +61,19 @@
 // Lanes (threads) a block may take: bq_geometry in ops/cuda_riccati.py.
 #define AMPC_BQ_MAX_LANES 128
 
-template <int DS, typename JT>
+template <int DS>
 constexpr int bq_ring_bytes_per_lane() {
-  // Jacobian rows, then the trajectory rows (ds states, the control) and
-  // the old gains (ds + 1) in float.
-  return AMPC_BQ_RING * (DS * (DS + 1) * (int)sizeof(JT) + 2 * (DS + 1) * 4);
+  // Jacobian rows (a 4-byte word each: a float or a pair of bfloat16
+  // lanes), then the trajectory rows (ds states, the control) and the old
+  // gains (ds + 1) in float.
+  return AMPC_BQ_RING * (DS * (DS + 1) * 4 + 2 * (DS + 1) * 4);
 }
 
-template <int DS, bool LANE_COST, typename JT>
+// JRING: the Jacobian rows go through the ring (float rows, and bfloat16
+// rows when B is even), else they are read at the step. It is a template
+// switch, not a run-time flag, so that each instance's step is one
+// straight run of loads the compiler can start together.
+template <int DS, bool LANE_COST, typename JT, bool JRING>
 __global__ void __launch_bounds__(AMPC_BQ_MAX_LANES) backward_quad_kernel(
     const __grid_constant__ QuadDiag P, const JT* __restrict__ jac,
     const float* __restrict__ xsT, const float* __restrict__ xterm,
@@ -74,22 +82,25 @@ __global__ void __launch_bounds__(AMPC_BQ_MAX_LANES) backward_quad_kernel(
     const float* __restrict__ fdT, const uint8_t* __restrict__ act,
     const float* __restrict__ oldK, const float* __restrict__ oldk,
     float* __restrict__ KsT, float* __restrict__ ksT,
-    float* __restrict__ lin_out, float* __restrict__ quad_out, int H, int B,
-    bool pairs) {
+    float* __restrict__ lin_out, float* __restrict__ quad_out, int H, int B) {
   constexpr int D = DS + 1, NJ = DS * D, NF = 2 * D;
   constexpr bool BF16 = sizeof(JT) == 2;
   extern __shared__ float4 bq_smem[];
   const int nl = blockDim.x, tid = threadIdx.x;
   // Ring slot k: NF float rows of nl lanes (xs rows 0..DS-1, us, old K
-  // rows, old k), then NJ Jacobian rows of nl lanes.
+  // rows, old k), then NJ Jacobian rows of nl 4-byte words.
   float* fring = reinterpret_cast<float*>(bq_smem);
-  JT* jring = reinterpret_cast<JT*>(fring + AMPC_BQ_RING * NF * nl);
+  uint32_t* jring = reinterpret_cast<uint32_t*>(fring + AMPC_BQ_RING * NF * nl);
   const int b = blockIdx.x * nl + tid;
   const bool valid = b < B;
   // Threads past the batch run the recursion on the last lane's inputs
-  // and store nothing, so every thread of a warp reaches each __syncwarp.
+  // and store nothing.
   const long long bl = valid ? b : B - 1;
   const bool active = act[bl] != 0;
+  // The Jacobian word a thread copies starts at lane jl: its own lane, or
+  // for bfloat16 the even lane of its pair (half jh of the word).
+  const long long jl = BF16 ? (bl & ~1LL) : bl;
+  const int jh = (int)(bl & 1);
   const int obsdim = P.obsdim;
 
   float qd[DS], goal[DS];
@@ -106,18 +117,12 @@ __global__ void __launch_bounds__(AMPC_BQ_MAX_LANES) backward_quad_kernel(
   auto fetch_step = [&](int t) {
     const int k = (H - 1 - t) % AMPC_BQ_RING;
     float* fr = fring + k * NF * nl + tid;
-    JT* jr = jring + k * NJ * nl + tid;
+    uint32_t* jr = jring + k * NJ * nl + tid;
     const long long jrow = (long long)t * NJ * B;
-    if constexpr (!BF16) {
+    if constexpr (JRING) {
 #pragma unroll
       for (int r = 0; r < NJ; ++r)
-        ampc_cp_async4(jr + r * nl, jac + jrow + (long long)r * B + bl);
-    } else if (pairs) {
-      if ((tid & 1) == 0 && valid) {
-#pragma unroll
-        for (int r = 0; r < NJ; ++r)
-          ampc_cp_async4(jr + r * nl, jac + jrow + (long long)r * B + bl);
-      }
+        ampc_cp_async4(jr + r * nl, jac + jrow + (long long)r * B + jl);
     }
 #pragma unroll
     for (int i = 0; i < DS; ++i)
@@ -152,25 +157,39 @@ __global__ void __launch_bounds__(AMPC_BQ_MAX_LANES) backward_quad_kernel(
     if (t - (AMPC_BQ_RING - 1) >= 0) fetch_step(t - (AMPC_BQ_RING - 1));
     ampc_cp_async_commit();
     ampc_cp_async_wait<AMPC_BQ_RING - 1>();
-    if constexpr (BF16) __syncwarp();  // the even thread copied the pair
     const int k = (H - 1 - t) % AMPC_BQ_RING;
     const float* fr = fring + k * NF * nl + tid;
-    const JT* jr = jring + k * NJ * nl + tid;
+    const uint32_t* jr = jring + k * NJ * nl + tid;
     const JT* row = jac + (long long)t * NJ * B + bl;
+    // The step's Jacobian rows: the thread's words in the ring (a float,
+    // or its half of a bfloat16 pair), or read at the step.
+    float jv[NJ];
+#pragma unroll
+    for (int r = 0; r < NJ; ++r) {
+      if constexpr (!JRING) {
+        jv[r] = ampc_jac_load(row[(long long)r * B]);
+      } else {
+        const uint32_t w = jr[r * nl];
+        if constexpr (BF16)
+          jv[r] = ampc_jac_load(__ushort_as_bfloat16(
+              (unsigned short)(jh ? w >> 16 : w & 0xffffu)));
+        else
+          jv[r] = __uint_as_float(w);
+      }
+    }
     float Jx[DS][DS], Ju[DS];
 #pragma unroll
     for (int kk = 0; kk < DS; ++kk) {
 #pragma unroll
-      for (int j = 0; j < DS; ++j)
-        Jx[kk][j] = ampc_jac_load(BF16 && !pairs ? row[(long long)(kk * D + j) * B]
-                                                 : jr[(kk * D + j) * nl]);
-      Ju[kk] = ampc_jac_load(BF16 && !pairs ? row[(long long)(kk * D + DS) * B]
-                                            : jr[(kk * D + DS) * nl]);
+      for (int j = 0; j < DS; ++j) Jx[kk][j] = jv[kk * D + j];
+      Ju[kk] = jv[kk * D + DS];
     }
     float cx[DS];
 #pragma unroll
-    for (int i = 0; i < DS; ++i)
-      cx[i] = i < obsdim ? qd[i] * (fr[i * nl] - goal[i]) : 0.f;
+    for (int i = 0; i < DS; ++i) {
+      const float x = fr[i * nl];  // every state row is in the slot
+      cx[i] = i < obsdim ? qd[i] * (x - goal[i]) : 0.f;
+    }
     const float cu = rd2 * fr[DS * nl];
 
     float K[DS], kff;
@@ -182,12 +201,34 @@ __global__ void __launch_bounds__(AMPC_BQ_MAX_LANES) backward_quad_kernel(
         KsT[((long long)t * DS + j) * B + b] = active ? K[j] : fr[(D + j) * nl];
       ksT[(long long)t * B + b] = active ? kff : fr[(D + DS) * nl];
     }
-    if constexpr (BF16) __syncwarp();  // the slot is refilled next step
   }
   if (valid) {
     lin_out[b] = lin;
     quad_out[b] = quad;
   }
+}
+
+template <bool LANE_COST, typename JT, bool JRING>
+static int launch_one(const QuadDiag* P, const void* jac, const float* xsT,
+                      const float* xterm, const float* usT, const float* qdT,
+                      const float* rdT, const float* fdT, const uint8_t* act,
+                      const float* oldK, const float* oldk, float* KsT,
+                      float* ksT, float* lin, float* quad, int H, int B,
+                      int lanes, cudaStream_t s) {
+  auto kernel = backward_quad_kernel<4, LANE_COST, JT, JRING>;
+  const int smem = lanes * bq_ring_bytes_per_lane<4>();
+  static int allowed = 48 * 1024;  // dynamic shared memory opted into
+  if (smem > allowed) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed = smem;
+  }
+  const unsigned blocks = (unsigned)((B + lanes - 1) / lanes);
+  kernel<<<blocks, lanes, smem, s>>>(*P, (const JT*)jac, xsT, xterm, usT, qdT,
+                                     rdT, fdT, act, oldK, oldk, KsT, ksT, lin,
+                                     quad, H, B);
+  return (int)cudaGetLastError();
 }
 
 template <bool LANE_COST, typename JT>
@@ -197,23 +238,17 @@ static int launch(const QuadDiag* P, const void* jac, const float* xsT,
                   const float* oldK, const float* oldk, float* KsT, float* ksT,
                   float* lin, float* quad, int H, int B, int lanes,
                   cudaStream_t s) {
-  auto kernel = backward_quad_kernel<4, LANE_COST, JT>;
-  const int smem = lanes * bq_ring_bytes_per_lane<4, JT>();
-  static int allowed = 48 * 1024;  // dynamic shared memory opted into
-  if (smem > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    allowed = smem;
-  }
-  const unsigned blocks = (unsigned)((B + lanes - 1) / lanes);
   // bfloat16 rows go through the ring in pairs of lanes when every pair
-  // starts on a 4-byte boundary.
-  const bool pairs = B % 2 == 0 && (uintptr_t)jac % 4 == 0;
-  kernel<<<blocks, lanes, smem, s>>>(*P, (const JT*)jac, xsT, xterm, usT, qdT,
-                                     rdT, fdT, act, oldK, oldk, KsT, ksT, lin,
-                                     quad, H, B, pairs);
-  return (int)cudaGetLastError();
+  // starts on a 4-byte boundary, and are read at the step otherwise.
+  if constexpr (sizeof(JT) == 2) {
+    if (B % 2 != 0 || (uintptr_t)jac % 4 != 0)
+      return launch_one<LANE_COST, JT, false>(P, jac, xsT, xterm, usT, qdT,
+                                              rdT, fdT, act, oldK, oldk, KsT,
+                                              ksT, lin, quad, H, B, lanes, s);
+  }
+  return launch_one<LANE_COST, JT, true>(P, jac, xsT, xterm, usT, qdT, rdT,
+                                         fdT, act, oldK, oldk, KsT, ksT, lin,
+                                         quad, H, B, lanes, s);
 }
 
 // qdT/rdT/fdT: per-lane cost planes, or all three null for the fixed

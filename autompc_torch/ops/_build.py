@@ -178,7 +178,6 @@ _SIGNATURES = {
         + [_P] * 8 + [_I, _I, _I, _I, _P]
     ),
     "ampc_riccati_general": [_P] * 12 + [_I] * 7 + [_P],
-    "ampc_riccati_general_lane_bytes": [_I, _I, _I],
     "ampc_mlp_line_search": (
         [ctypes.POINTER(MlpLS)] + [_P] * 8 + [_I] * 5 + [_P]
     ),

@@ -181,13 +181,14 @@ def _quad_diag(obsdim, dt, goal, fixed=None):
 
 
 @functools.lru_cache(maxsize=256)
-def bq_geometry(B, ds=4, jac_bf16=False, sm_count=None):
+def bq_geometry(B, ds=4, sm_count=None):
     """K2's launch geometry: one thread a lane, ``lanes_per_block``
     lanes a block, the smallest block (32, 64 or 128 lanes) that keeps
     the grid within about four blocks an SM of ``sm_count`` (an H100's
     132 when not given), so that the few warps a batch makes spread over
     as many SMs as they can; ``smem`` bytes of shared memory a block hold
-    its ring of ``_build.BQ_RING`` time steps (riccati_quad.cu). Raises
+    its ring of ``_build.BQ_RING`` time steps (riccati_quad.cu), a 4-byte
+    word a Jacobian element for either storage type. Raises
     ``ValueError`` for a ds the kernel is not built for."""
     built = _build.KERNEL_SHAPES["riccati_quad"]
     if (ds, 1) not in built:
@@ -198,7 +199,7 @@ def bq_geometry(B, ds=4, jac_bf16=False, sm_count=None):
     lanes = 32
     while -(-B // lanes) > 4 * sms and lanes < _build.BQ_MAX_LANES:
         lanes *= 2
-    per_lane = _build.BQ_RING * (ds * (ds + 1) * (2 if jac_bf16 else 4) + 2 * (ds + 1) * 4)
+    per_lane = _build.BQ_RING * (ds * (ds + 1) + 2 * (ds + 1)) * 4
     return dict(lanes_per_block=lanes, blocks=-(-B // lanes), smem=lanes * per_lane)
 
 
@@ -210,7 +211,7 @@ def _launch_ll(name, jac_p, xsT, xterm, usT, qd, rd, fd, goal, dt, obsdim,
     ds = xsT.shape[1]
     dev, f32 = xsT.device, torch.float32
     bf16 = _build.jac_bf16("jac_p", jac_p)
-    g = bq_geometry(B, ds, bf16, _build.sm_count(dev))
+    g = bq_geometry(B, ds, _build.sm_count(dev))
     _build.check_cuda("jac_p", jac_p, (H, dsd, B), jac_p.dtype, dev)
     _build.check_cuda("xsT", xsT, tuple(xsT.shape), f32, dev)
     _build.check_cuda("xterm", xterm, (ds, B), f32, dev)

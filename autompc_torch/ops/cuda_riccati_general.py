@@ -89,19 +89,16 @@ def _shapes(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):
     return B, H, ds, dc
 
 
-# Per instance (ds, dc) and threads a lane: the most lanes a block
-# takes, register tiles (rows x columns) of the products ([Jx|Ju]'[V|v];
-# Qxx and Qux; Quu; the next V) and steps in the input ring; a mirror of
+# Per instance (ds, dc): threads a lane, the most lanes a block takes,
+# register tiles (rows x columns) of the products ([Jx|Ju]'[V|v]; Qxx
+# and Qux; Quu; the next V) and steps in the input ring; a mirror of
 # RgShape in csrc/riccati_general.cu. With 64 or more threads a lane the
 # last warp forms and factors Quu while the others form Qxx and Qux.
 GENERAL_SHAPES = {
-    (18, 6): {
-        64: dict(max_lanes=4, p1=(4, 2), p2=(3, 6), pu=(2, 2), p5=(2, 3), ring=3),
-        128: dict(max_lanes=1, p1=(4, 1), p2=(2, 3), pu=(2, 2), p5=(1, 4), ring=3),
-    },
-    (4, 1): {
-        8: dict(max_lanes=32, p1=(1, 5), p2=(1, 4), pu=(1, 1), p5=(1, 4), ring=6),
-    },
+    (18, 6): dict(threads_per_lane=64, max_lanes=4, p1=(4, 2), p2=(3, 6), pu=(2, 2),
+                  p5=(2, 3), ring=3),
+    (4, 1): dict(threads_per_lane=8, max_lanes=32, p1=(1, 5), p2=(1, 4), pu=(1, 1),
+                 p5=(1, 4), ring=6),
 }
 
 
@@ -109,11 +106,11 @@ def _up4(n):
     return -(-n // 4) * 4
 
 
-def general_lane_bytes(ds, dc, threads_per_lane):
+def general_lane_bytes(ds, dc):
     """Shared memory of one lane (RgLayout in csrc/riccati_general.cu):
     the input ring and the recursion's matrices, each region padded to
     16 bytes, the row strides to whole tiles."""
-    sh = GENERAL_SHAPES[(ds, dc)][threads_per_lane]
+    sh = GENERAL_SHAPES[(ds, dc)]
     nj, nv = ds + dc, ds + 1
     sv = _up4(-(-nv // sh["p1"][1]) * sh["p1"][1])
     sq = _up4(max(-(-ds // sh["p5"][1]) * sh["p5"][1], nv))
@@ -124,34 +121,28 @@ def general_lane_bytes(ds, dc, threads_per_lane):
 
 
 @functools.lru_cache(maxsize=256)
-def general_geometry(ds, dc, B, sm_count=None, threads_per_lane=None):
-    """K4's launch geometry at (ds, dc) for B lanes. ``threads_per_lane``
-    threads share a lane: at (18, 6) four warps when the batch has fewer
-    lanes than ``sm_count`` SMs (an H100's 132 when not given), so that a
-    lane's step is spread over more threads where the card is mostly
-    empty, else two; 8 at (4, 1). A block takes
-    ``lanes_per_block`` lanes, the most (up to the instance's limit, in
-    powers of two from one warp) that still leaves a block for every SM,
-    so a small batch spreads over as many SMs as it has lanes and a large
-    one makes fewer, larger blocks. ``threads_per_lane`` may be given to
-    take another instance. Raises ``ValueError`` for a pair the kernel is
-    not built for."""
+def general_geometry(ds, dc, B, sm_count=None):
+    """K4's launch geometry at (ds, dc) for B lanes: the instance's
+    ``threads_per_lane`` threads share a lane (two warps at (18, 6), 8 at
+    (4, 1)), and a block takes ``lanes_per_block`` lanes, the most (up to
+    the instance's limit, in powers of two from one warp) that still
+    leaves a block for every one of ``sm_count`` SMs (an H100's 132 when
+    not given), so a small batch spreads over as many SMs as it has lanes
+    and a large one makes fewer, larger blocks. Raises ``ValueError`` for
+    a pair the kernel is not built for."""
     built = _build.KERNEL_SHAPES["riccati_general"]
     if (ds, dc) not in built:
         raise ValueError(
             f"general backward kernel is built for (ds, dc) in {built}, got {(ds, dc)}"
         )
     sms = sm_count or _build.H100_SMS
-    shapes = GENERAL_SHAPES[(ds, dc)]
-    tpl = threads_per_lane or (min(shapes) if B >= sms else max(shapes))
-    if tpl not in shapes:
-        raise ValueError(f"general backward kernel at {(ds, dc)} takes {sorted(shapes)} "
-                         f"threads a lane, got {tpl}")
+    sh = GENERAL_SHAPES[(ds, dc)]
+    tpl = sh["threads_per_lane"]
     lanes = max(1, 32 // tpl)
-    while 2 * lanes <= shapes[tpl]["max_lanes"] and -(-B // (2 * lanes)) >= sms:
+    while 2 * lanes <= sh["max_lanes"] and -(-B // (2 * lanes)) >= sms:
         lanes *= 2
     return dict(threads_per_lane=tpl, lanes_per_block=lanes, threads=lanes * tpl,
-                blocks=-(-B // lanes), smem=lanes * general_lane_bytes(ds, dc, tpl))
+                blocks=-(-B // lanes), smem=lanes * general_lane_bytes(ds, dc))
 
 
 def riccati_general_plain(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):

@@ -135,16 +135,15 @@ BACKWARD_BATCHES = (1, 7, 32, 256, 1024, 4096, 16384)
 
 @pytest.mark.parametrize("B", BACKWARD_BATCHES)
 def test_bq_geometry_covers_every_lane_once(B):
-    for bf16 in (False, True):
-        g = K2.bq_geometry(B, 4, bf16)
-        nl = g["lanes_per_block"]
-        assert 32 <= nl <= _build.BQ_MAX_LANES and nl % 32 == 0
-        assert g["blocks"] == -(-B // nl)
-        assert g["smem"] <= _build.MAX_SMEM_BYTES
-        # riccati_quad.cu: b = blockIdx.x * blockDim.x + threadIdx.x.
-        blk, tid = np.divmod(np.arange(g["blocks"] * nl), nl)
-        b = blk * nl + tid
-        assert _covered_once(b, np.zeros_like(b), B, 1), (B, bf16)
+    g = K2.bq_geometry(B, 4)
+    nl = g["lanes_per_block"]
+    assert 32 <= nl <= _build.BQ_MAX_LANES and nl % 32 == 0
+    assert g["blocks"] == -(-B // nl)
+    assert g["smem"] <= _build.MAX_SMEM_BYTES
+    # riccati_quad.cu: b = blockIdx.x * blockDim.x + threadIdx.x.
+    blk, tid = np.divmod(np.arange(g["blocks"] * nl), nl)
+    b = blk * nl + tid
+    assert _covered_once(b, np.zeros_like(b), B, 1), B
 
 
 def test_bq_geometry_spreads_the_gate_and_the_main_path():
@@ -157,18 +156,36 @@ def test_bq_geometry_spreads_the_gate_and_the_main_path():
     assert K2.bq_geometry(65536)["lanes_per_block"] == 128
 
 
-K4_INSTANCES = [(ds, dc, tpl) for (ds, dc), shapes in K4.GENERAL_SHAPES.items()
-                for tpl in shapes]
+@pytest.mark.parametrize("B", BACKWARD_BATCHES)
+def test_bq_bf16_ring_words_hold_each_lane_once(B):
+    """bfloat16 Jacobian rows in K2's ring (riccati_quad.cu): at an even
+    B, thread b (lane bl = min(b, B - 1)) copies the 4-byte word of the
+    row that starts at lane jl = bl & ~1 into a word of its own and reads
+    half jh = bl & 1 of it, so the word lies in the batch and each lane
+    is read by its own thread from its own place. At an odd B the last
+    lane's word would run past the batch: the rows are read at the step."""
+    g = K2.bq_geometry(B)
+    b = np.arange(g["blocks"] * g["lanes_per_block"])
+    bl = np.minimum(b, B - 1)
+    jl, jh = bl & ~1, bl & 1
+    if B % 2:
+        assert jl.max() + 1 == B
+        return
+    assert jl.max() + 1 < B and (jl + jh == bl).all()
+    assert _covered_once((jl + jh)[b < B], np.zeros(B, dtype=int), B, 1)
+
+
+K4_INSTANCES = [(ds, dc, sh["threads_per_lane"]) for (ds, dc), sh in K4.GENERAL_SHAPES.items()]
 
 
 @pytest.mark.parametrize("B", BACKWARD_BATCHES)
 @pytest.mark.parametrize("ds, dc, tpl", K4_INSTANCES)
 def test_general_geometry_covers_every_lane_once(ds, dc, tpl, B):
-    g = K4.general_geometry(ds, dc, B, threads_per_lane=tpl)
+    g = K4.general_geometry(ds, dc, B)
     nl = g["lanes_per_block"]
     assert g["threads_per_lane"] == tpl
     assert g["threads"] == tpl * nl <= 1024 and g["threads"] % 32 == 0
-    assert nl <= K4.GENERAL_SHAPES[(ds, dc)][tpl]["max_lanes"]
+    assert nl <= K4.GENERAL_SHAPES[(ds, dc)]["max_lanes"]
     assert g["smem"] <= _build.MAX_SMEM_BYTES
     # riccati_general.cu: lt = threadIdx.x % TPL, lane = blockIdx.x * lanes
     # + threadIdx.x / TPL: each lane gets TPL threads, one of each lt.
@@ -187,7 +204,7 @@ def test_general_tiles_cover_each_product_once(ds, dc, tpl):
     threads a lane on all warps but the last; Quu (dc x dc) on the last
     warp, or else counted down from the last thread; the next V (ds x
     ds) on all threads; the next v one element each of threads 0..ds-1."""
-    sh = K4.GENERAL_SHAPES[(ds, dc)][tpl]
+    sh = K4.GENERAL_SHAPES[(ds, dc)]
     nj, nv = ds + dc, ds + 1
     split = tpl >= 64
     qt = tpl - 32 if split else tpl
@@ -218,14 +235,23 @@ def test_general_tiles_cover_each_product_once(ds, dc, tpl):
 
 def test_general_geometry_fills_the_card_at_the_cheetah_batch():
     """B=1024: two warps a lane, 4 lanes a block, 256 blocks; the closed
-    loop's B=32: four warps a lane, a lane a block on 32 SMs; the dense
-    path's B=4096 at (4, 1): 16 lanes of 8 threads a block, 256 blocks."""
+    loop's B=32: a lane a block on 32 SMs; the dense path's B=4096 at
+    (4, 1): 16 lanes of 8 threads a block, 256 blocks."""
     g = K4.general_geometry(18, 6, 1024)
     assert (g["threads_per_lane"], g["lanes_per_block"], g["blocks"]) == (64, 4, 256)
     g = K4.general_geometry(18, 6, 32)
-    assert (g["threads_per_lane"], g["lanes_per_block"], g["blocks"]) == (128, 1, 32)
+    assert (g["threads_per_lane"], g["lanes_per_block"], g["blocks"]) == (64, 1, 32)
     g = K4.general_geometry(4, 1, 4096)
     assert (g["lanes_per_block"], g["threads"], g["blocks"]) == (16, 128, 256)
+
+
+def test_general_geometry_packs_lanes_on_a_small_card():
+    """The closed loop's 32 lanes take a block each on an H100 and four a
+    block (8 blocks) on a card of 8 SMs."""
+    g = K4.general_geometry(18, 6, 32, 8)
+    assert (g["lanes_per_block"], g["blocks"]) == (4, 8)
+    g = K4.general_geometry(18, 6, 32, 132)
+    assert (g["lanes_per_block"], g["blocks"]) == (1, 32)
 
 
 @pytest.mark.parametrize("which", ["K2", "K4"])
@@ -246,8 +272,6 @@ def test_backward_kernels_refuse_unbuilt_shapes_by_name(which, monkeypatch):
         return
     with pytest.raises(ValueError, match="general backward kernel is built for"):
         K4.general_geometry(5, 2, 64)
-    with pytest.raises(ValueError, match="threads a lane"):
-        K4.general_geometry(18, 6, 64, threads_per_lane=32)
     B, H, ds, dc = 3, 2, 5, 2
     with pytest.raises(ValueError, match="general backward kernel is built for"):
         K4.riccati_general(z(B, H, ds, ds), z(B, H, ds, dc), z(B, H, ds, ds), z(B, H, dc, dc),
@@ -268,7 +292,7 @@ def test_backward_geometry_mirrors_the_sources():
                  re.findall(r"rg_launch<(\d+), (\d+), (\d+)>\(", gen)}
     assert instances == set(K4_INSTANCES)
     for ds, dc, tpl in K4_INSTANCES:
-        sh = K4.GENERAL_SHAPES[(ds, dc)][tpl]
+        sh = K4.GENERAL_SHAPES[(ds, dc)]
         body = re.search(r"struct RgShape<%d, %d, %d> \{(.*?)\};" % (ds, dc, tpl), gen,
                          re.S)[1]
         v = {k: int(n) for k, n in re.findall(r"(\w+) = (\d+)", body)}

@@ -29,10 +29,8 @@ of its own (two trees cannot share one), in the order given, so that
 and power limit, then one JSON line per ROOT: at each shape the
 CUDA-event median of a call in ms, the kernels' device time a call
 under torch.profiler (``_device_ms``) and a SHA-256 digest of the
-outputs; for a tree whose K4 wrapper takes several threads-a-lane
-instances, each of them (``_tpl<n>``). The last line says, per kernel
-and for all of them, whether every ROOT (and block, and instance) gave
-the same outputs bit for bit."""
+outputs. The last line says, per kernel and for all of them, whether
+every ROOT (and block) gave the same outputs bit for bit."""
 
 import hashlib
 import json
@@ -215,14 +213,6 @@ def time_one(root):
     for tag, ds, dc, B, H in K4_SHAPES:
         args = k4_inputs(ds, dc, B, H, dev)
         record(tag, lambda: K4.riccati_general(*args))
-        # A tree whose wrapper picks threads a lane: each instance.
-        pick = getattr(K4, "general_geometry", None)
-        for tpl in getattr(K4, "GENERAL_SHAPES", {}).get((ds, dc), {}):
-            K4.general_geometry = lambda *a, tpl=tpl, **kw: pick(*a, **dict(kw, threads_per_lane=tpl))
-            try:
-                record(f"{tag}_tpl{tpl}", lambda: K4.riccati_general(*args))
-            finally:
-                K4.general_geometry = pick
         del args
     for tag, widths, ds, dc, B, H in K5_SHAPES:
         args = k5_inputs(widths, ds, dc, B, H, dev)
@@ -261,8 +251,7 @@ def main(argv):
         print(line, flush=True)
         out = json.loads(line)
         for tag in digests:
-            keys = [f"{tag}_sha256"] + [f"{tag}_{block}_sha256" for block, _ in BLOCKS] \
-                + [f"{tag}_tpl{tpl}_sha256" for tpl in (8, 32, 64, 128)]
+            keys = [f"{tag}_sha256"] + [f"{tag}_{block}_sha256" for block, _ in BLOCKS]
             digests[tag] |= {out[k] for k in keys if k in out}
     same = {kernel: all(len(d) == 1 for tag, d in digests.items() if tag.startswith(kernel + "_"))
             for kernel in ("K2", "K4", "K5")}
