@@ -149,8 +149,14 @@ class TrajectoryBatch:
         )
 
 
-def zeros(system: System, size: int, dtype=torch.float64, device="cpu") -> Trajectory:
-    """An all-zero trajectory of ``size`` steps."""
+def zeros(system: System, size: int, dtype=None, device=None) -> Trajectory:
+    """An all-zero trajectory of ``size`` steps, on the card unless
+    ``device`` names one (``resolve_device``), in that device's
+    ``default_dtype`` unless ``dtype`` names one."""
+    from .. import default_dtype, resolve_device
+
+    device = resolve_device(device)
+    dtype = dtype or default_dtype(device)
     return Trajectory(
         system, size,
         torch.zeros((size, system.obs_dim), dtype=dtype, device=device),

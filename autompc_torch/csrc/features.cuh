@@ -20,6 +20,16 @@
 // of k (earlier block on the left), and total(n) folds the blocks named
 // by the one-bits of n from the newest (lowest bit) to the oldest.
 // tests/test_torch_basis.py checks the grouping against _tree_sum.
+//
+// The term loops (ampc_dynamics, ampc_jac_col) push with a run-time k,
+// for which TreeAcc::push walks all seven slots in predicated code for
+// every one of the ds sums (~500 SASS instructions a term at ds = 4, on
+// sm_90a). ampc_tree_push decodes the walk once a term for all ds sums
+// (a switch on the number of trailing one-bits of k) and performs the
+// same additions in the same order. Its products and merges are rounded
+// one by one (__fmul_rn, __fadd_rn, which are never contracted into an
+// FMA): the predicated walk also rounds the product on its own, because
+// the product has a second use there, so the bits are unchanged.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -75,6 +85,7 @@ struct TreeAcc {
 
 // x^e for e >= 1 by binary exponentiation (lax.integer_pow's order).
 __device__ __forceinline__ float ampc_ipow(float x, int e) {
+  if (e == 1) return x;  // the loop's result for e = 1, without the loop
   float acc = 1.f;
   bool have = false;
   while (e > 0) {
@@ -86,6 +97,39 @@ __device__ __forceinline__ float ampc_ipow(float x, int e) {
     if (e) x = x * x;
   }
   return acc;
+}
+
+// Close the M blocks below slot M of each of N trees with its carry,
+// earlier block on the left (TreeAcc::push for a k with M trailing ones).
+template <int M, int N>
+__device__ __forceinline__ void ampc_tree_close(TreeAcc (&acc)[N],
+                                                float (&carry)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int l = 0; l < M; ++l) carry[i] = __fadd_rn(acc[i].slot[l], carry[i]);
+    acc[i].slot[M] = carry[i];
+  }
+}
+
+// Push term k into N trees at once: tree i receives coef[i * stride] * v
+// where TreeAcc::push(coef[i * stride] * v, k) would place it (k < 127).
+template <int N>
+__device__ __forceinline__ void ampc_tree_push(TreeAcc (&acc)[N],
+                                               const float* coef, int stride,
+                                               float v, int k) {
+  float carry[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) carry[i] = __fmul_rn(coef[i * stride], v);
+  switch (__ffs(~k) - 1) {  // trailing one-bits of k
+    case 0: ampc_tree_close<0>(acc, carry); break;
+    case 1: ampc_tree_close<1>(acc, carry); break;
+    case 2: ampc_tree_close<2>(acc, carry); break;
+    case 3: ampc_tree_close<3>(acc, carry); break;
+    case 4: ampc_tree_close<4>(acc, carry); break;
+    case 5: ampc_tree_close<5>(acc, carry); break;
+    default: ampc_tree_close<6>(acc, carry); break;
+  }
 }
 
 template <int D>
@@ -178,11 +222,8 @@ __device__ __forceinline__ void ampc_dynamics(const FeatTable& T,
                                               float (&xn)[DS]) {
   TreeAcc acc[DS];
   const int n = T.n;
-  for (int k = 0; k < n; ++k) {
-    const float th = ampc_term_value<D>(T, k, z);
-#pragma unroll
-    for (int i = 0; i < DS; ++i) acc[i].push(coef[i * n + k] * th, k);
-  }
+  for (int k = 0; k < n; ++k)
+    ampc_tree_push<DS>(acc, coef + k, n, ampc_term_value<D>(T, k, z), k);
 #pragma unroll
   for (int i = 0; i < DS; ++i) xn[i] = acc[i].total(n);
 }
@@ -200,8 +241,7 @@ __device__ __forceinline__ void ampc_jac_col(const FeatTable& T,
   for (int k = 0; k < n; ++k) {
     float g;
     if (ampc_term_partial<D>(T, k, dd, z, g)) {
-#pragma unroll
-      for (int i = 0; i < DS; ++i) acc[i].push(coef[i * n + k] * g, cnt);
+      ampc_tree_push<DS>(acc, coef + k, n, g, cnt);
       ++cnt;
     }
   }

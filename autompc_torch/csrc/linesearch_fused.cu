@@ -31,15 +31,14 @@
 //     thread (l, j) = threadIdx.x = l * NL + j rolling step size l of lane
 //     j: a warp is 32 (or 16) neighbouring lanes at one step size, so its
 //     reads of the lanes-last carry are coalesced. Each thread runs
-//     ls_obj_step (ls_step.cuh), the step K8 runs, so every objective is
-//     K8's to the bit. NL (from the wrapper) spreads the blocks over the
-//     SMs; __launch_bounds__ caps registers at 128 (two blocks of 256
-//     threads an SM).
+//     ls_candidate (ls_step.cuh), the candidate pass K8 runs, so every
+//     objective is K8's to the bit. NL (from the wrapper) spreads the
+//     blocks over the SMs; __launch_bounds__ caps registers at 128 (two
+//     blocks of 256 threads an SM).
 //   - No re-roll: each candidate thread stashes its states and controls
 //     in a scratch buffer (H, ds+1, L, B) that the wrapper allocates,
 //     L (ds+1) floats a lane-step, and the selected candidate's rows are
-//     read back: those are the states the re-roll of K9 computes, to the
-//     bit (the same ls_control and ampc_dynamics).
+//     read back, as K9 reads K8's stash back.
 //   - Acceptance in the kernel. Objectives and du2 meet in shared memory;
 //     thread l = 0 of each lane applies the rule with the reference's
 //     float operations (unchanged from the one-thread-per-lane kernel).
@@ -53,9 +52,6 @@
 // read, and new rows written, in the carry's own storage type (the TPU
 // wrapper's jac_dtype), a second template switch.
 #include "ls_step.cuh"
-
-// Threads of a block: lanes per block x step sizes.
-#define AMPC_LS_MAX_THREADS 256
 
 template <int DS, bool LANE_COST, typename JT>
 __global__ void __launch_bounds__(AMPC_LS_MAX_THREADS, 2) fused_ls_kernel(
@@ -89,45 +85,9 @@ __global__ void __launch_bounds__(AMPC_LS_MAX_THREADS, 2) fused_ls_kernel(
   // ---- candidate l of lane b: rollout, objective, du2 -----------------
   float x0[DS];
   float obj = 0.f, du2 = 0.f;
-  if (valid) {
-    float x[DS];
-#pragma unroll
-    for (int i = 0; i < DS; ++i) x[i] = x0[i] = x0T[(long long)i * B + b];
-    // The stage-cost diagonal: the lane's own, held in registers through
-    // the rollout, or the shared constants.
-    float q_lane[DS];
-    float rd = P.rd;
-    if constexpr (LANE_COST) {
-#pragma unroll
-      for (int i = 0; i < DS; ++i)
-        q_lane[i] = i < P.obsdim ? qdT[(long long)i * B + b] : 0.f;
-      rd = rdT[b];
-    }
-    const float* wq = LANE_COST ? q_lane : P.qd;
-    const float alpha = P.alphas[l];
-    float* st = stash + (long long)l * B + b;
-    for (int t = 0; t < H; ++t) {
-      float xbar[DS], K[DS], ubar, kk;
-      ls_load_row<DS>(xsT, usT, KsT, ksT, t, B, b, xbar, K, ubar, kk);
-      const float u =
-          ls_obj_step<DS>(T, s_coef, P, x, xbar, K, ubar, kk, alpha, wq, rd, obj);
-      const float du = u - ubar;
-      du2 = du2 + du * du;
-      float* row = st + (long long)t * D * LB;
-#pragma unroll
-      for (int i = 0; i < DS; ++i) row[i * LB] = x[i];
-      row[DS * LB] = u;
-    }
-    // The terminal diagonal is fetched only now, after the rollout.
-    float f_lane[DS];
-    if constexpr (LANE_COST) {
-#pragma unroll
-      for (int i = 0; i < DS; ++i)
-        f_lane[i] = i < P.obsdim ? fdT[(long long)i * B + b] : 0.f;
-    }
-    const float* wf = LANE_COST ? f_lane : P.fd;
-    obj = obj + ls_quad_form<DS>(P, x, wf);
-  }
+  if (valid)
+    ls_candidate<DS, LANE_COST>(T, s_coef, P, x0T, xsT, usT, KsT, ksT, qdT, rdT,
+                                fdT, stash, l, H, B, b, x0, obj, du2);
   s_obj[threadIdx.x] = obj;
   s_du2[threadIdx.x] = du2;
   __syncthreads();

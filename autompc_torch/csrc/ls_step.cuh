@@ -1,26 +1,27 @@
 // The per-step arithmetic of the dc=1 line search for linear-in-features
 // models under a diagonal quadratic cost, written once and shared by the
-// fused kernel (linesearch_fused.cu, K3) and the two kernels of the split
-// line search (ls_obj_wide.cu, K8, and ls_reroll_wide.cu, K9):
-//   ls_obj_step     one step of one candidate rollout with its stage cost
-//                   (K3's candidate threads and K8);
-//   ls_reroll_lane  the whole re-roll of one lane at its selected step
-//                   size with the fused relinearization and the carry
-//                   select (K9).
-// Both take the control from ls_control and the next state from
-// ampc_dynamics (features.cuh), and K3 takes its Jacobians from
-// ampc_jac_col, the function ampc_jac_rows is made of. Written once, the
-// kernels compile to the same instructions for the same inputs (FMA
-// contraction included), so K3's candidate threads, K8 and K9 roll the
-// same trajectory for the same step size, and the split search returns
-// what the fused kernel returns wherever the two choose the same step
-// size.
+// fused kernel (linesearch_fused.cu, K3) and the objective sweep of the
+// split line search (ls_obj_wide.cu, K8):
+//   ls_obj_step   one step of one candidate rollout with its stage cost;
+//   ls_candidate  a whole candidate: the rollout of one (lane, step size)
+//                 from x0 with its objective and du2, every state and
+//                 control kept in the scratch stash (H, ds+1, L, B).
+// The control comes from ls_control and the next state from
+// ampc_dynamics (features.cuh). Written once, the kernels compile to the
+// same instructions for the same inputs (FMA contraction included), so
+// K3's candidate threads and K8 roll, score and stash the same trajectory
+// for the same step size; the split search's re-roll kernel (K9,
+// ls_reroll_wide.cu) reads the selected candidate back from K8's stash
+// and takes its Jacobians with ampc_jac_col as K3 does, so the split
+// search returns what the fused kernel returns wherever the two choose
+// the same step size.
 //
 // Orders follow autompc_tpu/ops/pallas_linesearch.py (_fused_kernel,
 // _ls_obj_kernel_wide, _ls_reroll_kernel_wide): the feedback sum and the
 // quadratic forms are the balanced tree of features.cuh, the stage cost
-// is dt * ((x-g)'Q(x-g) + R u^2) with R u^2 = (R u) u, and the clip is
-// written with comparisons so that a NaN control (NaN gains) stays NaN.
+// is dt * ((x-g)'Q(x-g) + R u^2) with R u^2 = (R u) u, du2 is the left
+// fold of (u_t - ubar_t)^2 over t, and the clip is written with
+// comparisons so that a NaN control (NaN gains) stays NaN.
 #pragma once
 
 #include "features.cuh"
@@ -28,6 +29,9 @@
 
 #define AMPC_MAX_L 10
 #define AMPC_MAX_OBS 8
+// Threads of a K3 or K8 block: lanes per block x step sizes (the
+// wrappers' fused_geometry).
+#define AMPC_LS_MAX_THREADS 256
 
 struct LSParams {
   int L;
@@ -116,55 +120,58 @@ __device__ __forceinline__ float ls_obj_step(
   return u;
 }
 
-// Re-roll lane b at step size a_sel from x0. Writes xs (H+1, DS, B) and
-// us (H, B) where traj_mask, the old values elsewhere; the packed
-// Jacobian rows i*(DS+1)+dd at each (x_t, u_t) where jac_mask, the old
-// rows elsewhere, stored as JT. Returns du2 = sum_t (u_t - ubar_t)^2.
-template <int DS, typename JT>
-__device__ __forceinline__ float ls_reroll_lane(
+// Candidate l (step size P.alphas[l]) of lane b: rolls x0 (read into
+// x0) through the H steps, adding each step's cost to obj and
+// (u_t - ubar_t)^2 to du2, and stashes x_{t+1} in rows (t, i < DS, l) and
+// u_t in row (t, DS, l) of the stash (H, DS+1, L, B); obj then takes the
+// terminal cost. The cost diagonals are the lane's own planes (qdT, rdT,
+// fdT (obsdim, B), LANE_COST) or P's constants.
+template <int DS, bool LANE_COST>
+__device__ __forceinline__ void ls_candidate(
     const FeatTable& T, const float* s_coef, const LSParams& P,
-    const float (&x0)[DS], float a_sel, bool traj_mask, bool jac_mask,
-    const float* __restrict__ xsT, const float* __restrict__ usT,
-    const float* __restrict__ KsT, const float* __restrict__ ksT,
-    const JT* __restrict__ old_jac, float* __restrict__ out_xs,
-    float* __restrict__ out_us, JT* __restrict__ out_jac, int H, int B,
-    int b) {
+    const float* __restrict__ x0T, const float* __restrict__ xsT,
+    const float* __restrict__ usT, const float* __restrict__ KsT,
+    const float* __restrict__ ksT, const float* __restrict__ qdT,
+    const float* __restrict__ rdT, const float* __restrict__ fdT,
+    float* stash, int l, int H, int B, int b, float (&x0)[DS], float& obj,
+    float& du2) {
   constexpr int D = DS + 1;
+  const long long LB = (long long)P.L * B;
   float x[DS];
 #pragma unroll
-  for (int i = 0; i < DS; ++i) {
-    x[i] = x0[i];
-    const long long o = (long long)i * B + b;
-    out_xs[o] = traj_mask ? x0[i] : xsT[o];
+  for (int i = 0; i < DS; ++i) x[i] = x0[i] = x0T[(long long)i * B + b];
+  // The stage-cost diagonal: the lane's own, held in registers through
+  // the rollout, or the shared constants.
+  float q_lane[DS];
+  float rd = P.rd;
+  if constexpr (LANE_COST) {
+#pragma unroll
+    for (int i = 0; i < DS; ++i)
+      q_lane[i] = i < P.obsdim ? qdT[(long long)i * B + b] : 0.f;
+    rd = rdT[b];
   }
-  float du2 = 0.f;
+  const float* wq = LANE_COST ? q_lane : P.qd;
+  const float alpha = P.alphas[l];
+  float* st = stash + (long long)l * B + b;
   for (int t = 0; t < H; ++t) {
     float xbar[DS], K[DS], ubar, kk;
     ls_load_row<DS>(xsT, usT, KsT, ksT, t, B, b, xbar, K, ubar, kk);
-    const float u = ls_control<DS>(P, x, xbar, K, ubar, kk, a_sel);
-    float z[D];
-#pragma unroll
-    for (int i = 0; i < DS; ++i) z[i] = x[i];
-    z[DS] = u;
-    float xn[DS];
-    ampc_dynamics<DS, D>(T, s_coef, z, xn);
-#pragma unroll
-    for (int i = 0; i < DS; ++i) {
-      const long long o = ((long long)(t + 1) * DS + i) * B + b;
-      out_xs[o] = traj_mask ? xn[i] : xsT[o];
-    }
+    const float u =
+        ls_obj_step<DS>(T, s_coef, P, x, xbar, K, ubar, kk, alpha, wq, rd, obj);
     const float du = u - ubar;
     du2 = du2 + du * du;
-    out_us[(long long)t * B + b] = traj_mask ? u : ubar;
-    float rows[DS * D];
-    ampc_jac_rows<DS, D>(T, s_coef, z, rows);
+    float* row = st + (long long)t * D * LB;
 #pragma unroll
-    for (int r = 0; r < DS * D; ++r) {
-      const long long o = ((long long)t * DS * D + r) * B + b;
-      out_jac[o] = jac_mask ? ampc_jac_store<JT>(rows[r]) : old_jac[o];
-    }
-#pragma unroll
-    for (int i = 0; i < DS; ++i) x[i] = xn[i];
+    for (int i = 0; i < DS; ++i) row[i * LB] = x[i];
+    row[DS * LB] = u;
   }
-  return du2;
+  // The terminal diagonal is fetched only now, after the rollout.
+  float f_lane[DS];
+  if constexpr (LANE_COST) {
+#pragma unroll
+    for (int i = 0; i < DS; ++i)
+      f_lane[i] = i < P.obsdim ? fdT[(long long)i * B + b] : 0.f;
+  }
+  const float* wf = LANE_COST ? f_lane : P.fd;
+  obj = obj + ls_quad_form<DS>(P, x, wf);
 }

@@ -53,8 +53,8 @@ MAX_L = 10
 MLP_MAX_LAYERS = 5
 MLP_MAX_W = 128
 MLP_MAX_DC = 32
-# Threads of a block: K3's lanes x step sizes (linesearch_fused.cu) and
-# K5's (mlp_linesearch.cu); both kernels cap registers so that two such
+# Threads of a block: K3's and K8's lanes x step sizes (ls_step.cuh) and
+# K5's (mlp_linesearch.cu); the kernels cap registers so that two such
 # blocks share an SM. K5's largest register tile is MLP_TILE rollouts x
 # MLP_TILE units.
 LS_MAX_THREADS = 256
@@ -167,11 +167,11 @@ _SIGNATURES = {
     "ampc_fused_line_search_occupancy": [_I] * 4 + [_P],
     "ampc_ls_obj_wide": (
         [ctypes.POINTER(FeatTable), ctypes.POINTER(LSParams)]
-        + [_P] * 10 + [_I] * 4 + [_P]
+        + [_P] * 12 + [_I] * 5 + [_P]
     ),
+    "ampc_ls_obj_wide_occupancy": [_I] * 3 + [_P],
     "ampc_ls_reroll_wide": (
-        [ctypes.POINTER(FeatTable), ctypes.POINTER(LSParams)]
-        + [_P] * 14 + [_I] * 5 + [_P]
+        [ctypes.POINTER(FeatTable)] + [_P] * 14 + [_I] * 6 + [_P]
     ),
     "ampc_sindy_line_search": (
         [ctypes.POINTER(FeatTable), ctypes.POINTER(SindyLS)]

@@ -19,12 +19,16 @@ rows are read and new rows written in its own storage type.
 
 ``fused_line_search_wide`` (``pallas_fused_line_search_wide``, the
 solver's ``ls_wide=True``): the same contract split in three. K8
-(``wide_objectives``, ``csrc/ls_obj_wide.cu``) scores every (lane, step
-size) and returns the (L, B) objectives only; the acceptance rule runs
-in tensor ops (``wide_accept``), as the TPU package runs it in XLA; K9
-(``wide_reroll``, ``csrc/ls_reroll_wide.cu``) re-rolls the selected
-step size, relinearizes and applies the carry select. The rollout and
-re-roll arithmetic is one header shared with K3 (``csrc/ls_step.cuh``).
+(``wide_objectives``, ``csrc/ls_obj_wide.cu``) rolls and scores every
+(lane, step size) in K3's geometry and returns the (L, B) objectives,
+every candidate's trajectory in a scratch stash (H, ds+1, L, B) and
+its du2 (L, B); the acceptance rule runs in tensor ops
+(``wide_accept``), as the TPU package runs it in XLA; K9
+(``wide_reroll``, ``csrc/ls_reroll_wide.cu``) reads the selected
+candidate back from the stash, relinearizes along it and applies the
+carry select, in parallel over (step, lane): where the TPU's second
+kernel rolls the chosen step size again, the stash already holds that
+roll to the bit. K8's candidate pass is K3's (``csrc/ls_step.cuh``).
 
 ``sindy_line_search`` (K7, ``pallas_sindy_line_search``; kernel in
 ``csrc/sindy_linesearch.cu``): the unfused form on the batch-major
@@ -35,7 +39,7 @@ The GaussReg term (``reg=``) and per-lane coefficients are not ported
 yet (ROADMAP.md §A 7a).
 
 A CPU tensor takes the plain PyTorch version (``fused_line_search_plain``,
-``sindy_line_search_plain``, ``line_search_objectives``,
+``sindy_line_search_plain``, ``wide_objectives_plain``,
 ``wide_reroll_plain``, ``fused_line_search_wide_plain``); a CUDA tensor
 launches the kernel or raises.
 """
@@ -97,17 +101,20 @@ def _quad_form(w, x, goal):
     return tree_sum([w[i] * (x[i] - goal[i]) * (x[i] - goal[i]) for i in range(len(w))])
 
 
-def line_search_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
-                           umin, umax, qd, rd, fd, goal, dt, lane=None):
-    """Pass 1 of the plain twin: the objective of every candidate step
-    size, (L, B). ``lane`` says whether the cost is per-lane planes
-    (None: decided from the arguments)."""
+def _sweep(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax, qd, rd, fd,
+           goal, dt, lane, keep):
+    """Every candidate step size rolled from x0T: the objectives (L, B)
+    and, with ``keep``, the stash (H, ds+1, L, B) (row (t, i < ds, l)
+    x_{t+1}, row (t, ds, l) u_t) and du2 (L, B), else two Nones."""
     H, ds = usT.shape[0], xsT.shape[1]
     if lane is None:
         lane = _build.lane_cost_planes(qd, rd, fd, len(goal), xsT.shape[2])
     a_col, qdv, rdv, fdv, gl, dtv = _consts(xsT, alphas, qd, rd, fd, goal, dt, lane)
-    x = [x0T[i][None, :].expand(len(alphas), -1) for i in range(ds)]
-    obj = xsT.new_zeros((len(alphas), xsT.shape[2]))
+    L, B = len(alphas), xsT.shape[2]
+    x = [x0T[i][None, :].expand(L, -1) for i in range(ds)]
+    obj = xsT.new_zeros((L, B))
+    stash = xsT.new_empty((H, ds + 1, L, B)) if keep else None
+    du2 = xsT.new_zeros((L, B)) if keep else None
     for t in range(H):
         xbar = [xsT[t, i][None, :] for i in range(ds)]
         K = [KsT[t, i][None, :] for i in range(ds)]
@@ -116,7 +123,28 @@ def line_search_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
         cc = rdv * u * u
         obj = obj + dtv * (oc + cc)
         x = feature_dynamics(terms, coeffs, x + [u], ds)
-    return obj + _quad_form(fdv, x, gl)
+        if keep:
+            du2 = du2 + (u - usT[t][None, :]) ** 2
+            stash[t, :ds] = torch.stack(x)
+            stash[t, ds] = u
+    return obj + _quad_form(fdv, x, gl), stash, du2
+
+
+def line_search_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
+                           umin, umax, qd, rd, fd, goal, dt, lane=None):
+    """Pass 1 of the plain twin: the objective of every candidate step
+    size, (L, B). ``lane`` says whether the cost is per-lane planes
+    (None: decided from the arguments)."""
+    return _sweep(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax, qd, rd,
+                  fd, goal, dt, lane, keep=False)[0]
+
+
+def wide_objectives_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax,
+                          qd, rd, fd, goal, dt, lane=None):
+    """Plain PyTorch version of K8: (objs (L, B), stash (H, ds+1, L, B),
+    du2 (L, B)), as ``wide_objectives`` returns them."""
+    return _sweep(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax, qd, rd,
+                  fd, goal, dt, lane, keep=True)
 
 
 def fused_line_search_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
@@ -127,8 +155,8 @@ def fused_line_search_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
     order; the JAX kernel's acceptance rule line for line). New Jacobian
     rows are rounded to ``old_jac``'s storage type (a float64 -> bfloat16
     cast goes through float32, in PyTorch as in JAX)."""
-    H, ds, B, obsdim, lane = _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
-                                     qd, rd, fd, goal, act, old_jac)
+    _, _, B, _, lane = _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, qd, rd, fd,
+                               goal, act, old_jac)
     L = len(alphas)
     objs = line_search_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs,
                                   alphas, umin, umax, qd, rd, fd, goal, dt, lane)
@@ -167,16 +195,30 @@ def fused_line_search_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
     jac_mask = traj_mask & success
 
     # ---- pass 2: re-roll the chosen step size ------------------------
-    out_xs = torch.empty_like(xsT)
-    out_us = torch.empty_like(usT)
+    out_xs, out_us, out_jac, du2 = reroll_plain(
+        terms, x0T, xsT, usT, KsT, ksT, coeffs, a_sel, umin, umax, traj_mask, jac_mask,
+        old_jac)
+    new_obj = torch.where(traj_mask, new_obj, obj0)
+    return out_xs, out_us, new_obj, success, failed, out_jac, du2
+
+
+def reroll_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alpha_sel, umin, umax,
+                 traj_mask, jac_mask, old_jac):
+    """Pass 2 of the fused plain version: every lane rolled again at its
+    step size ``alpha_sel`` (B,), relinearized along the roll, and the
+    carry select applied (``traj_mask``, ``jac_mask`` (B,) bool). Returns
+    (xs (H+1, ds, B), us (H, B), jac (H, ds*(ds+1), B) in ``old_jac``'s
+    type, du2 (B,))."""
+    H, ds = usT.shape[0], xsT.shape[1]
+    out_xs, out_us = torch.empty_like(xsT), torch.empty_like(usT)
     out_jac = torch.empty_like(old_jac)
     x = [x0T[i] for i in range(ds)]
     out_xs[0] = torch.where(traj_mask, x0T, xsT[0])
-    du2 = xsT.new_zeros((B,))
+    du2 = xsT.new_zeros((xsT.shape[2],))
     for t in range(H):
         xbar = [xsT[t, i] for i in range(ds)]
         K = [KsT[t, i] for i in range(ds)]
-        u = _controls(x, xbar, K, usT[t], ksT[t], a_sel, umin, umax)
+        u = _controls(x, xbar, K, usT[t], ksT[t], alpha_sel, umin, umax)
         z = x + [u]
         xn = feature_dynamics(terms, coeffs, z, ds)
         out_xs[t + 1] = torch.where(traj_mask, torch.stack(xn), xsT[t + 1])
@@ -185,8 +227,7 @@ def fused_line_search_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
         rows = torch.stack(feature_jacobian_rows(terms, coeffs, z, ds))
         out_jac[t] = torch.where(jac_mask, rows, old_jac[t].to(rows.dtype))
         x = xn
-    new_obj = torch.where(traj_mask, new_obj, obj0)
-    return out_xs, out_us, new_obj, success, failed, out_jac, du2
+    return out_xs, out_us, out_jac, du2
 
 
 def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
@@ -269,10 +310,10 @@ _LANE_GROUPS = (16, 8)
 
 
 def fused_geometry(B, L, n_sm=_build.H100_SMS):
-    """K3's launch: ``lanes_per_block`` lanes of L threads each (thread
-    ``l * lanes_per_block + j`` rolls step size l of the block's lane j),
-    ``blocks`` of them. The lanes per block are the most that still keep
-    the most SMs busy, at most 256 threads a block."""
+    """K3's and K8's launch: ``lanes_per_block`` lanes of L threads each
+    (thread ``l * lanes_per_block + j`` rolls step size l of the block's
+    lane j), ``blocks`` of them. The lanes per block are the most that
+    still keep the most SMs busy, at most 256 threads a block."""
     if not 1 <= L <= _build.MAX_L:
         raise ValueError(f"fused_line_search: 1..{_build.MAX_L} step sizes supported, "
                          f"got {L}")
@@ -316,24 +357,28 @@ def _check_wide(B, coeffs):
 
 def wide_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax,
                     qd, rd, fd, goal, dt, lane=None):
-    """K8: the objective of every candidate step size, (L, B), and
-    nothing else; arguments as ``fused_line_search``'s first fifteen,
-    B % 1024 == 0; ``lane`` as in ``line_search_objectives``. A CPU
-    tensor takes ``line_search_objectives``."""
+    """K8: every candidate step size rolled and scored; arguments as
+    ``fused_line_search``'s first fifteen, B % 1024 == 0; ``lane`` as
+    in ``line_search_objectives``. Returns (objs (L, B), stash (H, ds+1,
+    L, B), du2 (L, B)): stash row (t, i < ds, l) holds candidate l's
+    x_{t+1}, row (t, ds, l) its u_t. The launch is K3's
+    (``fused_geometry``). A CPU tensor takes ``wide_objectives_plain``."""
     Hp1, ds, B = xsT.shape
     _check_wide(B, coeffs)
     if lane is None:
         lane = _build.lane_cost_planes(qd, rd, fd, len(goal), B)
+    if not 1 <= len(alphas) <= _build.MAX_L:
+        raise ValueError(f"wide_objectives: 1..{_build.MAX_L} step sizes supported, "
+                         f"got {len(alphas)}")
     if _build.device_kind(xsT) == "cpu":
-        return line_search_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
-                                      umin, umax, qd, rd, fd, goal, dt, lane)
-    H = Hp1 - 1
+        return wide_objectives_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
+                                     umin, umax, qd, rd, fd, goal, dt, lane)
+    H, L = Hp1 - 1, len(alphas)
+    geom = fused_geometry(B, L, _build.sm_count(xsT.device))
     built = _build.KERNEL_SHAPES["ls_obj_wide"]
     if (ds, 1) not in built:
         raise ValueError(f"objective-sweep kernel is built for (ds, dc) in {built}, "
                          f"got {(ds, 1)}")
-    if not 1 <= len(alphas) <= _build.MAX_L:
-        raise ValueError(f"1..{_build.MAX_L} step sizes supported, got {len(alphas)}")
     dev, f32 = xsT.device, torch.float32
     for name, t, shape in (
         ("x0T", x0T, (ds, B)), ("xsT", xsT, (H + 1, ds, B)), ("usT", usT, (H, B)),
@@ -343,27 +388,31 @@ def wide_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax,
         _build.check_cuda(name, t, shape, f32, dev)
     P = _ls_params(alphas, umin, umax, qd, rd, fd, goal, dt, 0.0, lane)
     planes = _build.cost_plane_ptrs(lane, qd, rd, fd, f32, dev)
-    objs = torch.empty((len(alphas), B), dtype=f32, device=dev)
+    stash = torch.empty((H, ds + 1, L, B), dtype=f32, device=dev)
+    objs = torch.empty((L, B), dtype=f32, device=dev)
+    du2s = torch.empty((L, B), dtype=f32, device=dev)
     p = _build.ptr
     rc = _build.library().ampc_ls_obj_wide(
         ctypes.byref(_build.feat_table(tuple(terms))), ctypes.byref(P), p(coeffs),
-        p(x0T), p(xsT), p(usT), p(KsT), p(ksT), *planes, p(objs),
-        ds, H, B, dev.index or 0, _build.stream_of(xsT),
+        p(x0T), p(xsT), p(usT), p(KsT), p(ksT), *planes, p(stash), p(objs), p(du2s),
+        ds, H, B, geom["lanes_per_block"], dev.index or 0, _build.stream_of(xsT),
     )
     _build.check_rc("wide_objectives", rc)
     wide_objectives.launches += 1
-    return objs
+    wide_objectives.launches_by_B[B] = wide_objectives.launches_by_B.get(B, 0) + 1
+    return objs, stash, du2s
 
 
 wide_objectives.launches = 0
+wide_objectives.launches_by_B = {}
 
 
 def wide_accept(objs, alphas, obj0, lin_red, quad_red, ks_small, act,
                 ls_cost_threshold=0.3):
     """The reference acceptance rule on the (L, B) objectives, in tensor
     ops, line for line as ``pallas_linesearch.py:1155-1184``. Returns
-    (alpha_sel, traj_mask, jac_mask, new_obj, ls_success, failed), all
-    (B,)."""
+    (sel, traj_mask, jac_mask, new_obj, ls_success, failed), all (B,):
+    ``sel`` the index of the selected step size (int64)."""
     L = objs.shape[0]
     a = objs.new_tensor([float(v) for v in alphas])
     expect = a[:, None] * lin_red[None] + (a[:, None] ** 2) * (quad_red[None] * 0.5)
@@ -388,84 +437,77 @@ def wide_accept(objs, alphas, obj0, lin_red, quad_red, ks_small, act,
     failed = ~ls_success & (last_obj > obj0 + 1e-3)
     sel = torch.where(ls_success, chosen, idx_last)
     new_obj_raw = torch.where(ls_success, chosen_obj, last_obj)
-    alpha_sel = a[sel]
     traj_mask = act & ~failed
     jac_mask = traj_mask & ls_success
     new_obj = torch.where(traj_mask, new_obj_raw, obj0)
-    return alpha_sel, traj_mask, jac_mask, new_obj, ls_success, failed
+    return sel, traj_mask, jac_mask, new_obj, ls_success, failed
 
 
-def wide_reroll_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alpha_sel, umin, umax,
-                      traj_mask, jac_mask, old_jac):
-    """Plain PyTorch version of K9 (the fused twin's pass 2 with the
-    step size and masks given)."""
-    H, ds = usT.shape[0], xsT.shape[1]
-    out_xs, out_us = torch.empty_like(xsT), torch.empty_like(usT)
-    out_jac = torch.empty_like(old_jac)
-    x = [x0T[i] for i in range(ds)]
-    out_xs[0] = torch.where(traj_mask, x0T, xsT[0])
-    du2 = xsT.new_zeros((xsT.shape[2],))
-    for t in range(H):
-        xbar = [xsT[t, i] for i in range(ds)]
-        K = [KsT[t, i] for i in range(ds)]
-        u = _controls(x, xbar, K, usT[t], ksT[t], alpha_sel, umin, umax)
-        z = x + [u]
-        xn = feature_dynamics(terms, coeffs, z, ds)
-        out_xs[t + 1] = torch.where(traj_mask, torch.stack(xn), xsT[t + 1])
-        du2 = du2 + (u - usT[t]) ** 2
-        out_us[t] = torch.where(traj_mask, u, usT[t])
-        rows = torch.stack(feature_jacobian_rows(terms, coeffs, z, ds))
-        out_jac[t] = torch.where(jac_mask, rows, old_jac[t].to(rows.dtype))
-        x = xn
-    return out_xs, out_us, out_jac, du2
+def wide_reroll_plain(terms, x0T, xsT, usT, coeffs, stash, du2s, sel, traj_mask,
+                      jac_mask, old_jac):
+    """Plain PyTorch version of K9: the selected candidate's rows read
+    back from the stash, its Jacobians, the carry select."""
+    H, ds, B = usT.shape[0], xsT.shape[1], xsT.shape[2]
+    rows = stash.gather(2, sel.view(1, 1, 1, B).expand(H, ds + 1, 1, B))[:, :, 0]
+    xs = torch.cat([x0T[None], rows[:, :ds]])
+    us = rows[:, ds]
+    jac = torch.stack(feature_jacobian_rows(
+        terms, coeffs, [xs[:H, i] for i in range(ds)] + [us], ds), dim=1)
+    return (torch.where(traj_mask, xs, xsT), torch.where(traj_mask, us, usT),
+            torch.where(jac_mask, jac, old_jac.to(jac.dtype)).to(old_jac.dtype),
+            du2s.gather(0, sel[None])[0])
 
 
-def wide_reroll(terms, x0T, xsT, usT, KsT, ksT, coeffs, alpha_sel, umin, umax,
-                traj_mask, jac_mask, old_jac):
-    """K9: re-roll every lane at its step size ``alpha_sel`` (B,) with
-    the fused relinearization and the carry select (``traj_mask``,
-    ``jac_mask`` (B,) bool). Returns (xs (H+1, ds, B), us (H, B), jac
+def wide_reroll(terms, x0T, xsT, usT, coeffs, stash, du2s, sel, traj_mask, jac_mask,
+                old_jac):
+    """K9: every lane's selected candidate ``sel`` (B,) int64 read back
+    from K8's ``stash`` (H, ds+1, L, B), relinearized, and the carry
+    select applied (``traj_mask``, ``jac_mask`` (B,) bool); du2 from
+    K8's ``du2s`` (L, B). Returns (xs (H+1, ds, B), us (H, B), jac
     (H, ds*(ds+1), B) in ``old_jac``'s type, du2 (B,))."""
     if _build.device_kind(xsT) == "cpu":
-        return wide_reroll_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alpha_sel,
-                                 umin, umax, traj_mask, jac_mask, old_jac)
+        return wide_reroll_plain(terms, x0T, xsT, usT, coeffs, stash, du2s, sel,
+                                 traj_mask, jac_mask, old_jac)
     Hp1, ds, B = xsT.shape
-    H, dsd = Hp1 - 1, ds * (ds + 1)
+    H, dsd, L = Hp1 - 1, ds * (ds + 1), stash.shape[2]
     built = _build.KERNEL_SHAPES["ls_reroll_wide"]
     if (ds, 1) not in built:
         raise ValueError(f"re-roll kernel is built for (ds, dc) in {built}, got {(ds, 1)}")
     if len(terms[0].exps) != ds + 1:
         raise ValueError(f"terms take {len(terms[0].exps)} inputs, expected ds + 1")
+    if not 1 <= L <= _build.MAX_L:
+        raise ValueError(f"1..{_build.MAX_L} step sizes supported, got {L}")
     dev, f32, b8 = xsT.device, torch.float32, torch.bool
     for name, t, shape, dt_ in (
         ("x0T", x0T, (ds, B), f32), ("xsT", xsT, (H + 1, ds, B), f32),
-        ("usT", usT, (H, B), f32), ("KsT", KsT, (H, ds, B), f32),
-        ("ksT", ksT, (H, B), f32), ("coeffs", coeffs, (ds, len(terms)), f32),
-        ("alpha_sel", alpha_sel, (B,), f32), ("traj_mask", traj_mask, (B,), b8),
+        ("usT", usT, (H, B), f32), ("coeffs", coeffs, (ds, len(terms)), f32),
+        ("stash", stash, (H, ds + 1, L, B), f32), ("du2s", du2s, (L, B), f32),
+        ("sel", sel, (B,), torch.int64), ("traj_mask", traj_mask, (B,), b8),
         ("jac_mask", jac_mask, (B,), b8), ("old_jac", old_jac, (H, dsd, B), old_jac.dtype),
     ):
         _build.check_cuda(name, t, shape, dt_, dev)
     bf16 = _build.jac_bf16("old_jac", old_jac)
-    P = _ls_params((1.0,), umin, umax, None, None, None, (), 0.0, 0.0, True)
     out_xs = torch.empty((H + 1, ds, B), dtype=f32, device=dev)
     out_us = torch.empty((H, B), dtype=f32, device=dev)
     out_jac = torch.empty((H, dsd, B), dtype=old_jac.dtype, device=dev)
     du2 = torch.empty((B,), dtype=f32, device=dev)
     p = _build.ptr
     rc = _build.library().ampc_ls_reroll_wide(
-        ctypes.byref(_build.feat_table(tuple(terms))), ctypes.byref(P), p(coeffs),
-        p(x0T), p(xsT), p(usT), p(KsT), p(ksT), p(old_jac), p(alpha_sel), p(traj_mask),
-        p(jac_mask), p(out_xs), p(out_us), p(out_jac), p(du2),
-        bf16, ds, H, B, dev.index or 0, _build.stream_of(xsT),
+        ctypes.byref(_build.feat_table(tuple(terms))), p(coeffs), p(x0T), p(xsT),
+        p(usT), p(old_jac), p(stash), p(du2s), p(sel), p(traj_mask), p(jac_mask),
+        p(out_xs), p(out_us), p(out_jac), p(du2),
+        bf16, ds, L, H, B, dev.index or 0, _build.stream_of(xsT),
     )
     _build.check_rc("wide_reroll", rc)
     wide_reroll.launches += 1
     wide_reroll.launches_bf16 += bf16
+    wide_reroll.launches_by_B[B] = wide_reroll.launches_by_B.get(B, 0) + 1
     return out_xs, out_us, out_jac, du2
 
 
 wide_reroll.launches = 0
 wide_reroll.launches_bf16 = 0
+wide_reroll.launches_by_B = {}
 
 
 def _wide(objectives, reroll, terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin,
@@ -474,12 +516,12 @@ def _wide(objectives, reroll, terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, um
     lane = _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, qd, rd, fd, goal,
                    act, old_jac)[4]
     _check_wide(xsT.shape[2], coeffs)
-    objs = objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax,
-                      qd, rd, fd, goal, dt, lane)
-    a_sel, tmask, jmask, new_obj, success, failed = wide_accept(
+    objs, stash, du2s = objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin,
+                                   umax, qd, rd, fd, goal, dt, lane)
+    sel, tmask, jmask, new_obj, success, failed = wide_accept(
         objs, alphas, obj0, lin_red, quad_red, ks_small, act, ls_cost_threshold)
-    xs, us, jac, du2 = reroll(terms, x0T, xsT, usT, KsT, ksT, coeffs, a_sel, umin,
-                              umax, tmask, jmask, old_jac)
+    xs, us, jac, du2 = reroll(terms, x0T, xsT, usT, coeffs, stash, du2s, sel, tmask,
+                              jmask, old_jac)
     return xs, us, new_obj, success, failed, jac, du2
 
 
@@ -487,9 +529,10 @@ def fused_line_search_wide_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
                                  umin, umax, qd, rd, fd, goal, dt, obj0, lin_red,
                                  quad_red, ks_small, act, old_jac,
                                  ls_cost_threshold=0.3):
-    """Plain PyTorch version of the split line search: the plain pass 1
-    (``line_search_objectives``), ``wide_accept``, ``wide_reroll_plain``."""
-    return _wide(line_search_objectives, wide_reroll_plain, terms, x0T, xsT, usT, KsT,
+    """Plain PyTorch version of the split line search: the plain K8
+    (``wide_objectives_plain``), ``wide_accept``, the plain K9
+    (``wide_reroll_plain``)."""
+    return _wide(wide_objectives_plain, wide_reroll_plain, terms, x0T, xsT, usT, KsT,
                  ksT, coeffs, alphas, umin, umax, qd, rd, fd, goal, dt, obj0, lin_red,
                  quad_red, ks_small, act, old_jac, ls_cost_threshold)
 
@@ -501,10 +544,12 @@ def fused_line_search_wide(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
     """The split ("wide") line search: ``fused_line_search``'s contract
     and return tuple (xsT (H+1, ds, B), usT (H, B), obj, success, failed,
     jac_p (H, ds*(ds+1), B), du2), B % 1024 == 0, as K8 (every
-    candidate's objective), the acceptance rule in tensor ops and K9 (the
-    chosen step size re-rolled, relinearized and carry-selected). Every
-    term descriptor carries its partials, which is what the TPU entry's
-    ``grad_terms`` gives it; per-lane coefficients raise."""
+    candidate rolled, scored and kept in a scratch stash of H (ds+1) L B
+    floats, 655 MB at B=16384, H=200, from PyTorch's caching allocator),
+    the acceptance rule in tensor ops and K9 (the chosen candidate read
+    back, relinearized and carry-selected). Every term descriptor carries
+    its partials, which is what the TPU entry's ``grad_terms`` gives it;
+    per-lane coefficients raise."""
     return _wide(wide_objectives, wide_reroll, terms, x0T, xsT, usT, KsT, ksT, coeffs,
                  alphas, umin, umax, qd, rd, fd, goal, dt, obj0, lin_red, quad_red,
                  ks_small, act, old_jac, ls_cost_threshold)

@@ -8,10 +8,10 @@ Phases (each raises on failure, so the exit code is non-zero):
    the torch and CUDA versions; no CUDA device -> error, nothing runs on
    the CPU;
 1. build: compile (or load) the CUDA kernels from ``autompc_torch/csrc``;
-   print every kernel's registers and spills (the ptxas log) and, for K3
-   and K5, the block shape and resident warps an SM at each shape their
-   paths launch (the CUDA occupancy query), for K2 and K4 the geometry
-   their wrappers choose there;
+   print every kernel's registers and spills (the ptxas log) and, for K3,
+   K5 and K8, the block shape and resident warps an SM at each shape
+   their paths launch (the CUDA occupancy query), for K2, K4 and K9 the
+   geometry their wrappers choose there;
 2. data + fit: cartpole swing-up data (50 x 100, seed 42, a
    torch.Generator on the card) and the SINDy fit (trig + interaction
    library, 55 features);
@@ -59,11 +59,14 @@ Phases (each raises on failure, so the exit code is non-zero):
    configuration (a)'s carry after three
    iterations at B=1,024, H=10 with its own per-lane planes; the wide
    options' kernels (K2's 4D entry and bfloat16 instances, K3's
-   bfloat16 instances, K8, K9 on both carry types) on the main path's
-   carry at B=4096 and B=16384, and the split search against K3 there
-   and on fan-out (a)'s carry (decisions agree on >= 0.999 of lanes,
-   0.98 at the fan-out's shape, and then the same trajectory, Jacobians
-   and du2 bit for bit); the batch-major kernels on the carries of phases 6, 7
+   bfloat16 instances, K8's objectives, stash and du2, K9's read-back
+   and Jacobians on both carry types, with their device times under
+   torch.profiler) on the main path's carry at B=4096, B=16384 and
+   B=1024 (the llw solve's first compaction stage and SCHEDULE's last,
+   which the measured solves do not reach), and
+   the split search against K3 there and on fan-out (a)'s carry
+   (decisions agree on >= 0.999 of lanes, 0.98 at the fan-out's shape,
+   and then the same trajectory, Jacobians and du2 bit for bit); the batch-major kernels on the carries of phases 6, 7
    and 8(b) after three iterations, K4 and K5 also on the cheetah closed
    loop's (B=32, H=20); the two fan-out kernels also at
    B=4096, H=200 on the main path's carry. Within stated tolerances,
@@ -96,8 +99,16 @@ import time
 import numpy as np
 import torch
 
+# The kernels' device time a call under torch.profiler, as the A/B tool
+# measures it.
+from tools.ab_torch_kernels import device_ms
+
 B_SOLVE = 16384
 B_KERNEL = 4096
+# SCHEDULE's last compaction stage (0.0625 of B_SOLVE): a shape SCHEDULE
+# allows the llw solve to launch K8 and K9 at; the measured solves never
+# compacted below B=4096, so its rows are not launches on the path.
+B_WIDE_LAST = 1024
 H = 200
 B_GATE, H_GATE, STEPS_GATE = 256, 20, 200
 SCHEDULE = "8:0.75,15:0.5,22:0.25,30:0.125,40:0.0625"
@@ -271,22 +282,24 @@ WIDE_REQUIRED = {
     "ll": ("backward_quad_ll_wide_4d",),
     "llb": ("backward_quad_ll[bf16]", "fused_line_search[bf16]"),
 }
-# K8's objectives against the plain version's, per (lane, step size),
-# relative: the large step sizes' rollouts amplify last-digit state
-# differences through gains of ~1e3 (as K7's do), so by share, as K7's
-# rollouts are gated. K8 against K3 is exact: one shared step.
+# K8's objectives, stashed trajectories and du2 against the plain
+# version's, per (lane, step size), relative (each trajectory to its own
+# largest state): the large step sizes' rollouts amplify last-digit
+# state differences through gains of ~1e3 (as K7's do), so by share, as
+# K7's rollouts are gated. K8 against K3 is exact: one shared candidate
+# pass.
 K8_WITHIN_MIN = 0.99
-# K2 on the wide options' paths and K9 against their plain versions, per
-# lane: a 200-step float32 recursion or rollout leaves a few lanes
-# ill-conditioned, more of them at B=16384 (K2 normwise 8.7e-4 there
-# against 1.4e-5 at B=4096; K9's states 1.2e-4 against 3.6e-5, on an
-# H100). K2's lanes within TOL_K2 of the output's largest value, K9's
-# states within TOL_K3 of the lane's own largest state, each on this
-# share of the lanes; what does not depend on the plain version (the
-# float64 checks at K9's own states, the bit-for-bit checks) keeps its
-# tolerance.
+# K2 on the wide options' paths against its plain version, per lane: a
+# 200-step float32 recursion leaves a few lanes ill-conditioned, more of
+# them at B=16384 (normwise 8.7e-4 there against 1.4e-5 at B=4096, on
+# an H100): lanes within TOL_K2 of the output's largest value on this
+# share of the lanes; the bit-for-bit checks keep their tolerance.
 K2_WITHIN_MIN = 0.999
-K9_WITHIN_MIN = 0.99
+# K9 reads the selected candidate back from K8's stash: given the same
+# stash, its states, controls and du2 equal the plain version's bit for
+# bit, and its Jacobians are held to TOL_K1 as K1's are. The stashed
+# trajectory itself is K8's (above) and is held against float64 at its
+# own states (TOL_K3_SUM, as K3's).
 
 
 def check_device():
@@ -733,7 +746,8 @@ def lane_share(a, b, tol, own_scale=False):
 def wide_counters(K1, K2, K3):
     """Launch counters of the main path's kernels, by name: (wrapper,
     attribute). ``launches_bf16`` counts a wrapper's bfloat16 instances
-    (a share of its ``launches``)."""
+    (a share of its ``launches``), ``launches_by_B`` its launches by the
+    batch size of the call."""
     return {
         "relin_jacobians": (K1.relin_jacobians, "launches"),
         "backward_quad_ll": (K2.backward_quad_ll, "launches"),
@@ -742,18 +756,22 @@ def wide_counters(K1, K2, K3):
         "fused_line_search": (K3.fused_line_search, "launches"),
         "fused_line_search[bf16]": (K3.fused_line_search, "launches_bf16"),
         "wide_objectives": (K3.wide_objectives, "launches"),
+        "wide_objectives[by B]": (K3.wide_objectives, "launches_by_B"),
         "wide_reroll": (K3.wide_reroll, "launches"),
         "wide_reroll[bf16]": (K3.wide_reroll, "launches_bf16"),
+        "wide_reroll[by B]": (K3.wide_reroll, "launches_by_B"),
     }
 
 
 def reset_counters(counters):
+    """Every count to 0 (a count by batch size to {})."""
     for w, attr in counters.values():
-        setattr(w, attr, 0)
+        setattr(w, attr, type(getattr(w, attr))())
 
 
 def read_counters(counters):
-    return {name: getattr(w, attr) for name, (w, attr) in counters.items()}
+    return {name: (lambda v: dict(v) if isinstance(v, dict) else v)(getattr(w, attr))
+            for name, (w, attr) in counters.items()}
 
 
 class wide_io_env:
@@ -975,7 +993,8 @@ def wide_phase(make_solve, params, warm, pool, ref, ref_rate, rows, dt, gate, co
             if name == "llb":
                 success = gate(**v["kw"])
                 counts["llb_gate"] = {k: n - at_solve[k]
-                                      for k, n in read_counters(counters).items()}
+                                      for k, n in read_counters(counters).items()
+                                      if not isinstance(n, dict)}
             if profile and name == "llw":
                 profile_solve(solve, (params, pool[0], ug), "one main-path solve, llw")
         counts[name] = read_counters(counters)
@@ -1081,6 +1100,14 @@ def main(profile=False):
               f"{g['blocks']} blocks; {o['registers']} registers, {o['local_bytes']} local "
               f"bytes; {o['blocks_per_sm']} blocks = "
               f"{o['blocks_per_sm'] * -(-g['threads'] // 32)} warps resident an SM", flush=True)
+    # K8 (K3's geometry) at the shapes check_wide holds it at.
+    for B in (B_SOLVE, B_KERNEL, B_WIDE_LAST):
+        g = K3.fused_geometry(B, 10, _build.sm_count(dev))
+        o = _build.occupancy("ampc_ls_obj_wide_occupancy", 0, g["threads"], dev.index or 0)
+        print(f"[1] K8 llw B={B}: {g['lanes_per_block']} lanes x 10 = {g['threads']} threads, "
+              f"{g['blocks']} blocks; {o['registers']} registers, {o['local_bytes']} local bytes; "
+              f"{o['blocks_per_sm']} blocks = {o['blocks_per_sm'] * -(-g['threads'] // 32)} warps "
+              f"resident an SM", flush=True)
     for tag, widths, ds, dc, B, H_ in (("cheetah", [24, 64, 64, 18], 18, 6, B_HC, H_HC),
                                        ("cheetah closed loop", [24, 64, 64, 18], 18, 6, B_HCQ,
                                         H_HCQ),
@@ -1624,32 +1651,45 @@ def main(profile=False):
             & ((lkb[2] - lpb[2]).abs() <= K3_TIE * lpb[2].abs())
         k3_bf16 = all(bits_equal(a, b) for a, b in zip(lkb[:5] + lkb[6:], lk[:5] + lk[6:])) \
             and bits_equal(lkb[5], lk[5].to(torch.bfloat16))
-        # K8 against its plain version, per (step size, lane), and against
-        # K3: the objective K3 returned is one of K8's, to the bit.
-        ok = K3.wide_objectives(*ls)
-        op = K3.line_search_objectives(*ls)
+        # K8 against its plain version, per (step size, lane): objectives,
+        # stashed trajectories (each to its own largest state) and du2; and
+        # against K3: the objective K3 returned is one of K8's, to the bit.
+        ok, sk, dk = K3.wide_objectives(*ls)
+        op, sp, dp = K3.wide_objectives_plain(*ls)
         fin = torch.isfinite(ok) & torch.isfinite(op)
         e8 = ((ok.double() - op.double()).abs() / op.double().abs().clamp_min(1e-30))[fin]
         err["k8_within"] = (e8 <= TOL_K3).float().mean().item()
+        # Each candidate's stashed states, a column (lane, step size), on
+        # the candidates whose objective is finite in both.
+        traj = lambda st: st[:, :4].permute(0, 1, 3, 2).reshape(-1, Bc * len(alphas))[
+            :, fin.T.reshape(-1)]
+        err["k8_stash_within"] = lane_share(traj(sk), traj(sp), TOL_K3, own_scale=True)
+        ed = ((dk.double() - dp.double()).abs() / dp.double().abs().clamp_min(1e-30))[fin]
+        err["k8_du2_within"] = (ed <= TOL_K3).float().mean().item()
         moved = act & ~lk[4]
         err["k8_k3"] = ((ok - lk[2][None]).abs().amin(0)[moved] == 0).float().mean().item()
-        a_sel, tm, jm, new_obj, succ, fail = K3.wide_accept(ok, alphas, *tail)
-        rr = (terms, c["x0s"], c["xs"], c["us"], KsT, ksT, ca, a_sel, lo, hi, tm, jm)
+        sel, tm, jm, new_obj, succ, fail = K3.wide_accept(ok, alphas, *tail)
+        rr = (terms, c["x0s"], c["xs"], c["us"], ca, sk, dk, sel, tm, jm)
         rk = K3.wide_reroll(*rr, c["jac"])
         rp = K3.wide_reroll_plain(*rr, c["jac"])
         rkb = K3.wide_reroll(*rr, jb)
         rpb = K3.wide_reroll_plain(*rr, jb)
         k9_bf16 = all(bits_equal(rkb[i], rk[i]) for i in (0, 1, 3)) \
             and bits_equal(rkb[2], rk[2].to(torch.bfloat16))
-        err["k9_xs"] = rel_err(rk[0], rp[0])
-        err["k9_within"] = lane_share(rk[0], rp[0], TOL_K3, own_scale=True)
+        # K9 against its plain version on K8's stash: the read-back and du2
+        # bit for bit, the float32 Jacobians as K1's (the bfloat16 ones are
+        # the float32 ones rounded, above).
+        k9_read = all(bits_equal(rk[i], rp[i]) and bits_equal(rkb[i], rpb[i]) for i in (0, 1, 3))
+        err["k9_jac"] = rel_err(rk[2], rp[2])
         held = all(bits_equal(new[..., ~tm], old[..., ~tm]) for new, old in (
             (rk[0], c["xs"]), (rk[1], c["us"]))) and bits_equal(rk[2][..., ~jm], c["jac"][..., ~jm])
-        # float64 at K9's own states: controls at the lane's a_sel, next
-        # states, Jacobians where taken anew, du2, and the objective of
-        # the re-rolled trajectory against K8's chosen one.
+        # float64 at K9's own states (the selected candidate's, as K8
+        # stashed them): controls at the lane's step size, next states,
+        # Jacobians where taken anew, du2, and the objective of the
+        # trajectory against K8's chosen one.
+        a_sel = torch.tensor(alphas, dtype=torch.float64, device=dev)[sel]
         fb = (KsT.double() * (rk[0][:-1].double() - c["xs"][:-1].double())).sum(1)
-        step = a_sel.double()[None] * ksT.double()
+        step = a_sel[None] * ksT.double()
         u64 = (step + c["us"].double() + fb).clamp(lo, hi)
         scale = step.abs() + c["us"].double().abs() + \
             (KsT.double() * (rk[0][:-1].double() - c["xs"][:-1].double())).abs().sum(1)
@@ -1682,36 +1722,52 @@ def main(profile=False):
               f"vs plain {err['k2_bf16']:.3e}, lanes within {TOL_K2} {err['k2_within']:.5f} (min "
               f"{K2_WITHIN_MIN}); 4D entry bit for bit the 3D call: "
               f"{same4}; K3 with a bf16 carry = K3 f32 with its rows rounded: {k3_bf16}; K8 vs "
-              f"plain within {TOL_K3} on {err['k8_within']:.4f} of {int(fin.sum())} candidates "
-              f"(min {K8_WITHIN_MIN}; median {float(e8.median()):.3e}, max {float(e8.max()):.3e}); "
-              f"K3's objective found bit for bit among K8's on {err['k8_k3']:.5f} of the "
-              f"{int(moved.sum())} lanes it moved; K9 vs plain xs {err['k9_xs']:.3e}, lanes within "
-              f"{TOL_K3} of their own scale {err['k9_within']:.5f} (min {K9_WITHIN_MIN}), "
-              f"carry select held {held}, bf16 = f32 rounded {k9_bf16}; vs float64 at K9's states "
-              f"u {err['u']:.3e}, next x {err['x']:.3e} (tol {TOL_K3_SUM}), jac {err['jac']:.3e} "
-              f"(tol {TOL_K1}), du2 {err['du2']:.3e}, re-rolled objective vs K8's {err['obj64']:.3e} "
-              f"(tol {TOL_K3}); split vs K3: decisions agree on {err['split_agree']:.5f} of "
-              f"{int(act.sum())} active lanes (min {K3_AGREE_MIN}), bit for bit on those "
-              f"{split_bits}", flush=True)
+              f"plain within {TOL_K3} on {int(fin.sum())} candidates: objectives "
+              f"{err['k8_within']:.4f} (median {float(e8.median()):.3e}, max "
+              f"{float(e8.max()):.3e}), stashed trajectories {err['k8_stash_within']:.4f}, du2 "
+              f"{err['k8_du2_within']:.4f} (min {K8_WITHIN_MIN}); K3's objective found bit for "
+              f"bit among K8's on {err['k8_k3']:.5f} of the {int(moved.sum())} lanes it moved; K9 "
+              f"vs plain on K8's stash: xs/us/du2 bit for bit {k9_read}, jac {err['k9_jac']:.3e} "
+              f"(tol {TOL_K1}), carry select held {held}, bf16 = f32 rounded {k9_bf16}; vs float64 "
+              f"at K9's states u {err['u']:.3e}, next x {err['x']:.3e} (tol {TOL_K3_SUM}), jac "
+              f"{err['jac']:.3e} (tol {TOL_K1}), du2 {err['du2']:.3e}, objective of the trajectory "
+              f"vs K8's {err['obj64']:.3e} (tol {TOL_K3}); split vs K3: decisions agree on "
+              f"{err['split_agree']:.5f} of {int(act.sum())} active lanes (min {K3_AGREE_MIN}), "
+              f"bit for bit on those {split_bits}", flush=True)
         if err["k2_within"] < K2_WITHIN_MIN or not same4:
             failures.append(f"K2 wide/bf16 ({tag}) within {err['k2_within']:.5f}, 4D == 3D {same4}")
-        if not (k3_bf16 and k9_bf16 and held and split_bits):
-            failures.append(f"bf16/select/split bits ({tag}): K3 {k3_bf16} K9 {k9_bf16} "
-                            f"held {held} split {split_bits}")
-        if err["k8_within"] < K8_WITHIN_MIN or err["k8_k3"] < K3_AGREE_MIN \
-                or err["split_agree"] < K3_AGREE_MIN:
-            failures.append(f"K8/split ({tag}) within {err['k8_within']:.4f} vs K3 "
+        if not (k3_bf16 and k9_bf16 and k9_read and held and split_bits):
+            failures.append(f"bf16/read-back/select/split bits ({tag}): K3 {k3_bf16} K9 {k9_bf16} "
+                            f"read-back {k9_read} held {held} split {split_bits}")
+        if min(err["k8_within"], err["k8_stash_within"], err["k8_du2_within"]) < K8_WITHIN_MIN \
+                or err["k8_k3"] < K3_AGREE_MIN or err["split_agree"] < K3_AGREE_MIN:
+            failures.append(f"K8/split ({tag}) within {err['k8_within']:.4f} stash "
+                            f"{err['k8_stash_within']:.4f} du2 {err['k8_du2_within']:.4f} vs K3 "
                             f"{err['k8_k3']:.5f} agree {err['split_agree']:.5f}")
-        if err["k9_within"] < K9_WITHIN_MIN or max(err["u"], err["x"]) > TOL_K3_SUM \
-                or err["jac"] > TOL_K1 or max(err["du2"], err["obj64"]) > TOL_K3:
-            failures.append(f"K9 ({tag}) xs {err['k9_xs']:.3e} u {err['u']:.3e} x {err['x']:.3e} "
-                            f"jac {err['jac']:.3e} du2 {err['du2']:.3e} obj {err['obj64']:.3e}")
+        if max(err["k9_jac"], err["jac"]) > TOL_K1 or max(err["u"], err["x"]) > TOL_K3_SUM \
+                or max(err["du2"], err["obj64"]) > TOL_K3:
+            failures.append(f"K9 ({tag}) jac vs plain {err['k9_jac']:.3e} u {err['u']:.3e} x "
+                            f"{err['x']:.3e} jac {err['jac']:.3e} du2 {err['du2']:.3e} obj "
+                            f"{err['obj64']:.3e}")
         k2_bytes = n_bytes(c["jac"], c["xs"], c["us"], act, c["Ks"], c["ks"], *bk)
         k2_ops = Bc * Hc * (riccati_flops(4, 1) + 16)
         ls_bytes = n_bytes(c["x0s"], c["xs"], c["us"], KsT, ksT, ca)
         step_ops = len(terms) * 13 + 20
-        k9_ops = Bc * Hc * (step_ops + feature_flops(len(terms), 5, 4))
+        # K8's bound: the function it replaces (pallas_linesearch.py:1129)
+        # reads the carry and returns the (L, B) objectives; the du2 of the
+        # selected candidate only, 3 operations a lane-step. The stash and
+        # the du2 plane are scratch for K9, beside the bound as in
+        # k3_bound. K9's inputs: the old carry, the selected candidate's
+        # rows of the stash and its du2 (H (ds + 1) + 1 floats a lane),
+        # sel and the masks.
+        k8_bound = dict(
+            bound_keys(ls_bytes + n_bytes(ok),
+                       Bc * len(alphas) * Hc * (step_ops + 12) + Bc * Hc * 3),
+            scratch_bytes_ms=n_bytes(sk, dk) / HBM_BYTES_PER_S * 1e3)
+        k9_in = n_bytes(c["x0s"], c["xs"], c["us"], ca, sel, tm, jm) + 4 * Bc * (Hc * 5 + 1)
+        k9_ops = Bc * Hc * feature_flops(len(terms), 5, 4)
         plain = lambda fn: time_ms(fn, reps=plain_reps)
+        split = lambda: K3.fused_line_search_wide(*ls, *tail, c["jac"])
         return {
             "k2_4d": dict(
                 max_abs_err=max(abs_err(a, b) for a, b in zip(b4, bp)),
@@ -1732,22 +1788,26 @@ def main(profile=False):
             "k8": dict(
                 max_abs_err=abs_err(ok[fin], op[fin]),
                 # The whole split entry (K8 + acceptance + K9) and K3 on
-                # the same carry.
-                split_entry_ms=time_ms(lambda: K3.fused_line_search_wide(*ls, *tail, c["jac"])),
+                # the same carry, a call and the kernels' device time.
+                split_entry_ms=time_ms(split), split_entry_device_ms=device_ms(split),
                 fused_k3_ms=time_ms(lambda: K3.fused_line_search(*ls, *tail, c["jac"])),
+                fused_k3_device_ms=device_ms(lambda: K3.fused_line_search(*ls, *tail, c["jac"])),
                 ms=time_ms(lambda: K3.wide_objectives(*ls)),
-                plain_ms=plain(lambda: K3.line_search_objectives(*ls)),
-                **bound_keys(ls_bytes + n_bytes(ok), Bc * len(alphas) * Hc * (step_ops + 12))),
+                device_ms=device_ms(lambda: K3.wide_objectives(*ls)),
+                plain_ms=plain(lambda: K3.wide_objectives_plain(*ls)),
+                **k8_bound),
             "k9": dict(
-                max_abs_err=abs_err(rk[0], rp[0]),
+                max_abs_err=abs_err(rk[2], rp[2]),
                 ms=time_ms(lambda: K3.wide_reroll(*rr, c["jac"])),
+                device_ms=device_ms(lambda: K3.wide_reroll(*rr, c["jac"])),
                 plain_ms=plain(lambda: K3.wide_reroll_plain(*rr, c["jac"])),
-                **bound_keys(ls_bytes + n_bytes(a_sel, tm, jm, c["jac"], *rk), k9_ops)),
+                **bound_keys(k9_in + n_bytes(c["jac"], *rk), k9_ops)),
             "k9_bf16": dict(
-                max_abs_err=abs_err(rkb[0], rpb[0]),
+                max_abs_err=abs_err(rkb[2], rpb[2]),
                 ms=time_ms(lambda: K3.wide_reroll(*rr, jb)),
+                device_ms=device_ms(lambda: K3.wide_reroll(*rr, jb)),
                 plain_ms=plain(lambda: K3.wide_reroll_plain(*rr, jb)),
-                **bound_keys(ls_bytes + n_bytes(a_sel, tm, jm, jb, *rkb), k9_ops)),
+                **bound_keys(k9_in + n_bytes(jb, *rkb), k9_ops)),
         }
 
     # K1-K3 at the main path's shape: the carry after make_carry0 at
@@ -1814,19 +1874,25 @@ def main(profile=False):
                      B_GATE * H_GATE * (riccati_flops(4, 1) + 16)),
     )
 
-    # The wide options' kernels on the main path's carry at B=4096 and,
-    # the shape of the main path's first compaction stage, at B=16384.
+    # The wide options' kernels on the main path's carry at B=4096, at
+    # the main path's first compaction stage, B=16384, and at SCHEDULE's
+    # last, B=1024 (a shape the measured llw solves do not reach).
     wide4 = check_wide("main-path carry", c, diag)
     c16 = make_carry0(model.params, draw_x0(np.random.default_rng(4), B_SOLVE, dev), ug)
     wide16 = check_wide(f"main-path carry B={B_SOLVE}", c16, diag, plain_reps=1)
     del c16
+    c1 = make_carry0(model.params, draw_x0(np.random.default_rng(5), B_WIDE_LAST, dev),
+                     ug[:B_WIDE_LAST])
+    wide1 = check_wide(f"main-path carry B={B_WIDE_LAST}", c1, diag, plain_reps=1)
+    del c1
 
     def wide_row(key, name, source, replaces, n_launches, form="fixed cost", **extra):
-        at16 = dict(wide16[key])
-        at16.pop("library_ms")
+        at = {}
+        for Bw, w in ((B_SOLVE, wide16), (B_WIDE_LAST, wide1)):
+            at[f"at_B{Bw}_H{H}"] = dict(w[key])
+            at[f"at_B{Bw}_H{H}"].pop("library_ms")
         return dict(name=f"{name}[B={B_KERNEL},H={H},{form}]", route="cuda", source=source,
-                    replaces=replaces, launches=n_launches, **wide4[key],
-                    **{f"at_B{B_SOLVE}_H{H}": at16}, **extra)
+                    replaces=replaces, launches=n_launches, **wide4[key], **at, **extra)
 
     k9_bf16 = dict(wide4["k9_bf16"])
     k9_bf16.pop("library_ms")
@@ -1842,14 +1908,18 @@ def main(profile=False):
         wide_row("k3_bf16", "fused_line_search", "autompc_torch/csrc/linesearch_fused.cu",
                  "autompc_tpu/ops/pallas_linesearch.py:803",
                  wide_launches["llb"]["fused_line_search[bf16]"], "fixed cost,bf16 jac"),
+        # llw launches K8 and K9 at every compaction stage of the solve:
+        # ``launches_by_B`` splits the count by the stage's batch size.
         wide_row("k8", "wide_objectives", "autompc_torch/csrc/ls_obj_wide.cu",
                  "autompc_tpu/ops/pallas_linesearch.py:1129",
-                 wide_launches["llw"]["wide_objectives"]),
+                 wide_launches["llw"]["wide_objectives"],
+                 launches_by_B=wide_launches["llw"]["wide_objectives[by B]"]),
         # No path runs K9 on a bfloat16 carry (llw's is float32): its
         # measurement is a key of the row, with no launch count.
         wide_row("k9", "wide_reroll", "autompc_torch/csrc/ls_reroll_wide.cu",
                  "autompc_tpu/ops/pallas_linesearch.py:1200",
-                 wide_launches["llw"]["wide_reroll"], bf16_jac=k9_bf16),
+                 wide_launches["llw"]["wide_reroll"], bf16_jac=k9_bf16,
+                 launches_by_B=wide_launches["llw"]["wide_reroll[by B]"]),
     ]
 
     # K1-K3 at the shape the fan-out gives them: configuration (a)'s
@@ -1935,28 +2005,35 @@ def main(profile=False):
                 r[f"launches_B{B_HC}_H{H_HC}"] = open_launches[key]
                 r[f"at_B{B_HCQ}_H{H_HCQ}"] = {
                     k: v for k, v in cl.items() if k not in ("name", "route", "source", "replaces")}
+    def device_txt(w):
+        return f" (device {w['device_ms']:.4f})" if "device_ms" in w else ""
+
+    def split_txt(w):
+        return (f"split entry (K8 + acceptance + K9) {w['split_entry_ms']:.3f} ms (device "
+                f"{w['split_entry_device_ms']:.4f}), K3 on the same carry {w['fused_k3_ms']:.3f} "
+                f"ms (device {w['fused_k3_device_ms']:.4f})")
+
     for r in report:
-        print(f"    {r['name']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; bytes "
+        print(f"    {r['name']}: kernel {r['ms']:.3f} ms{device_txt(r)}, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; bytes "
               f"{r['bound_bytes_ms']:.4f}, operations {r['bound_ops_ms']:.4f}"
               + (f"; its scratch {r['scratch_bytes_ms']:.4f} ms at the memory rate"
                  if "scratch_bytes_ms" in r else "")
-              + f"), {r['launches']} launches on its path")
+              + f"), {r['launches']} launches on its path"
+              + (f" {r['launches_by_B']} by B" if "launches_by_B" in r else ""))
         if "lane_cost_ms" in r:
             print(f"        with per-lane cost planes at this shape: kernel "
                   f"{r['lane_cost_ms']:.3f} ms (no path launches it so)")
         if "split_entry_ms" in r:
-            print(f"        split entry (K8 + acceptance + K9) {r['split_entry_ms']:.3f} ms, "
-                  f"K3 on the same carry {r['fused_k3_ms']:.3f} ms")
+            print(f"        {split_txt(r)}")
         for key, w in r.items():
             if key.startswith("at_B") or key == "bf16_jac":
-                print(f"        {key}: kernel {w['ms']:.3f} ms, plain "
+                print(f"        {key}: kernel {w['ms']:.3f} ms{device_txt(w)}, plain "
                       f"{w['plain_ms']:.3f} ms, bound {w['bound_ms']:.4f} ms ({w['bound_by']})"
                       + (f", {w['launches']} launches" if "launches" in w else "")
                       + (f"; its scratch {w['scratch_bytes_ms']:.4f} ms"
                          if "scratch_bytes_ms" in w else "")
-                      + (f"; split entry {w['split_entry_ms']:.3f} ms, K3 {w['fused_k3_ms']:.3f} ms"
-                         if "split_entry_ms" in w else ""))
+                      + (f"; {split_txt(w)}" if "split_entry_ms" in w else ""))
 
     if failures:
         raise RuntimeError("kernel check failed: " + "; ".join(failures))

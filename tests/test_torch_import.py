@@ -203,7 +203,7 @@ def test_kernel_shapes_and_mlp_struct_mirror_the_sources():
     assert int(defs["MAX_L"]) == _build.MAX_L
     assert int(defs["TILE"]) == _build.MLP_TILE
     assert int(defs["MAX_THREADS"]) == _build.MLP_MAX_THREADS
-    ls = (_build.CSRC_DIR / "linesearch_fused.cu").read_text()
+    ls = (_build.CSRC_DIR / "ls_step.cuh").read_text()
     assert int(re.search(r"#define AMPC_LS_MAX_THREADS (\d+)", ls)[1]) == \
         _build.LS_MAX_THREADS
     n_int = 1 + (_build.MLP_MAX_LAYERS + 1) + 4

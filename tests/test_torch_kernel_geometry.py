@@ -1,6 +1,7 @@
 """The launch geometry that the wrappers of K2 (lanes-last backward), K3
-(fused line search), K4 (general backward) and K5 (MLP line search)
-choose in Python: every lane, (lane, step size) or product output falls
+(fused line search), K4 (general backward), K5 (MLP line search) and K8
+(the split line search's objective sweep) choose in Python, and K9's
+(its read-back), set in C: every lane, (lane, step size) or product output falls
 to exactly one thread, block slot or tile under the kernels' own index
 arithmetic, the blocks stay within the card's limits, and the wrappers
 refuse, by name and without a card, the shapes the kernels do not take."""
@@ -107,6 +108,54 @@ def test_fused_line_search_refuses_more_than_ten_step_sizes_by_name():
         K3.fused_line_search(*_ls_args(L=_build.MAX_L + 1))
     with pytest.raises(ValueError, match="fused_line_search: 1..10 step sizes"):
         K3.fused_geometry(4096, _build.MAX_L + 1)
+
+
+# The split line search takes B % 1024 == 0 (the TPU's wide tile).
+WIDE_BATCHES = (1024, 4096, 16384)
+
+
+@pytest.mark.parametrize("B", WIDE_BATCHES)
+def test_wide_objectives_launch_covers_every_candidate_once(B):
+    """K8 takes K3's launch: ls_obj_wide.cu's NL = blockDim.x / L,
+    l = threadIdx.x / NL, j = threadIdx.x - l * NL, b = blockIdx.x * NL + j
+    writes objective, du2 and stash column l * B + b: each once."""
+    for L in STEPS:
+        g = K3.fused_geometry(B, L)
+        nl, threads = g["lanes_per_block"], g["threads"]
+        blk, tid = np.divmod(np.arange(g["blocks"] * threads), threads)
+        step = tid // nl
+        lane = blk * nl + tid - step * nl
+        col = (step * B + lane)[lane < B]
+        assert np.array_equal(np.sort(col), np.arange(L * B)), (B, L)
+
+
+def test_wide_objectives_refuses_more_than_ten_step_sizes_by_name():
+    args = _ls_args(B=1024, L=_build.MAX_L + 1)
+    with pytest.raises(ValueError, match="wide_objectives: 1..10 step sizes"):
+        K3.wide_objectives(*args[:15])
+
+
+@pytest.mark.parametrize("H", (1, 10, 200))
+@pytest.mark.parametrize("B", WIDE_BATCHES)
+def test_reroll_geometry_covers_every_step_and_lane_once(B, H):
+    """K9's launch, set in C: ls_reroll_wide.cu's grid of
+    (ceil(B / AMPC_RR_THREADS), H) blocks of AMPC_RR_THREADS threads,
+    t = blockIdx.y, b = blockIdx.x * blockDim.x + threadIdx.x."""
+    import re
+
+    src = (_build.CSRC_DIR / "ls_reroll_wide.cu").read_text()
+    nl = int(re.search(r"#define AMPC_RR_THREADS (\d+)", src)[1])
+    assert nl % 32 == 0 and nl <= 1024
+    assert "grid((unsigned)((B + AMPC_RR_THREADS - 1) / AMPC_RR_THREADS),\n" \
+           "                  (unsigned)H)" in src
+    assert "<<<grid, AMPC_RR_THREADS, 0, s>>>" in src
+    assert "const int t = blockIdx.y;" in src
+    assert "const int b = blockIdx.x * blockDim.x + threadIdx.x;" in src
+    nx = -(-B // nl)
+    blk, tid = np.divmod(np.arange(nx * nl), nl)
+    lanes = np.tile(blk * nl + tid, H)
+    steps = np.repeat(np.arange(H), nx * nl)
+    assert _covered_once(lanes, steps, B, H), (B, H)
 
 
 @pytest.mark.parametrize("widths, ds, dc", [

@@ -1,11 +1,14 @@
 """The split ("wide") line search of ops/cuda_linesearch.py: the plain
-versions of K8 (objective sweep), the acceptance rule and K9 (re-roll +
-relinearization + carry select) against the JAX package's
+versions of K8 (objective sweep with every candidate's trajectory kept
+in a stash), the acceptance rule and K9 (read-back of the selected
+candidate + relinearization + carry select) against the JAX package's
 pallas_fused_line_search_wide in interpret mode, float64, B=1024 (the
 smallest batch it takes), H=10: both cost forms, a float32 and a
 bfloat16 Jacobian carry, every output to 1e-12 and the flags exactly;
-and the port's split search against its own fused plain version to 1e-9,
-as tests/test_lanes_last.py holds the two JAX kernels."""
+each candidate's stashed trajectory and du2 against a plain re-roll at
+its step size; and the port's split search against its own fused plain
+version to 1e-9, as tests/test_lanes_last.py holds the two JAX
+kernels."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -146,18 +149,45 @@ def test_wide_equals_fused_in_port(model, form):
 
 def test_wide_wrappers_on_cpu_take_the_plain_versions(model):
     """K8's and K9's wrappers on CPU tensors are the plain versions, and
-    the entry is objectives + acceptance + re-roll."""
+    the entry is objectives + acceptance + read-back."""
     d = _inputs(43)
     args = _port_args(model, d, "per_lane", torch.bfloat16)
-    objs = K3.wide_objectives(*args[:15])
-    assert tuple(objs.shape) == (len(ALPHAS), B)
-    torch.testing.assert_close(objs, K3.line_search_objectives(*args[:15]), rtol=0, atol=0)
-    a_sel, tmask, jmask, new_obj, succ, fail = K3.wide_accept(
-        objs, ALPHAS, *args[15:20])
-    out = K3.wide_reroll(*args[:7], a_sel, -20.0, 20.0, tmask, jmask, args[20])
+    objs, stash, du2s = K3.wide_objectives(*args[:15])
+    L = len(ALPHAS)
+    assert tuple(objs.shape) == tuple(du2s.shape) == (L, B)
+    assert tuple(stash.shape) == (H, 5, L, B)
+    for got, ref in zip((objs, stash, du2s), K3.wide_objectives_plain(*args[:15])):
+        assert torch.equal(got, ref)
+    assert torch.equal(objs, K3.line_search_objectives(*args[:15]))
+    sel, tmask, jmask, new_obj, succ, fail = K3.wide_accept(objs, ALPHAS, *args[15:20])
+    assert sel.dtype == torch.int64 and bool(((sel >= 0) & (sel < L)).all())
+    out = K3.wide_reroll(*args[:4], args[6], stash, du2s, sel, tmask, jmask, args[20])
     ref = K3.fused_line_search_wide(*args)
     for a, b in zip((out[0], out[1], new_obj, succ, fail, out[2], out[3]), ref):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("form", ["fixed", "per_lane"])
+def test_wide_stash_is_each_step_sizes_reroll(model, form):
+    """Row (t, i < ds, l) of the stash is x_{t+1} and row (t, ds, l) is
+    u_t of step size l rolled again from x0 (the fused plain version's
+    re-roll, K9's old arithmetic, as the witness), and du2's row l is
+    that roll's du2: so K9's read-back is the re-roll of the selected
+    step size, on every lane and for every step size, to 1e-12."""
+    d = _inputs(45, nan_lanes=2)
+    args = _port_args(model, d, form, torch.float64)
+    objs, stash, du2s = K3.wide_objectives_plain(*args[:15])
+    every = torch.ones(B, dtype=torch.bool)
+    for l, a in enumerate(ALPHAS):
+        xs, us, _, du2 = K3.reroll_plain(
+            *args[:7], torch.full((B,), a, dtype=torch.float64), -20.0, 20.0, every,
+            ~every, args[20])
+        for name, g, r in (("x", stash[:, :4, l], xs[1:]), ("u", stash[:, 4, l], us),
+                           ("du2", du2s[l], du2)):
+            np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-12, atol=1e-12,
+                                       err_msg=f"{name}, step size {l}")
+        assert torch.equal(xs[0], args[1])
+    assert torch.isnan(stash[-1, :, :, :2]).any()      # the NaN-gain lanes stay NaN
 
 
 def test_wide_wrapper_validates(model):

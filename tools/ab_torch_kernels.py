@@ -16,12 +16,31 @@ that every checkout computes the same bits:
   dense-cost cartpole MLP 5-64-64-4 at B=4096, H=200; for a tree whose
   wrapper picks its block from the card's SM count (``mlp_geometry``),
   also the block it picks when the whole grid fits on the card at once
-  (``one_wave``) and when it does not (``many_waves``).
+  (``one_wave``) and when it does not (``many_waves``);
+- the kernels that evaluate the feature library (``csrc/features.cuh``),
+  on the main path's carry (the cartpole SINDy model fitted on the CPU
+  from the smoke's data, so that every checkout gets the same
+  coefficients; the carry after the solver's ``make_carry0`` and one
+  backward pass): K8, the split search's objective sweep
+  (``wide_objectives``, fixed and per-lane cost), K9, its read-back or
+  re-roll (``wide_reroll``, float32 and bfloat16 carry), and the whole
+  split entry (``fused_line_search_wide``, both cost forms and carry
+  types) at B=1024, 4096 and 16384, H=200 (the llw solve's compaction
+  stages); K3 (``fused_line_search``) there and at the gate's B=256,
+  H=20 and the fan-out's B=1,024, H=10; K1 (``relin_jacobians``) at the
+  same shapes; K7 (``sindy_line_search``) at the fan-out's shape and
+  B=4096, H=200. Each tree is driven through its own wrappers (the
+  signatures of K8 and K9 differ between trees); K8's digest covers its
+  objectives only, K9's its outputs (xs, us, jac, du2), which every
+  tree computes alike.
 
 The inputs are made from a seed with numpy, so every checkout gets the
 same work.
 
-    python3 tools/ab_torch_kernels.py ROOT [ROOT ...]
+    python3 tools/ab_torch_kernels.py [--only K1,K3,...] ROOT [ROOT ...]
+
+``--only`` keeps the shapes whose tag starts with one of the prefixes
+(K1, K2, K3, K4, K5, K7, K8, K9, split).
 
 Each ROOT is a checkout whose ``autompc_torch`` is imported in a process
 of its own (two trees cannot share one), in the order given, so that
@@ -64,6 +83,24 @@ K5_SHAPES = (
 )
 # SM counts the K5 wrapper is told, so that it takes each of its two blocks.
 BLOCKS = (("one_wave", 10 ** 6), ("many_waves", 1))
+# The feature-library kernels: (tag, kernel, B, H, cost form, Jacobian
+# carry type), grouped by (B, H) so that one carry serves each group.
+WIDE_BH = ((1024, 200), (4096, 200), (16384, 200))
+LS_SHAPES = tuple(sorted(
+    [(f"K8_B{B}_H{H}_{c}", "K8", B, H, c, "f32") for B, H in WIDE_BH for c in ("fixed", "lane")]
+    + [(f"K9_B{B}_H{H}_{j}", "K9", B, H, "fixed", j) for B, H in WIDE_BH for j in ("f32", "bf16")]
+    + [(f"split_B{B}_H{H}_{c}_{j}", "split", B, H, c, j) for B, H in WIDE_BH
+       for c in ("fixed", "lane") for j in ("f32", "bf16")]
+    + [(f"K3_B{B}_H{H}_{c}_{j}", "K3", B, H, c, j) for B, H, c, j in (
+        (1024, 200, "fixed", "f32"), (4096, 200, "fixed", "f32"), (4096, 200, "fixed", "bf16"),
+        (4096, 200, "lane", "f32"), (16384, 200, "fixed", "f32"), (256, 20, "fixed", "f32"),
+        (256, 20, "fixed", "bf16"), (1024, 10, "lane", "f32"))]
+    + [(f"K1_B{B}_H{H}", "K1", B, H, "fixed", "f32")
+       for B, H in ((4096, 200), (16384, 200), (256, 20), (1024, 10))]
+    + [(f"K7_B{B}_H{H}", "K7", B, H, "fixed", "f32") for B, H in ((1024, 10), (4096, 200))],
+    key=lambda r: (r[2], r[3])))
+ALPHAS = tuple(0.2 ** k for k in range(L))
+ALL_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K7", "K8", "K9", "split")
 
 
 def _tensor(a, dev, dtype=None):
@@ -138,6 +175,97 @@ def k5_inputs(widths, ds, dc, B, H, dev):
             tuple(0.2 ** k for k in range(L)), -1.0, 1.0)
 
 
+def ls_model(dev):
+    """The main path's model, cost and solver options: the cartpole
+    SINDy fit (trig + interaction library, data 50 x 100, seed 42) made
+    on the CPU in float64, its coefficients then moved to the card; Q =
+    F = diag(10, .1, .01, .01), R = 0.001."""
+    from autompc_torch.benchmarks import CartpoleSwingupBenchmark
+    from autompc_torch.costs import QuadCost
+    from autompc_torch.sysid import SINDy
+
+    bench = CartpoleSwingupBenchmark()
+    kw = dict(method="lstsq", threshold=1e-3, trig_basis=True, trig_freq=1,
+              trig_interaction=True, time_mode="discrete")
+    fit = SINDy(bench.system, device="cpu", **kw)
+    fit.train(bench.gen_trajs_batch(seed=42, n_trajs=50, traj_len=100, device="cpu"))
+    model = SINDy(bench.system, device=dev, **kw)
+    model.set_parameters(fit.get_parameters())
+    coeffs = fit.coeffs.numpy()
+    active = tuple(int(k) for k in np.flatnonzero(np.any(coeffs != 0, axis=0)))
+    qd = np.diag([10.0, 0.1, 0.01, 0.01])
+    cost = QuadCost(bench.system, qd, 0.001 * np.eye(1), qd, goal=np.zeros(4))
+    bounds = bench.task.get_ctrl_bounds()
+    common = dict(ds=4, dc=1, obsdim=4, dt=bench.system.dt,
+                  ubounds=(bounds[:, 0], bounds[:, 1]), backward="pallas",
+                  feature_spec=(model.library, "coeffs"), fuse_ls=True, lanes_last=True,
+                  feature_mask=active)
+    return model, cost, common, active
+
+
+def ls_carry(model, cost, common, active, B, H, dev):
+    """The lanes-last carry after ``make_carry0`` at (B, H) from x0 drawn
+    from the seed, one backward pass on it (fixed cost), and the line
+    search's arguments under the fixed cost and under per-lane planes
+    (the fan-out's weighting draw)."""
+    import torch
+    from autompc_torch.control import make_batched_ilqr_solver
+    from autompc_torch.ops import cuda_riccati as K2
+
+    _, make_carry0, _, _ = make_batched_ilqr_solver(model.pred_core, cost, H=H,
+                                                    return_pieces=True, **common)
+    rng = np.random.default_rng(SEED)
+    f = model.coeffs.dtype
+    x0 = _tensor(rng.uniform(-1, 1, (B, 4)) * np.array([3.1, 1.0, 1.0, 1.0]), dev, f)
+    c = make_carry0(model.params, x0, x0.new_zeros((B, H, 1)))
+    act = ~c["converged"] & ~c["failed"]
+    fixed = ((10.0, 0.1, 0.01, 0.01), (0.001,), (10.0, 0.1, 0.01, 0.01), (0.0,) * 4)
+    lane = (_tensor(10 ** rng.uniform(-1, 1.5, (4, B)), dev, f),
+            _tensor(10 ** rng.uniform(-3, 0, (1, B)), dev, f),
+            _tensor(10 ** rng.uniform(-1, 1.5, (4, B)), dev, f), (0.0,) * 4)
+    KsT, ksT, lin, quad = K2.backward_quad_ll(c["jac"], c["xs"], c["us"], *fixed, common["dt"],
+                                              4, carry=(act, c["Ks"], c["ks"]))
+    ks_small = torch.sqrt((ksT * ksT).sum(0)) < 1e-3
+    terms = tuple(model.library.terms[k] for k in active)
+    ca = model.coeffs[:, list(active)].contiguous()
+    bounds = common["ubounds"]
+    head = (terms, c["x0s"], c["xs"], c["us"], KsT, ksT, ca, ALPHAS,
+            float(bounds[0][0]), float(bounds[1][0]))
+    ls = {form: head + cost_ + (common["dt"],) for form, cost_ in (("fixed", fixed), ("lane", lane))}
+    jac = {"f32": c["jac"], "bf16": c["jac"].to(torch.bfloat16)}
+    return ls, (c["obj"], lin, quad, ks_small, act), jac
+
+
+def ls_call(kind, ls, tail, jac, K1, K3):
+    """The call that ``kind`` times on one carry: each tree through its
+    own wrappers. K8's digest is of its objectives, K9's of its outputs;
+    K9's inputs (K8's outputs and the acceptance rule's) are made once,
+    in the tree's own signature."""
+    terms, x0T, xsT, usT, KsT, ksT, ca, alphas, lo, hi = ls[:10]
+    if kind == "K8":
+        return lambda: (lambda o: o[0] if isinstance(o, tuple) else o)(K3.wide_objectives(*ls))
+    if kind == "split":
+        return lambda: K3.fused_line_search_wide(*ls, *tail, jac)
+    if kind == "K3":
+        return lambda: K3.fused_line_search(*ls, *tail, jac)
+    if kind == "K1":
+        return lambda: K1.relin_jacobians(terms, xsT, usT, ca)
+    if kind == "K7":
+        bm = (x0T.T.contiguous(), xsT.permute(2, 0, 1).contiguous(),
+              usT.T[:, :, None].contiguous(), KsT.permute(2, 0, 1)[:, :, None].contiguous(),
+              ksT.T[:, :, None].contiguous())
+        return lambda: K3.sindy_line_search(terms, *bm, ca, alphas, lo, hi)
+    out = K3.wide_objectives(*ls)
+    if isinstance(out, tuple):
+        objs, stash, du2s = out
+        sel, tm, jm = K3.wide_accept(objs, alphas, *tail)[:3]
+        args = (terms, x0T, xsT, usT, ca, stash, du2s, sel, tm, jm, jac)
+    else:
+        a_sel, tm, jm = K3.wide_accept(out, alphas, *tail)[:3]
+        args = (terms, x0T, xsT, usT, KsT, ksT, ca, a_sel, lo, hi, tm, jm, jac)
+    return lambda: K3.wide_reroll(*args)
+
+
 def time_ms(fn, reps=20):
     """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events,
     two untimed warm-up runs first)."""
@@ -190,31 +318,55 @@ def digest(outputs):
         for t in outputs)).hexdigest()
 
 
-def time_one(root):
+def time_one(root, only):
     sys.path.insert(0, os.path.abspath(root))
     import torch
+    from autompc_torch.ops import cuda_linesearch as K3
     from autompc_torch.ops import cuda_mlp_linesearch as K5
+    from autompc_torch.ops import cuda_relin as K1
     from autompc_torch.ops import cuda_riccati as K2
     from autompc_torch.ops import cuda_riccati_general as K4
 
     dev = torch.device("cuda", 0)
     out = {"root": root, "card": torch.cuda.get_device_name(0)}
 
+    def wanted(tag):
+        return any(tag.startswith(p) for p in only)
+
     def record(tag, run):
-        out[f"{tag}_sha256"] = digest(run())
+        res = run()
+        out[f"{tag}_sha256"] = digest(res if isinstance(res, tuple) else (res,))
         out[tag] = time_ms(run)
         out[f"{tag}_device_ms"] = device_ms(run)
 
+    shapes = [r for r in LS_SHAPES if wanted(r[0])]
+    if shapes:
+        problem = ls_model(dev)
+    group = None
+    for tag, kind, B, H, form, jt in shapes:
+        if group != (B, H):
+            group, carry = (B, H), None
+            torch.cuda.empty_cache()
+            carry = ls_carry(*problem, B, H, dev)
+        ls, tail, jac = carry
+        record(tag, ls_call(kind, ls[form], tail, jac[jt], K1, K3))
+    carry = None
     for tag, B, H, lane, bf16, d4 in K2_SHAPES:
+        if not wanted(tag):
+            continue
         args = k2_inputs(B, H, lane, bf16, d4, dev)
         fn = K2.backward_quad_ll_wide_4d if d4 else K2.backward_quad_ll
         record(tag, lambda: fn(*args))
         del args
     for tag, ds, dc, B, H in K4_SHAPES:
+        if not wanted(tag):
+            continue
         args = k4_inputs(ds, dc, B, H, dev)
         record(tag, lambda: K4.riccati_general(*args))
         del args
     for tag, widths, ds, dc, B, H in K5_SHAPES:
+        if not wanted(tag):
+            continue
         args = k5_inputs(widths, ds, dc, B, H, dev)
         record(tag, lambda: K5.mlp_line_search(*args))
         if not hasattr(K5, "mlp_geometry"):
@@ -233,8 +385,11 @@ def time_one(root):
 
 
 def main(argv):
+    only = ALL_KERNELS
+    if argv[:1] == ["--only"]:
+        only, argv = tuple(argv[1].split(",")), argv[2:]
     if len(argv) == 2 and argv[0] == "--one":
-        time_one(argv[1])
+        time_one(argv[1], only)
         return 0
     if not argv:
         print(__doc__)
@@ -242,10 +397,12 @@ def main(argv):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60)
     print(card.stdout.strip().splitlines()[0], flush=True)
-    tags = [s[0] for s in K2_SHAPES + K4_SHAPES + K5_SHAPES]
+    tags = [s[0] for s in K2_SHAPES + K4_SHAPES + K5_SHAPES + LS_SHAPES
+            if any(s[0].startswith(p) for p in only)]
     digests = {tag: set() for tag in tags}
     for root in argv:
-        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--only",
+                              ",".join(only), "--one", root],
                              check=True, stdout=subprocess.PIPE, text=True)
         line = run.stdout.strip().splitlines()[-1]
         print(line, flush=True)
@@ -254,7 +411,7 @@ def main(argv):
             keys = [f"{tag}_sha256"] + [f"{tag}_{block}_sha256" for block, _ in BLOCKS]
             digests[tag] |= {out[k] for k in keys if k in out}
     same = {kernel: all(len(d) == 1 for tag, d in digests.items() if tag.startswith(kernel + "_"))
-            for kernel in ("K2", "K4", "K5")}
+            for kernel in only}
     differ = sorted(tag for tag, d in digests.items() if len(d) != 1)
     print(json.dumps({"same_outputs_bit_for_bit": all(same.values()), **same, "differ": differ}),
           flush=True)
