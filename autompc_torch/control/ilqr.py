@@ -41,7 +41,7 @@ kernel ``ops/cuda_linesearch.py::sindy_line_search``; ``mlp_ls``: the
 kernel of ``ops/cuda_mlp_linesearch.py``; neither: a batched loop over H
 through ``pred_core``), evaluates the L objectives and applies the
 acceptance rule in tensor ops, and relinearizes the chosen trajectory
-(``feature_spec``: ``ops/cuda_relin.py`` behind a layout adapter; else
+(``feature_spec``: ``ops/cuda_relin.py``'s batch-major entry; else
 ``pred_diff``).
 
 Both loops read the active-lane count on the host once per iteration.
@@ -58,7 +58,7 @@ import torch
 from ..ops._build import WIDE_B
 from ..ops.cuda_linesearch import fused_line_search, fused_line_search_wide, sindy_line_search
 from ..ops.cuda_mlp_linesearch import fold_mlp_params, mlp_line_search
-from ..ops.cuda_relin import relin_jacobians
+from ..ops.cuda_relin import relin_jacobians, relin_jacobians_bm
 from ..ops.cuda_riccati import backward_quad, backward_quad_ll
 from ..ops.cuda_riccati_general import riccati_general
 from ..ops.riccati import tvlqr_backward_scan
@@ -405,15 +405,9 @@ def make_batched_ilqr_solver(
             if feature_spec is None:
                 _, Jx, Ju = pred_diff(params, xs[:, :H], us)
                 return Jx, Ju
-            # The relinearization kernel speaks the lanes-last layout:
-            # permute in, unpack its packed rows i*(ds+1)+dd out.
-            B = xs.shape[0]
-            jac = relin_jacobians(
-                terms, xs.permute(1, 2, 0).contiguous(),
-                us[:, :, 0].T.contiguous(), active_coeffs(params),
+            return relin_jacobians_bm(
+                terms, xs.contiguous(), us.contiguous(), active_coeffs(params)
             )
-            jac = jac.reshape(H, ds, ds + 1, B).permute(3, 0, 1, 2)
-            return jac[..., :ds].contiguous(), jac[..., ds:].contiguous()
 
         def lane_expansions(xs, us, cp):
             """``expansions`` for per-lane diagonal costs."""

@@ -21,6 +21,13 @@
 // by the one-bits of n from the newest (lowest bit) to the oldest.
 // tests/test_torch_basis.py checks the grouping against _tree_sum.
 //
+// A column dd of the Jacobian sums only the terms whose partial in z_dd
+// is not structurally zero (ampc_term_partial's test, which depends on
+// the table alone): the host lists them once per table (col_n,
+// col_terms; ops/_build.py: feat_table), in term order, so a column walks
+// its own terms and pushes them with consecutive indices, as the walk
+// over the whole table with the test did.
+//
 // The term loops (ampc_dynamics, ampc_jac_col) push with a run-time k,
 // for which TreeAcc::push walks all seven slots in predicated code for
 // every one of the ds sums (~500 SASS instructions a term at ds = 4, on
@@ -46,6 +53,10 @@ struct FeatTable {
   signed char kind[AMPC_MAX_F];  // 0 none, 1 sin, 2 cos
   signed char comp[AMPC_MAX_F];  // trig component
   float freq[AMPC_MAX_F];
+  // Per Jacobian column dd < d: the col_n[dd] terms with a nonzero
+  // partial in z_dd, in term order.
+  signed char col_n[AMPC_MAX_D];
+  signed char col_terms[AMPC_MAX_D][AMPC_MAX_F];
 };
 
 struct TreeAcc {
@@ -112,15 +123,11 @@ __device__ __forceinline__ void ampc_tree_close(TreeAcc (&acc)[N],
   }
 }
 
-// Push term k into N trees at once: tree i receives coef[i * stride] * v
-// where TreeAcc::push(coef[i * stride] * v, k) would place it (k < 127).
+// Push the k-th summand of each of N trees at once: tree i receives
+// carry[i] where TreeAcc::push(carry[i], k) would place it (k < 127).
 template <int N>
-__device__ __forceinline__ void ampc_tree_push(TreeAcc (&acc)[N],
-                                               const float* coef, int stride,
-                                               float v, int k) {
-  float carry[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) carry[i] = __fmul_rn(coef[i * stride], v);
+__device__ __forceinline__ void ampc_tree_push_carry(TreeAcc (&acc)[N],
+                                                     float (&carry)[N], int k) {
   switch (__ffs(~k) - 1) {  // trailing one-bits of k
     case 0: ampc_tree_close<0>(acc, carry); break;
     case 1: ampc_tree_close<1>(acc, carry); break;
@@ -130,6 +137,18 @@ __device__ __forceinline__ void ampc_tree_push(TreeAcc (&acc)[N],
     case 5: ampc_tree_close<5>(acc, carry); break;
     default: ampc_tree_close<6>(acc, carry); break;
   }
+}
+
+// Push term k into N trees at once: tree i receives coef[i * stride] * v
+// where TreeAcc::push(coef[i * stride] * v, k) would place it (k < 127).
+template <int N>
+__device__ __forceinline__ void ampc_tree_push(TreeAcc (&acc)[N],
+                                               const float* coef, int stride,
+                                               float v, int k) {
+  float carry[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) carry[i] = __fmul_rn(coef[i * stride], v);
+  ampc_tree_push_carry<N>(acc, carry, k);
 }
 
 template <int D>
@@ -229,40 +248,22 @@ __device__ __forceinline__ void ampc_dynamics(const FeatTable& T,
 }
 
 // Column dd of the packed Jacobian at z: col[i] = d x'_i / d z_dd, summed
-// over the terms with a nonzero partial only (0 if none touches z_dd).
+// over the column's listed terms (0 if none touches z_dd).
 template <int DS, int D>
 __device__ __forceinline__ void ampc_jac_col(const FeatTable& T,
                                              const float* coef,
                                              const float (&z)[D], int dd,
                                              float (&col)[DS]) {
-  const int n = T.n;
+  const int n = T.n, m = T.col_n[dd];
   TreeAcc acc[DS];
-  int cnt = 0;
-  for (int k = 0; k < n; ++k) {
+  for (int j = 0; j < m; ++j) {
+    const int k = T.col_terms[dd][j];
     float g;
-    if (ampc_term_partial<D>(T, k, dd, z, g)) {
-      ampc_tree_push<DS>(acc, coef + k, n, g, cnt);
-      ++cnt;
-    }
+    ampc_term_partial<D>(T, k, dd, z, g);  // listed: never structurally 0
+    ampc_tree_push<DS>(acc, coef + k, n, g, j);
   }
 #pragma unroll
-  for (int i = 0; i < DS; ++i) col[i] = acc[i].total(cnt);
-}
-
-// Packed Jacobian rows at z: rows[i*D + dd] = d x'_i / d z_dd, column by
-// column (ampc_jac_col).
-template <int DS, int D>
-__device__ __forceinline__ void ampc_jac_rows(const FeatTable& T,
-                                              const float* coef,
-                                              const float (&z)[D],
-                                              float (&rows)[DS * D]) {
-#pragma unroll
-  for (int dd = 0; dd < D; ++dd) {
-    float col[DS];
-    ampc_jac_col<DS, D>(T, coef, z, dd, col);
-#pragma unroll
-    for (int i = 0; i < DS; ++i) rows[i * D + dd] = col[i];
-  }
+  for (int i = 0; i < DS; ++i) col[i] = acc[i].total(m);
 }
 
 // Block-wide copy of the (DS, n) coefficient plane into shared memory.

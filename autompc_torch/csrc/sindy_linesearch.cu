@@ -5,7 +5,7 @@
 //
 // Replaces the Pallas TPU kernel autompc_tpu/ops/pallas_linesearch.py:
 // _ls_kernel (entry pallas_sindy_line_search) with one shared (ds, F)
-// coefficient plane. Per (lane b, step size l):
+// coefficient plane. Per candidate (lane b, step size l):
 //   x_0 = x0[b];  for t < H:
 //     u_t = clip(alpha_l k_t + ubar_t + K_t (x_t - xbar_t)),
 //     x_{t+1} = coeffs @ features([x_t, u_t]),
@@ -15,25 +15,60 @@
 // (the same pairing as _ls_kernel's tree_sum). The clip is written with
 // comparisons so that a NaN control (NaN gains) stays NaN.
 //
-// Design: B x L independent chains of H dependent steps, one thread per
-// (lane, step size), the L threads of a lane adjacent so that they read
-// the lane's carry rows (xbar, K, ubar, k: 40 bytes a step at ds=4) from
-// the same sectors. Inputs are read in place from the batch-major carry
-// and each thread writes its own rows of the (B, L, H+1, ds) and
-// (B, L, H, 1) outputs; the TPU wrapper's seven transposes have no
-// counterpart. Term table in the constant bank (__grid_constant__),
-// coefficient plane in shared memory.
+// Design: a group of G threads a candidate (G = 8, or 4 where the batch
+// fills the card: ops/cuda_linesearch.py: sindy_geometry),
+// the groups of one lane's L candidates adjacent. A step: every thread of
+// the group computes the control u (the same arithmetic, so the same
+// value); the active terms are taken in rounds of G consecutive terms,
+// thread g evaluating term r G + g and its ds products coef[i][k] * term;
+// each output's products are summed across the group by a butterfly of
+// __shfl_xor_sync (log2 G levels, a block added only where it holds a
+// term), which leaves every thread with the round's sums; the sums of
+// complete rounds are pushed into a counter tree over rounds, and the
+// last, partial round's sum opens the final fold. That is the pairing of
+// the balanced tree over all terms (features.cuh: TreeAcc): the butterfly
+// sums aligned blocks of 2^l consecutive terms, earlier with later, and a
+// partial block is the fold of its own aligned blocks, newest first
+// (tests/test_torch_basis.py holds a model of it against tree_sum for up
+// to 64 terms). Against one thread a candidate (the earlier design), where
+// a step evaluated every term and pushed it into ds trees in turn, the
+// dependent chain of a step is one term evaluation and log2 G levels of
+// shuffles (all terms at once for n <= G), and a batch runs G times as
+// many threads: the fan-out's B = 1,024 ... 128 candidates' 10,240 ...
+// 1,280 threads filled at most ~2 warps an SM. The threads of a group read
+// different terms at once, so the term table is copied to shared memory
+// (the constant bank serializes different addresses in a warp), each term
+// decoded once a block into one word (sls_term_desc: the monomial's
+// components, read without the powers where every power is 1). The lane's
+// carry rows are loaded a step ahead. Thread 0 of a group writes each
+// state row as one 16-byte store. Inputs are read in place from the
+// batch-major carry; the TPU wrapper's seven transposes have no
+// counterpart.
 //
-// What bounds it on an H100: by bytes it should be the written
-// trajectories (L (ds + 1) floats a lane-step); in fact, as for the fused
-// kernel, the chain of H steps of sinf/cosf terms per thread, with B x L
-// threads to hide it behind (ten times the fused kernel's thread count at
-// the same batch). Measured on an H100 (700 W) at B=4096, H=200, L=10,
-// seven active terms: 1.37 ms, against 10.6 ms for the fused kernel, which
-// rolls the same ten chains (and one more) in one thread.
+// Bits: each output's sum adds the same products (__fmul_rn) in the same
+// pairs (__fadd_rn; an addition's two operands in either order give the
+// same bits), with the same sinf/cosf, and the control is computed with
+// the rounding that the one-thread kernel compiled to (its SASS: the
+// second feedback product rounded, the first fused into their sum, one
+// FMA for each further component, alpha k + ubar fused, then one add),
+// pinned with intrinsics so that no contraction choice of the compiler
+// can move it. So every G gives the same outputs, and the one-thread
+// kernel's (tools/ab_torch_kernels.py compares the digests).
+//
+// What bounds it on an H100: by bytes, the written trajectories (L (ds+1)
+// floats a lane-step: 0.0008 ms at the fan-out's B=1,024, H=10, 0.0589 ms
+// at B=4096, H=200); in fact the chain of H dependent steps of each
+// candidate, hidden behind B x L x G threads. Measured
+// (tools/ab_torch_kernels.py, device time, NVIDIA H100 80GB HBM3 at
+// 700 W): 0.0151 ms at B=1,024, H=10 (G=8), 0.0114, 0.0103 and
+// 0.0095-0.0099 at B=512, 256 and 128; 0.591 ms at B=4096, H=200 (G=4),
+// 10x the byte bound. The one-thread kernel took 0.0329, 0.0297, 0.0294,
+// 0.0294 and 0.953 ms there.
 #include "features.cuh"
 
 #define AMPC_MAX_L 10
+// Most threads a block the entry takes (the wrapper launches SINDY_THREADS).
+#define AMPC_SLS_MAX_THREADS 256
 
 struct SindyLS {
   int L;
@@ -41,7 +76,60 @@ struct SindyLS {
   float umin, umax;
 };
 
-template <int DS>
+// The term table into shared memory, word by word (sizeof(FeatTable) is a
+// multiple of 4).
+__device__ __forceinline__ void sls_load_table(FeatTable* dst,
+                                               const FeatTable& src) {
+  const int* s = reinterpret_cast<const int*>(&src);
+  int* d = reinterpret_cast<int*>(dst);
+  for (int i = threadIdx.x; i < (int)(sizeof(FeatTable) / 4); i += blockDim.x)
+    d[i] = s[i];
+}
+
+// A term in one word, decoded once a block: bits 0-7 the components with
+// a power (mask), bit 8 set if every power is 1, bits 9-10 the kind, bits
+// 11-13 the trig component.
+template <int D>
+__device__ __forceinline__ unsigned sls_term_desc(const FeatTable& T, int k) {
+  unsigned mask = 0, ones = 1;
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    const int e = T.exps[k][c];
+    if (e > 0) mask |= 1u << c;
+    if (e > 1) ones = 0;
+  }
+  return mask | ones << 8 | (unsigned)T.kind[k] << 9 | (unsigned)T.comp[k] << 11;
+}
+
+// ampc_term_value from the decoded word: where every power is 1 the
+// monomial is the product of its components in component order, which is
+// what ampc_monomial computes (ampc_ipow(x, 1) = x), without reading the
+// powers; the same product, trig factor and roundings.
+template <int D>
+__device__ __forceinline__ float sls_term_value(const FeatTable& T, int k,
+                                                unsigned desc,
+                                                const float (&z)[D]) {
+  float mono = 1.f;
+  bool hm = false;
+  if (desc & 256u) {
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      if ((desc >> c) & 1u) {
+        mono = hm ? mono * z[c] : z[c];
+        hm = true;
+      }
+    }
+  } else {
+    hm = ampc_monomial<D>(T, k, z, -1, mono);
+  }
+  const int kind = (desc >> 9) & 3u;
+  if (kind == 0) return mono;
+  const float a = T.freq[k] * ampc_select<D>(z, (int)((desc >> 11) & 7u));
+  const float tv = (kind == 1) ? sinf(a) : cosf(a);
+  return hm ? mono * tv : tv;
+}
+
+template <int DS, int G>
 __global__ void sindy_ls_kernel(
     const __grid_constant__ FeatTable T, const __grid_constant__ SindyLS P,
     const float* __restrict__ coeffs, const float* __restrict__ x0,
@@ -49,58 +137,140 @@ __global__ void sindy_ls_kernel(
     const float* __restrict__ Ks, const float* __restrict__ ks,
     float* __restrict__ out_xs, float* __restrict__ out_us, int H, int B) {
   constexpr int D = DS + 1;
+  static_assert(G >= 2 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two");
+  static_assert(DS == 4, "a state row is one float4 store");
+  __shared__ FeatTable sT;
   __shared__ float s_coef[DS * AMPC_MAX_F];
-  ampc_load_coef(s_coef, coeffs, DS * T.n);
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)B * P.L) return;
-  const int b = (int)(idx / P.L);
-  const int l = (int)(idx - (long long)b * P.L);
-  const float alpha = P.alphas[l];
+  __shared__ unsigned s_desc[AMPC_MAX_F];
+  sls_load_table(&sT, T);
+  for (int k = threadIdx.x; k < T.n; k += blockDim.x)
+    s_desc[k] = sls_term_desc<D>(T, k);
+  ampc_load_coef(s_coef, coeffs, DS * T.n);  // ends with __syncthreads
+
+  // Candidate c = b * L + l; a tail group past the last candidate repeats
+  // it (its shuffles must run) and stores nothing.
+  const int g = (int)(threadIdx.x % G);
+  const long long nc = (long long)B * P.L;
+  const long long cr = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  const bool valid = cr < nc;
+  const long long c = valid ? cr : nc - 1;
+  const int b = (int)(c / P.L);
+  const float alpha = P.alphas[c - (long long)b * P.L];
+  const int n = T.n, full = n / G, part = n - full * G;
+  const bool store = valid && g == 0;
 
   float x[DS];
-  float* oxs = out_xs + idx * (H + 1) * DS;
-  float* ous = out_us + idx * H;
 #pragma unroll
-  for (int i = 0; i < DS; ++i) {
-    x[i] = x0[(long long)b * DS + i];
-    oxs[i] = x[i];
-  }
-  const float* xbar_row = xs + (long long)b * (H + 1) * DS;
+  for (int i = 0; i < DS; ++i) x[i] = x0[(long long)b * DS + i];
+  float4* oxs = reinterpret_cast<float4*>(out_xs + c * (H + 1) * DS);
+  float* ous = out_us + c * H;
+  if (store) oxs[0] = make_float4(x[0], x[1], x[2], x[3]);
+  // The lane's carry rows of step t (gains, nominal state, nominal and
+  // feedforward control) are loaded a step ahead, off the chain.
+  const float4* Krow = reinterpret_cast<const float4*>(Ks + (long long)b * H * DS);
+  const float4* xrow = reinterpret_cast<const float4*>(xs + (long long)b * (H + 1) * DS);
+  const float* ksb = ks + (long long)b * H;
+  const float* usb = us + (long long)b * H;
+  float4 Kn = Krow[0], xbn = xrow[0];
+  float ksn = ksb[0], usn = usb[0];
   for (int t = 0; t < H; ++t) {
-    const long long bt = (long long)b * H + t;
-    float fb = 0.f;
-#pragma unroll
-    for (int i = 0; i < DS; ++i) {
-      const float term = Ks[bt * DS + i] * (x[i] - xbar_row[t * DS + i]);
-      fb = i == 0 ? term : fb + term;
+    const float4 Kc = Kn, xbc = xbn;
+    const float ksc = ksn, usc = usn;
+    if (t + 1 < H) {
+      Kn = Krow[t + 1];
+      xbn = xrow[t + 1];
+      ksn = ksb[t + 1];
+      usn = usb[t + 1];
     }
-    float u = alpha * ks[bt] + us[bt] + fb;
+    float fb = __fmaf_rn(Kc.x, __fsub_rn(x[0], xbc.x),
+                         __fmul_rn(Kc.y, __fsub_rn(x[1], xbc.y)));
+    fb = __fmaf_rn(Kc.z, __fsub_rn(x[2], xbc.z), fb);
+    fb = __fmaf_rn(Kc.w, __fsub_rn(x[3], xbc.w), fb);
+    float u = __fadd_rn(__fmaf_rn(alpha, ksc, usc), fb);
     u = u < P.umin ? P.umin : (u > P.umax ? P.umax : u);
     float z[D];
 #pragma unroll
     for (int i = 0; i < DS; ++i) z[i] = x[i];
     z[DS] = u;
-    ampc_dynamics<DS, D>(T, s_coef, z, x);
+
+    TreeAcc acc[DS];  // over complete rounds (blocks of G terms)
+    float sum[DS];
+    for (int r = 0; r * G < n; ++r) {
+      const int cnt = r < full ? G : part;  // terms in this round
+      const int k = r * G + (g < cnt ? g : 0);
+      const float v = g < cnt ? sls_term_value<D>(sT, k, s_desc[k], z) : 0.f;
 #pragma unroll
-    for (int i = 0; i < DS; ++i) oxs[(t + 1) * DS + i] = x[i];
-    ous[t] = u;
+      for (int i = 0; i < DS; ++i) sum[i] = __fmul_rn(s_coef[i * n + k], v);
+#pragma unroll
+      for (int l = 1; l < G; l <<= 1) {
+        const int own = g & ~(l - 1);  // this thread's block of l terms
+        const bool has_own = own < cnt, has_other = (own ^ l) < cnt;
+#pragma unroll
+        for (int i = 0; i < DS; ++i) {
+          const float o = __shfl_xor_sync(0xffffffffu, sum[i], l, G);
+          sum[i] = has_own ? (has_other ? __fadd_rn(sum[i], o) : sum[i]) : o;
+        }
+      }
+      if (r < full) ampc_tree_push_carry<DS>(acc, sum, r);
+    }
+#pragma unroll
+    for (int i = 0; i < DS; ++i) {
+      if (part == 0) {
+        x[i] = acc[i].total(full);
+      } else {
+        float s2 = sum[i];
+#pragma unroll
+        for (int l = 0; l < AMPC_TREE_SLOTS; ++l)
+          if ((full >> l) & 1) s2 = __fadd_rn(acc[i].slot[l], s2);
+        x[i] = s2;
+      }
+    }
+    if (store) {
+      oxs[t + 1] = make_float4(x[0], x[1], x[2], x[3]);
+      ous[t] = u;
+    }
   }
 }
 
+template <int G>
+static void sls_launch(const FeatTable* T, const SindyLS* P,
+                       const float* coeffs, const float* x0, const float* xs,
+                       const float* us, const float* Ks, const float* ks,
+                       float* out_xs, float* out_us, int H, int B,
+                       int threads, cudaStream_t s) {
+  const long long n = (long long)B * P->L * G;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  sindy_ls_kernel<4, G><<<blocks, threads, 0, s>>>(
+      *T, *P, coeffs, x0, xs, us, Ks, ks, out_xs, out_us, H, B);
+}
+
+// A grid of ceil(B L G / threads) blocks of `threads` threads (a multiple
+// of 32, at most AMPC_SLS_MAX_THREADS); thread tid of block bx is thread
+// g = tid % G of candidate c = (bx * threads + tid) / G, lane c / L, step
+// size c % L, for G = group in {4, 8}.
 extern "C" int ampc_sindy_line_search(
     const FeatTable* T, const SindyLS* P, const float* coeffs,
     const float* x0, const float* xs, const float* us, const float* Ks,
     const float* ks, float* out_xs, float* out_us, int ds, int H, int B,
-    int device, void* stream) {
+    int group, int threads, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (ds != 4 || T->d != ds + 1 || T->n < 1 || T->n > AMPC_MAX_F ||
-      P->L < 1 || P->L > AMPC_MAX_L)
+      P->L < 1 || P->L > AMPC_MAX_L || B < 1 || H < 1 || threads < 32 ||
+      threads > AMPC_SLS_MAX_THREADS || threads % 32)
     return (int)cudaErrorInvalidValue;
-  const int threads = 64;
-  const long long n = (long long)B * P->L;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  sindy_ls_kernel<4><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      *T, *P, coeffs, x0, xs, us, Ks, ks, out_xs, out_us, H, B);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (group) {
+    case 4:
+      sls_launch<4>(T, P, coeffs, x0, xs, us, Ks, ks, out_xs, out_us, H, B,
+                    threads, s);
+      break;
+    case 8:
+      sls_launch<8>(T, P, coeffs, x0, xs, us, Ks, ks, out_xs, out_us, H, B,
+                    threads, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -95,6 +95,8 @@ class FeatTable(ctypes.Structure):
         ("kind", ctypes.c_int8 * MAX_F),
         ("comp", ctypes.c_int8 * MAX_F),
         ("freq", ctypes.c_float * MAX_F),
+        ("col_n", ctypes.c_int8 * MAX_D),
+        ("col_terms", (ctypes.c_int8 * MAX_F) * MAX_D),
     ]
 
 
@@ -152,7 +154,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "ampc_relin_jacobians": (
-        [ctypes.POINTER(FeatTable), _P, _P, _P, _P, _I, _I, _I, _I, _P]
+        [ctypes.POINTER(FeatTable), _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    ),
+    "ampc_relin_jacobians_bm": (
+        [ctypes.POINTER(FeatTable), _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     ),
     "ampc_backward_quad_ll": (
         [ctypes.POINTER(QuadDiag)] + [_P] * 14 + [_I] * 6 + [_P]
@@ -175,7 +180,7 @@ _SIGNATURES = {
     ),
     "ampc_sindy_line_search": (
         [ctypes.POINTER(FeatTable), ctypes.POINTER(SindyLS)]
-        + [_P] * 8 + [_I, _I, _I, _I, _P]
+        + [_P] * 8 + [_I] * 6 + [_P]
     ),
     "ampc_riccati_general": [_P] * 12 + [_I] * 7 + [_P],
     "ampc_mlp_line_search": (
@@ -294,7 +299,23 @@ def feat_table(terms) -> FeatTable:
         tab.kind[k] = kinds[t.trig]
         tab.comp[k] = max(int(t.trig_comp), 0)
         tab.freq[k] = float(t.freq)
+    for c, ks in enumerate(jacobian_columns(terms)):
+        tab.col_n[c] = len(ks)
+        for j, k in enumerate(ks):
+            tab.col_terms[c][j] = k
     return tab
+
+
+def jacobian_columns(terms):
+    """Per input component c, the indices of the terms whose partial in
+    z_c is not structurally zero, in term order: the lists the Jacobian
+    columns walk (csrc/features.cuh: ampc_jac_col). A term's partial is
+    structurally zero where it has no power of z_c and no trig factor of
+    z_c (ampc_term_partial's test)."""
+    d = len(terms[0].exps)
+    return [[k for k, t in enumerate(terms)
+             if int(t.exps[c]) != 0 or (t.trig != "" and max(int(t.trig_comp), 0) == c)]
+            for c in range(d)]
 
 
 @functools.lru_cache(maxsize=None)

@@ -33,7 +33,9 @@ roll to the bit. K8's candidate pass is K3's (``csrc/ls_step.cuh``).
 ``sindy_line_search`` (K7, ``pallas_sindy_line_search``; kernel in
 ``csrc/sindy_linesearch.cu``): the unfused form on the batch-major
 carry, which rolls out every step size and returns all L trajectories;
-the objective and the choice are the caller's.
+the objective and the choice are the caller's. A group of threads
+(``sindy_geometry``: 8, or 4 from B=2048) rolls each candidate, the
+feature terms summed across the group by shuffles.
 
 The GaussReg term (``reg=``) and per-lane coefficients are not ported
 yet (ROADMAP.md §A 7a).
@@ -325,6 +327,35 @@ def fused_geometry(B, L, n_sm=_build.H100_SMS):
     most = max(busy(n) for n in fits)
     nl = max(n for n in fits if busy(n) == most)
     return dict(lanes_per_block=nl, threads=nl * L, blocks=-(-B // nl))
+
+
+# K7's threads a candidate: 8 below SINDY_G4_FROM lanes, 4 from there. At
+# the fan-out's batches (B <= 1,024, H=10) the card is short of warps and
+# eight threads sum the cartpole model's 7 active terms in one round; at
+# B=4096, H=200 the chains fill it and a group of four, with fewer
+# threads repeating the control and the shuffles, takes 0.59 ms against
+# 0.83 for eight (tools/ab_torch_kernels.py on an H100, 700 W; PERF.md).
+SINDY_G4_FROM = 2048
+# The groups csrc/sindy_linesearch.cu is instantiated for.
+SINDY_GROUPS = (4, 8)
+# Threads a K7 block (16 or 32 candidates), at most
+# csrc/sindy_linesearch.cu's AMPC_SLS_MAX_THREADS: small enough that the
+# fan-out's smallest batch (B=128) still spreads over 80 blocks.
+SINDY_THREADS = 128
+
+
+def sindy_geometry(B, L):
+    """K7's launch: ``group`` threads a candidate (lane b, step size l),
+    ``threads`` a block, ``blocks`` of them: thread ``tid`` of block
+    ``bx`` is thread ``g = tid % group`` of candidate ``c = (bx * threads
+    + tid) // group``, ``b = c // L``, ``l = c % L``. Every group computes
+    the same bits."""
+    if not 1 <= L <= _build.MAX_L:
+        raise ValueError(f"sindy_line_search: 1..{_build.MAX_L} step sizes supported, "
+                         f"got {L}")
+    group = 8 if B < SINDY_G4_FROM else 4
+    return dict(group=group, threads=SINDY_THREADS,
+                blocks=-(-(B * L * group) // SINDY_THREADS))
 
 
 def _ls_params(alphas, umin, umax, qd, rd, fd, goal, dt, thresh, lane):
@@ -640,7 +671,12 @@ def sindy_line_search(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax):
         ("coeffs", coeffs, (ds, len(terms))),
     ):
         _build.check_cuda(name, t, shape, f32, dev)
+    for name, t in (("xs", xs), ("Ks", Ks)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads 16-byte rows; its "
+                             "storage must start on a 16-byte boundary")
     L = len(alphas)
+    geo = sindy_geometry(B, L)
     P = _build.SindyLS()
     P.L = L
     for l, a in enumerate(alphas):
@@ -652,11 +688,13 @@ def sindy_line_search(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax):
     rc = _build.library().ampc_sindy_line_search(
         ctypes.byref(_build.feat_table(tuple(terms))), ctypes.byref(P),
         p(coeffs), p(x0), p(xs), p(us), p(Ks), p(ks), p(ls_xs), p(ls_us),
-        ds, H, B, dev.index or 0, _build.stream_of(xs),
+        ds, H, B, geo["group"], geo["threads"], dev.index or 0, _build.stream_of(xs),
     )
     _build.check_rc("sindy_line_search", rc)
     sindy_line_search.launches += 1
+    sindy_line_search.launches_by_B[B] = sindy_line_search.launches_by_B.get(B, 0) + 1
     return ls_xs, ls_us
 
 
 sindy_line_search.launches = 0
+sindy_line_search.launches_by_B = {}

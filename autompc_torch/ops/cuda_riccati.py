@@ -415,7 +415,9 @@ def backward_quad(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, dt, obsdim):
     )
     _build.check_rc("backward_quad", rc)
     backward_quad.launches += 1
+    backward_quad.launches_by_B[B] = backward_quad.launches_by_B.get(B, 0) + 1
     return Ks, ks, lin, quad
 
 
 backward_quad.launches = 0
+backward_quad.launches_by_B = {}

@@ -10,7 +10,7 @@ Phases (each raises on failure, so the exit code is non-zero):
 1. build: compile (or load) the CUDA kernels from ``autompc_torch/csrc``;
    print every kernel's registers and spills (the ptxas log) and, for K3,
    K5 and K8, the block shape and resident warps an SM at each shape
-   their paths launch (the CUDA occupancy query), for K2, K4 and K9 the
+   their paths launch (the CUDA occupancy query), for K2, K4 and K7 the
    geometry their wrappers choose there;
 2. data + fit: cartpole swing-up data (50 x 100, seed 42, a
    torch.Generator on the card) and the SINDy fit (trig + interaction
@@ -35,8 +35,9 @@ Phases (each raises on failure, so the exit code is non-zero):
    50 closed-loop steps, compaction ``4:0.5,8:0.25,14:0.125``), once
    per solver configuration: (a) the lanes-last fused body with per-lane
    cost planes, (b) the batch-major body with the inline-expansion
-   backward kernel and the rollout line-search kernel; one warm call and
-   3 timed calls each, evals/s printed; every score finite or inf; and
+   backward kernel, the rollout line-search kernel and the batch-major
+   relinearization entry; one warm call and 3 timed calls each, evals/s
+   and the launches by batch size printed; every score finite or inf; and
    the two configurations' first MPC-step solves agree on the accepted
    objective. 8q: the sensible and the absurd weighting of
    tests/test_parallel.py at H=20, 150 steps: the sensible one must
@@ -68,16 +69,21 @@ Phases (each raises on failure, so the exit code is non-zero):
    (decisions agree on >= 0.999 of lanes, 0.98 at the fan-out's shape,
    and then the same trajectory, Jacobians and du2 bit for bit); the batch-major kernels on the carries of phases 6, 7
    and 8(b) after three iterations, K4 and K5 also on the cheetah closed
-   loop's (B=32, H=20); the two fan-out kernels also at
-   B=4096, H=200 on the main path's carry. Within stated tolerances,
-   both timed with CUDA events, beside the least time the card could
-   take (``bound_ms``).
+   loop's (B=32, H=20); 8(b)'s three (K1's batch-major entry, which must
+   also give its lanes-last entry's rows bit for bit, K6 and K7) at every
+   batch size 8(b) launched them with (B=1,024 and its compaction
+   stages), and, untied to a path, at B=4096, H=200 on the main path's
+   carry. Within stated tolerances, timed with CUDA events (and where a
+   call is shorter than its host work also as device time under
+   torch.profiler), beside the least time the card could take
+   (``bound_ms``).
 
 Each path is driven with its kernels' launch counters set to 0 just
 before and read just after: phases 2-5 for the lanes-last kernels,
 phase 6 and phase 7 for the batch-major ones, each configuration of
 phase 8 for its three, each variant of phase 9 for the main path's
-kernels (``launches_bf16`` counts a wrapper's bfloat16 instances). A
+kernels (``launches_bf16`` counts a wrapper's bfloat16 instances,
+``launches_by_B`` its launches by the batch size of the call). A
 kernel that never ran on its path fails the run. Phase 3 runs after
 those reads, so its launches do not count.
 
@@ -744,12 +750,20 @@ def lane_share(a, b, tol, own_scale=False):
 
 
 def wide_counters(K1, K2, K3):
-    """Launch counters of the main path's kernels, by name: (wrapper,
+    """Launch counters of the feature-model kernels, by name: (wrapper,
     attribute). ``launches_bf16`` counts a wrapper's bfloat16 instances
     (a share of its ``launches``), ``launches_by_B`` its launches by the
-    batch size of the call."""
+    batch size of the call. The batch-major ones (K1's batch-major entry,
+    K6, K7) run on fan-out (b), not on the main path."""
     return {
         "relin_jacobians": (K1.relin_jacobians, "launches"),
+        "relin_jacobians[by B]": (K1.relin_jacobians, "launches_by_B"),
+        "relin_jacobians_bm": (K1.relin_jacobians_bm, "launches"),
+        "relin_jacobians_bm[by B]": (K1.relin_jacobians_bm, "launches_by_B"),
+        "backward_quad": (K2.backward_quad, "launches"),
+        "backward_quad[by B]": (K2.backward_quad, "launches_by_B"),
+        "sindy_line_search": (K3.sindy_line_search, "launches"),
+        "sindy_line_search[by B]": (K3.sindy_line_search, "launches_by_B"),
         "backward_quad_ll": (K2.backward_quad_ll, "launches"),
         "backward_quad_ll[bf16]": (K2.backward_quad_ll, "launches_bf16"),
         "backward_quad_ll_wide_4d": (K2.backward_quad_ll_wide_4d, "launches"),
@@ -799,7 +813,8 @@ class wide_io_env:
 def fanout_phase(bench, model, dev, card, wrappers, profile=False):
     """Phase 8 and 8q. ``wrappers`` maps a configuration to the three
     kernel wrappers of its path. Returns ({config: launches}, {config:
-    the fan-out's solver keywords}, the candidate batch)."""
+    launches by batch size}, {config: the fan-out's solver keywords},
+    the candidate batch)."""
     from autompc_torch.control import make_scheduled_ilqr_solver, parse_schedule
     from autompc_torch.costs import ThresholdCost
     from autompc_torch.parallel import QuadCostFanout
@@ -812,12 +827,14 @@ def fanout_phase(bench, model, dev, card, wrappers, profile=False):
                               n_steps=n_steps, goal=np.zeros(4), compact_schedule=schedule,
                               feature_spec=spec, **FAN_CONFIGS[cfg])
 
-    counts, solver_kw = {}, {}
+    counts, by_B, solver_kw = {}, {}, {}
     for cfg in FAN_CONFIGS:
         fanout = make(cfg, bench.task, FAN_H, FAN_STEPS)
         solver_kw[cfg] = fanout.solver_kw
         for w in wrappers[cfg]:
             w.launches = 0
+            if hasattr(w, "launches_by_B"):
+                w.launches_by_B = {}
         t0 = time.perf_counter()
         scores = fanout(batch)
         torch.cuda.synchronize()
@@ -828,6 +845,8 @@ def fanout_phase(bench, model, dev, card, wrappers, profile=False):
             torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         counts[cfg] = {w.__name__: w.launches for w in wrappers[cfg]}
+        by_B[cfg] = {w.__name__: dict(w.launches_by_B) for w in wrappers[cfg]
+                     if hasattr(w, "launches_by_B")}
         if tuple(scores.shape) != (FAN_B,) or torch.isnan(scores).any():
             raise RuntimeError(f"fan-out ({cfg}): malformed or NaN scores")
         fin = torch.isfinite(scores)
@@ -835,7 +854,7 @@ def fanout_phase(bench, model, dev, card, wrappers, profile=False):
               f"{FAN_STEPS} steps: warm call {warm_s:.2f} s; 3 timed calls {elapsed:.3f} s -> "
               f"{3 * FAN_B / elapsed:.1f} evals/s on {card}; scores finite {int(fin.sum())}, "
               f"inf {int((~fin).sum())}, mean of finite {float(scores[fin].mean()):.2f}; "
-              f"launches in 4 calls {counts[cfg]}", flush=True)
+              f"launches in 4 calls {counts[cfg]}, by B {by_B[cfg]}", flush=True)
         if min(counts[cfg].values()) == 0:
             raise RuntimeError(f"a kernel never ran on the fan-out path ({cfg}): {counts[cfg]}")
         if profile:
@@ -884,22 +903,45 @@ def fanout_phase(bench, model, dev, card, wrappers, profile=False):
         if not good < bad:
             raise RuntimeError(f"fan-out ({cfg}): sensible weighting {good} does not beat "
                                f"the absurd one {bad}")
-    return counts, solver_kw, batch
+    return counts, by_B, solver_kw, batch
 
 
-def check_fanout_kernels(tag, K6, K7, terms, coeffs, carry, cp, goal, dt, alphas, bound):
-    """K6 and K7 against their plain versions on a batch-major carry
-    (x0s, xs, us, Jx, Ju) with per-lane costs ``cp``; K7 on K6's gains.
-    Returns (the two kernels' measurements, failure strings)."""
+def check_fanout_kernels(tag, K1, K6, K7, terms, coeffs, carry, cp, goal, dt, alphas,
+                         bound):
+    """K1's batch-major entry, K6 and K7 against their plain versions on
+    a batch-major carry (x0s, xs, us, Jx, Ju) with per-lane costs ``cp``;
+    K1's batch-major entry also against its lanes-last entry on the same
+    points (bit for bit), K7 on K6's gains. Returns (the three kernels'
+    measurements, failure strings)."""
     x0s, xs, us, Jx, Ju = (carry[k] for k in ("x0s", "xs", "us", "Jx", "Ju"))
     B, H = us.shape[:2]
     rows, failures = [], []
+    k1_args = (terms, xs, us, coeffs)
+    jk, jp = K1.relin_jacobians_bm(*k1_args), K1.relin_jacobians_bm_plain(*k1_args)
+    e1 = max(rel_err(a, b) for a, b in zip(jk, jp))
+    ll_args = (terms, xs.permute(1, 2, 0).contiguous(), us[:, :, 0].T.contiguous(), coeffs)
+    jl = K1.relin_jacobians(*ll_args).reshape(H, 4, 5, B).permute(3, 0, 1, 2)
+    same = bits_equal(jk[0], jl[..., :4].contiguous()) and bits_equal(jk[1], jl[..., 4:].contiguous())
+    rows.append(dict(
+        max_abs_err=max(abs_err(a, b) for a, b in zip(jk, jp)),
+        ms=time_ms(lambda: K1.relin_jacobians_bm(*k1_args)),
+        device_ms=device_ms(lambda: K1.relin_jacobians_bm(*k1_args)),
+        plain_ms=time_ms(lambda: K1.relin_jacobians_bm_plain(*k1_args), reps=3),
+        lanes_last_device_ms=device_ms(lambda: K1.relin_jacobians(*ll_args)),
+        **bound_keys(n_bytes(xs, us, coeffs, *jk), B * H * feature_flops(len(terms), 5, 4)),
+    ))
+    print(f"[3] K1 relin, batch-major entry, {tag} B={B} H={H}: rel err Jx/Ju {e1:.3e} (tol "
+          f"{TOL_K1}); bit for bit the lanes-last entry's rows on the same points: {same}",
+          flush=True)
+    if not (e1 <= TOL_K1 and same):
+        failures.append(f"K1 batch-major {tag} rel err {e1:.3e}, equal to lanes-last {same}")
     k6_args = (Jx, Ju, xs, us, cp["Qdiag"], cp["Rdiag"], cp["Fdiag"], goal, dt, 4)
     gk, gp = K6.backward_quad(*k6_args), K6.backward_quad_plain(*k6_args)
     e6 = [rel_err(a, b) for a, b in zip(gk, gp)]
     rows.append(dict(
         max_abs_err=max(abs_err(a, b) for a, b in zip(gk, gp)),
         ms=time_ms(lambda: K6.backward_quad(*k6_args)),
+        device_ms=device_ms(lambda: K6.backward_quad(*k6_args)),
         plain_ms=time_ms(lambda: K6.backward_quad_plain(*k6_args), reps=3),
         **bound_keys(n_bytes(*k6_args[:7], *gk), B * H * (riccati_flops(4, 1) + 16)),
     ))
@@ -941,6 +983,7 @@ def check_fanout_kernels(tag, K6, K7, terms, coeffs, carry, cp, goal, dt, alphas
     rows.append(dict(
         max_abs_err=max(abs_err(kx[finite], px[finite]), abs_err(ku[finite], pu[finite])),
         ms=time_ms(lambda: K7.sindy_line_search(*k7_args)),
+        device_ms=device_ms(lambda: K7.sindy_line_search(*k7_args)),
         plain_ms=time_ms(lambda: K7.sindy_line_search_plain(*k7_args), reps=3),
         **bound_keys(n_bytes(x0s, xs, us, Ks, ks, coeffs, kx, ku),
                      B * len(alphas) * H * (len(terms) * 13 + 20)),
@@ -1129,6 +1172,13 @@ def main(profile=False):
         print(f"[1] K2 {tag} B={B}: {g['lanes_per_block']} lanes a block, {g['blocks']} "
               f"blocks, {g['smem']} bytes of shared memory a block (either Jacobian type)",
               flush=True)
+    # K7's threads a candidate and block at the fan-out's batches (B and
+    # its compaction stages, H=10) and at B=4096.
+    for B in [FAN_B] + [int(round(FAN_B * f)) for _, f in parse_schedule(FAN_SCHEDULE)] \
+            + [B_KERNEL]:
+        g = K3.sindy_geometry(B, 10)
+        print(f"[1] K7 B={B}: {g['group']} threads a candidate, {g['threads']} threads a "
+              f"block, {g['blocks']} blocks", flush=True)
     for tag, ds, dc, B in (("cheetah", 18, 6, B_HC), ("cheetah closed loop", 18, 6, B_HCQ),
                            ("dense cartpole", 4, 1, B_DENSE)):
         g = K4.general_geometry(ds, dc, B, sms)
@@ -1378,10 +1428,10 @@ def main(profile=False):
     # ---- [8] the cost fan-out, both solver configurations ----------------
     fan_wrappers = {
         "a": (K1.relin_jacobians, K2.backward_quad_ll, K3.fused_line_search),
-        "b": (K1.relin_jacobians, K2.backward_quad, K3.sindy_line_search),
+        "b": (K1.relin_jacobians_bm, K2.backward_quad, K3.sindy_line_search),
     }
-    fan_launches, fan_kw, fan_batch = fanout_phase(bench, model, dev, card, fan_wrappers,
-                                                   profile=profile)
+    fan_launches, fan_by_B, fan_kw, fan_batch = fanout_phase(
+        bench, model, dev, card, fan_wrappers, profile=profile)
 
     # ---- [9] the main path's wide options ----------------------------------
     def make_solve(**kw):
@@ -1938,12 +1988,7 @@ def main(profile=False):
         return carry
 
     cfa = fan_carry("a")
-    # Configuration (b) launches K1 at the same shape behind its layout
-    # adapter; its count stands beside (a)'s.
-    report.append(dict(
-        check_k1("fan-out (a) carry", cfa, fan_launches["a"]["relin_jacobians"]),
-        launches_config_b=fan_launches["b"]["relin_jacobians"],
-    ))
+    report.append(check_k1("fan-out (a) carry", cfa, fan_launches["a"]["relin_jacobians"]))
     fan_cost = (*(cfa["cost"][k] for k in ("Qdiag", "Rdiag", "Fdiag")), (0.0,) * 4)
     report += k2_k3_rows(
         check_k2_k3("per-lane cost, fan-out (a) carry", cfa, fan_cost,
@@ -1951,36 +1996,54 @@ def main(profile=False):
         cfa, "per-lane cost", fan_launches["a"],
     )
 
-    # K6 and K7: on configuration (b)'s carry after three iterations at
-    # the fan-out's shape, the one its path gives them, and at B=4096,
-    # H=200 on the main path's carry (unpacked to batch-major) with the
-    # random per-lane costs above. No path runs them at that second
-    # shape: its measurements go under ``at_B4096_H200`` of the same row.
+    # K1's batch-major entry, K6 and K7 at every batch size configuration
+    # (b) launched them with (B=1,024 and its compaction stages, H=10): the
+    # first B lanes of its carry after three iterations (its own per-lane
+    # costs); and, untied to a path, at B=4096, H=200 on the main path's
+    # carry (unpacked to batch-major) with the random per-lane costs
+    # above. Each row is the fan-out's whole batch; the other batches are
+    # its ``at_B*`` keys, each with its launches.
     jac_bm = c["jac"].reshape(H, 4, 5, B_KERNEL).permute(3, 0, 1, 2)
     c_bm = dict(
         x0s=c["x0s"].T.contiguous(), xs=c["xs"].permute(2, 0, 1).contiguous(),
         us=c["us"].T[:, :, None].contiguous(), Jx=jac_bm[..., :4].contiguous(),
         Ju=jac_bm[..., 4:].contiguous(),
     )
+    cfb = fan_carry("b")
+    fan_Bs = sorted({Bs for counts in fan_by_B["b"].values() for Bs in counts}, reverse=True)
+    if fan_Bs[0] != FAN_B:
+        failures.append(f"fan-out (b) launched its kernels at {fan_Bs}, not at B={FAN_B} first")
     k67 = {}
-    for tag, carry, cp in (("fan-out (b) carry", fan_carry("b"), fan_batch),
-                           ("main-path carry", c_bm, lane_cp)):
-        k67[tag], fails = check_fanout_kernels(
-            tag, K2, K3, terms, ca, carry, cp, (0.0,) * 4, dt, alphas, float(bounds[0, 1]),
-        )
+    for Bs in fan_Bs:
+        sub = {k: cfb[k][:Bs].contiguous() for k in ("x0s", "xs", "us", "Jx", "Ju")}
+        k67[Bs], fails = check_fanout_kernels(
+            "fan-out (b) carry", K1, K2, K3, terms, ca, sub,
+            {k: v[:Bs] for k, v in fan_batch.items()}, (0.0,) * 4, dt, alphas,
+            float(bounds[0, 1]))
         failures += fails
+    k67["main"], fails = check_fanout_kernels(
+        "main-path carry", K1, K2, K3, terms, ca, c_bm, lane_cp, (0.0,) * 4, dt, alphas,
+        float(bounds[0, 1]))
+    failures += fails
+    del cfb
     for k, (name, source, replaces) in enumerate((
+        ("relin_jacobians_bm", "autompc_torch/csrc/relin.cu",
+         "autompc_tpu/ops/pallas_relin.py:192"),
         ("backward_quad", "autompc_torch/csrc/riccati_quad_bm.cu",
          "autompc_tpu/ops/pallas_riccati.py:456"),
         ("sindy_line_search", "autompc_torch/csrc/sindy_linesearch.cu",
          "autompc_tpu/ops/pallas_linesearch.py:191"),
     )):
-        wide = dict(k67["main-path carry"][k])
-        wide.pop("library_ms")
+        by_B = fan_by_B["b"][name]
+        at = {f"at_B{Bs}_H{FAN_H}": dict(k67[Bs][k], launches=by_B.get(Bs, 0))
+              for Bs in fan_Bs[1:]}
+        at[f"at_B{B_KERNEL}_H{H}"] = dict(k67["main"][k])
+        for w in at.values():
+            w.pop("library_ms")
         report.append(dict(
             name=f"{name}[B={FAN_B},H={FAN_H}]", route="cuda", source=source,
-            replaces=replaces, launches=fan_launches["b"][name],
-            **k67["fan-out (b) carry"][k], **{f"at_B{B_KERNEL}_H{H}": wide},
+            replaces=replaces, launches=fan_launches["b"][name], launches_by_B=by_B,
+            **k67[FAN_B][k], **at,
         ))
     for tag, mdl, cst, kw, x0s, counts in (
         ("cheetah", hc_model, hc_cost, dict(hc_kw, H=H_HC), hc_x0, hc_launches),
@@ -2006,7 +2069,9 @@ def main(profile=False):
                 r[f"at_B{B_HCQ}_H{H_HCQ}"] = {
                     k: v for k, v in cl.items() if k not in ("name", "route", "source", "replaces")}
     def device_txt(w):
-        return f" (device {w['device_ms']:.4f})" if "device_ms" in w else ""
+        return ((f" (device {w['device_ms']:.4f})" if "device_ms" in w else "")
+                + (f" (its lanes-last entry on the same points: device "
+                   f"{w['lanes_last_device_ms']:.4f})" if "lanes_last_device_ms" in w else ""))
 
     def split_txt(w):
         return (f"split entry (K8 + acceptance + K9) {w['split_entry_ms']:.3f} ms (device "

@@ -71,6 +71,23 @@ def test_sparse_partials_match_grad_terms(cfg):
                                        err_msg=f"{t.name} d/dz{c}")
 
 
+@pytest.mark.parametrize("cfg", sorted(CONFIGS))
+def test_jacobian_column_lists_are_the_nonzero_partials(cfg):
+    """The per-column term lists of the kernels' table (ops/_build.py:
+    jacobian_columns, FeatTable.col_n / col_terms) hold, in term order,
+    exactly the terms whose partial is not structurally zero."""
+    from autompc_torch.ops import _build
+
+    _, tl = _libs(cfg)
+    terms = tl.terms[:_build.MAX_F]
+    comps = [torch.as_tensor(v) for v in np.random.default_rng(4).uniform(-2, 2, (5, 3))]
+    tab = _build.feat_table(tuple(terms))
+    for c, ks in enumerate(_build.jacobian_columns(terms)):
+        want = [k for k, t in enumerate(terms) if tb.term_partial(t, c, comps) is not None]
+        assert ks == want, (cfg, c)
+        assert tab.col_n[c] == len(ks) and list(tab.col_terms[c])[:len(ks)] == ks
+
+
 def test_tree_sum_matches_jax_order():
     vals = [torch.tensor(v) for v in np.random.default_rng(2).normal(size=13) * 1e8]
     assert float(tb.tree_sum(vals)) == float(_tree_sum([jnp.asarray(v.item()) for v in vals]))
@@ -107,6 +124,70 @@ class _Sym(str):
 def test_kernel_tree_accumulator_reproduces_tree_sum(n):
     syms = [_Sym(f"a{k}") for k in range(n)]
     assert _counter_tree(n) == _tree_sum(syms) == tb.tree_sum(syms)
+
+
+class _Blk:
+    """A partial sum of consecutive terms: its text records the pairing,
+    and an addition puts the earlier block on the left (a float32
+    addition gives the same bits in either operand order)."""
+
+    def __init__(self, start, text):
+        self.start, self.text = start, text
+
+    def __add__(self, other):
+        a, b = sorted((self, other), key=lambda s: s.start)
+        return _Blk(a.start, f"({a.text}+{b.text})")
+
+
+def _butterfly_rounds(n, G):
+    """Python mirror of csrc/sindy_linesearch.cu's feature sum: rounds of
+    G consecutive terms; in each, lane g holds term r G + g and log2 G
+    levels of xor shuffles add a partner block where both blocks hold a
+    term; complete rounds' sums go into a counter over rounds (push k =
+    r), and the last, partial round's sum opens the final fold. Returns
+    every lane's sum."""
+    full, part = divmod(n, G)
+    slot, lanes = [None] * 7, None
+    for r in range(-(-n // G)):
+        cnt = G if r < full else part
+        lanes = [_Blk(r * G + g, f"a{r * G + g}") if g < cnt else None for g in range(G)]
+        lvl = 1
+        while lvl < G:
+            nxt = []
+            for g in range(G):
+                own = g & ~(lvl - 1)
+                has_own, has_other = own < cnt, (own ^ lvl) < cnt
+                o = lanes[g ^ lvl]
+                nxt.append(lanes[g] + o if has_own and has_other else
+                           (lanes[g] if has_own else o))
+            lanes, lvl = nxt, lvl * 2
+        if r < full:
+            carry = lanes[0]
+            for lv in range(7):
+                if (r >> lv) & 1:
+                    carry = slot[lv] + carry
+                else:
+                    slot[lv] = carry
+                    break
+    out = []
+    for g in range(G):
+        acc = lanes[g] if part else None
+        for lv in range(7):
+            if (full >> lv) & 1:
+                acc = slot[lv] if acc is None else slot[lv] + acc
+        out.append(acc.text)
+    return out
+
+
+@pytest.mark.parametrize("G", [4, 8])
+def test_kernel_butterfly_reproduces_tree_sum(G):
+    """K7 sums each output's terms across a group of G threads: every
+    thread ends with the same sum, paired as tree_sum pairs the terms,
+    for 1 to 64 terms."""
+    for n in range(1, 65):
+        got = _butterfly_rounds(n, G)
+        want = _tree_sum([_Sym(f"a{k}") for k in range(n)])
+        assert set(got) == {want}, (G, n)
 
 
 def test_finite_difference_matches():

@@ -177,17 +177,18 @@ def test_scheduled_equals_unscheduled_with_lane_costs(setup, opts, schedule):
 
 def test_solver_goes_through_the_fanout_kernels(setup, monkeypatch):
     """The batch-major feature body calls the wrappers of the three
-    kernels of its path, the lanes-last body those of its own."""
+    kernels of its path (K1 through its batch-major entry), the
+    lanes-last body those of its own."""
     calls = []
     for name in ("backward_quad", "sindy_line_search", "relin_jacobians",
-                 "backward_quad_ll", "fused_line_search"):
+                 "relin_jacobians_bm", "backward_quad_ll", "fused_line_search"):
         real = getattr(tilqr, name)
         monkeypatch.setattr(tilqr, name,
                             lambda *a, _r=real, _n=name, **k: (calls.append(_n), _r(*a, **k))[1])
     kw = dict(setup["common"], max_iter=2)
     s = dict(setup, common=kw)
     _torch_solver(s, tilqr.make_batched_ilqr_solver, BM)(*_torch_args(s))
-    assert set(calls) == {"backward_quad", "sindy_line_search", "relin_jacobians"}
+    assert set(calls) == {"backward_quad", "sindy_line_search", "relin_jacobians_bm"}
     calls.clear()
     _torch_solver(s, tilqr.make_batched_ilqr_solver, LL)(*_torch_args(s))
     assert set(calls) == {"backward_quad_ll", "fused_line_search", "relin_jacobians"}

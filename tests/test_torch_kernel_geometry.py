@@ -1,10 +1,12 @@
-"""The launch geometry that the wrappers of K2 (lanes-last backward), K3
-(fused line search), K4 (general backward), K5 (MLP line search) and K8
-(the split line search's objective sweep) choose in Python, and K9's
-(its read-back), set in C: every lane, (lane, step size) or product output falls
-to exactly one thread, block slot or tile under the kernels' own index
-arithmetic, the blocks stay within the card's limits, and the wrappers
-refuse, by name and without a card, the shapes the kernels do not take."""
+"""The launch geometry that the wrappers of K1 (relinearization), K2
+(lanes-last backward), K3 (fused line search), K4 (general backward), K5
+(MLP line search), K7 (batch-major rollout line search) and K8 (the split
+line search's objective sweep) choose in Python, and K9's (its
+read-back), set in C: every lane, (lane, step size), (step, lane,
+column) or product output falls to exactly one thread, block slot or tile
+under the kernels' own index arithmetic, the blocks stay within the
+card's limits, and the wrappers refuse, by name and without a card, the
+shapes the kernels do not take."""
 
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ import torch
 from autompc_torch.ops import _build
 from autompc_torch.ops import cuda_linesearch as K3
 from autompc_torch.ops import cuda_mlp_linesearch as K5
+from autompc_torch.ops import cuda_relin as K1
 from autompc_torch.ops import cuda_riccati as K2
 from autompc_torch.ops import cuda_riccati_general as K4
 
@@ -348,3 +351,183 @@ def test_backward_geometry_mirrors_the_sources():
         assert (v["P1R"], v["P1C"]) == sh["p1"] and (v["P2R"], v["P2C"]) == sh["p2"]
         assert (v["PUR"], v["PUC"]) == sh["pu"] and (v["P5R"], v["P5C"]) == sh["p5"]
         assert (v["RING"], v["MAX_LANES"]) == (sh["ring"], sh["max_lanes"])
+
+
+# K7 (batch-major rollout line search): the batches of the cost fan-out's
+# batch-major configuration (1,024 and its compaction stages) and beyond.
+SINDY_BATCHES = (1, 7, 128, 256, 512, 1024, 4096)
+
+
+def _sindy_source():
+    return (_build.CSRC_DIR / "sindy_linesearch.cu").read_text()
+
+
+@pytest.mark.parametrize("B", SINDY_BATCHES)
+def test_sindy_geometry_covers_every_candidate_once(B, monkeypatch):
+    """Under sindy_linesearch.cu's index arithmetic (g = tid % G,
+    c = (bx * threads + tid) / G, lane c / L, step size c % L) every
+    (lane, step size) falls to exactly one group of G threads, one of
+    each g, inside one warp (its shuffles stay there), whose thread 0
+    stores it, for the group the wrapper picks and for each group (the
+    threshold moved to force it)."""
+    import math
+
+    for g4_from in (None, 0, 1 << 40):
+        if g4_from is not None:
+            monkeypatch.setattr(K3, "SINDY_G4_FROM", g4_from)
+        for L in (1, 3, 10):
+            g = K3.sindy_geometry(B, L)
+            G, threads = g["group"], g["threads"]
+            assert G in K3.SINDY_GROUPS and threads % 32 == 0
+            assert threads == K3.SINDY_THREADS
+            assert g["blocks"] == math.ceil(B * L * G / threads)
+            blk, tid = np.divmod(np.arange(g["blocks"] * threads), threads)
+            gi, c = tid % G, (blk * threads + tid) // G
+            warp = (blk * threads + tid) // 32
+            valid = c < B * L
+            seen = np.bincount((c * G + gi)[valid], minlength=B * L * G)
+            assert seen.size == B * L * G and (seen == 1).all()
+            # The group's first and last threads share a warp.
+            first = np.flatnonzero(gi == 0)
+            assert (warp[first] == warp[first + G - 1]).all()
+            assert (c[first] == c[first + G - 1]).all()
+            stores = np.bincount(c[valid & (gi == 0)], minlength=B * L)
+            assert stores.size == B * L and (stores == 1).all(), (B, L, g4_from)
+
+
+def test_sindy_geometry_picks_groups_by_batch():
+    """Eight threads a candidate below SINDY_G4_FROM lanes, four from
+    it, in blocks of SINDY_THREADS threads."""
+    assert K3.sindy_geometry(1024, 10)["group"] == 8
+    assert K3.sindy_geometry(128, 10)["group"] == 8
+    assert K3.sindy_geometry(K3.SINDY_G4_FROM, 10)["group"] == 4
+    assert K3.sindy_geometry(4096, 10)["group"] == 4
+    g = K3.sindy_geometry(128, 10)            # 10,240 threads: 80 blocks of 128
+    assert (g["threads"], g["blocks"]) == (128, 80)
+    g = K3.sindy_geometry(4096, 10)           # 163,840 threads: 1,280 blocks
+    assert (g["threads"], g["blocks"]) == (128, 1280)
+    with pytest.raises(ValueError, match="sindy_line_search: 1..10 step sizes"):
+        K3.sindy_geometry(1024, _build.MAX_L + 1)
+
+
+def test_sindy_geometry_mirrors_the_source():
+    """The groups, the largest block and the launch arithmetic that
+    sindy_geometry mirrors are the source's."""
+    import re
+
+    src = _sindy_source()
+    assert K3.SINDY_THREADS <= int(re.search(r"#define AMPC_SLS_MAX_THREADS (\d+)", src)[1])
+    groups = tuple(int(g) for g in re.findall(r"case (\d+):\n\s+sls_launch<\1>", src))
+    assert groups == K3.SINDY_GROUPS
+    for line in ("const int g = (int)(threadIdx.x % G);",
+                 "const long long cr = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;",
+                 "const int b = (int)(c / P.L);",
+                 "const float alpha = P.alphas[c - (long long)b * P.L];",
+                 "const bool store = valid && g == 0;",
+                 "float4* oxs = reinterpret_cast<float4*>(out_xs + c * (H + 1) * DS);",
+                 "const long long n = (long long)B * P->L * G;",
+                 "const unsigned blocks = (unsigned)((n + threads - 1) / threads);",
+                 "threads > AMPC_SLS_MAX_THREADS || threads % 32)"):
+        assert line in src, line
+
+
+# K1 (relinearization): one kernel in two layouts and two geometries, a
+# thread per (step, lane, Jacobian column) or per (step, lane).
+RELIN_SHAPES = ((1, 1), (7, 3), (128, 10), (256, 20), (1024, 10), (33, 200))
+
+
+def _relin_source():
+    return (_build.CSRC_DIR / "relin.cu").read_text()
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("B, H", RELIN_SHAPES)
+def test_relin_geometry_covers_every_step_lane_and_column_once(B, H, split, monkeypatch):
+    """relin.cu: blocks of (NL, CT) threads, thread (x, y) taking columns
+    y, y + CT, ... of its point (CT = 5, one column a warp, or CT = 1,
+    all five). Lanes-last: a grid of (ceil(B / NL), H), t = blockIdx.y,
+    b = blockIdx.x NL + x. Batch-major: a grid of ceil(B H / NL), point
+    p = blockIdx.x NL + x, b = p / H, t = p % H, and the block's staged
+    rows written back as two runs, each output word once, at
+    (p ds + i) ds + dd of Jx and p ds + i of Ju."""
+    monkeypatch.setattr(K1, "SM_THREADS", 1 << 40 if split else 0)
+    g = K1.relin_geometry(B, H)
+    NL, CT, ds, D = g["lanes"], g["threads"] // g["lanes"], 4, 5
+    assert CT == (D if split else 1)
+
+    def columns(y):
+        return np.arange(y, D, CT)
+
+    # Lanes-last.
+    seen = np.zeros((H, B, D), int)
+    for bx in range(-(-B // NL)):
+        for x in range(NL):
+            b = bx * NL + x
+            if b < B:
+                for y in range(CT):
+                    seen[:, b, columns(y)] += 1
+    assert (seen == 1).all()
+    # Batch-major.
+    n = B * H
+    seen = np.zeros((n, D), int)
+    jx, ju = np.zeros(n * ds * ds, int), np.zeros(n * ds, int)
+    for bx in range(-(-n // NL)):
+        p0 = bx * NL
+        npts = min(NL, n - p0)
+        s_jx, s_ju = {}, {}
+        for x in range(npts):
+            p = p0 + x
+            b, t = p // H, p % H
+            for y in range(CT):
+                for dd in columns(y):
+                    seen[b * H + t, dd] += 1
+                    for i in range(ds):
+                        if dd < ds:
+                            s_jx[(x, i * ds + dd)] = (p * ds + i) * ds + dd
+                        else:
+                            s_ju[(x, i)] = p * ds + i
+        for o in range(npts * ds * ds):
+            jx[p0 * ds * ds + o] += 1
+            assert s_jx[(o // (ds * ds), o % (ds * ds))] == p0 * ds * ds + o
+        for o in range(npts * ds):
+            ju[p0 * ds + o] += 1
+            assert s_ju[(o // ds, o % ds)] == p0 * ds + o
+    assert (seen == 1).all() and (jx == 1).all() and (ju == 1).all()
+
+
+def test_relin_geometry_splits_where_the_points_cannot_fill_the_card():
+    """The gate's and the fan-outs' shapes take a thread per column, the
+    main path's a thread per point."""
+    for B, H in ((256, 20), (1024, 10), (128, 10)):
+        assert K1.relin_geometry(B, H)["split"]
+    for B, H in ((4096, 200), (16384, 200)):
+        assert not K1.relin_geometry(B, H)["split"]
+    assert not K1.relin_geometry(256, 20, n_sm=2)["split"]   # a card of 2 SMs
+    assert K1.relin_geometry(1024, 10)["threads"] == 160
+
+
+def test_relin_geometry_mirrors_the_source():
+    import re
+
+    src = _relin_source()
+    assert int(re.search(r"#define AMPC_RELIN_SPLIT_LANES (\d+)", src)[1]) == \
+        K1.RELIN_SPLIT_LANES
+    assert int(re.search(r"#define AMPC_RELIN_WHOLE_LANES (\d+)", src)[1]) == \
+        K1.RELIN_WHOLE_LANES
+    for line in ("relin_launch<BM, 5, AMPC_RELIN_SPLIT_LANES>(",
+                 "relin_launch<BM, 1, AMPC_RELIN_WHOLE_LANES>(",
+                 "const dim3 block(NL, CT);",
+                 "const int dd0 = CT == 1 ? 0 : (int)threadIdx.y;  // first column",
+                 "for (int dd = dd0; dd < D; dd += CT) {",
+                 "t = blockIdx.y;",
+                 "b = blockIdx.x * NL + threadIdx.x;",
+                 "p0 = (long long)blockIdx.x * NL;",
+                 "b = (int)(q / H);",
+                 "t = (int)(q - (long long)b * H);",
+                 "s_jx[threadIdx.x][i * DS + dd] = col[i];",
+                 "s_ju[threadIdx.x][i] = col[i];",
+                 "jx_out[o] = s_jx[o / (DS * DS)][o % (DS * DS)];",
+                 "for (int o = tid; o < np * DS; o += NL * CT) ju_out[o] = s_ju[o / DS][o % DS];",
+                 "const dim3 grid((unsigned)((B + NL - 1) / NL), (unsigned)H);",
+                 "const unsigned grid = (unsigned)((n + NL - 1) / NL);"):
+        assert line in src, line

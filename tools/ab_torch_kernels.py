@@ -28,19 +28,28 @@ that every checkout computes the same bits:
   types) at B=1024, 4096 and 16384, H=200 (the llw solve's compaction
   stages); K3 (``fused_line_search``) there and at the gate's B=256,
   H=20 and the fan-out's B=1,024, H=10; K1 (``relin_jacobians``) at the
-  same shapes; K7 (``sindy_line_search``) at the fan-out's shape and
-  B=4096, H=200. Each tree is driven through its own wrappers (the
-  signatures of K8 and K9 differ between trees); K8's digest covers its
-  objectives only, K9's its outputs (xs, us, jac, du2), which every
-  tree computes alike.
+  same shapes and at the batches of the fan-out's batch-major
+  configuration (B=512, 256 and 128 at H=10, its compaction stages);
+  there and at B=4096, H=200 also K1's batch-major entry
+  (``relin_jacobians_bm``, also at B=16384; in a tree without it the
+  lanes-last entry behind the solver's old layout adapter), K6
+  (``backward_quad``, per-lane cost) and K7 (``sindy_line_search``). Each tree is driven through its
+  own wrappers (the signatures of K8 and K9 differ between trees); K8's
+  digest covers its objectives only, K9's its outputs (xs, us, jac,
+  du2), which every tree computes alike.
 
 The inputs are made from a seed with numpy, so every checkout gets the
 same work.
 
     python3 tools/ab_torch_kernels.py [--only K1,K3,...] ROOT [ROOT ...]
 
+A tree whose K7 wrapper picks its threads a candidate by batch also
+times K7 at each group (``_g4``, ``_g8``), and one whose K1 wrappers
+pick a thread per (point, column) or per point times both entries in
+both (``_split``, ``_whole``); every variant must give the same bits.
+
 ``--only`` keeps the shapes whose tag starts with one of the prefixes
-(K1, K2, K3, K4, K5, K7, K8, K9, split).
+(K1, K2, K3, K4, K5, K6, K7, K8, K9, split).
 
 Each ROOT is a checkout whose ``autompc_torch`` is imported in a process
 of its own (two trees cannot share one), in the order given, so that
@@ -83,9 +92,23 @@ K5_SHAPES = (
 )
 # SM counts the K5 wrapper is told, so that it takes each of its two blocks.
 BLOCKS = (("one_wave", 10 ** 6), ("many_waves", 1))
+# The geometries a tree's wrappers pick between by batch, each also timed
+# in a tree that has the picker, forced by its threshold constant: K7's
+# threads a candidate (``SINDY_G4_FROM``: 4 or 8), K1's thread per
+# (point, column) or per point (``SM_THREADS``), both entries. Every
+# variant must give the same bits.
+VARIANTS = {
+    "K7": (("g4", "SINDY_G4_FROM", 0), ("g8", "SINDY_G4_FROM", 1 << 40)),
+    "K1": (("whole", "SM_THREADS", 0), ("split", "SM_THREADS", 1 << 40)),
+}
+VARIANTS["K1bm"] = VARIANTS["K1"]
+VARIANT_NAMES = sorted({v[0] for vs in VARIANTS.values() for v in vs})
 # The feature-library kernels: (tag, kernel, B, H, cost form, Jacobian
 # carry type), grouped by (B, H) so that one carry serves each group.
 WIDE_BH = ((1024, 200), (4096, 200), (16384, 200))
+# The batches of the cost fan-out's batch-major configuration (b) at
+# H=10: B=1,024 and its compaction stages (FAN_SCHEDULE of chip_smoke.py).
+FAN_BH = ((1024, 10), (512, 10), (256, 10), (128, 10))
 LS_SHAPES = tuple(sorted(
     [(f"K8_B{B}_H{H}_{c}", "K8", B, H, c, "f32") for B, H in WIDE_BH for c in ("fixed", "lane")]
     + [(f"K9_B{B}_H{H}_{j}", "K9", B, H, "fixed", j) for B, H in WIDE_BH for j in ("f32", "bf16")]
@@ -96,11 +119,14 @@ LS_SHAPES = tuple(sorted(
         (4096, 200, "lane", "f32"), (16384, 200, "fixed", "f32"), (256, 20, "fixed", "f32"),
         (256, 20, "fixed", "bf16"), (1024, 10, "lane", "f32"))]
     + [(f"K1_B{B}_H{H}", "K1", B, H, "fixed", "f32")
-       for B, H in ((4096, 200), (16384, 200), (256, 20), (1024, 10))]
-    + [(f"K7_B{B}_H{H}", "K7", B, H, "fixed", "f32") for B, H in ((1024, 10), (4096, 200))],
+       for B, H in ((4096, 200), (16384, 200), (256, 20)) + FAN_BH]
+    + [(f"K1_bm_B{B}_H{H}", "K1bm", B, H, "fixed", "f32")
+       for B, H in ((4096, 200), (16384, 200)) + FAN_BH]
+    + [(f"K6_B{B}_H{H}", "K6", B, H, "lane", "f32") for B, H in ((4096, 200),) + FAN_BH]
+    + [(f"K7_B{B}_H{H}", "K7", B, H, "fixed", "f32") for B, H in ((4096, 200),) + FAN_BH],
     key=lambda r: (r[2], r[3])))
 ALPHAS = tuple(0.2 ** k for k in range(L))
-ALL_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K7", "K8", "K9", "split")
+ALL_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "split")
 
 
 def _tensor(a, dev, dtype=None):
@@ -236,12 +262,34 @@ def ls_carry(model, cost, common, active, B, H, dev):
     return ls, (c["obj"], lin, quad, ks_small, act), jac
 
 
-def ls_call(kind, ls, tail, jac, K1, K3):
+def ls_call(kind, ls, tail, jac, K1, K2, K3):
     """The call that ``kind`` times on one carry: each tree through its
     own wrappers. K8's digest is of its objectives, K9's of its outputs;
     K9's inputs (K8's outputs and the acceptance rule's) are made once,
-    in the tree's own signature."""
+    in the tree's own signature. K1's batch-major entry is, in a tree
+    without it, the lanes-last entry behind the solver's old layout
+    adapter (permute in, unpack out), whose copies its time includes. K6
+    and K7 take the carry in batch-major form, K6 with the per-lane
+    planes of ``ls`` (the ``lane`` form)."""
     terms, x0T, xsT, usT, KsT, ksT, ca, alphas, lo, hi = ls[:10]
+    H, B = usT.shape
+    bm = dict(xs=xsT.permute(2, 0, 1).contiguous(), us=usT.T[:, :, None].contiguous())
+    if kind == "K1bm":
+        if hasattr(K1, "relin_jacobians_bm"):
+            return lambda: K1.relin_jacobians_bm(terms, bm["xs"], bm["us"], ca)
+
+        def adapter():
+            j = K1.relin_jacobians(terms, bm["xs"].permute(1, 2, 0).contiguous(),
+                                   bm["us"][:, :, 0].T.contiguous(), ca)
+            j = j.reshape(H, 4, 5, B).permute(3, 0, 1, 2)
+            return j[..., :4].contiguous(), j[..., 4:].contiguous()
+
+        return adapter
+    if kind == "K6":
+        j = jac.reshape(H, 4, 5, B).permute(3, 0, 1, 2)
+        args = (j[..., :4].contiguous(), j[..., 4:].contiguous(), bm["xs"], bm["us"],
+                *(v.T.contiguous() for v in ls[10:13]), ls[13], ls[14], 4)
+        return lambda: K2.backward_quad(*args)
     if kind == "K8":
         return lambda: (lambda o: o[0] if isinstance(o, tuple) else o)(K3.wide_objectives(*ls))
     if kind == "split":
@@ -251,10 +299,9 @@ def ls_call(kind, ls, tail, jac, K1, K3):
     if kind == "K1":
         return lambda: K1.relin_jacobians(terms, xsT, usT, ca)
     if kind == "K7":
-        bm = (x0T.T.contiguous(), xsT.permute(2, 0, 1).contiguous(),
-              usT.T[:, :, None].contiguous(), KsT.permute(2, 0, 1)[:, :, None].contiguous(),
-              ksT.T[:, :, None].contiguous())
-        return lambda: K3.sindy_line_search(terms, *bm, ca, alphas, lo, hi)
+        args = (x0T.T.contiguous(), bm["xs"], bm["us"],
+                KsT.permute(2, 0, 1)[:, :, None].contiguous(), ksT.T[:, :, None].contiguous())
+        return lambda: K3.sindy_line_search(terms, *args, ca, alphas, lo, hi)
     out = K3.wide_objectives(*ls)
     if isinstance(out, tuple):
         objs, stash, du2s = out
@@ -349,7 +396,18 @@ def time_one(root, only):
             torch.cuda.empty_cache()
             carry = ls_carry(*problem, B, H, dev)
         ls, tail, jac = carry
-        record(tag, ls_call(kind, ls[form], tail, jac[jt], K1, K3))
+        run = ls_call(kind, ls[form], tail, jac[jt], K1, K2, K3)
+        record(tag, run)
+        for name, const, value in VARIANTS.get(kind, ()):
+            module = K3 if kind == "K7" else K1
+            if not hasattr(module, const):
+                continue
+            kept = getattr(module, const)
+            setattr(module, const, value)
+            try:
+                record(f"{tag}_{name}", run)
+            finally:
+                setattr(module, const, kept)
     carry = None
     for tag, B, H, lane, bf16, d4 in K2_SHAPES:
         if not wanted(tag):
@@ -408,7 +466,8 @@ def main(argv):
         print(line, flush=True)
         out = json.loads(line)
         for tag in digests:
-            keys = [f"{tag}_sha256"] + [f"{tag}_{block}_sha256" for block, _ in BLOCKS]
+            keys = ([f"{tag}_sha256"] + [f"{tag}_{block}_sha256" for block, _ in BLOCKS]
+                    + [f"{tag}_{name}_sha256" for name in VARIANT_NAMES])
             digests[tag] |= {out[k] for k in keys if k in out}
     same = {kernel: all(len(d) == 1 for tag, d in digests.items() if tag.startswith(kernel + "_"))
             for kernel in only}
