@@ -65,6 +65,10 @@ MAX_SMEM_BYTES = 227 * 1024
 # (riccati_quad.cu: AMPC_BQ_RING, AMPC_BQ_MAX_LANES).
 BQ_RING = 8
 BQ_MAX_LANES = 128
+# K6's ring of time steps and its largest block in threads
+# (riccati_quad_bm.cu: AMPC_BQBM_RING, AMPC_BQBM_MAX_THREADS).
+BQBM_RING = 12
+BQBM_MAX_THREADS = 128
 # Streaming multiprocessors of an H100 SXM: the geometry helpers' default
 # where no card is asked (the CPU tests).
 H100_SMS = 132
@@ -163,7 +167,7 @@ _SIGNATURES = {
         [ctypes.POINTER(QuadDiag)] + [_P] * 14 + [_I] * 6 + [_P]
     ),
     "ampc_backward_quad_bm": (
-        [ctypes.POINTER(QuadDiag)] + [_P] * 11 + [_I, _I, _I, _I, _P]
+        [ctypes.POINTER(QuadDiag)] + [_P] * 11 + [_I] * 5 + [_P]
     ),
     "ampc_fused_line_search": (
         [ctypes.POINTER(FeatTable), ctypes.POINTER(LSParams)]

@@ -27,7 +27,8 @@ here). The TPU's wide-kernel tile knobs (``AMPC_BQ_WIDE_S``,
 ``AMPC_BQ_WIDE_STEP`` variants are not ported (ROADMAP.md §B). The
 dense-expansion kernels are ``ops/cuda_riccati_general.py``.
 
-K2's launch geometry (lanes a block) is chosen here, by ``bq_geometry``.
+K2's launch geometry (lanes a block) is chosen here, by ``bq_geometry``,
+and K6's (lanes a block, ring depth), by ``bq_bm_geometry``.
 A CPU tensor takes the plain PyTorch version (``backward_quad_ll_plain``,
 ``backward_quad_plain``); a CUDA tensor launches the kernel or raises.
 """
@@ -353,6 +354,40 @@ def _shapes_bm(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, obsdim):
     return B, H, ds
 
 
+def _check_built_bm(ds):
+    built = _build.KERNEL_SHAPES["riccati_quad_bm"]
+    if (ds, 1) not in built:
+        raise ValueError(
+            f"batch-major backward kernel is built for (ds, dc) in {built}, "
+            f"got {(ds, 1)}"
+        )
+
+
+def bq_bm_geometry(B, H, ds=4, sm_count=None):
+    """K6's launch geometry: ``group`` = ds threads a lane, thread ``tid``
+    of block ``bx`` being thread ``g = tid % group`` of lane ``bx *
+    lanes_per_block + tid // group``, which owns row g of the value
+    matrix; ``threads`` = lanes x group, the smallest of 32, 64 and 128
+    that keeps the grid within about four blocks an SM of ``sm_count``
+    (an H100's 132 when not given), so that the few warps of a small batch
+    spread over as many SMs as they can; ``ring`` time steps of inputs in
+    shared memory (the whole horizon where H <= ``_build.BQBM_RING``);
+    ``smem`` bytes of shared memory a block (riccati_quad_bm.cu:
+    bqbm_floats_per_lane). Raises ``ValueError`` for a ds the kernel is
+    not built for."""
+    _check_built_bm(ds)
+    sms = sm_count or _build.H100_SMS
+    group = ds
+    threads = 32
+    while -(-B * group // threads) > 4 * sms and threads < _build.BQBM_MAX_THREADS:
+        threads *= 2
+    lanes = threads // group
+    ring = min(H, _build.BQBM_RING)
+    per_lane = ring * 30 + 40
+    return dict(group=group, lanes_per_block=lanes, threads=threads,
+                blocks=-(-B // lanes), ring=ring, smem=lanes * per_lane * 4)
+
+
 def backward_quad_plain(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, dt, obsdim):
     """Plain PyTorch version of the batch-major kernel: the same
     recursion as ``backward_quad_ll_plain`` on the batch-major rows."""
@@ -385,13 +420,9 @@ def backward_quad(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, dt, obsdim):
     if _build.device_kind(xs) == "cpu":
         return backward_quad_plain(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, dt, obsdim)
     B, H, ds = _shapes_bm(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, obsdim)
-    built = _build.KERNEL_SHAPES["riccati_quad_bm"]
-    if (ds, 1) not in built:
-        raise ValueError(
-            f"batch-major backward kernel is built for (ds, dc) in {built}, "
-            f"got {(ds, 1)}"
-        )
+    _check_built_bm(ds)
     dev, f32 = xs.device, torch.float32
+    g = bq_bm_geometry(B, H, ds, _build.sm_count(dev))
     for name, t, shape in (
         ("Jx", Jx, (B, H, ds, ds)), ("Ju", Ju, (B, H, ds, 1)),
         ("xs", xs, (B, H + 1, ds)), ("us", us, (B, H, 1)),
@@ -411,7 +442,7 @@ def backward_quad(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, dt, obsdim):
     rc = _build.library().ampc_backward_quad_bm(
         ctypes.byref(_quad_diag(obsdim, dt, goal)), p(Jx), p(Ju), p(xs), p(us),
         p(Qdiag), p(Rdiag), p(Fdiag), p(Ks), p(ks), p(lin), p(quad),
-        ds, H, B, dev.index or 0, _build.stream_of(xs),
+        ds, H, B, g["lanes_per_block"], dev.index or 0, _build.stream_of(xs),
     )
     _build.check_rc("backward_quad", rc)
     backward_quad.launches += 1

@@ -945,8 +945,10 @@ def check_fanout_kernels(tag, K1, K6, K7, terms, coeffs, carry, cp, goal, dt, al
         plain_ms=time_ms(lambda: K6.backward_quad_plain(*k6_args), reps=3),
         **bound_keys(n_bytes(*k6_args[:7], *gk), B * H * (riccati_flops(4, 1) + 16)),
     ))
-    print(f"[3] K6 batch-major backward {tag} B={B} H={H}: rel err K/k/lin/quad "
-          f"{[f'{e:.3e}' for e in e6]} (tol {TOL_K6})", flush=True)
+    g6 = K6.bq_bm_geometry(B, H, sm_count=K6._build.sm_count(xs.device))
+    print(f"[3] K6 batch-major backward {tag} B={B} H={H} ({g6['group']} threads a lane, "
+          f"{g6['lanes_per_block']} lanes a block, {g6['blocks']} blocks, ring {g6['ring']}): "
+          f"rel err K/k/lin/quad {[f'{e:.3e}' for e in e6]} (tol {TOL_K6})", flush=True)
     if not max(e6) <= TOL_K6:
         failures.append(f"K6 {tag} rel err {max(e6):.3e} > {TOL_K6}")
 
@@ -1172,13 +1174,19 @@ def main(profile=False):
         print(f"[1] K2 {tag} B={B}: {g['lanes_per_block']} lanes a block, {g['blocks']} "
               f"blocks, {g['smem']} bytes of shared memory a block (either Jacobian type)",
               flush=True)
-    # K7's threads a candidate and block at the fan-out's batches (B and
-    # its compaction stages, H=10) and at B=4096.
+    # K7's threads a candidate and block, and K6's threads a lane, block
+    # and ring, at the fan-out's batches (B and its compaction stages,
+    # H=10) and at B=4096 (K6 at H=200).
     for B in [FAN_B] + [int(round(FAN_B * f)) for _, f in parse_schedule(FAN_SCHEDULE)] \
             + [B_KERNEL]:
         g = K3.sindy_geometry(B, 10)
         print(f"[1] K7 B={B}: {g['group']} threads a candidate, {g['threads']} threads a "
               f"block, {g['blocks']} blocks", flush=True)
+        Hb = FAN_H if B != B_KERNEL else H
+        g = K2.bq_bm_geometry(B, Hb, sm_count=sms)
+        print(f"[1] K6 B={B} H={Hb}: {g['group']} threads a lane, {g['lanes_per_block']} "
+              f"lanes a block, {g['blocks']} blocks, ring of {g['ring']} steps, {g['smem']} "
+              f"bytes of shared memory a block", flush=True)
     for tag, ds, dc, B in (("cheetah", 18, 6, B_HC), ("cheetah closed loop", 18, 6, B_HCQ),
                            ("dense cartpole", 4, 1, B_DENSE)):
         g = K4.general_geometry(ds, dc, B, sms)

@@ -306,7 +306,7 @@ def test_general_geometry_packs_lanes_on_a_small_card():
     assert (g["lanes_per_block"], g["blocks"]) == (1, 32)
 
 
-@pytest.mark.parametrize("which", ["K2", "K4"])
+@pytest.mark.parametrize("which", ["K2", "K4", "K6"])
 def test_backward_kernels_refuse_unbuilt_shapes_by_name(which, monkeypatch):
     """The pickers and the wrappers of tensors that are not on the CPU
     raise at a shape with no instance, before any launch (device_kind and
@@ -314,6 +314,10 @@ def test_backward_kernels_refuse_unbuilt_shapes_by_name(which, monkeypatch):
     monkeypatch.setattr(_build, "device_kind", lambda t: "cuda")
     monkeypatch.setattr(_build, "sm_count", lambda device: _build.H100_SMS)
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device="meta")
+    if which == "K6":        # its wrapper: tests/test_torch_import.py
+        with pytest.raises(ValueError, match="batch-major backward kernel is built for"):
+            K2.bq_bm_geometry(64, 10, ds=5)
+        return
     if which == "K2":
         with pytest.raises(ValueError, match="backward kernel is built for"):
             K2.bq_geometry(64, ds=5)
@@ -531,3 +535,323 @@ def test_relin_geometry_mirrors_the_source():
                  "const dim3 grid((unsigned)((B + NL - 1) / NL), (unsigned)H);",
                  "const unsigned grid = (unsigned)((n + NL - 1) / NL);"):
         assert line in src, line
+
+
+# K6 (batch-major diagonal-cost backward): the batches of the cost
+# fan-out's batch-major configuration (1,024 and its compaction stages),
+# the A/B shapes and odd batches, at H=10 (the whole horizon in the ring)
+# and H=200 (the ring wraps).
+BQBM_BATCHES = (1, 7, 128, 256, 512, 1023, 1024, 4096, 16384)
+
+
+def _bqbm_flush(B, H, NL, G, blocks):
+    """Under riccati_quad_bm.cu's flush arithmetic, how often each (lane,
+    step) of Ks and ks is written: every RING steps and at t = 0 (slot
+    s), thread g of lane b's group writes steps t + g, t + g + G, ...
+    <= t + s, for b < B."""
+    RING = _build.BQBM_RING
+    counts = np.zeros((B, H), int)
+    lanes = np.arange(blocks * NL)
+    lanes = lanes[lanes < B]
+    for t in range(H - 1, -1, -1):
+        s = (H - 1 - t) % RING
+        if s != RING - 1 and t != 0:
+            continue
+        for g in range(G):
+            for d in range(g, s + 1, G):
+                np.add.at(counts, (lanes, np.full_like(lanes, t + d)), 1)
+    return counts
+
+
+@pytest.mark.parametrize("H", (10, 200))
+@pytest.mark.parametrize("B", BQBM_BATCHES)
+def test_bq_bm_geometry_covers_every_lane_and_row_once(B, H):
+    """riccati_quad_bm.cu: thread tid of block bx is thread g = tid % G of
+    lane bx NL + tid / G (G = ds = 4) and owns row g of the value matrix:
+    every (lane, row) falls to one thread, a lane's group to one warp;
+    every (lane, step) of the gains is written once by the groups'
+    flushes; the block fits the card's shared memory."""
+    g = K2.bq_bm_geometry(B, H)
+    G, NL, threads = g["group"], g["lanes_per_block"], g["threads"]
+    assert G == 4 and threads == NL * G and threads % 32 == 0
+    assert threads <= _build.BQBM_MAX_THREADS
+    assert g["blocks"] == -(-B // NL)
+    assert g["ring"] == min(H, _build.BQBM_RING)
+    assert g["smem"] <= _build.MAX_SMEM_BYTES
+    blk, tid = np.divmod(np.arange(g["blocks"] * threads), threads)
+    lane, row = blk * NL + tid // G, tid % G
+    ok = lane < B
+    seen = np.zeros((B, 4), int)
+    np.add.at(seen, (lane[ok], row[ok]), 1)
+    assert (seen == 1).all(), (B, H)
+    warp = (blk * threads + tid) // 32
+    first = np.flatnonzero(row == 0)
+    assert (warp[first] == warp[first + G - 1]).all()
+    assert (_bqbm_flush(B, H, NL, G, g["blocks"]) == 1).all(), (B, H)
+
+
+def test_bq_bm_geometry_spreads_the_fan_out():
+    """A group of four a lane; one warp a block up to ~4 blocks an SM:
+    the fan-out's 1,024 lanes take 128 warps on 128 SMs, its 128 lanes
+    16; the whole horizon of H=10 in the ring."""
+    g = K2.bq_bm_geometry(1024, 10)
+    assert (g["group"], g["lanes_per_block"], g["blocks"], g["ring"]) == (4, 8, 128, 10)
+    assert K2.bq_bm_geometry(128, 10)["blocks"] == 16
+    g = K2.bq_bm_geometry(4096, 200)
+    assert (g["group"], g["threads"], g["blocks"], g["ring"]) == (4, 32, 512, _build.BQBM_RING)
+    assert K2.bq_bm_geometry(16384, 200)["threads"] == _build.BQBM_MAX_THREADS
+
+
+def test_bq_bm_ring_reads_each_step_from_the_slot_it_was_fetched_into():
+    """riccati_quad_bm.cu's ring: the prologue fetches step H-1-s into
+    slot s (s < RING-1); the step t (slot s_t = (H-1-t) % RING) fetches
+    step t-(RING-1) into the slot step t+1 read. Every step is fetched
+    once, into the slot it is read from, at most RING-1 steps ahead; the
+    slots used fit the ring the wrapper sizes."""
+    RING = _build.BQBM_RING
+    for H in (1, 2, 10, RING - 1, RING, RING + 1, 25, 200):
+        where, when = {}, {}
+        for s in range(RING - 1):
+            if H - 1 - s >= 0:
+                where[H - 1 - s], when[H - 1 - s] = s, H
+        s = 0
+        for t in range(H - 1, -1, -1):
+            assert where[t] == s == (H - 1 - t) % RING and when[t] - t <= RING - 1
+            assert s < K2.bq_bm_geometry(64, H)["ring"]
+            if t - (RING - 1) >= 0:
+                tf = t - (RING - 1)
+                assert tf not in where
+                where[tf], when[tf] = (RING - 1 if s == 0 else s - 1), t
+                # The slot's previous step (t + 1) has been read.
+                assert where[tf] == (H - 1 - (t + 1)) % RING
+            s = 0 if s == RING - 1 else s + 1
+        assert sorted(where) == list(range(H))
+
+
+def test_bq_bm_geometry_mirrors_the_source():
+    """The ring depth, the largest block, the group, the shared memory a
+    lane and the index arithmetic that bq_bm_geometry and the tests
+    above mirror are riccati_quad_bm.cu's."""
+    import re
+
+    src = (_build.CSRC_DIR / "riccati_quad_bm.cu").read_text()
+    assert int(re.search(r"#define AMPC_BQBM_RING (\d+)", src)[1]) == _build.BQBM_RING
+    assert int(re.search(r"#define AMPC_BQBM_MAX_THREADS (\d+)", src)[1]) == \
+        _build.BQBM_MAX_THREADS
+    for line in ("constexpr int RING = AMPC_BQBM_RING, G = DS;",
+                 "constexpr int G = 4;",
+                 "return S * 30 + 40;",
+                 "const int NL = blockDim.x / G;    // lanes a block",
+                 "const int S = H < RING ? H : RING;",
+                 "const int tid = threadIdx.x, g = tid % G, l = tid / G;",
+                 "const long long b = (long long)blockIdx.x * NL + l;",
+                 "const int i = g;",
+                 "for (int q0 = 0; q0 < DS + 3; q0 += G) {",
+                 "if (H - 1 - s >= 0) fetch(H - 1 - s, s);",
+                 "ampc_cp_async_wait<RING - 2>();",
+                 "if (t - (RING - 1) >= 0) fetch(t - (RING - 1), s == 0 ? RING - 1 : s - 1);",
+                 "sK[(s * NL + l) * DS + i] = K_i;",
+                 "if (s == RING - 1 || t == 0) {",
+                 "for (int d = g; d <= s; d += G) {",
+                 "const long long o = b * H + t + d;",
+                 "const int sd = s - d;  // the slot of step t + d",
+                 "s = s == RING - 1 ? 0 : s + 1;",
+                 "const unsigned blocks = (unsigned)((B + lanes - 1) / lanes);",
+                 "kernel<<<blocks, lanes * G, smem, (cudaStream_t)stream>>>(",
+                 "lanes < 1 || lanes * G > AMPC_BQBM_MAX_THREADS || (lanes * G) % 32 != 0)"):
+        assert line in src, line
+
+
+# A numpy float32 model of K6's step: the one-thread recursion
+# (riccati_quad_step.cuh: ampc_bq_step, the kernel before its redesign)
+# against the kernel's group of G threads a lane, each thread's entries
+# computed from what its group exchanged to it, with its copies through
+# the ring, its gain stage and its warp's flushes. Products and sums are
+# rounded separately (numpy has no float32 FMA), the same in both, so
+# the two agree bit for bit exactly when every thread computes each of
+# its entries from the same operands in the same order.
+_f = np.float32
+
+
+def _fold(a, b):
+    s = a[0] * b[0]
+    for k in range(1, len(a)):
+        s = s + a[k] * b[k]
+    return s
+
+
+def _bqbm_one_thread(Jx, Ju, xs, us, Qd, Rd, Fd, goal, two_dt, obsdim):
+    """ampc_bq_step's order on (B, D) lanes x draws: Ks (B, H, 4, D), ks
+    (B, H, D), lin, quad (B, D)."""
+    B, H = Jx.shape[:2]
+    ds = 4
+    qd = [Qd[:, i] * two_dt if i < obsdim else np.zeros_like(Rd[:, 0]) for i in range(ds)]
+    rd2 = Rd[:, 0] * two_dt
+    fd2 = [Fd[:, i] * _f(2) if i < obsdim else np.zeros_like(Rd[:, 0]) for i in range(ds)]
+    V = [[fd2[i] if i == j else np.zeros_like(rd2) for j in range(ds)] for i in range(ds)]
+    v = [fd2[i] * (xs[:, H, i] - goal[i]) if i < obsdim else np.zeros_like(rd2)
+         for i in range(ds)]
+    lin, quad = np.zeros_like(rd2), np.zeros_like(rd2)
+    Ks, ks = np.zeros((B, H, ds) + rd2.shape[1:], _f), np.zeros((B, H) + rd2.shape[1:], _f)
+    for t in range(H - 1, -1, -1):
+        jx = [[Jx[:, t, k, j] for j in range(ds)] for k in range(ds)]
+        ju = [Ju[:, t, k, 0] for k in range(ds)]
+        cx = [qd[i] * (xs[:, t, i] - goal[i]) if i < obsdim else np.zeros_like(rd2)
+              for i in range(ds)]
+        cu = rd2 * us[:, t, 0]
+        JuV = [_fold(ju, [V[k][j] for k in range(ds)]) for j in range(ds)]
+        Quu = rd2 + _fold(JuV, ju)
+        inv = _f(1) / Quu
+        Qux = [_fold(JuV, [jx[k][j] for k in range(ds)]) for j in range(ds)]
+        qu = cu + _fold(ju, v)
+        K = [-Qux[j] * inv for j in range(ds)]
+        kff = -qu * inv
+        lin = lin + qu * kff
+        quad = quad + kff * Quu * kff
+        JxV = [[_fold([jx[k][i] for k in range(ds)], [V[k][j] for k in range(ds)])
+                for j in range(ds)] for i in range(ds)]
+        qx = [cx[i] + _fold([jx[k][i] for k in range(ds)], v) for i in range(ds)]
+        V = [[_fold(JxV[i], [jx[k][j] for k in range(ds)]) + (qd[i] if i == j else _f(0))
+              + Qux[i] * K[j] + K[i] * Qux[j] + K[i] * K[j] * Quu
+              for j in range(ds)] for i in range(ds)]
+        resid = qu + Quu * kff
+        v = [qx[i] + Qux[i] * kff + K[i] * resid for i in range(ds)]
+        Ks[:, t] = np.stack(K, axis=1)
+        ks[:, t] = kff
+    return Ks, ks, lin, quad
+
+
+def _bqbm_group(Jx, Ju, xs, us, Qd, Rd, Fd, goal, two_dt, obsdim):
+    """riccati_quad_bm.cu for one warp (8 lanes of G = 4 threads, the last
+    one past the batch of B = 7): every thread's work and its accesses to
+    the ring, the exchange buffers and the gain stage, run thread by
+    thread, vectorized over the draws. Shared memory starts as NaN, so a
+    value read before it was written shows in the outputs."""
+    B, H = Jx.shape[:2]
+    ds, RING, G = 4, _build.BQBM_RING, 4
+    NL = 32 // G
+    D = Jx.shape[-1]
+    nan = lambda *s: np.full(s + (D,), np.nan, _f)
+    sJ, sX, sU = nan(RING, NL, 20), nan(RING, NL, ds), nan(RING, NL)
+    sK, sk, sV = nan(RING, NL, ds), nan(RING, NL), nan(2, NL, 20)
+    Ks, ks = np.full((B, H, ds, D), np.nan, _f), np.full((B, H, D), np.nan, _f)
+    lin_out, quad_out = np.full((B, D), np.nan, _f), np.full((B, D), np.nan, _f)
+    threads = [(l, g) for l in range(NL) for g in range(G)]
+    bl = {l: min(l, B - 1) for l in range(NL)}
+    zero = lambda b: _f(0) * Rd[b, 0]
+    st = {}
+    for l, i in threads:                          # thread g owns row i = g
+        b = bl[l]
+        qd = Qd[b, i] * two_dt if i < obsdim else zero(b)
+        gl = goal[i] if i < obsdim else _f(0)
+        fd2 = Fd[b, i] * _f(2) if i < obsdim else zero(b)
+        Vr = [fd2 if i == j else zero(b) for j in range(ds)]
+        vr = fd2 * (xs[b, H, i] - gl) if i < obsdim else zero(b)
+        st[l, i] = dict(qd=qd, gl=gl, Vr=Vr, vr=vr, rd2=Rd[b, 0] * two_dt,
+                        lin=zero(b), quad=zero(b))
+
+    def fetch(l, g, t, s):
+        b = bl[l]
+        for q in range(g, 7, G):
+            if q < ds:
+                sJ[s, l, 4 * q:4 * q + 4] = Jx[b, t, q]
+            elif q == 4:
+                sJ[s, l, 16:20] = Ju[b, t, :, 0]
+            elif q == 5:
+                sX[s, l] = xs[b, t]
+            else:
+                sU[s, l] = us[b, t, 0]
+
+    for l, g in threads:
+        for s in range(RING - 1):
+            if H - 1 - s >= 0:
+                fetch(l, g, H - 1 - s, s)
+    s = 0
+    for t in range(H - 1, -1, -1):
+        xv = sV[t & 1]
+        for l, i in threads:
+            xv[l, 4 * i:4 * i + 4] = st[l, i]["Vr"]
+            xv[l, 16 + i] = st[l, i]["vr"]
+        full = {(l, g): ([[xv[l, 4 * i + j] for j in range(ds)] for i in range(ds)],
+                         [xv[l, 16 + i] for i in range(ds)])
+                for l, g in threads}              # after __syncwarp
+        for l, g in threads:
+            if t - (RING - 1) >= 0:
+                fetch(l, g, t - (RING - 1), RING - 1 if s == 0 else s - 1)
+        for l, g in threads:
+            c = st[l, g]
+            V, v = full[l, g]
+            J = sJ[s, l]
+            jx = [[J[4 * k + j] for j in range(ds)] for k in range(ds)]
+            ju = [J[16 + k] for k in range(ds)]
+            JuV = [_fold(ju, [V[k][j] for k in range(ds)]) for j in range(ds)]
+            Quu = c["rd2"] + _fold(JuV, ju)
+            inv = _f(1) / Quu
+            Qux = [_fold(JuV, [jx[k][j] for k in range(ds)]) for j in range(ds)]
+            qu = c["rd2"] * sU[s, l] + _fold(ju, v)
+            K = [-Qux[j] * inv for j in range(ds)]
+            kff = -qu * inv
+            c["lin"] = c["lin"] + qu * kff
+            quu_k = Quu * kff
+            c["quad"] = c["quad"] + quu_k * kff
+            resid = qu + quu_k
+            i = g
+            Jc = [J[4 * k + i] for k in range(ds)]
+            qux_i = _fold(JuV, Jc)
+            K_i = -qux_i * inv
+            JxV = [_fold(Jc, [V[k][j] for k in range(ds)]) for j in range(ds)]
+            cx = (sX[s, l, i] - c["gl"]) * c["qd"] if i < obsdim else _f(0)
+            qx = _fold(Jc, v) + cx
+            c["Vr"] = [_fold(JxV, [jx[k][j] for k in range(ds)])
+                       + (c["qd"] if i == j else _f(0)) + qux_i * K[j]
+                       + K_i * Qux[j] + K_i * K[j] * Quu for j in range(ds)]
+            c["vr"] = qx + qux_i * kff + K_i * resid
+            sK[s, l, i] = K_i
+            if g == 0:
+                sk[s, l] = kff
+        if s == RING - 1 or t == 0:               # __syncwarp, the flush
+            for l, g in threads:
+                if l < B:
+                    for d in range(g, s + 1, G):
+                        Ks[l, t + d] = sK[s - d, l]
+                        ks[l, t + d] = sk[s - d, l]
+        s = 0 if s == RING - 1 else s + 1
+    for l, g in threads:
+        if l < B and g == 0:
+            lin_out[l], quad_out[l] = st[l, g]["lin"], st[l, g]["quad"]
+    return Ks, ks, lin_out, quad_out
+
+
+@pytest.mark.parametrize("H", (5, _build.BQBM_RING + 3))
+def test_bq_bm_group_step_equals_the_one_thread_step(H):
+    """Over seeded random steps (16 draws a lane; the fan-out's shape of
+    step, Jx near the identity, positive cost diagonals), the group of
+    four threads gives the one-thread recursion's Ks, ks, lin and quad bit
+    for bit, with the whole horizon in the ring (H=5) and with the ring
+    wrapping and a partial last flush (H=15); and the one-thread model is
+    the plain PyTorch version run in float32 (the same roundings)."""
+    rng = np.random.default_rng(15 + H)
+    B, D, ds, obsdim = 7, 16, 4, 3
+    r = lambda *s: rng.standard_normal(s + (D,)).astype(_f)
+    Jx = (np.eye(ds, dtype=_f)[None, None, :, :, None] + _f(0.1) * r(B, H, ds, ds)).astype(_f)
+    Ju = (_f(0.2) * r(B, H, ds, 1)).astype(_f)
+    xs, us = r(B, H + 1, ds), r(B, H, 1)
+    Qd = (10 ** rng.uniform(-1, 1.5, (B, obsdim, D))).astype(_f)
+    Rd = (10 ** rng.uniform(-3, 0, (B, 1, D))).astype(_f)
+    Fd = (10 ** rng.uniform(-1, 1.5, (B, obsdim, D))).astype(_f)
+    goal, dt = (0.5, -0.25, 0.125), 0.05
+    two_dt = _f(2.0 * dt)
+    args = (Jx, Ju, xs, us, Qd, Rd, Fd, [_f(x) for x in goal], two_dt, obsdim)
+    one = _bqbm_one_thread(*args)
+    grp = _bqbm_group(*args)
+    for a, b_, name in zip(one, grp, ("Ks", "ks", "lin", "quad")):
+        assert np.isfinite(a).all(), name
+        assert np.array_equal(a.view(np.uint32), b_.view(np.uint32)), name
+    # The plain version in float32, one draw at a time.
+    for d in (0, D - 1):
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a[..., d]))
+        Ks, ks, lin, quad = K2.backward_quad_plain(t(Jx), t(Ju), t(xs), t(us), t(Qd), t(Rd),
+                                                   t(Fd), goal, dt, obsdim)
+        for got, want in ((Ks[:, :, 0], one[0][..., d]), (ks[..., 0], one[1][..., d]),
+                          (lin, one[2][..., d]), (quad, one[3][..., d])):
+            assert np.array_equal(got.numpy().view(np.uint32), want.view(np.uint32))

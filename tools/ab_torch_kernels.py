@@ -33,7 +33,9 @@ that every checkout computes the same bits:
   there and at B=4096, H=200 also K1's batch-major entry
   (``relin_jacobians_bm``, also at B=16384; in a tree without it the
   lanes-last entry behind the solver's old layout adapter), K6
-  (``backward_quad``, per-lane cost) and K7 (``sindy_line_search``). Each tree is driven through its
+  (``backward_quad``, per-lane cost, also at B=16384, and at B=1,024
+  with H=20 and 40, whose times against H=10 give a step's cost) and K7
+  (``sindy_line_search``). Each tree is driven through its
   own wrappers (the signatures of K8 and K9 differ between trees); K8's
   digest covers its objectives only, K9's its outputs (xs, us, jac,
   du2), which every tree computes alike.
@@ -46,7 +48,9 @@ same work.
 A tree whose K7 wrapper picks its threads a candidate by batch also
 times K7 at each group (``_g4``, ``_g8``), and one whose K1 wrappers
 pick a thread per (point, column) or per point times both entries in
-both (``_split``, ``_whole``); every variant must give the same bits.
+both (``_split``, ``_whole``); every variant must give the same bits. A
+tree with ``bq_bm_geometry`` records the geometry each K6 call took
+(``_geometry``).
 
 ``--only`` keeps the shapes whose tag starts with one of the prefixes
 (K1, K2, K3, K4, K5, K6, K7, K8, K9, split).
@@ -122,7 +126,8 @@ LS_SHAPES = tuple(sorted(
        for B, H in ((4096, 200), (16384, 200), (256, 20)) + FAN_BH]
     + [(f"K1_bm_B{B}_H{H}", "K1bm", B, H, "fixed", "f32")
        for B, H in ((4096, 200), (16384, 200)) + FAN_BH]
-    + [(f"K6_B{B}_H{H}", "K6", B, H, "lane", "f32") for B, H in ((4096, 200),) + FAN_BH]
+    + [(f"K6_B{B}_H{H}", "K6", B, H, "lane", "f32")
+       for B, H in ((4096, 200), (16384, 200), (1024, 20), (1024, 40)) + FAN_BH]
     + [(f"K7_B{B}_H{H}", "K7", B, H, "fixed", "f32") for B, H in ((4096, 200),) + FAN_BH],
     key=lambda r: (r[2], r[3])))
 ALPHAS = tuple(0.2 ** k for k in range(L))
@@ -408,6 +413,11 @@ def time_one(root, only):
                 record(f"{tag}_{name}", run)
             finally:
                 setattr(module, const, kept)
+        if kind == "K6" and hasattr(K2, "bq_bm_geometry"):
+            g = K2.bq_bm_geometry(B, H, sm_count=K2._build.sm_count(dev))
+            out[f"{tag}_geometry"] = (f"{g['group']} threads a lane, {g['lanes_per_block']} "
+                                      f"lanes a block, {g['blocks']} blocks, ring {g['ring']}, "
+                                      f"{g['smem']} bytes of shared memory a block")
     carry = None
     for tag, B, H, lane, bf16, d4 in K2_SHAPES:
         if not wanted(tag):
