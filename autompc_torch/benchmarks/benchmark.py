@@ -23,6 +23,12 @@ class Benchmark(ABC):
         """Ground-truth dynamics: (obs, ctrl) -> next obs."""
         raise NotImplementedError
 
+    def gen_trajs(self, seed, n_trajs, traj_len=None, device=None):
+        """The training set of ``gen_trajs_batch`` as a list of
+        trajectories."""
+        kw = {} if traj_len is None else {"traj_len": traj_len}
+        return self.gen_trajs_batch(seed, n_trajs, device=device, **kw).to_list()
+
     @abstractmethod
     def gen_trajs_batch(self, seed, n_trajs, traj_len=None, device=None):
         """Generate a training set as a TrajectoryBatch on ``device``

@@ -1,5 +1,9 @@
+from .controller import Controller, ControllerFactory
 from .ilqr import (
+    IterativeLQR,
+    IterativeLQRFactory,
     make_batched_ilqr_solver,
+    make_ilqr_solver,
     make_scheduled_ilqr_solver,
     parse_schedule,
 )

@@ -1,6 +1,8 @@
-"""Batched iterative LQR with converged-lane compaction (port of
-``autompc_tpu/control/ilqr.py``: ``make_batched_ilqr_solver`` and
-``make_scheduled_ilqr_solver``).
+"""Iterative LQR: the batched solver with converged-lane compaction, the
+single-lane solver and the receding-horizon controller (port of
+``autompc_tpu/control/ilqr.py``: ``make_batched_ilqr_solver``,
+``make_scheduled_ilqr_solver``, ``make_ilqr_solver``, ``IterativeLQR``
+and ``IterativeLQRFactory``).
 
 Semantics are the JAX package's: dt-scaled stage expansions, the Riccati
 backward pass, ``alpha = ls_discount**i`` line search with the
@@ -45,7 +47,10 @@ acceptance rule in tensor ops, and relinearizes the chosen trajectory
 ``pred_diff``).
 
 Both loops read the active-lane count on the host once per iteration.
-Every other option of the JAX solver raises ``ValueError`` naming it.
+``make_ilqr_solver`` is the batch-major body at one lane, the model
+differentiated by ``torch.func.jacfwd`` unless it has a closed-form
+Jacobian. Every other option of the JAX solver raises ``ValueError``
+naming it.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ import os
 import numpy as np
 import torch
 
+from ..config import ConfigurationSpace, UniformIntegerHyperparameter
 from ..ops._build import WIDE_B
 from ..ops.cuda_linesearch import fused_line_search, fused_line_search_wide, sindy_line_search
 from ..ops.cuda_mlp_linesearch import fold_mlp_params, mlp_line_search
@@ -62,6 +68,8 @@ from ..ops.cuda_relin import relin_jacobians, relin_jacobians_bm
 from ..ops.cuda_riccati import backward_quad, backward_quad_ll
 from ..ops.cuda_riccati_general import riccati_general
 from ..ops.riccati import tvlqr_backward_scan
+from ..sysid.model import model_device
+from .controller import Controller, ControllerFactory
 
 
 def _unsupported(name, why="is not ported to autompc_torch yet"):
@@ -476,7 +484,10 @@ def make_batched_ilqr_solver(
         def make_carry0(params, x0s, uguess, cost_params=None):
             B = x0s.shape[0]
             cp = lane_costs(cost_params, x0s)
-            if feature_spec is not None:
+            if feature_spec is not None or getattr(pred_diff, "all_points", False):
+                # The Jacobians at every point in one call after the
+                # rollout: the feature kernel, or an autodiff pred_diff
+                # (jacfwd_pred_diff), whose cost is a call, not a point.
                 xs0 = rollout(params, x0s, uguess)
                 Jx0, Ju0 = relinearize(params, xs0, uguess)
             else:
@@ -755,3 +766,196 @@ def make_scheduled_ilqr_solver(
         return solve0._finalize(out)
 
     return solve
+
+
+def jacfwd_pred_diff(pred_core, ds):
+    """``pred_diff(params, x (..., ds), u (..., dc)) -> (pred, Jx, Ju)``
+    of any model step by forward-mode autodiff (``torch.func.jacfwd``,
+    the JAX package's ``jax.jacfwd``), one point at a time under
+    ``torch.func.vmap`` over the flattened leading axes: Jx
+    (..., ds, ds), Ju (..., ds, dc)."""
+    from torch.func import jacfwd, vmap
+
+    def point(params, x, u):
+        def f(z):
+            y = pred_core(params, z[:ds], z[ds:])
+            return y, y
+
+        J, y = jacfwd(f, has_aux=True)(torch.cat([x, u]))
+        return y, J[:, :ds], J[:, ds:]
+
+    def pred_diff(params, x, u):
+        lead = x.shape[:-1]
+        y, Jx, Ju = vmap(point, in_dims=(None, 0, 0))(
+            params, x.reshape(-1, x.shape[-1]), u.reshape(-1, u.shape[-1]))
+        return (y.reshape(lead + y.shape[1:]), Jx.reshape(lead + Jx.shape[1:]),
+                Ju.reshape(lead + Ju.shape[1:]))
+
+    # A call costs the same for one point and for a horizon's: the solver
+    # rolls out with pred_core and then differentiates every point at once.
+    pred_diff.all_points = True
+    return pred_diff
+
+
+def make_ilqr_solver(
+    pred_core,
+    cost,
+    H: int,
+    ds: int,
+    dc: int,
+    obsdim: int,
+    dt: float,
+    ubounds=None,
+    u_threshold: float = 1e-3,
+    max_iter: int = 50,
+    ls_max_iter: int = 10,
+    ls_discount: float = 0.2,
+    ls_cost_threshold: float = 0.3,
+    unroll: int = 8,
+    backward: str = "scan",
+    pred_diff=None,
+):
+    """The single-lane iLQR solve: ``solve(params, x0 (ds,), uguess
+    (H, dc)) -> (converged, xs (H+1, ds), us (H, dc), Ks (H, dc, ds),
+    ks (H, dc))`` on the device of ``x0``.
+
+    The JAX package's single-lane solver is the batch-major iteration of
+    ``make_batched_ilqr_solver`` for one lane, and so is this one: that
+    body run at B = 1 with the plain Riccati recursion
+    (``ops/riccati.py::tvlqr_backward_scan``), all ``ls_max_iter`` step
+    sizes rolled out together through ``pred_core``, and the reference's
+    rules (Jacobians relinearized only after a successful line search; a
+    failed search that worsens the objective by at most 1e-3 is still
+    taken). ``pred_diff`` is the model's closed-form Jacobian, batched
+    over every leading axis; without one the model is differentiated by
+    ``jacfwd_pred_diff``. ``backward="assoc"`` (the associative-scan
+    Riccati pass) raises; ``unroll`` is a JAX scan option and is
+    ignored.
+    """
+    del unroll
+    if backward == "assoc":
+        raise _unsupported('backward="assoc" (the associative-scan Riccati pass)')
+    solve_b = make_batched_ilqr_solver(
+        pred_core, cost, H=H, ds=ds, dc=dc, obsdim=obsdim, dt=dt, ubounds=ubounds,
+        u_threshold=u_threshold, max_iter=max_iter, ls_max_iter=ls_max_iter,
+        ls_discount=ls_discount, ls_cost_threshold=ls_cost_threshold, backward="scan",
+        pred_diff=pred_diff or jacfwd_pred_diff(pred_core, ds),
+    )
+
+    def solve(params, x0, uguess):
+        return tuple(a[0] for a in solve_b(params, x0[None], uguess[None]))
+
+    return solve
+
+
+class IterativeLQRFactory(ControllerFactory):
+    """Hyperparameters:
+
+    - *horizon* (int, 5..25, default 20): MPC optimization horizon.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.Controller = IterativeLQR
+        self.name = "IterativeLQR"
+
+    def get_configuration_space(self):
+        cs = ConfigurationSpace()
+        cs.add_hyperparameter(
+            UniformIntegerHyperparameter("horizon", lower=5, upper=25, default_value=20)
+        )
+        return cs
+
+
+class IterativeLQR(Controller):
+    """Receding-horizon iLQR on ``model``: each step solves from a zero
+    control guess (``make_ilqr_solver``) and applies the first control
+    with its feedback. ``reuse_feedback`` > 0 replays that many steps of
+    the cached solution and gains before solving again (at most the
+    horizon). ``mode`` None clips the controls to the bounds; the
+    reference names "barrier" and "auglag" but implements neither.
+    Runs on the device of the model's parameters."""
+
+    def __init__(
+        self,
+        system,
+        task,
+        model,
+        horizon,
+        reuse_feedback=-1,
+        ubounds=None,
+        mode=None,
+        verbose=False,
+    ):
+        super().__init__(system, task, model)
+        self.horizon = int(horizon)
+        if reuse_feedback is None or reuse_feedback <= 0:
+            self.reuse_feedback = 0
+        else:
+            self.reuse_feedback = min(int(reuse_feedback), self.horizon)
+        if mode not in (None, "barrier", "auglag"):
+            raise ValueError("mode has to be None/barrier/auglag")
+        if ubounds is None and task.are_ctrl_bounded():
+            bounds = task.get_ctrl_bounds()
+            ubounds = (bounds[:, 0], bounds[:, 1])
+        self.ubounds = ubounds
+        self._model_params = model.params
+        self.device = model_device(model)
+        self._solve = make_ilqr_solver(
+            model.pred_core,
+            task.get_cost(),
+            H=self.horizon,
+            ds=model.state_dim,
+            dc=system.ctrl_dim,
+            obsdim=system.obs_dim,
+            dt=system.dt,
+            ubounds=ubounds,
+            pred_diff=getattr(model, "pred_diff_core", None),
+        )
+
+    @property
+    def state_dim(self):
+        return self.model.state_dim + self.system.ctrl_dim
+
+    @staticmethod
+    def is_compatible(system, task, model):
+        return (
+            task.get_cost().is_quad
+            and not task.are_obs_bounded()
+            and not task.eq_cons_present()
+            and not task.ineq_cons_present()
+        )
+
+    def traj_to_state(self, traj):
+        """The controller state: the model's state, the last control, the
+        cached solution and gains, and (host integers) the steps taken
+        from the cache and whether the next step must solve."""
+        H, dc, ds = self.horizon, self.system.ctrl_dim, self.model.state_dim
+        z = traj.obs.new_zeros
+        return dict(
+            model_state=self.model.traj_to_state(traj),
+            last_u=traj[-1].ctrl,
+            xs=z((H + 1, ds)), us=z((H, dc)), Ks=z((H, dc, ds)), ks=z((H, dc)),
+            step_count=0,
+            need_recompute=True,
+        )
+
+    def step(self, cstate, new_obs):
+        params = self._model_params
+        state = self.model.update_state_core(
+            params, cstate["model_state"], cstate["last_u"], new_obs
+        )
+        if self.reuse_feedback == 0 or cstate["need_recompute"]:
+            _, xs, us, Ks, ks = self._solve(
+                params, state, state.new_zeros((self.horizon, self.system.ctrl_dim)))
+            step_count = 0
+        else:
+            xs, us, Ks, ks = (cstate[k] for k in ("xs", "us", "Ks", "ks"))
+            step_count = cstate["step_count"]
+        u = us[step_count] + Ks[step_count] @ (state - xs[step_count])
+        return u, dict(
+            model_state=state, last_u=u, xs=xs, us=us, Ks=Ks, ks=ks,
+            step_count=step_count + 1,
+            # Solve again when the cached gains are spent.
+            need_recompute=step_count + 1 >= self.reuse_feedback,
+        )

@@ -1,9 +1,10 @@
 """Cost layer (port of ``autompc_tpu/costs/cost.py``).
 
 Every ``eval_*`` method takes a tensor whose LAST axis is the
-observation (or control) and evaluates all leading axes at once.
-Quadratic costs keep their closed forms; the autodiff fallbacks and the
-cost algebra of the JAX package are not ported yet (the main path needs
+observation (or control) and evaluates all leading axes at once;
+``__call__(traj)`` is the task metric of a whole trajectory. Quadratic
+costs keep their closed forms; the autodiff fallbacks and the cost
+algebra of the JAX package are not ported yet (the ported paths need
 the quadratic forms only).
 
 Divergence from the original AutoMPC, kept from the JAX package on
@@ -31,9 +32,26 @@ class Cost:
         self._R = None
         self._F = None
         self._goal = None
+        self._on = {}
 
     def _mat(self, M, like):
-        return M.to(device=like.device, dtype=like.dtype)
+        """``M`` on ``like``'s device and dtype, copied there once: a
+        host-to-device copy each call would wait for the card's queue."""
+        key = (id(M), like.device, like.dtype)
+        if key not in self._on:
+            self._on[key] = M.to(device=like.device, dtype=like.dtype)
+        return self._on[key]
+
+    def __getstate__(self):
+        # A copy (Task.copy) starts with an empty device cache.
+        return dict(self.__dict__, _on={})
+
+    def __call__(self, traj):
+        """The trajectory's cost: every step's observation and control
+        cost plus the terminal cost at the last observation."""
+        obs, ctrls = traj.obs, traj.ctrls
+        return (self.eval_obs_cost(obs).sum() + self.eval_ctrl_cost(ctrls).sum()
+                + self.eval_term_obs_cost(obs[-1]))
 
     def eval_obs_cost(self, obs):
         if self.is_quad:
@@ -74,6 +92,13 @@ class Cost:
             F = self._mat(self._F, obs)
             return _quad(d, F), d @ (F + F.T).T, F + F.T
         raise NotImplementedError
+
+    def get_cost_matrices(self):
+        """(Q, R, F) as host arrays; raises when the cost is not
+        quadratic."""
+        if self.is_quad:
+            return tuple(M.detach().cpu().numpy().copy() for M in (self._Q, self._R, self._F))
+        raise ValueError("Cost is not quadratic.")
 
     def get_goal(self):
         """The goal as a host array; raises when the cost has none."""

@@ -1,7 +1,6 @@
 """Regression routines for system identification (port of
 ``autompc_tpu/ops/lstsq.py``): SVD least squares, STLSQ, and the
-Gram-staged STLSQ the SINDy trainer uses. ``fista_lasso`` is not ported
-yet (ROADMAP.md).
+Gram-staged STLSQ the SINDy trainer uses, and the FISTA Lasso.
 
 All routines run on whatever device their inputs live on; the
 iteration of ``stlsq_gram`` stops on the host once the support is
@@ -104,3 +103,38 @@ def stlsq_gram(G, b, threshold, n_iters=10, ridge=1e-7):
         if not changed:
             break
     return solve_with_support(support)
+
+
+def soft_threshold(x, thresh):
+    return torch.sign(x) * torch.clamp(x.abs() - thresh, min=0.0)
+
+
+def fista_lasso(A, y, alpha, n_iters=200, mask=None):
+    """FISTA proximal-gradient Lasso: minimizes ``1/(2N) ||A w - y||^2 +
+    alpha ||w||_1`` per target column (sklearn's scaling, N the valid
+    rows) with a fixed iteration budget; the step is 1/L from 30 power
+    iterations on A'A. Returns (d, k) coefficients."""
+    if y.ndim == 1:
+        y = y[:, None]
+    if mask is not None:
+        m = mask.to(A.dtype)[:, None]
+        A, y = A * m, y * m
+        N = torch.clamp(mask.sum().to(A.dtype), min=1.0)
+    else:
+        N = float(max(A.shape[0], 1))
+    v = A.new_ones((A.shape[1],)) / A.shape[1] ** 0.5
+    for _ in range(30):
+        v = A.T @ (A @ v)
+        v = v / (torch.linalg.vector_norm(v) + 1e-30)
+    L = torch.dot(v, A.T @ (A @ v)) / N + 1e-12
+    step = 1.0 / L
+    AtA = (A.T @ A) / N
+    Aty = (A.T @ y) / N
+    w = z = A.new_zeros((A.shape[1], y.shape[1]))
+    t = 1.0
+    for _ in range(n_iters):
+        w_next = soft_threshold(z - step * (AtA @ z - Aty), step * alpha)
+        t_next = 0.5 * (1.0 + (1.0 + 4.0 * t * t) ** 0.5)
+        z = w_next + ((t - 1.0) / t_next) * (w_next - w)
+        w, t = w_next, t_next
+    return w

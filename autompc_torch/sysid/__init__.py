@@ -1,3 +1,5 @@
 from .model import Model
-from .sindy import SINDy
+from .model import ModelFactory
+from .sindy import SINDy, SINDyFactory
+from .dummy import FunctionModel
 from .mlp import MLP

@@ -240,6 +240,21 @@ class FeatureLibrary:
         self._kind = np.array([TRIG_KINDS.index(t.trig) for t in self.terms])
         self._comp = np.array([max(t.trig_comp, 0) for t in self.terms])
         self._freq = np.array([t.freq for t in self.terms])
+        self._on = {}
+
+    def _consts(self, dev, dt):
+        """(E, cols, comp, freq, kind) on ``dev``, copied there once: a
+        host-to-device copy each call would wait for the card's queue."""
+        key = (dev, dt)
+        if key not in self._on:
+            self._on[key] = (
+                torch.as_tensor(self._E, device=dev),
+                torch.arange(self.n_inputs, device=dev),
+                torch.as_tensor(self._comp, device=dev),
+                torch.as_tensor(self._freq, dtype=dt, device=dev),
+                torch.as_tensor(self._kind, device=dev),
+            )
+        return self._on[key]
 
     @property
     def n_features(self) -> int:
@@ -253,13 +268,9 @@ class FeatureLibrary:
         for p in range(1, P + 1):
             pw.append(_ipow(z, p))
         powers = torch.stack(pw, dim=-1)
-        E = torch.as_tensor(self._E, device=dev)
-        cols = torch.arange(self.n_inputs, device=dev)
+        E, cols, comp, freq, kind = self._consts(dev, dt)
         mono = powers[..., cols[None, :], E].prod(-1)          # (..., F)
-        arg = z[..., torch.as_tensor(self._comp, device=dev)] * torch.as_tensor(
-            self._freq, dtype=dt, device=dev
-        )
-        kind = torch.as_tensor(self._kind, device=dev)
+        arg = z[..., comp] * freq
         trig = torch.where(
             kind == 1, torch.sin(arg),
             torch.where(kind == 2, torch.cos(arg), torch.ones_like(arg)),

@@ -11,6 +11,21 @@ from __future__ import annotations
 
 from abc import ABC, abstractmethod
 
+import torch
+
+
+def model_device(model):
+    """The device of a model's tensors: its ``device`` attribute, else
+    that of its first tensor parameter; None when it has neither (a
+    ``FunctionModel``)."""
+    dev = getattr(model, "device", None)
+    if dev is not None:
+        return torch.device(dev)
+    for v in model.params.values():
+        if isinstance(v, torch.Tensor):
+            return v.device
+    return None
+
 
 class Model(ABC):
     def __init__(self, system):
@@ -49,4 +64,27 @@ class Model(ABC):
     @property
     @abstractmethod
     def state_dim(self):
+        raise NotImplementedError
+
+
+class ModelFactory(ABC):
+    """Creates and trains a system-ID model from a hyperparameter
+    configuration. The factory's own keyword arguments override the
+    configuration's values (``SINDyFactory(system, device="cpu")``)."""
+
+    def __init__(self, system, **kwargs):
+        self.system = system
+        self.kwargs = kwargs
+
+    def __call__(self, cfg, train_trajs, silent=False, skip_train_model=False):
+        model_args = cfg.get_dictionary() if hasattr(cfg, "get_dictionary") else dict(cfg)
+        model_args.update(self.kwargs)
+        model = self.Model(self.system, **model_args)
+        model.factory = self
+        if not skip_train_model:
+            model.train(train_trajs, silent=silent)
+        return model
+
+    @abstractmethod
+    def get_configuration_space(self):
         raise NotImplementedError

@@ -4,8 +4,9 @@
 Discrete-time (fit x_{t+1}) and continuous-time (fit the finite-
 difference x_dot, integrate with Euler) modes. Training is the
 Gram-staged STLSQ with the SVD-STLSQ fallback when the normal
-equations give non-finite coefficients. The Lasso method and the
-``SINDyFactory`` (it needs the configuration space) are not ported yet.
+equations give non-finite coefficients, or the FISTA Lasso
+(``method="lasso"``). ``SINDyFactory`` builds and trains one from a
+configuration of its space.
 """
 
 from __future__ import annotations
@@ -14,10 +15,66 @@ import numpy as np
 import torch
 
 from .. import default_dtype, resolve_device
+from ..config import (
+    CategoricalHyperparameter,
+    ConfigurationSpace,
+    InCondition,
+    UniformFloatHyperparameter,
+    UniformIntegerHyperparameter,
+)
 from ..core.trajectory import batch as traj_batch
-from ..ops.lstsq import gram_stage, stlsq, stlsq_gram
+from ..ops.lstsq import fista_lasso, gram_stage, stlsq, stlsq_gram
 from .basis import FeatureLibrary, finite_difference
-from .model import Model
+from .model import Model, ModelFactory
+
+
+class SINDyFactory(ModelFactory):
+    r"""SINDy fits :math:`\dot{x} = K\,\Theta(x, u)` (or the discrete
+    analog) over a basis library.
+
+    Hyperparameters:
+
+    - *time_mode* (categorical ["discrete", "continuous"])
+    - *method* (categorical ["lstsq", "lasso"])
+    - *threshold* (float, 1e-5..1e1, log, default 1e-2): STLSQ cut
+    - *lasso_alpha* (float, 1e-5..1e2, log; conditioned on method=lasso)
+    - *poly_basis* ("true"/"false"), *poly_degree* (2..8, cond),
+      *poly_cross_terms* ("true"/"false")
+    - *trig_basis* ("true"/"false"), *trig_freq* (1..8, cond),
+      *trig_interaction* (cond on trig_basis)
+
+    The models run on the card unless the factory is given ``device``.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.Model = SINDy
+        self.name = "SINDy"
+
+    def get_configuration_space(self):
+        cs = ConfigurationSpace()
+        true_false = dict(choices=["true", "false"], default_value="false")
+        cs.add_hyperparameters([
+            CategoricalHyperparameter("method", choices=["lstsq", "lasso"]),
+            UniformFloatHyperparameter("lasso_alpha", lower=1e-5, upper=1e2,
+                                       default_value=1.0, log=True),
+            UniformFloatHyperparameter("threshold", lower=1e-5, upper=1e1,
+                                       default_value=1e-2, log=True),
+            CategoricalHyperparameter("poly_basis", **true_false),
+            UniformIntegerHyperparameter("poly_degree", lower=2, upper=8, default_value=3),
+            CategoricalHyperparameter("trig_basis", **true_false),
+            UniformIntegerHyperparameter("trig_freq", lower=1, upper=8, default_value=1),
+            CategoricalHyperparameter("trig_interaction", **true_false),
+            CategoricalHyperparameter("poly_cross_terms", **true_false),
+            CategoricalHyperparameter("time_mode", choices=["discrete", "continuous"]),
+        ])
+        cs.add_conditions([
+            InCondition("lasso_alpha", "method", ["lasso"]),
+            InCondition("poly_degree", "poly_basis", ["true"]),
+            InCondition("trig_freq", "trig_basis", ["true"]),
+            InCondition("trig_interaction", "trig_basis", ["true"]),
+        ])
+        return cs
 
 
 def _as_bool(v):
@@ -41,10 +98,12 @@ class SINDy(Model):
         device=None,
     ):
         super().__init__(system)
-        if method != "lstsq":
-            raise ValueError(
-                f"SINDy method {method!r} is not ported yet; use 'lstsq'"
-            )
+        if method not in ("lstsq", "lasso"):
+            raise ValueError(f"unknown SINDy method {method!r}")
+        if method == "lasso" and lasso_alpha is None:
+            # lasso_alpha is inactive when a factory keyword sets the
+            # method: the space's default.
+            lasso_alpha = 1.0
         if time_mode not in ("discrete", "continuous"):
             raise ValueError(f"unknown time_mode {time_mode!r}")
         self.method = method
@@ -98,6 +157,9 @@ class SINDy(Model):
         y = targets.reshape(-1, n)
         rmask = mask.reshape(-1)
 
+        if self.method == "lasso":
+            self.coeffs = fista_lasso(A, y, self.lasso_alpha, mask=rmask).T.contiguous()
+            return
         G, bvec = gram_stage(A, y, mask=rmask)
         coefs = stlsq_gram(G, bvec, self.threshold)
         # A masked Gram that loses positive definiteness (likelier in

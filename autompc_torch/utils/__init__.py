@@ -1,1 +1,2 @@
 from .profiling import timeit_distinct
+from .simulation import simulate

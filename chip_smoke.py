@@ -51,6 +51,18 @@ Phases (each raises on failure, so the exit code is non-zero):
    default solve bit for bit, ``llw``'s accepted objectives must agree
    with the default's within 1e-3 on >= 0.95 of the lanes converged in
    both, and ``llb`` must pass phase 5's closed-loop gate;
+10. the tuner: ``PipelineTuner.run`` on the phase-2 model with a
+   QuadCostFactory and an IterativeLQRFactory pinned at H=20,
+   ``surrogate_mode="pretrain"``, the fan-out path (K1's batch-major
+   entry, K6, K7) with the true dynamics scored by a second fan-out:
+   three BO rounds of 128 candidates x 199 closed-loop steps (two of the
+   initial design, one forest-guided through the native forest, which
+   must have built), each round's ask, fan-out seconds, evals/s and
+   incumbent printed, no NaN score; the incumbent ``IterativeLQR``
+   simulated on the true dynamics from the canonical start must reach a
+   finite task cost below 200; then the sequential objective
+   (``simulate`` of each candidate) against the fan-out on 4 candidates
+   with the horizon unpinned: at least 3 of 4 agree within 1e-3;
 3. kernels vs plain twins: each CUDA kernel against its plain PyTorch
    twin on the card, on inputs taken from every path that launches it,
    at that path's shape: the lanes-last kernels on the main path's carry
@@ -72,8 +84,9 @@ Phases (each raises on failure, so the exit code is non-zero):
    loop's (B=32, H=20); 8(b)'s three (K1's batch-major entry, which must
    also give its lanes-last entry's rows bit for bit, K6 and K7) at every
    batch size 8(b) launched them with (B=1,024 and its compaction
-   stages), and, untied to a path, at B=4096, H=200 on the main path's
-   carry. Within stated tolerances, timed with CUDA events (and where a
+   stages), at every batch size the tune of phase 10 launched them with
+   (B=128 and its stages, H=20), and, untied to a path, at B=4096, H=200
+   on the main path's carry. Within stated tolerances, timed with CUDA events (and where a
    call is shorter than its host work also as device time under
    torch.profiler), beside the least time the card could take
    (``bound_ms``).
@@ -81,15 +94,16 @@ Phases (each raises on failure, so the exit code is non-zero):
 Each path is driven with its kernels' launch counters set to 0 just
 before and read just after: phases 2-5 for the lanes-last kernels,
 phase 6 and phase 7 for the batch-major ones, each configuration of
-phase 8 for its three, each variant of phase 9 for the main path's
-kernels (``launches_bf16`` counts a wrapper's bfloat16 instances,
+phase 8 for its three and the tune of phase 10 for the same three
+(``launches_tune`` in their rows), each variant of phase 9 for the main
+path's kernels (``launches_bf16`` counts a wrapper's bfloat16 instances,
 ``launches_by_B`` its launches by the batch size of the call). A
 kernel that never ran on its path fails the run. Phase 3 runs after
 those reads, so its launches do not count.
 
 ``--profile`` adds one more phase-6 solve, five closed-loop steps of
-each fan-out configuration, and one default and one ``llw`` main-path
-solve under ``torch.profiler`` and prints the device time by kernel and
+each fan-out configuration, one default and one ``llw`` main-path solve
+and 20 closed-loop steps of the tune's fan-out under ``torch.profiler`` and prints the device time by kernel and
 the device's busy share.
 
 Output: progress lines, then a JSON line ``{"kernels": [...]}``, the
@@ -98,6 +112,7 @@ nvidia-smi name/power-limit line, and as the last line
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -244,6 +259,32 @@ FAN_CONFIGS = {
     "b": dict(backward="pallas", fuse_ls=False, lanes_last=False),
 }
 FANQ_H, FANQ_STEPS = 20, 150
+# Phase 10: the tuner. PipelineTuner.run on the phase-2 model with a
+# QuadCostFactory and an IterativeLQRFactory pinned at H=20: three BO
+# rounds of TUNE_BATCH (two of the initial design, n_initial = 2 x batch,
+# and one forest-guided), each round one fan-out bucket of TUNE_BATCH
+# candidates x 199 closed-loop steps on the surrogate and the same again
+# on the true dynamics; then the incumbent on the true dynamics from the
+# canonical start (bench_tune.py:116-125), whose task cost must be finite
+# and below TUNE_COST_MAX and whose last observation must lie in the box
+# (it reaches the box and stays); then the sequential
+# objective against the fan-out on SEQ_ITERS candidates with the horizon
+# unpinned (several buckets) on tests/test_torch_tuning.py's near-upright
+# start, scored for SEQ_STEPS steps by a quadratic task cost: both are
+# float32 with different summation orders and the acceptance rule is
+# knife-edge (ROADMAP hazard 1), so at least SEQ_AGREE_MIN of the
+# candidates must agree within SEQ_TOL (relative; both inf counts as
+# agreement). The model, the incumbent and its scores go to
+# OUT_DIR/tune_incumbent.json for tools/torch_incumbent_check.py.
+TUNE_BATCH, TUNE_ITERS = 128, 384
+TUNE_COMPACT = ((4, 0.5), (8, 0.25), (14, 0.125))
+TUNE_H = 20
+TUNE_COST_MAX = 200.0
+SEQ_ITERS, SEQ_STEPS, SEQ_TOL, SEQ_AGREE_MIN = 4, 40, 1e-3, 3
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+# Phase 2's SINDy: the 55-term trig + interaction library.
+SINDY_KW = dict(method="lstsq", threshold=1e-3, trig_basis=True, trig_freq=1,
+                trig_interaction=True, time_mode="discrete")
 # First MPC step, configuration (a) against (b): both run the same
 # algorithm in float32 with different summation orders (the fused
 # kernel's in-register objective against a tensor reduction; the packed
@@ -906,6 +947,227 @@ def fanout_phase(bench, model, dev, card, wrappers, profile=False):
     return counts, by_B, solver_kw, batch
 
 
+def tune_phase(bench, model, trajs, dev, card, fan_wrappers, profile=False):
+    """Phase 10. Returns (the tune's launches of K1's batch-major entry, K6
+    and K7, the same by batch size, the tune's fan-out solver keywords,
+    the first round's candidate diagonals)."""
+    from autompc_torch import native
+    from autompc_torch.control import IterativeLQRFactory
+    from autompc_torch.costs import QuadCost, QuadCostFactory
+    from autompc_torch.parallel import QuadCostFanout
+    from autompc_torch.pipeline import Pipeline
+    from autompc_torch.sysid import FunctionModel
+    from autompc_torch.tuning import bo, pipeline_tuner
+    from autompc_torch.tuning import PipelineTuner
+    from autompc_torch.utils import simulate
+
+    t_phase = time.perf_counter()
+    if not native.NativeRandomForest.available():
+        raise RuntimeError(f"the native random forest did not build: {native.build_error()}")
+    print(f"[10] native forest: {native.library_path().name}", flush=True)
+    system, task = bench.system, bench.task
+    goal = np.zeros(4)
+    spec = (model.library, "coeffs")
+
+    # Timing hooks: each ask starts a round; each fan-out call is timed
+    # to its result on the host. The Python forest is refused, so a
+    # failed native fit cannot fall back to it unseen.
+    rounds, fits = [], []
+
+    class TimedBO(bo.BatchBayesOpt):
+        def ask(self, batch_size=None):
+            t0 = time.perf_counter()
+            out = super().ask(batch_size)
+            rounds.append({"ask_s": time.perf_counter() - t0, "n": len(out)})
+            return out
+
+    def refuse_python_forest(*a, **k):
+        raise RuntimeError("the BO fell back to the Python forest")
+
+    real_make_forest = native.make_forest
+
+    def counting_make_forest(*a, **k):
+        f = real_make_forest(*a, **k)
+        fits.append(type(f).__name__)
+        return f
+
+    tuner = PipelineTuner(
+        surrogate_mode="pretrain", eval_batch=TUNE_BATCH, use_fanout=True,
+        fanout_backward="pallas", fanout_feature_kernels=True, fanout_compact=TUNE_COMPACT)
+    real_eval = tuner._eval_batch_fanout
+
+    def timed_eval(pipeline, task_, surrogate, cfgs, fanouts, kind, sysid_trajs=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_eval(pipeline, task_, surrogate, cfgs, fanouts, kind, sysid_trajs)
+        key = "true_s" if isinstance(surrogate, FunctionModel) else "surr_s"
+        rounds[-1][key] = time.perf_counter() - t0
+        return out
+
+    tuner._eval_batch_fanout = timed_eval
+    pipeline = Pipeline(system, model, QuadCostFactory(system, goal=goal),
+                        IterativeLQRFactory(system, horizon=TUNE_H))
+    for w in fan_wrappers:
+        w.launches, w.launches_by_B = 0, {}
+    saved = (pipeline_tuner.BatchBayesOpt, bo.RandomForestSurrogate, native.make_forest)
+    pipeline_tuner.BatchBayesOpt, bo.RandomForestSurrogate = TimedBO, refuse_python_forest
+    native.make_forest = counting_make_forest
+    try:
+        t0 = time.perf_counter()
+        controller, res = tuner.run(pipeline, task, trajs, n_iters=TUNE_ITERS,
+                                    rng=np.random.default_rng(100), surrogate=model,
+                                    truedyn=bench.dynamics)
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+    finally:
+        pipeline_tuner.BatchBayesOpt, bo.RandomForestSurrogate, native.make_forest = saved
+    launches = {w.__name__: w.launches for w in fan_wrappers}
+    by_B = {w.__name__: dict(w.launches_by_B) for w in fan_wrappers}
+
+    costs, true_costs = np.array(res.costs), np.array(res.truedyn_costs)
+    end = 0
+    for r, rd in enumerate(rounds):
+        end += rd["n"]
+        fan_s = rd.get("surr_s", 0.0) + rd.get("true_s", 0.0)
+        print(f"[10] round {r + 1} ({'forest-guided' if end > 2 * TUNE_BATCH else 'initial design'}"
+              f", {rd['n']} candidates): ask {rd['ask_s']:.3f} s; surrogate fan-out "
+              f"{rd.get('surr_s', 0.0):.2f} s, true-dynamics fan-out {rd.get('true_s', 0.0):.2f} s "
+              f"-> {rd['n'] / rd['surr_s']:.1f} evals/s on the surrogate, "
+              f"{rd['n'] / fan_s:.1f} with both fan-outs on {card}; incumbent surrogate cost "
+              f"{res.inc_costs[end - 1]:.1f}, its true-dynamics cost "
+              f"{res.inc_truedyn_costs[end - 1]:.1f}", flush=True)
+    ask_s = sum(rd["ask_s"] for rd in rounds)
+    surr_s = sum(rd.get("surr_s", 0.0) for rd in rounds)
+    true_s = sum(rd.get("true_s", 0.0) for rd in rounds)
+    print(f"[10] tune {TUNE_ITERS} candidates (H={TUNE_H}, {task.get_num_steps() - 1} MPC steps "
+          f"each, both fan-outs): {tune_s:.2f} s; BO asks {ask_s:.2f} s ({len(fits)} native "
+          f"forest fits), surrogate fan-outs {surr_s:.2f} s, true-dynamics fan-outs "
+          f"{true_s:.2f} s, the rest {tune_s - ask_s - surr_s - true_s:.2f} s; scores finite "
+          f"{int(np.isfinite(costs).sum())} / {costs.size} on the surrogate, "
+          f"{int(np.isfinite(true_costs).sum())} / {true_costs.size} on the true dynamics; "
+          f"launches {launches}, by B {by_B}", flush=True)
+    if len(costs) != TUNE_ITERS or len(true_costs) != TUNE_ITERS \
+            or np.isnan(costs).any() or np.isnan(true_costs).any():
+        raise RuntimeError("tune: a score is missing or NaN")
+    if min(launches.values()) == 0:
+        raise RuntimeError(f"a kernel never ran in the tune: {launches}")
+    if not fits or set(fits) != {"NativeRandomForest"}:
+        raise RuntimeError(f"tune: the BO's forests were {fits}, not the native one")
+
+    # The incumbent on the true dynamics from the canonical start.
+    t0 = time.perf_counter()
+    traj = simulate(controller, task.get_init_obs(), term_cond=task.term_cond,
+                    dynamics=bench.dynamics, max_steps=task.get_num_steps())
+    final_cost = float(task.get_cost()(traj))
+    in_box = float(task.get_cost().eval_obs_cost(traj.obs[-1:]).sum()) == 0.0
+    sim_s = time.perf_counter() - t0
+    print(f"[10] incumbent {res.inc_cfg.get_dictionary()}: simulate {len(traj) - 1} steps on "
+          f"the true dynamics in {sim_s:.2f} s; task cost {final_cost:.1f} (max "
+          f"{TUNE_COST_MAX}; its fan-out scores: surrogate {res.inc_costs[-1]:.1f}, true "
+          f"dynamics {res.inc_truedyn_costs[-1]:.1f}); final state "
+          f"{[round(float(v), 4) for v in traj.obs[-1]]}, in the box {in_box}", flush=True)
+    if not (np.isfinite(final_cost) and final_cost < TUNE_COST_MAX and in_box):
+        raise RuntimeError(f"tune: the incumbent's true-dynamics task cost is {final_cost}, "
+                           f"its last observation in the box {in_box}")
+
+    # What tools/torch_incumbent_check.py replays: the model, the
+    # incumbent and its scores here.
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "tune_incumbent.json"), "w") as f:
+        json.dump({"sindy": SINDY_KW, "coeffs": model.coeffs.cpu().double().tolist(),
+                   "feature_names": model.get_feature_names(), "factory": {"horizon": TUNE_H},
+                   "compact": TUNE_COMPACT, "cfg": res.inc_cfg.get_dictionary(),
+                   "card": {"simulate": final_cost, "fanout_surrogate": float(res.inc_costs[-1]),
+                            "fanout_truedyn": float(res.inc_truedyn_costs[-1])}}, f)
+
+    # Sequential objective against the fan-out, horizons unpinned, scored
+    # by a quadratic task cost: a continuous score, so that each of the
+    # four candidates tests the two closed loops (the 0.2-box count
+    # saturates at its maximum for a candidate that never reaches it).
+    seq_task = task.copy()
+    seq_task.set_cost(QuadCost(system, Q=np.eye(4), R=0.01 * np.eye(1), F=np.eye(4), goal=goal))
+    seq_task.set_init_obs(np.array([0.5, 0.0, 0.0, 0.0]))
+    seq_task.set_num_steps(SEQ_STEPS)
+    free = Pipeline(system, model, QuadCostFactory(system, goal=goal), IterativeLQRFactory(system))
+    t0 = time.perf_counter()
+    scores = [
+        PipelineTuner(surrogate_mode="pretrain", eval_batch=SEQ_ITERS, **kw).run(
+            free, seq_task, trajs, n_iters=SEQ_ITERS, rng=np.random.default_rng(3),
+            surrogate=model)[1]
+        for kw in ({}, dict(use_fanout=True, fanout_backward="pallas",
+                            fanout_feature_kernels=True))
+    ]
+    seq_fan_s = time.perf_counter() - t0
+    agree = 0
+    for i, (cfg, a, b) in enumerate(zip(scores[0].cfgs, scores[0].costs, scores[1].costs)):
+        ok = (a == b) or (np.isfinite(a) and np.isfinite(b)
+                          and abs(a - b) <= SEQ_TOL * max(abs(b), 1e-30))
+        agree += ok
+        print(f"[10] candidate {i} (horizon {cfg['_ctrlr:horizon']}): sequential {a!r}, "
+              f"fan-out {b!r}, relative difference {abs(a - b) / max(abs(b), 1e-30):.3e}"
+              f"{'' if ok else ' DIFFER'}", flush=True)
+    same_cfgs = [c.get_dictionary() for c in scores[0].cfgs] == \
+        [c.get_dictionary() for c in scores[1].cfgs]
+    print(f"[10] sequential vs fan-out ({SEQ_STEPS}-step near-upright task, quadratic task "
+          f"cost): {agree} of "
+          f"{SEQ_ITERS} agree within {SEQ_TOL} (min {SEQ_AGREE_MIN}); same configurations "
+          f"{same_cfgs}; {seq_fan_s:.2f} s", flush=True)
+    if agree < SEQ_AGREE_MIN or not same_cfgs:
+        raise RuntimeError(f"tune: sequential and fan-out agree on {agree} of {SEQ_ITERS}")
+    print(f"[10] phase wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+    if profile:
+        fan = QuadCostFanout(system, task, model, model, horizon=TUNE_H, n_steps=20, goal=goal,
+                             compact_schedule=TUNE_COMPACT, backward="pallas", feature_spec=spec)
+        profile_solve(fan, (tune_candidates(res.cfgs[:TUNE_BATCH], system, dev),),
+                      f"20 closed-loop steps of the tune's fan-out (B={TUNE_BATCH})")
+    kw = QuadCostFanout(system, task, model, model, horizon=TUNE_H, goal=goal,
+                        compact_schedule=TUNE_COMPACT, backward="pallas",
+                        feature_spec=spec).solver_kw
+    return launches, by_B, kw, tune_candidates(res.cfgs[:TUNE_BATCH], system, dev)
+
+
+def check_tune_kernels(model, solver_kw, batch, Bs_list, init_obs, kernels, terms, coeffs, dt,
+                       alphas, bound):
+    """K1's batch-major entry, K6 and K7 at every batch size the tune
+    launched them with (TUNE_BATCH and its compaction stages, H=TUNE_H):
+    the carry of the tune's own solver after three iterations, from the
+    canonical start, with the first round's candidates. Returns ({B: the
+    three kernels' measurements}, failure strings)."""
+    from autompc_torch.control import make_batched_ilqr_solver
+
+    _, carry0, _, make_body = make_batched_ilqr_solver(
+        model.pred_core, None, return_pieces=True, **solver_kw)
+    n = batch["Qdiag"].shape[0]
+    H = solver_kw["H"]
+    x0 = batch["Qdiag"].new_tensor(np.tile(init_obs, (n, 1)))
+    carry, body = carry0(model.params, x0, x0.new_zeros((n, H, 1)), batch), \
+        make_body(model.params)
+    for _ in range(3):
+        carry = body(carry)
+    out, failures = {}, []
+    for Bs in Bs_list:
+        sub = {k: carry[k][:Bs].contiguous() for k in ("x0s", "xs", "us", "Jx", "Ju")}
+        out[Bs], fails = check_fanout_kernels(
+            "tune carry", *kernels, terms, coeffs, sub, {k: v[:Bs] for k, v in batch.items()},
+            (0.0,) * 4, dt, alphas, bound)
+        failures += fails
+    return out, failures
+
+
+def tune_candidates(cfgs, system, dev):
+    """The per-lane diagonals of the tune's configurations, as the
+    tuner builds them, on the card."""
+    from autompc_torch import default_dtype
+
+    def diag(suffix, names):
+        return torch.tensor([[c.get(f"_cost:{o}_{suffix}", 0.0) for o in names] for c in cfgs],
+                            dtype=default_dtype(dev), device=dev)
+
+    return {"Qdiag": diag("Q", system.observations), "Fdiag": diag("F", system.observations),
+            "Rdiag": diag("R", system.controls)}
+
+
 def check_fanout_kernels(tag, K1, K6, K7, terms, coeffs, carry, cp, goal, dt, alphas,
                          bound):
     """K1's batch-major entry, K6 and K7 against their plain versions on
@@ -1202,9 +1464,7 @@ def main(profile=False):
     t0 = time.perf_counter()
     bench = CartpoleSwingupBenchmark()
     trajs = bench.gen_trajs_batch(seed=42, n_trajs=50, traj_len=100)
-    model = SINDy(bench.system, method="lstsq", threshold=1e-3,
-                  trig_basis=True, trig_freq=1, trig_interaction=True,
-                  time_mode="discrete")
+    model = SINDy(bench.system, **SINDY_KW)
     model.train(trajs)
     coeffs = model.coeffs.cpu().numpy()
     if not np.all(np.isfinite(coeffs)):
@@ -1459,6 +1719,10 @@ def main(profile=False):
         make_solve, model.params, (x0, x0 - 0.01), pool, outs4, solves_per_s, fixed_rows,
         bench.system.dt, gate, wide_counters(K1, K2, K3), card, profile=profile,
     )
+
+    # ---- [10] the tuner ------------------------------------------------------
+    tune_launches, tune_by_B, tune_kw, tune_batch = tune_phase(
+        bench, model, trajs, dev, card, fan_wrappers["b"], profile=profile)
 
     # ---- [3] kernels vs plain twins on path inputs -----------------------
     _, make_carry0, _, _ = make_batched_ilqr_solver(
@@ -2029,6 +2293,11 @@ def main(profile=False):
             {k: v[:Bs] for k, v in fan_batch.items()}, (0.0,) * 4, dt, alphas,
             float(bounds[0, 1]))
         failures += fails
+    tune_Bs = sorted({Bs for counts in tune_by_B.values() for Bs in counts}, reverse=True)
+    k67_tune, fails = check_tune_kernels(model, tune_kw, tune_batch, tune_Bs,
+                                         bench.task.get_init_obs(), (K1, K2, K3), terms, ca,
+                                         dt, alphas, float(bounds[0, 1]))
+    failures += fails
     k67["main"], fails = check_fanout_kernels(
         "main-path carry", K1, K2, K3, terms, ca, c_bm, lane_cp, (0.0,) * 4, dt, alphas,
         float(bounds[0, 1]))
@@ -2046,11 +2315,17 @@ def main(profile=False):
         at = {f"at_B{Bs}_H{FAN_H}": dict(k67[Bs][k], launches=by_B.get(Bs, 0))
               for Bs in fan_Bs[1:]}
         at[f"at_B{B_KERNEL}_H{H}"] = dict(k67["main"][k])
+        # The tune's launches (phase 10), by batch size, each shape's
+        # measurements beside them.
+        at.update({f"at_B{Bs}_H{TUNE_H}": dict(k67_tune[Bs][k],
+                                               launches=tune_by_B[name].get(Bs, 0))
+                   for Bs in tune_Bs})
         for w in at.values():
             w.pop("library_ms")
         report.append(dict(
             name=f"{name}[B={FAN_B},H={FAN_H}]", route="cuda", source=source,
             replaces=replaces, launches=fan_launches["b"][name], launches_by_B=by_B,
+            launches_tune=tune_launches[name], launches_tune_by_B=tune_by_B[name],
             **k67[FAN_B][k], **at,
         ))
     for tag, mdl, cst, kw, x0s, counts in (
@@ -2093,7 +2368,9 @@ def main(profile=False):
               + (f"; its scratch {r['scratch_bytes_ms']:.4f} ms at the memory rate"
                  if "scratch_bytes_ms" in r else "")
               + f"), {r['launches']} launches on its path"
-              + (f" {r['launches_by_B']} by B" if "launches_by_B" in r else ""))
+              + (f" {r['launches_by_B']} by B" if "launches_by_B" in r else "")
+              + (f"; {r['launches_tune']} in the tune {r['launches_tune_by_B']} by B"
+                 if "launches_tune" in r else ""))
         if "lane_cost_ms" in r:
             print(f"        with per-lane cost planes at this shape: kernel "
                   f"{r['lane_cost_ms']:.3f} ms (no path launches it so)")

@@ -17,10 +17,16 @@ PORT_MODULES = [
     "autompc_torch",
     "autompc_torch.benchmarks",
     "autompc_torch.benchmarks.halfcheetah",
+    "autompc_torch.config",
+    "autompc_torch.config.space",
     "autompc_torch.control",
+    "autompc_torch.control.controller",
     "autompc_torch.control.ilqr",
     "autompc_torch.control.receding",
     "autompc_torch.costs",
+    "autompc_torch.costs.cost_factory",
+    "autompc_torch.costs.quad_cost_factory",
+    "autompc_torch.native",
     "autompc_torch.ops._build",
     "autompc_torch.ops.cuda_linesearch",
     "autompc_torch.ops.cuda_mlp_linesearch",
@@ -32,10 +38,18 @@ PORT_MODULES = [
     "autompc_torch.parallel",
     "autompc_torch.parallel.fanout",
     "autompc_torch.parallel.mesh",
+    "autompc_torch.pipeline",
     "autompc_torch.sysid",
+    "autompc_torch.sysid.dummy",
     "autompc_torch.sysid.mlp",
+    "autompc_torch.sysid.sindy",
+    "autompc_torch.tuning",
+    "autompc_torch.tuning.bo",
+    "autompc_torch.tuning.pipeline_tuner",
     "autompc_torch.utils",
+    "autompc_torch.utils.checkpoint",
     "autompc_torch.utils.profiling",
+    "autompc_torch.utils.simulation",
 ]
 
 
@@ -317,7 +331,7 @@ def test_timeit_distinct_runs_every_input_and_excludes_warmup():
 
 def _entry_points():
     from autompc_torch.benchmarks import CartpoleSwingupBenchmark, HalfcheetahBenchmark
-    from autompc_torch.sysid import MLP, SINDy
+    from autompc_torch.sysid import MLP, SINDy, SINDyFactory
 
     system = CartpoleSwingupBenchmark().system
     return {
@@ -326,11 +340,15 @@ def _entry_points():
         "halfcheetah data": lambda **kw: HalfcheetahBenchmark().gen_trajs_batch(
             seed=0, n_trajs=2, traj_len=3, **kw).obs.device,
         "SINDy": lambda **kw: SINDy(system, method="lstsq", **kw).device,
+        "SINDyFactory": lambda **kw: SINDyFactory(system, **kw)(
+            SINDyFactory(system).get_configuration_space().get_default_configuration(),
+            None, skip_train_model=True).device,
         "MLP": lambda **kw: MLP(system, n_hidden_layers=1, hidden_size=4, **kw).net.Ws[0].device,
     }
 
 
-@pytest.mark.parametrize("name", ["cartpole data", "halfcheetah data", "SINDy", "MLP"])
+@pytest.mark.parametrize("name", ["cartpole data", "halfcheetah data", "SINDy", "SINDyFactory",
+                                  "MLP"])
 def test_entry_points_take_the_card_unless_told(name, monkeypatch):
     """With no ``device`` an entry point asks for the card and raises
     when there is none; it runs on the CPU only when told to."""

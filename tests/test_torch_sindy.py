@@ -142,9 +142,11 @@ def test_set_parameters_rejects_another_library(data):
 
 
 def test_unported_options_raise():
+    """The Lasso is ported (tests/test_torch_tuning.py holds it against
+    the JAX package); an unknown method still raises by name."""
     tb = TBench()
-    with pytest.raises(ValueError, match="lasso"):
-        TSINDy(tb.system, device="cpu", method="lasso")
+    with pytest.raises(ValueError, match="ridge"):
+        TSINDy(tb.system, device="cpu", method="ridge")
     with pytest.raises(ValueError, match="prbs"):
         TBench(data_gen_method="prbs")
 
