@@ -1,3 +1,3 @@
 from .benchmark import Benchmark
-from .cartpole import CartpoleSwingupBenchmark
+from .cartpole import CartpoleSwingupBenchmark, CartpoleSwingupV2Benchmark
 from .halfcheetah import HalfcheetahBenchmark

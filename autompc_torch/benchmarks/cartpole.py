@@ -1,11 +1,14 @@
-"""Cartpole swing-up benchmark (port of
-``autompc_tpu/benchmarks/cartpole.py``).
+"""Cartpole swing-up benchmarks (port of
+``autompc_tpu/benchmarks/cartpole.py``: ``CartpoleSwingupBenchmark`` and
+``CartpoleSwingupV2Benchmark``).
 
-Euler-step dynamics with the benchmark-level ``b=1.0`` damping, batched
-over every leading axis of the state tensor.
+Euler-step dynamics with the benchmark-level ``b=1.0`` damping (and V2's
+``g=0.8``), batched over every leading axis of the state tensor.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -13,7 +16,7 @@ import torch
 from .. import resolve_device
 from ..core.system import System
 from ..core.task import Task
-from ..costs import ThresholdCost
+from ..costs import BoxThresholdCost, ThresholdCost
 from . import data_generation as dg
 from .benchmark import Benchmark
 
@@ -72,3 +75,33 @@ class CartpoleSwingupBenchmark(Benchmark):
             init_max=np.array([1.0, 0.0, 0.0, 0.0]),
             traj_len=traj_len, n_trajs=n_trajs,
         )
+
+
+class CartpoleSwingupV2Benchmark(CartpoleSwingupBenchmark):
+    """The main demo's benchmark: a box-threshold metric (pole angle and
+    rate within 0.2, the cart within [-10, 10]) and the reference's
+    ``g=0.8`` dynamics."""
+
+    def __init__(self, data_gen_method="uniform_random"):
+        super().__init__(data_gen_method)
+        system = self.system
+        limits = np.array([[-0.2, 0.2], [-0.2, 0.2], [-10.0, 10.0], [-np.inf, np.inf]])
+        task = Task(system)
+        task.set_cost(BoxThresholdCost(system, limits, goal=np.zeros(4)))
+        task.set_ctrl_bound("u", -20.0, 20.0)
+        task.set_init_obs(np.array([3.1, 0.0, 0.0, 0.0]))
+        task.set_num_steps(200)
+        self.task = task
+
+    def dynamics(self, x, u):
+        return dt_cartpole_dynamics(x, u, self.system.dt, g=0.8, m=1, L=1, b=1.0)
+
+    def get_cached_tune_result(self):
+        """The tune result shipped in ``assets/cached_tunes/`` (a plain
+        pickle: ``cfg_dicts``, ``costs``, ``inc_cfg``, ``inc_costs``,
+        ``kind``)."""
+        from ..utils.checkpoint import load_checkpoint
+
+        return load_checkpoint(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "..", "..", "assets", "cached_tunes",
+            "cartpole_tune_result.ckpt"))

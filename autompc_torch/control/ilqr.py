@@ -31,7 +31,8 @@ the backward pass's entry, as in the JAX package.
 ``lanes_last=False`` — the batch-major body: any (ds, dc), any cost with
 ``eval_*_cost_hess`` or per-lane diagonal costs, a model with a
 closed-form Jacobian (``pred_diff``) or a linear-in-features model
-(``feature_spec``, dc = 1). The carry is batch-major: xs (B, H+1, ds),
+(``feature_spec``, dc = 1), one model for every lane or one a lane
+(``batch_params``), one horizon or one a lane (``horizon_mask``). The carry is batch-major: xs (B, H+1, ds),
 us (B, H, dc), Jx (B, H, ds, ds), Ju (B, H, ds, dc), gains
 (B, H, dc, ds)/(B, H, dc). Each iteration runs the backward pass
 (``backward="pallas"``: at dc = 1 with a diagonal cost the
@@ -126,12 +127,30 @@ def make_batched_ilqr_solver(
     ls_wide: bool = False,
     jac_dtype: str = "f32",
     horizon_mask: bool = False,
-    pad_to=None,
 ):
     """Batch-native iLQR solve: ``solve(params, x0s (B, ds), uguess
     (B, H, dc)[, cost_params]) -> (converged (B,), xs (B, H+1, ds),
     us (B, H, dc), Ks (B, H, dc, ds), ks (B, H, dc))`` on the device of
     ``x0s``.
+
+    ``batch_params=True`` (batch-major body, without ``feature_spec`` and
+    ``mlp_ls``) gives every lane its own model: every tensor of
+    ``params`` (a dict, maybe of lists of dicts) has a leading lane axis
+    and ``pred_core``/``pred_diff`` map lane b of the state through lane
+    b of the params. The params ride the carry, so compaction gathers
+    their rows with the lanes.
+
+    ``horizon_mask=True`` (with ``quad_cost_batch``, batch-major body,
+    no ``feature_spec``, ``fuse_ls`` or ``mlp_ls``) solves every lane at
+    its own effective horizon ``cost_params["heff"]`` (B,) inside the
+    H-step program: steps t >= heff are inert — frozen dynamics
+    (x_{t+1} = x_t, Jx = I, Ju = 0), zero stage cost and cost gradients
+    (Cuu stays positive definite, so the Riccati step gives K = k = 0
+    there), and the line search keeps the previous controls there
+    (du = 0). A lane then solves as a dedicated solve at H = heff. The
+    inline-expansion kernel takes a time-constant cost, so the backward
+    pass takes the dense expansions (``backward="pallas"``: the general
+    Riccati kernel).
 
     ``params`` is the model's parameter dict. ``backward="pallas"``
     keeps the JAX package's name for the kernel backward pass (here a
@@ -176,13 +195,33 @@ def make_batched_ilqr_solver(
     kernels compute in float32 and round at the write.
     """
     for name, on in (
-        ("horizon_mask", horizon_mask), ("pad_to", pad_to is not None),
-        ("batch_params", batch_params),
         ("reg_matrix", reg_matrix is not None),
         ("analytic_jac", analytic_jac),
+        ("batch_params with feature_spec (per-lane coefficients in the feature kernels)",
+         batch_params and (feature_spec is not None or lanes_last)),
     ):
         if on:
             raise _unsupported(name)
+    if mlp_ls is not None and batch_params:
+        raise ValueError(
+            "mlp_ls (the MLP line-search kernel) does not support "
+            "batch_params=True (per-lane model parameters); use the "
+            "default line search for per-lane MLP batches"
+        )
+    if horizon_mask:
+        if not quad_cost_batch:
+            raise ValueError("horizon_mask requires quad_cost_batch=True")
+        if lanes_last or fuse_ls or mlp_ls is not None:
+            raise ValueError(
+                "horizon_mask uses the plain line-search path; fuse_ls, "
+                "lanes_last and mlp_ls are unsupported with it"
+            )
+        if feature_spec is not None:
+            raise ValueError(
+                "horizon_mask does not compose with feature-library "
+                "kernels yet; keep horizon in the bucket key for "
+                "feature-spec solvers"
+            )
     if jac_dtype not in ("f32", "bf16"):
         raise ValueError(f"jac_dtype must be f32/bf16, got {jac_dtype!r}")
     if jac_dtype == "bf16" and not lanes_last:
@@ -246,7 +285,19 @@ def make_batched_ilqr_solver(
                     f"{(like.shape[0], width)}"
                 )
             out[key] = v.contiguous()
+        if horizon_mask:
+            if "heff" not in cost_params:
+                raise ValueError("horizon_mask solve needs cost_params['heff']")
+            h = torch.as_tensor(cost_params["heff"], device=like.device).to(torch.int64)
+            if tuple(h.shape) != (like.shape[0],):
+                raise ValueError(
+                    f"cost_params['heff']: shape {tuple(h.shape)}, expected {(like.shape[0],)}")
+            out["heff"] = h.contiguous()
         return out
+
+    def stage_mask(cp, like):
+        """horizon_mask: (B, H) True at each lane's live steps t < heff."""
+        return torch.arange(H, device=like.device)[None, :] < cp["heff"][:, None]
 
     def eval_obj(xs, us, cp):
         """Objective of trajectories xs (B, ..., H+1, ds), us
@@ -263,8 +314,14 @@ def make_batched_ilqr_solver(
 
         goal = xs.new_tensor(goal_q)
         dx = xs[..., :H, :obsdim] - goal
-        oc = (dx * dx * w(cp["Qdiag"], 2)).sum(dim=(-2, -1))
-        cc = (us * us * w(cp["Rdiag"], 2)).sum(dim=(-2, -1))
+        qterm = dx * dx * w(cp["Qdiag"], 2)
+        rterm = us * us * w(cp["Rdiag"], 2)
+        if horizon_mask:
+            sw = stage_mask(cp, xs).to(xs.dtype)
+            sw = sw.reshape(sw.shape[:1] + (1,) * (xs.ndim - 3) + sw.shape[1:] + (1,))
+            qterm, rterm = qterm * sw, rterm * sw
+        oc = qterm.sum(dim=(-2, -1))
+        cc = rterm.sum(dim=(-2, -1))
         dxt = xs[..., H, :obsdim] - goal
         return dt * (oc + cc) + (dxt * dxt * w(cp["Fdiag"], 1)).sum(-1)
 
@@ -401,7 +458,7 @@ def make_batched_ilqr_solver(
         # The inline-expansion kernel: dc = 1 and a diagonal cost, fixed
         # (its diagonals broadcast to the batch) or per lane.
         quad_backward = (
-            backward == "pallas" and dc == 1
+            backward == "pallas" and dc == 1 and not horizon_mask
             and (quad_cost_batch or fixed_diag is not None)
         )
         if feature_spec is not None:
@@ -435,6 +492,12 @@ def make_batched_ilqr_solver(
             Vn[:, oi, oi] = 2.0 * Fd
             vn = xs.new_zeros((B, ds))
             vn[:, :obsdim] = 2.0 * Fd * (xs[:, H, :obsdim] - goal)
+            if horizon_mask:
+                # Inert steps: no state cost and no cost gradients; Cuu
+                # stays positive definite (with Ju = 0 and cu = 0 the
+                # Riccati step gives K = k = 0 there).
+                sw = stage_mask(cp, xs).to(xs.dtype)
+                cx, Cxx, cu = cx * sw[..., None], Cxx * sw[..., None, None], cu * sw[..., None]
             return Cxx, Cuu, cx, cu, Vn, vn
 
         def expansions(xs, us, cp, quad_hess):
@@ -464,36 +527,57 @@ def make_batched_ilqr_solver(
             vn[:, :obsdim] = tg
             return Cxx, Cuu, cx, (ru * dt).contiguous(), Vn, vn
 
-        def line_search_rollouts(params, x0s, xs, us, Ks, ks):
+        def line_search_rollouts(params, x0s, xs, us, Ks, ks, cp):
             """Closed-loop rollouts of every step size through
-            ``pred_core``: (B, L, H+1, ds), (B, L, H, dc)."""
+            ``pred_core``: (B, L, H+1, ds), (B, L, H, dc). With the
+            horizon mask an inert step keeps its control and state."""
             B, L = x0s.shape[0], len(alphas)
             a = x0s.new_tensor(alphas)[None, :, None]
             lo, hi = x0s.new_tensor(umin), x0s.new_tensor(umax)
+            live = stage_mask(cp, x0s)[:, :, None, None] if horizon_mask else None
             x = x0s[:, None, :].expand(B, L, ds)
             ls_xs, ls_us = [x], []
             for t in range(H):
+                ubar = us[:, t][:, None, :]
                 fb = (x - xs[:, t][:, None, :]) @ Ks[:, t].transpose(1, 2)
-                u = a * ks[:, t][:, None, :] + us[:, t][:, None, :] + fb
+                u = a * ks[:, t][:, None, :] + ubar + fb
                 u = torch.minimum(torch.maximum(u, lo), hi)
-                x = pred_core(params, x, u)
+                if live is None:
+                    x = pred_core(params, x, u)
+                else:
+                    u = torch.where(live[:, t], u, ubar)
+                    x = torch.where(live[:, t], pred_core(params, x, u), x)
                 ls_xs.append(x)
                 ls_us.append(u)
             return torch.stack(ls_xs, dim=2), torch.stack(ls_us, dim=2)
 
+        def freeze(live, Jx, Ju):
+            """Jacobians of the frozen dynamics, (I, 0), where ``live``
+            is False (``live`` broadcasts against their leading axes)."""
+            eye = torch.eye(ds, dtype=Jx.dtype, device=Jx.device)
+            m = live[..., None, None]
+            return torch.where(m, Jx, eye), torch.where(m, Ju, torch.zeros_like(Ju))
+
         def make_carry0(params, x0s, uguess, cost_params=None):
             B = x0s.shape[0]
             cp = lane_costs(cost_params, x0s)
-            if feature_spec is not None or getattr(pred_diff, "all_points", False):
+            if feature_spec is not None or (
+                    getattr(pred_diff, "all_points", False) and not horizon_mask):
                 # The Jacobians at every point in one call after the
                 # rollout: the feature kernel, or an autodiff pred_diff
                 # (jacfwd_pred_diff), whose cost is a call, not a point.
                 xs0 = rollout(params, x0s, uguess)
                 Jx0, Ju0 = relinearize(params, xs0, uguess)
             else:
+                live = stage_mask(cp, x0s) if horizon_mask else None
                 x, xs, Jx, Ju = x0s, [x0s], [], []
                 for t in range(H):
-                    x, jx, ju = pred_diff(params, x, uguess[:, t])
+                    xn, jx, ju = pred_diff(params, x, uguess[:, t])
+                    if live is not None:
+                        # Inert steps: the state freezes, linearized as (I, 0).
+                        xn = torch.where(live[:, t, None], xn, x)
+                        jx, ju = freeze(live[:, t], jx, ju)
+                    x = xn
                     xs.append(x)
                     Jx.append(jx)
                     Ju.append(ju)
@@ -501,6 +585,7 @@ def make_batched_ilqr_solver(
                 Jx0, Ju0 = torch.stack(Jx, dim=1), torch.stack(Ju, dim=1)
             return dict(
                 x0s=x0s.contiguous(), cost=cp, xs=xs0, us=uguess.contiguous(),
+                **({"params": params} if batch_params else {}),
                 Jx=Jx0, Ju=Ju0,
                 obj=eval_obj(xs0, uguess, cp),
                 Ks=x0s.new_zeros((B, H, dc, ds)), ks=x0s.new_zeros((B, H, dc)),
@@ -534,6 +619,9 @@ def make_batched_ilqr_solver(
 
             def body(c):
                 x0s, xs, us, cp = c["x0s"], c["xs"], c["us"], c["cost"]
+                # Per-lane params ride the carry, so compaction gathers
+                # their rows with the trajectories.
+                pp = c["params"] if batch_params else params
                 B = x0s.shape[0]
                 active = ~c["converged"] & ~c["failed"]
                 if quad_backward:
@@ -560,7 +648,7 @@ def make_batched_ilqr_solver(
                         umin, umax, layout=str(mlp_ls.get("layout", "slab")),
                     )
                 else:
-                    ls_xs, ls_us = line_search_rollouts(params, x0s, xs, us, Ks, ks)
+                    ls_xs, ls_us = line_search_rollouts(pp, x0s, xs, us, Ks, ks, cp)
                 new_objs = eval_obj(ls_xs, ls_us, cp)              # (B, L)
                 a = new_objs.new_tensor(alphas)[None, :]
                 expect = a * lin_red[:, None] + (a ** 2) * quad_red[:, None] / 2
@@ -596,7 +684,9 @@ def make_batched_ilqr_solver(
                 new_xs, new_us = take(ls_xs, sel), take(ls_us, sel)
                 new_obj = torch.where(ls_success, best_obj, last_obj)
 
-                Jx_lin, Ju_lin = relinearize(params, new_xs, new_us)
+                Jx_lin, Ju_lin = relinearize(pp, new_xs, new_us)
+                if horizon_mask:
+                    Jx_lin, Ju_lin = freeze(stage_mask(cp, x0s), Jx_lin, Ju_lin)
                 succ = ls_success[:, None, None, None]
                 Jx_new = torch.where(succ, Jx_lin, c["Jx"])
                 Ju_new = torch.where(succ, Ju_lin, c["Ju"])
@@ -611,6 +701,7 @@ def make_batched_ilqr_solver(
                 moved = active & ~failed_now
                 return dict(
                     x0s=x0s, cost=cp,
+                    **({"params": pp} if batch_params else {}),
                     xs=upd(new_xs, xs, moved), us=upd(new_us, us, moved),
                     Jx=upd(Jx_new, c["Jx"], moved), Ju=upd(Ju_new, c["Ju"], moved),
                     obj=upd(new_obj, c["obj"], moved),
@@ -646,14 +737,16 @@ def make_batched_ilqr_solver(
 
 def _batch_gather(tree, idx, B, lanes_last=False):
     """Gather lanes ``idx`` from every batch-axis tensor of the carry,
-    the per-lane cost dict ``c["cost"]`` included: lanes-last tensors
-    (ndim >= 2, last dim B; checked first) on their last axis, (B,) and
-    batch-leading tensors on axis 0; everything else (``itr``) passes
-    through."""
+    the per-lane cost dict ``c["cost"]`` and the per-lane params
+    ``c["params"]`` included: lanes-last tensors (ndim >= 2, last dim B;
+    checked first) on their last axis, (B,) and batch-leading tensors on
+    axis 0; everything else (``itr``) passes through."""
 
     def g(a):
         if isinstance(a, dict):
             return {k: g(v) for k, v in a.items()}
+        if isinstance(a, (list, tuple)):
+            return type(a)(g(v) for v in a)
         if not isinstance(a, torch.Tensor):
             return a
         if lanes_last and a.ndim >= 2 and a.shape[-1] == B:
@@ -670,12 +763,13 @@ def _batch_scatter(full, front, idx, B, lanes_last=False):
     ``idx``. Updates ``full``'s tensors in place (the full carry is dead
     after the scatter, and this saves a copy of every carry array);
     non-batch leaves take the front's value. The per-lane cost
-    ``c["cost"]`` never changes during a solve, so the full carry keeps
-    its own and nothing is written into it."""
+    ``c["cost"]`` and params ``c["params"]`` never change during a
+    solve, so the full carry keeps its own and nothing is written into
+    them."""
 
     def s(f, fr):
         if isinstance(f, dict):
-            return {k: f[k] if k == "cost" else s(f[k], fr[k]) for k in f}
+            return {k: f[k] if k in ("cost", "params") else s(f[k], fr[k]) for k in f}
         if not isinstance(f, torch.Tensor):
             return fr
         if lanes_last and f.ndim >= 2 and f.shape[-1] == B:

@@ -1,4 +1,5 @@
-"""Threshold cost (port of ``autompc_tpu/costs/thresh_cost.py``)."""
+"""Threshold costs (port of ``autompc_tpu/costs/thresh_cost.py``:
+``ThresholdCost`` and ``BoxThresholdCost``)."""
 
 from __future__ import annotations
 
@@ -25,6 +26,30 @@ class ThresholdCost(Cost):
         goal = self._mat(self._goal, obs)
         err = (obs[..., lo:hi] - goal[lo:hi]).abs().amax(-1)
         return (err > self._threshold).to(obs.dtype)
+
+    def eval_ctrl_cost(self, ctrl):
+        return ctrl.new_zeros(ctrl.shape[:-1])
+
+    def eval_term_obs_cost(self, obs):
+        return obs.new_zeros(obs.shape[:-1])
+
+
+class BoxThresholdCost(Cost):
+    """Returns 1 for every time step where the observation falls outside
+    per-dimension ``limits`` (shape (obs_dim, 2); +/-inf leaves a
+    dimension unbounded)."""
+
+    def __init__(self, system, limits, goal=None):
+        super().__init__(system)
+        self._limits = torch.as_tensor(np.asarray(limits, dtype=np.float64))
+        if goal is not None:
+            self._goal = torch.as_tensor(np.asarray(goal, dtype=np.float64))
+            self._has_goal = True
+
+    def eval_obs_cost(self, obs):
+        lim = self._mat(self._limits, obs)
+        out = ((obs < lim[:, 0]) | (obs > lim[:, 1])).any(-1)
+        return out.to(obs.dtype)
 
     def eval_ctrl_cost(self, ctrl):
         return ctrl.new_zeros(ctrl.shape[:-1])

@@ -179,7 +179,9 @@ def riccati_general(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):
     )
     _build.check_rc("riccati_general", rc)
     riccati_general.launches += 1
+    riccati_general.launches_by_B[B] = riccati_general.launches_by_B.get(B, 0) + 1
     return Ks, ks, lin, quad
 
 
 riccati_general.launches = 0
+riccati_general.launches_by_B = {}

@@ -1,2 +1,2 @@
-from .fanout import QuadCostFanout
+from .fanout import JointMLPQuadCostFanout, QuadCostFanout
 from .mesh import pad_to_multiple

@@ -1,15 +1,17 @@
 """MLP dynamics model (port of ``autompc_tpu/sysid/mlp.py``: ``net_apply``,
-``net_apply_jac`` and ``MLP``).
+``net_apply_jac``, ``MLP`` and ``MLPFactory``).
 
 A feed-forward net predicts the z-scored state delta. The net is an
 ``nn.Module``; the pure functions ``net_apply``/``net_apply_jac`` take
 its parameters as the JAX package's list of ``{"W": (n_in, n_out),
 "b": (n_out,)}`` dicts and are batch-native: every leading axis of the
-input is a batch axis. Training is Adam (lr, eps 1e-8) on the mean
-Huber loss (delta 1) over ``n // n_batch`` full batches per epoch,
-shuffled by an explicit ``torch.Generator``. The closed-form input
-Jacobian replaces the JAX package's per-sample ``jacfwd`` fallback.
-``MLPFactory`` is not ported yet (it needs the configuration space).
+input is a batch axis. They also take one net per lane, ``{"W":
+(B, n_in, n_out), "b": (B, n_out)}``, with the input's first axis the
+lane axis (the joint-MLP fan-out's per-lane models). Training is Adam
+(lr, eps 1e-8) on the mean Huber loss (delta 1) over ``n // n_batch``
+full batches per epoch, shuffled by an explicit ``torch.Generator``.
+The closed-form input Jacobian replaces the JAX package's per-sample
+``jacfwd`` fallback.
 """
 
 from __future__ import annotations
@@ -21,8 +23,15 @@ import torch
 from torch import nn
 
 from .. import default_dtype, resolve_device
+from ..config import (
+    CategoricalHyperparameter,
+    ConfigurationSpace,
+    InCondition,
+    UniformFloatHyperparameter,
+    UniformIntegerHyperparameter,
+)
 from ..core.trajectory import batch as traj_batch
-from .model import Model
+from .model import Model, ModelFactory
 
 _SELU_SCALE = 1.0507009873554805
 _SELU_ALPHA = 1.6732632423543772
@@ -45,10 +54,24 @@ _NONLIN_DERIV = {
 }
 
 
+def _per_lane(params):
+    """Whether ``params`` holds one net per lane (3-D weights)."""
+    return params[0]["W"].ndim == 3
+
+
 def net_apply(params, x, nonlin):
     """Hidden layers with nonlinearity, linear output head; ``x``
-    (..., n_in) -> (..., n_out)."""
+    (..., n_in) -> (..., n_out). Per-lane nets take ``x`` (B, ...,
+    n_in), lane b through net b."""
     act = _NONLIN[nonlin]
+    if _per_lane(params):
+        lead = x.shape[:-1]
+        x = x.reshape(lead[0], -1, x.shape[-1])
+        for layer in params[:-1]:
+            x = act(torch.baddbmm(layer["b"][:, None, :], x, layer["W"]))
+        out = params[-1]
+        x = torch.baddbmm(out["b"][:, None, :], x, out["W"])
+        return x.reshape(lead + x.shape[-1:])
     for layer in params[:-1]:
         x = act(x @ layer["W"] + layer["b"])
     out = params[-1]
@@ -60,7 +83,10 @@ def net_apply_jac(params, x, nonlin):
     ``J = W_L' D_{L-1} W_{L-1}' ... D_1 W_1'`` with ``D_i`` the diagonal
     of activation derivatives at layer i.
 
-    ``x`` (..., n_in) -> ``(out (..., n_out), J (..., n_out, n_in))``."""
+    ``x`` (..., n_in) -> ``(out (..., n_out), J (..., n_out, n_in))``;
+    per-lane nets take ``x`` (B, ..., n_in) (``_lane_net_apply_jac``)."""
+    if _per_lane(params):
+        return _lane_net_apply_jac(params, x, nonlin)
     act = _NONLIN[nonlin]
     dact = _NONLIN_DERIV[nonlin]
     J = None  # (..., cur_dim, n_in)
@@ -77,6 +103,112 @@ def net_apply_jac(params, x, nonlin):
     else:
         J = WT @ J
     return x @ out["W"] + out["b"], J
+
+
+def _lane_net_apply_jac(params, x, nonlin):
+    """``net_apply_jac`` of one net per lane: the chain is carried
+    transposed, ``J' = W_1 D_1 W_2 ... D_{L-1} W_L``, so that each
+    layer's product is one batched matmul of the lane's points
+    (B, N n_in, cur) by its weights (B, cur, out)."""
+    act = _NONLIN[nonlin]
+    dact = _NONLIN_DERIV[nonlin]
+    lead = x.shape[:-1]
+    B, n_in = lead[0], x.shape[-1]
+    x = x.reshape(B, -1, n_in)
+    N = x.shape[1]
+    JT = None  # (B, N, n_in, cur)
+    for layer in params[:-1]:
+        a = torch.baddbmm(layer["b"][:, None, :], x, layer["W"])
+        d = dact(a)[:, :, None, :]
+        W = layer["W"]
+        JT = d * (W[:, None] if JT is None else
+                  torch.bmm(JT.reshape(B, N * n_in, -1), W).reshape(B, N, n_in, -1))
+        x = act(a)
+    out = params[-1]
+    W = out["W"]
+    y = torch.baddbmm(out["b"][:, None, :], x, W)
+    if JT is None:
+        J = W.transpose(1, 2)[:, None].expand(B, N, W.shape[2], n_in)
+    else:
+        J = torch.bmm(JT.reshape(B, N * n_in, -1), W).reshape(B, N, n_in, -1).transpose(2, 3)
+    return y.reshape(lead + y.shape[-1:]), J.reshape(lead + J.shape[-2:])
+
+
+def zscore_pairs(trajs):
+    """The training pairs of ``trajs``: every valid (x_t, u_t) ->
+    x_{t+1} - x_t, z-scored per dimension (a spread below 1e-12 counts
+    as 1), on the device the trajectories lie on. Returns (XU_t (n,
+    nx+nu), dY_t (n, nx), (xu_means, xu_std, dy_means, dy_std))."""
+    tb = traj_batch(trajs)
+    mask = tb.step_mask()
+    X = tb.obs[mask]
+    U = tb.ctrls[mask]
+    dY = torch.roll(tb.obs, -1, dims=1)[mask] - X
+    XU = torch.cat([X, U], dim=1)
+
+    def stats(A):
+        mean = A.mean(dim=0)
+        std = A.std(dim=0, unbiased=False)
+        return mean, torch.where(std > 1e-12, std, torch.ones_like(std))
+
+    xu_means, xu_std = stats(XU)
+    dy_means, dy_std = stats(dY)
+    return ((XU - xu_means) / xu_std, (dY - dy_means) / dy_std,
+            (xu_means, xu_std, dy_means, dy_std))
+
+
+def epoch_perms(n, n_batch, n_epochs, seed, device):
+    """Each epoch's row order: a permutation of the ``n`` pairs from a
+    ``torch.Generator`` seeded ``seed + 1``, cut to ``n // n_batch``
+    full batches (at least one)."""
+    gen = torch.Generator(device=device).manual_seed(int(seed) + 1)
+    n_used = max(n // n_batch, 1) * n_batch
+    return [torch.randperm(n, generator=gen, device=device)[:n_used]
+            for _ in range(n_epochs)]
+
+
+def net_init(sizes, seed, dtype, device):
+    """The initial layers of a net of ``sizes``, drawn as ``MLP``
+    draws them for ``seed``: a list of ``{"W", "b"}`` tensors."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return [{"W": la["W"].detach(), "b": la["b"].detach()}
+            for la in _Net(sizes, gen, dtype, device).layers()]
+
+
+class MLPFactory(ModelFactory):
+    """Hyperparameters:
+
+    - *n_hidden_layers* (categorical ["1","2","3","4"], default "2")
+    - *hidden_size_i* (int, 16..256, default 128; conditioned on
+      n_hidden_layers >= i)
+    - *nonlintype* (categorical [relu, tanh, sigmoid, selu])
+    - *lr* (float, 1e-5..1, log, default 1e-3)
+
+    The models run on the card unless the factory is given ``device``.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.Model = MLP
+        self.name = "MLP"
+
+    def get_configuration_space(self):
+        cs = ConfigurationSpace()
+        nonlintype = CategoricalHyperparameter(
+            "nonlintype", choices=["relu", "tanh", "sigmoid", "selu"], default_value="relu")
+        n_hidden_layers = CategoricalHyperparameter(
+            "n_hidden_layers", choices=["1", "2", "3", "4"], default_value="2")
+        hs = [UniformIntegerHyperparameter(f"hidden_size_{i}", lower=16, upper=256,
+                                           default_value=128)
+              for i in (1, 2, 3, 4)]
+        lr = UniformFloatHyperparameter("lr", lower=1e-5, upper=1.0, default_value=1e-3, log=True)
+        cs.add_hyperparameters([nonlintype, n_hidden_layers, *hs, lr])
+        cs.add_conditions([
+            InCondition("hidden_size_2", "n_hidden_layers", ["2", "3", "4"]),
+            InCondition("hidden_size_3", "n_hidden_layers", ["3", "4"]),
+            InCondition("hidden_size_4", "n_hidden_layers", ["4"]),
+        ])
+        return cs
 
 
 class _Net(nn.Module):
@@ -170,34 +302,14 @@ class MLP(Model):
         """Fit the z-scoring and train a freshly initialised net on the
         valid (x_t, u_t) -> x_{t+1} - x_t pairs of ``trajs``, on the
         device the trajectories lie on."""
-        tb = traj_batch(trajs)
-        if tb.obs.device != self.device:
-            self._place(tb.obs.device)
-        mask = tb.step_mask()
-        X = tb.obs[mask]
-        U = tb.ctrls[mask]
-        dY = torch.roll(tb.obs, -1, dims=1)[mask] - X
-        XU = torch.cat([X, U], dim=1)
-
-        def stats(A):
-            mean = A.mean(dim=0)
-            std = A.std(dim=0, unbiased=False)
-            return mean, torch.where(std > 1e-12, std, torch.ones_like(std))
-
-        self.xu_means, self.xu_std = stats(XU)
-        self.dy_means, self.dy_std = stats(dY)
-        XUt = (XU - self.xu_means) / self.xu_std
-        dYt = (dY - self.dy_means) / self.dy_std
+        XUt, dYt, norm = zscore_pairs(trajs)
+        if XUt.device != self.device:
+            self._place(XUt.device)
+        self.xu_means, self.xu_std, self.dy_means, self.dy_std = norm
 
         seed = self.seed if seed is None else int(seed)
         self.net = self._new_net(seed)
-        gen = torch.Generator(device=self.device).manual_seed(seed + 1)
-        n = XUt.shape[0]
-        nb = max(n // self.n_batch, 1)
-        perms = [
-            torch.randperm(n, generator=gen, device=self.device)[: nb * self.n_batch]
-            for _ in range(self.n_train_iters)
-        ]
+        perms = epoch_perms(XUt.shape[0], self.n_batch, self.n_train_iters, seed, self.device)
         self._losses = self.run_epochs(XUt, dYt, perms)
 
     def run_epochs(self, XUt, dYt, perms):

@@ -9,15 +9,20 @@ surrogate, and the task cost of that trajectory is the objective. With
 (reporting only). Exceptions and non-finite rollouts score ``inf`` and
 the tune goes on.
 
-``use_fanout=True`` scores each ask batch through the cost fan-out
-instead of one simulation per candidate: for a fixed model, a
-``QuadCostFactory`` and an ``IterativeLQRFactory`` (kind ``"ilqr"``)
-the batch is bucketed by horizon and every bucket is one
-``parallel/fanout.py::QuadCostFanout`` call, the true-dynamics scores a
-second one with ``FunctionModel(system, truedyn)`` as its surrogate.
-Every other fan-out kind of the JAX package (the joint model fan-outs,
-MPPI, direct transcription), the ``"autotune"``/``"autoselect"``
-surrogate modes and ``mesh`` raise ``ValueError`` by name; a pipeline
+``use_fanout=True`` scores each ask batch through a fan-out instead of
+one simulation per candidate, with a ``QuadCostFactory`` and an
+``IterativeLQRFactory``: for a fixed model (kind ``"ilqr"``) the batch
+is bucketed by horizon and every bucket is one
+``parallel/fanout.py::QuadCostFanout`` call; for an ``MLPFactory``
+(kind ``"joint_mlp"``) it is bucketed by (n_hidden_layers, nonlintype,
+horizon) — with ``fanout_horizon_mask`` the horizon is the space's
+upper bound and every lane solves at its own — and every bucket is one
+``JointMLPQuadCostFanout`` call, which trains a net per candidate. The
+true-dynamics scores take a second call with ``FunctionModel(system,
+truedyn)`` as its surrogate. Every other fan-out kind of the JAX
+package (the joint SINDy, ARX, Koopman and GP fan-outs, MPPI, direct
+transcription), the ``"autotune"``/``"autoselect"`` surrogate modes and
+``mesh`` raise ``ValueError`` by name; a pipeline
 that has no fan-out at all falls back to the sequential objective with a
 warning, as in the JAX package. Every tensor the tuner makes is on the
 pipeline model's device.
@@ -55,7 +60,7 @@ PipelineTuneResult = namedtuple(
 
 # Fan-out kinds of the JAX package by the class name of the pipeline's
 # model factory (with an IterativeLQRFactory) or, for a fixed model, of
-# its controller factory. Only "ilqr" is ported.
+# its controller factory. "ilqr" and "joint_mlp" are ported.
 _JOINT_KINDS = {
     "SINDyFactory": "joint_sindy", "ARXFactory": "joint_arx", "MLPFactory": "joint_mlp",
     "KoopmanFactory": "joint_koopman", "ApproximateGPModelFactory": "joint_gp",
@@ -65,6 +70,7 @@ _FIXED_KINDS = {
     "DirectTranscriptionControllerFactory": "dt",
 }
 # A candidate whose controller or rollout fails this way scores inf.
+_PORTED_KINDS = (None, "ilqr", "joint_mlp")
 _CANDIDATE_ERRORS = (np.linalg.LinAlgError, torch.linalg.LinAlgError, FloatingPointError,
                      ValueError)
 
@@ -112,8 +118,12 @@ class PipelineTuner:
         ``fanout_backward`` and ``fanout_feature_kernels`` (the
         feature-model kernels for a model with a ``library``) are the
         JAX package's options of the fan-out path: see the module's
-        docstring. ``fanout_horizon_mask`` concerns only the joint-MLP
-        fan-out, which is not ported."""
+        docstring. ``fanout_horizon_mask`` (joint-MLP fan-out only):
+        one program a (n_hidden_layers, nonlintype) bucket at the
+        controller space's largest horizon, every lane at its own
+        horizon (``make_batched_ilqr_solver``'s ``horizon_mask``), the
+        lanes padded to at least ``eval_batch``; a horizon pinned by
+        the controller factory turns it off."""
         if mesh is not None:
             raise ValueError(
                 "mesh (candidates sharded over several cards) is not ported to "
@@ -169,12 +179,13 @@ class PipelineTuner:
 
     def _eval_batch_fanout(self, pipeline, task, surrogate, cfgs, fanouts, kind,
                            sysid_trajs=None):
-        """Score ``cfgs`` (kind "ilqr") through one ``QuadCostFanout``
-        call per horizon bucket, each built once and kept in
-        ``fanouts``. Returns costs aligned with ``cfgs``."""
-        from ..parallel.fanout import QuadCostFanout
+        """Score ``cfgs`` through one fan-out call per bucket, each
+        fan-out built once and kept in ``fanouts``: ``QuadCostFanout``
+        by horizon (kind "ilqr"), ``JointMLPQuadCostFanout`` by
+        (n_hidden_layers, nonlintype, horizon) (kind "joint_mlp").
+        Returns costs aligned with ``cfgs``."""
+        from ..parallel.fanout import JointMLPQuadCostFanout, QuadCostFanout
 
-        del sysid_trajs
         system = pipeline.system
         n_steps = (task.get_num_steps() or 200) - 1
         spec = _cost_fanout_spec(pipeline.cost_factory)
@@ -197,17 +208,55 @@ class PipelineTuner:
                 return int(overrides["horizon"])
             return int(cfg.get("_ctrlr:horizon", 20))
 
+        # Model-factory hyperparameters resolve the same way
+        # (ModelFactory.__call__: the factory's keyword arguments win).
+        m_over = getattr(pipeline.model_factory, "kwargs", None) or {}
+
+        def mk(cfg, name, default):
+            return m_over[name] if name in m_over else cfg.get(f"_model:{name}", default)
+
+        # Horizon-masked joint-MLP buckets: one program at the controller
+        # space's largest horizon serves every candidate horizon.
+        hmask_on = self.fanout_horizon_mask and kind == "joint_mlp" \
+            and "horizon" not in overrides
+        if hmask_on:
+            space = pipeline.controller_factory.get_configuration_space()
+            hmask_on = "horizon" in space.get_hyperparameter_names()
+            h_upper = int(space.get_hyperparameter("horizon").upper) if hmask_on else None
+
         buckets = {}
         for idx, cfg in enumerate(cfgs):
-            buckets.setdefault(horizon(cfg), []).append(idx)
+            if kind == "joint_mlp":
+                key = (int(mk(cfg, "n_hidden_layers", "2")), str(mk(cfg, "nonlintype", "relu")),
+                       h_upper if hmask_on else horizon(cfg))
+            else:
+                key = horizon(cfg)
+            buckets.setdefault(key, []).append(idx)
 
-        device = model_device(pipeline.model)
+        if kind == "joint_mlp":
+            device = m_over.get("device")
+        else:
+            device = model_device(pipeline.model)
         fs = None
         if self.fanout_feature_kernels and hasattr(pipeline.model, "library"):
             fs = (pipeline.model.library, "coeffs")
         costs = [None] * len(cfgs)
         for key, idxs in buckets.items():
-            if key not in fanouts:
+            if key not in fanouts and kind == "joint_mlp":
+                fanouts[key] = JointMLPQuadCostFanout(
+                    system, task, dict(n_hidden_layers=key[0], nonlintype=key[1]),
+                    sysid_trajs, surrogate, horizon=key[2], n_steps=n_steps, goal=goal,
+                    horizon_mask=hmask_on,
+                    # With horizon-masked buckets the lane count is pinned
+                    # too: one batch size a bucket.
+                    pad_to=self.eval_batch if hmask_on else None,
+                    compact_schedule=self.fanout_compact, warm_start=self.fanout_warm_start,
+                    backward=self.fanout_backward,
+                    n_train_iters=int(m_over.get("n_train_iters", 50)),
+                    n_batch=int(m_over.get("n_batch", 64)), seed=int(m_over.get("seed", 100)),
+                    device=device,
+                )
+            elif key not in fanouts:
                 fanouts[key] = QuadCostFanout(
                     system, task, pipeline.model, surrogate, horizon=key, n_steps=n_steps,
                     goal=goal, compact_schedule=self.fanout_compact,
@@ -224,6 +273,14 @@ class PipelineTuner:
                 "Fdiag": diag("F", system.observations),
                 "Rdiag": diag("R", system.controls),
             }
+            if kind == "joint_mlp":
+                batch["widths"] = tuple(
+                    tuple(int(mk(cfgs[i], f"hidden_size_{j + 1}",
+                                 mk(cfgs[i], "hidden_size", 128))) for j in range(key[0]))
+                    for i in idxs)
+                batch["lr"] = np.array([float(mk(cfgs[i], "lr", 1e-3)) for i in idxs])
+                if hmask_on:
+                    batch["horizons"] = np.array([horizon(cfgs[i]) for i in idxs])
             vals = fanouts[key](batch).cpu().numpy()
             for j, i in enumerate(idxs):
                 costs[i] = float(vals[j])
@@ -316,7 +373,7 @@ class PipelineTuner:
             infos = [{"surr_cost": c, "surr_traj": None} for c in costs]
 
         fanout_kind, fanout_reason = self._fanout_kind(pipeline, surrogate)
-        if fanout_kind not in (None, "ilqr"):
+        if fanout_kind not in _PORTED_KINDS:
             raise ValueError(
                 f"the {fanout_kind!r} fan-out of the JAX package is not ported to "
                 "autompc_torch yet; pass use_fanout=False for the sequential objective"

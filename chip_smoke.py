@@ -63,6 +63,18 @@ Phases (each raises on failure, so the exit code is non-zero):
    finite task cost below 200; then the sequential objective
    (``simulate`` of each candidate) against the fan-out on 4 candidates
    with the horizon unpinned: at least 3 of 4 agree within 1e-3;
+11. the joint-MLP tune, ``bench_tune.py``'s workload at full width, cut
+   in depth (``JM_*``): ``PipelineTuner.run`` with ``Pipeline(MLPFactory,
+   QuadCostFactory, IterativeLQRFactory)`` on CartpoleSwingupV2 data (40
+   trajectories instead of 500), a defaultcfg MLP surrogate on half of
+   them, one BO round of 25 candidates (instead of four) padded to 32
+   lanes, the bucket pinned to 2 x relu, 20 epochs (instead of 50), every
+   lane its own 256-wide masked net, the horizon-masked per-lane solve
+   (K4 at (4,1)) at H=25 for 199 closed-loop steps on the surrogate and
+   on the true dynamics; the ask, per-lane training and closed-loop
+   seconds, evals/s and K4's launches by B printed, no NaN score; the
+   incumbent simulated on the true dynamics from the canonical start
+   must reach a finite task cost;
 3. kernels vs plain twins: each CUDA kernel against its plain PyTorch
    twin on the card, on inputs taken from every path that launches it,
    at that path's shape: the lanes-last kernels on the main path's carry
@@ -86,7 +98,9 @@ Phases (each raises on failure, so the exit code is non-zero):
    batch size 8(b) launched them with (B=1,024 and its compaction
    stages), at every batch size the tune of phase 10 launched them with
    (B=128 and its stages, H=20), and, untied to a path, at B=4096, H=200
-   on the main path's carry. Within stated tolerances, timed with CUDA events (and where a
+   on the main path's carry; K4 at (4,1) also on phase 11's carry (B=32,
+   H=25, the per-lane expansions of a horizon-masked solve after three
+   iterations, padded steps included). Within stated tolerances, timed with CUDA events (and where a
    call is shorter than its host work also as device time under
    torch.profiler), beside the least time the card could take
    (``bound_ms``).
@@ -95,7 +109,8 @@ Each path is driven with its kernels' launch counters set to 0 just
 before and read just after: phases 2-5 for the lanes-last kernels,
 phase 6 and phase 7 for the batch-major ones, each configuration of
 phase 8 for its three and the tune of phase 10 for the same three
-(``launches_tune`` in their rows), each variant of phase 9 for the main
+(``launches_tune`` in their rows), the tune of phase 11 for K4
+(``launches_joint_mlp`` in its (4,1) row), each variant of phase 9 for the main
 path's kernels (``launches_bf16`` counts a wrapper's bfloat16 instances,
 ``launches_by_B`` its launches by the batch size of the call). A
 kernel that never ran on its path fails the run. Phase 3 runs after
@@ -103,7 +118,8 @@ those reads, so its launches do not count.
 
 ``--profile`` adds one more phase-6 solve, five closed-loop steps of
 each fan-out configuration, one default and one ``llw`` main-path solve
-and 20 closed-loop steps of the tune's fan-out under ``torch.profiler`` and prints the device time by kernel and
+and 20 closed-loop steps of the tune's fan-out, and the joint-MLP fan-out's training
+and 20 closed-loop steps, under ``torch.profiler`` and prints the device time by kernel and
 the device's busy share.
 
 Output: progress lines, then a JSON line ``{"kernels": [...]}``, the
@@ -282,6 +298,21 @@ TUNE_H = 20
 TUNE_COST_MAX = 200.0
 SEQ_ITERS, SEQ_STEPS, SEQ_TOL, SEQ_AGREE_MIN = 4, 40, 1e-3, 3
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+# Phase 11: the joint-MLP tune, bench_tune.py's workload (the main demo:
+# CartpoleSwingupV2, Pipeline(MLPFactory, QuadCostFactory,
+# IterativeLQRFactory), a defaultcfg MLP surrogate on half the data,
+# eval_batch 25, the fan-out's compaction schedule, the true dynamics
+# scored by a second fan-out) at full width: max-width 256 nets, widths,
+# lr, cost gains and horizon (5..25) tuned, 25 candidates padded to 32
+# lanes, 199 closed-loop steps. Cut in depth to fit the run's time limit:
+# JM_TRAJS trajectories instead of 500, JM_EPOCHS epochs instead of 50
+# (surrogate, candidates and incumbent), JM_ITERS candidates (one round,
+# of the initial design) instead of 100, and the bucket pinned to
+# JM_PIN (the MLPFactory defaults), so that a round is one fan-out call on
+# the surrogate and one on the true dynamics.
+JM_TRAJS, JM_EPOCHS, JM_ITERS, JM_BATCH = 40, 20, 25, 25
+JM_PIN = dict(n_hidden_layers="2", nonlintype="relu")
+JM_COMPACT = ((4, 0.5), (8, 0.25), (14, 0.125))
 # Phase 2's SINDy: the 55-term trig + interaction library.
 SINDY_KW = dict(method="lstsq", threshold=1e-3, trig_basis=True, trig_freq=1,
                 trig_interaction=True, time_mode="discrete")
@@ -540,28 +571,15 @@ def cheetah_x0(dev):
     return torch.as_tensor(x0, dtype=torch.float32, device=dev)
 
 
-def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
-                              n_iters=3, head_f64=False):
-    """K4 and K5 against their plain versions on the carry of the
-    batch-major solver after ``n_iters`` iterations. With ``head_f64``, a K5 rollout whose first
-    K5_HEAD steps miss TOL_K5_HEAD against the plain version passes if
-    it is no farther from the plain version run in float64 than the
-    plain float32 version is. Returns (report rows, failure strings)."""
-    from autompc_torch.control import make_batched_ilqr_solver
-
-    H, dt = solver_kw["H"], solver_kw["dt"]
-    B, ds = x0.shape
-    dc = solver_kw["dc"]
-    _, make_carry0, _, make_body = make_batched_ilqr_solver(
-        model.pred_core, cost, return_pieces=True, **solver_kw
-    )
-    c = make_carry0(model.params, x0, x0.new_zeros((B, H, dc)))
-    body = make_body(model.params)
-    for _ in range(n_iters):
-        c = body(c)
-    rows, failures = [], []
-
-    k4_args = (c["Jx"], c["Ju"], *stage_expansions(cost, c["xs"], c["us"], H, dt))
+def check_k4(tag, K4, k4_args, launches, device_time=False):
+    """K4 against its plain version on ``k4_args`` (Jx, Ju and the dense
+    expansions a path gives it), both held against a float64 evaluation
+    (see TOL_K4). Returns (its report row, failure strings, the kernel's
+    outputs, the lanes finite in every evaluation); ``device_time`` adds
+    the kernel's device time under torch.profiler."""
+    B, H, ds, dc = k4_args[1].shape
+    dev = k4_args[0].device
+    failures = []
     gk, gp = K4.riccati_general(*k4_args), K4.riccati_general_plain(*k4_args)
     g64 = K4.riccati_general_plain(*(a.double() for a in k4_args))
 
@@ -589,7 +607,7 @@ def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
     lane_txt, lanes_within = "", False
     if few:
         # Each lane against its own float32 error (see TOL_K4).
-        gen = torch.Generator(device=x0.device).manual_seed(0)
+        gen = torch.Generator(device=dev).manual_seed(0)
         e32 = ep.clone()
         for _ in range(K4_WITNESS_DRAWS):
             nudged = [(a.double() * (1 + 2.0 ** -23 * (2 * torch.rand(
@@ -602,7 +620,7 @@ def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
         # float32 on the CPU (another summation order) there.
         outside = (ek > torch.clamp(10.0 * ep, min=TOL_K4)).nonzero().flatten()
         ids = ok.nonzero().flatten()
-        e_cpu = lane_err(tuple(t.to(x0.device) for t in K4.riccati_general_plain(
+        e_cpu = lane_err(tuple(t.to(dev) for t in K4.riccati_general_plain(
             *(a.cpu() for a in k4_args))))[ok]
         lane_txt = (f"; {int(ok.sum())} finite lanes, too few for the share: every lane "
                     f"within max({TOL_K4}, 10 x its float32 error over {K4_WITNESS_DRAWS} "
@@ -612,16 +630,18 @@ def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
                                 f"float32 over the draws {float(e32[i]):.3e}" for i in outside))
     well = ok.clone()
     well[ok] = wc
-    rows.append(dict(
+    row = dict(
         name=f"riccati_general[{ds},{dc}]", route="cuda",
         source="autompc_torch/csrc/riccati_general.cu",
         replaces="autompc_tpu/ops/pallas_riccati.py:" + ("1260" if dc > 1 else "1338"),
-        launches=launches["K4"],
+        launches=launches,
         max_abs_err=max(abs_err(a[well], b[well]) for a, b in zip(gk, gp)),
         ms=time_ms(lambda: K4.riccati_general(*k4_args)),
         plain_ms=time_ms(lambda: K4.riccati_general_plain(*k4_args), reps=3),
         **bound_keys(n_bytes(*k4_args, *gk), B * H * riccati_flops(ds, dc)),
-    ))
+    )
+    if device_time:
+        row["device_ms"] = device_ms(lambda: K4.riccati_general(*k4_args))
     print(f"[3] K4 general backward {tag} ({ds},{dc}) B={B}: finite lanes {int(ok.sum())} "
           f"(kernel and plain agree on which: {same_finite:.4f}); per-lane error vs float64: "
           f"kernel median {float(ek.median()):.3e} max {float(ek.max()):.3e}, plain float32 "
@@ -637,6 +657,33 @@ def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
         failures.append(f"K4 {tag}: worst well-conditioned lane {worst_well:.3e}, within "
                         f"tolerance on {within:.4f} of lanes, finite flags agree on "
                         f"{same_finite:.4f}")
+    return row, failures, gk, ok
+
+
+def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
+                              n_iters=3, head_f64=False):
+    """K4 and K5 against their plain versions on the carry of the
+    batch-major solver after ``n_iters`` iterations. With ``head_f64``, a K5 rollout whose first
+    K5_HEAD steps miss TOL_K5_HEAD against the plain version passes if
+    it is no farther from the plain version run in float64 than the
+    plain float32 version is. Returns (report rows, failure strings)."""
+    from autompc_torch.control import make_batched_ilqr_solver
+
+    H, dt = solver_kw["H"], solver_kw["dt"]
+    B, ds = x0.shape
+    dc = solver_kw["dc"]
+    _, make_carry0, _, make_body = make_batched_ilqr_solver(
+        model.pred_core, cost, return_pieces=True, **solver_kw
+    )
+    c = make_carry0(model.params, x0, x0.new_zeros((B, H, dc)))
+    body = make_body(model.params)
+    for _ in range(n_iters):
+        c = body(c)
+    rows, failures = [], []
+
+    k4_args = (c["Jx"], c["Ju"], *stage_expansions(cost, c["xs"], c["us"], H, dt))
+    row, failures, gk, ok = check_k4(tag, K4, k4_args, launches["K4"])
+    rows.append(row)
 
     nonlin = model.nonlintype
     layers = K5.fold_mlp_params(model.params)
@@ -1125,6 +1172,190 @@ def tune_phase(bench, model, trajs, dev, card, fan_wrappers, profile=False):
                         compact_schedule=TUNE_COMPACT, backward="pallas",
                         feature_spec=spec).solver_kw
     return launches, by_B, kw, tune_candidates(res.cfgs[:TUNE_BATCH], system, dev)
+
+
+def joint_mlp_phase(dev, card, K4, profile=False):
+    """Phase 11. Returns (K4's launches in the tune, the same by batch
+    size, the inputs K4 takes on the tune's first fan-out after three
+    iterations of its first closed-loop step)."""
+    from autompc_torch.benchmarks import CartpoleSwingupV2Benchmark
+    from autompc_torch.control import IterativeLQRFactory, ilqr
+    from autompc_torch.control import make_batched_ilqr_solver
+    from autompc_torch.costs import QuadCostFactory
+    from autompc_torch.parallel import JointMLPQuadCostFanout
+    from autompc_torch.pipeline import Pipeline
+    from autompc_torch.sysid import FunctionModel, MLPFactory
+    from autompc_torch.tuning import PipelineTuner, bo, pipeline_tuner
+    from autompc_torch.utils import simulate
+
+    t_phase = time.perf_counter()
+    bench = CartpoleSwingupV2Benchmark()
+    system, task = bench.system, bench.task
+    trajs = bench.gen_trajs(seed=100, n_trajs=JM_TRAJS, traj_len=200)
+    torch.cuda.synchronize()
+    print(f"[11] CartpoleSwingupV2 data {JM_TRAJS} x 200: {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+
+    # Timing hooks: each ask opens a round; each fan-out call is timed to
+    # its result on the host, its per-lane training apart.
+    rounds, calls = [], []
+
+    class TimedBO(bo.BatchBayesOpt):
+        def ask(self, batch_size=None):
+            t0 = time.perf_counter()
+            out = super().ask(batch_size)
+            rounds.append({"ask_s": time.perf_counter() - t0, "n": len(out), "calls": []})
+            return out
+
+    real_call, real_train = JointMLPQuadCostFanout.__call__, JointMLPQuadCostFanout._train
+
+    def timed_train(self, full, perms=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_train(self, full, perms)
+        torch.cuda.synchronize()
+        calls[-1].update(train_s=time.perf_counter() - t0, lanes=full["lr"].shape[0])
+        return out
+
+    def timed_call(self, batch, init_nets=None, perms=None):
+        torch.cuda.synchronize()
+        calls.append({"fan": self, "batch": batch, "k4": K4.riccati_general.launches,
+                      "k4_by_B": dict(K4.riccati_general.launches_by_B)})
+        t0 = time.perf_counter()
+        out = real_call(self, batch, init_nets, perms)
+        torch.cuda.synchronize()
+        calls[-1]["call_s"] = time.perf_counter() - t0
+        return out
+
+    tuner = PipelineTuner(
+        surrogate_mode="defaultcfg", surrogate_factory=MLPFactory(system, n_train_iters=JM_EPOCHS),
+        surrogate_split=0.5, eval_batch=JM_BATCH, use_fanout=True, fanout_backward="pallas",
+        fanout_compact=JM_COMPACT)
+    real_eval, real_surrogate = tuner._eval_batch_fanout, tuner._get_surrogate
+
+    def timed_eval(pipeline, task_, surrogate, cfgs, fanouts, kind, sysid_trajs=None):
+        out = real_eval(pipeline, task_, surrogate, cfgs, fanouts, kind, sysid_trajs)
+        calls[-1].update(true=isinstance(surrogate, FunctionModel), surrogate=surrogate,
+                         sysid=sysid_trajs)
+        rounds[-1]["calls"].append(calls[-1])
+        return out
+
+    surr_s = []
+
+    def timed_surrogate(*a, **k):
+        t0 = time.perf_counter()
+        out = real_surrogate(*a, **k)
+        torch.cuda.synchronize()
+        surr_s.append(time.perf_counter() - t0)
+        return out
+
+    tuner._eval_batch_fanout, tuner._get_surrogate = timed_eval, timed_surrogate
+    pipeline = Pipeline(system, MLPFactory(system, n_train_iters=JM_EPOCHS, **JM_PIN),
+                        QuadCostFactory(system), IterativeLQRFactory(system))
+    K4.riccati_general.launches, K4.riccati_general.launches_by_B = 0, {}
+    saved = pipeline_tuner.BatchBayesOpt
+    pipeline_tuner.BatchBayesOpt = TimedBO
+    JointMLPQuadCostFanout.__call__, JointMLPQuadCostFanout._train = timed_call, timed_train
+    try:
+        t0 = time.perf_counter()
+        controller, res = tuner.run(pipeline, task, trajs, n_iters=JM_ITERS,
+                                    rng=np.random.default_rng(100), truedyn=bench.dynamics)
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+    finally:
+        pipeline_tuner.BatchBayesOpt = saved
+        JointMLPQuadCostFanout.__call__, JointMLPQuadCostFanout._train = real_call, real_train
+    launches = K4.riccati_general.launches
+    by_B = dict(K4.riccati_general.launches_by_B)
+
+    costs, true_costs = np.array(res.costs), np.array(res.truedyn_costs)
+    # Each call's K4 launches: the counts before the next call (or at the
+    # end) less those before it.
+    for c, after in zip(calls, [c["k4_by_B"] for c in calls[1:]] + [by_B]):
+        c["k4_launches_by_B"] = {B: after.get(B, 0) - c["k4_by_B"].get(B, 0) for B in by_B}
+    end = 0
+    for r, rd in enumerate(rounds):
+        end += rd["n"]
+        txt = "; ".join(
+            f"{'true dynamics' if c['true'] else 'surrogate'}: training {c['train_s']:.2f} s, "
+            f"closed loop {c['call_s'] - c['train_s']:.2f} s, {rd['n'] / c['call_s']:.2f} "
+            f"evals/s, K4 launches by B {c['k4_launches_by_B']}" for c in rd["calls"])
+        print(f"[11] round {r + 1} ({rd['n']} candidates, {len(rd['calls'])} fan-out calls of "
+              f"{rd['calls'][0]['lanes']} lanes): ask "
+              f"{rd['ask_s']:.3f} s; {txt}; incumbent surrogate cost "
+              f"{res.inc_costs[end - 1]:.1f}, its true-dynamics cost "
+              f"{res.inc_truedyn_costs[end - 1]:.1f} on {card}", flush=True)
+    train_s = sum(c["train_s"] for rd in rounds for c in rd["calls"])
+    call_s = sum(c["call_s"] for rd in rounds for c in rd["calls"])
+    print(f"[11] joint-MLP tune, {JM_ITERS} candidates ({task.get_num_steps() - 1} closed-loop "
+          f"steps each, both fan-outs): {tune_s:.2f} s; surrogate fit (defaultcfg MLP) "
+          f"{surr_s[0]:.2f} s, BO asks {sum(rd['ask_s'] for rd in rounds):.2f} s, per-lane "
+          f"training {train_s:.2f} s, closed loops {call_s - train_s:.2f} s -> "
+          f"{JM_ITERS / tune_s:.2f} evals/s with both fan-outs; scores finite "
+          f"{int(np.isfinite(costs).sum())} / {costs.size} on the surrogate, "
+          f"{int(np.isfinite(true_costs).sum())} / {true_costs.size} on the true dynamics; K4 "
+          f"launches {launches}, by B {by_B}", flush=True)
+    if len(costs) != JM_ITERS or len(true_costs) != JM_ITERS \
+            or np.isnan(costs).any() or np.isnan(true_costs).any():
+        raise RuntimeError("joint-MLP tune: a score is missing or NaN")
+    if launches == 0:
+        raise RuntimeError("K4 never ran in the joint-MLP tune")
+
+    # The incumbent on the true dynamics from the canonical start.
+    t0 = time.perf_counter()
+    traj = simulate(controller, task.get_init_obs(), term_cond=task.term_cond,
+                    dynamics=bench.dynamics, max_steps=task.get_num_steps())
+    final_cost = float(task.get_cost()(traj))
+    print(f"[11] incumbent {res.inc_cfg.get_dictionary()}: simulate {len(traj) - 1} steps on "
+          f"the true dynamics in {time.perf_counter() - t0:.2f} s; task cost {final_cost:.1f} "
+          f"(steps outside the box; its fan-out scores: surrogate {res.inc_costs[-1]:.1f}, "
+          f"true dynamics {res.inc_truedyn_costs[-1]:.1f}); final state "
+          f"{[round(float(v), 4) for v in traj.obs[-1]]}", flush=True)
+    if not np.isfinite(final_cost):
+        raise RuntimeError(f"joint-MLP tune: the incumbent's true-dynamics task cost is "
+                           f"{final_cost}")
+    print(f"[11] phase wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+    # K4's inputs on this path: the first fan-out call's lanes (B=32,
+    # mixed horizons), their nets trained again, the carry after three
+    # iterations of the first closed-loop step; the fourth iteration's
+    # backward pass is captured, not launched.
+    first = rounds[0]["calls"][0]
+    fan = first["fan"]
+    full, _ = fan._prepare(first["batch"])
+    params, cp = fan._solver_inputs(full, fan._train(full))
+    _, carry0, _, make_body = make_batched_ilqr_solver(
+        fan._pred_core, None, return_pieces=True, **fan.solver_kw)
+    B, H = full["lr"].shape[0], fan.solver_kw["H"]
+    x0 = full["lr"].new_tensor(np.tile(task.get_init_obs(), (B, 1)))
+    carry, body = carry0(params, x0, x0.new_zeros((B, H, 1)), cp), make_body(params)
+    for _ in range(3):
+        carry = body(carry)
+    captured = []
+
+    def capture(*args):
+        captured.append(tuple(a.contiguous() for a in args))
+        return K4.riccati_general_plain(*args)
+
+    real_k4 = ilqr.riccati_general
+    ilqr.riccati_general = capture
+    try:
+        body(carry)
+    finally:
+        ilqr.riccati_general = real_k4
+    heff = full["horizons"].tolist()
+    print(f"[11] K4's inputs for phase 3: B={B}, H={H}, horizons {sorted(set(heff))} "
+          f"({sum(H - h for h in heff)} inert lane-steps of {B * H})", flush=True)
+    if profile:
+        fan20 = JointMLPQuadCostFanout(
+            system, task, dict(n_hidden_layers=int(JM_PIN["n_hidden_layers"]),
+                               nonlintype=JM_PIN["nonlintype"]),
+            first["sysid"], first["surrogate"], horizon=H, n_steps=20, horizon_mask=True,
+            pad_to=JM_BATCH, compact_schedule=JM_COMPACT, backward="pallas",
+            n_train_iters=JM_EPOCHS)
+        profile_solve(fan20, (first["batch"],),
+                      f"the joint-MLP fan-out's training and 20 closed-loop steps (B={B}, H={H})")
+    return launches, by_B, captured[0]
 
 
 def check_tune_kernels(model, solver_kw, batch, Bs_list, init_obs, kernels, terms, coeffs, dt,
@@ -1723,6 +1954,9 @@ def main(profile=False):
     # ---- [10] the tuner ------------------------------------------------------
     tune_launches, tune_by_B, tune_kw, tune_batch = tune_phase(
         bench, model, trajs, dev, card, fan_wrappers["b"], profile=profile)
+
+    # ---- [11] the joint-MLP tune -----------------------------------------------
+    jm_launches, jm_by_B, jm_k4_args = joint_mlp_phase(dev, card, K4, profile=profile)
 
     # ---- [3] kernels vs plain twins on path inputs -----------------------
     _, make_carry0, _, _ = make_batched_ilqr_solver(
@@ -2351,6 +2585,18 @@ def main(profile=False):
                 r[f"launches_B{B_HC}_H{H_HC}"] = open_launches[key]
                 r[f"at_B{B_HCQ}_H{H_HCQ}"] = {
                     k: v for k, v in cl.items() if k not in ("name", "route", "source", "replaces")}
+        else:
+            # K4 at (4, 1) on the joint-MLP tune's horizon-masked carry
+            # (phase 11): its launches there, by B, and the measurement.
+            Bj, Hj = jm_k4_args[1].shape[:2]
+            jm_row, fails, _, _ = check_k4(f"joint-MLP tune (B={Bj}, H={Hj}, mixed horizons)",
+                                          K4, jm_k4_args, jm_by_B.get(Bj, 0), device_time=True)
+            failures += fails
+            rows[0].update({
+                "launches_joint_mlp": jm_launches, "launches_joint_mlp_by_B": jm_by_B,
+                f"at_B{Bj}_H{Hj}": {k: v for k, v in jm_row.items()
+                                    if k not in ("name", "route", "source", "replaces",
+                                                 "library_ms")}})
     def device_txt(w):
         return ((f" (device {w['device_ms']:.4f})" if "device_ms" in w else "")
                 + (f" (its lanes-last entry on the same points: device "
@@ -2370,7 +2616,9 @@ def main(profile=False):
               + f"), {r['launches']} launches on its path"
               + (f" {r['launches_by_B']} by B" if "launches_by_B" in r else "")
               + (f"; {r['launches_tune']} in the tune {r['launches_tune_by_B']} by B"
-                 if "launches_tune" in r else ""))
+                 if "launches_tune" in r else "")
+              + (f"; {r['launches_joint_mlp']} in the joint-MLP tune "
+                 f"{r['launches_joint_mlp_by_B']} by B" if "launches_joint_mlp" in r else ""))
         if "lane_cost_ms" in r:
             print(f"        with per-lane cost planes at this shape: kernel "
                   f"{r['lane_cost_ms']:.3f} ms (no path launches it so)")

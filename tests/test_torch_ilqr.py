@@ -127,7 +127,9 @@ def test_unported_options_raise(setup, option, value, match):
     _, t, _, tcost, common = setup
     kw = dict(common, feature_spec=(t.library, "coeffs"))
     kw[option] = value
-    with pytest.raises(ValueError, match=match):
+    # pad_to belongs to JointMLPQuadCostFanout, not to the solver (as in
+    # the JAX package): the solver does not take the keyword.
+    with pytest.raises(TypeError if option == "pad_to" else ValueError, match=match):
         tilqr.make_batched_ilqr_solver(t.pred_core, tcost, **kw)
 
 

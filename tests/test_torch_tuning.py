@@ -49,6 +49,7 @@ from autompc_torch.sysid import SINDyFactory as TSINDyFactory
 from autompc_torch.tuning import BatchBayesOpt as TBO
 from autompc_torch.tuning import PipelineTuner as TTuner
 from autompc_torch.tuning import RandomForestSurrogate as TPyForest
+from autompc_torch.tuning import pipeline_tuner
 from autompc_torch.utils import simulate as t_simulate
 from autompc_tpu.benchmarks import CartpoleSwingupBenchmark
 from autompc_tpu.control import IterativeLQR, IterativeLQRFactory
@@ -392,6 +393,12 @@ def test_unported_fanout_kinds_raise(setup, model_factory, controller_factory, k
           else _named(TControllerFactory, controller_factory)(system))
     pipe = TPipeline(system, model, TQuadFactory(system, goal=np.zeros(4)), cf)
     tuner = TTuner(surrogate_mode="pretrain", use_fanout=True)
+    if kind == "joint_mlp":
+        # Ported: the tuner selects the kind and does not refuse it
+        # (tests/test_torch_joint_mlp.py runs it).
+        assert tuner._fanout_kind(pipe, s["t"]) == (kind, "")
+        assert kind in pipeline_tuner._PORTED_KINDS
+        return
     with pytest.raises(ValueError, match=f"'{kind}' fan-out"):
         tuner.run(pipe, s["tb"].task, s["ttrajs"], n_iters=1, rng=np.random.default_rng(0),
                   surrogate=s["t"])
