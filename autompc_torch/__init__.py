@@ -36,6 +36,14 @@ def default_dtype(device) -> torch.dtype:
     return torch.float64 if torch.device(device).type == "cpu" else torch.float32
 
 
+class NotPortedError(ValueError):
+    """A mode of the JAX package that this package refuses by name. A
+    ``ValueError`` (callers that catch one keep working), but the
+    tuner's sequential objective re-raises it instead of scoring the
+    candidate ``inf``: a refusal is the caller's to see, not a bad
+    configuration."""
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card (``cuda:0``) unless
     the caller names one. Raises when no device is named and there is
@@ -55,6 +63,7 @@ __all__ = [
     "TimeStep",
     "Trajectory",
     "TrajectoryBatch",
+    "NotPortedError",
     "batch",
     "default_dtype",
     "resolve_device",

@@ -14,7 +14,8 @@ Two bodies of the iteration are ported.
 
 ``lanes_last=True`` — dc = 1, a diagonal quadratic cost (one fixed
 QuadCost, or one per lane with ``quad_cost_batch``), a
-linear-in-features model (``feature_spec``), ``fuse_ls=True``. The carry
+linear-in-features model (``feature_spec``; one for every lane, or one a
+lane with ``batch_params``), ``fuse_ls=True``. The carry
 stays in the kernels' lanes-last layout for the whole solve — xs
 (H+1, ds, B), us (H, B), gains (H, ds, B)/(H, B) and the packed Jacobian
 plane jac (H, ds*(ds+1), B), float32 or, with ``jac_dtype="bf16"``,
@@ -30,9 +31,10 @@ the backward pass's entry, as in the JAX package.
 
 ``lanes_last=False`` — the batch-major body: any (ds, dc), any cost with
 ``eval_*_cost_hess`` or per-lane diagonal costs, a model with a
-closed-form Jacobian (``pred_diff``) or a linear-in-features model
-(``feature_spec``, dc = 1), one model for every lane or one a lane
-(``batch_params``), one horizon or one a lane (``horizon_mask``). The carry is batch-major: xs (B, H+1, ds),
+closed-form Jacobian (``pred_diff``), a linear-in-features model
+(``feature_spec``, dc = 1) or neither (every point differentiated by
+``torch.func.jacfwd``, as the JAX package's ``jax.jacfwd``), one model
+for every lane or one a lane (``batch_params``), one horizon or one a lane (``horizon_mask``). The carry is batch-major: xs (B, H+1, ds),
 us (B, H, dc), Jx (B, H, ds, ds), Ju (B, H, ds, dc), gains
 (B, H, dc, ds)/(B, H, dc). Each iteration runs the backward pass
 (``backward="pallas"``: at dc = 1 with a diagonal cost the
@@ -45,7 +47,7 @@ kernel of ``ops/cuda_mlp_linesearch.py``; neither: a batched loop over H
 through ``pred_core``), evaluates the L objectives and applies the
 acceptance rule in tensor ops, and relinearizes the chosen trajectory
 (``feature_spec``: ``ops/cuda_relin.py``'s batch-major entry; else
-``pred_diff``).
+``pred_diff`` or autodiff).
 
 Both loops read the active-lane count on the host once per iteration.
 ``make_ilqr_solver`` is the batch-major body at one lane, the model
@@ -61,6 +63,7 @@ import os
 import numpy as np
 import torch
 
+from .. import NotPortedError
 from ..config import ConfigurationSpace, UniformIntegerHyperparameter
 from ..ops._build import WIDE_B
 from ..ops.cuda_linesearch import fused_line_search, fused_line_search_wide, sindy_line_search
@@ -74,7 +77,7 @@ from .controller import Controller, ControllerFactory
 
 
 def _unsupported(name, why="is not ported to autompc_torch yet"):
-    return ValueError(f"{name} {why}")
+    return NotPortedError(f"{name} {why}")
 
 
 def _fixed_diag(cost, obsdim):
@@ -133,12 +136,15 @@ def make_batched_ilqr_solver(
     us (B, H, dc), Ks (B, H, dc, ds), ks (B, H, dc))`` on the device of
     ``x0s``.
 
-    ``batch_params=True`` (batch-major body, without ``feature_spec`` and
-    ``mlp_ls``) gives every lane its own model: every tensor of
-    ``params`` (a dict, maybe of lists of dicts) has a leading lane axis
-    and ``pred_core``/``pred_diff`` map lane b of the state through lane
-    b of the params. The params ride the carry, so compaction gathers
-    their rows with the lanes.
+    ``batch_params=True`` (without ``mlp_ls``) gives every lane its own
+    model: every tensor of ``params`` (a dict, maybe of lists of dicts)
+    has a leading lane axis and ``pred_core``/``pred_diff`` map lane b of
+    the state through lane b of the params. The params ride the carry,
+    so compaction gathers their rows with the lanes. With a
+    ``feature_spec`` ``params[coeffs_key]`` is (B, ds, F) and the feature
+    kernels take it as the lanes-last (ds, n, B) plane of their per-lane
+    instances (the lanes-last body carries that plane; the batch-major
+    body transposes the carried rows each iteration).
 
     ``horizon_mask=True`` (with ``quad_cost_batch``, batch-major body,
     no ``feature_spec``, ``fuse_ls`` or ``mlp_ls``) solves every lane at
@@ -179,7 +185,8 @@ def make_batched_ilqr_solver(
     Batch-major body (``lanes_last=False``) without ``feature_spec``:
     ``pred_diff(params, x, u) -> (pred, Jx, Ju)`` is the model's
     closed-form Jacobian, batched over every leading axis
-    (``MLP.pred_diff_core``). ``mlp_ls`` — a dict with ``nonlin``
+    (``MLP.pred_diff_core``); without one, ``jacfwd_pred_diff`` of
+    ``pred_core``. ``mlp_ls`` — a dict with ``nonlin``
     (required), ``layout`` and ``precision`` — routes the line-search
     rollouts through the MLP kernel; ``params`` must then be an MLP's.
     The kernel computes in true float32, so ``precision`` must be
@@ -197,8 +204,6 @@ def make_batched_ilqr_solver(
     for name, on in (
         ("reg_matrix", reg_matrix is not None),
         ("analytic_jac", analytic_jac),
-        ("batch_params with feature_spec (per-lane coefficients in the feature kernels)",
-         batch_params and (feature_spec is not None or lanes_last)),
     ):
         if on:
             raise _unsupported(name)
@@ -231,7 +236,9 @@ def make_batched_ilqr_solver(
             "carry only"
         )
     if relin not in ("auto", "pallas"):
-        raise _unsupported(f"relin={relin!r}")
+        raise _unsupported(
+            f"relin={relin!r} (the JAX package's jacfwd relinearization of a "
+            "feature model in place of its kernel)" if relin == "xla" else f"relin={relin!r}")
     if feature_mask is not None and feature_spec is None:
         raise ValueError("feature_mask needs feature_spec")
     if ubounds is not None:
@@ -265,7 +272,11 @@ def make_batched_ilqr_solver(
         terms = tuple(library.terms[k] for k in active_idx)
 
         def active_coeffs(params):
-            return params[coeffs_key][:, list(active_idx)].contiguous()
+            """The kernels' coefficients: (ds, n) shared, or with
+            ``batch_params`` the lanes' (B, ds, F) as the lanes-last
+            (ds, n, B) plane the per-lane instances read."""
+            c = params[coeffs_key][..., list(active_idx)]
+            return (c.permute(1, 2, 0) if batch_params else c).contiguous()
 
         return terms, active_coeffs
 
@@ -352,6 +363,15 @@ def make_batched_ilqr_solver(
                 f"got fuse_ls={fuse_ls}, feature_spec="
                 f"{'set' if feature_spec is not None else 'None'}, "
                 f"diagonal_cost={diag_cost}"
+                + ("" if feature_spec is not None else
+                   " (a model without one takes the batch-major body, lanes_last=False, "
+                   "and its jacfwd relinearization)")
+            )
+        if batch_params and not quad_cost_batch:
+            raise ValueError(
+                "batch_params with lanes_last=True needs quad_cost_batch=True: the "
+                "fused line search's per-lane-coefficient instances take per-lane "
+                "cost planes"
             )
         terms, active_coeffs = feature_pieces()
         goal = goal_q if quad_cost_batch else fixed_diag[3]
@@ -363,11 +383,15 @@ def make_batched_ilqr_solver(
             xs0 = rollout(params, x0s, uguess)
             xsT = xs0.permute(1, 2, 0).contiguous()
             usT = uguess[:, :, 0].T.contiguous()
-            jac = relin_jacobians(terms, xsT, usT, active_coeffs(params))
+            coeffs = active_coeffs(params)
+            jac = relin_jacobians(terms, xsT, usT, coeffs)
             if jac_dtype == "bf16":
                 jac = jac.to(torch.bfloat16)
             return dict(
                 x0s=x0s.T.contiguous(), xs=xsT, us=usT, jac=jac,
+                # batch_params: the lanes' (ds, n, B) coefficient plane,
+                # lanes-last, so compaction gathers it with the lanes.
+                **({"params": coeffs} if batch_params else {}),
                 # Lanes-last planes (obsdim, B) / (1, B): compaction
                 # gathers them with the lanes.
                 cost={k: v.T.contiguous() for k, v in cp.items()},
@@ -379,12 +403,13 @@ def make_batched_ilqr_solver(
             )
 
         def make_body(params):
-            coeffs = active_coeffs(params)
+            fixed_coeffs = None if batch_params else active_coeffs(params)
             # Read once per solve, as the JAX package reads it once per
             # trace.
             wide_io = os.environ.get("AMPC_BQ_WIDE_IO", "cast")
 
             def body(c):
+                coeffs = c["params"] if batch_params else fixed_coeffs
                 active = ~c["converged"] & ~c["failed"]
                 if quad_cost_batch:
                     cp = c["cost"]
@@ -411,7 +436,9 @@ def make_batched_ilqr_solver(
                 )
                 converged_now = (torch.sqrt(du2) < u_threshold) & ~failed_now
                 return dict(
-                    x0s=c["x0s"], cost=c["cost"], xs=xs, us=us, jac=jac, obj=obj,
+                    x0s=c["x0s"], cost=c["cost"],
+                    **({"params": coeffs} if batch_params else {}),
+                    xs=xs, us=us, jac=jac, obj=obj,
                     Ks=KsT, ks=ksT,
                     itr=c["itr"] + 1,
                     converged=c["converged"] | (converged_now & active),
@@ -442,11 +469,6 @@ def make_batched_ilqr_solver(
             raise _unsupported(
                 "feature_spec with dc > 1 (the feature kernels are built for dc = 1)"
             )
-        if pred_diff is None and feature_spec is None:
-            raise _unsupported(
-                "a model with neither pred_diff nor feature_spec (the "
-                "jacfwd relinearization)"
-            )
         if backward not in ("pallas", "scan"):
             raise _unsupported(f"backward={backward!r}")
         if mlp_ls is not None and feature_spec is None:
@@ -463,16 +485,20 @@ def make_batched_ilqr_solver(
         )
         if feature_spec is not None:
             terms, active_coeffs = feature_pieces()
+        # A model with neither: every point differentiated by forward-mode
+        # autodiff, one model a lane with batch_params (JAX's default
+        # relinearization, jax.jacfwd of pred_core).
+        model_diff = pred_diff if pred_diff is not None or feature_spec is not None \
+            else jacfwd_pred_diff(pred_core, ds, batch_params=batch_params)
 
-        def relinearize(params, xs, us):
+        def relinearize(params, coeffs, xs, us):
             """Jx (B, H, ds, ds), Ju (B, H, ds, dc) at the first H points
-            of xs (B, H+1, ds), us (B, H, dc)."""
+            of xs (B, H+1, ds), us (B, H, dc); ``coeffs`` the feature
+            kernels' coefficients (``active_coeffs``)."""
             if feature_spec is None:
-                _, Jx, Ju = pred_diff(params, xs[:, :H], us)
+                _, Jx, Ju = model_diff(params, xs[:, :H], us)
                 return Jx, Ju
-            return relin_jacobians_bm(
-                terms, xs.contiguous(), us.contiguous(), active_coeffs(params)
-            )
+            return relin_jacobians_bm(terms, xs.contiguous(), us.contiguous(), coeffs)
 
         def lane_expansions(xs, us, cp):
             """``expansions`` for per-lane diagonal costs."""
@@ -562,17 +588,19 @@ def make_batched_ilqr_solver(
             B = x0s.shape[0]
             cp = lane_costs(cost_params, x0s)
             if feature_spec is not None or (
-                    getattr(pred_diff, "all_points", False) and not horizon_mask):
+                    getattr(model_diff, "all_points", False) and not horizon_mask):
                 # The Jacobians at every point in one call after the
                 # rollout: the feature kernel, or an autodiff pred_diff
                 # (jacfwd_pred_diff), whose cost is a call, not a point.
                 xs0 = rollout(params, x0s, uguess)
-                Jx0, Ju0 = relinearize(params, xs0, uguess)
+                Jx0, Ju0 = relinearize(
+                    params, active_coeffs(params) if feature_spec is not None else None,
+                    xs0, uguess)
             else:
                 live = stage_mask(cp, x0s) if horizon_mask else None
                 x, xs, Jx, Ju = x0s, [x0s], [], []
                 for t in range(H):
-                    xn, jx, ju = pred_diff(params, x, uguess[:, t])
+                    xn, jx, ju = model_diff(params, x, uguess[:, t])
                     if live is not None:
                         # Inert steps: the state freezes, linearized as (I, 0).
                         xn = torch.where(live[:, t, None], xn, x)
@@ -599,7 +627,8 @@ def make_batched_ilqr_solver(
                 fold_mlp_params(params)
                 if mlp_ls is not None and feature_spec is None else None
             )
-            coeffs = active_coeffs(params) if feature_spec is not None else None
+            fixed_coeffs = (active_coeffs(params)
+                            if feature_spec is not None and not batch_params else None)
             quad_hess, fixed_rows = {}, {}
 
             def diag_rows(c):
@@ -622,6 +651,10 @@ def make_batched_ilqr_solver(
                 # Per-lane params ride the carry, so compaction gathers
                 # their rows with the trajectories.
                 pp = c["params"] if batch_params else params
+                # The lanes' (ds, n, B) coefficient plane, from the rows
+                # compaction left in the carry.
+                coeffs = active_coeffs(pp) if feature_spec is not None and batch_params \
+                    else fixed_coeffs
                 B = x0s.shape[0]
                 active = ~c["converged"] & ~c["failed"]
                 if quad_backward:
@@ -684,7 +717,7 @@ def make_batched_ilqr_solver(
                 new_xs, new_us = take(ls_xs, sel), take(ls_us, sel)
                 new_obj = torch.where(ls_success, best_obj, last_obj)
 
-                Jx_lin, Ju_lin = relinearize(pp, new_xs, new_us)
+                Jx_lin, Ju_lin = relinearize(pp, coeffs, new_xs, new_us)
                 if horizon_mask:
                     Jx_lin, Ju_lin = freeze(stage_mask(cp, x0s), Jx_lin, Ju_lin)
                 succ = ls_success[:, None, None, None]
@@ -862,12 +895,15 @@ def make_scheduled_ilqr_solver(
     return solve
 
 
-def jacfwd_pred_diff(pred_core, ds):
+def jacfwd_pred_diff(pred_core, ds, batch_params=False):
     """``pred_diff(params, x (..., ds), u (..., dc)) -> (pred, Jx, Ju)``
     of any model step by forward-mode autodiff (``torch.func.jacfwd``,
     the JAX package's ``jax.jacfwd``), one point at a time under
     ``torch.func.vmap`` over the flattened leading axes: Jx
-    (..., ds, ds), Ju (..., ds, dc)."""
+    (..., ds, ds), Ju (..., ds, dc). With ``batch_params`` every tensor
+    of ``params`` has a leading lane axis B, x and u lead with it too,
+    and lane b's points go through lane b's params (``pred_core`` then
+    sees one lane's params and one point)."""
     from torch.func import jacfwd, vmap
 
     def point(params, x, u):
@@ -878,12 +914,21 @@ def jacfwd_pred_diff(pred_core, ds):
         J, y = jacfwd(f, has_aux=True)(torch.cat([x, u]))
         return y, J[:, :ds], J[:, ds:]
 
+    def points(params, x, u):
+        return vmap(point, in_dims=(None, 0, 0))(params, x, u)
+
     def pred_diff(params, x, u):
         lead = x.shape[:-1]
-        y, Jx, Ju = vmap(point, in_dims=(None, 0, 0))(
-            params, x.reshape(-1, x.shape[-1]), u.reshape(-1, u.shape[-1]))
-        return (y.reshape(lead + y.shape[1:]), Jx.reshape(lead + Jx.shape[1:]),
-                Ju.reshape(lead + Ju.shape[1:]))
+        if batch_params:
+            B = x.shape[0]
+            y, Jx, Ju = vmap(points, in_dims=(0, 0, 0))(
+                params, x.reshape(B, -1, x.shape[-1]), u.reshape(B, -1, u.shape[-1]))
+        else:
+            y, Jx, Ju = points(params, x.reshape(-1, x.shape[-1]),
+                               u.reshape(-1, u.shape[-1]))
+        # Contiguous, as the kernels take them (Jx, Ju are column slices).
+        return (y.reshape(lead + y.shape[-1:]), Jx.reshape(lead + Jx.shape[-2:]).contiguous(),
+                Ju.reshape(lead + Ju.shape[-2:]).contiguous())
 
     # A call costs the same for one point and for a horizon's: the solver
     # rolls out with pred_core and then differentiates every point at once.

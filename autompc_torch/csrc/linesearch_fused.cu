@@ -8,7 +8,11 @@
 // Replaces the Pallas TPU kernel autompc_tpu/ops/pallas_linesearch.py:
 // _fused_kernel, entry pallas_fused_line_search with ll_io=True,
 // carry=(act, old_jac), grad_terms and one shared (ds, F) coefficient
-// plane. Per lane:
+// plane, or (ampc_fused_line_search_lane, per-lane costs and a float
+// carry) one plane a lane: a lanes-last (ds, F, B) plane read in place,
+// the table in device memory, the whole library up to AMPC_MAX_F_BIG
+// terms (128 registers with the small trees, 148 with the large, one
+// block of 256 threads an SM fewer). Per lane:
 //   rollouts  every step size alpha_l through the feature-library
 //             dynamics, u = clip(alpha k + ubar + K (x - xbar)), with the
 //             objective dt * sum_t ((x-g)'Q(x-g) + R u^2) + (x_H-g)'F(x_H-g)
@@ -53,9 +57,16 @@
 // wrapper's jac_dtype), a second template switch.
 #include "ls_step.cuh"
 
-template <int DS, bool LANE_COST, typename JT>
-__global__ void __launch_bounds__(AMPC_LS_MAX_THREADS, 2) fused_ls_kernel(
-    const __grid_constant__ FeatTable T, const __grid_constant__ LSParams P,
+// TA: FeatTable (shared coefficients, staged in shared memory) or
+// FeatTableRef<S> (per-lane coefficients, a lanes-last (ds, n, B) plane
+// read in place, lane b's column by its L candidate threads; the table in
+// device memory, trees of S slots). An instance with the large trees may
+// take twice the registers (one block of 256 threads an SM).
+template <int DS, bool LANE_COST, typename JT, class TA = FeatTable>
+__global__ void __launch_bounds__(
+    AMPC_LS_MAX_THREADS, AmpcTableTraits<TA>::slots == AMPC_TREE_SLOTS ? 2 : 1)
+    fused_ls_kernel(const __grid_constant__ TA T,
+    const __grid_constant__ LSParams P,
     const float* __restrict__ coeffs, const float* __restrict__ x0T,
     const float* __restrict__ xsT, const float* __restrict__ usT,
     const float* __restrict__ KsT, const float* __restrict__ ksT,
@@ -67,12 +78,14 @@ __global__ void __launch_bounds__(AMPC_LS_MAX_THREADS, 2) fused_ls_kernel(
     float* __restrict__ out_us, float* __restrict__ out_obj,
     uint8_t* __restrict__ out_succ, uint8_t* __restrict__ out_fail,
     JT* __restrict__ out_jac, float* __restrict__ out_du2, int H, int B) {
+  constexpr bool LANE = AmpcTableTraits<TA>::lane;
+  constexpr int S = AmpcTableTraits<TA>::slots;
   constexpr int D = DS + 1;
   __shared__ float s_coef[DS * AMPC_MAX_F];
   __shared__ float s_obj[AMPC_LS_MAX_THREADS];
   __shared__ float s_du2[AMPC_LS_MAX_THREADS];
   __shared__ int s_pick[AMPC_LS_MAX_THREADS];
-  ampc_load_coef(s_coef, coeffs, DS * T.n);
+  if constexpr (!LANE) ampc_load_coef(s_coef, coeffs, DS * T.n);
   const int L = P.L;
   const int NL = blockDim.x / L;
   const int l = threadIdx.x / NL;
@@ -85,9 +98,15 @@ __global__ void __launch_bounds__(AMPC_LS_MAX_THREADS, 2) fused_ls_kernel(
   // ---- candidate l of lane b: rollout, objective, du2 -----------------
   float x0[DS];
   float obj = 0.f, du2 = 0.f;
-  if (valid)
-    ls_candidate<DS, LANE_COST>(T, s_coef, P, x0T, xsT, usT, KsT, ksT, qdT, rdT,
-                                fdT, stash, l, H, B, b, x0, obj, du2);
+  if (valid) {
+    if constexpr (LANE)
+      ls_candidate_cv<DS, LANE_COST, S>(ampc_table(T), CoefLane{coeffs + b, T.n, B},
+                                        P, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT,
+                                        stash, l, H, B, b, x0, obj, du2);
+    else
+      ls_candidate<DS, LANE_COST>(T, s_coef, P, x0T, xsT, usT, KsT, ksT, qdT, rdT,
+                                  fdT, stash, l, H, B, b, x0, obj, du2);
+  }
   s_obj[threadIdx.x] = obj;
   s_du2[threadIdx.x] = du2;
   __syncthreads();
@@ -177,7 +196,11 @@ __global__ void __launch_bounds__(AMPC_LS_MAX_THREADS, 2) fused_ls_kernel(
 #pragma unroll
       for (int dd = 0; dd < D; ++dd) {
         float col[DS];
-        ampc_jac_col<DS, D>(T, s_coef, z, dd, col);
+        if constexpr (LANE)
+          ampc_jac_col_cv<DS, D, S>(ampc_table(T), CoefLane{coeffs + b, T.n, B}, z,
+                                    dd, col);
+        else
+          ampc_jac_col<DS, D>(T, s_coef, z, dd, col);
 #pragma unroll
         for (int i = 0; i < DS; ++i)
           out_jac[(jt + i * D + dd) * B + b] = ampc_jac_store<JT>(col[i]);
@@ -192,12 +215,12 @@ __global__ void __launch_bounds__(AMPC_LS_MAX_THREADS, 2) fused_ls_kernel(
   }
 }
 
-template <bool LANE_COST, typename JT>
-static void launch(const FeatTable* T, const LSParams* P, const float* coeffs,
-                   const float* x0T, const float* xsT, const float* usT,
-                   const float* KsT, const float* ksT, const float* qdT,
-                   const float* rdT, const float* fdT, const float* obj0,
-                   const float* lin, const float* quad,
+template <bool LANE_COST, typename JT, class TA>
+static void launch(const TA& T, const LSParams* P,
+                   const float* coeffs, const float* x0T, const float* xsT,
+                   const float* usT, const float* KsT, const float* ksT,
+                   const float* qdT, const float* rdT, const float* fdT,
+                   const float* obj0, const float* lin, const float* quad,
                    const uint8_t* ks_small, const uint8_t* act,
                    const void* old_jac, float* stash, float* out_xs,
                    float* out_us, float* out_obj, uint8_t* out_succ,
@@ -205,10 +228,21 @@ static void launch(const FeatTable* T, const LSParams* P, const float* coeffs,
                    int B, int lanes_per_block, cudaStream_t s) {
   const int threads = lanes_per_block * P->L;
   const unsigned blocks = (unsigned)((B + lanes_per_block - 1) / lanes_per_block);
-  fused_ls_kernel<4, LANE_COST, JT><<<blocks, threads, 0, s>>>(
-      *T, *P, coeffs, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT, obj0, lin,
+  fused_ls_kernel<4, LANE_COST, JT, TA><<<blocks, threads, 0, s>>>(
+      T, *P, coeffs, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT, obj0, lin,
       quad, ks_small, act, (const JT*)old_jac, stash, out_xs, out_us, out_obj,
       out_succ, out_fail, (JT*)out_jac, out_du2, H, B);
+}
+
+static int fused_check(int n, int max_n, const LSParams* P, int ds, int H,
+                       int B, int lanes_per_block, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (ds != 4 || n < 1 || n > max_n || P->L < 1 || P->L > AMPC_MAX_L ||
+      P->obsdim < 1 || P->obsdim > ds || H < 1 || B < 1 || lanes_per_block < 1 ||
+      lanes_per_block * P->L > AMPC_LS_MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 // qdT/rdT/fdT: per-lane cost planes, or all three null for the fixed
@@ -225,20 +259,16 @@ extern "C" int ampc_fused_line_search(
     uint8_t* out_succ, uint8_t* out_fail, void* out_jac, float* out_du2,
     int jac_bf16, int ds, int H, int B, int lanes_per_block, int device,
     void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const int rc = fused_check(T->n, AMPC_MAX_F, P, ds, H, B, lanes_per_block, device);
+  if (rc) return rc;
   const bool lane = qdT != nullptr;
-  if (ds != 4 || T->d != ds + 1 || T->n < 1 || T->n > AMPC_MAX_F ||
-      P->L < 1 || P->L > AMPC_MAX_L || P->obsdim < 1 || P->obsdim > ds ||
-      (rdT != nullptr) != lane || (fdT != nullptr) != lane || H < 1 ||
-      B < 1 || lanes_per_block < 1 ||
-      lanes_per_block * P->L > AMPC_LS_MAX_THREADS)
+  if (T->d != ds + 1 || (rdT != nullptr) != lane || (fdT != nullptr) != lane)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define AMPC_LAUNCH(LC, JT_)                                                 \
-  launch<LC, JT_>(T, P, coeffs, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT, obj0, \
-                  lin, quad, ks_small, act, old_jac, stash, out_xs, out_us,   \
-                  out_obj, out_succ, out_fail, out_jac, out_du2, H, B,        \
+#define AMPC_LAUNCH(LC, JT_)                                                  \
+  launch<LC, JT_>(*T, P, coeffs, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT, obj0, \
+                  lin, quad, ks_small, act, old_jac, stash, out_xs, out_us,    \
+                  out_obj, out_succ, out_fail, out_jac, out_du2, H, B,         \
                   lanes_per_block, s)
   if (lane && jac_bf16)
     AMPC_LAUNCH(true, __nv_bfloat16);
@@ -252,18 +282,56 @@ extern "C" int ampc_fused_line_search(
   return (int)cudaGetLastError();
 }
 
+// The same with per-lane coefficients (a lanes-last (ds, n, B) plane),
+// the device table Tdev of n terms (up to AMPC_MAX_F_BIG), per-lane cost
+// planes and a float Jacobian carry (the joint fan-out's form): trees of
+// AMPC_TREE_SLOTS slots up to AMPC_MAX_F terms, else AMPC_TREE_SLOTS_BIG.
+extern "C" int ampc_fused_line_search_lane(
+    const FeatTableBig* Tdev, int n, const LSParams* P, const float* coeffs,
+    const float* x0T, const float* xsT, const float* usT, const float* KsT,
+    const float* ksT, const float* qdT, const float* rdT, const float* fdT,
+    const float* obj0, const float* lin, const float* quad,
+    const uint8_t* ks_small, const uint8_t* act, const void* old_jac,
+    float* stash, float* out_xs, float* out_us, float* out_obj,
+    uint8_t* out_succ, uint8_t* out_fail, void* out_jac, float* out_du2, int ds,
+    int H, int B, int lanes_per_block, int device, void* stream) {
+  const int rc =
+      fused_check(n, AMPC_MAX_F_BIG, P, ds, H, B, lanes_per_block, device);
+  if (rc) return rc;
+  if (qdT == nullptr || rdT == nullptr || fdT == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define AMPC_LAUNCH(S_)                                                       \
+  launch<true, float>(FeatTableRef<S_>{Tdev, n}, P, coeffs, x0T, xsT, usT, KsT, \
+                      ksT, qdT, rdT, fdT, obj0, lin, quad, ks_small, act,      \
+                      old_jac, stash, out_xs, out_us, out_obj, out_succ,       \
+                      out_fail, out_jac, out_du2, H, B, lanes_per_block, s)
+  if (n <= AMPC_MAX_F)
+    AMPC_LAUNCH(AMPC_TREE_SLOTS);
+  else
+    AMPC_LAUNCH(AMPC_TREE_SLOTS_BIG);
+#undef AMPC_LAUNCH
+  return (int)cudaGetLastError();
+}
+
 // The compiled instance's registers and local (spill) bytes a thread, and
-// its resident blocks an SM at `threads` a block: out[0..2].
+// its resident blocks an SM at `threads` a block: out[0..2]. lane_coef
+// picks a per-lane-coefficient instance (per-lane cost, float carry) with
+// the small (1) or the large (2) trees.
 extern "C" int ampc_fused_line_search_occupancy(int lane_cost, int jac_bf16,
-                                                int threads, int device,
-                                                int* out) {
+                                                int lane_coef, int threads,
+                                                int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const void* f =
-      lane_cost ? (jac_bf16 ? (const void*)fused_ls_kernel<4, true, __nv_bfloat16>
-                            : (const void*)fused_ls_kernel<4, true, float>)
-                : (jac_bf16 ? (const void*)fused_ls_kernel<4, false, __nv_bfloat16>
-                            : (const void*)fused_ls_kernel<4, false, float>);
+      lane_coef == 1
+          ? (const void*)fused_ls_kernel<4, true, float, FeatTableRef<AMPC_TREE_SLOTS>>
+      : lane_coef == 2
+          ? (const void*)fused_ls_kernel<4, true, float, FeatTableRef<AMPC_TREE_SLOTS_BIG>>
+      : lane_cost ? (jac_bf16 ? (const void*)fused_ls_kernel<4, true, __nv_bfloat16>
+                              : (const void*)fused_ls_kernel<4, true, float>)
+                  : (jac_bf16 ? (const void*)fused_ls_kernel<4, false, __nv_bfloat16>
+                              : (const void*)fused_ls_kernel<4, false, float>);
   cudaFuncAttributes a;
   err = cudaFuncGetAttributes(&a, f);
   if (err != cudaSuccess) return (int)err;

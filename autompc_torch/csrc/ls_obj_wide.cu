@@ -35,7 +35,7 @@
 //     writes of the stash are coalesced; NL from the wrapper
 //     (fused_geometry) spreads the blocks over the SMs.
 //   - Fewer instructions a chain-step: the term sums push each term into
-//     the ds trees at once (features.cuh: ampc_tree_push), the same
+//     the ds trees at once (features.cuh: ampc_tree_push_cv), the same
 //     additions in the same order.
 #include "ls_step.cuh"
 

@@ -101,12 +101,13 @@ __device__ __forceinline__ void ls_load_row(const float* xsT,
 
 // One step of a candidate rollout: u = clip(alpha k + ubar + K (x - xbar)),
 // obj += dt (q-form(x) + R u^2), x <- coeffs @ features([x, u]); returns u.
-template <int DS>
-__device__ __forceinline__ float ls_obj_step(
-    const FeatTable& T, const float* s_coef, const LSParams& P,
-    float (&x)[DS], const float (&xbar)[DS], const float (&K)[DS],
-    float ubar, float kk, float alpha, const float* wq, float rd,
-    float& obj) {
+// The coefficients come from cv (features.cuh: CoefShared, CoefLane), the
+// feature sum over a tree of S slots.
+template <int DS, int S, class TT, class CV>
+__device__ __forceinline__ float ls_obj_step_cv(
+    const TT& T, CV cv, const LSParams& P, float (&x)[DS],
+    const float (&xbar)[DS], const float (&K)[DS], float ubar, float kk,
+    float alpha, const float* wq, float rd, float& obj) {
   constexpr int D = DS + 1;
   const float u = ls_control<DS>(P, x, xbar, K, ubar, kk, alpha);
   const float oc = ls_quad_form<DS>(P, x, wq);
@@ -116,7 +117,7 @@ __device__ __forceinline__ float ls_obj_step(
 #pragma unroll
   for (int i = 0; i < DS; ++i) z[i] = x[i];
   z[DS] = u;
-  ampc_dynamics<DS, D>(T, s_coef, z, x);
+  ampc_dynamics_cv<DS, D, S>(T, cv, z, x);
   return u;
 }
 
@@ -125,10 +126,11 @@ __device__ __forceinline__ float ls_obj_step(
 // (u_t - ubar_t)^2 to du2, and stashes x_{t+1} in rows (t, i < DS, l) and
 // u_t in row (t, DS, l) of the stash (H, DS+1, L, B); obj then takes the
 // terminal cost. The cost diagonals are the lane's own planes (qdT, rdT,
-// fdT (obsdim, B), LANE_COST) or P's constants.
-template <int DS, bool LANE_COST>
-__device__ __forceinline__ void ls_candidate(
-    const FeatTable& T, const float* s_coef, const LSParams& P,
+// fdT (obsdim, B), LANE_COST) or P's constants; the coefficients come
+// from cv, the feature sums over trees of S slots.
+template <int DS, bool LANE_COST, int S, class TT, class CV>
+__device__ __forceinline__ void ls_candidate_cv(
+    const TT& T, CV cv, const LSParams& P,
     const float* __restrict__ x0T, const float* __restrict__ xsT,
     const float* __restrict__ usT, const float* __restrict__ KsT,
     const float* __restrict__ ksT, const float* __restrict__ qdT,
@@ -156,8 +158,8 @@ __device__ __forceinline__ void ls_candidate(
   for (int t = 0; t < H; ++t) {
     float xbar[DS], K[DS], ubar, kk;
     ls_load_row<DS>(xsT, usT, KsT, ksT, t, B, b, xbar, K, ubar, kk);
-    const float u =
-        ls_obj_step<DS>(T, s_coef, P, x, xbar, K, ubar, kk, alpha, wq, rd, obj);
+    const float u = ls_obj_step_cv<DS, S>(T, cv, P, x, xbar, K, ubar, kk, alpha,
+                                          wq, rd, obj);
     const float du = u - ubar;
     du2 = du2 + du * du;
     float* row = st + (long long)t * D * LB;
@@ -174,4 +176,19 @@ __device__ __forceinline__ void ls_candidate(
   }
   const float* wf = LANE_COST ? f_lane : P.fd;
   obj = obj + ls_quad_form<DS>(P, x, wf);
+}
+
+// ls_candidate_cv with one shared (DS, n) coefficient plane (s_coef).
+template <int DS, bool LANE_COST>
+__device__ __forceinline__ void ls_candidate(
+    const FeatTable& T, const float* s_coef, const LSParams& P,
+    const float* __restrict__ x0T, const float* __restrict__ xsT,
+    const float* __restrict__ usT, const float* __restrict__ KsT,
+    const float* __restrict__ ksT, const float* __restrict__ qdT,
+    const float* __restrict__ rdT, const float* __restrict__ fdT,
+    float* stash, int l, int H, int B, int b, float (&x0)[DS], float& obj,
+    float& du2) {
+  ls_candidate_cv<DS, LANE_COST, AMPC_TREE_SLOTS>(
+      T, CoefShared{s_coef, T.n}, P, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT,
+      stash, l, H, B, b, x0, obj, du2);
 }

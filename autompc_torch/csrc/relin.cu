@@ -51,6 +51,15 @@
 // a launch. The batch-major entry adds ~0.0003-0.007 ms for its staging
 // and replaces the four copy kernels of a layout adapter (0.010-0.016 ms
 // at the fan-out's shapes, 0.255 at B=4096 with the adapter).
+//
+// Per-lane coefficients (ampc_relin_jacobians_lane, _bm_lane; the joint
+// fan-out, a model a lane): the same kernel and geometry with the table in
+// device memory and a lanes-last (ds, n, B) plane, each thread reading
+// its lane's column in place (lanes-last: a warp of 32 neighbouring
+// lanes reads one line for each (i, k)); no feature mask, so up to
+// AMPC_MAX_F_BIG terms, trees of AMPC_TREE_SLOTS_BIG slots past
+// AMPC_MAX_F. Registers (ptxas, sm_90a): 56-77 with the small trees,
+// 84-107 with the large, no spill.
 #include "features.cuh"
 
 // Points a block holds: one warp per Jacobian column (split), or a thread
@@ -58,12 +67,16 @@
 #define AMPC_RELIN_SPLIT_LANES 32
 #define AMPC_RELIN_WHOLE_LANES 256
 
-template <int DS, bool BM, int CT, int NL>
-__global__ void __launch_bounds__(NL* CT) relin_kernel(const __grid_constant__ FeatTable T,
-                 const float* __restrict__ coeffs,
-                 const float* __restrict__ xs, const float* __restrict__ us,
-                 float* __restrict__ jac, float* __restrict__ Ju, int H,
-                 int B) {
+// TA: FeatTable (shared coefficients, a (ds, n) plane staged in shared
+// memory) or FeatTableRef<S> (per-lane coefficients, a lanes-last
+// (ds, n, B) plane, lane b's column read in place; trees of S slots).
+template <int DS, bool BM, int CT, int NL, class TA = FeatTable>
+__global__ void __launch_bounds__(NL* CT) relin_kernel(
+    const __grid_constant__ TA T, const float* __restrict__ coeffs,
+    const float* __restrict__ xs, const float* __restrict__ us,
+    float* __restrict__ jac, float* __restrict__ Ju, int H, int B) {
+  constexpr bool LANE = AmpcTableTraits<TA>::lane;
+  constexpr int S = AmpcTableTraits<TA>::slots;
   constexpr int D = DS + 1;
   static_assert(CT == 1 || CT == D, "a column or all columns a thread");
   __shared__ float s_coef[DS * AMPC_MAX_F];
@@ -72,8 +85,10 @@ __global__ void __launch_bounds__(NL* CT) relin_kernel(const __grid_constant__ F
   __shared__ float s_jx[BM ? NL : 1][DS * DS + 1];
   __shared__ float s_ju[BM ? NL : 1][DS + 1];
   const int tid = threadIdx.y * NL + threadIdx.x;
-  for (int i = tid; i < DS * T.n; i += NL * CT) s_coef[i] = coeffs[i];
-  __syncthreads();
+  if constexpr (!LANE) {
+    for (int i = tid; i < DS * T.n; i += NL * CT) s_coef[i] = coeffs[i];
+    __syncthreads();
+  }
 
   const int dd0 = CT == 1 ? 0 : (int)threadIdx.y;  // first column
   long long p0 = 0;  // batch-major: the block's first point
@@ -108,7 +123,11 @@ __global__ void __launch_bounds__(NL* CT) relin_kernel(const __grid_constant__ F
 #pragma unroll
     for (int dd = dd0; dd < D; dd += CT) {
       float col[DS];
-      ampc_jac_col<DS, D>(T, s_coef, z, dd, col);
+      if constexpr (LANE)
+        ampc_jac_col_cv<DS, D, S>(ampc_table(T), CoefLane{coeffs + b, T.n, B}, z,
+                                  dd, col);
+      else
+        ampc_jac_col<DS, D>(T, s_coef, z, dd, col);
 #pragma unroll
       for (int i = 0; i < DS; ++i) {
         if (!BM)
@@ -129,28 +148,27 @@ __global__ void __launch_bounds__(NL* CT) relin_kernel(const __grid_constant__ F
   for (int o = tid; o < np * DS; o += NL * CT) ju_out[o] = s_ju[o / DS][o % DS];
 }
 
-template <bool BM, int CT, int NL>
-static void relin_launch(const FeatTable* T, const float* coeffs,
-                         const float* xs, const float* us, float* jac,
-                         float* Ju, int H, int B, cudaStream_t s) {
+template <bool BM, int CT, int NL, class TA>
+static void relin_launch(const TA& T, const float* coeffs, const float* xs,
+                         const float* us, float* jac, float* Ju, int H, int B,
+                         cudaStream_t s) {
   const dim3 block(NL, CT);
   if (BM) {
     const long long n = (long long)B * H;
     const unsigned grid = (unsigned)((n + NL - 1) / NL);
-    relin_kernel<4, true, CT, NL><<<grid, block, 0, s>>>(*T, coeffs, xs, us,
-                                                         jac, Ju, H, B);
+    relin_kernel<4, true, CT, NL, TA><<<grid, block, 0, s>>>(T, coeffs, xs, us,
+                                                            jac, Ju, H, B);
   } else {
     const dim3 grid((unsigned)((B + NL - 1) / NL), (unsigned)H);
-    relin_kernel<4, false, CT, NL><<<grid, block, 0, s>>>(*T, coeffs, xs, us,
-                                                          jac, Ju, H, B);
+    relin_kernel<4, false, CT, NL, TA><<<grid, block, 0, s>>>(T, coeffs, xs, us,
+                                                             jac, Ju, H, B);
   }
 }
 
-template <bool BM>
-static void relin_dispatch(const FeatTable* T, const float* coeffs,
-                           const float* xs, const float* us, float* jac,
-                           float* Ju, int H, int B, int split,
-                           cudaStream_t s) {
+template <bool BM, class TA>
+static void relin_dispatch(const TA& T, const float* coeffs, const float* xs,
+                           const float* us, float* jac, float* Ju, int H, int B,
+                           int split, cudaStream_t s) {
   if (split)
     relin_launch<BM, 5, AMPC_RELIN_SPLIT_LANES>(T, coeffs, xs, us, jac, Ju, H,
                                                 B, s);
@@ -159,14 +177,33 @@ static void relin_dispatch(const FeatTable* T, const float* coeffs,
                                                 B, s);
 }
 
-static int relin_check(const FeatTable* T, int ds, int H, int B,
+static int relin_check(int n, int d, int max_n, int ds, int H, int B,
                        int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ds != 4 || T->d != ds + 1 || T->n < 1 || T->n > AMPC_MAX_F || H < 1 ||
-      H > 65535 || B < 1)
+  if (ds != 4 || d != ds + 1 || n < 1 || n > max_n || H < 1 || H > 65535 ||
+      B < 1)
     return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+// The per-lane instances: the device table Tdev of n terms, coefficients
+// a lanes-last (ds, n, B) plane; trees of AMPC_TREE_SLOTS slots up to
+// AMPC_MAX_F terms, else AMPC_TREE_SLOTS_BIG.
+template <bool BM>
+static int relin_lane(const FeatTableBig* Tdev, int n, const float* coeffs,
+                      const float* xs, const float* us, float* jac, float* Ju,
+                      int ds, int H, int B, int split, int device,
+                      void* stream) {
+  const int rc = relin_check(n, ds + 1, AMPC_MAX_F_BIG, ds, H, B, device);
+  if (rc) return rc;
+  if (n <= AMPC_MAX_F)
+    relin_dispatch<BM>(FeatTableRef<AMPC_TREE_SLOTS>{Tdev, n}, coeffs, xs, us, jac,
+                       Ju, H, B, split, (cudaStream_t)stream);
+  else
+    relin_dispatch<BM>(FeatTableRef<AMPC_TREE_SLOTS_BIG>{Tdev, n}, coeffs, xs, us,
+                       jac, Ju, H, B, split, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
 }
 
 // Lanes-last: a grid of (ceil(B / NL), H) blocks of (NL, CT) threads;
@@ -177,9 +214,9 @@ extern "C" int ampc_relin_jacobians(const FeatTable* T, const float* coeffs,
                                     const float* xsT, const float* usT,
                                     float* jac, int ds, int H, int B,
                                     int split, int device, void* stream) {
-  const int rc = relin_check(T, ds, H, B, device);
+  const int rc = relin_check(T->n, T->d, AMPC_MAX_F, ds, H, B, device);
   if (rc) return rc;
-  relin_dispatch<false>(T, coeffs, xsT, usT, jac, nullptr, H, B, split,
+  relin_dispatch<false>(*T, coeffs, xsT, usT, jac, nullptr, H, B, split,
                         (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
@@ -192,9 +229,31 @@ extern "C" int ampc_relin_jacobians_bm(const FeatTable* T,
                                        const float* us, float* Jx, float* Ju,
                                        int ds, int H, int B, int split,
                                        int device, void* stream) {
-  const int rc = relin_check(T, ds, H, B, device);
+  const int rc = relin_check(T->n, T->d, AMPC_MAX_F, ds, H, B, device);
   if (rc) return rc;
-  relin_dispatch<true>(T, coeffs, xs, us, Jx, Ju, H, B, split,
+  relin_dispatch<true>(*T, coeffs, xs, us, Jx, Ju, H, B, split,
                        (cudaStream_t)stream);
   return (int)cudaGetLastError();
+}
+
+// The two entries with per-lane coefficients (a lanes-last (ds, n, B)
+// plane, lane b's column read by every thread of lane b), the term
+// table in device memory: the same geometry and the same sums.
+extern "C" int ampc_relin_jacobians_lane(const FeatTableBig* Tdev, int n,
+                                         const float* coeffs, const float* xsT,
+                                         const float* usT, float* jac, int ds,
+                                         int H, int B, int split, int device,
+                                         void* stream) {
+  return relin_lane<false>(Tdev, n, coeffs, xsT, usT, jac, nullptr, ds, H, B,
+                           split, device, stream);
+}
+
+extern "C" int ampc_relin_jacobians_bm_lane(const FeatTableBig* Tdev, int n,
+                                            const float* coeffs,
+                                            const float* xs, const float* us,
+                                            float* Jx, float* Ju, int ds, int H,
+                                            int B, int split, int device,
+                                            void* stream) {
+  return relin_lane<true>(Tdev, n, coeffs, xs, us, Jx, Ju, ds, H, B, split,
+                          device, stream);
 }

@@ -5,7 +5,11 @@
 //
 // Replaces the Pallas TPU kernel autompc_tpu/ops/pallas_linesearch.py:
 // _ls_kernel (entry pallas_sindy_line_search) with one shared (ds, F)
-// coefficient plane. Per candidate (lane b, step size l):
+// coefficient plane, or (ampc_sindy_line_search_lane) one a lane: a
+// lanes-last (ds, F, B) plane whose column b the candidates of lane b read
+// in place, the term table in device memory and its decoded words in
+// dynamic shared memory, over the whole library (up to AMPC_MAX_F_BIG
+// terms; 86-96 registers, no spill). Per candidate (lane b, step size l):
 //   x_0 = x0[b];  for t < H:
 //     u_t = clip(alpha_l k_t + ubar_t + K_t (x_t - xbar_t)),
 //     x_{t+1} = coeffs @ features([x_t, u_t]),
@@ -89,8 +93,8 @@ __device__ __forceinline__ void sls_load_table(FeatTable* dst,
 // A term in one word, decoded once a block: bits 0-7 the components with
 // a power (mask), bit 8 set if every power is 1, bits 9-10 the kind, bits
 // 11-13 the trig component.
-template <int D>
-__device__ __forceinline__ unsigned sls_term_desc(const FeatTable& T, int k) {
+template <int D, class TT>
+__device__ __forceinline__ unsigned sls_term_desc(const TT& T, int k) {
   unsigned mask = 0, ones = 1;
 #pragma unroll
   for (int c = 0; c < D; ++c) {
@@ -105,8 +109,8 @@ __device__ __forceinline__ unsigned sls_term_desc(const FeatTable& T, int k) {
 // monomial is the product of its components in component order, which is
 // what ampc_monomial computes (ampc_ipow(x, 1) = x), without reading the
 // powers; the same product, trig factor and roundings.
-template <int D>
-__device__ __forceinline__ float sls_term_value(const FeatTable& T, int k,
+template <int D, class TT>
+__device__ __forceinline__ float sls_term_value(const TT& T, int k,
                                                 unsigned desc,
                                                 const float (&z)[D]) {
   float mono = 1.f;
@@ -129,23 +133,44 @@ __device__ __forceinline__ float sls_term_value(const FeatTable& T, int k,
   return hm ? mono * tv : tv;
 }
 
-template <int DS, int G>
+// TA: FeatTable (shared coefficients, staged in shared memory with the
+// table) or FeatTableRef<S> (per-lane coefficients, a lanes-last
+// (ds, n, B) plane, lane b's column read by its candidates' threads; the
+// table in device memory and its decoded words in dynamic shared memory,
+// n words; trees of S slots).
+template <int DS, int G, class TA = FeatTable>
 __global__ void sindy_ls_kernel(
-    const __grid_constant__ FeatTable T, const __grid_constant__ SindyLS P,
-    const float* __restrict__ coeffs, const float* __restrict__ x0,
-    const float* __restrict__ xs, const float* __restrict__ us,
-    const float* __restrict__ Ks, const float* __restrict__ ks,
-    float* __restrict__ out_xs, float* __restrict__ out_us, int H, int B) {
+    const __grid_constant__ TA T,
+    const __grid_constant__ SindyLS P, const float* __restrict__ coeffs,
+    const float* __restrict__ x0, const float* __restrict__ xs,
+    const float* __restrict__ us, const float* __restrict__ Ks,
+    const float* __restrict__ ks, float* __restrict__ out_xs,
+    float* __restrict__ out_us, int H, int B) {
   constexpr int D = DS + 1;
   static_assert(G >= 2 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two");
   static_assert(DS == 4, "a state row is one float4 store");
+  constexpr bool LANE = AmpcTableTraits<TA>::lane;
+  constexpr int S = AmpcTableTraits<TA>::slots;
   __shared__ FeatTable sT;
   __shared__ float s_coef[DS * AMPC_MAX_F];
-  __shared__ unsigned s_desc[AMPC_MAX_F];
-  sls_load_table(&sT, T);
-  for (int k = threadIdx.x; k < T.n; k += blockDim.x)
-    s_desc[k] = sls_term_desc<D>(T, k);
-  ampc_load_coef(s_coef, coeffs, DS * T.n);  // ends with __syncthreads
+  __shared__ unsigned s_desc_fixed[AMPC_MAX_F];
+  extern __shared__ unsigned s_desc_lane[];
+  unsigned* s_desc = LANE ? s_desc_lane : s_desc_fixed;
+  // The table the terms are read from: the device table (per lane) or
+  // its copy in shared memory.
+  const auto& Tk = [&]() -> const auto& {
+    if constexpr (LANE) return ampc_table(T); else return sT;
+  }();
+  if constexpr (LANE) {
+    for (int k = threadIdx.x; k < T.n; k += blockDim.x)
+      s_desc[k] = sls_term_desc<D>(Tk, k);
+    __syncthreads();
+  } else {
+    sls_load_table(&sT, T);
+    for (int k = threadIdx.x; k < T.n; k += blockDim.x)
+      s_desc[k] = sls_term_desc<D>(T, k);
+    ampc_load_coef(s_coef, coeffs, DS * T.n);  // ends with __syncthreads
+  }
 
   // Candidate c = b * L + l; a tail group past the last candidate repeats
   // it (its shuffles must run) and stores nothing.
@@ -158,6 +183,11 @@ __global__ void sindy_ls_kernel(
   const float alpha = P.alphas[c - (long long)b * P.L];
   const int n = T.n, full = n / G, part = n - full * G;
   const bool store = valid && g == 0;
+  // The coefficients: lane b's column of the per-lane plane, or the plane
+  // staged in shared memory.
+  const auto cv = [&] {
+    if constexpr (LANE) return CoefLane{coeffs + b, n, B}; else return CoefShared{s_coef, n};
+  }();
 
   float x[DS];
 #pragma unroll
@@ -193,14 +223,14 @@ __global__ void sindy_ls_kernel(
     for (int i = 0; i < DS; ++i) z[i] = x[i];
     z[DS] = u;
 
-    TreeAcc acc[DS];  // over complete rounds (blocks of G terms)
+    TreeAccT<S> acc[DS];  // over complete rounds (blocks of G terms)
     float sum[DS];
     for (int r = 0; r * G < n; ++r) {
       const int cnt = r < full ? G : part;  // terms in this round
       const int k = r * G + (g < cnt ? g : 0);
-      const float v = g < cnt ? sls_term_value<D>(sT, k, s_desc[k], z) : 0.f;
+      const float v = g < cnt ? sls_term_value<D>(Tk, k, s_desc[k], z) : 0.f;
 #pragma unroll
-      for (int i = 0; i < DS; ++i) sum[i] = __fmul_rn(s_coef[i * n + k], v);
+      for (int i = 0; i < DS; ++i) sum[i] = __fmul_rn(cv.get(i, k), v);
 #pragma unroll
       for (int l = 1; l < G; l <<= 1) {
         const int own = g & ~(l - 1);  // this thread's block of l terms
@@ -220,7 +250,7 @@ __global__ void sindy_ls_kernel(
       } else {
         float s2 = sum[i];
 #pragma unroll
-        for (int l = 0; l < AMPC_TREE_SLOTS; ++l)
+        for (int l = 0; l < S; ++l)
           if ((full >> l) & 1) s2 = __fadd_rn(acc[i].slot[l], s2);
         x[i] = s2;
       }
@@ -232,34 +262,35 @@ __global__ void sindy_ls_kernel(
   }
 }
 
-template <int G>
-static void sls_launch(const FeatTable* T, const SindyLS* P,
-                       const float* coeffs, const float* x0, const float* xs,
-                       const float* us, const float* Ks, const float* ks,
-                       float* out_xs, float* out_us, int H, int B,
-                       int threads, cudaStream_t s) {
+template <int G, class TA>
+static void sls_launch(const TA& T, const SindyLS* P, const float* coeffs,
+                       const float* x0, const float* xs, const float* us,
+                       const float* Ks, const float* ks, float* out_xs,
+                       float* out_us, int H, int B, int threads, cudaStream_t s) {
   const long long n = (long long)B * P->L * G;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  sindy_ls_kernel<4, G><<<blocks, threads, 0, s>>>(
-      *T, *P, coeffs, x0, xs, us, Ks, ks, out_xs, out_us, H, B);
+  const size_t smem =
+      AmpcTableTraits<TA>::lane ? (size_t)T.n * sizeof(unsigned) : 0;
+  sindy_ls_kernel<4, G, TA><<<blocks, threads, smem, s>>>(
+      T, *P, coeffs, x0, xs, us, Ks, ks, out_xs, out_us, H, B);
 }
 
-// A grid of ceil(B L G / threads) blocks of `threads` threads (a multiple
-// of 32, at most AMPC_SLS_MAX_THREADS); thread tid of block bx is thread
-// g = tid % G of candidate c = (bx * threads + tid) / G, lane c / L, step
-// size c % L, for G = group in {4, 8}.
-extern "C" int ampc_sindy_line_search(
-    const FeatTable* T, const SindyLS* P, const float* coeffs,
-    const float* x0, const float* xs, const float* us, const float* Ks,
-    const float* ks, float* out_xs, float* out_us, int ds, int H, int B,
-    int group, int threads, int device, void* stream) {
+static int sls_check(int n, int max_n, const SindyLS* P, int ds, int H, int B,
+                     int threads, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ds != 4 || T->d != ds + 1 || T->n < 1 || T->n > AMPC_MAX_F ||
-      P->L < 1 || P->L > AMPC_MAX_L || B < 1 || H < 1 || threads < 32 ||
-      threads > AMPC_SLS_MAX_THREADS || threads % 32)
+  if (ds != 4 || n < 1 || n > max_n || P->L < 1 || P->L > AMPC_MAX_L || B < 1 ||
+      H < 1 || threads < 32 || threads > AMPC_SLS_MAX_THREADS || threads % 32)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+  return 0;
+}
+
+template <class TA>
+static int sls_group(const TA& T, const SindyLS* P, const float* coeffs,
+                     const float* x0, const float* xs, const float* us,
+                     const float* Ks, const float* ks, float* out_xs,
+                     float* out_us, int H, int B, int group, int threads,
+                     cudaStream_t s) {
   switch (group) {
     case 4:
       sls_launch<4>(T, P, coeffs, x0, xs, us, Ks, ks, out_xs, out_us, H, B,
@@ -273,4 +304,39 @@ extern "C" int ampc_sindy_line_search(
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// A grid of ceil(B L G / threads) blocks of `threads` threads (a multiple
+// of 32, at most AMPC_SLS_MAX_THREADS); thread tid of block bx is thread
+// g = tid % G of candidate c = (bx * threads + tid) / G, lane c / L, step
+// size c % L, for G = group in {4, 8}.
+extern "C" int ampc_sindy_line_search(
+    const FeatTable* T, const SindyLS* P, const float* coeffs,
+    const float* x0, const float* xs, const float* us, const float* Ks,
+    const float* ks, float* out_xs, float* out_us, int ds, int H, int B,
+    int group, int threads, int device, void* stream) {
+  const int rc = sls_check(T->n, AMPC_MAX_F, P, ds, H, B, threads, device);
+  if (rc) return rc;
+  if (T->d != ds + 1) return (int)cudaErrorInvalidValue;
+  return sls_group(*T, P, coeffs, x0, xs, us, Ks, ks, out_xs, out_us, H, B,
+                   group, threads, (cudaStream_t)stream);
+}
+
+// The same launch with per-lane coefficients, a lanes-last (ds, n, B)
+// plane, and the device table Tdev of n terms (up to AMPC_MAX_F_BIG):
+// trees of AMPC_TREE_SLOTS slots up to AMPC_MAX_F terms, else
+// AMPC_TREE_SLOTS_BIG.
+extern "C" int ampc_sindy_line_search_lane(
+    const FeatTableBig* Tdev, int n, const SindyLS* P, const float* coeffs,
+    const float* x0, const float* xs, const float* us, const float* Ks,
+    const float* ks, float* out_xs, float* out_us, int ds, int H, int B,
+    int group, int threads, int device, void* stream) {
+  const int rc = sls_check(n, AMPC_MAX_F_BIG, P, ds, H, B, threads, device);
+  if (rc) return rc;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= AMPC_MAX_F)
+    return sls_group(FeatTableRef<AMPC_TREE_SLOTS>{Tdev, n}, P, coeffs, x0, xs, us,
+                     Ks, ks, out_xs, out_us, H, B, group, threads, s);
+  return sls_group(FeatTableRef<AMPC_TREE_SLOTS_BIG>{Tdev, n}, P, coeffs, x0, xs,
+                   us, Ks, ks, out_xs, out_us, H, B, group, threads, s);
 }

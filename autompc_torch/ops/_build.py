@@ -48,6 +48,10 @@ NVCC_FLAGS = (
 # mlp_linesearch.cu); the wrappers raise before a call would exceed them.
 MAX_F = 64
 MAX_D = 8
+# Terms of the per-lane-coefficient instances' device-resident table
+# (features.cuh: AMPC_MAX_F_BIG): the whole library, which no feature
+# mask shrinks when every lane carries its own model.
+MAX_F_LANE = 2048
 MAX_OBS = 8
 MAX_L = 10
 MLP_MAX_LAYERS = 5
@@ -101,6 +105,22 @@ class FeatTable(ctypes.Structure):
         ("freq", ctypes.c_float * MAX_F),
         ("col_n", ctypes.c_int8 * MAX_D),
         ("col_terms", (ctypes.c_int8 * MAX_F) * MAX_D),
+    ]
+
+
+class FeatTableBig(ctypes.Structure):
+    """``FeatTable`` for up to ``MAX_F_LANE`` terms with 16-bit column
+    lists (features.cuh: FeatTableBig), copied to the device once."""
+
+    _fields_ = [
+        ("n", ctypes.c_int),
+        ("d", ctypes.c_int),
+        ("exps", (ctypes.c_int8 * MAX_D) * MAX_F_LANE),
+        ("kind", ctypes.c_int8 * MAX_F_LANE),
+        ("comp", ctypes.c_int8 * MAX_F_LANE),
+        ("freq", ctypes.c_float * MAX_F_LANE),
+        ("col_n", ctypes.c_int16 * MAX_D),
+        ("col_terms", (ctypes.c_int16 * MAX_F_LANE) * MAX_D),
     ]
 
 
@@ -163,6 +183,8 @@ _SIGNATURES = {
     "ampc_relin_jacobians_bm": (
         [ctypes.POINTER(FeatTable), _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     ),
+    "ampc_relin_jacobians_lane": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ampc_relin_jacobians_bm_lane": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ampc_backward_quad_ll": (
         [ctypes.POINTER(QuadDiag)] + [_P] * 14 + [_I] * 6 + [_P]
     ),
@@ -173,7 +195,10 @@ _SIGNATURES = {
         [ctypes.POINTER(FeatTable), ctypes.POINTER(LSParams)]
         + [_P] * 23 + [_I] * 6 + [_P]
     ),
-    "ampc_fused_line_search_occupancy": [_I] * 4 + [_P],
+    "ampc_fused_line_search_lane": (
+        [_P, _I, ctypes.POINTER(LSParams)] + [_P] * 23 + [_I] * 5 + [_P]
+    ),
+    "ampc_fused_line_search_occupancy": [_I] * 5 + [_P],
     "ampc_ls_obj_wide": (
         [ctypes.POINTER(FeatTable), ctypes.POINTER(LSParams)]
         + [_P] * 12 + [_I] * 5 + [_P]
@@ -185,6 +210,9 @@ _SIGNATURES = {
     "ampc_sindy_line_search": (
         [ctypes.POINTER(FeatTable), ctypes.POINTER(SindyLS)]
         + [_P] * 8 + [_I] * 6 + [_P]
+    ),
+    "ampc_sindy_line_search_lane": (
+        [_P, _I, ctypes.POINTER(SindyLS)] + [_P] * 8 + [_I] * 6 + [_P]
     ),
     "ampc_riccati_general": [_P] * 12 + [_I] * 7 + [_P],
     "ampc_mlp_line_search": (
@@ -285,17 +313,8 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=64)
-def feat_table(terms) -> FeatTable:
-    """The C table of the (active) term descriptors ``terms`` (a tuple
-    of sysid.basis.TermDesc). Cached per tuple; treat as read-only."""
-    if not 1 <= len(terms) <= MAX_F:
-        raise ValueError(f"kernels take 1..{MAX_F} active terms, got {len(terms)}")
-    d = len(terms[0].exps)
-    if d > MAX_D:
-        raise ValueError(f"kernels take at most {MAX_D} inputs, got {d}")
-    tab = FeatTable()
-    tab.n, tab.d = len(terms), d
+def _fill_table(tab, terms):
+    tab.n, tab.d = len(terms), len(terms[0].exps)
     kinds = {"": 0, "sin": 1, "cos": 2}
     for k, t in enumerate(terms):
         for c, e in enumerate(t.exps):
@@ -308,6 +327,48 @@ def feat_table(terms) -> FeatTable:
         for j, k in enumerate(ks):
             tab.col_terms[c][j] = k
     return tab
+
+
+def check_table_size(n, lane):
+    """Raise by name unless a kernel's table takes ``n`` terms: the
+    per-lane-coefficient instances (``lane``) up to ``MAX_F_LANE``, the
+    shared ones up to ``MAX_F``. The wrappers call it before they touch
+    the card."""
+    limit, what = ((MAX_F_LANE, "kernels with per-lane coefficients") if lane
+                   else (MAX_F, "kernels with shared coefficients"))
+    if not 1 <= n <= limit:
+        raise ValueError(f"{what} take 1..{limit} terms, got {n}")
+
+
+def _check_table(terms, lane):
+    check_table_size(len(terms), lane)
+    d = len(terms[0].exps)
+    if d > MAX_D:
+        raise ValueError(f"kernels take at most {MAX_D} inputs, got {d}")
+
+
+@functools.lru_cache(maxsize=64)
+def feat_table(terms) -> FeatTable:
+    """The C table of the (active) term descriptors ``terms`` (a tuple
+    of sysid.basis.TermDesc). Cached per tuple; treat as read-only."""
+    _check_table(terms, lane=False)
+    return _fill_table(FeatTable(), terms)
+
+
+def feat_table_big(terms) -> FeatTableBig:
+    """The per-lane instances' table of ``terms`` (up to ``MAX_F_LANE``
+    terms, 16-bit column lists), on the host."""
+    _check_table(terms, lane=True)
+    return _fill_table(FeatTableBig(), terms)
+
+
+@functools.lru_cache(maxsize=64)
+def feat_table_dev(terms, device) -> torch.Tensor:
+    """``feat_table_big(terms)`` copied to ``device`` once (a uint8
+    tensor the per-lane kernels read the table from). Cached per tuple
+    and device; treat as read-only."""
+    raw = bytearray(feat_table_big(terms))
+    return torch.frombuffer(raw, dtype=torch.uint8).to(device)
 
 
 def jacobian_columns(terms):

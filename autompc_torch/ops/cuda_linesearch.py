@@ -37,8 +37,16 @@ the objective and the choice are the caller's. A group of threads
 (``sindy_geometry``: 8, or 4 from B=2048) rolls each candidate, the
 feature terms summed across the group by shuffles.
 
-The GaussReg term (``reg=``) and per-lane coefficients are not ported
-yet (ROADMAP.md §A 7a).
+K3 and K7 also take one model a lane (``coeffs.ndim == 3`` of the TPU
+entries, the joint fan-out's per-lane models) as a lanes-last (ds, n, B)
+coefficient plane: their per-lane instances read lane b's column in
+place of the shared plane staged in shared memory, walk up to
+``_build.MAX_F_LANE`` terms (the shared instances ``_build.MAX_F``) from a
+device-resident table, and given B copies of one matrix return the
+shared instances' bits. K3's per-lane instances take per-lane cost
+planes and a float32 Jacobian carry (the joint fan-out's form); the
+split search (K8, K9) refuses per-lane coefficients, and the GaussReg
+term (``reg=``) is not ported (ROADMAP.md §B1).
 
 A CPU tensor takes the plain PyTorch version (``fused_line_search_plain``,
 ``sindy_line_search_plain``, ``wide_objectives_plain``,
@@ -56,18 +64,30 @@ from ..sysid.basis import feature_dynamics, feature_jacobian_rows, tree_sum
 from . import _build
 
 
+def _check_coeffs(terms, coeffs, ds, B):
+    """Raise unless ``coeffs`` is (ds, n) or per lane a lanes-last
+    (ds, n, B) plane, n = len(terms)."""
+    want = (ds, len(terms)) + ((B,) if coeffs.ndim == 3 else ())
+    if tuple(coeffs.shape) != want:
+        raise ValueError(
+            f"coeffs: shape {tuple(coeffs.shape)}, expected {(ds, len(terms))}, or "
+            f"per-lane coefficients as a lanes-last (ds, n, B) plane {(ds, len(terms), B)}"
+        )
+
+
 def _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, qd, rd, fd, goal, act,
             old_jac):
     Hp1, ds, B = xsT.shape
     H = Hp1 - 1
     want = {
         "x0T": (x0T, (ds, B)), "usT": (usT, (H, B)), "KsT": (KsT, (H, ds, B)),
-        "ksT": (ksT, (H, B)), "coeffs": (coeffs, (ds, len(terms))),
+        "ksT": (ksT, (H, B)),
         "act": (act, (B,)), "old_jac": (old_jac, (H, ds * (ds + 1), B)),
     }
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    _check_coeffs(terms, coeffs, ds, B)
     if len(terms[0].exps) != ds + 1:
         raise ValueError(
             f"terms take {len(terms[0].exps)} inputs, expected ds + 1 = {ds + 1}"
@@ -239,8 +259,8 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
     """Fused line search + acceptance + relinearization + carry select.
 
     terms: tuple of active ``TermDesc``; x0T (ds, B); xsT (H+1, ds, B);
-    usT (H, B); KsT (H, ds, B); ksT (H, B); coeffs (ds, len(terms));
-    alphas, goal (obsdim,): host sequences; the cost either fixed —
+    usT (H, B); KsT (H, ds, B); ksT (H, B); coeffs (ds, len(terms)) or
+    per lane (ds, len(terms), B); alphas, goal (obsdim,): host sequences; the cost either fixed —
     qd/fd (obsdim,), rd (1,) host sequences — or per lane — qd/fd
     (obsdim, B), rd (1, B) lanes-last tensors; umin/umax, dt: floats;
     obj0/lin_red/quad_red (B,); ks_small/act (B,) bool; old_jac (H, ds*(ds+1), B).
@@ -266,12 +286,19 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
         raise ValueError(
             f"line-search kernel is built for (ds, dc) in {built}, got {(ds, 1)}"
         )
+    lane_coef = coeffs.ndim == 3
+    _build.check_table_size(len(terms), lane_coef)
+    if lane_coef and not (lane and old_jac.dtype == torch.float32):
+        raise ValueError(
+            "fused_line_search with per-lane coefficients takes per-lane cost "
+            "planes and a float32 Jacobian carry (the joint fan-out's form)"
+        )
     dev, f32, b8 = xsT.device, torch.float32, torch.bool
     dsd = ds * (ds + 1)
     for name, t, shape, dt_ in (
         ("x0T", x0T, (ds, B), f32), ("xsT", xsT, (H + 1, ds, B), f32),
         ("usT", usT, (H, B), f32), ("KsT", KsT, (H, ds, B), f32),
-        ("ksT", ksT, (H, B), f32), ("coeffs", coeffs, (ds, len(terms)), f32),
+        ("ksT", ksT, (H, B), f32), ("coeffs", coeffs, coeffs.shape, f32),
         ("obj0", obj0, (B,), f32), ("lin_red", lin_red, (B,), f32),
         ("quad_red", quad_red, (B,), f32), ("ks_small", ks_small, (B,), b8),
         ("act", act, (B,), b8), ("old_jac", old_jac, (H, dsd, B), old_jac.dtype),
@@ -289,21 +316,32 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
     out_jac = torch.empty((H, dsd, B), dtype=old_jac.dtype, device=dev)
     du2 = torch.empty((B,), dtype=f32, device=dev)
     p = _build.ptr
-    rc = _build.library().ampc_fused_line_search(
-        ctypes.byref(_build.feat_table(tuple(terms))), ctypes.byref(P),
-        p(coeffs), p(x0T), p(xsT), p(usT), p(KsT), p(ksT), *planes, p(obj0), p(lin_red),
-        p(quad_red), p(ks_small), p(act), p(old_jac), p(stash), p(out_xs), p(out_us),
-        p(out_obj), p(succ), p(fail), p(out_jac), p(du2),
-        bf16, ds, H, B, geom["lanes_per_block"], dev.index or 0, _build.stream_of(xsT),
-    )
+    args = (p(coeffs), p(x0T), p(xsT), p(usT), p(KsT), p(ksT), *planes, p(obj0),
+            p(lin_red), p(quad_red), p(ks_small), p(act), p(old_jac), p(stash),
+            p(out_xs), p(out_us), p(out_obj), p(succ), p(fail), p(out_jac), p(du2))
+    tail = (ds, H, B, geom["lanes_per_block"], dev.index or 0, _build.stream_of(xsT))
+    lib = _build.library()
+    if lane_coef:
+        table = _build.feat_table_dev(tuple(terms), dev)
+        rc = lib.ampc_fused_line_search_lane(p(table), len(terms), ctypes.byref(P),
+                                             *args, *tail)
+    else:
+        rc = lib.ampc_fused_line_search(ctypes.byref(_build.feat_table(tuple(terms))),
+                                        ctypes.byref(P), *args, bf16, *tail)
     _build.check_rc("fused_line_search", rc)
     fused_line_search.launches += 1
     fused_line_search.launches_bf16 += bf16
+    if lane_coef:
+        fused_line_search.launches_lane += 1
+        fused_line_search.launches_lane_by_B[B] = \
+            fused_line_search.launches_lane_by_B.get(B, 0) + 1
     return out_xs, out_us, out_obj, succ, fail, out_jac, du2
 
 
 fused_line_search.launches = 0
 fused_line_search.launches_bf16 = 0
+fused_line_search.launches_lane = 0
+fused_line_search.launches_lane_by_B = {}
 
 # Lanes a K3 block may hold, each with its L step sizes in L threads:
 # the groups that the paths' L = 10 selects (16 at B >= 4096, 8 at the
@@ -587,20 +625,16 @@ def fused_line_search_wide(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
 
 
 def _shapes_sindy(terms, x0, xs, us, Ks, ks, coeffs, alphas):
-    if getattr(coeffs, "ndim", 2) == 3:
-        raise ValueError(
-            "per-lane coefficients (coeffs.ndim == 3, the joint fan-outs) are "
-            "not ported to autompc_torch yet"
-        )
     B, Hp1, ds = xs.shape
     H, dc = Hp1 - 1, us.shape[-1]
     want = {
         "x0": (x0, (B, ds)), "us": (us, (B, H, dc)), "Ks": (Ks, (B, H, dc, ds)),
-        "ks": (ks, (B, H, dc)), "coeffs": (coeffs, (ds, len(terms))),
+        "ks": (ks, (B, H, dc)),
     }
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    _check_coeffs(terms, coeffs, ds, B)
     if len(terms[0].exps) != ds + dc:
         raise ValueError(
             f"terms take {len(terms[0].exps)} inputs, expected ds + dc = {ds + dc}"
@@ -627,6 +661,8 @@ def sindy_line_search_plain(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, uma
     a_row = torch.tensor([float(a) for a in alphas], dtype=xs.dtype,
                          device=xs.device)[None, :]
     lo, hi = _bounds(umin, dc), _bounds(umax, dc)
+    if coeffs.ndim == 3:
+        coeffs = coeffs[..., None]      # coeffs[i, k]: (B, 1) against (B, L)
     x = [x0[:, i][:, None].expand(B, L) for i in range(ds)]
     out_xs, out_us = [torch.stack(x, dim=-1)], []
     for t in range(H):
@@ -649,7 +685,8 @@ def sindy_line_search(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax):
 
     terms: tuple of active ``TermDesc``; x0 (B, ds); xs (B, H+1, ds);
     us (B, H, dc); Ks (B, H, dc, ds); ks (B, H, dc); coeffs
-    (ds, len(terms)) shared by every lane; alphas: host sequence of L
+    (ds, len(terms)) shared by every lane, or per lane a lanes-last
+    (ds, len(terms), B) plane; alphas: host sequence of L
     step sizes; umin/umax: scalars or (dc,).
     Returns (ls_xs (B, L, H+1, ds), ls_us (B, L, H, dc)) with
     ``u = clip(alpha k + ubar + K (x - xbar))``, ``x' = coeffs @
@@ -668,13 +705,14 @@ def sindy_line_search(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax):
     for name, t, shape in (
         ("x0", x0, (B, ds)), ("xs", xs, (B, H + 1, ds)), ("us", us, (B, H, dc)),
         ("Ks", Ks, (B, H, dc, ds)), ("ks", ks, (B, H, dc)),
-        ("coeffs", coeffs, (ds, len(terms))),
+        ("coeffs", coeffs, coeffs.shape),
     ):
         _build.check_cuda(name, t, shape, f32, dev)
     for name, t in (("xs", xs), ("Ks", Ks)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel reads 16-byte rows; its "
                              "storage must start on a 16-byte boundary")
+    _build.check_table_size(len(terms), coeffs.ndim == 3)
     L = len(alphas)
     geo = sindy_geometry(B, L)
     P = _build.SindyLS()
@@ -685,16 +723,28 @@ def sindy_line_search(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax):
     ls_xs = torch.empty((B, L, H + 1, ds), dtype=f32, device=dev)
     ls_us = torch.empty((B, L, H, dc), dtype=f32, device=dev)
     p = _build.ptr
-    rc = _build.library().ampc_sindy_line_search(
-        ctypes.byref(_build.feat_table(tuple(terms))), ctypes.byref(P),
-        p(coeffs), p(x0), p(xs), p(us), p(Ks), p(ks), p(ls_xs), p(ls_us),
-        ds, H, B, geo["group"], geo["threads"], dev.index or 0, _build.stream_of(xs),
-    )
+    lane = coeffs.ndim == 3
+    args = (ctypes.byref(P), p(coeffs), p(x0), p(xs), p(us), p(Ks), p(ks), p(ls_xs),
+            p(ls_us), ds, H, B, geo["group"], geo["threads"], dev.index or 0,
+            _build.stream_of(xs))
+    lib = _build.library()
+    if lane:
+        table = _build.feat_table_dev(tuple(terms), dev)
+        rc = lib.ampc_sindy_line_search_lane(p(table), len(terms), *args)
+    else:
+        rc = lib.ampc_sindy_line_search(ctypes.byref(_build.feat_table(tuple(terms))),
+                                        *args)
     _build.check_rc("sindy_line_search", rc)
     sindy_line_search.launches += 1
     sindy_line_search.launches_by_B[B] = sindy_line_search.launches_by_B.get(B, 0) + 1
+    if lane:
+        sindy_line_search.launches_lane += 1
+        sindy_line_search.launches_lane_by_B[B] = \
+            sindy_line_search.launches_lane_by_B.get(B, 0) + 1
     return ls_xs, ls_us
 
 
 sindy_line_search.launches = 0
 sindy_line_search.launches_by_B = {}
+sindy_line_search.launches_lane = 0
+sindy_line_search.launches_lane_by_B = {}

@@ -16,6 +16,14 @@ the contract of ``pallas_feature_jacobians`` itself, for the batch-major
 solver body. At the same point both entries give the same numbers, bit
 for bit.
 
+Both take ``coeffs`` shared by every lane, (ds, n), or one model a lane,
+a lanes-last (ds, n, B) plane (``coeffs.ndim == 3`` of the TPU entry,
+the joint fan-out's per-lane models): the per-lane instances read lane
+b's column where the shared ones read the plane staged in shared
+memory, and walk up to ``_build.MAX_F_LANE`` terms (the shared ones
+``_build.MAX_F``) from a device-resident table; given B copies of one
+matrix they return the shared instance's bits.
+
 Only the sparse-gradient formulation is ported (the library's
 descriptors give every term's nonzero partials); dc must be 1.
 
@@ -34,15 +42,22 @@ from ..sysid.basis import feature_jacobian_rows
 from . import _build
 
 
-def _check_terms(terms, ds, coeffs):
+def _check_terms(terms, ds, coeffs, B):
+    """Raise unless the terms take ds + 1 inputs and ``coeffs`` is
+    (ds, n) or a lanes-last (ds, n, B) plane; True for the plane."""
     if len(terms[0].exps) != ds + 1:
         raise ValueError(
             f"terms take {len(terms[0].exps)} inputs, expected ds + 1 = {ds + 1}"
         )
-    if tuple(coeffs.shape) != (ds, len(terms)):
+    lane = coeffs.ndim == 3
+    want = (ds, len(terms), B) if lane else (ds, len(terms))
+    if tuple(coeffs.shape) != want:
         raise ValueError(
-            f"coeffs {tuple(coeffs.shape)} must be (ds, n_active) = {(ds, len(terms))}"
+            f"coeffs {tuple(coeffs.shape)} must be (ds, n_active) = {want[:2]} or "
+            f"per-lane coefficients as a lanes-last (ds, n_active, B) plane "
+            f"{(ds, len(terms), B)}"
         )
+    return lane
 
 
 def _shapes(terms, xsT, usT, coeffs):
@@ -53,7 +68,7 @@ def _shapes(terms, xsT, usT, coeffs):
             f"xsT {tuple(xsT.shape)} must be (H+1, ds, B) with "
             f"usT (H, B) = {tuple(usT.shape)}"
         )
-    _check_terms(terms, ds, coeffs)
+    _check_terms(terms, ds, coeffs, B)
     return H, ds, B
 
 
@@ -70,7 +85,7 @@ def _shapes_bm(terms, xs, us, coeffs):
             f"xs {tuple(xs.shape)} must be (B, H+1, ds) with us (B, H, 1) = "
             f"{tuple(us.shape)}"
         )
-    _check_terms(terms, ds, coeffs)
+    _check_terms(terms, ds, coeffs, B)
     return B, H, ds
 
 
@@ -93,9 +108,22 @@ def relin_geometry(B, H, n_sm=_build.H100_SMS):
     return dict(split=split, lanes=lanes, threads=lanes * (5 if split else 1))
 
 
-def _count(wrapper, B):
+def _count(wrapper, B, lane):
+    """One launch of ``wrapper``'s kernel at batch B; ``launches_lane``
+    (and ``launches_lane_by_B``) count the per-lane instances' share."""
     wrapper.launches += 1
     wrapper.launches_by_B[B] = wrapper.launches_by_B.get(B, 0) + 1
+    if lane:
+        wrapper.launches_lane += 1
+        wrapper.launches_lane_by_B[B] = wrapper.launches_lane_by_B.get(B, 0) + 1
+
+
+def _table_args(terms, lane, dev):
+    """The leading arguments of a launch: the table by value (shared
+    coefficients) or the device table and its term count (per lane)."""
+    if lane:
+        return [_build.ptr(_build.feat_table_dev(tuple(terms), dev)), len(terms)]
+    return [ctypes.byref(_build.feat_table(tuple(terms)))]
 
 
 def _check_built(ds):
@@ -111,6 +139,7 @@ def relin_jacobians_plain(terms, xsT, usT, coeffs):
     order)."""
     H, ds, B = _shapes(terms, xsT, usT, coeffs)
     z = [xsT[:H, i] for i in range(ds)] + [usT]
+    # A per-lane plane's coeffs[i, k] is a (B,) row against the (H, B) slabs.
     return torch.stack(feature_jacobian_rows(terms, coeffs, z, ds), dim=1)
 
 
@@ -118,29 +147,36 @@ def relin_jacobians(terms, xsT, usT, coeffs):
     """Packed dynamics Jacobians along a lanes-last trajectory.
 
     terms: tuple of active ``TermDesc``; xsT (H+1, ds, B); usT
-    (H, B); coeffs (ds, len(terms)). Returns jac_p (H, ds*(ds+1), B)."""
+    (H, B); coeffs (ds, len(terms)) or per lane (ds, len(terms), B).
+    Returns jac_p (H, ds*(ds+1), B)."""
     if _build.device_kind(xsT) == "cpu":
         return relin_jacobians_plain(terms, xsT, usT, coeffs)
     H, ds, B = _shapes(terms, xsT, usT, coeffs)
     _check_built(ds)
+    lane = coeffs.ndim == 3
+    _build.check_table_size(len(terms), lane)
     dev, f32 = xsT.device, torch.float32
     _build.check_cuda("xsT", xsT, (H + 1, ds, B), f32, dev)
     _build.check_cuda("usT", usT, (H, B), f32, dev)
-    _build.check_cuda("coeffs", coeffs, (ds, len(terms)), f32, dev)
+    _build.check_cuda("coeffs", coeffs, coeffs.shape, f32, dev)
     out = torch.empty((H, ds * (ds + 1), B), dtype=f32, device=dev)
     split = relin_geometry(B, H, _build.sm_count(dev))["split"]
-    rc = _build.library().ampc_relin_jacobians(
-        ctypes.byref(_build.feat_table(tuple(terms))),
+    lib = _build.library()
+    entry = lib.ampc_relin_jacobians_lane if lane else lib.ampc_relin_jacobians
+    rc = entry(
+        *_table_args(terms, lane, dev),
         _build.ptr(coeffs), _build.ptr(xsT), _build.ptr(usT), _build.ptr(out),
         ds, H, B, int(split), dev.index or 0, _build.stream_of(xsT),
     )
     _build.check_rc("relin_jacobians", rc)
-    _count(relin_jacobians, B)
+    _count(relin_jacobians, B, lane)
     return out
 
 
 relin_jacobians.launches = 0
 relin_jacobians.launches_by_B = {}
+relin_jacobians.launches_lane = 0
+relin_jacobians.launches_lane_by_B = {}
 
 
 def relin_jacobians_bm_plain(terms, xs, us, coeffs):
@@ -148,6 +184,8 @@ def relin_jacobians_bm_plain(terms, xs, us, coeffs):
     twin's math at every (lane, step)."""
     B, H, ds = _shapes_bm(terms, xs, us, coeffs)
     z = [xs[:, :H, i] for i in range(ds)] + [us[:, :, 0]]
+    if coeffs.ndim == 3:
+        coeffs = coeffs[..., None]      # coeffs[i, k]: (B, 1) against (B, H)
     jac = torch.stack(feature_jacobian_rows(terms, coeffs, z, ds), dim=-1)
     jac = jac.reshape(B, H, ds, ds + 1)
     return jac[..., :ds].contiguous(), jac[..., ds:].contiguous()
@@ -157,29 +195,36 @@ def relin_jacobians_bm(terms, xs, us, coeffs):
     """Dynamics Jacobians along a batch-major trajectory.
 
     terms: tuple of active ``TermDesc``; xs (B, H+1, ds); us (B, H, 1);
-    coeffs (ds, len(terms)). Returns (Jx (B, H, ds, ds), Ju (B, H, ds, 1))
-    at the first H points, as ``pallas_feature_jacobians``."""
+    coeffs (ds, len(terms)) or per lane (ds, len(terms), B). Returns
+    (Jx (B, H, ds, ds), Ju (B, H, ds, 1)) at the first H points, as
+    ``pallas_feature_jacobians``."""
     if _build.device_kind(xs) == "cpu":
         return relin_jacobians_bm_plain(terms, xs, us, coeffs)
     B, H, ds = _shapes_bm(terms, xs, us, coeffs)
     _check_built(ds)
+    lane = coeffs.ndim == 3
+    _build.check_table_size(len(terms), lane)
     dev, f32 = xs.device, torch.float32
     _build.check_cuda("xs", xs, (B, H + 1, ds), f32, dev)
     _build.check_cuda("us", us, (B, H, 1), f32, dev)
-    _build.check_cuda("coeffs", coeffs, (ds, len(terms)), f32, dev)
+    _build.check_cuda("coeffs", coeffs, coeffs.shape, f32, dev)
     Jx = torch.empty((B, H, ds, ds), dtype=f32, device=dev)
     Ju = torch.empty((B, H, ds, 1), dtype=f32, device=dev)
     p = _build.ptr
     split = relin_geometry(B, H, _build.sm_count(dev))["split"]
-    rc = _build.library().ampc_relin_jacobians_bm(
-        ctypes.byref(_build.feat_table(tuple(terms))),
+    lib = _build.library()
+    entry = lib.ampc_relin_jacobians_bm_lane if lane else lib.ampc_relin_jacobians_bm
+    rc = entry(
+        *_table_args(terms, lane, dev),
         p(coeffs), p(xs), p(us), p(Jx), p(Ju), ds, H, B, int(split), dev.index or 0,
         _build.stream_of(xs),
     )
     _build.check_rc("relin_jacobians_bm", rc)
-    _count(relin_jacobians_bm, B)
+    _count(relin_jacobians_bm, B, lane)
     return Jx, Ju
 
 
 relin_jacobians_bm.launches = 0
 relin_jacobians_bm.launches_by_B = {}
+relin_jacobians_bm.launches_lane = 0
+relin_jacobians_bm.launches_lane_by_B = {}

@@ -1,2 +1,2 @@
-from .fanout import JointMLPQuadCostFanout, QuadCostFanout
+from .fanout import JointMLPQuadCostFanout, JointSINDyQuadCostFanout, QuadCostFanout
 from .mesh import pad_to_multiple

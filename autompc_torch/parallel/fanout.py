@@ -1,17 +1,20 @@
 """Tuning fan-out: score a batch of candidate configurations in one
 batched program (port of ``autompc_tpu/parallel/fanout.py``:
-``QuadCostFanout`` and ``JointMLPQuadCostFanout``).
+``QuadCostFanout``, ``JointSINDyQuadCostFanout`` and
+``JointMLPQuadCostFanout``).
 
 For configuration families whose hyperparameters do not change tensor
 shapes (cost gains), the whole candidate evaluation — controller
 synthesis (an iLQR solve per closed-loop step), the closed-loop rollout
 on the surrogate and the task metric — runs over the candidate batch at
 once: every solve sees (B, ...) tensors and the solver's kernels. This
-is what a tune spends its time in. ``JointMLPQuadCostFanout`` also
-trains a fresh MLP per candidate, every lane its own masked max-width
-net, before its closed loop.
+is what a tune spends its time in. ``JointSINDyQuadCostFanout`` also
+trains a fresh SINDy model per candidate (one STLSQ threshold or Lasso
+alpha a lane, on data staged once), and ``JointMLPQuadCostFanout`` a
+fresh MLP, every lane its own masked max-width net, before its closed
+loop.
 
-The joint SINDy, ARX, Koopman and GP fan-outs, the direct-transcription
+The joint ARX, Koopman and GP fan-outs, the direct-transcription
 and MPPI fan-outs, ``impl="vmap"``, the GaussReg term and the device
 mesh of the JAX package are not ported yet (ROADMAP.md §A).
 """
@@ -29,14 +32,29 @@ from ..control.ilqr import (
     make_scheduled_ilqr_solver,
     parse_schedule,
 )
+from ..core.trajectory import batch as traj_batch
 from ..core.trajectory import zeros as traj_zeros
+from ..ops.lstsq import fista_lasso, gram_stage, stlsq_gram
+from ..sysid.basis import finite_difference
 from ..sysid.mlp import epoch_perms, net_apply, net_apply_jac, zscore_pairs
+from ..sysid.sindy import SINDy
 from .mesh import pad_to_multiple
 
 # Candidates are padded to a multiple of this, so that ragged batch
 # occupancy reuses a few batch sizes (the JAX package's pad quantum on
 # one device).
 PAD_QUANTUM = 8
+
+
+def _closed_loop_cost(task_cost, obs_seq, ctrl_seq, last_obs):
+    """The task cost of closed-loop trajectories (observations before each
+    step, the controls, the last observation), a non-finite total scored
+    ``inf``."""
+    stage = (task_cost.eval_obs_cost(torch.stack(obs_seq)).sum(0)
+             + task_cost.eval_obs_cost(last_obs))
+    ctrlc = task_cost.eval_ctrl_cost(torch.stack(ctrl_seq)).sum(0)
+    total = stage + ctrlc + task_cost.eval_term_obs_cost(last_obs)
+    return torch.where(torch.isfinite(total), total, torch.full_like(total, float("inf")))
 
 
 class QuadCostFanout:
@@ -172,14 +190,9 @@ class QuadCostFanout:
                 mstate, last_u = state, u
                 if warm_start:
                     us_prev = us
-            stage = (task_cost.eval_obs_cost(torch.stack(obs_seq)).sum(0)
-                     + task_cost.eval_obs_cost(obs))
-            ctrlc = task_cost.eval_ctrl_cost(torch.stack(ctrl_seq)).sum(0)
-            total = stage + ctrlc + task_cost.eval_term_obs_cost(obs)
             # A non-finite rollout scores +inf: a bad configuration, and
             # the tune goes on.
-            return torch.where(torch.isfinite(total), total,
-                               torch.full_like(total, float("inf")))
+            return _closed_loop_cost(task_cost, obs_seq, ctrl_seq, obs)
 
         def eval_padded(params_batch):
             cost_params = {
@@ -194,6 +207,187 @@ class QuadCostFanout:
 
     def __call__(self, params_batch):
         return self._eval(params_batch)
+
+
+class JointSINDyQuadCostFanout:
+    """Joint tuning fan-out for SINDy-model pipelines: candidates that share
+    a SINDy basis bucket (the library, the time mode and the fit method)
+    and an iLQR horizon, and differ in their regularization (the STLSQ
+    threshold, or the Lasso alpha for ``method="lasso"``) and diagonal
+    cost gains. Each lane trains its own model on the sysid data, staged
+    once as ``SINDy.train`` stages it (``ops/lstsq.py``: one Gram pair and
+    a batched ``stlsq_gram``, or a batched ``fista_lasso``), and is then
+    scored by the per-lane-model, per-lane-cost iLQR closed loop on the
+    surrogate (``make_batched_ilqr_solver(batch_params=True,
+    quad_cost_batch=True)``).
+
+    ``__call__(batch)`` takes ``{"reg": (B,), "Qdiag": (B, n), "Rdiag":
+    (B, m), "Fdiag": (B, n)}`` and returns the task costs (B,); a
+    candidate whose rollout is not finite scores ``inf``. Lanes are padded
+    with copies of the last candidate to a multiple of 8.
+
+    ``use_feature_kernels`` (discrete time only: the kernels compute x' =
+    coeffs @ theta) gives the solver the library as its ``feature_spec``,
+    so the per-lane-coefficient instances of the feature kernels run
+    (batch-major: K1's batch-major entry and K7; ``lanes_last`` with
+    ``fuse_ls``: K1 and K3); a continuous-time bucket, or none, takes the
+    autodiff relinearization and the plain rollouts. The whole library
+    rides the kernels, since every lane has its own sparsity.
+    ``mesh`` and ``reg_matrix`` raise. Runs on the card unless
+    ``device`` names another device.
+    """
+
+    def __init__(
+        self,
+        system,
+        task,
+        sindy_cfg: dict,
+        sysid_trajs,
+        surrogate,
+        horizon: int = 20,
+        n_steps: Optional[int] = None,
+        mesh=None,
+        goal=None,
+        compact_schedule=None,
+        warm_start: bool = False,
+        backward: str = "scan",
+        use_feature_kernels: bool = False,
+        fuse_ls: bool = False,
+        reg_matrix=None,
+        lanes_last: bool = False,
+        device=None,
+    ):
+        if mesh is not None:
+            raise ValueError(
+                "mesh (candidates sharded over several cards) is not ported "
+                "to autompc_torch yet; pass mesh=None"
+            )
+        if reg_matrix is not None:
+            raise ValueError(
+                "reg_matrix (the GaussReg term) is not ported to "
+                "autompc_torch yet"
+            )
+        self.system, self.surrogate = system, surrogate
+        self.device = resolve_device(device)
+        on = dict(dtype=default_dtype(self.device), device=self.device)
+        n, dc, dt = system.obs_dim, system.ctrl_dim, system.dt
+        n_steps = n_steps or (task.get_num_steps() or 200) - 1
+        task_cost = task.get_cost()
+        if goal is None:
+            goal = task_cost.get_goal() if task_cost is not None else np.zeros(n)
+        bounds = task.get_ctrl_bounds()
+        init_obs = torch.as_tensor(np.asarray(task.get_init_obs()), **on)
+
+        skeleton = SINDy(system, device=self.device, **sindy_cfg)
+        library = skeleton.library
+        self.library, self.time_mode, self.method = library, skeleton.time_mode, skeleton.method
+        self.n_features = library.n_features
+
+        # The training matrices, staged once as SINDy.train stages them:
+        # features over the sysid data, next-observation targets
+        # (discrete) or finite-difference derivatives (continuous).
+        tb = traj_batch(sysid_trajs)
+        obs, ctrls = tb.obs.to(**on), tb.ctrls.to(**on)
+        feats = library(torch.cat([obs, ctrls], dim=-1))
+        if self.time_mode == "continuous":
+            targets = finite_difference(obs.transpose(0, 1), dt).transpose(0, 1)
+            mask = tb.mask()
+        else:
+            targets = torch.roll(obs, -1, dims=1)
+            mask = tb.step_mask()
+        self._A = feats.reshape(-1, library.n_features)
+        self._y = targets.reshape(-1, n)
+        self._rmask = mask.reshape(-1).to(self.device)
+        if self.method != "lasso":
+            self._G, self._b = gram_stage(self._A, self._y, mask=self._rmask)
+
+        continuous = self.time_mode == "continuous"
+
+        def pred_core(params, state, ctrl):
+            theta = library(torch.cat([state, ctrl], dim=-1))
+            C = params["coeffs"]
+            if C.ndim == 2:      # one lane's model (the autodiff relinearization)
+                out = theta @ C.T
+            else:                # (B, n, F): lane b's rows through lane b's model
+                out = torch.einsum("b...f,bnf->b...n", theta, C)
+            return state + dt * out if continuous else out
+
+        feature_spec = (
+            (library, "coeffs") if use_feature_kernels and not continuous else None
+        )
+        solver_kw = dict(
+            H=horizon, ds=n, dc=dc, obsdim=n, dt=dt,
+            ubounds=(bounds[:, 0], bounds[:, 1]), backward=backward,
+            feature_spec=feature_spec, batch_params=True, quad_cost_batch=True,
+            quad_goal=np.asarray(goal, dtype=float),
+            fuse_ls=bool(fuse_ls and feature_spec is not None),
+            lanes_last=bool(lanes_last),
+        )
+        if compact_schedule is not None:
+            if isinstance(compact_schedule, str):
+                compact_schedule = parse_schedule(compact_schedule)
+            solve = make_scheduled_ilqr_solver(
+                pred_core, None, schedule=tuple(compact_schedule), **solver_kw)
+        else:
+            solve = make_batched_ilqr_solver(pred_core, None, **solver_kw)
+        self.solver_kw = solver_kw
+        self._pred_core = pred_core
+        surr_params = {k: (v.to(**on) if isinstance(v, torch.Tensor) else v)
+                       for k, v in surrogate.params.items()}
+
+        def closed_loop(coeffs, cost_params):
+            B = coeffs.shape[0]
+            params = {"coeffs": coeffs}
+            obs = init_obs.expand(B, n).contiguous()
+            us_prev = obs.new_zeros((B, horizon, dc))
+            obs_seq, ctrl_seq = [], []
+            for _ in range(n_steps):
+                if warm_start:
+                    uguess = torch.cat([us_prev[:, 1:], us_prev[:, -1:]], dim=1)
+                else:
+                    uguess = obs.new_zeros((B, horizon, dc))
+                _, xs, us, Ks, _ = solve(params, obs, uguess, cost_params)
+                u = us[:, 0] + torch.einsum("bij,bj->bi", Ks[:, 0], obs - xs[:, 0])
+                obs_seq.append(obs)
+                ctrl_seq.append(u)
+                obs = surrogate.pred_core(surr_params, obs, u)[..., :n]
+                if warm_start:
+                    us_prev = us
+            return _closed_loop_cost(task_cost, obs_seq, ctrl_seq, obs)
+
+        self._closed_loop = closed_loop
+        self._on = on
+
+    def _stage(self, batch):
+        """The candidate batch as tensors on the device, padded (copies of
+        the last candidate) to a multiple of ``PAD_QUANTUM``; returns
+        (padded, number of candidates)."""
+        staged = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
+                                     **self._on)
+                  for k, v in batch.items() if k in ("reg", "Qdiag", "Rdiag", "Fdiag")}
+        return pad_to_multiple(staged, PAD_QUANTUM)
+
+    def train_lanes(self, reg):
+        """Every lane's model: coefficients (B, n, F) fitted with the
+        lane's regularizer ``reg`` (B,) (the STLSQ threshold, or the
+        Lasso alpha)."""
+        if self.method == "lasso":
+            coefs = fista_lasso(self._A, self._y, reg, mask=self._rmask)
+        else:
+            coefs = stlsq_gram(self._G, self._b, reg)
+        return coefs.mT.contiguous()
+
+    def closed_loop(self, coeffs, cost_params):
+        """The task costs (B,) of the lanes' closed loops on the surrogate,
+        lane b solving with model ``coeffs[b]`` (n, F) under its cost
+        diagonals ``cost_params`` (Qdiag, Rdiag, Fdiag)."""
+        return self._closed_loop(coeffs, cost_params)
+
+    def __call__(self, batch):
+        full, B = self._stage(batch)
+        coeffs = self.train_lanes(full["reg"])
+        cost = {k: full[k] for k in ("Qdiag", "Rdiag", "Fdiag")}
+        return self.closed_loop(coeffs, cost)[:B]
 
 
 def scale_by_adam(grad, mu, nu, count, b1=0.9, b2=0.999, eps=1e-8):
@@ -391,12 +585,7 @@ class JointMLPQuadCostFanout:
                 obs = surrogate.pred_core(surr_params, obs, u)[..., :n]
                 if warm_start:
                     us_prev = us
-            stage = (task_cost.eval_obs_cost(torch.stack(obs_seq)).sum(0)
-                     + task_cost.eval_obs_cost(obs))
-            ctrlc = task_cost.eval_ctrl_cost(torch.stack(ctrl_seq)).sum(0)
-            total = stage + ctrlc + task_cost.eval_term_obs_cost(obs)
-            return torch.where(torch.isfinite(total), total,
-                               torch.full_like(total, float("inf")))
+            return _closed_loop_cost(task_cost, obs_seq, ctrl_seq, obs)
 
         self._eval = eval_batch
 

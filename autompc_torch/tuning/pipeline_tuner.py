@@ -13,14 +13,18 @@ the tune goes on.
 one simulation per candidate, with a ``QuadCostFactory`` and an
 ``IterativeLQRFactory``: for a fixed model (kind ``"ilqr"``) the batch
 is bucketed by horizon and every bucket is one
-``parallel/fanout.py::QuadCostFanout`` call; for an ``MLPFactory``
+``parallel/fanout.py::QuadCostFanout`` call; for a ``SINDyFactory``
+(kind ``"joint_sindy"``) it is bucketed by the SINDy basis (the
+library, time mode and method: ``sindy_bucket``) and horizon, and every
+bucket is one ``JointSINDyQuadCostFanout`` call, which trains a model
+per candidate; for an ``MLPFactory``
 (kind ``"joint_mlp"``) it is bucketed by (n_hidden_layers, nonlintype,
 horizon) — with ``fanout_horizon_mask`` the horizon is the space's
 upper bound and every lane solves at its own — and every bucket is one
 ``JointMLPQuadCostFanout`` call, which trains a net per candidate. The
 true-dynamics scores take a second call with ``FunctionModel(system,
 truedyn)`` as its surrogate. Every other fan-out kind of the JAX
-package (the joint SINDy, ARX, Koopman and GP fan-outs, MPPI, direct
+package (the joint ARX, Koopman and GP fan-outs, MPPI, direct
 transcription), the ``"autotune"``/``"autoselect"`` surrogate modes and
 ``mesh`` raise ``ValueError`` by name; a pipeline
 that has no fan-out at all falls back to the sequential objective with a
@@ -37,6 +41,7 @@ from collections import namedtuple
 import numpy as np
 import torch
 
+from .. import NotPortedError
 from ..costs.quad_cost_factory import QuadCostFactory
 from ..sysid.model import model_device
 from ..utils.checkpoint import (
@@ -60,7 +65,8 @@ PipelineTuneResult = namedtuple(
 
 # Fan-out kinds of the JAX package by the class name of the pipeline's
 # model factory (with an IterativeLQRFactory) or, for a fixed model, of
-# its controller factory. "ilqr" and "joint_mlp" are ported.
+# its controller factory. "ilqr", "joint_sindy" and "joint_mlp" are
+# ported.
 _JOINT_KINDS = {
     "SINDyFactory": "joint_sindy", "ARXFactory": "joint_arx", "MLPFactory": "joint_mlp",
     "KoopmanFactory": "joint_koopman", "ApproximateGPModelFactory": "joint_gp",
@@ -69,8 +75,9 @@ _FIXED_KINDS = {
     "IterativeLQRFactory": "ilqr", "MPPIFactory": "mppi",
     "DirectTranscriptionControllerFactory": "dt",
 }
-# A candidate whose controller or rollout fails this way scores inf.
-_PORTED_KINDS = (None, "ilqr", "joint_mlp")
+# A candidate whose controller or rollout fails this way scores inf; a
+# refusal by name (NotPortedError, a ValueError) reaches the caller.
+_PORTED_KINDS = (None, "ilqr", "joint_mlp", "joint_sindy")
 _CANDIDATE_ERRORS = (np.linalg.LinAlgError, torch.linalg.LinAlgError, FloatingPointError,
                      ValueError)
 
@@ -181,10 +188,15 @@ class PipelineTuner:
                            sysid_trajs=None):
         """Score ``cfgs`` through one fan-out call per bucket, each
         fan-out built once and kept in ``fanouts``: ``QuadCostFanout``
-        by horizon (kind "ilqr"), ``JointMLPQuadCostFanout`` by
-        (n_hidden_layers, nonlintype, horizon) (kind "joint_mlp").
-        Returns costs aligned with ``cfgs``."""
-        from ..parallel.fanout import JointMLPQuadCostFanout, QuadCostFanout
+        by horizon (kind "ilqr"), ``JointSINDyQuadCostFanout`` by
+        (sorted ``sindy_bucket`` items, horizon) (kind "joint_sindy"),
+        ``JointMLPQuadCostFanout`` by (n_hidden_layers, nonlintype,
+        horizon) (kind "joint_mlp"). Returns costs aligned with ``cfgs``."""
+        from ..parallel.fanout import (
+            JointMLPQuadCostFanout,
+            JointSINDyQuadCostFanout,
+            QuadCostFanout,
+        )
 
         system = pipeline.system
         n_steps = (task.get_num_steps() or 200) - 1
@@ -215,6 +227,20 @@ class PipelineTuner:
         def mk(cfg, name, default):
             return m_over[name] if name in m_over else cfg.get(f"_model:{name}", default)
 
+        def sindy_bucket(cfg):
+            """A SINDy candidate's bucket: its basis library, time mode and
+            fit method (the regularizer goes per lane)."""
+            return dict(
+                method=str(mk(cfg, "method", "lstsq")),
+                time_mode=str(mk(cfg, "time_mode", "discrete")),
+                poly_basis=mk(cfg, "poly_basis", "false"),
+                poly_degree=int(mk(cfg, "poly_degree", 3)),
+                poly_cross_terms=mk(cfg, "poly_cross_terms", "false"),
+                trig_basis=mk(cfg, "trig_basis", "false"),
+                trig_freq=int(mk(cfg, "trig_freq", 1)),
+                trig_interaction=mk(cfg, "trig_interaction", "false"),
+            )
+
         # Horizon-masked joint-MLP buckets: one program at the controller
         # space's largest horizon serves every candidate horizon.
         hmask_on = self.fanout_horizon_mask and kind == "joint_mlp" \
@@ -229,11 +255,13 @@ class PipelineTuner:
             if kind == "joint_mlp":
                 key = (int(mk(cfg, "n_hidden_layers", "2")), str(mk(cfg, "nonlintype", "relu")),
                        h_upper if hmask_on else horizon(cfg))
+            elif kind == "joint_sindy":
+                key = (tuple(sorted(sindy_bucket(cfg).items())), horizon(cfg))
             else:
                 key = horizon(cfg)
             buckets.setdefault(key, []).append(idx)
 
-        if kind == "joint_mlp":
+        if kind in ("joint_mlp", "joint_sindy"):
             device = m_over.get("device")
         else:
             device = model_device(pipeline.model)
@@ -255,6 +283,13 @@ class PipelineTuner:
                     n_train_iters=int(m_over.get("n_train_iters", 50)),
                     n_batch=int(m_over.get("n_batch", 64)), seed=int(m_over.get("seed", 100)),
                     device=device,
+                )
+            elif key not in fanouts and kind == "joint_sindy":
+                fanouts[key] = JointSINDyQuadCostFanout(
+                    system, task, dict(key[0]), sysid_trajs, surrogate, horizon=key[1],
+                    n_steps=n_steps, goal=goal, compact_schedule=self.fanout_compact,
+                    warm_start=self.fanout_warm_start, backward=self.fanout_backward,
+                    use_feature_kernels=self.fanout_feature_kernels, device=device,
                 )
             elif key not in fanouts:
                 fanouts[key] = QuadCostFanout(
@@ -281,6 +316,11 @@ class PipelineTuner:
                 batch["lr"] = np.array([float(mk(cfgs[i], "lr", 1e-3)) for i in idxs])
                 if hmask_on:
                     batch["horizons"] = np.array([horizon(cfgs[i]) for i in idxs])
+            elif kind == "joint_sindy":
+                lasso = dict(key[0])["method"] == "lasso"
+                batch["reg"] = np.array([
+                    float(mk(cfgs[i], "lasso_alpha", 1.0) if lasso
+                          else mk(cfgs[i], "threshold", 1e-2)) for i in idxs])
             vals = fanouts[key](batch).cpu().numpy()
             for j, i in enumerate(idxs):
                 costs[i] = float(vals[j])
@@ -348,6 +388,8 @@ class PipelineTuner:
                 surr_cost, info["surr_traj"], model = rollout_cost(cfg, sim_model=surrogate)
                 if not np.isfinite(surr_cost):
                     surr_cost = float("inf")
+            except NotPortedError:
+                raise
             except _CANDIDATE_ERRORS:
                 surr_cost, info["surr_traj"], model = float("inf"), None, None
             info["surr_cost"] = surr_cost
@@ -355,6 +397,8 @@ class PipelineTuner:
                 try:
                     info["truedyn_cost"], info["truedyn_traj"], _ = rollout_cost(
                         cfg, model=model, dynamics=truedyn)
+                except NotPortedError:
+                    raise
                 except _CANDIDATE_ERRORS:
                     info["truedyn_cost"], info["truedyn_traj"] = float("inf"), None
             if eval_cfg_hook is not None:

@@ -75,6 +75,25 @@ Phases (each raises on failure, so the exit code is non-zero):
    seconds, evals/s and K4's launches by B printed, no NaN score; the
    incumbent simulated on the true dynamics from the canonical start
    must reach a finite task cost;
+12. the joint-SINDy fan-out and tune (``JointSINDyQuadCostFanout``, every
+   lane a SINDy model trained for its own threshold, the feature kernels'
+   per-lane-coefficient instances): (a) and (b), bench_scaling.py's joint
+   cell uncut (the main path's data, phase 2's model as surrogate, its
+   55-term bucket, 1,024 candidates, H=10, 50 closed-loop steps,
+   compaction ``4:0.5,8:0.25,14:0.125``) through the lanes-last fused
+   body (K1, K2, K3) and the batch-major body the tuner takes (K1's
+   batch-major entry, K6, K7): evals/s, per-lane training seconds and
+   per-lane launches by B printed, every score finite or inf, the first
+   MPC-step solves of (a) and (b) agreeing as phase 8's; a 105-term
+   library (past the shared instances' 64) and the tune's 1,336-term
+   library through both at B=128, 10 steps; (c) ``PipelineTuner.run``
+   over the whole SINDyFactory space (``JS_TUNE_*``: two rounds of 12, 19
+   closed-loop steps, both fan-outs, the seed pinned so that discrete
+   buckets of 65-128 and past 128 terms run), each bucket's F, time
+   mode, method, training and closed-loop seconds and the tune's wall
+   split (asks, training, closed loops) printed; a candidate scored inf
+   through the kernels with a finite model is scored again through the
+   kernels' plain twins, and the phase fails if they score it finite;
 3. kernels vs plain twins: each CUDA kernel against its plain PyTorch
    twin on the card, on inputs taken from every path that launches it,
    at that path's shape: the lanes-last kernels on the main path's carry
@@ -100,7 +119,14 @@ Phases (each raises on failure, so the exit code is non-zero):
    (B=128 and its stages, H=20), and, untied to a path, at B=4096, H=200
    on the main path's carry; K4 at (4,1) also on phase 11's carry (B=32,
    H=25, the per-lane expansions of a horizon-masked solve after three
-   iterations, padded steps included). Within stated tolerances, timed with CUDA events (and where a
+   iterations, padded steps included); phase 12's per-lane instances (K1
+   and K3 on (a)'s carry, K1's batch-major entry and K7 on (b)'s at every
+   batch (b) launched them with, three iterations in, the 55-term and the
+   105-term libraries with the lanes' trained models, the 1,336-term
+   library with the model ``JS_HUGE`` describes, at K3's and K7's fan-out
+   tolerances; a kernel output not finite where the twin's is fails), and
+   each given 1,024 copies of phase 2's model against its shared
+   instance, bit for bit. Within stated tolerances, timed with CUDA events (and where a
    call is shorter than its host work also as device time under
    torch.profiler), beside the least time the card could take
    (``bound_ms``).
@@ -346,6 +372,55 @@ TOL_K7 = 1e-4
 K7_WITHIN_MIN = 0.99
 TOL_K7_SUM = 1e-5
 
+# Phase 12: the joint-SINDy fan-out and tune (JointSINDyQuadCostFanout,
+# the tuner's kind "joint_sindy"; every lane trains its own model and
+# solves with it, so the feature kernels take per-lane coefficients over
+# the whole library). (a) and (b): bench_scaling.py's joint cell
+# (SCALE_MODE=joint), nothing cut: the main path's data (50 x 100, seed
+# 42), phase 2's model as the surrogate, its bucket (the 55-term library,
+# discrete, lstsq), B=1,024 candidates (reg = 10^U(-4,-1), Q and F
+# diagonals 10^U(-1,1.5), R 10^U(-3,0)), H=10, 50 closed-loop steps,
+# compaction 4:0.5,8:0.25,14:0.125; (a) the lanes-last fused body (K1,
+# K2, K3), (b) the batch-major body the tuner takes (K1's batch-major
+# entry, K6, K7). One warm and JS_CALLS timed calls each; the two
+# configurations' first MPC-step solves must agree as phase 8's do.
+JS_B, JS_H, JS_STEPS, JS_CALLS = 1024, 10, 50, 2
+JS_SCHEDULE = "4:0.5,8:0.25,14:0.125"
+JS_CONFIGS = {
+    "a": dict(backward="pallas", use_feature_kernels=True, fuse_ls=True, lanes_last=True),
+    "b": dict(backward="pallas", use_feature_kernels=True),
+}
+JS_BUCKET = {k: v for k, v in SINDY_KW.items() if k != "threshold"}
+# A library past the shared instances' 64 terms (trig to frequency 2 +
+# interaction, 105 terms) through both configurations at JS_BIG_B lanes,
+# JS_BIG_STEPS closed-loop steps: the large tables and trees on a path.
+JS_BIG = dict(JS_BUCKET, trig_freq=2)
+JS_BIG_B, JS_BIG_STEPS = 128, 10
+# The tune's largest discrete bucket at JS_TUNE_SEED (polynomials to
+# degree 8 with cross terms + trig to frequency 1 + interaction, 1,336
+# terms) through both configurations the same way: trees that fill slots
+# 7-10 and column lists past index 127. Its float32 STLSQ fit gives no
+# lane a model (the Gram is not positive definite in float32, so every
+# lane's support comes out empty, as under the JAX package's Cholesky),
+# so phase [3] holds the kernels at this library on a model it builds:
+# each lane's trained JS_BUCKET model at those terms' places, and every
+# other coefficient JS_HUGE_EPS * N(0, 1) / (F * the term's largest
+# magnitude on the sysid data), so that every block of every tree holds
+# nonzero summands while the rollouts stay bounded.
+JS_HUGE = dict(JS_BUCKET, poly_basis=True, poly_degree=8, poly_cross_terms=True)
+JS_HUGE_EPS = 1e-2
+# (c) the tune: PipelineTuner.run over the whole SINDyFactory space with
+# a QuadCostFactory and an IterativeLQRFactory (horizon 5..25), the
+# fan-out path with the feature kernels, the true dynamics scored by a
+# second fan-out; phase 2's model the surrogate and the main path's data
+# the sysid data. Cut in depth: JS_TUNE_ITERS candidates in rounds of
+# JS_TUNE_BATCH (the initial design: nearly every candidate is a bucket
+# of its own, one fan-out call of 8 padded lanes), JS_TUNE_STEPS - 1
+# closed-loop steps instead of 199. The seed's draw holds discrete
+# buckets past 64 terms (the per-lane kernels' large instances); the
+# phase fails if none ran.
+JS_TUNE_BATCH, JS_TUNE_ITERS, JS_TUNE_STEPS, JS_TUNE_SEED = 12, 24, 20, 4
+
 # Phase 9: the main path's wide options at its own shape (B_SOLVE, H,
 # SCHEDULE: every compaction stage is a multiple of 1024, so the wide
 # kernels run at every stage). ``env`` is AMPC_BQ_WIDE_IO for the solve.
@@ -399,10 +474,10 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps=12):
+def time_ms(fn, reps=12, warm=2):
     """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events,
-    two untimed warm-up runs first)."""
-    for _ in range(2):
+    ``warm`` untimed warm-up runs first)."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -1358,6 +1433,274 @@ def joint_mlp_phase(dev, card, K4, profile=False):
     return launches, by_B, captured[0]
 
 
+def joint_candidates(dev, n, seed=0):
+    """bench_scaling.py's joint batch: the cost candidates of
+    ``fanout_candidates`` and reg = 10**U(-4, -1) (the STLSQ
+    thresholds)."""
+    batch = fanout_candidates(dev, n, seed)
+    reg = 10 ** np.random.default_rng(seed + 1).uniform(-4, -1, n)
+    return dict(batch, reg=batch["Qdiag"].new_tensor(reg))
+
+
+def joint_counters(K1, K2, K3):
+    """The wrappers the joint fan-out's two configurations launch, by
+    name: the per-lane-coefficient instances count in ``launches_lane``
+    (K2 and K6 take no coefficients)."""
+    return {"a": (K1.relin_jacobians, K2.backward_quad_ll, K3.fused_line_search),
+            "b": (K1.relin_jacobians_bm, K2.backward_quad, K3.sindy_line_search)}
+
+
+def reset_launches(wrappers):
+    for w in wrappers:
+        for attr in ("launches", "launches_by_B", "launches_lane", "launches_lane_by_B"):
+            if hasattr(w, attr):
+                setattr(w, attr, type(getattr(w, attr))())
+
+
+def lane_launches(wrappers):
+    """{wrapper: its launches of a per-lane-coefficient instance (every
+    launch for K2 and K6), and those by batch size}."""
+    return ({w.__name__: getattr(w, "launches_lane", w.launches) for w in wrappers},
+            {w.__name__: dict(getattr(w, "launches_lane_by_B", getattr(w, "launches_by_B", {})))
+             for w in wrappers})
+
+
+def joint_fanout(bench, model, trajs, cfg, bucket, horizon, n_steps, schedule=JS_SCHEDULE):
+    from autompc_torch.parallel import JointSINDyQuadCostFanout
+
+    return JointSINDyQuadCostFanout(bench.system, bench.task, bucket, trajs, model,
+                                    horizon=horizon, n_steps=n_steps, goal=np.zeros(4),
+                                    compact_schedule=schedule, **JS_CONFIGS[cfg])
+
+
+def joint_sindy_phase(bench, model, trajs, dev, card, wrappers, profile=False):
+    """Phase 12 (a), (b) and the two large libraries. Returns {"main":
+    {config: (launches, by B)}, "big": {...}, "huge": {...}, "fans":
+    {config: the fan-out}, "big_fans": {...}, "huge_fans": {...},
+    "batch": candidates, "big_batch": the large libraries' candidates}."""
+    from autompc_torch.control import make_scheduled_ilqr_solver, parse_schedule
+
+    out = {"main": {}, "fans": {}}
+    batch = joint_candidates(dev, JS_B)
+    for cfg in JS_CONFIGS:
+        fan = joint_fanout(bench, model, trajs, cfg, JS_BUCKET, JS_H, JS_STEPS)
+        out["fans"][cfg] = fan
+        reset_launches(wrappers[cfg])
+        t0 = time.perf_counter()
+        scores = fan(batch)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(JS_CALLS):
+            scores = fan(batch)
+            torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fan.train_lanes(batch["reg"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts, by_B = lane_launches(wrappers[cfg])
+        out["main"][cfg] = (counts, by_B)
+        if tuple(scores.shape) != (JS_B,) or torch.isnan(scores).any():
+            raise RuntimeError(f"joint fan-out ({cfg}): malformed or NaN scores")
+        fin = torch.isfinite(scores)
+        print(f"[12] joint fan-out ({cfg}) {JS_CONFIGS[cfg]}: F={fan.n_features}, B={JS_B} "
+              f"H={JS_H} {JS_STEPS} steps: warm call {warm_s:.2f} s; {JS_CALLS} timed calls "
+              f"{elapsed:.3f} s -> {JS_CALLS * JS_B / elapsed:.1f} evals/s on {card} (per-lane "
+              f"training {train_s:.3f} s a call); scores finite {int(fin.sum())}, inf "
+              f"{int((~fin).sum())}, mean of finite {float(scores[fin].mean()):.2f}; per-lane "
+              f"launches in {JS_CALLS + 1} calls {counts}, by B {by_B}", flush=True)
+        if min(counts.values()) == 0:
+            raise RuntimeError(f"a kernel never ran on the joint fan-out ({cfg}): {counts}")
+        if profile:
+            profile_solve(joint_fanout(bench, model, trajs, cfg, JS_BUCKET, JS_H, 5), (batch,),
+                          f"5 closed-loop steps of the joint fan-out ({cfg})")
+
+    # The first MPC step's solve, (a) against (b): the same trained lanes.
+    coeffs = out["fans"]["a"].train_lanes(batch["reg"])
+    x0 = batch["Qdiag"].new_tensor(np.tile(bench.task.get_init_obs(), (JS_B, 1)))
+    ug = x0.new_zeros((JS_B, JS_H, 1))
+    cp = {k: batch[k] for k in ("Qdiag", "Rdiag", "Fdiag")}
+    res = {cfg: make_scheduled_ilqr_solver(fan._pred_core, None,
+                                           schedule=parse_schedule(JS_SCHEDULE), **fan.solver_kw)(
+        {"coeffs": coeffs}, x0, ug, cp) for cfg, fan in out["fans"].items()}
+    obj = {cfg: lane_objective(o[1], o[2], cp, bench.system.dt) for cfg, o in res.items()}
+    both = res["a"][0] & res["b"][0]
+    rel = ((obj["a"] - obj["b"]).abs() / obj["b"].abs().clamp_min(1e-30))[both]
+    share = float((rel <= FAN_OBJ_TOL).float().mean()) if both.any() else 0.0
+    print(f"[12] first MPC step, (a) vs (b): converged (a) {int(res['a'][0].sum())}, (b) "
+          f"{int(res['b'][0].sum())}, both {int(both.sum())} of {JS_B}; accepted objective "
+          f"relative difference on those: median {float(rel.median()):.3e}, 90% "
+          f"{float(rel.quantile(0.9)):.3e}, max {float(rel.max()):.3e}; within {FAN_OBJ_TOL} "
+          f"on {share:.4f} (min {FAN_AGREE_MIN})", flush=True)
+    if int(both.sum()) < JS_B // 4 or share < FAN_AGREE_MIN:
+        raise RuntimeError(f"joint fan-out first step: {int(both.sum())} lanes converged in "
+                           f"both, objectives agree on {share:.4f}")
+
+    # The large libraries through both configurations.
+    out["batch"], out["big_batch"] = batch, joint_candidates(dev, JS_BIG_B, seed=3)
+    for size, bucket in (("big", JS_BIG), ("huge", JS_HUGE)):
+        out[size], out[f"{size}_fans"] = {}, {}
+        for cfg in JS_CONFIGS:
+            fan = joint_fanout(bench, model, trajs, cfg, bucket, JS_H, JS_BIG_STEPS)
+            out[f"{size}_fans"][cfg] = fan
+            reset_launches(wrappers[cfg])
+            t0 = time.perf_counter()
+            scores = fan(out["big_batch"])
+            torch.cuda.synchronize()
+            counts, by_B = lane_launches(wrappers[cfg])
+            out[size][cfg] = (counts, by_B)
+            fin = torch.isfinite(scores)
+            fitted = int((fan.train_lanes(out["big_batch"]["reg"]) != 0).flatten(1).any(1).sum())
+            print(f"[12] joint fan-out ({cfg}), F={fan.n_features} (past 64 terms): "
+                  f"B={JS_BIG_B} H={JS_H} {JS_BIG_STEPS} steps in {time.perf_counter() - t0:.2f} "
+                  f"s; lanes with a nonzero model {fitted}; scores finite {int(fin.sum())}; "
+                  f"per-lane launches {counts}, by B {by_B}", flush=True)
+            if torch.isnan(scores).any() or min(counts.values()) == 0:
+                raise RuntimeError(f"joint fan-out ({cfg}) F={fan.n_features}: NaN scores or a "
+                                   f"kernel that never ran: {counts}")
+    return out
+
+
+def joint_sindy_tune(bench, model, trajs, dev, card, wrappers_b):
+    """Phase 12 (c). Returns (the per-lane launches of the batch-major
+    wrappers by library size: small (<= 64 terms), big (65-128) and huge
+    (past 128), and the tune's wall split). A candidate that scores inf
+    on a bucket the kernels ran, with a finite trained model, is scored
+    again with the kernels' plain twins in their place; the phase fails
+    if the twins score it finite."""
+    from autompc_torch.control import IterativeLQRFactory
+    from autompc_torch.control import ilqr as ilqr_mod
+    from autompc_torch.costs import QuadCostFactory
+    from autompc_torch.parallel import fanout as fanout_mod
+    from autompc_torch.pipeline import Pipeline
+    from autompc_torch.sysid import FunctionModel, SINDyFactory
+    from autompc_torch.tuning import PipelineTuner, bo, pipeline_tuner
+
+    system = bench.system
+    task = bench.task.copy()
+    task.set_num_steps(JS_TUNE_STEPS)
+    asks, calls = [], []
+
+    class TimedBO(bo.BatchBayesOpt):
+        def ask(self, batch_size=None):
+            t0 = time.perf_counter()
+            got = super().ask(batch_size)
+            asks.append(time.perf_counter() - t0)
+            return got
+
+    Fan = fanout_mod.JointSINDyQuadCostFanout
+    real_train, real_loop = Fan.train_lanes, Fan.closed_loop
+
+    def timed(real, key):
+        def run(self, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real(self, *a)
+            torch.cuda.synchronize()
+            calls[-1][key] = time.perf_counter() - t0
+            return res
+        return run
+
+    real_call = Fan.__call__
+    twins = {name: getattr(ilqr_mod, name) for name in (
+        "relin_jacobians", "relin_jacobians_bm", "sindy_line_search", "fused_line_search")}
+
+    def twin_scores(fan, batch, lanes):
+        """The candidates ``lanes`` of ``batch`` through ``fan`` with the
+        kernels' plain twins in the solver; the time goes to twin_s."""
+        t0 = time.perf_counter()
+        full, n = fan._stage({k: np.asarray(v)[lanes] for k, v in batch.items()})
+        for name, w in twins.items():
+            setattr(ilqr_mod, name, getattr(sys.modules[w.__module__], name + "_plain"))
+        try:
+            scores = real_loop(fan, real_train(fan, full["reg"]),
+                               {k: full[k] for k in ("Qdiag", "Rdiag", "Fdiag")})[:n]
+        finally:
+            for name, w in twins.items():
+                setattr(ilqr_mod, name, w)
+        torch.cuda.synchronize()
+        calls[-1]["twin_s"] = time.perf_counter() - t0
+        return scores
+
+    def call(self, batch):
+        before = lane_launches(wrappers_b)[0]
+        calls.append(dict(F=self.n_features, time_mode=self.time_mode, method=self.method,
+                          H=self.solver_kw["H"], n=len(batch["reg"]),
+                          true=isinstance(self.surrogate, FunctionModel)))
+        res = real_call(self, batch)
+        after = lane_launches(wrappers_b)[0]
+        calls[-1]["launches"] = {k: after[k] - before[k] for k in after}
+        if self.solver_kw["feature_spec"] is not None and not torch.isfinite(res).all():
+            full, n = self._stage(batch)
+            fitted = torch.isfinite(real_train(self, full["reg"])[:n]).flatten(1).all(1)
+            redo = (~torch.isfinite(res) & fitted).cpu().numpy()
+            if redo.any():
+                tw = twin_scores(self, batch, redo)
+                calls[-1]["inf_twin_finite"] = (int(redo.sum()), int(torch.isfinite(tw).sum()))
+        return res
+
+    pipeline = Pipeline(system, SINDyFactory(system), QuadCostFactory(system, goal=np.zeros(4)),
+                        IterativeLQRFactory(system))
+    tuner = PipelineTuner(surrogate_mode="pretrain", eval_batch=JS_TUNE_BATCH, use_fanout=True,
+                          fanout_backward="pallas", fanout_feature_kernels=True)
+    reset_launches(wrappers_b)
+    saved = (pipeline_tuner.BatchBayesOpt, Fan.train_lanes, Fan.closed_loop, Fan.__call__)
+    pipeline_tuner.BatchBayesOpt = TimedBO
+    Fan.train_lanes, Fan.closed_loop = timed(real_train, "train_s"), timed(real_loop, "loop_s")
+    Fan.__call__ = call
+    try:
+        t0 = time.perf_counter()
+        _, res = tuner.run(pipeline, task, trajs, n_iters=JS_TUNE_ITERS,
+                           rng=np.random.default_rng(JS_TUNE_SEED), surrogate=model,
+                           truedyn=bench.dynamics)
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+    finally:
+        pipeline_tuner.BatchBayesOpt, Fan.train_lanes, Fan.closed_loop, Fan.__call__ = saved
+    for c in calls:
+        print(f"[12] tune bucket F={c['F']} {c['time_mode']} {c['method']} H={c['H']} "
+              f"({'true dynamics' if c['true'] else 'surrogate'}): {c['n']} candidates, "
+              f"training {c.get('train_s', 0.0):.3f} s, closed loop {c.get('loop_s', 0.0):.2f} s; "
+              f"per-lane launches {c['launches']}"
+              + (f"; inf with a finite model on {c['inf_twin_finite'][0]}, finite with the plain "
+                 f"twins on {c['inf_twin_finite'][1]} ({c['twin_s']:.2f} s)"
+                 if "inf_twin_finite" in c else ""), flush=True)
+    costs, true_costs = np.array(res.costs), np.array(res.truedyn_costs)
+    split = dict(asks_s=sum(asks), train_s=sum(c.get("train_s", 0.0) for c in calls),
+                 loop_s=sum(c.get("loop_s", 0.0) for c in calls),
+                 twin_s=sum(c.get("twin_s", 0.0) for c in calls))
+    split["rest_s"] = tune_s - sum(split.values())
+    by_size = {"small": {}, "big": {}, "huge": {}}
+    for c in calls:
+        size = by_size["huge" if c["F"] > 128 else "big" if c["F"] > 64 else "small"]
+        for k, v in c["launches"].items():
+            size[k] = size.get(k, 0) + v
+    big_discrete = sorted({c["F"] for c in calls if c["F"] > 64 and c["time_mode"] == "discrete"})
+    inf_twin = [(c["F"], *c["inf_twin_finite"]) for c in calls if "inf_twin_finite" in c]
+    print(f"[12] tune {JS_TUNE_ITERS} candidates in rounds of {JS_TUNE_BATCH} "
+          f"({JS_TUNE_STEPS - 1} MPC steps each, both fan-outs, {len(calls)} fan-out calls): "
+          f"{tune_s:.2f} s -> {JS_TUNE_ITERS / tune_s:.2f} evals/s on {card}; BO asks "
+          f"{split['asks_s']:.2f} s, per-lane training {split['train_s']:.2f} s, closed loops "
+          f"{split['loop_s']:.2f} s, plain-twin reruns of inf scores {split['twin_s']:.2f} s, the "
+          f"rest {split['rest_s']:.2f} s; scores finite "
+          f"{int(np.isfinite(costs).sum())} / {costs.size} on the surrogate, "
+          f"{int(np.isfinite(true_costs).sum())} / {true_costs.size} on the true dynamics; "
+          f"incumbent {res.inc_cfg.get_dictionary() if res.inc_cfg is not None else None} "
+          f"({res.inc_costs[-1]:.2f}); discrete buckets past 64 terms {big_discrete}; per-lane "
+          f"launches by library size {by_size}", flush=True)
+    if len(costs) != JS_TUNE_ITERS or np.isnan(costs).any() or np.isnan(true_costs).any():
+        raise RuntimeError("joint tune: a score is missing or NaN")
+    if min(by_size["big"].values(), default=0) == 0 \
+            or min(by_size["huge"].values(), default=0) == 0:
+        raise RuntimeError(f"joint tune: no discrete bucket of 65-128 or past 128 terms ran the "
+                           f"per-lane kernels ({big_discrete}, {by_size})")
+    if any(finite for _, _, finite in inf_twin):
+        raise RuntimeError(f"joint tune: candidates scored inf through the kernels and finite "
+                           f"through their plain twins (F, inf, twin finite): {inf_twin}")
+    return by_size, split
+
+
 def check_tune_kernels(model, solver_kw, batch, Bs_list, init_obs, kernels, terms, coeffs, dt,
                        alphas, bound):
     """K1's batch-major entry, K6 and K7 at every batch size the tune
@@ -1400,12 +1743,16 @@ def tune_candidates(cfgs, system, dev):
 
 
 def check_fanout_kernels(tag, K1, K6, K7, terms, coeffs, carry, cp, goal, dt, alphas,
-                         bound):
+                         bound, plain=None):
     """K1's batch-major entry, K6 and K7 against their plain versions on
     a batch-major carry (x0s, xs, us, Jx, Ju) with per-lane costs ``cp``;
     K1's batch-major entry also against its lanes-last entry on the same
-    points (bit for bit), K7 on K6's gains. Returns (the three kernels'
-    measurements, failure strings)."""
+    points (bit for bit), K7 on K6's gains. ``coeffs`` is one (ds, n)
+    model or, per lane, a lanes-last (ds, n, B) plane (the per-lane
+    instances). ``plain``: ``time_ms``'s arguments for the plain
+    versions of K1 and K7 (3 runs by default). Returns (the three
+    kernels' measurements, failure strings)."""
+    plain = plain or dict(reps=3)
     x0s, xs, us, Jx, Ju = (carry[k] for k in ("x0s", "xs", "us", "Jx", "Ju"))
     B, H = us.shape[:2]
     rows, failures = [], []
@@ -1419,7 +1766,7 @@ def check_fanout_kernels(tag, K1, K6, K7, terms, coeffs, carry, cp, goal, dt, al
         max_abs_err=max(abs_err(a, b) for a, b in zip(jk, jp)),
         ms=time_ms(lambda: K1.relin_jacobians_bm(*k1_args)),
         device_ms=device_ms(lambda: K1.relin_jacobians_bm(*k1_args)),
-        plain_ms=time_ms(lambda: K1.relin_jacobians_bm_plain(*k1_args), reps=3),
+        plain_ms=time_ms(lambda: K1.relin_jacobians_bm_plain(*k1_args), **plain),
         lanes_last_device_ms=device_ms(lambda: K1.relin_jacobians(*ll_args)),
         **bound_keys(n_bytes(xs, us, coeffs, *jk), B * H * feature_flops(len(terms), 5, 4)),
     ))
@@ -1448,9 +1795,11 @@ def check_fanout_kernels(tag, K1, K6, K7, terms, coeffs, carry, cp, goal, dt, al
     Ks, ks = gk[0], gk[1]
     k7_args = (terms, x0s, xs, us, Ks, ks, coeffs, alphas, -bound, bound)
     (kx, ku), (px, pu) = K7.sindy_line_search(*k7_args), K7.sindy_line_search_plain(*k7_args)
-    finite = torch.isfinite(kx).all(dim=(2, 3)) & torch.isfinite(px).all(dim=(2, 3))
-    same_finite = (torch.isfinite(kx).all(dim=(2, 3))
-                   == torch.isfinite(px).all(dim=(2, 3))).float().mean().item()
+    kfin = torch.isfinite(kx).all(dim=(2, 3)) & torch.isfinite(ku).all(dim=(2, 3))
+    pfin = torch.isfinite(px).all(dim=(2, 3)) & torch.isfinite(pu).all(dim=(2, 3))
+    finite = kfin & pfin
+    same_finite = (kfin == pfin).float().mean().item()
+    kernel_only = int((~kfin & pfin).sum())     # not finite where the twin is
 
     def rollout_err(upto):
         d = (kx[:, :, :upto].double() - px[:, :, :upto].double()).abs().amax(dim=(2, 3))
@@ -1472,19 +1821,24 @@ def check_fanout_kernels(tag, K1, K6, K7, terms, coeffs, carry, cp, goal, dt, al
     z = [kx[:, :, :-1, i].double() for i in range(4)] + [ku[..., 0].double()]
     theta = torch.stack([term_value(t, z) for t in terms], dim=-1)     # (B, L, H, F)
     c64 = coeffs.double()
-    x64 = theta @ c64.T
-    mag = theta.abs() @ c64.abs().T
+    if c64.ndim == 3:      # lane b's rollouts through lane b's model
+        x64 = torch.einsum("blhf,ifb->blhi", theta, c64)
+        mag = torch.einsum("blhf,ifb->blhi", theta.abs(), c64.abs())
+    else:
+        x64 = theta @ c64.T
+        mag = theta.abs() @ c64.abs().T
     e_x = float(((kx[:, :, 1:].double() - x64).abs() / mag.clamp_min(1e-30))[finite].max())
     rows.append(dict(
         max_abs_err=max(abs_err(kx[finite], px[finite]), abs_err(ku[finite], pu[finite])),
         ms=time_ms(lambda: K7.sindy_line_search(*k7_args)),
         device_ms=device_ms(lambda: K7.sindy_line_search(*k7_args)),
-        plain_ms=time_ms(lambda: K7.sindy_line_search_plain(*k7_args), reps=3),
+        plain_ms=time_ms(lambda: K7.sindy_line_search_plain(*k7_args), **plain),
         **bound_keys(n_bytes(x0s, xs, us, Ks, ks, coeffs, kx, ku),
                      B * len(alphas) * H * (len(terms) * 13 + 20)),
     ))
     print(f"[3] K7 rollout line search {tag} B={B} H={H} L={len(alphas)}: rollouts finite in "
-          f"both {int(finite.sum())} of {finite.numel()} (flags agree {same_finite:.4f}); per "
+          f"both {int(finite.sum())} of {finite.numel()} (flags agree {same_finite:.4f}; not "
+          f"finite only in the kernel {kernel_only}); per "
           f"rollout vs plain: first {head} steps worst {e_head:.3e} (tol {TOL_K7_HEAD}); all "
           f"{H} steps median {float(e_full.median()):.3e}, 99% "
           f"{float(e_full.quantile(0.99)):.3e}, worst {float(e_full.max()):.3e}, within "
@@ -1492,9 +1846,10 @@ def check_fanout_kernels(tag, K1, K6, K7, terms, coeffs, carry, cp, goal, dt, al
           f"states: u {e_u:.3e}, next x {e_x:.3e} of term magnitudes (tol {TOL_K7_SUM})",
           flush=True)
     if not (e_head <= TOL_K7_HEAD and full_within >= K7_WITHIN_MIN and same_finite >= 0.999
-            and e_u <= TOL_K7_SUM and e_x <= TOL_K7_SUM):
+            and kernel_only == 0 and e_u <= TOL_K7_SUM and e_x <= TOL_K7_SUM):
         failures.append(f"K7 {tag} head {e_head:.3e} full within {full_within:.4f} finite flags "
-                        f"{same_finite:.4f} u {e_u:.3e} next x {e_x:.3e}")
+                        f"{same_finite:.4f} kernel-only non-finite {kernel_only} u {e_u:.3e} "
+                        f"next x {e_x:.3e}")
     return rows, failures
 
 
@@ -1628,12 +1983,14 @@ def main(profile=False):
     for name, regs, spill in ptxas_report(_build.build_log()):
         print(f"    ptxas: {name}: {regs} registers, {spill} bytes spilled, <= "
               f"{min(64, 65536 // (-(-regs // 8) * 8 * 32))} warps an SM by registers")
-    for tag, B, lane, bf16 in (("main path", B_SOLVE, 0, 0), ("main path", B_KERNEL, 0, 0),
-                               ("fan-out, per-lane cost", FAN_B, 1, 0),
-                               ("llb, bf16 carry", B_SOLVE, 0, 1)):
+    for tag, B, lane, bf16, coef in (
+            ("main path", B_SOLVE, 0, 0, 0), ("main path", B_KERNEL, 0, 0, 0),
+            ("fan-out, per-lane cost", FAN_B, 1, 0, 0), ("llb, bf16 carry", B_SOLVE, 0, 1, 0),
+            ("joint fan-out, per-lane coefficients", JS_B, 1, 0, 1),
+            ("joint fan-out, per-lane coefficients past 64 terms", JS_BIG_B, 1, 0, 2)):
         g = K3.fused_geometry(B, 10, _build.sm_count(dev))
-        o = _build.occupancy("ampc_fused_line_search_occupancy", lane, bf16, g["threads"],
-                             dev.index or 0)
+        o = _build.occupancy("ampc_fused_line_search_occupancy", lane, bf16, coef,
+                             g["threads"], dev.index or 0)
         print(f"[1] K3 {tag} B={B}: {g['lanes_per_block']} lanes x 10 = {g['threads']} threads, "
               f"{g['blocks']} blocks; {o['registers']} registers, {o['local_bytes']} local "
               f"bytes; {o['blocks_per_sm']} blocks = "
@@ -1958,6 +2315,13 @@ def main(profile=False):
     # ---- [11] the joint-MLP tune -----------------------------------------------
     jm_launches, jm_by_B, jm_k4_args = joint_mlp_phase(dev, card, K4, profile=profile)
 
+    # ---- [12] the joint-SINDy fan-out and tune ---------------------------------
+    t12 = time.perf_counter()
+    js_wrappers = joint_counters(K1, K2, K3)
+    js = joint_sindy_phase(bench, model, trajs, dev, card, js_wrappers, profile=profile)
+    js_tune, js_split = joint_sindy_tune(bench, model, trajs, dev, card, js_wrappers["b"])
+    print(f"[12] phase wall {time.perf_counter() - t12:.2f} s", flush=True)
+
     # ---- [3] kernels vs plain twins on path inputs -----------------------
     _, make_carry0, _, _ = make_batched_ilqr_solver(
         model.pred_core, cost, H=H, return_pieces=True, **common
@@ -1971,28 +2335,35 @@ def main(profile=False):
     alphas = tuple(0.2 ** k for k in range(10))
     report = []
 
-    def check_k1(tag, c, n_launches):
+    def check_k1(tag, c, n_launches, tms=None, coef=None, name="relin_jacobians",
+                 plain=None):
         """The relinearization kernel on the trajectory of the lanes-last
-        carry ``c``: one report row."""
+        carry ``c``: one report row. ``tms``/``coef``: another library's
+        terms and coefficients than the main path's (a per-lane plane
+        (ds, n, B) for the per-lane instances); ``plain``: ``time_ms``'s
+        arguments for the plain version (its defaults if None)."""
+        tms, coef, plain = tms or terms, ca if coef is None else coef, plain or {}
         Hc, Bc = c["us"].shape
-        k1_args = (terms, c["xs"], c["us"], ca)
+        k1_args = (tms, c["xs"], c["us"], coef)
         jk, jp = K1.relin_jacobians(*k1_args), K1.relin_jacobians_plain(*k1_args)
         e1 = rel_err(jk, jp)
         print(f"[3] K1 relin, {tag}: rel err {e1:.3e} (tol {TOL_K1})", flush=True)
         if e1 > TOL_K1:
             failures.append(f"K1 ({tag}) rel err {e1:.3e} > {TOL_K1}")
         return dict(
-            name=f"relin_jacobians[B={Bc},H={Hc}]", route="cuda",
+            name=f"{name}[B={Bc},H={Hc}]", route="cuda",
             source="autompc_torch/csrc/relin.cu",
             replaces="autompc_tpu/ops/pallas_relin.py:192",
             launches=n_launches, max_abs_err=abs_err(jk, jp),
             ms=time_ms(lambda: K1.relin_jacobians(*k1_args)),
-            plain_ms=time_ms(lambda: K1.relin_jacobians_plain(*k1_args)),
-            **bound_keys(n_bytes(c["xs"], c["us"], ca, jk),
-                         Bc * Hc * feature_flops(len(terms), 5, 4)),
+            device_ms=device_ms(lambda: K1.relin_jacobians(*k1_args)),
+            plain_ms=time_ms(lambda: K1.relin_jacobians_plain(*k1_args), **plain),
+            **bound_keys(n_bytes(c["xs"], c["us"], coef, jk),
+                         Bc * Hc * feature_flops(len(tms), 5, 4)),
         )
 
-    def check_k2_k3(tag, c, cost, agree_min=K3_AGREE_MIN, within_min=None, split=False):
+    def check_k2_k3(tag, c, cost, agree_min=K3_AGREE_MIN, within_min=None, split=False,
+                    tms=None, coef=None):
         """One backward pass and one line search on the lanes-last carry
         ``c`` under ``cost = (qd, rd, fd, goal)``; returns the kernels'
         outputs, the twin pairs and the timed closures, and appends to
@@ -2000,7 +2371,9 @@ def main(profile=False):
         ``within_min``, per lane on that share of the lanes. With
         ``split``, the split search (K8 + acceptance + K9) is held
         against K3 on the same inputs: decisions on ``agree_min`` of the
-        active lanes, and bit for bit where they agree."""
+        active lanes, and bit for bit where they agree. ``tms``/``coef``
+        as in ``check_k1``."""
+        tms, coef = tms or terms, ca if coef is None else coef
         Hc, Bc = c["us"].shape
         act = ~c["converged"] & ~c["failed"]
         k2_kw = dict(carry=(act, c["Ks"], c["ks"]))
@@ -2013,7 +2386,7 @@ def main(profile=False):
         KsT, ksT, lin, quad = bk
         ks_small = torch.sqrt((ksT * ksT).sum(0)) < 1e-3
         lo, hi = float(bounds[0, 0]), float(bounds[0, 1])
-        ls_common = (terms, c["x0s"], c["xs"], c["us"], KsT, ksT, ca, alphas, lo, hi,
+        ls_common = (tms, c["x0s"], c["xs"], c["us"], KsT, ksT, coef, alphas, lo, hi,
                      *cost, dt)
         k3_args = ls_common + (c["obj"], lin, quad, ks_small, act, c["jac"])
         lk = K3.fused_line_search(*k3_args)
@@ -2027,6 +2400,11 @@ def main(profile=False):
             return objs.gather(0, idx[None])[0]
 
         # Decisions against the twin, on the active lanes (see K3_TIE).
+        def lane_finite(out):
+            return torch.stack([torch.isfinite(t.float()).reshape(-1, Bc).all(0)
+                                for t in out]).all(0)
+
+        kernel_only = int((~lane_finite(lk) & lane_finite(lp)).sum())
         ck, cp = choice(lk[2]), choice(lp[2])
         same_choice = (ck == cp) | ((pick(ck) - pick(cp)).abs() <= K3_TIE * pick(cp).abs())
         same_flags = (lk[3] == lp[3]) & (lk[4] == lp[4])
@@ -2066,9 +2444,14 @@ def main(profile=False):
         from autompc_torch.sysid.basis import term_value
 
         z = [lk[0][:-1, i].double() for i in range(4)] + [lk[1].double()]
-        theta = torch.stack([term_value(t, z) for t in terms], dim=-1)      # (H, B, F)
-        x64 = theta @ ca.double().T
-        mag = theta.abs() @ ca.double().abs().T
+        theta = torch.stack([term_value(t, z) for t in tms], dim=-1)        # (H, B, F)
+        c64 = coef.double()
+        if c64.ndim == 3:      # lane b through lane b's model
+            x64 = torch.einsum("hbf,ifb->hbi", theta, c64)
+            mag = torch.einsum("hbf,ifb->hbi", theta.abs(), c64.abs())
+        else:
+            x64 = theta @ c64.T
+            mag = theta.abs() @ c64.abs().T
         e_x = (lk[0][1:].permute(0, 2, 1).double() - x64).abs() / mag.clamp_min(1e-30)
         qd_, rd_, fd_ = cost[:3]
         if isinstance(qd_, torch.Tensor):
@@ -2080,7 +2463,8 @@ def main(profile=False):
         du2_64 = ((lk[1].double() - ubar) ** 2).sum(0)
         jl = own & lk[3]
         jac64 = K1.relin_jacobians_plain(
-            terms, lk[0][:, :, jl].double(), lk[1][:, jl].double(), ca.double()
+            tms, lk[0][:, :, jl].double(), lk[1][:, jl].double(),
+            c64[:, :, jl].contiguous() if c64.ndim == 3 else c64
         )
         err = dict(
             k2=max(rel_err(a, b) for a, b in zip(bk, bp)),
@@ -2095,7 +2479,8 @@ def main(profile=False):
         xs_gate = (f"normwise, gated at {TOL_K3}" if within_min is None else
                    f"per lane within {TOL_K3} on {err['within']:.4f}, min {within_min}")
         print(f"[3] K3 line search, {tag}: active lanes {int(act.sum())} of {Bc}, inactive "
-              f"returned bit for bit: {held}; decisions agree with the twin on "
+              f"returned bit for bit: {held}; lanes with an output not finite only in the "
+              f"kernel {kernel_only}; decisions agree with the twin on "
               f"{err['frac']:.5f} of the active lanes (min {agree_min}; flags differ on "
               f"{int((act & ~same_flags).sum())}, of which stalled {int((act & ~same_flags & stalled).sum())}; "
               f"step size differs on {int((moved & same_flags & ~same_choice).sum())}); vs twin on "
@@ -2110,6 +2495,9 @@ def main(profile=False):
             failures.append(f"K2 ({tag}) rel err {err['k2']:.3e} > {TOL_K2}")
         if not held:
             failures.append(f"K3 ({tag}) changed an inactive lane")
+        if kernel_only:
+            failures.append(f"K3 ({tag}) an output not finite on {kernel_only} lanes where "
+                            f"the twin's is finite")
         if err["frac"] < agree_min:
             failures.append(f"K3 ({tag}) decisions agree on {err['frac']:.5f} < {agree_min}")
         if err["obj"] > TOL_K3 or (err["xs"] > TOL_K3 if within_min is None
@@ -2128,16 +2516,19 @@ def main(profile=False):
             if frac < agree_min or not bits:
                 failures.append(f"split vs K3 ({tag}): agree {frac:.5f}, bits {bits}")
         return dict(
-            bk=bk, bp=bp, lk=lk, twin=twin, k3_args=k3_args, act=act,
+            bk=bk, bp=bp, lk=lk, twin=twin, k3_args=k3_args, act=act, n_terms=len(tms),
             k2=lambda: K2.backward_quad_ll(*k2_args, **k2_kw),
             k2_plain=lambda: K2.backward_quad_ll_plain(*k2_args, **k2_kw),
             k3=lambda: K3.fused_line_search(*k3_args),
             k3_plain=lambda: K3.fused_line_search_plain(*k3_args),
         )
 
-    def k2_k3_rows(res, c, form, n_launches, **extra):
+    def k2_k3_rows(res, c, form, n_launches, plain=None, **extra):
         """The two report rows of one ``check_k2_k3`` result on carry
-        ``c``; ``extra[kernel]`` adds keys to that kernel's row."""
+        ``c``; ``extra[kernel]`` adds keys to that kernel's row;
+        ``plain``: ``time_ms``'s arguments for the plain versions (5
+        runs by default)."""
+        plain = plain or dict(reps=5)
         Hc, Bc = c["us"].shape
         bk, lk = res["bk"], res["lk"]
         tensors = [t for t in res["k3_args"] if isinstance(t, torch.Tensor)]
@@ -2150,7 +2541,7 @@ def main(profile=False):
                 replaces="autompc_tpu/ops/pallas_riccati.py:773, :865",
                 launches=n_launches["backward_quad_ll"],
                 max_abs_err=max(abs_err(a, b) for a, b in zip(bk, res["bp"])),
-                ms=time_ms(res["k2"]), plain_ms=time_ms(res["k2_plain"], reps=5),
+                ms=time_ms(res["k2"]), plain_ms=time_ms(res["k2_plain"], **plain),
                 **extra.get("backward_quad_ll", {}),
                 **bound_keys(n_bytes(c["jac"], c["xs"], c["us"], res["act"], c["Ks"],
                                      c["ks"], *c["cost"].values(), *bk),
@@ -2162,9 +2553,9 @@ def main(profile=False):
                 replaces="autompc_tpu/ops/pallas_linesearch.py:803",
                 launches=n_launches["fused_line_search"],
                 max_abs_err=max(abs_err(a, b) for a, b in res["twin"].values()),
-                ms=time_ms(res["k3"]), plain_ms=time_ms(res["k3_plain"], reps=5),
+                ms=time_ms(res["k3"]), plain_ms=time_ms(res["k3_plain"], **plain),
                 **extra.get("fused_line_search", {}),
-                **k3_bound(n_bytes(*tensors, *lk), Bc, Hc, len(terms), len(alphas)),
+                **k3_bound(n_bytes(*tensors, *lk), Bc, Hc, res["n_terms"], len(alphas)),
             ),
         ]
 
@@ -2597,6 +2988,131 @@ def main(profile=False):
                 f"at_B{Bj}_H{Hj}": {k: v for k, v in jm_row.items()
                                     if k not in ("name", "route", "source", "replaces",
                                                  "library_ms")}})
+    # Phase 12's per-lane instances at the shapes its paths give them:
+    # K1 and K3 on (a)'s lanes-last carry, K1's batch-major entry and K7
+    # on (b)'s (at every batch (b) launched them with), three iterations
+    # into the first MPC step, each lane with its own trained model; the
+    # same on the 105-term library's carries and on the 1,336-term
+    # library's, there with the model JS_HUGE describes; and, at the main
+    # bucket, each per-lane instance given B copies of one matrix against
+    # its shared instance, bit for bit.
+    def joint_carry(fan, batch_, coeffs=None):
+        _, carry0, _, make_body = make_batched_ilqr_solver(
+            fan._pred_core, None, return_pieces=True, **fan.solver_kw)
+        n = batch_["reg"].shape[0]
+        params = {"coeffs": fan.train_lanes(batch_["reg"]) if coeffs is None else coeffs}
+        x0j = batch_["Qdiag"].new_tensor(np.tile(bench.task.get_init_obs(), (n, 1)))
+        cpj = {k: batch_[k] for k in ("Qdiag", "Rdiag", "Fdiag")}
+        carry, body = carry0(params, x0j, x0j.new_zeros((n, JS_H, 1)), cpj), make_body(params)
+        for _ in range(3):
+            carry = body(carry)
+        return carry, cpj
+
+    def lane_row(name, source, replaces, meas, counts, **extra):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=counts, **meas, **extra)
+
+    lane_src = {
+        "relin_jacobians": ("autompc_torch/csrc/relin.cu", "autompc_tpu/ops/pallas_relin.py:192"),
+        "relin_jacobians_bm": ("autompc_torch/csrc/relin.cu",
+                               "autompc_tpu/ops/pallas_relin.py:192"),
+        "fused_line_search": ("autompc_torch/csrc/linesearch_fused.cu",
+                              "autompc_tpu/ops/pallas_linesearch.py:803"),
+        "sindy_line_search": ("autompc_torch/csrc/sindy_linesearch.cu",
+                              "autompc_tpu/ops/pallas_linesearch.py:191"),
+    }
+    def huge_model(fan, batch_):
+        """(B, ds, F) per-lane models over ``fan``'s library: each lane's
+        trained JS_BUCKET model at those terms' places, every other
+        coefficient JS_HUGE_EPS * N(0, 1) / (F * the term's largest
+        magnitude on the sysid data)."""
+        small = js["fans"]["a"].train_lanes(batch_["reg"])
+        place = [fan.library.terms.index(t) for t in js["fans"]["a"].library.terms]
+        F = fan.n_features
+        scale = JS_HUGE_EPS / (F * fan._A.abs().amax(0).clamp_min(1.0))
+        noise = np.random.default_rng(5).standard_normal(tuple(small.shape[:2]) + (F,))
+        C = small.new_tensor(noise) * scale
+        C[:, :, place] = small
+        return C.contiguous()
+
+    bound_b = float(bounds[0, 1])
+    for size, fans, batch_j, counts_j in (("", js["fans"], js["batch"], js["main"]),
+                                          ("big", js["big_fans"], js["big_batch"], js["big"]),
+                                          ("huge", js["huge_fans"], js["big_batch"], js["huge"])):
+        fa, fb = fans["a"], fans["b"]
+        tms = fa.library.terms
+        tag = f"F={len(tms)}"
+        lanes_j = huge_model(fa, batch_j) if size == "huge" else None
+        # The plain versions take seconds a call past 1,000 terms (K3's
+        # ~13 s): timed once there, the check's own call their warm-up.
+        plain = dict(reps=1, warm=0) if size == "huge" else None
+        cja, _ = joint_carry(fa, batch_j, lanes_j)
+        Bj = cja["us"].shape[1]
+        ca_counts, ca_by_B = counts_j["a"]
+        r1 = check_k1(f"joint fan-out (a) carry, per-lane coefficients, {tag}", cja,
+                      ca_counts["relin_jacobians"], tms=tms, coef=cja["params"],
+                      name=f"relin_jacobians_lane[{tag}]", plain=plain)
+        ja_cost = (*(cja["cost"][k] for k in ("Qdiag", "Rdiag", "Fdiag")), (0.0,) * 4)
+        res_a = check_k2_k3(f"joint fan-out (a) carry, per-lane coefficients, {tag}", cja, ja_cost,
+                            agree_min=K3_FAN_AGREE_MIN, within_min=K3_FAN_WITHIN_MIN, tms=tms,
+                            coef=cja["params"])
+        k3_row = k2_k3_rows(res_a, cja, "per-lane cost", {
+            "backward_quad_ll": ca_counts["backward_quad_ll"],
+            "fused_line_search": ca_counts["fused_line_search"]}, plain=plain)[1]
+        k3_row["name"] = f"fused_line_search_lane[{tag},B={Bj},H={JS_H},per-lane cost]"
+        k3_row["device_ms"] = device_ms(res_a["k3"])
+        report += [dict(r1, launches_by_B=ca_by_B["relin_jacobians"]),
+                   dict(k3_row, launches_by_B=ca_by_B["fused_line_search"])]
+        cjb, cpb = joint_carry(fb, batch_j, lanes_j)
+        plane_b = cjb["params"]["coeffs"].permute(1, 2, 0).contiguous()
+        cb_counts, cb_by_B = counts_j["b"]
+        b_Bs = sorted({Bs for d in cb_by_B.values() for Bs in d}, reverse=True)
+        if b_Bs[0] != Bj:
+            failures.append(f"joint fan-out (b) {tag} launched at {b_Bs}, not at B={Bj} first")
+        k17 = {}
+        for Bs in b_Bs:
+            sub = {k: cjb[k][:Bs].contiguous() for k in ("x0s", "xs", "us", "Jx", "Ju")}
+            k17[Bs], fails = check_fanout_kernels(
+                f"joint fan-out (b) carry, per-lane coefficients, {tag}", K1, K2, K3, tms,
+                plane_b[:, :, :Bs].contiguous(), sub, {k: v[:Bs] for k, v in cpb.items()},
+                (0.0,) * 4, dt, alphas, bound_b, plain=plain)
+            failures += fails
+        for k, name in ((0, "relin_jacobians_bm"), (2, "sindy_line_search")):
+            at = {f"at_B{Bs}_H{JS_H}": dict(k17[Bs][k], launches=cb_by_B[name].get(Bs, 0))
+                  for Bs in b_Bs[1:]}
+            for w in at.values():
+                w.pop("library_ms")
+            tune_key = size or "small"
+            report.append(lane_row(
+                f"{name}_lane[{tag},B={b_Bs[0]},H={JS_H}]", *lane_src[name], k17[b_Bs[0]][k],
+                cb_counts[name], launches_by_B=cb_by_B[name],
+                launches_joint_tune=js_tune[tune_key].get(name, 0), **at))
+        if size:
+            continue
+        # Copies of one matrix (phase 2's model over the whole library)
+        # through the per-lane instances against the shared instances.
+        C1 = model.coeffs.contiguous()
+        copies = C1[:, :, None].expand(-1, -1, Bj).contiguous()
+        same = {"K1": bits_equal(K1.relin_jacobians(tms, cja["xs"], cja["us"], copies),
+                                 K1.relin_jacobians(tms, cja["xs"], cja["us"], C1))}
+        ka, kb = list(res_a["k3_args"]), list(res_a["k3_args"])
+        ka[6], kb[6] = copies, C1
+        same["K3"] = all(bits_equal(x, y) for x, y in zip(K3.fused_line_search(*ka),
+                                                            K3.fused_line_search(*kb)))
+        same["K1 batch-major"] = all(bits_equal(x, y) for x, y in zip(
+            K1.relin_jacobians_bm(tms, cjb["xs"], cjb["us"], copies),
+            K1.relin_jacobians_bm(tms, cjb["xs"], cjb["us"], C1)))
+        Ksb, ksb = K2.backward_quad(cjb["Jx"], cjb["Ju"], cjb["xs"], cjb["us"], cpb["Qdiag"],
+                                    cpb["Rdiag"], cpb["Fdiag"], (0.0,) * 4, dt, 4)[:2]
+        k7 = (tms, cjb["x0s"], cjb["xs"], cjb["us"], Ksb, ksb)
+        same["K7"] = all(bits_equal(x, y) for x, y in zip(
+            K3.sindy_line_search(*k7, copies, alphas, -bound_b, bound_b),
+            K3.sindy_line_search(*k7, C1, alphas, -bound_b, bound_b)))
+        print(f"[3] per-lane instances given {Bj} copies of one {tuple(C1.shape)} matrix, bit "
+              f"for bit the shared instances: {same}", flush=True)
+        if not all(same.values()):
+            failures.append(f"per-lane instances with copies differ from the shared ones: {same}")
+
     def device_txt(w):
         return ((f" (device {w['device_ms']:.4f})" if "device_ms" in w else "")
                 + (f" (its lanes-last entry on the same points: device "
@@ -2618,7 +3134,9 @@ def main(profile=False):
               + (f"; {r['launches_tune']} in the tune {r['launches_tune_by_B']} by B"
                  if "launches_tune" in r else "")
               + (f"; {r['launches_joint_mlp']} in the joint-MLP tune "
-                 f"{r['launches_joint_mlp_by_B']} by B" if "launches_joint_mlp" in r else ""))
+                 f"{r['launches_joint_mlp_by_B']} by B" if "launches_joint_mlp" in r else "")
+              + (f"; {r['launches_joint_tune']} in the joint-SINDy tune"
+                 if "launches_joint_tune" in r else ""))
         if "lane_cost_ms" in r:
             print(f"        with per-lane cost planes at this shape: kernel "
                   f"{r['lane_cost_ms']:.3f} ms (no path launches it so)")

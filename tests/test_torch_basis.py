@@ -93,21 +93,21 @@ def test_tree_sum_matches_jax_order():
     assert float(tb.tree_sum(vals)) == float(_tree_sum([jnp.asarray(v.item()) for v in vals]))
 
 
-def _counter_tree(n):
-    """Python mirror of csrc/features.cuh TreeAcc: push(k) merges the
-    blocks named by the trailing one-bits of k, total(n) folds the
-    blocks of n's one-bits from the lowest."""
-    slot = [None] * 7
+def _counter_tree(n, slots=7):
+    """Python mirror of csrc/features.cuh TreeAcc (TreeAccT<slots>):
+    push(k) merges the blocks named by the trailing one-bits of k,
+    total(n) folds the blocks of n's one-bits from the lowest."""
+    slot = [None] * slots
     for k in range(n):
         carry = f"a{k}"
-        for lvl in range(7):
+        for lvl in range(slots):
             if (k >> lvl) & 1:
                 carry = f"({slot[lvl]}+{carry})"
             else:
                 slot[lvl] = carry
                 break
     r = None
-    for lvl in range(7):
+    for lvl in range(slots):
         if (n >> lvl) & 1:
             r = slot[lvl] if r is None else f"({slot[lvl]}+{r})"
     return r
@@ -126,6 +126,23 @@ def test_kernel_tree_accumulator_reproduces_tree_sum(n):
     assert _counter_tree(n) == _tree_sum(syms) == tb.tree_sum(syms)
 
 
+# The per-lane instances' trees (features.cuh: AMPC_TREE_SLOTS_BIG) over
+# the whole library, up to _build.MAX_F_LANE terms: the largest SINDy
+# library of the space on cartpole has 1,686.
+BIG_TREE_SLOTS = 12
+
+
+@pytest.mark.parametrize("n", [65, 127, 128, 129, 1000, 1686, 2047, 2048])
+def test_large_counter_tree_reproduces_tree_sum(n):
+    from autompc_torch.ops import _build
+
+    assert 2 ** BIG_TREE_SLOTS > _build.MAX_F_LANE >= n
+    syms = [_Sym(f"a{k}") for k in range(n)]
+    assert _counter_tree(n, BIG_TREE_SLOTS) == _tree_sum(syms) == tb.tree_sum(syms)
+    # The shared instances' seven slots hold fewer than 128 terms.
+    assert (_counter_tree(n) == _tree_sum(syms)) == (n < 128)
+
+
 class _Blk:
     """A partial sum of consecutive terms: its text records the pairing,
     and an addition puts the earlier block on the left (a float32
@@ -139,7 +156,7 @@ class _Blk:
         return _Blk(a.start, f"({a.text}+{b.text})")
 
 
-def _butterfly_rounds(n, G):
+def _butterfly_rounds(n, G, slots=7):
     """Python mirror of csrc/sindy_linesearch.cu's feature sum: rounds of
     G consecutive terms; in each, lane g holds term r G + g and log2 G
     levels of xor shuffles add a partner block where both blocks hold a
@@ -147,7 +164,7 @@ def _butterfly_rounds(n, G):
     r), and the last, partial round's sum opens the final fold. Returns
     every lane's sum."""
     full, part = divmod(n, G)
-    slot, lanes = [None] * 7, None
+    slot, lanes = [None] * slots, None
     for r in range(-(-n // G)):
         cnt = G if r < full else part
         lanes = [_Blk(r * G + g, f"a{r * G + g}") if g < cnt else None for g in range(G)]
@@ -163,7 +180,7 @@ def _butterfly_rounds(n, G):
             lanes, lvl = nxt, lvl * 2
         if r < full:
             carry = lanes[0]
-            for lv in range(7):
+            for lv in range(slots):
                 if (r >> lv) & 1:
                     carry = slot[lv] + carry
                 else:
@@ -172,7 +189,7 @@ def _butterfly_rounds(n, G):
     out = []
     for g in range(G):
         acc = lanes[g] if part else None
-        for lv in range(7):
+        for lv in range(slots):
             if (full >> lv) & 1:
                 acc = slot[lv] if acc is None else slot[lv] + acc
         out.append(acc.text)
@@ -188,6 +205,41 @@ def test_kernel_butterfly_reproduces_tree_sum(G):
         got = _butterfly_rounds(n, G)
         want = _tree_sum([_Sym(f"a{k}") for k in range(n)])
         assert set(got) == {want}, (G, n)
+
+
+@pytest.mark.parametrize("G", [4, 8])
+@pytest.mark.parametrize("n", [65, 129, 1686, 2048])
+def test_kernel_butterfly_with_large_trees_reproduces_tree_sum(G, n):
+    """K7's per-lane instances: the same butterfly over a library past
+    64 terms, its rounds' counter tree of AMPC_TREE_SLOTS_BIG slots."""
+    got = _butterfly_rounds(n, G, BIG_TREE_SLOTS)
+    assert set(got) == {_tree_sum([_Sym(f"a{k}") for k in range(n)])}, (G, n)
+
+
+def test_large_table_lists_columns_in_16_bits():
+    """The per-lane instances' table (FeatTableBig): a library past 127
+    terms (poly degree 8 with cross terms, 1,286) keeps its full column
+    lists, with term indices past a byte's range."""
+    import ctypes
+
+    from autompc_torch.ops import _build
+
+    lib = tb.FeatureLibrary.from_config(5, poly_basis=True, poly_degree=8,
+                                        poly_cross_terms=True)
+    assert lib.n_features == 1286
+    tab = _build.feat_table_big(lib.terms)
+    assert (tab.n, tab.d) == (1286, 5)
+    cols = _build.jacobian_columns(lib.terms)
+    assert max(max(ks) for ks in cols) > 127
+    for c, ks in enumerate(cols):
+        assert tab.col_n[c] == len(ks) and list(tab.col_terms[c])[:len(ks)] == ks
+    for k in (0, 700, 1285):
+        assert list(tab.exps[k])[:5] == list(lib.terms[k].exps)
+    # features.cuh's FeatTableT<2048, short>: the C layout, byte for byte.
+    F, D = _build.MAX_F_LANE, _build.MAX_D
+    assert ctypes.sizeof(_build.FeatTableBig) == 8 + F * D + 2 * F + 4 * F + 2 * D + 2 * D * F
+    with pytest.raises(ValueError, match=f"per-lane coefficients take 1..{F} terms"):
+        _build.feat_table_big(tuple(lib.terms) * 2)
 
 
 def test_finite_difference_matches():

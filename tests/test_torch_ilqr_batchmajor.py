@@ -240,7 +240,10 @@ def test_receding_loop_matches_jax_at_dc6(cheetah):
     (dict(backward="assoc"), "assoc"),
     (dict(relin="xla"), "relin"),
     (dict(analytic_jac=True), "analytic_jac"),
-    (dict(pred_diff=None), "jacfwd"),
+    # A model with neither pred_diff nor feature_spec takes the autodiff
+    # relinearization (tests/test_torch_joint_sindy.py); relin="xla", the
+    # jacfwd relinearization of a feature model, still raises.
+    (dict(pred_diff=None, relin="xla"), "jacfwd"),
     (dict(feature_mask=(0, 1)), "feature_mask needs feature_spec"),
     (dict(mlp_ls=dict(nonlin="relu", precision="default")), "precision"),
     (dict(mlp_ls=dict(nonlin="relu", precision="bf16x3", layout="feat")), "precision"),

@@ -271,7 +271,9 @@ def _fanout(**kw):
     (dict(mesh=object()), "mesh"),
     (dict(reg_matrix=[[1.0]]), "reg_matrix"),
     (dict(fuse_ls=True, lanes_last=False), "fuse_ls with the batch-major"),
-    (dict(feature_spec=None), "jacfwd"),
+    # Without a feature_spec the batch-major body relinearizes by jacfwd
+    # (tests/test_torch_joint_sindy.py); the lanes-last body still needs one.
+    (dict(feature_spec=None, lanes_last=True, fuse_ls=True, backward="pallas"), "jacfwd"),
 ])
 def test_fanout_options_that_still_raise(kwargs, match):
     with pytest.raises(ValueError, match=match):

@@ -855,3 +855,47 @@ def test_bq_bm_group_step_equals_the_one_thread_step(H):
         for got, want in ((Ks[:, :, 0], one[0][..., d]), (ks[..., 0], one[1][..., d]),
                           (lin, one[2][..., d]), (quad, one[3][..., d])):
             assert np.array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+
+
+def test_per_lane_limits_mirror_the_sources():
+    """The per-lane instances' table size and tree slots are the ones
+    features.cuh compiles in, and the trees hold every term the table
+    does."""
+    import re
+
+    feat = (_build.CSRC_DIR / "features.cuh").read_text()
+    big = int(re.search(r"#define AMPC_MAX_F_BIG (\d+)", feat)[1])
+    slots = int(re.search(r"#define AMPC_TREE_SLOTS_BIG (\d+)", feat)[1])
+    small = int(re.search(r"#define AMPC_TREE_SLOTS (\d+)", feat)[1])
+    assert big == _build.MAX_F_LANE >= 2048 and 2 ** slots > big
+    assert int(re.search(r"#define AMPC_MAX_F (\d+)", feat)[1]) == _build.MAX_F < 2 ** small
+
+
+@pytest.mark.parametrize("which", ["K1", "K1 batch-major", "K7", "K3"])
+def test_per_lane_wrappers_refuse_libraries_above_the_limit_by_name(which, monkeypatch):
+    """A per-lane plane over more terms than the per-lane instances take
+    raises by name before any launch (meta tensors stand in for the
+    card's), and the shared instances keep their 64-term limit."""
+    from autompc_torch.sysid.basis import TermDesc
+
+    monkeypatch.setattr(_build, "device_kind", lambda t: "cuda")
+    monkeypatch.setattr(_build, "sm_count", lambda dev: _build.H100_SMS)
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device="meta")
+    B, H, F = 4, 3, _build.MAX_F_LANE + 1
+    terms = tuple(TermDesc(f"t{k}", (1, 0, 0, 0, 0)) for k in range(F))
+    match = f"per-lane coefficients take 1..{_build.MAX_F_LANE} terms"
+    with pytest.raises(ValueError, match=match):
+        if which == "K1":
+            K1.relin_jacobians(terms, z(H + 1, 4, B), z(H, B), z(4, F, B))
+        elif which == "K1 batch-major":
+            K1.relin_jacobians_bm(terms, z(B, H + 1, 4), z(B, H, 1), z(4, F, B))
+        elif which == "K7":
+            K3.sindy_line_search(terms, z(B, 4), z(B, H + 1, 4), z(B, H, 1), z(B, H, 1, 4),
+                                 z(B, H, 1), z(4, F, B), (1.0, 0.2), -1.0, 1.0)
+        else:
+            b8 = torch.zeros(B, dtype=torch.bool, device="meta")
+            K3.fused_line_search(terms, z(4, B), z(H + 1, 4, B), z(H, B), z(H, 4, B), z(H, B),
+                                 z(4, F, B), (1.0, 0.2), -1.0, 1.0, z(4, B), z(1, B), z(4, B),
+                                 (0.0,) * 4, 0.05, z(B), z(B), z(B), b8, b8, z(H, 20, B))
+    with pytest.raises(ValueError, match="shared coefficients take 1..64 terms"):
+        K1.relin_jacobians(terms[:65], z(H + 1, 4, B), z(H, B), z(4, 65))

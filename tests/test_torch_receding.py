@@ -61,7 +61,31 @@ def test_receding_loop_matches_jax(setup, warm_start):
 
 
 def test_receding_loop_needs_feature_spec(setup):
+    """The lanes-last fused loop needs the model's feature_spec (without
+    one the loop takes the batch-major body and its jacfwd
+    relinearization: the test below)."""
     jb, tb, m, t, active, common = setup
     cost = TQuad(tb.system, QD, 0.001 * np.eye(1), QD)
     with pytest.raises(ValueError, match="feature_spec"):
-        t_loop(t.pred_core, cost, tb.dynamics, **common)
+        t_loop(t.pred_core, cost, tb.dynamics, lanes_last=True, fuse_ls=True, **common)
+
+
+def test_receding_loop_without_feature_spec_matches_jax(setup):
+    """A model with neither a feature_spec nor a pred_diff: the batch-major
+    body relinearizes by torch.func.jacfwd, as the JAX solver by
+    jax.jacfwd."""
+    jb, tb, m, t, active, common = setup
+    jrun = jax.jit(j_loop(
+        m.pred_core,
+        JQuad(jb.system, jnp.asarray(QD), 0.001 * jnp.eye(1), jnp.asarray(QD),
+              goal=jnp.zeros(4)),
+        jb.dynamics, **common,
+    ))
+    trun = t_loop(t.pred_core, TQuad(tb.system, QD, 0.001 * np.eye(1), QD, goal=np.zeros(4)),
+                  tb.dynamics, backward="scan", **common)
+    x0 = np.random.default_rng(1).uniform(-1, 1, (3, 4)) * np.array([3.1, 1, 1, 1])
+    xs_j, us_j, nc_j = jrun(m.params, jnp.asarray(x0))
+    xs_t, us_t, nc_t = trun(t.params, torch.as_tensor(x0))
+    np.testing.assert_allclose(xs_t.numpy(), np.asarray(xs_j), rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(us_t.numpy(), np.asarray(us_j), rtol=1e-8, atol=1e-8)
+    np.testing.assert_array_equal(nc_t.numpy(), np.asarray(nc_j))

@@ -35,7 +35,11 @@ that every checkout computes the same bits:
   lanes-last entry behind the solver's old layout adapter), K6
   (``backward_quad``, per-lane cost, also at B=16384, and at B=1,024
   with H=20 and 40, whose times against H=10 give a step's cost) and K7
-  (``sindy_line_search``). Each tree is driven through its
+  (``sindy_line_search``); the per-lane-coefficient instances of K1
+  (both entries), K3 and K7 (``lane_*``: every lane its own model over
+  the whole 55-term library, the fitted model plus a seeded per-lane
+  perturbation, per-lane costs) at the joint fan-out's B=1,024, H=10 and
+  its last compaction stage, B=128. Each tree is driven through its
   own wrappers (the signatures of K8 and K9 differ between trees); K8's
   digest covers its objectives only, K9's its outputs (xs, us, jac,
   du2), which every tree computes alike.
@@ -53,7 +57,7 @@ tree with ``bq_bm_geometry`` records the geometry each K6 call took
 (``_geometry``).
 
 ``--only`` keeps the shapes whose tag starts with one of the prefixes
-(K1, K2, K3, K4, K5, K6, K7, K8, K9, split).
+(K1, K2, K3, K4, K5, K6, K7, K8, K9, split, lane).
 
 Each ROOT is a checkout whose ``autompc_torch`` is imported in a process
 of its own (two trees cannot share one), in the order given, so that
@@ -128,10 +132,12 @@ LS_SHAPES = tuple(sorted(
        for B, H in ((4096, 200), (16384, 200)) + FAN_BH]
     + [(f"K6_B{B}_H{H}", "K6", B, H, "lane", "f32")
        for B, H in ((4096, 200), (16384, 200), (1024, 20), (1024, 40)) + FAN_BH]
-    + [(f"K7_B{B}_H{H}", "K7", B, H, "fixed", "f32") for B, H in ((4096, 200),) + FAN_BH],
+    + [(f"K7_B{B}_H{H}", "K7", B, H, "fixed", "f32") for B, H in ((4096, 200),) + FAN_BH]
+    + [(f"lane_{k}_B{B}_H{H}", k, B, H, "coef", "f32") for B, H in ((1024, 10), (128, 10))
+       for k in ("K1", "K1bm", "K3", "K7")],
     key=lambda r: (r[2], r[3])))
 ALPHAS = tuple(0.2 ** k for k in range(L))
-ALL_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "split")
+ALL_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "split", "lane")
 
 
 def _tensor(a, dev, dtype=None):
@@ -237,8 +243,11 @@ def ls_model(dev):
 def ls_carry(model, cost, common, active, B, H, dev):
     """The lanes-last carry after ``make_carry0`` at (B, H) from x0 drawn
     from the seed, one backward pass on it (fixed cost), and the line
-    search's arguments under the fixed cost and under per-lane planes
-    (the fan-out's weighting draw)."""
+    search's arguments under the fixed cost, under per-lane planes
+    (the fan-out's weighting draw), and under those planes with a
+    lanes-last (ds, F, B) coefficient plane over the whole library
+    (``coef``: the fitted model plus 1e-5 * N(0, 1) a coefficient and
+    lane)."""
     import torch
     from autompc_torch.control import make_batched_ilqr_solver
     from autompc_torch.ops import cuda_riccati as K2
@@ -263,6 +272,10 @@ def ls_carry(model, cost, common, active, B, H, dev):
     head = (terms, c["x0s"], c["xs"], c["us"], KsT, ksT, ca, ALPHAS,
             float(bounds[0][0]), float(bounds[1][0]))
     ls = {form: head + cost_ + (common["dt"],) for form, cost_ in (("fixed", fixed), ("lane", lane))}
+    C = model.coeffs
+    plane = (C[:, :, None] + _tensor(rng.standard_normal(tuple(C.shape) + (B,)), dev, f) * 1e-5)
+    ls["coef"] = ((tuple(model.library.terms),) + head[1:6] + (plane.contiguous(),) + head[7:]
+                  + lane + (common["dt"],))
     jac = {"f32": c["jac"], "bf16": c["jac"].to(torch.bfloat16)}
     return ls, (c["obj"], lin, quad, ks_small, act), jac
 
