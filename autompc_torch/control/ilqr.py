@@ -47,7 +47,19 @@ kernel of ``ops/cuda_mlp_linesearch.py``; neither: a batched loop over H
 through ``pred_core``), evaluates the L objectives and applies the
 acceptance rule in tensor ops, and relinearizes the chosen trajectory
 (``feature_spec``: ``ops/cuda_relin.py``'s batch-major entry; else
-``pred_diff`` or autodiff).
+``pred_diff`` or autodiff). With ``fuse_ls`` and a ``feature_spec``
+under a diagonal quadratic cost (per lane, or a fixed one broadcast to
+per-lane planes) the line search, the acceptance rule and the
+relinearization are one kernel, K3's batch-major entry
+(``ops/cuda_linesearch.py::fused_line_search_bm``), and the body applies
+the carry select.
+
+``reg_matrix``/``reg_goal`` (with ``quad_cost_batch``, batch-major body
+only) add the GaussReg term ``regw_b (x - mu)' S (x - mu)`` to every
+stage cost, ``regw`` (B,) a lane's weight in ``cost_params``: the
+objective, the dense expansions (so the backward pass is the general
+kernel or the plain recursion, never the inline-expansion kernel) and,
+fused, K3's batch-major entry with its GaussReg term.
 
 Both loops read the active-lane count on the host once per iteration.
 ``make_ilqr_solver`` is the batch-major body at one lane, the model
@@ -66,7 +78,12 @@ import torch
 from .. import NotPortedError
 from ..config import ConfigurationSpace, UniformIntegerHyperparameter
 from ..ops._build import WIDE_B
-from ..ops.cuda_linesearch import fused_line_search, fused_line_search_wide, sindy_line_search
+from ..ops.cuda_linesearch import (
+    fused_line_search,
+    fused_line_search_bm,
+    fused_line_search_wide,
+    sindy_line_search,
+)
 from ..ops.cuda_mlp_linesearch import fold_mlp_params, mlp_line_search
 from ..ops.cuda_relin import relin_jacobians, relin_jacobians_bm
 from ..ops.cuda_riccati import backward_quad, backward_quad_ll
@@ -125,6 +142,7 @@ def make_batched_ilqr_solver(
     quad_goal=None,
     batch_params: bool = False,
     reg_matrix=None,
+    reg_goal=None,
     pred_diff=None,
     mlp_ls=None,
     ls_wide: bool = False,
@@ -201,12 +219,16 @@ def make_batched_ilqr_solver(
     (lanes-last body only) stores the Jacobian carry in bfloat16; the
     kernels compute in float32 and round at the write.
     """
-    for name, on in (
-        ("reg_matrix", reg_matrix is not None),
-        ("analytic_jac", analytic_jac),
-    ):
-        if on:
-            raise _unsupported(name)
+    if analytic_jac:
+        raise _unsupported("analytic_jac")
+    if reg_matrix is not None and not quad_cost_batch:
+        raise ValueError("reg_matrix requires quad_cost_batch=True")
+    if reg_matrix is not None and lanes_last:
+        raise ValueError(
+            "lanes_last=True requires the diagonal-quadratic path: reg_matrix (the "
+            "GaussReg term) makes the stage hessian dense, so it takes the batch-major "
+            "body (lanes_last=False)"
+        )
     if mlp_ls is not None and batch_params:
         raise ValueError(
             "mlp_ls (the MLP line-search kernel) does not support "
@@ -254,6 +276,27 @@ def make_batched_ilqr_solver(
     )
     if quad_cost_batch and len(goal_q) != obsdim:
         raise ValueError(f"quad_goal must have length obsdim = {obsdim}")
+    if reg_matrix is not None:
+        # The GaussReg term w_b (x - mu)' S (x - mu) of every lane's stage
+        # cost: S and mu shared (float64 on the host), w per lane
+        # (cost_params["regw"]).
+        def host64(v):
+            v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+            return np.asarray(v, dtype=np.float64)
+
+        reg_S = host64(reg_matrix)
+        reg_mu = np.zeros(obsdim) if reg_goal is None else host64(reg_goal).reshape(-1)
+        if reg_S.shape != (obsdim, obsdim) or reg_mu.shape != (obsdim,):
+            raise ValueError(f"reg_matrix must be (obsdim, obsdim) and reg_goal (obsdim,), "
+                             f"obsdim = {obsdim}")
+    reg_on = {}
+
+    def reg_terms(like):
+        """(S, mu) on ``like``'s device and dtype, copied there once."""
+        key = (like.device, like.dtype)
+        if key not in reg_on:
+            reg_on[key] = (like.new_tensor(reg_S), like.new_tensor(reg_mu))
+        return reg_on[key]
 
     def feature_pieces():
         """(active terms, params -> active coefficient columns) of
@@ -296,6 +339,14 @@ def make_batched_ilqr_solver(
                     f"{(like.shape[0], width)}"
                 )
             out[key] = v.contiguous()
+        if reg_matrix is not None:
+            if "regw" not in cost_params:
+                raise ValueError("reg_matrix solve needs cost_params['regw'] (B,)")
+            w = torch.as_tensor(cost_params["regw"], dtype=like.dtype, device=like.device)
+            if tuple(w.shape) != (like.shape[0],):
+                raise ValueError(
+                    f"cost_params['regw']: shape {tuple(w.shape)}, expected {(like.shape[0],)}")
+            out["regw"] = w.contiguous()
         if horizon_mask:
             if "heff" not in cost_params:
                 raise ValueError("horizon_mask solve needs cost_params['heff']")
@@ -333,6 +384,13 @@ def make_batched_ilqr_solver(
             qterm, rterm = qterm * sw, rterm * sw
         oc = qterm.sum(dim=(-2, -1))
         cc = rterm.sum(dim=(-2, -1))
+        if reg_matrix is not None:
+            S, mu = reg_terms(xs)
+            dxm = xs[..., :H, :obsdim] - mu
+            gterm = dxm * (dxm @ S)
+            if horizon_mask:
+                gterm = gterm * sw
+            oc = oc + w(cp["regw"][:, None], 1)[..., 0] * gterm.sum(dim=(-2, -1))
         dxt = xs[..., H, :obsdim] - goal
         return dt * (oc + cc) + (dxt * dxt * w(cp["Fdiag"], 1)).sum(-1)
 
@@ -461,9 +519,16 @@ def make_batched_ilqr_solver(
         return make_carry0, make_body, finalize
 
     def batch_major_pieces():
-        if fuse_ls:
+        # The fused line search (K3's batch-major entry) for a feature
+        # model under a quadratic cost, as the JAX body fuses it; without
+        # a feature_spec, or under a cost that is not quadratic, fuse_ls
+        # is ignored there too.
+        fused = fuse_ls and feature_spec is not None and (
+            quad_cost_batch or getattr(cost, "is_quad", False))
+        if fused and not quad_cost_batch and fixed_diag is None:
             raise _unsupported(
-                "fuse_ls with the batch-major body (lanes_last=False)"
+                "fuse_ls with lanes_last=False and a fixed cost whose Q, R or F is not "
+                "diagonal (the batch-major fused line search takes diagonal cost planes)"
             )
         if feature_spec is not None and dc != 1:
             raise _unsupported(
@@ -480,7 +545,7 @@ def make_batched_ilqr_solver(
         # The inline-expansion kernel: dc = 1 and a diagonal cost, fixed
         # (its diagonals broadcast to the batch) or per lane.
         quad_backward = (
-            backward == "pallas" and dc == 1 and not horizon_mask
+            backward == "pallas" and dc == 1 and not horizon_mask and reg_matrix is None
             and (quad_cost_batch or fixed_diag is not None)
         )
         if feature_spec is not None:
@@ -518,6 +583,12 @@ def make_batched_ilqr_solver(
             Vn[:, oi, oi] = 2.0 * Fd
             vn = xs.new_zeros((B, ds))
             vn[:, :obsdim] = 2.0 * Fd * (xs[:, H, :obsdim] - goal)
+            if reg_matrix is not None:
+                # The dense GaussReg term: 2 dt w S (x - mu) and 2 dt w S.
+                S, mu = reg_terms(xs)
+                w2 = 2.0 * dt * cp["regw"]
+                cx[:, :, :obsdim] += w2[:, None, None] * ((xs[:, :H, :obsdim] - mu) @ S)
+                Cxx[:, :, :obsdim, :obsdim] += w2[:, None, None, None] * S
             if horizon_mask:
                 # Inert steps: no state cost and no cost gradients; Cuu
                 # stays positive definite (with Ju = 0 and cu = 0 the
@@ -646,6 +717,22 @@ def make_batched_ilqr_solver(
                     )
                 return (*fixed_rows[B], fixed_diag[3])
 
+            def fused_search(c, coeffs, Ks, ks, lin_red, quad_red, ks_small):
+                """K3's batch-major entry on the carry: the chosen rollout,
+                its objective and flags, its Jacobians and du2, every lane
+                (the body applies the carry select)."""
+                Qd, Rd, Fd, goal = diag_rows(c)
+                reg = None
+                if reg_matrix is not None:
+                    reg = (reg_S, reg_mu, c["cost"]["regw"])
+                return fused_line_search_bm(
+                    terms, c["x0s"], c["xs"], c["us"], Ks.contiguous(), ks.contiguous(),
+                    coeffs, alphas, float(umin[0]), float(umax[0]),
+                    Qd.T.contiguous(), Rd.T.contiguous(), Fd.T.contiguous(), goal, dt,
+                    c["obj"], lin_red, quad_red, ks_small, reg=reg,
+                    ls_cost_threshold=ls_cost_threshold,
+                )
+
             def body(c):
                 x0s, xs, us, cp = c["x0s"], c["xs"], c["us"], c["cost"]
                 # Per-lane params ride the carry, so compaction gathers
@@ -671,6 +758,11 @@ def make_batched_ilqr_solver(
                     )
                 ks_small = torch.sqrt((ks * ks).sum(dim=(1, 2))) < u_threshold
 
+                if fused:
+                    new_xs, new_us, new_obj, ls_success, failed_now, Jx_lin, Ju_lin, du2 = \
+                        fused_search(c, coeffs, Ks, ks, lin_red, quad_red, ks_small)
+                    return select(c, active, new_xs, new_us, new_obj, ls_success, failed_now,
+                                  Jx_lin, Ju_lin, torch.sqrt(du2), Ks, ks)
                 if feature_spec is not None:
                     ls_xs, ls_us = sindy_line_search(
                         terms, x0s, xs, us, Ks, ks, coeffs, alphas, umin, umax
@@ -720,11 +812,18 @@ def make_batched_ilqr_solver(
                 Jx_lin, Ju_lin = relinearize(pp, coeffs, new_xs, new_us)
                 if horizon_mask:
                     Jx_lin, Ju_lin = freeze(stage_mask(cp, x0s), Jx_lin, Ju_lin)
+                du_norm = torch.sqrt(((new_us - us) ** 2).sum(dim=(1, 2)))
+                return select(c, active, new_xs, new_us, new_obj, ls_success, failed_now,
+                              Jx_lin, Ju_lin, du_norm, Ks, ks)
+
+            def select(c, active, new_xs, new_us, new_obj, ls_success, failed_now, Jx_lin,
+                       Ju_lin, du_norm, Ks, ks):
+                """The next carry: the new trajectory where the lane is
+                active and did not fail, its Jacobians where the search
+                also succeeded, the new gains where active."""
                 succ = ls_success[:, None, None, None]
                 Jx_new = torch.where(succ, Jx_lin, c["Jx"])
                 Ju_new = torch.where(succ, Ju_lin, c["Ju"])
-
-                du_norm = torch.sqrt(((new_us - us) ** 2).sum(dim=(1, 2)))
                 converged_now = (du_norm < u_threshold) & ~failed_now
 
                 def upd(new, old, keep):
@@ -733,9 +832,9 @@ def make_batched_ilqr_solver(
 
                 moved = active & ~failed_now
                 return dict(
-                    x0s=x0s, cost=cp,
-                    **({"params": pp} if batch_params else {}),
-                    xs=upd(new_xs, xs, moved), us=upd(new_us, us, moved),
+                    x0s=c["x0s"], cost=c["cost"],
+                    **({"params": c["params"]} if batch_params else {}),
+                    xs=upd(new_xs, c["xs"], moved), us=upd(new_us, c["us"], moved),
                     Jx=upd(Jx_new, c["Jx"], moved), Ju=upd(Ju_new, c["Ju"], moved),
                     obj=upd(new_obj, c["obj"], moved),
                     Ks=upd(Ks, c["Ks"], active), ks=upd(ks, c["ks"], active),

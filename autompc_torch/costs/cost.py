@@ -3,9 +3,10 @@
 Every ``eval_*`` method takes a tensor whose LAST axis is the
 observation (or control) and evaluates all leading axes at once;
 ``__call__(traj)`` is the task metric of a whole trajectory. Quadratic
-costs keep their closed forms; the autodiff fallbacks and the cost
-algebra of the JAX package are not ported yet (the ported paths need
-the quadratic forms only).
+costs keep their closed forms; any other cost that sets ``is_diff`` /
+``is_twice_diff`` gets its gradient and hessian by ``torch.func``
+autodiff of its ``eval_*_cost``, point by point over the leading axes.
+``a + b`` makes a ``SumCost`` (``costs/sum_cost.py``).
 
 Divergence from the original AutoMPC, kept from the JAX package on
 purpose (DESIGN.md §7): the terminal derivatives use ``obs - goal``
@@ -21,12 +22,37 @@ def _quad(d, M):
     return ((d @ M) * d).sum(-1)
 
 
+def _points(fn, transform, x):
+    """``transform(fn)`` (``torch.func.grad`` or ``hessian`` of a
+    one-point cost) at every point of ``x``'s leading axes."""
+    from torch.func import vmap
+
+    flat = x.reshape(-1, x.shape[-1])
+    out = vmap(transform(fn))(flat)
+    return out.reshape(x.shape[:-1] + out.shape[1:])
+
+
+def _diff(fn, x):
+    from torch.func import grad
+
+    return fn(x), _points(fn, grad, x)
+
+
+def _hess(fn, x):
+    from torch.func import grad, hessian
+
+    return fn(x), _points(fn, grad, x), _points(fn, hessian, x)
+
+
 class Cost:
     """Base class for cost functions."""
 
     def __init__(self, system):
         self.system = system
         self._is_quad = False
+        self._is_convex = False
+        self._is_diff = False
+        self._is_twice_diff = False
         self._has_goal = False
         self._Q = None
         self._R = None
@@ -58,13 +84,26 @@ class Cost:
             return _quad(obs - self._mat(self._goal, obs), self._mat(self._Q, obs))
         raise NotImplementedError
 
+    def eval_obs_cost_diff(self, obs):
+        """(value, gradient) of the stage observation cost."""
+        if self.is_quad:
+            d = obs - self._mat(self._goal, obs)
+            Q = self._mat(self._Q, obs)
+            return _quad(d, Q), d @ (Q + Q.T).T
+        if self.is_diff:
+            return _diff(self.eval_obs_cost, obs)
+        raise NotImplementedError
+
     def eval_obs_cost_hess(self, obs):
         """(value, gradient, hessian) of the stage observation cost;
-        the hessian is one (n, n) matrix for every leading axis."""
+        the hessian of a quadratic cost is one (n, n) matrix for every
+        leading axis, an autodiff one (..., n, n)."""
         if self.is_quad:
             d = obs - self._mat(self._goal, obs)
             Q = self._mat(self._Q, obs)
             return _quad(d, Q), d @ (Q + Q.T).T, Q + Q.T
+        if self.is_twice_diff:
+            return _hess(self.eval_obs_cost, obs)
         raise NotImplementedError
 
     def eval_ctrl_cost(self, ctrl):
@@ -72,16 +111,38 @@ class Cost:
             return _quad(ctrl, self._mat(self._R, ctrl))
         raise NotImplementedError
 
+    def eval_ctrl_cost_diff(self, ctrl):
+        """(value, gradient) of the stage control cost."""
+        if self.is_quad:
+            R = self._mat(self._R, ctrl)
+            return _quad(ctrl, R), ctrl @ (R + R.T).T
+        if self.is_diff:
+            return _diff(self.eval_ctrl_cost, ctrl)
+        raise NotImplementedError
+
     def eval_ctrl_cost_hess(self, ctrl):
         """(value, gradient, hessian) of the stage control cost."""
         if self.is_quad:
             R = self._mat(self._R, ctrl)
             return _quad(ctrl, R), ctrl @ (R + R.T).T, R + R.T
+        if self.is_twice_diff:
+            return _hess(self.eval_ctrl_cost, ctrl)
         raise NotImplementedError
 
     def eval_term_obs_cost(self, obs):
         if self.is_quad:
             return _quad(obs - self._mat(self._goal, obs), self._mat(self._F, obs))
+        raise NotImplementedError
+
+    def eval_term_obs_cost_diff(self, obs):
+        """(value, gradient) of the terminal cost, with the goal offset in
+        the gradient."""
+        if self.is_quad:
+            d = obs - self._mat(self._goal, obs)
+            F = self._mat(self._F, obs)
+            return _quad(d, F), d @ (F + F.T).T
+        if self.is_diff:
+            return _diff(self.eval_term_obs_cost, obs)
         raise NotImplementedError
 
     def eval_term_obs_cost_hess(self, obs):
@@ -91,6 +152,8 @@ class Cost:
             d = obs - self._mat(self._goal, obs)
             F = self._mat(self._F, obs)
             return _quad(d, F), d @ (F + F.T).T, F + F.T
+        if self.is_twice_diff:
+            return _hess(self.eval_term_obs_cost, obs)
         raise NotImplementedError
 
     def get_cost_matrices(self):
@@ -111,5 +174,29 @@ class Cost:
         return self._is_quad
 
     @property
+    def is_convex(self):
+        return self._is_convex
+
+    @property
+    def is_diff(self):
+        return self._is_diff
+
+    @property
+    def is_twice_diff(self):
+        return self._is_twice_diff
+
+    @property
     def has_goal(self):
         return self._has_goal
+
+    def __add__(self, other):
+        from .sum_cost import SumCost
+
+        if isinstance(other, SumCost):
+            return other.__radd__(self)
+        return SumCost(self.system, [self, other])
+
+    def stage_fns(self):
+        """(obs_cost_fn, ctrl_cost_fn, term_cost_fn): the three stage
+        evaluations as plain functions."""
+        return self.eval_obs_cost, self.eval_ctrl_cost, self.eval_term_obs_cost

@@ -1,7 +1,5 @@
-"""CostFactory ABC (port of ``autompc_tpu/costs/cost_factory.py``).
-
-The cost-factory algebra (``+``, ``SumCostFactory``) is not ported
-yet."""
+"""CostFactory ABC (port of ``autompc_tpu/costs/cost_factory.py``);
+``a + b`` makes a ``SumCostFactory``."""
 
 from __future__ import annotations
 
@@ -24,3 +22,10 @@ class CostFactory(ABC):
         is the training set (used only by data-driven factories, may be
         None)."""
         raise NotImplementedError
+
+    def __add__(self, other):
+        from .sum_cost_factory import SumCostFactory
+
+        if isinstance(other, SumCostFactory):
+            return other.__radd__(self)
+        return SumCostFactory(self.system, [self, other])

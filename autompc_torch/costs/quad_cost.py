@@ -41,4 +41,7 @@ class QuadCost(Cost):
         self._goal = goal
 
         self._is_quad = True
+        self._is_convex = True
+        self._is_diff = True
+        self._is_twice_diff = True
         self._has_goal = True

@@ -55,6 +55,22 @@
 // The Jacobian carry is float or bfloat16 (jac_io.cuh): old rows are
 // read, and new rows written, in the carry's own storage type (the TPU
 // wrapper's jac_dtype), a second template switch.
+//
+// Batch-major entry (BM; ampc_fused_line_search_bm and _bm_lane, the TPU
+// entry with ll_io=False, its iLQR body's fused search on the batch-major
+// carry): x0 (B, ds), xs (B, H+1, ds), us (B, H, 1), Ks (B, H, 1, ds),
+// ks (B, H, 1) in; the chosen trajectory xs (B, H+1, ds), us (B, H, 1),
+// obj, success, failure, du2 and the Jacobians along it, Jx (B, H, ds, ds)
+// and Ju (B, H, ds, 1), out, for every lane: no carry select (the TPU
+// entry returns the new values and the body selects). Costs are per-lane
+// lanes-last planes, the Jacobians float. A thread reads and writes its
+// own lane's rows, so a warp's accesses are strided by a lane's row
+// length: the simple form, left for a later redesign. REG adds the
+// GaussReg term (ls_step.cuh: RegParams, S and mu shared as a kernel
+// parameter, the weight a per-lane vector regw (B,)) to every candidate's
+// stage cost. With both switches off the kernel is the lanes-last one as
+// it was; the trailing parameters (R, regw, out_ju) are read by the BM
+// and REG instances only.
 #include "ls_step.cuh"
 
 // TA: FeatTable (shared coefficients, staged in shared memory) or
@@ -62,7 +78,8 @@
 // read in place, lane b's column by its L candidate threads; the table in
 // device memory, trees of S slots). An instance with the large trees may
 // take twice the registers (one block of 256 threads an SM).
-template <int DS, bool LANE_COST, typename JT, class TA = FeatTable>
+template <int DS, bool LANE_COST, typename JT, class TA = FeatTable, bool BM = false,
+          bool REG = false>
 __global__ void __launch_bounds__(
     AMPC_LS_MAX_THREADS, AmpcTableTraits<TA>::slots == AMPC_TREE_SLOTS ? 2 : 1)
     fused_ls_kernel(const __grid_constant__ TA T,
@@ -77,7 +94,9 @@ __global__ void __launch_bounds__(
     float* stash, float* __restrict__ out_xs,
     float* __restrict__ out_us, float* __restrict__ out_obj,
     uint8_t* __restrict__ out_succ, uint8_t* __restrict__ out_fail,
-    JT* __restrict__ out_jac, float* __restrict__ out_du2, int H, int B) {
+    JT* __restrict__ out_jac, float* __restrict__ out_du2, int H, int B,
+    const __grid_constant__ RegParams R, const float* __restrict__ regw,
+    float* __restrict__ out_ju) {
   constexpr bool LANE = AmpcTableTraits<TA>::lane;
   constexpr int S = AmpcTableTraits<TA>::slots;
   constexpr int D = DS + 1;
@@ -100,12 +119,13 @@ __global__ void __launch_bounds__(
   float obj = 0.f, du2 = 0.f;
   if (valid) {
     if constexpr (LANE)
-      ls_candidate_cv<DS, LANE_COST, S>(ampc_table(T), CoefLane{coeffs + b, T.n, B},
-                                        P, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT,
-                                        stash, l, H, B, b, x0, obj, du2);
+      ls_candidate_cv<DS, LANE_COST, S, BM, REG>(
+          ampc_table(T), CoefLane{coeffs + b, T.n, B}, P, x0T, xsT, usT, KsT, ksT,
+          qdT, rdT, fdT, stash, l, H, B, b, x0, obj, du2, &R, regw);
     else
-      ls_candidate<DS, LANE_COST>(T, s_coef, P, x0T, xsT, usT, KsT, ksT, qdT, rdT,
-                                  fdT, stash, l, H, B, b, x0, obj, du2);
+      ls_candidate<DS, LANE_COST, BM, REG>(T, s_coef, P, x0T, xsT, usT, KsT, ksT, qdT,
+                                           rdT, fdT, stash, l, H, B, b, x0, obj, du2,
+                                           &R, regw);
   }
   s_obj[threadIdx.x] = obj;
   s_du2[threadIdx.x] = du2;
@@ -155,9 +175,13 @@ __global__ void __launch_bounds__(
     const float new_obj = success ? chosen_obj : last_obj;
     const int sel = success ? chosen : idx_last;
 
-    const bool act = act_in[b] != 0;
-    const bool traj_mask = act && !failed;
-    const bool jac_mask = traj_mask && success;
+    // The batch-major entry selects nothing: every lane's chosen rollout.
+    bool traj_mask = true, jac_mask = true;
+    if constexpr (!BM) {
+      const bool act = act_in[b] != 0;
+      traj_mask = act && !failed;
+      jac_mask = traj_mask && success;
+    }
     out_obj[b] = traj_mask ? new_obj : obj0;
     out_succ[b] = success ? 1 : 0;
     out_fail[b] = failed ? 1 : 0;
@@ -172,6 +196,40 @@ __global__ void __launch_bounds__(
   const bool traj_mask = (pick & 0x100) != 0;
   const bool jac_mask = (pick & 0x200) != 0;
   const float* sw = stash + (long long)(pick & 0xff) * B + b;
+  if constexpr (BM) {
+    if (l == 0) {
+#pragma unroll
+      for (int i = 0; i < DS; ++i) out_xs[(long long)b * (H + 1) * DS + i] = x0[i];
+    }
+    for (int t = l; t < H; t += L) {
+      const float* row = sw + (long long)t * D * LB;
+      float z[D];
+#pragma unroll
+      for (int i = 0; i < DS; ++i) z[i] = t == 0 ? x0[i] : row[(i - D) * LB];
+      z[DS] = row[DS * LB];
+      const long long bt = (long long)b * H + t;
+#pragma unroll
+      for (int i = 0; i < DS; ++i) out_xs[(bt + b + 1) * DS + i] = row[i * LB];
+      out_us[bt] = z[DS];
+#pragma unroll
+      for (int dd = 0; dd < D; ++dd) {
+        float col[DS];
+        if constexpr (LANE)
+          ampc_jac_col_cv<DS, D, S>(ampc_table(T), CoefLane{coeffs + b, T.n, B}, z,
+                                    dd, col);
+        else
+          ampc_jac_col<DS, D>(T, s_coef, z, dd, col);
+#pragma unroll
+        for (int i = 0; i < DS; ++i) {
+          if (dd < DS)
+            out_jac[(bt * DS + i) * DS + dd] = ampc_jac_store<JT>(col[i]);
+          else
+            out_ju[bt * DS + i] = col[i];
+        }
+      }
+    }
+    return;
+  }
   if (l == 0) {
 #pragma unroll
     for (int i = 0; i < DS; ++i) {
@@ -215,7 +273,7 @@ __global__ void __launch_bounds__(
   }
 }
 
-template <bool LANE_COST, typename JT, class TA>
+template <bool LANE_COST, typename JT, class TA, bool BM = false, bool REG = false>
 static void launch(const TA& T, const LSParams* P,
                    const float* coeffs, const float* x0T, const float* xsT,
                    const float* usT, const float* KsT, const float* ksT,
@@ -225,13 +283,16 @@ static void launch(const TA& T, const LSParams* P,
                    const void* old_jac, float* stash, float* out_xs,
                    float* out_us, float* out_obj, uint8_t* out_succ,
                    uint8_t* out_fail, void* out_jac, float* out_du2, int H,
-                   int B, int lanes_per_block, cudaStream_t s) {
+                   int B, int lanes_per_block, cudaStream_t s,
+                   const RegParams* R = nullptr, const float* regw = nullptr,
+                   float* out_ju = nullptr) {
   const int threads = lanes_per_block * P->L;
   const unsigned blocks = (unsigned)((B + lanes_per_block - 1) / lanes_per_block);
-  fused_ls_kernel<4, LANE_COST, JT, TA><<<blocks, threads, 0, s>>>(
+  const RegParams none = {};
+  fused_ls_kernel<4, LANE_COST, JT, TA, BM, REG><<<blocks, threads, 0, s>>>(
       T, *P, coeffs, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT, obj0, lin,
       quad, ks_small, act, (const JT*)old_jac, stash, out_xs, out_us, out_obj,
-      out_succ, out_fail, (JT*)out_jac, out_du2, H, B);
+      out_succ, out_fail, (JT*)out_jac, out_du2, H, B, R ? *R : none, regw, out_ju);
 }
 
 static int fused_check(int n, int max_n, const LSParams* P, int ds, int H,
@@ -312,6 +373,94 @@ extern "C" int ampc_fused_line_search_lane(
     AMPC_LAUNCH(AMPC_TREE_SLOTS_BIG);
 #undef AMPC_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// The batch-major entry (BM): x0 (B, ds), xs (B, H+1, ds), us (B, H),
+// Ks (B, H, ds), ks (B, H) in; out_xs (B, H+1, ds), out_us (B, H), obj,
+// success, failure, du2, out_jx (B, H, ds, ds) and out_ju (B, H, ds), no
+// carry select; per-lane cost planes qdT/fdT (obsdim, B), rdT (1, B). R
+// and regw (B,) both set: the GaussReg instance (REG), both null: none.
+extern "C" int ampc_fused_line_search_bm(
+    const FeatTable* T, const LSParams* P, const RegParams* R, const float* coeffs,
+    const float* x0, const float* xs, const float* us, const float* Ks,
+    const float* ks, const float* qdT, const float* rdT, const float* fdT,
+    const float* obj0, const float* lin, const float* quad,
+    const uint8_t* ks_small, const float* regw, float* stash, float* out_xs,
+    float* out_us, float* out_obj, uint8_t* out_succ, uint8_t* out_fail,
+    float* out_jx, float* out_ju, float* out_du2, int ds, int H, int B,
+    int lanes_per_block, int device, void* stream) {
+  const int rc = fused_check(T->n, AMPC_MAX_F, P, ds, H, B, lanes_per_block, device);
+  if (rc) return rc;
+  if (T->d != ds + 1 || !qdT || !rdT || !fdT || (R != nullptr) != (regw != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define AMPC_LAUNCH(REG_)                                                      \
+  launch<true, float, FeatTable, true, REG_>(                                   \
+      *T, P, coeffs, x0, xs, us, Ks, ks, qdT, rdT, fdT, obj0, lin, quad,         \
+      ks_small, nullptr, nullptr, stash, out_xs, out_us, out_obj, out_succ,      \
+      out_fail, out_jx, out_du2, H, B, lanes_per_block, s, R, regw, out_ju)
+  if (R)
+    AMPC_LAUNCH(true);
+  else
+    AMPC_LAUNCH(false);
+#undef AMPC_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// The batch-major entry with per-lane coefficients (a lanes-last (ds, n, B)
+// plane, the device table Tdev of n <= AMPC_MAX_F terms, trees of
+// AMPC_TREE_SLOTS slots).
+extern "C" int ampc_fused_line_search_bm_lane(
+    const FeatTableBig* Tdev, int n, const LSParams* P, const RegParams* R,
+    const float* coeffs, const float* x0, const float* xs, const float* us,
+    const float* Ks, const float* ks, const float* qdT, const float* rdT,
+    const float* fdT, const float* obj0, const float* lin, const float* quad,
+    const uint8_t* ks_small, const float* regw, float* stash, float* out_xs,
+    float* out_us, float* out_obj, uint8_t* out_succ, uint8_t* out_fail,
+    float* out_jx, float* out_ju, float* out_du2, int ds, int H, int B,
+    int lanes_per_block, int device, void* stream) {
+  const int rc = fused_check(n, AMPC_MAX_F, P, ds, H, B, lanes_per_block, device);
+  if (rc) return rc;
+  if (!qdT || !rdT || !fdT || (R != nullptr) != (regw != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define AMPC_LAUNCH(REG_)                                                      \
+  launch<true, float, FeatTableRef<AMPC_TREE_SLOTS>, true, REG_>(               \
+      FeatTableRef<AMPC_TREE_SLOTS>{Tdev, n}, P, coeffs, x0, xs, us, Ks, ks, qdT, \
+      rdT, fdT, obj0, lin, quad, ks_small, nullptr, nullptr, stash, out_xs,      \
+      out_us, out_obj, out_succ, out_fail, out_jx, out_du2, H, B,                \
+      lanes_per_block, s, R, regw, out_ju)
+  if (R)
+    AMPC_LAUNCH(true);
+  else
+    AMPC_LAUNCH(false);
+#undef AMPC_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// The batch-major instances' registers, local bytes and resident blocks
+// an SM at `threads` a block (out[0..2]): shared (lane_coef 0) or per-lane
+// (1) coefficients, without (reg 0) or with (1) the GaussReg term.
+extern "C" int ampc_fused_line_search_bm_occupancy(int lane_coef, int reg, int threads,
+                                                   int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  typedef FeatTableRef<AMPC_TREE_SLOTS> Ref;
+  const void* f =
+      lane_coef ? (reg ? (const void*)fused_ls_kernel<4, true, float, Ref, true, true>
+                       : (const void*)fused_ls_kernel<4, true, float, Ref, true, false>)
+                : (reg ? (const void*)fused_ls_kernel<4, true, float, FeatTable, true, true>
+                       : (const void*)fused_ls_kernel<4, true, float, FeatTable, true, false>);
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, f);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, threads, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = blocks;
+  return 0;
 }
 
 // The compiled instance's registers and local (spill) bytes a thread, and

@@ -16,6 +16,12 @@
 // search returns what the fused kernel returns wherever the two choose
 // the same step size.
 //
+// The fused kernel also rolls the batch-major carry (BM: x0 (B, ds), xs
+// (B, H+1, ds), us/ks (B, H), Ks (B, H, ds), the TPU entry's
+// ll_io=False) and adds the GaussReg stage term (REG, ls_reg_form); both
+// are template switches that leave the lanes-last, no-reg instances'
+// code as it was.
+//
 // Orders follow autompc_tpu/ops/pallas_linesearch.py (_fused_kernel,
 // _ls_obj_kernel_wide, _ls_reroll_kernel_wide): the feedback sum and the
 // quadratic forms are the balanced tree of features.cuh, the stage cost
@@ -44,6 +50,15 @@ struct LSParams {
   float goal[AMPC_MAX_OBS];
   float dt;
   float thresh;  // expected-reduction acceptance threshold
+};
+
+// The GaussReg term of a stage: w (x - mu)' S (x - mu) with S shared,
+// summed over the upper triangle of S (cS holds S_ij for i == j and
+// 2 S_ij off the diagonal, exact doublings, row-major with row stride
+// AMPC_MAX_OBS) and mu shared; the weight w is the lane's.
+struct RegParams {
+  float cS[AMPC_MAX_OBS * AMPC_MAX_OBS];
+  float mu[AMPC_MAX_OBS];
 };
 
 template <int DS>
@@ -81,6 +96,32 @@ __device__ __forceinline__ float ls_quad_form(const LSParams& P,
   return acc.total(P.obsdim);
 }
 
+// (x - mu)' S (x - mu) over the obs dims: the terms cS_ij (x_i - mu_i)
+// (x_j - mu_j) for i <= j in row order, each product rounded on its own,
+// into the balanced tree (the TPU kernel's reg_terms and _tree_sum).
+template <int DS>
+__device__ __forceinline__ float ls_reg_form(const LSParams& P,
+                                             const RegParams& R,
+                                             const float (&x)[DS]) {
+  TreeAcc acc;
+  int k = 0;
+#pragma unroll
+  for (int i = 0; i < DS; ++i) {
+    if (i < P.obsdim) {
+      const float di = x[i] - R.mu[i];
+#pragma unroll
+      for (int j = i; j < DS; ++j) {
+        if (j < P.obsdim) {
+          const float dj = x[j] - R.mu[j];
+          acc.push(__fmul_rn(__fmul_rn(R.cS[i * AMPC_MAX_OBS + j], di), dj), k);
+          ++k;
+        }
+      }
+    }
+  }
+  return acc.total(k);
+}
+
 // The lane's carry row at step t: xbar, K (DS each), ubar, k.
 template <int DS>
 __device__ __forceinline__ void ls_load_row(const float* xsT,
@@ -99,18 +140,43 @@ __device__ __forceinline__ void ls_load_row(const float* xsT,
   kk = ksT[(long long)t * B + b];
 }
 
+// The same row of the batch-major carry: xs (B, H+1, DS), Ks (B, H, DS),
+// us and ks (B, H).
+template <int DS>
+__device__ __forceinline__ void ls_load_row_bm(const float* xs,
+                                               const float* us,
+                                               const float* Ks,
+                                               const float* ks, int t, int H,
+                                               int b, float (&xbar)[DS],
+                                               float (&K)[DS], float& ubar,
+                                               float& kk) {
+  const long long bt = (long long)b * H + t;
+#pragma unroll
+  for (int i = 0; i < DS; ++i) {
+    xbar[i] = xs[((long long)b * (H + 1) + t) * DS + i];
+    K[i] = Ks[bt * DS + i];
+  }
+  ubar = us[bt];
+  kk = ks[bt];
+}
+
 // One step of a candidate rollout: u = clip(alpha k + ubar + K (x - xbar)),
 // obj += dt (q-form(x) + R u^2), x <- coeffs @ features([x, u]); returns u.
 // The coefficients come from cv (features.cuh: CoefShared, CoefLane), the
-// feature sum over a tree of S slots.
-template <int DS, int S, class TT, class CV>
+// feature sum over a tree of S slots. REG adds rw times the GaussReg form
+// to the state cost, oc + rw r as the TPU kernel adds it, rounded on its
+// own: with rw = 0 the state cost, and so the objective, is the no-reg
+// instance's to the bit.
+template <int DS, int S, bool REG = false, class TT, class CV>
 __device__ __forceinline__ float ls_obj_step_cv(
     const TT& T, CV cv, const LSParams& P, float (&x)[DS],
     const float (&xbar)[DS], const float (&K)[DS], float ubar, float kk,
-    float alpha, const float* wq, float rd, float& obj) {
+    float alpha, const float* wq, float rd, float& obj,
+    const RegParams* R = nullptr, float rw = 0.f) {
   constexpr int D = DS + 1;
   const float u = ls_control<DS>(P, x, xbar, K, ubar, kk, alpha);
-  const float oc = ls_quad_form<DS>(P, x, wq);
+  float oc = ls_quad_form<DS>(P, x, wq);
+  if constexpr (REG) oc = __fadd_rn(oc, __fmul_rn(rw, ls_reg_form<DS>(P, *R, x)));
   const float cc = rd * u * u;
   obj = obj + P.dt * (oc + cc);
   float z[D];
@@ -127,8 +193,11 @@ __device__ __forceinline__ float ls_obj_step_cv(
 // u_t in row (t, DS, l) of the stash (H, DS+1, L, B); obj then takes the
 // terminal cost. The cost diagonals are the lane's own planes (qdT, rdT,
 // fdT (obsdim, B), LANE_COST) or P's constants; the coefficients come
-// from cv, the feature sums over trees of S slots.
-template <int DS, bool LANE_COST, int S, class TT, class CV>
+// from cv, the feature sums over trees of S slots. BM: the carry is
+// batch-major (x0T (B, DS), ls_load_row_bm); REG: the GaussReg term with
+// R and the lane's weight regw[b].
+template <int DS, bool LANE_COST, int S, bool BM = false, bool REG = false, class TT,
+          class CV>
 __device__ __forceinline__ void ls_candidate_cv(
     const TT& T, CV cv, const LSParams& P,
     const float* __restrict__ x0T, const float* __restrict__ xsT,
@@ -136,12 +205,15 @@ __device__ __forceinline__ void ls_candidate_cv(
     const float* __restrict__ ksT, const float* __restrict__ qdT,
     const float* __restrict__ rdT, const float* __restrict__ fdT,
     float* stash, int l, int H, int B, int b, float (&x0)[DS], float& obj,
-    float& du2) {
+    float& du2, const RegParams* R = nullptr, const float* __restrict__ regw = nullptr) {
   constexpr int D = DS + 1;
   const long long LB = (long long)P.L * B;
   float x[DS];
 #pragma unroll
-  for (int i = 0; i < DS; ++i) x[i] = x0[i] = x0T[(long long)i * B + b];
+  for (int i = 0; i < DS; ++i)
+    x[i] = x0[i] = BM ? x0T[(long long)b * DS + i] : x0T[(long long)i * B + b];
+  float rw = 0.f;
+  if constexpr (REG) rw = regw[b];
   // The stage-cost diagonal: the lane's own, held in registers through
   // the rollout, or the shared constants.
   float q_lane[DS];
@@ -157,9 +229,12 @@ __device__ __forceinline__ void ls_candidate_cv(
   float* st = stash + (long long)l * B + b;
   for (int t = 0; t < H; ++t) {
     float xbar[DS], K[DS], ubar, kk;
-    ls_load_row<DS>(xsT, usT, KsT, ksT, t, B, b, xbar, K, ubar, kk);
-    const float u = ls_obj_step_cv<DS, S>(T, cv, P, x, xbar, K, ubar, kk, alpha,
-                                          wq, rd, obj);
+    if constexpr (BM)
+      ls_load_row_bm<DS>(xsT, usT, KsT, ksT, t, H, b, xbar, K, ubar, kk);
+    else
+      ls_load_row<DS>(xsT, usT, KsT, ksT, t, B, b, xbar, K, ubar, kk);
+    const float u = ls_obj_step_cv<DS, S, REG>(T, cv, P, x, xbar, K, ubar, kk, alpha,
+                                               wq, rd, obj, R, rw);
     const float du = u - ubar;
     du2 = du2 + du * du;
     float* row = st + (long long)t * D * LB;
@@ -179,7 +254,7 @@ __device__ __forceinline__ void ls_candidate_cv(
 }
 
 // ls_candidate_cv with one shared (DS, n) coefficient plane (s_coef).
-template <int DS, bool LANE_COST>
+template <int DS, bool LANE_COST, bool BM = false, bool REG = false>
 __device__ __forceinline__ void ls_candidate(
     const FeatTable& T, const float* s_coef, const LSParams& P,
     const float* __restrict__ x0T, const float* __restrict__ xsT,
@@ -187,8 +262,8 @@ __device__ __forceinline__ void ls_candidate(
     const float* __restrict__ ksT, const float* __restrict__ qdT,
     const float* __restrict__ rdT, const float* __restrict__ fdT,
     float* stash, int l, int H, int B, int b, float (&x0)[DS], float& obj,
-    float& du2) {
-  ls_candidate_cv<DS, LANE_COST, AMPC_TREE_SLOTS>(
+    float& du2, const RegParams* R = nullptr, const float* __restrict__ regw = nullptr) {
+  ls_candidate_cv<DS, LANE_COST, AMPC_TREE_SLOTS, BM, REG>(
       T, CoefShared{s_coef, T.n}, P, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT,
-      stash, l, H, B, b, x0, obj, du2);
+      stash, l, H, B, b, x0, obj, du2, R, regw);
 }

@@ -151,6 +151,16 @@ class LSParams(ctypes.Structure):
     ]
 
 
+class RegParams(ctypes.Structure):
+    """The GaussReg constants (ls_step.cuh: RegParams): c S_ij (c = 1 on
+    the diagonal, 2 off it; row stride MAX_OBS) and mu."""
+
+    _fields_ = [
+        ("cS", ctypes.c_float * (MAX_OBS * MAX_OBS)),
+        ("mu", ctypes.c_float * MAX_OBS),
+    ]
+
+
 class SindyLS(ctypes.Structure):
     _fields_ = [
         ("L", ctypes.c_int),
@@ -199,6 +209,15 @@ _SIGNATURES = {
         [_P, _I, ctypes.POINTER(LSParams)] + [_P] * 23 + [_I] * 5 + [_P]
     ),
     "ampc_fused_line_search_occupancy": [_I] * 5 + [_P],
+    "ampc_fused_line_search_bm": (
+        [ctypes.POINTER(FeatTable), ctypes.POINTER(LSParams), ctypes.POINTER(RegParams)]
+        + [_P] * 23 + [_I] * 5 + [_P]
+    ),
+    "ampc_fused_line_search_bm_lane": (
+        [_P, _I, ctypes.POINTER(LSParams), ctypes.POINTER(RegParams)]
+        + [_P] * 23 + [_I] * 5 + [_P]
+    ),
+    "ampc_fused_line_search_bm_occupancy": [_I] * 4 + [_P],
     "ampc_ls_obj_wide": (
         [ctypes.POINTER(FeatTable), ctypes.POINTER(LSParams)]
         + [_P] * 12 + [_I] * 5 + [_P]

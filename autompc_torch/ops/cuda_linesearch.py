@@ -45,11 +45,22 @@ place of the shared plane staged in shared memory, walk up to
 device-resident table, and given B copies of one matrix return the
 shared instances' bits. K3's per-lane instances take per-lane cost
 planes and a float32 Jacobian carry (the joint fan-out's form); the
-split search (K8, K9) refuses per-lane coefficients, and the GaussReg
-term (``reg=``) is not ported (ROADMAP.md §B1).
+split search (K8, K9) refuses per-lane coefficients.
+
+``fused_line_search_bm`` (K3's batch-major entry, ``pallas_fused_line_search``
+with ``ll_io=False``, ``per_lane_diag_cost=True``, ``grad_terms`` and
+optionally ``reg=(S, mu, w)``): the same kernel body with its ``BM``
+switch, on the batch-major carry of the solver's batch-major body, and
+without the carry select (the TPU entry returns every lane's chosen
+rollout; the body selects). Its ``REG`` switch adds the GaussReg stage
+term ``w_b (x - mu)' S (x - mu)`` to every candidate's objective, summed
+over the upper triangle of S with the off-diagonal entries doubled, as
+the TPU kernel sums it. Shared or per-lane coefficients (up to
+``_build.MAX_F`` terms), per-lane cost planes, float32 Jacobians.
 
 A CPU tensor takes the plain PyTorch version (``fused_line_search_plain``,
-``sindy_line_search_plain``, ``wide_objectives_plain``,
+``fused_line_search_bm_plain``, ``sindy_line_search_plain``,
+``wide_objectives_plain``,
 ``wide_reroll_plain``, ``fused_line_search_wide_plain``); a CUDA tensor
 launches the kernel or raises.
 """
@@ -58,6 +69,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..sysid.basis import feature_dynamics, feature_jacobian_rows, tree_sum
@@ -123,15 +135,45 @@ def _quad_form(w, x, goal):
     return tree_sum([w[i] * (x[i] - goal[i]) * (x[i] - goal[i]) for i in range(len(w))])
 
 
+def _host(a):
+    """A host float64 array of a tensor or an array-like."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, dtype=np.float64)
+
+
+def _reg_entries(S):
+    """The GaussReg form's terms in the kernels' order: (i, j, c S_ij) for
+    i <= j in row order, c = 1 on the diagonal and 2 off it."""
+    S = _host(S)
+    n = S.shape[0]
+    return [(i, j, (1.0 if i == j else 2.0) * float(S[i, j]))
+            for i in range(n) for j in range(i, n)]
+
+
+def _reg_form(entries, x, mu):
+    """(x - mu)' S (x - mu) over the entries of ``_reg_entries``, each
+    term (c S_ij (x_i - mu_i)) (x_j - mu_j), in the balanced tree."""
+    d = [x[i] - mu[i] for i in range(len(mu))]
+    return tree_sum([c * d[i] * d[j] for i, j, c in entries])
+
+
 def _sweep(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax, qd, rd, fd,
-           goal, dt, lane, keep):
+           goal, dt, lane, keep, reg=None):
     """Every candidate step size rolled from x0T: the objectives (L, B)
     and, with ``keep``, the stash (H, ds+1, L, B) (row (t, i < ds, l)
-    x_{t+1}, row (t, ds, l) u_t) and du2 (L, B), else two Nones."""
+    x_{t+1}, row (t, ds, l) u_t) and du2 (L, B), else two Nones. ``reg``
+    ``(S, mu, w (B,))`` adds ``w (x - mu)' S (x - mu)`` to every stage's
+    state cost."""
     H, ds = usT.shape[0], xsT.shape[1]
     if lane is None:
         lane = _build.lane_cost_planes(qd, rd, fd, len(goal), xsT.shape[2])
     a_col, qdv, rdv, fdv, gl, dtv = _consts(xsT, alphas, qd, rd, fd, goal, dt, lane)
+    if reg is not None:
+        S, mu, w = reg
+        entries = [(i, j, xsT.new_tensor(c)) for i, j, c in _reg_entries(S)]
+        mu = [xsT.new_tensor(v) for v in _host(mu)]
+        w = w.to(xsT.dtype)[None, :]
     L, B = len(alphas), xsT.shape[2]
     x = [x0T[i][None, :].expand(L, -1) for i in range(ds)]
     obj = xsT.new_zeros((L, B))
@@ -142,6 +184,8 @@ def _sweep(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax, qd, rd, f
         K = [KsT[t, i][None, :] for i in range(ds)]
         u = _controls(x, xbar, K, usT[t][None, :], ksT[t][None, :], a_col, umin, umax)
         oc = _quad_form(qdv, x, gl)
+        if reg is not None:
+            oc = oc + w * _reg_form(entries, x, mu)
         cc = rdv * u * u
         obj = obj + dtv * (oc + cc)
         x = feature_dynamics(terms, coeffs, x + [u], ds)
@@ -179,12 +223,27 @@ def fused_line_search_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
     cast goes through float32, in PyTorch as in JAX)."""
     _, _, B, _, lane = _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, qd, rd, fd,
                                goal, act, old_jac)
-    L = len(alphas)
     objs = line_search_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs,
                                   alphas, umin, umax, qd, rd, fd, goal, dt, lane)
-    a_col = torch.tensor([float(a) for a in alphas], dtype=xsT.dtype, device=xsT.device)
+    success, failed, a_sel, new_obj = _accept(objs, alphas, obj0, lin_red, quad_red,
+                                              ks_small, ls_cost_threshold)
+    traj_mask = act & ~failed
+    jac_mask = traj_mask & success
 
-    # ---- acceptance (pallas_linesearch.py:_fused_kernel) -------------
+    # ---- pass 2: re-roll the chosen step size ------------------------
+    out_xs, out_us, out_jac, du2 = reroll_plain(
+        terms, x0T, xsT, usT, KsT, ksT, coeffs, a_sel, umin, umax, traj_mask, jac_mask,
+        old_jac)
+    new_obj = torch.where(traj_mask, new_obj, obj0)
+    return out_xs, out_us, new_obj, success, failed, out_jac, du2
+
+
+def _accept(objs, alphas, obj0, lin_red, quad_red, ks_small, ls_cost_threshold):
+    """The JAX kernel's acceptance rule line for line on the objectives
+    (L, B): (success, failed, the chosen step size (B,), the chosen
+    objective (B,))."""
+    L, B = objs.shape
+    a_col = torch.tensor([float(a) for a in alphas], dtype=objs.dtype, device=objs.device)
     accept = []
     for l in range(L):
         expect = a_col[l] * lin_red + (a_col[l] ** 2) * quad_red * 0.5
@@ -195,10 +254,10 @@ def fused_line_search_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
         )
         accept.append(ratio > ls_cost_threshold)
     any_acc = torch.stack(accept).any(0)
-    first_acc = torch.full((B,), L, dtype=torch.long, device=xsT.device)
+    first_acc = torch.full((B,), L, dtype=torch.long, device=objs.device)
     for l in range(L - 1, -1, -1):
         first_acc = torch.where(accept[l], l, first_acc)
-    best_idx = torch.zeros((B,), dtype=torch.long, device=xsT.device)
+    best_idx = torch.zeros((B,), dtype=torch.long, device=objs.device)
     best_val = objs[0]
     for l in range(1, L):
         better = objs[l] < best_val
@@ -211,17 +270,7 @@ def fused_line_search_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
     success = (chosen_obj < obj0) | ks_small
     failed = ~success & (last_obj > obj0 + 1e-3)
     sel = torch.where(success, chosen, idx_last)
-    new_obj = torch.where(success, chosen_obj, last_obj)
-    a_sel = a_col[sel]
-    traj_mask = act & ~failed
-    jac_mask = traj_mask & success
-
-    # ---- pass 2: re-roll the chosen step size ------------------------
-    out_xs, out_us, out_jac, du2 = reroll_plain(
-        terms, x0T, xsT, usT, KsT, ksT, coeffs, a_sel, umin, umax, traj_mask, jac_mask,
-        old_jac)
-    new_obj = torch.where(traj_mask, new_obj, obj0)
-    return out_xs, out_us, new_obj, success, failed, out_jac, du2
+    return success, failed, a_col[sel], torch.where(success, chosen_obj, last_obj)
 
 
 def reroll_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alpha_sel, umin, umax,
@@ -342,6 +391,167 @@ fused_line_search.launches = 0
 fused_line_search.launches_bf16 = 0
 fused_line_search.launches_lane = 0
 fused_line_search.launches_lane_by_B = {}
+
+def _bm_planes(x0, xs, us, Ks, ks):
+    """The batch-major carry as the lanes-last one: x0T (ds, B), xsT
+    (H+1, ds, B), usT, ksT (H, B), KsT (H, ds, B)."""
+    return (x0.T, xs.permute(1, 2, 0), us[:, :, 0].T, Ks[:, :, 0].permute(1, 2, 0),
+            ks[:, :, 0].T)
+
+
+def _shapes_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, qd, rd, fd, goal, reg):
+    B, Hp1, ds = xs.shape
+    H = Hp1 - 1
+    want = {"x0": (x0, (B, ds)), "us": (us, (B, H, 1)), "Ks": (Ks, (B, H, 1, ds)),
+            "ks": (ks, (B, H, 1))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    _check_coeffs(terms, coeffs, ds, B)
+    if len(terms[0].exps) != ds + 1:
+        raise ValueError(f"terms take {len(terms[0].exps)} inputs, expected ds + 1 = {ds + 1}")
+    obsdim = len(goal)
+    if not 1 <= obsdim <= min(ds, _build.MAX_OBS):
+        raise ValueError(f"goal must have length obsdim <= ds = {ds}")
+    if not _build.lane_cost_planes(qd, rd, fd, obsdim, B):
+        raise ValueError("the batch-major entry takes per-lane cost planes qd/fd "
+                         "(obsdim, B), rd (1, B)")
+    if not 1 <= len(alphas) <= _build.MAX_L:
+        raise ValueError(f"1..{_build.MAX_L} step sizes supported, got {len(alphas)}")
+    if reg is not None:
+        S, mu, w = reg
+        if _host(S).shape != (obsdim, obsdim) or _host(mu).shape != (obsdim,) \
+                or tuple(w.shape) != (B,):
+            raise ValueError(f"reg: S (obsdim, obsdim), mu (obsdim,) and w (B,) with "
+                             f"obsdim = {obsdim}, B = {B}")
+    return B, H, ds
+
+
+def fused_line_search_bm_plain(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax,
+                               qd, rd, fd, goal, dt, obj0, lin_red, quad_red, ks_small,
+                               reg=None, ls_cost_threshold=0.3):
+    """Plain PyTorch twin of K3's batch-major entry: the lanes-last twin's
+    sweep (with the GaussReg term), acceptance and re-roll on the
+    transposed carry, every lane's chosen rollout returned."""
+    B, H, ds = _shapes_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, qd, rd, fd, goal,
+                          reg)
+    x0T, xsT, usT, KsT, ksT = _bm_planes(x0, xs, us, Ks, ks)
+    objs = _sweep(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax, qd, rd,
+                  fd, goal, dt, True, keep=False, reg=reg)[0]
+    success, failed, a_sel, new_obj = _accept(objs, alphas, obj0, lin_red, quad_red,
+                                              ks_small, ls_cost_threshold)
+    every = torch.ones_like(success)
+    out_xs, out_us, jac, du2 = reroll_plain(
+        terms, x0T, xsT, usT, KsT, ksT, coeffs, a_sel, umin, umax, every, every,
+        xsT.new_zeros((H, ds * (ds + 1), B)))
+    jac = jac.reshape(H, ds, ds + 1, B).permute(3, 0, 1, 2)
+    return (out_xs.permute(2, 0, 1).contiguous(), out_us.T[:, :, None].contiguous(),
+            new_obj, success, failed, jac[..., :ds].contiguous(),
+            jac[..., ds:].contiguous(), du2)
+
+
+def _reg_params(S, mu):
+    """The GaussReg constants of the kernel (ls_step.cuh: RegParams)."""
+    R = _build.RegParams()
+    m = _build.MAX_OBS
+    for i, j, c in _reg_entries(S):
+        R.cS[i * m + j] = c
+    for i, v in enumerate(_host(mu)):
+        R.mu[i] = float(v)
+    return R
+
+
+def fused_line_search_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax,
+                         qd, rd, fd, goal, dt, obj0, lin_red, quad_red, ks_small,
+                         reg=None, ls_cost_threshold=0.3):
+    """K3's batch-major entry: every step size rolled, scored and the
+    reference acceptance rule applied, the chosen rollout written and
+    relinearized, for every lane (no carry select).
+
+    terms: tuple of active ``TermDesc``; x0 (B, ds); xs (B, H+1, ds);
+    us (B, H, 1); Ks (B, H, 1, ds); ks (B, H, 1); coeffs (ds, len(terms))
+    or per lane a lanes-last (ds, len(terms), B) plane; alphas, goal
+    (obsdim,): host sequences; qd/fd (obsdim, B), rd (1, B): per-lane
+    lanes-last cost planes; umin/umax, dt: floats; obj0/lin_red/quad_red
+    (B,); ks_small (B,) bool; ``reg``: None or ``(S (obsdim, obsdim),
+    mu (obsdim,), w (B,))``, the GaussReg term ``w (x - mu)' S (x - mu)``
+    (S and mu host arrays or tensors, w a tensor).
+
+    Returns (xs (B, H+1, ds), us (B, H, 1), obj (B,), success (B,),
+    failed (B,), Jx (B, H, ds, ds), Ju (B, H, ds, 1), du2 (B,)). The
+    kernel's limits hold on every device."""
+    B, H, ds = _shapes_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, qd, rd, fd, goal,
+                          reg)
+    lane_coef = coeffs.ndim == 3
+    if lane_coef and not 1 <= len(terms) <= _build.MAX_F:
+        raise ValueError(f"the batch-major fused line search takes 1..{_build.MAX_F} terms "
+                         f"with per-lane coefficients, got {len(terms)}")
+    if _build.device_kind(xs) == "cpu":
+        return fused_line_search_bm_plain(
+            terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax, qd, rd, fd, goal, dt,
+            obj0, lin_red, quad_red, ks_small, reg, ls_cost_threshold)
+    built = _build.KERNEL_SHAPES["linesearch_fused"]
+    if (ds, 1) not in built:
+        raise ValueError(
+            f"line-search kernel is built for (ds, dc) in {built}, got {(ds, 1)}")
+    _build.check_table_size(len(terms), lane_coef)
+    dev, f32, b8 = xs.device, torch.float32, torch.bool
+    L = len(alphas)
+    for name, t, shape, dt_ in (
+        ("x0", x0, (B, ds), f32), ("xs", xs, (B, H + 1, ds), f32),
+        ("us", us, (B, H, 1), f32), ("Ks", Ks, (B, H, 1, ds), f32),
+        ("ks", ks, (B, H, 1), f32), ("coeffs", coeffs, coeffs.shape, f32),
+        ("obj0", obj0, (B,), f32), ("lin_red", lin_red, (B,), f32),
+        ("quad_red", quad_red, (B,), f32), ("ks_small", ks_small, (B,), b8),
+    ):
+        _build.check_cuda(name, t, shape, dt_, dev)
+    P = _ls_params(alphas, umin, umax, qd, rd, fd, goal, dt, ls_cost_threshold, True)
+    planes = _build.cost_plane_ptrs(True, qd, rd, fd, f32, dev)
+    if reg is not None:
+        _build.check_cuda("reg w", reg[2], (B,), f32, dev)
+        R, regw = ctypes.byref(_reg_params(reg[0], reg[1])), _build.ptr(reg[2])
+    else:
+        R = regw = None
+    stash = torch.empty((H, ds + 1, L, B), dtype=f32, device=dev)
+    out_xs = torch.empty((B, H + 1, ds), dtype=f32, device=dev)
+    out_us = torch.empty((B, H, 1), dtype=f32, device=dev)
+    out_obj = torch.empty((B,), dtype=f32, device=dev)
+    succ = torch.empty((B,), dtype=b8, device=dev)
+    fail = torch.empty((B,), dtype=b8, device=dev)
+    Jx = torch.empty((B, H, ds, ds), dtype=f32, device=dev)
+    Ju = torch.empty((B, H, ds, 1), dtype=f32, device=dev)
+    du2 = torch.empty((B,), dtype=f32, device=dev)
+    geom = fused_geometry(B, L, _build.sm_count(dev))
+    p = _build.ptr
+    args = (R, p(coeffs), p(x0), p(xs), p(us), p(Ks), p(ks), *planes, p(obj0), p(lin_red),
+            p(quad_red), p(ks_small), regw, p(stash), p(out_xs), p(out_us), p(out_obj),
+            p(succ), p(fail), p(Jx), p(Ju), p(du2), ds, H, B, geom["lanes_per_block"],
+            dev.index or 0, _build.stream_of(xs))
+    lib = _build.library()
+    if lane_coef:
+        table = _build.feat_table_dev(tuple(terms), dev)
+        rc = lib.ampc_fused_line_search_bm_lane(p(table), len(terms), ctypes.byref(P), *args)
+    else:
+        rc = lib.ampc_fused_line_search_bm(ctypes.byref(_build.feat_table(tuple(terms))),
+                                           ctypes.byref(P), *args)
+    _build.check_rc("fused_line_search_bm", rc)
+    w = fused_line_search_bm
+    w.launches += 1
+    w.launches_by_B[B] = w.launches_by_B.get(B, 0) + 1
+    if reg is not None:
+        w.launches_reg += 1
+    if lane_coef:
+        w.launches_lane += 1
+        w.launches_lane_by_B[B] = w.launches_lane_by_B.get(B, 0) + 1
+    return out_xs, out_us, out_obj, succ, fail, Jx, Ju, du2
+
+
+fused_line_search_bm.launches = 0
+fused_line_search_bm.launches_by_B = {}
+fused_line_search_bm.launches_reg = 0
+fused_line_search_bm.launches_lane = 0
+fused_line_search_bm.launches_lane_by_B = {}
+
 
 # Lanes a K3 block may hold, each with its L step sizes in L threads:
 # the groups that the paths' L = 10 selects (16 at B >= 4096, 8 at the

@@ -14,9 +14,15 @@ alpha a lane, on data staged once), and ``JointMLPQuadCostFanout`` a
 fresh MLP, every lane its own masked max-width net, before its closed
 loop.
 
+Each of the three takes the JAX package's ``reg_matrix``/``reg_goal``:
+the GaussRegFactory term of a SumCost candidate batch, ``regw_b (x -
+mu)' S (x - mu)`` on every stage with S and mu shared and a lane's
+weight ``regw`` (B,) in every batch (``_validate_regw``), solved by the
+batch-major body (``make_batched_ilqr_solver``'s ``reg_matrix``).
+
 The joint ARX, Koopman and GP fan-outs, the direct-transcription
-and MPPI fan-outs, ``impl="vmap"``, the GaussReg term and the device
-mesh of the JAX package are not ported yet (ROADMAP.md §A).
+and MPPI fan-outs, ``impl="vmap"`` and the device mesh of the JAX
+package are not ported yet (ROADMAP.md §A).
 """
 
 from __future__ import annotations
@@ -44,6 +50,43 @@ from .mesh import pad_to_multiple
 # occupancy reuses a few batch sizes (the JAX package's pad quantum on
 # one device).
 PAD_QUANTUM = 8
+# A candidate's cost in a staged batch: the diagonals, and the GaussReg
+# weight where the batch has one.
+_COST_KEYS = ("Qdiag", "Rdiag", "Fdiag", "regw")
+
+
+def _lane_costs(full):
+    """The solver's ``cost_params`` of a staged batch."""
+    return {k: full[k] for k in _COST_KEYS if k in full}
+
+
+def _validate_regw(batch, has_reg, cls_name):
+    """A fan-out built with ``reg_matrix`` needs a ``regw`` (B,) lane
+    array in every batch: raise by name where it is missing or of
+    another shape (the JAX package's check)."""
+    if not has_reg:
+        return
+    if "regw" not in batch:
+        raise ValueError(
+            f"{cls_name} was constructed with reg_matrix (GaussReg term); each eval batch "
+            "must carry a 'regw' array of per-lane regularization weights, shape (B,)"
+        )
+    shape = tuple(np.shape(batch["regw"]))
+    ref = next((v for k, v in batch.items() if k != "regw" and hasattr(v, "shape")), None)
+    if len(shape) != 1:
+        raise ValueError(f"{cls_name}: 'regw' must be a 1-D per-lane array of shape (B,); "
+                         f"got {shape}")
+    if ref is not None and shape[0] != ref.shape[0]:
+        raise ValueError(f"{cls_name}: 'regw' must have shape (B,) = ({ref.shape[0]},); "
+                         f"got {shape}")
+
+
+def _reg_kw(reg_matrix, reg_goal):
+    """The solver's keywords of the GaussReg term ({} without one)."""
+    if reg_matrix is None:
+        return {}
+    return dict(reg_matrix=np.asarray(reg_matrix, dtype=float),
+                reg_goal=None if reg_goal is None else np.asarray(reg_goal, dtype=float))
 
 
 def _closed_loop_cost(task_cost, obs_seq, ctrl_seq, last_obs):
@@ -64,9 +107,10 @@ class QuadCostFanout:
 
     ``__call__(params_batch)`` takes a dict of arrays (numpy or tensors)
     with a leading batch axis, ``Qdiag (B, n)``, ``Fdiag (B, n)``,
-    ``Rdiag (B, m)``, and returns the per-candidate task cost of the
-    closed-loop surrogate trajectory as a (B,) tensor; a candidate whose
-    rollout is not finite scores ``inf``.
+    ``Rdiag (B, m)`` (and ``regw (B,)`` with ``reg_matrix``), and returns
+    the per-candidate task cost of the closed-loop surrogate trajectory
+    as a (B,) tensor; a candidate whose rollout is not finite scores
+    ``inf``.
 
     Per closed-loop step the whole batch goes through one per-lane-cost
     iLQR solve (``make_batched_ilqr_solver(quad_cost_batch=True)``, under
@@ -97,12 +141,15 @@ class QuadCostFanout:
         feature_spec=None,
         warm_start: bool = False,
         reg_matrix=None,
+        reg_goal=None,
         fuse_ls: bool = False,
         lanes_last: bool = False,
         device=None,
     ):
         if impl not in ("batched", "vmap"):
             raise ValueError(f"impl must be 'batched' or 'vmap', got {impl!r}")
+        if reg_matrix is not None and impl != "batched":
+            raise ValueError("reg_matrix requires impl='batched'")
         if impl == "vmap":
             raise ValueError(
                 "impl='vmap' (the per-candidate single-lane solver) is not "
@@ -113,13 +160,9 @@ class QuadCostFanout:
                 "mesh (candidates sharded over several cards) is not ported "
                 "to autompc_torch yet; pass mesh=None"
             )
-        if reg_matrix is not None:
-            raise ValueError(
-                "reg_matrix (the GaussReg term) is not ported to "
-                "autompc_torch yet"
-            )
         self.system = system
         self.task = task
+        self._has_reg = reg_matrix is not None
         self.device = resolve_device(device)
         dtype = default_dtype(self.device)
         on = dict(dtype=dtype, device=self.device)
@@ -147,7 +190,7 @@ class QuadCostFanout:
             pred_diff=getattr(model, "pred_diff_core", None),
             quad_cost_batch=True, quad_goal=np.asarray(goal, dtype=float),
             fuse_ls=bool(fuse_ls and feature_spec is not None),
-            lanes_last=bool(lanes_last),
+            lanes_last=bool(lanes_last), **_reg_kw(reg_matrix, reg_goal),
         )
         if feature_spec is not None:
             # The model is fixed, so static feature masking is sound:
@@ -206,6 +249,7 @@ class QuadCostFanout:
         self._eval = eval_padded
 
     def __call__(self, params_batch):
+        _validate_regw(params_batch, self._has_reg, type(self).__name__)
         return self._eval(params_batch)
 
 
@@ -222,8 +266,9 @@ class JointSINDyQuadCostFanout:
     quad_cost_batch=True)``).
 
     ``__call__(batch)`` takes ``{"reg": (B,), "Qdiag": (B, n), "Rdiag":
-    (B, m), "Fdiag": (B, n)}`` and returns the task costs (B,); a
-    candidate whose rollout is not finite scores ``inf``. Lanes are padded
+    (B, m), "Fdiag": (B, n)}`` (and ``"regw": (B,)`` with ``reg_matrix``)
+    and returns the task costs (B,); a candidate whose rollout is not
+    finite scores ``inf``. Lanes are padded
     with copies of the last candidate to a multiple of 8.
 
     ``use_feature_kernels`` (discrete time only: the kernels compute x' =
@@ -233,8 +278,8 @@ class JointSINDyQuadCostFanout:
     ``fuse_ls``: K1 and K3); a continuous-time bucket, or none, takes the
     autodiff relinearization and the plain rollouts. The whole library
     rides the kernels, since every lane has its own sparsity.
-    ``mesh`` and ``reg_matrix`` raise. Runs on the card unless
-    ``device`` names another device.
+    ``mesh`` raises. Runs on the card unless ``device`` names another
+    device.
     """
 
     def __init__(
@@ -254,6 +299,7 @@ class JointSINDyQuadCostFanout:
         use_feature_kernels: bool = False,
         fuse_ls: bool = False,
         reg_matrix=None,
+        reg_goal=None,
         lanes_last: bool = False,
         device=None,
     ):
@@ -262,11 +308,7 @@ class JointSINDyQuadCostFanout:
                 "mesh (candidates sharded over several cards) is not ported "
                 "to autompc_torch yet; pass mesh=None"
             )
-        if reg_matrix is not None:
-            raise ValueError(
-                "reg_matrix (the GaussReg term) is not ported to "
-                "autompc_torch yet"
-            )
+        self._has_reg = reg_matrix is not None
         self.system, self.surrogate = system, surrogate
         self.device = resolve_device(device)
         on = dict(dtype=default_dtype(self.device), device=self.device)
@@ -321,7 +363,7 @@ class JointSINDyQuadCostFanout:
             feature_spec=feature_spec, batch_params=True, quad_cost_batch=True,
             quad_goal=np.asarray(goal, dtype=float),
             fuse_ls=bool(fuse_ls and feature_spec is not None),
-            lanes_last=bool(lanes_last),
+            lanes_last=bool(lanes_last), **_reg_kw(reg_matrix, reg_goal),
         )
         if compact_schedule is not None:
             if isinstance(compact_schedule, str):
@@ -364,7 +406,7 @@ class JointSINDyQuadCostFanout:
         (padded, number of candidates)."""
         staged = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
                                      **self._on)
-                  for k, v in batch.items() if k in ("reg", "Qdiag", "Rdiag", "Fdiag")}
+                  for k, v in batch.items() if k in ("reg", *_COST_KEYS)}
         return pad_to_multiple(staged, PAD_QUANTUM)
 
     def train_lanes(self, reg):
@@ -380,14 +422,15 @@ class JointSINDyQuadCostFanout:
     def closed_loop(self, coeffs, cost_params):
         """The task costs (B,) of the lanes' closed loops on the surrogate,
         lane b solving with model ``coeffs[b]`` (n, F) under its cost
-        diagonals ``cost_params`` (Qdiag, Rdiag, Fdiag)."""
+        diagonals ``cost_params`` (Qdiag, Rdiag, Fdiag; regw with the
+        GaussReg term)."""
         return self._closed_loop(coeffs, cost_params)
 
     def __call__(self, batch):
+        _validate_regw(batch, self._has_reg, type(self).__name__)
         full, B = self._stage(batch)
         coeffs = self.train_lanes(full["reg"])
-        cost = {k: full[k] for k in ("Qdiag", "Rdiag", "Fdiag")}
-        return self.closed_loop(coeffs, cost)[:B]
+        return self.closed_loop(coeffs, _lane_costs(full))[:B]
 
 
 def scale_by_adam(grad, mu, nu, count, b1=0.9, b2=0.999, eps=1e-8):
@@ -450,7 +493,8 @@ class JointMLPQuadCostFanout:
 
     ``__call__(batch)`` takes ``{"widths": ((w1, ..), ...) hidden sizes
     a candidate, "lr": (B,), "Qdiag": (B, n), "Rdiag": (B, m), "Fdiag":
-    (B, n)}`` (and ``"horizons"`` (B,) with ``horizon_mask``) and returns
+    (B, n)}`` (and ``"horizons"`` (B,) with ``horizon_mask``, ``"regw"``
+    (B,) with ``reg_matrix``) and returns
     the task costs (B,); a candidate whose rollout is not finite scores
     ``inf``. With ``horizon_mask`` ``horizon`` is the largest horizon and
     every lane solves at its own (``make_batched_ilqr_solver``'s
@@ -464,8 +508,8 @@ class JointMLPQuadCostFanout:
     (``sysid/mlp.py::epoch_perms``), so a lane trains as
     ``MLPFactory``'s model of its configuration; ``init_nets`` and
     ``perms`` of ``__call__`` replace them. ``block_b`` is a choice of
-    the TPU kernels and is ignored; ``mesh`` and ``reg_matrix`` raise.
-    Runs on the card unless ``device`` names another device.
+    the TPU kernels and is ignored; ``mesh`` raises. Runs on the card
+    unless ``device`` names another device.
     """
 
     def __init__(
@@ -493,17 +537,13 @@ class JointMLPQuadCostFanout:
         pad_to: Optional[int] = None,
         device=None,
     ):
-        del block_b, reg_goal
+        del block_b
         if mesh is not None:
             raise ValueError(
                 "mesh (candidates sharded over several cards) is not ported "
                 "to autompc_torch yet; pass mesh=None"
             )
-        if reg_matrix is not None:
-            raise ValueError(
-                "reg_matrix (the GaussReg term) is not ported to "
-                "autompc_torch yet"
-            )
+        self._has_reg = reg_matrix is not None
         self.system = system
         self.device = resolve_device(device)
         dtype = default_dtype(self.device)
@@ -553,7 +593,7 @@ class JointMLPQuadCostFanout:
             ubounds=(bounds[:, 0], bounds[:, 1]), backward=backward,
             batch_params=True, quad_cost_batch=True,
             quad_goal=np.asarray(goal, dtype=float), pred_diff=pred_diff,
-            horizon_mask=self._horizon_mask,
+            horizon_mask=self._horizon_mask, **_reg_kw(reg_matrix, reg_goal),
         )
         if compact_schedule is not None:
             if isinstance(compact_schedule, str):
@@ -598,6 +638,7 @@ class JointMLPQuadCostFanout:
         Returns (the staged dict, B)."""
         from ..tuning.bucketed import _mlp_masks, _mlp_padded_init
 
+        _validate_regw(batch, self._has_reg, type(self).__name__)
         on = self._on
         widths_list = [list(w) for w in batch["widths"]]
         B = len(widths_list)
@@ -632,6 +673,8 @@ class JointMLPQuadCostFanout:
             "Qdiag": pad(batch["Qdiag"]), "Rdiag": pad(batch["Rdiag"]),
             "Fdiag": pad(batch["Fdiag"]),
         }
+        if "regw" in batch:
+            full["regw"] = pad(batch["regw"])
         if self._horizon_mask:
             full["horizons"] = pad(np.asarray(batch["horizons"], dtype=np.int64))
         return full, B
@@ -642,7 +685,7 @@ class JointMLPQuadCostFanout:
         into the weights) and cost params."""
         params = {"net": [{"W": la["W"] * wm, "b": la["b"] * bm} for la, wm, bm in
                           zip(nets, full["wmasks"], full["bmasks"])]}
-        cost_params = {k: full[k] for k in ("Qdiag", "Rdiag", "Fdiag")}
+        cost_params = _lane_costs(full)
         if self._horizon_mask:
             cost_params["heff"] = full["horizons"]
         return params, cost_params

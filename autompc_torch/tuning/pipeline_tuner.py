@@ -10,8 +10,11 @@ surrogate, and the task cost of that trajectory is the objective. With
 the tune goes on.
 
 ``use_fanout=True`` scores each ask batch through a fan-out instead of
-one simulation per candidate, with a ``QuadCostFactory`` and an
-``IterativeLQRFactory``: for a fixed model (kind ``"ilqr"``) the batch
+one simulation per candidate, with a ``QuadCostFactory``, a
+``GaussRegFactory`` or a ``SumCostFactory`` of at most one of each
+(``_cost_fanout_spec``; the GaussReg term rides every fan-out as its
+``reg_matrix``, each candidate's ``reg_weight`` as its lane's ``regw``)
+and an ``IterativeLQRFactory``: for a fixed model (kind ``"ilqr"``) the batch
 is bucketed by horizon and every bucket is one
 ``parallel/fanout.py::QuadCostFanout`` call; for a ``SINDyFactory``
 (kind ``"joint_sindy"``) it is bucketed by the SINDy basis (the
@@ -42,7 +45,10 @@ import numpy as np
 import torch
 
 from .. import NotPortedError
+from ..costs.gauss_reg_factory import GaussRegFactory
+from ..costs.gauss_reg_factory import gauss_reg_stats as _gauss_reg_stats
 from ..costs.quad_cost_factory import QuadCostFactory
+from ..costs.sum_cost_factory import SumCostFactory
 from ..sysid.model import model_device
 from ..utils.checkpoint import (
     bo_load_state,
@@ -83,14 +89,33 @@ _CANDIDATE_ERRORS = (np.linalg.LinAlgError, torch.linalg.LinAlgError, FloatingPo
 
 
 def _cost_fanout_spec(cost_factory):
-    """Where the per-lane diagonal costs live in the joint configuration:
-    a dict with ``quad_prefix`` (the QuadCostFactory subspace's prefix
-    under ``_cost:``) and ``quad_factory`` (that factory, for its goal),
-    or None when the cost factory is not a ``QuadCostFactory``. The
-    GaussReg and SumCost factories of the JAX package are not ported
-    yet."""
+    """Which cost-factory layouts the per-lane-cost solver covers, and
+    where their hyperparameters live in the joint configuration: None
+    (not covered) or a dict with ``quad_prefix`` (the QuadCostFactory
+    subspace's prefix under ``_cost:``: "" for a bare factory,
+    ``"_sum_i:"`` inside a SumCostFactory, None without one, the
+    diagonals then zero), ``quad_factory`` (that factory, for its goal,
+    or None) and ``reg_prefix`` (the GaussRegFactory subspace's prefix,
+    or None). Covered: a QuadCostFactory, a GaussRegFactory, and a
+    SumCostFactory of at most one of each."""
     if isinstance(cost_factory, QuadCostFactory):
-        return {"quad_prefix": "", "quad_factory": cost_factory}
+        return {"quad_prefix": "", "quad_factory": cost_factory, "reg_prefix": None}
+    if isinstance(cost_factory, GaussRegFactory):
+        return {"quad_prefix": None, "quad_factory": None, "reg_prefix": ""}
+    if isinstance(cost_factory, SumCostFactory):
+        quad = reg = None
+        for i, f in enumerate(cost_factory.factories):
+            if isinstance(f, QuadCostFactory) and quad is None:
+                quad = (i, f)
+            elif isinstance(f, GaussRegFactory) and reg is None:
+                reg = i
+            else:
+                return None
+        return {
+            "quad_prefix": f"_sum_{quad[0]}:" if quad else None,
+            "quad_factory": quad[1] if quad else None,
+            "reg_prefix": f"_sum_{reg}:" if reg is not None else None,
+        }
     return None
 
 
@@ -151,6 +176,7 @@ class PipelineTuner:
         self.fanout_backward = str(fanout_backward)
         self.fanout_feature_kernels = bool(fanout_feature_kernels)
         self.fanout_horizon_mask = bool(fanout_horizon_mask)
+        self._reg_stats = None
 
     def _fanout_kind(self, pipeline, surrogate):
         """``(kind, reason)``: the JAX package's fan-out kind for this
@@ -161,7 +187,8 @@ class PipelineTuner:
         if _cost_fanout_spec(pipeline.cost_factory) is None:
             return None, (
                 f"cost factory is {type(pipeline.cost_factory).__name__}; the per-lane "
-                "solver covers QuadCostFactory only"
+                "solver covers QuadCostFactory / GaussRegFactory / their SumCostFactory "
+                "combination only"
             )
         if surrogate.state_dim != pipeline.system.obs_dim:
             return None, (
@@ -201,16 +228,23 @@ class PipelineTuner:
         system = pipeline.system
         n_steps = (task.get_num_steps() or 200) - 1
         spec = _cost_fanout_spec(pipeline.cost_factory)
-        qp = spec["quad_prefix"]
+        qp, rp = spec["quad_prefix"], spec["reg_prefix"]
         # The goal resolves as in QuadCostFactory.__call__: the factory's
         # goal wins over the task's.
-        factory_goal = spec["quad_factory"].goal
+        factory_goal = getattr(spec["quad_factory"], "goal", None)
         if factory_goal is not None:
             goal = np.nan_to_num(np.asarray(factory_goal, dtype=float))
         elif task.get_cost() is not None and task.get_cost().has_goal:
             goal = np.nan_to_num(np.asarray(task.get_cost().get_goal(), dtype=float))
         else:
             goal = np.zeros(system.obs_dim)
+        reg_kw = {}
+        if rp is not None:
+            # The GaussReg statistics over the sysid split, once a run
+            # (GaussRegFactory.__call__'s).
+            if self._reg_stats is None:
+                self._reg_stats = _gauss_reg_stats(sysid_trajs)
+            reg_kw = dict(zip(("reg_matrix", "reg_goal"), self._reg_stats))
         # Factory keyword arguments override configuration values, as in
         # ControllerFactory.__call__.
         overrides = getattr(pipeline.controller_factory, "kwargs", {})
@@ -282,24 +316,28 @@ class PipelineTuner:
                     backward=self.fanout_backward,
                     n_train_iters=int(m_over.get("n_train_iters", 50)),
                     n_batch=int(m_over.get("n_batch", 64)), seed=int(m_over.get("seed", 100)),
-                    device=device,
+                    device=device, **reg_kw,
                 )
             elif key not in fanouts and kind == "joint_sindy":
                 fanouts[key] = JointSINDyQuadCostFanout(
                     system, task, dict(key[0]), sysid_trajs, surrogate, horizon=key[1],
                     n_steps=n_steps, goal=goal, compact_schedule=self.fanout_compact,
                     warm_start=self.fanout_warm_start, backward=self.fanout_backward,
-                    use_feature_kernels=self.fanout_feature_kernels, device=device,
+                    use_feature_kernels=self.fanout_feature_kernels, device=device, **reg_kw,
                 )
             elif key not in fanouts:
                 fanouts[key] = QuadCostFanout(
                     system, task, pipeline.model, surrogate, horizon=key, n_steps=n_steps,
                     goal=goal, compact_schedule=self.fanout_compact,
                     warm_start=self.fanout_warm_start, backward=self.fanout_backward,
-                    feature_spec=fs, device=device,
+                    feature_spec=fs, device=device, **reg_kw,
                 )
 
             def diag(suffix, names):
+                # Zeros where the space has no quad term (a bare
+                # GaussRegFactory).
+                if qp is None:
+                    return np.zeros((len(idxs), len(names)))
                 return np.array([[cfgs[i].get(f"_cost:{qp}{o}_{suffix}", 0.0) for o in names]
                                  for i in idxs], dtype=float)
 
@@ -308,6 +346,9 @@ class PipelineTuner:
                 "Fdiag": diag("F", system.observations),
                 "Rdiag": diag("R", system.controls),
             }
+            if rp is not None:
+                batch["regw"] = np.array([float(cfgs[i].get(f"_cost:{rp}reg_weight", 1.0))
+                                          for i in idxs])
             if kind == "joint_mlp":
                 batch["widths"] = tuple(
                     tuple(int(mk(cfgs[i], f"hidden_size_{j + 1}",
@@ -362,6 +403,7 @@ class PipelineTuner:
         With ``checkpoint_path`` the tuner saves its state after every
         evaluated batch and resumes from an existing checkpoint."""
         trajs = list(trajs) if not hasattr(trajs, "to_list") else trajs.to_list()
+        self._reg_stats = None  # the GaussReg statistics of this run
         if surrogate is None:
             surr_size = int(self.surrogate_split * len(trajs))
             shuffled = trajs[:]

@@ -94,6 +94,23 @@ Phases (each raises on failure, so the exit code is non-zero):
    split (asks, training, closed loops) printed; a candidate scored inf
    through the kernels with a finite model is scored again through the
    kernels' plain twins, and the phase fails if they score it finite;
+13. the GaussReg / SumCost costs (``QuadCostFactory + GaussRegFactory``:
+   the stage term regw (x - mu)' S (x - mu), S and mu the inverse
+   covariance and mean of the main path's data, regw a lane's weight,
+   10**U(-3, 4)): (a) phase 8's cell (1,024 candidates, H=10, 50 steps)
+   with the term through (a1) the fused batch-major body (K1's
+   batch-major entry at the first carry, K4 at (4,1), K3's batch-major
+   entry with its GaussReg term) and (a2) the tuner's body (K1's
+   batch-major entry, K4 at (4,1), K7), one warm and 3 timed calls each;
+   (b) phase 12's 55-term joint-SINDy bucket at B=1,024, H=10, 10 steps
+   through the same two bodies with per-lane coefficients; each pair's
+   first MPC-step solves agree as phase 8's; (c) ``PipelineTuner.run``
+   over the SumCost space with the fan-out (two rounds of 128 candidates
+   x 99 steps, cut from 199, H=20, the true dynamics scored by a second
+   fan-out, no fallback warning), the incumbent on the true dynamics (a
+   finite cost),
+   and the sequential objective (the explicit SumCost) against the
+   fan-out on 4 candidates at 50 steps (>= 3 within 1e-3);
 3. kernels vs plain twins: each CUDA kernel against its plain PyTorch
    twin on the card, on inputs taken from every path that launches it,
    at that path's shape: the lanes-last kernels on the main path's carry
@@ -126,7 +143,13 @@ Phases (each raises on failure, so the exit code is non-zero):
    library with the model ``JS_HUGE`` describes, at K3's and K7's fan-out
    tolerances; a kernel output not finite where the twin's is fails), and
    each given 1,024 copies of phase 2's model against its shared
-   instance, bit for bit. Within stated tolerances, timed with CUDA events (and where a
+   instance, bit for bit; K3's batch-major entry, with and without the
+   GaussReg term, shared (13 (a1)'s carry) and per-lane (13 (b1)'s)
+   coefficients, at every batch size phase 13 launched it with, with a
+   zero weight bit for bit the instance without the term, and given the
+   transposes of fan-out (a)'s and phase 12 (a)'s lanes-last carries bit
+   for bit the lanes-last instance; K4 at (4,1) on 13 (a1)'s dense
+   expansions. Within stated tolerances, timed with CUDA events (and where a
    call is shorter than its host work also as device time under
    torch.profiler), beside the least time the card could take
    (``bound_ms``).
@@ -136,7 +159,8 @@ before and read just after: phases 2-5 for the lanes-last kernels,
 phase 6 and phase 7 for the batch-major ones, each configuration of
 phase 8 for its three and the tune of phase 10 for the same three
 (``launches_tune`` in their rows), the tune of phase 11 for K4
-(``launches_joint_mlp`` in its (4,1) row), each variant of phase 9 for the main
+(``launches_joint_mlp`` in its (4,1) row), each configuration and the
+tune of phase 13 for theirs (``launches_gauss_reg``), each variant of phase 9 for the main
 path's kernels (``launches_bf16`` counts a wrapper's bfloat16 instances,
 ``launches_by_B`` its launches by the batch size of the call). A
 kernel that never ran on its path fails the run. Phase 3 runs after
@@ -158,6 +182,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -420,6 +445,34 @@ JS_HUGE_EPS = 1e-2
 # buckets past 64 terms (the per-lane kernels' large instances); the
 # phase fails if none ran.
 JS_TUNE_BATCH, JS_TUNE_ITERS, JS_TUNE_STEPS, JS_TUNE_SEED = 12, 24, 20, 4
+
+# Phase 13: the GaussReg / SumCost costs (QuadCostFactory +
+# GaussRegFactory, the term w_b (x - mu)' S (x - mu) with S, mu the
+# inverse covariance and mean of the main path's data and w_b a lane's
+# reg_weight, 10**U(-3, 4) from the seed GR_SEED). (a) phase 8's cell
+# (the fixed-model cost fan-out, B=1,024, H=10, 50 steps, its compaction)
+# with the term, through (a1) the fused batch-major body (K1's
+# batch-major entry at the first carry, K4 at (4,1), K3's batch-major
+# entry with its GaussReg term) and (a2) the tuner's body (K1's
+# batch-major entry, K4 at (4,1), K7): one warm and 3 timed calls each;
+# (b) phase 12's 55-term joint-SINDy bucket at B=1,024, H=10,
+# GR_JS_STEPS steps through both bodies with per-lane coefficients, one
+# warm and one timed call; the first MPC-step solves of each pair agree
+# as phase 8's. (c) PipelineTuner.run over the SumCost space with the
+# cost fan-out, the true dynamics scored by a second fan-out: two rounds
+# of GR_TUNE_BATCH candidates at H=TUNE_H, cut in depth to GR_TUNE_STEPS
+# - 1 closed-loop steps (199) to keep the command inside its time limit
+# (uncut it took 1,030 s of its 1,200 on an NVIDIA H100 80GB HBM3, 700 W);
+# the incumbent on the true dynamics from the
+# canonical start, as long, must reach a finite cost; sequential against
+# fan-out at GR_SEQ_STEPS steps on a quadratic task cost, as phase 10's.
+GR_SEED = 13
+GR_CONFIGS = {
+    "1": dict(backward="pallas", fuse_ls=True, lanes_last=False),
+    "2": dict(backward="pallas", fuse_ls=False, lanes_last=False),
+}
+GR_JS_STEPS = 10
+GR_TUNE_BATCH, GR_TUNE_ITERS, GR_TUNE_STEPS, GR_SEQ_STEPS = 128, 256, 100, 50
 
 # Phase 9: the main path's wide options at its own shape (B_SOLVE, H,
 # SCHEDULE: every compaction stage is a multiple of 1024, so the wide
@@ -1950,6 +2003,526 @@ def profile_solve(solve, args, label="one phase-6 solve"):
         print(f"    {ms:9.2f} ms  {ms / busy_ms:6.3f}  x{count:<6d} {key[:90]}")
 
 
+# ---- Phase 13: the GaussReg / SumCost costs -------------------------------------
+
+
+def gauss_reg_candidates(dev, n, seed=0, joint=False):
+    """Phase 8's (``joint``: phase 12's) candidate batch and each lane's
+    GaussReg weight regw = 10**U(-3, 4), the GaussRegFactory range."""
+    batch = joint_candidates(dev, n, seed) if joint else fanout_candidates(dev, n, seed)
+    regw = 10 ** np.random.default_rng(seed + GR_SEED).uniform(-3, 4, n)
+    return dict(batch, regw=batch["Qdiag"].new_tensor(regw))
+
+
+def reg_lane_objective(xs, us, cp, dt, S, mu):
+    """The per-lane objective with the GaussReg term, float64:
+    ``lane_objective`` + dt regw sum_t (x_t - mu)' S (x_t - mu)."""
+    H = us.shape[1]
+    d = xs[:, :H].double() - xs.new_tensor(mu).double()
+    reg = ((d @ xs.new_tensor(S).double()) * d).sum(dim=(1, 2))
+    return lane_objective(xs, us, cp, dt) + dt * cp["regw"].double() * reg
+
+
+def gauss_reg_counters(K1, K3, K4):
+    """The wrappers each phase-13 configuration launches: (a1)/(b1) the
+    fused batch-major body, (a2)/(b2) the tuner's."""
+    fused = (K1.relin_jacobians_bm, K4.riccati_general, K3.fused_line_search_bm)
+    plain = (K1.relin_jacobians_bm, K4.riccati_general, K3.sindy_line_search)
+    return {"1": fused, "2": plain}
+
+
+def gauss_reg_launches(wrappers, lane=False):
+    """(launches, by B) of each wrapper; with ``lane`` the per-lane
+    instances' where the wrapper has them (K4 takes no coefficients)."""
+    if lane:
+        return lane_launches(wrappers)
+    return ({w.__name__: w.launches for w in wrappers},
+            {w.__name__: dict(w.launches_by_B) for w in wrappers})
+
+
+def reset_gauss_reg(wrappers):
+    reset_launches(wrappers)
+    for w in wrappers:
+        if hasattr(w, "launches_reg"):
+            w.launches_reg = 0
+
+
+def first_step_agreement(tag, solves, x0, ug, cp, dt, S, mu, params):
+    """The first MPC step's solves of the two configurations ``solves``
+    (config -> solve) on the same candidates: accepted objectives (with
+    the GaussReg term) within FAN_OBJ_TOL on FAN_AGREE_MIN of the lanes
+    converged in both, as phase 8's."""
+    res = {cfg: solve(params, x0, ug, cp) for cfg, solve in solves.items()}
+    (ka, ra), (kb, rb) = res.items()
+    obj = {cfg: reg_lane_objective(o[1], o[2], cp, dt, S, mu) for cfg, o in res.items()}
+    both = ra[0] & rb[0]
+    rel = ((obj[ka] - obj[kb]).abs() / obj[kb].abs().clamp_min(1e-30))[both]
+    share = float((rel <= FAN_OBJ_TOL).float().mean()) if both.any() else 0.0
+    B = x0.shape[0]
+    print(f"[13] {tag} first MPC step, ({ka}) vs ({kb}): converged ({ka}) {int(ra[0].sum())}, "
+          f"({kb}) {int(rb[0].sum())}, both {int(both.sum())} of {B}; accepted objective "
+          f"relative difference on those: median {float(rel.median()):.3e}, 90% "
+          f"{float(rel.quantile(0.9)):.3e}, max {float(rel.max()):.3e}; within {FAN_OBJ_TOL} "
+          f"on {share:.4f} (min {FAN_AGREE_MIN})", flush=True)
+    if int(both.sum()) < B // 4 or share < FAN_AGREE_MIN:
+        raise RuntimeError(f"{tag} first step: {int(both.sum())} lanes converged in both, "
+                           f"objectives agree on {share:.4f}")
+
+
+def gauss_reg_phase(bench, model, trajs, dev, card, wrappers):
+    """Phase 13 (a) and (b). Returns {"S", "mu", "fans": {config: the
+    fan-out}, "batch", "joint_batch", "counts": {config: (launches, by
+    B)}}: configurations a1, a2 (the fixed-model cost fan-out) and b1,
+    b2 (the joint-SINDy fan-out)."""
+    from autompc_torch.control import make_scheduled_ilqr_solver, parse_schedule
+    from autompc_torch.parallel import JointSINDyQuadCostFanout, QuadCostFanout
+    from autompc_torch.tuning.pipeline_tuner import _gauss_reg_stats
+
+    S, mu = _gauss_reg_stats(trajs)
+    reg = dict(reg_matrix=S, reg_goal=mu)
+    out = {"S": S, "mu": mu, "fans": {}, "counts": {}}
+    batch = gauss_reg_candidates(dev, FAN_B)
+    jbatch = gauss_reg_candidates(dev, JS_B, joint=True)
+    out["batch"], out["joint_batch"] = batch, jbatch
+    spec = (model.library, "coeffs")
+    runs = []
+    for i in ("1", "2"):
+        runs.append((f"a{i}", lambda i=i: QuadCostFanout(
+            bench.system, bench.task, model, model, horizon=FAN_H, n_steps=FAN_STEPS,
+            goal=np.zeros(4), compact_schedule=FAN_SCHEDULE, feature_spec=spec,
+            **GR_CONFIGS[i], **reg), batch, FAN_B, FAN_STEPS, 3))
+    for i in ("1", "2"):
+        runs.append((f"b{i}", lambda i=i: JointSINDyQuadCostFanout(
+            bench.system, bench.task, JS_BUCKET, trajs, model, horizon=JS_H,
+            n_steps=GR_JS_STEPS, goal=np.zeros(4), compact_schedule=JS_SCHEDULE,
+            use_feature_kernels=True, **GR_CONFIGS[i], **reg), jbatch, JS_B, GR_JS_STEPS, 1))
+    for cfg, make, cand, B, steps, calls in runs:
+        fan = make()
+        out["fans"][cfg] = fan
+        ws = wrappers[cfg[1]]
+        reset_gauss_reg(ws)
+        t0 = time.perf_counter()
+        scores = fan(cand)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            scores = fan(cand)
+            torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts, by_B = gauss_reg_launches(ws, lane=cfg[0] == "b")
+        if cfg[1] == "1":
+            counts["fused_line_search_bm[reg]"] = ws[2].launches_reg
+        out["counts"][cfg] = (counts, by_B)
+        if tuple(scores.shape) != (B,) or torch.isnan(scores).any():
+            raise RuntimeError(f"GaussReg fan-out ({cfg}): malformed or NaN scores")
+        fin = torch.isfinite(scores)
+        print(f"[13] GaussReg fan-out ({cfg}) {GR_CONFIGS[cfg[1]]}: "
+              f"{'joint SINDy F=' + str(fan.n_features) if cfg[0] == 'b' else 'fixed model'}, "
+              f"B={B} H={FAN_H} {steps} steps: warm call {warm_s:.2f} s; {calls} timed calls "
+              f"{elapsed:.3f} s -> {calls * B / elapsed:.1f} evals/s on {card}; scores finite "
+              f"{int(fin.sum())}, inf {int((~fin).sum())}, mean of finite "
+              f"{float(scores[fin].mean()):.2f}; launches in {calls + 1} calls {counts}, by B "
+              f"{by_B}", flush=True)
+        if min(counts.values()) == 0:
+            raise RuntimeError(f"a kernel never ran on the GaussReg fan-out ({cfg}): {counts}")
+
+    dt = bench.system.dt
+    sched = parse_schedule(FAN_SCHEDULE)
+    x0 = batch["Qdiag"].new_tensor(np.tile(bench.task.get_init_obs(), (FAN_B, 1)))
+    first_step_agreement(
+        "fixed model", {c: make_scheduled_ilqr_solver(model.pred_core, None, schedule=sched,
+                                                      **out["fans"][c].solver_kw)
+                        for c in ("a1", "a2")},
+        x0, x0.new_zeros((FAN_B, FAN_H, 1)), batch, dt, S, mu, model.params)
+    coeffs = out["fans"]["b1"].train_lanes(jbatch["reg"])
+    cpj = {k: jbatch[k] for k in ("Qdiag", "Rdiag", "Fdiag", "regw")}
+    xj = jbatch["Qdiag"].new_tensor(np.tile(bench.task.get_init_obs(), (JS_B, 1)))
+    first_step_agreement(
+        "joint SINDy", {c: make_scheduled_ilqr_solver(out["fans"][c]._pred_core, None,
+                                                      schedule=parse_schedule(JS_SCHEDULE),
+                                                      **out["fans"][c].solver_kw)
+                        for c in ("b1", "b2")},
+        xj, xj.new_zeros((JS_B, JS_H, 1)), cpj, dt, S, mu, {"coeffs": coeffs})
+    return out
+
+
+def gauss_reg_tune(bench, model, trajs, dev, card, wrappers):
+    """Phase 13 (c): PipelineTuner.run over QuadCostFactory +
+    GaussRegFactory with the fan-out path, then the incumbent on the
+    true dynamics and the sequential objective against the fan-out.
+    Returns (launches, by B) of the tune's kernels."""
+    from autompc_torch.control import IterativeLQRFactory
+    from autompc_torch.costs import GaussRegFactory, QuadCost, QuadCostFactory
+    from autompc_torch.pipeline import Pipeline
+    from autompc_torch.sysid import FunctionModel
+    from autompc_torch.tuning import PipelineTuner
+    from autompc_torch.utils import simulate
+
+    system, task = bench.system, bench.task.copy()
+    task.set_num_steps(GR_TUNE_STEPS)
+    goal = np.zeros(4)
+    calls = []
+    tuner = PipelineTuner(
+        surrogate_mode="pretrain", eval_batch=GR_TUNE_BATCH, use_fanout=True,
+        fanout_backward="pallas", fanout_feature_kernels=True, fanout_compact=TUNE_COMPACT)
+    real_eval = tuner._eval_batch_fanout
+
+    def timed_eval(pipeline, task_, surrogate, cfgs, fanouts, kind, sysid_trajs=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_eval(pipeline, task_, surrogate, cfgs, fanouts, kind, sysid_trajs)
+        calls.append((isinstance(surrogate, FunctionModel), len(cfgs),
+                      time.perf_counter() - t0))
+        return res
+
+    tuner._eval_batch_fanout = timed_eval
+
+    def pipeline(**kw):
+        return Pipeline(system, model, QuadCostFactory(system, goal=goal) + GaussRegFactory(system),
+                        IterativeLQRFactory(system, **kw))
+
+    reset_gauss_reg(wrappers)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UserWarning)    # a fallback warning fails the phase
+        controller, res = tuner.run(pipeline(horizon=TUNE_H), task, trajs,
+                                    n_iters=GR_TUNE_ITERS, rng=np.random.default_rng(101),
+                                    surrogate=model, truedyn=bench.dynamics)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    counts, by_B = gauss_reg_launches(wrappers)
+    costs, true_costs = np.array(res.costs), np.array(res.truedyn_costs)
+    surr = [c for c in calls if not c[0]]
+    true = [c for c in calls if c[0]]
+    end = 0
+    for r, ((_, n, s_s), (_, _, t_s)) in enumerate(zip(surr, true)):
+        end += n
+        print(f"[13] tune round {r + 1} ({n} candidates, H={TUNE_H}, "
+              f"{task.get_num_steps() - 1} MPC steps): surrogate fan-out {s_s:.2f} s, "
+              f"true-dynamics fan-out {t_s:.2f} s -> {n / s_s:.1f} evals/s on the surrogate, "
+              f"{n / (s_s + t_s):.1f} with both on {card}; incumbent surrogate cost "
+              f"{res.inc_costs[end - 1]:.1f}, its true-dynamics cost "
+              f"{res.inc_truedyn_costs[end - 1]:.1f}", flush=True)
+    print(f"[13] tune {GR_TUNE_ITERS} candidates: {tune_s:.2f} s; scores finite "
+          f"{int(np.isfinite(costs).sum())} / {costs.size} on the surrogate, "
+          f"{int(np.isfinite(true_costs).sum())} / {true_costs.size} on the true dynamics; "
+          f"launches {counts}, by B {by_B}", flush=True)
+    if len(costs) != GR_TUNE_ITERS or len(true_costs) != GR_TUNE_ITERS \
+            or np.isnan(costs).any() or np.isnan(true_costs).any():
+        raise RuntimeError("GaussReg tune: a score is missing or NaN")
+    if min(counts.values()) == 0:
+        raise RuntimeError(f"a kernel never ran in the GaussReg tune: {counts}")
+
+    t0 = time.perf_counter()
+    traj = simulate(controller, task.get_init_obs(), term_cond=task.term_cond,
+                    dynamics=bench.dynamics, max_steps=task.get_num_steps())
+    final_cost = float(task.get_cost()(traj))
+    print(f"[13] incumbent {res.inc_cfg.get_dictionary()}: simulate {len(traj) - 1} steps on "
+          f"the true dynamics in {time.perf_counter() - t0:.2f} s; task cost {final_cost:.1f} "
+          f"(its fan-out scores: surrogate {res.inc_costs[-1]:.1f}, true dynamics "
+          f"{res.inc_truedyn_costs[-1]:.1f})", flush=True)
+    if not np.isfinite(final_cost):
+        raise RuntimeError(f"GaussReg tune: the incumbent's true-dynamics cost is {final_cost}")
+
+    # Sequential (the explicit SumCost through the generic cost-hessian
+    # path) against the fan-out, horizons unpinned, on a quadratic task
+    # cost, as phase 10's.
+    seq_task = task.copy()
+    seq_task.set_cost(QuadCost(system, Q=np.eye(4), R=0.01 * np.eye(1), F=np.eye(4), goal=goal))
+    seq_task.set_init_obs(np.array([0.5, 0.0, 0.0, 0.0]))
+    seq_task.set_num_steps(GR_SEQ_STEPS)
+    t0 = time.perf_counter()
+    scores = [
+        PipelineTuner(surrogate_mode="pretrain", eval_batch=SEQ_ITERS, **kw).run(
+            pipeline(), seq_task, trajs, n_iters=SEQ_ITERS, rng=np.random.default_rng(3),
+            surrogate=model)[1]
+        for kw in ({}, dict(use_fanout=True, fanout_backward="pallas",
+                            fanout_feature_kernels=True))
+    ]
+    agree = 0
+    for i, (cfg, a, b) in enumerate(zip(scores[0].cfgs, scores[0].costs, scores[1].costs)):
+        ok = (a == b) or (np.isfinite(a) and np.isfinite(b)
+                          and abs(a - b) <= SEQ_TOL * max(abs(b), 1e-30))
+        agree += ok
+        print(f"[13] candidate {i} (horizon {cfg['_ctrlr:horizon']}, reg_weight "
+              f"{cfg['_cost:_sum_1:reg_weight']:.4g}): sequential {a!r}, fan-out {b!r}, "
+              f"relative difference {abs(a - b) / max(abs(b), 1e-30):.3e}"
+              f"{'' if ok else ' DIFFER'}", flush=True)
+    same_cfgs = [c.get_dictionary() for c in scores[0].cfgs] == \
+        [c.get_dictionary() for c in scores[1].cfgs]
+    print(f"[13] sequential vs fan-out ({GR_SEQ_STEPS}-step near-upright task, quadratic task "
+          f"cost): {agree} of {SEQ_ITERS} agree within {SEQ_TOL} (min {SEQ_AGREE_MIN}); same "
+          f"configurations {same_cfgs}; {time.perf_counter() - t0:.2f} s", flush=True)
+    if agree < SEQ_AGREE_MIN or not same_cfgs:
+        raise RuntimeError(f"GaussReg tune: sequential and fan-out agree on {agree} of "
+                           f"{SEQ_ITERS}")
+    return counts, by_B
+
+
+def gauss_reg_carry(pred_core, fan, batch, params, H, init_obs, n_iters=3):
+    """The carry of ``fan``'s solver ``n_iters`` iterations into the
+    first MPC step, from ``init_obs``, the candidates' costs and
+    weights."""
+    from autompc_torch.control import make_batched_ilqr_solver
+
+    _, carry0, _, make_body = make_batched_ilqr_solver(pred_core, None, return_pieces=True,
+                                                       **fan.solver_kw)
+    n = batch["Qdiag"].shape[0]
+    cp = {k: batch[k] for k in ("Qdiag", "Rdiag", "Fdiag", "regw")}
+    x0 = batch["Qdiag"].new_tensor(np.tile(init_obs, (n, 1)))
+    carry, body = carry0(params, x0, x0.new_zeros((n, H, 1)), cp), make_body(params)
+    for _ in range(n_iters):
+        carry = body(carry)
+    return carry
+
+
+def sub_carry(c, n):
+    """The first ``n`` lanes of a batch-major carry (its costs and
+    per-lane params too)."""
+    def cut(v):
+        if isinstance(v, dict):
+            return {k: cut(x) for k, x in v.items()}
+        return v[:n].contiguous() if isinstance(v, torch.Tensor) and v.ndim else v
+
+    return {k: cut(v) for k, v in c.items()}
+
+
+def gauss_reg_expansions(c, S, mu, dt):
+    """The dense expansions of the batch-major body under per-lane
+    diagonals and the GaussReg term (obsdim = ds = 4, goal 0), as the
+    solver hands them to K4."""
+    cp, xs, us = c["cost"], c["xs"], c["us"]
+    B, H = us.shape[:2]
+    St, mut = xs.new_tensor(S), xs.new_tensor(mu)
+    w2 = 2.0 * dt * cp["regw"]
+    eye = torch.eye(4, dtype=xs.dtype, device=xs.device)
+    Cxx = (2.0 * cp["Qdiag"] * dt)[:, None, :, None] * eye + w2[:, None, None, None] * St
+    Cxx = Cxx.expand(B, H, 4, 4).contiguous()
+    cx = 2.0 * xs[:, :H] * cp["Qdiag"][:, None, :] * dt + w2[:, None, None] * (
+        (xs[:, :H] - mut) @ St)
+    Cuu = (2.0 * cp["Rdiag"] * dt)[:, None, :, None].expand(B, H, 1, 1).contiguous()
+    cu = (2.0 * us * cp["Rdiag"][:, None, :] * dt).contiguous()
+    Vn = (2.0 * cp["Fdiag"])[:, :, None] * eye
+    vn = 2.0 * cp["Fdiag"] * xs[:, H]
+    return Cxx, Cuu, cx.contiguous(), cu, Vn.contiguous(), vn.contiguous()
+
+
+def k3_bm_bound(io_bytes, B, H, n_terms, L, reg):
+    """K3's bound keys (``k3_bound``) with the GaussReg term's operations
+    a candidate-step (10 products of three factors and their sum, 4
+    differences, the weight's product and add at obsdim 4)."""
+    out = k3_bound(io_bytes, B, H, n_terms, L)
+    if reg:
+        out.update(bound_keys(io_bytes, out["bound_ops_ms"] * F32_FLOPS / 1e3
+                              + B * H * L * 36), scratch_bytes_ms=out["scratch_bytes_ms"])
+    return out
+
+
+def check_k3_bm(tag, K1, K3, K4, terms, coeffs, c, S, mu, dt, alphas, bound, plain=None):
+    """K3's batch-major entry, with and without the GaussReg term, against
+    its plain twin on the batch-major carry ``c`` (after the solver's
+    backward pass on it): decisions (flags, and the step size as the
+    objective it returns) on K3_FAN_AGREE_MIN of the active lanes (a
+    compaction stage's first lanes are the full batch's, and at B=128
+    three iterations in ~20 are active, too few for the share to leave
+    room for one lane: there one lane may differ, the knife edge of
+    ROADMAP §C1 that the full batch's check counts too), the
+    states of the lanes of equal decisions within TOL_K3 on
+    K3_FAN_WITHIN_MIN of them, the objective normwise to TOL_K3; against
+    float64 at the kernel's own trajectory: the objective under the
+    lane's cost and term (TOL_K3), du2 (TOL_K3) and the Jacobians
+    (TOL_K1); no output not finite where the twin's is; and a zero weight
+    gives the instance without the term bit for bit. ``plain``:
+    ``time_ms``'s arguments for the plain twin (None: 3 runs, and the
+    kernel's device time is taken too). Returns ({"reg":
+    measurements, "no_reg": measurements}, failure strings)."""
+    from autompc_torch.ops.cuda_linesearch import _sweep
+
+    failures = []
+    cp = c["cost"]
+    B, H = c["us"].shape[:2]
+    act = ~c["converged"] & ~c["failed"]
+    Ks, ks, lin, quad = K4.riccati_general(c["Jx"], c["Ju"], *gauss_reg_expansions(c, S, mu, dt))
+    ks_small = torch.sqrt((ks * ks).sum(dim=(1, 2))) < 1e-3
+    planes = tuple(cp[k].T.contiguous() for k in ("Qdiag", "Rdiag", "Fdiag"))
+    base = (terms, c["x0s"], c["xs"], c["us"], Ks, ks, coeffs, alphas, -bound, bound, *planes,
+            (0.0,) * 4, dt, c["obj"], lin, quad, ks_small)
+    out = {}
+    for form, reg in (("reg", (S, mu, cp["regw"])), ("no_reg", None)):
+        kk = K3.fused_line_search_bm(*base, reg=reg)
+        kp = K3.fused_line_search_bm_plain(*base, reg=reg)
+        x0T, xsT, usT, KsT, ksT = (c["x0s"].T, c["xs"].permute(1, 2, 0), c["us"][:, :, 0].T,
+                                   Ks[:, :, 0].permute(1, 2, 0), ks[:, :, 0].T)
+        objs = _sweep(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, -bound, bound, *planes,
+                      (0.0,) * 4, dt, True, keep=False, reg=reg)[0]
+
+        def lane_finite(o):
+            return torch.stack([torch.isfinite(t.float()).reshape(B, -1).all(1) for t in o]).all(0)
+
+        kernel_only = int((~lane_finite(kk) & lane_finite(kp)).sum())
+        choice = lambda o: (objs - o[None]).abs().argmin(0)
+        pick = lambda i: objs.gather(0, i[None])[0]
+        ck, cq = choice(kk[2]), choice(kp[2])
+        same_choice = (ck == cq) | ((pick(ck) - pick(cq)).abs() <= K3_TIE * pick(cq).abs())
+        same_flags = (kk[3] == kp[3]) & (kk[4] == kp[4])
+        stalled = ((kk[2] - c["obj"]).abs() <= K3_TIE * c["obj"].abs()) \
+            & ((kp[2] - c["obj"]).abs() <= K3_TIE * c["obj"].abs())
+        agree_lane = stalled | (same_flags & same_choice)
+        agree = agree_lane[act].float().mean().item() if act.any() else 1.0
+        n_differ = int((act & ~agree_lane).sum())
+        lanes = same_flags & (ck == cq)
+        dx = (kk[0][lanes].double() - kp[0][lanes].double()).abs().amax(dim=(1, 2))
+        within = (dx <= TOL_K3 * kp[0][lanes].double().abs().amax(dim=(1, 2)).clamp_min(1e-30))
+        within = within.float().mean().item() if lanes.any() else 1.0
+        e_obj = rel_err(kk[2][lanes], kp[2][lanes]) if lanes.any() else 0.0
+        fin = lane_finite(kk)
+        obj64 = reg_lane_objective(kk[0], kk[1], cp, dt, S, mu) if reg is not None else \
+            lane_objective(kk[0], kk[1], cp, dt)
+        e_obj64 = float(((kk[2].double() - obj64).abs() / obj64.abs().clamp_min(1e-30))[fin].max())
+        du2_64 = ((kk[1].double() - c["us"].double()) ** 2).sum(dim=(1, 2))
+        e_du2 = rel_err(kk[7][fin], du2_64[fin])
+        c64 = coeffs.double()
+        j64 = K1.relin_jacobians_bm_plain(terms, kk[0][fin].double(), kk[1][fin].double(),
+                                          c64[:, :, fin].contiguous() if c64.ndim == 3 else c64)
+        e_jac = max(rel_err(kk[5][fin], j64[0]), rel_err(kk[6][fin], j64[1]))
+        print(f"[3] K3 batch-major {form}, {tag} B={B} H={H}: active lanes {int(act.sum())}; "
+              f"not finite only in the kernel {kernel_only}; decisions agree with the twin on "
+              f"{agree:.5f} of the active lanes ({n_differ} differ; min {K3_FAN_AGREE_MIN}, or "
+              f"one lane where the share leaves room for none); on the "
+              f"{int(lanes.sum())} lanes of equal decisions: states within {TOL_K3} on "
+              f"{within:.4f} (min {K3_FAN_WITHIN_MIN}), objective {e_obj:.3e}; vs float64 at "
+              f"the kernel's trajectories: objective {e_obj64:.3e}, du2 {e_du2:.3e} (tol "
+              f"{TOL_K3}), Jacobians {e_jac:.3e} (tol {TOL_K1})", flush=True)
+        if kernel_only or n_differ > max(1, int((1 - K3_FAN_AGREE_MIN) * int(act.sum()))) \
+                or within < K3_FAN_WITHIN_MIN \
+                or e_obj > TOL_K3 or max(e_obj64, e_du2) > TOL_K3 or e_jac > TOL_K1:
+            failures.append(f"K3 batch-major {form} ({tag}): kernel-only non-finite "
+                            f"{kernel_only}, agree {agree:.5f}, within {within:.4f}, obj "
+                            f"{e_obj:.3e}, obj64 {e_obj64:.3e}, du2 {e_du2:.3e}, jac {e_jac:.3e}")
+        call = lambda reg=reg: K3.fused_line_search_bm(*base, reg=reg)
+        timed = dict(ms=time_ms(call))
+        if plain is None:       # the top batch: the kernel's own time too
+            timed["device_ms"] = device_ms(call)
+        tensors = [t for t in base if isinstance(t, torch.Tensor)]
+        if reg is not None:
+            tensors.append(cp["regw"])
+        out[form] = dict(
+            max_abs_err=abs_err(kk[0][lanes], kp[0][lanes]) if lanes.any() else 0.0, **timed,
+            plain_ms=time_ms(lambda reg=reg: K3.fused_line_search_bm_plain(*base, reg=reg),
+                             **(plain or dict(reps=3))),
+            **k3_bm_bound(n_bytes(*tensors, *kk), B, H, len(terms), len(alphas),
+                          reg is not None))
+        if reg is not None:
+            zero = K3.fused_line_search_bm(*base, reg=(S, mu, torch.zeros_like(cp["regw"])))
+            none = K3.fused_line_search_bm(*base)
+            same = all(bits_equal(a, b) for a, b in zip(zero, none))
+            print(f"[3] K3 batch-major with the GaussReg term, {tag} B={B}: a zero weight "
+                  f"gives the instance without the term bit for bit: {same}", flush=True)
+            if not same:
+                failures.append(f"K3 batch-major ({tag}): a zero weight differs from no term")
+    return out, failures
+
+
+def check_bm_identity(tag, K3, terms, coeffs, c, cost, dt, alphas, bound):
+    """K3's batch-major entry given the transposes of the lanes-last
+    carry ``c`` (every lane active) against the lanes-last instance: the
+    same flags and du2 on every lane, the same trajectory and objective
+    where the lane did not fail, the same Jacobians where it also
+    succeeded, bit for bit. Returns failure strings."""
+    from autompc_torch.ops import cuda_riccati as K2
+
+    Hc, Bc = c["us"].shape
+    act = torch.ones(Bc, dtype=torch.bool, device=c["us"].device)
+    KsT, ksT, lin, quad = K2.backward_quad_ll(c["jac"], c["xs"], c["us"], *cost, dt, 4,
+                                              carry=(act, c["Ks"], c["ks"]))
+    ks_small = torch.sqrt((ksT * ksT).sum(0)) < 1e-3
+    lo, hi = -bound, bound
+    ll = K3.fused_line_search(terms, c["x0s"], c["xs"], c["us"], KsT, ksT, coeffs, alphas, lo,
+                              hi, *cost, dt, c["obj"], lin, quad, ks_small, act, c["jac"])
+    bm = K3.fused_line_search_bm(
+        terms, c["x0s"].T.contiguous(), c["xs"].permute(2, 0, 1).contiguous(),
+        c["us"].T[:, :, None].contiguous(), KsT.permute(2, 0, 1)[:, :, None, :].contiguous(),
+        ksT.T[:, :, None].contiguous(), coeffs, alphas, lo, hi, *cost, dt, c["obj"], lin, quad,
+        ks_small)
+    moved, jl = ~ll[4], ~ll[4] & ll[3]
+    jac = ll[5].reshape(Hc, 4, 5, Bc).permute(3, 0, 1, 2)
+    same = {
+        "flags": bits_equal(bm[3], ll[3]) and bits_equal(bm[4], ll[4]),
+        "du2": bits_equal(bm[7], ll[6]),
+        "xs": bits_equal(bm[0][moved], ll[0].permute(2, 0, 1)[moved]),
+        "us": bits_equal(bm[1][moved], ll[1].T[:, :, None][moved]),
+        "obj": bits_equal(bm[2][moved], ll[2][moved]),
+        "Jx": bits_equal(bm[5][jl], jac[jl][..., :4].contiguous()),
+        "Ju": bits_equal(bm[6][jl], jac[jl][..., 4:].contiguous()),
+    }
+    print(f"[3] K3 batch-major entry on the transposed lanes-last carry, {tag} B={Bc} H={Hc}: "
+          f"bit for bit the lanes-last instance ({int(moved.sum())} lanes that did not fail, "
+          f"{int(jl.sum())} that also succeeded): {same}", flush=True)
+    return [] if all(same.values()) else [f"K3 batch-major vs lanes-last ({tag}): {same}"]
+
+
+def check_gauss_reg_kernels(gr, model, bench, dev, K1, K3, K4, alphas):
+    """Phase 3's checks on phase 13's paths: K3's batch-major entry with
+    and without the GaussReg term on (a1)'s carry (shared coefficients)
+    and (b1)'s (per-lane coefficients, the 55-term library) three
+    iterations in, at every batch size (a1) and (b1) launched it with,
+    and K4 at (4, 1) on (a1)'s dense expansions. Returns (the K3 report
+    rows, K4's measurement, failure strings)."""
+    from autompc_torch.ops import _build
+
+    dt, bound = bench.system.dt, float(bench.task.get_ctrl_bounds()[0, 1])
+    S, mu, init = gr["S"], gr["mu"], bench.task.get_init_obs()
+    fa, fb = gr["fans"]["a1"], gr["fans"]["b1"]
+    mask = fa.solver_kw.get("feature_mask") or tuple(range(model.library.n_features))
+    ca = gauss_reg_carry(model.pred_core, fa, gr["batch"], model.params, FAN_H, init)
+    lanes = fb.train_lanes(gr["joint_batch"]["reg"])
+    cb = gauss_reg_carry(fb._pred_core, fb, gr["joint_batch"], {"coeffs": lanes}, JS_H, init)
+    rows, failures = [], []
+    for cfg, c, terms, coef, name, lane in (
+        ("a1", ca, tuple(model.library.terms[k] for k in mask),
+         lambda sub: model.coeffs[:, list(mask)].contiguous(), "fused_line_search_bm[", 0),
+        ("b1", cb, tuple(fb.library.terms),
+         lambda sub: sub["params"]["coeffs"].permute(1, 2, 0).contiguous(),
+         f"fused_line_search_bm_lane[F={fb.n_features},", 1),
+    ):
+        counts, by_B = gr["counts"][cfg]
+        Bs_list = sorted(by_B["fused_line_search_bm"], reverse=True)
+        meas = {}
+        for Bs in Bs_list:
+            sub = sub_carry(c, Bs)
+            # The plain twins (0.05-0.4 s a call) timed once below the
+            # top batch.
+            meas[Bs], fails = check_k3_bm(
+                f"GaussReg fan-out ({cfg}) carry", K1, K3, K4, terms, coef(sub), sub, S, mu, dt,
+                alphas, bound, plain=None if Bs == Bs_list[0] else dict(reps=1, warm=0))
+            failures += fails
+        g = K3.fused_geometry(Bs_list[0], len(alphas), _build.sm_count(dev))
+        regs = {form: _build.occupancy("ampc_fused_line_search_bm_occupancy", lane, reg,
+                                       g["threads"], dev.index or 0)["registers"]
+                for form, reg in (("reg", 1), ("no_reg", 0))}
+        top = meas[Bs_list[0]]
+        at = {f"at_B{Bs}_H{FAN_H}": dict(meas[Bs]["reg"], launches=by_B["fused_line_search_bm"][Bs])
+              for Bs in Bs_list[1:]}
+        for w in at.values():
+            w.pop("library_ms")
+        no_reg = dict(top["no_reg"], registers=regs["no_reg"])
+        no_reg.pop("library_ms")
+        rows.append(dict(
+            name=f"{name}reg,B={Bs_list[0]},H={FAN_H},per-lane cost]", route="cuda",
+            source="autompc_torch/csrc/linesearch_fused.cu",
+            replaces="autompc_tpu/ops/pallas_linesearch.py:803",
+            launches=counts["fused_line_search_bm"],
+            launches_by_B=by_B["fused_line_search_bm"], registers=regs["reg"],
+            **top["reg"], no_reg=no_reg, **at))
+    k4_args = (ca["Jx"], ca["Ju"], *gauss_reg_expansions(ca, S, mu, dt))
+    k4_row, fails, _, _ = check_k4(f"GaussReg fan-out (a1) carry (B={FAN_B}, H={FAN_H})", K4,
+                                   k4_args, gr["counts"]["a1"][1]["riccati_general"].get(FAN_B, 0),
+                                   device_time=True)
+    failures += fails
+    return rows, k4_row, failures
+
+
 def main(profile=False):
     dev = check_device()
     from autompc_torch.benchmarks import CartpoleSwingupBenchmark, HalfcheetahBenchmark
@@ -1995,6 +2568,17 @@ def main(profile=False):
               f"{g['blocks']} blocks; {o['registers']} registers, {o['local_bytes']} local "
               f"bytes; {o['blocks_per_sm']} blocks = "
               f"{o['blocks_per_sm'] * -(-g['threads'] // 32)} warps resident an SM", flush=True)
+    # K3's batch-major instances at phase 13's batch.
+    for lane, reg in ((0, 1), (1, 1), (0, 0), (1, 0)):
+        g = K3.fused_geometry(FAN_B, 10, _build.sm_count(dev))
+        o = _build.occupancy("ampc_fused_line_search_bm_occupancy", lane, reg, g["threads"],
+                             dev.index or 0)
+        print(f"[1] K3 batch-major{' with the GaussReg term' if reg else ''}, "
+              f"{'per-lane' if lane else 'shared'} coefficients, B={FAN_B}: "
+              f"{g['lanes_per_block']} lanes x 10 = {g['threads']} threads, {g['blocks']} blocks; "
+              f"{o['registers']} registers, {o['local_bytes']} local bytes; "
+              f"{o['blocks_per_sm']} blocks = {o['blocks_per_sm'] * -(-g['threads'] // 32)} warps "
+              f"resident an SM", flush=True)
     # K8 (K3's geometry) at the shapes check_wide holds it at.
     for B in (B_SOLVE, B_KERNEL, B_WIDE_LAST):
         g = K3.fused_geometry(B, 10, _build.sm_count(dev))
@@ -2321,6 +2905,13 @@ def main(profile=False):
     js = joint_sindy_phase(bench, model, trajs, dev, card, js_wrappers, profile=profile)
     js_tune, js_split = joint_sindy_tune(bench, model, trajs, dev, card, js_wrappers["b"])
     print(f"[12] phase wall {time.perf_counter() - t12:.2f} s", flush=True)
+
+    # ---- [13] the GaussReg / SumCost costs ------------------------------------
+    t13 = time.perf_counter()
+    gr_wrappers = gauss_reg_counters(K1, K3, K4)
+    gr = gauss_reg_phase(bench, model, trajs, dev, card, gr_wrappers)
+    gr_tune = gauss_reg_tune(bench, model, trajs, dev, card, gr_wrappers["2"])
+    print(f"[13] phase wall {time.perf_counter() - t13:.2f} s", flush=True)
 
     # ---- [3] kernels vs plain twins on path inputs -----------------------
     _, make_carry0, _, _ = make_batched_ilqr_solver(
@@ -2892,6 +3483,10 @@ def main(profile=False):
                     agree_min=K3_FAN_AGREE_MIN, within_min=K3_FAN_WITHIN_MIN, split=True),
         cfa, "per-lane cost", fan_launches["a"],
     )
+    # K3's batch-major entry on the same carry, transposed: the lanes-last
+    # instance's results bit for bit.
+    failures += check_bm_identity("fan-out (a) carry", K3, terms, ca, cfa, fan_cost, dt, alphas,
+                                  float(bounds[0, 1]))
 
     # K1's batch-major entry, K6 and K7 at every batch size configuration
     # (b) launched them with (B=1,024 and its compaction stages, H=10): the
@@ -3089,6 +3684,8 @@ def main(profile=False):
                 launches_joint_tune=js_tune[tune_key].get(name, 0), **at))
         if size:
             continue
+        failures += check_bm_identity(f"joint fan-out (a) carry, per-lane coefficients, {tag}",
+                                      K3, tms, cja["params"], cja, ja_cost, dt, alphas, bound_b)
         # Copies of one matrix (phase 2's model over the whole library)
         # through the per-lane instances against the shared instances.
         C1 = model.coeffs.contiguous()
@@ -3113,6 +3710,33 @@ def main(profile=False):
         if not all(same.values()):
             failures.append(f"per-lane instances with copies differ from the shared ones: {same}")
 
+    # Phase 13's kernels: K3's batch-major entry (with and without the
+    # GaussReg term, shared and per-lane coefficients) on (a1)'s and
+    # (b1)'s carries, K4 at (4, 1) on (a1)'s dense expansions; the
+    # phase's launches of K1's batch-major entry, K4 and K7 beside their
+    # rows.
+    gr_rows, gr_k4, fails = check_gauss_reg_kernels(gr, model, bench, dev, K1, K3, K4, alphas)
+    failures += fails
+    report += gr_rows
+    gr_counts = {cfg: counts for cfg, (counts, _) in gr["counts"].items()}
+    gr_counts["tune"] = gr_tune[0]
+    lane_tag = f"_lane[F={gr['fans']['b1'].n_features},"
+    for r in report:
+        base = r["name"].split("[")[0]
+        if r["name"] == "riccati_general[4,1]":
+            r["launches_gauss_reg"] = {k: v["riccati_general"] for k, v in gr_counts.items()}
+            r[f"at_B{FAN_B}_H{FAN_H}_gauss_reg"] = {
+                k: v for k, v in gr_k4.items()
+                if k not in ("name", "route", "source", "replaces", "library_ms")}
+        for name in ("relin_jacobians_bm", "sindy_line_search"):
+            # The fixed model's configurations and the tune on the shared
+            # instances' rows, the joint ones on the per-lane rows.
+            cfgs = (("a1", "a2", "tune") if base == name else ("b1", "b2")
+                    if r["name"].startswith(name + lane_tag) else ())
+            if cfgs:
+                r["launches_gauss_reg"] = {k: gr_counts[k][name] for k in cfgs
+                                           if name in gr_counts[k]}
+
     def device_txt(w):
         return ((f" (device {w['device_ms']:.4f})" if "device_ms" in w else "")
                 + (f" (its lanes-last entry on the same points: device "
@@ -3136,14 +3760,16 @@ def main(profile=False):
               + (f"; {r['launches_joint_mlp']} in the joint-MLP tune "
                  f"{r['launches_joint_mlp_by_B']} by B" if "launches_joint_mlp" in r else "")
               + (f"; {r['launches_joint_tune']} in the joint-SINDy tune"
-                 if "launches_joint_tune" in r else ""))
+                 if "launches_joint_tune" in r else "")
+              + (f"; in phase 13 {r['launches_gauss_reg']}" if "launches_gauss_reg" in r else "")
+              + (f"; {r['registers']} registers" if "registers" in r else ""))
         if "lane_cost_ms" in r:
             print(f"        with per-lane cost planes at this shape: kernel "
                   f"{r['lane_cost_ms']:.3f} ms (no path launches it so)")
         if "split_entry_ms" in r:
             print(f"        {split_txt(r)}")
         for key, w in r.items():
-            if key.startswith("at_B") or key == "bf16_jac":
+            if key.startswith("at_B") or key in ("bf16_jac", "no_reg"):
                 print(f"        {key}: kernel {w['ms']:.3f} ms{device_txt(w)}, plain "
                       f"{w['plain_ms']:.3f} ms, bound {w['bound_ms']:.4f} ms ({w['bound_by']})"
                       + (f", {w['launches']} launches" if "launches" in w else "")

@@ -109,7 +109,9 @@ def test_parse_schedule_matches():
 
 
 @pytest.mark.parametrize("option, value, match", [
-    ("lanes_last", False, "batch-major"),
+    # lanes_last with the GaussReg term (its stage hessian is dense), as
+    # the JAX solver refuses it.
+    (("quad_cost_batch", "reg_matrix"), (True, np.eye(4)), "lanes_last"),
     ("horizon_mask", True, "horizon_mask"),
     ("pad_to", 64, "pad_to"),
     ("batch_params", True, "batch_params"),
@@ -126,7 +128,7 @@ def test_parse_schedule_matches():
 def test_unported_options_raise(setup, option, value, match):
     _, t, _, tcost, common = setup
     kw = dict(common, feature_spec=(t.library, "coeffs"))
-    kw[option] = value
+    kw.update(zip(option, value) if isinstance(option, tuple) else [(option, value)])
     # pad_to belongs to JointMLPQuadCostFanout, not to the solver (as in
     # the JAX package): the solver does not take the keyword.
     with pytest.raises(TypeError if option == "pad_to" else ValueError, match=match):

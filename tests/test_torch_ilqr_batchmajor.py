@@ -232,8 +232,12 @@ def test_receding_loop_matches_jax_at_dc6(cheetah):
     (dict(reg_matrix=np.eye(4)), "reg_matrix"),
     (dict(horizon_mask=True), "horizon_mask"),
     (dict(pad_to=64), "pad_to"),
-    (dict(feature_spec=(None, "coeffs"), fuse_ls=True), "batch-major"),
-    (dict(fuse_ls=True), "batch-major"),
+    # The GaussReg term without per-lane costs, and with the lanes-last
+    # body: refused as in the JAX solver.
+    (dict(feature_spec=(None, "coeffs"), fuse_ls=True, reg_matrix=np.eye(4)),
+     "quad_cost_batch"),
+    (dict(fuse_ls=True, quad_cost_batch=True, reg_matrix=np.eye(4), lanes_last=True),
+     "lanes_last"),
     (dict(ls_wide=True, jac_dtype="bf16"), "lanes-last"),
     (dict(jac_dtype="bf16"), "bf16"),
     (dict(jac_dtype="f16"), "jac_dtype"),

@@ -269,8 +269,9 @@ def _fanout(**kw):
     (dict(impl="vmap"), "impl='vmap'"),
     (dict(impl="other"), "impl must be"),
     (dict(mesh=object()), "mesh"),
-    (dict(reg_matrix=[[1.0]]), "reg_matrix"),
-    (dict(fuse_ls=True, lanes_last=False), "fuse_ls with the batch-major"),
+    (dict(impl="vmap", reg_matrix=[[1.0]]), "reg_matrix requires impl='batched'"),
+    (dict(fuse_ls=True, lanes_last=True, backward="pallas", reg_matrix=torch.eye(4).numpy()),
+     "lanes_last"),
     # Without a feature_spec the batch-major body relinearizes by jacfwd
     # (tests/test_torch_joint_sindy.py); the lanes-last body still needs one.
     (dict(feature_spec=None, lanes_last=True, fuse_ls=True, backward="pallas"), "jacfwd"),

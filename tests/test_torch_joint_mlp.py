@@ -384,9 +384,14 @@ def test_fanout_pads_to_pad_to_and_refuses_mesh_and_reg_matrix(setup):
     full, B = fan._prepare(s["batch"])
     assert B == 3 and full["lr"].shape == (16,) and full["net0"][0]["W"].shape == (16, 5, MAXW)
     assert full["horizons"].tolist() == [4, 6, 5] + [5] * 13
-    for name, kw in (("mesh", dict(mesh=object())), ("reg_matrix", dict(reg_matrix=np.eye(4)))):
-        with pytest.raises(ValueError, match=name):
-            TJoint(s["tb"].system, s["ttask"], BUCKET, s["ttrajs"], s["tsur"], device="cpu", **kw)
+    with pytest.raises(ValueError, match="mesh"):
+        TJoint(s["tb"].system, s["ttask"], BUCKET, s["ttrajs"], s["tsur"], device="cpu",
+               mesh=object())
+    # Built with the GaussReg term, it refuses a batch without the weights.
+    fan = TJoint(s["tb"].system, s["ttask"], BUCKET, s["ttrajs"], s["tsur"], device="cpu",
+                 reg_matrix=np.eye(4))
+    with pytest.raises(ValueError, match="regw"):
+        fan._prepare(s["batch"])
 
 
 # ---- (h) the tuner's kind "joint_mlp" -----------------------------------------

@@ -389,8 +389,12 @@ def test_fanout_refuses_mesh_and_reg_matrix(setup):
     args = (s["tb"].system, s["ttask"], dict(LIBS[15]), s["ttr"], s["tsurr"])
     with pytest.raises(ValueError, match="mesh"):
         TJoint(*args, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="reg_matrix"):
-        TJoint(*args, reg_matrix=np.eye(4), device="cpu")
+    # Built with the GaussReg term, it refuses a batch without the weights.
+    fan = TJoint(s["tb"].system, s["ttask"], dict(LIBS[15], method="lstsq"), s["ttr"],
+                 s["tsurr"], horizon=H_FAN, n_steps=STEPS_FAN, reg_matrix=np.eye(4),
+                 device="cpu")
+    with pytest.raises(ValueError, match="regw"):
+        fan(_candidates("lstsq"))
 
 
 # ---- (d) the tuner ---------------------------------------------------------------
