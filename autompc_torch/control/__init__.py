@@ -1,4 +1,5 @@
 from .controller import Controller, ControllerFactory
+from .zero import ZeroController, ZeroControllerFactory
 from .ilqr import (
     IterativeLQR,
     IterativeLQRFactory,
@@ -7,4 +8,6 @@ from .ilqr import (
     make_scheduled_ilqr_solver,
     parse_schedule,
 )
-from .receding import make_receding_ilqr_loop
+from .mppi import MPPI, MPPIFactory
+from .nmpc import DirectTranscriptionController, DirectTranscriptionControllerFactory
+from .receding import make_receding_ilqr_loop, make_receding_mppi_loop, make_receding_sqp_loop

@@ -48,6 +48,11 @@ class Controller(ABC):
         """Initial controller state from a trajectory history."""
         raise NotImplementedError
 
+    def run(self, cstate, new_obs):
+        """One controller step: a plain call of ``step`` (the JAX
+        package's jitted step)."""
+        return self.step(cstate, new_obs)
+
     def reset(self):
         """Warm-start caches live in the controller state, so reset is a
         no-op kept for API parity."""

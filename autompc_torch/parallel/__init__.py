@@ -1,2 +1,8 @@
-from .fanout import JointMLPQuadCostFanout, JointSINDyQuadCostFanout, QuadCostFanout
+from .fanout import (
+    DirectTranscriptionFanout,
+    JointMLPQuadCostFanout,
+    JointSINDyQuadCostFanout,
+    MPPIFanout,
+    QuadCostFanout,
+)
 from .mesh import pad_to_multiple

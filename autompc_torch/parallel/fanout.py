@@ -20,9 +20,13 @@ mu)' S (x - mu)`` on every stage with S and mu shared and a lane's
 weight ``regw`` (B,) in every batch (``_validate_regw``), solved by the
 batch-major body (``make_batched_ilqr_solver``'s ``reg_matrix``).
 
-The joint ARX, Koopman and GP fan-outs, the direct-transcription
-and MPPI fan-outs, ``impl="vmap"`` and the device mesh of the JAX
-package are not ported yet (ROADMAP.md §A).
+``MPPIFanout`` and ``DirectTranscriptionFanout`` score MPPI and
+direct-transcription candidates (a temperature, a noise scale and cost
+gains; cost gains at one knot count) the same way, every MPC step one
+batched controller update of all B lanes.
+
+The joint ARX, Koopman and GP fan-outs, ``impl="vmap"`` and the device
+mesh of the JAX package are not ported yet (ROADMAP.md §A).
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from ..ops.lstsq import fista_lasso, gram_stage, stlsq_gram
 from ..sysid.basis import finite_difference
 from ..sysid.mlp import epoch_perms, net_apply, net_apply_jac, zscore_pairs
 from ..sysid.sindy import SINDy
+from ..utils.simulation import rollout_scan
 from .mesh import pad_to_multiple
 
 # Candidates are padded to a multiple of this, so that ragged batch
@@ -708,3 +713,188 @@ class JointMLPQuadCostFanout:
         every padded lane."""
         full, _ = self._prepare(batch, init_nets)
         return self._train(full, perms)
+
+
+def _fixed_model_setup(system, task, model, surrogate, device):
+    """What a fixed-model fan-out closes its loop with: (device, dtype
+    and device keywords, the model's and the surrogate's params there,
+    the start observation, the model's state at it)."""
+    dev = resolve_device(device)
+    on = dict(dtype=default_dtype(dev), device=dev)
+
+    def on_device(params):
+        return {k: (v.to(**on) if isinstance(v, torch.Tensor) else v)
+                for k, v in params.items()}
+
+    init_obs = torch.as_tensor(np.asarray(task.get_init_obs()), **on)
+    mstate0 = model.traj_to_state(traj_zeros(system, 1, **on).set_obs(0, init_obs))
+    return dev, on, on_device(model.params), on_device(surrogate.params), init_obs, mstate0
+
+
+def _episode_cost(task_cost, all_obs, ctrls):
+    """The task cost of closed-loop episodes: obs (n+1, B, n_obs) (every
+    observation, the last one too), ctrls (n, B, m); a non-finite total
+    scored ``inf``."""
+    total = (task_cost.eval_obs_cost(all_obs).sum(0) + task_cost.eval_ctrl_cost(ctrls).sum(0)
+             + task_cost.eval_term_obs_cost(all_obs[-1]))
+    return torch.where(torch.isfinite(total), total, torch.full_like(total, float("inf")))
+
+
+def _stage_batch(params_batch, keys, on):
+    return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v, **on)
+            for k, v in params_batch.items() if k in keys}
+
+
+class DirectTranscriptionFanout:
+    """Evaluate a batch of diagonal quadratic-cost candidates, each with a
+    direct-transcription (SQP) controller, for a fixed model/surrogate
+    pair. ``horizon_knots`` is the knot count (the factory's horizon is
+    in seconds: ``control/nmpc.py::knot_count``), one fan-out a knot
+    count.
+
+    ``__call__(batch)`` takes ``Qdiag`` (B, n), ``Rdiag`` (B, m),
+    ``Fdiag`` (B, n) (and ``regw`` (B,) with ``reg_matrix``, the GaussReg
+    term of a SumCost candidate) and returns the task costs (B,) of the
+    closed loops on the surrogate; a non-finite one scores ``inf``. Every
+    MPC step is one SQP solve of all B lanes (``make_sqp_solver`` with
+    per-lane costs), with the task's observation bounds and the model
+    differentiated by ``torch.func.jacfwd``, as in the JAX package; each
+    solve starts from the previous step's solution. ``mesh`` raises.
+    Runs on the card unless ``device`` names another device.
+    """
+
+    def __init__(self, system, task, model, surrogate, horizon_knots: int = 20,
+                 n_steps: Optional[int] = None, mesh=None, goal=None, reg_matrix=None,
+                 reg_goal=None, device=None):
+        from ..control.nmpc import make_sqp_solver
+
+        if mesh is not None:
+            raise ValueError(
+                "mesh (candidates sharded over several cards) is not ported to "
+                "autompc_torch yet; pass mesh=None"
+            )
+        self._has_reg = reg_matrix is not None
+        n_steps = n_steps or (task.get_num_steps() or 200) - 1
+        task_cost = task.get_cost()
+        if goal is None:
+            goal = task_cost.get_goal() if task_cost is not None else np.zeros(system.obs_dim)
+        bounds = task.get_ctrl_bounds()
+        H, ds, dc, n = int(horizon_knots), model.state_dim, system.ctrl_dim, system.obs_dim
+        self.device, on, model_params, surr_params, init_obs, mstate0 = _fixed_model_setup(
+            system, task, model, surrogate, device)
+        ob = task.get_obs_bounds()
+        solve = make_sqp_solver(
+            model.pred_core, None, H=H, ds=ds, dc=dc, obsdim=n, dt=system.dt,
+            ubounds=(np.where(np.isfinite(bounds[:, 0]), bounds[:, 0], -1e9),
+                     np.where(np.isfinite(bounds[:, 1]), bounds[:, 1], 1e9)),
+            xbounds=(ob[:, 0], ob[:, 1]) if task.are_obs_bounded() else None,
+            quad_cost_batch=True, quad_goal=np.asarray(goal, dtype=float),
+            **_reg_kw(reg_matrix, reg_goal),
+        )
+
+        def eval_batch(cp):
+            B = cp["Qdiag"].shape[0]
+
+            def ctrl_step(cstate, obs):
+                mstate, last_u, xs_g, us_g = cstate
+                state = model.update_state_core(model_params, mstate, last_u, obs)
+                xs, us = solve(model_params, state, xs_g, us_g, cp)
+                # The next MPC step starts from this solution.
+                return us[:, 0], (state, us[:, 0], xs, us)
+
+            obs0 = init_obs.expand(B, n)
+            cstate0 = (mstate0.expand((B,) + tuple(mstate0.shape)), obs0.new_zeros((B, dc)),
+                       obs0.new_zeros((B, H + 1, ds)), obs0.new_zeros((B, H, dc)))
+            all_obs, ctrls, _ = rollout_scan(
+                ctrl_step, lambda o, u: surrogate.pred_core(surr_params, o, u)[..., :n],
+                cstate0, obs0, n_steps)
+            return _episode_cost(task_cost, all_obs, ctrls)
+
+        self._eval = lambda batch: eval_batch(_stage_batch(batch, _COST_KEYS, on))
+
+    def __call__(self, params_batch):
+        _validate_regw(params_batch, self._has_reg, type(self).__name__)
+        return self._eval(params_batch)
+
+
+class MPPIFanout:
+    """Evaluate a batch of MPPI candidates, each with its own ``sigma``,
+    ``lmda`` (B,) and diagonal quadratic cost ``Qdiag`` (B, n), ``Rdiag``
+    (B, m), ``Fdiag`` (B, n) (and ``regw`` (B,) with ``reg_matrix``), for
+    a fixed model/surrogate pair at one (``horizon``, ``num_path``)
+    bucket. Returns the task costs (B,) of the closed loops on the
+    surrogate; a non-finite one scores ``inf``.
+
+    Every MPC step is one batched MPPI update of all B lanes
+    (``control/mppi.py::mppi_rollouts``: the B x num_path rollouts in one
+    model call a horizon step). Every lane draws the same standard
+    normals, each scaled by its own sqrt(sigma), as every lane of the JAX
+    package's fan-out uses the same key: one (H, num_path, dc) draw a
+    step, the sequential controller's (seed, n) chain, so a lane scores
+    as ``MPPI(..., seed=seed)`` under ``simulate``. ``mesh`` raises. Runs
+    on the card unless ``device`` names another device.
+    """
+
+    def __init__(self, system, task, model, surrogate, horizon: int = 20, num_path: int = 512,
+                 n_steps: Optional[int] = None, mesh=None, seed: int = 0, goal=None,
+                 reg_matrix=None, reg_goal=None, device=None):
+        from ..control import mppi as mppi_module
+        from ..control.mppi import ctrl_scaling, mppi_rollouts, mppi_update
+        from ..costs.lane_costs import DiagQuadLanes
+
+        if mesh is not None:
+            raise ValueError(
+                "mesh (candidates sharded over several cards) is not ported to "
+                "autompc_torch yet; pass mesh=None"
+            )
+        self._has_reg = reg_matrix is not None
+        n_steps = n_steps or (task.get_num_steps() or 200) - 1
+        task_cost = task.get_cost()
+        n, dc = system.obs_dim, system.ctrl_dim
+        if goal is None:
+            goal = (task_cost.get_goal() if task_cost is not None and task_cost.has_goal
+                    else np.zeros(n))
+        H, P = int(horizon), int(num_path)
+        self.device, on, model_params, surr_params, init_obs, mstate0 = _fixed_model_setup(
+            system, task, model, surrogate, device)
+        umin_n, umax_n, scale = (init_obs.new_tensor(v)
+                                 for v in ctrl_scaling(task.get_ctrl_bounds()))
+        goal = init_obs.new_tensor(np.asarray(goal, dtype=float))
+        reg = None
+        if reg_matrix is not None:
+            reg = tuple(init_obs.new_tensor(np.asarray(v, dtype=float)) for v in (
+                reg_matrix, np.zeros(n) if reg_goal is None else reg_goal))
+
+        def eval_batch(cp):
+            B = cp["Qdiag"].shape[0]
+            sigma, lmda = cp["sigma"], cp["lmda"]
+            root = torch.sqrt(sigma)
+            lane_cost = DiagQuadLanes(cp, goal, reg)
+
+            def ctrl_step(cstate, obs):
+                mstate, last_u, seq, k = cstate
+                x0 = model.update_state_core(model_params, mstate, last_u, obs)
+                seq = torch.cat([seq[:, 1:], seq[:, -1:]], dim=1)
+                z = mppi_module.standard_normal((H, P, dc), (seed, k), obs)
+                eps = root[:, None, None, None] * z
+                costs, eps = mppi_rollouts(model.pred_core, model_params, x0, seq, eps,
+                                           lane_cost, lmda, sigma, umin_n, umax_n, scale, n)
+                seq = mppi_update(seq, costs, eps, lmda)
+                u = seq[:, 0] * scale
+                return u, (x0, u, seq, k + 1)
+
+            obs0 = init_obs.expand(B, n)
+            seq0 = root[:, None, None] * mppi_module.standard_normal((H, dc), (seed, 0), obs0)
+            cstate0 = (mstate0.expand((B,) + tuple(mstate0.shape)), obs0.new_zeros((B, dc)),
+                       seq0, 1)
+            all_obs, ctrls, _ = rollout_scan(
+                ctrl_step, lambda o, u: surrogate.pred_core(surr_params, o, u)[..., :n],
+                cstate0, obs0, n_steps)
+            return _episode_cost(task_cost, all_obs, ctrls)
+
+        self._eval = lambda batch: eval_batch(
+            _stage_batch(batch, _COST_KEYS + ("sigma", "lmda"), on))
+
+    def __call__(self, params_batch):
+        _validate_regw(params_batch, self._has_reg, type(self).__name__)
+        return self._eval(params_batch)

@@ -16,7 +16,12 @@ one simulation per candidate, with a ``QuadCostFactory``, a
 ``reg_matrix``, each candidate's ``reg_weight`` as its lane's ``regw``)
 and an ``IterativeLQRFactory``: for a fixed model (kind ``"ilqr"``) the batch
 is bucketed by horizon and every bucket is one
-``parallel/fanout.py::QuadCostFanout`` call; for a ``SINDyFactory``
+``parallel/fanout.py::QuadCostFanout`` call; with an ``MPPIFactory`` (kind
+``"mppi"``) by (horizon, num_path), every bucket one ``MPPIFanout`` call
+whose lanes carry their ``sigma`` and ``lmda``; with a
+``DirectTranscriptionControllerFactory`` (kind ``"dt"``) by knot count
+(ceil(horizon / dt), the horizon in seconds), every bucket one
+``DirectTranscriptionFanout`` call; for a ``SINDyFactory``
 (kind ``"joint_sindy"``) it is bucketed by the SINDy basis (the
 library, time mode and method: ``sindy_bucket``) and horizon, and every
 bucket is one ``JointSINDyQuadCostFanout`` call, which trains a model
@@ -27,8 +32,8 @@ upper bound and every lane solves at its own — and every bucket is one
 ``JointMLPQuadCostFanout`` call, which trains a net per candidate. The
 true-dynamics scores take a second call with ``FunctionModel(system,
 truedyn)`` as its surrogate. Every other fan-out kind of the JAX
-package (the joint ARX, Koopman and GP fan-outs, MPPI, direct
-transcription), the ``"autotune"``/``"autoselect"`` surrogate modes and
+package (the joint ARX, Koopman and GP fan-outs), the
+``"autotune"``/``"autoselect"`` surrogate modes and
 ``mesh`` raise ``ValueError`` by name; a pipeline
 that has no fan-out at all falls back to the sequential objective with a
 warning, as in the JAX package. Every tensor the tuner makes is on the
@@ -71,8 +76,8 @@ PipelineTuneResult = namedtuple(
 
 # Fan-out kinds of the JAX package by the class name of the pipeline's
 # model factory (with an IterativeLQRFactory) or, for a fixed model, of
-# its controller factory. "ilqr", "joint_sindy" and "joint_mlp" are
-# ported.
+# its controller factory. "ilqr", "mppi", "dt", "joint_sindy" and
+# "joint_mlp" are ported.
 _JOINT_KINDS = {
     "SINDyFactory": "joint_sindy", "ARXFactory": "joint_arx", "MLPFactory": "joint_mlp",
     "KoopmanFactory": "joint_koopman", "ApproximateGPModelFactory": "joint_gp",
@@ -83,7 +88,7 @@ _FIXED_KINDS = {
 }
 # A candidate whose controller or rollout fails this way scores inf; a
 # refusal by name (NotPortedError, a ValueError) reaches the caller.
-_PORTED_KINDS = (None, "ilqr", "joint_mlp", "joint_sindy")
+_PORTED_KINDS = (None, "ilqr", "mppi", "dt", "joint_mlp", "joint_sindy")
 _CANDIDATE_ERRORS = (np.linalg.LinAlgError, torch.linalg.LinAlgError, FloatingPointError,
                      ValueError)
 
@@ -215,13 +220,18 @@ class PipelineTuner:
                            sysid_trajs=None):
         """Score ``cfgs`` through one fan-out call per bucket, each
         fan-out built once and kept in ``fanouts``: ``QuadCostFanout``
-        by horizon (kind "ilqr"), ``JointSINDyQuadCostFanout`` by
+        by horizon (kind "ilqr"), ``MPPIFanout`` by (horizon, num_path)
+        (kind "mppi"), ``DirectTranscriptionFanout`` by knot count (kind
+        "dt"), ``JointSINDyQuadCostFanout`` by
         (sorted ``sindy_bucket`` items, horizon) (kind "joint_sindy"),
         ``JointMLPQuadCostFanout`` by (n_hidden_layers, nonlintype,
         horizon) (kind "joint_mlp"). Returns costs aligned with ``cfgs``."""
+        from ..control.nmpc import knot_count
         from ..parallel.fanout import (
+            DirectTranscriptionFanout,
             JointMLPQuadCostFanout,
             JointSINDyQuadCostFanout,
+            MPPIFanout,
             QuadCostFanout,
         )
 
@@ -249,10 +259,11 @@ class PipelineTuner:
         # ControllerFactory.__call__.
         overrides = getattr(pipeline.controller_factory, "kwargs", {})
 
+        def ck(cfg, name, default):
+            return overrides[name] if name in overrides else cfg.get(f"_ctrlr:{name}", default)
+
         def horizon(cfg):
-            if "horizon" in overrides:
-                return int(overrides["horizon"])
-            return int(cfg.get("_ctrlr:horizon", 20))
+            return int(ck(cfg, "horizon", 20))
 
         # Model-factory hyperparameters resolve the same way
         # (ModelFactory.__call__: the factory's keyword arguments win).
@@ -291,6 +302,11 @@ class PipelineTuner:
                        h_upper if hmask_on else horizon(cfg))
             elif kind == "joint_sindy":
                 key = (tuple(sorted(sindy_bucket(cfg).items())), horizon(cfg))
+            elif kind == "mppi":
+                key = (horizon(cfg), int(ck(cfg, "num_path", 200)))
+            elif kind == "dt":
+                # The factory's horizon is in seconds.
+                key = knot_count(ck(cfg, "horizon", 20), system.dt)
             else:
                 key = horizon(cfg)
             buckets.setdefault(key, []).append(idx)
@@ -325,6 +341,16 @@ class PipelineTuner:
                     warm_start=self.fanout_warm_start, backward=self.fanout_backward,
                     use_feature_kernels=self.fanout_feature_kernels, device=device, **reg_kw,
                 )
+            elif key not in fanouts and kind == "mppi":
+                fanouts[key] = MPPIFanout(
+                    system, task, pipeline.model, surrogate, horizon=key[0], num_path=key[1],
+                    n_steps=n_steps, goal=goal, device=device, **reg_kw,
+                )
+            elif key not in fanouts and kind == "dt":
+                fanouts[key] = DirectTranscriptionFanout(
+                    system, task, pipeline.model, surrogate, horizon_knots=key,
+                    n_steps=n_steps, goal=goal, device=device, **reg_kw,
+                )
             elif key not in fanouts:
                 fanouts[key] = QuadCostFanout(
                     system, task, pipeline.model, surrogate, horizon=key, n_steps=n_steps,
@@ -357,6 +383,9 @@ class PipelineTuner:
                 batch["lr"] = np.array([float(mk(cfgs[i], "lr", 1e-3)) for i in idxs])
                 if hmask_on:
                     batch["horizons"] = np.array([horizon(cfgs[i]) for i in idxs])
+            elif kind == "mppi":
+                for name in ("sigma", "lmda"):
+                    batch[name] = np.array([float(ck(cfgs[i], name, 1.0)) for i in idxs])
             elif kind == "joint_sindy":
                 lasso = dict(key[0])["method"] == "lasso"
                 batch["reg"] = np.array([

@@ -20,6 +20,23 @@ from .. import default_dtype, resolve_device
 from ..core.trajectory import Trajectory
 
 
+def rollout_scan(step_fn, advance_fn, cstate0, init_obs, n_steps):
+    """A closed loop of ``n_steps`` steps: ``step_fn(cstate, obs) -> (u,
+    cstate)``, ``advance_fn(obs, u) -> next obs``. Returns (obs
+    (n_steps+1, ...), ctrls (n_steps, ...), the last controller state):
+    the observation before every step and the last one. Batched lanes
+    ride the trailing axes."""
+    cstate, obs = cstate0, init_obs
+    obs_seq, ctrl_seq = [], []
+    for _ in range(n_steps):
+        u, cstate = step_fn(cstate, obs)
+        obs_seq.append(obs)
+        ctrl_seq.append(u)
+        obs = advance_fn(obs, u)
+    obs_seq.append(obs)
+    return torch.stack(obs_seq), torch.stack(ctrl_seq), cstate
+
+
 def simulate(
     controller,
     init_obs,

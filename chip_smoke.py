@@ -70,8 +70,8 @@ Phases (each raises on failure, so the exit code is non-zero):
    them, one BO round of 25 candidates (instead of four) padded to 32
    lanes, the bucket pinned to 2 x relu, 20 epochs (instead of 50), every
    lane its own 256-wide masked net, the horizon-masked per-lane solve
-   (K4 at (4,1)) at H=25 for 199 closed-loop steps on the surrogate and
-   on the true dynamics; the ask, per-lane training and closed-loop
+   (K4 at (4,1)) at H=25 for 99 closed-loop steps (instead of 199) on
+   the surrogate and on the true dynamics; the ask, per-lane training and closed-loop
    seconds, evals/s and K4's launches by B printed, no NaN score; the
    incumbent simulated on the true dynamics from the canonical start
    must reach a finite task cost;
@@ -111,6 +111,23 @@ Phases (each raises on failure, so the exit code is non-zero):
    finite cost),
    and the sequential objective (the explicit SumCost) against the
    fan-out on 4 candidates at 50 steps (>= 3 within 1e-3);
+14. the MPPI and direct-transcription controllers (no kernel: the JAX
+   package computes both in plain XLA): (a) ``bench_extra.py``'s MPPI
+   rows on the phase-2 model and its quadratic cost (H=20, 4,096 paths):
+   the step latency of ``Controller.run`` and rollouts/s, the receding
+   loop's per-step latency over 200 steps from the canonical start on the
+   true dynamics, the halfcheetah row (phase 6's MLP with its default
+   seed); every control finite and inside its bounds; the first step's
+   per-path costs within 1e-4 of the float64 CPU step's on the card's
+   draws and its first control within 1e-2 umax; (b) its DT rows (20
+   knots): the step latency, the receding SQP loop's per-step latency
+   (30 steps), the first solve from 256 starts against float64 on the
+   lanes that took the same step sizes; (c) ``MPPIFanout`` and
+   ``DirectTranscriptionFanout`` at 256 candidates with and without the
+   GaussReg term, evals/s and finite scores; (d) ``PipelineTuner.run``
+   with the fan-out for an ``MPPIFactory`` and a
+   ``DirectTranscriptionControllerFactory`` (one round of 64, both
+   fan-outs), then sequential against fan-out (>= 3 of 4 within 1e-3);
 3. kernels vs plain twins: each CUDA kernel against its plain PyTorch
    twin on the card, on inputs taken from every path that launches it,
    at that path's shape: the lanes-last kernels on the main path's carry
@@ -360,8 +377,11 @@ OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out"
 # (surrogate, candidates and incumbent), JM_ITERS candidates (one round,
 # of the initial design) instead of 100, and the bucket pinned to
 # JM_PIN (the MLPFactory defaults), so that a round is one fan-out call on
-# the surrogate and one on the true dynamics.
-JM_TRAJS, JM_EPOCHS, JM_ITERS, JM_BATCH = 40, 20, 25, 25
+# the surrogate and one on the true dynamics; JM_STEPS - 1 closed-loop
+# steps instead of 199 (the incumbent's simulation too), since phase 14
+# took the uncut command to 1,093.3 s of its 1,200 on an NVIDIA H100 80GB
+# HBM3, 700 W (the closed loops were 264.9 s of the phase's 319.9).
+JM_TRAJS, JM_EPOCHS, JM_ITERS, JM_BATCH, JM_STEPS = 40, 20, 25, 25, 100
 JM_PIN = dict(n_hidden_layers="2", nonlintype="relu")
 JM_COMPACT = ((4, 0.5), (8, 0.25), (14, 0.125))
 # Phase 2's SINDy: the 55-term trig + interaction library.
@@ -473,6 +493,60 @@ GR_CONFIGS = {
 }
 GR_JS_STEPS = 10
 GR_TUNE_BATCH, GR_TUNE_ITERS, GR_TUNE_STEPS, GR_SEQ_STEPS = 128, 256, 100, 50
+
+# Phase 14: the MPPI and direct-transcription controllers, their receding
+# loops, their fan-outs and the tuner's kinds "mppi" and "dt" (no kernel:
+# the JAX package computes both in plain XLA, so they run here as plain
+# PyTorch). (a) bench_extra.py's MPPI rows at full width: phase 2's model
+# with the quadratic cost of bench_extra.py:43-52, H=20, 4,096 paths,
+# sigma 1.0, lmda 0.3; the step latency (one warm call, then CT_STEP_REPS
+# Controller.run calls, each to its result), the receding loop's per-step
+# latency (CT_LOOP_STEPS steps from the canonical start on the true
+# dynamics, one warm run and CT_LOOP_REPS timed) and the halfcheetah row
+# (phase 6's MLP with the model's default training seed, trained as
+# bench_extra.py:238-270 trains it, H=20, 4,096 paths, sigma = lmda =
+# 0.5). Every control finite and inside its bounds; the first step's
+# per-path costs on the card, given the card's draws, within CT_COST_TOL
+# (relative, each path) of the float64 CPU step's, and its first control
+# within CT_DU0_TOL * umax of the CPU step's. (b) bench_extra.py's DT
+# rows: the same model and cost, horizon 1 s (20 knots), the step latency
+# (one warm call, DT_STEP_REPS timed), the receding SQP loop at 20 knots
+# (DT_LOOP_STEPS steps from the canonical start, one warm and DT_LOOP_REPS
+# timed runs); the controller's first solve from
+# DT_CHECK_B starts (the canonical one and draws) on the card and in
+# float64 on the CPU: where a lane accepted the same step size at every
+# SQP iteration on both, its controls within DT_US_TOL of the CPU's
+# (relative to the lane's largest control, at least 1). (c) MPPIFanout
+# (H=20, 200 paths) and DirectTranscriptionFanout (10 knots), CF_B
+# candidates (phase 8's cost draws with sigma, lmda ~ U(0.1, 2) and
+# regw = 10**U(-3, 4), seed CF_SEED), CF_STEPS closed-loop steps
+# (CF_DT_STEPS for DT), with and without the GaussReg term (phase 13's S
+# and mu): one warm call and CF_CALLS timed each. (d) PipelineTuner.run,
+# surrogate_mode="pretrain",
+# the fan-out, phase 2's model and QuadCostFactory with
+# MPPIFactory(num_path=200, horizon=20) and with
+# DirectTranscriptionControllerFactory(horizon=0.5): one BO round of
+# CT_TUNE_BATCH candidates at CT_TUNE_STEPS - 1 steps, on the surrogate
+# (CT_DT_TUNE_STEPS - 1 for DT) and on the true dynamics, no fallback
+# warning, no NaN; then the sequential objective against the fan-out on
+# CT_SEQ_ITERS candidates a kind at CT_SEQ_STEPS steps (CT_DT_SEQ_STEPS for
+# DT) on a quadratic task cost (>= SEQ_AGREE_MIN within SEQ_TOL). Cut in
+# depth to keep the phase near its ~120 s: a DT step is ~6,300 launches
+# at 20 knots, ~24 us each on the host (the first run's 292 ms a step), so
+# the DT loop runs DT_LOOP_STEPS steps (bench_extra.py: 200), its fan-out
+# CF_DT_STEPS (50), its tune CT_DT_TUNE_STEPS - 1 (99) and its sequential
+# check CT_DT_SEQ_STEPS (25).
+CT_H, CT_PATHS, CT_SIGMA, CT_LMDA = 20, 4096, 1.0, 0.3
+CT_STEP_REPS, CT_LOOP_STEPS, CT_LOOP_REPS = 20, 200, 3
+HC_MPPI_SIGMA = HC_MPPI_LMDA = 0.5
+CT_COST_TOL, CT_DU0_TOL = 1e-4, 1e-2
+DT_HORIZON_S, DT_STEP_REPS = 1.0, 10
+DT_LOOP_KNOTS, DT_LOOP_STEPS, DT_LOOP_REPS = 20, 30, 2
+DT_CHECK_B, DT_US_TOL = 256, 1e-3
+CF_B, CF_H, CF_PATHS, CF_KNOTS, CF_STEPS, CF_CALLS, CF_SEED = 256, 20, 200, 10, 50, 2, 14
+CF_DT_STEPS = 20
+CT_TUNE_BATCH, CT_TUNE_STEPS, CT_SEQ_ITERS, CT_SEQ_STEPS = 64, 100, 4, 25
+CT_DT_TUNE_STEPS, CT_DT_SEQ_STEPS = 50, 15
 
 # Phase 9: the main path's wide options at its own shape (B_SOLVE, H,
 # SCHEDULE: every compaction stage is a multiple of 1024, so the wide
@@ -1318,7 +1392,8 @@ def joint_mlp_phase(dev, card, K4, profile=False):
 
     t_phase = time.perf_counter()
     bench = CartpoleSwingupV2Benchmark()
-    system, task = bench.system, bench.task
+    system, task = bench.system, bench.task.copy()
+    task.set_num_steps(JM_STEPS)
     trajs = bench.gen_trajs(seed=100, n_trajs=JM_TRAJS, traj_len=200)
     torch.cuda.synchronize()
     print(f"[11] CartpoleSwingupV2 data {JM_TRAJS} x 200: {time.perf_counter() - t_phase:.2f} s",
@@ -2523,6 +2598,282 @@ def check_gauss_reg_kernels(gr, model, bench, dev, K1, K3, K4, alphas):
     return rows, k4_row, failures
 
 
+def step_latency(controller, obs, reps, dev):
+    """bench_extra.py's step latency: seconds a ``Controller.run`` call to
+    its result (one warm call, then ``reps`` timed, each on ``obs``), and
+    the controls of every call (reps + 1, m)."""
+    from autompc_torch.core.trajectory import zeros as traj_zeros
+
+    cstate = controller.traj_to_state(traj_zeros(controller.system, 1, device=dev))
+    u, cstate = controller.run(cstate, obs)
+    torch.cuda.synchronize()
+    us = [u]
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        u, cstate = controller.run(cstate, obs)
+        torch.cuda.synchronize()
+        us.append(u)
+    return (time.perf_counter() - t0) / reps, torch.stack(us)
+
+
+def controls_ok(us, bounds):
+    """Every control finite and inside the task's bounds."""
+    lo, hi = us.new_tensor(bounds[:, 0]), us.new_tensor(bounds[:, 1])
+    return bool(torch.isfinite(us).all() and (us >= lo).all() and (us <= hi).all())
+
+
+def timed_runs(fn, reps):
+    """(seconds of the warm run, seconds a timed run, the last output):
+    one warm run of ``fn()``, then ``reps`` timed, each to its result."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+        torch.cuda.synchronize()
+    return warm, (time.perf_counter() - t0) / reps, out
+
+
+def cpu64_sindy(system, model):
+    """Phase 2's model as a float64 model on the CPU."""
+    from autompc_torch.sysid import SINDy
+
+    m64 = SINDy(system, device="cpu", **SINDY_KW)
+    m64.set_parameters({"coeffs": model.coeffs.double().cpu().numpy()})
+    return m64
+
+
+def controllers_phase(bench, model, trajs, hc, hc_model, dev, card):
+    """Phase 14 (a)-(c). Returns the printed rows as a dict."""
+    import math
+
+    from autompc_torch import default_dtype
+    from autompc_torch.control import (
+        MPPI,
+        DirectTranscriptionController,
+        make_receding_mppi_loop,
+        make_receding_sqp_loop,
+    )
+    from autompc_torch.control import mppi as mppi_module
+    from autompc_torch.core.trajectory import zeros as traj_zeros
+    from autompc_torch.costs import QuadCost
+    from autompc_torch.parallel import DirectTranscriptionFanout, MPPIFanout
+    from autompc_torch.tuning.pipeline_tuner import _gauss_reg_stats
+
+    system = bench.system
+    qd = np.diag([10.0, 0.1, 0.01, 0.01])
+    task = bench.task.copy()
+    task.set_cost(QuadCost(system, qd, 0.001 * np.eye(1), qd, goal=np.zeros(4)))
+    bounds = task.get_ctrl_bounds()
+    umax = float(bounds[0, 1])
+    obs = torch.as_tensor(task.get_init_obs(), dtype=default_dtype(dev), device=dev)
+    m64 = cpu64_sindy(system, model)
+    rows = {}
+
+    # ---- (a) MPPI ----
+    kw = dict(horizon=CT_H, num_path=CT_PATHS, sigma=CT_SIGMA, lmda=CT_LMDA)
+    mppi = MPPI(system, task, model, **kw)
+    lat, us = step_latency(mppi, obs, CT_STEP_REPS, dev)
+    rows["mppi_control_step_latency_ms"] = lat * 1e3
+    rows["mppi_sampled_rollouts_per_s"] = CT_PATHS / lat
+    print(f"[14a] mppi_control_step_latency_ms {lat * 1e3:.3f} ({CT_PATHS} paths, H={CT_H}, "
+          f"{CT_STEP_REPS} Controller.run calls after one warm) -> mppi_sampled_rollouts_per_s "
+          f"{CT_PATHS / lat:.1f}; within dt {lat < system.dt}; on {card}", flush=True)
+    if not controls_ok(us, bounds):
+        raise RuntimeError(f"MPPI step: a control is not finite or outside its bounds: {us}")
+
+    run = make_receding_mppi_loop(system, task, model, bench.dynamics, n_steps=CT_LOOP_STEPS,
+                                  **kw)
+    warm, per_run, (xs, us) = timed_runs(lambda: run(model.params, obs[None]), CT_LOOP_REPS)
+    lat = per_run / CT_LOOP_STEPS
+    rows["mppi_closed_loop_per_step_latency_ms"] = lat * 1e3
+    rows["mppi_closed_loop_rollouts_per_s"] = CT_PATHS / lat
+    print(f"[14a] receding MPPI loop, {CT_LOOP_STEPS} steps from the canonical start on the true "
+          f"dynamics: warm run {warm:.2f} s, {CT_LOOP_REPS} timed runs -> per-step latency "
+          f"{lat * 1e3:.3f} ms, {CT_PATHS / lat:.1f} rollouts/s; final state "
+          f"{[round(float(v), 4) for v in xs[0, -1]]}", flush=True)
+    if not (controls_ok(us, bounds) and torch.isfinite(xs).all()):
+        raise RuntimeError("receding MPPI loop: a control or a state is not finite or bounded")
+
+    # The first step on the card against the float64 CPU step, given the
+    # card's draws.
+    cs0 = mppi.traj_to_state(traj_zeros(system, 1, device=dev))
+    x0 = model.update_state_core(model.params, cs0["model_state"], cs0["last_u"], obs)
+    seq = torch.cat([cs0["act_sequence"][1:], cs0["act_sequence"][-1:]])
+    eps = math.sqrt(CT_SIGMA) * mppi_module.standard_normal(
+        (CT_H, CT_PATHS, 1), (mppi.seed, cs0["draws"]), obs)
+    c_card, e_card = mppi._do_rollouts(model.params, x0, seq, None, eps=eps)
+    u_card = mppi._update_sequence(seq, c_card, e_card)[0] * umax
+    mppi64 = MPPI(system, task, m64, **kw)
+    c_cpu, e_cpu = mppi64._do_rollouts(m64.params, x0.double().cpu(), seq.double().cpu(), None,
+                                       eps=eps.double().cpu())
+    u_cpu = mppi64._update_sequence(seq.double().cpu(), c_cpu, e_cpu)[0] * umax
+    cost_rel = float(((c_card.double().cpu() - c_cpu).abs()
+                      / c_cpu.abs().clamp_min(1e-30)).max())
+    du0 = float((u_card.double().cpu() - u_cpu).abs().max())
+    rows["mppi_first_step_cost_rel"], rows["mppi_first_step_du0"] = cost_rel, du0
+    print(f"[14a] first step, card (float32) against CPU (float64) on the card's draws: per-path "
+          f"costs within {cost_rel:.3e} (relative, max {CT_COST_TOL}); |du0| {du0:.3e} (max "
+          f"{CT_DU0_TOL * umax:.3g} = {CT_DU0_TOL} umax)", flush=True)
+    if not (cost_rel <= CT_COST_TOL and du0 <= CT_DU0_TOL * umax):
+        raise RuntimeError(f"MPPI first step: costs {cost_rel:.3e}, |du0| {du0:.3e}")
+
+    hc_obs = torch.as_tensor(hc.task.get_init_obs(), dtype=default_dtype(dev), device=dev)
+    hc_mppi = MPPI(hc.system, hc.task, hc_model, horizon=CT_H, num_path=CT_PATHS,
+                   sigma=HC_MPPI_SIGMA, lmda=HC_MPPI_LMDA)
+    lat, us = step_latency(hc_mppi, hc_obs, CT_STEP_REPS, dev)
+    rows["halfcheetah_mppi_control_step_latency_ms"] = lat * 1e3
+    print(f"[14a] halfcheetah_mppi_control_step_latency_ms {lat * 1e3:.3f} (MLP 24-64-64-18, "
+          f"ds=18, dc=6, {CT_PATHS} paths, H={CT_H}) -> {CT_PATHS / lat:.1f} rollouts/s; within "
+          f"dt {lat < hc.system.dt}", flush=True)
+    if not controls_ok(us, hc.task.get_ctrl_bounds()):
+        raise RuntimeError("halfcheetah MPPI: a control is not finite or outside its bounds")
+
+    # ---- (b) direct transcription ----
+    dt_con = DirectTranscriptionController(system, task, model, horizon=DT_HORIZON_S)
+    lat, us = step_latency(dt_con, obs, DT_STEP_REPS, dev)
+    rows["dt_sqp_control_step_latency_ms"] = lat * 1e3
+    print(f"[14b] dt_sqp_control_step_latency_ms {lat * 1e3:.3f} ({dt_con.horizon} knots, 10 SQP "
+          f"iterations of 8 step sizes, {DT_STEP_REPS} Controller.run calls after one warm); "
+          f"within dt {lat < system.dt}", flush=True)
+    if not controls_ok(us, bounds):
+        raise RuntimeError("DT step: a control is not finite or outside its bounds")
+    run = make_receding_sqp_loop(model.pred_core, task.get_cost(), bench.dynamics,
+                                 H=DT_LOOP_KNOTS, ds=4, dc=1, obsdim=4, dt=system.dt,
+                                 n_steps=DT_LOOP_STEPS, ubounds=(bounds[:, 0], bounds[:, 1]))
+    warm, per_run, (xs, us) = timed_runs(lambda: run(model.params, obs[None]), DT_LOOP_REPS)
+    lat = per_run / DT_LOOP_STEPS
+    rows["dt_sqp_closed_loop_per_step_latency_ms"] = lat * 1e3
+    print(f"[14b] receding SQP loop, {DT_LOOP_KNOTS} knots, {DT_LOOP_STEPS} steps from the "
+          f"canonical start: warm run {warm:.2f} s, {DT_LOOP_REPS} timed runs -> per-step "
+          f"latency {lat * 1e3:.3f} ms; final state "
+          f"{[round(float(v), 4) for v in xs[0, -1]]}", flush=True)
+    if not (controls_ok(us, bounds) and torch.isfinite(xs).all()):
+        raise RuntimeError("receding SQP loop: a control or a state is not finite or bounded")
+    x0b = torch.cat([obs[None], draw_x0(np.random.default_rng(CF_SEED), DT_CHECK_B - 1, dev)])
+    H_dt = dt_con.horizon
+    _, us_c, st_c = dt_con._solve(model.params, x0b, x0b.new_zeros((DT_CHECK_B, H_dt + 1, 4)),
+                                  x0b.new_zeros((DT_CHECK_B, H_dt, 1)), steps=True)
+    dt64 = DirectTranscriptionController(system, task, m64, horizon=DT_HORIZON_S)
+    x64 = x0b.double().cpu()
+    _, us_p, st_p = dt64._solve(m64.params, x64, x64.new_zeros((DT_CHECK_B, H_dt + 1, 4)),
+                                x64.new_zeros((DT_CHECK_B, H_dt, 1)), steps=True)
+    same = (st_c.cpu() == st_p).all(1)
+    err = (us_c.double().cpu() - us_p).abs().amax((1, 2))
+    scale = us_p.abs().amax((1, 2)).clamp_min(1.0)
+    bad = int((same & ~(err <= DT_US_TOL * scale)).sum())
+    share = float(same.double().mean())
+    rows["dt_same_steps_share"] = share
+    print(f"[14b] first solve from {DT_CHECK_B} starts, card (float32) against CPU (float64): "
+          f"the same step size at every iteration on {share:.4f} of the lanes (canonical start "
+          f"{bool(same[0])}); their controls within {float((err / scale)[same].max()):.3e} "
+          f"(relative to the lane's largest, at least 1; max {DT_US_TOL}), {bad} beyond",
+          flush=True)
+    if not same.any() or bad:
+        raise RuntimeError(f"DT first solve: {bad} lanes of the same steps beyond {DT_US_TOL}, "
+                           f"share {share}")
+
+    # ---- (c) the fan-outs ----
+    S, mu = _gauss_reg_stats(trajs)
+    batch = fanout_candidates(dev, CF_B, CF_SEED)
+    rng = np.random.default_rng(CF_SEED + 1)
+    for k, v in (("sigma", rng.uniform(0.1, 2, CF_B)), ("lmda", rng.uniform(0.1, 2, CF_B)),
+                 ("regw", 10 ** rng.uniform(-3, 4, CF_B))):
+        batch[k] = batch["Qdiag"].new_tensor(v)
+    for name, make in (
+            ("MPPIFanout", lambda reg: MPPIFanout(
+                system, bench.task, model, model, horizon=CF_H, num_path=CF_PATHS,
+                n_steps=CF_STEPS, goal=np.zeros(4), **reg)),
+            ("DirectTranscriptionFanout", lambda reg: DirectTranscriptionFanout(
+                system, bench.task, model, model, horizon_knots=CF_KNOTS, n_steps=CF_DT_STEPS,
+                goal=np.zeros(4), **reg))):
+        for tag, reg in (("", {}), (" + GaussReg", dict(reg_matrix=S, reg_goal=mu))):
+            fan = make(reg)
+            warm, per_call, out = timed_runs(lambda: fan(batch), CF_CALLS)
+            finite = int(torch.isfinite(out).sum())
+            rows[f"{name}{tag}_evals_per_s"] = CF_B / per_call
+            steps = CF_STEPS if name == "MPPIFanout" else CF_DT_STEPS
+            print(f"[14c] {name}{tag}: B={CF_B}, {steps} steps ("
+                  + (f"H={CF_H}, {CF_PATHS} paths" if name == "MPPIFanout" else
+                     f"{CF_KNOTS} knots") + f"): warm call {warm:.2f} s, {CF_CALLS} timed calls "
+                  f"{per_call:.3f} s each -> {CF_B / per_call:.1f} evals/s; finite scores "
+                  f"{finite} / {CF_B}", flush=True)
+            if torch.isnan(out).any() or out.shape != (CF_B,):
+                raise RuntimeError(f"{name}{tag}: a score is NaN or the shape is wrong")
+    return rows
+
+
+def controller_tunes(bench, model, trajs, card):
+    """Phase 14 (d): the tuner's kinds "mppi" and "dt"."""
+    from autompc_torch.control import DirectTranscriptionControllerFactory, MPPIFactory
+    from autompc_torch.costs import QuadCost, QuadCostFactory
+    from autompc_torch.pipeline import Pipeline
+    from autompc_torch.tuning import PipelineTuner
+
+    system, goal = bench.system, np.zeros(4)
+    rows = {}
+    for kind, cf, steps, seq_steps in (
+            ("mppi", MPPIFactory(system, num_path=200, horizon=20), CT_TUNE_STEPS, CT_SEQ_STEPS),
+            ("dt", DirectTranscriptionControllerFactory(system, horizon=0.5), CT_DT_TUNE_STEPS,
+             CT_DT_SEQ_STEPS)):
+        task = bench.task.copy()
+        task.set_num_steps(steps)
+        seq_task = bench.task.copy()
+        seq_task.set_cost(QuadCost(system, Q=np.eye(4), R=0.01 * np.eye(1), F=np.eye(4),
+                                   goal=goal))
+        seq_task.set_init_obs(np.array([0.5, 0.0, 0.0, 0.0]))
+        seq_task.set_num_steps(seq_steps)
+        pipeline = Pipeline(system, model, QuadCostFactory(system, goal=goal), cf)
+        tuner = PipelineTuner(surrogate_mode="pretrain", eval_batch=CT_TUNE_BATCH, use_fanout=True)
+        if tuner._fanout_kind(pipeline, model)[0] != kind:
+            raise RuntimeError(f"the tuner did not select the {kind!r} fan-out")
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", UserWarning)    # a fallback warning fails the phase
+            _, res = tuner.run(pipeline, task, trajs, n_iters=CT_TUNE_BATCH,
+                               rng=np.random.default_rng(100), surrogate=model,
+                               truedyn=bench.dynamics)
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+        costs, true_costs = np.array(res.costs), np.array(res.truedyn_costs)
+        rows[f"tune_{kind}_evals_per_s"] = CT_TUNE_BATCH / tune_s
+        print(f"[14d] tune {kind!r}: one BO round of {CT_TUNE_BATCH} candidates x "
+              f"{steps - 1} steps, surrogate and true dynamics: {tune_s:.2f} s -> "
+              f"{CT_TUNE_BATCH / tune_s:.1f} evals/s (both fan-outs) on {card}; finite "
+              f"{int(np.isfinite(costs).sum())} / {costs.size} on the surrogate, "
+              f"{int(np.isfinite(true_costs).sum())} / {true_costs.size} on the true dynamics; "
+              f"NaN {bool(np.isnan(costs).any() or np.isnan(true_costs).any())}; incumbent "
+              f"{res.inc_cfg.get_dictionary()}: surrogate {res.inc_costs[-1]:.1f}, true "
+              f"dynamics {res.inc_truedyn_costs[-1]:.1f}", flush=True)
+        if len(costs) != CT_TUNE_BATCH or len(true_costs) != CT_TUNE_BATCH \
+                or np.isnan(costs).any() or np.isnan(true_costs).any():
+            raise RuntimeError(f"tune {kind!r}: a score is missing or NaN")
+        t0 = time.perf_counter()
+        scores = [
+            PipelineTuner(surrogate_mode="pretrain", eval_batch=CT_SEQ_ITERS, **fkw).run(
+                pipeline, seq_task, trajs, n_iters=CT_SEQ_ITERS, rng=np.random.default_rng(3),
+                surrogate=model)[1]
+            for fkw in ({}, dict(use_fanout=True))
+        ]
+        agree = 0
+        for i, (a, b) in enumerate(zip(scores[0].costs, scores[1].costs)):
+            ok = (a == b) or (np.isfinite(a) and np.isfinite(b)
+                              and abs(a - b) <= SEQ_TOL * max(abs(b), 1e-30))
+            agree += ok
+            print(f"[14d] {kind!r} candidate {i}: sequential {a!r}, fan-out {b!r}, relative "
+                  f"difference {abs(a - b) / max(abs(b), 1e-30):.3e}{'' if ok else ' DIFFER'}",
+                  flush=True)
+        print(f"[14d] {kind!r} sequential vs fan-out ({seq_steps}-step near-upright task, "
+              f"quadratic task cost): {agree} of {CT_SEQ_ITERS} within {SEQ_TOL} (min "
+              f"{SEQ_AGREE_MIN}); {time.perf_counter() - t0:.2f} s", flush=True)
+        if agree < SEQ_AGREE_MIN:
+            raise RuntimeError(f"tune {kind!r}: sequential and fan-out agree on {agree} of "
+                               f"{CT_SEQ_ITERS}")
+    return rows
+
+
 def main(profile=False):
     dev = check_device()
     from autompc_torch.benchmarks import CartpoleSwingupBenchmark, HalfcheetahBenchmark
@@ -2912,6 +3263,12 @@ def main(profile=False):
     gr = gauss_reg_phase(bench, model, trajs, dev, card, gr_wrappers)
     gr_tune = gauss_reg_tune(bench, model, trajs, dev, card, gr_wrappers["2"])
     print(f"[13] phase wall {time.perf_counter() - t13:.2f} s", flush=True)
+
+    # ---- [14] the MPPI and direct-transcription controllers ----------------------
+    t14 = time.perf_counter()
+    controllers_phase(bench, model, trajs, hc, dflt[0], dev, card)
+    controller_tunes(bench, model, trajs, card)
+    print(f"[14] phase wall {time.perf_counter() - t14:.2f} s", flush=True)
 
     # ---- [3] kernels vs plain twins on path inputs -----------------------
     _, make_carry0, _, _ = make_batched_ilqr_solver(

@@ -22,9 +22,13 @@ PORT_MODULES = [
     "autompc_torch.control",
     "autompc_torch.control.controller",
     "autompc_torch.control.ilqr",
+    "autompc_torch.control.mppi",
+    "autompc_torch.control.nmpc",
     "autompc_torch.control.receding",
+    "autompc_torch.control.zero",
     "autompc_torch.costs",
     "autompc_torch.costs.cost_factory",
+    "autompc_torch.costs.lane_costs",
     "autompc_torch.costs.quad_cost_factory",
     "autompc_torch.native",
     "autompc_torch.ops._build",
@@ -35,6 +39,7 @@ PORT_MODULES = [
     "autompc_torch.ops.cuda_riccati_general",
     "autompc_torch.ops.lstsq",
     "autompc_torch.ops.riccati",
+    "autompc_torch.ops.trajqp",
     "autompc_torch.parallel",
     "autompc_torch.parallel.fanout",
     "autompc_torch.parallel.mesh",
