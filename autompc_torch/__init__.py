@@ -22,7 +22,7 @@ Importing this package never imports ``jax`` or ``autompc_tpu``.
 
 import torch
 
-from .core import System, Task, TimeStep, Trajectory, TrajectoryBatch, batch
+from .core import System, Task, TimeStep, Trajectory, TrajectoryBatch, batch, from_arrays
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -66,5 +66,6 @@ __all__ = [
     "NotPortedError",
     "batch",
     "default_dtype",
+    "from_arrays",
     "resolve_device",
 ]

@@ -1,4 +1,5 @@
 from .controller import Controller, ControllerFactory
+from .lqr import LQR, LQRFactory, FiniteHorizonLQR, InfiniteHorizonLQR
 from .zero import ZeroController, ZeroControllerFactory
 from .ilqr import (
     IterativeLQR,

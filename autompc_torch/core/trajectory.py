@@ -64,8 +64,11 @@ class Trajectory:
         return self._ctrls
 
     def __getitem__(self, idx):
-        """``traj[i]`` -> TimeStep (label and slice indexing are not
-        ported yet)."""
+        """``traj[i]`` -> TimeStep, ``traj[a:b]`` -> sub-Trajectory
+        (label indexing is not ported yet)."""
+        if isinstance(idx, slice):
+            obs = self._obs[idx, :]
+            return Trajectory(self._system, obs.shape[0], obs, self._ctrls[idx, :])
         if idx < -self._size or idx >= self._size:
             raise IndexError("Time index out of range.")
         return TimeStep(self._obs[idx, :], self._ctrls[idx, :])
@@ -162,6 +165,14 @@ def zeros(system: System, size: int, dtype=None, device=None) -> Trajectory:
         torch.zeros((size, system.obs_dim), dtype=dtype, device=device),
         torch.zeros((size, system.ctrl_dim), dtype=dtype, device=device),
     )
+
+
+def from_arrays(system: System, obs, ctrls) -> Trajectory:
+    """A trajectory of obs (T, n) and ctrls (T, m); tensors keep their
+    device and dtype, arrays become float64 CPU tensors (as
+    ``Trajectory`` takes them)."""
+    obs = _tensor(obs)
+    return Trajectory(system, obs.shape[0], obs, ctrls)
 
 
 def batch(trajs, max_len=None) -> TrajectoryBatch:

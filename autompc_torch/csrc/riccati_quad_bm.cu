@@ -274,8 +274,223 @@ __global__ void backward_quad_bm_kernel(
   }
 }
 
-// lanes: lanes a block, 4 threads each, lanes x 4 a multiple of 32 up to
-// AMPC_BQBM_MAX_THREADS (bq_bm_geometry).
+// K6 at a wider state, ds = 12 (the Koopman lift of the cartpole with the
+// trig basis at frequency 1, bench_scaling.py's joint-Koopman row): the
+// same recursion, the same roundings (bqbm_fold and the intrinsics above,
+// term for term as backward_quad_bm_kernel) and the same ring, exchange
+// and gain stage, with three differences of layout:
+// - a group of G = 16 threads a lane (two lanes a warp), thread g < DS
+//   owning row g; the G - DS threads past the rows run the recursion on
+//   row 0 and store nothing, so every thread of the warp meets every
+//   __syncwarp. (Groups of 12 would straddle warps, whose threads a
+//   __syncwarp does not order.) All G threads share the copies;
+// - a row is DS / 4 16-byte copies, so a step's inputs are (DS + 2) DS / 4
+//   16-byte copies (the Jx rows, Ju and x_t) and one 4-byte copy (u_t),
+//   items g, g + G, ... to thread g;
+// - V, v, Jx and Ju are read from shared memory where they are used
+//   (the exchange buffer and the ring slot) instead of being copied into
+//   registers first: 2 DS^2 + 2 DS floats a thread would not fit them.
+// A simple instance: its time is in PERF.md §6.
+template <int DS>
+__host__ __device__ constexpr int bqbm_wide_floats_per_lane(int S) {
+  return S * (DS * DS + 3 * DS + 2) + 2 * (DS * DS + DS);
+}
+
+template <int DS, int G>
+__global__ void backward_quad_bm_wide_kernel(
+    const __grid_constant__ QuadDiag P, const float* __restrict__ Jx_in,
+    const float* __restrict__ Ju_in, const float* __restrict__ xs,
+    const float* __restrict__ us, const float* __restrict__ Qd,
+    const float* __restrict__ Rd, const float* __restrict__ Fd,
+    float* __restrict__ Ks, float* __restrict__ ks,
+    float* __restrict__ lin_out, float* __restrict__ quad_out, int H, int B) {
+  static_assert(DS % 4 == 0 && DS <= G && 32 % G == 0, "16-byte rows, a group in a warp");
+  constexpr int RING = AMPC_BQBM_RING;
+  constexpr int R4 = DS / 4;              // 16-byte copies a row
+  constexpr int JW = DS * DS + DS;        // a slot's Jx rows and Ju
+  constexpr int NQ = (DS + 2) * R4 + 1;   // copies a step
+  extern __shared__ float4 bqbm_smem[];
+  const int NL = blockDim.x / G;          // lanes a block
+  const int S = H < RING ? H : RING;
+  const int tid = threadIdx.x, g = tid % G, l = tid / G;
+  const long long b = (long long)blockIdx.x * NL + l;
+  const bool valid = b < B;
+  const long long bl = valid ? b : B - 1;
+  float* sJ = reinterpret_cast<float*>(bqbm_smem);  // [S][NL][JW]
+  float* sX = sJ + S * NL * JW;                       // [S][NL][DS]
+  float* sK = sX + S * NL * DS;                       // [S][NL][DS] gain stage
+  float* sV = sK + S * NL * DS;                       // [2][NL][JW] exchange
+  float* sU = sV + 2 * NL * JW;                       // [S][NL]
+  float* sk = sU + S * NL;                            // [S][NL] gain stage
+
+  const int obsdim = P.obsdim;
+  const float rd2 = __fmul_rn(Rd[bl], P.two_dt);
+  const bool row = g < DS;                // the thread owns row i
+  const int i = row ? g : 0;
+  const bool obs = i < obsdim;
+  const float qd = obs ? __fmul_rn(Qd[bl * obsdim + i], P.two_dt) : 0.f;
+  const float goal = obs ? P.goal[i] : 0.f;
+  const float* xrow = xs + bl * (H + 1) * DS;
+  float Vr[DS], vr;
+  {
+    const float fd2 = obs ? __fmul_rn(Fd[bl * obsdim + i], 2.f) : 0.f;
+#pragma unroll
+    for (int j = 0; j < DS; ++j) Vr[j] = i == j ? fd2 : 0.f;
+    vr = obs ? __fmul_rn(fd2, __fsub_rn(xrow[(long long)H * DS + i], goal)) : 0.f;
+  }
+
+  // Step t of the thread's lane into ring slot s: copy q < DS R4 is
+  // 16 bytes of the Jx rows, then R4 of Ju, R4 of x_t, and u_t.
+  auto fetch = [&](int t, int s) {
+    const long long lt = bl * H + t;
+    float* J = sJ + (s * NL + l) * JW;
+#pragma unroll
+    for (int q0 = 0; q0 < NQ; q0 += G) {
+      const int q = q0 + g;
+      if (q < DS * R4)
+        ampc_cp_async16(J + q * 4, Jx_in + lt * DS * DS + q * 4);
+      else if (q < (DS + 1) * R4)
+        ampc_cp_async16(J + DS * DS + (q - DS * R4) * 4, Ju_in + lt * DS + (q - DS * R4) * 4);
+      else if (q < (DS + 2) * R4)
+        ampc_cp_async16(sX + (s * NL + l) * DS + (q - (DS + 1) * R4) * 4,
+                        xrow + (long long)t * DS + (q - (DS + 1) * R4) * 4);
+      else if (q == NQ - 1)
+        ampc_cp_async4(sU + s * NL + l, us + lt);
+    }
+  };
+
+  for (int s = 0; s < RING - 1; ++s) {
+    if (H - 1 - s >= 0) fetch(H - 1 - s, s);
+    ampc_cp_async_commit();
+  }
+  float lin = 0.f, quad = 0.f;
+  int s = 0;  // the ring slot of step t: (H - 1 - t) % RING
+  for (int t = H - 1; t >= 0; --t) {
+    ampc_cp_async_wait<RING - 2>();  // step t's copies have landed
+    const float* V = sV + ((t & 1) * NL + l) * JW;  // V[k][j] = V[k * DS + j]
+    const float* v = V + DS * DS;
+    if (row) {
+      float* xv = sV + ((t & 1) * NL + l) * JW;
+#pragma unroll
+      for (int j = 0; j < DS; ++j) xv[i * DS + j] = Vr[j];
+      xv[DS * DS + i] = vr;
+    }
+    __syncwarp();  // the group's rows, and its copies of step t
+    // Refill the slot that step t + 1 read (every thread of the warp is
+    // past it) with step t - (RING - 1).
+    if (t - (RING - 1) >= 0) fetch(t - (RING - 1), s == 0 ? RING - 1 : s - 1);
+    ampc_cp_async_commit();
+
+    const float* J = sJ + (s * NL + l) * JW;  // Jx[k][j] = J[k * DS + j]
+    const float* Ju = J + DS * DS;
+    const float u = sU[s * NL + l];
+
+    // The values every row needs, formed by each thread of the group.
+    float JuV[DS], Qux[DS], K[DS];
+#pragma unroll
+    for (int j = 0; j < DS; ++j)
+      JuV[j] = bqbm_fold<DS>([&](int k) { return Ju[k]; },
+                             [&](int k) { return V[k * DS + j]; });
+    const float sq = bqbm_fold<DS>([&](int k) { return JuV[k]; }, [&](int k) { return Ju[k]; });
+    const float Quu = __fadd_rn(sq, rd2);
+    const float inv_quu = __frcp_rn(Quu);
+#pragma unroll
+    for (int j = 0; j < DS; ++j) {
+      Qux[j] = bqbm_fold<DS>([&](int k) { return JuV[k]; },
+                             [&](int k) { return J[k * DS + j]; });
+      K[j] = -__fmul_rn(Qux[j], inv_quu);
+    }
+    const float sv = bqbm_fold<DS>([&](int k) { return Ju[k]; }, [&](int k) { return v[k]; });
+    const float qu = __fmaf_rn(u, rd2, sv);
+    const float kff = -__fmul_rn(qu, inv_quu);
+    lin = __fmaf_rn(qu, kff, lin);
+    const float quu_k = __fmul_rn(Quu, kff);
+    quad = __fmaf_rn(quu_k, kff, quad);
+    const float resid = __fadd_rn(qu, quu_k);
+
+    // The thread's row: column i of Jx, Qux_i and K_i formed again from
+    // it (the same bits as Qux[i], K[i]).
+    float Jc[DS];
+#pragma unroll
+    for (int k = 0; k < DS; ++k) Jc[k] = J[k * DS + i];
+    const float qux_i = bqbm_fold<DS>([&](int k) { return JuV[k]; }, [&](int k) { return Jc[k]; });
+    const float K_i = -__fmul_rn(qux_i, inv_quu);
+    float JxV[DS];
+#pragma unroll
+    for (int j = 0; j < DS; ++j)
+      JxV[j] = bqbm_fold<DS>([&](int k) { return Jc[k]; },
+                             [&](int k) { return V[k * DS + j]; });
+    const float xi = sX[(s * NL + l) * DS + i];
+    const float cx = obs ? __fmul_rn(__fsub_rn(xi, goal), qd) : 0.f;
+    const float qx = __fadd_rn(
+        bqbm_fold<DS>([&](int k) { return Jc[k]; }, [&](int k) { return v[k]; }), cx);
+#pragma unroll
+    for (int j = 0; j < DS; ++j) {
+      const float sxx = bqbm_fold<DS>([&](int k) { return JxV[k]; },
+                                      [&](int k) { return J[k * DS + j]; });
+      float a = __fadd_rn(sxx, i == j ? qd : 0.f);
+      a = __fmaf_rn(qux_i, K[j], a);
+      a = __fmaf_rn(K_i, Qux[j], a);
+      Vr[j] = __fmaf_rn(__fmul_rn(K_i, K[j]), Quu, a);
+    }
+    vr = __fmaf_rn(K_i, resid, __fmaf_rn(qux_i, kff, qx));
+    if (row) sK[(s * NL + l) * DS + i] = K_i;
+    if (g == 0) sk[s * NL + l] = kff;
+
+    // Every RING steps, and at t = 0: each group writes its lane's staged
+    // steps t .. t + s, thread g taking steps t + g, t + g + G, ...
+    if (s == RING - 1 || t == 0) {
+      __syncwarp();
+      if (valid) {
+        for (int d = g; d <= s; d += G) {
+          const long long o = b * H + t + d;
+          const int sd = s - d;  // the slot of step t + d
+#pragma unroll
+          for (int c = 0; c < R4; ++c)
+            *reinterpret_cast<float4*>(Ks + o * DS + c * 4) =
+                *reinterpret_cast<const float4*>(sK + (sd * NL + l) * DS + c * 4);
+          ks[o] = sk[sd * NL + l];
+        }
+      }
+      __syncwarp();
+    }
+    s = s == RING - 1 ? 0 : s + 1;
+  }
+  if (valid && g == 0) {
+    lin_out[b] = lin;
+    quad_out[b] = quad;
+  }
+}
+
+// The wide instance's launch: lanes a block of G threads each, lanes x G
+// a multiple of 32 up to AMPC_BQBM_MAX_THREADS (bq_bm_geometry).
+template <int DS, int G>
+static int bqbm_wide_launch(const QuadDiag* P, const float* Jx, const float* Ju,
+                            const float* xs, const float* us, const float* Qd,
+                            const float* Rd, const float* Fd, float* Ks, float* ks,
+                            float* lin, float* quad, int H, int B, int lanes,
+                            void* stream) {
+  if (H < 1 || B < 1 || P->obsdim < 1 || P->obsdim > DS || lanes < 1 ||
+      lanes * G > AMPC_BQBM_MAX_THREADS || (lanes * G) % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = backward_quad_bm_wide_kernel<DS, G>;
+  const int S = H < AMPC_BQBM_RING ? H : AMPC_BQBM_RING;
+  const int smem = lanes * bqbm_wide_floats_per_lane<DS>(S) * (int)sizeof(float);
+  static int allowed = 48 * 1024;  // dynamic shared memory opted into
+  if (smem > allowed) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed = smem;
+  }
+  const unsigned blocks = (unsigned)((B + lanes - 1) / lanes);
+  kernel<<<blocks, lanes * G, smem, (cudaStream_t)stream>>>(
+      *P, Jx, Ju, xs, us, Qd, Rd, Fd, Ks, ks, lin, quad, H, B);
+  return (int)cudaGetLastError();
+}
+
+// lanes: lanes a block, 4 threads each (16 at ds = 12), lanes x 4 a
+// multiple of 32 up to AMPC_BQBM_MAX_THREADS (bq_bm_geometry).
 extern "C" int ampc_backward_quad_bm(const QuadDiag* P, const float* Jx,
                                      const float* Ju, const float* xs,
                                      const float* us, const float* Qd,
@@ -285,6 +500,9 @@ extern "C" int ampc_backward_quad_bm(const QuadDiag* P, const float* Jx,
                                      int lanes, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (ds == 12)
+    return bqbm_wide_launch<12, 16>(P, Jx, Ju, xs, us, Qd, Rd, Fd, Ks, ks, lin, quad, H,
+                                    B, lanes, stream);
   constexpr int G = 4;
   if (ds != G || H < 1 || B < 1 || P->obsdim < 1 || P->obsdim > ds ||
       lanes < 1 || lanes * G > AMPC_BQBM_MAX_THREADS || (lanes * G) % 32 != 0)

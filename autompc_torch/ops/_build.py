@@ -86,7 +86,7 @@ WIDE_B = 1024
 KERNEL_SHAPES = {
     "relin": ((4, 1),),
     "riccati_quad": ((4, 1),),
-    "riccati_quad_bm": ((4, 1),),
+    "riccati_quad_bm": ((4, 1), (12, 1)),
     "linesearch_fused": ((4, 1),),
     "ls_obj_wide": ((4, 1),),
     "ls_reroll_wide": ((4, 1),),

@@ -18,7 +18,8 @@ layout, so nothing is copied) and counts its own launches.
 
 ``backward_quad`` (K6, ``pallas_tvlqr_backward_quad``; kernel in
 ``csrc/riccati_quad_bm.cu``) works on the batch-major carry with
-per-lane cost diagonals and no carry select.
+per-lane cost diagonals and no carry select, at ds = 4 (the cartpole
+state) and ds = 12 (its Koopman lift with the trig basis).
 
 Both build the stage and terminal expansions inline from the trajectory
 and share one recursion (``csrc/riccati_quad_step.cuh``; ``_recursion``
@@ -364,26 +365,27 @@ def _check_built_bm(ds):
 
 
 def bq_bm_geometry(B, H, ds=4, sm_count=None):
-    """K6's launch geometry: ``group`` = ds threads a lane, thread ``tid``
-    of block ``bx`` being thread ``g = tid % group`` of lane ``bx *
+    """K6's launch geometry: ``group`` threads a lane (ds rounded up to a
+    power of two: 4 at ds = 4, 16 at ds = 12), thread ``tid`` of block
+    ``bx`` being thread ``g = tid % group`` of lane ``bx *
     lanes_per_block + tid // group``, which owns row g of the value
-    matrix; ``threads`` = lanes x group, the smallest of 32, 64 and 128
-    that keeps the grid within about four blocks an SM of ``sm_count``
-    (an H100's 132 when not given), so that the few warps of a small batch
-    spread over as many SMs as they can; ``ring`` time steps of inputs in
-    shared memory (the whole horizon where H <= ``_build.BQBM_RING``);
-    ``smem`` bytes of shared memory a block (riccati_quad_bm.cu:
-    bqbm_floats_per_lane). Raises ``ValueError`` for a ds the kernel is
-    not built for."""
+    matrix (g < ds); ``threads`` = lanes x group, the smallest of 32, 64
+    and 128 that keeps the grid within about four blocks an SM of
+    ``sm_count`` (an H100's 132 when not given), so that the few warps of
+    a small batch spread over as many SMs as they can; ``ring`` time steps
+    of inputs in shared memory (the whole horizon where H <=
+    ``_build.BQBM_RING``); ``smem`` bytes of shared memory a block
+    (riccati_quad_bm.cu: bqbm_floats_per_lane, bqbm_wide_floats_per_lane).
+    Raises ``ValueError`` for a ds the kernel is not built for."""
     _check_built_bm(ds)
     sms = sm_count or _build.H100_SMS
-    group = ds
+    group = 1 << (ds - 1).bit_length()
     threads = 32
     while -(-B * group // threads) > 4 * sms and threads < _build.BQBM_MAX_THREADS:
         threads *= 2
     lanes = threads // group
     ring = min(H, _build.BQBM_RING)
-    per_lane = ring * 30 + 40
+    per_lane = ring * (ds * ds + 3 * ds + 2) + 2 * (ds * ds + ds)
     return dict(group=group, lanes_per_block=lanes, threads=threads,
                 blocks=-(-B // lanes), ring=ring, smem=lanes * per_lane * 4)
 

@@ -1,6 +1,7 @@
 """Regression routines for system identification (port of
-``autompc_tpu/ops/lstsq.py``): SVD least squares, STLSQ, and the
-Gram-staged STLSQ the SINDy trainer uses, and the FISTA Lasso.
+``autompc_tpu/ops/lstsq.py``): SVD least squares, the pseudo-inverse,
+STLSQ, and the Gram-staged STLSQ the SINDy trainer uses, and the FISTA
+Lasso.
 
 All routines run on whatever device their inputs live on; the
 iteration of ``stlsq_gram`` stops on the host once the support is
@@ -41,6 +42,13 @@ def masked_lstsq(A, y, mask, rcond=None):
     m = mask.to(A.dtype)[:, None]
     ym = y * (m if y.ndim == 2 else m[:, 0])
     return lstsq(A * m, ym, rcond=rcond)
+
+
+def pinv(A, rcond=1e-15):
+    """Moore-Penrose pseudo-inverse. ``rcond`` keeps ``jnp.linalg.pinv``'s
+    meaning, a cutoff relative to the largest singular value: that is
+    ``torch.linalg.pinv``'s ``rtol``."""
+    return torch.linalg.pinv(A, rtol=rcond)
 
 
 def stlsq(A, y, threshold, n_iters=10, mask=None):

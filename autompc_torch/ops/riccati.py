@@ -1,19 +1,66 @@
 """Riccati recursions in plain PyTorch (port of
-``autompc_tpu/ops/riccati.py``: ``solve_small`` and
+``autompc_tpu/ops/riccati.py``: the LQR pieces, ``solve_small`` and
 ``tvlqr_backward_scan``).
 
-Batch-native: every argument carries a leading batch axis B, where the
-JAX package writes a per-lane function and vmaps it. The time recursion
-is a Python loop over H of batched tensor ops. It is the solver's
-``backward="scan"`` and, with the unrolled Cholesky solve of
-``ops/cuda_riccati_general.py``, the plain version of that kernel. The
-LQR pieces and the associative-scan family of the JAX module are not
-ported yet (ROADMAP.md §A).
+The LQR pieces (``dynamic_riccati_step``, ``lqr_gain``,
+``finite_horizon_lqr``, ``infinite_horizon_lqr``) run once, when an LQR
+controller is built: the JAX package's ``fori_loop`` and bounded
+``while_loop`` are host loops here, with the same counts and the same
+stopping rule.
+
+``tvlqr_backward_scan`` is batch-native: every argument carries a
+leading batch axis B, where the JAX package writes a per-lane function
+and vmaps it. The time recursion is a Python loop over H of batched
+tensor ops. It is the solver's ``backward="scan"`` and, with the
+unrolled Cholesky solve of ``ops/cuda_riccati_general.py``, the plain
+version of that kernel. The associative-scan family of the JAX module
+is not ported yet (ROADMAP.md §A).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def dynamic_riccati_step(P, A, B, Q, R, N):
+    """One step of the discrete-time dynamic Riccati equation:
+    A'PA - (A'PB + N)(R + B'PB)^{-1}(B'PA + N') + Q."""
+    BtP = B.T @ P
+    G = R + BtP @ B
+    H = BtP @ A + N.T
+    return A.T @ P @ A - (A.T @ P @ B + N) @ torch.linalg.solve(G, H) + Q
+
+
+def lqr_gain(A, B, P, R, N=None):
+    """K = -(R + B'PB)^{-1} (B'PA + N')."""
+    BtP = B.T @ P
+    rhs = BtP @ A if N is None else BtP @ A + N.T
+    return -torch.linalg.solve(R + BtP @ B, rhs)
+
+
+def finite_horizon_lqr(A, B, Q, R, N, F, horizon: int):
+    """Finite-horizon LQR gain: from P = F, ``horizon + 1`` Riccati
+    steps, then the gain of the last P. Returns (K, P)."""
+    P = F
+    for _ in range(int(horizon) + 1):
+        P = dynamic_riccati_step(P, A, B, Q, R, N)
+    return lqr_gain(A, B, P, R, N), P
+
+
+def infinite_horizon_lqr(A, B, Q, R, N=None, threshold=1e-3, max_iter=10000):
+    """Infinite-horizon LQR by Riccati fixed-point iteration from P = Q,
+    until ``max|P1 - P2| <= threshold`` or ``max_iter`` steps past the
+    first. The convergence test reads the device once a step. Returns
+    (K, P)."""
+    if N is None:
+        N = A.new_zeros((A.shape[0], B.shape[1]))
+    P_prev = Q
+    P = dynamic_riccati_step(P_prev, A, B, Q, R, N)
+    it = 0
+    while it < max_iter and float((P - P_prev).abs().max()) > threshold:
+        P_prev, P = P, dynamic_riccati_step(P, A, B, Q, R, N)
+        it += 1
+    return lqr_gain(A, B, P, R, N), P
 
 
 def solve_small(A, b):

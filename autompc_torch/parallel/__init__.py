@@ -1,5 +1,6 @@
 from .fanout import (
     DirectTranscriptionFanout,
+    JointKoopmanLassoQuadCostFanout,
     JointMLPQuadCostFanout,
     JointSINDyQuadCostFanout,
     MPPIFanout,

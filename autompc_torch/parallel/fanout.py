@@ -1,7 +1,8 @@
 """Tuning fan-out: score a batch of candidate configurations in one
 batched program (port of ``autompc_tpu/parallel/fanout.py``:
-``QuadCostFanout``, ``JointSINDyQuadCostFanout`` and
-``JointMLPQuadCostFanout``).
+``QuadCostFanout``, ``JointSINDyQuadCostFanout``,
+``JointKoopmanLassoQuadCostFanout``, ``JointMLPQuadCostFanout``,
+``MPPIFanout`` and ``DirectTranscriptionFanout``).
 
 For configuration families whose hyperparameters do not change tensor
 shapes (cost gains), the whole candidate evaluation — controller
@@ -10,11 +11,12 @@ on the surrogate and the task metric — runs over the candidate batch at
 once: every solve sees (B, ...) tensors and the solver's kernels. This
 is what a tune spends its time in. ``JointSINDyQuadCostFanout`` also
 trains a fresh SINDy model per candidate (one STLSQ threshold or Lasso
-alpha a lane, on data staged once), and ``JointMLPQuadCostFanout`` a
-fresh MLP, every lane its own masked max-width net, before its closed
-loop.
+alpha a lane, on data staged once), ``JointKoopmanLassoQuadCostFanout``
+a fresh Koopman (A, B) (one Lasso alpha a lane, on lifted data staged
+once), and ``JointMLPQuadCostFanout`` a fresh MLP, every lane its own
+masked max-width net, before its closed loop.
 
-Each of the three takes the JAX package's ``reg_matrix``/``reg_goal``:
+Each of the four takes the JAX package's ``reg_matrix``/``reg_goal``:
 the GaussRegFactory term of a SumCost candidate batch, ``regw_b (x -
 mu)' S (x - mu)`` on every stage with S and mu shared and a lane's
 weight ``regw`` (B,) in every batch (``_validate_regw``), solved by the
@@ -25,8 +27,10 @@ direct-transcription candidates (a temperature, a noise scale and cost
 gains; cost gains at one knot count) the same way, every MPC step one
 batched controller update of all B lanes.
 
-The joint ARX, Koopman and GP fan-outs, ``impl="vmap"`` and the device
-mesh of the JAX package are not ported yet (ROADMAP.md §A).
+The joint GP fan-out, ``impl="vmap"`` and the device mesh of the JAX
+package are not ported yet (ROADMAP.md §A). (The JAX package has no
+joint ARX fan-out: its tuner trains one ARX a history bucket and rides
+``QuadCostFanout``, as this one does.)
 """
 
 from __future__ import annotations
@@ -45,7 +49,9 @@ from ..control.ilqr import (
 from ..core.trajectory import batch as traj_batch
 from ..core.trajectory import zeros as traj_zeros
 from ..ops.lstsq import fista_lasso, gram_stage, stlsq_gram
+from ..sysid.arx import linear_pred, linear_pred_diff
 from ..sysid.basis import finite_difference
+from ..sysid.koopman import Koopman
 from ..sysid.mlp import epoch_perms, net_apply, net_apply_jac, zscore_pairs
 from ..sysid.sindy import SINDy
 from ..utils.simulation import rollout_scan
@@ -436,6 +442,135 @@ class JointSINDyQuadCostFanout:
         full, B = self._stage(batch)
         coeffs = self.train_lanes(full["reg"])
         return self.closed_loop(coeffs, _lane_costs(full))[:B]
+
+
+class JointKoopmanLassoQuadCostFanout:
+    """Joint tuning fan-out for Koopman(method="lasso") pipelines:
+    candidates that share a basis bucket and an iLQR horizon, and differ
+    in their Lasso alpha and diagonal cost gains. The lifted transitions
+    of the sysid data are staged once (``Koopman.train``'s X, U, Y), every
+    lane trains its own (A, B) through one batched ``fista_lasso`` (an
+    alpha a lane), and the lanes' closed loops then run the per-lane-model,
+    per-lane-cost iLQR in the lifted state (ds = the lifted dimension,
+    ``batch_params=True``, the closed-form Jacobian (A, B)), the state
+    lifted again from the surrogate's observation at every MPC step. The
+    cost, its goal and the GaussReg term (``reg_matrix``) act on the first
+    n lifted dimensions, the observation (``obsdim = n``). (The lstsq and
+    stable fits have no per-lane hyperparameter: the tuner trains one
+    model a bucket and rides ``QuadCostFanout`` instead.)
+
+    ``__call__(batch)`` takes ``{"reg": (B,) alphas, "Qdiag": (B, n),
+    "Rdiag": (B, m), "Fdiag": (B, n)}`` (and ``"regw": (B,)`` with
+    ``reg_matrix``) and returns the task costs (B,); a candidate whose
+    rollout is not finite scores ``inf``. Lanes are padded with copies of
+    the last candidate to a multiple of 8. ``backward="pallas"`` takes K6
+    (``ops/cuda_riccati.py::backward_quad``, built for ds = 4 and 12) on
+    the card, the general kernel with ``reg_matrix``; a lifted dimension
+    with no instance raises by name. ``mesh`` raises. Runs on the card
+    unless ``device`` names another device.
+    """
+
+    def __init__(
+        self,
+        system,
+        task,
+        koopman_cfg: dict,
+        sysid_trajs,
+        surrogate,
+        horizon: int = 20,
+        n_steps: Optional[int] = None,
+        mesh=None,
+        goal=None,
+        compact_schedule=None,
+        warm_start: bool = False,
+        backward: str = "scan",
+        reg_matrix=None,
+        reg_goal=None,
+        device=None,
+    ):
+        if mesh is not None:
+            raise ValueError(
+                "mesh (candidates sharded over several cards) is not ported "
+                "to autompc_torch yet; pass mesh=None"
+            )
+        self._has_reg = reg_matrix is not None
+        self.device = resolve_device(device)
+        on = dict(dtype=default_dtype(self.device), device=self.device)
+        n, dc = system.obs_dim, system.ctrl_dim
+        n_steps = n_steps or (task.get_num_steps() or 200) - 1
+        task_cost = task.get_cost()
+        if goal is None:
+            goal = task_cost.get_goal() if task_cost is not None else np.zeros(n)
+        bounds = task.get_ctrl_bounds()
+        init_obs = torch.as_tensor(np.asarray(task.get_init_obs()), **on)
+
+        skeleton = Koopman(system, method="lasso", lasso_alpha=1.0, device=self.device,
+                           **koopman_cfg)
+        lift = skeleton._apply_basis
+        N = self.state_dim = skeleton.state_dim
+        X, Y, U = (t.to(**on) for t in skeleton.lifted_transitions(sysid_trajs))
+        self._XU, self._Y = torch.cat([X, U], dim=1), Y        # (S, N+m), (S, N)
+
+        solver_kw = dict(
+            H=horizon, ds=N, dc=dc, obsdim=n, dt=system.dt,
+            ubounds=(bounds[:, 0], bounds[:, 1]), backward=backward,
+            batch_params=True, quad_cost_batch=True, quad_goal=np.asarray(goal, dtype=float),
+            pred_diff=linear_pred_diff, **_reg_kw(reg_matrix, reg_goal),
+        )
+        if compact_schedule is not None:
+            if isinstance(compact_schedule, str):
+                compact_schedule = parse_schedule(compact_schedule)
+            solve = make_scheduled_ilqr_solver(
+                linear_pred, None, schedule=tuple(compact_schedule), **solver_kw)
+        else:
+            solve = make_batched_ilqr_solver(linear_pred, None, **solver_kw)
+        self.solver_kw = solver_kw
+        surr_params = {k: (v.to(**on) if isinstance(v, torch.Tensor) else v)
+                       for k, v in surrogate.params.items()}
+
+        def closed_loop(params, cost_params):
+            B = params["A"].shape[0]
+            obs = init_obs.expand(B, n).contiguous()
+            us_prev = obs.new_zeros((B, horizon, dc))
+            obs_seq, ctrl_seq = [], []
+            for _ in range(n_steps):
+                state = lift(obs)
+                if warm_start:
+                    uguess = torch.cat([us_prev[:, 1:], us_prev[:, -1:]], dim=1)
+                else:
+                    uguess = obs.new_zeros((B, horizon, dc))
+                _, xs, us, Ks, _ = solve(params, state, uguess, cost_params)
+                u = us[:, 0]
+                obs_seq.append(obs)
+                ctrl_seq.append(u)
+                obs = surrogate.pred_core(surr_params, obs, u)[..., :n]
+                if warm_start:
+                    us_prev = us
+            return _closed_loop_cost(task_cost, obs_seq, ctrl_seq, obs)
+
+        self._closed_loop = closed_loop
+        self._on = on
+
+    def train_lanes(self, reg):
+        """Every lane's (A (B, N, N), B (B, N, m)), fitted with the lane's
+        Lasso alpha ``reg`` (B,)."""
+        AB = fista_lasso(self._XU, self._Y, reg).mT            # (B, N, N+m)
+        N = self.state_dim
+        return {"A": AB[..., :N].contiguous(), "B": AB[..., N:].contiguous()}
+
+    def closed_loop(self, params, cost_params):
+        """The task costs (B,) of the lanes' closed loops on the surrogate,
+        lane b solving with (params["A"][b], params["B"][b]) under its cost
+        diagonals ``cost_params`` (regw with the GaussReg term)."""
+        return self._closed_loop(params, cost_params)
+
+    def __call__(self, batch):
+        _validate_regw(batch, self._has_reg, type(self).__name__)
+        staged = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
+                                     **self._on)
+                  for k, v in batch.items() if k in ("reg", *_COST_KEYS)}
+        full, B = pad_to_multiple(staged, PAD_QUANTUM)
+        return self.closed_loop(self.train_lanes(full["reg"]), _lane_costs(full))[:B]
 
 
 def scale_by_adam(grad, mu, nu, count, b1=0.9, b2=0.999, eps=1e-8):

@@ -4,7 +4,10 @@ A model separates static configuration (attributes) from trained
 parameters (``model.params``, a dict of tensors) and exposes one pure
 batched step function ``pred_core(params, state (..., ds),
 ctrl (..., dc)) -> state (..., ds)``; controllers close over
-``(model.params, model.pred_core)``.
+``(model.params, model.pred_core)``. The public methods (``pred``,
+``pred_batch``, ``pred_diff``, ``update_state``, ...) are conveniences
+over the same functions: Jacobians come from the model's closed form
+``pred_diff_core`` where it has one, else from ``torch.func.jacfwd``.
 """
 
 from __future__ import annotations
@@ -52,6 +55,39 @@ class Model(ABC):
         """Map a trajectory history to the current model state."""
         raise NotImplementedError
 
+    def state_to_obs(self, state):
+        """Observation part of a model state: its leading obs_dim
+        entries."""
+        return state[..., : self.system.obs_dim]
+
+    def update_state(self, state, new_ctrl, new_obs):
+        return self.update_state_core(self.params, state, new_ctrl, new_obs)
+
+    def pred(self, state, ctrl):
+        return self.pred_core(self.params, state, ctrl)
+
+    def pred_batch(self, states, ctrls):
+        return self.pred_core(self.params, states, ctrls)
+
+    def pred_diff(self, state, ctrl):
+        """(prediction (ds,), Jx (ds, ds), Ju (ds, dc)) at one point."""
+        return self.pred_diff_batch(state, ctrl)
+
+    def pred_diff_batch(self, states, ctrls):
+        """Predictions and Jacobians at every point of the leading axes:
+        the model's ``pred_diff_core`` where it has one, else forward-mode
+        autodiff of ``pred_core`` (the JAX package's ``jax.jacfwd``)."""
+        core = getattr(self, "pred_diff_core", None)
+        if core is None:
+            from ..control.ilqr import jacfwd_pred_diff
+
+            core = jacfwd_pred_diff(self.pred_core, self.state_dim)
+        return core(self.params, states, ctrls)
+
+    def to_linear(self):
+        """(A, B) for linear models only."""
+        raise NotImplementedError
+
     def train(self, trajs, silent=False):
         raise NotImplementedError
 
@@ -65,6 +101,15 @@ class Model(ABC):
     @abstractmethod
     def state_dim(self):
         raise NotImplementedError
+
+    @property
+    def is_linear(self):
+        return type(self).to_linear is not Model.to_linear
+
+    @property
+    def is_diff(self):
+        # Every model with a pred_core is differentiable by jacfwd.
+        return type(self).pred_core is not Model.pred_core
 
 
 class ModelFactory(ABC):

@@ -29,15 +29,20 @@ per candidate; for an ``MLPFactory``
 (kind ``"joint_mlp"``) it is bucketed by (n_hidden_layers, nonlintype,
 horizon) — with ``fanout_horizon_mask`` the horizon is the space's
 upper bound and every lane solves at its own — and every bucket is one
-``JointMLPQuadCostFanout`` call, which trains a net per candidate. The
+``JointMLPQuadCostFanout`` call, which trains a net per candidate; for an
+``ARXFactory`` (kind ``"joint_arx"``) by (history, horizon), one ARX
+trained a bucket and every bucket one ``QuadCostFanout`` call on it; for
+a ``KoopmanFactory`` (kind ``"joint_koopman"``) by (method, basis,
+horizon), a Lasso bucket one ``JointKoopmanLassoQuadCostFanout`` call,
+which trains (A, B) per candidate, an lstsq or stable bucket one Koopman
+trained a bucket and one ``QuadCostFanout`` call on it. The
 true-dynamics scores take a second call with ``FunctionModel(system,
-truedyn)`` as its surrogate. Every other fan-out kind of the JAX
-package (the joint ARX, Koopman and GP fan-outs), the
-``"autotune"``/``"autoselect"`` surrogate modes and
-``mesh`` raise ``ValueError`` by name; a pipeline
-that has no fan-out at all falls back to the sequential objective with a
-warning, as in the JAX package. Every tensor the tuner makes is on the
-pipeline model's device.
+truedyn)`` as its surrogate. The joint GP fan-out of the JAX package
+(kind ``"joint_gp"``), the ``"autotune"``/``"autoselect"`` surrogate
+modes and ``mesh`` raise ``ValueError`` by name; a pipeline that has no
+fan-out at all (an ``LQRFactory``, say) falls back to the sequential
+objective with a warning, as in the JAX package. Every tensor the tuner
+makes is on the pipeline model's device.
 """
 
 from __future__ import annotations
@@ -76,8 +81,7 @@ PipelineTuneResult = namedtuple(
 
 # Fan-out kinds of the JAX package by the class name of the pipeline's
 # model factory (with an IterativeLQRFactory) or, for a fixed model, of
-# its controller factory. "ilqr", "mppi", "dt", "joint_sindy" and
-# "joint_mlp" are ported.
+# its controller factory. Every kind but "joint_gp" is ported.
 _JOINT_KINDS = {
     "SINDyFactory": "joint_sindy", "ARXFactory": "joint_arx", "MLPFactory": "joint_mlp",
     "KoopmanFactory": "joint_koopman", "ApproximateGPModelFactory": "joint_gp",
@@ -88,7 +92,8 @@ _FIXED_KINDS = {
 }
 # A candidate whose controller or rollout fails this way scores inf; a
 # refusal by name (NotPortedError, a ValueError) reaches the caller.
-_PORTED_KINDS = (None, "ilqr", "mppi", "dt", "joint_mlp", "joint_sindy")
+_PORTED_KINDS = (None, "ilqr", "mppi", "dt", "joint_mlp", "joint_sindy", "joint_arx",
+                 "joint_koopman")
 _CANDIDATE_ERRORS = (np.linalg.LinAlgError, torch.linalg.LinAlgError, FloatingPointError,
                      ValueError)
 
@@ -225,15 +230,22 @@ class PipelineTuner:
         "dt"), ``JointSINDyQuadCostFanout`` by
         (sorted ``sindy_bucket`` items, horizon) (kind "joint_sindy"),
         ``JointMLPQuadCostFanout`` by (n_hidden_layers, nonlintype,
-        horizon) (kind "joint_mlp"). Returns costs aligned with ``cfgs``."""
+        horizon) (kind "joint_mlp"), ``QuadCostFanout`` on one ARX a
+        (history, horizon) bucket (kind "joint_arx"),
+        ``JointKoopmanLassoQuadCostFanout`` or ``QuadCostFanout`` on one
+        Koopman a (method, sorted basis items, horizon) bucket (kind
+        "joint_koopman"). Returns costs aligned with ``cfgs``."""
         from ..control.nmpc import knot_count
         from ..parallel.fanout import (
             DirectTranscriptionFanout,
+            JointKoopmanLassoQuadCostFanout,
             JointMLPQuadCostFanout,
             JointSINDyQuadCostFanout,
             MPPIFanout,
             QuadCostFanout,
         )
+        from ..sysid.arx import ARX
+        from ..sysid.koopman import Koopman
 
         system = pipeline.system
         n_steps = (task.get_num_steps() or 200) - 1
@@ -307,11 +319,23 @@ class PipelineTuner:
             elif kind == "dt":
                 # The factory's horizon is in seconds.
                 key = knot_count(ck(cfg, "horizon", 20), system.dt)
+            elif kind == "joint_koopman":
+                basis = dict(
+                    poly_basis=mk(cfg, "poly_basis", "false"),
+                    poly_degree=int(mk(cfg, "poly_degree", 3)),
+                    trig_basis=mk(cfg, "trig_basis", "false"),
+                    trig_freq=int(mk(cfg, "trig_freq", 1)),
+                    product_terms=mk(cfg, "product_terms", "false"),
+                )
+                key = (str(mk(cfg, "method", "lstsq")), tuple(sorted(basis.items())),
+                       horizon(cfg))
+            elif kind == "joint_arx":
+                key = (int(mk(cfg, "history", 4)), horizon(cfg))
             else:
                 key = horizon(cfg)
             buckets.setdefault(key, []).append(idx)
 
-        if kind in ("joint_mlp", "joint_sindy"):
+        if kind.startswith("joint_"):
             device = m_over.get("device")
         else:
             device = model_device(pipeline.model)
@@ -340,6 +364,27 @@ class PipelineTuner:
                     n_steps=n_steps, goal=goal, compact_schedule=self.fanout_compact,
                     warm_start=self.fanout_warm_start, backward=self.fanout_backward,
                     use_feature_kernels=self.fanout_feature_kernels, device=device, **reg_kw,
+                )
+            elif key not in fanouts and kind == "joint_koopman" and key[0] == "lasso":
+                fanouts[key] = JointKoopmanLassoQuadCostFanout(
+                    system, task, dict(key[1]), sysid_trajs, surrogate, horizon=key[2],
+                    n_steps=n_steps, goal=goal, compact_schedule=self.fanout_compact,
+                    warm_start=self.fanout_warm_start, backward=self.fanout_backward,
+                    device=device, **reg_kw,
+                )
+            elif key not in fanouts and kind in ("joint_koopman", "joint_arx"):
+                # The lstsq and stable Koopman fits and ARX have no per-lane
+                # hyperparameter: one model a bucket, the fixed-model fan-out.
+                if kind == "joint_arx":
+                    model = ARX(system, history=key[0], device=device)
+                else:
+                    model = Koopman(system, method=key[0], device=device, **dict(key[1]))
+                model.train(sysid_trajs)
+                fanouts[key] = QuadCostFanout(
+                    system, task, model, surrogate, horizon=key[-1], n_steps=n_steps,
+                    goal=goal, compact_schedule=self.fanout_compact,
+                    warm_start=self.fanout_warm_start, backward=self.fanout_backward,
+                    device=device, **reg_kw,
                 )
             elif key not in fanouts and kind == "mppi":
                 fanouts[key] = MPPIFanout(
@@ -391,6 +436,8 @@ class PipelineTuner:
                 batch["reg"] = np.array([
                     float(mk(cfgs[i], "lasso_alpha", 1.0) if lasso
                           else mk(cfgs[i], "threshold", 1e-2)) for i in idxs])
+            elif kind == "joint_koopman" and key[0] == "lasso":
+                batch["reg"] = np.array([float(mk(cfgs[i], "lasso_alpha", 1.0)) for i in idxs])
             vals = fanouts[key](batch).cpu().numpy()
             for j, i in enumerate(idxs):
                 costs[i] = float(vals[j])

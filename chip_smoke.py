@@ -70,7 +70,7 @@ Phases (each raises on failure, so the exit code is non-zero):
    them, one BO round of 25 candidates (instead of four) padded to 32
    lanes, the bucket pinned to 2 x relu, 20 epochs (instead of 50), every
    lane its own 256-wide masked net, the horizon-masked per-lane solve
-   (K4 at (4,1)) at H=25 for 99 closed-loop steps (instead of 199) on
+   (K4 at (4,1)) at H=25 for 49 closed-loop steps (instead of 199) on
    the surrogate and on the true dynamics; the ask, per-lane training and closed-loop
    seconds, evals/s and K4's launches by B printed, no NaN score; the
    incumbent simulated on the true dynamics from the canonical start
@@ -128,6 +128,36 @@ Phases (each raises on failure, so the exit code is non-zero):
    with the fan-out for an ``MPPIFactory`` and a
    ``DirectTranscriptionControllerFactory`` (one round of 64, both
    fan-outs), then sequential against fan-out (>= 3 of 4 within 1e-3);
+15. the linear models (a linear model has a closed-form Jacobian, so
+   no feature kernel runs; K6 at (ds, dc) = (12, 1) is the phase's
+   kernel): (a) BASELINE.json configs[0], ARX + QuadCost + LQR: (a1) the
+   JAX slice test's cell (ARX history 2 on 300 x 8 near-upright
+   trajectories, FiniteHorizonLQR H=80, 200 steps from (0.3, 0, 0, 0) on
+   the true dynamics; final abs(theta), abs(omega) < 0.05 required);
+   (a2) ARXFactory's default (history 4, ds=20) on the main path's data:
+   its fit's seconds, FiniteHorizonLQR at H=10 and InfiniteHorizonLQR
+   (gains within 1e-4 of float64 on the CPU from the same (A, B); the
+   controllers design in float64, and the same designs in float32 are
+   printed beside them), the LQR step latency of ``Controller.run``;
+   (b) configs[3], Koopman + DirectTranscription: the trig-basis lstsq
+   Koopman (ds=12) on the main path's data, the DT controller at 20
+   knots: its step latency, its first solve from 256 starts against
+   float64 on the lanes with the same step sizes (phase 14's 1e-3), the
+   receding loop (simulate, 30 steps) from the canonical start; the
+   Lasso and stable fits: their seconds, their distance from float64
+   fits, the stable fit's spectral radius (< 1 required); (c)
+   ``bench_scaling.py``'s ``SCALE_MODE=joint_koopman`` row:
+   ``JointKoopmanLassoQuadCostFanout`` at B=1,024, H=10, 50 steps,
+   compaction ``8:0.5,16:0.25,28:0.125,40:0.0625``, (c1)
+   ``backward="scan"`` and (c2) ``"pallas"`` (K6 at (12, 1)), one warm
+   and 3 timed calls each, evals/s, finite scores, their first-step
+   solves agreeing as phase 8's; (d) ``PipelineTuner.run`` for
+   ``Pipeline(ARXFactory, QuadCostFactory, IterativeLQRFactory)`` and
+   ``Pipeline(KoopmanFactory, ...)`` (the latter through K6): one BO
+   round of 64 candidates at 49 steps with both fan-outs, then
+   sequential against fan-out (>= 3 of 4 within 1e-3); and ARX + QuadCost
+   + LQRFactory through the sequential objective (the fan-out falls back
+   with a warning), a finite incumbent;
 3. kernels vs plain twins: each CUDA kernel against its plain PyTorch
    twin on the card, on inputs taken from every path that launches it,
    at that path's shape: the lanes-last kernels on the main path's carry
@@ -166,7 +196,9 @@ Phases (each raises on failure, so the exit code is non-zero):
    zero weight bit for bit the instance without the term, and given the
    transposes of fan-out (a)'s and phase 12 (a)'s lanes-last carries bit
    for bit the lanes-last instance; K4 at (4,1) on 13 (a1)'s dense
-   expansions. Within stated tolerances, timed with CUDA events (and where a
+   expansions; K6 at (12, 1) on phase 15 (c2)'s carry at every batch
+   size (c2) and the "joint_koopman" tune launched it with (a row of its
+   own). Within stated tolerances, timed with CUDA events (and where a
    call is shorter than its host work also as device time under
    torch.profiler), beside the least time the card could take
    (``bound_ms``).
@@ -177,7 +209,9 @@ phase 6 and phase 7 for the batch-major ones, each configuration of
 phase 8 for its three and the tune of phase 10 for the same three
 (``launches_tune`` in their rows), the tune of phase 11 for K4
 (``launches_joint_mlp`` in its (4,1) row), each configuration and the
-tune of phase 13 for theirs (``launches_gauss_reg``), each variant of phase 9 for the main
+tune of phase 13 for theirs (``launches_gauss_reg``), phase 15 (c2) and
+its "joint_koopman" tune for K6 at (12, 1) (``launches_joint_koopman``,
+``launches_tune``), each variant of phase 9 for the main
 path's kernels (``launches_bf16`` counts a wrapper's bfloat16 instances,
 ``launches_by_B`` its launches by the batch size of the call). A
 kernel that never ran on its path fails the run. Phase 3 runs after
@@ -378,10 +412,12 @@ OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out"
 # of the initial design) instead of 100, and the bucket pinned to
 # JM_PIN (the MLPFactory defaults), so that a round is one fan-out call on
 # the surrogate and one on the true dynamics; JM_STEPS - 1 closed-loop
-# steps instead of 199 (the incumbent's simulation too), since phase 14
-# took the uncut command to 1,093.3 s of its 1,200 on an NVIDIA H100 80GB
-# HBM3, 700 W (the closed loops were 264.9 s of the phase's 319.9).
-JM_TRAJS, JM_EPOCHS, JM_ITERS, JM_BATCH, JM_STEPS = 40, 20, 25, 25, 100
+# steps instead of 199 (the incumbent's simulation too): 99 since phase
+# 14 took the uncut command to 1,093.3 s of its 1,200 on an NVIDIA H100
+# 80GB HBM3, 700 W (the closed loops were 264.9 s of the phase's 319.9),
+# 49 since phase 15 took it to 1,132.4 s (phase 11's closed loops 129.2 s
+# of its 165.5).
+JM_TRAJS, JM_EPOCHS, JM_ITERS, JM_BATCH, JM_STEPS = 40, 20, 25, 25, 50
 JM_PIN = dict(n_hidden_layers="2", nonlintype="relu")
 JM_COMPACT = ((4, 0.5), (8, 0.25), (14, 0.125))
 # Phase 2's SINDy: the 55-term trig + interaction library.
@@ -547,6 +583,67 @@ CF_B, CF_H, CF_PATHS, CF_KNOTS, CF_STEPS, CF_CALLS, CF_SEED = 256, 20, 200, 10, 
 CF_DT_STEPS = 20
 CT_TUNE_BATCH, CT_TUNE_STEPS, CT_SEQ_ITERS, CT_SEQ_STEPS = 64, 100, 4, 25
 CT_DT_TUNE_STEPS, CT_DT_SEQ_STEPS = 50, 15
+
+# Phase 15: the linear models (ARX, Koopman with its lstsq, lasso and
+# stable fits, LQR), BASELINE.json configs[0] and [3], bench_scaling.py's
+# joint-Koopman row and the tuner's kinds "joint_arx" and "joint_koopman"
+# (K6 at (ds, dc) = (12, 1) is the only kernel: a linear model has a
+# closed-form Jacobian and the solves are batch-major). (a1) configs[0]
+# as tests/test_slice_arx_lqr.py:198-243 builds it: ARX (history 2) on
+# LM_LOCAL_TRAJS uniform-random LM_LOCAL_LEN-step trajectories near
+# upright (init +-0.15, |u| <= 2, seed 42 by a generator on the card),
+# FiniteHorizonLQR at H=LM_A1_H, Q = F = diag(100, 10, 1, 1), R = 0.01,
+# LM_A1_STEPS steps of simulate from (0.3, 0, 0, 0) on the true dynamics:
+# final |theta|, |omega| < LM_A1_GATE. (a2) at full width: ARXFactory's
+# default (history 4, ds = 20) on the main path's data, FiniteHorizonLQR
+# at LQRFactory's default horizon (10) and InfiniteHorizonLQR: the gains
+# against float64 on the CPU from the same (A, B) (normwise, relative,
+# within LM_GAIN_TOL; the controllers design in float64, and the same
+# designs run in float32 on the card are printed beside them: the
+# infinite-horizon iteration does not converge on this model and runs
+# its 10,000 steps), the fit's seconds, and the step latency of
+# Controller.run (one warm call, LM_STEP_REPS timed). (b) configs[3]:
+# Koopman lstsq with the trig basis at frequency 1 (ds = 12) on the main
+# path's data, DirectTranscriptionController at DT_HORIZON_S (20 knots):
+# the step latency (one warm, DT_STEP_REPS timed), the first solve from
+# DT_CHECK_B starts against float64 as phase 14's (its DT_US_TOL), and
+# the receding loop (simulate on the true dynamics) from the canonical
+# start, cut to DT_LOOP_STEPS steps as phase 14's SQP loop; the lasso
+# (alpha LM_LASSO_ALPHA) and stable fits: their seconds, each card fit's
+# normwise relative distance from a float64 CPU fit on the same data, and
+# the stable fit's spectral radius (< 1). (c) bench_scaling.py's
+# SCALE_MODE=joint_koopman row, uncut: JointKoopmanLassoQuadCostFanout
+# (trig basis at frequency 1), B=JK_B, H=JK_H, JK_STEPS steps, goal zeros,
+# alphas 10^U(-6, 0) and Q/F 10^U(-1, 1.5), R 10^U(-3, 0) from JK_SEED,
+# compaction JK_SCHEDULE, phase 2's model the surrogate; (c1)
+# backward="scan", (c2) backward="pallas" (K6 at (12, 1)), one warm call
+# and JK_CALLS timed each; the first MPC-step solves agree as phase 8's,
+# every score finite or inf. (d) PipelineTuner.run, surrogate_mode=
+# "pretrain", the fan-out, phase 2's model, QuadCostFactory and
+# IterativeLQRFactory(horizon=LM_TUNE_H) with ARXFactory (backward "scan":
+# ds = 20 has no K6 instance) and with KoopmanFactory (backward "pallas":
+# K6 at (12, 1), its launches in K6's row as ``launches_tune``, and
+# phase [3] checks it at the tune's batch on (c2)'s carry): one BO round
+# of LM_TUNE_BATCH candidates at
+# LM_TUNE_STEPS - 1 steps (cut from 199: at 99 the command took 1,132.4 s
+# of its 1,200, the "joint_koopman" tune 45.8 s of it), on the surrogate
+# and on the true
+# dynamics, no fallback warning, no NaN; sequential against fan-out on
+# SEQ_ITERS candidates at LM_SEQ_STEPS steps (>= SEQ_AGREE_MIN within
+# SEQ_TOL; the fan-out with the tune's backward); then ARX + QuadCost +
+# LQRFactory through the sequential
+# objective (use_fanout=True warns and falls back), LM_LQR_ITERS
+# candidates, a finite incumbent. Cut in depth: the buckets pinned
+# (ARXFactory's history at 4, KoopmanFactory's basis at trig_freq 1 with
+# its three methods free, the iLQR horizon at LM_TUNE_H), so that a round
+# is one fan-out call a bucket.
+LM_LOCAL_TRAJS, LM_LOCAL_LEN, LM_A1_H, LM_A1_STEPS, LM_A1_GATE = 300, 8, 80, 200, 0.05
+LM_STEP_REPS, LM_GAIN_TOL = 20, 1e-4
+LM_LASSO_ALPHA = 1e-3
+JK_B, JK_H, JK_STEPS, JK_CALLS, JK_SEED = 1024, 10, 50, 3, 15
+JK_SCHEDULE = "8:0.5,16:0.25,28:0.125,40:0.0625"
+JK_BASIS = dict(trig_basis=True, trig_freq=1)
+LM_TUNE_BATCH, LM_TUNE_STEPS, LM_TUNE_H, LM_SEQ_STEPS, LM_LQR_ITERS = 64, 50, 10, 25, 2
 
 # Phase 9: the main path's wide options at its own shape (B_SOLVE, H,
 # SCHEDULE: every compaction stage is a multiple of 1024, so the wide
@@ -2874,6 +2971,387 @@ def controller_tunes(bench, model, trajs, card):
     return rows
 
 
+def lm_fit(model, trajs):
+    """Seconds of ``model.train(trajs)`` to its result on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.train(trajs)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def cpu64_trajs(trajs):
+    """The sysid data as float64 on the CPU (for the float64 fits)."""
+    from autompc_torch import TrajectoryBatch
+
+    return TrajectoryBatch(trajs.system, trajs.obs.double().cpu(), trajs.ctrls.double().cpu(),
+                           trajs.lengths.cpu())
+
+
+def linear_models_phase(bench, model, trajs, dev, card, K6):
+    """Phase 15 (a)-(c). Returns what phase [3] needs for K6 at (12, 1):
+    (c2)'s fan-out, the candidates, the lanes' (A, B) and K6's launches by
+    batch size on (c2)."""
+    from autompc_torch.benchmarks.data_generation import uniform_random_generate_batch
+    from autompc_torch.control import (
+        DirectTranscriptionController,
+        FiniteHorizonLQR,
+        InfiniteHorizonLQR,
+        make_scheduled_ilqr_solver,
+        parse_schedule,
+    )
+    from autompc_torch.costs import QuadCost
+    from autompc_torch.ops.riccati import finite_horizon_lqr, infinite_horizon_lqr
+    from autompc_torch.parallel import JointKoopmanLassoQuadCostFanout
+    from autompc_torch.sysid import ARXFactory, Koopman
+    from autompc_torch.utils.simulation import simulate
+
+    system = bench.system
+    cpu64 = cpu64_trajs(trajs)
+
+    # ---- (a1) configs[0] as the JAX slice test builds it ----
+    small = bench.task.copy()
+    small.set_ctrl_bound("u", -2.0, 2.0)
+    local = uniform_random_generate_batch(
+        system, small, bench.dynamics, torch.Generator(device=dev).manual_seed(42),
+        init_min=-0.15 * np.ones(4), init_max=0.15 * np.ones(4), traj_len=LM_LOCAL_LEN,
+        n_trajs=LM_LOCAL_TRAJS)
+    arx2 = ARXFactory(system)({"history": 2}, local)
+    q = np.diag([100.0, 10.0, 1.0, 1.0])
+    task = bench.task.copy()
+    task.set_cost(QuadCost(system, q, 0.01 * np.eye(1), q, goal=np.zeros(4)))
+    t0 = time.perf_counter()
+    traj = simulate(FiniteHorizonLQR(system, task, arx2, LM_A1_H), np.array([0.3, 0.0, 0.0, 0.0]),
+                    dynamics=bench.dynamics, max_steps=LM_A1_STEPS)
+    final = traj.obs[-1].double().cpu().numpy()
+    ok = traj.size == LM_A1_STEPS + 1 and abs(final[0]) < LM_A1_GATE \
+        and abs(final[1]) < LM_A1_GATE
+    print(f"[15a1] configs[0]: ARX history 2 on {LM_LOCAL_TRAJS} x {LM_LOCAL_LEN} near-upright "
+          f"trajectories, FiniteHorizonLQR H={LM_A1_H}, {LM_A1_STEPS} steps from (0.3, 0, 0, 0) "
+          f"on the true dynamics ({time.perf_counter() - t0:.2f} s): final theta {final[0]:+.5f},"
+          f" omega {final[1]:+.5f} (gate |.| < {LM_A1_GATE}): {ok}; on {card}", flush=True)
+    if not ok:
+        raise RuntimeError(f"configs[0] closed loop: final state {final}")
+
+    # ---- (a2) full width: ARXFactory's default, LQRFactory's horizon ----
+    af = ARXFactory(system)
+    arx = af(af.get_configuration_space().get_default_configuration(), None,
+             skip_train_model=True)
+    fit_s = lm_fit(arx, trajs)
+    A, B = arx.to_linear()
+    A64, B64 = A.double().cpu(), B.double().cpu()
+    fin = FiniteHorizonLQR(system, task, arx, 10)
+    inf = InfiniteHorizonLQR(system, task, arx)
+    Qp64, R64, Fp64 = fin.Qp.double().cpu(), fin.Rp.double().cpu(), fin.Qp.double().cpu() * 0
+    Fp64[:4, :4] = torch.as_tensor(q)
+    N64 = A64.new_zeros((arx.state_dim, 1))
+    K_fin64 = finite_horizon_lqr(A64, B64, Qp64, R64, N64, Fp64, 10)[0]
+    K_inf64 = infinite_horizon_lqr(A64, B64, Qp64, R64)[0]
+    e_fin, e_inf = rel_err(fin.K.cpu(), K_fin64), rel_err(inf.K.cpu(), K_inf64)
+    # The same designs in float32 on the card, for the record (the
+    # controllers design in float64: control/lqr.py).
+    f32 = [M.float().to(dev) for M in (A64, B64, Qp64, R64, N64, Fp64)]
+    e32_fin = rel_err(finite_horizon_lqr(*f32, 10)[0].cpu(), K_fin64)
+    e32_inf = rel_err(infinite_horizon_lqr(*f32[:4])[0].cpu(), K_inf64)
+    obs = torch.as_tensor(task.get_init_obs(), dtype=A.dtype, device=dev)
+    lat = {name: step_latency(con, obs, LM_STEP_REPS, dev)
+           for name, con in (("finite", fin), ("infinite", inf))}
+    print(f"[15a2] ARX history {arx.k} (ds={arx.state_dim}) on the main path's data: fit "
+          f"{fit_s:.3f} s; LQR gains against float64 on the CPU from the same (A, B): finite "
+          f"H=10 {e_fin:.3e}, infinite {e_inf:.3e} (tol {LM_GAIN_TOL}; the same designs run "
+          f"in float32 on the card: {e32_fin:.3e}, {e32_inf:.3e}); "
+          f"lqr_control_step_latency_ms finite {lat['finite'][0] * 1e3:.4f}, infinite "
+          f"{lat['infinite'][0] * 1e3:.4f} ({LM_STEP_REPS} Controller.run calls after one warm) "
+          f"on {card}", flush=True)
+    for name, (_, us) in lat.items():
+        if not controls_ok(us, task.get_ctrl_bounds()):
+            raise RuntimeError(f"LQR ({name}) step: a control is not finite or bounded")
+    if not (e_fin <= LM_GAIN_TOL and e_inf <= LM_GAIN_TOL):
+        raise RuntimeError(f"LQR gains against float64: finite {e_fin:.3e}, infinite {e_inf:.3e}")
+
+    # ---- (b) configs[3]: Koopman + direct transcription ----
+    qd = np.diag([10.0, 0.1, 0.01, 0.01])
+    dtask = bench.task.copy()
+    dtask.set_cost(QuadCost(system, qd, 0.001 * np.eye(1), qd, goal=np.zeros(4)))
+    km = Koopman(system, method="lstsq", **JK_BASIS)
+    fit_s = lm_fit(km, trajs)
+    km64 = Koopman(system, method="lstsq", device="cpu", **JK_BASIS)
+    km64.train(cpu64)
+    e_fit = rel_err(km.A.cpu(), km64.A)
+    dt_con = DirectTranscriptionController(system, dtask, km, horizon=DT_HORIZON_S)
+    obs = torch.as_tensor(dtask.get_init_obs(), dtype=km.A.dtype, device=dev)
+    lat, us = step_latency(dt_con, obs, DT_STEP_REPS, dev)
+    print(f"[15b] Koopman lstsq, trig basis (ds={km.state_dim}): fit {fit_s:.3f} s, A "
+          f"{e_fit:.3e} from float64 (normwise); dt_sqp_koopman_control_step_latency_ms "
+          f"{lat * 1e3:.3f} ({dt_con.horizon} knots, {DT_STEP_REPS} Controller.run calls after "
+          f"one warm) on {card}", flush=True)
+    if not controls_ok(us, dtask.get_ctrl_bounds()):
+        raise RuntimeError("Koopman DT step: a control is not finite or outside its bounds")
+    x0b = torch.cat([obs[None], draw_x0(np.random.default_rng(CF_SEED), DT_CHECK_B - 1, dev)])
+    z0 = km._apply_basis(x0b)
+    H_dt, ds = dt_con.horizon, km.state_dim
+    _, us_c, st_c = dt_con._solve(km.params, z0, z0.new_zeros((DT_CHECK_B, H_dt + 1, ds)),
+                                  z0.new_zeros((DT_CHECK_B, H_dt, 1)), steps=True)
+    km_c64 = Koopman(system, method="lstsq", device="cpu", **JK_BASIS)
+    km_c64.set_parameters(km.get_parameters())
+    dt64 = DirectTranscriptionController(system, dtask, km_c64, horizon=DT_HORIZON_S)
+    z64 = km_c64._apply_basis(x0b.double().cpu())
+    _, us_p, st_p = dt64._solve(km_c64.params, z64, z64.new_zeros((DT_CHECK_B, H_dt + 1, ds)),
+                                z64.new_zeros((DT_CHECK_B, H_dt, 1)), steps=True)
+    same = (st_c.cpu() == st_p).all(1)
+    err = (us_c.double().cpu() - us_p).abs().amax((1, 2))
+    scale = us_p.abs().amax((1, 2)).clamp_min(1.0)
+    bad = int((same & ~(err <= DT_US_TOL * scale)).sum())
+    share = float(same.double().mean())
+    print(f"[15b] first solve from {DT_CHECK_B} starts, card (float32) against CPU (float64) "
+          f"on the card's (A, B): the same step size at every iteration on {share:.4f} of the "
+          f"lanes (canonical start {bool(same[0])}); their controls within "
+          f"{float((err / scale)[same].max()) if same.any() else float('nan'):.3e} (max "
+          f"{DT_US_TOL}), {bad} beyond", flush=True)
+    if not same.any() or bad:
+        raise RuntimeError(f"Koopman DT first solve: {bad} lanes beyond {DT_US_TOL}, share {share}")
+    t0 = time.perf_counter()
+    traj = simulate(dt_con, dtask.get_init_obs(), dynamics=bench.dynamics,
+                    max_steps=DT_LOOP_STEPS)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / DT_LOOP_STEPS
+    print(f"[15b] receding DT loop on the Koopman model, {DT_LOOP_STEPS} steps from the "
+          f"canonical start on the true dynamics: per-step latency {per_step * 1e3:.3f} ms; "
+          f"final state {[round(float(v), 4) for v in traj.obs[-1]]}", flush=True)
+    if not (torch.isfinite(traj.obs).all() and controls_ok(traj.ctrls[:-1],
+                                                           dtask.get_ctrl_bounds())):
+        raise RuntimeError("receding Koopman DT loop: a state or a control is not finite")
+    for method in ("lasso", "stable"):
+        m = Koopman(system, method=method, lasso_alpha=LM_LASSO_ALPHA, **JK_BASIS)
+        fit_s = lm_fit(m, trajs)
+        m64 = Koopman(system, method=method, lasso_alpha=LM_LASSO_ALPHA, device="cpu",
+                      **JK_BASIS)
+        fit64 = time.perf_counter()
+        m64.train(cpu64)
+        fit64 = time.perf_counter() - fit64
+        rho = float(np.abs(np.linalg.eigvals(m.A.double().cpu().numpy())).max())
+        print(f"[15b] Koopman {method} fit (alpha {LM_LASSO_ALPHA}): {fit_s:.3f} s on the card "
+              f"({fit64:.3f} s float64 on the CPU); A {rel_err(m.A.cpu(), m64.A):.3e}, B "
+              f"{rel_err(m.B.cpu(), m64.B):.3e} from float64 (normwise); spectral radius "
+              f"{rho:.6f}", flush=True)
+        if not torch.isfinite(m.A).all() or (method == "stable" and not rho < 1.0):
+            raise RuntimeError(f"Koopman {method} fit: not finite, or spectral radius {rho}")
+
+    # ---- (c) bench_scaling.py's joint-Koopman row ----
+    rng = np.random.default_rng(JK_SEED)
+    batch = fanout_candidates(dev, JK_B, JK_SEED)
+    batch["reg"] = batch["Qdiag"].new_tensor(10 ** rng.uniform(-6, 0, JK_B))
+    fans, out = {}, {}
+    for tag, backward in (("c1", "scan"), ("c2", "pallas")):
+        fan = JointKoopmanLassoQuadCostFanout(
+            system, bench.task, JK_BASIS, trajs, model, horizon=JK_H, n_steps=JK_STEPS,
+            goal=np.zeros(4), compact_schedule=JK_SCHEDULE, backward=backward)
+        fans[tag] = fan
+        K6.backward_quad.launches, K6.backward_quad.launches_by_B = 0, {}
+        warm, per_call, scores = timed_runs(lambda: fan(batch), JK_CALLS)
+        launches, by_B = K6.backward_quad.launches, dict(K6.backward_quad.launches_by_B)
+        out[tag] = dict(launches=launches, by_B=by_B)
+        fin = torch.isfinite(scores)
+        print(f"[15{tag}] JointKoopmanLassoQuadCostFanout backward={backward!r}: B={JK_B} "
+              f"H={JK_H} ds={fan.state_dim}, {JK_STEPS} steps, schedule {JK_SCHEDULE}: warm call "
+              f"{warm:.2f} s, {JK_CALLS} timed calls {per_call:.3f} s each -> "
+              f"{JK_B / per_call:.1f} evals/s on {card}; finite {int(fin.sum())} / {JK_B}, mean "
+              f"of finite {float(scores[fin].mean()) if fin.any() else float('nan'):.2f}; K6 "
+              f"launches {launches} by B {by_B}", flush=True)
+        if tuple(scores.shape) != (JK_B,) or torch.isnan(scores).any():
+            raise RuntimeError(f"joint Koopman fan-out ({tag}): malformed or NaN scores")
+    if out["c1"]["launches"] or not out["c2"]["launches"]:
+        raise RuntimeError(f"K6 launches: scan {out['c1']['launches']}, pallas "
+                           f"{out['c2']['launches']} (the pallas body must launch it)")
+    # The first MPC step's solve, (c1) against (c2): the lanes' models,
+    # costs and the lifted start shared.
+    params = fans["c2"].train_lanes(batch["reg"])
+    cp = {k: batch[k] for k in ("Qdiag", "Rdiag", "Fdiag")}
+    z0 = km._apply_basis(batch["Qdiag"].new_tensor(np.tile(bench.task.get_init_obs(),
+                                                           (JK_B, 1))))
+    ug = z0.new_zeros((JK_B, JK_H, 1))
+    from autompc_torch.sysid.arx import linear_pred
+    sols = {tag: make_scheduled_ilqr_solver(linear_pred, None,
+                                            schedule=parse_schedule(JK_SCHEDULE),
+                                            **fans[tag].solver_kw)(params, z0, ug, cp)
+            for tag in fans}
+    dt = system.dt
+    obj = {tag: lane_objective(o[1][..., :4], o[2], cp, dt) for tag, o in sols.items()}
+    both = sols["c1"][0] & sols["c2"][0]
+    rel = ((obj["c1"] - obj["c2"]).abs() / obj["c2"].abs().clamp_min(1e-30))[both]
+    share = float((rel <= FAN_OBJ_TOL).float().mean()) if both.any() else 0.0
+    print(f"[15c] first MPC step, (c1) vs (c2): converged (c1) {int(sols['c1'][0].sum())}, (c2) "
+          f"{int(sols['c2'][0].sum())}, both {int(both.sum())} of {JK_B}; accepted objective "
+          f"relative difference on those: median "
+          f"{float(rel.median()) if both.any() else float('nan'):.3e}, max "
+          f"{float(rel.max()) if both.any() else float('nan'):.3e}; within {FAN_OBJ_TOL} on "
+          f"{share:.4f} (min {FAN_AGREE_MIN})", flush=True)
+    if int(both.sum()) < JK_B // 4 or share < FAN_AGREE_MIN:
+        raise RuntimeError(f"joint Koopman first step: {int(both.sum())} lanes converged in "
+                           f"both, objectives agree on {share:.4f}")
+    return dict(fan=fans["c2"], batch=batch, params=params, z0=z0,
+                launches=out["c2"]["launches"], by_B=out["c2"]["by_B"])
+
+
+def linear_tunes(bench, model, trajs, card, K6):
+    """Phase 15 (d): the tuner's kinds "joint_arx" and "joint_koopman", and
+    the LQR pipeline through the sequential objective. Returns K6's
+    launches by batch size in the "joint_koopman" tune (its fan-outs take
+    ``backward="pallas"``: K6 at (12, 1))."""
+    from autompc_torch.control import IterativeLQRFactory, LQRFactory
+    from autompc_torch.costs import QuadCost, QuadCostFactory
+    from autompc_torch.pipeline import Pipeline
+    from autompc_torch.sysid import ARXFactory, KoopmanFactory
+    from autompc_torch.tuning import PipelineTuner
+
+    system, goal = bench.system, np.zeros(4)
+    seq_task = bench.task.copy()
+    seq_task.set_cost(QuadCost(system, Q=np.eye(4), R=0.01 * np.eye(1), F=np.eye(4), goal=goal))
+    seq_task.set_init_obs(np.array([0.5, 0.0, 0.0, 0.0]))
+    seq_task.set_num_steps(LM_SEQ_STEPS)
+    task = bench.task.copy()
+    task.set_num_steps(LM_TUNE_STEPS)
+    k6_by_B = {}
+    for kind, mf, backward in (
+            ("joint_arx", ARXFactory(system, history=4), "scan"),
+            ("joint_koopman", KoopmanFactory(system, poly_basis="false", trig_basis="true",
+                                             trig_freq=1), "pallas")):
+        pipeline = Pipeline(system, mf, QuadCostFactory(system, goal=goal),
+                            IterativeLQRFactory(system, horizon=LM_TUNE_H))
+        tuner = PipelineTuner(surrogate_mode="pretrain", eval_batch=LM_TUNE_BATCH,
+                              use_fanout=True, fanout_backward=backward)
+        K6.backward_quad.launches_by_B = {}
+        if tuner._fanout_kind(pipeline, model)[0] != kind:
+            raise RuntimeError(f"the tuner did not select the {kind!r} fan-out")
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", UserWarning)    # a fallback warning fails the phase
+            _, res = tuner.run(pipeline, task, trajs, n_iters=LM_TUNE_BATCH,
+                               rng=np.random.default_rng(100), surrogate=model,
+                               truedyn=bench.dynamics)
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+        if backward == "pallas":
+            k6_by_B = dict(K6.backward_quad.launches_by_B)
+        costs, true_costs = np.array(res.costs), np.array(res.truedyn_costs)
+        buckets = sorted({str(c.get("_model:method", "arx")) for c in res.cfgs})
+        print(f"[15d] tune {kind!r}: one BO round of {LM_TUNE_BATCH} candidates x "
+              f"{LM_TUNE_STEPS - 1} steps (buckets {buckets}, H={LM_TUNE_H}, backward="
+              f"{backward!r}), surrogate and true dynamics: {tune_s:.2f} s -> "
+              f"{LM_TUNE_BATCH / tune_s:.1f} evals/s (both fan-outs) on {card}; K6 launches "
+              f"{dict(K6.backward_quad.launches_by_B)} by B; finite "
+              f"{int(np.isfinite(costs).sum())} / {costs.size} on the "
+              f"surrogate, {int(np.isfinite(true_costs).sum())} / {true_costs.size} on the true "
+              f"dynamics; incumbent {res.inc_cfg.get_dictionary()}: surrogate "
+              f"{res.inc_costs[-1]:.1f}, true dynamics {res.inc_truedyn_costs[-1]:.1f}",
+              flush=True)
+        if len(costs) != LM_TUNE_BATCH or len(true_costs) != LM_TUNE_BATCH \
+                or np.isnan(costs).any() or np.isnan(true_costs).any():
+            raise RuntimeError(f"tune {kind!r}: a score is missing or NaN")
+        t0 = time.perf_counter()
+        scores = [
+            PipelineTuner(surrogate_mode="pretrain", eval_batch=SEQ_ITERS, **fkw).run(
+                pipeline, seq_task, trajs, n_iters=SEQ_ITERS, rng=np.random.default_rng(3),
+                surrogate=model)[1]
+            for fkw in ({}, dict(use_fanout=True, fanout_backward=backward))
+        ]
+        agree = 0
+        for i, (a, b) in enumerate(zip(scores[0].costs, scores[1].costs)):
+            ok = (a == b) or (np.isfinite(a) and np.isfinite(b)
+                              and abs(a - b) <= SEQ_TOL * max(abs(b), 1e-30))
+            agree += ok
+            print(f"[15d] {kind!r} candidate {i}: sequential {a!r}, fan-out {b!r}, relative "
+                  f"difference {abs(a - b) / max(abs(b), 1e-30):.3e}{'' if ok else ' DIFFER'}",
+                  flush=True)
+        print(f"[15d] {kind!r} sequential vs fan-out ({LM_SEQ_STEPS}-step near-upright task, "
+              f"quadratic task cost): {agree} of {SEQ_ITERS} within {SEQ_TOL} (min "
+              f"{SEQ_AGREE_MIN}); {time.perf_counter() - t0:.2f} s", flush=True)
+        if agree < SEQ_AGREE_MIN:
+            raise RuntimeError(f"tune {kind!r}: sequential and fan-out agree on {agree} of "
+                               f"{SEQ_ITERS}")
+    # configs[0] through the tuner: no fan-out, the sequential objective.
+    pipeline = Pipeline(system, ARXFactory(system), QuadCostFactory(system, goal=goal),
+                        LQRFactory(system))
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, res = PipelineTuner(surrogate_mode="pretrain", eval_batch=LM_LQR_ITERS,
+                               use_fanout=True).run(
+            pipeline, task, trajs, n_iters=LM_LQR_ITERS, rng=np.random.default_rng(5),
+            surrogate=model)
+    fell_back = any("falling back" in str(w.message) for w in caught)
+    print(f"[15d] ARX + QuadCost + LQR through the tuner: fell back to the sequential objective "
+          f"{fell_back}; {LM_LQR_ITERS} candidates {[c.get_dictionary() for c in res.cfgs]}: "
+          f"costs {res.costs}; incumbent {res.inc_costs[-1]!r} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    if not (fell_back and np.isfinite(res.inc_costs[-1])):
+        raise RuntimeError(f"LQR pipeline: fell back {fell_back}, incumbent {res.inc_costs[-1]}")
+    if not k6_by_B:
+        raise RuntimeError("the 'joint_koopman' tune with backward='pallas' never launched K6")
+    return k6_by_B
+
+
+def check_k6_wide(lm, K6, dt, tune_by_B):
+    """K6 at (12, 1) against its plain version on (c2)'s carry (the first
+    MPC step, three iterations in) at every batch size (c2) launched it
+    with, and at each batch size the "joint_koopman" tune launched it
+    with (``tune_by_B``; the first lanes of the same carry). Returns (its
+    report row, failures)."""
+    from autompc_torch.control import make_batched_ilqr_solver
+    from autompc_torch.sysid.arx import linear_pred
+
+    fan, batch = lm["fan"], lm["batch"]
+    _, carry0, _, make_body = make_batched_ilqr_solver(linear_pred, None, return_pieces=True,
+                                                       **fan.solver_kw)
+    cp = {k: batch[k] for k in ("Qdiag", "Rdiag", "Fdiag")}
+    c = carry0(lm["params"], lm["z0"], lm["z0"].new_zeros((JK_B, JK_H, 1)), cp)
+    body = make_body(lm["params"])
+    for _ in range(3):
+        c = body(c)
+    Bs = sorted(lm["by_B"], reverse=True)
+    meas, failures = {}, []
+    for Bc in sorted(set(Bs) | set(tune_by_B), reverse=True):
+        sc = sub_carry(c, Bc)
+        args = (sc["Jx"], sc["Ju"], sc["xs"], sc["us"], sc["cost"]["Qdiag"], sc["cost"]["Rdiag"],
+                sc["cost"]["Fdiag"], (0.0,) * 4, dt, 4)
+        gk = K6.backward_quad(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gp = K6.backward_quad_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs = [rel_err(a, b) for a, b in zip(gk, gp)]
+        g6 = K6.bq_bm_geometry(Bc, JK_H, 12, K6._build.sm_count(sc["xs"].device))
+        meas[Bc] = dict(
+            max_abs_err=max(abs_err(a, b) for a, b in zip(gk, gp)),
+            ms=time_ms(lambda: K6.backward_quad(*args)),
+            device_ms=device_ms(lambda: K6.backward_quad(*args)),
+            plain_ms=plain_ms,
+            **bound_keys(n_bytes(*args[:7], *gk), Bc * JK_H * (riccati_flops(12, 1) + 4 * 12)),
+            launches=lm["by_B"].get(Bc, 0),
+        )
+        print(f"[3] K6 at (12, 1) on (c2)'s carry B={Bc} H={JK_H} ({g6['group']} threads a lane, "
+              f"{g6['lanes_per_block']} lanes a block, {g6['blocks']} blocks, ring {g6['ring']}):"
+              f" rel err K/k/lin/quad {[f'{e:.3e}' for e in errs]} (tol {TOL_K6}); kernel "
+              f"{meas[Bc]['ms']:.4f} ms (device {meas[Bc]['device_ms']:.4f}), plain "
+              f"{plain_ms:.1f} ms, bound {meas[Bc]['bound_ms']:.5f} ms "
+              f"({meas[Bc]['bound_by']}); {lm['by_B'].get(Bc, 0)} launches on (c2), "
+              f"{tune_by_B.get(Bc, 0)} in the tune", flush=True)
+        if not max(errs) <= TOL_K6:
+            failures.append(f"K6 at (12, 1) B={Bc} rel err {max(errs):.3e} > {TOL_K6}")
+    top = dict(meas[Bs[0]])
+    top.pop("launches")
+    at = {f"at_B{Bc}_H{JK_H}": meas[Bc] for Bc in meas if Bc != Bs[0]}
+    for w in at.values():
+        w.pop("library_ms")
+    row = dict(name=f"backward_quad[ds=12,B={Bs[0]},H={JK_H}]", route="cuda",
+               source="autompc_torch/csrc/riccati_quad_bm.cu",
+               replaces="autompc_tpu/ops/pallas_riccati.py:456", launches=lm["launches"],
+               launches_by_B=lm["by_B"], launches_joint_koopman=lm["launches"],
+               launches_tune=sum(tune_by_B.values()), launches_tune_by_B=tune_by_B, **top, **at)
+    return row, failures
+
+
 def main(profile=False):
     dev = check_device()
     from autompc_torch.benchmarks import CartpoleSwingupBenchmark, HalfcheetahBenchmark
@@ -3269,6 +3747,12 @@ def main(profile=False):
     controllers_phase(bench, model, trajs, hc, dflt[0], dev, card)
     controller_tunes(bench, model, trajs, card)
     print(f"[14] phase wall {time.perf_counter() - t14:.2f} s", flush=True)
+
+    # ---- [15] the linear models ------------------------------------------------
+    t15 = time.perf_counter()
+    lm = linear_models_phase(bench, model, trajs, dev, card, K2)
+    lm_tune_by_B = linear_tunes(bench, model, trajs, card, K2)
+    print(f"[15] phase wall {time.perf_counter() - t15:.2f} s", flush=True)
 
     # ---- [3] kernels vs plain twins on path inputs -----------------------
     _, make_carry0, _, _ = make_batched_ilqr_solver(
@@ -4094,6 +4578,11 @@ def main(profile=False):
                 r["launches_gauss_reg"] = {k: gr_counts[k][name] for k in cfgs
                                            if name in gr_counts[k]}
 
+    # K6 at (12, 1), phase 15 (c2)'s instance, in a row of its own.
+    k6w, fails = check_k6_wide(lm, K2, bench.system.dt, lm_tune_by_B)
+    failures += fails
+    report.append(k6w)
+
     def device_txt(w):
         return ((f" (device {w['device_ms']:.4f})" if "device_ms" in w else "")
                 + (f" (its lanes-last entry on the same points: device "
@@ -4118,6 +4607,8 @@ def main(profile=False):
                  f"{r['launches_joint_mlp_by_B']} by B" if "launches_joint_mlp" in r else "")
               + (f"; {r['launches_joint_tune']} in the joint-SINDy tune"
                  if "launches_joint_tune" in r else "")
+              + (f"; {r['launches_joint_koopman']} in the joint-Koopman fan-out (c2)"
+                 if "launches_joint_koopman" in r else "")
               + (f"; in phase 13 {r['launches_gauss_reg']}" if "launches_gauss_reg" in r else "")
               + (f"; {r['registers']} registers" if "registers" in r else ""))
         if "lane_cost_ms" in r:

@@ -22,6 +22,7 @@ PORT_MODULES = [
     "autompc_torch.control",
     "autompc_torch.control.controller",
     "autompc_torch.control.ilqr",
+    "autompc_torch.control.lqr",
     "autompc_torch.control.mppi",
     "autompc_torch.control.nmpc",
     "autompc_torch.control.receding",
@@ -45,9 +46,12 @@ PORT_MODULES = [
     "autompc_torch.parallel.mesh",
     "autompc_torch.pipeline",
     "autompc_torch.sysid",
+    "autompc_torch.sysid.arx",
     "autompc_torch.sysid.dummy",
+    "autompc_torch.sysid.koopman",
     "autompc_torch.sysid.mlp",
     "autompc_torch.sysid.sindy",
+    "autompc_torch.sysid.stable_koopman",
     "autompc_torch.tuning",
     "autompc_torch.tuning.bo",
     "autompc_torch.tuning.pipeline_tuner",
@@ -248,12 +252,17 @@ def test_fanout_kernel_entries_mirror_the_sources():
     assert {n for n, _ in entries} == set(_build._SIGNATURES)
     for name, args in entries:
         assert len(_build._SIGNATURES[name]) == args.count(",") + 1, name
-    for kernel in ("backward_quad_bm_kernel", "sindy_ls_kernel"):
+    for kernel in ("backward_quad_bm_kernel", "backward_quad_bm_wide_kernel",
+                   "sindy_ls_kernel"):
         assert re.search(r"__global__ void " + kernel + r"\(", text)
     assert ctypes.sizeof(_build.SindyLS) == 4 * (1 + _build.MAX_L + 2)
     assert ctypes.sizeof(_build.QuadDiag) == 4 * (2 + 3 * _build.MAX_OBS + 1)
-    for key in ("riccati_quad_bm", "sindy_linesearch"):
-        assert _build.KERNEL_SHAPES[key] == ((4, 1),)
+    assert _build.KERNEL_SHAPES["sindy_linesearch"] == ((4, 1),)
+    # K6: the ds = 4 kernel and the wide instance the entry dispatches
+    # ds = 12 to.
+    assert _build.KERNEL_SHAPES["riccati_quad_bm"] == ((4, 1), (12, 1))
+    wide = {int(d) for d in re.findall(r"bqbm_wide_launch<(\d+), \d+>\(", text)}
+    assert {(d, 1) for d in wide} | {(4, 1)} == set(_build.KERNEL_SHAPES["riccati_quad_bm"])
 
 
 def _fanout(**kw):

@@ -662,6 +662,92 @@ def test_bq_bm_geometry_mirrors_the_source():
         assert line in src, line
 
 
+@pytest.mark.parametrize("B", BQBM_BATCHES)
+def test_bq_bm_wide_geometry_covers_every_lane_and_row_once(B):
+    """K6 at ds = 12 (riccati_quad_bm.cu: backward_quad_bm_wide_kernel):
+    groups of G = 16 threads, thread g < 12 owning row g, two groups a
+    warp; every (lane, row) falls to one thread, a group to one warp,
+    every (lane, step) of the gains to one flush; the block fits the
+    card's shared memory."""
+    ds = 12
+    for H in (10, 200):
+        g = K2.bq_bm_geometry(B, H, ds=ds)
+        G, NL, threads = g["group"], g["lanes_per_block"], g["threads"]
+        assert G == 16 and threads == NL * G and threads % 32 == 0
+        assert threads <= _build.BQBM_MAX_THREADS and g["blocks"] == -(-B // NL)
+        ring = min(H, _build.BQBM_RING)
+        assert g["ring"] == ring
+        assert g["smem"] == NL * 4 * (ring * (ds * ds + 3 * ds + 2) + 2 * (ds * ds + ds))
+        assert g["smem"] <= _build.MAX_SMEM_BYTES
+        blk, tid = np.divmod(np.arange(g["blocks"] * threads), threads)
+        lane, row = blk * NL + tid // G, tid % G
+        ok = (lane < B) & (row < ds)
+        seen = np.zeros((B, ds), int)
+        np.add.at(seen, (lane[ok], row[ok]), 1)
+        assert (seen == 1).all(), (B, H)
+        warp = (blk * threads + tid) // 32
+        first = np.flatnonzero(row == 0)
+        assert (warp[first] == warp[first + G - 1]).all()
+        assert (_bqbm_flush(B, H, NL, G, g["blocks"]) == 1).all(), (B, H)
+
+
+def test_bq_bm_wide_copies_cover_each_step_once():
+    """The wide instance's fetch: copy q of a step (thread q % G) moves 16
+    bytes of the Jx rows (q < 36), of Ju, of x_t, or u_t (the last);
+    together they fill a ring slot's Jx, Ju, x_t and u_t once each, from
+    the step's rows once each, every 16-byte copy aligned at both ends."""
+    ds, G = 12, 16
+    R4, NQ = ds // 4, (ds + 2) * (ds // 4) + 1
+    slot = np.zeros(ds * ds + ds, int)      # J: the Jx rows, then Ju
+    sx, su = np.zeros(ds, int), 0
+    src = {"Jx": np.zeros(ds * ds, int), "Ju": np.zeros(ds, int), "x": np.zeros(ds, int)}
+    owners = set()
+    for q0 in range(0, NQ, G):
+        for g in range(G):
+            q = q0 + g
+            if q >= NQ:
+                continue
+            owners.add(g)
+            if q < ds * R4:
+                slot[q * 4:q * 4 + 4] += 1
+                src["Jx"][q * 4:q * 4 + 4] += 1
+            elif q < (ds + 1) * R4:
+                c = q - ds * R4
+                slot[ds * ds + c * 4:ds * ds + c * 4 + 4] += 1
+                src["Ju"][c * 4:c * 4 + 4] += 1
+            elif q < (ds + 2) * R4:
+                c = q - (ds + 1) * R4
+                sx[c * 4:c * 4 + 4] += 1
+                src["x"][c * 4:c * 4 + 4] += 1
+            else:
+                su += 1
+    assert (slot == 1).all() and (sx == 1).all() and su == 1
+    assert all((v == 1).all() for v in src.values())
+    assert owners == set(range(G))
+    # 16-byte alignment: a slot (JW floats), a row of x (ds) and a step of
+    # Jx (ds^2), Ju and x (ds) are multiples of 4 floats.
+    assert (ds * ds + ds) % 4 == 0 and ds % 4 == 0
+
+
+def test_bq_bm_wide_mirrors_the_source():
+    """The wide instance's group, copies, shared memory a lane and the
+    entry's dispatch that bq_bm_geometry and the tests above mirror are
+    riccati_quad_bm.cu's."""
+    src = (_build.CSRC_DIR / "riccati_quad_bm.cu").read_text()
+    for line in ("return S * (DS * DS + 3 * DS + 2) + 2 * (DS * DS + DS);",
+                 "constexpr int R4 = DS / 4;",
+                 "constexpr int NQ = (DS + 2) * R4 + 1;",
+                 "const bool row = g < DS;",
+                 "const int i = row ? g : 0;",
+                 "for (int q0 = 0; q0 < NQ; q0 += G) {",
+                 "if (row) sK[(s * NL + l) * DS + i] = K_i;",
+                 "if (ds == 12)",
+                 "return bqbm_wide_launch<12, 16>(",
+                 "lanes * G > AMPC_BQBM_MAX_THREADS || (lanes * G) % 32 != 0)"):
+        assert line in src, line
+    assert K2.bq_bm_geometry(64, 10, ds=12)["group"] == 16
+
+
 # A numpy float32 model of K6's step: the one-thread recursion
 # (riccati_quad_step.cuh: ampc_bq_step, the kernel before its redesign)
 # against the kernel's group of G threads a lane, each thread's entries

@@ -1,6 +1,7 @@
 """K6 plain version (ops/cuda_riccati.py::backward_quad_plain) vs the JAX
 Pallas kernel pallas_tvlqr_backward_quad in interpret mode, float64,
-1e-10: batch-major arrays, per-lane cost diagonals, ds >= obsdim."""
+1e-10: batch-major arrays, per-lane cost diagonals, ds >= obsdim (ds = 12,
+obsdim = 4: the Koopman lift that K6's second instance takes)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +31,8 @@ def _inputs(seed, B=8, H=9, ds=5, obsdim=4):
 KEYS = ("Jx", "Ju", "xs", "us", "Qd", "Rd", "Fd")
 
 
-@pytest.mark.parametrize("seed, ds, obsdim", [(3, 5, 4), (4, 4, 4), (5, 4, 2), (6, 3, 3)])
+@pytest.mark.parametrize("seed, ds, obsdim", [(3, 5, 4), (4, 4, 4), (5, 4, 2), (6, 3, 3),
+                                             (9, 12, 4)])
 def test_backward_quad_plain_matches_pallas(seed, ds, obsdim):
     d = _inputs(seed, ds=ds, obsdim=obsdim)
     ref = pallas_tvlqr_backward_quad(
