@@ -34,3 +34,16 @@ class Benchmark(ABC):
         """Generate a training set as a TrajectoryBatch on ``device``
         (None: the card)."""
         raise NotImplementedError
+
+    @staticmethod
+    @abstractmethod
+    def data_gen_methods():
+        """The names of the data-generation methods the benchmark takes."""
+        raise NotImplementedError
+
+
+def check_data_gen_method(method, methods):
+    """Raise ``ValueError`` by name for a method the benchmark does not
+    take."""
+    if method not in methods:
+        raise ValueError(f"Unknown data_gen_method {method!r}; this benchmark takes {methods}")

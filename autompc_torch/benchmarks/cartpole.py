@@ -18,7 +18,7 @@ from ..core.system import System
 from ..core.task import Task
 from ..costs import BoxThresholdCost, ThresholdCost
 from . import data_generation as dg
-from .benchmark import Benchmark
+from .benchmark import Benchmark, check_data_gen_method
 
 
 def cartpole_simp_dynamics(y, u, g=9.8, m=1.0, L=1.0, b=0.1):
@@ -48,11 +48,7 @@ class CartpoleSwingupBenchmark(Benchmark):
     goal."""
 
     def __init__(self, data_gen_method="uniform_random"):
-        if data_gen_method != "uniform_random":
-            raise ValueError(
-                f"data_gen_method {data_gen_method!r} is not ported yet; "
-                "only 'uniform_random' is available"
-            )
+        check_data_gen_method(data_gen_method, self.data_gen_methods())
         system = System(["theta", "omega", "x", "dx"], ["u"], dt=0.05)
         cost = ThresholdCost(
             system, goal=np.zeros(4), threshold=0.2, obs_range=(0, 3)
@@ -67,14 +63,35 @@ class CartpoleSwingupBenchmark(Benchmark):
     def dynamics(self, x, u):
         return dt_cartpole_dynamics(x, u, self.system.dt, g=9.8, m=1, L=1, b=1.0)
 
+    def _gen_trajs(self, n_trajs, traj_len, rng, draws=None):
+        """The training set by the benchmark's data-generation method;
+        ``draws`` replaces the generator's random draws (see
+        ``data_generation``)."""
+        common = dict(
+            system=self.system, task=self.task, dynamics=self.dynamics, rng=rng,
+            init_min=np.array([-1.0, 0.0, 0.0, 0.0]), init_max=np.array([1.0, 0.0, 0.0, 0.0]),
+            traj_len=traj_len, n_trajs=n_trajs, draws=draws,
+        )
+        method = self._data_gen_method
+        if method == "uniform_random":
+            return dg.uniform_random_generate_batch(**common)
+        if method == "periodic_control":
+            return dg.periodic_control_generate_batch(U_1=np.ones(1), **common)
+        if method == "multisine":
+            return dg.multisine_generate_batch(n_freqs=20, **common)
+        if method == "random_walk":
+            return dg.random_walk_generate_batch(walk_rate=1.0, **common)
+        if method == "prbs":
+            return dg.prbs_generate_batch(states=np.array([-20.0, 20.0]), Nswitch=10, **common)
+        raise ValueError(f"Unknown data_gen_method {method!r}")
+
     def gen_trajs_batch(self, seed, n_trajs, traj_len=200, device=None):
         rng = torch.Generator(device=resolve_device(device)).manual_seed(int(seed))
-        return dg.uniform_random_generate_batch(
-            system=self.system, task=self.task, dynamics=self.dynamics,
-            rng=rng, init_min=np.array([-1.0, 0.0, 0.0, 0.0]),
-            init_max=np.array([1.0, 0.0, 0.0, 0.0]),
-            traj_len=traj_len, n_trajs=n_trajs,
-        )
+        return self._gen_trajs(n_trajs, traj_len, rng)
+
+    @staticmethod
+    def data_gen_methods():
+        return ["uniform_random", "periodic_control", "multisine", "random_walk", "prbs"]
 
 
 class CartpoleSwingupV2Benchmark(CartpoleSwingupBenchmark):

@@ -37,7 +37,7 @@ from ..core.system import System
 from ..core.task import Task
 from ..costs.cost import Cost
 from . import data_generation as dg
-from .benchmark import Benchmark
+from .benchmark import Benchmark, check_data_gen_method
 
 # Model parameters (approximating the gym half_cheetah.xml).
 _TORSO_M, _TORSO_I, _TORSO_L = 6.25, 0.3, 1.0
@@ -244,11 +244,7 @@ class HalfcheetahBenchmark(Benchmark):
     """18 obs / 6 ctrl, 200 steps, metric 200 - R."""
 
     def __init__(self, data_gen_method="uniform_random"):
-        if data_gen_method != "uniform_random":
-            raise ValueError(
-                f"data_gen_method {data_gen_method!r} is not ported yet; "
-                "only 'uniform_random' is available"
-            )
+        check_data_gen_method(data_gen_method, self.data_gen_methods())
         system = System(
             [f"x{i}" for i in range(18)], [f"u{i}" for i in range(6)], dt=0.05
         )
@@ -265,16 +261,34 @@ class HalfcheetahBenchmark(Benchmark):
     def dynamics(self, x, u):
         return halfcheetah_dynamics(x, u)
 
-    def gen_trajs_batch(self, seed, n_trajs, traj_len=200, device=None):
-        rng = torch.Generator(device=resolve_device(device)).manual_seed(int(seed))
+    def _gen_trajs(self, n_trajs, traj_len, rng, draws=None):
+        """The training set by the benchmark's data-generation method;
+        ``draws`` replaces the generator's random draws (see
+        ``data_generation``)."""
         init = np.asarray(self.task.get_init_obs(), dtype=np.float64)
         # Small random perturbations of the nominal standing pose.
         init_min = init - 0.1
         init_max = init + 0.1
         init_min[1] = init[1]
         init_max[1] = init[1] + 0.05
-        return dg.uniform_random_generate_batch(
+        common = dict(
             system=self.system, task=self.task, dynamics=self.dynamics,
             rng=rng, init_min=init_min, init_max=init_max,
-            traj_len=traj_len, n_trajs=n_trajs,
+            traj_len=traj_len, n_trajs=n_trajs, draws=draws,
         )
+        method = self._data_gen_method
+        if method == "uniform_random":
+            return dg.uniform_random_generate_batch(**common)
+        if method == "multisine":
+            return dg.multisine_generate_batch(n_freqs=20, **common)
+        if method == "random_walk":
+            return dg.random_walk_generate_batch(walk_rate=1.0, **common)
+        raise ValueError(f"Unknown data_gen_method {method!r}")
+
+    def gen_trajs_batch(self, seed, n_trajs, traj_len=200, device=None):
+        rng = torch.Generator(device=resolve_device(device)).manual_seed(int(seed))
+        return self._gen_trajs(n_trajs, traj_len, rng)
+
+    @staticmethod
+    def data_gen_methods():
+        return ["uniform_random", "multisine", "random_walk"]

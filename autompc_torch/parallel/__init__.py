@@ -1,5 +1,6 @@
 from .fanout import (
     DirectTranscriptionFanout,
+    JointGPQuadCostFanout,
     JointKoopmanLassoQuadCostFanout,
     JointMLPQuadCostFanout,
     JointSINDyQuadCostFanout,

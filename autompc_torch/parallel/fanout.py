@@ -1,8 +1,9 @@
 """Tuning fan-out: score a batch of candidate configurations in one
 batched program (port of ``autompc_tpu/parallel/fanout.py``:
 ``QuadCostFanout``, ``JointSINDyQuadCostFanout``,
-``JointKoopmanLassoQuadCostFanout``, ``JointMLPQuadCostFanout``,
-``MPPIFanout`` and ``DirectTranscriptionFanout``).
+``JointKoopmanLassoQuadCostFanout``, ``JointGPQuadCostFanout``,
+``JointMLPQuadCostFanout``, ``MPPIFanout`` and
+``DirectTranscriptionFanout``).
 
 For configuration families whose hyperparameters do not change tensor
 shapes (cost gains), the whole candidate evaluation — controller
@@ -13,10 +14,13 @@ is what a tune spends its time in. ``JointSINDyQuadCostFanout`` also
 trains a fresh SINDy model per candidate (one STLSQ threshold or Lasso
 alpha a lane, on data staged once), ``JointKoopmanLassoQuadCostFanout``
 a fresh Koopman (A, B) (one Lasso alpha a lane, on lifted data staged
-once), and ``JointMLPQuadCostFanout`` a fresh MLP, every lane its own
-masked max-width net, before its closed loop.
+once), ``JointGPQuadCostFanout`` an SVGP a distinct ``induce_count``
+(every missing one in one padded batched training, the lanes then
+carrying their bucket's cached-mean predictor), and
+``JointMLPQuadCostFanout`` a fresh MLP, every lane its own masked
+max-width net, before its closed loop.
 
-Each of the four takes the JAX package's ``reg_matrix``/``reg_goal``:
+Each of the five takes the JAX package's ``reg_matrix``/``reg_goal``:
 the GaussRegFactory term of a SumCost candidate batch, ``regw_b (x -
 mu)' S (x - mu)`` on every stage with S and mu shared and a lane's
 weight ``regw`` (B,) in every batch (``_validate_regw``), solved by the
@@ -27,8 +31,8 @@ direct-transcription candidates (a temperature, a noise scale and cost
 gains; cost gains at one knot count) the same way, every MPC step one
 batched controller update of all B lanes.
 
-The joint GP fan-out, ``impl="vmap"`` and the device mesh of the JAX
-package are not ported yet (ROADMAP.md §A). (The JAX package has no
+``impl="vmap"`` and the device mesh of the JAX package are not ported
+yet (ROADMAP.md §A). (The JAX package has no
 joint ARX fan-out: its tuner trains one ARX a history bucket and rides
 ``QuadCostFanout``, as this one does.)
 """
@@ -40,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import default_dtype, resolve_device
+from .. import NotPortedError, default_dtype, resolve_device
 from ..control.ilqr import (
     make_batched_ilqr_solver,
     make_scheduled_ilqr_solver,
@@ -51,6 +55,7 @@ from ..core.trajectory import zeros as traj_zeros
 from ..ops.lstsq import fista_lasso, gram_stage, stlsq_gram
 from ..sysid.arx import linear_pred, linear_pred_diff
 from ..sysid.basis import finite_difference
+from ..sysid.gp import gp_pred_core_cached, train_svgp_buckets
 from ..sysid.koopman import Koopman
 from ..sysid.mlp import epoch_perms, net_apply, net_apply_jac, zscore_pairs
 from ..sysid.sindy import SINDy
@@ -571,6 +576,168 @@ class JointKoopmanLassoQuadCostFanout:
                   for k, v in batch.items() if k in ("reg", *_COST_KEYS)}
         full, B = pad_to_multiple(staged, PAD_QUANTUM)
         return self.closed_loop(self.train_lanes(full["reg"]), _lane_costs(full))[:B]
+
+
+class JointGPQuadCostFanout:
+    """Joint tuning fan-out for ApproximateGP pipelines: candidates that
+    share an iLQR horizon and differ in ``induce_count`` (the GP's only
+    hyperparameter) and diagonal cost gains. Every distinct
+    ``induce_count`` trains once, all missing ones in one
+    ``train_svgp_buckets`` call at ``pad_to`` inducing points (exact
+    no-op padding, so each bucket is the model ``ApproximateGPModel``
+    trains alone with the same data and seed), and the trained buckets
+    are kept across calls. The closed loop then gives every lane its
+    bucket's cached-mean predictor (``gp_pred_core_cached`` with per-lane
+    ``gp``, ``w`` and the shared z-scoring) in the per-lane-model,
+    per-lane-cost iLQR (``batch_params=True``, ``quad_cost_batch=True``),
+    linearized by ``torch.func.jacfwd`` of the predictor
+    (``jacfwd_pred_diff``), so a batch that mixes any number of
+    ``induce_count``s is one batched solve a closed-loop step.
+
+    ``gp_cfg`` holds the GP's ``niter``, ``lr``, ``batch_size`` and
+    ``seed``; ``pad_to`` (default 200, the space's largest count) is cut
+    to the number of training pairs. ``__call__(batch)`` takes
+    ``{"induce_count": (B,) ints, "Qdiag": (B, n), "Rdiag": (B, m),
+    "Fdiag": (B, n)}`` (and ``"regw": (B,)`` with ``reg_matrix``) and
+    returns the task costs (B,); a candidate whose rollout is not finite
+    (a bucket whose float32 Cholesky failed, say) scores ``inf``. Lanes
+    are padded with copies of the last candidate to a multiple of 8.
+    ``backward="pallas"`` takes K6 on the card (ds = 4, dc = 1), the
+    general kernel with ``reg_matrix``. ``block_b`` is a choice of the
+    TPU kernels and is ignored; ``mesh`` raises. Runs on the card unless
+    ``device`` names another device.
+    """
+
+    def __init__(
+        self,
+        system,
+        task,
+        gp_cfg: dict,
+        sysid_trajs,
+        surrogate,
+        horizon: int = 20,
+        n_steps: Optional[int] = None,
+        mesh=None,
+        goal=None,
+        compact_schedule=None,
+        warm_start: bool = False,
+        backward: str = "scan",
+        block_b: int = 128,
+        reg_matrix=None,
+        reg_goal=None,
+        pad_to: Optional[int] = None,
+        device=None,
+    ):
+        del block_b
+        if mesh is not None:
+            raise NotPortedError(
+                "mesh (candidates sharded over several cards) is not ported "
+                "to autompc_torch yet; pass mesh=None"
+            )
+        self._has_reg = reg_matrix is not None
+        self.system = system
+        self._gp_cfg = dict(gp_cfg)
+        self._trajs = sysid_trajs
+        self.device = resolve_device(device)
+        on = dict(dtype=default_dtype(self.device), device=self.device)
+        self._on = on
+        n, dc = system.obs_dim, system.ctrl_dim
+        n_steps = n_steps or (task.get_num_steps() or 200) - 1
+        task_cost = task.get_cost()
+        if goal is None:
+            goal = task_cost.get_goal() if task_cost is not None else np.zeros(n)
+        bounds = task.get_ctrl_bounds()
+        init_obs = torch.as_tensor(np.asarray(task.get_init_obs()), **on)
+        n_total = int(traj_batch(sysid_trajs).step_mask().sum())
+        # One padded inducing count for every bucket (the space tops out
+        # at 200).
+        self.pad_to = int(min(pad_to or 200, n_total))
+        self.buckets = {}  # induce_count -> {"gp", "w", and the z-scoring}
+
+        solver_kw = dict(
+            H=horizon, ds=n, dc=dc, obsdim=n, dt=system.dt,
+            ubounds=(bounds[:, 0], bounds[:, 1]), backward=backward,
+            batch_params=True, quad_cost_batch=True, quad_goal=np.asarray(goal, dtype=float),
+            **_reg_kw(reg_matrix, reg_goal),
+        )
+        if compact_schedule is not None:
+            if isinstance(compact_schedule, str):
+                compact_schedule = parse_schedule(compact_schedule)
+            solve = make_scheduled_ilqr_solver(
+                gp_pred_core_cached, None, schedule=tuple(compact_schedule), **solver_kw)
+        else:
+            solve = make_batched_ilqr_solver(gp_pred_core_cached, None, **solver_kw)
+        self.solver_kw = solver_kw
+        surr_params = {k: (v.to(**on) if isinstance(v, torch.Tensor) else v)
+                       for k, v in surrogate.params.items()}
+
+        def closed_loop(params, cost_params):
+            B = cost_params["Qdiag"].shape[0]
+            obs = init_obs.expand(B, n).contiguous()
+            us_prev = obs.new_zeros((B, horizon, dc))
+            obs_seq, ctrl_seq = [], []
+            for _ in range(n_steps):
+                if warm_start:
+                    uguess = torch.cat([us_prev[:, 1:], us_prev[:, -1:]], dim=1)
+                else:
+                    uguess = obs.new_zeros((B, horizon, dc))
+                _, _, us, _, _ = solve(params, obs, uguess, cost_params)
+                u = us[:, 0]
+                obs_seq.append(obs)
+                ctrl_seq.append(u)
+                obs = surrogate.pred_core(surr_params, obs, u)[..., :n]
+                if warm_start:
+                    us_prev = us
+            return _closed_loop_cost(task_cost, obs_seq, ctrl_seq, obs)
+
+        self._closed_loop = closed_loop
+
+    def ensure_buckets(self, counts):
+        """Train every ``induce_count`` of ``counts`` not trained yet, in
+        one ``train_svgp_buckets`` call."""
+        missing = sorted({int(m) for m in counts} - set(self.buckets))
+        if not missing:
+            return
+        cfg = self._gp_cfg
+        params, w, norm = train_svgp_buckets(
+            self.system, self._trajs, missing, niter=int(cfg.get("niter", 5)),
+            lr=float(cfg.get("lr", 0.1)), batch_size=int(cfg.get("batch_size", 1024)),
+            seed=int(cfg.get("seed", 100)), pad_to=self.pad_to, device=self.device)
+        for k, M in enumerate(missing):
+            self.buckets[M] = {"gp": {name: v[k] for name, v in params.items()}, "w": w[k],
+                               **norm}
+
+    def lane_params(self, counts):
+        """The per-lane predictor params of lanes with these
+        ``induce_count``s: every tensor of their buckets gathered to a
+        leading lane axis."""
+        self.ensure_buckets(counts)
+        order = sorted({int(m) for m in counts})
+        idx = torch.as_tensor([order.index(int(m)) for m in counts], device=self.device)
+
+        def gather(get):
+            return torch.stack([get(self.buckets[m]) for m in order])[idx]
+
+        out = {"gp": {k: gather(lambda b, k=k: b["gp"][k]) for k in self.buckets[order[0]]["gp"]}}
+        for k in ("w", "xu_means", "xu_std", "dy_means", "dy_std"):
+            out[k] = gather(lambda b, k=k: b[k])
+        return out
+
+    def closed_loop(self, params, cost_params):
+        """The task costs (B,) of the lanes' closed loops on the surrogate,
+        lane b solving with the predictor ``params`` of its lane under its
+        cost diagonals ``cost_params`` (regw with the GaussReg term)."""
+        return self._closed_loop(params, cost_params)
+
+    def __call__(self, batch):
+        _validate_regw(batch, self._has_reg, type(self).__name__)
+        staged = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
+                                     **self._on)
+                  for k, v in batch.items() if k in _COST_KEYS}
+        staged["induce_count"] = torch.as_tensor(np.asarray(batch["induce_count"], dtype=np.int64))
+        full, B = pad_to_multiple(staged, PAD_QUANTUM)
+        params = self.lane_params(full["induce_count"].tolist())
+        return self.closed_loop(params, _lane_costs(full))[:B]
 
 
 def scale_by_adam(grad, mu, nu, count, b1=0.9, b2=0.999, eps=1e-8):

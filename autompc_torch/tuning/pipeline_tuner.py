@@ -35,11 +35,15 @@ trained a bucket and every bucket one ``QuadCostFanout`` call on it; for
 a ``KoopmanFactory`` (kind ``"joint_koopman"``) by (method, basis,
 horizon), a Lasso bucket one ``JointKoopmanLassoQuadCostFanout`` call,
 which trains (A, B) per candidate, an lstsq or stable bucket one Koopman
-trained a bucket and one ``QuadCostFanout`` call on it. The
-true-dynamics scores take a second call with ``FunctionModel(system,
-truedyn)`` as its surrogate. The joint GP fan-out of the JAX package
-(kind ``"joint_gp"``), the ``"autotune"``/``"autoselect"`` surrogate
-modes and ``mesh`` raise ``ValueError`` by name; a pipeline that has no
+trained a bucket and one ``QuadCostFanout`` call on it; for an
+``ApproximateGPModelFactory`` (kind ``"joint_gp"``) by horizon alone,
+every bucket one ``JointGPQuadCostFanout`` call, which trains an SVGP a
+distinct ``induce_count`` (all missing ones in one padded batched
+training, kept across rounds) and gives every lane its bucket's
+predictor. The true-dynamics scores take a second call with
+``FunctionModel(system, truedyn)`` as its surrogate. The
+``"autotune"``/``"autoselect"`` surrogate modes and ``mesh`` raise
+``ValueError`` by name; a pipeline that has no
 fan-out at all (an ``LQRFactory``, say) falls back to the sequential
 objective with a warning, as in the JAX package. Every tensor the tuner
 makes is on the pipeline model's device.
@@ -81,7 +85,7 @@ PipelineTuneResult = namedtuple(
 
 # Fan-out kinds of the JAX package by the class name of the pipeline's
 # model factory (with an IterativeLQRFactory) or, for a fixed model, of
-# its controller factory. Every kind but "joint_gp" is ported.
+# its controller factory. Every kind is ported.
 _JOINT_KINDS = {
     "SINDyFactory": "joint_sindy", "ARXFactory": "joint_arx", "MLPFactory": "joint_mlp",
     "KoopmanFactory": "joint_koopman", "ApproximateGPModelFactory": "joint_gp",
@@ -93,7 +97,7 @@ _FIXED_KINDS = {
 # A candidate whose controller or rollout fails this way scores inf; a
 # refusal by name (NotPortedError, a ValueError) reaches the caller.
 _PORTED_KINDS = (None, "ilqr", "mppi", "dt", "joint_mlp", "joint_sindy", "joint_arx",
-                 "joint_koopman")
+                 "joint_koopman", "joint_gp")
 _CANDIDATE_ERRORS = (np.linalg.LinAlgError, torch.linalg.LinAlgError, FloatingPointError,
                      ValueError)
 
@@ -234,10 +238,12 @@ class PipelineTuner:
         (history, horizon) bucket (kind "joint_arx"),
         ``JointKoopmanLassoQuadCostFanout`` or ``QuadCostFanout`` on one
         Koopman a (method, sorted basis items, horizon) bucket (kind
-        "joint_koopman"). Returns costs aligned with ``cfgs``."""
+        "joint_koopman"), ``JointGPQuadCostFanout`` by horizon (kind
+        "joint_gp"). Returns costs aligned with ``cfgs``."""
         from ..control.nmpc import knot_count
         from ..parallel.fanout import (
             DirectTranscriptionFanout,
+            JointGPQuadCostFanout,
             JointKoopmanLassoQuadCostFanout,
             JointMLPQuadCostFanout,
             JointSINDyQuadCostFanout,
@@ -386,6 +392,19 @@ class PipelineTuner:
                     warm_start=self.fanout_warm_start, backward=self.fanout_backward,
                     device=device, **reg_kw,
                 )
+            elif key not in fanouts and kind == "joint_gp":
+                # induce_count does not bucket: every distinct value trains
+                # in one padded batched program, the lanes carry their
+                # bucket's predictor.
+                fanouts[key] = JointGPQuadCostFanout(
+                    system, task,
+                    dict(niter=int(m_over.get("niter", 5)), lr=float(m_over.get("lr", 0.1)),
+                         batch_size=int(m_over.get("batch_size", 1024)),
+                         seed=int(m_over.get("seed", 100))),
+                    sysid_trajs, surrogate, horizon=key, n_steps=n_steps, goal=goal,
+                    compact_schedule=self.fanout_compact, warm_start=self.fanout_warm_start,
+                    backward=self.fanout_backward, device=device, **reg_kw,
+                )
             elif key not in fanouts and kind == "mppi":
                 fanouts[key] = MPPIFanout(
                     system, task, pipeline.model, surrogate, horizon=key[0], num_path=key[1],
@@ -438,6 +457,9 @@ class PipelineTuner:
                           else mk(cfgs[i], "threshold", 1e-2)) for i in idxs])
             elif kind == "joint_koopman" and key[0] == "lasso":
                 batch["reg"] = np.array([float(mk(cfgs[i], "lasso_alpha", 1.0)) for i in idxs])
+            elif kind == "joint_gp":
+                batch["induce_count"] = np.array([int(mk(cfgs[i], "induce_count", 100))
+                                                  for i in idxs])
             vals = fanouts[key](batch).cpu().numpy()
             for j, i in enumerate(idxs):
                 costs[i] = float(vals[j])

@@ -23,7 +23,8 @@ Phases (each raises on failure, so the exit code is non-zero):
    (24-64-64-18, relu, 10 epochs), the scheduled batch-major iLQR at
    ds=18, dc=6, H=200, B=1024 (general Riccati kernel + MLP line-search
    kernel), timed over 4 distinct inputs after one warm run; then the
-   closed loop on the true plant: 32 starts, 200 MPC steps, H=20,
+   closed loop on the true plant: 32 starts, 100 MPC steps (200 in
+   bench_extra.py), H=20,
    through the same two kernels; open-loop converged fraction >= 0.5
    required. One solve with the MLP's default training seed is run
    before it and its converged fraction printed, ungated;
@@ -70,7 +71,7 @@ Phases (each raises on failure, so the exit code is non-zero):
    them, one BO round of 25 candidates (instead of four) padded to 32
    lanes, the bucket pinned to 2 x relu, 20 epochs (instead of 50), every
    lane its own 256-wide masked net, the horizon-masked per-lane solve
-   (K4 at (4,1)) at H=25 for 49 closed-loop steps (instead of 199) on
+   (K4 at (4,1)) at H=25 for 24 closed-loop steps (instead of 199) on
    the surrogate and on the true dynamics; the ask, per-lane training and closed-loop
    seconds, evals/s and K4's launches by B printed, no NaN score; the
    incumbent simulated on the true dynamics from the canonical start
@@ -87,7 +88,7 @@ Phases (each raises on failure, so the exit code is non-zero):
    MPC-step solves of (a) and (b) agreeing as phase 8's; a 105-term
    library (past the shared instances' 64) and the tune's 1,336-term
    library through both at B=128, 10 steps; (c) ``PipelineTuner.run``
-   over the whole SINDyFactory space (``JS_TUNE_*``: two rounds of 12, 19
+   over the whole SINDyFactory space (``JS_TUNE_*``: two rounds of 12, 9
    closed-loop steps, both fan-outs, the seed pinned so that discrete
    buckets of 65-128 and past 128 terms run), each bucket's F, time
    mode, method, training and closed-loop seconds and the tune's wall
@@ -106,7 +107,7 @@ Phases (each raises on failure, so the exit code is non-zero):
    through the same two bodies with per-lane coefficients; each pair's
    first MPC-step solves agree as phase 8's; (c) ``PipelineTuner.run``
    over the SumCost space with the fan-out (two rounds of 128 candidates
-   x 99 steps, cut from 199, H=20, the true dynamics scored by a second
+   x 49 steps, cut from 199, H=20, the true dynamics scored by a second
    fan-out, no fallback warning), the incumbent on the true dynamics (a
    finite cost),
    and the sequential objective (the explicit SumCost) against the
@@ -158,6 +159,25 @@ Phases (each raises on failure, so the exit code is non-zero):
    sequential against fan-out (>= 3 of 4 within 1e-3); and ARX + QuadCost
    + LQRFactory through the sequential objective (the fan-out falls back
    with a warning), a finite incumbent;
+16. the approximate GP and the pendulum (no new kernel: the GP is plain
+   PyTorch, linearized by ``torch.func.jacfwd``; K6 and K4 at (4, 1) run
+   on its fan-outs): (a) ``bench_extra.py``'s SVGP row (train seconds,
+   preds/s, the float32 predictions against float64 on the CPU at the
+   same parameters); (b) ``bench_scaling.py``'s ``SCALE_MODE=gp``:
+   ``QuadCostFanout`` on an ``ApproximateGPModel`` (100 inducing points),
+   B=512, H=10, 5 steps (50 uncut; ``GP_*``), (b1) ``backward="scan"`` and (b2) ``"pallas"``
+   (K6), their first-step agreement as phase 8's; (c) ``SCALE_MODE=
+   joint_gp``: ``JointGPQuadCostFanout`` with 16 induce_counts mixed in the
+   batch, the buckets' training timed apart, (c1)/(c2) as (b), one padded
+   bucket against its standalone training (its dummy weights exactly 0),
+   and (c') one call with the GaussReg term (K4 at (4, 1)); (d) the
+   tuner's kind "joint_gp": one BO round with both fan-outs, sequential
+   against fan-out (>= 3 of 4 within 1e-3), a finite incumbent; (e) the
+   pendulum: each data-generation method on the card against float64 on
+   the CPU from the same draws, and BASELINE.json configs[2] (an MLP on
+   pendulum data + MPPI with 4,096 paths): the step latency, the first
+   step against float64, a 200-step receding loop from (pi, 0) on the true
+   dynamics (finite, bounded; its final abs(theta) printed);
 3. kernels vs plain twins: each CUDA kernel against its plain PyTorch
    twin on the card, on inputs taken from every path that launches it,
    at that path's shape: the lanes-last kernels on the main path's carry
@@ -198,7 +218,10 @@ Phases (each raises on failure, so the exit code is non-zero):
    for bit the lanes-last instance; K4 at (4,1) on 13 (a1)'s dense
    expansions; K6 at (12, 1) on phase 15 (c2)'s carry at every batch
    size (c2) and the "joint_koopman" tune launched it with (a row of its
-   own). Within stated tolerances, timed with CUDA events (and where a
+   own); K6 at (4, 1) on phase 16 (c2)'s carry at every batch size (b2),
+   (c2) and the "joint_gp" tune launched it with, and K4 at (4, 1) on
+   (c')'s dense expansions at every batch size (c') launched it with
+   (rows of their own). Within stated tolerances, timed with CUDA events (and where a
    call is shorter than its host work also as device time under
    torch.profiler), beside the least time the card could take
    (``bound_ms``).
@@ -211,7 +234,8 @@ phase 8 for its three and the tune of phase 10 for the same three
 (``launches_joint_mlp`` in its (4,1) row), each configuration and the
 tune of phase 13 for theirs (``launches_gauss_reg``), phase 15 (c2) and
 its "joint_koopman" tune for K6 at (12, 1) (``launches_joint_koopman``,
-``launches_tune``), each variant of phase 9 for the main
+``launches_tune``), phase 16 (b2), (c2) and its tune for K6 at (4, 1)
+and (c') for K4 (``launches_gp``), each variant of phase 9 for the main
 path's kernels (``launches_bf16`` counts a wrapper's bfloat16 instances,
 ``launches_by_B`` its launches by the batch size of the call). A
 kernel that never ran on its path fails the run. Phase 3 runs after
@@ -266,7 +290,12 @@ HC_CONV_MIN = 0.5
 # the default seed's solve is run too and printed without a gate.
 HC_MODEL_SEED = 8
 HC_DEFAULT_SEED = 100
-B_HCQ, H_HCQ, STEPS_HCQ, ITERS_HCQ = 32, 20, 200, 20
+# The cheetah closed loop runs STEPS_HCQ MPC steps (bench_extra.py: 200;
+# 100 since phase 16 was added: with 200 and phase 16 the whole command
+# was killed at 1,262.5 s of a 1,260 s limit on an NVIDIA H100 80GB HBM3,
+# 700 W whose host ran every phase ~1.3x slower than an earlier run;
+# the 200-step loop took 94.5 s there).
+B_HCQ, H_HCQ, STEPS_HCQ, ITERS_HCQ = 32, 20, 100, 20
 B_DENSE = 4096
 # Phase 7's unscheduled 50-iteration swing-up solve converges on about a
 # fifth of the lanes; the floor only catches a broken solve.
@@ -416,8 +445,9 @@ OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out"
 # 14 took the uncut command to 1,093.3 s of its 1,200 on an NVIDIA H100
 # 80GB HBM3, 700 W (the closed loops were 264.9 s of the phase's 319.9),
 # 49 since phase 15 took it to 1,132.4 s (phase 11's closed loops 129.2 s
-# of its 165.5).
-JM_TRAJS, JM_EPOCHS, JM_ITERS, JM_BATCH, JM_STEPS = 40, 20, 25, 25, 50
+# of its 165.5), 24 since phase 16 was added (the command killed at
+# 1,262.5 s of 1,260 on a slow host, phase 11 113.7 s of it).
+JM_TRAJS, JM_EPOCHS, JM_ITERS, JM_BATCH, JM_STEPS = 40, 20, 25, 25, 25
 JM_PIN = dict(n_hidden_layers="2", nonlintype="relu")
 JM_COMPACT = ((4, 0.5), (8, 0.25), (14, 0.125))
 # Phase 2's SINDy: the 55-term trig + interaction library.
@@ -497,10 +527,12 @@ JS_HUGE_EPS = 1e-2
 # the sysid data. Cut in depth: JS_TUNE_ITERS candidates in rounds of
 # JS_TUNE_BATCH (the initial design: nearly every candidate is a bucket
 # of its own, one fan-out call of 8 padded lanes), JS_TUNE_STEPS - 1
-# closed-loop steps instead of 199. The seed's draw holds discrete
+# closed-loop steps instead of 199 (19 until phase 16 was added: the
+# command was then killed at 1,262.5 s of 1,260 on a slow host, this tune
+# 169.5 s of it). The seed's draw holds discrete
 # buckets past 64 terms (the per-lane kernels' large instances); the
 # phase fails if none ran.
-JS_TUNE_BATCH, JS_TUNE_ITERS, JS_TUNE_STEPS, JS_TUNE_SEED = 12, 24, 20, 4
+JS_TUNE_BATCH, JS_TUNE_ITERS, JS_TUNE_STEPS, JS_TUNE_SEED = 12, 24, 10, 4
 
 # Phase 13: the GaussReg / SumCost costs (QuadCostFactory +
 # GaussRegFactory, the term w_b (x - mu)' S (x - mu) with S, mu the
@@ -518,7 +550,8 @@ JS_TUNE_BATCH, JS_TUNE_ITERS, JS_TUNE_STEPS, JS_TUNE_SEED = 12, 24, 20, 4
 # cost fan-out, the true dynamics scored by a second fan-out: two rounds
 # of GR_TUNE_BATCH candidates at H=TUNE_H, cut in depth to GR_TUNE_STEPS
 # - 1 closed-loop steps (199) to keep the command inside its time limit
-# (uncut it took 1,030 s of its 1,200 on an NVIDIA H100 80GB HBM3, 700 W);
+# (uncut it took 1,030 s of its 1,200 on an NVIDIA H100 80GB HBM3, 700 W;
+# 99 steps until phase 16 was added, 49 since);
 # the incumbent on the true dynamics from the
 # canonical start, as long, must reach a finite cost; sequential against
 # fan-out at GR_SEQ_STEPS steps on a quadratic task cost, as phase 10's.
@@ -528,7 +561,7 @@ GR_CONFIGS = {
     "2": dict(backward="pallas", fuse_ls=False, lanes_last=False),
 }
 GR_JS_STEPS = 10
-GR_TUNE_BATCH, GR_TUNE_ITERS, GR_TUNE_STEPS, GR_SEQ_STEPS = 128, 256, 100, 50
+GR_TUNE_BATCH, GR_TUNE_ITERS, GR_TUNE_STEPS, GR_SEQ_STEPS = 128, 256, 50, 50
 
 # Phase 14: the MPPI and direct-transcription controllers, their receding
 # loops, their fan-outs and the tuner's kinds "mppi" and "dt" (no kernel:
@@ -570,8 +603,8 @@ GR_TUNE_BATCH, GR_TUNE_ITERS, GR_TUNE_STEPS, GR_SEQ_STEPS = 128, 256, 100, 50
 # depth to keep the phase near its ~120 s: a DT step is ~6,300 launches
 # at 20 knots, ~24 us each on the host (the first run's 292 ms a step), so
 # the DT loop runs DT_LOOP_STEPS steps (bench_extra.py: 200), its fan-out
-# CF_DT_STEPS (50), its tune CT_DT_TUNE_STEPS - 1 (99) and its sequential
-# check CT_DT_SEQ_STEPS (25).
+# CF_DT_STEPS (50), its tune CT_DT_TUNE_STEPS - 1 (99; 49 until phase 16
+# was added) and its sequential check CT_DT_SEQ_STEPS (25).
 CT_H, CT_PATHS, CT_SIGMA, CT_LMDA = 20, 4096, 1.0, 0.3
 CT_STEP_REPS, CT_LOOP_STEPS, CT_LOOP_REPS = 20, 200, 3
 HC_MPPI_SIGMA = HC_MPPI_LMDA = 0.5
@@ -582,7 +615,7 @@ DT_CHECK_B, DT_US_TOL = 256, 1e-3
 CF_B, CF_H, CF_PATHS, CF_KNOTS, CF_STEPS, CF_CALLS, CF_SEED = 256, 20, 200, 10, 50, 2, 14
 CF_DT_STEPS = 20
 CT_TUNE_BATCH, CT_TUNE_STEPS, CT_SEQ_ITERS, CT_SEQ_STEPS = 64, 100, 4, 25
-CT_DT_TUNE_STEPS, CT_DT_SEQ_STEPS = 50, 15
+CT_DT_TUNE_STEPS, CT_DT_SEQ_STEPS = 25, 15
 
 # Phase 15: the linear models (ARX, Koopman with its lstsq, lasso and
 # stable fits, LQR), BASELINE.json configs[0] and [3], bench_scaling.py's
@@ -644,6 +677,52 @@ JK_B, JK_H, JK_STEPS, JK_CALLS, JK_SEED = 1024, 10, 50, 3, 15
 JK_SCHEDULE = "8:0.5,16:0.25,28:0.125,40:0.0625"
 JK_BASIS = dict(trig_basis=True, trig_freq=1)
 LM_TUNE_BATCH, LM_TUNE_STEPS, LM_TUNE_H, LM_SEQ_STEPS, LM_LQR_ITERS = 64, 50, 10, 25, 2
+
+# Phase 16: the approximate GP (SVGP) and the pendulum. (a)
+# bench_extra.py's svgp_train_s_and_pred_throughput row uncut:
+# ApproximateGPModel(**GP_A) trained on the main path's first GP_A_TRAJS
+# trajectories, pred_batch on GP_A_POINTS points from default_rng(0), one
+# warm call and GP_A_REPS timed; the float32 predictions against float64
+# on the CPU at the same parameters (normwise, GP_PRED_TOL). (b)
+# bench_scaling.py's SCALE_MODE=gp row uncut: ApproximateGPModel(
+# induce_count=GP_M) on the main path's data through QuadCostFanout, B=GP_B,
+# H=GP_H, GP_STEPS steps, compaction GP_SCHEDULE, the diagonals from
+# default_rng(GP_SEED), phase 2's model the surrogate; (b1)
+# backward="scan", (b2) "pallas" (K6 at (4, 1)), one warm call and
+# GP_CALLS timed each, the first MPC-step solves agreeing as phase 8's.
+# (c) SCALE_MODE=joint_gp uncut: JointGPQuadCostFanout (niter GP_ITERS)
+# with GP_DISTINCT induce_counts linspace(50, 200) drawn per lane after the
+# diagonals, the buckets trained once (timed apart), (c1)/(c2) as (b1)/(b2);
+# one padded bucket against the model trained alone; (c') one call with
+# the GaussReg term (phase 13's S, mu and regw) at GP_REG_STEPS steps:
+# K4 at (4, 1). (d) PipelineTuner.run with ApproximateGPModelFactory
+# (niter GP_ITERS), QuadCostFactory, IterativeLQRFactory(horizon=
+# GP_TUNE_H), backward "pallas": one BO round of GP_TUNE_BATCH candidates
+# at GP_TUNE_STEPS - 1 steps on the surrogate and on the true dynamics,
+# then sequential against fan-out on SEQ_ITERS candidates at GP_SEQ_STEPS
+# steps. (e) the pendulum: each data-generation method on the card against
+# float64 on the CPU from the same draws (PEND_CHECK_N x PEND_LEN,
+# PEND_DATA_TOL), and BASELINE.json configs[2]: an MLP (2 x PEND_WIDTH,
+# relu, PEND_EPOCHS epochs, cut from 50) on PEND_TRAJS x PEND_TRAJ_LEN
+# uniform-random trajectories, MPPI at phase 14's H and 4,096 paths
+# under diag(10, 0.1) / 0.001: the step latency, the first step against
+# float64 (phase 14's tolerances), the PEND_LOOP_STEPS-step receding loop
+# from (pi, 0) on the true dynamics. Cut in depth: (b) and (c) run
+# GP_STEPS closed-loop steps (bench_scaling.py: 50) with GP_CALLS timed
+# call after the warm one (3), and the tune GP_TUNE_STEPS - 1 steps (49):
+# uncut, the phase took 929.5 s on an NVIDIA H100 80GB HBM3, 700 W (each
+# of (b1), (b2), (c1), (c2) 37-66 s a call, every MPC step at the
+# solver's 50-iteration cap, ~600-800 launches an iteration; the tune
+# 75 s); at 10 steps (b) and (c) 131.8 s in a command killed at its
+# 1,260 s limit.
+GP_A = dict(niter=5, induce_count=64, batch_size=256, seed=0)
+GP_A_TRAJS, GP_A_POINTS, GP_A_REPS, GP_PRED_TOL = 40, 4096, 10, 1e-3
+GP_B, GP_H, GP_STEPS, GP_CALLS, GP_SEED, GP_M = 512, 10, 5, 1, 0, 100
+GP_SCHEDULE = "8:0.5,16:0.25,28:0.125,40:0.0625"
+GP_DISTINCT, GP_ITERS, GP_REG_STEPS = 16, 5, 10
+GP_TUNE_BATCH, GP_TUNE_STEPS, GP_TUNE_H, GP_SEQ_STEPS = 64, 11, 10, 25
+PEND_SEED, PEND_CHECK_N, PEND_LEN, PEND_DATA_TOL = 0, 64, 100, 1e-3
+PEND_TRAJS, PEND_TRAJ_LEN, PEND_WIDTH, PEND_EPOCHS, PEND_LOOP_STEPS = 100, 200, 64, 10, 200
 
 # Phase 9: the main path's wide options at its own shape (B_SOLVE, H,
 # SCHEDULE: every compaction stage is a multiple of 1024, so the wide
@@ -2434,14 +2513,14 @@ def gauss_reg_tune(bench, model, trajs, dev, card, wrappers):
 
 def gauss_reg_carry(pred_core, fan, batch, params, H, init_obs, n_iters=3):
     """The carry of ``fan``'s solver ``n_iters`` iterations into the
-    first MPC step, from ``init_obs``, the candidates' costs and
-    weights."""
+    first MPC step, from ``init_obs``, the candidates' costs (and GaussReg
+    weights, where the batch has them)."""
     from autompc_torch.control import make_batched_ilqr_solver
 
     _, carry0, _, make_body = make_batched_ilqr_solver(pred_core, None, return_pieces=True,
                                                        **fan.solver_kw)
     n = batch["Qdiag"].shape[0]
-    cp = {k: batch[k] for k in ("Qdiag", "Rdiag", "Fdiag", "regw")}
+    cp = {k: batch[k] for k in ("Qdiag", "Rdiag", "Fdiag", "regw") if k in batch}
     x0 = batch["Qdiag"].new_tensor(np.tile(init_obs, (n, 1)))
     carry, body = carry0(params, x0, x0.new_zeros((n, H, 1)), cp), make_body(params)
     for _ in range(n_iters):
@@ -3352,6 +3431,476 @@ def check_k6_wide(lm, K6, dt, tune_by_B):
     return row, failures
 
 
+def gp_first_step(tag, pred_core, params, fans, batch, H, init_obs, dt, schedule):
+    """The first MPC step's scheduled solves of two fan-out configurations
+    (``fans``: config -> fan-out) on the same candidates and predictor
+    params: the accepted objectives within FAN_OBJ_TOL on FAN_AGREE_MIN of
+    the lanes converged in both, as phase 8's."""
+    from autompc_torch.control import make_scheduled_ilqr_solver, parse_schedule
+
+    n = batch["Qdiag"].shape[0]
+    cp = {k: batch[k] for k in ("Qdiag", "Rdiag", "Fdiag")}
+    x0 = batch["Qdiag"].new_tensor(np.tile(init_obs, (n, 1)))
+    ug = x0.new_zeros((n, H, 1))
+    sols = {cfg: make_scheduled_ilqr_solver(pred_core, None, schedule=parse_schedule(schedule),
+                                            **fan.solver_kw)(params, x0, ug, cp)
+            for cfg, fan in fans.items()}
+    (ka, ra), (kb, rb) = sols.items()
+    obj = {cfg: lane_objective(o[1], o[2], cp, dt) for cfg, o in sols.items()}
+    both = ra[0] & rb[0]
+    rel = ((obj[ka] - obj[kb]).abs() / obj[kb].abs().clamp_min(1e-30))[both]
+    share = float((rel <= FAN_OBJ_TOL).float().mean()) if both.any() else 0.0
+    print(f"[16{tag}] first MPC step, ({ka}) vs ({kb}): converged ({ka}) {int(ra[0].sum())}, "
+          f"({kb}) {int(rb[0].sum())}, both {int(both.sum())} of {n}; accepted objective "
+          f"relative difference on those: median "
+          f"{float(rel.median()) if both.any() else float('nan'):.3e}, max "
+          f"{float(rel.max()) if both.any() else float('nan'):.3e}; within {FAN_OBJ_TOL} on "
+          f"{share:.4f} (min {FAN_AGREE_MIN})", flush=True)
+    if int(both.sum()) < n // 4 or share < FAN_AGREE_MIN:
+        raise RuntimeError(f"GP fan-out ({tag}) first step: {int(both.sum())} lanes converged "
+                           f"in both, objectives agree on {share:.4f}")
+
+
+def gp_finite_report(w):
+    """(buckets with a task not finite, tasks not finite) of cached mean
+    weights ``w`` (K, n_task, M) or (n_task, M)."""
+    bad = ~torch.isfinite(w).all(-1)
+    return (int(bad.reshape(-1, bad.shape[-1]).any(-1).sum()), int(bad.sum()))
+
+
+def gp_phase(bench, model, trajs, dev, card, K6, K4):
+    """Phase 16 (a)-(c'). Returns what phase [3] needs for K6 and K4 at
+    (4, 1) on the GP path: the fan-outs, the candidates, the lanes'
+    predictor params and the kernels' launches by batch size."""
+    from autompc_torch import TrajectoryBatch, default_dtype
+    from autompc_torch.parallel import JointGPQuadCostFanout, QuadCostFanout
+    from autompc_torch.sysid import ApproximateGPModel
+    from autompc_torch.sysid.gp import gp_pred_core_cached
+    from autompc_torch.tuning.pipeline_tuner import _gauss_reg_stats
+
+    system, dt = bench.system, bench.system.dt
+    init = bench.task.get_init_obs()
+    out = {}
+
+    # ---- (a) bench_extra.py's svgp_train_s_and_pred_throughput ----
+    gp = ApproximateGPModel(system, **GP_A)
+    sub = TrajectoryBatch(system, trajs.obs[:GP_A_TRAJS], trajs.ctrls[:GP_A_TRAJS],
+                          trajs.lengths[:GP_A_TRAJS])
+    train_s = lm_fit(gp, sub)
+    xs = torch.as_tensor(np.random.default_rng(0).uniform(-1, 1, (GP_A_POINTS, 4)),
+                         dtype=default_dtype(dev), device=dev)
+    us = xs.new_zeros((GP_A_POINTS, 1))
+    warm, per_call, preds = timed_runs(lambda: gp.pred_batch(xs, us), GP_A_REPS)
+    gp64 = ApproximateGPModel(system, device="cpu")
+    gp64.set_parameters(gp.get_parameters())
+    p64 = gp64.pred_batch(xs.double().cpu(), us.double().cpu())
+    bk, tk = gp_finite_report(gp._w)
+    print(f"[16a] svgp_train_s_and_pred_throughput: ApproximateGPModel({GP_A}) on the first "
+          f"{GP_A_TRAJS} trajectories ({sub.step_mask().sum().item()} pairs): train_s "
+          f"{train_s:.3f}; pred_batch of {GP_A_POINTS} points: warm call {warm * 1e3:.2f} ms, "
+          f"{GP_A_REPS} timed calls {per_call * 1e3:.3f} ms each -> {GP_A_POINTS / per_call:.1f} "
+          f"preds/s; losses {[round(v, 1) for v in gp._losses.tolist()]}; non-finite tasks in "
+          f"float32 {tk} of 4; predictions {rel_err(preds.cpu(), p64):.3e} from float64 on the "
+          f"CPU at the same parameters (normwise) on {card}", flush=True)
+    if tk or not torch.isfinite(preds).all() or not rel_err(preds.cpu(), p64) <= GP_PRED_TOL:
+        raise RuntimeError(f"GP (a): non-finite tasks {tk}, or predictions "
+                           f"{rel_err(preds.cpu(), p64):.3e} from float64 (max {GP_PRED_TOL})")
+
+    # ---- (b) bench_scaling.py SCALE_MODE=gp: the fixed GP in QuadCostFanout ----
+    gpm = ApproximateGPModel(system, induce_count=GP_M)
+    fit_s = lm_fit(gpm, trajs)
+    bk, tk = gp_finite_report(gpm._w)
+    print(f"[16b] ApproximateGPModel(induce_count={GP_M}) on the main path's data: fit "
+          f"{fit_s:.3f} s; non-finite tasks in float32 {tk} of 4", flush=True)
+    batch = fanout_candidates(dev, GP_B, GP_SEED)
+    fans, counts = {}, {}
+    for tag, backward in (("b1", "scan"), ("b2", "pallas")):
+        fan = QuadCostFanout(system, bench.task, gpm, model, horizon=GP_H, n_steps=GP_STEPS,
+                             goal=np.zeros(4), compact_schedule=GP_SCHEDULE, backward=backward)
+        fans[tag] = fan
+        K6.backward_quad.launches, K6.backward_quad.launches_by_B = 0, {}
+        warm, per_call, scores = timed_runs(lambda: fan(batch), GP_CALLS)
+        counts[tag] = (K6.backward_quad.launches, dict(K6.backward_quad.launches_by_B))
+        fin = torch.isfinite(scores)
+        print(f"[16{tag}] QuadCostFanout, ApproximateGPModel (jacfwd relinearization), "
+              f"backward={backward!r}: B={GP_B} H={GP_H}, {GP_STEPS} steps, schedule "
+              f"{GP_SCHEDULE}: warm call {warm:.2f} s, {GP_CALLS} timed calls {per_call:.3f} s "
+              f"each -> gp_candidate_evals_per_s {GP_B / per_call:.1f} on {card}; finite "
+              f"{int(fin.sum())} / {GP_B}, mean of finite "
+              f"{float(scores[fin].mean()) if fin.any() else float('nan'):.2f}; K6 launches "
+              f"{counts[tag][0]} by B {counts[tag][1]}", flush=True)
+        if tuple(scores.shape) != (GP_B,) or torch.isnan(scores).any():
+            raise RuntimeError(f"GP fan-out ({tag}): malformed or NaN scores")
+    if counts["b1"][0] or not counts["b2"][0]:
+        raise RuntimeError(f"K6 launches on the GP fan-out: scan {counts['b1'][0]}, pallas "
+                           f"{counts['b2'][0]} (the pallas body must launch it)")
+    gp_first_step("b", gpm.pred_core, gpm.params, fans, batch, GP_H, init, dt, GP_SCHEDULE)
+    out["b"] = dict(fan=fans["b2"], batch=batch, params=gpm.params, pred_core=gpm.pred_core,
+                    launches=counts["b2"][0], by_B=counts["b2"][1])
+
+    # ---- (c) SCALE_MODE=joint_gp: mixed induce_counts ----
+    # bench_scaling.py's draws: the diagonals, then the counts from the
+    # same generator.
+    rng = np.random.default_rng(GP_SEED)
+    jbatch = {k: batch["Qdiag"].new_tensor(10 ** rng.uniform(lo, hi, (GP_B, n)))
+              for k, lo, hi, n in (("Qdiag", -1, 1.5, 4), ("Fdiag", -1, 1.5, 4),
+                                   ("Rdiag", -3, 0, 1))}
+    choices = np.linspace(50, 200, GP_DISTINCT).astype(int)
+    counts_c = rng.choice(choices, size=GP_B)
+    jbatch["induce_count"] = counts_c
+    jfans, jcounts = {}, {}
+    for tag, backward in (("c1", "scan"), ("c2", "pallas")):
+        fan = JointGPQuadCostFanout(system, bench.task, dict(niter=GP_ITERS), trajs, model,
+                                    horizon=GP_H, n_steps=GP_STEPS, goal=np.zeros(4),
+                                    compact_schedule=GP_SCHEDULE, backward=backward)
+        if jfans:
+            fan.buckets = jfans["c1"].buckets     # the same training: once
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fan.ensure_buckets(counts_c.tolist())
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            w = torch.stack([fan.buckets[m]["w"] for m in sorted(fan.buckets)])
+            bk, tk = gp_finite_report(w)
+            print(f"[16c] train_svgp_buckets: {len(fan.buckets)} distinct induce_counts "
+                  f"{sorted(fan.buckets)} at pad_to={fan.pad_to}, niter {GP_ITERS}, one call: "
+                  f"{train_s:.3f} s on {card}; non-finite in float32: {bk} buckets, {tk} tasks "
+                  f"of {w.shape[0] * w.shape[1]}", flush=True)
+        jfans[tag] = fan
+        K6.backward_quad.launches, K6.backward_quad.launches_by_B = 0, {}
+        warm, per_call, scores = timed_runs(lambda: fan(jbatch), GP_CALLS)
+        jcounts[tag] = (K6.backward_quad.launches, dict(K6.backward_quad.launches_by_B))
+        fin = torch.isfinite(scores)
+        print(f"[16{tag}] JointGPQuadCostFanout backward={backward!r}: B={GP_B} H={GP_H}, "
+              f"{GP_STEPS} steps, {GP_DISTINCT} distinct induce_counts, schedule {GP_SCHEDULE}:"
+              f" warm call {warm:.2f} s (the buckets trained before it), {GP_CALLS} timed calls "
+              f"{per_call:.3f} s each -> joint_gp_mixed_bucket_evals_per_s "
+              f"{GP_B / per_call:.1f} on {card}; finite {int(fin.sum())} / {GP_B}, mean of "
+              f"finite {float(scores[fin].mean()) if fin.any() else float('nan'):.2f}; K6 "
+              f"launches {jcounts[tag][0]} by B {jcounts[tag][1]}", flush=True)
+        if tuple(scores.shape) != (GP_B,) or torch.isnan(scores).any():
+            raise RuntimeError(f"joint GP fan-out ({tag}): malformed or NaN scores")
+    if jcounts["c1"][0] or not jcounts["c2"][0]:
+        raise RuntimeError(f"K6 launches on the joint GP fan-out: scan {jcounts['c1'][0]}, "
+                           f"pallas {jcounts['c2'][0]}")
+    lane_params = jfans["c2"].lane_params(counts_c.tolist())
+    gp_first_step("c", gp_pred_core_cached, lane_params, jfans, jbatch, GP_H, init, dt,
+                  GP_SCHEDULE)
+    # One padded bucket against the model trained alone (the same data,
+    # seed and epoch orders): the real rows to rounding, the dummies exact.
+    M = int(choices[0])
+    solo = ApproximateGPModel(system, niter=GP_ITERS, induce_count=M)
+    solo.train(trajs)
+    bucket = jfans["c1"].buckets[M]
+    real = dict(bucket["gp"], Z=bucket["gp"]["Z"][..., :M, :], m=bucket["gp"]["m"][..., :M],
+                Ls=bucket["gp"]["Ls"][..., :M, :M])
+    dist = max(rel_err(real[k], v) for k, v in solo._params.items())
+    w_dist = rel_err(bucket["w"][:, :M], solo._w)
+    dummy_w = bool((bucket["w"][:, M:] == 0).all())
+    print(f"[16c] the induce_count={M} bucket (padded to {jfans['c1'].pad_to}) against "
+          f"ApproximateGPModel(induce_count={M}) trained alone on the card: parameters "
+          f"{dist:.3e}, w {w_dist:.3e} apart (normwise, the largest leaf); the dummy rows of w "
+          f"exactly 0: {dummy_w}", flush=True)
+    if not dummy_w:
+        raise RuntimeError("a padded bucket's dummy weights are not exactly 0")
+    out["c"] = dict(fan=jfans["c2"], batch=jbatch, params=lane_params,
+                    launches=jcounts["c2"][0], by_B=jcounts["c2"][1])
+
+    # ---- (c') the GaussReg term: K4 at (4, 1) ----
+    S, mu = _gauss_reg_stats(trajs)
+    rbatch = dict(jbatch, regw=jbatch["Qdiag"].new_tensor(
+        10 ** np.random.default_rng(GP_SEED + GR_SEED).uniform(-3, 4, GP_B)))
+    rfan = JointGPQuadCostFanout(system, bench.task, dict(niter=GP_ITERS), trajs, model,
+                                 horizon=GP_H, n_steps=GP_REG_STEPS, goal=np.zeros(4),
+                                 compact_schedule=GP_SCHEDULE, backward="pallas",
+                                 reg_matrix=S, reg_goal=mu)
+    rfan.buckets = jfans["c1"].buckets
+    K4.riccati_general.launches, K4.riccati_general.launches_by_B = 0, {}
+    K6.backward_quad.launches = 0
+    t0 = time.perf_counter()
+    scores = rfan(rbatch)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    k4 = (K4.riccati_general.launches, dict(K4.riccati_general.launches_by_B))
+    fin = torch.isfinite(scores)
+    print(f"[16c'] JointGPQuadCostFanout + GaussReg (S, mu of the main path's data, regw "
+          f"10^U(-3, 4)), backward='pallas': B={GP_B}, {GP_REG_STEPS} steps, one call {call_s:.2f}"
+          f" s; finite {int(fin.sum())} / {GP_B}; K4 launches {k4[0]} by B {k4[1]}, K6 "
+          f"{K6.backward_quad.launches}", flush=True)
+    if torch.isnan(scores).any() or not k4[0] or K6.backward_quad.launches:
+        raise RuntimeError(f"GP fan-out + GaussReg: NaN scores, or K4 launched {k4[0]} times, "
+                           f"K6 {K6.backward_quad.launches}")
+    out["c'"] = dict(fan=rfan, batch=rbatch, params=rfan.lane_params(counts_c.tolist()), S=S,
+                     mu=mu, launches=k4[0], by_B=k4[1])
+    return out
+
+
+def gp_tune(bench, model, trajs, card, K6):
+    """Phase 16 (d): the tuner's kind "joint_gp" (backward "pallas": K6 at
+    (4, 1)), then sequential against fan-out. Returns K6's launches by
+    batch size in the tune."""
+    from autompc_torch.control import IterativeLQRFactory
+    from autompc_torch.costs import QuadCost, QuadCostFactory
+    from autompc_torch.pipeline import Pipeline
+    from autompc_torch.sysid import ApproximateGPModelFactory
+    from autompc_torch.tuning import PipelineTuner
+
+    system, goal = bench.system, np.zeros(4)
+    task = bench.task.copy()
+    task.set_num_steps(GP_TUNE_STEPS)
+    pipeline = Pipeline(system, ApproximateGPModelFactory(system, niter=GP_ITERS),
+                        QuadCostFactory(system, goal=goal),
+                        IterativeLQRFactory(system, horizon=GP_TUNE_H))
+    tuner = PipelineTuner(surrogate_mode="pretrain", eval_batch=GP_TUNE_BATCH, use_fanout=True,
+                          fanout_backward="pallas")
+    if tuner._fanout_kind(pipeline, model)[0] != "joint_gp":
+        raise RuntimeError("the tuner did not select the 'joint_gp' fan-out")
+    K6.backward_quad.launches_by_B = {}
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UserWarning)    # a fallback warning fails the phase
+        _, res = tuner.run(pipeline, task, trajs, n_iters=GP_TUNE_BATCH,
+                           rng=np.random.default_rng(100), surrogate=model,
+                           truedyn=bench.dynamics)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    by_B = dict(K6.backward_quad.launches_by_B)
+    costs, true_costs = np.array(res.costs), np.array(res.truedyn_costs)
+    n_counts = len({c["_model:induce_count"] for c in res.cfgs})
+    print(f"[16d] tune 'joint_gp': one BO round of {GP_TUNE_BATCH} candidates ({n_counts} "
+          f"distinct induce_counts) x {GP_TUNE_STEPS - 1} steps (H={GP_TUNE_H}, backward="
+          f"'pallas'), surrogate and true dynamics, each fan-out training its buckets: "
+          f"{tune_s:.2f} s -> {GP_TUNE_BATCH / tune_s:.1f} evals/s on {card}; K6 launches "
+          f"{by_B} by B; finite {int(np.isfinite(costs).sum())} / {costs.size} on the "
+          f"surrogate, {int(np.isfinite(true_costs).sum())} / {true_costs.size} on the true "
+          f"dynamics; incumbent {res.inc_cfg.get_dictionary()}: surrogate "
+          f"{res.inc_costs[-1]:.1f}, true dynamics {res.inc_truedyn_costs[-1]:.1f}", flush=True)
+    if len(costs) != GP_TUNE_BATCH or np.isnan(costs).any() or np.isnan(true_costs).any() \
+            or not np.isfinite(res.inc_costs[-1]) or not by_B:
+        raise RuntimeError("tune 'joint_gp': a score is missing or NaN, the incumbent is not "
+                           "finite, or K6 never ran")
+    seq_task = bench.task.copy()
+    seq_task.set_cost(QuadCost(system, Q=np.eye(4), R=0.01 * np.eye(1), F=np.eye(4), goal=goal))
+    seq_task.set_init_obs(np.array([0.5, 0.0, 0.0, 0.0]))
+    seq_task.set_num_steps(GP_SEQ_STEPS)
+    t0 = time.perf_counter()
+    scores = [
+        PipelineTuner(surrogate_mode="pretrain", eval_batch=SEQ_ITERS, **fkw).run(
+            pipeline, seq_task, trajs, n_iters=SEQ_ITERS, rng=np.random.default_rng(3),
+            surrogate=model)[1]
+        for fkw in ({}, dict(use_fanout=True, fanout_backward="pallas"))
+    ]
+    agree = 0
+    for i, (a, b) in enumerate(zip(scores[0].costs, scores[1].costs)):
+        ok = (a == b) or (np.isfinite(a) and np.isfinite(b)
+                          and abs(a - b) <= SEQ_TOL * max(abs(b), 1e-30))
+        agree += ok
+        print(f"[16d] 'joint_gp' candidate {i} (induce_count "
+              f"{scores[0].cfgs[i]['_model:induce_count']}): sequential {a!r}, fan-out {b!r}, "
+              f"relative difference {abs(a - b) / max(abs(b), 1e-30):.3e}"
+              f"{'' if ok else ' DIFFER'}", flush=True)
+    print(f"[16d] 'joint_gp' sequential vs fan-out ({GP_SEQ_STEPS}-step near-upright task, "
+          f"quadratic task cost): {agree} of {SEQ_ITERS} within {SEQ_TOL} (min "
+          f"{SEQ_AGREE_MIN}); {time.perf_counter() - t0:.2f} s", flush=True)
+    if agree < SEQ_AGREE_MIN:
+        raise RuntimeError(f"tune 'joint_gp': sequential and fan-out agree on {agree} of "
+                           f"{SEQ_ITERS}")
+    return by_B
+
+
+def pendulum_draws(method, n, T, gen, dev):
+    """Draws for the pendulum's generators, made on the card."""
+    from autompc_torch import default_dtype
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, dtype=default_dtype(dev), device=dev)
+
+    d = {"inits": u(n, 2)}
+    if method == "uniform_random":
+        d["u"] = u(n, T, 1)
+    elif method == "multisine":
+        P = len(range(1, T, 20))
+        d["vals"], d["phases"] = u(n, 1, P - 1), 2 * np.pi * u(n, P)
+    else:
+        d["u0"], d["w"] = u(n, 1), 2 * u(n, T, 1) - 1
+    return d
+
+
+def pendulum_phase(dev, card):
+    """Phase 16 (e): the pendulum benchmark and BASELINE.json configs[2]
+    (an MLP + MPPI with 4,096 sampled rollouts a step)."""
+    import math
+
+    from autompc_torch import default_dtype
+    from autompc_torch.benchmarks import PendulumSwingupBenchmark
+    from autompc_torch.control import MPPI, make_receding_mppi_loop
+    from autompc_torch.control import mppi as mppi_module
+    from autompc_torch.core.trajectory import zeros as traj_zeros
+    from autompc_torch.costs import QuadCost
+    from autompc_torch.sysid import MLP
+
+    gen = torch.Generator(device=dev).manual_seed(PEND_SEED)
+    for method in PendulumSwingupBenchmark.data_gen_methods():
+        pend = PendulumSwingupBenchmark(method)
+        d = pendulum_draws(method, PEND_CHECK_N, PEND_LEN, gen, dev)
+        card_tb = pend._gen_trajs(PEND_CHECK_N, PEND_LEN, None, draws=d)
+        cpu_tb = pend._gen_trajs(PEND_CHECK_N, PEND_LEN, None,
+                                 draws={k: v.double().cpu() for k, v in d.items()})
+        err = rel_err(card_tb.obs.cpu(), cpu_tb.obs)
+        own = pend.gen_trajs_batch(PEND_SEED, PEND_CHECK_N, PEND_LEN)
+        ok = err <= PEND_DATA_TOL and bool(torch.isfinite(own.obs).all()) and \
+            controls_ok(own.ctrls, pend.task.get_ctrl_bounds())
+        print(f"[16e] pendulum {method!r}: {PEND_CHECK_N} x {PEND_LEN} on the card against "
+              f"float64 on the CPU from the same draws: {err:.3e} (normwise, max "
+              f"{PEND_DATA_TOL}); gen_trajs_batch on the card finite and bounded: {ok}",
+              flush=True)
+        if not ok:
+            raise RuntimeError(f"pendulum data ({method}): {err:.3e} from float64, or not "
+                               "finite/bounded")
+
+    pend = PendulumSwingupBenchmark()
+    t0 = time.perf_counter()
+    data = pend.gen_trajs_batch(PEND_SEED, PEND_TRAJS, PEND_TRAJ_LEN)
+    mlp = MLP(pend.system, n_hidden_layers=2, hidden_size=PEND_WIDTH, n_train_iters=PEND_EPOCHS,
+              n_batch=64)
+    mlp.train(data)
+    torch.cuda.synchronize()
+    losses = mlp._losses.tolist()
+    print(f"[16e] configs[2]: MLP 3-{PEND_WIDTH}-{PEND_WIDTH}-2 (relu) on {PEND_TRAJS} x "
+          f"{PEND_TRAJ_LEN} uniform-random pendulum trajectories, {PEND_EPOCHS} epochs: "
+          f"{time.perf_counter() - t0:.2f} s with the data; epoch loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}", flush=True)
+    if not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"pendulum MLP training diverged: {losses}")
+    system = pend.system
+    q = np.diag([10.0, 0.1])
+    task = pend.task.copy()
+    task.set_cost(QuadCost(system, q, 0.001 * np.eye(1), q, goal=np.zeros(2)))
+    bounds = task.get_ctrl_bounds()
+    umax = float(bounds[0, 1])
+    obs = torch.as_tensor(task.get_init_obs(), dtype=default_dtype(dev), device=dev)
+    kw = dict(horizon=CT_H, num_path=CT_PATHS, sigma=CT_SIGMA, lmda=CT_LMDA)
+    mppi = MPPI(system, task, mlp, **kw)
+    lat, us = step_latency(mppi, obs, CT_STEP_REPS, dev)
+    print(f"[16e] pendulum mppi_control_step_latency_ms {lat * 1e3:.3f} ({CT_PATHS} paths, "
+          f"H={CT_H}, {CT_STEP_REPS} Controller.run calls after one warm) -> "
+          f"{CT_PATHS / lat:.1f} rollouts/s; within dt {lat < system.dt}; on {card}", flush=True)
+    if not controls_ok(us, bounds):
+        raise RuntimeError("pendulum MPPI step: a control is not finite or outside its bounds")
+    cs0 = mppi.traj_to_state(traj_zeros(system, 1, device=dev))
+    x0 = mlp.update_state_core(mlp.params, cs0["model_state"], cs0["last_u"], obs)
+    seq = torch.cat([cs0["act_sequence"][1:], cs0["act_sequence"][-1:]])
+    eps = math.sqrt(CT_SIGMA) * mppi_module.standard_normal(
+        (CT_H, CT_PATHS, 1), (mppi.seed, cs0["draws"]), obs)
+    c_card, e_card = mppi._do_rollouts(mlp.params, x0, seq, None, eps=eps)
+    u_card = mppi._update_sequence(seq, c_card, e_card)[0] * umax
+    m64 = MLP(system, n_hidden_layers=2, hidden_size=PEND_WIDTH, device="cpu")
+    m64.set_parameters(mlp.get_parameters())
+    mppi64 = MPPI(system, task, m64, **kw)
+    c_cpu, e_cpu = mppi64._do_rollouts(m64.params, x0.double().cpu(), seq.double().cpu(), None,
+                                       eps=eps.double().cpu())
+    u_cpu = mppi64._update_sequence(seq.double().cpu(), c_cpu, e_cpu)[0] * umax
+    cost_rel = float(((c_card.double().cpu() - c_cpu).abs()
+                      / c_cpu.abs().clamp_min(1e-30)).max())
+    du0 = float((u_card.double().cpu() - u_cpu).abs().max())
+    print(f"[16e] pendulum first step, card (float32) against CPU (float64) on the card's "
+          f"draws: per-path costs within {cost_rel:.3e} (relative, max {CT_COST_TOL}); |du0| "
+          f"{du0:.3e} (max {CT_DU0_TOL * umax:.3g})", flush=True)
+    if not (cost_rel <= CT_COST_TOL and du0 <= CT_DU0_TOL * umax):
+        raise RuntimeError(f"pendulum MPPI first step: costs {cost_rel:.3e}, |du0| {du0:.3e}")
+    run = make_receding_mppi_loop(system, task, mlp, pend.dynamics, n_steps=PEND_LOOP_STEPS,
+                                  **kw)
+    t0 = time.perf_counter()
+    xs, us = run(mlp.params, obs[None])
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / PEND_LOOP_STEPS
+    theta = float(xs[0, -1, 0])
+    wrapped = abs(math.remainder(theta, 2 * math.pi))
+    print(f"[16e] pendulum receding MPPI loop, {PEND_LOOP_STEPS} steps from (pi, 0) on the "
+          f"true dynamics: per-step latency {per_step * 1e3:.3f} ms; final |theta| "
+          f"{abs(theta):.4f} (wrapped {wrapped:.4f}), omega {float(xs[0, -1, 1]):+.4f}; task "
+          f"metric {float(pend.task.get_cost().eval_obs_cost(xs[0]).sum()):.0f} of "
+          f"{PEND_LOOP_STEPS + 1} steps outside 0.2", flush=True)
+    if not (torch.isfinite(xs).all() and controls_ok(us, bounds)):
+        raise RuntimeError("pendulum receding MPPI loop: a state or a control is not finite or "
+                           "bounded")
+
+
+def check_gp_kernels(gpd, K6, K4, dt):
+    """K6 at (4, 1) against its plain version on (c2)'s carry (the first
+    MPC step, three iterations in) at every batch size (b2), (c2) and the
+    "joint_gp" tune launched it with, and K4 at (4, 1) on (c')'s dense
+    expansions at every batch size (c') launched it with. Returns (the
+    report rows, failures)."""
+    from autompc_torch.sysid.gp import gp_pred_core_cached
+
+    rows, failures = [], []
+    c = gauss_reg_carry(gp_pred_core_cached, gpd["c"]["fan"], gpd["c"]["batch"],
+                        gpd["c"]["params"], GP_H, gpd["init"])
+    by_B = {"b2": gpd["b"]["by_B"], "c2": gpd["c"]["by_B"], "tune": gpd["tune_by_B"]}
+    Bs = sorted(set().union(*by_B.values()), reverse=True)
+    meas = {}
+    for Bc in Bs:
+        sc = sub_carry(c, Bc)
+        args = (sc["Jx"], sc["Ju"], sc["xs"], sc["us"], sc["cost"]["Qdiag"], sc["cost"]["Rdiag"],
+                sc["cost"]["Fdiag"], (0.0,) * 4, dt, 4)
+        gk = K6.backward_quad(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gp_ = K6.backward_quad_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs = [rel_err(a, b) for a, b in zip(gk, gp_)]
+        meas[Bc] = dict(
+            max_abs_err=max(abs_err(a, b) for a, b in zip(gk, gp_)),
+            ms=time_ms(lambda: K6.backward_quad(*args)),
+            device_ms=device_ms(lambda: K6.backward_quad(*args)),
+            plain_ms=plain_ms,
+            **bound_keys(n_bytes(*args[:7], *gk), Bc * GP_H * (riccati_flops(4, 1) + 4 * 4)),
+            launches={k: v.get(Bc, 0) for k, v in by_B.items()},
+        )
+        print(f"[3] K6 at (4, 1) on the joint GP fan-out's (c2) carry B={Bc} H={GP_H}: rel err "
+              f"K/k/lin/quad {[f'{e:.3e}' for e in errs]} (tol {TOL_K6}); kernel "
+              f"{meas[Bc]['ms']:.4f} ms (device {meas[Bc]['device_ms']:.4f}), plain "
+              f"{plain_ms:.1f} ms, bound {meas[Bc]['bound_ms']:.5f} ms ({meas[Bc]['bound_by']});"
+              f" launches {meas[Bc]['launches']}", flush=True)
+        if not max(errs) <= TOL_K6:
+            failures.append(f"K6 on the GP path B={Bc} rel err {max(errs):.3e} > {TOL_K6}")
+    top = dict(meas[Bs[0]])
+    top.pop("launches")
+    at = {f"at_B{Bc}_H{GP_H}": meas[Bc] for Bc in Bs[1:]}
+    for w in at.values():
+        w.pop("library_ms")
+    launches = {k: sum(v.values()) for k, v in by_B.items()}
+    rows.append(dict(name=f"backward_quad[gp,B={Bs[0]},H={GP_H}]", route="cuda",
+                     source="autompc_torch/csrc/riccati_quad_bm.cu",
+                     replaces="autompc_tpu/ops/pallas_riccati.py:456",
+                     launches=sum(launches.values()), launches_gp=launches,
+                     launches_by_B=by_B, **top, **at))
+    rg = gpd["c'"]
+    cr = gauss_reg_carry(gp_pred_core_cached, rg["fan"], rg["batch"], rg["params"], GP_H,
+                         gpd["init"])
+    k4_meas = {}
+    for Bc in sorted(rg["by_B"], reverse=True):
+        sc = sub_carry(cr, Bc)
+        k4_args = (sc["Jx"], sc["Ju"], *gauss_reg_expansions(sc, rg["S"], rg["mu"], dt))
+        row, fails, _, _ = check_k4(f"GP fan-out + GaussReg (c') carry (B={Bc}, H={GP_H})", K4,
+                                    k4_args, rg["by_B"][Bc], device_time=True)
+        failures += fails
+        k4_meas[Bc] = row
+    Bs = sorted(k4_meas, reverse=True)
+    top = k4_meas[Bs[0]]
+    for Bc in Bs[1:]:
+        w = {k: v for k, v in k4_meas[Bc].items()
+             if k not in ("name", "route", "source", "replaces", "library_ms")}
+        top[f"at_B{Bc}_H{GP_H}"] = w
+    top.update(name=f"riccati_general[4,1,gp,B={Bs[0]},H={GP_H}]", launches=rg["launches"],
+               launches_by_B=rg["by_B"], launches_gp=rg["launches"])
+    rows.append(top)
+    return rows, failures
+
+
 def main(profile=False):
     dev = check_device()
     from autompc_torch.benchmarks import CartpoleSwingupBenchmark, HalfcheetahBenchmark
@@ -3753,6 +4302,14 @@ def main(profile=False):
     lm = linear_models_phase(bench, model, trajs, dev, card, K2)
     lm_tune_by_B = linear_tunes(bench, model, trajs, card, K2)
     print(f"[15] phase wall {time.perf_counter() - t15:.2f} s", flush=True)
+
+    # ---- [16] the approximate GP and the pendulum --------------------------------
+    t16 = time.perf_counter()
+    gpd = gp_phase(bench, model, trajs, dev, card, K2, K4)
+    gpd["tune_by_B"] = gp_tune(bench, model, trajs, card, K2)
+    gpd["init"] = bench.task.get_init_obs()
+    pendulum_phase(dev, card)
+    print(f"[16] phase wall {time.perf_counter() - t16:.2f} s", flush=True)
 
     # ---- [3] kernels vs plain twins on path inputs -----------------------
     _, make_carry0, _, _ = make_batched_ilqr_solver(
@@ -4583,6 +5140,11 @@ def main(profile=False):
     failures += fails
     report.append(k6w)
 
+    # K6 and K4 at (4, 1) on phase 16's GP path, in rows of their own.
+    gp_rows, fails = check_gp_kernels(gpd, K2, K4, bench.system.dt)
+    failures += fails
+    report += gp_rows
+
     def device_txt(w):
         return ((f" (device {w['device_ms']:.4f})" if "device_ms" in w else "")
                 + (f" (its lanes-last entry on the same points: device "
@@ -4610,6 +5172,7 @@ def main(profile=False):
               + (f"; {r['launches_joint_koopman']} in the joint-Koopman fan-out (c2)"
                  if "launches_joint_koopman" in r else "")
               + (f"; in phase 13 {r['launches_gauss_reg']}" if "launches_gauss_reg" in r else "")
+              + (f"; on the GP path (phase 16) {r['launches_gp']}" if "launches_gp" in r else "")
               + (f"; {r['registers']} registers" if "registers" in r else ""))
         if "lane_cost_ms" in r:
             print(f"        with per-lane cost planes at this shape: kernel "

@@ -125,5 +125,8 @@ def test_benchmark_task_cost_and_data():
     np.testing.assert_allclose(trajs.obs[:, 1].numpy(), x1.numpy(), rtol=1e-12, atol=1e-12)
     again = tb.gen_trajs_batch(seed=0, n_trajs=3, traj_len=4, device="cpu")
     np.testing.assert_array_equal(again.obs.numpy(), trajs.obs.numpy())
-    with pytest.raises(ValueError, match="prbs"):
-        TBench(data_gen_method="prbs")
+    # The cheetah takes uniform_random, multisine and random_walk, as in
+    # the JAX package; an unknown method raises by name.
+    TBench(data_gen_method="multisine")
+    with pytest.raises(ValueError, match="no_such_method"):
+        TBench(data_gen_method="no_such_method")

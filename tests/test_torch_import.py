@@ -16,7 +16,9 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_MODULES = [
     "autompc_torch",
     "autompc_torch.benchmarks",
+    "autompc_torch.benchmarks.data_generation",
     "autompc_torch.benchmarks.halfcheetah",
+    "autompc_torch.benchmarks.pendulum",
     "autompc_torch.config",
     "autompc_torch.config.space",
     "autompc_torch.control",
@@ -48,6 +50,7 @@ PORT_MODULES = [
     "autompc_torch.sysid",
     "autompc_torch.sysid.arx",
     "autompc_torch.sysid.dummy",
+    "autompc_torch.sysid.gp",
     "autompc_torch.sysid.koopman",
     "autompc_torch.sysid.mlp",
     "autompc_torch.sysid.sindy",

@@ -9,7 +9,7 @@ at small sizes:
   against the Koopman model trained alone with the lane's alpha;
 - the tuner: kind selection, one small round of each kind against the
   JAX tuner (costs at 1e-6, the same configurations and incumbent),
-  "joint_gp" still refused by name;
+  "joint_gp" among the ported kinds;
 - a pipeline with an ``LQRFactory`` (no fan-out) warns and runs the
   sequential objective, each cost the task cost of its own simulation.
 
@@ -194,7 +194,9 @@ def test_tuner_kind_matches_jax(setup, kind):
 
 
 def test_joint_gp_still_refused_by_name():
-    assert "joint_gp" not in pipeline_tuner._PORTED_KINDS
+    """The kind "joint_gp" is ported now (tests/test_torch_joint_gp.py
+    holds it against the JAX tuner); the name is kept."""
+    assert "joint_gp" in pipeline_tuner._PORTED_KINDS
     assert pipeline_tuner._JOINT_KINDS["ApproximateGPModelFactory"] == "joint_gp"
 
 

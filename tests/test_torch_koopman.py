@@ -217,3 +217,43 @@ def test_koopman_dt_first_solve_matches(data):
     close(ut, uj, 1e-9)
     close(nt["xs_guess"], nj["xs_guess"], 1e-9)
     close(nt["us_guess"], nj["us_guess"], 1e-9)
+
+
+def test_koopman_receding_sqp_loop_matches_jax(data):
+    """configs[3]'s receding loop: the SQP solve on the trig-basis lstsq
+    Koopman model (ds = 12, the cost on the observation's 4 dimensions),
+    its first control applied to the true cartpole and the next lifted
+    state re-lifted from the plant's observation, warm-started, 4 steps
+    from the canonical start, against the JAX package's
+    ``make_receding_sqp_loop`` on the same (A, B): 1e-8 (no observation
+    bounds)."""
+    from autompc_torch.control import make_receding_sqp_loop as t_loop
+    from autompc_tpu.control.receding import make_receding_sqp_loop as j_loop
+
+    jb, tb, tt, jt = data
+    t = TK(tb.system, method="lstsq", device="cpu", **BASES["trig"])
+    t.train(tt)
+    j = JK(jb.system, method="lstsq", **BASES["trig"])
+    j.set_parameters(t.get_parameters())
+    q = np.diag([10.0, 0.1, 0.01, 0.01])
+    jcost = JQuad(jb.system, q, 0.001 * np.eye(1), q, goal=np.zeros(4))
+    tcost = TQuad(tb.system, q, 0.001 * np.eye(1), q, goal=np.zeros(4))
+    bounds = tb.task.get_ctrl_bounds()
+    kw = dict(H=6, ds=12, dc=1, obsdim=4, dt=tb.system.dt, n_steps=4,
+              ubounds=(bounds[:, 0], bounds[:, 1]))
+    obs0 = np.asarray(tb.task.get_init_obs())[None]
+
+    def j_plant(z, u):
+        return j._apply_basis(jb.dynamics(z[:4], u))
+
+    def t_plant(z, u):
+        return t._apply_basis(tb.dynamics(z[..., :4], u))
+
+    xs_j, us_j = jax.jit(j_loop(j.pred_core, jcost, j_plant, **kw))(
+        j.params, jax.vmap(j._apply_basis)(jnp.asarray(obs0)))
+    xs_t, us_t = t_loop(t.pred_core, tcost, t_plant, **kw)(
+        t.params, t._apply_basis(torch.as_tensor(obs0)))
+    assert xs_t.shape == (1, 5, 12) and us_t.shape == (1, 4, 1)
+    assert float(np.abs(np.asarray(us_j)).max()) > 0.1      # the loop acts
+    close(us_t, us_j, 1e-8)
+    close(xs_t, xs_j, 1e-8)

@@ -393,11 +393,12 @@ def test_unported_fanout_kinds_raise(setup, model_factory, controller_factory, k
           else _named(TControllerFactory, controller_factory)(system))
     pipe = TPipeline(system, model, TQuadFactory(system, goal=np.zeros(4)), cf)
     tuner = TTuner(surrogate_mode="pretrain", use_fanout=True)
-    if kind in ("mppi", "dt", "joint_mlp", "joint_sindy", "joint_arx", "joint_koopman"):
+    if kind in ("mppi", "dt", "joint_mlp", "joint_sindy", "joint_arx", "joint_koopman",
+                "joint_gp"):
         # Ported: the tuner selects the kind and does not refuse it
         # (tests/test_torch_controller_tune.py, tests/test_torch_joint_mlp.py,
-        # tests/test_torch_joint_sindy.py and tests/test_torch_joint_koopman.py
-        # run them).
+        # tests/test_torch_joint_sindy.py, tests/test_torch_joint_koopman.py
+        # and tests/test_torch_joint_gp.py run them).
         assert tuner._fanout_kind(pipe, s["t"]) == (kind, "")
         assert kind in pipeline_tuner._PORTED_KINDS
         return
