@@ -63,6 +63,18 @@ class Trajectory:
     def ctrls(self):
         return self._ctrls
 
+    def __eq__(self, other):
+        """Value equality: the same system and size, and equal
+        observations and controls (compared on this trajectory's
+        device). A class with ``__eq__`` and no ``__hash__`` is
+        unhashable, as the JAX package's ``Trajectory`` is."""
+        if not (isinstance(other, Trajectory) and self._system == other._system
+                and self._size == other._size):
+            return False
+        dev = self._obs.device
+        return (torch.equal(self._obs, other._obs.to(dev))
+                and torch.equal(self._ctrls, other._ctrls.to(dev)))
+
     def __getitem__(self, idx):
         """``traj[i]`` -> TimeStep, ``traj[a:b]`` -> sub-Trajectory
         (label indexing is not ported yet)."""

@@ -31,8 +31,9 @@ direct-transcription candidates (a temperature, a noise scale and cost
 gains; cost gains at one knot count) the same way, every MPC step one
 batched controller update of all B lanes.
 
-``impl="vmap"`` and the device mesh of the JAX package are not ported
-yet (ROADMAP.md §A). (The JAX package has no
+``QuadCostFanout(impl="vmap")`` scores each candidate with its own
+single-lane solver instead. The device mesh of the JAX package is not
+ported yet (ROADMAP.md §A). (The JAX package has no
 joint ARX fan-out: its tuner trains one ARX a history bucket and rides
 ``QuadCostFanout``, as this one does.)
 """
@@ -138,6 +139,18 @@ class QuadCostFanout:
     model is fixed for the life of the instance). ``warm_start`` shifts
     the previous step's controls into the next solve's guess.
 
+    ``impl="vmap"`` is the JAX package's reference-shaped form: each
+    candidate gets a ``QuadCost`` of its diagonals and the single-lane
+    solver ``make_ilqr_solver`` (the plain Riccati recursion, the
+    model's ``pred_diff_core`` or ``jacfwd``), closed-loop on the
+    surrogate from the same start, the solves from a zero guess. The
+    JAX package ``vmap``s that over the candidates; here it is a loop
+    over them, because the solver reads its convergence on the host
+    every iteration, which ``torch.func.vmap`` cannot trace. The
+    solver options (``compact_schedule``, ``backward``, ``feature_spec``,
+    ``warm_start``, ``fuse_ls``, ``lanes_last``) are the batched
+    body's and do not apply; ``reg_matrix`` raises.
+
     Runs on the card unless ``device`` names another device.
     """
 
@@ -166,11 +179,6 @@ class QuadCostFanout:
             raise ValueError(f"impl must be 'batched' or 'vmap', got {impl!r}")
         if reg_matrix is not None and impl != "batched":
             raise ValueError("reg_matrix requires impl='batched'")
-        if impl == "vmap":
-            raise ValueError(
-                "impl='vmap' (the per-candidate single-lane solver) is not "
-                "ported to autompc_torch yet; use impl='batched'"
-            )
         if mesh is not None:
             raise ValueError(
                 "mesh (candidates sharded over several cards) is not ported "
@@ -198,6 +206,10 @@ class QuadCostFanout:
         # The controller model's state at the seed observation.
         seed_traj = traj_zeros(system, 1, **on).set_obs(0, init_obs)
         mstate0 = model.traj_to_state(seed_traj)
+        if impl == "vmap":
+            self._eval = self._per_candidate(model, surrogate, model_params, surr_params,
+                                             init_obs, mstate0, horizon, n_steps, goal, on)
+            return
 
         solver_kw = dict(
             H=horizon, ds=ds, dc=dc, obsdim=n, dt=system.dt,
@@ -263,6 +275,51 @@ class QuadCostFanout:
             return eval_batch(padded)[:n_real]
 
         self._eval = eval_padded
+
+    def _per_candidate(self, model, surrogate, model_params, surr_params, init_obs, mstate0,
+                       horizon, n_steps, goal, on):
+        """``impl="vmap"``'s evaluation: a (B,) tensor of task costs, one
+        single-lane closed loop a candidate."""
+        from ..control.ilqr import make_ilqr_solver
+        from ..costs import QuadCost
+
+        system, task_cost = self.system, self.task.get_cost()
+        n, dc, ds = system.obs_dim, system.ctrl_dim, model.state_dim
+        bounds = self.task.get_ctrl_bounds()
+
+        def eval_one(qdiag, rdiag, fdiag):
+            cost = QuadCost(system, torch.diag(qdiag), torch.diag(rdiag), torch.diag(fdiag),
+                            goal=goal)
+            solve = make_ilqr_solver(
+                model.pred_core, cost, H=horizon, ds=ds, dc=dc, obsdim=n, dt=system.dt,
+                ubounds=(bounds[:, 0], bounds[:, 1]),
+                pred_diff=getattr(model, "pred_diff_core", None))
+
+            def ctrl_step(cstate, obs):
+                mstate, last_u = cstate
+                state = model.update_state_core(model_params, mstate, last_u, obs)
+                _, xs, us, Ks, _ = solve(model_params, state, obs.new_zeros((horizon, dc)))
+                u = us[0] + Ks[0] @ (state - xs[0])
+                return u, (state, u)
+
+            def advance(obs, u):
+                return surrogate.pred_core(surr_params, obs, u)[:n]
+
+            all_obs, ctrls, _ = rollout_scan(ctrl_step, advance,
+                                             (mstate0, init_obs.new_zeros(dc)), init_obs,
+                                             n_steps)
+            total = (task_cost.eval_obs_cost(all_obs).sum()
+                     + task_cost.eval_ctrl_cost(ctrls).sum()
+                     + task_cost.eval_term_obs_cost(all_obs[-1]))
+            return torch.where(torch.isfinite(total), total, torch.full_like(total, float("inf")))
+
+        def eval_batch(params_batch):
+            cp = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
+                                     **on) for k, v in params_batch.items()}
+            return torch.stack([eval_one(cp["Qdiag"][b], cp["Rdiag"][b], cp["Fdiag"][b])
+                                for b in range(cp["Qdiag"].shape[0])])
+
+        return eval_batch
 
     def __call__(self, params_batch):
         _validate_regw(params_batch, self._has_reg, type(self).__name__)
@@ -943,7 +1000,7 @@ class JointMLPQuadCostFanout:
         widths. ``init_nets`` (a list of per-layer ``{"W", "b"}`` arrays
         of the B candidates' padded nets) replaces the initial nets.
         Returns (the staged dict, B)."""
-        from ..tuning.bucketed import _mlp_masks, _mlp_padded_init
+        from ..tuning.bucketed import _mlp_lanes
 
         _validate_regw(batch, self._has_reg, type(self).__name__)
         on = self._on
@@ -961,21 +1018,12 @@ class JointMLPQuadCostFanout:
             return torch.cat([a, a[-1:].expand((target - B,) + a.shape[1:])]) if target > B else a
 
         widths_list += [widths_list[-1]] * (target - B)
-        wmasks, bmasks = zip(*(_mlp_masks(self._nxu, self._nx, w, self._max_width)
-                               for w in widths_list))
-
-        def stack(per_lane):
-            return [torch.as_tensor(np.stack(layer), **on) for layer in zip(*per_lane)]
-
-        if init_nets is None:
-            nets = [_mlp_padded_init(self._seed, self._nxu, self._nx, w, self._max_width,
-                                     on["dtype"], self.device) for w in widths_list]
-            net0 = [{k: torch.stack([n[i][k] for n in nets]) for k in ("W", "b")}
-                    for i in range(self._L + 1)]
-        else:
-            net0 = [{k: pad(layer[k]) for k in ("W", "b")} for layer in init_nets]
+        if init_nets is not None:
+            init_nets = [{k: pad(layer[k]) for k in ("W", "b")} for layer in init_nets]
+        net0, wmasks, bmasks = _mlp_lanes(widths_list, self._nxu, self._nx, self._max_width,
+                                          self._seed, on, init_nets)
         full = {
-            "net0": net0, "wmasks": stack(wmasks), "bmasks": stack(bmasks),
+            "net0": net0, "wmasks": wmasks, "bmasks": bmasks,
             "lr": pad(batch["lr"]),
             "Qdiag": pad(batch["Qdiag"]), "Rdiag": pad(batch["Rdiag"]),
             "Fdiag": pad(batch["Fdiag"]),

@@ -41,12 +41,18 @@ every bucket one ``JointGPQuadCostFanout`` call, which trains an SVGP a
 distinct ``induce_count`` (all missing ones in one padded batched
 training, kept across rounds) and gives every lane its bucket's
 predictor. The true-dynamics scores take a second call with
-``FunctionModel(system, truedyn)`` as its surrogate. The
-``"autotune"``/``"autoselect"`` surrogate modes and ``mesh`` raise
-``ValueError`` by name; a pipeline that has no
-fan-out at all (an ``LQRFactory``, say) falls back to the sequential
-objective with a warning, as in the JAX package. Every tensor the tuner
-makes is on the pipeline model's device.
+``FunctionModel(system, truedyn)`` as its surrogate. ``mesh`` raises
+``ValueError`` by name; a pipeline that has no fan-out at all (an
+``LQRFactory``, or a surrogate with a lifted state, say) falls back to
+the sequential objective with a warning, as in the JAX package. Every
+tensor the tuner makes is on the pipeline model's device.
+
+The surrogate modes "autotune" (``surrogate_factory`` tuned) and
+"autoselect" (MLP, SINDy, ApproximateGP, ARX and Koopman factories
+selected and tuned) run ``tuning/model_tuner.py::ModelTuner`` on the
+surrogate split, scored by ``surrogate_evaluator`` or a holdout
+evaluator, on the run's own ``rng``; the tune's history is the result's
+``surr_tune_result``.
 """
 
 from __future__ import annotations
@@ -56,13 +62,13 @@ import warnings
 from collections import namedtuple
 
 import numpy as np
-import torch
 
 from .. import NotPortedError
 from ..costs.gauss_reg_factory import GaussRegFactory
 from ..costs.gauss_reg_factory import gauss_reg_stats as _gauss_reg_stats
 from ..costs.quad_cost_factory import QuadCostFactory
 from ..costs.sum_cost_factory import SumCostFactory
+from ..evaluation import HoldoutModelEvaluator
 from ..sysid.model import model_device
 from ..utils.checkpoint import (
     bo_load_state,
@@ -72,6 +78,7 @@ from ..utils.checkpoint import (
 )
 from ..utils.simulation import simulate
 from .bo import BatchBayesOpt
+from .model_tuner import _CANDIDATE_ERRORS, ModelTuner
 
 PipelineTuneResult = namedtuple(
     "PipelineTuneResult",
@@ -94,12 +101,8 @@ _FIXED_KINDS = {
     "IterativeLQRFactory": "ilqr", "MPPIFactory": "mppi",
     "DirectTranscriptionControllerFactory": "dt",
 }
-# A candidate whose controller or rollout fails this way scores inf; a
-# refusal by name (NotPortedError, a ValueError) reaches the caller.
 _PORTED_KINDS = (None, "ilqr", "mppi", "dt", "joint_mlp", "joint_sindy", "joint_arx",
                  "joint_koopman", "joint_gp")
-_CANDIDATE_ERRORS = (np.linalg.LinAlgError, torch.linalg.LinAlgError, FloatingPointError,
-                     ValueError)
 
 
 def _cost_fanout_spec(cost_factory):
@@ -133,6 +136,21 @@ def _cost_fanout_spec(cost_factory):
     return None
 
 
+def _autoselect_factories():
+    """The factories "autoselect" chooses among, in the JAX package's
+    order (it fixes the ``model`` categorical's encoding, and so the BO's
+    proposals)."""
+    from ..sysid import (
+        ApproximateGPModelFactory,
+        ARXFactory,
+        KoopmanFactory,
+        MLPFactory,
+        SINDyFactory,
+    )
+
+    return [MLPFactory, SINDyFactory, ApproximateGPModelFactory, ARXFactory, KoopmanFactory]
+
+
 class PipelineTuner:
     """Tunes SysID+MPC pipelines."""
 
@@ -156,8 +174,15 @@ class PipelineTuner:
     ):
         """``surrogate_mode``: "defaultcfg" or "fixedcfg" train the
         surrogate from the surrogate split with ``surrogate_factory``;
-        "pretrain" takes a trained one from ``run(surrogate=...)``
-        ("autotune" and "autoselect" are not ported yet).
+        "pretrain" takes a trained one from ``run(surrogate=...)``;
+        "autotune" tunes ``surrogate_factory``'s configuration and
+        "autoselect" also selects the model among five factories
+        (``_autoselect_factories``), both by ``ModelTuner`` on the
+        surrogate split with ``surrogate_evaluator`` or a
+        ``HoldoutModelEvaluator(metric=surrogate_tune_metric,
+        holdout_prop=surrogate_tune_holdout)``, ``eval_batch``
+        configurations a round; "autoselect"'s factories run on the
+        device of the trajectories.
 
         ``use_fanout``, ``fanout_compact`` (a compaction schedule for
         the fan-out's per-step solves), ``fanout_warm_start``,
@@ -466,16 +491,27 @@ class PipelineTuner:
         return costs
 
     def _get_surrogate(self, pipeline, trajs, rng, surrogate_tune_iters):
+        """(the surrogate, the model tune's result or None)."""
         if self.surrogate_mode == "defaultcfg":
             cs = self.surrogate_factory.get_configuration_space()
             return self.surrogate_factory(cs.get_default_configuration(), trajs), None
         if self.surrogate_mode == "fixedcfg":
             return self.surrogate_factory(self.surrogate_cfg, trajs), None
         if self.surrogate_mode in ("autotune", "autoselect"):
-            raise ValueError(
-                f'surrogate_mode="{self.surrogate_mode}" (the surrogate tuned by '
-                "ModelTuner) is not ported to autompc_torch yet"
-            )
+            evaluator = self.surrogate_evaluator
+            if evaluator is None:
+                evaluator = HoldoutModelEvaluator(
+                    system=pipeline.system, trajs=trajs, metric=self.surrogate_tune_metric,
+                    rng=rng, holdout_prop=self.surrogate_tune_holdout,
+                )
+            model_tuner = ModelTuner(pipeline.system, evaluator, eval_batch=self.eval_batch)
+            if self.surrogate_mode == "autotune":
+                model_tuner.add_model_factory(self.surrogate_factory)
+            else:
+                device = evaluator.trajs[0].obs.device
+                for factory_cls in _autoselect_factories():
+                    model_tuner.add_model_factory(factory_cls(pipeline.system, device=device))
+            return model_tuner.run(rng, n_iters=surrogate_tune_iters)
         if self.surrogate_mode == "pretrain":
             raise ValueError(
                 'surrogate_mode="pretrain" requires passing a trained '

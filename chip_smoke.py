@@ -23,7 +23,7 @@ Phases (each raises on failure, so the exit code is non-zero):
    (24-64-64-18, relu, 10 epochs), the scheduled batch-major iLQR at
    ds=18, dc=6, H=200, B=1024 (general Riccati kernel + MLP line-search
    kernel), timed over 4 distinct inputs after one warm run; then the
-   closed loop on the true plant: 32 starts, 100 MPC steps (200 in
+   closed loop on the true plant: 32 starts, 50 MPC steps (200 in
    bench_extra.py), H=20,
    through the same two kernels; open-loop converged fraction >= 0.5
    required. One solve with the MLP's default training seed is run
@@ -71,7 +71,7 @@ Phases (each raises on failure, so the exit code is non-zero):
    them, one BO round of 25 candidates (instead of four) padded to 32
    lanes, the bucket pinned to 2 x relu, 20 epochs (instead of 50), every
    lane its own 256-wide masked net, the horizon-masked per-lane solve
-   (K4 at (4,1)) at H=25 for 24 closed-loop steps (instead of 199) on
+   (K4 at (4,1)) at H=25 for 12 closed-loop steps (instead of 199) on
    the surrogate and on the true dynamics; the ask, per-lane training and closed-loop
    seconds, evals/s and K4's launches by B printed, no NaN score; the
    incumbent simulated on the true dynamics from the canonical start
@@ -88,7 +88,7 @@ Phases (each raises on failure, so the exit code is non-zero):
    MPC-step solves of (a) and (b) agreeing as phase 8's; a 105-term
    library (past the shared instances' 64) and the tune's 1,336-term
    library through both at B=128, 10 steps; (c) ``PipelineTuner.run``
-   over the whole SINDyFactory space (``JS_TUNE_*``: two rounds of 12, 9
+   over the whole SINDyFactory space (``JS_TUNE_*``: two rounds of 12, 4
    closed-loop steps, both fan-outs, the seed pinned so that discrete
    buckets of 65-128 and past 128 terms run), each bucket's F, time
    mode, method, training and closed-loop seconds and the tune's wall
@@ -148,7 +148,7 @@ Phases (each raises on failure, so the exit code is non-zero):
    Lasso and stable fits: their seconds, their distance from float64
    fits, the stable fit's spectral radius (< 1 required); (c)
    ``bench_scaling.py``'s ``SCALE_MODE=joint_koopman`` row:
-   ``JointKoopmanLassoQuadCostFanout`` at B=1,024, H=10, 50 steps,
+   ``JointKoopmanLassoQuadCostFanout`` at B=1,024, H=10, 25 steps (50 uncut),
    compaction ``8:0.5,16:0.25,28:0.125,40:0.0625``, (c1)
    ``backward="scan"`` and (c2) ``"pallas"`` (K6 at (12, 1)), one warm
    and 3 timed calls each, evals/s, finite scores, their first-step
@@ -178,6 +178,29 @@ Phases (each raises on failure, so the exit code is non-zero):
    pendulum data + MPPI with 4,096 paths): the step latency, the first
    step against float64, a 200-step receding loop from (pi, 0) on the true
    dynamics (finite, bounded; its final abs(theta) printed);
+17. the model-tuning path (no new kernel: the buckets and the metrics are
+   plain PyTorch; the fan-out after the surrogate tune runs K1's
+   batch-major entry, K6 and K7) on the main path's data, 40
+   trajectories trained on and 10 held out: (a) ``bench_extra.py``'s
+   ``arx_bucket_train_and_score_configs_per_s`` row (``ARXBucketEvaluator``,
+   kmax 10, horizon 5, k = 1..10): configs/s, every RMSE finite and within
+   ``MT_ARX_TOL`` of the same evaluator in float64 on the CPU; (b) the
+   SINDy (phase 2's 55-term library, 8 thresholds), Koopman lasso (the
+   KoopmanFactory default basis, 8 alphas) and MLP (2 x relu, max_width
+   256, 50 epochs, 8 (widths, lr) candidates) buckets: wall and configs/s,
+   two candidates of each against the per-candidate path
+   (``HoldoutModelEvaluator`` on the same split) within ``MT_AGREE_TOL``;
+   (c) "autoselect" through ``PipelineTuner._get_surrogate`` (the five
+   factories, 16 candidates in rounds of 8): the candidates each route
+   scored, the winner, its RMSE, the wall; a bucket route that scored
+   none of its eligible candidates fails; (d) "autotune" end to end:
+   ``PipelineTuner.run`` on phase 2's model (QuadCostFactory,
+   IterativeLQRFactory at H=20) with the SINDy surrogate tuned over 8
+   candidates, then one BO round of 128 candidates through phase 10's
+   fan-out options at 49 closed-loop steps: the selected surrogate
+   configuration, a finite incumbent, the three kernels' launches (each
+   > 0); (e) ``QuadCostFanout(impl="vmap")`` against ``impl="batched"``
+   on 8 of (d)'s candidates, 3 steps: at least 6 of 8 within 1e-3;
 3. kernels vs plain twins: each CUDA kernel against its plain PyTorch
    twin on the card, on inputs taken from every path that launches it,
    at that path's shape: the lanes-last kernels on the main path's carry
@@ -221,7 +244,9 @@ Phases (each raises on failure, so the exit code is non-zero):
    own); K6 at (4, 1) on phase 16 (c2)'s carry at every batch size (b2),
    (c2) and the "joint_gp" tune launched it with, and K4 at (4, 1) on
    (c')'s dense expansions at every batch size (c') launched it with
-   (rows of their own). Within stated tolerances, timed with CUDA events (and where a
+   (rows of their own); K1's batch-major entry, K6 and K7 on phase 17
+   (d)'s carry at every batch size (d) launched them with (their rows'
+   ``at_B*_H20_model_tuning`` keys). Within stated tolerances, timed with CUDA events (and where a
    call is shorter than its host work also as device time under
    torch.profiler), beside the least time the card could take
    (``bound_ms``).
@@ -235,7 +260,8 @@ phase 8 for its three and the tune of phase 10 for the same three
 tune of phase 13 for theirs (``launches_gauss_reg``), phase 15 (c2) and
 its "joint_koopman" tune for K6 at (12, 1) (``launches_joint_koopman``,
 ``launches_tune``), phase 16 (b2), (c2) and its tune for K6 at (4, 1)
-and (c') for K4 (``launches_gp``), each variant of phase 9 for the main
+and (c') for K4 (``launches_gp``), phase 17 (d) for K1's batch-major
+entry, K6 and K7 (``launches_model_tuning``), each variant of phase 9 for the main
 path's kernels (``launches_bf16`` counts a wrapper's bfloat16 instances,
 ``launches_by_B`` its launches by the batch size of the call). A
 kernel that never ran on its path fails the run. Phase 3 runs after
@@ -294,8 +320,10 @@ HC_DEFAULT_SEED = 100
 # 100 since phase 16 was added: with 200 and phase 16 the whole command
 # was killed at 1,262.5 s of a 1,260 s limit on an NVIDIA H100 80GB HBM3,
 # 700 W whose host ran every phase ~1.3x slower than an earlier run;
-# the 200-step loop took 94.5 s there).
-B_HCQ, H_HCQ, STEPS_HCQ, ITERS_HCQ = 32, 20, 100, 20
+# the 200-step loop took 94.5 s there; 50 since phase 17 was added: with
+# 100 the command took 896.6 s of its 1,200 on an NVIDIA H100 80GB HBM3,
+# 700 W, the 100-step loop 35.9 s of it).
+B_HCQ, H_HCQ, STEPS_HCQ, ITERS_HCQ = 32, 20, 50, 20
 B_DENSE = 4096
 # Phase 7's unscheduled 50-iteration swing-up solve converges on about a
 # fifth of the lanes; the floor only catches a broken solve.
@@ -446,8 +474,10 @@ OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out"
 # 80GB HBM3, 700 W (the closed loops were 264.9 s of the phase's 319.9),
 # 49 since phase 15 took it to 1,132.4 s (phase 11's closed loops 129.2 s
 # of its 165.5), 24 since phase 16 was added (the command killed at
-# 1,262.5 s of 1,260 on a slow host, phase 11 113.7 s of it).
-JM_TRAJS, JM_EPOCHS, JM_ITERS, JM_BATCH, JM_STEPS = 40, 20, 25, 25, 25
+# 1,262.5 s of 1,260 on a slow host, phase 11 113.7 s of it), 12 since
+# phase 17 was added (the command 891.0 s of its 1,200 with the other
+# cuts of phase 17's first runs, phase 11's closed loops 34.5 s of it).
+JM_TRAJS, JM_EPOCHS, JM_ITERS, JM_BATCH, JM_STEPS = 40, 20, 25, 25, 13
 JM_PIN = dict(n_hidden_layers="2", nonlintype="relu")
 JM_COMPACT = ((4, 0.5), (8, 0.25), (14, 0.125))
 # Phase 2's SINDy: the 55-term trig + interaction library.
@@ -529,10 +559,12 @@ JS_HUGE_EPS = 1e-2
 # of its own, one fan-out call of 8 padded lanes), JS_TUNE_STEPS - 1
 # closed-loop steps instead of 199 (19 until phase 16 was added: the
 # command was then killed at 1,262.5 s of 1,260 on a slow host, this tune
-# 169.5 s of it). The seed's draw holds discrete
+# 169.5 s of it; 9 until phase 17 was added: the command 891.0 s of its
+# 1,200, this tune 61.4 s of it, its continuous buckets at the solver's
+# 50-iteration cap). The seed's draw holds discrete
 # buckets past 64 terms (the per-lane kernels' large instances); the
 # phase fails if none ran.
-JS_TUNE_BATCH, JS_TUNE_ITERS, JS_TUNE_STEPS, JS_TUNE_SEED = 12, 24, 10, 4
+JS_TUNE_BATCH, JS_TUNE_ITERS, JS_TUNE_STEPS, JS_TUNE_SEED = 12, 24, 5, 4
 
 # Phase 13: the GaussReg / SumCost costs (QuadCostFactory +
 # GaussRegFactory, the term w_b (x - mu)' S (x - mu) with S, mu the
@@ -645,7 +677,10 @@ CT_DT_TUNE_STEPS, CT_DT_SEQ_STEPS = 25, 15
 # (alpha LM_LASSO_ALPHA) and stable fits: their seconds, each card fit's
 # normwise relative distance from a float64 CPU fit on the same data, and
 # the stable fit's spectral radius (< 1). (c) bench_scaling.py's
-# SCALE_MODE=joint_koopman row, uncut: JointKoopmanLassoQuadCostFanout
+# SCALE_MODE=joint_koopman row, cut to JK_STEPS steps (50 uncut; 25
+# since phase 17 was added: with 50 the command took 896.6 s of its 1,200
+# on an NVIDIA H100 80GB HBM3, 700 W, (c1) and (c2) 43.9 s of it):
+# JointKoopmanLassoQuadCostFanout
 # (trig basis at frequency 1), B=JK_B, H=JK_H, JK_STEPS steps, goal zeros,
 # alphas 10^U(-6, 0) and Q/F 10^U(-1, 1.5), R 10^U(-3, 0) from JK_SEED,
 # compaction JK_SCHEDULE, phase 2's model the surrogate; (c1)
@@ -673,7 +708,7 @@ CT_DT_TUNE_STEPS, CT_DT_SEQ_STEPS = 25, 15
 LM_LOCAL_TRAJS, LM_LOCAL_LEN, LM_A1_H, LM_A1_STEPS, LM_A1_GATE = 300, 8, 80, 200, 0.05
 LM_STEP_REPS, LM_GAIN_TOL = 20, 1e-4
 LM_LASSO_ALPHA = 1e-3
-JK_B, JK_H, JK_STEPS, JK_CALLS, JK_SEED = 1024, 10, 50, 3, 15
+JK_B, JK_H, JK_STEPS, JK_CALLS, JK_SEED = 1024, 10, 25, 3, 15
 JK_SCHEDULE = "8:0.5,16:0.25,28:0.125,40:0.0625"
 JK_BASIS = dict(trig_basis=True, trig_freq=1)
 LM_TUNE_BATCH, LM_TUNE_STEPS, LM_TUNE_H, LM_SEQ_STEPS, LM_LQR_ITERS = 64, 50, 10, 25, 2
@@ -723,6 +758,49 @@ GP_DISTINCT, GP_ITERS, GP_REG_STEPS = 16, 5, 10
 GP_TUNE_BATCH, GP_TUNE_STEPS, GP_TUNE_H, GP_SEQ_STEPS = 64, 11, 10, 25
 PEND_SEED, PEND_CHECK_N, PEND_LEN, PEND_DATA_TOL = 0, 64, 100, 1e-3
 PEND_TRAJS, PEND_TRAJ_LEN, PEND_WIDTH, PEND_EPOCHS, PEND_LOOP_STEPS = 100, 200, 64, 10, 200
+
+# Phase 17: the model-tuning path, on the main path's data (50 x 100,
+# seed 42): MT_TRAIN trajectories trained on, the rest held out
+# (bench_extra.py's split). (a) bench_extra.py's
+# arx_bucket_train_and_score_configs_per_s row at its own width
+# (ARXBucketEvaluator, kmax MT_KMAX, horizon MT_ARX_H, k = 1..kmax, one
+# warm and MT_ARX_REPS timed calls), each RMSE against the same evaluator
+# in float64 on the CPU within MT_ARX_TOL (relative). (b) the other three
+# buckets at full width, horizon 1 (the tuner's): SINDy on phase 2's
+# 55-term library with MT_SINDY_REGS thresholds, Koopman lasso on the
+# KoopmanFactory default basis with MT_KOOPMAN_ALPHAS, MLP (2 x relu,
+# max_width 256, 50 epochs, n_batch 64) with MT_MLP candidates; two
+# candidates of each against the per-candidate path on the card
+# (HoldoutModelEvaluator on the same split) within MT_AGREE_TOL. (c)
+# "autoselect" through PipelineTuner._get_surrogate (the five factories,
+# eval_batch MT_SEL_BATCH, MT_SEL_ITERS candidates, seed MT_SEL_SEED): a
+# bucket route that scored none of its eligible candidates fails. (d)
+# "autotune" end to end: PipelineTuner.run on phase 2's model with a
+# QuadCostFactory and an IterativeLQRFactory pinned at TUNE_H, the SINDy
+# surrogate tuned over MT_TUNE_SURR_ITERS candidates, then one BO round of
+# MT_TUNE_BATCH candidates through phase 10's fan-out options, cut to
+# MT_TUNE_STEPS - 1 closed-loop steps (199 uncut). (e) QuadCostFanout
+# impl="vmap" (a single-lane solver a candidate) against impl="batched"
+# on MT_VMAP_N of (d)'s candidates and (d)'s surrogate, MT_VMAP_STEPS
+# steps (5 in the command's first run with phase 17, which took 896.6 s
+# of its 1,200, (e) 10.6 s of it) of phase 10's quadratic near-upright
+# task: at least
+# MT_VMAP_AGREE_MIN within SEQ_TOL (relative), as phase 10's sequential
+# check.
+MT_TRAIN, MT_KMAX, MT_ARX_H, MT_ARX_REPS, MT_ARX_TOL = 40, 10, 5, 10, 1e-2
+MT_SINDY_REGS = tuple(float(v) for v in np.logspace(-4, 0, 8))
+MT_KOOPMAN_ALPHAS = tuple(float(v) for v in np.logspace(-6, 0, 8))
+MT_MLP = (((32, 32), 1e-3), ((64, 64), 1e-3), ((128, 128), 1e-3), ((256, 256), 1e-3),
+          ((128, 64), 3e-3), ((64, 128), 3e-4), ((256, 128), 1e-2), ((16, 256), 1e-3))
+MT_AGREE_TOL = {"SINDy": 1e-3, "Koopman": 1e-3, "MLP": 5e-2}
+# The agreement is relative to the larger of the per-candidate RMSE and
+# MT_RMSE_FLOOR: the 55-term library holds the cartpole's own step, so a
+# small threshold's RMSE is ~1e-6 (in float64 too), the rounding of the
+# data and the fit, where a relative gap measures noise.
+MT_RMSE_FLOOR = 1e-3
+MT_SEL_SEED, MT_SEL_BATCH, MT_SEL_ITERS = 17, 8, 16
+MT_TUNE_SEED, MT_TUNE_BATCH, MT_TUNE_STEPS, MT_TUNE_SURR_ITERS = 100, 128, 50, 8
+MT_VMAP_N, MT_VMAP_STEPS, MT_VMAP_AGREE_MIN = 8, 3, 6
 
 # Phase 9: the main path's wide options at its own shape (B_SOLVE, H,
 # SCHEDULE: every compaction stage is a multiple of 1024, so the wide
@@ -3901,6 +3979,226 @@ def check_gp_kernels(gpd, K6, K4, dt):
     return rows, failures
 
 
+def bucket_timed(fn, *args):
+    """(the call's result, its wall seconds), the card synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mt_rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def model_tuning_phase(bench, model, trajs, dev, card, wrappers):
+    """Phase 17, (a)-(e). ``wrappers`` are K1's batch-major entry, K6 and
+    K7, whose launches (d) counts. Returns {"launches", "by_B": (d)'s
+    launches and by batch size, "kw": (d)'s fan-out solver keywords,
+    "batch": its candidates' diagonals}."""
+    from autompc_torch.control import IterativeLQRFactory
+    from autompc_torch.costs import QuadCost, QuadCostFactory
+    from autompc_torch.evaluation import HoldoutModelEvaluator
+    from autompc_torch.parallel import QuadCostFanout
+    from autompc_torch.pipeline import Pipeline
+    from autompc_torch.sysid import KoopmanFactory, MLPFactory, SINDyFactory
+    from autompc_torch.tuning import PipelineTuner, bucketed, model_tuner, pipeline_tuner
+
+    system, task = bench.system, bench.task
+    tl = trajs.to_list()
+    train, hold = tl[:MT_TRAIN], tl[MT_TRAIN:]
+
+    # (a) the ARX bucket, bench_extra.py's row.
+    ks = list(range(1, MT_KMAX + 1))
+    arx, build_s = bucket_timed(bucketed.ARXBucketEvaluator, system, train, hold, MT_KMAX,
+                                MT_ARX_H)
+    _, warm_s = bucket_timed(arx, ks)
+    t0 = time.perf_counter()
+    for _ in range(MT_ARX_REPS):
+        rmses = arx(ks)
+    lat = (time.perf_counter() - t0) / MT_ARX_REPS
+    tl64 = cpu64_trajs(trajs).to_list()
+    ref = bucketed.ARXBucketEvaluator(system, tl64[:MT_TRAIN], tl64[MT_TRAIN:], MT_KMAX,
+                                      MT_ARX_H)(ks)
+    gaps = [mt_rel(a, b) for a, b in zip(rmses, ref)]
+    print(f"[17a] ARX bucket (kmax {MT_KMAX}, horizon {MT_ARX_H}, {len(train)} trajectories "
+          f"trained on, {len(hold)} held out): staging {build_s:.3f} s, warm call {warm_s:.3f} s, "
+          f"{MT_ARX_REPS} timed calls {lat * 1e3:.2f} ms each -> {len(ks) / lat:.1f} configs/s "
+          f"on {card}; RMSEs {[round(v, 6) for v in rmses]}; float64 CPU {[round(v, 6) for v in ref]}"
+          f"; relative gap max {max(gaps):.3e} (tol {MT_ARX_TOL}), by k "
+          f"{[f'{g:.2e}' for g in gaps]}", flush=True)
+    if not all(np.isfinite(rmses)) or max(gaps) > MT_ARX_TOL:
+        raise RuntimeError(f"ARX bucket: RMSEs {rmses}, gaps from float64 {gaps}")
+
+    # (b) the other three buckets, and two candidates of each against the
+    # per-candidate path.
+    ev = HoldoutModelEvaluator(system, tl, "rmse", np.random.default_rng(0), holdout_set=hold)
+    if len(ev.training_set) != len(train):
+        raise RuntimeError(f"holdout_set matched {len(tl) - len(ev.training_set)} trajectories")
+    sindy_cfg = dict(method="lstsq", time_mode="discrete", trig_basis="true", trig_freq=1,
+                     trig_interaction="true", poly_basis="false", poly_degree=3,
+                     poly_cross_terms="false")
+
+    def per_config(factory, values):
+        cfg = factory.get_configuration_space().get_default_configuration()
+        for k, v in values.items():
+            cfg[k] = v
+        return ev(factory, cfg)
+
+    buckets = {
+        "SINDy": (lambda: bucketed.SINDyBucketEvaluator(system, train, hold, sindy_cfg),
+                  lambda b: b(MT_SINDY_REGS), MT_SINDY_REGS,
+                  lambda r: per_config(SINDyFactory(system), dict(
+                      sindy_cfg, threshold=r))),
+        "Koopman": (lambda: bucketed.KoopmanLassoBucketEvaluator(
+                        system, train, hold, dict(poly_basis="false", poly_degree=3,
+                                                  trig_basis="false", trig_freq=1,
+                                                  product_terms="false")),
+                    lambda b: b(MT_KOOPMAN_ALPHAS), MT_KOOPMAN_ALPHAS,
+                    lambda a: per_config(KoopmanFactory(system), dict(method="lasso",
+                                                                      lasso_alpha=a))),
+        "MLP": (lambda: bucketed.MLPBucketEvaluator(system, train, hold, 2, "relu"),
+                lambda b: b([w for w, _ in MT_MLP], [lr for _, lr in MT_MLP]), MT_MLP,
+                lambda c: per_config(MLPFactory(system), dict(
+                    n_hidden_layers="2", nonlintype="relu", hidden_size_1=c[0][0],
+                    hidden_size_2=c[0][1], lr=c[1]))),
+    }
+    for name, (make, call, values, alone) in buckets.items():
+        bucket, stage_s = bucket_timed(make)
+        scores, wall = bucket_timed(call, bucket)
+        checks = []
+        for i in (0, len(values) - 1):
+            (single, single_s) = bucket_timed(alone, values[i])
+            checks.append((i, single, single_s,
+                           abs(scores[i] - single) / max(abs(single), MT_RMSE_FLOOR)))
+        worst = max(c[3] for c in checks)
+        print(f"[17b] {name} bucket, {len(values)} candidates: staging {stage_s:.3f} s, "
+              f"training and scoring {wall:.3f} s -> {len(values) / wall:.1f} configs/s on {card}"
+              f"; RMSEs {[round(v, 6) for v in scores]}; against the per-candidate path "
+              + ", ".join(f"[{i}] {single:.6f} ({single_s:.2f} s, relative gap {g:.2e})"
+                          for i, single, single_s, g in checks)
+              + f" (tol {MT_AGREE_TOL[name]}, relative to at least {MT_RMSE_FLOOR})", flush=True)
+        if not all(np.isfinite(scores)) or worst > MT_AGREE_TOL[name]:
+            raise RuntimeError(f"{name} bucket: RMSEs {scores}, per-candidate gaps "
+                               f"{[c[3] for c in checks]}")
+
+    # (c) "autoselect": which route scored each candidate.
+    routes = {}
+
+    class CountingTuner(model_tuner.ModelTuner):
+        def _bucket_runners(self):
+            def counted(name, runner):
+                def run(cfgs, idxs, costs):
+                    before = sum(c is not None for c in costs)
+                    runner(cfgs, idxs, costs)
+                    routes.setdefault(name, {"bucket": 0, "per_config": 0})
+                    routes[name]["bucket"] += sum(c is not None for c in costs) - before
+                return run
+            return tuple((name, counted(name, r)) for name, r in super()._bucket_runners())
+
+        def _evaluate(self, cfg):
+            routes.setdefault(cfg["model"], {"bucket": 0, "per_config": 0})
+            routes[cfg["model"]]["per_config"] += 1
+            return super()._evaluate(cfg)
+
+    pipeline = Pipeline(system, model, QuadCostFactory(system, goal=np.zeros(4)),
+                        IterativeLQRFactory(system, horizon=TUNE_H))
+    saved = pipeline_tuner.ModelTuner
+    pipeline_tuner.ModelTuner = CountingTuner
+    try:
+        sel = PipelineTuner(surrogate_mode="autoselect", eval_batch=MT_SEL_BATCH)
+        (surr, res), sel_s = bucket_timed(sel._get_surrogate, pipeline, tl,
+                                          np.random.default_rng(MT_SEL_SEED), MT_SEL_ITERS)
+    finally:
+        pipeline_tuner.ModelTuner = saved
+    eligible = {}
+    for c in res.cfgs:
+        if c["model"] != "ApproximateGP" and (c["model"] != "Koopman"
+                                              or c["_Koopman:method"] == "lasso"):
+            eligible[c["model"]] = eligible.get(c["model"], 0) + 1
+    print(f"[17c] autoselect, {MT_SEL_ITERS} candidates in rounds of {MT_SEL_BATCH}: "
+          f"{sel_s:.2f} s on {card}; scored by route {routes}; bucket-eligible {eligible}; "
+          f"winner {res.inc_cfg.get_dictionary()} (holdout RMSE {res.inc_costs[-1]:.6f}), its "
+          f"model {type(surr).__name__}; costs {[round(v, 5) for v in res.costs]}", flush=True)
+    quiet = [k for k, n in eligible.items() if n and not routes.get(k, {}).get("bucket")]
+    if quiet or not np.isfinite(res.inc_costs[-1]):
+        raise RuntimeError(f"autoselect: bucket routes that scored none of their candidates "
+                           f"{quiet}; winner's RMSE {res.inc_costs[-1]}")
+
+    # (d) "autotune" end to end, through phase 10's fan-out options.
+    goal = np.zeros(4)
+    task_d = task.copy()
+    task_d.set_num_steps(MT_TUNE_STEPS)
+    tuner = PipelineTuner(
+        surrogate_mode="autotune", surrogate_factory=SINDyFactory(system), surrogate_split=0.5,
+        eval_batch=MT_TUNE_BATCH, use_fanout=True, fanout_backward="pallas",
+        fanout_feature_kernels=True, fanout_compact=TUNE_COMPACT)
+    kept = {}
+    real_get = tuner._get_surrogate
+
+    def keep(*a, **k):
+        t0 = time.perf_counter()
+        kept["surrogate"], out = real_get(*a, **k)
+        kept["s"] = time.perf_counter() - t0
+        return kept["surrogate"], out
+
+    tuner._get_surrogate = keep
+    for w in wrappers:
+        w.launches, w.launches_by_B = 0, {}
+    (_, res), tune_s = bucket_timed(lambda: tuner.run(
+        pipeline, task_d, trajs, n_iters=MT_TUNE_BATCH, rng=np.random.default_rng(MT_TUNE_SEED),
+        surrogate_tune_iters=MT_TUNE_SURR_ITERS))
+    launches = {w.__name__: w.launches for w in wrappers}
+    by_B = {w.__name__: dict(w.launches_by_B) for w in wrappers}
+    costs = np.array(res.costs)
+    st = res.surr_tune_result
+    print(f"[17d] autotune: the SINDy surrogate from {MT_TUNE_SURR_ITERS} candidates in "
+          f"{kept['s']:.2f} s (selected {st.inc_cfg.get_dictionary()}, holdout RMSE "
+          f"{st.inc_costs[-1]:.6f}; RMSEs {[round(v, 5) for v in st.costs]}); then "
+          f"{MT_TUNE_BATCH} candidates x {MT_TUNE_STEPS - 1} steps (H={TUNE_H}) through the "
+          f"fan-out: whole run {tune_s:.2f} s -> {MT_TUNE_BATCH / (tune_s - kept['s']):.1f} "
+          f"evals/s on {card}; finite {int(np.isfinite(costs).sum())} / {costs.size}; "
+          f"incumbent {res.inc_costs[-1]:.4f}; launches {launches}, by B {by_B}", flush=True)
+    if len(costs) != MT_TUNE_BATCH or np.isnan(costs).any() \
+            or not np.isfinite(res.inc_costs[-1]):
+        raise RuntimeError(f"autotune: scores malformed or no finite incumbent "
+                           f"({res.inc_costs[-1]})")
+    if min(launches.values()) == 0:
+        raise RuntimeError(f"a kernel never ran in the autotune run: {launches}")
+    spec = (model.library, "coeffs")
+    kw = QuadCostFanout(system, task_d, model, model, horizon=TUNE_H, goal=goal,
+                        compact_schedule=TUNE_COMPACT, backward="pallas",
+                        feature_spec=spec).solver_kw
+    batch = tune_candidates(res.cfgs[:MT_TUNE_BATCH], system, dev)
+
+    # (e) impl="vmap" against impl="batched" on the same candidates.
+    task_e = task.copy()
+    task_e.set_cost(QuadCost(system, Q=np.eye(4), R=0.01 * np.eye(1), F=np.eye(4), goal=goal))
+    task_e.set_init_obs(np.array([0.5, 0.0, 0.0, 0.0]))
+    few = {k: v[:MT_VMAP_N] for k, v in batch.items()}
+    common = dict(horizon=TUNE_H, n_steps=MT_VMAP_STEPS, goal=goal)
+    surr = kept["surrogate"]
+    vm, vm_s = bucket_timed(QuadCostFanout(system, task_e, model, surr, impl="vmap",
+                                           **common), few)
+    bt, bt_s = bucket_timed(QuadCostFanout(system, task_e, model, surr, backward="pallas",
+                                           feature_spec=spec, compact_schedule=TUNE_COMPACT,
+                                           **common), few)
+    vm, bt = vm.cpu().double().numpy(), bt.cpu().double().numpy()
+    rel = [mt_rel(a, b) for a, b in zip(vm, bt)]
+    agree = sum((a == b) or (np.isfinite(a) and np.isfinite(b) and r <= SEQ_TOL)
+                for a, b, r in zip(vm, bt, rel))
+    print(f"[17e] QuadCostFanout impl='vmap' ({MT_VMAP_N} single-lane closed loops, "
+          f"{MT_VMAP_STEPS} steps) {vm_s:.2f} s, impl='batched' {bt_s:.2f} s on {card}; scores "
+          f"vmap {[round(float(v), 4) for v in vm]}, batched {[round(float(v), 4) for v in bt]}; "
+          f"relative "
+          f"differences {[f'{r:.2e}' for r in rel]}; {agree} of {MT_VMAP_N} within {SEQ_TOL} "
+          f"(min {MT_VMAP_AGREE_MIN})", flush=True)
+    if agree < MT_VMAP_AGREE_MIN:
+        raise RuntimeError(f"impl='vmap' and 'batched' agree on {agree} of {MT_VMAP_N}")
+    return dict(launches=launches, by_B=by_B, kw=kw, batch=batch)
+
+
 def main(profile=False):
     dev = check_device()
     from autompc_torch.benchmarks import CartpoleSwingupBenchmark, HalfcheetahBenchmark
@@ -4310,6 +4608,11 @@ def main(profile=False):
     gpd["init"] = bench.task.get_init_obs()
     pendulum_phase(dev, card)
     print(f"[16] phase wall {time.perf_counter() - t16:.2f} s", flush=True)
+
+    # ---- [17] the model-tuning path ---------------------------------------------
+    t17 = time.perf_counter()
+    mt = model_tuning_phase(bench, model, trajs, dev, card, fan_wrappers["b"])
+    print(f"[17] phase wall {time.perf_counter() - t17:.2f} s", flush=True)
 
     # ---- [3] kernels vs plain twins on path inputs -----------------------
     _, make_carry0, _, _ = make_batched_ilqr_solver(
@@ -4916,6 +5219,13 @@ def main(profile=False):
                                          bench.task.get_init_obs(), (K1, K2, K3), terms, ca,
                                          dt, alphas, float(bounds[0, 1]))
     failures += fails
+    # The same three on phase 17 (d)'s carry (the autotune run's fan-out,
+    # its own candidates) at every batch size it launched them with.
+    mt_Bs = sorted({Bs for counts in mt["by_B"].values() for Bs in counts}, reverse=True)
+    k67_mt, fails = check_tune_kernels(model, mt["kw"], mt["batch"], mt_Bs,
+                                       bench.task.get_init_obs(), (K1, K2, K3), terms, ca,
+                                       dt, alphas, float(bounds[0, 1]))
+    failures += fails
     k67["main"], fails = check_fanout_kernels(
         "main-path carry", K1, K2, K3, terms, ca, c_bm, lane_cp, (0.0,) * 4, dt, alphas,
         float(bounds[0, 1]))
@@ -4938,12 +5248,17 @@ def main(profile=False):
         at.update({f"at_B{Bs}_H{TUNE_H}": dict(k67_tune[Bs][k],
                                                launches=tune_by_B[name].get(Bs, 0))
                    for Bs in tune_Bs})
+        # Phase 17 (d)'s launches, each shape's measurements beside them.
+        at.update({f"at_B{Bs}_H{TUNE_H}_model_tuning": dict(
+            k67_mt[Bs][k], launches=mt["by_B"][name].get(Bs, 0)) for Bs in mt_Bs})
         for w in at.values():
             w.pop("library_ms")
         report.append(dict(
             name=f"{name}[B={FAN_B},H={FAN_H}]", route="cuda", source=source,
             replaces=replaces, launches=fan_launches["b"][name], launches_by_B=by_B,
             launches_tune=tune_launches[name], launches_tune_by_B=tune_by_B[name],
+            launches_model_tuning=mt["launches"][name],
+            launches_model_tuning_by_B=mt["by_B"][name],
             **k67[FAN_B][k], **at,
         ))
     for tag, mdl, cst, kw, x0s, counts in (
@@ -5171,6 +5486,9 @@ def main(profile=False):
                  if "launches_joint_tune" in r else "")
               + (f"; {r['launches_joint_koopman']} in the joint-Koopman fan-out (c2)"
                  if "launches_joint_koopman" in r else "")
+              + (f"; {r['launches_model_tuning']} in phase 17's autotune run "
+                 f"{r['launches_model_tuning_by_B']} by B"
+                 if "launches_model_tuning" in r else "")
               + (f"; in phase 13 {r['launches_gauss_reg']}" if "launches_gauss_reg" in r else "")
               + (f"; on the GP path (phase 16) {r['launches_gp']}" if "launches_gp" in r else "")
               + (f"; {r['registers']} registers" if "registers" in r else ""))

@@ -10,7 +10,10 @@
       search).
 (ii)  scheduled against unscheduled in the port, lane for lane.
 (iii) QuadCostFanout scores against the JAX QuadCostFanout on the
-      near-upright task of tests/test_parallel.py at a reduced n_steps.
+      near-upright task of tests/test_parallel.py at a reduced n_steps;
+      impl="vmap" (a single-lane solver a candidate) against JAX's
+      impl="vmap" and against the port's batched body on a quadratic task
+      cost (1e-9).
 """
 
 import jax
@@ -285,3 +288,33 @@ def test_fanout_scores_match_jax(setup, candidates, jax_scores, name, opts):
     fin = np.isfinite(jax_scores)
     np.testing.assert_array_equal(got[fin], jax_scores[fin])
     assert fanout.solver_kw["feature_mask"] == setup["active"]
+
+
+def _quad_task(bench, cost_cls):
+    """The near-upright start scored by a quadratic task cost (a
+    continuous score)."""
+    task = bench.task.copy()
+    task.set_cost(cost_cls(bench.system, Q=np.eye(4), R=0.01 * np.eye(1), F=np.eye(4),
+                           goal=np.zeros(4)))
+    task.set_init_obs(np.array([0.5, 0.0, 0.0, 0.0]))
+    return task
+
+
+def test_vmap_impl_matches_jax_and_the_batched_body(setup, candidates):
+    """Four candidates, four closed-loop steps: each candidate's own
+    QuadCost and single-lane solver against JAX's vmap of the same, and
+    against the per-lane-cost batched body."""
+    b, m, tb, t = setup["b"], setup["m"], setup["tb"], setup["t"]
+    cand = {k: v[:4] for k, v in candidates.items()}
+    kw = dict(horizon=H, n_steps=4, goal=np.zeros(4))
+    ref = np.asarray(QuadCostFanout(b.system, _quad_task(b, JQuad), m, m, impl="vmap", **kw)(
+        {k: jnp.asarray(v) for k, v in cand.items()}))
+    task = _quad_task(tb, TQuad)
+    got = TFanout(tb.system, task, t, t, impl="vmap", device="cpu", **kw)(cand)
+    batched = TFanout(tb.system, task, t, t, device="cpu", **kw, **BM_SCAN)(cand)
+    assert tuple(got.shape) == (4,) and got.device.type == "cpu" and np.isfinite(ref).all()
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-9)
+    np.testing.assert_allclose(batched.numpy(), got.numpy(), rtol=1e-9)
+    assert len(set(ref.round(6))) == 4
+    with pytest.raises(ValueError, match="reg_matrix requires impl='batched'"):
+        TFanout(tb.system, task, t, t, impl="vmap", reg_matrix=np.eye(4), device="cpu", **kw)

@@ -33,6 +33,9 @@ PORT_MODULES = [
     "autompc_torch.costs.cost_factory",
     "autompc_torch.costs.lane_costs",
     "autompc_torch.costs.quad_cost_factory",
+    "autompc_torch.evaluation",
+    "autompc_torch.evaluation.evaluator",
+    "autompc_torch.evaluation.model_metrics",
     "autompc_torch.native",
     "autompc_torch.ops._build",
     "autompc_torch.ops.cuda_linesearch",
@@ -57,6 +60,8 @@ PORT_MODULES = [
     "autompc_torch.sysid.stable_koopman",
     "autompc_torch.tuning",
     "autompc_torch.tuning.bo",
+    "autompc_torch.tuning.bucketed",
+    "autompc_torch.tuning.model_tuner",
     "autompc_torch.tuning.pipeline_tuner",
     "autompc_torch.utils",
     "autompc_torch.utils.checkpoint",
@@ -283,7 +288,6 @@ def _fanout(**kw):
 
 
 @pytest.mark.parametrize("kwargs, match", [
-    (dict(impl="vmap"), "impl='vmap'"),
     (dict(impl="other"), "impl must be"),
     (dict(mesh=object()), "mesh"),
     (dict(impl="vmap", reg_matrix=[[1.0]]), "reg_matrix requires impl='batched'"),

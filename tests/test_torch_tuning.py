@@ -13,7 +13,9 @@
     against JAX: the same configurations, costs and true-dynamics costs
     (rel 1e-6); the port's sequential tuner against its fan-out tuner;
 (g) a resumed run gives the uninterrupted run's history;
-(h) every refused kind, mode and option raises by name.
+(h) every refused kind, mode and option raises by name (the surrogate
+    modes "autotune" and "autoselect" run: tests/test_torch_model_tuner.py
+    holds them against the JAX package).
 
 The SINDy models of both packages carry the same coefficients
 (``SINDy.set_parameters``). The JAX fan-out runs its CPU-safe form
@@ -415,15 +417,6 @@ def test_a_pipeline_without_a_fanout_warns_and_falls_back(setup):
     kind, why = TTuner(use_fanout=True)._fanout_kind(pipe, s["t"])
     assert kind is None and "ZeroFactory has no fan-out" in why
     assert TTuner()._fanout_kind(pipe, s["t"]) == (None, "use_fanout=False")
-
-
-@pytest.mark.parametrize("mode", ["autotune", "autoselect"])
-def test_unported_surrogate_modes_raise(setup, mode):
-    s = setup
-    _, tp = _pipelines(s)
-    with pytest.raises(ValueError, match=f'surrogate_mode="{mode}"'):
-        TTuner(surrogate_mode=mode, surrogate_split=0.5).run(
-            tp, s["tb"].task, s["ttrajs"], n_iters=1, rng=np.random.default_rng(0))
 
 
 def test_pretrain_without_surrogate_and_mesh_raise(setup):
