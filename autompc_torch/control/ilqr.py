@@ -195,7 +195,8 @@ def make_batched_ilqr_solver(
     linear-in-features model behind ``pred_core`` (``x' =
     params[coeffs_key] @ library(z)``). The lanes-last body needs it;
     the batch-major body then takes its rollouts and Jacobians from the
-    feature kernels (dc = 1). ``feature_mask`` (bool sequence or tuple
+    feature kernels at any dc (the lanes-last body and ``fuse_ls`` take
+    dc = 1). ``feature_mask`` (bool sequence or tuple
     of active feature indices) restricts the kernels to the features
     whose coefficient columns are nonzero; the solve is then only
     correct for such coefficients.
@@ -522,17 +523,20 @@ def make_batched_ilqr_solver(
         # The fused line search (K3's batch-major entry) for a feature
         # model under a quadratic cost, as the JAX body fuses it; without
         # a feature_spec, or under a cost that is not quadratic, fuse_ls
-        # is ignored there too.
+        # is ignored there too. With dc > 1 the feature path is K1's
+        # batch-major entry, the dense-expansion backward pass (K4) and
+        # the rollout line search (K7).
         fused = fuse_ls and feature_spec is not None and (
             quad_cost_batch or getattr(cost, "is_quad", False))
+        if fused and dc != 1:
+            raise _unsupported(
+                "fuse_ls with dc > 1 (the batch-major fused line search, K3, takes dc = 1; "
+                "fuse_ls=False runs the rollout line search)"
+            )
         if fused and not quad_cost_batch and fixed_diag is None:
             raise _unsupported(
                 "fuse_ls with lanes_last=False and a fixed cost whose Q, R or F is not "
                 "diagonal (the batch-major fused line search takes diagonal cost planes)"
-            )
-        if feature_spec is not None and dc != 1:
-            raise _unsupported(
-                "feature_spec with dc > 1 (the feature kernels are built for dc = 1)"
             )
         if backward not in ("pallas", "scan"):
             raise _unsupported(f"backward={backward!r}")

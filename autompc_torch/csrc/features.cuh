@@ -49,7 +49,11 @@
 #include <stdint.h>
 
 #define AMPC_MAX_F 64  // terms of a table passed by value
-#define AMPC_MAX_D 8   // input components d = ds + dc
+// Input components d = ds + dc: 24 covers the halfcheetah's (18, 6). The
+// table passed by value is then 3,488 bytes (1,424 at 8), within a
+// kernel's parameter space; the kernels read only the first d entries of
+// a term's row, so the table's width moves no bit.
+#define AMPC_MAX_D 24
 #define AMPC_TREE_SLOTS 7  // 2^7 > AMPC_MAX_F
 // The per-lane-coefficient instances (the joint fan-out's, whose lanes
 // each carry their own model) walk the whole library, up to

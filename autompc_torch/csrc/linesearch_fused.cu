@@ -273,6 +273,15 @@ __global__ void __launch_bounds__(
   }
 }
 
+// The ds of this object: 4 in the main library, with the per-lane-
+// coefficient entries and the occupancy queries, else the shape it was
+// built for at first use (-DAMPC_DS; ops/_build.py: shape_library), with
+// the shared-coefficient entries only.
+#ifndef AMPC_DS
+#define AMPC_DS 4
+#define AMPC_LS_MAIN_LIBRARY
+#endif
+
 template <bool LANE_COST, typename JT, class TA, bool BM = false, bool REG = false>
 static void launch(const TA& T, const LSParams* P,
                    const float* coeffs, const float* x0T, const float* xsT,
@@ -289,7 +298,7 @@ static void launch(const TA& T, const LSParams* P,
   const int threads = lanes_per_block * P->L;
   const unsigned blocks = (unsigned)((B + lanes_per_block - 1) / lanes_per_block);
   const RegParams none = {};
-  fused_ls_kernel<4, LANE_COST, JT, TA, BM, REG><<<blocks, threads, 0, s>>>(
+  fused_ls_kernel<AMPC_DS, LANE_COST, JT, TA, BM, REG><<<blocks, threads, 0, s>>>(
       T, *P, coeffs, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT, obj0, lin,
       quad, ks_small, act, (const JT*)old_jac, stash, out_xs, out_us, out_obj,
       out_succ, out_fail, (JT*)out_jac, out_du2, H, B, R ? *R : none, regw, out_ju);
@@ -299,7 +308,7 @@ static int fused_check(int n, int max_n, const LSParams* P, int ds, int H,
                        int B, int lanes_per_block, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ds != 4 || n < 1 || n > max_n || P->L < 1 || P->L > AMPC_MAX_L ||
+  if (ds != AMPC_DS || n < 1 || n > max_n || P->L < 1 || P->L > AMPC_MAX_L ||
       P->obsdim < 1 || P->obsdim > ds || H < 1 || B < 1 || lanes_per_block < 1 ||
       lanes_per_block * P->L > AMPC_LS_MAX_THREADS)
     return (int)cudaErrorInvalidValue;
@@ -343,6 +352,7 @@ extern "C" int ampc_fused_line_search(
   return (int)cudaGetLastError();
 }
 
+#ifdef AMPC_LS_MAIN_LIBRARY
 // The same with per-lane coefficients (a lanes-last (ds, n, B) plane),
 // the device table Tdev of n terms (up to AMPC_MAX_F_BIG), per-lane cost
 // planes and a float Jacobian carry (the joint fan-out's form): trees of
@@ -374,6 +384,7 @@ extern "C" int ampc_fused_line_search_lane(
 #undef AMPC_LAUNCH
   return (int)cudaGetLastError();
 }
+#endif
 
 // The batch-major entry (BM): x0 (B, ds), xs (B, H+1, ds), us (B, H),
 // Ks (B, H, ds), ks (B, H) in; out_xs (B, H+1, ds), out_us (B, H), obj,
@@ -407,6 +418,7 @@ extern "C" int ampc_fused_line_search_bm(
   return (int)cudaGetLastError();
 }
 
+#ifdef AMPC_LS_MAIN_LIBRARY
 // The batch-major entry with per-lane coefficients (a lanes-last (ds, n, B)
 // plane, the device table Tdev of n <= AMPC_MAX_F terms, trees of
 // AMPC_TREE_SLOTS slots).
@@ -492,3 +504,4 @@ extern "C" int ampc_fused_line_search_occupancy(int lane_cost, int jac_bf16,
   out[2] = blocks;
   return 0;
 }
+#endif

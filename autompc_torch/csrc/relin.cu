@@ -66,24 +66,52 @@
 // per point (whole).
 #define AMPC_RELIN_SPLIT_LANES 32
 #define AMPC_RELIN_WHOLE_LANES 256
+// Static shared memory a block may take.
+#define AMPC_RELIN_STATIC_SMEM (48 * 1024)
+
+// Bytes of static shared memory of relin_kernel<DS, DC, BM, ., NL>: the
+// coefficient plane and, batch-major, the staging of NL points' Jx and
+// Ju rows (ops/cuda_relin.py: relin_smem mirrors it).
+__host__ __device__ constexpr int relin_smem(int DS, int DC, bool BM, int NL) {
+  return 4 * (DS * AMPC_MAX_F + (BM ? NL : 1) * (DS * DS + 1) + (BM ? NL : 1) * (DS * DC + 1));
+}
+
+// Points a split block holds: AMPC_RELIN_SPLIT_LANES, halved until the
+// batch-major staging fits the static shared memory (16 at (18, 6)).
+__host__ __device__ constexpr int relin_split_lanes(int DS, int DC, bool BM) {
+  int nl = AMPC_RELIN_SPLIT_LANES;
+  while (nl > 1 && relin_smem(DS, DC, BM, nl) > AMPC_RELIN_STATIC_SMEM) nl /= 2;
+  return nl;
+}
+
+// A whole block (a thread per point) fits its staging: at (18, 6) the
+// batch-major staging of 256 points would take 444 KB, so that entry
+// always splits.
+__host__ __device__ constexpr bool relin_whole_fits(int DS, int DC, bool BM) {
+  return relin_smem(DS, DC, BM, AMPC_RELIN_WHOLE_LANES) <= AMPC_RELIN_STATIC_SMEM;
+}
 
 // TA: FeatTable (shared coefficients, a (ds, n) plane staged in shared
 // memory) or FeatTableRef<S> (per-lane coefficients, a lanes-last
 // (ds, n, B) plane, lane b's column read in place; trees of S slots).
-template <int DS, bool BM, int CT, int NL, class TA = FeatTable>
+// DC: controls, the last DC of the D = DS + DC inputs; the lanes-last
+// layout (the packed plane of the dc = 1 kernels) takes DC = 1.
+template <int DS, int DC, bool BM, int CT, int NL, class TA = FeatTable>
 __global__ void __launch_bounds__(NL* CT) relin_kernel(
     const __grid_constant__ TA T, const float* __restrict__ coeffs,
     const float* __restrict__ xs, const float* __restrict__ us,
     float* __restrict__ jac, float* __restrict__ Ju, int H, int B) {
   constexpr bool LANE = AmpcTableTraits<TA>::lane;
   constexpr int S = AmpcTableTraits<TA>::slots;
-  constexpr int D = DS + 1;
+  constexpr int D = DS + DC;
   static_assert(CT == 1 || CT == D, "a column or all columns a thread");
+  static_assert(BM || DC == 1, "the packed lanes-last plane is dc = 1");
+  static_assert(relin_smem(DS, DC, BM, NL) <= AMPC_RELIN_STATIC_SMEM, "static shared memory");
   __shared__ float s_coef[DS * AMPC_MAX_F];
-  // Batch-major staging, one padded row a point (odd strides: no bank
-  // conflict when a warp writes one column of 32 points).
+  // Batch-major staging, one padded row a point (odd strides at ds = 4:
+  // no bank conflict when a warp writes one column of 32 points).
   __shared__ float s_jx[BM ? NL : 1][DS * DS + 1];
-  __shared__ float s_ju[BM ? NL : 1][DS + 1];
+  __shared__ float s_ju[BM ? NL : 1][DS * DC + 1];
   const int tid = threadIdx.y * NL + threadIdx.x;
   if constexpr (!LANE) {
     for (int i = tid; i < DS * T.n; i += NL * CT) s_coef[i] = coeffs[i];
@@ -114,7 +142,8 @@ __global__ void __launch_bounds__(NL* CT) relin_kernel(
       const float* row = xs + ((long long)b * (H + 1) + t) * DS;
 #pragma unroll
       for (int i = 0; i < DS; ++i) z[i] = row[i];
-      z[DS] = us[(long long)b * H + t];
+#pragma unroll
+      for (int j = 0; j < DC; ++j) z[DS + j] = us[((long long)b * H + t) * DC + j];
     } else {
 #pragma unroll
       for (int i = 0; i < DS; ++i) z[i] = xs[((long long)t * DS + i) * B + b];
@@ -135,7 +164,7 @@ __global__ void __launch_bounds__(NL* CT) relin_kernel(
         else if (dd < DS)
           s_jx[threadIdx.x][i * DS + dd] = col[i];
         else
-          s_ju[threadIdx.x][i] = col[i];
+          s_ju[threadIdx.x][i * DC + dd - DS] = col[i];
       }
     }
   }
@@ -144,95 +173,124 @@ __global__ void __launch_bounds__(NL* CT) relin_kernel(
   float* jx_out = jac + p0 * DS * DS;
   for (int o = tid; o < np * DS * DS; o += NL * CT)
     jx_out[o] = s_jx[o / (DS * DS)][o % (DS * DS)];
-  float* ju_out = Ju + p0 * DS;
-  for (int o = tid; o < np * DS; o += NL * CT) ju_out[o] = s_ju[o / DS][o % DS];
+  float* ju_out = Ju + p0 * DS * DC;
+  for (int o = tid; o < np * DS * DC; o += NL * CT)
+    ju_out[o] = s_ju[o / (DS * DC)][o % (DS * DC)];
 }
 
-template <bool BM, int CT, int NL, class TA>
+template <int DS, int DC, bool BM, int CT, int NL, class TA>
 static void relin_launch(const TA& T, const float* coeffs, const float* xs,
                          const float* us, float* jac, float* Ju, int H, int B,
                          cudaStream_t s) {
   const dim3 block(NL, CT);
-  if (BM) {
+  if constexpr (BM) {
     const long long n = (long long)B * H;
     const unsigned grid = (unsigned)((n + NL - 1) / NL);
-    relin_kernel<4, true, CT, NL, TA><<<grid, block, 0, s>>>(T, coeffs, xs, us,
-                                                            jac, Ju, H, B);
+    relin_kernel<DS, DC, true, CT, NL, TA><<<grid, block, 0, s>>>(T, coeffs, xs, us,
+                                                                 jac, Ju, H, B);
   } else {
     const dim3 grid((unsigned)((B + NL - 1) / NL), (unsigned)H);
-    relin_kernel<4, false, CT, NL, TA><<<grid, block, 0, s>>>(T, coeffs, xs, us,
-                                                             jac, Ju, H, B);
+    relin_kernel<DS, DC, false, CT, NL, TA><<<grid, block, 0, s>>>(T, coeffs, xs, us,
+                                                                  jac, Ju, H, B);
   }
 }
 
-template <bool BM, class TA>
+// split: a thread per (point, column), else a thread per point where
+// that block's staging fits (relin_whole_fits; the wrapper's
+// relin_geometry decides the same).
+template <int DS, int DC, bool BM, class TA>
 static void relin_dispatch(const TA& T, const float* coeffs, const float* xs,
                            const float* us, float* jac, float* Ju, int H, int B,
                            int split, cudaStream_t s) {
-  if (split)
-    relin_launch<BM, 5, AMPC_RELIN_SPLIT_LANES>(T, coeffs, xs, us, jac, Ju, H,
-                                                B, s);
-  else
-    relin_launch<BM, 1, AMPC_RELIN_WHOLE_LANES>(T, coeffs, xs, us, jac, Ju, H,
-                                                B, s);
+  if constexpr (relin_whole_fits(DS, DC, BM)) {
+    if (!split) {
+      relin_launch<DS, DC, BM, 1, AMPC_RELIN_WHOLE_LANES>(T, coeffs, xs, us, jac, Ju, H,
+                                                          B, s);
+      return;
+    }
+  }
+  relin_launch<DS, DC, BM, DS + DC, relin_split_lanes(DS, DC, BM)>(T, coeffs, xs, us,
+                                                                   jac, Ju, H, B, s);
 }
 
-static int relin_check(int n, int d, int max_n, int ds, int H, int B,
-                       int device) {
+static int relin_check(int n, int d, int max_n, int H, int B, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ds != 4 || d != ds + 1 || n < 1 || n > max_n || H < 1 || H > 65535 ||
-      B < 1)
+  if (d > AMPC_MAX_D || n < 1 || n > max_n || H < 1 || H > 65535 || B < 1)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-// The per-lane instances: the device table Tdev of n terms, coefficients
-// a lanes-last (ds, n, B) plane; trees of AMPC_TREE_SLOTS slots up to
-// AMPC_MAX_F terms, else AMPC_TREE_SLOTS_BIG.
+// The (ds, dc) instances of this object: the main library's (4, 1), or
+// the one shape of a library built at first use (-DAMPC_DS, -DAMPC_DC;
+// ops/_build.py: shape_library). Another shape is refused.
+#ifdef AMPC_DS
+#define AMPC_RELIN_SHAPE(ds, dc) ((ds) == AMPC_DS && (dc) == AMPC_DC)
+#else
+#define AMPC_DS 4
+#define AMPC_DC 1
+#define AMPC_RELIN_SHAPE(ds, dc) ((ds) == 4 && (dc) == 1)
+#define AMPC_RELIN_LANE_INSTANCES
+#endif
+
+// The shared-coefficient entries at (ds, dc); the lanes-last layout
+// takes dc = 1.
 template <bool BM>
-static int relin_lane(const FeatTableBig* Tdev, int n, const float* coeffs,
-                      const float* xs, const float* us, float* jac, float* Ju,
-                      int ds, int H, int B, int split, int device,
-                      void* stream) {
-  const int rc = relin_check(n, ds + 1, AMPC_MAX_F_BIG, ds, H, B, device);
+static int relin_shared(const FeatTable* T, const float* coeffs, const float* xs,
+                        const float* us, float* jac, float* Ju, int ds, int dc, int H,
+                        int B, int split, int device, void* stream) {
+  const int rc = relin_check(T->n, T->d, AMPC_MAX_F, H, B, device);
   if (rc) return rc;
-  if (n <= AMPC_MAX_F)
-    relin_dispatch<BM>(FeatTableRef<AMPC_TREE_SLOTS>{Tdev, n}, coeffs, xs, us, jac,
-                       Ju, H, B, split, (cudaStream_t)stream);
-  else
-    relin_dispatch<BM>(FeatTableRef<AMPC_TREE_SLOTS_BIG>{Tdev, n}, coeffs, xs, us,
-                       jac, Ju, H, B, split, (cudaStream_t)stream);
+  if (!AMPC_RELIN_SHAPE(ds, dc) || T->d != ds + dc || (!BM && dc != 1))
+    return (int)cudaErrorInvalidValue;
+  if constexpr (BM || AMPC_DC == 1)
+    relin_dispatch<AMPC_DS, AMPC_DC, BM>(*T, coeffs, xs, us, jac, Ju, H, B, split,
+                                         (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
 // Lanes-last: a grid of (ceil(B / NL), H) blocks of (NL, CT) threads;
 // thread (x, y) of block (bx, t) takes lane bx * NL + x at step t, columns
-// y, y + CT, ... (split: NL = AMPC_RELIN_SPLIT_LANES, CT = ds+1; whole: NL
-// = AMPC_RELIN_WHOLE_LANES, CT = 1).
+// y, y + CT, ... (split: NL = relin_split_lanes, CT = ds+1; whole: NL =
+// AMPC_RELIN_WHOLE_LANES, CT = 1). dc = 1.
 extern "C" int ampc_relin_jacobians(const FeatTable* T, const float* coeffs,
                                     const float* xsT, const float* usT,
                                     float* jac, int ds, int H, int B,
                                     int split, int device, void* stream) {
-  const int rc = relin_check(T->n, T->d, AMPC_MAX_F, ds, H, B, device);
-  if (rc) return rc;
-  relin_dispatch<false>(*T, coeffs, xsT, usT, jac, nullptr, H, B, split,
-                        (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+  return relin_shared<false>(T, coeffs, xsT, usT, jac, nullptr, ds, 1, H, B, split, device,
+                             stream);
 }
 
 // Batch-major: a grid of ceil(B H / NL) blocks of (NL, CT) threads; thread
 // (x, y) of block bx takes point p = bx * NL + x of the flattened (B, H),
-// lane b = p / H, step t = p % H, columns y, y + CT, ...
+// lane b = p / H, step t = p % H, columns y, y + CT, ...; us (B, H, dc),
+// Ju (B, H, ds, dc).
 extern "C" int ampc_relin_jacobians_bm(const FeatTable* T,
                                        const float* coeffs, const float* xs,
                                        const float* us, float* Jx, float* Ju,
-                                       int ds, int H, int B, int split,
+                                       int ds, int dc, int H, int B, int split,
                                        int device, void* stream) {
-  const int rc = relin_check(T->n, T->d, AMPC_MAX_F, ds, H, B, device);
+  return relin_shared<true>(T, coeffs, xs, us, Jx, Ju, ds, dc, H, B, split, device, stream);
+}
+
+#ifdef AMPC_RELIN_LANE_INSTANCES
+// The per-lane instances (main library only, at (4, 1)): the device table
+// Tdev of n terms, coefficients a lanes-last (ds, n, B) plane; trees of
+// AMPC_TREE_SLOTS slots up to AMPC_MAX_F terms, else AMPC_TREE_SLOTS_BIG.
+template <bool BM>
+static int relin_lane(const FeatTableBig* Tdev, int n, const float* coeffs,
+                      const float* xs, const float* us, float* jac, float* Ju,
+                      int ds, int H, int B, int split, int device,
+                      void* stream) {
+  const int rc = relin_check(n, ds + 1, AMPC_MAX_F_BIG, H, B, device);
   if (rc) return rc;
-  relin_dispatch<true>(*T, coeffs, xs, us, Jx, Ju, H, B, split,
-                       (cudaStream_t)stream);
+  if (!AMPC_RELIN_SHAPE(ds, 1)) return (int)cudaErrorInvalidValue;
+  if (n <= AMPC_MAX_F)
+    relin_dispatch<4, 1, BM>(FeatTableRef<AMPC_TREE_SLOTS>{Tdev, n}, coeffs, xs, us, jac,
+                             Ju, H, B, split, (cudaStream_t)stream);
+  else
+    relin_dispatch<4, 1, BM>(FeatTableRef<AMPC_TREE_SLOTS_BIG>{Tdev, n}, coeffs, xs, us,
+                             jac, Ju, H, B, split, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -257,3 +315,4 @@ extern "C" int ampc_relin_jacobians_bm_lane(const FeatTableBig* Tdev, int n,
   return relin_lane<true>(Tdev, n, coeffs, xs, us, Jx, Ju, ds, H, B, split,
                           device, stream);
 }
+#endif

@@ -51,6 +51,10 @@
 // wrapper's bq_geometry: 32 lanes up to B = 4 x SMs x 32) so the few
 // warps spread over as many SMs as they can. The TPU's (8, 128) wide tiles
 // and in-VMEM casts have no counterpart here.
+//
+// The main library holds ds = 4; another ds (the pendulum's 2) is the
+// same kernel compiled at first use with -DAMPC_DS (ops/_build.py:
+// shape_library), its ring AMPC_BQ_RING steps of that ds's rows.
 #include "cp_async.cuh"
 #include "jac_io.cuh"
 #include "riccati_quad_step.cuh"
@@ -208,15 +212,15 @@ __global__ void __launch_bounds__(AMPC_BQ_MAX_LANES) backward_quad_kernel(
   }
 }
 
-template <bool LANE_COST, typename JT, bool JRING>
+template <int DS, bool LANE_COST, typename JT, bool JRING>
 static int launch_one(const QuadDiag* P, const void* jac, const float* xsT,
                       const float* xterm, const float* usT, const float* qdT,
                       const float* rdT, const float* fdT, const uint8_t* act,
                       const float* oldK, const float* oldk, float* KsT,
                       float* ksT, float* lin, float* quad, int H, int B,
                       int lanes, cudaStream_t s) {
-  auto kernel = backward_quad_kernel<4, LANE_COST, JT, JRING>;
-  const int smem = lanes * bq_ring_bytes_per_lane<4>();
+  auto kernel = backward_quad_kernel<DS, LANE_COST, JT, JRING>;
+  const int smem = lanes * bq_ring_bytes_per_lane<DS>();
   static int allowed = 48 * 1024;  // dynamic shared memory opted into
   if (smem > allowed) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -231,7 +235,7 @@ static int launch_one(const QuadDiag* P, const void* jac, const float* xsT,
   return (int)cudaGetLastError();
 }
 
-template <bool LANE_COST, typename JT>
+template <int DS, bool LANE_COST, typename JT>
 static int launch(const QuadDiag* P, const void* jac, const float* xsT,
                   const float* xterm, const float* usT, const float* qdT,
                   const float* rdT, const float* fdT, const uint8_t* act,
@@ -242,14 +246,20 @@ static int launch(const QuadDiag* P, const void* jac, const float* xsT,
   // starts on a 4-byte boundary, and are read at the step otherwise.
   if constexpr (sizeof(JT) == 2) {
     if (B % 2 != 0 || (uintptr_t)jac % 4 != 0)
-      return launch_one<LANE_COST, JT, false>(P, jac, xsT, xterm, usT, qdT,
+      return launch_one<DS, LANE_COST, JT, false>(P, jac, xsT, xterm, usT, qdT,
                                               rdT, fdT, act, oldK, oldk, KsT,
                                               ksT, lin, quad, H, B, lanes, s);
   }
-  return launch_one<LANE_COST, JT, true>(P, jac, xsT, xterm, usT, qdT, rdT,
+  return launch_one<DS, LANE_COST, JT, true>(P, jac, xsT, xterm, usT, qdT, rdT,
                                          fdT, act, oldK, oldk, KsT, ksT, lin,
                                          quad, H, B, lanes, s);
 }
+
+// The ds of this object: 4 in the main library, else the shape it was
+// built for at first use.
+#ifndef AMPC_DS
+#define AMPC_DS 4
+#endif
 
 // qdT/rdT/fdT: per-lane cost planes, or all three null for the fixed
 // cost held in P. jac_bf16: the Jacobian plane is bfloat16, else float.
@@ -267,22 +277,22 @@ extern "C" int ampc_backward_quad_ll(const QuadDiag* P, const void* jac,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool lane = qdT != nullptr;
-  if (ds != 4 || H < 1 || B < 1 || P->obsdim < 1 || P->obsdim > ds ||
+  if (ds != AMPC_DS || H < 1 || B < 1 || P->obsdim < 1 || P->obsdim > ds ||
       (rdT != nullptr) != lane || (fdT != nullptr) != lane ||
       lanes < 32 || lanes > AMPC_BQ_MAX_LANES || lanes % 32 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (lane && jac_bf16)
-    return launch<true, __nv_bfloat16>(P, jac, xsT, xterm, usT, qdT, rdT, fdT,
+    return launch<AMPC_DS, true, __nv_bfloat16>(P, jac, xsT, xterm, usT, qdT, rdT, fdT,
                                        act, oldK, oldk, KsT, ksT, lin, quad,
                                        H, B, lanes, s);
   if (lane)
-    return launch<true, float>(P, jac, xsT, xterm, usT, qdT, rdT, fdT, act,
+    return launch<AMPC_DS, true, float>(P, jac, xsT, xterm, usT, qdT, rdT, fdT, act,
                                oldK, oldk, KsT, ksT, lin, quad, H, B, lanes, s);
   if (jac_bf16)
-    return launch<false, __nv_bfloat16>(P, jac, xsT, xterm, usT, qdT, rdT,
+    return launch<AMPC_DS, false, __nv_bfloat16>(P, jac, xsT, xterm, usT, qdT, rdT,
                                         fdT, act, oldK, oldk, KsT, ksT, lin,
                                         quad, H, B, lanes, s);
-  return launch<false, float>(P, jac, xsT, xterm, usT, qdT, rdT, fdT, act,
+  return launch<AMPC_DS, false, float>(P, jac, xsT, xterm, usT, qdT, rdT, fdT, act,
                               oldK, oldk, KsT, ksT, lin, quad, H, B, lanes, s);
 }

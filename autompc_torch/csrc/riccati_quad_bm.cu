@@ -89,14 +89,18 @@ __host__ __device__ constexpr int bqbm_floats_per_lane(int S) {
 
 // sum_k a(k) b(k), k = 0 .. N-1, with the one-thread kernel's roundings:
 // the second product rounded, the first fused into their sum, one FMA for
-// each further term.
+// each further term; at N = 1 the product alone.
 template <int N, typename A, typename Bv>
 __device__ __forceinline__ float bqbm_fold(A a, Bv b) {
-  static_assert(N >= 2, "a fold of at least two terms");
-  float s = __fmaf_rn(a(0), b(0), __fmul_rn(a(1), b(1)));
+  static_assert(N >= 1, "a fold of at least one term");
+  if constexpr (N == 1) {
+    return __fmul_rn(a(0), b(0));
+  } else {
+    float s = __fmaf_rn(a(0), b(0), __fmul_rn(a(1), b(1)));
 #pragma unroll
-  for (int k = 2; k < N; ++k) s = __fmaf_rn(a(k), b(k), s);
-  return s;
+    for (int k = 2; k < N; ++k) s = __fmaf_rn(a(k), b(k), s);
+    return s;
+  }
 }
 
 template <int DS>
@@ -291,6 +295,12 @@ __global__ void backward_quad_bm_kernel(
 //   (the exchange buffer and the ring slot) instead of being copied into
 //   registers first: 2 DS^2 + 2 DS floats a thread would not fit them.
 // A simple instance: its time is in PERF.md §6.
+// The same kernel takes every other ds (the pendulum's ds = 2, built at
+// first use: ops/_build.py: shape_library), G = ds rounded up to a power
+// of two: where a row is not a whole number of 16-byte copies (ds % 4 !=
+// 0) every copy is 4 bytes (CW = 1 float) and the staged gains are
+// written element by element; the recursion and its roundings are the
+// same.
 template <int DS>
 __host__ __device__ constexpr int bqbm_wide_floats_per_lane(int S) {
   return S * (DS * DS + 3 * DS + 2) + 2 * (DS * DS + DS);
@@ -304,9 +314,10 @@ __global__ void backward_quad_bm_wide_kernel(
     const float* __restrict__ Rd, const float* __restrict__ Fd,
     float* __restrict__ Ks, float* __restrict__ ks,
     float* __restrict__ lin_out, float* __restrict__ quad_out, int H, int B) {
-  static_assert(DS % 4 == 0 && DS <= G && 32 % G == 0, "16-byte rows, a group in a warp");
+  static_assert(DS <= G && 32 % G == 0, "a group in a warp");
   constexpr int RING = AMPC_BQBM_RING;
-  constexpr int R4 = DS / 4;              // 16-byte copies a row
+  constexpr int CW = DS % 4 == 0 ? 4 : 1; // floats a copy: 16 or 4 bytes
+  constexpr int R4 = DS / CW;             // copies a row
   constexpr int JW = DS * DS + DS;        // a slot's Jx rows and Ju
   constexpr int NQ = (DS + 2) * R4 + 1;   // copies a step
   extern __shared__ float4 bqbm_smem[];
@@ -340,7 +351,13 @@ __global__ void backward_quad_bm_wide_kernel(
   }
 
   // Step t of the thread's lane into ring slot s: copy q < DS R4 is
-  // 16 bytes of the Jx rows, then R4 of Ju, R4 of x_t, and u_t.
+  // CW floats of the Jx rows, then R4 of Ju, R4 of x_t, and u_t.
+  auto copy = [](float* dst, const float* src) {
+    if constexpr (CW == 4)
+      ampc_cp_async16(dst, src);
+    else
+      ampc_cp_async4(dst, src);
+  };
   auto fetch = [&](int t, int s) {
     const long long lt = bl * H + t;
     float* J = sJ + (s * NL + l) * JW;
@@ -348,12 +365,12 @@ __global__ void backward_quad_bm_wide_kernel(
     for (int q0 = 0; q0 < NQ; q0 += G) {
       const int q = q0 + g;
       if (q < DS * R4)
-        ampc_cp_async16(J + q * 4, Jx_in + lt * DS * DS + q * 4);
+        copy(J + q * CW, Jx_in + lt * DS * DS + q * CW);
       else if (q < (DS + 1) * R4)
-        ampc_cp_async16(J + DS * DS + (q - DS * R4) * 4, Ju_in + lt * DS + (q - DS * R4) * 4);
+        copy(J + DS * DS + (q - DS * R4) * CW, Ju_in + lt * DS + (q - DS * R4) * CW);
       else if (q < (DS + 2) * R4)
-        ampc_cp_async16(sX + (s * NL + l) * DS + (q - (DS + 1) * R4) * 4,
-                        xrow + (long long)t * DS + (q - (DS + 1) * R4) * 4);
+        copy(sX + (s * NL + l) * DS + (q - (DS + 1) * R4) * CW,
+             xrow + (long long)t * DS + (q - (DS + 1) * R4) * CW);
       else if (q == NQ - 1)
         ampc_cp_async4(sU + s * NL + l, us + lt);
     }
@@ -446,9 +463,13 @@ __global__ void backward_quad_bm_wide_kernel(
           const long long o = b * H + t + d;
           const int sd = s - d;  // the slot of step t + d
 #pragma unroll
-          for (int c = 0; c < R4; ++c)
-            *reinterpret_cast<float4*>(Ks + o * DS + c * 4) =
-                *reinterpret_cast<const float4*>(sK + (sd * NL + l) * DS + c * 4);
+          for (int c = 0; c < R4; ++c) {
+            if constexpr (CW == 4)
+              *reinterpret_cast<float4*>(Ks + o * DS + c * 4) =
+                  *reinterpret_cast<const float4*>(sK + (sd * NL + l) * DS + c * 4);
+            else
+              Ks[o * DS + c] = sK[(sd * NL + l) * DS + c];
+          }
           ks[o] = sk[sd * NL + l];
         }
       }
@@ -489,8 +510,17 @@ static int bqbm_wide_launch(const QuadDiag* P, const float* Jx, const float* Ju,
   return (int)cudaGetLastError();
 }
 
-// lanes: lanes a block, 4 threads each (16 at ds = 12), lanes x 4 a
-// multiple of 32 up to AMPC_BQBM_MAX_THREADS (bq_bm_geometry).
+// Threads a lane of the wide kernel at ds: ds rounded up to a power of
+// two (bq_bm_geometry's group).
+__host__ __device__ constexpr int bqbm_group(int ds) {
+  int g = 1;
+  while (g < ds) g *= 2;
+  return g;
+}
+
+// lanes: lanes a block, 4 threads each (16 at ds = 12; bqbm_group(ds) at
+// a shape built at first use, -DAMPC_DS), lanes x group a multiple of 32
+// up to AMPC_BQBM_MAX_THREADS (bq_bm_geometry).
 extern "C" int ampc_backward_quad_bm(const QuadDiag* P, const float* Jx,
                                      const float* Ju, const float* xs,
                                      const float* us, const float* Qd,
@@ -500,6 +530,11 @@ extern "C" int ampc_backward_quad_bm(const QuadDiag* P, const float* Jx,
                                      int lanes, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+#ifdef AMPC_DS
+  if (ds != AMPC_DS || AMPC_DC != 1) return (int)cudaErrorInvalidValue;
+  return bqbm_wide_launch<AMPC_DS, bqbm_group(AMPC_DS)>(P, Jx, Ju, xs, us, Qd, Rd, Fd, Ks,
+                                                        ks, lin, quad, H, B, lanes, stream);
+#else
   if (ds == 12)
     return bqbm_wide_launch<12, 16>(P, Jx, Ju, xs, us, Qd, Rd, Fd, Ks, ks, lin, quad, H,
                                     B, lanes, stream);
@@ -520,4 +555,5 @@ extern "C" int ampc_backward_quad_bm(const QuadDiag* P, const float* Jx,
   kernel<<<blocks, lanes * G, smem, (cudaStream_t)stream>>>(
       *P, Jx, Ju, xs, us, Qd, Rd, Fd, Ks, ks, lin, quad, H, B);
   return (int)cudaGetLastError();
+#endif
 }

@@ -1,7 +1,7 @@
 // K7: unfused iLQR line-search rollouts for a linear-in-features model,
-// batch-major, dc=1: every candidate step size is rolled through the
-// dynamics and WRITTEN OUT; the objective and the choice are the
-// caller's.
+// batch-major, any (ds, dc) with ds + dc <= AMPC_MAX_D: every candidate
+// step size is rolled through the dynamics and WRITTEN OUT; the objective
+// and the choice are the caller's.
 //
 // Replaces the Pallas TPU kernel autompc_tpu/ops/pallas_linesearch.py:
 // _ls_kernel (entry pallas_sindy_line_search) with one shared (ds, F)
@@ -11,7 +11,7 @@
 // dynamic shared memory, over the whole library (up to AMPC_MAX_F_BIG
 // terms; 86-96 registers, no spill). Per candidate (lane b, step size l):
 //   x_0 = x0[b];  for t < H:
-//     u_t = clip(alpha_l k_t + ubar_t + K_t (x_t - xbar_t)),
+//     u_t = clip(alpha_l k_t + ubar_t + K_t (x_t - xbar_t)),  (dc controls)
 //     x_{t+1} = coeffs @ features([x_t, u_t]),
 //   ls_xs[b, l, t] = x_t (t <= H), ls_us[b, l, t] = u_t.
 // The feedback sum is a left fold over the state components, the order of
@@ -40,8 +40,9 @@
 // shuffles (all terms at once for n <= G), and a batch runs G times as
 // many threads: the fan-out's B = 1,024 ... 128 candidates' 10,240 ...
 // 1,280 threads filled at most ~2 warps an SM. The threads of a group read
-// different terms at once, so the term table is copied to shared memory
-// (the constant bank serializes different addresses in a warp), each term
+// different terms at once, so the terms' powers and frequencies are
+// copied to shared memory (the constant bank serializes different
+// addresses in a warp), each term
 // decoded once a block into one word (sls_term_desc: the monomial's
 // components, read without the powers where every power is 1). The lane's
 // carry rows are loaded a step ahead. Thread 0 of a group writes each
@@ -68,33 +69,60 @@
 // 0.0095-0.0099 at B=512, 256 and 128; 0.591 ms at B=4096, H=200 (G=4),
 // 10x the byte bound. The one-thread kernel took 0.0329, 0.0297, 0.0294,
 // 0.0294 and 0.953 ms there.
+//
+// Other shapes (the pendulum's (2, 1), the halfcheetah's (18, 6)): the
+// same group, butterfly and trees; where a state row is not one float4
+// (ds != 4) or there are several controls, a step's carry rows are read
+// at the step instead of a step ahead, thread 0 of a group stores the
+// state row and the controls element by element, and control j's
+// feedback sum is the fold above over the row K_t[j] (the second product
+// rounded, the first fused, one FMA a further component). The (4, 1)
+// instance is the code above, unchanged. The per-lane-coefficient
+// instances are built at (4, 1) only.
 #include "features.cuh"
 
 #define AMPC_MAX_L 10
 // Most threads a block the entry takes (the wrapper launches SINDY_THREADS).
 #define AMPC_SLS_MAX_THREADS 256
 
+// The step sizes and each control's bounds.
 struct SindyLS {
   int L;
   float alphas[AMPC_MAX_L];
-  float umin, umax;
+  float umin[AMPC_MAX_D], umax[AMPC_MAX_D];
 };
 
-// The term table into shared memory, word by word (sizeof(FeatTable) is a
-// multiple of 4).
+// The part of the term table that a term's value reads into shared
+// memory, word by word: the powers (rows of exps) and the trig frequency
+// of the n active terms. The kinds and trig components are decoded into
+// the block's term words (sls_term_desc, from the kernel parameter) and
+// the Jacobian column lists are not read, so they stay behind: the whole
+// table is 3,488 bytes at AMPC_MAX_D = 24, the part read 28 bytes a term.
 __device__ __forceinline__ void sls_load_table(FeatTable* dst,
                                                const FeatTable& src) {
-  const int* s = reinterpret_cast<const int*>(&src);
-  int* d = reinterpret_cast<int*>(dst);
-  for (int i = threadIdx.x; i < (int)(sizeof(FeatTable) / 4); i += blockDim.x)
-    d[i] = s[i];
+  static_assert(AMPC_MAX_D % 4 == 0, "a row of exps is whole words");
+  constexpr int ROW = AMPC_MAX_D / 4;  // words a row of exps
+  const int n = src.n;
+  const int* se = reinterpret_cast<const int*>(&src.exps[0][0]);
+  int* de = reinterpret_cast<int*>(&dst->exps[0][0]);
+  for (int i = threadIdx.x; i < n * ROW; i += blockDim.x) de[i] = se[i];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst->freq[i] = src.freq[i];
 }
 
-// A term in one word, decoded once a block: bits 0-7 the components with
-// a power (mask), bit 8 set if every power is 1, bits 9-10 the kind, bits
-// 11-13 the trig component.
+// A term in one word, decoded once a block: bits 0..M-1 the components
+// with a power (mask), bit M set if every power is 1, bits M+1..M+2 the
+// kind, the bits from M+3 the trig component; M = 8 up to 8 inputs (the
+// trig component in 3 bits), else 24 (in 5).
+template <int D>
+struct SlsDesc {
+  static_assert(D <= 24, "a term's mask in 24 bits");
+  static constexpr int M = D <= 8 ? 8 : 24;
+  static constexpr unsigned COMP = D <= 8 ? 7u : 31u;
+};
+
 template <int D, class TT>
 __device__ __forceinline__ unsigned sls_term_desc(const TT& T, int k) {
+  constexpr int M = SlsDesc<D>::M;
   unsigned mask = 0, ones = 1;
 #pragma unroll
   for (int c = 0; c < D; ++c) {
@@ -102,7 +130,7 @@ __device__ __forceinline__ unsigned sls_term_desc(const TT& T, int k) {
     if (e > 0) mask |= 1u << c;
     if (e > 1) ones = 0;
   }
-  return mask | ones << 8 | (unsigned)T.kind[k] << 9 | (unsigned)T.comp[k] << 11;
+  return mask | ones << M | (unsigned)T.kind[k] << (M + 1) | (unsigned)T.comp[k] << (M + 3);
 }
 
 // ampc_term_value from the decoded word: where every power is 1 the
@@ -113,9 +141,10 @@ template <int D, class TT>
 __device__ __forceinline__ float sls_term_value(const TT& T, int k,
                                                 unsigned desc,
                                                 const float (&z)[D]) {
+  constexpr int M = SlsDesc<D>::M;
   float mono = 1.f;
   bool hm = false;
-  if (desc & 256u) {
+  if ((desc >> M) & 1u) {
 #pragma unroll
     for (int c = 0; c < D; ++c) {
       if ((desc >> c) & 1u) {
@@ -126,9 +155,9 @@ __device__ __forceinline__ float sls_term_value(const TT& T, int k,
   } else {
     hm = ampc_monomial<D>(T, k, z, -1, mono);
   }
-  const int kind = (desc >> 9) & 3u;
+  const int kind = (desc >> (M + 1)) & 3u;
   if (kind == 0) return mono;
-  const float a = T.freq[k] * ampc_select<D>(z, (int)((desc >> 11) & 7u));
+  const float a = T.freq[k] * ampc_select<D>(z, (int)((desc >> (M + 3)) & SlsDesc<D>::COMP));
   const float tv = (kind == 1) ? sinf(a) : cosf(a);
   return hm ? mono * tv : tv;
 }
@@ -138,7 +167,28 @@ __device__ __forceinline__ float sls_term_value(const TT& T, int k,
 // (ds, n, B) plane, lane b's column read by its candidates' threads; the
 // table in device memory and its decoded words in dynamic shared memory,
 // n words; trees of S slots).
-template <int DS, int G, class TA = FeatTable>
+// Control j of a step at the other shapes: clip(alpha k_j + ubar_j +
+// K_j (x - xbar)), the feedback fold with the roundings of the (4, 1)
+// kernel's (the second product rounded, the first fused into their sum,
+// one FMA a further component; at ds = 1 the product alone), alpha k +
+// ubar fused, then one add.
+template <int DS>
+__device__ __forceinline__ float sls_control(const float (&x)[DS], const float* xbar,
+                                             const float* K, float kk, float ubar,
+                                             float alpha, float lo, float hi) {
+  float fb;
+  if constexpr (DS == 1) {
+    fb = __fmul_rn(K[0], __fsub_rn(x[0], xbar[0]));
+  } else {
+    fb = __fmaf_rn(K[0], __fsub_rn(x[0], xbar[0]), __fmul_rn(K[1], __fsub_rn(x[1], xbar[1])));
+#pragma unroll
+    for (int i = 2; i < DS; ++i) fb = __fmaf_rn(K[i], __fsub_rn(x[i], xbar[i]), fb);
+  }
+  const float u = __fadd_rn(__fmaf_rn(alpha, kk, ubar), fb);
+  return u < lo ? lo : (u > hi ? hi : u);
+}
+
+template <int DS, int DC, int G, class TA = FeatTable>
 __global__ void sindy_ls_kernel(
     const __grid_constant__ TA T,
     const __grid_constant__ SindyLS P, const float* __restrict__ coeffs,
@@ -146,9 +196,11 @@ __global__ void sindy_ls_kernel(
     const float* __restrict__ us, const float* __restrict__ Ks,
     const float* __restrict__ ks, float* __restrict__ out_xs,
     float* __restrict__ out_us, int H, int B) {
-  constexpr int D = DS + 1;
+  constexpr int D = DS + DC;
+  // The (4, 1) instance: a state row and a gain row are one float4 each,
+  // the carry rows read a step ahead.
+  constexpr bool ROW4 = DS == 4 && DC == 1;
   static_assert(G >= 2 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two");
-  static_assert(DS == 4, "a state row is one float4 store");
   constexpr bool LANE = AmpcTableTraits<TA>::lane;
   constexpr int S = AmpcTableTraits<TA>::slots;
   __shared__ FeatTable sT;
@@ -192,36 +244,58 @@ __global__ void sindy_ls_kernel(
   float x[DS];
 #pragma unroll
   for (int i = 0; i < DS; ++i) x[i] = x0[(long long)b * DS + i];
-  float4* oxs = reinterpret_cast<float4*>(out_xs + c * (H + 1) * DS);
-  float* ous = out_us + c * H;
-  if (store) oxs[0] = make_float4(x[0], x[1], x[2], x[3]);
+  float* oxf = out_xs + c * (H + 1) * DS;
+  float4* oxs = reinterpret_cast<float4*>(oxf);
+  float* ous = out_us + c * H * DC;
+  if (store) {
+    if constexpr (ROW4) {
+      oxs[0] = make_float4(x[0], x[1], x[2], x[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < DS; ++i) oxf[i] = x[i];
+    }
+  }
   // The lane's carry rows of step t (gains, nominal state, nominal and
   // feedforward control) are loaded a step ahead, off the chain.
   const float4* Krow = reinterpret_cast<const float4*>(Ks + (long long)b * H * DS);
   const float4* xrow = reinterpret_cast<const float4*>(xs + (long long)b * (H + 1) * DS);
   const float* ksb = ks + (long long)b * H;
   const float* usb = us + (long long)b * H;
-  float4 Kn = Krow[0], xbn = xrow[0];
-  float ksn = ksb[0], usn = usb[0];
+  float4 Kn, xbn;
+  float ksn, usn;
+  if constexpr (ROW4) {
+    Kn = Krow[0], xbn = xrow[0];
+    ksn = ksb[0], usn = usb[0];
+  }
   for (int t = 0; t < H; ++t) {
-    const float4 Kc = Kn, xbc = xbn;
-    const float ksc = ksn, usc = usn;
-    if (t + 1 < H) {
-      Kn = Krow[t + 1];
-      xbn = xrow[t + 1];
-      ksn = ksb[t + 1];
-      usn = usb[t + 1];
-    }
-    float fb = __fmaf_rn(Kc.x, __fsub_rn(x[0], xbc.x),
-                         __fmul_rn(Kc.y, __fsub_rn(x[1], xbc.y)));
-    fb = __fmaf_rn(Kc.z, __fsub_rn(x[2], xbc.z), fb);
-    fb = __fmaf_rn(Kc.w, __fsub_rn(x[3], xbc.w), fb);
-    float u = __fadd_rn(__fmaf_rn(alpha, ksc, usc), fb);
-    u = u < P.umin ? P.umin : (u > P.umax ? P.umax : u);
     float z[D];
 #pragma unroll
     for (int i = 0; i < DS; ++i) z[i] = x[i];
-    z[DS] = u;
+    if constexpr (ROW4) {
+      const float4 Kc = Kn, xbc = xbn;
+      const float ksc = ksn, usc = usn;
+      if (t + 1 < H) {
+        Kn = Krow[t + 1];
+        xbn = xrow[t + 1];
+        ksn = ksb[t + 1];
+        usn = usb[t + 1];
+      }
+      float fb = __fmaf_rn(Kc.x, __fsub_rn(x[0], xbc.x),
+                           __fmul_rn(Kc.y, __fsub_rn(x[1], xbc.y)));
+      fb = __fmaf_rn(Kc.z, __fsub_rn(x[2], xbc.z), fb);
+      fb = __fmaf_rn(Kc.w, __fsub_rn(x[3], xbc.w), fb);
+      float u = __fadd_rn(__fmaf_rn(alpha, ksc, usc), fb);
+      u = u < P.umin[0] ? P.umin[0] : (u > P.umax[0] ? P.umax[0] : u);
+      z[DS] = u;
+    } else {
+      // The lane's rows of step t: xbar (DS), K (DC, DS), k and ubar (DC).
+      const long long bt = (long long)b * H + t;
+      const float* xbar = xs + ((long long)b * (H + 1) + t) * DS;
+#pragma unroll
+      for (int j = 0; j < DC; ++j)
+        z[DS + j] = sls_control<DS>(x, xbar, Ks + (bt * DC + j) * DS, ks[bt * DC + j],
+                                    us[bt * DC + j], alpha, P.umin[j], P.umax[j]);
+    }
 
     TreeAccT<S> acc[DS];  // over complete rounds (blocks of G terms)
     float sum[DS];
@@ -256,13 +330,19 @@ __global__ void sindy_ls_kernel(
       }
     }
     if (store) {
-      oxs[t + 1] = make_float4(x[0], x[1], x[2], x[3]);
-      ous[t] = u;
+      if constexpr (ROW4) {
+        oxs[t + 1] = make_float4(x[0], x[1], x[2], x[3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < DS; ++i) oxf[(t + 1) * DS + i] = x[i];
+      }
+#pragma unroll
+      for (int j = 0; j < DC; ++j) ous[t * DC + j] = z[DS + j];
     }
   }
 }
 
-template <int G, class TA>
+template <int DS, int DC, int G, class TA>
 static void sls_launch(const TA& T, const SindyLS* P, const float* coeffs,
                        const float* x0, const float* xs, const float* us,
                        const float* Ks, const float* ks, float* out_xs,
@@ -271,7 +351,7 @@ static void sls_launch(const TA& T, const SindyLS* P, const float* coeffs,
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
   const size_t smem =
       AmpcTableTraits<TA>::lane ? (size_t)T.n * sizeof(unsigned) : 0;
-  sindy_ls_kernel<4, G, TA><<<blocks, threads, smem, s>>>(
+  sindy_ls_kernel<DS, DC, G, TA><<<blocks, threads, smem, s>>>(
       T, *P, coeffs, x0, xs, us, Ks, ks, out_xs, out_us, H, B);
 }
 
@@ -279,13 +359,13 @@ static int sls_check(int n, int max_n, const SindyLS* P, int ds, int H, int B,
                      int threads, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ds != 4 || n < 1 || n > max_n || P->L < 1 || P->L > AMPC_MAX_L || B < 1 ||
+  if (n < 1 || n > max_n || P->L < 1 || P->L > AMPC_MAX_L || B < 1 ||
       H < 1 || threads < 32 || threads > AMPC_SLS_MAX_THREADS || threads % 32)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-template <class TA>
+template <int DS, int DC, class TA>
 static int sls_group(const TA& T, const SindyLS* P, const float* coeffs,
                      const float* x0, const float* xs, const float* us,
                      const float* Ks, const float* ks, float* out_xs,
@@ -293,18 +373,28 @@ static int sls_group(const TA& T, const SindyLS* P, const float* coeffs,
                      cudaStream_t s) {
   switch (group) {
     case 4:
-      sls_launch<4>(T, P, coeffs, x0, xs, us, Ks, ks, out_xs, out_us, H, B,
-                    threads, s);
+      sls_launch<DS, DC, 4>(T, P, coeffs, x0, xs, us, Ks, ks, out_xs, out_us, H, B,
+                            threads, s);
       break;
     case 8:
-      sls_launch<8>(T, P, coeffs, x0, xs, us, Ks, ks, out_xs, out_us, H, B,
-                    threads, s);
+      sls_launch<DS, DC, 8>(T, P, coeffs, x0, xs, us, Ks, ks, out_xs, out_us, H, B,
+                            threads, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
+
+// The (ds, dc) instances of this object: the main library's (4, 1) (and
+// its per-lane-coefficient instances), or the one shape of a library
+// built at first use (-DAMPC_DS, -DAMPC_DC; ops/_build.py:
+// shape_library). Another shape is refused.
+#ifndef AMPC_DS
+#define AMPC_DS 4
+#define AMPC_DC 1
+#define AMPC_SLS_LANE_INSTANCES
+#endif
 
 // A grid of ceil(B L G / threads) blocks of `threads` threads (a multiple
 // of 32, at most AMPC_SLS_MAX_THREADS); thread tid of block bx is thread
@@ -313,19 +403,20 @@ static int sls_group(const TA& T, const SindyLS* P, const float* coeffs,
 extern "C" int ampc_sindy_line_search(
     const FeatTable* T, const SindyLS* P, const float* coeffs,
     const float* x0, const float* xs, const float* us, const float* Ks,
-    const float* ks, float* out_xs, float* out_us, int ds, int H, int B,
+    const float* ks, float* out_xs, float* out_us, int ds, int dc, int H, int B,
     int group, int threads, int device, void* stream) {
   const int rc = sls_check(T->n, AMPC_MAX_F, P, ds, H, B, threads, device);
   if (rc) return rc;
-  if (T->d != ds + 1) return (int)cudaErrorInvalidValue;
-  return sls_group(*T, P, coeffs, x0, xs, us, Ks, ks, out_xs, out_us, H, B,
-                   group, threads, (cudaStream_t)stream);
+  if (ds != AMPC_DS || dc != AMPC_DC || T->d != ds + dc) return (int)cudaErrorInvalidValue;
+  return sls_group<AMPC_DS, AMPC_DC>(*T, P, coeffs, x0, xs, us, Ks, ks, out_xs, out_us, H,
+                                     B, group, threads, (cudaStream_t)stream);
 }
 
+#ifdef AMPC_SLS_LANE_INSTANCES
 // The same launch with per-lane coefficients, a lanes-last (ds, n, B)
 // plane, and the device table Tdev of n terms (up to AMPC_MAX_F_BIG):
 // trees of AMPC_TREE_SLOTS slots up to AMPC_MAX_F terms, else
-// AMPC_TREE_SLOTS_BIG.
+// AMPC_TREE_SLOTS_BIG. (4, 1) only.
 extern "C" int ampc_sindy_line_search_lane(
     const FeatTableBig* Tdev, int n, const SindyLS* P, const float* coeffs,
     const float* x0, const float* xs, const float* us, const float* Ks,
@@ -333,10 +424,12 @@ extern "C" int ampc_sindy_line_search_lane(
     int group, int threads, int device, void* stream) {
   const int rc = sls_check(n, AMPC_MAX_F_BIG, P, ds, H, B, threads, device);
   if (rc) return rc;
+  if (ds != 4) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= AMPC_MAX_F)
-    return sls_group(FeatTableRef<AMPC_TREE_SLOTS>{Tdev, n}, P, coeffs, x0, xs, us,
-                     Ks, ks, out_xs, out_us, H, B, group, threads, s);
-  return sls_group(FeatTableRef<AMPC_TREE_SLOTS_BIG>{Tdev, n}, P, coeffs, x0, xs,
-                   us, Ks, ks, out_xs, out_us, H, B, group, threads, s);
+    return sls_group<4, 1>(FeatTableRef<AMPC_TREE_SLOTS>{Tdev, n}, P, coeffs, x0, xs, us,
+                           Ks, ks, out_xs, out_us, H, B, group, threads, s);
+  return sls_group<4, 1>(FeatTableRef<AMPC_TREE_SLOTS_BIG>{Tdev, n}, P, coeffs, x0, xs,
+                         us, Ks, ks, out_xs, out_us, H, B, group, threads, s);
 }
+#endif

@@ -11,7 +11,17 @@ build takes seconds). Each source is compiled to an object by its own
 
 The library is built at first use, into ``autompc_torch/_build/`` under
 a name keyed by the hash of the sources and flags, so an edited source
-rebuilds and an unchanged one loads. No fast-math flag: the line
+rebuilds and an unchanged one loads. It holds the shape-templated
+kernels at the (ds, dc) of ``KERNEL_SHAPES``. A feature-path kernel
+asked for at another (ds, dc) within the stated limits (``check_shape``)
+is compiled then from the same source, with the shape on the command
+line, into a library of its own keyed by the same hash and the shape
+(``shape_library``):
+
+    nvcc <flags> -DAMPC_DS=<ds> -DAMPC_DC=<dc> -shared
+         -o _build/lib<source>_<ds>x<dc>_<hash>.so csrc/<source>.cu
+
+so the main library's build and bits do not change. No fast-math flag: the line
 search's acceptance test is knife-edge (ROADMAP §C), so the kernels keep
 IEEE division and the accurate ``sinf``/``cosf``. The compiler's
 ``-Xptxas -v`` report (registers, spills) lands beside the library in a
@@ -47,7 +57,9 @@ NVCC_FLAGS = (
 # ls_step.cuh, linesearch_fused.cu, sindy_linesearch.cu,
 # mlp_linesearch.cu); the wrappers raise before a call would exceed them.
 MAX_F = 64
-MAX_D = 8
+# Inputs ds + dc of a feature model the kernels take (features.cuh:
+# AMPC_MAX_D): the halfcheetah's (18, 6) fits.
+MAX_D = 24
 # Terms of the per-lane-coefficient instances' device-resident table
 # (features.cuh: AMPC_MAX_F_BIG): the whole library, which no feature
 # mask shrinks when every lane carries its own model.
@@ -65,10 +77,24 @@ LS_MAX_THREADS = 256
 MLP_MAX_THREADS = 320
 MLP_TILE = 4
 MAX_SMEM_BYTES = 227 * 1024
-# K2's ring of time steps in shared memory and its largest block
-# (riccati_quad.cu: AMPC_BQ_RING, AMPC_BQ_MAX_LANES).
+# K2's ring of time steps in shared memory and its smallest and largest
+# blocks (riccati_quad.cu: AMPC_BQ_RING, AMPC_BQ_MAX_LANES).
 BQ_RING = 8
+BQ_MIN_LANES = 32
 BQ_MAX_LANES = 128
+
+
+def bq_ring_bytes(ds):
+    """Shared memory K2's ring takes a lane at ds (riccati_quad.cu:
+    bq_ring_bytes_per_lane): BQ_RING steps of the Jacobian rows, a 4-byte
+    word an element in either storage type, the trajectory rows and the
+    old gains."""
+    return BQ_RING * (ds * (ds + 1) + 2 * (ds + 1)) * 4
+
+
+# The largest ds whose smallest K2 block holds its ring: 13.
+BQ_MAX_DS = max(ds for ds in range(1, MAX_D)
+                if BQ_MIN_LANES * bq_ring_bytes(ds) <= MAX_SMEM_BYTES)
 # K6's ring of time steps and its largest block in threads
 # (riccati_quad_bm.cu: AMPC_BQBM_RING, AMPC_BQBM_MAX_THREADS).
 BQBM_RING = 12
@@ -80,18 +106,36 @@ H100_SMS = 132
 # (and their options here: the split line search, the reshape-IO
 # backward) take a batch only when it is a multiple of WIDE_B.
 WIDE_B = 1024
-# The (ds, dc) pairs each shape-templated kernel is instantiated for;
-# the MLP line search takes its widths at run time, up to the limits
-# above.
+
+
+class Shapes(tuple):
+    """The (ds, dc) pairs a source's shape-templated kernels are prebuilt
+    for in the main library, and the other shapes it is built for at first
+    use: ds <= ``max_ds`` with ds + dc <= MAX_D (``max_ds`` None: none),
+    dc = 1 only where ``dc1`` (the diagonal-cost recursion and line
+    search, whose QuadDiag / LSParams hold one R). The per-lane-
+    coefficient instances stay at the prebuilt pairs."""
+
+    def __new__(cls, built, max_ds=None, dc1=False):
+        self = super().__new__(cls, built)
+        self.max_ds, self.dc1 = max_ds, dc1
+        return self
+
+
+# Each source's shapes; the MLP line search takes its widths at run time,
+# up to the limits above. A feature-path source takes any ds up to MAX_D -
+# 1 but K2, whose ring sets BQ_MAX_DS (its shared memory fits at every ds
+# up to it: tests/test_torch_shapes.py); K3's and K6's blocks fit at every
+# ds up to MAX_D - 1.
 KERNEL_SHAPES = {
-    "relin": ((4, 1),),
-    "riccati_quad": ((4, 1),),
-    "riccati_quad_bm": ((4, 1), (12, 1)),
-    "linesearch_fused": ((4, 1),),
-    "ls_obj_wide": ((4, 1),),
-    "ls_reroll_wide": ((4, 1),),
-    "sindy_linesearch": ((4, 1),),
-    "riccati_general": ((18, 6), (4, 1)),
+    "relin": Shapes(((4, 1),), MAX_D - 1),
+    "riccati_quad": Shapes(((4, 1),), BQ_MAX_DS, dc1=True),
+    "riccati_quad_bm": Shapes(((4, 1), (12, 1)), MAX_D - 1, dc1=True),
+    "linesearch_fused": Shapes(((4, 1),), MAX_D - 1, dc1=True),
+    "ls_obj_wide": Shapes(((4, 1),)),
+    "ls_reroll_wide": Shapes(((4, 1),)),
+    "sindy_linesearch": Shapes(((4, 1),), MAX_D - 1),
+    "riccati_general": Shapes(((18, 6), (4, 1))),
 }
 
 
@@ -162,11 +206,14 @@ class RegParams(ctypes.Structure):
 
 
 class SindyLS(ctypes.Structure):
+    """K7's constants (sindy_linesearch.cu: SindyLS): the step sizes and
+    the control bounds, one pair a control (up to MAX_D)."""
+
     _fields_ = [
         ("L", ctypes.c_int),
         ("alphas", ctypes.c_float * MAX_L),
-        ("umin", ctypes.c_float),
-        ("umax", ctypes.c_float),
+        ("umin", ctypes.c_float * MAX_D),
+        ("umax", ctypes.c_float * MAX_D),
     ]
 
 
@@ -191,7 +238,7 @@ _SIGNATURES = {
         [ctypes.POINTER(FeatTable), _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     ),
     "ampc_relin_jacobians_bm": (
-        [ctypes.POINTER(FeatTable), _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        [ctypes.POINTER(FeatTable), _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     ),
     "ampc_relin_jacobians_lane": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ampc_relin_jacobians_bm_lane": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -228,7 +275,7 @@ _SIGNATURES = {
     ),
     "ampc_sindy_line_search": (
         [ctypes.POINTER(FeatTable), ctypes.POINTER(SindyLS)]
-        + [_P] * 8 + [_I] * 6 + [_P]
+        + [_P] * 8 + [_I] * 7 + [_P]
     ),
     "ampc_sindy_line_search_lane": (
         [_P, _I, ctypes.POINTER(SindyLS)] + [_P] * 8 + [_I] * 6 + [_P]
@@ -318,18 +365,128 @@ def build_log() -> str:
     return p.read_text() if p.exists() else ""
 
 
+def _bind(path, every=True) -> ctypes.CDLL:
+    """Load the library at ``path`` and type its C entries (``every``:
+    all of ``_SIGNATURES``; else those the library has)."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        if not every and not hasattr(lib, name):
+            continue
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if its sources changed."""
     path = library_path()
     if not path.exists():
         build()
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return _bind(path)
+
+
+def check_shape(source, ds, dc):
+    """Raise ``ValueError`` by name unless the kernels of ``source`` take
+    (ds, dc) (``KERNEL_SHAPES[source]``): a prebuilt pair, or ds + dc <=
+    MAX_D, ds <= its ``max_ds`` and, for the diagonal-cost kernels, dc =
+    1. ``kernel_library`` calls it before any build or launch."""
+    shapes = KERNEL_SHAPES[source]
+    if (ds, dc) in shapes:
+        return
+    if shapes.max_ds is None:
+        raise ValueError(f"{source}: the kernel is built for (ds, dc) in {tuple(shapes)}, "
+                         f"got {(ds, dc)}")
+    if ds < 1 or dc < 1 or ds + dc > MAX_D:
+        raise ValueError(f"{source}: the kernels take ds + dc <= MAX_D = {MAX_D}, got "
+                         f"(ds, dc) = {(ds, dc)}")
+    if ds > shapes.max_ds:
+        raise ValueError(f"{source}: the kernels take ds <= {shapes.max_ds}, got "
+                         f"(ds, dc) = {(ds, dc)}")
+    if shapes.dc1 and dc != 1:
+        raise ValueError(f"{source}: the diagonal-cost kernels take dc = 1, got "
+                         f"(ds, dc) = {(ds, dc)}")
+
+
+def check_obsdim(source, obsdim):
+    """Raise ``ValueError`` by name past the MAX_OBS observations the
+    diagonal-cost kernels' constants hold (QuadDiag, LSParams)."""
+    if obsdim > MAX_OBS:
+        raise ValueError(f"{source}: the diagonal-cost kernels take obsdim <= MAX_OBS = "
+                         f"{MAX_OBS}, got {obsdim}")
+
+
+def shape_library_path(source, ds, dc) -> Path:
+    return BUILD_DIR / f"lib{source}_{ds}x{dc}_{source_digest()}.so"
+
+
+def build_shapes(shapes, main=False):
+    """Compile the libraries of ``shapes``, (source, ds, dc) triples, that
+    are not built yet: one ``nvcc`` a shape, all started together, each
+    its source alone with ``-DAMPC_DS``/``-DAMPC_DC``, compiled and
+    linked in one call (atomic rename into place). ``main``: build (or
+    load) the main library meanwhile, its ``nvcc`` processes running
+    beside these. The ``-Xptxas -v`` report lands beside each library in
+    a ``.log`` file."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cc, jobs = nvcc(), []
+    for source, ds, dc in dict.fromkeys(shapes):
+        check_shape(source, ds, dc)
+        out = shape_library_path(source, ds, dc)
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [cc, *NVCC_FLAGS, f"-DAMPC_DS={ds}", f"-DAMPC_DC={dc}", "-shared", "-o", tmp,
+               str(CSRC_DIR / f"{source}.cu")]
+        jobs.append((out, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    try:
+        if main:
+            library()
+    finally:
+        failed = []
+        for out, tmp, cmd, proc in jobs:
+            stdout, stderr = proc.communicate()
+            out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + stdout + stderr)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"{cmd[-1]} at {out.stem} ({proc.returncode}):\n{stderr[-4000:]}")
+            else:
+                os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
+@functools.lru_cache(maxsize=None)
+def shape_library(source, ds, dc) -> ctypes.CDLL:
+    """The library of ``source``'s kernels at (ds, dc), built first if
+    its sources changed."""
+    path = shape_library_path(source, ds, dc)
+    if not path.exists():
+        build_shapes([(source, ds, dc)])
+    return _bind(path, every=False)
+
+
+def shape_build_log(source, ds, dc) -> str:
+    p = shape_library_path(source, ds, dc).with_suffix(".log")
+    return p.read_text() if p.exists() else ""
+
+
+def kernel_library(source, ds, dc, lane=False) -> ctypes.CDLL:
+    """The library that holds ``source``'s kernels at (ds, dc): the main
+    library at a prebuilt shape, else the shape's own, built at first
+    use. ``lane``: per-lane coefficients, whose instances are prebuilt
+    only. Raises ``ValueError`` by name past the limits, before any
+    launch."""
+    check_shape(source, ds, dc)
+    if (ds, dc) in KERNEL_SHAPES[source]:
+        return library()
+    if lane:
+        raise ValueError(f"{source}: per-lane coefficients are built for (ds, dc) in "
+                         f"{KERNEL_SHAPES[source]}, got {(ds, dc)}")
+    return shape_library(source, ds, dc)
 
 
 def _fill_table(tab, terms):

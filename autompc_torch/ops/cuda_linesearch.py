@@ -35,7 +35,10 @@ roll to the bit. K8's candidate pass is K3's (``csrc/ls_step.cuh``).
 carry, which rolls out every step size and returns all L trajectories;
 the objective and the choice are the caller's. A group of threads
 (``sindy_geometry``: 8, or 4 from B=2048) rolls each candidate, the
-feature terms summed across the group by shuffles.
+feature terms summed across the group by shuffles. K7 takes any (ds, dc)
+with ds + dc <= ``_build.MAX_D``, each control its own bounds; K3 any ds
+at dc = 1 (obsdim <= ``_build.MAX_OBS``). The kernel library holds
+(4, 1); another shape is compiled at first use (``_build.kernel_library``).
 
 K3 and K7 also take one model a lane (``coeffs.ndim == 3`` of the TPU
 entries, the joint fan-out's per-lane models) as a lanes-last (ds, n, B)
@@ -330,13 +333,10 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
         )
     H, ds, B, obsdim, lane = _shapes(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
                                      qd, rd, fd, goal, act, old_jac)
-    built = _build.KERNEL_SHAPES["linesearch_fused"]
-    if (ds, 1) not in built:
-        raise ValueError(
-            f"line-search kernel is built for (ds, dc) in {built}, got {(ds, 1)}"
-        )
     lane_coef = coeffs.ndim == 3
+    _build.check_obsdim("linesearch_fused", obsdim)
     _build.check_table_size(len(terms), lane_coef)
+    lib = _build.kernel_library("linesearch_fused", ds, 1, lane_coef)
     if lane_coef and not (lane and old_jac.dtype == torch.float32):
         raise ValueError(
             "fused_line_search with per-lane coefficients takes per-lane cost "
@@ -369,7 +369,6 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
             p(lin_red), p(quad_red), p(ks_small), p(act), p(old_jac), p(stash),
             p(out_xs), p(out_us), p(out_obj), p(succ), p(fail), p(out_jac), p(du2))
     tail = (ds, H, B, geom["lanes_per_block"], dev.index or 0, _build.stream_of(xsT))
-    lib = _build.library()
     if lane_coef:
         table = _build.feat_table_dev(tuple(terms), dev)
         rc = lib.ampc_fused_line_search_lane(p(table), len(terms), ctypes.byref(P),
@@ -411,8 +410,9 @@ def _shapes_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, qd, rd, fd, goal, reg)
     if len(terms[0].exps) != ds + 1:
         raise ValueError(f"terms take {len(terms[0].exps)} inputs, expected ds + 1 = {ds + 1}")
     obsdim = len(goal)
-    if not 1 <= obsdim <= min(ds, _build.MAX_OBS):
+    if not 1 <= obsdim <= ds:
         raise ValueError(f"goal must have length obsdim <= ds = {ds}")
+    _build.check_obsdim("linesearch_fused", obsdim)
     if not _build.lane_cost_planes(qd, rd, fd, obsdim, B):
         raise ValueError("the batch-major entry takes per-lane cost planes qd/fd "
                          "(obsdim, B), rd (1, B)")
@@ -490,11 +490,8 @@ def fused_line_search_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax,
         return fused_line_search_bm_plain(
             terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax, qd, rd, fd, goal, dt,
             obj0, lin_red, quad_red, ks_small, reg, ls_cost_threshold)
-    built = _build.KERNEL_SHAPES["linesearch_fused"]
-    if (ds, 1) not in built:
-        raise ValueError(
-            f"line-search kernel is built for (ds, dc) in {built}, got {(ds, 1)}")
     _build.check_table_size(len(terms), lane_coef)
+    lib = _build.kernel_library("linesearch_fused", ds, 1, lane_coef)
     dev, f32, b8 = xs.device, torch.float32, torch.bool
     L = len(alphas)
     for name, t, shape, dt_ in (
@@ -527,7 +524,6 @@ def fused_line_search_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax,
             p(quad_red), p(ks_small), regw, p(stash), p(out_xs), p(out_us), p(out_obj),
             p(succ), p(fail), p(Jx), p(Ju), p(du2), ds, H, B, geom["lanes_per_block"],
             dev.index or 0, _build.stream_of(xs))
-    lib = _build.library()
     if lane_coef:
         table = _build.feat_table_dev(tuple(terms), dev)
         rc = lib.ampc_fused_line_search_bm_lane(p(table), len(terms), ctypes.byref(P), *args)
@@ -592,18 +588,26 @@ SINDY_GROUPS = (4, 8)
 SINDY_THREADS = 128
 
 
-def sindy_geometry(B, L):
+def sindy_smem(ds):
+    """Bytes of static shared memory of a K7 block with shared
+    coefficients at ds (sindy_linesearch.cu: the table, the (ds, n)
+    plane and the decoded term words)."""
+    return ctypes.sizeof(_build.FeatTable) + 4 * (ds + 1) * _build.MAX_F
+
+
+def sindy_geometry(B, L, ds=4):
     """K7's launch: ``group`` threads a candidate (lane b, step size l),
     ``threads`` a block, ``blocks`` of them: thread ``tid`` of block
     ``bx`` is thread ``g = tid % group`` of candidate ``c = (bx * threads
-    + tid) // group``, ``b = c // L``, ``l = c % L``. Every group computes
-    the same bits."""
+    + tid) // group``, ``b = c // L``, ``l = c % L``; ``smem`` bytes of
+    static shared memory a block at ds. Every group computes the same
+    bits, at every (ds, dc)."""
     if not 1 <= L <= _build.MAX_L:
         raise ValueError(f"sindy_line_search: 1..{_build.MAX_L} step sizes supported, "
                          f"got {L}")
     group = 8 if B < SINDY_G4_FROM else 4
     return dict(group=group, threads=SINDY_THREADS,
-                blocks=-(-(B * L * group) // SINDY_THREADS))
+                blocks=-(-(B * L * group) // SINDY_THREADS), smem=sindy_smem(ds))
 
 
 def _ls_params(alphas, umin, umax, qd, rd, fd, goal, dt, thresh, lane):
@@ -905,12 +909,9 @@ def sindy_line_search(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax):
         return sindy_line_search_plain(terms, x0, xs, us, Ks, ks, coeffs, alphas,
                                        umin, umax)
     B, H, ds, dc = _shapes_sindy(terms, x0, xs, us, Ks, ks, coeffs, alphas)
-    built = _build.KERNEL_SHAPES["sindy_linesearch"]
-    if (ds, dc) not in built:
-        raise ValueError(
-            f"rollout line-search kernel is built for (ds, dc) in {built}, "
-            f"got {(ds, dc)}"
-        )
+    lane = coeffs.ndim == 3
+    _build.check_table_size(len(terms), lane)
+    lib = _build.kernel_library("sindy_linesearch", ds, dc, lane)
     dev, f32 = xs.device, torch.float32
     for name, t, shape in (
         ("x0", x0, (B, ds)), ("xs", xs, (B, H + 1, ds)), ("us", us, (B, H, dc)),
@@ -918,32 +919,31 @@ def sindy_line_search(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax):
         ("coeffs", coeffs, coeffs.shape),
     ):
         _build.check_cuda(name, t, shape, f32, dev)
-    for name, t in (("xs", xs), ("Ks", Ks)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: the kernel reads 16-byte rows; its "
-                             "storage must start on a 16-byte boundary")
-    _build.check_table_size(len(terms), coeffs.ndim == 3)
+    if (ds, dc) == (4, 1):
+        for name, t in (("xs", xs), ("Ks", Ks)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: the kernel reads 16-byte rows; its "
+                                 "storage must start on a 16-byte boundary")
     L = len(alphas)
-    geo = sindy_geometry(B, L)
+    geo = sindy_geometry(B, L, ds)
     P = _build.SindyLS()
     P.L = L
     for l, a in enumerate(alphas):
         P.alphas[l] = float(a)
-    P.umin, P.umax = _bounds(umin, dc)[0], _bounds(umax, dc)[0]
+    for j, (lo, hi) in enumerate(zip(_bounds(umin, dc), _bounds(umax, dc))):
+        P.umin[j], P.umax[j] = lo, hi
     ls_xs = torch.empty((B, L, H + 1, ds), dtype=f32, device=dev)
     ls_us = torch.empty((B, L, H, dc), dtype=f32, device=dev)
     p = _build.ptr
-    lane = coeffs.ndim == 3
-    args = (ctypes.byref(P), p(coeffs), p(x0), p(xs), p(us), p(Ks), p(ks), p(ls_xs),
-            p(ls_us), ds, H, B, geo["group"], geo["threads"], dev.index or 0,
-            _build.stream_of(xs))
-    lib = _build.library()
+    ptrs = (ctypes.byref(P), p(coeffs), p(x0), p(xs), p(us), p(Ks), p(ks), p(ls_xs),
+            p(ls_us))
+    tail = (H, B, geo["group"], geo["threads"], dev.index or 0, _build.stream_of(xs))
     if lane:
         table = _build.feat_table_dev(tuple(terms), dev)
-        rc = lib.ampc_sindy_line_search_lane(p(table), len(terms), *args)
+        rc = lib.ampc_sindy_line_search_lane(p(table), len(terms), *ptrs, ds, *tail)
     else:
         rc = lib.ampc_sindy_line_search(ctypes.byref(_build.feat_table(tuple(terms))),
-                                        *args)
+                                        *ptrs, ds, dc, *tail)
     _build.check_rc("sindy_line_search", rc)
     sindy_line_search.launches += 1
     sindy_line_search.launches_by_B[B] = sindy_line_search.launches_by_B.get(B, 0) + 1

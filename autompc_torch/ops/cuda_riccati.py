@@ -18,8 +18,14 @@ layout, so nothing is copied) and counts its own launches.
 
 ``backward_quad`` (K6, ``pallas_tvlqr_backward_quad``; kernel in
 ``csrc/riccati_quad_bm.cu``) works on the batch-major carry with
-per-lane cost diagonals and no carry select, at ds = 4 (the cartpole
-state) and ds = 12 (its Koopman lift with the trig basis).
+per-lane cost diagonals and no carry select, prebuilt at ds = 4 (the
+cartpole state) and ds = 12 (its Koopman lift with the trig basis).
+
+Both take obsdim <= ``_build.MAX_OBS`` and any ds with ds + 1 <=
+``_build.MAX_D``, K2 up to ``_build.BQ_MAX_DS`` = 13 (where its
+smallest block's ring still fits in shared memory): a ds the main
+library lacks (the pendulum's 2) is compiled at first use
+(``_build.kernel_library``).
 
 Both build the stage and terminal expansions inline from the trajectory
 and share one recursion (``csrc/riccati_quad_step.cuh``; ``_recursion``
@@ -65,6 +71,7 @@ def _shapes(jac_p, xsT, usT, qd, rd, fd, goal, obsdim, carry, xterm=None):
         raise ValueError(
             f"goal must have length obsdim ({obsdim} <= ds = {ds})"
         )
+    _build.check_obsdim("riccati_quad", obsdim)
     lane = _build.lane_cost_planes(qd, rd, fd, obsdim, B)
     act, oK, ok = carry
     if tuple(act.shape) != (B,) or tuple(oK.shape) != (H, ds, B) \
@@ -188,20 +195,18 @@ def bq_geometry(B, ds=4, sm_count=None):
     lanes a block, the smallest block (32, 64 or 128 lanes) that keeps
     the grid within about four blocks an SM of ``sm_count`` (an H100's
     132 when not given), so that the few warps a batch makes spread over
-    as many SMs as they can; ``smem`` bytes of shared memory a block hold
-    its ring of ``_build.BQ_RING`` time steps (riccati_quad.cu), a 4-byte
-    word a Jacobian element for either storage type. Raises
-    ``ValueError`` for a ds the kernel is not built for."""
-    built = _build.KERNEL_SHAPES["riccati_quad"]
-    if (ds, 1) not in built:
-        raise ValueError(
-            f"backward kernel is built for (ds, dc) in {built}, got {(ds, 1)}"
-        )
+    as many SMs as they can, and whose ring fits; ``smem`` bytes of shared
+    memory a block hold its ring of ``_build.BQ_RING`` time steps
+    (``_build.bq_ring_bytes``). Raises ``ValueError`` past the kernels'
+    limits (``_build.check_shape``: ds <= ``_build.BQ_MAX_DS``, where 32
+    lanes' ring fits)."""
+    _build.check_shape("riccati_quad", ds, 1)
     sms = sm_count or _build.H100_SMS
-    lanes = 32
-    while -(-B // lanes) > 4 * sms and lanes < _build.BQ_MAX_LANES:
+    per_lane = _build.bq_ring_bytes(ds)
+    lanes = _build.BQ_MIN_LANES
+    while (-(-B // lanes) > 4 * sms and lanes < _build.BQ_MAX_LANES
+           and 2 * lanes * per_lane <= _build.MAX_SMEM_BYTES):
         lanes *= 2
-    per_lane = _build.BQ_RING * (ds * (ds + 1) + 2 * (ds + 1)) * 4
     return dict(lanes_per_block=lanes, blocks=-(-B // lanes), smem=lanes * per_lane)
 
 
@@ -232,7 +237,7 @@ def _launch_ll(name, jac_p, xsT, xterm, usT, qd, rd, fd, goal, dt, obsdim,
     lin = torch.empty((B,), dtype=f32, device=dev)
     quad = torch.empty((B,), dtype=f32, device=dev)
     p = _build.ptr
-    rc = _build.library().ampc_backward_quad_ll(
+    rc = _build.kernel_library("riccati_quad", ds, 1).ampc_backward_quad_ll(
         ctypes.byref(P), p(jac_p), p(xsT), p(xterm), p(usT), *planes, p(act), p(oK),
         p(ok), p(KsT), p(ksT), p(lin), p(quad), bf16, ds, H, B, g["lanes_per_block"],
         dev.index or 0, _build.stream_of(xsT),
@@ -352,16 +357,8 @@ def _shapes_bm(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, obsdim):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not 1 <= obsdim <= ds or len(goal) != obsdim:
         raise ValueError(f"goal must have length obsdim ({obsdim} <= ds = {ds})")
+    _build.check_obsdim("riccati_quad_bm", obsdim)
     return B, H, ds
-
-
-def _check_built_bm(ds):
-    built = _build.KERNEL_SHAPES["riccati_quad_bm"]
-    if (ds, 1) not in built:
-        raise ValueError(
-            f"batch-major backward kernel is built for (ds, dc) in {built}, "
-            f"got {(ds, 1)}"
-        )
 
 
 def bq_bm_geometry(B, H, ds=4, sm_count=None):
@@ -376,8 +373,8 @@ def bq_bm_geometry(B, H, ds=4, sm_count=None):
     of inputs in shared memory (the whole horizon where H <=
     ``_build.BQBM_RING``); ``smem`` bytes of shared memory a block
     (riccati_quad_bm.cu: bqbm_floats_per_lane, bqbm_wide_floats_per_lane).
-    Raises ``ValueError`` for a ds the kernel is not built for."""
-    _check_built_bm(ds)
+    Raises ``ValueError`` past the kernels' limits (``_build.check_shape``)."""
+    _build.check_shape("riccati_quad_bm", ds, 1)
     sms = sm_count or _build.H100_SMS
     group = 1 << (ds - 1).bit_length()
     threads = 32
@@ -422,9 +419,12 @@ def backward_quad(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, dt, obsdim):
     if _build.device_kind(xs) == "cpu":
         return backward_quad_plain(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, dt, obsdim)
     B, H, ds = _shapes_bm(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, obsdim)
-    _check_built_bm(ds)
+    lib = _build.kernel_library("riccati_quad_bm", ds, 1)
     dev, f32 = xs.device, torch.float32
     g = bq_bm_geometry(B, H, ds, _build.sm_count(dev))
+    if g["smem"] > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"backward_quad: a block of {g['lanes_per_block']} lanes at ds = "
+                         f"{ds} needs {g['smem']} bytes of shared memory")
     for name, t, shape in (
         ("Jx", Jx, (B, H, ds, ds)), ("Ju", Ju, (B, H, ds, 1)),
         ("xs", xs, (B, H + 1, ds)), ("us", us, (B, H, 1)),
@@ -433,7 +433,7 @@ def backward_quad(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, dt, obsdim):
     ):
         _build.check_cuda(name, t, shape, f32, dev)
     for name, t in (("Jx", Jx), ("Ju", Ju), ("xs", xs)):
-        if t.data_ptr() % 16:
+        if ds % 4 == 0 and t.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel reads 16-byte rows; its "
                              "storage must start on a 16-byte boundary")
     Ks = torch.empty((B, H, 1, ds), dtype=f32, device=dev)
@@ -441,7 +441,7 @@ def backward_quad(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, dt, obsdim):
     lin = torch.empty((B,), dtype=f32, device=dev)
     quad = torch.empty((B,), dtype=f32, device=dev)
     p = _build.ptr
-    rc = _build.library().ampc_backward_quad_bm(
+    rc = lib.ampc_backward_quad_bm(
         ctypes.byref(_quad_diag(obsdim, dt, goal)), p(Jx), p(Ju), p(xs), p(us),
         p(Qdiag), p(Rdiag), p(Fdiag), p(Ks), p(ks), p(lin), p(quad),
         ds, H, B, g["lanes_per_block"], dev.index or 0, _build.stream_of(xs),

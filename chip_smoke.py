@@ -23,7 +23,7 @@ Phases (each raises on failure, so the exit code is non-zero):
    (24-64-64-18, relu, 10 epochs), the scheduled batch-major iLQR at
    ds=18, dc=6, H=200, B=1024 (general Riccati kernel + MLP line-search
    kernel), timed over 4 distinct inputs after one warm run; then the
-   closed loop on the true plant: 32 starts, 50 MPC steps (200 in
+   closed loop on the true plant: 32 starts, 25 MPC steps (200 in
    bench_extra.py), H=20,
    through the same two kernels; open-loop converged fraction >= 0.5
    required. One solve with the MLP's default training seed is run
@@ -56,7 +56,7 @@ Phases (each raises on failure, so the exit code is non-zero):
    QuadCostFactory and an IterativeLQRFactory pinned at H=20,
    ``surrogate_mode="pretrain"``, the fan-out path (K1's batch-major
    entry, K6, K7) with the true dynamics scored by a second fan-out:
-   three BO rounds of 128 candidates x 199 closed-loop steps (two of the
+   three BO rounds of 128 candidates x 99 closed-loop steps (199 uncut; two of the
    initial design, one forest-guided through the native forest, which
    must have built), each round's ask, fan-out seconds, evals/s and
    incumbent printed, no NaN score; the incumbent ``IterativeLQR``
@@ -107,7 +107,7 @@ Phases (each raises on failure, so the exit code is non-zero):
    through the same two bodies with per-lane coefficients; each pair's
    first MPC-step solves agree as phase 8's; (c) ``PipelineTuner.run``
    over the SumCost space with the fan-out (two rounds of 128 candidates
-   x 49 steps, cut from 199, H=20, the true dynamics scored by a second
+   x 24 steps, cut from 199, H=20, the true dynamics scored by a second
    fan-out, no fallback warning), the incumbent on the true dynamics (a
    finite cost),
    and the sequential objective (the explicit SumCost) against the
@@ -155,7 +155,7 @@ Phases (each raises on failure, so the exit code is non-zero):
    solves agreeing as phase 8's; (d) ``PipelineTuner.run`` for
    ``Pipeline(ARXFactory, QuadCostFactory, IterativeLQRFactory)`` and
    ``Pipeline(KoopmanFactory, ...)`` (the latter through K6): one BO
-   round of 64 candidates at 49 steps with both fan-outs, then
+   round of 64 candidates at 24 steps (199 uncut) with both fan-outs, then
    sequential against fan-out (>= 3 of 4 within 1e-3); and ARX + QuadCost
    + LQRFactory through the sequential objective (the fan-out falls back
    with a warning), a finite incumbent;
@@ -201,6 +201,23 @@ Phases (each raises on failure, so the exit code is non-zero):
    configuration, a finite incumbent, the three kernels' launches (each
    > 0); (e) ``QuadCostFanout(impl="vmap")`` against ``impl="batched"``
    on 8 of (d)'s candidates, 3 steps: at least 6 of 8 within 1e-3;
+18. the feature kernels off the cartpole's shape (the port's kernels
+   build at first use at a (ds, dc) the main library lacks; phase [1]
+   builds phase 18's beside it): (a) the pendulum's main path (data 50 x
+   100, seed 42, the main path's library at d = 3, lstsq 1e-3, Q = F =
+   diag(10, 0.1), R = 0.001): the scheduled lanes-last solve at B=16384,
+   H=200 (2 warm, 3 timed runs on distinct draws; K1, K2, K3 at (2, 1)),
+   solves/s and converged fraction, then the receding loop (256 starts
+   around (pi, 0), H=20, 200 steps) on the true pendulum, the share ending
+   in the task's 0.2 box reported, not gated; (b) ``QuadCostFanout`` on
+   that model in phase 8's two configurations (B=1,024, H=10, 25 steps;
+   50 uncut), evals/s and the first-step agreement (>= 0.95) from (pi -
+   0.5, 0); (c) ``PipelineTuner`` kind "ilqr" with phase 10's fan-out
+   options, one round of 64 candidates at 49 steps, then sequential
+   against fan-out (>= 3 of 4); (d) the halfcheetah's SINDy (phase 6's
+   data, the 48-term quadratic library, lasso) through the batch-major
+   solve with its feature_spec at B=1024, H=200 (K1's batch-major entry,
+   K4 and K7 at (18, 6)): solves/s, converged and finite shares, not gated;
 3. kernels vs plain twins: each CUDA kernel against its plain PyTorch
    twin on the card, on inputs taken from every path that launches it,
    at that path's shape: the lanes-last kernels on the main path's carry
@@ -246,7 +263,13 @@ Phases (each raises on failure, so the exit code is non-zero):
    (c')'s dense expansions at every batch size (c') launched it with
    (rows of their own); K1's batch-major entry, K6 and K7 on phase 17
    (d)'s carry at every batch size (d) launched them with (their rows'
-   ``at_B*_H20_model_tuning`` keys). Within stated tolerances, timed with CUDA events (and where a
+   ``at_B*_H20_model_tuning`` keys); phase 18's instances in rows of their
+   own (``*[2x1,...]``, ``*[18x6,...]``): K1-K3 at (2, 1) on the pendulum's
+   main-path carry (B=4096, H=200), its closed loop's first carry (B=256,
+   H=20) and fan-out (a)'s after three iterations, K1's batch-major entry,
+   K6 and K7 at (2, 1) on fan-out (b)'s and the tune's carries at every
+   batch size they launched with, K1's batch-major entry and K7 at (18, 6)
+   on the cheetah SINDy solve's carry after three iterations. Within stated tolerances, timed with CUDA events (and where a
    call is shorter than its host work also as device time under
    torch.profiler), beside the least time the card could take
    (``bound_ms``).
@@ -261,7 +284,10 @@ tune of phase 13 for theirs (``launches_gauss_reg``), phase 15 (c2) and
 its "joint_koopman" tune for K6 at (12, 1) (``launches_joint_koopman``,
 ``launches_tune``), phase 16 (b2), (c2) and its tune for K6 at (4, 1)
 and (c') for K4 (``launches_gp``), phase 17 (d) for K1's batch-major
-entry, K6 and K7 (``launches_model_tuning``), each variant of phase 9 for the main
+entry, K6 and K7 (``launches_model_tuning``), phase 18 (a) for K1, K2, K3 at (2, 1)
+(solves and closed loop apart), each configuration of 18 (b) and 18 (c)
+for theirs, 18 (d) for K1's batch-major entry, K4 and K7 at (18, 6),
+each variant of phase 9 for the main
 path's kernels (``launches_bf16`` counts a wrapper's bfloat16 instances,
 ``launches_by_B`` its launches by the batch size of the call). A
 kernel that never ran on its path fails the run. Phase 3 runs after
@@ -278,11 +304,13 @@ nvidia-smi name/power-limit line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import functools
 import json
 import os
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 import numpy as np
@@ -322,8 +350,9 @@ HC_DEFAULT_SEED = 100
 # 700 W whose host ran every phase ~1.3x slower than an earlier run;
 # the 200-step loop took 94.5 s there; 50 since phase 17 was added: with
 # 100 the command took 896.6 s of its 1,200 on an NVIDIA H100 80GB HBM3,
-# 700 W, the 100-step loop 35.9 s of it).
-B_HCQ, H_HCQ, STEPS_HCQ, ITERS_HCQ = 32, 20, 50, 20
+# 700 W, the 100-step loop 35.9 s of it); 25 since phase 18 was added
+# (the 50-step loop 18.6 s).
+B_HCQ, H_HCQ, STEPS_HCQ, ITERS_HCQ = 32, 20, 25, 20
 B_DENSE = 4096
 # Phase 7's unscheduled 50-iteration swing-up solve converges on about a
 # fifth of the lanes; the floor only catches a broken solve.
@@ -428,6 +457,9 @@ TOL_K5_SUM = 2e-5
 
 # Phase 8: the scaling harness's fixed-model fan-out, nothing cut.
 FAN_B, FAN_H, FAN_STEPS = 1024, 10, 50
+# Timed calls of phase 8's (and phase 13 (a)'s, phase 18 (b)'s) fan-outs
+# after the warm one: 1 since phase 18 was added [3].
+FAN_CALLS = 1
 FAN_SCHEDULE = "4:0.5,8:0.25,14:0.125"
 FAN_CONFIGS = {
     "a": dict(backward="pallas", fuse_ls=True, lanes_last=True),
@@ -455,6 +487,11 @@ TUNE_BATCH, TUNE_ITERS = 128, 384
 TUNE_COMPACT = ((4, 0.5), (8, 0.25), (14, 0.125))
 TUNE_H = 20
 TUNE_COST_MAX = 200.0
+# Cut in depth since phase 18 was added (the whole command took 1,155 s
+# of its 1,200 on an NVIDIA H100 80GB HBM3, 700 W whose host ran phases
+# 10-17 1.29x slower than before phase 18 was added): the tune's closed loops
+# TUNE_STEPS - 1 steps [199].
+TUNE_STEPS = 100
 SEQ_ITERS, SEQ_STEPS, SEQ_TOL, SEQ_AGREE_MIN = 4, 40, 1e-3, 3
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 # Phase 11: the joint-MLP tune, bench_tune.py's workload (the main demo:
@@ -564,7 +601,10 @@ JS_HUGE_EPS = 1e-2
 # 50-iteration cap). The seed's draw holds discrete
 # buckets past 64 terms (the per-lane kernels' large instances); the
 # phase fails if none ran.
-JS_TUNE_BATCH, JS_TUNE_ITERS, JS_TUNE_STEPS, JS_TUNE_SEED = 12, 24, 5, 4
+# JS_TUNE_ITERS: one round of 12 since phase 18 was added [two]: the
+# seed's first round holds discrete buckets of 65-128 terms (65, 105) and
+# past 128 (255, 791).
+JS_TUNE_BATCH, JS_TUNE_ITERS, JS_TUNE_STEPS, JS_TUNE_SEED = 12, 12, 5, 4
 
 # Phase 13: the GaussReg / SumCost costs (QuadCostFactory +
 # GaussRegFactory, the term w_b (x - mu)' S (x - mu) with S, mu the
@@ -593,7 +633,8 @@ GR_CONFIGS = {
     "2": dict(backward="pallas", fuse_ls=False, lanes_last=False),
 }
 GR_JS_STEPS = 10
-GR_TUNE_BATCH, GR_TUNE_ITERS, GR_TUNE_STEPS, GR_SEQ_STEPS = 128, 256, 50, 50
+# GR_TUNE_STEPS: 25 since phase 18 was added [50].
+GR_TUNE_BATCH, GR_TUNE_ITERS, GR_TUNE_STEPS, GR_SEQ_STEPS = 128, 256, 25, 50
 
 # Phase 14: the MPPI and direct-transcription controllers, their receding
 # loops, their fan-outs and the tuner's kinds "mppi" and "dt" (no kernel:
@@ -638,13 +679,15 @@ GR_TUNE_BATCH, GR_TUNE_ITERS, GR_TUNE_STEPS, GR_SEQ_STEPS = 128, 256, 50, 50
 # CF_DT_STEPS (50), its tune CT_DT_TUNE_STEPS - 1 (99; 49 until phase 16
 # was added) and its sequential check CT_DT_SEQ_STEPS (25).
 CT_H, CT_PATHS, CT_SIGMA, CT_LMDA = 20, 4096, 1.0, 0.3
-CT_STEP_REPS, CT_LOOP_STEPS, CT_LOOP_REPS = 20, 200, 3
+# CT_LOOP_REPS, DT_LOOP_REPS, CF_CALLS: 1 timed run each since phase 18
+# was added [3, 2, 2].
+CT_STEP_REPS, CT_LOOP_STEPS, CT_LOOP_REPS = 20, 200, 1
 HC_MPPI_SIGMA = HC_MPPI_LMDA = 0.5
 CT_COST_TOL, CT_DU0_TOL = 1e-4, 1e-2
 DT_HORIZON_S, DT_STEP_REPS = 1.0, 10
-DT_LOOP_KNOTS, DT_LOOP_STEPS, DT_LOOP_REPS = 20, 30, 2
+DT_LOOP_KNOTS, DT_LOOP_STEPS, DT_LOOP_REPS = 20, 30, 1
 DT_CHECK_B, DT_US_TOL = 256, 1e-3
-CF_B, CF_H, CF_PATHS, CF_KNOTS, CF_STEPS, CF_CALLS, CF_SEED = 256, 20, 200, 10, 50, 2, 14
+CF_B, CF_H, CF_PATHS, CF_KNOTS, CF_STEPS, CF_CALLS, CF_SEED = 256, 20, 200, 10, 50, 1, 14
 CF_DT_STEPS = 20
 CT_TUNE_BATCH, CT_TUNE_STEPS, CT_SEQ_ITERS, CT_SEQ_STEPS = 64, 100, 4, 25
 CT_DT_TUNE_STEPS, CT_DT_SEQ_STEPS = 25, 15
@@ -708,10 +751,12 @@ CT_DT_TUNE_STEPS, CT_DT_SEQ_STEPS = 25, 15
 LM_LOCAL_TRAJS, LM_LOCAL_LEN, LM_A1_H, LM_A1_STEPS, LM_A1_GATE = 300, 8, 80, 200, 0.05
 LM_STEP_REPS, LM_GAIN_TOL = 20, 1e-4
 LM_LASSO_ALPHA = 1e-3
-JK_B, JK_H, JK_STEPS, JK_CALLS, JK_SEED = 1024, 10, 25, 3, 15
+# JK_CALLS: 1 since phase 18 was added [3].
+JK_B, JK_H, JK_STEPS, JK_CALLS, JK_SEED = 1024, 10, 25, 1, 15
 JK_SCHEDULE = "8:0.5,16:0.25,28:0.125,40:0.0625"
 JK_BASIS = dict(trig_basis=True, trig_freq=1)
-LM_TUNE_BATCH, LM_TUNE_STEPS, LM_TUNE_H, LM_SEQ_STEPS, LM_LQR_ITERS = 64, 50, 10, 25, 2
+# LM_TUNE_STEPS: 25 since phase 18 was added [50].
+LM_TUNE_BATCH, LM_TUNE_STEPS, LM_TUNE_H, LM_SEQ_STEPS, LM_LQR_ITERS = 64, 25, 10, 25, 2
 
 # Phase 16: the approximate GP (SVGP) and the pendulum. (a)
 # bench_extra.py's svgp_train_s_and_pred_throughput row uncut:
@@ -755,7 +800,8 @@ GP_A_TRAJS, GP_A_POINTS, GP_A_REPS, GP_PRED_TOL = 40, 4096, 10, 1e-3
 GP_B, GP_H, GP_STEPS, GP_CALLS, GP_SEED, GP_M = 512, 10, 5, 1, 0, 100
 GP_SCHEDULE = "8:0.5,16:0.25,28:0.125,40:0.0625"
 GP_DISTINCT, GP_ITERS, GP_REG_STEPS = 16, 5, 10
-GP_TUNE_BATCH, GP_TUNE_STEPS, GP_TUNE_H, GP_SEQ_STEPS = 64, 11, 10, 25
+# GP_TUNE_STEPS: 6 since phase 18 was added [11].
+GP_TUNE_BATCH, GP_TUNE_STEPS, GP_TUNE_H, GP_SEQ_STEPS = 64, 6, 10, 25
 PEND_SEED, PEND_CHECK_N, PEND_LEN, PEND_DATA_TOL = 0, 64, 100, 1e-3
 PEND_TRAJS, PEND_TRAJ_LEN, PEND_WIDTH, PEND_EPOCHS, PEND_LOOP_STEPS = 100, 200, 64, 10, 200
 
@@ -798,9 +844,54 @@ MT_AGREE_TOL = {"SINDy": 1e-3, "Koopman": 1e-3, "MLP": 5e-2}
 # small threshold's RMSE is ~1e-6 (in float64 too), the rounding of the
 # data and the fit, where a relative gap measures noise.
 MT_RMSE_FLOOR = 1e-3
-MT_SEL_SEED, MT_SEL_BATCH, MT_SEL_ITERS = 17, 8, 16
+# MT_SEL_ITERS: one round of 8 since phase 18 was added [16].
+MT_SEL_SEED, MT_SEL_BATCH, MT_SEL_ITERS = 17, 8, 8
 MT_TUNE_SEED, MT_TUNE_BATCH, MT_TUNE_STEPS, MT_TUNE_SURR_ITERS = 100, 128, 50, 8
 MT_VMAP_N, MT_VMAP_STEPS, MT_VMAP_AGREE_MIN = 8, 3, 6
+
+# Phase 18: the feature kernels off the cartpole's shape. (a) the
+# pendulum's main path (PendulumSwingupBenchmark, data 50 x 100, seed 42,
+# phase 2's SINDy library at d = 3: 21 terms, lstsq at 1e-3; Q = F =
+# diag(PD_Q), R = PD_R): the scheduled lanes-last solve at B_SOLVE, H,
+# SCHEDULE (phase 4's shape: 2 warm runs, 3 timed on distinct draws of
+# theta in [-pi, pi], omega in [-1, 1]), then the receding loop from
+# PD_CL_B starts around the task's (pi, 0) (theta, omega each within
+# PD_CL_SPREAD), H=PD_CL_H, PD_CL_STEPS steps on the true pendulum, the
+# share ending in the task's 0.2 box reported (no gate: no earlier
+# measurement in either package); K1, K2, K3 at (2, 1). (b) QuadCostFanout
+# on (a)'s model at FAN_B, FAN_H, PD_FAN_STEPS steps (50 uncut), both of
+# phase 8's configurations, one warm and FAN_CALLS timed calls, their first-step
+# agreement as phase 8's. (c) PipelineTuner kind "ilqr" with phase 10's
+# fan-out options: one round of PD_TUNE_BATCH candidates at
+# PD_TUNE_STEPS - 1 closed-loop steps on the surrogate and the true
+# pendulum, then sequential vs fan-out on SEQ_ITERS candidates (phase
+# 10's rule) from near upright (PD_SEQ_X0: the torque bound holds the
+# pole there). (d) the halfcheetah's SINDy (phase 6's data,
+# ``poly_basis=True, poly_degree=2``: 48 terms) through the batch-major
+# solve with its feature_spec at B_HC, H_HC, HC_SCHEDULE (one warm run, 4
+# timed on distinct starts): K1's batch-major entry, K4 and K7 at (18, 6);
+# its converged and finite shares reported, not gated (K4's Cholesky is
+# unguarded: ROADMAP hazard 5).
+PD_Q, PD_R = (10.0, 0.1), 0.001
+PD_CL_B, PD_CL_H, PD_CL_STEPS, PD_CL_SPREAD = 256, 20, 200, 0.1
+# Phase [3]'s K1-K3 rows at (2, 1) on the main path's shape (B_KERNEL, H)
+# start around (pi, 0), theta and omega each within PD_KERNEL_SPREAD.
+PD_KERNEL_SPREAD = 0.25
+PD_FAN_STEPS = 25
+# The first-step comparison's start: off the task's (pi, 0), where the
+# pendulum hangs at rest and a zero control guess has no gradient to a
+# side, so that the two bodies' roundings pick the swing's direction.
+PD_FAN_X0 = (np.pi - 0.5, 0.0)
+PD_TUNE_BATCH, PD_TUNE_STEPS = 64, 50
+PD_SEQ_X0 = (0.15, 0.0)
+# Lasso: the lstsq fits at thresholds 1e-3 and 1e-2 diverge within 30
+# steps from phase 6's starts with the controls at 0 (in float64 on the
+# CPU too), so every lane of the solve was NaN (measured on one H100).
+HC_SINDY = dict(method="lasso", lasso_alpha=1e-3, poly_basis=True, poly_degree=2)
+# The shapes phase 18 builds at first use, before any timed window.
+SHAPES_18 = (("relin", 2, 1), ("riccati_quad", 2, 1), ("linesearch_fused", 2, 1),
+             ("riccati_quad_bm", 2, 1), ("sindy_linesearch", 2, 1), ("relin", 18, 6),
+             ("sindy_linesearch", 18, 6))
 
 # Phase 9: the main path's wide options at its own shape (B_SOLVE, H,
 # SCHEDULE: every compaction stage is a multiple of 1024, so the wide
@@ -871,6 +962,22 @@ def time_ms(fn, reps=12, warm=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def plain_once(fn, plain):
+    """``fn()``'s result and, where ``plain`` asks for one timed run and no
+    warm-up (a plain version that takes seconds a call), its time in ms:
+    the check's own call timed (CUDA events), so that the plain version
+    runs once; else None (``time_ms`` times it apart)."""
+    if plain.get("reps") != 1 or plain.get("warm") != 0:
+        return fn(), None
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def rel_err(a, b):
@@ -948,14 +1055,34 @@ def riccati_flops(ds, dc):
     return jv + q + solve + gains + nxt
 
 
-def feature_flops(n_terms, d, ds):
-    """Float32 operations of one evaluation of a linear-in-features model
-    with its Jacobian: each term's value and d partials (a product of up
-    to d factors each) and the coefficient products."""
-    return n_terms * (d + 1) * (d + 2 * ds)
+def term_ops(t):
+    """Float32 operations that form one term's value: a power z^e takes
+    e - 1 products and the powers' join one less than their number (sum
+    of the exponents less one in all); a trig factor its frequency's
+    product, the sine or cosine and, beside powers, the join."""
+    e = sum(int(v) for v in t.exps if int(v) > 0)
+    mono = max(e - 1, 0)
+    return mono + ((3 if e else 2) if t.trig else 0)
 
 
-def k3_bound(io_bytes, B, H, n_terms, L, ds=4):
+def feature_value_flops(terms, ds):
+    """Float32 operations of one step of a linear-in-features model at
+    one point: each term's value and ds coefficient multiply-adds."""
+    return sum(term_ops(t) + 2 * ds for t in terms)
+
+
+def feature_jac_flops(terms, ds):
+    """Float32 operations of the model's Jacobian at one point, as the
+    kernels walk it: for each input component, only the terms whose
+    partial in it is not structurally zero (``_build.jacobian_columns``),
+    each partial at most its term's products and one more (the power's
+    factor or the trig's derivative), and ds coefficient multiply-adds."""
+    from autompc_torch.ops._build import jacobian_columns
+
+    return sum(term_ops(terms[k]) + 1 + 2 * ds for ks in jacobian_columns(terms) for k in ks)
+
+
+def k3_bound(io_bytes, B, H, terms, L, ds=4):
     """K3's bound keys. Bytes: its inputs and outputs only. Operations:
     L rollout-steps a lane-step (the term values, the coefficient
     products, the feedback law, the stage cost and the du2 term) and one
@@ -965,7 +1092,7 @@ def k3_bound(io_bytes, B, H, n_terms, L, ds=4):
     (ds + 1) floats a lane-step, and the selected candidate's read
     back), which the function itself does not need."""
     stash = 4 * (ds + 1) * H * B * (L + 1)
-    ops = B * H * (L * (n_terms * 13 + 34) + feature_flops(n_terms, ds + 1, ds))
+    ops = B * H * (L * (feature_value_flops(terms, ds) + 34) + feature_jac_flops(terms, ds))
     return dict(bound_keys(io_bytes, ops), scratch_bytes_ms=stash / HBM_BYTES_PER_S * 1e3)
 
 
@@ -1239,14 +1366,14 @@ def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
     return rows, failures
 
 
-def fanout_candidates(dev, n, seed=0):
+def fanout_candidates(dev, n, seed=0, obsdim=4):
     """The harness's candidate batch: Qdiag, Fdiag = 10**U(-1, 1.5),
     Rdiag = 10**U(-3, 0), as tensors on the card."""
     from autompc_torch import default_dtype
 
     rng = np.random.default_rng(seed)
-    batch = {"Qdiag": 10 ** rng.uniform(-1, 1.5, (n, 4)),
-             "Fdiag": 10 ** rng.uniform(-1, 1.5, (n, 4)),
+    batch = {"Qdiag": 10 ** rng.uniform(-1, 1.5, (n, obsdim)),
+             "Fdiag": 10 ** rng.uniform(-1, 1.5, (n, obsdim)),
              "Rdiag": 10 ** rng.uniform(-3, 0, (n, 1))}
     return {k: torch.as_tensor(v, dtype=default_dtype(dev), device=dev)
             for k, v in batch.items()}
@@ -1384,7 +1511,7 @@ def fanout_phase(bench, model, dev, card, wrappers, profile=False):
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        for _ in range(3):
+        for _ in range(FAN_CALLS):
             scores = fanout(batch)
             torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
@@ -1395,10 +1522,11 @@ def fanout_phase(bench, model, dev, card, wrappers, profile=False):
             raise RuntimeError(f"fan-out ({cfg}): malformed or NaN scores")
         fin = torch.isfinite(scores)
         print(f"[8] fan-out ({cfg}) {FAN_CONFIGS[cfg]}: B={FAN_B} H={FAN_H} "
-              f"{FAN_STEPS} steps: warm call {warm_s:.2f} s; 3 timed calls {elapsed:.3f} s -> "
-              f"{3 * FAN_B / elapsed:.1f} evals/s on {card}; scores finite {int(fin.sum())}, "
-              f"inf {int((~fin).sum())}, mean of finite {float(scores[fin].mean()):.2f}; "
-              f"launches in 4 calls {counts[cfg]}, by B {by_B[cfg]}", flush=True)
+              f"{FAN_STEPS} steps: warm call {warm_s:.2f} s; {FAN_CALLS} timed calls "
+              f"{elapsed:.3f} s -> {FAN_CALLS * FAN_B / elapsed:.1f} evals/s on {card}; scores "
+              f"finite {int(fin.sum())}, inf {int((~fin).sum())}, mean of finite "
+              f"{float(scores[fin].mean()):.2f}; launches in {FAN_CALLS + 1} calls {counts[cfg]}, "
+              f"by B {by_B[cfg]}", flush=True)
         if min(counts[cfg].values()) == 0:
             raise RuntimeError(f"a kernel never ran on the fan-out path ({cfg}): {counts[cfg]}")
         if profile:
@@ -1468,7 +1596,8 @@ def tune_phase(bench, model, trajs, dev, card, fan_wrappers, profile=False):
     if not native.NativeRandomForest.available():
         raise RuntimeError(f"the native random forest did not build: {native.build_error()}")
     print(f"[10] native forest: {native.library_path().name}", flush=True)
-    system, task = bench.system, bench.task
+    system, task = bench.system, bench.task.copy()
+    task.set_num_steps(TUNE_STEPS)
     goal = np.zeros(4)
     spec = (model.library, "coeffs")
 
@@ -1579,6 +1708,7 @@ def tune_phase(bench, model, trajs, dev, card, fan_wrappers, profile=False):
     with open(os.path.join(OUT_DIR, "tune_incumbent.json"), "w") as f:
         json.dump({"sindy": SINDY_KW, "coeffs": model.coeffs.cpu().double().tolist(),
                    "feature_names": model.get_feature_names(), "factory": {"horizon": TUNE_H},
+                   "num_steps": TUNE_STEPS,
                    "compact": TUNE_COMPACT, "cfg": res.inc_cfg.get_dictionary(),
                    "card": {"simulate": final_cost, "fanout_surrogate": float(res.inc_costs[-1]),
                             "fanout_truedyn": float(res.inc_truedyn_costs[-1])}}, f)
@@ -2125,58 +2255,76 @@ def tune_candidates(cfgs, system, dev):
 
 
 def check_fanout_kernels(tag, K1, K6, K7, terms, coeffs, carry, cp, goal, dt, alphas,
-                         bound, plain=None):
+                         bound, plain=None, gains=None):
     """K1's batch-major entry, K6 and K7 against their plain versions on
     a batch-major carry (x0s, xs, us, Jx, Ju) with per-lane costs ``cp``;
-    K1's batch-major entry also against its lanes-last entry on the same
-    points (bit for bit), K7 on K6's gains. ``coeffs`` is one (ds, n)
-    model or, per lane, a lanes-last (ds, n, B) plane (the per-lane
-    instances). ``plain``: ``time_ms``'s arguments for the plain
-    versions of K1 and K7 (3 runs by default). Returns (the three
-    kernels' measurements, failure strings)."""
+    at dc = 1 K1's batch-major entry also against its lanes-last entry on
+    the same points (bit for bit), K7 on K6's gains. ``coeffs`` is one
+    (ds, n) model or, per lane, a lanes-last (ds, n, B) plane (the
+    per-lane instances). ``plain``: ``time_ms``'s arguments for the plain
+    versions of K1 and K7 (3 runs by default). ``K6=None`` (dc > 1):
+    no K6 row, and K7 takes ``gains = (Ks, ks)``. ``bound``: the control
+    bound, a scalar or one a control. Returns (the kernels'
+    measurements, failure strings)."""
     plain = plain or dict(reps=3)
     x0s, xs, us, Jx, Ju = (carry[k] for k in ("x0s", "xs", "us", "Jx", "Ju"))
-    B, H = us.shape[:2]
+    B, H, dc = us.shape
+    ds = xs.shape[-1]
     rows, failures = [], []
     k1_args = (terms, xs, us, coeffs)
-    jk, jp = K1.relin_jacobians_bm(*k1_args), K1.relin_jacobians_bm_plain(*k1_args)
+    jk = K1.relin_jacobians_bm(*k1_args)
+    jp, jp_ms = plain_once(lambda: K1.relin_jacobians_bm_plain(*k1_args), plain)
     e1 = max(rel_err(a, b) for a, b in zip(jk, jp))
-    ll_args = (terms, xs.permute(1, 2, 0).contiguous(), us[:, :, 0].T.contiguous(), coeffs)
-    jl = K1.relin_jacobians(*ll_args).reshape(H, 4, 5, B).permute(3, 0, 1, 2)
-    same = bits_equal(jk[0], jl[..., :4].contiguous()) and bits_equal(jk[1], jl[..., 4:].contiguous())
+    same, ll = True, {}
+    if dc == 1:
+        ll_args = (terms, xs.permute(1, 2, 0).contiguous(), us[:, :, 0].T.contiguous(), coeffs)
+        jl = K1.relin_jacobians(*ll_args).reshape(H, ds, ds + 1, B).permute(3, 0, 1, 2)
+        same = bits_equal(jk[0], jl[..., :ds].contiguous()) and \
+            bits_equal(jk[1], jl[..., ds:].contiguous())
+        ll = dict(lanes_last_device_ms=device_ms(lambda: K1.relin_jacobians(*ll_args)))
     rows.append(dict(
         max_abs_err=max(abs_err(a, b) for a, b in zip(jk, jp)),
         ms=time_ms(lambda: K1.relin_jacobians_bm(*k1_args)),
         device_ms=device_ms(lambda: K1.relin_jacobians_bm(*k1_args)),
-        plain_ms=time_ms(lambda: K1.relin_jacobians_bm_plain(*k1_args), **plain),
-        lanes_last_device_ms=device_ms(lambda: K1.relin_jacobians(*ll_args)),
-        **bound_keys(n_bytes(xs, us, coeffs, *jk), B * H * feature_flops(len(terms), 5, 4)),
+        plain_ms=jp_ms if jp_ms is not None else time_ms(
+            lambda: K1.relin_jacobians_bm_plain(*k1_args), **plain), **ll,
+        **bound_keys(n_bytes(xs, us, coeffs, *jk),
+                     B * H * feature_jac_flops(terms, ds)),
     ))
-    print(f"[3] K1 relin, batch-major entry, {tag} B={B} H={H}: rel err Jx/Ju {e1:.3e} (tol "
-          f"{TOL_K1}); bit for bit the lanes-last entry's rows on the same points: {same}",
-          flush=True)
+    g1 = K1.relin_geometry(B, H, K1._build.sm_count(xs.device), ds, dc, bm=True)
+    print(f"[3] K1 relin, batch-major entry, {tag} B={B} H={H} (ds, dc) = {(ds, dc)} "
+          f"({g1['lanes']} points x {g1['threads'] // g1['lanes']} threads a block): rel err "
+          f"Jx/Ju {e1:.3e} (tol {TOL_K1})"
+          + (f"; bit for bit the lanes-last entry's rows on the same points: {same}"
+             if dc == 1 else ""), flush=True)
     if not (e1 <= TOL_K1 and same):
         failures.append(f"K1 batch-major {tag} rel err {e1:.3e}, equal to lanes-last {same}")
-    k6_args = (Jx, Ju, xs, us, cp["Qdiag"], cp["Rdiag"], cp["Fdiag"], goal, dt, 4)
-    gk, gp = K6.backward_quad(*k6_args), K6.backward_quad_plain(*k6_args)
-    e6 = [rel_err(a, b) for a, b in zip(gk, gp)]
-    rows.append(dict(
-        max_abs_err=max(abs_err(a, b) for a, b in zip(gk, gp)),
-        ms=time_ms(lambda: K6.backward_quad(*k6_args)),
-        device_ms=device_ms(lambda: K6.backward_quad(*k6_args)),
-        plain_ms=time_ms(lambda: K6.backward_quad_plain(*k6_args), reps=3),
-        **bound_keys(n_bytes(*k6_args[:7], *gk), B * H * (riccati_flops(4, 1) + 16)),
-    ))
-    g6 = K6.bq_bm_geometry(B, H, sm_count=K6._build.sm_count(xs.device))
-    print(f"[3] K6 batch-major backward {tag} B={B} H={H} ({g6['group']} threads a lane, "
-          f"{g6['lanes_per_block']} lanes a block, {g6['blocks']} blocks, ring {g6['ring']}): "
-          f"rel err K/k/lin/quad {[f'{e:.3e}' for e in e6]} (tol {TOL_K6})", flush=True)
-    if not max(e6) <= TOL_K6:
-        failures.append(f"K6 {tag} rel err {max(e6):.3e} > {TOL_K6}")
+    if K6 is not None:
+        k6_args = (Jx, Ju, xs, us, cp["Qdiag"], cp["Rdiag"], cp["Fdiag"], goal, dt, len(goal))
+        gk, gp = K6.backward_quad(*k6_args), K6.backward_quad_plain(*k6_args)
+        e6 = [rel_err(a, b) for a, b in zip(gk, gp)]
+        rows.append(dict(
+            max_abs_err=max(abs_err(a, b) for a, b in zip(gk, gp)),
+            ms=time_ms(lambda: K6.backward_quad(*k6_args)),
+            device_ms=device_ms(lambda: K6.backward_quad(*k6_args)),
+            plain_ms=time_ms(lambda: K6.backward_quad_plain(*k6_args), reps=3),
+            **bound_keys(n_bytes(*k6_args[:7], *gk), B * H * (riccati_flops(ds, 1) + 16)),
+        ))
+        g6 = K6.bq_bm_geometry(B, H, ds, sm_count=K6._build.sm_count(xs.device))
+        print(f"[3] K6 batch-major backward {tag} B={B} H={H} ({g6['group']} threads a lane, "
+              f"{g6['lanes_per_block']} lanes a block, {g6['blocks']} blocks, ring {g6['ring']}): "
+              f"rel err K/k/lin/quad {[f'{e:.3e}' for e in e6]} (tol {TOL_K6})", flush=True)
+        if not max(e6) <= TOL_K6:
+            failures.append(f"K6 {tag} rel err {max(e6):.3e} > {TOL_K6}")
+        gains = gk[:2]
 
-    Ks, ks = gk[0], gk[1]
-    k7_args = (terms, x0s, xs, us, Ks, ks, coeffs, alphas, -bound, bound)
-    (kx, ku), (px, pu) = K7.sindy_line_search(*k7_args), K7.sindy_line_search_plain(*k7_args)
+    Ks, ks = gains
+    bnd = torch.as_tensor(np.broadcast_to(np.asarray(bound, dtype=np.float64), (dc,)).copy(),
+                          dtype=torch.float64, device=xs.device)
+    lo_hi = (-bnd.cpu().numpy(), bnd.cpu().numpy()) if dc > 1 else (-bound, bound)
+    k7_args = (terms, x0s, xs, us, Ks, ks, coeffs, alphas, *lo_hi)
+    kx, ku = K7.sindy_line_search(*k7_args)
+    (px, pu), p7_ms = plain_once(lambda: K7.sindy_line_search_plain(*k7_args), plain)
     kfin = torch.isfinite(kx).all(dim=(2, 3)) & torch.isfinite(ku).all(dim=(2, 3))
     pfin = torch.isfinite(px).all(dim=(2, 3)) & torch.isfinite(pu).all(dim=(2, 3))
     finite = kfin & pfin
@@ -2188,19 +2336,22 @@ def check_fanout_kernels(tag, K1, K6, K7, terms, coeffs, carry, cp, goal, dt, al
         return (d / px[:, :, :upto].double().abs().amax(dim=(2, 3)).clamp_min(1e-30))[finite]
 
     head = min(K7_HEAD, H)
+    if not finite.any():
+        failures.append(f"K7 {tag}: no rollout finite in both")
+        return rows, failures
     e_head = float(rollout_err(head + 1).max())
     e_full = rollout_err(H + 1)
     full_within = (e_full <= TOL_K7).float().mean().item()
     # float64 evaluation at the kernel's own states.
-    a64 = torch.tensor(alphas, dtype=torch.float64, device=xs.device)[None, :, None]
-    fb = Ks[:, None, :, 0].double() * (kx[:, :, :-1].double() - xs[:, None, :-1].double())
-    step, ubar = a64 * ks[:, None, :, 0].double(), us[:, None, :, 0].double()
-    u64 = (step + ubar + fb.sum(-1)).clamp(-bound, bound)
+    a64 = torch.tensor(alphas, dtype=torch.float64, device=xs.device)[None, :, None, None]
+    fb = Ks[:, None].double() * (kx[:, :, :-1].double() - xs[:, None, :-1].double())[:, :, :, None]
+    step, ubar = a64 * ks[:, None].double(), us[:, None].double()       # (B, L, H, dc)
+    u64 = torch.minimum(torch.maximum(step + ubar + fb.sum(-1), -bnd), bnd)
     scale = step.abs() + ubar.abs() + fb.abs().sum(-1)
-    e_u = float(((ku[..., 0].double() - u64).abs() / scale.clamp_min(1e-30))[finite].max())
+    e_u = float(((ku.double() - u64).abs() / scale.clamp_min(1e-30)).amax(-1)[finite].max())
     from autompc_torch.sysid.basis import term_value
 
-    z = [kx[:, :, :-1, i].double() for i in range(4)] + [ku[..., 0].double()]
+    z = [kx[:, :, :-1, i].double() for i in range(ds)] + [ku[..., j].double() for j in range(dc)]
     theta = torch.stack([term_value(t, z) for t in terms], dim=-1)     # (B, L, H, F)
     c64 = coeffs.double()
     if c64.ndim == 3:      # lane b's rollouts through lane b's model
@@ -2214,11 +2365,13 @@ def check_fanout_kernels(tag, K1, K6, K7, terms, coeffs, carry, cp, goal, dt, al
         max_abs_err=max(abs_err(kx[finite], px[finite]), abs_err(ku[finite], pu[finite])),
         ms=time_ms(lambda: K7.sindy_line_search(*k7_args)),
         device_ms=device_ms(lambda: K7.sindy_line_search(*k7_args)),
-        plain_ms=time_ms(lambda: K7.sindy_line_search_plain(*k7_args), **plain),
+        plain_ms=p7_ms if p7_ms is not None else time_ms(
+            lambda: K7.sindy_line_search_plain(*k7_args), **plain),
         **bound_keys(n_bytes(x0s, xs, us, Ks, ks, coeffs, kx, ku),
-                     B * len(alphas) * H * (len(terms) * 13 + 20)),
+                     B * len(alphas) * H * (feature_value_flops(terms, ds) + 2 * ds * dc + 12)),
     ))
-    print(f"[3] K7 rollout line search {tag} B={B} H={H} L={len(alphas)}: rollouts finite in "
+    print(f"[3] K7 rollout line search {tag} B={B} H={H} L={len(alphas)} (ds, dc) = {(ds, dc)}: "
+          f"rollouts finite in "
           f"both {int(finite.sum())} of {finite.numel()} (flags agree {same_finite:.4f}; not "
           f"finite only in the kernel {kernel_only}); per "
           f"rollout vs plain: first {head} steps worst {e_head:.3e} (tol {TOL_K7_HEAD}); all "
@@ -2233,6 +2386,253 @@ def check_fanout_kernels(tag, K1, K6, K7, terms, coeffs, carry, cp, goal, dt, al
                         f"{same_finite:.4f} kernel-only non-finite {kernel_only} u {e_u:.3e} "
                         f"next x {e_x:.3e}")
     return rows, failures
+
+
+class PhaseCtx(types.SimpleNamespace):
+    """What phase [3]'s lanes-last checks read besides their arguments:
+    the model's active terms and coefficients (``terms``, ``ca``), dt,
+    the control bounds (``lo``, ``hi``), the step sizes, the device, the
+    failure list they append to and the kernel modules (K1, K2, K3)."""
+
+
+def check_k1_ll(ctx, tag, c, n_launches, tms=None, coef=None, name="relin_jacobians",
+                plain=None):
+    """The relinearization kernel on the trajectory of the lanes-last
+    carry ``c``: one report row. ``tms``/``coef``: another library's
+    terms and coefficients than the main path's (a per-lane plane
+    (ds, n, B) for the per-lane instances); ``plain``: ``time_ms``'s
+    arguments for the plain version (its defaults if None)."""
+    terms, ca, failures, K1 = ctx.terms, ctx.ca, ctx.failures, ctx.K1
+    tms, coef, plain = tms or terms, ca if coef is None else coef, plain or {}
+    Hc, Bc = c["us"].shape
+    ds = c["xs"].shape[1]
+    k1_args = (tms, c["xs"], c["us"], coef)
+    jk = K1.relin_jacobians(*k1_args)
+    jp, jp_ms = plain_once(lambda: K1.relin_jacobians_plain(*k1_args), plain)
+    e1 = rel_err(jk, jp)
+    print(f"[3] K1 relin, {tag}: rel err {e1:.3e} (tol {TOL_K1})", flush=True)
+    if e1 > TOL_K1:
+        failures.append(f"K1 ({tag}) rel err {e1:.3e} > {TOL_K1}")
+    return dict(
+        name=f"{name}[B={Bc},H={Hc}]", route="cuda",
+        source="autompc_torch/csrc/relin.cu",
+        replaces="autompc_tpu/ops/pallas_relin.py:192",
+        launches=n_launches, max_abs_err=abs_err(jk, jp),
+        ms=time_ms(lambda: K1.relin_jacobians(*k1_args)),
+        device_ms=device_ms(lambda: K1.relin_jacobians(*k1_args)),
+        plain_ms=jp_ms if jp_ms is not None else time_ms(
+            lambda: K1.relin_jacobians_plain(*k1_args), **plain),
+        **bound_keys(n_bytes(c["xs"], c["us"], coef, jk),
+                     Bc * Hc * feature_jac_flops(tms, ds)),
+    )
+
+def check_k2_k3_ll(ctx, tag, c, cost, agree_min=K3_AGREE_MIN, within_min=None, split=False,
+                   tms=None, coef=None, plain=None):
+    """One backward pass and one line search on the lanes-last carry
+    ``c`` under ``cost = (qd, rd, fd, goal)``; returns the kernels'
+    outputs, the twin pairs and the timed closures, and appends to
+    ``failures``. The twins' states are gated normwise, or, with
+    ``within_min``, per lane on that share of the lanes; their
+    objectives normwise. With
+    ``split``, the split search (K8 + acceptance + K9) is held
+    against K3 on the same inputs: decisions on ``agree_min`` of the
+    active lanes, and bit for bit where they agree. ``tms``/``coef``
+    as in ``check_k1``; ``plain``: as ``k2_k3_rows``' (a one-shot timing
+    times the check's own calls of the plain versions)."""
+    terms, ca, failures, dt, alphas, dev = (ctx.terms, ctx.ca, ctx.failures, ctx.dt,
+                                            ctx.alphas, ctx.dev)
+    K1, K2, K3 = ctx.K1, ctx.K2, ctx.K3
+    tms, coef = tms or terms, ca if coef is None else coef
+    Hc, Bc = c["us"].shape
+    ds = c["xs"].shape[1]
+    act = ~c["converged"] & ~c["failed"]
+    k2_kw = dict(carry=(act, c["Ks"], c["ks"]))
+    k2_args = (c["jac"], c["xs"], c["us"], *cost, dt, len(cost[3]))
+    plain = plain or {}
+    bk = K2.backward_quad_ll(*k2_args, **k2_kw)
+    bp, bp_ms = plain_once(lambda: K2.backward_quad_ll_plain(*k2_args, **k2_kw), plain)
+    print(f"[3] K2 backward, {tag}: rel err K/k/lin/quad "
+          f"{[f'{rel_err(a, b):.3e}' for a, b in zip(bk, bp)]} (tol {TOL_K2})",
+          flush=True)
+    KsT, ksT, lin, quad = bk
+    ks_small = torch.sqrt((ksT * ksT).sum(0)) < 1e-3
+    lo, hi = ctx.lo, ctx.hi
+    ls_common = (tms, c["x0s"], c["xs"], c["us"], KsT, ksT, coef, alphas, lo, hi,
+                 *cost, dt)
+    k3_args = ls_common + (c["obj"], lin, quad, ks_small, act, c["jac"])
+    lk = K3.fused_line_search(*k3_args)
+    lp, lp_ms = plain_once(lambda: K3.fused_line_search_plain(*k3_args), plain)
+    objs = K3.line_search_objectives(*ls_common)
+
+    def choice(obj_out):
+        return (objs - obj_out[None]).abs().argmin(0)
+
+    def pick(idx):
+        return objs.gather(0, idx[None])[0]
+
+    # Decisions against the twin, on the active lanes (see K3_TIE).
+    def lane_finite(out):
+        return torch.stack([torch.isfinite(t.float()).reshape(-1, Bc).all(0)
+                            for t in out]).all(0)
+
+    kernel_only = int((~lane_finite(lk) & lane_finite(lp)).sum())
+    ck, cp = choice(lk[2]), choice(lp[2])
+    same_choice = (ck == cp) | ((pick(ck) - pick(cp)).abs() <= K3_TIE * pick(cp).abs())
+    same_flags = (lk[3] == lp[3]) & (lk[4] == lp[4])
+    obj0 = c["obj"]
+    stalled = ((lk[2] - obj0).abs() <= K3_TIE * obj0.abs()) \
+        & ((lp[2] - obj0).abs() <= K3_TIE * obj0.abs())
+    moved = act & ~lk[4] & ~lp[4]
+    agree = stalled | (same_flags & (~moved | same_choice))
+    lanes = moved & same_flags & (ck == cp)
+    twin = {
+        "xs": (lk[0][:, :, lanes], lp[0][:, :, lanes]),
+        "obj": (lk[2][lanes], lp[2][lanes]),
+        "us": (lk[1][:, lanes], lp[1][:, lanes]),
+        "jac": (lk[5][:, :, lanes], lp[5][:, :, lanes]),
+        "du2": (lk[6][lanes], lp[6][lanes]),
+    }
+    dx = (twin["xs"][0].double() - twin["xs"][1].double()).abs().amax(dim=(0, 1))
+    per_lane = dx / twin["xs"][1].double().abs().amax(dim=(0, 1)).clamp_min(1e-30)
+    # The carry select: an inactive lane comes back bit for bit.
+    held = all(torch.equal(new[..., ~act], old[..., ~act]) for new, old in (
+        (lk[0], c["xs"]), (lk[1], c["us"]), (lk[2], obj0), (lk[5], c["jac"])))
+    # float64 evaluation at the kernel's own states (see TOL_K3_SUM),
+    # on every lane the kernel moved: the controls of a step size
+    # whose objective is the one returned, the next states, the
+    # objective of the returned trajectory under the lane's cost, du2
+    # and, where the Jacobians were taken anew, the Jacobians.
+    own = act & ~lk[4]
+    a64 = torch.tensor(alphas, dtype=torch.float64, device=dev)[:, None, None]
+    ubar = c["us"].double()
+    fb = KsT.double() * (lk[0][:-1].double() - c["xs"][:-1].double())
+    step = a64 * ksT.double()[None]                                     # (L, H, B)
+    u64 = (step + ubar[None] + fb.sum(1)[None]).clamp(lo, hi)
+    scale = step.abs() + ubar.abs()[None] + fb.abs().sum(1)[None]
+    e_l = ((lk[1].double()[None] - u64).abs() / scale.clamp_min(1e-30)).amax(1)
+    near = (objs - pick(ck)[None]).abs() <= K3_TIE * pick(ck).abs()[None]
+    e_u = torch.where(near, e_l, torch.full_like(e_l, float("inf"))).amin(0)
+    from autompc_torch.sysid.basis import term_value
+
+    z = [lk[0][:-1, i].double() for i in range(ds)] + [lk[1].double()]
+    theta = torch.stack([term_value(t, z) for t in tms], dim=-1)        # (H, B, F)
+    c64 = coef.double()
+    if c64.ndim == 3:      # lane b through lane b's model
+        x64 = torch.einsum("hbf,ifb->hbi", theta, c64)
+        mag = torch.einsum("hbf,ifb->hbi", theta.abs(), c64.abs())
+    else:
+        x64 = theta @ c64.T
+        mag = theta.abs() @ c64.abs().T
+    e_x = (lk[0][1:].permute(0, 2, 1).double() - x64).abs() / mag.clamp_min(1e-30)
+    qd_, rd_, fd_ = cost[:3]
+    if isinstance(qd_, torch.Tensor):
+        rows = dict(Qdiag=qd_.T, Rdiag=rd_.T, Fdiag=fd_.T)
+    else:
+        rows = {k: obj0.new_tensor(v).expand(Bc, len(v))
+                for k, v in (("Qdiag", qd_), ("Rdiag", rd_), ("Fdiag", fd_))}
+    obj64 = lane_objective(lk[0].permute(2, 0, 1), lk[1].T[:, :, None], rows, dt)
+    du2_64 = ((lk[1].double() - ubar) ** 2).sum(0)
+    jl = own & lk[3]
+    jac64 = K1.relin_jacobians_plain(
+        tms, lk[0][:, :, jl].double(), lk[1][:, jl].double(),
+        c64[:, :, jl].contiguous() if c64.ndim == 3 else c64
+    )
+    err = dict(
+        k2=max(rel_err(a, b) for a, b in zip(bk, bp)),
+        frac=agree[act].float().mean().item(),
+        xs=rel_err(*twin["xs"]), obj=rel_err(*twin["obj"]),
+        within=(per_lane <= TOL_K3).float().mean().item(),
+        u=float(e_u[own].max()), x=float(e_x[:, own].max()),
+        obj64=float(((lk[2].double() - obj64).abs() / obj64.abs().clamp_min(1e-30))[own].max()),
+        du2=rel_err(lk[6][own], du2_64[own]),
+        jac=rel_err(lk[5][:, :, jl], jac64),
+    )
+    xs_gate = (f"normwise, gated at {TOL_K3}" if within_min is None else
+               f"per lane within {TOL_K3} on {err['within']:.4f}, min {within_min}")
+    print(f"[3] K3 line search, {tag}: active lanes {int(act.sum())} of {Bc}, inactive "
+          f"returned bit for bit: {held}; lanes with an output not finite only in the "
+          f"kernel {kernel_only}; decisions agree with the twin on "
+          f"{err['frac']:.5f} of the active lanes (min {agree_min}; flags differ on "
+          f"{int((act & ~same_flags).sum())}, of which stalled {int((act & ~same_flags & stalled).sum())}; "
+          f"step size differs on {int((moved & same_flags & ~same_choice).sum())}); vs twin on "
+          f"the {int(lanes.sum())} lanes of equal decisions "
+          f"{({k: f'{rel_err(a, b):.3e}' for k, (a, b) in twin.items()})} (obj gated at {TOL_K3}; "
+          f"xs {xs_gate}); vs float64 at the kernel's states on the "
+          f"{int(own.sum())} lanes it moved: u {err['u']:.3e}, next x {err['x']:.3e} of term "
+          f"magnitudes (tol {TOL_K3_SUM}), objective of the returned trajectory "
+          f"{err['obj64']:.3e} (tol {TOL_K3}), jac {err['jac']:.3e} (tol {TOL_K1}), du2 "
+          f"{err['du2']:.3e} (tol {TOL_K3})", flush=True)
+    if err["k2"] > TOL_K2:
+        failures.append(f"K2 ({tag}) rel err {err['k2']:.3e} > {TOL_K2}")
+    if not held:
+        failures.append(f"K3 ({tag}) changed an inactive lane")
+    if kernel_only:
+        failures.append(f"K3 ({tag}) an output not finite on {kernel_only} lanes where "
+                        f"the twin's is finite")
+    if err["frac"] < agree_min:
+        failures.append(f"K3 ({tag}) decisions agree on {err['frac']:.5f} < {agree_min}")
+    if err["obj"] > TOL_K3 or (err["xs"] > TOL_K3 if within_min is None
+                               else err["within"] < within_min):
+        failures.append(f"K3 ({tag}) vs twin: xs {err['xs']:.3e} (within on "
+                        f"{err['within']:.4f}), obj {err['obj']:.3e}")
+    if max(err["u"], err["x"]) > TOL_K3_SUM or err["jac"] > TOL_K1 \
+            or max(err["du2"], err["obj64"]) > TOL_K3:
+        failures.append(f"K3 ({tag}) float64 check u {err['u']:.3e} x {err['x']:.3e} obj "
+                        f"{err['obj64']:.3e} jac {err['jac']:.3e} du2 {err['du2']:.3e}")
+    if split:
+        frac, bits = split_agreement(K3.fused_line_search_wide(*k3_args), lk, act)
+        print(f"[3] split search vs K3, {tag}: decisions agree on {frac:.5f} of "
+              f"{int(act.sum())} active lanes (min {agree_min}), xs/us/jac/du2 bit for "
+              f"bit on those {bits}", flush=True)
+        if frac < agree_min or not bits:
+            failures.append(f"split vs K3 ({tag}): agree {frac:.5f}, bits {bits}")
+    return dict(
+        bk=bk, bp=bp, lk=lk, twin=twin, k3_args=k3_args, act=act, terms=tms,
+        k2_plain_ms=bp_ms, k3_plain_ms=lp_ms,
+        k2=lambda: K2.backward_quad_ll(*k2_args, **k2_kw),
+        k2_plain=lambda: K2.backward_quad_ll_plain(*k2_args, **k2_kw),
+        k3=lambda: K3.fused_line_search(*k3_args),
+        k3_plain=lambda: K3.fused_line_search_plain(*k3_args),
+    )
+
+def k2_k3_rows_ll(ctx, res, c, form, n_launches, plain=None, **extra):
+    """The two report rows of one ``check_k2_k3`` result on carry
+    ``c``; ``extra[kernel]`` adds keys to that kernel's row;
+    ``plain``: ``time_ms``'s arguments for the plain versions (5
+    runs by default)."""
+    plain = plain or dict(reps=5)
+    Hc, Bc = c["us"].shape
+    ds = c["xs"].shape[1]
+    bk, lk = res["bk"], res["lk"]
+    tensors = [t for t in res["k3_args"] if isinstance(t, torch.Tensor)]
+    return [
+        dict(
+            name=f"backward_quad_ll[B={Bc},H={Hc},{form}]", route="cuda",
+            source="autompc_torch/csrc/riccati_quad.cu",
+            # At B % 1024 == 0 the TPU entry takes its cast-IO wide
+            # kernel (:865), else the loop kernel (:773); K2 is both.
+            replaces="autompc_tpu/ops/pallas_riccati.py:773, :865",
+            launches=n_launches["backward_quad_ll"],
+            max_abs_err=max(abs_err(a, b) for a, b in zip(bk, res["bp"])),
+            ms=time_ms(res["k2"]), plain_ms=res["k2_plain_ms"] if res["k2_plain_ms"]
+            is not None else time_ms(res["k2_plain"], **plain),
+            **extra.get("backward_quad_ll", {}),
+            **bound_keys(n_bytes(c["jac"], c["xs"], c["us"], res["act"], c["Ks"],
+                                 c["ks"], *c["cost"].values(), *bk),
+                         Bc * Hc * (riccati_flops(ds, 1) + 16)),
+        ),
+        dict(
+            name=f"fused_line_search[B={Bc},H={Hc},{form}]", route="cuda",
+            source="autompc_torch/csrc/linesearch_fused.cu",
+            replaces="autompc_tpu/ops/pallas_linesearch.py:803",
+            launches=n_launches["fused_line_search"],
+            max_abs_err=max(abs_err(a, b) for a, b in res["twin"].values()),
+            ms=time_ms(res["k3"]), plain_ms=res["k3_plain_ms"] if res["k3_plain_ms"]
+            is not None else time_ms(res["k3_plain"], **plain),
+            **extra.get("fused_line_search", {}),
+            **k3_bound(n_bytes(*tensors, *lk), Bc, Hc, res["terms"], len(ctx.alphas), ds),
+        ),
+    ]
 
 
 def wide_phase(make_solve, params, warm, pool, ref, ref_rate, rows, dt, gate, counters,
@@ -2419,7 +2819,7 @@ def gauss_reg_phase(bench, model, trajs, dev, card, wrappers):
         runs.append((f"a{i}", lambda i=i: QuadCostFanout(
             bench.system, bench.task, model, model, horizon=FAN_H, n_steps=FAN_STEPS,
             goal=np.zeros(4), compact_schedule=FAN_SCHEDULE, feature_spec=spec,
-            **GR_CONFIGS[i], **reg), batch, FAN_B, FAN_STEPS, 3))
+            **GR_CONFIGS[i], **reg), batch, FAN_B, FAN_STEPS, FAN_CALLS))
     for i in ("1", "2"):
         runs.append((f"b{i}", lambda i=i: JointSINDyQuadCostFanout(
             bench.system, bench.task, JS_BUCKET, trajs, model, horizon=JS_H,
@@ -2637,11 +3037,11 @@ def gauss_reg_expansions(c, S, mu, dt):
     return Cxx, Cuu, cx.contiguous(), cu, Vn.contiguous(), vn.contiguous()
 
 
-def k3_bm_bound(io_bytes, B, H, n_terms, L, reg):
+def k3_bm_bound(io_bytes, B, H, terms, L, reg):
     """K3's bound keys (``k3_bound``) with the GaussReg term's operations
     a candidate-step (10 products of three factors and their sum, 4
     differences, the weight's product and add at obsdim 4)."""
-    out = k3_bound(io_bytes, B, H, n_terms, L)
+    out = k3_bound(io_bytes, B, H, terms, L)
     if reg:
         out.update(bound_keys(io_bytes, out["bound_ops_ms"] * F32_FLOPS / 1e3
                               + B * H * L * 36), scratch_bytes_ms=out["scratch_bytes_ms"])
@@ -2740,7 +3140,7 @@ def check_k3_bm(tag, K1, K3, K4, terms, coeffs, c, S, mu, dt, alphas, bound, pla
             max_abs_err=abs_err(kk[0][lanes], kp[0][lanes]) if lanes.any() else 0.0, **timed,
             plain_ms=time_ms(lambda reg=reg: K3.fused_line_search_bm_plain(*base, reg=reg),
                              **(plain or dict(reps=3))),
-            **k3_bm_bound(n_bytes(*tensors, *kk), B, H, len(terms), len(alphas),
+            **k3_bm_bound(n_bytes(*tensors, *kk), B, H, terms, len(alphas),
                           reg is not None))
         if reg is not None:
             zero = K3.fused_line_search_bm(*base, reg=(S, mu, torch.zeros_like(cp["regw"])))
@@ -4199,6 +4599,446 @@ def model_tuning_phase(bench, model, trajs, dev, card, wrappers):
     return dict(launches=launches, by_B=by_B, kw=kw, batch=batch)
 
 
+def shapes_phase(dev, card, mods, hc, hc_trajs):
+    """Phase 18: (a) the pendulum's main path and closed loop, (b) its
+    cost fan-out in both configurations, (c) its "ilqr" tune, (d) the
+    halfcheetah's SINDy through the batch-major solve. ``mods`` are the
+    kernel modules (K1, K2, K3, K4); ``hc`` and ``hc_trajs`` phase 6's
+    benchmark and data. Each path's kernels are counted from 0 just
+    before it and read just after. Returns what phase [3]'s checks of the
+    new instances read."""
+    from autompc_torch.benchmarks import PendulumSwingupBenchmark
+    from autompc_torch.control import (make_receding_ilqr_loop, make_scheduled_ilqr_solver,
+                                       parse_schedule)
+    from autompc_torch.costs import QuadCost
+    from autompc_torch.sysid import SINDy
+    from autompc_torch.utils.profiling import timeit_distinct
+
+    K1, K2, K3, K4 = mods
+    t_phase = time.perf_counter()
+    f32 = dict(dtype=torch.float32, device=dev)
+    sp = {}
+
+    # ---- (a) the pendulum's main path: K1, K2, K3 at (2, 1) ----------------
+    pb = PendulumSwingupBenchmark()
+    t0 = time.perf_counter()
+    pm = SINDy(pb.system, **SINDY_KW)
+    ptrajs = pb.gen_trajs_batch(seed=42, n_trajs=50, traj_len=100)
+    pm.train(ptrajs)
+    coeffs = pm.coeffs.cpu().numpy()
+    if not np.isfinite(coeffs).all():
+        raise RuntimeError("pendulum SINDy fit produced non-finite coefficients")
+    active = tuple(int(k) for k in np.flatnonzero(np.any(coeffs != 0, axis=0)))
+    torch.cuda.synchronize()
+    print(f"[18a] pendulum data 50x100 + SINDy fit: {time.perf_counter() - t0:.2f} s; support "
+          f"{len(active)} of {coeffs.shape[1]} features: "
+          f"{[pm.library.names[k] for k in active]}", flush=True)
+    qd = np.diag(PD_Q)
+    pcost = QuadCost(pb.system, qd, PD_R * np.eye(1), qd, goal=np.zeros(2))
+    bounds = pb.task.get_ctrl_bounds()
+    common = dict(ds=2, dc=1, obsdim=2, dt=pb.system.dt, ubounds=(bounds[:, 0], bounds[:, 1]),
+                  backward="pallas", feature_spec=(pm.library, "coeffs"), fuse_ls=True,
+                  lanes_last=True, feature_mask=active)
+    ll = (K1.relin_jacobians, K2.backward_quad_ll, K3.fused_line_search)
+    rng = np.random.default_rng(0)
+
+    def draw(n):
+        return torch.as_tensor(rng.uniform(-1, 1, (n, 2)) * np.array([np.pi, 1.0]), **f32)
+
+    reset_launches(ll)
+    solve = make_scheduled_ilqr_solver(pm.pred_core, pcost, H=H,
+                                       schedule=parse_schedule(SCHEDULE), **common)
+    ug = torch.zeros((B_SOLVE, H, 1), **f32)
+    x0 = draw(B_SOLVE)
+    t0 = time.perf_counter()
+    solve(pm.params, x0, ug)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    solve(pm.params, x0 - 0.01, ug)
+    pool = [draw(B_SOLVE) for _ in range(3)]
+    torch.cuda.synchronize()
+    conv = []
+    t0 = time.perf_counter()
+    for x0r in pool:
+        out = solve(pm.params, x0r, ug)
+        conv.append(out[0].float().mean())
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    if tuple(out[1].shape) != (B_SOLVE, H + 1, 2) or not torch.isfinite(out[1]).all():
+        raise RuntimeError(f"pendulum solve malformed or not finite: {tuple(out[1].shape)}")
+    solve_launches = {w.__name__: w.launches for w in ll}
+    print(f"[18a] pendulum scheduled lanes-last solve B={B_SOLVE} H={H}: first run "
+          f"{first_s:.2f} s; 3 timed runs {elapsed:.3f} s -> {B_SOLVE * 3 / elapsed:.1f} "
+          f"solves/s on {card}; open-loop converged {float(torch.stack(conv).mean()):.4f}; "
+          f"launches {solve_launches}", flush=True)
+    run_cl = make_receding_ilqr_loop(pm.pred_core, pcost, pb.dynamics, H=PD_CL_H,
+                                     n_steps=PD_CL_STEPS, **common)
+    x0_cl = torch.as_tensor(np.array([np.pi, 0.0]) + np.random.default_rng(7).uniform(
+        -PD_CL_SPREAD, PD_CL_SPREAD, (PD_CL_B, 2)), **f32)
+    t0 = time.perf_counter()
+    xs_cl, us_cl, nconv = run_cl(pm.params, x0_cl)
+    torch.cuda.synchronize()
+    t_cl = time.perf_counter() - t0
+    if not (torch.isfinite(xs_cl).all() and torch.isfinite(us_cl).all()):
+        raise RuntimeError("pendulum closed loop produced non-finite states or controls")
+    if (us_cl.abs() > float(bounds[0, 1]) + 1e-6).any():
+        raise RuntimeError("pendulum closed loop: a control outside its bounds")
+    fx = xs_cl[:, -1]
+    box = ((fx[:, 0].abs() < 0.2) & (fx[:, 1].abs() < 0.2)).float().mean().item()
+    wrapped = torch.remainder(fx[:, 0] + np.pi, 2 * np.pi) - np.pi
+    box_mod = ((wrapped.abs() < 0.2) & (fx[:, 1].abs() < 0.2)).float().mean().item()
+    cl_launches = {w.__name__: w.launches - solve_launches[w.__name__] for w in ll}
+    print(f"[18a] pendulum closed loop {PD_CL_B} starts around (pi, 0) x {PD_CL_STEPS} steps "
+          f"(H={PD_CL_H}): {t_cl:.2f} s ({t_cl / PD_CL_STEPS * 1e3:.1f} ms a step); ending in the "
+          f"task's 0.2 box {box:.4f} (theta taken modulo 2 pi: {box_mod:.4f}; not gated); solver "
+          f"converged {nconv.float().mean().item() / PD_CL_STEPS:.4f} of steps; launches "
+          f"{cl_launches}", flush=True)
+    a_launches = {w.__name__: w.launches for w in ll}
+    if min(solve_launches.values()) == 0 or min(cl_launches.values()) == 0:
+        raise RuntimeError(f"a kernel never ran on the pendulum's main path: solves "
+                           f"{solve_launches}, closed loop {cl_launches}")
+    sp.update(pb=pb, pm=pm, pcost=pcost, common=common, active=active, x0_cl=x0_cl,
+              a_launches=a_launches, a_solve=solve_launches, a_loop=cl_launches)
+
+    # ---- (b) the pendulum's cost fan-out, both configurations --------------
+    from autompc_torch.parallel import QuadCostFanout
+
+    batch = fanout_candidates(dev, FAN_B, obsdim=2)
+    wrappers = {"a": ll, "b": (K1.relin_jacobians_bm, K2.backward_quad, K3.sindy_line_search)}
+    counts, by_B, solver_kw = {}, {}, {}
+    for cfg in FAN_CONFIGS:
+        fan = QuadCostFanout(pb.system, pb.task, pm, pm, horizon=FAN_H, n_steps=PD_FAN_STEPS,
+                             goal=np.zeros(2), compact_schedule=FAN_SCHEDULE,
+                             feature_spec=(pm.library, "coeffs"), **FAN_CONFIGS[cfg])
+        solver_kw[cfg] = fan.solver_kw
+        reset_launches(wrappers[cfg])
+        t0 = time.perf_counter()
+        scores = fan(batch)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(FAN_CALLS):
+            scores = fan(batch)
+            torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts[cfg] = {w.__name__: w.launches for w in wrappers[cfg]}
+        by_B[cfg] = {w.__name__: dict(w.launches_by_B) for w in wrappers[cfg]
+                     if hasattr(w, "launches_by_B")}
+        if tuple(scores.shape) != (FAN_B,) or torch.isnan(scores).any():
+            raise RuntimeError(f"pendulum fan-out ({cfg}): malformed or NaN scores")
+        fin = torch.isfinite(scores)
+        print(f"[18b] pendulum fan-out ({cfg}) {FAN_CONFIGS[cfg]}: B={FAN_B} H={FAN_H} "
+              f"{PD_FAN_STEPS} steps: warm call {warm_s:.2f} s; {FAN_CALLS} timed calls "
+              f"{elapsed:.3f} s -> {FAN_CALLS * FAN_B / elapsed:.1f} evals/s on {card}; scores "
+              f"finite {int(fin.sum())}, mean {float(scores[fin].mean()):.2f}; launches in "
+              f"{FAN_CALLS + 1} calls {counts[cfg]}, by B {by_B[cfg]}", flush=True)
+        if min(counts[cfg].values()) == 0:
+            raise RuntimeError(f"a kernel never ran on the pendulum fan-out ({cfg}): "
+                               f"{counts[cfg]}")
+    x0f = batch["Qdiag"].new_tensor(np.tile(PD_FAN_X0, (FAN_B, 1)))
+    ugf = x0f.new_zeros((FAN_B, FAN_H, 1))
+    outs = {cfg: make_scheduled_ilqr_solver(
+        pm.pred_core, None, schedule=parse_schedule(FAN_SCHEDULE), **solver_kw[cfg]
+    )(pm.params, x0f, ugf, batch) for cfg in FAN_CONFIGS}
+    obj = {cfg: lane_objective(o[1], o[2], batch, pb.system.dt) for cfg, o in outs.items()}
+    both = outs["a"][0] & outs["b"][0]
+    rel = ((obj["a"] - obj["b"]).abs() / obj["b"].abs().clamp_min(1e-30))[both]
+    share = float((rel <= FAN_OBJ_TOL).float().mean()) if both.any() else 0.0
+    print(f"[18b] first MPC step from {PD_FAN_X0}, (a) vs (b): converged (a) {int(outs['a'][0].sum())}, (b) "
+          f"{int(outs['b'][0].sum())}, both {int(both.sum())} of {FAN_B}; accepted objectives "
+          f"within {FAN_OBJ_TOL} on {share:.4f} (min {FAN_AGREE_MIN}; median "
+          f"{float(rel.median()) if both.any() else float('nan'):.3e})", flush=True)
+    if int(both.sum()) < FAN_B // 4 or share < FAN_AGREE_MIN:
+        raise RuntimeError(f"pendulum fan-out first step: {int(both.sum())} lanes converged "
+                           f"in both, objectives agree on {share:.4f}")
+    sp.update(fan_batch=batch, fan_kw=solver_kw, fan_counts=counts, fan_by_B=by_B)
+
+    # ---- (c) the pendulum's "ilqr" tune ------------------------------------
+    from autompc_torch.control import IterativeLQRFactory
+    from autompc_torch.costs import QuadCostFactory
+    from autompc_torch.pipeline import Pipeline
+    from autompc_torch.tuning import PipelineTuner
+
+    system = pb.system
+    task = pb.task.copy()
+    task.set_num_steps(PD_TUNE_STEPS)
+    tw = wrappers["b"]
+    reset_launches(tw)
+    pipeline = Pipeline(system, pm, QuadCostFactory(system, goal=np.zeros(2)),
+                        IterativeLQRFactory(system, horizon=TUNE_H))
+    t0 = time.perf_counter()
+    _, res = PipelineTuner(
+        surrogate_mode="pretrain", eval_batch=PD_TUNE_BATCH, use_fanout=True,
+        fanout_backward="pallas", fanout_feature_kernels=True, fanout_compact=TUNE_COMPACT,
+    ).run(pipeline, task, ptrajs, n_iters=PD_TUNE_BATCH, rng=np.random.default_rng(100),
+          surrogate=pm, truedyn=pb.dynamics)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    t_launches = {w.__name__: w.launches for w in tw}
+    t_by_B = {w.__name__: dict(w.launches_by_B) for w in tw}
+    costs, true_costs = np.array(res.costs), np.array(res.truedyn_costs)
+    print(f"[18c] pendulum 'ilqr' tune, one round of {PD_TUNE_BATCH} (H={TUNE_H}, "
+          f"{PD_TUNE_STEPS - 1} steps, both fan-outs): {tune_s:.2f} s -> "
+          f"{PD_TUNE_BATCH / tune_s:.1f} evals/s with both fan-outs on {card}; scores finite "
+          f"{int(np.isfinite(costs).sum())} / {costs.size}, true dynamics "
+          f"{int(np.isfinite(true_costs).sum())}; incumbent {res.inc_cfg.get_dictionary()} "
+          f"(surrogate {res.inc_costs[-1]:.1f}, true {res.inc_truedyn_costs[-1]:.1f}); launches "
+          f"{t_launches}, by B {t_by_B}", flush=True)
+    if len(costs) != PD_TUNE_BATCH or np.isnan(costs).any() or np.isnan(true_costs).any():
+        raise RuntimeError("pendulum tune: a score is missing or NaN")
+    if min(t_launches.values()) == 0:
+        raise RuntimeError(f"a kernel never ran in the pendulum tune: {t_launches}")
+    seq_task = pb.task.copy()
+    seq_task.set_cost(QuadCost(system, Q=np.eye(2), R=0.01 * np.eye(1), F=np.eye(2),
+                               goal=np.zeros(2)))
+    seq_task.set_init_obs(np.array(PD_SEQ_X0))
+    seq_task.set_num_steps(SEQ_STEPS)
+    free = Pipeline(system, pm, QuadCostFactory(system, goal=np.zeros(2)),
+                    IterativeLQRFactory(system))
+    t0 = time.perf_counter()
+    scores = [
+        PipelineTuner(surrogate_mode="pretrain", eval_batch=SEQ_ITERS, **kw).run(
+            free, seq_task, ptrajs, n_iters=SEQ_ITERS, rng=np.random.default_rng(3),
+            surrogate=pm)[1]
+        for kw in ({}, dict(use_fanout=True, fanout_backward="pallas",
+                            fanout_feature_kernels=True))
+    ]
+    agree = 0
+    for i, (cfg, a, b) in enumerate(zip(scores[0].cfgs, scores[0].costs, scores[1].costs)):
+        ok = (a == b) or (np.isfinite(a) and np.isfinite(b)
+                          and abs(a - b) <= SEQ_TOL * max(abs(b), 1e-30))
+        agree += ok
+        print(f"[18c] candidate {i} (horizon {cfg['_ctrlr:horizon']}): sequential {a!r}, "
+              f"fan-out {b!r}{'' if ok else ' DIFFER'}", flush=True)
+    same_cfgs = [c.get_dictionary() for c in scores[0].cfgs] == \
+        [c.get_dictionary() for c in scores[1].cfgs]
+    print(f"[18c] sequential vs fan-out ({SEQ_STEPS}-step near-upright task, quadratic task "
+          f"cost): {agree} of {SEQ_ITERS} within {SEQ_TOL} (min {SEQ_AGREE_MIN}); same "
+          f"configurations {same_cfgs}; {time.perf_counter() - t0:.2f} s", flush=True)
+    if agree < SEQ_AGREE_MIN or not same_cfgs:
+        raise RuntimeError(f"pendulum tune: sequential and fan-out agree on {agree} of "
+                           f"{SEQ_ITERS}")
+    from autompc_torch.parallel import QuadCostFanout as _Fan
+
+    sp.update(tune_launches=t_launches, tune_by_B=t_by_B, tune_batch=tune_candidates(
+        res.cfgs[:PD_TUNE_BATCH], system, dev),
+        tune_kw=_Fan(system, task, pm, pm, horizon=TUNE_H, goal=np.zeros(2),
+                     compact_schedule=TUNE_COMPACT, backward="pallas",
+                     feature_spec=(pm.library, "coeffs")).solver_kw)
+
+    # ---- (d) the halfcheetah's SINDy: K1's batch-major entry, K4, K7 at (18, 6)
+    t0 = time.perf_counter()
+    hm = SINDy(hc.system, **HC_SINDY)
+    hm.train(hc_trajs)
+    hco = hm.coeffs.cpu().numpy()
+    h_active = tuple(int(k) for k in np.flatnonzero(np.any(hco != 0, axis=0)))
+    torch.cuda.synchronize()
+    print(f"[18d] cheetah SINDy fit ({hm.library.n_features} terms, poly degree 2): "
+          f"{time.perf_counter() - t0:.2f} s; support {len(h_active)}; coefficients finite "
+          f"{bool(np.isfinite(hco).all())}", flush=True)
+    if not np.isfinite(hco).all():
+        raise RuntimeError("cheetah SINDy fit produced non-finite coefficients")
+    hcost = QuadCost(hc.system, np.eye(18), 0.01 * np.eye(6), np.eye(18), goal=np.zeros(18))
+    hb = hc.task.get_ctrl_bounds()
+    hkw = dict(ds=18, dc=6, obsdim=18, dt=hc.system.dt, ubounds=(hb[:, 0], hb[:, 1]),
+               backward="pallas", feature_spec=(hm.library, "coeffs"), feature_mask=h_active,
+               fuse_ls=False, lanes_last=False)
+    bm = (K1.relin_jacobians_bm, K4.riccati_general, K3.sindy_line_search)
+    reset_launches(bm)
+    hsolve = make_scheduled_ilqr_solver(hm.pred_core, hcost, H=H_HC, max_iter=50,
+                                        schedule=parse_schedule(HC_SCHEDULE), **hkw)
+    hx0 = cheetah_x0(dev)
+    hug = torch.zeros((B_HC, H_HC, 6), **f32)
+    inputs = [(hm.params, hx0 + 0.001 * (r + 1), hug) for r in range(5)]
+    t0 = time.perf_counter()
+    lat, hout = timeit_distinct(hsolve, inputs, silent=True)
+    total_s = time.perf_counter() - t0
+    if tuple(hout[1].shape) != (B_HC, H_HC + 1, 18) or tuple(hout[2].shape) != (B_HC, H_HC, 6):
+        raise RuntimeError(f"cheetah SINDy solve malformed: {tuple(hout[1].shape)}")
+    if not all(torch.isfinite(o[hout[0]]).all() for o in hout[1:]):
+        raise RuntimeError("cheetah SINDy solve: non-finite output on a converged lane")
+    h_conv = hout[0].float().mean().item()
+    h_finite = torch.isfinite(hout[1]).all(dim=(1, 2)).float().mean().item()
+    d_launches = {w.__name__: w.launches for w in bm}
+    print(f"[18d] cheetah SINDy batch-major solve with its feature_spec B={B_HC} H={H_HC} "
+          f"(18, 6): first run {total_s - 4 * lat:.2f} s; 4 timed runs {4 * lat:.3f} s -> "
+          f"{B_HC / lat:.1f} solves/s on {card}; open-loop converged {h_conv:.4f}; lanes "
+          f"finite {h_finite:.4f} (not gated: K4's Cholesky is unguarded); launches "
+          f"{d_launches}", flush=True)
+    if min(d_launches.values()) == 0:
+        raise RuntimeError(f"a kernel never ran on the cheetah SINDy path: {d_launches}")
+    sp.update(hm=hm, hcost=hcost, hkw=hkw, h_active=h_active, d_launches=d_launches,
+              d_by_B={w.__name__: dict(w.launches_by_B) for w in bm})
+    print(f"[18] phase wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return sp
+
+
+def check_shape_kernels(sp, mods, failures):
+    """Phase [3] on phase 18's instances: K1 (both entries), K2, K3, K6
+    and K7 at (2, 1) and K1's batch-major entry and K7 at (18, 6) against
+    their plain versions, as the (4, 1) rows are held: K1-K3 on the
+    pendulum's main-path carry after make_carry0 (B=4096, H=200), on its
+    closed loop's first carry (B=256, H=20) and on fan-out (a)'s carry
+    after three iterations (B=1,024, H=10, per-lane planes); K1's
+    batch-major entry, K6 and K7 on fan-out (b)'s carry at every batch
+    size (b) launched them with and on the tune's carry at every batch
+    size the tune launched them with; K1's batch-major entry and K7 (on
+    the carry's gains) on the cheetah SINDy solve's carry after three
+    iterations (B=1024, H=200). Appends to ``failures``; returns the
+    kernels line's rows."""
+    from autompc_torch.control import make_batched_ilqr_solver
+
+    K1, K2, K3, K4 = mods
+    pm, pcost, common, pb = sp["pm"], sp["pcost"], sp["common"], sp["pb"]
+    dev = pm.coeffs.device
+    dt = pb.system.dt
+    terms = tuple(pm.library.terms[k] for k in sp["active"])
+    ca = pm.coeffs[:, list(sp["active"])].contiguous()
+    alphas = tuple(0.2 ** k for k in range(10))
+    bound = float(pb.task.get_ctrl_bounds()[0, 1])
+    ctx = PhaseCtx(terms=terms, ca=ca, dt=dt, lo=-bound, hi=bound, alphas=alphas, dev=dev,
+                   failures=failures, K1=K1, K2=K2, K3=K3)
+    rows = []
+    tag = "2x1"
+    # K1-K3 on the main path's carry (a row each), the closed loop's and
+    # fan-out (a)'s (``at_*`` keys, each with its launches).
+    _, carry0, _, make_body = make_batched_ilqr_solver(pm.pred_core, pcost, H=H,
+                                                       return_pieces=True, **common)
+    # The starts around the rest state (PD_KERNEL_SPREAD): from anywhere
+    # on the circle a 200-step float32 rollout under the first
+    # iteration's gains amplifies rounding so far that no float32 order
+    # meets TOL_K3 normwise (tools/torch_pendulum_conditioning.py), so K3
+    # is held normwise, as on the (4, 1) main-path carry, where it is not.
+    rng = np.random.default_rng(1)
+    x0 = torch.as_tensor(np.array([np.pi, 0.0]) + rng.uniform(
+        -PD_KERNEL_SPREAD, PD_KERNEL_SPREAD, (B_KERNEL, 2)), dtype=torch.float32, device=dev)
+    c = carry0(pm.params, x0, x0.new_zeros((B_KERNEL, H, 1)))
+    diag = (PD_Q, (PD_R,), PD_Q, (0.0, 0.0))
+    a_solve = sp["a_solve"]
+    once = dict(reps=1, warm=0)
+    r1 = check_k1_ll(ctx, f"pendulum main-path carry ({tag})", c, a_solve["relin_jacobians"],
+                     plain=once)
+    rk = k2_k3_rows_ll(ctx, check_k2_k3_ll(ctx, f"fixed cost, pendulum main-path carry ({tag})",
+                                           c, diag, plain=once), c, "fixed cost", a_solve,
+                       plain=once)
+    main_rows = [r1] + rk
+    for r in main_rows:
+        r["name"] = r["name"].replace("[", f"[{tag},", 1)
+    _, carry_g, _, _ = make_batched_ilqr_solver(pm.pred_core, pcost, H=PD_CL_H,
+                                                return_pieces=True, **common)
+    cg = carry_g(pm.params, sp["x0_cl"], sp["x0_cl"].new_zeros((PD_CL_B, PD_CL_H, 1)))
+    gate = [check_k1_ll(ctx, f"pendulum closed-loop carry ({tag})", cg,
+                        sp["a_loop"]["relin_jacobians"])]
+    gate += k2_k3_rows_ll(ctx, check_k2_k3_ll(ctx, f"fixed cost, pendulum closed-loop carry "
+                                                   f"({tag})", cg, diag), cg, "fixed cost",
+                          sp["a_loop"])
+    batch = sp["fan_batch"]
+    x0f = batch["Qdiag"].new_tensor(np.tile(pb.task.get_init_obs(), (FAN_B, 1)))
+
+    def fan_carry(cfg):
+        _, c0, _, body_ = make_batched_ilqr_solver(pm.pred_core, None, return_pieces=True,
+                                                   **sp["fan_kw"][cfg])
+        cc, body = c0(pm.params, x0f, x0f.new_zeros((FAN_B, FAN_H, 1)), batch), body_(pm.params)
+        for _ in range(3):
+            cc = body(cc)
+        return cc
+
+    cfa = fan_carry("a")
+    fan_cost = (*(cfa["cost"][k] for k in ("Qdiag", "Rdiag", "Fdiag")), (0.0, 0.0))
+    fan_rows = [check_k1_ll(ctx, f"pendulum fan-out (a) carry ({tag})", cfa,
+                            sp["fan_counts"]["a"]["relin_jacobians"])]
+    fan_rows += k2_k3_rows_ll(ctx, check_k2_k3_ll(
+        ctx, f"per-lane cost, pendulum fan-out (a) carry ({tag})", cfa, fan_cost,
+        agree_min=K3_FAN_AGREE_MIN, within_min=K3_FAN_WITHIN_MIN), cfa, "per-lane cost",
+        sp["fan_counts"]["a"])
+    for r, g, f in zip(main_rows, gate, fan_rows):
+        base = r["name"].split("[")[0]
+        r[f"launches_B{B_SOLVE}_H{H}"] = a_solve[base]
+        r["launches"] = sp["a_launches"][base]
+        for key, w in ((f"at_B{PD_CL_B}_H{PD_CL_H}", g), (f"at_B{FAN_B}_H{FAN_H}", f)):
+            r[key] = {k: v for k, v in w.items()
+                      if k not in ("name", "route", "source", "replaces", "library_ms")}
+        r["launches_fanout_a"] = sp["fan_counts"]["a"][base]
+    rows += main_rows
+
+    # K1's batch-major entry, K6 and K7 on fan-out (b)'s and the tune's carries.
+    cfb = fan_carry("b")
+    fan_by_B = sp["fan_by_B"]["b"]
+    fan_Bs = sorted({b for d in fan_by_B.values() for b in d}, reverse=True)
+    k67 = {}
+    for Bs in fan_Bs:
+        sub = {k: cfb[k][:Bs].contiguous() for k in ("x0s", "xs", "us", "Jx", "Ju")}
+        k67[Bs], fails = check_fanout_kernels(
+            f"pendulum fan-out (b) carry ({tag})", K1, K2, K3, terms, ca, sub,
+            {k: v[:Bs] for k, v in batch.items()}, (0.0, 0.0), dt, alphas, bound)
+        failures += fails
+    tune_Bs = sorted({b for d in sp["tune_by_B"].values() for b in d}, reverse=True)
+    _, tc0, _, tbody_ = make_batched_ilqr_solver(pm.pred_core, None, return_pieces=True,
+                                                 **sp["tune_kw"])
+    tb = sp["tune_batch"]
+    n = tb["Qdiag"].shape[0]
+    x0t = tb["Qdiag"].new_tensor(np.tile(pb.task.get_init_obs(), (n, 1)))
+    ct, tbody = tc0(pm.params, x0t, x0t.new_zeros((n, TUNE_H, 1)), tb), tbody_(pm.params)
+    for _ in range(3):
+        ct = tbody(ct)
+    k67t = {}
+    for Bs in tune_Bs:
+        sub = {k: ct[k][:Bs].contiguous() for k in ("x0s", "xs", "us", "Jx", "Ju")}
+        k67t[Bs], fails = check_fanout_kernels(
+            f"pendulum tune carry ({tag})", K1, K2, K3, terms, ca, sub,
+            {k: v[:Bs] for k, v in tb.items()}, (0.0, 0.0), dt, alphas, bound)
+        failures += fails
+    for k, (name, source, replaces) in enumerate((
+        ("relin_jacobians_bm", "autompc_torch/csrc/relin.cu",
+         "autompc_tpu/ops/pallas_relin.py:192"),
+        ("backward_quad", "autompc_torch/csrc/riccati_quad_bm.cu",
+         "autompc_tpu/ops/pallas_riccati.py:456"),
+        ("sindy_line_search", "autompc_torch/csrc/sindy_linesearch.cu",
+         "autompc_tpu/ops/pallas_linesearch.py:191"),
+    )):
+        at = {f"at_B{Bs}_H{FAN_H}": dict(k67[Bs][k], launches=fan_by_B[name].get(Bs, 0))
+              for Bs in fan_Bs[1:]}
+        at.update({f"at_B{Bs}_H{TUNE_H}_tune": dict(
+            k67t[Bs][k], launches=sp["tune_by_B"][name].get(Bs, 0)) for Bs in tune_Bs})
+        for w in at.values():
+            w.pop("library_ms")
+        rows.append(dict(
+            name=f"{name}[{tag},B={FAN_B},H={FAN_H}]", route="cuda", source=source,
+            replaces=replaces, launches=sp["fan_counts"]["b"][name], launches_by_B=fan_by_B[name],
+            launches_tune=sp["tune_launches"][name], launches_tune_by_B=sp["tune_by_B"][name],
+            **k67[FAN_B][k], **at))
+
+    # K1's batch-major entry and K7 at (18, 6) on the cheetah SINDy carry.
+    hm, hkw = sp["hm"], sp["hkw"]
+    hterms = tuple(hm.library.terms[k] for k in sp["h_active"])
+    hca = hm.coeffs[:, list(sp["h_active"])].contiguous()
+    _, hc0, _, hbody_ = make_batched_ilqr_solver(hm.pred_core, sp["hcost"], H=H_HC,
+                                                 return_pieces=True, **hkw)
+    hx0 = cheetah_x0(dev)
+    ch, hbody = hc0(hm.params, hx0, hx0.new_zeros((B_HC, H_HC, 6))), hbody_(hm.params)
+    for _ in range(3):
+        ch = hbody(ch)
+    hbound = np.asarray(hkw["ubounds"][1], dtype=np.float64)
+    h_rows, fails = check_fanout_kernels(
+        "cheetah SINDy carry (18x6)", K1, None, K3, hterms, hca,
+        {k: ch[k].contiguous() for k in ("x0s", "xs", "us", "Jx", "Ju")}, None, None,
+        sp["hkw"]["dt"], alphas, hbound, gains=(ch["Ks"].contiguous(), ch["ks"].contiguous()),
+        # K7's plain version takes seconds a call at this shape: timed once,
+        # the check's own call its warm-up.
+        plain=dict(reps=1, warm=0))
+    failures += fails
+    for meas, (name, source, replaces) in zip(h_rows, (
+        ("relin_jacobians_bm", "autompc_torch/csrc/relin.cu",
+         "autompc_tpu/ops/pallas_relin.py:192"),
+        ("sindy_line_search", "autompc_torch/csrc/sindy_linesearch.cu",
+         "autompc_tpu/ops/pallas_linesearch.py:191"),
+    )):
+        rows.append(dict(name=f"{name}[18x6,B={B_HC},H={H_HC}]", route="cuda", source=source,
+                         replaces=replaces, launches=sp["d_launches"][name],
+                         launches_by_B=sp["d_by_B"][name], **meas))
+    return rows
+
+
 def main(profile=False):
     dev = check_device()
     from autompc_torch.benchmarks import CartpoleSwingupBenchmark, HalfcheetahBenchmark
@@ -4222,16 +5062,23 @@ def main(profile=False):
           f"cuda {torch.version.cuda} | {torch.cuda.get_device_name(0)}",
           flush=True)
 
+    # The main library and phase 18's shapes (built at first use from the
+    # same sources), one nvcc a source or shape, all started together,
+    # before any timed window.
     t0 = time.perf_counter()
-    _build.library()
+    _build.build_shapes(SHAPES_18, main=True)
     print(f"[1] build/load kernels: {time.perf_counter() - t0:.2f} s "
-          f"({_build.library_path().name})", flush=True)
+          f"({_build.library_path().name}, and phase 18's shapes {SHAPES_18})", flush=True)
     # Registers a thread (ptxas) and resident warps an SM: K3 and K5 from
     # the CUDA occupancy query at each shape their paths launch; the other
     # kernels' 64-thread blocks bounded by registers alone.
     for name, regs, spill in ptxas_report(_build.build_log()):
         print(f"    ptxas: {name}: {regs} registers, {spill} bytes spilled, <= "
               f"{min(64, 65536 // (-(-regs // 8) * 8 * 32))} warps an SM by registers")
+    for shape in SHAPES_18:
+        for name, regs, spill in ptxas_report(_build.shape_build_log(*shape)):
+            print(f"    ptxas {shape[0]} ({shape[1]}, {shape[2]}): {name}: {regs} registers, "
+                  f"{spill} bytes spilled")
     for tag, B, lane, bf16, coef in (
             ("main path", B_SOLVE, 0, 0, 0), ("main path", B_KERNEL, 0, 0, 0),
             ("fan-out, per-lane cost", FAN_B, 1, 0, 0), ("llb, bf16 carry", B_SOLVE, 0, 1, 0),
@@ -4614,6 +5461,9 @@ def main(profile=False):
     mt = model_tuning_phase(bench, model, trajs, dev, card, fan_wrappers["b"])
     print(f"[17] phase wall {time.perf_counter() - t17:.2f} s", flush=True)
 
+    # ---- [18] the feature kernels off the cartpole's shape -----------------------
+    sp = shapes_phase(dev, card, (K1, K2, K3, K4), hc, hc_trajs)
+
     # ---- [3] kernels vs plain twins on path inputs -----------------------
     _, make_carry0, _, _ = make_batched_ilqr_solver(
         model.pred_core, cost, H=H, return_pieces=True, **common
@@ -4627,229 +5477,11 @@ def main(profile=False):
     alphas = tuple(0.2 ** k for k in range(10))
     report = []
 
-    def check_k1(tag, c, n_launches, tms=None, coef=None, name="relin_jacobians",
-                 plain=None):
-        """The relinearization kernel on the trajectory of the lanes-last
-        carry ``c``: one report row. ``tms``/``coef``: another library's
-        terms and coefficients than the main path's (a per-lane plane
-        (ds, n, B) for the per-lane instances); ``plain``: ``time_ms``'s
-        arguments for the plain version (its defaults if None)."""
-        tms, coef, plain = tms or terms, ca if coef is None else coef, plain or {}
-        Hc, Bc = c["us"].shape
-        k1_args = (tms, c["xs"], c["us"], coef)
-        jk, jp = K1.relin_jacobians(*k1_args), K1.relin_jacobians_plain(*k1_args)
-        e1 = rel_err(jk, jp)
-        print(f"[3] K1 relin, {tag}: rel err {e1:.3e} (tol {TOL_K1})", flush=True)
-        if e1 > TOL_K1:
-            failures.append(f"K1 ({tag}) rel err {e1:.3e} > {TOL_K1}")
-        return dict(
-            name=f"{name}[B={Bc},H={Hc}]", route="cuda",
-            source="autompc_torch/csrc/relin.cu",
-            replaces="autompc_tpu/ops/pallas_relin.py:192",
-            launches=n_launches, max_abs_err=abs_err(jk, jp),
-            ms=time_ms(lambda: K1.relin_jacobians(*k1_args)),
-            device_ms=device_ms(lambda: K1.relin_jacobians(*k1_args)),
-            plain_ms=time_ms(lambda: K1.relin_jacobians_plain(*k1_args), **plain),
-            **bound_keys(n_bytes(c["xs"], c["us"], coef, jk),
-                         Bc * Hc * feature_flops(len(tms), 5, 4)),
-        )
-
-    def check_k2_k3(tag, c, cost, agree_min=K3_AGREE_MIN, within_min=None, split=False,
-                    tms=None, coef=None):
-        """One backward pass and one line search on the lanes-last carry
-        ``c`` under ``cost = (qd, rd, fd, goal)``; returns the kernels'
-        outputs, the twin pairs and the timed closures, and appends to
-        ``failures``. The twins' states are gated normwise, or, with
-        ``within_min``, per lane on that share of the lanes. With
-        ``split``, the split search (K8 + acceptance + K9) is held
-        against K3 on the same inputs: decisions on ``agree_min`` of the
-        active lanes, and bit for bit where they agree. ``tms``/``coef``
-        as in ``check_k1``."""
-        tms, coef = tms or terms, ca if coef is None else coef
-        Hc, Bc = c["us"].shape
-        act = ~c["converged"] & ~c["failed"]
-        k2_kw = dict(carry=(act, c["Ks"], c["ks"]))
-        k2_args = (c["jac"], c["xs"], c["us"], *cost, dt, 4)
-        bk = K2.backward_quad_ll(*k2_args, **k2_kw)
-        bp = K2.backward_quad_ll_plain(*k2_args, **k2_kw)
-        print(f"[3] K2 backward, {tag}: rel err K/k/lin/quad "
-              f"{[f'{rel_err(a, b):.3e}' for a, b in zip(bk, bp)]} (tol {TOL_K2})",
-              flush=True)
-        KsT, ksT, lin, quad = bk
-        ks_small = torch.sqrt((ksT * ksT).sum(0)) < 1e-3
-        lo, hi = float(bounds[0, 0]), float(bounds[0, 1])
-        ls_common = (tms, c["x0s"], c["xs"], c["us"], KsT, ksT, coef, alphas, lo, hi,
-                     *cost, dt)
-        k3_args = ls_common + (c["obj"], lin, quad, ks_small, act, c["jac"])
-        lk = K3.fused_line_search(*k3_args)
-        lp = K3.fused_line_search_plain(*k3_args)
-        objs = K3.line_search_objectives(*ls_common)
-
-        def choice(obj_out):
-            return (objs - obj_out[None]).abs().argmin(0)
-
-        def pick(idx):
-            return objs.gather(0, idx[None])[0]
-
-        # Decisions against the twin, on the active lanes (see K3_TIE).
-        def lane_finite(out):
-            return torch.stack([torch.isfinite(t.float()).reshape(-1, Bc).all(0)
-                                for t in out]).all(0)
-
-        kernel_only = int((~lane_finite(lk) & lane_finite(lp)).sum())
-        ck, cp = choice(lk[2]), choice(lp[2])
-        same_choice = (ck == cp) | ((pick(ck) - pick(cp)).abs() <= K3_TIE * pick(cp).abs())
-        same_flags = (lk[3] == lp[3]) & (lk[4] == lp[4])
-        obj0 = c["obj"]
-        stalled = ((lk[2] - obj0).abs() <= K3_TIE * obj0.abs()) \
-            & ((lp[2] - obj0).abs() <= K3_TIE * obj0.abs())
-        moved = act & ~lk[4] & ~lp[4]
-        agree = stalled | (same_flags & (~moved | same_choice))
-        lanes = moved & same_flags & (ck == cp)
-        twin = {
-            "xs": (lk[0][:, :, lanes], lp[0][:, :, lanes]),
-            "obj": (lk[2][lanes], lp[2][lanes]),
-            "us": (lk[1][:, lanes], lp[1][:, lanes]),
-            "jac": (lk[5][:, :, lanes], lp[5][:, :, lanes]),
-            "du2": (lk[6][lanes], lp[6][lanes]),
-        }
-        dx = (twin["xs"][0].double() - twin["xs"][1].double()).abs().amax(dim=(0, 1))
-        per_lane = dx / twin["xs"][1].double().abs().amax(dim=(0, 1)).clamp_min(1e-30)
-        # The carry select: an inactive lane comes back bit for bit.
-        held = all(torch.equal(new[..., ~act], old[..., ~act]) for new, old in (
-            (lk[0], c["xs"]), (lk[1], c["us"]), (lk[2], obj0), (lk[5], c["jac"])))
-        # float64 evaluation at the kernel's own states (see TOL_K3_SUM),
-        # on every lane the kernel moved: the controls of a step size
-        # whose objective is the one returned, the next states, the
-        # objective of the returned trajectory under the lane's cost, du2
-        # and, where the Jacobians were taken anew, the Jacobians.
-        own = act & ~lk[4]
-        a64 = torch.tensor(alphas, dtype=torch.float64, device=dev)[:, None, None]
-        ubar = c["us"].double()
-        fb = KsT.double() * (lk[0][:-1].double() - c["xs"][:-1].double())
-        step = a64 * ksT.double()[None]                                     # (L, H, B)
-        u64 = (step + ubar[None] + fb.sum(1)[None]).clamp(lo, hi)
-        scale = step.abs() + ubar.abs()[None] + fb.abs().sum(1)[None]
-        e_l = ((lk[1].double()[None] - u64).abs() / scale.clamp_min(1e-30)).amax(1)
-        near = (objs - pick(ck)[None]).abs() <= K3_TIE * pick(ck).abs()[None]
-        e_u = torch.where(near, e_l, torch.full_like(e_l, float("inf"))).amin(0)
-        from autompc_torch.sysid.basis import term_value
-
-        z = [lk[0][:-1, i].double() for i in range(4)] + [lk[1].double()]
-        theta = torch.stack([term_value(t, z) for t in tms], dim=-1)        # (H, B, F)
-        c64 = coef.double()
-        if c64.ndim == 3:      # lane b through lane b's model
-            x64 = torch.einsum("hbf,ifb->hbi", theta, c64)
-            mag = torch.einsum("hbf,ifb->hbi", theta.abs(), c64.abs())
-        else:
-            x64 = theta @ c64.T
-            mag = theta.abs() @ c64.abs().T
-        e_x = (lk[0][1:].permute(0, 2, 1).double() - x64).abs() / mag.clamp_min(1e-30)
-        qd_, rd_, fd_ = cost[:3]
-        if isinstance(qd_, torch.Tensor):
-            rows = dict(Qdiag=qd_.T, Rdiag=rd_.T, Fdiag=fd_.T)
-        else:
-            rows = {k: obj0.new_tensor(v).expand(Bc, len(v))
-                    for k, v in (("Qdiag", qd_), ("Rdiag", rd_), ("Fdiag", fd_))}
-        obj64 = lane_objective(lk[0].permute(2, 0, 1), lk[1].T[:, :, None], rows, dt)
-        du2_64 = ((lk[1].double() - ubar) ** 2).sum(0)
-        jl = own & lk[3]
-        jac64 = K1.relin_jacobians_plain(
-            tms, lk[0][:, :, jl].double(), lk[1][:, jl].double(),
-            c64[:, :, jl].contiguous() if c64.ndim == 3 else c64
-        )
-        err = dict(
-            k2=max(rel_err(a, b) for a, b in zip(bk, bp)),
-            frac=agree[act].float().mean().item(),
-            xs=rel_err(*twin["xs"]), obj=rel_err(*twin["obj"]),
-            within=(per_lane <= TOL_K3).float().mean().item(),
-            u=float(e_u[own].max()), x=float(e_x[:, own].max()),
-            obj64=float(((lk[2].double() - obj64).abs() / obj64.abs().clamp_min(1e-30))[own].max()),
-            du2=rel_err(lk[6][own], du2_64[own]),
-            jac=rel_err(lk[5][:, :, jl], jac64),
-        )
-        xs_gate = (f"normwise, gated at {TOL_K3}" if within_min is None else
-                   f"per lane within {TOL_K3} on {err['within']:.4f}, min {within_min}")
-        print(f"[3] K3 line search, {tag}: active lanes {int(act.sum())} of {Bc}, inactive "
-              f"returned bit for bit: {held}; lanes with an output not finite only in the "
-              f"kernel {kernel_only}; decisions agree with the twin on "
-              f"{err['frac']:.5f} of the active lanes (min {agree_min}; flags differ on "
-              f"{int((act & ~same_flags).sum())}, of which stalled {int((act & ~same_flags & stalled).sum())}; "
-              f"step size differs on {int((moved & same_flags & ~same_choice).sum())}); vs twin on "
-              f"the {int(lanes.sum())} lanes of equal decisions "
-              f"{({k: f'{rel_err(a, b):.3e}' for k, (a, b) in twin.items()})} (obj gated at "
-              f"{TOL_K3}; xs {xs_gate}); vs float64 at the kernel's states on the "
-              f"{int(own.sum())} lanes it moved: u {err['u']:.3e}, next x {err['x']:.3e} of term "
-              f"magnitudes (tol {TOL_K3_SUM}), objective of the returned trajectory "
-              f"{err['obj64']:.3e} (tol {TOL_K3}), jac {err['jac']:.3e} (tol {TOL_K1}), du2 "
-              f"{err['du2']:.3e} (tol {TOL_K3})", flush=True)
-        if err["k2"] > TOL_K2:
-            failures.append(f"K2 ({tag}) rel err {err['k2']:.3e} > {TOL_K2}")
-        if not held:
-            failures.append(f"K3 ({tag}) changed an inactive lane")
-        if kernel_only:
-            failures.append(f"K3 ({tag}) an output not finite on {kernel_only} lanes where "
-                            f"the twin's is finite")
-        if err["frac"] < agree_min:
-            failures.append(f"K3 ({tag}) decisions agree on {err['frac']:.5f} < {agree_min}")
-        if err["obj"] > TOL_K3 or (err["xs"] > TOL_K3 if within_min is None
-                                   else err["within"] < within_min):
-            failures.append(f"K3 ({tag}) vs twin: xs {err['xs']:.3e} (within on "
-                            f"{err['within']:.4f}), obj {err['obj']:.3e}")
-        if max(err["u"], err["x"]) > TOL_K3_SUM or err["jac"] > TOL_K1 \
-                or max(err["du2"], err["obj64"]) > TOL_K3:
-            failures.append(f"K3 ({tag}) float64 check u {err['u']:.3e} x {err['x']:.3e} obj "
-                            f"{err['obj64']:.3e} jac {err['jac']:.3e} du2 {err['du2']:.3e}")
-        if split:
-            frac, bits = split_agreement(K3.fused_line_search_wide(*k3_args), lk, act)
-            print(f"[3] split search vs K3, {tag}: decisions agree on {frac:.5f} of "
-                  f"{int(act.sum())} active lanes (min {agree_min}), xs/us/jac/du2 bit for "
-                  f"bit on those {bits}", flush=True)
-            if frac < agree_min or not bits:
-                failures.append(f"split vs K3 ({tag}): agree {frac:.5f}, bits {bits}")
-        return dict(
-            bk=bk, bp=bp, lk=lk, twin=twin, k3_args=k3_args, act=act, n_terms=len(tms),
-            k2=lambda: K2.backward_quad_ll(*k2_args, **k2_kw),
-            k2_plain=lambda: K2.backward_quad_ll_plain(*k2_args, **k2_kw),
-            k3=lambda: K3.fused_line_search(*k3_args),
-            k3_plain=lambda: K3.fused_line_search_plain(*k3_args),
-        )
-
-    def k2_k3_rows(res, c, form, n_launches, plain=None, **extra):
-        """The two report rows of one ``check_k2_k3`` result on carry
-        ``c``; ``extra[kernel]`` adds keys to that kernel's row;
-        ``plain``: ``time_ms``'s arguments for the plain versions (5
-        runs by default)."""
-        plain = plain or dict(reps=5)
-        Hc, Bc = c["us"].shape
-        bk, lk = res["bk"], res["lk"]
-        tensors = [t for t in res["k3_args"] if isinstance(t, torch.Tensor)]
-        return [
-            dict(
-                name=f"backward_quad_ll[B={Bc},H={Hc},{form}]", route="cuda",
-                source="autompc_torch/csrc/riccati_quad.cu",
-                # At B % 1024 == 0 the TPU entry takes its cast-IO wide
-                # kernel (:865), else the loop kernel (:773); K2 is both.
-                replaces="autompc_tpu/ops/pallas_riccati.py:773, :865",
-                launches=n_launches["backward_quad_ll"],
-                max_abs_err=max(abs_err(a, b) for a, b in zip(bk, res["bp"])),
-                ms=time_ms(res["k2"]), plain_ms=time_ms(res["k2_plain"], **plain),
-                **extra.get("backward_quad_ll", {}),
-                **bound_keys(n_bytes(c["jac"], c["xs"], c["us"], res["act"], c["Ks"],
-                                     c["ks"], *c["cost"].values(), *bk),
-                             Bc * Hc * (riccati_flops(4, 1) + 16)),
-            ),
-            dict(
-                name=f"fused_line_search[B={Bc},H={Hc},{form}]", route="cuda",
-                source="autompc_torch/csrc/linesearch_fused.cu",
-                replaces="autompc_tpu/ops/pallas_linesearch.py:803",
-                launches=n_launches["fused_line_search"],
-                max_abs_err=max(abs_err(a, b) for a, b in res["twin"].values()),
-                ms=time_ms(res["k3"]), plain_ms=time_ms(res["k3_plain"], **plain),
-                **extra.get("fused_line_search", {}),
-                **k3_bound(n_bytes(*tensors, *lk), Bc, Hc, res["n_terms"], len(alphas)),
-            ),
-        ]
+    ctx = PhaseCtx(terms=terms, ca=ca, dt=dt, lo=float(bounds[0, 0]), hi=float(bounds[0, 1]),
+                   alphas=alphas, dev=dev, failures=failures, K1=K1, K2=K2, K3=K3)
+    check_k1 = functools.partial(check_k1_ll, ctx)
+    check_k2_k3 = functools.partial(check_k2_k3_ll, ctx)
+    k2_k3_rows = functools.partial(k2_k3_rows_ll, ctx)
 
     def check_wide(tag, c, cost, plain_reps=3):
         """K2's reshape-IO entry and bfloat16 instances, K3's bfloat16
@@ -4991,7 +5623,7 @@ def main(profile=False):
         k2_bytes = n_bytes(c["jac"], c["xs"], c["us"], act, c["Ks"], c["ks"], *bk)
         k2_ops = Bc * Hc * (riccati_flops(4, 1) + 16)
         ls_bytes = n_bytes(c["x0s"], c["xs"], c["us"], KsT, ksT, ca)
-        step_ops = len(terms) * 13 + 20
+        step_ops = feature_value_flops(terms, 4) + 20
         # K8's bound: the function it replaces (pallas_linesearch.py:1129)
         # reads the carry and returns the (L, B) objectives; the du2 of the
         # selected candidate only, 3 operations a lane-step. The stash and
@@ -5004,7 +5636,7 @@ def main(profile=False):
                        Bc * len(alphas) * Hc * (step_ops + 12) + Bc * Hc * 3),
             scratch_bytes_ms=n_bytes(sk, dk) / HBM_BYTES_PER_S * 1e3)
         k9_in = n_bytes(c["x0s"], c["xs"], c["us"], ca, sel, tm, jm) + 4 * Bc * (Hc * 5 + 1)
-        k9_ops = Bc * Hc * feature_flops(len(terms), 5, 4)
+        k9_ops = Bc * Hc * feature_jac_flops(terms, 4)
         plain = lambda fn: time_ms(fn, reps=plain_reps)
         split = lambda: K3.fused_line_search_wide(*ls, *tail, c["jac"])
         return {
@@ -5022,7 +5654,7 @@ def main(profile=False):
                 max_abs_err=abs_err(lkb[0][..., twin_b], lpb[0][..., twin_b]),
                 ms=time_ms(lambda: K3.fused_line_search(*ls, *tail, jb)),
                 plain_ms=plain(lambda: K3.fused_line_search_plain(*ls, *tail, jb)),
-                **k3_bound(ls_bytes + n_bytes(*tail, jb, *lkb), Bc, Hc, len(terms),
+                **k3_bound(ls_bytes + n_bytes(*tail, jb, *lkb), Bc, Hc, terms,
                            len(alphas))),
             "k8": dict(
                 max_abs_err=abs_err(ok[fin], op[fin]),
@@ -5363,7 +5995,7 @@ def main(profile=False):
         ja_cost = (*(cja["cost"][k] for k in ("Qdiag", "Rdiag", "Fdiag")), (0.0,) * 4)
         res_a = check_k2_k3(f"joint fan-out (a) carry, per-lane coefficients, {tag}", cja, ja_cost,
                             agree_min=K3_FAN_AGREE_MIN, within_min=K3_FAN_WITHIN_MIN, tms=tms,
-                            coef=cja["params"])
+                            coef=cja["params"], plain=plain)
         k3_row = k2_k3_rows(res_a, cja, "per-lane cost", {
             "backward_quad_ll": ca_counts["backward_quad_ll"],
             "fused_line_search": ca_counts["fused_line_search"]}, plain=plain)[1]
@@ -5459,6 +6091,12 @@ def main(profile=False):
     gp_rows, fails = check_gp_kernels(gpd, K2, K4, bench.system.dt)
     failures += fails
     report += gp_rows
+
+    # Phase 18's instances: K1 (both entries), K2, K3, K6, K7 at (2, 1), K1's
+    # batch-major entry and K7 at (18, 6), in rows of their own.
+    t3 = time.perf_counter()
+    report += check_shape_kernels(sp, (K1, K2, K3, K4), failures)
+    print(f"[3] phase 18's instances checked in {time.perf_counter() - t3:.2f} s", flush=True)
 
     def device_txt(w):
         return ((f" (device {w['device_ms']:.4f})" if "device_ms" in w else "")

@@ -263,7 +263,7 @@ def test_fanout_kernel_entries_mirror_the_sources():
     for kernel in ("backward_quad_bm_kernel", "backward_quad_bm_wide_kernel",
                    "sindy_ls_kernel"):
         assert re.search(r"__global__ void " + kernel + r"\(", text)
-    assert ctypes.sizeof(_build.SindyLS) == 4 * (1 + _build.MAX_L + 2)
+    assert ctypes.sizeof(_build.SindyLS) == 4 * (1 + _build.MAX_L + 2 * _build.MAX_D)
     assert ctypes.sizeof(_build.QuadDiag) == 4 * (2 + 3 * _build.MAX_OBS + 1)
     assert _build.KERNEL_SHAPES["sindy_linesearch"] == ((4, 1),)
     # K6: the ds = 4 kernel and the wide instance the entry dispatches
@@ -310,27 +310,32 @@ def test_fanout_takes_the_card_unless_told(monkeypatch):
 
 
 @pytest.mark.parametrize("which, match", [
-    ("K6 ds", "batch-major backward kernel is built for"),
-    ("K7 ds", "rollout line-search kernel is built for"),
-    ("K7 dc", "rollout line-search kernel is built for"),
+    ("K6 ds", r"ds \+ dc <= MAX_D = 24"),
+    ("K7 ds", r"ds \+ dc <= MAX_D = 24"),
+    ("K7 dc", r"ds \+ dc <= MAX_D = 24"),
     ("K7 per-lane coeffs", "per-lane coefficients"),
 ])
 def test_new_kernels_raise_at_unbuilt_shapes(which, match, monkeypatch):
-    """At a (ds, dc) with no instance the wrapper of a tensor that is not
-    on the CPU raises before any launch (device_kind is patched so that
-    meta tensors stand in for the card's)."""
+    """Past the kernels' stated limits (ds + dc <= MAX_D) the wrapper of a
+    tensor that is not on the CPU raises by name before any build or
+    launch (device_kind is patched so that meta tensors stand in for the
+    card's); within them a shape the main library lacks is built at first
+    use (tests/test_torch_shapes.py)."""
     from autompc_torch.ops import _build, cuda_linesearch, cuda_riccati
     from autompc_torch.sysid.basis import FeatureLibrary
 
     monkeypatch.setattr(_build, "device_kind", lambda t: "cuda")
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device="meta")
     if which == "K6 ds":
+        ds = _build.MAX_D
         with pytest.raises(ValueError, match=match):
-            cuda_riccati.backward_quad(z(2, 3, 5, 5), z(2, 3, 5, 1), z(2, 4, 5), z(2, 3, 1),
-                                       z(2, 5), z(2, 1), z(2, 5), (0.0,) * 5, 0.05, 5)
+            cuda_riccati.backward_quad(z(2, 3, ds, ds), z(2, 3, ds, 1), z(2, 4, ds),
+                                       z(2, 3, 1), z(2, 5), z(2, 1), z(2, 5), (0.0,) * 5,
+                                       0.05, 5)
         return
-    ds, dc = {"K7 ds": (3, 1), "K7 dc": (4, 2), "K7 per-lane coeffs": (4, 1)}[which]
-    terms = FeatureLibrary.from_config(ds + dc, trig_basis=True).terms
+    ds, dc = {"K7 ds": (_build.MAX_D, 1), "K7 dc": (4, _build.MAX_D - 3),
+              "K7 per-lane coeffs": (4, 1)}[which]
+    terms = FeatureLibrary.from_config(ds + dc, trig_basis="coeffs" in which).terms
     coeffs = z(2, ds, len(terms)) if "coeffs" in which else z(ds, len(terms))
     with pytest.raises(ValueError, match=match):
         cuda_linesearch.sindy_line_search(

@@ -309,22 +309,26 @@ def test_general_geometry_packs_lanes_on_a_small_card():
 @pytest.mark.parametrize("which", ["K2", "K4", "K6"])
 def test_backward_kernels_refuse_unbuilt_shapes_by_name(which, monkeypatch):
     """The pickers and the wrappers of tensors that are not on the CPU
-    raise at a shape with no instance, before any launch (device_kind and
-    the SM count are patched, meta tensors stand in for the card's)."""
+    raise past the kernels' stated limits (ds + 1 <= MAX_D, K2's ds <=
+    BQ_MAX_DS, obsdim <= MAX_OBS for K2 and K6; K4's built pairs), before
+    any build or launch
+    (device_kind and the SM count are patched, meta tensors stand in for
+    the card's)."""
     monkeypatch.setattr(_build, "device_kind", lambda t: "cuda")
     monkeypatch.setattr(_build, "sm_count", lambda device: _build.H100_SMS)
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device="meta")
     if which == "K6":        # its wrapper: tests/test_torch_import.py
-        with pytest.raises(ValueError, match="batch-major backward kernel is built for"):
-            K2.bq_bm_geometry(64, 10, ds=5)
+        with pytest.raises(ValueError, match=r"riccati_quad_bm: .*MAX_D = 24"):
+            K2.bq_bm_geometry(64, 10, ds=_build.MAX_D)
         return
     if which == "K2":
-        with pytest.raises(ValueError, match="backward kernel is built for"):
-            K2.bq_geometry(64, ds=5)
-        carry = (torch.zeros(3, dtype=torch.bool, device="meta"), z(2, 5, 3), z(2, 3))
-        with pytest.raises(ValueError, match="backward kernel is built for"):
-            K2.backward_quad_ll(z(2, 30, 3), z(3, 5, 3), z(2, 3), (1.0,) * 5, (0.1,),
-                                (1.0,) * 5, (0.0,) * 5, 0.05, 5, carry)
+        with pytest.raises(ValueError, match=r"riccati_quad: .*MAX_D = 24"):
+            K2.bq_geometry(64, ds=_build.MAX_D)
+        n = _build.MAX_OBS + 1
+        carry = (torch.zeros(3, dtype=torch.bool, device="meta"), z(2, n, 3), z(2, 3))
+        with pytest.raises(ValueError, match="obsdim <= MAX_OBS = 8"):
+            K2.backward_quad_ll(z(2, n * (n + 1), 3), z(3, n, 3), z(2, 3), (1.0,) * n,
+                                (0.1,), (1.0,) * n, (0.0,) * n, 0.05, n, carry)
         return
     with pytest.raises(ValueError, match="general backward kernel is built for"):
         K4.general_geometry(5, 2, 64)
@@ -421,14 +425,15 @@ def test_sindy_geometry_mirrors_the_source():
 
     src = _sindy_source()
     assert K3.SINDY_THREADS <= int(re.search(r"#define AMPC_SLS_MAX_THREADS (\d+)", src)[1])
-    groups = tuple(int(g) for g in re.findall(r"case (\d+):\n\s+sls_launch<\1>", src))
+    groups = tuple(int(g) for g in re.findall(r"case (\d+):\n\s+sls_launch<DS, DC, \1>", src))
     assert groups == K3.SINDY_GROUPS
     for line in ("const int g = (int)(threadIdx.x % G);",
                  "const long long cr = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;",
                  "const int b = (int)(c / P.L);",
                  "const float alpha = P.alphas[c - (long long)b * P.L];",
                  "const bool store = valid && g == 0;",
-                 "float4* oxs = reinterpret_cast<float4*>(out_xs + c * (H + 1) * DS);",
+                 "float* oxf = out_xs + c * (H + 1) * DS;",
+                 "float4* oxs = reinterpret_cast<float4*>(oxf);",
                  "const long long n = (long long)B * P->L * G;",
                  "const unsigned blocks = (unsigned)((n + threads - 1) / threads);",
                  "threads > AMPC_SLS_MAX_THREADS || threads % 32)"):
@@ -518,8 +523,12 @@ def test_relin_geometry_mirrors_the_source():
         K1.RELIN_SPLIT_LANES
     assert int(re.search(r"#define AMPC_RELIN_WHOLE_LANES (\d+)", src)[1]) == \
         K1.RELIN_WHOLE_LANES
-    for line in ("relin_launch<BM, 5, AMPC_RELIN_SPLIT_LANES>(",
-                 "relin_launch<BM, 1, AMPC_RELIN_WHOLE_LANES>(",
+    for line in ("relin_launch<DS, DC, BM, DS + DC, relin_split_lanes(DS, DC, BM)>(",
+                 "relin_launch<DS, DC, BM, 1, AMPC_RELIN_WHOLE_LANES>(",
+                 "if constexpr (relin_whole_fits(DS, DC, BM)) {",
+                 "#define AMPC_RELIN_STATIC_SMEM (48 * 1024)",
+                 "return 4 * (DS * AMPC_MAX_F + (BM ? NL : 1) * (DS * DS + 1) + "
+                 "(BM ? NL : 1) * (DS * DC + 1));",
                  "const dim3 block(NL, CT);",
                  "const int dd0 = CT == 1 ? 0 : (int)threadIdx.y;  // first column",
                  "for (int dd = dd0; dd < D; dd += CT) {",
@@ -529,9 +538,10 @@ def test_relin_geometry_mirrors_the_source():
                  "b = (int)(q / H);",
                  "t = (int)(q - (long long)b * H);",
                  "s_jx[threadIdx.x][i * DS + dd] = col[i];",
-                 "s_ju[threadIdx.x][i] = col[i];",
+                 "s_ju[threadIdx.x][i * DC + dd - DS] = col[i];",
                  "jx_out[o] = s_jx[o / (DS * DS)][o % (DS * DS)];",
-                 "for (int o = tid; o < np * DS; o += NL * CT) ju_out[o] = s_ju[o / DS][o % DS];",
+                 "for (int o = tid; o < np * DS * DC; o += NL * CT)",
+                 "ju_out[o] = s_ju[o / (DS * DC)][o % (DS * DC)];",
                  "const dim3 grid((unsigned)((B + NL - 1) / NL), (unsigned)H);",
                  "const unsigned grid = (unsigned)((n + NL - 1) / NL);"):
         assert line in src, line
@@ -735,7 +745,8 @@ def test_bq_bm_wide_mirrors_the_source():
     riccati_quad_bm.cu's."""
     src = (_build.CSRC_DIR / "riccati_quad_bm.cu").read_text()
     for line in ("return S * (DS * DS + 3 * DS + 2) + 2 * (DS * DS + DS);",
-                 "constexpr int R4 = DS / 4;",
+                 "constexpr int CW = DS % 4 == 0 ? 4 : 1; // floats a copy: 16 or 4 bytes",
+                 "constexpr int R4 = DS / CW;             // copies a row",
                  "constexpr int NQ = (DS + 2) * R4 + 1;",
                  "const bool row = g < DS;",
                  "const int i = row ? g : 0;",

@@ -42,7 +42,19 @@ that every checkout computes the same bits:
   its last compaction stage, B=128. Each tree is driven through its
   own wrappers (the signatures of K8 and K9 differ between trees); K8's
   digest covers its objectives only, K9's its outputs (xs, us, jac,
-  du2), which every tree computes alike.
+  du2), which every tree computes alike;
+- K6 at (ds, dc) = (12, 1) (the cartpole's trig Koopman lift) at B=1,024,
+  H=10 and B=4096, H=200, on a carry near the identity made from the seed;
+- the instances off the cartpole's shape (``*_2x1_*``, ``*_18x6_*``):
+  the pendulum's (2, 1), on its main path's carry (its SINDy, the trig +
+  interaction library at d = 3, fitted on the CPU from 50 x 100
+  trajectories, seed 42; Q = F = diag(10, .1), R = 0.001) at B=16384 and
+  4096, H=200 (its solve), B=256, H=20 (its closed loop) and B=1,024,
+  H=10 (its fan-out): K1 (both entries), K2, K3, K6 and K7; and the
+  halfcheetah's (18, 6), K1's batch-major entry and K7 at B=1024, H=200
+  on a model near the identity over the 48-term quadratic library. A
+  tree without an instance (built before it) records ``*_skipped`` for
+  that shape, and its digest is compared among the trees that have it.
 
 The inputs are made from a seed with numpy, so every checkout gets the
 same work.
@@ -58,6 +70,12 @@ tree with ``bq_bm_geometry`` records the geometry each K6 call took
 
 ``--only`` keeps the shapes whose tag starts with one of the prefixes
 (K1, K2, K3, K4, K5, K6, K7, K8, K9, split, lane).
+
+    python3 tools/ab_torch_kernels.py --only K1,K2,K3,K4,K6,K7,K8,K9,split,lane \
+        _archive/_parent . . _archive/_parent
+
+is the check that a change to the kernels' sources leaves every
+existing instance's bits as they were.
 
 Each ROOT is a checkout whose ``autompc_torch`` is imported in a process
 of its own (two trees cannot share one), in the order given, so that
@@ -136,6 +154,26 @@ LS_SHAPES = tuple(sorted(
     + [(f"lane_{k}_B{B}_H{H}", k, B, H, "coef", "f32") for B, H in ((1024, 10), (128, 10))
        for k in ("K1", "K1bm", "K3", "K7")],
     key=lambda r: (r[2], r[3])))
+# The pendulum's (2, 1) instances on its own carry: (tag, kernel, B, H,
+# cost form, Jacobian carry type), grouped by (B, H).
+PENDULUM_SHAPES = tuple(sorted(
+    [(f"K1_2x1_B{B}_H{H}", "K1", B, H, "fixed", "f32") for B, H in
+     ((16384, 200), (4096, 200), (256, 20), (1024, 10))]
+    + [(f"K1_bm_2x1_B{B}_H{H}", "K1bm", B, H, "fixed", "f32") for B, H in
+       ((4096, 200), (1024, 10))]
+    + [(f"K2_2x1_B{B}_H{H}", "K2", B, H, "fixed", "f32") for B, H in
+       ((16384, 200), (4096, 200), (256, 20), (1024, 10))]
+    + [(f"K3_2x1_B{B}_H{H}", "K3", B, H, "fixed", "f32") for B, H in
+       ((16384, 200), (4096, 200), (256, 20))]
+    + [(f"K3_2x1_B1024_H10_lane", "K3", 1024, 10, "lane", "f32")]
+    + [(f"K6_2x1_B{B}_H{H}", "K6", B, H, "lane", "f32") for B, H in ((4096, 200), (1024, 10))]
+    + [(f"K7_2x1_B{B}_H{H}", "K7", B, H, "fixed", "f32") for B, H in ((4096, 200), (1024, 10))],
+    key=lambda r: (r[2], r[3])))
+# The halfcheetah's (18, 6) instances: (tag, kernel, B, H).
+CHEETAH_SHAPES = (("K1_bm_18x6_B1024_H200", "K1bm", 1024, 200),
+                  ("K7_18x6_B1024_H200", "K7", 1024, 200))
+# K6's (12, 1) instance: (tag, B, H).
+K6_WIDE_SHAPES = (("K6_12x1_B1024_H10", 1024, 10), ("K6_12x1_B4096_H200", 4096, 200))
 ALPHAS = tuple(0.2 ** k for k in range(L))
 ALL_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "split", "lane")
 
@@ -212,16 +250,53 @@ def k5_inputs(widths, ds, dc, B, H, dev):
             tuple(0.2 ** k for k in range(L)), -1.0, 1.0)
 
 
-def ls_model(dev):
+def cheetah_inputs(B, H, dev):
+    """K7's arguments at the halfcheetah's (18, 6) (K1's batch-major entry
+    takes terms, xs, us and coeffs of them): the 48-term quadratic library
+    (``poly_basis=True, poly_degree=2``), coefficients near the identity
+    map, a carry of small states and controls, small gains."""
+    from autompc_torch.sysid.basis import FeatureLibrary
+
+    rng = np.random.default_rng(SEED)
+    ds, dc = 18, 6
+    lib = FeatureLibrary.from_config(ds + dc, poly_basis=True, poly_degree=2)
+    n = lib.n_features
+    coeffs = rng.normal(0, 0.01 / np.sqrt(n), (ds, n))
+    coeffs[:, :ds] += np.eye(ds)
+    xs = rng.uniform(-0.2, 0.2, (B, H + 1, ds))
+    us = rng.uniform(-0.2, 0.2, (B, H, dc))
+    return (lib.terms, _tensor(xs[:, 0], dev), _tensor(xs, dev), _tensor(us, dev),
+            _tensor(rng.normal(0, 0.01, (B, H, dc, ds)), dev),
+            _tensor(rng.normal(0, 0.05, (B, H, dc)), dev), _tensor(coeffs, dev), ALPHAS,
+            -1.0, 1.0)
+
+
+def k6_wide_inputs(B, H, dev):
+    """K6's arguments at ds = 12: Jx near the identity, Ju small, per-lane
+    cost diagonals over obsdim = 4 (the Koopman lift's first four
+    coordinates are the cartpole's state)."""
+    rng = np.random.default_rng(SEED)
+    ds = 12
+    Jx = np.eye(ds)[None, None] * 0.99 + rng.normal(0, 0.02, (B, H, ds, ds))
+    return (_tensor(Jx, dev), _tensor(rng.normal(0, 0.1, (B, H, ds, 1)), dev),
+            _tensor(rng.normal(0, 1, (B, H + 1, ds)), dev), _tensor(rng.normal(0, 1, (B, H, 1)), dev),
+            _tensor(10 ** rng.uniform(-1, 1.5, (B, 4)), dev),
+            _tensor(10 ** rng.uniform(-3, 0, (B, 1)), dev),
+            _tensor(10 ** rng.uniform(-1, 1.5, (B, 4)), dev), (0.0,) * 4, 0.05, 4)
+
+
+def ls_model(dev, system="cartpole"):
     """The main path's model, cost and solver options: the cartpole
     SINDy fit (trig + interaction library, data 50 x 100, seed 42) made
     on the CPU in float64, its coefficients then moved to the card; Q =
-    F = diag(10, .1, .01, .01), R = 0.001."""
-    from autompc_torch.benchmarks import CartpoleSwingupBenchmark
+    F = diag(10, .1, .01, .01), R = 0.001. ``system="pendulum"``: the
+    same for the pendulum, Q = F = diag(10, .1)."""
+    from autompc_torch.benchmarks import CartpoleSwingupBenchmark, PendulumSwingupBenchmark
     from autompc_torch.costs import QuadCost
     from autompc_torch.sysid import SINDy
 
-    bench = CartpoleSwingupBenchmark()
+    pend = system == "pendulum"
+    bench = PendulumSwingupBenchmark() if pend else CartpoleSwingupBenchmark()
     kw = dict(method="lstsq", threshold=1e-3, trig_basis=True, trig_freq=1,
               trig_interaction=True, time_mode="discrete")
     fit = SINDy(bench.system, device="cpu", **kw)
@@ -230,10 +305,11 @@ def ls_model(dev):
     model.set_parameters(fit.get_parameters())
     coeffs = fit.coeffs.numpy()
     active = tuple(int(k) for k in np.flatnonzero(np.any(coeffs != 0, axis=0)))
-    qd = np.diag([10.0, 0.1, 0.01, 0.01])
-    cost = QuadCost(bench.system, qd, 0.001 * np.eye(1), qd, goal=np.zeros(4))
+    ds = 2 if pend else 4
+    qd = np.diag([10.0, 0.1] if pend else [10.0, 0.1, 0.01, 0.01])
+    cost = QuadCost(bench.system, qd, 0.001 * np.eye(1), qd, goal=np.zeros(ds))
     bounds = bench.task.get_ctrl_bounds()
-    common = dict(ds=4, dc=1, obsdim=4, dt=bench.system.dt,
+    common = dict(ds=ds, dc=1, obsdim=ds, dt=bench.system.dt,
                   ubounds=(bounds[:, 0], bounds[:, 1]), backward="pallas",
                   feature_spec=(model.library, "coeffs"), fuse_ls=True, lanes_last=True,
                   feature_mask=active)
@@ -256,15 +332,17 @@ def ls_carry(model, cost, common, active, B, H, dev):
                                                     return_pieces=True, **common)
     rng = np.random.default_rng(SEED)
     f = model.coeffs.dtype
-    x0 = _tensor(rng.uniform(-1, 1, (B, 4)) * np.array([3.1, 1.0, 1.0, 1.0]), dev, f)
+    ds = common["ds"]
+    x0 = _tensor(rng.uniform(-1, 1, (B, ds)) * np.array([3.1] + [1.0] * (ds - 1)), dev, f)
     c = make_carry0(model.params, x0, x0.new_zeros((B, H, 1)))
     act = ~c["converged"] & ~c["failed"]
-    fixed = ((10.0, 0.1, 0.01, 0.01), (0.001,), (10.0, 0.1, 0.01, 0.01), (0.0,) * 4)
-    lane = (_tensor(10 ** rng.uniform(-1, 1.5, (4, B)), dev, f),
+    qd = (10.0, 0.1, 0.01, 0.01)[:ds]
+    fixed = (qd, (0.001,), qd, (0.0,) * ds)
+    lane = (_tensor(10 ** rng.uniform(-1, 1.5, (ds, B)), dev, f),
             _tensor(10 ** rng.uniform(-3, 0, (1, B)), dev, f),
-            _tensor(10 ** rng.uniform(-1, 1.5, (4, B)), dev, f), (0.0,) * 4)
+            _tensor(10 ** rng.uniform(-1, 1.5, (ds, B)), dev, f), (0.0,) * ds)
     KsT, ksT, lin, quad = K2.backward_quad_ll(c["jac"], c["xs"], c["us"], *fixed, common["dt"],
-                                              4, carry=(act, c["Ks"], c["ks"]))
+                                              ds, carry=(act, c["Ks"], c["ks"]))
     ks_small = torch.sqrt((ksT * ksT).sum(0)) < 1e-3
     terms = tuple(model.library.terms[k] for k in active)
     ca = model.coeffs[:, list(active)].contiguous()
@@ -277,7 +355,9 @@ def ls_carry(model, cost, common, active, B, H, dev):
     ls["coef"] = ((tuple(model.library.terms),) + head[1:6] + (plane.contiguous(),) + head[7:]
                   + lane + (common["dt"],))
     jac = {"f32": c["jac"], "bf16": c["jac"].to(torch.bfloat16)}
-    return ls, (c["obj"], lin, quad, ks_small, act), jac
+    k2 = (c["jac"], c["xs"], c["us"], *fixed, common["dt"], ds)
+    return ls, (c["obj"], lin, quad, ks_small, act), jac, dict(args=k2, carry=(act, c["Ks"],
+                                                                             c["ks"]))
 
 
 def ls_call(kind, ls, tail, jac, K1, K2, K3):
@@ -291,6 +371,7 @@ def ls_call(kind, ls, tail, jac, K1, K2, K3):
     planes of ``ls`` (the ``lane`` form)."""
     terms, x0T, xsT, usT, KsT, ksT, ca, alphas, lo, hi = ls[:10]
     H, B = usT.shape
+    ds = xsT.shape[1]
     bm = dict(xs=xsT.permute(2, 0, 1).contiguous(), us=usT.T[:, :, None].contiguous())
     if kind == "K1bm":
         if hasattr(K1, "relin_jacobians_bm"):
@@ -299,14 +380,14 @@ def ls_call(kind, ls, tail, jac, K1, K2, K3):
         def adapter():
             j = K1.relin_jacobians(terms, bm["xs"].permute(1, 2, 0).contiguous(),
                                    bm["us"][:, :, 0].T.contiguous(), ca)
-            j = j.reshape(H, 4, 5, B).permute(3, 0, 1, 2)
-            return j[..., :4].contiguous(), j[..., 4:].contiguous()
+            j = j.reshape(H, ds, ds + 1, B).permute(3, 0, 1, 2)
+            return j[..., :ds].contiguous(), j[..., ds:].contiguous()
 
         return adapter
     if kind == "K6":
-        j = jac.reshape(H, 4, 5, B).permute(3, 0, 1, 2)
-        args = (j[..., :4].contiguous(), j[..., 4:].contiguous(), bm["xs"], bm["us"],
-                *(v.T.contiguous() for v in ls[10:13]), ls[13], ls[14], 4)
+        j = jac.reshape(H, ds, ds + 1, B).permute(3, 0, 1, 2)
+        args = (j[..., :ds].contiguous(), j[..., ds:].contiguous(), bm["xs"], bm["us"],
+                *(v.T.contiguous() for v in ls[10:13]), ls[13], ls[14], ds)
         return lambda: K2.backward_quad(*args)
     if kind == "K8":
         return lambda: (lambda o: o[0] if isinstance(o, tuple) else o)(K3.wide_objectives(*ls))
@@ -404,6 +485,14 @@ def time_one(root, only):
         out[tag] = time_ms(run)
         out[f"{tag}_device_ms"] = device_ms(run)
 
+    def record_built(tag, run):
+        """``record``, or ``*_skipped`` where the tree refuses the shape
+        (a tree built before its instance)."""
+        try:
+            record(tag, run)
+        except ValueError as e:
+            out[f"{tag}_skipped"] = str(e)
+
     shapes = [r for r in LS_SHAPES if wanted(r[0])]
     if shapes:
         problem = ls_model(dev)
@@ -413,7 +502,7 @@ def time_one(root, only):
             group, carry = (B, H), None
             torch.cuda.empty_cache()
             carry = ls_carry(*problem, B, H, dev)
-        ls, tail, jac = carry
+        ls, tail, jac, _ = carry
         run = ls_call(kind, ls[form], tail, jac[jt], K1, K2, K3)
         record(tag, run)
         for name, const, value in VARIANTS.get(kind, ()):
@@ -432,6 +521,42 @@ def time_one(root, only):
                                       f"lanes a block, {g['blocks']} blocks, ring {g['ring']}, "
                                       f"{g['smem']} bytes of shared memory a block")
     carry = None
+    shapes = [r for r in PENDULUM_SHAPES if wanted(r[0])]
+    if shapes:
+        problem = ls_model(dev, "pendulum")
+    group = None
+    for tag, kind, B, H, form, jt in shapes:
+        if group != (B, H):
+            group, carry = (B, H), None
+            torch.cuda.empty_cache()
+            try:
+                carry = ls_carry(*problem, B, H, dev)
+            except ValueError as e:     # a tree without the (2, 1) instances
+                carry = str(e)
+        if isinstance(carry, str):
+            out[f"{tag}_skipped"] = carry
+            continue
+        ls, tail, jac, k2 = carry
+        if kind == "K2":
+            record_built(tag, lambda: K2.backward_quad_ll(*k2["args"], carry=k2["carry"]))
+        else:
+            record_built(tag, ls_call(kind, ls[form], tail, jac[jt], K1, K2, K3))
+    carry = None
+    for tag, kind, B, H in CHEETAH_SHAPES:
+        if not wanted(tag):
+            continue
+        args = cheetah_inputs(B, H, dev)
+        if kind == "K1bm":
+            record_built(tag, lambda: K1.relin_jacobians_bm(args[0], args[2], args[3], args[6]))
+        else:
+            record_built(tag, lambda: K3.sindy_line_search(*args))
+        del args
+    for tag, B, H in K6_WIDE_SHAPES:
+        if not wanted(tag):
+            continue
+        args = k6_wide_inputs(B, H, dev)
+        record(tag, lambda: K2.backward_quad(*args))
+        del args
     for tag, B, H, lane, bf16, d4 in K2_SHAPES:
         if not wanted(tag):
             continue
@@ -478,8 +603,8 @@ def main(argv):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60)
     print(card.stdout.strip().splitlines()[0], flush=True)
-    tags = [s[0] for s in K2_SHAPES + K4_SHAPES + K5_SHAPES + LS_SHAPES
-            if any(s[0].startswith(p) for p in only)]
+    tags = [s[0] for s in K2_SHAPES + K4_SHAPES + K5_SHAPES + LS_SHAPES + PENDULUM_SHAPES
+            + CHEETAH_SHAPES + K6_WIDE_SHAPES if any(s[0].startswith(p) for p in only)]
     digests = {tag: set() for tag in tags}
     for root in argv:
         run = subprocess.run([sys.executable, os.path.abspath(__file__), "--only",
@@ -492,11 +617,12 @@ def main(argv):
             keys = ([f"{tag}_sha256"] + [f"{tag}_{block}_sha256" for block, _ in BLOCKS]
                     + [f"{tag}_{name}_sha256" for name in VARIANT_NAMES])
             digests[tag] |= {out[k] for k in keys if k in out}
-    same = {kernel: all(len(d) == 1 for tag, d in digests.items() if tag.startswith(kernel + "_"))
+    same = {kernel: all(len(d) <= 1 for tag, d in digests.items() if tag.startswith(kernel + "_"))
             for kernel in only}
-    differ = sorted(tag for tag, d in digests.items() if len(d) != 1)
-    print(json.dumps({"same_outputs_bit_for_bit": all(same.values()), **same, "differ": differ}),
-          flush=True)
+    differ = sorted(tag for tag, d in digests.items() if len(d) > 1)
+    missing = sorted(tag for tag, d in digests.items() if not d)
+    print(json.dumps({"same_outputs_bit_for_bit": all(same.values()), **same, "differ": differ,
+                      "run_by_no_tree": missing}), flush=True)
     return 0
 
 

@@ -59,6 +59,8 @@ def load(dump, device):
     with open(dump) as f:
         rec = json.load(f)
     bench = CartpoleSwingupBenchmark()
+    # The task's length as the tune ran it (older dumps: the task's own).
+    bench.task.set_num_steps(rec.get("num_steps", bench.task.get_num_steps()))
     model = SINDy(bench.system, device=device, **rec["sindy"])
     model.set_parameters({"coeffs": np.asarray(rec["coeffs"]),
                           "feature_names": rec["feature_names"]})
