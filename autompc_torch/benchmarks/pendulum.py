@@ -29,6 +29,18 @@ def pendulum_dynamics(y, u, dt=0.05, g=9.8, m=1.0, L=1.0, b=0.1):
     return torch.stack([theta + dt * omega, omega + dt * omega_dot], dim=-1)
 
 
+# The recovery task's start (PendulumSwingupBenchmark.recovery_task) and
+# the spread of theta and omega about upright of the closed loops that
+# test recovery. The torque bound holds the pole at rest within
+# asin(2 / 9.8) = 0.21 rad of upright: from (0.15, 0) whether a
+# controller keeps it in the task's 0.2 box depends on its cost, and
+# starts within RECOVERY_SPREAD of upright end in the box on some lanes
+# of a receding loop and not on others (tests/test_torch_dense_shapes.py
+# holds such a loop against the JAX package's).
+RECOVERY_INIT = (0.15, 0.0)
+RECOVERY_SPREAD = 0.3
+
+
 class PendulumSwingupBenchmark(Benchmark):
     """Swing the pendulum from down (theta = pi) to upright: a threshold
     metric (a step counts where theta or omega is more than 0.2 from 0),
@@ -47,6 +59,18 @@ class PendulumSwingupBenchmark(Benchmark):
 
     def dynamics(self, x, u):
         return pendulum_dynamics(x, u, dt=self.system.dt)
+
+    def recovery_task(self, init_obs=RECOVERY_INIT, num_steps=None):
+        """A copy of the task from ``init_obs``, by default RECOVERY_INIT,
+        near upright, where whether a controller keeps the pole in the
+        box depends on its cost (from theta = pi the swing-up ends
+        outside the box for every candidate of a short tune).
+        ``num_steps`` replaces the task's 200 steps."""
+        task = self.task.copy()
+        task.set_init_obs(np.asarray(init_obs, dtype=float))
+        if num_steps is not None:
+            task.set_num_steps(num_steps)
+        return task
 
     def _gen_trajs(self, n_trajs, traj_len, rng, draws=None):
         """The training set by the benchmark's data-generation method;

@@ -273,10 +273,10 @@ __global__ void __launch_bounds__(
   }
 }
 
-// The ds of this object: 4 in the main library, with the per-lane-
-// coefficient entries and the occupancy queries, else the shape it was
-// built for at first use (-DAMPC_DS; ops/_build.py: shape_library), with
-// the shared-coefficient entries only.
+// The ds of this object: 4 in the main library, with the occupancy
+// queries, else the shape it was built for at first use (-DAMPC_DS;
+// ops/_build.py: shape_library). Every library holds the shared- and the
+// per-lane-coefficient entries at its ds.
 #ifndef AMPC_DS
 #define AMPC_DS 4
 #define AMPC_LS_MAIN_LIBRARY
@@ -352,7 +352,6 @@ extern "C" int ampc_fused_line_search(
   return (int)cudaGetLastError();
 }
 
-#ifdef AMPC_LS_MAIN_LIBRARY
 // The same with per-lane coefficients (a lanes-last (ds, n, B) plane),
 // the device table Tdev of n terms (up to AMPC_MAX_F_BIG), per-lane cost
 // planes and a float Jacobian carry (the joint fan-out's form): trees of
@@ -384,7 +383,6 @@ extern "C" int ampc_fused_line_search_lane(
 #undef AMPC_LAUNCH
   return (int)cudaGetLastError();
 }
-#endif
 
 // The batch-major entry (BM): x0 (B, ds), xs (B, H+1, ds), us (B, H),
 // Ks (B, H, ds), ks (B, H) in; out_xs (B, H+1, ds), out_us (B, H), obj,
@@ -418,7 +416,6 @@ extern "C" int ampc_fused_line_search_bm(
   return (int)cudaGetLastError();
 }
 
-#ifdef AMPC_LS_MAIN_LIBRARY
 // The batch-major entry with per-lane coefficients (a lanes-last (ds, n, B)
 // plane, the device table Tdev of n <= AMPC_MAX_F terms, trees of
 // AMPC_TREE_SLOTS slots).
@@ -450,6 +447,7 @@ extern "C" int ampc_fused_line_search_bm_lane(
   return (int)cudaGetLastError();
 }
 
+#ifdef AMPC_LS_MAIN_LIBRARY
 // The batch-major instances' registers, local bytes and resident blocks
 // an SM at `threads` a block (out[0..2]): shared (lane_coef 0) or per-lane
 // (1) coefficients, without (reg 0) or with (1) the GaussReg term.

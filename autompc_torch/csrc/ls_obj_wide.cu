@@ -63,9 +63,15 @@ __global__ void __launch_bounds__(AMPC_LS_MAX_THREADS, 2) ls_obj_wide_kernel(
   du2s[(long long)l * B + b] = du2;
 }
 
+// The ds of this object: 4 in the main library, else the shape it was
+// built for at first use (-DAMPC_DS; ops/_build.py: shape_library), dc = 1.
+#ifndef AMPC_DS
+#define AMPC_DS 4
+#endif
+
 static const void* kernel_of(bool lane_cost) {
-  return lane_cost ? (const void*)ls_obj_wide_kernel<4, true>
-                   : (const void*)ls_obj_wide_kernel<4, false>;
+  return lane_cost ? (const void*)ls_obj_wide_kernel<AMPC_DS, true>
+                   : (const void*)ls_obj_wide_kernel<AMPC_DS, false>;
 }
 
 // qdT/rdT/fdT: per-lane cost planes, or all three null for the fixed
@@ -82,7 +88,7 @@ extern "C" int ampc_ls_obj_wide(const FeatTable* T, const LSParams* P,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool lane = qdT != nullptr;
-  if (ds != 4 || T->d != ds + 1 || T->n < 1 || T->n > AMPC_MAX_F ||
+  if (ds != AMPC_DS || T->d != ds + 1 || T->n < 1 || T->n > AMPC_MAX_F ||
       P->L < 1 || P->L > AMPC_MAX_L || P->obsdim < 1 || P->obsdim > ds ||
       (rdT != nullptr) != lane || (fdT != nullptr) != lane || H < 1 ||
       B < 1 || lanes_per_block < 1 ||
@@ -92,11 +98,11 @@ extern "C" int ampc_ls_obj_wide(const FeatTable* T, const LSParams* P,
   const unsigned blocks = (unsigned)((B + lanes_per_block - 1) / lanes_per_block);
   cudaStream_t s = (cudaStream_t)stream;
   if (lane)
-    ls_obj_wide_kernel<4, true><<<blocks, threads, 0, s>>>(
+    ls_obj_wide_kernel<AMPC_DS, true><<<blocks, threads, 0, s>>>(
         *T, *P, coeffs, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT, stash, objs,
         du2s, H, B);
   else
-    ls_obj_wide_kernel<4, false><<<blocks, threads, 0, s>>>(
+    ls_obj_wide_kernel<AMPC_DS, false><<<blocks, threads, 0, s>>>(
         *T, *P, coeffs, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT, stash, objs,
         du2s, H, B);
   return (int)cudaGetLastError();

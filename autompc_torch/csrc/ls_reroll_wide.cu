@@ -100,6 +100,12 @@ __global__ void ls_reroll_wide_kernel(
   }
 }
 
+// The ds of this object: 4 in the main library, else the shape it was
+// built for at first use (-DAMPC_DS; ops/_build.py: shape_library), dc = 1.
+#ifndef AMPC_DS
+#define AMPC_DS 4
+#endif
+
 template <typename JT>
 static void launch(const FeatTable* T, const float* coeffs, const float* x0T,
                    const float* xsT, const float* usT, const void* old_jac,
@@ -109,7 +115,7 @@ static void launch(const FeatTable* T, const float* coeffs, const float* x0T,
                    int B, cudaStream_t s) {
   const dim3 grid((unsigned)((B + AMPC_RR_THREADS - 1) / AMPC_RR_THREADS),
                   (unsigned)H);
-  ls_reroll_wide_kernel<4, JT><<<grid, AMPC_RR_THREADS, 0, s>>>(
+  ls_reroll_wide_kernel<AMPC_DS, JT><<<grid, AMPC_RR_THREADS, 0, s>>>(
       *T, coeffs, x0T, xsT, usT, (const JT*)old_jac, stash, du2s, sel, tmask,
       jmask, out_xs, out_us, (JT*)out_jac, out_du2, L, H, B);
 }
@@ -128,7 +134,7 @@ extern "C" int ampc_ls_reroll_wide(
     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ds != 4 || T->d != ds + 1 || T->n < 1 || T->n > AMPC_MAX_F || L < 1 ||
+  if (ds != AMPC_DS || T->d != ds + 1 || T->n < 1 || T->n > AMPC_MAX_F || L < 1 ||
       L > AMPC_MAX_L || H < 1 || H > 65535 || B < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

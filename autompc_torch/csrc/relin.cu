@@ -53,7 +53,8 @@
 // at the fan-out's shapes, 0.255 at B=4096 with the adapter).
 //
 // Per-lane coefficients (ampc_relin_jacobians_lane, _bm_lane; the joint
-// fan-out, a model a lane): the same kernel and geometry with the table in
+// fan-out, a model a lane; in every library, at its (ds, dc)): the same
+// kernel and geometry with the table in
 // device memory and a lanes-last (ds, n, B) plane, each thread reading
 // its lane's column in place (lanes-last: a warp of 32 neighbouring
 // lanes reads one line for each (i, k)); no feature mask, so up to
@@ -221,17 +222,15 @@ static int relin_check(int n, int d, int max_n, int H, int B, int device) {
   return 0;
 }
 
-// The (ds, dc) instances of this object: the main library's (4, 1), or
-// the one shape of a library built at first use (-DAMPC_DS, -DAMPC_DC;
-// ops/_build.py: shape_library). Another shape is refused.
-#ifdef AMPC_DS
-#define AMPC_RELIN_SHAPE(ds, dc) ((ds) == AMPC_DS && (dc) == AMPC_DC)
-#else
+// The (ds, dc) instances of this object, shared- and per-lane-coefficient
+// alike: the main library's (4, 1), or the one shape of a library built
+// at first use (-DAMPC_DS, -DAMPC_DC; ops/_build.py: shape_library).
+// Another shape is refused.
+#ifndef AMPC_DS
 #define AMPC_DS 4
 #define AMPC_DC 1
-#define AMPC_RELIN_SHAPE(ds, dc) ((ds) == 4 && (dc) == 1)
-#define AMPC_RELIN_LANE_INSTANCES
 #endif
+#define AMPC_RELIN_SHAPE(ds, dc) ((ds) == AMPC_DS && (dc) == AMPC_DC)
 
 // The shared-coefficient entries at (ds, dc); the lanes-last layout
 // takes dc = 1.
@@ -273,24 +272,27 @@ extern "C" int ampc_relin_jacobians_bm(const FeatTable* T,
   return relin_shared<true>(T, coeffs, xs, us, Jx, Ju, ds, dc, H, B, split, device, stream);
 }
 
-#ifdef AMPC_RELIN_LANE_INSTANCES
-// The per-lane instances (main library only, at (4, 1)): the device table
+// The per-lane instances at this object's (ds, dc): the device table
 // Tdev of n terms, coefficients a lanes-last (ds, n, B) plane; trees of
 // AMPC_TREE_SLOTS slots up to AMPC_MAX_F terms, else AMPC_TREE_SLOTS_BIG.
+// The lanes-last layout takes dc = 1.
 template <bool BM>
 static int relin_lane(const FeatTableBig* Tdev, int n, const float* coeffs,
                       const float* xs, const float* us, float* jac, float* Ju,
-                      int ds, int H, int B, int split, int device,
+                      int ds, int dc, int H, int B, int split, int device,
                       void* stream) {
-  const int rc = relin_check(n, ds + 1, AMPC_MAX_F_BIG, H, B, device);
+  const int rc = relin_check(n, ds + dc, AMPC_MAX_F_BIG, H, B, device);
   if (rc) return rc;
-  if (!AMPC_RELIN_SHAPE(ds, 1)) return (int)cudaErrorInvalidValue;
-  if (n <= AMPC_MAX_F)
-    relin_dispatch<4, 1, BM>(FeatTableRef<AMPC_TREE_SLOTS>{Tdev, n}, coeffs, xs, us, jac,
-                             Ju, H, B, split, (cudaStream_t)stream);
-  else
-    relin_dispatch<4, 1, BM>(FeatTableRef<AMPC_TREE_SLOTS_BIG>{Tdev, n}, coeffs, xs, us,
-                             jac, Ju, H, B, split, (cudaStream_t)stream);
+  if (!AMPC_RELIN_SHAPE(ds, dc) || (!BM && dc != 1)) return (int)cudaErrorInvalidValue;
+  if constexpr (BM || AMPC_DC == 1) {
+    if (n <= AMPC_MAX_F)
+      relin_dispatch<AMPC_DS, AMPC_DC, BM>(FeatTableRef<AMPC_TREE_SLOTS>{Tdev, n}, coeffs, xs,
+                                           us, jac, Ju, H, B, split, (cudaStream_t)stream);
+    else
+      relin_dispatch<AMPC_DS, AMPC_DC, BM>(FeatTableRef<AMPC_TREE_SLOTS_BIG>{Tdev, n}, coeffs,
+                                           xs, us, jac, Ju, H, B, split,
+                                           (cudaStream_t)stream);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -302,17 +304,17 @@ extern "C" int ampc_relin_jacobians_lane(const FeatTableBig* Tdev, int n,
                                          const float* usT, float* jac, int ds,
                                          int H, int B, int split, int device,
                                          void* stream) {
-  return relin_lane<false>(Tdev, n, coeffs, xsT, usT, jac, nullptr, ds, H, B,
+  return relin_lane<false>(Tdev, n, coeffs, xsT, usT, jac, nullptr, ds, 1, H, B,
                            split, device, stream);
 }
 
+// Batch-major, us (B, H, dc), Ju (B, H, ds, dc).
 extern "C" int ampc_relin_jacobians_bm_lane(const FeatTableBig* Tdev, int n,
                                             const float* coeffs,
                                             const float* xs, const float* us,
-                                            float* Jx, float* Ju, int ds, int H,
-                                            int B, int split, int device,
+                                            float* Jx, float* Ju, int ds, int dc,
+                                            int H, int B, int split, int device,
                                             void* stream) {
-  return relin_lane<true>(Tdev, n, coeffs, xs, us, Jx, Ju, ds, H, B, split,
+  return relin_lane<true>(Tdev, n, coeffs, xs, us, Jx, Ju, ds, dc, H, B, split,
                           device, stream);
 }
-#endif

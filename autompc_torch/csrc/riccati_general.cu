@@ -59,11 +59,53 @@
 
 #include "cp_async.cuh"
 
+__host__ __device__ constexpr int rg_up4(int n) { return (n + 3) / 4 * 4; }
+__host__ __device__ constexpr int rg_cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int rg_pow2(int n) { return n <= 1 ? 1 : 2 * rg_pow2((n + 1) / 2); }
+__host__ __device__ constexpr int rg_gcd(int a, int b) { return b ? rg_gcd(b, a % b) : a; }
+// The largest divisor of n that is at most m.
+__host__ __device__ constexpr int rg_divisor(int n, int m) {
+  return m >= n ? n : n % m == 0 ? m : rg_divisor(n, m - 1);
+}
+// Floats of one ring slot: a step's J = [Jx | Ju], Cxx, Cuu, cx, cu.
+__host__ __device__ constexpr int rg_slot(int ds, int dc) {
+  return rg_up4(ds * (ds + dc)) + rg_up4(ds * ds) + rg_up4(dc * dc) + rg_up4(ds) + rg_up4(dc);
+}
+__host__ __device__ constexpr int rg_clamp(int v, int lo, int hi) {
+  return v < lo ? lo : v > hi ? hi : v;
+}
+// Threads a lane at a shape with no hand-set tiling: ds (ds + dc) / 8
+// (a thread for about eight entries of J'V) rounded up to a power of
+// two, from 8 to 64, and at least ds + dc (a thread for each element of
+// cx and cu in the ring's copy) rounded up to a power of two.
+__host__ __device__ constexpr int rg_tpl(int ds, int dc) {
+  return rg_clamp(rg_pow2(rg_cdiv(ds * (ds + dc), 8)), 8, 64) > rg_pow2(ds + dc)
+             ? rg_clamp(rg_pow2(rg_cdiv(ds * (ds + dc), 8)), 8, 64)
+             : rg_pow2(ds + dc);
+}
+
 // Register tiles (rows x columns) of the products ([Jx|Ju]'[V|v]; Qxx
 // and Qux; Quu; the next V), input ring depth and the most lanes a block
-// takes, per instance (ds, dc, threads a lane).
+// takes, per instance (ds, dc, threads a lane). The rule for any shape:
+// tiles as wide as a divisor of the product's dimension allows (rows of
+// J'V and of the next V up to 2, Qxx/Qux columns up to 4, Quu up to 2 x
+// 2, and 4 columns where a ragged last tile is masked); a ring of
+// 3072 / slot steps, from 2 to 6 (the (18, 6) tiling's 3 and the (4, 1)
+// tiling's 6); 256 threads a block up to a warp a lane, 4 lanes (the
+// named barriers of rg_sync) from two warps on. The hand-set tilings
+// of the main library's two shapes follow; a library built at first use
+// at another (ds, dc) (-DAMPC_DS, -DAMPC_DC; ops/_build.py:
+// shape_library) has only the rule, so at (18, 6) or (4, 1) it gives the
+// rule's instance.
 template <int DS, int DC, int TPL>
-struct RgShape;
+struct RgShape {
+  static constexpr int P1R = rg_divisor(DS + DC, 2), P1C = 4, P2R = rg_divisor(rg_gcd(DS, DC), 2),
+                       P2C = rg_divisor(DS, 4), PUR = rg_divisor(DC, 2), PUC = rg_divisor(DC, 2),
+                       P5R = rg_divisor(DS, 2), P5C = 4;
+  static constexpr int RING = rg_clamp(3072 / rg_slot(DS, DC), 2, 6);
+  static constexpr int MAX_LANES = TPL <= 32 ? 256 / TPL : 4;
+};
+#ifndef AMPC_DS
 template <>
 struct RgShape<18, 6, 64> {
   static constexpr int P1R = 4, P1C = 2, P2R = 3, P2C = 6, PUR = 2, PUC = 2, P5R = 2, P5C = 3;
@@ -74,9 +116,8 @@ struct RgShape<4, 1, 8> {
   static constexpr int P1R = 1, P1C = 5, P2R = 1, P2C = 4, PUR = 1, PUC = 1, P5R = 1, P5C = 4;
   static constexpr int RING = 6, MAX_LANES = 32;
 };
+#endif
 
-__host__ __device__ constexpr int rg_up4(int n) { return (n + 3) / 4 * 4; }
-__host__ __device__ constexpr int rg_cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // Shared-memory layout of one lane (floats; every region starts on a
 // 16-byte boundary).
@@ -286,9 +327,10 @@ __global__ void __launch_bounds__(TPL * RgShape<DS, DC, TPL>::MAX_LANES)
   constexpr int NQ = (NJ / S::P2R) * (DS / S::P2C);  // Qxx, Qux tiles
   constexpr int NU = (DC / S::PUR) * (DC / S::PUC);  // Quu tiles
   constexpr int N5 = (DS / S::P5R) * G5;
-  // Two or more warps a lane: the last warp forms Quu and factors it
-  // while the others form Qxx and Qux.
-  constexpr bool SPLIT = TPL >= 64;
+  // Two or more warps a lane and dc > 1: the last warp forms Quu and
+  // factors it while the others form Qxx and Qux (at dc = 1 the scalar
+  // Quu has no factor to overlap).
+  constexpr bool SPLIT = TPL >= 64 && DC > 1;
   static_assert(TPL <= 32 || S::MAX_LANES <= 4, "rg_sync names four lane barriers");
   constexpr int QT = SPLIT ? TPL - 32 : TPL;  // threads on Q's tiles
   extern __shared__ float4 rg_smem[];
@@ -588,6 +630,8 @@ static int rg_launch(const float* Jx, const float* Ju, const float* Cxx,
                      const float* Vn, const float* vn, float* Ks, float* ks,
                      float* lin, float* quad, int H, int B, int lanes,
                      cudaStream_t st) {
+  static_assert(RgShape<DS, DC, TPL>::MAX_LANES * RgLayout<DS, DC, TPL>::LANE * 4 <= 232448,
+                "the largest block's shared memory");
   if (lanes < 1 || lanes > RgShape<DS, DC, TPL>::MAX_LANES || (lanes * TPL) % 32 != 0)
     return (int)cudaErrorInvalidValue;
   auto kernel = riccati_general_kernel<DS, DC, TPL>;
@@ -605,7 +649,8 @@ static int rg_launch(const float* Jx, const float* Ju, const float* Cxx,
 }
 
 // lanes: lanes a block; threads_per_lane: the instance's (64 at
-// (18, 6), 8 at (4, 1)); general_geometry picks both.
+// (18, 6), 8 at (4, 1) in the main library; rg_tpl(ds, dc) in a library
+// built at first use); general_geometry picks both.
 extern "C" int ampc_riccati_general(
     const float* Jx, const float* Ju, const float* Cxx, const float* Cuu,
     const float* cx, const float* cu, const float* Vn, const float* vn,
@@ -615,11 +660,18 @@ extern "C" int ampc_riccati_general(
   if (err != cudaSuccess) return (int)err;
   if (H < 1 || B < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+#ifdef AMPC_DS
+  constexpr int TPL = rg_tpl(AMPC_DS, AMPC_DC);
+  if (ds == AMPC_DS && dc == AMPC_DC && threads_per_lane == TPL)
+    return rg_launch<AMPC_DS, AMPC_DC, TPL>(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn, Ks, ks, lin,
+                                            quad, H, B, lanes, st);
+#else
   if (ds == 18 && dc == 6 && threads_per_lane == 64)
     return rg_launch<18, 6, 64>(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn, Ks, ks, lin,
                                 quad, H, B, lanes, st);
   if (ds == 4 && dc == 1 && threads_per_lane == 8)
     return rg_launch<4, 1, 8>(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn, Ks, ks, lin,
                               quad, H, B, lanes, st);
+#endif
   return (int)cudaErrorInvalidValue;
 }

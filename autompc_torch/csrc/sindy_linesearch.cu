@@ -78,7 +78,7 @@
 // feedback sum is the fold above over the row K_t[j] (the second product
 // rounded, the first fused, one FMA a further component). The (4, 1)
 // instance is the code above, unchanged. The per-lane-coefficient
-// instances are built at (4, 1) only.
+// instances are built at each library's (ds, dc), as the shared ones.
 #include "features.cuh"
 
 #define AMPC_MAX_L 10
@@ -386,14 +386,13 @@ static int sls_group(const TA& T, const SindyLS* P, const float* coeffs,
   return (int)cudaGetLastError();
 }
 
-// The (ds, dc) instances of this object: the main library's (4, 1) (and
-// its per-lane-coefficient instances), or the one shape of a library
-// built at first use (-DAMPC_DS, -DAMPC_DC; ops/_build.py:
-// shape_library). Another shape is refused.
+// The (ds, dc) instances of this object, shared- and per-lane-coefficient
+// alike: the main library's (4, 1), or the one shape of a library built
+// at first use (-DAMPC_DS, -DAMPC_DC; ops/_build.py: shape_library).
+// Another shape is refused.
 #ifndef AMPC_DS
 #define AMPC_DS 4
 #define AMPC_DC 1
-#define AMPC_SLS_LANE_INSTANCES
 #endif
 
 // A grid of ceil(B L G / threads) blocks of `threads` threads (a multiple
@@ -412,24 +411,24 @@ extern "C" int ampc_sindy_line_search(
                                      B, group, threads, (cudaStream_t)stream);
 }
 
-#ifdef AMPC_SLS_LANE_INSTANCES
 // The same launch with per-lane coefficients, a lanes-last (ds, n, B)
 // plane, and the device table Tdev of n terms (up to AMPC_MAX_F_BIG):
 // trees of AMPC_TREE_SLOTS slots up to AMPC_MAX_F terms, else
-// AMPC_TREE_SLOTS_BIG. (4, 1) only.
+// AMPC_TREE_SLOTS_BIG; the object's (ds, dc) only.
 extern "C" int ampc_sindy_line_search_lane(
     const FeatTableBig* Tdev, int n, const SindyLS* P, const float* coeffs,
     const float* x0, const float* xs, const float* us, const float* Ks,
-    const float* ks, float* out_xs, float* out_us, int ds, int H, int B,
+    const float* ks, float* out_xs, float* out_us, int ds, int dc, int H, int B,
     int group, int threads, int device, void* stream) {
   const int rc = sls_check(n, AMPC_MAX_F_BIG, P, ds, H, B, threads, device);
   if (rc) return rc;
-  if (ds != 4) return (int)cudaErrorInvalidValue;
+  if (ds != AMPC_DS || dc != AMPC_DC) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= AMPC_MAX_F)
-    return sls_group<4, 1>(FeatTableRef<AMPC_TREE_SLOTS>{Tdev, n}, P, coeffs, x0, xs, us,
-                           Ks, ks, out_xs, out_us, H, B, group, threads, s);
-  return sls_group<4, 1>(FeatTableRef<AMPC_TREE_SLOTS_BIG>{Tdev, n}, P, coeffs, x0, xs,
-                         us, Ks, ks, out_xs, out_us, H, B, group, threads, s);
+    return sls_group<AMPC_DS, AMPC_DC>(FeatTableRef<AMPC_TREE_SLOTS>{Tdev, n}, P, coeffs, x0,
+                                       xs, us, Ks, ks, out_xs, out_us, H, B, group, threads,
+                                       s);
+  return sls_group<AMPC_DS, AMPC_DC>(FeatTableRef<AMPC_TREE_SLOTS_BIG>{Tdev, n}, P, coeffs,
+                                     x0, xs, us, Ks, ks, out_xs, out_us, H, B, group, threads,
+                                     s);
 }
-#endif

@@ -12,7 +12,7 @@ build takes seconds). Each source is compiled to an object by its own
 The library is built at first use, into ``autompc_torch/_build/`` under
 a name keyed by the hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads. It holds the shape-templated
-kernels at the (ds, dc) of ``KERNEL_SHAPES``. A feature-path kernel
+kernels at the (ds, dc) of ``KERNEL_SHAPES``. A shape-templated kernel
 asked for at another (ds, dc) within the stated limits (``check_shape``)
 is compiled then from the same source, with the shape on the command
 line, into a library of its own keyed by the same hash and the shape
@@ -113,8 +113,8 @@ class Shapes(tuple):
     for in the main library, and the other shapes it is built for at first
     use: ds <= ``max_ds`` with ds + dc <= MAX_D (``max_ds`` None: none),
     dc = 1 only where ``dc1`` (the diagonal-cost recursion and line
-    search, whose QuadDiag / LSParams hold one R). The per-lane-
-    coefficient instances stay at the prebuilt pairs."""
+    search, whose QuadDiag / LSParams hold one R). A library built at
+    first use holds the per-lane-coefficient instances too."""
 
     def __new__(cls, built, max_ds=None, dc1=False):
         self = super().__new__(cls, built)
@@ -123,19 +123,21 @@ class Shapes(tuple):
 
 
 # Each source's shapes; the MLP line search takes its widths at run time,
-# up to the limits above. A feature-path source takes any ds up to MAX_D -
-# 1 but K2, whose ring sets BQ_MAX_DS (its shared memory fits at every ds
-# up to it: tests/test_torch_shapes.py); K3's and K6's blocks fit at every
-# ds up to MAX_D - 1.
+# up to the limits above. Every shape-templated source takes any ds up to
+# MAX_D - 1 but K2, whose ring sets BQ_MAX_DS (its shared memory fits at
+# every ds up to it: tests/test_torch_shapes.py); K3's, K6's, K8's and
+# K9's blocks fit at every ds up to MAX_D - 1, and K4's largest block at
+# every (ds, dc) with ds + dc <= MAX_D (tests/test_torch_dense_shapes.py;
+# cuda_riccati_general.check_general_shape raises past it).
 KERNEL_SHAPES = {
     "relin": Shapes(((4, 1),), MAX_D - 1),
     "riccati_quad": Shapes(((4, 1),), BQ_MAX_DS, dc1=True),
     "riccati_quad_bm": Shapes(((4, 1), (12, 1)), MAX_D - 1, dc1=True),
     "linesearch_fused": Shapes(((4, 1),), MAX_D - 1, dc1=True),
-    "ls_obj_wide": Shapes(((4, 1),)),
-    "ls_reroll_wide": Shapes(((4, 1),)),
+    "ls_obj_wide": Shapes(((4, 1),), MAX_D - 1, dc1=True),
+    "ls_reroll_wide": Shapes(((4, 1),), MAX_D - 1, dc1=True),
     "sindy_linesearch": Shapes(((4, 1),), MAX_D - 1),
-    "riccati_general": Shapes(((18, 6), (4, 1))),
+    "riccati_general": Shapes(((18, 6), (4, 1)), MAX_D - 1),
 }
 
 
@@ -241,7 +243,7 @@ _SIGNATURES = {
         [ctypes.POINTER(FeatTable), _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     ),
     "ampc_relin_jacobians_lane": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "ampc_relin_jacobians_bm_lane": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ampc_relin_jacobians_bm_lane": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ampc_backward_quad_ll": (
         [ctypes.POINTER(QuadDiag)] + [_P] * 14 + [_I] * 6 + [_P]
     ),
@@ -278,7 +280,7 @@ _SIGNATURES = {
         + [_P] * 8 + [_I] * 7 + [_P]
     ),
     "ampc_sindy_line_search_lane": (
-        [_P, _I, ctypes.POINTER(SindyLS)] + [_P] * 8 + [_I] * 6 + [_P]
+        [_P, _I, ctypes.POINTER(SindyLS)] + [_P] * 8 + [_I] * 7 + [_P]
     ),
     "ampc_riccati_general": [_P] * 12 + [_I] * 7 + [_P],
     "ampc_mlp_line_search": (
@@ -474,18 +476,14 @@ def shape_build_log(source, ds, dc) -> str:
     return p.read_text() if p.exists() else ""
 
 
-def kernel_library(source, ds, dc, lane=False) -> ctypes.CDLL:
-    """The library that holds ``source``'s kernels at (ds, dc): the main
-    library at a prebuilt shape, else the shape's own, built at first
-    use. ``lane``: per-lane coefficients, whose instances are prebuilt
-    only. Raises ``ValueError`` by name past the limits, before any
-    launch."""
+def kernel_library(source, ds, dc) -> ctypes.CDLL:
+    """The library that holds ``source``'s kernels at (ds, dc), its
+    shared- and per-lane-coefficient instances alike: the main library at
+    a prebuilt shape, else the shape's own, built at first use. Raises
+    ``ValueError`` by name past the limits, before any launch."""
     check_shape(source, ds, dc)
     if (ds, dc) in KERNEL_SHAPES[source]:
         return library()
-    if lane:
-        raise ValueError(f"{source}: per-lane coefficients are built for (ds, dc) in "
-                         f"{KERNEL_SHAPES[source]}, got {(ds, dc)}")
     return shape_library(source, ds, dc)
 
 

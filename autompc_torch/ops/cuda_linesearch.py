@@ -36,9 +36,11 @@ carry, which rolls out every step size and returns all L trajectories;
 the objective and the choice are the caller's. A group of threads
 (``sindy_geometry``: 8, or 4 from B=2048) rolls each candidate, the
 feature terms summed across the group by shuffles. K7 takes any (ds, dc)
-with ds + dc <= ``_build.MAX_D``, each control its own bounds; K3 any ds
-at dc = 1 (obsdim <= ``_build.MAX_OBS``). The kernel library holds
-(4, 1); another shape is compiled at first use (``_build.kernel_library``).
+with ds + dc <= ``_build.MAX_D``, each control its own bounds; K3, K8
+and K9 any ds at dc = 1 (obsdim <= ``_build.MAX_OBS``). The kernel
+library holds (4, 1); another shape is compiled at first use
+(``_build.kernel_library``), its shared- and per-lane-coefficient
+instances in one library.
 
 K3 and K7 also take one model a lane (``coeffs.ndim == 3`` of the TPU
 entries, the joint fan-out's per-lane models) as a lanes-last (ds, n, B)
@@ -46,7 +48,8 @@ coefficient plane: their per-lane instances read lane b's column in
 place of the shared plane staged in shared memory, walk up to
 ``_build.MAX_F_LANE`` terms (the shared instances ``_build.MAX_F``) from a
 device-resident table, and given B copies of one matrix return the
-shared instances' bits. K3's per-lane instances take per-lane cost
+shared instances' bits; they take the shapes the shared instances take.
+K3's per-lane instances take per-lane cost
 planes and a float32 Jacobian carry (the joint fan-out's form); the
 split search (K8, K9) refuses per-lane coefficients.
 
@@ -336,7 +339,7 @@ def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
     lane_coef = coeffs.ndim == 3
     _build.check_obsdim("linesearch_fused", obsdim)
     _build.check_table_size(len(terms), lane_coef)
-    lib = _build.kernel_library("linesearch_fused", ds, 1, lane_coef)
+    lib = _build.kernel_library("linesearch_fused", ds, 1)
     if lane_coef and not (lane and old_jac.dtype == torch.float32):
         raise ValueError(
             "fused_line_search with per-lane coefficients takes per-lane cost "
@@ -491,7 +494,7 @@ def fused_line_search_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax,
             terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax, qd, rd, fd, goal, dt,
             obj0, lin_red, quad_red, ks_small, reg, ls_cost_threshold)
     _build.check_table_size(len(terms), lane_coef)
-    lib = _build.kernel_library("linesearch_fused", ds, 1, lane_coef)
+    lib = _build.kernel_library("linesearch_fused", ds, 1)
     dev, f32, b8 = xs.device, torch.float32, torch.bool
     L = len(alphas)
     for name, t, shape, dt_ in (
@@ -658,10 +661,8 @@ def wide_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax,
                                      umin, umax, qd, rd, fd, goal, dt, lane)
     H, L = Hp1 - 1, len(alphas)
     geom = fused_geometry(B, L, _build.sm_count(xsT.device))
-    built = _build.KERNEL_SHAPES["ls_obj_wide"]
-    if (ds, 1) not in built:
-        raise ValueError(f"objective-sweep kernel is built for (ds, dc) in {built}, "
-                         f"got {(ds, 1)}")
+    _build.check_obsdim("ls_obj_wide", len(goal))
+    lib = _build.kernel_library("ls_obj_wide", ds, 1)
     dev, f32 = xsT.device, torch.float32
     for name, t, shape in (
         ("x0T", x0T, (ds, B)), ("xsT", xsT, (H + 1, ds, B)), ("usT", usT, (H, B)),
@@ -675,7 +676,7 @@ def wide_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax,
     objs = torch.empty((L, B), dtype=f32, device=dev)
     du2s = torch.empty((L, B), dtype=f32, device=dev)
     p = _build.ptr
-    rc = _build.library().ampc_ls_obj_wide(
+    rc = lib.ampc_ls_obj_wide(
         ctypes.byref(_build.feat_table(tuple(terms))), ctypes.byref(P), p(coeffs),
         p(x0T), p(xsT), p(usT), p(KsT), p(ksT), *planes, p(stash), p(objs), p(du2s),
         ds, H, B, geom["lanes_per_block"], dev.index or 0, _build.stream_of(xsT),
@@ -753,9 +754,7 @@ def wide_reroll(terms, x0T, xsT, usT, coeffs, stash, du2s, sel, traj_mask, jac_m
                                  traj_mask, jac_mask, old_jac)
     Hp1, ds, B = xsT.shape
     H, dsd, L = Hp1 - 1, ds * (ds + 1), stash.shape[2]
-    built = _build.KERNEL_SHAPES["ls_reroll_wide"]
-    if (ds, 1) not in built:
-        raise ValueError(f"re-roll kernel is built for (ds, dc) in {built}, got {(ds, 1)}")
+    lib = _build.kernel_library("ls_reroll_wide", ds, 1)
     if len(terms[0].exps) != ds + 1:
         raise ValueError(f"terms take {len(terms[0].exps)} inputs, expected ds + 1")
     if not 1 <= L <= _build.MAX_L:
@@ -775,7 +774,7 @@ def wide_reroll(terms, x0T, xsT, usT, coeffs, stash, du2s, sel, traj_mask, jac_m
     out_jac = torch.empty((H, dsd, B), dtype=old_jac.dtype, device=dev)
     du2 = torch.empty((B,), dtype=f32, device=dev)
     p = _build.ptr
-    rc = _build.library().ampc_ls_reroll_wide(
+    rc = lib.ampc_ls_reroll_wide(
         ctypes.byref(_build.feat_table(tuple(terms))), p(coeffs), p(x0T), p(xsT),
         p(usT), p(old_jac), p(stash), p(du2s), p(sel), p(traj_mask), p(jac_mask),
         p(out_xs), p(out_us), p(out_jac), p(du2),
@@ -911,7 +910,7 @@ def sindy_line_search(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax):
     B, H, ds, dc = _shapes_sindy(terms, x0, xs, us, Ks, ks, coeffs, alphas)
     lane = coeffs.ndim == 3
     _build.check_table_size(len(terms), lane)
-    lib = _build.kernel_library("sindy_linesearch", ds, dc, lane)
+    lib = _build.kernel_library("sindy_linesearch", ds, dc)
     dev, f32 = xs.device, torch.float32
     for name, t, shape in (
         ("x0", x0, (B, ds)), ("xs", xs, (B, H + 1, ds)), ("us", us, (B, H, dc)),
@@ -940,7 +939,7 @@ def sindy_line_search(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax):
     tail = (H, B, geo["group"], geo["threads"], dev.index or 0, _build.stream_of(xs))
     if lane:
         table = _build.feat_table_dev(tuple(terms), dev)
-        rc = lib.ampc_sindy_line_search_lane(p(table), len(terms), *ptrs, ds, *tail)
+        rc = lib.ampc_sindy_line_search_lane(p(table), len(terms), *ptrs, ds, dc, *tail)
     else:
         rc = lib.ampc_sindy_line_search(ctypes.byref(_build.feat_table(tuple(terms))),
                                         *ptrs, ds, dc, *tail)

@@ -24,11 +24,11 @@ the joint fan-out's per-lane models): the per-lane instances read lane
 b's column where the shared ones read the plane staged in shared
 memory, and walk up to ``_build.MAX_F_LANE`` terms (the shared ones
 ``_build.MAX_F``) from a device-resident table; given B copies of one
-matrix they return the shared instance's bits. The per-lane instances
-are built at (4, 1) only.
+matrix they return the shared instance's bits. They take the shapes the
+shared instances take.
 
-The shared instances are built for (4, 1) with the kernel library; any
-other (ds, dc) is compiled at first use (``_build.kernel_library``).
+Both kinds are built for (4, 1) with the kernel library; any other
+(ds, dc) is compiled at first use (``_build.kernel_library``).
 Only the sparse-gradient formulation is ported (the library's
 descriptors give every term's nonzero partials).
 
@@ -172,7 +172,7 @@ def relin_jacobians(terms, xsT, usT, coeffs):
     H, ds, B = _shapes(terms, xsT, usT, coeffs)
     lane = coeffs.ndim == 3
     _build.check_table_size(len(terms), lane)
-    lib = _build.kernel_library("relin", ds, 1, lane)
+    lib = _build.kernel_library("relin", ds, 1)
     dev, f32 = xsT.device, torch.float32
     _build.check_cuda("xsT", xsT, (H + 1, ds, B), f32, dev)
     _build.check_cuda("usT", usT, (H, B), f32, dev)
@@ -220,7 +220,7 @@ def relin_jacobians_bm(terms, xs, us, coeffs):
     B, H, ds, dc = _shapes_bm(terms, xs, us, coeffs)
     lane = coeffs.ndim == 3
     _build.check_table_size(len(terms), lane)
-    lib = _build.kernel_library("relin", ds, dc, lane)
+    lib = _build.kernel_library("relin", ds, dc)
     dev, f32 = xs.device, torch.float32
     _build.check_cuda("xs", xs, (B, H + 1, ds), f32, dev)
     _build.check_cuda("us", us, (B, H, dc), f32, dev)
@@ -231,8 +231,8 @@ def relin_jacobians_bm(terms, xs, us, coeffs):
     split = relin_geometry(B, H, _build.sm_count(dev), ds, dc, bm=True)["split"]
     if lane:
         rc = lib.ampc_relin_jacobians_bm_lane(
-            *_table_args(terms, lane, dev), p(coeffs), p(xs), p(us), p(Jx), p(Ju), ds, H,
-            B, int(split), dev.index or 0, _build.stream_of(xs))
+            *_table_args(terms, lane, dev), p(coeffs), p(xs), p(us), p(Jx), p(Ju), ds, dc,
+            H, B, int(split), dev.index or 0, _build.stream_of(xs))
     else:
         rc = lib.ampc_relin_jacobians_bm(
             *_table_args(terms, lane, dev), p(coeffs), p(xs), p(us), p(Jx), p(Ju), ds, dc,

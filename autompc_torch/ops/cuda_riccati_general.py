@@ -12,10 +12,14 @@ v <- qx + Qux'k + K'(qu + Quu k). A Quu that is not positive definite
 gives NaN gains for that lane, as in the JAX kernel; nothing guards or
 regularizes it.
 
-The kernel is instantiated for the (ds, dc) pairs of
-``_build.KERNEL_SHAPES["riccati_general"]``; another pair raises
-``ValueError``. Its launch geometry (threads a lane, lanes a block) is
-chosen here, by ``general_geometry``. A CPU tensor takes the plain
+The main library holds hand-set instances at (18, 6) and (4, 1)
+(``_build.KERNEL_SHAPES["riccati_general"]``); any other (ds, dc) with
+ds + dc <= ``_build.MAX_D`` is compiled at first use
+(``_build.kernel_library``) as the instance of a rule that sets the
+tiles, threads a lane, ring and block from (ds, dc) (``general_shape``);
+a shape past the limits raises ``ValueError`` before any build
+(``check_general_shape``). Its launch geometry (threads a lane, lanes a
+block) is chosen here, by ``general_geometry``. A CPU tensor takes the plain
 PyTorch version ``riccati_general_plain``; a CUDA tensor launches the
 kernel or raises.
 """
@@ -23,6 +27,7 @@ kernel or raises.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -89,11 +94,12 @@ def _shapes(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):
     return B, H, ds, dc
 
 
-# Per instance (ds, dc): threads a lane, the most lanes a block takes,
-# register tiles (rows x columns) of the products ([Jx|Ju]'[V|v]; Qxx
-# and Qux; Quu; the next V) and steps in the input ring; a mirror of
-# RgShape in csrc/riccati_general.cu. With 64 or more threads a lane the
-# last warp forms and factors Quu while the others form Qxx and Qux.
+# Per hand-set instance (ds, dc): threads a lane, the most lanes a block
+# takes, register tiles (rows x columns) of the products ([Jx|Ju]'[V|v];
+# Qxx and Qux; Quu; the next V) and steps in the input ring; a mirror of
+# the RgShape specialisations in csrc/riccati_general.cu, which the main
+# library holds. With 64 or more threads a lane and dc > 1 the last warp
+# forms and factors Quu while the others form Qxx and Qux.
 GENERAL_SHAPES = {
     (18, 6): dict(threads_per_lane=64, max_lanes=4, p1=(4, 2), p2=(3, 6), pu=(2, 2),
                   p5=(2, 3), ring=3),
@@ -106,43 +112,97 @@ def _up4(n):
     return -(-n // 4) * 4
 
 
-def general_lane_bytes(ds, dc):
+def _pow2(n):
+    """The smallest power of two >= n (csrc: rg_pow2)."""
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def _divisor(n, m):
+    """The largest divisor of n that is at most m (csrc: rg_divisor)."""
+    d = min(n, m)
+    while n % d:
+        d -= 1
+    return d
+
+
+def _slot(ds, dc):
+    """Floats of one ring slot (csrc: rg_slot)."""
+    return _up4(ds * (ds + dc)) + _up4(ds * ds) + _up4(dc * dc) + _up4(ds) + _up4(dc)
+
+
+def rule_threads(ds, dc):
+    """Threads a lane of the rule's instance (csrc: rg_tpl): ds (ds + dc)
+    / 8 rounded up to a power of two, from 8 to 64, and at least ds + dc
+    rounded up to a power of two."""
+    return max(min(max(_pow2(-(-ds * (ds + dc) // 8)), 8), 64), _pow2(ds + dc))
+
+
+def general_shape(ds, dc, rule=False):
+    """K4's instance at (ds, dc): the hand-set tiling of the main library
+    (``GENERAL_SHAPES``), else (or with ``rule``) the tiling of the
+    primary ``RgShape`` template that a library built at first use holds:
+    the tiles' widths divisors of the products' dimensions, a ring of
+    3072 / slot steps (2 to 6), 256 threads a block up to a warp a lane
+    and 4 lanes from two warps on."""
+    if not rule and (ds, dc) in GENERAL_SHAPES:
+        return GENERAL_SHAPES[(ds, dc)]
+    tpl = rule_threads(ds, dc)
+    return dict(threads_per_lane=tpl, max_lanes=256 // tpl if tpl <= 32 else 4,
+                p1=(_divisor(ds + dc, 2), 4), p2=(_divisor(math.gcd(ds, dc), 2), _divisor(ds, 4)),
+                pu=(_divisor(dc, 2), _divisor(dc, 2)), p5=(_divisor(ds, 2), 4),
+                ring=min(max(3072 // _slot(ds, dc), 2), 6))
+
+
+def general_lane_bytes(ds, dc, rule=False):
     """Shared memory of one lane (RgLayout in csrc/riccati_general.cu):
     the input ring and the recursion's matrices, each region padded to
     16 bytes, the row strides to whole tiles."""
-    sh = GENERAL_SHAPES[(ds, dc)]
+    sh = general_shape(ds, dc, rule)
     nj, nv = ds + dc, ds + 1
     sv = _up4(-(-nv // sh["p1"][1]) * sh["p1"][1])
     sq = _up4(max(-(-ds // sh["p5"][1]) * sh["p5"][1], nv))
-    slot = _up4(ds * nj) + _up4(ds * ds) + _up4(dc * dc) + _up4(ds) + _up4(dc)
     work = (_up4(ds * sv) + _up4(ds * nj) + _up4(nj * sq) + _up4(dc * dc) + _up4(dc)
             + _up4(dc * sq) + _up4(dc * ds) + _up4(dc * dc) + _up4(dc))
-    return 4 * (sh["ring"] * slot + work)
+    return 4 * (sh["ring"] * _slot(ds, dc) + work)
+
+
+def check_general_shape(ds, dc):
+    """Raise ``ValueError`` by name unless K4 takes (ds, dc): ds + dc <=
+    ``_build.MAX_D`` and the largest block of the instance (its
+    ``max_lanes`` lanes) within the shared memory of a block. Called
+    before any build or launch."""
+    _build.check_shape("riccati_general", ds, dc)
+    sh = general_shape(ds, dc)
+    need = sh["max_lanes"] * general_lane_bytes(ds, dc)
+    if need > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"riccati_general: {sh['max_lanes']} lanes at (ds, dc) = {(ds, dc)} "
+                         f"take {need} bytes of shared memory, over "
+                         f"{_build.MAX_SMEM_BYTES}")
 
 
 @functools.lru_cache(maxsize=256)
-def general_geometry(ds, dc, B, sm_count=None):
+def general_geometry(ds, dc, B, sm_count=None, rule=False):
     """K4's launch geometry at (ds, dc) for B lanes: the instance's
     ``threads_per_lane`` threads share a lane (two warps at (18, 6), 8 at
-    (4, 1)), and a block takes ``lanes_per_block`` lanes, the most (up to
-    the instance's limit, in powers of two from one warp) that still
-    leaves a block for every one of ``sm_count`` SMs (an H100's 132 when
-    not given), so a small batch spreads over as many SMs as it has lanes
-    and a large one makes fewer, larger blocks. Raises ``ValueError`` for
-    a pair the kernel is not built for."""
-    built = _build.KERNEL_SHAPES["riccati_general"]
-    if (ds, dc) not in built:
-        raise ValueError(
-            f"general backward kernel is built for (ds, dc) in {built}, got {(ds, dc)}"
-        )
+    (4, 1), ``rule_threads`` elsewhere or with ``rule``), and a block takes
+    ``lanes_per_block`` lanes, the most (up to the instance's limit, in
+    powers of two from one warp) that still leaves a block for every one
+    of ``sm_count`` SMs (an H100's 132 when not given), so a small batch
+    spreads over as many SMs as it has lanes and a large one makes fewer,
+    larger blocks. Raises ``ValueError`` past the kernel's limits
+    (``check_general_shape``)."""
+    check_general_shape(ds, dc)
     sms = sm_count or _build.H100_SMS
-    sh = GENERAL_SHAPES[(ds, dc)]
+    sh = general_shape(ds, dc, rule)
     tpl = sh["threads_per_lane"]
     lanes = max(1, 32 // tpl)
     while 2 * lanes <= sh["max_lanes"] and -(-B // (2 * lanes)) >= sms:
         lanes *= 2
     return dict(threads_per_lane=tpl, lanes_per_block=lanes, threads=lanes * tpl,
-                blocks=-(-B // lanes), smem=lanes * general_lane_bytes(ds, dc))
+                blocks=-(-B // lanes), smem=lanes * general_lane_bytes(ds, dc, rule))
 
 
 def riccati_general_plain(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):
@@ -161,9 +221,21 @@ def riccati_general(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):
     (B,), quad_red (B,))."""
     if _build.device_kind(Jx) == "cpu":
         return riccati_general_plain(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn)
+    ds, dc = _shapes(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn)[2:]
+    check_general_shape(ds, dc)
+    return launch(_build.kernel_library("riccati_general", ds, dc), False,
+                  Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn)
+
+
+def launch(lib, rule, Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):
+    """K4 from the library ``lib`` on CUDA tensors: the main library's
+    hand-set instance, or (``rule``) the rule's instance of a library
+    built at first use (``_build.shape_library``; at (18, 6) and (4, 1)
+    it stands beside the hand-set one). Counted as a launch of
+    ``riccati_general``."""
     B, H, ds, dc = _shapes(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn)
     dev, f32 = Jx.device, torch.float32
-    g = general_geometry(ds, dc, B, _build.sm_count(dev))
+    g = general_geometry(ds, dc, B, _build.sm_count(dev), rule)
     for name, t in (("Jx", Jx), ("Ju", Ju), ("Cxx", Cxx), ("Cuu", Cuu),
                     ("cx", cx), ("cu", cu), ("Vn", Vn), ("vn", vn)):
         _build.check_cuda(name, t, t.shape, f32, dev)
@@ -172,7 +244,7 @@ def riccati_general(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):
     lin = torch.empty((B,), dtype=f32, device=dev)
     quad = torch.empty((B,), dtype=f32, device=dev)
     p = _build.ptr
-    rc = _build.library().ampc_riccati_general(
+    rc = lib.ampc_riccati_general(
         p(Jx), p(Ju), p(Cxx), p(Cuu), p(cx), p(cu), p(Vn), p(vn),
         p(Ks), p(ks), p(lin), p(quad), ds, dc, H, B, g["lanes_per_block"],
         g["threads_per_lane"], dev.index or 0, _build.stream_of(Jx),

@@ -208,12 +208,14 @@ Phases (each raises on failure, so the exit code is non-zero):
    diag(10, 0.1), R = 0.001): the scheduled lanes-last solve at B=16384,
    H=200 (2 warm, 3 timed runs on distinct draws; K1, K2, K3 at (2, 1)),
    solves/s and converged fraction, then the receding loop (256 starts
-   around (pi, 0), H=20, 200 steps) on the true pendulum, the share ending
+   within 0.3 of upright in theta and omega, the recovery task's
+   neighbourhood, H=20, 200 steps) on the true pendulum, the share ending
    in the task's 0.2 box reported, not gated; (b) ``QuadCostFanout`` on
    that model in phase 8's two configurations (B=1,024, H=10, 25 steps;
    50 uncut), evals/s and the first-step agreement (>= 0.95) from (pi -
    0.5, 0); (c) ``PipelineTuner`` kind "ilqr" with phase 10's fan-out
-   options, one round of 64 candidates at 49 steps, then sequential
+   options on the recovery task (from (0.15, 0)), one round of 64
+   candidates at 49 steps, then sequential
    against fan-out (>= 3 of 4); (d) the halfcheetah's SINDy (phase 6's
    data, the 48-term quadratic library, lasso) through the batch-major
    solve with its feature_spec at B=1024, H=200 (K1's batch-major entry,
@@ -855,10 +857,11 @@ MT_VMAP_N, MT_VMAP_STEPS, MT_VMAP_AGREE_MIN = 8, 3, 6
 # diag(PD_Q), R = PD_R): the scheduled lanes-last solve at B_SOLVE, H,
 # SCHEDULE (phase 4's shape: 2 warm runs, 3 timed on distinct draws of
 # theta in [-pi, pi], omega in [-1, 1]), then the receding loop from
-# PD_CL_B starts around the task's (pi, 0) (theta, omega each within
-# PD_CL_SPREAD), H=PD_CL_H, PD_CL_STEPS steps on the true pendulum, the
-# share ending in the task's 0.2 box reported (no gate: no earlier
-# measurement in either package); K1, K2, K3 at (2, 1). (b) QuadCostFanout
+# PD_CL_B starts about upright (theta, omega each within the
+# pendulum's RECOVERY_SPREAD: from (pi, 0) every lane ended outside the
+# box, so the loop measured nothing), H=PD_CL_H, PD_CL_STEPS steps on the
+# true pendulum, the share ending in the task's 0.2 box reported (not
+# gated until two runs agree on it); K1, K2, K3 at (2, 1). (b) QuadCostFanout
 # on (a)'s model at FAN_B, FAN_H, PD_FAN_STEPS steps (50 uncut), both of
 # phase 8's configurations, one warm and FAN_CALLS timed calls, their first-step
 # agreement as phase 8's. (c) PipelineTuner kind "ilqr" with phase 10's
@@ -873,7 +876,7 @@ MT_VMAP_N, MT_VMAP_STEPS, MT_VMAP_AGREE_MIN = 8, 3, 6
 # its converged and finite shares reported, not gated (K4's Cholesky is
 # unguarded: ROADMAP hazard 5).
 PD_Q, PD_R = (10.0, 0.1), 0.001
-PD_CL_B, PD_CL_H, PD_CL_STEPS, PD_CL_SPREAD = 256, 20, 200, 0.1
+PD_CL_B, PD_CL_H, PD_CL_STEPS = 256, 20, 200
 # Phase [3]'s K1-K3 rows at (2, 1) on the main path's shape (B_KERNEL, H)
 # start around (pi, 0), theta and omega each within PD_KERNEL_SPREAD.
 PD_KERNEL_SPREAD = 0.25
@@ -1765,8 +1768,7 @@ def joint_mlp_phase(dev, card, K4, profile=False):
     size, the inputs K4 takes on the tune's first fan-out after three
     iterations of its first closed-loop step)."""
     from autompc_torch.benchmarks import CartpoleSwingupV2Benchmark
-    from autompc_torch.control import IterativeLQRFactory, ilqr
-    from autompc_torch.control import make_batched_ilqr_solver
+    from autompc_torch.control import IterativeLQRFactory
     from autompc_torch.costs import QuadCostFactory
     from autompc_torch.parallel import JointMLPQuadCostFanout
     from autompc_torch.pipeline import Pipeline
@@ -1911,25 +1913,9 @@ def joint_mlp_phase(dev, card, K4, profile=False):
     fan = first["fan"]
     full, _ = fan._prepare(first["batch"])
     params, cp = fan._solver_inputs(full, fan._train(full))
-    _, carry0, _, make_body = make_batched_ilqr_solver(
-        fan._pred_core, None, return_pieces=True, **fan.solver_kw)
     B, H = full["lr"].shape[0], fan.solver_kw["H"]
     x0 = full["lr"].new_tensor(np.tile(task.get_init_obs(), (B, 1)))
-    carry, body = carry0(params, x0, x0.new_zeros((B, H, 1)), cp), make_body(params)
-    for _ in range(3):
-        carry = body(carry)
-    captured = []
-
-    def capture(*args):
-        captured.append(tuple(a.contiguous() for a in args))
-        return K4.riccati_general_plain(*args)
-
-    real_k4 = ilqr.riccati_general
-    ilqr.riccati_general = capture
-    try:
-        body(carry)
-    finally:
-        ilqr.riccati_general = real_k4
+    k4_args = capture_k4(K4, fan._pred_core, fan.solver_kw, params, x0, cp)
     heff = full["horizons"].tolist()
     print(f"[11] K4's inputs for phase 3: B={B}, H={H}, horizons {sorted(set(heff))} "
           f"({sum(H - h for h in heff)} inert lane-steps of {B * H})", flush=True)
@@ -1942,7 +1928,7 @@ def joint_mlp_phase(dev, card, K4, profile=False):
             n_train_iters=JM_EPOCHS)
         profile_solve(fan20, (first["batch"],),
                       f"the joint-MLP fan-out's training and 20 closed-loop steps (B={B}, H={H})")
-    return launches, by_B, captured[0]
+    return launches, by_B, k4_args
 
 
 def joint_candidates(dev, n, seed=0):
@@ -4599,27 +4585,15 @@ def model_tuning_phase(bench, model, trajs, dev, card, wrappers):
     return dict(launches=launches, by_B=by_B, kw=kw, batch=batch)
 
 
-def shapes_phase(dev, card, mods, hc, hc_trajs):
-    """Phase 18: (a) the pendulum's main path and closed loop, (b) its
-    cost fan-out in both configurations, (c) its "ilqr" tune, (d) the
-    halfcheetah's SINDy through the batch-major solve. ``mods`` are the
-    kernel modules (K1, K2, K3, K4); ``hc`` and ``hc_trajs`` phase 6's
-    benchmark and data. Each path's kernels are counted from 0 just
-    before it and read just after. Returns what phase [3]'s checks of the
-    new instances read."""
+def pendulum_setup():
+    """Phase 18 (a)'s pendulum: the benchmark, its data (50 x 100, seed
+    42, on the card), the SINDy fit (phase 2's options), the support, the
+    quadratic cost (Q = F = diag(PD_Q), R = PD_R) and the lanes-last
+    solver's options. Returns them in a dict."""
     from autompc_torch.benchmarks import PendulumSwingupBenchmark
-    from autompc_torch.control import (make_receding_ilqr_loop, make_scheduled_ilqr_solver,
-                                       parse_schedule)
     from autompc_torch.costs import QuadCost
     from autompc_torch.sysid import SINDy
-    from autompc_torch.utils.profiling import timeit_distinct
 
-    K1, K2, K3, K4 = mods
-    t_phase = time.perf_counter()
-    f32 = dict(dtype=torch.float32, device=dev)
-    sp = {}
-
-    # ---- (a) the pendulum's main path: K1, K2, K3 at (2, 1) ----------------
     pb = PendulumSwingupBenchmark()
     t0 = time.perf_counter()
     pm = SINDy(pb.system, **SINDY_KW)
@@ -4639,6 +4613,34 @@ def shapes_phase(dev, card, mods, hc, hc_trajs):
     common = dict(ds=2, dc=1, obsdim=2, dt=pb.system.dt, ubounds=(bounds[:, 0], bounds[:, 1]),
                   backward="pallas", feature_spec=(pm.library, "coeffs"), fuse_ls=True,
                   lanes_last=True, feature_mask=active)
+    return dict(pb=pb, pm=pm, ptrajs=ptrajs, pcost=pcost, common=common, active=active)
+
+
+def shapes_phase(dev, card, mods, hc, hc_trajs):
+    """Phase 18: (a) the pendulum's main path and closed loop, (b) its
+    cost fan-out in both configurations, (c) its "ilqr" tune, (d) the
+    halfcheetah's SINDy through the batch-major solve. ``mods`` are the
+    kernel modules (K1, K2, K3, K4); ``hc`` and ``hc_trajs`` phase 6's
+    benchmark and data. Each path's kernels are counted from 0 just
+    before it and read just after. Returns what phase [3]'s checks of the
+    new instances read."""
+    from autompc_torch.benchmarks.pendulum import RECOVERY_SPREAD
+    from autompc_torch.control import (make_receding_ilqr_loop, make_scheduled_ilqr_solver,
+                                       parse_schedule)
+    from autompc_torch.costs import QuadCost
+    from autompc_torch.sysid import SINDy
+    from autompc_torch.utils.profiling import timeit_distinct
+
+    K1, K2, K3, K4 = mods
+    t_phase = time.perf_counter()
+    f32 = dict(dtype=torch.float32, device=dev)
+    sp = {}
+
+    # ---- (a) the pendulum's main path: K1, K2, K3 at (2, 1) ----------------
+    pd = pendulum_setup()
+    pb, pm, ptrajs, pcost, common, active = (
+        pd[k] for k in ("pb", "pm", "ptrajs", "pcost", "common", "active"))
+    bounds = pb.task.get_ctrl_bounds()
     ll = (K1.relin_jacobians, K2.backward_quad_ll, K3.fused_line_search)
     rng = np.random.default_rng(0)
 
@@ -4673,8 +4675,8 @@ def shapes_phase(dev, card, mods, hc, hc_trajs):
           f"launches {solve_launches}", flush=True)
     run_cl = make_receding_ilqr_loop(pm.pred_core, pcost, pb.dynamics, H=PD_CL_H,
                                      n_steps=PD_CL_STEPS, **common)
-    x0_cl = torch.as_tensor(np.array([np.pi, 0.0]) + np.random.default_rng(7).uniform(
-        -PD_CL_SPREAD, PD_CL_SPREAD, (PD_CL_B, 2)), **f32)
+    x0_cl = torch.as_tensor(np.random.default_rng(7).uniform(
+        -RECOVERY_SPREAD, RECOVERY_SPREAD, (PD_CL_B, 2)), **f32)
     t0 = time.perf_counter()
     xs_cl, us_cl, nconv = run_cl(pm.params, x0_cl)
     torch.cuda.synchronize()
@@ -4688,7 +4690,8 @@ def shapes_phase(dev, card, mods, hc, hc_trajs):
     wrapped = torch.remainder(fx[:, 0] + np.pi, 2 * np.pi) - np.pi
     box_mod = ((wrapped.abs() < 0.2) & (fx[:, 1].abs() < 0.2)).float().mean().item()
     cl_launches = {w.__name__: w.launches - solve_launches[w.__name__] for w in ll}
-    print(f"[18a] pendulum closed loop {PD_CL_B} starts around (pi, 0) x {PD_CL_STEPS} steps "
+    print(f"[18a] pendulum closed loop {PD_CL_B} starts within {RECOVERY_SPREAD} of upright x "
+          f"{PD_CL_STEPS} steps "
           f"(H={PD_CL_H}): {t_cl:.2f} s ({t_cl / PD_CL_STEPS * 1e3:.1f} ms a step); ending in the "
           f"task's 0.2 box {box:.4f} (theta taken modulo 2 pi: {box_mod:.4f}; not gated); solver "
           f"converged {nconv.float().mean().item() / PD_CL_STEPS:.4f} of steps; launches "
@@ -4697,7 +4700,7 @@ def shapes_phase(dev, card, mods, hc, hc_trajs):
     if min(solve_launches.values()) == 0 or min(cl_launches.values()) == 0:
         raise RuntimeError(f"a kernel never ran on the pendulum's main path: solves "
                            f"{solve_launches}, closed loop {cl_launches}")
-    sp.update(pb=pb, pm=pm, pcost=pcost, common=common, active=active, x0_cl=x0_cl,
+    sp.update(pb=pb, pm=pm, ptrajs=ptrajs, pcost=pcost, common=common, active=active, x0_cl=x0_cl,
               a_launches=a_launches, a_solve=solve_launches, a_loop=cl_launches)
 
     # ---- (b) the pendulum's cost fan-out, both configurations --------------
@@ -4760,8 +4763,7 @@ def shapes_phase(dev, card, mods, hc, hc_trajs):
     from autompc_torch.tuning import PipelineTuner
 
     system = pb.system
-    task = pb.task.copy()
-    task.set_num_steps(PD_TUNE_STEPS)
+    task = pb.recovery_task(num_steps=PD_TUNE_STEPS)
     tw = wrappers["b"]
     reset_launches(tw)
     pipeline = Pipeline(system, pm, QuadCostFactory(system, goal=np.zeros(2)),
@@ -4796,22 +4798,7 @@ def shapes_phase(dev, card, mods, hc, hc_trajs):
     free = Pipeline(system, pm, QuadCostFactory(system, goal=np.zeros(2)),
                     IterativeLQRFactory(system))
     t0 = time.perf_counter()
-    scores = [
-        PipelineTuner(surrogate_mode="pretrain", eval_batch=SEQ_ITERS, **kw).run(
-            free, seq_task, ptrajs, n_iters=SEQ_ITERS, rng=np.random.default_rng(3),
-            surrogate=pm)[1]
-        for kw in ({}, dict(use_fanout=True, fanout_backward="pallas",
-                            fanout_feature_kernels=True))
-    ]
-    agree = 0
-    for i, (cfg, a, b) in enumerate(zip(scores[0].cfgs, scores[0].costs, scores[1].costs)):
-        ok = (a == b) or (np.isfinite(a) and np.isfinite(b)
-                          and abs(a - b) <= SEQ_TOL * max(abs(b), 1e-30))
-        agree += ok
-        print(f"[18c] candidate {i} (horizon {cfg['_ctrlr:horizon']}): sequential {a!r}, "
-              f"fan-out {b!r}{'' if ok else ' DIFFER'}", flush=True)
-    same_cfgs = [c.get_dictionary() for c in scores[0].cfgs] == \
-        [c.get_dictionary() for c in scores[1].cfgs]
+    agree, same_cfgs = seq_against_fanout("18c", free, seq_task, ptrajs, SEQ_ITERS, surrogate=pm)
     print(f"[18c] sequential vs fan-out ({SEQ_STEPS}-step near-upright task, quadratic task "
           f"cost): {agree} of {SEQ_ITERS} within {SEQ_TOL} (min {SEQ_AGREE_MIN}); same "
           f"configurations {same_cfgs}; {time.perf_counter() - t0:.2f} s", flush=True)
@@ -5039,6 +5026,755 @@ def check_shape_kernels(sp, mods, failures):
     return rows
 
 
+# ---- Phase 19: the remaining kernels at every (ds, dc) ---------------------------------
+
+# Phase 19: K4 from dense expansions at shapes no earlier path gave it,
+# the per-lane K1/K3/K7 instances off (4, 1), K8/K9 and K2's 4D entry at
+# (2, 1), each through the entry points a user calls. (a) phase 15's
+# joint-Koopman cell (the cartpole, JK_BASIS: lift (12, 1), B=JK_B,
+# H=JK_H, JK_SCHEDULE) with the GaussReg term (phase 13's S, mu of the
+# main path's data and a regw a lane, 10**U(-3, 4) from GR_SEED), cut to
+# DS_JK_STEPS closed-loop steps (JK_STEPS uncut), backward "scan" and
+# "pallas" (K4 at (12, 1)) on the same batch, one warm and one timed call
+# each, their first MPC-step solves compared as phase 8's; then the
+# Koopman space's basis DS_JK_BASIS2 (polynomials to degree 2: lift
+# (8, 1)) under "pallas" at DS_JK2_B lanes, DS_JK2_STEPS steps. (b) the
+# "joint_mlp" tune on the pendulum (data 50 x 100, seed 42, the recovery
+# task from (0.15, 0) at DS_TUNE_STEPS - 1 steps, phase 11's MLP pin and
+# epochs, the horizon mask on, fanout_backward "pallas": K4 at (2, 1) on
+# the masked per-lane expansions; the per-lane MLPs take no MLP line
+# search, K5, as in the JAX package): one round
+# of DS_TUNE_ITERS candidates, then sequential against fan-out on them
+# at DS_SEQ_STEPS - 1 steps (their nets trained DS_SEQ_EPOCHS epochs).
+# (c) JointSINDyQuadCostFanout on phase 18's pendulum data in phase 12's
+# two configurations ((a) lanes-last: per-lane K1 and K3, K2; (b)
+# batch-major: per-lane K1 batch-major entry and K7, K6) at JS_B, JS_H,
+# DS_JS_STEPS steps (phase 12's bucket at d = 3: 21 terms, the small
+# trees) and DS_JS_BIG (trig to frequency 4: 75 terms, the large trees)
+# at JS_BIG_B, DS_JS_BIG_STEPS; the first-step agreement of (a) and (b)
+# from PD_FAN_X0; then the "joint_sindy" tune, one round of
+# DS_TUNE_ITERS with fanout_feature_kernels, and sequential against
+# fan-out at DS_SEQ_STEPS - 1 steps. (d) phase 18 (a)'s solve (B_SOLVE, H, SCHEDULE, at most
+# DS_WIDE_ITERS iterations) in its default body, with ls_wide=True (K8,
+# K9) and with AMPC_BQ_WIDE_IO=reshape (K2's 4D entry), 3 timed runs
+# each on the same draws: solves/s, converged fraction and the share of
+# lanes converged in both whose accepted objectives agree within
+# FAN_OBJ_TOL (gate FAN_AGREE_MIN: two float32 bodies part on a few
+# lanes, ROADMAP hazard 7); ll must be the default's bits.
+DS_JK_STEPS = 10
+DS_JK_BASIS2 = dict(poly_basis=True, poly_degree=2)
+DS_JK2_B, DS_JK2_STEPS = 128, 5
+DS_TUNE_ITERS, DS_TUNE_STEPS = 4, 20
+# The sequential checks of (b) and (c) run DS_SEQ_STEPS - 1 steps (the
+# sequential objective is a host loop of single-lane solves: at 19 steps
+# the two checks took 79.3 s of the phase's 114.2 on an NVIDIA H100 80GB
+# HBM3, 700 W). The joint-MLP one trains DS_SEQ_EPOCHS epochs: the
+# per-lane masked max-width training and MLP.train's unpadded one are one
+# function (within 1e-12 in float64 at 20 epochs), but their float32
+# roundings part further each epoch, and a closed loop on the pendulum
+# turns that into 1-46% (`python3 tools/torch_joint_mlp_seq_check.py`,
+# CPU: 0 of 4 within SEQ_TOL at 20 epochs, all 4 at 1).
+DS_SEQ_STEPS, DS_SEQ_EPOCHS = 10, 1
+DS_JS_STEPS = 10
+DS_JS_BIG = dict(JS_BUCKET, trig_freq=4)
+DS_JS_BIG_STEPS = 5
+DS_WIDE_ITERS = 50
+# The shapes phase 19 builds at first use beside phase 18's.
+SHAPES_19 = (("riccati_general", 12, 1), ("riccati_general", 2, 1), ("riccati_general", 8, 1),
+             ("ls_obj_wide", 2, 1), ("ls_reroll_wide", 2, 1))
+
+
+def capture_k4(K4, pred_core, solver_kw, params, x0, cp, n_iters=3):
+    """K4's inputs on a path: the batch-major solver's carry after
+    ``n_iters`` iterations from ``x0`` (a zero control guess), then the
+    next iteration's backward pass captured (its plain version runs in
+    its place). Returns the eight input tensors."""
+    from autompc_torch.control import ilqr, make_batched_ilqr_solver
+
+    _, carry0, _, make_body = make_batched_ilqr_solver(pred_core, None, return_pieces=True,
+                                                       **solver_kw)
+    B = x0.shape[0]
+    carry = carry0(params, x0, x0.new_zeros((B, solver_kw["H"], solver_kw["dc"])), cp)
+    body = make_body(params)
+    for _ in range(n_iters):
+        carry = body(carry)
+    captured = []
+
+    def capture(*args):
+        captured.append(tuple(a.contiguous() for a in args))
+        return K4.riccati_general_plain(*args)
+
+    real = ilqr.riccati_general
+    ilqr.riccati_general = capture
+    try:
+        body(carry)
+    finally:
+        ilqr.riccati_general = real
+    return captured[0]
+
+
+def k4_counts(K4):
+    return K4.riccati_general.launches, dict(K4.riccati_general.launches_by_B)
+
+
+def reset_k4(K4):
+    K4.riccati_general.launches, K4.riccati_general.launches_by_B = 0, {}
+
+
+def seq_against_fanout(tag, pipeline, task, trajs, n, **kw):
+    """The tuner's sequential objective against its fan-out on the same
+    ``n`` candidates (phase 10's rule): prints each pair, returns the
+    number within SEQ_TOL and whether both drew the same
+    configurations."""
+    from autompc_torch.tuning import PipelineTuner
+
+    scores = [PipelineTuner(surrogate_mode="pretrain", eval_batch=n, **k).run(
+        pipeline, task, trajs, n_iters=n, rng=np.random.default_rng(3), **kw)[1]
+        for k in ({}, dict(use_fanout=True, fanout_backward="pallas",
+                           fanout_feature_kernels=True))]
+    agree = 0
+    for i, (cfg, a, b) in enumerate(zip(scores[0].cfgs, scores[0].costs, scores[1].costs)):
+        ok = (a == b) or (np.isfinite(a) and np.isfinite(b)
+                          and abs(a - b) <= SEQ_TOL * max(abs(b), 1e-30))
+        agree += ok
+        print(f"[{tag}] candidate {i} (horizon {cfg['_ctrlr:horizon']}): sequential {a!r}, "
+              f"fan-out {b!r}{'' if ok else ' DIFFER'}", flush=True)
+    same = [c.get_dictionary() for c in scores[0].cfgs] == \
+        [c.get_dictionary() for c in scores[1].cfgs]
+    return agree, same
+
+
+def dense_shapes_phase(dev, card, mods, sp, bench, model, trajs, jk_steps=DS_JK_STEPS):
+    """Phase 19 (a)-(d); ``mods`` the kernel modules (K1, K2, K3, K4),
+    ``sp`` phase 18's results (the pendulum's model, data and cost),
+    ``bench``, ``model``, ``trajs`` the cartpole's (phase 2). Each path's
+    kernels are counted from 0 just before it and read just after.
+    Returns what phase [3]'s checks of the new instances read."""
+    from autompc_torch.control import IterativeLQRFactory, make_scheduled_ilqr_solver
+    from autompc_torch.control import parse_schedule
+    from autompc_torch.costs import QuadCost, QuadCostFactory
+    from autompc_torch.parallel import JointKoopmanLassoQuadCostFanout, JointSINDyQuadCostFanout
+    from autompc_torch.pipeline import Pipeline
+    from autompc_torch.sysid import MLPFactory, SINDyFactory
+    from autompc_torch.sysid.arx import linear_pred
+    from autompc_torch.tuning import PipelineTuner
+    from autompc_torch.tuning.pipeline_tuner import _gauss_reg_stats
+
+    K1, K2, K3, K4 = mods
+    t_phase = time.perf_counter()
+    out = {}
+
+    # ---- (a) the joint-Koopman fan-out with the GaussReg term ---------------
+    system = bench.system
+    S, mu = _gauss_reg_stats(trajs)
+    reg = dict(reg_matrix=S, reg_goal=mu)
+    batch = gauss_reg_candidates(dev, JK_B, JK_SEED)
+    batch["reg"] = batch["Qdiag"].new_tensor(10 ** np.random.default_rng(JK_SEED).uniform(
+        -6, 0, JK_B))
+    fans, res = {}, {}
+    for tag, backward in (("a1", "scan"), ("a2", "pallas")):
+        fan = JointKoopmanLassoQuadCostFanout(
+            system, bench.task, JK_BASIS, trajs, model, horizon=JK_H, n_steps=jk_steps,
+            goal=np.zeros(4), compact_schedule=JK_SCHEDULE, backward=backward, **reg)
+        fans[tag] = fan
+        reset_k4(K4)
+        warm, per_call, scores = timed_runs(lambda: fan(batch), 1)
+        res[tag] = k4_counts(K4)
+        fin = torch.isfinite(scores)
+        print(f"[19a] joint-Koopman fan-out with the GaussReg term, backward={backward!r}: "
+              f"B={JK_B} H={JK_H} ds={fan.state_dim}, {jk_steps} steps: warm call {warm:.2f} s, "
+              f"timed call {per_call:.3f} s -> {JK_B / per_call:.1f} evals/s on {card}; finite "
+              f"{int(fin.sum())} / {JK_B}; K4 launches {res[tag][0]} by B {res[tag][1]}",
+              flush=True)
+        if tuple(scores.shape) != (JK_B,) or torch.isnan(scores).any():
+            raise RuntimeError(f"joint Koopman fan-out with GaussReg ({tag}): malformed or NaN")
+    if res["a1"][0] or not res["a2"][0]:
+        raise RuntimeError(f"K4 launches: scan {res['a1'][0]}, pallas {res['a2'][0]} (the "
+                           f"pallas body with the GaussReg term must launch it)")
+    params = fans["a2"].train_lanes(batch["reg"])
+    cp = {k: batch[k] for k in ("Qdiag", "Rdiag", "Fdiag", "regw")}
+    from autompc_torch.sysid import Koopman
+
+    km = Koopman(system, method="lstsq", **JK_BASIS)
+    z0 = km._apply_basis(batch["Qdiag"].new_tensor(np.tile(bench.task.get_init_obs(),
+                                                           (JK_B, 1))))
+    ug = z0.new_zeros((JK_B, JK_H, 1))
+    sols = {tag: make_scheduled_ilqr_solver(linear_pred, None, schedule=parse_schedule(
+        JK_SCHEDULE), **fans[tag].solver_kw)(params, z0, ug, cp) for tag in fans}
+    obj = {tag: reg_lane_objective(o[1][..., :4], o[2], cp, system.dt, S, mu)
+           for tag, o in sols.items()}
+    both = sols["a1"][0] & sols["a2"][0]
+    rel = ((obj["a1"] - obj["a2"]).abs() / obj["a2"].abs().clamp_min(1e-30))[both]
+    share = float((rel <= FAN_OBJ_TOL).float().mean()) if both.any() else 0.0
+    print(f"[19a] first MPC step, scan vs pallas: converged {int(sols['a1'][0].sum())}, "
+          f"{int(sols['a2'][0].sum())}, both {int(both.sum())} of {JK_B}; accepted objectives "
+          f"within {FAN_OBJ_TOL} on {share:.4f} (min {FAN_AGREE_MIN}; median "
+          f"{float(rel.median()) if both.any() else float('nan'):.3e})", flush=True)
+    if int(both.sum()) < JK_B // 4 or share < FAN_AGREE_MIN:
+        raise RuntimeError(f"joint Koopman with GaussReg first step: {int(both.sum())} lanes "
+                           f"converged in both, objectives agree on {share:.4f}")
+    out["jk"] = dict(counts=res["a2"], k4_args=capture_k4(
+        K4, linear_pred, fans["a2"].solver_kw, params, z0, cp))
+    # A second basis of the Koopman space: another lifted dimension.
+    b2 = {k: v[:DS_JK2_B] for k, v in batch.items()}
+    fan2 = JointKoopmanLassoQuadCostFanout(
+        system, bench.task, DS_JK_BASIS2, trajs, model, horizon=JK_H, n_steps=DS_JK2_STEPS,
+        goal=np.zeros(4), compact_schedule=JK_SCHEDULE, backward="pallas", **reg)
+    reset_k4(K4)
+    t0 = time.perf_counter()
+    scores = fan2(b2)
+    torch.cuda.synchronize()
+    counts2 = k4_counts(K4)
+    print(f"[19a] joint-Koopman fan-out {DS_JK_BASIS2}, GaussReg, backward='pallas': "
+          f"B={DS_JK2_B} H={JK_H} ds={fan2.state_dim}, {DS_JK2_STEPS} steps in "
+          f"{time.perf_counter() - t0:.2f} s; finite {int(torch.isfinite(scores).sum())}; K4 "
+          f"launches {counts2[0]} by B {counts2[1]}", flush=True)
+    if torch.isnan(scores).any() or not counts2[0] or fan2.state_dim in (4, 12):
+        raise RuntimeError(f"joint Koopman at ds={fan2.state_dim}: NaN scores or K4 never ran")
+    p2 = fan2.train_lanes(b2["reg"])
+    km2 = Koopman(system, method="lstsq", **DS_JK_BASIS2)
+    z2 = km2._apply_basis(b2["Qdiag"].new_tensor(np.tile(bench.task.get_init_obs(),
+                                                         (DS_JK2_B, 1))))
+    out["jk2"] = dict(counts=counts2, k4_args=capture_k4(
+        K4, linear_pred, fan2.solver_kw, p2, z2, {k: b2[k] for k in cp}))
+
+    # ---- (b) the "joint_mlp" tune on the pendulum ----------------------------
+    pb, pm, ptrajs = sp["pb"], sp["pm"], sp["ptrajs"]
+    psys = pb.system
+    task = pb.recovery_task(num_steps=DS_TUNE_STEPS)
+    from autompc_torch.parallel import JointMLPQuadCostFanout
+
+    calls = []
+    real_call = JointMLPQuadCostFanout.__call__
+
+    def noted_call(self, batch_, init_nets=None, perms=None):
+        calls.append((self, batch_))
+        return real_call(self, batch_, init_nets, perms)
+
+    pipeline = Pipeline(psys, MLPFactory(psys, n_train_iters=JM_EPOCHS, **JM_PIN),
+                        QuadCostFactory(psys, goal=np.zeros(2)), IterativeLQRFactory(psys))
+    reset_k4(K4)
+    JointMLPQuadCostFanout.__call__ = noted_call
+    try:
+        t0 = time.perf_counter()
+        _, rm = PipelineTuner(
+            surrogate_mode="pretrain", eval_batch=DS_TUNE_ITERS, use_fanout=True,
+            fanout_backward="pallas", fanout_compact=JM_COMPACT, fanout_horizon_mask=True,
+        ).run(pipeline, task, ptrajs, n_iters=DS_TUNE_ITERS, rng=np.random.default_rng(100),
+              surrogate=pm)
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+    finally:
+        JointMLPQuadCostFanout.__call__ = real_call
+    jm_counts = k4_counts(K4)
+    costs = np.array(rm.costs)
+    print(f"[19b] pendulum 'joint_mlp' tune, {DS_TUNE_ITERS} candidates (recovery task, "
+          f"{DS_TUNE_STEPS - 1} steps, horizon mask): {tune_s:.2f} s -> "
+          f"{DS_TUNE_ITERS / tune_s:.2f} evals/s on {card}; scores {costs.tolist()}; K4 "
+          f"launches {jm_counts[0]} by B {jm_counts[1]}", flush=True)
+    if len(costs) != DS_TUNE_ITERS or np.isnan(costs).any() or not jm_counts[0]:
+        raise RuntimeError(f"pendulum joint-MLP tune: scores {costs.tolist()}, K4 "
+                           f"{jm_counts[0]}")
+    seq_task = pb.recovery_task(num_steps=DS_SEQ_STEPS)
+    seq_task.set_cost(QuadCost(psys, Q=np.eye(2), R=0.01 * np.eye(1), F=np.eye(2),
+                               goal=np.zeros(2)))
+    seq_pipe = Pipeline(psys, MLPFactory(psys, n_train_iters=DS_SEQ_EPOCHS, **JM_PIN),
+                        QuadCostFactory(psys, goal=np.zeros(2)), IterativeLQRFactory(psys))
+    t0 = time.perf_counter()
+    agree, same = seq_against_fanout("19b", seq_pipe, seq_task, ptrajs, DS_TUNE_ITERS,
+                                     surrogate=pm)
+    print(f"[19b] sequential vs fan-out ({DS_SEQ_EPOCHS} training epoch): {agree} of "
+          f"{DS_TUNE_ITERS} within {SEQ_TOL} (min {DS_TUNE_ITERS - 1}); same configurations "
+          f"{same}; {time.perf_counter() - t0:.2f} s", flush=True)
+    if agree < DS_TUNE_ITERS - 1 or not same:
+        raise RuntimeError(f"pendulum joint-MLP tune: sequential and fan-out agree on {agree}")
+    fan_m, batch_m = calls[0]
+    full, _ = fan_m._prepare(batch_m)
+    mparams, mcp = fan_m._solver_inputs(full, fan_m._train(full))
+    x0m = full["lr"].new_tensor(np.tile(task.get_init_obs(), (full["lr"].shape[0], 1)))
+    out["jm"] = dict(counts=jm_counts, k4_args=capture_k4(
+        K4, fan_m._pred_core, fan_m.solver_kw, mparams, x0m, mcp))
+
+    # ---- (c) the joint-SINDy fan-out and tune on the pendulum ---------------
+    js_wrappers = joint_counters(K1, K2, K3)
+    jbatch = joint_candidates(dev, JS_B)
+    jbatch = {k: v[:, :2].contiguous() if v.ndim == 2 and v.shape[1] == 4 else v
+              for k, v in jbatch.items()}
+    out["js"] = {"fans": {}, "counts": {}, "batch": jbatch}
+    for size, bucket, B_, steps in (("small", JS_BUCKET, JS_B, DS_JS_STEPS),
+                                    ("big", DS_JS_BIG, JS_BIG_B, DS_JS_BIG_STEPS)):
+        cand = {k: v[:B_] for k, v in jbatch.items()}
+        for cfg in JS_CONFIGS:
+            fan = JointSINDyQuadCostFanout(psys, pb.task, bucket, ptrajs, pm, horizon=JS_H,
+                                           n_steps=steps, goal=np.zeros(2),
+                                           compact_schedule=JS_SCHEDULE, **JS_CONFIGS[cfg])
+            out["js"]["fans"][size, cfg] = fan
+            reset_launches(js_wrappers[cfg])
+            warm, per_call, scores = timed_runs(lambda: fan(cand), 1)
+            counts, by_B = lane_launches(js_wrappers[cfg])
+            out["js"]["counts"][size, cfg] = (counts, by_B)
+            fin = torch.isfinite(scores)
+            print(f"[19c] pendulum joint-SINDy fan-out ({cfg}) F={fan.n_features}: B={B_} "
+                  f"H={JS_H} {steps} steps: warm call {warm:.2f} s, timed call {per_call:.3f} s "
+                  f"-> {B_ / per_call:.1f} evals/s on {card}; finite {int(fin.sum())}; per-lane "
+                  f"launches {counts}, by B {by_B}", flush=True)
+            if tuple(scores.shape) != (B_,) or torch.isnan(scores).any() \
+                    or min(counts.values()) == 0:
+                raise RuntimeError(f"pendulum joint-SINDy fan-out ({cfg}, F={fan.n_features}): "
+                                   f"malformed or NaN scores, or a kernel that never ran: "
+                                   f"{counts}")
+    fa = out["js"]["fans"]["small", "a"]
+    coeffs = fa.train_lanes(jbatch["reg"])
+    x0f = jbatch["Qdiag"].new_tensor(np.tile(PD_FAN_X0, (JS_B, 1)))
+    cpj = {k: jbatch[k] for k in ("Qdiag", "Rdiag", "Fdiag")}
+    sol = {cfg: make_scheduled_ilqr_solver(
+        out["js"]["fans"]["small", cfg]._pred_core, None, schedule=parse_schedule(JS_SCHEDULE),
+        **out["js"]["fans"]["small", cfg].solver_kw)({"coeffs": coeffs}, x0f,
+                                                      x0f.new_zeros((JS_B, JS_H, 1)), cpj)
+        for cfg in JS_CONFIGS}
+    obj = {cfg: lane_objective(o[1], o[2], cpj, psys.dt) for cfg, o in sol.items()}
+    both = sol["a"][0] & sol["b"][0]
+    rel = ((obj["a"] - obj["b"]).abs() / obj["b"].abs().clamp_min(1e-30))[both]
+    share = float((rel <= FAN_OBJ_TOL).float().mean()) if both.any() else 0.0
+    print(f"[19c] first MPC step from {PD_FAN_X0}, (a) vs (b): both converged {int(both.sum())} "
+          f"of {JS_B}; accepted objectives within {FAN_OBJ_TOL} on {share:.4f} (min "
+          f"{FAN_AGREE_MIN})", flush=True)
+    if int(both.sum()) < JS_B // 4 or share < FAN_AGREE_MIN:
+        raise RuntimeError(f"pendulum joint-SINDy first step: {int(both.sum())} converged in "
+                           f"both, agree on {share:.4f}")
+    spipe = Pipeline(psys, SINDyFactory(psys), QuadCostFactory(psys, goal=np.zeros(2)),
+                     IterativeLQRFactory(psys))
+    reset_launches(js_wrappers["b"])
+    t0 = time.perf_counter()
+    _, rs = PipelineTuner(
+        surrogate_mode="pretrain", eval_batch=DS_TUNE_ITERS, use_fanout=True,
+        fanout_backward="pallas", fanout_feature_kernels=True, fanout_compact=TUNE_COMPACT,
+    ).run(spipe, task, ptrajs, n_iters=DS_TUNE_ITERS, rng=np.random.default_rng(JS_TUNE_SEED),
+          surrogate=pm)
+    torch.cuda.synchronize()
+    stune_s = time.perf_counter() - t0
+    s_counts = lane_launches(js_wrappers["b"])
+    scosts = np.array(rs.costs)
+    print(f"[19c] pendulum 'joint_sindy' tune, {DS_TUNE_ITERS} candidates: {stune_s:.2f} s -> "
+          f"{DS_TUNE_ITERS / stune_s:.2f} evals/s on {card}; scores {scosts.tolist()}; per-lane "
+          f"launches {s_counts[0]}, by B {s_counts[1]}", flush=True)
+    if np.isnan(scosts).any() or len(scosts) != DS_TUNE_ITERS:
+        raise RuntimeError("pendulum joint-SINDy tune: a score is missing or NaN")
+    t0 = time.perf_counter()
+    agree, same = seq_against_fanout("19c", spipe, seq_task, ptrajs, DS_TUNE_ITERS,
+                                     surrogate=pm)
+    print(f"[19c] sequential vs fan-out: {agree} of {DS_TUNE_ITERS} within {SEQ_TOL} (min "
+          f"{DS_TUNE_ITERS - 1}); same configurations {same}; {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    if agree < DS_TUNE_ITERS - 1 or not same:
+        raise RuntimeError(f"pendulum joint-SINDy tune: sequential and fan-out agree on {agree}")
+    out["js"]["tune"] = s_counts
+
+    # ---- (d) the pendulum's main path with ls_wide and the 4D IO --------------
+    common = dict(sp["common"], max_iter=DS_WIDE_ITERS)
+    counters = wide_counters(K1, K2, K3)
+    rng = np.random.default_rng(0)
+    f32 = dict(dtype=torch.float32, device=dev)
+    draw = lambda: torch.as_tensor(rng.uniform(-1, 1, (B_SOLVE, 2)) * np.array([np.pi, 1.0]),
+                                   **f32)
+    warm_x, pool = draw(), [draw() for _ in range(3)]
+    ugd = torch.zeros((B_SOLVE, H, 1), **f32)
+    rows = {k: warm_x.new_tensor(v).expand(B_SOLVE, 2) for k, v in (
+        ("Qdiag", PD_Q), ("Rdiag", (PD_R,)), ("Fdiag", PD_Q))}
+    runs = {}
+    for name, kw, env in (("default", {}, "cast"), ("llw", dict(ls_wide=True), "cast"),
+                          ("ll", {}, "reshape")):
+        solve = make_scheduled_ilqr_solver(pm.pred_core, sp["pcost"], H=H,
+                                           schedule=parse_schedule(SCHEDULE), **common, **kw)
+        reset_counters(counters)
+        with wide_io_env(env):
+            solve(pm.params, warm_x, ugd)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = [solve(pm.params, x, ugd) for x in pool]
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        runs[name] = dict(outs=outs, rate=B_SOLVE * len(pool) / elapsed,
+                          conv=float(torch.stack([o[0].float().mean() for o in outs]).mean()),
+                          counts=read_counters(counters))
+    ref = runs["default"]
+    failures = []
+    for name in ("llw", "ll"):
+        r = runs[name]
+        rel, n_both = [], 0
+        for o, d in zip(r["outs"], ref["outs"]):
+            bothd = o[0] & d[0]
+            n_both += int(bothd.sum())
+            a = lane_objective(o[1], o[2], rows, psys.dt)
+            b = lane_objective(d[1], d[2], rows, psys.dt)
+            rel.append(((a - b).abs() / b.abs().clamp_min(1e-30))[bothd])
+        rel = torch.cat(rel)
+        share = float((rel <= FAN_OBJ_TOL).float().mean()) if rel.numel() else 0.0
+        same = all(bits_equal(x, y) for o, d in zip(r["outs"], ref["outs"]) for x, y in zip(o, d))
+        finite = all(torch.isfinite(o[1]).all() for o in r["outs"])
+        r.update(share=share, same=same)
+        print(f"[19d] pendulum {name} B={B_SOLVE} H={H} (<= {DS_WIDE_ITERS} iterations): "
+              f"{r['rate']:.1f} solves/s (default {ref['rate']:.1f}) on {card}; converged "
+              f"{r['conv']:.4f} (default {ref['conv']:.4f}); lanes converged in both {n_both}, "
+              f"accepted objectives within {FAN_OBJ_TOL} on {share:.4f} (min {FAN_AGREE_MIN}); "
+              f"bit for bit the default: {same}; launches {r['counts']}", flush=True)
+        missing = [k for k in WIDE_REQUIRED[name] if r["counts"][k] == 0]
+        if missing or not finite:
+            failures.append(f"pendulum {name}: {missing} never ran, finite {finite}")
+        if name == "ll" and not same:
+            failures.append("pendulum ll: not bit for bit the default solve")
+        if name == "llw" and (share < FAN_AGREE_MIN or n_both < len(pool) * B_SOLVE // 4):
+            failures.append(f"pendulum llw: objectives within {FAN_OBJ_TOL} on {share:.4f} "
+                            f"of {n_both} lanes")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    out["wide"] = {k: v["counts"] for k, v in runs.items()}
+    print(f"[19] phase wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return out
+
+
+def embed_model(small, small_terms, terms, eps=1e-3, seed=5):
+    """(B, ds, F) per-lane models over ``terms``: each lane's ``small``
+    model (B, ds, F_small over ``small_terms``) at those terms' places,
+    every other coefficient ``eps`` N(0, 1) / F, so that every block of
+    the larger library's trees holds a nonzero summand while the
+    rollouts stay near the small model's."""
+    place = [terms.index(t) for t in small_terms]
+    F = len(terms)
+    noise = np.random.default_rng(seed).standard_normal(tuple(small.shape[:2]) + (F,))
+    C = small.new_tensor(noise) * (eps / F)
+    C[:, :, place] = small
+    return C.contiguous()
+
+
+def check_dense_kernels(ds19, sp, mods, failures):
+    """Phase [3] on phase 19's instances: K4 on the dense expansions of
+    (a)'s two joint-Koopman fan-outs ((12, 1) and (8, 1)) and of (b)'s
+    joint-MLP tune ((2, 1), horizon-masked), each three iterations into
+    a first MPC step; the per-lane K1 (both entries), K3 and K7 at (2, 1)
+    on (c)'s carries (21 and 75 terms, the 75-term lanes each the 21-term
+    model embedded with a small remainder), one iteration from PD_FAN_X0
+    (by the third the pendulum's lanes have converged); K2's 4D entry, K8 and K9 at (2, 1) on the pendulum's
+    main-path carry (B_KERNEL, H, starts as phase 18's checks). Appends
+    to ``failures``; returns the kernels line's rows."""
+    from autompc_torch.control import make_batched_ilqr_solver
+
+    K1, K2, K3, K4 = mods
+    rows = []
+    for key, tag in (("jk", "joint-Koopman fan-out with the GaussReg term (19a)"),
+                     ("jk2", f"joint-Koopman fan-out {DS_JK_BASIS2} (19a)"),
+                     ("jm", "pendulum joint-MLP tune, horizon-masked (19b)")):
+        d = ds19[key]
+        row, fails, _, _ = check_k4(tag, K4, d["k4_args"], d["counts"][0], device_time=True)
+        B, H_, ds, dc = d["k4_args"][1].shape
+        row.update(name=f"riccati_general[{ds},{dc},B={B},H={H_}]", launches_by_B=d["counts"][1])
+        rows.append(row)
+        failures += fails
+
+    pm, pb = sp["pm"], sp["pb"]
+    dev = pm.coeffs.device
+    dt = pb.system.dt
+    alphas = tuple(0.2 ** k for k in range(10))
+    bound = float(pb.task.get_ctrl_bounds()[0, 1])
+    terms = tuple(pm.library.terms[k] for k in sp["active"])
+    ca = pm.coeffs[:, list(sp["active"])].contiguous()
+    ctx = PhaseCtx(terms=terms, ca=ca, dt=dt, lo=-bound, hi=bound, alphas=alphas, dev=dev,
+                   failures=failures, K1=K1, K2=K2, K3=K3)
+    js = ds19["js"]
+    batch = js["batch"]
+    small = None
+    src = {
+        "relin_jacobians_bm": ("autompc_torch/csrc/relin.cu", "autompc_tpu/ops/pallas_relin.py:192"),
+        "sindy_line_search": ("autompc_torch/csrc/sindy_linesearch.cu",
+                              "autompc_tpu/ops/pallas_linesearch.py:191"),
+    }
+    for size, B_ in (("small", JS_B), ("big", JS_BIG_B)):
+        fa, fb = js["fans"][size, "a"], js["fans"][size, "b"]
+        tms = fa.library.terms
+        tag = f"2x1,F={len(tms)}"
+        cand = {k: v[:B_] for k, v in batch.items()}
+        if size == "small":
+            small = fa.train_lanes(batch["reg"])
+            coeffs = small
+        else:
+            coeffs = embed_model(small[:B_], js["fans"]["small", "a"].library.terms, tms)
+        x0 = cand["Qdiag"].new_tensor(np.tile(PD_FAN_X0, (B_, 1)))
+        cp = {k: cand[k] for k in ("Qdiag", "Rdiag", "Fdiag")}
+        carries = {}
+        for cfg, fan in (("a", fa), ("b", fb)):
+            _, c0, _, body_ = make_batched_ilqr_solver(fan._pred_core, None, return_pieces=True,
+                                                       **fan.solver_kw)
+            params = {"coeffs": coeffs}
+            cc, body = c0(params, x0, x0.new_zeros((B_, JS_H, 1)), cp), body_(params)
+            carries[cfg] = body(cc)
+        ca_counts, ca_by_B = js["counts"][size, "a"]
+        cja = carries["a"]
+        r1 = check_k1_ll(ctx, f"pendulum joint fan-out (a) carry, per-lane coefficients, {tag}",
+                         cja, ca_counts["relin_jacobians"], tms=tms, coef=cja["params"],
+                         name=f"relin_jacobians_lane[{tag}]")
+        ja_cost = (*(cja["cost"][k] for k in ("Qdiag", "Rdiag", "Fdiag")), (0.0, 0.0))
+        res_a = check_k2_k3_ll(ctx, f"pendulum joint fan-out (a) carry, per-lane "
+                                    f"coefficients, {tag}", cja, ja_cost,
+                               agree_min=K3_FAN_AGREE_MIN, within_min=K3_FAN_WITHIN_MIN,
+                               tms=tms, coef=cja["params"])
+        k3_row = k2_k3_rows_ll(ctx, res_a, cja, "per-lane cost", {
+            "backward_quad_ll": ca_counts["backward_quad_ll"],
+            "fused_line_search": ca_counts["fused_line_search"]})[1]
+        k3_row["name"] = f"fused_line_search_lane[{tag},B={B_},H={JS_H},per-lane cost]"
+        k3_row["device_ms"] = device_ms(res_a["k3"])
+        rows += [dict(r1, launches_by_B=ca_by_B["relin_jacobians"]),
+                 dict(k3_row, launches_by_B=ca_by_B["fused_line_search"])]
+        cjb = carries["b"]
+        plane = cjb["params"]["coeffs"].permute(1, 2, 0).contiguous()
+        cb_counts, cb_by_B = js["counts"][size, "b"]
+        sub = {k: cjb[k].contiguous() for k in ("x0s", "xs", "us", "Jx", "Ju")}
+        meas, fails = check_fanout_kernels(
+            f"pendulum joint fan-out (b) carry, per-lane coefficients, {tag}", K1, K2, K3, tms,
+            plane, sub, cp, (0.0, 0.0), dt, alphas, bound)
+        failures += fails
+        for k, name in ((0, "relin_jacobians_bm"), (2, "sindy_line_search")):
+            m = dict(meas[k])
+            extra = {}
+            if size == "small":
+                extra = dict(launches_joint_tune=js["tune"][0][name],
+                             launches_joint_tune_by_B=js["tune"][1][name])
+            rows.append(dict(name=f"{name}_lane[{tag},B={B_},H={JS_H}]", route="cuda",
+                             source=src[name][0], replaces=src[name][1],
+                             launches=cb_counts[name], launches_by_B=cb_by_B[name], **m, **extra))
+
+    # K2's 4D entry, K8 and K9 on the pendulum's main-path carry.
+    _, carry0, _, _ = make_batched_ilqr_solver(pm.pred_core, sp["pcost"], H=H,
+                                               return_pieces=True, **sp["common"])
+    rng = np.random.default_rng(1)
+    x0 = torch.as_tensor(np.array([np.pi, 0.0]) + rng.uniform(
+        -PD_KERNEL_SPREAD, PD_KERNEL_SPREAD, (B_KERNEL, 2)), dtype=torch.float32, device=dev)
+    c = carry0(pm.params, x0, x0.new_zeros((B_KERNEL, H, 1)))
+    diag = (PD_Q, (PD_R,), PD_Q, (0.0, 0.0))
+    wide = check_wide_ll(ctx, "pendulum main-path carry (2x1)", c, diag, plain_reps=1)
+    counts = ds19["wide"]
+    for key, name, source, replaces, n, by_B in (
+        ("k2_4d", "backward_quad_ll_wide_4d", "autompc_torch/csrc/riccati_quad.cu",
+         "autompc_tpu/ops/pallas_riccati.py:1012", counts["ll"]["backward_quad_ll_wide_4d"],
+         None),
+        ("k8", "wide_objectives", "autompc_torch/csrc/ls_obj_wide.cu",
+         "autompc_tpu/ops/pallas_linesearch.py:1129", counts["llw"]["wide_objectives"],
+         counts["llw"]["wide_objectives[by B]"]),
+        ("k9", "wide_reroll", "autompc_torch/csrc/ls_reroll_wide.cu",
+         "autompc_tpu/ops/pallas_linesearch.py:1200", counts["llw"]["wide_reroll"],
+         counts["llw"]["wide_reroll[by B]"]),
+    ):
+        row = dict(name=f"{name}[2x1,B={B_KERNEL},H={H},fixed cost]", route="cuda",
+                   source=source, replaces=replaces, launches=n, **wide[key])
+        if by_B is not None:
+            row["launches_by_B"] = by_B
+        rows.append(row)
+    return rows
+
+
+
+def check_wide_ll(ctx, tag, c, cost, plain_reps=3):
+    """K2's reshape-IO entry and bfloat16 instances, K3's bfloat16
+    instances, K8 and K9 (both storage types) against their plain
+    versions on the lanes-last carry ``c`` under ``cost = (qd, rd, fd,
+    goal)``, at the carry's ds, and the split search (K8 + acceptance +
+    K9) against K3. Appends to ``ctx.failures``; returns the timings:
+    {row: dict}."""
+    terms, ca, dt, alphas, dev = ctx.terms, ctx.ca, ctx.dt, ctx.alphas, ctx.dev
+    failures, K1, K2, K3 = ctx.failures, ctx.K1, ctx.K2, ctx.K3
+    Hc, Bc = c["us"].shape
+    ds, obsdim = c["xs"].shape[1], len(cost[3])
+    act = ~c["converged"] & ~c["failed"]
+    carry = dict(carry=(act, c["Ks"], c["ks"]))
+    jb = c["jac"].to(torch.bfloat16)
+    k2 = lambda jac: (jac, c["xs"], c["us"], *cost, dt, obsdim)
+    bk = K2.backward_quad_ll(*k2(c["jac"]), **carry)
+    b4 = K2.backward_quad_ll(*k2(c["jac"]), **carry, wide_io="reshape")
+    bp = K2.backward_quad_ll_plain(*k2(c["jac"]), **carry)
+    bkb = K2.backward_quad_ll(*k2(jb), **carry)
+    b4b = K2.backward_quad_ll(*k2(jb), **carry, wide_io="reshape")
+    bpb = K2.backward_quad_ll_plain(*k2(jb), **carry)
+    # A few lanes of a 200-step float32 recursion run ill-conditioned
+    # (normwise 1.4e-5 at B=4096, 8.7e-4 at B=16384 on an H100), so the
+    # recursion is gated per lane, by share.
+    err = dict(
+        k2_4d=max(rel_err(a, b) for a, b in zip(b4, bp)),
+        k2_bf16=max(rel_err(a, b) for a, b in zip(bkb, bpb)),
+        k2_within=min(lane_share(a, b, TOL_K2) for a, b in (*zip(b4, bp), *zip(bkb, bpb))),
+    )
+    same4 = all(bits_equal(a, b) for a, b in zip(b4, bk)) and \
+        all(bits_equal(a, b) for a, b in zip(b4b, bkb))
+    KsT, ksT, lin, quad = bk
+    ks_small = torch.sqrt((ksT * ksT).sum(0)) < 1e-3
+    lo, hi = ctx.lo, ctx.hi
+    ls = (terms, c["x0s"], c["xs"], c["us"], KsT, ksT, ca, alphas, lo, hi, *cost, dt)
+    tail = (c["obj"], lin, quad, ks_small, act)
+    lk = K3.fused_line_search(*ls, *tail, c["jac"])
+    lkb = K3.fused_line_search(*ls, *tail, jb)
+    lpb = K3.fused_line_search_plain(*ls, *tail, jb)
+    twin_b = (lkb[3] == lpb[3]) & (lkb[4] == lpb[4]) \
+        & ((lkb[2] - lpb[2]).abs() <= K3_TIE * lpb[2].abs())
+    k3_bf16 = all(bits_equal(a, b) for a, b in zip(lkb[:5] + lkb[6:], lk[:5] + lk[6:])) \
+        and bits_equal(lkb[5], lk[5].to(torch.bfloat16))
+    # K8 against its plain version, per (step size, lane): objectives,
+    # stashed trajectories (each to its own largest state) and du2; and
+    # against K3: the objective K3 returned is one of K8's, to the bit.
+    ok, sk, dk = K3.wide_objectives(*ls)
+    op, sp, dp = K3.wide_objectives_plain(*ls)
+    fin = torch.isfinite(ok) & torch.isfinite(op)
+    e8 = ((ok.double() - op.double()).abs() / op.double().abs().clamp_min(1e-30))[fin]
+    err["k8_within"] = (e8 <= TOL_K3).float().mean().item()
+    # Each candidate's stashed states, a column (lane, step size), on
+    # the candidates whose objective is finite in both.
+    traj = lambda st: st[:, :ds].permute(0, 1, 3, 2).reshape(-1, Bc * len(alphas))[
+        :, fin.T.reshape(-1)]
+    err["k8_stash_within"] = lane_share(traj(sk), traj(sp), TOL_K3, own_scale=True)
+    ed = ((dk.double() - dp.double()).abs() / dp.double().abs().clamp_min(1e-30))[fin]
+    err["k8_du2_within"] = (ed <= TOL_K3).float().mean().item()
+    moved = act & ~lk[4]
+    err["k8_k3"] = ((ok - lk[2][None]).abs().amin(0)[moved] == 0).float().mean().item()
+    sel, tm, jm, new_obj, succ, fail = K3.wide_accept(ok, alphas, *tail)
+    rr = (terms, c["x0s"], c["xs"], c["us"], ca, sk, dk, sel, tm, jm)
+    rk = K3.wide_reroll(*rr, c["jac"])
+    rp = K3.wide_reroll_plain(*rr, c["jac"])
+    rkb = K3.wide_reroll(*rr, jb)
+    rpb = K3.wide_reroll_plain(*rr, jb)
+    k9_bf16 = all(bits_equal(rkb[i], rk[i]) for i in (0, 1, 3)) \
+        and bits_equal(rkb[2], rk[2].to(torch.bfloat16))
+    # K9 against its plain version on K8's stash: the read-back and du2
+    # bit for bit, the float32 Jacobians as K1's (the bfloat16 ones are
+    # the float32 ones rounded, above).
+    k9_read = all(bits_equal(rk[i], rp[i]) and bits_equal(rkb[i], rpb[i]) for i in (0, 1, 3))
+    err["k9_jac"] = rel_err(rk[2], rp[2])
+    held = all(bits_equal(new[..., ~tm], old[..., ~tm]) for new, old in (
+        (rk[0], c["xs"]), (rk[1], c["us"]))) and bits_equal(rk[2][..., ~jm], c["jac"][..., ~jm])
+    # float64 at K9's own states (the selected candidate's, as K8
+    # stashed them): controls at the lane's step size, next states,
+    # Jacobians where taken anew, du2, and the objective of the
+    # trajectory against K8's chosen one.
+    a_sel = torch.tensor(alphas, dtype=torch.float64, device=dev)[sel]
+    fb = (KsT.double() * (rk[0][:-1].double() - c["xs"][:-1].double())).sum(1)
+    step = a_sel[None] * ksT.double()
+    u64 = (step + c["us"].double() + fb).clamp(lo, hi)
+    scale = step.abs() + c["us"].double().abs() + \
+        (KsT.double() * (rk[0][:-1].double() - c["xs"][:-1].double())).abs().sum(1)
+    err["u"] = float(((rk[1].double() - u64).abs() / scale.clamp_min(1e-30))[:, tm].max())
+    from autompc_torch.sysid.basis import term_value
+
+    z = [rk[0][:-1, i].double() for i in range(ds)] + [rk[1].double()]
+    theta = torch.stack([term_value(t, z) for t in terms], dim=-1)
+    x64 = theta @ ca.double().T
+    mag = theta.abs() @ ca.double().abs().T
+    err["x"] = float(((rk[0][1:].permute(0, 2, 1).double() - x64).abs()
+                      / mag.clamp_min(1e-30))[:, tm].max())
+    err["jac"] = rel_err(rk[2][:, :, jm], K1.relin_jacobians_plain(
+        terms, rk[0][:, :, jm].double(), rk[1][:, jm].double(), ca.double()))
+    err["du2"] = rel_err(rk[3][tm], ((rk[1].double() - c["us"].double()) ** 2).sum(0)[tm])
+    qd_, rd_, fd_ = cost[:3]
+    if isinstance(qd_, torch.Tensor):
+        rows = dict(Qdiag=qd_.T, Rdiag=rd_.T, Fdiag=fd_.T)
+    else:
+        rows = {k: c["obj"].new_tensor(v).expand(Bc, len(v))
+                for k, v in (("Qdiag", qd_), ("Rdiag", rd_), ("Fdiag", fd_))}
+    obj64 = lane_objective(rk[0].permute(2, 0, 1), rk[1].T[:, :, None], rows, dt)
+    err["obj64"] = float(((new_obj.double() - obj64).abs()
+                          / obj64.abs().clamp_min(1e-30))[tm].max())
+    # The split search against K3: the same decision on a lane, then
+    # the same trajectory, Jacobians and du2, bit for bit.
+    err["split_agree"], split_bits = split_agreement(
+        (rk[0], rk[1], new_obj, succ, fail, rk[2], rk[3]), lk, act)
+    print(f"[3] wide kernels, {tag}: K2 4D entry vs plain {err['k2_4d']:.3e}, bf16 Jacobians "
+          f"vs plain {err['k2_bf16']:.3e}, lanes within {TOL_K2} {err['k2_within']:.5f} (min "
+          f"{K2_WITHIN_MIN}); 4D entry bit for bit the 3D call: "
+          f"{same4}; K3 with a bf16 carry = K3 f32 with its rows rounded: {k3_bf16}; K8 vs "
+          f"plain within {TOL_K3} on {int(fin.sum())} candidates: objectives "
+          f"{err['k8_within']:.4f} (median {float(e8.median()):.3e}, max "
+          f"{float(e8.max()):.3e}), stashed trajectories {err['k8_stash_within']:.4f}, du2 "
+          f"{err['k8_du2_within']:.4f} (min {K8_WITHIN_MIN}); K3's objective found bit for "
+          f"bit among K8's on {err['k8_k3']:.5f} of the {int(moved.sum())} lanes it moved; K9 "
+          f"vs plain on K8's stash: xs/us/du2 bit for bit {k9_read}, jac {err['k9_jac']:.3e} "
+          f"(tol {TOL_K1}), carry select held {held}, bf16 = f32 rounded {k9_bf16}; vs float64 "
+          f"at K9's states u {err['u']:.3e}, next x {err['x']:.3e} (tol {TOL_K3_SUM}), jac "
+          f"{err['jac']:.3e} (tol {TOL_K1}), du2 {err['du2']:.3e}, objective of the trajectory "
+          f"vs K8's {err['obj64']:.3e} (tol {TOL_K3}); split vs K3: decisions agree on "
+          f"{err['split_agree']:.5f} of {int(act.sum())} active lanes (min {K3_AGREE_MIN}), "
+          f"bit for bit on those {split_bits}", flush=True)
+    if err["k2_within"] < K2_WITHIN_MIN or not same4:
+        failures.append(f"K2 wide/bf16 ({tag}) within {err['k2_within']:.5f}, 4D == 3D {same4}")
+    if not (k3_bf16 and k9_bf16 and k9_read and held and split_bits):
+        failures.append(f"bf16/read-back/select/split bits ({tag}): K3 {k3_bf16} K9 {k9_bf16} "
+                        f"read-back {k9_read} held {held} split {split_bits}")
+    if min(err["k8_within"], err["k8_stash_within"], err["k8_du2_within"]) < K8_WITHIN_MIN \
+            or err["k8_k3"] < K3_AGREE_MIN or err["split_agree"] < K3_AGREE_MIN:
+        failures.append(f"K8/split ({tag}) within {err['k8_within']:.4f} stash "
+                        f"{err['k8_stash_within']:.4f} du2 {err['k8_du2_within']:.4f} vs K3 "
+                        f"{err['k8_k3']:.5f} agree {err['split_agree']:.5f}")
+    if max(err["k9_jac"], err["jac"]) > TOL_K1 or max(err["u"], err["x"]) > TOL_K3_SUM \
+            or max(err["du2"], err["obj64"]) > TOL_K3:
+        failures.append(f"K9 ({tag}) jac vs plain {err['k9_jac']:.3e} u {err['u']:.3e} x "
+                        f"{err['x']:.3e} jac {err['jac']:.3e} du2 {err['du2']:.3e} obj "
+                        f"{err['obj64']:.3e}")
+    k2_bytes = n_bytes(c["jac"], c["xs"], c["us"], act, c["Ks"], c["ks"], *bk)
+    k2_ops = Bc * Hc * (riccati_flops(ds, 1) + 16)
+    ls_bytes = n_bytes(c["x0s"], c["xs"], c["us"], KsT, ksT, ca)
+    step_ops = feature_value_flops(terms, ds) + 20
+    # K8's bound: the function it replaces (pallas_linesearch.py:1129)
+    # reads the carry and returns the (L, B) objectives; the du2 of the
+    # selected candidate only, 3 operations a lane-step. The stash and
+    # the du2 plane are scratch for K9, beside the bound as in
+    # k3_bound. K9's inputs: the old carry, the selected candidate's
+    # rows of the stash and its du2 (H (ds + 1) + 1 floats a lane),
+    # sel and the masks.
+    k8_bound = dict(
+        bound_keys(ls_bytes + n_bytes(ok),
+                   Bc * len(alphas) * Hc * (step_ops + 12) + Bc * Hc * 3),
+        scratch_bytes_ms=n_bytes(sk, dk) / HBM_BYTES_PER_S * 1e3)
+    k9_in = n_bytes(c["x0s"], c["xs"], c["us"], ca, sel, tm, jm) + 4 * Bc * (Hc * (ds + 1) + 1)
+    k9_ops = Bc * Hc * feature_jac_flops(terms, ds)
+    plain = lambda fn: time_ms(fn, reps=plain_reps)
+    split = lambda: K3.fused_line_search_wide(*ls, *tail, c["jac"])
+    return {
+        "k2_4d": dict(
+            max_abs_err=max(abs_err(a, b) for a, b in zip(b4, bp)),
+            ms=time_ms(lambda: K2.backward_quad_ll(*k2(c["jac"]), **carry, wide_io="reshape")),
+            plain_ms=plain(lambda: K2.backward_quad_ll_plain(*k2(c["jac"]), **carry)),
+            **bound_keys(k2_bytes, k2_ops)),
+        "k2_bf16": dict(
+            max_abs_err=max(abs_err(a, b) for a, b in zip(bkb, bpb)),
+            ms=time_ms(lambda: K2.backward_quad_ll(*k2(jb), **carry)),
+            plain_ms=plain(lambda: K2.backward_quad_ll_plain(*k2(jb), **carry)),
+            **bound_keys(k2_bytes - n_bytes(c["jac"]) + n_bytes(jb), k2_ops)),
+        "k3_bf16": dict(
+            max_abs_err=abs_err(lkb[0][..., twin_b], lpb[0][..., twin_b]),
+            ms=time_ms(lambda: K3.fused_line_search(*ls, *tail, jb)),
+            plain_ms=plain(lambda: K3.fused_line_search_plain(*ls, *tail, jb)),
+            **k3_bound(ls_bytes + n_bytes(*tail, jb, *lkb), Bc, Hc, terms,
+                       len(alphas))),
+        "k8": dict(
+            max_abs_err=abs_err(ok[fin], op[fin]),
+            # The whole split entry (K8 + acceptance + K9) and K3 on
+            # the same carry, a call and the kernels' device time.
+            split_entry_ms=time_ms(split), split_entry_device_ms=device_ms(split),
+            fused_k3_ms=time_ms(lambda: K3.fused_line_search(*ls, *tail, c["jac"])),
+            fused_k3_device_ms=device_ms(lambda: K3.fused_line_search(*ls, *tail, c["jac"])),
+            ms=time_ms(lambda: K3.wide_objectives(*ls)),
+            device_ms=device_ms(lambda: K3.wide_objectives(*ls)),
+            plain_ms=plain(lambda: K3.wide_objectives_plain(*ls)),
+            **k8_bound),
+        "k9": dict(
+            max_abs_err=abs_err(rk[2], rp[2]),
+            ms=time_ms(lambda: K3.wide_reroll(*rr, c["jac"])),
+            device_ms=device_ms(lambda: K3.wide_reroll(*rr, c["jac"])),
+            plain_ms=plain(lambda: K3.wide_reroll_plain(*rr, c["jac"])),
+            **bound_keys(k9_in + n_bytes(c["jac"], *rk), k9_ops)),
+        "k9_bf16": dict(
+            max_abs_err=abs_err(rkb[2], rpb[2]),
+            ms=time_ms(lambda: K3.wide_reroll(*rr, jb)),
+            device_ms=device_ms(lambda: K3.wide_reroll(*rr, jb)),
+            plain_ms=plain(lambda: K3.wide_reroll_plain(*rr, jb)),
+            **bound_keys(k9_in + n_bytes(jb, *rkb), k9_ops)),
+    }
+
+
 def main(profile=False):
     dev = check_device()
     from autompc_torch.benchmarks import CartpoleSwingupBenchmark, HalfcheetahBenchmark
@@ -5066,16 +5802,17 @@ def main(profile=False):
     # same sources), one nvcc a source or shape, all started together,
     # before any timed window.
     t0 = time.perf_counter()
-    _build.build_shapes(SHAPES_18, main=True)
+    _build.build_shapes(SHAPES_18 + SHAPES_19, main=True)
     print(f"[1] build/load kernels: {time.perf_counter() - t0:.2f} s "
-          f"({_build.library_path().name}, and phase 18's shapes {SHAPES_18})", flush=True)
+          f"({_build.library_path().name}, and phases 18's and 19's shapes "
+          f"{SHAPES_18 + SHAPES_19})", flush=True)
     # Registers a thread (ptxas) and resident warps an SM: K3 and K5 from
     # the CUDA occupancy query at each shape their paths launch; the other
     # kernels' 64-thread blocks bounded by registers alone.
     for name, regs, spill in ptxas_report(_build.build_log()):
         print(f"    ptxas: {name}: {regs} registers, {spill} bytes spilled, <= "
               f"{min(64, 65536 // (-(-regs // 8) * 8 * 32))} warps an SM by registers")
-    for shape in SHAPES_18:
+    for shape in SHAPES_18 + SHAPES_19:
         for name, regs, spill in ptxas_report(_build.shape_build_log(*shape)):
             print(f"    ptxas {shape[0]} ({shape[1]}, {shape[2]}): {name}: {regs} registers, "
                   f"{spill} bytes spilled")
@@ -5145,7 +5882,9 @@ def main(profile=False):
               f"lanes a block, {g['blocks']} blocks, ring of {g['ring']} steps, {g['smem']} "
               f"bytes of shared memory a block", flush=True)
     for tag, ds, dc, B in (("cheetah", 18, 6, B_HC), ("cheetah closed loop", 18, 6, B_HCQ),
-                           ("dense cartpole", 4, 1, B_DENSE)):
+                           ("dense cartpole", 4, 1, B_DENSE), ("joint Koopman", 12, 1, JK_B),
+                           ("joint Koopman, second basis", 8, 1, DS_JK2_B),
+                           ("pendulum joint MLP", 2, 1, 8)):
         g = K4.general_geometry(ds, dc, B, sms)
         print(f"[1] K4 {tag} ({ds},{dc}) B={B}: {g['threads_per_lane']} threads a lane, "
               f"{g['lanes_per_block']} lanes a block, {g['blocks']} blocks, {g['smem']} "
@@ -5464,6 +6203,9 @@ def main(profile=False):
     # ---- [18] the feature kernels off the cartpole's shape -----------------------
     sp = shapes_phase(dev, card, (K1, K2, K3, K4), hc, hc_trajs)
 
+    # ---- [19] the remaining kernels at every (ds, dc) ----------------------------
+    ds19 = dense_shapes_phase(dev, card, (K1, K2, K3, K4), sp, bench, model, trajs)
+
     # ---- [3] kernels vs plain twins on path inputs -----------------------
     _, make_carry0, _, _ = make_batched_ilqr_solver(
         model.pred_core, cost, H=H, return_pieces=True, **common
@@ -5483,203 +6225,7 @@ def main(profile=False):
     check_k2_k3 = functools.partial(check_k2_k3_ll, ctx)
     k2_k3_rows = functools.partial(k2_k3_rows_ll, ctx)
 
-    def check_wide(tag, c, cost, plain_reps=3):
-        """K2's reshape-IO entry and bfloat16 instances, K3's bfloat16
-        instances, K8 and K9 (both storage types) against their plain
-        versions on the lanes-last carry ``c`` under ``cost``, and the
-        split search (K8 + acceptance + K9) against K3. Appends to
-        ``failures``; returns the timings: {row: dict}."""
-        Hc, Bc = c["us"].shape
-        act = ~c["converged"] & ~c["failed"]
-        carry = dict(carry=(act, c["Ks"], c["ks"]))
-        jb = c["jac"].to(torch.bfloat16)
-        k2 = lambda jac: (jac, c["xs"], c["us"], *cost, dt, 4)
-        bk = K2.backward_quad_ll(*k2(c["jac"]), **carry)
-        b4 = K2.backward_quad_ll(*k2(c["jac"]), **carry, wide_io="reshape")
-        bp = K2.backward_quad_ll_plain(*k2(c["jac"]), **carry)
-        bkb = K2.backward_quad_ll(*k2(jb), **carry)
-        b4b = K2.backward_quad_ll(*k2(jb), **carry, wide_io="reshape")
-        bpb = K2.backward_quad_ll_plain(*k2(jb), **carry)
-        # A few lanes of a 200-step float32 recursion run ill-conditioned
-        # (normwise 1.4e-5 at B=4096, 8.7e-4 at B=16384 on an H100), so the
-        # recursion is gated per lane, by share.
-        err = dict(
-            k2_4d=max(rel_err(a, b) for a, b in zip(b4, bp)),
-            k2_bf16=max(rel_err(a, b) for a, b in zip(bkb, bpb)),
-            k2_within=min(lane_share(a, b, TOL_K2) for a, b in (*zip(b4, bp), *zip(bkb, bpb))),
-        )
-        same4 = all(bits_equal(a, b) for a, b in zip(b4, bk)) and \
-            all(bits_equal(a, b) for a, b in zip(b4b, bkb))
-        KsT, ksT, lin, quad = bk
-        ks_small = torch.sqrt((ksT * ksT).sum(0)) < 1e-3
-        lo, hi = float(bounds[0, 0]), float(bounds[0, 1])
-        ls = (terms, c["x0s"], c["xs"], c["us"], KsT, ksT, ca, alphas, lo, hi, *cost, dt)
-        tail = (c["obj"], lin, quad, ks_small, act)
-        lk = K3.fused_line_search(*ls, *tail, c["jac"])
-        lkb = K3.fused_line_search(*ls, *tail, jb)
-        lpb = K3.fused_line_search_plain(*ls, *tail, jb)
-        twin_b = (lkb[3] == lpb[3]) & (lkb[4] == lpb[4]) \
-            & ((lkb[2] - lpb[2]).abs() <= K3_TIE * lpb[2].abs())
-        k3_bf16 = all(bits_equal(a, b) for a, b in zip(lkb[:5] + lkb[6:], lk[:5] + lk[6:])) \
-            and bits_equal(lkb[5], lk[5].to(torch.bfloat16))
-        # K8 against its plain version, per (step size, lane): objectives,
-        # stashed trajectories (each to its own largest state) and du2; and
-        # against K3: the objective K3 returned is one of K8's, to the bit.
-        ok, sk, dk = K3.wide_objectives(*ls)
-        op, sp, dp = K3.wide_objectives_plain(*ls)
-        fin = torch.isfinite(ok) & torch.isfinite(op)
-        e8 = ((ok.double() - op.double()).abs() / op.double().abs().clamp_min(1e-30))[fin]
-        err["k8_within"] = (e8 <= TOL_K3).float().mean().item()
-        # Each candidate's stashed states, a column (lane, step size), on
-        # the candidates whose objective is finite in both.
-        traj = lambda st: st[:, :4].permute(0, 1, 3, 2).reshape(-1, Bc * len(alphas))[
-            :, fin.T.reshape(-1)]
-        err["k8_stash_within"] = lane_share(traj(sk), traj(sp), TOL_K3, own_scale=True)
-        ed = ((dk.double() - dp.double()).abs() / dp.double().abs().clamp_min(1e-30))[fin]
-        err["k8_du2_within"] = (ed <= TOL_K3).float().mean().item()
-        moved = act & ~lk[4]
-        err["k8_k3"] = ((ok - lk[2][None]).abs().amin(0)[moved] == 0).float().mean().item()
-        sel, tm, jm, new_obj, succ, fail = K3.wide_accept(ok, alphas, *tail)
-        rr = (terms, c["x0s"], c["xs"], c["us"], ca, sk, dk, sel, tm, jm)
-        rk = K3.wide_reroll(*rr, c["jac"])
-        rp = K3.wide_reroll_plain(*rr, c["jac"])
-        rkb = K3.wide_reroll(*rr, jb)
-        rpb = K3.wide_reroll_plain(*rr, jb)
-        k9_bf16 = all(bits_equal(rkb[i], rk[i]) for i in (0, 1, 3)) \
-            and bits_equal(rkb[2], rk[2].to(torch.bfloat16))
-        # K9 against its plain version on K8's stash: the read-back and du2
-        # bit for bit, the float32 Jacobians as K1's (the bfloat16 ones are
-        # the float32 ones rounded, above).
-        k9_read = all(bits_equal(rk[i], rp[i]) and bits_equal(rkb[i], rpb[i]) for i in (0, 1, 3))
-        err["k9_jac"] = rel_err(rk[2], rp[2])
-        held = all(bits_equal(new[..., ~tm], old[..., ~tm]) for new, old in (
-            (rk[0], c["xs"]), (rk[1], c["us"]))) and bits_equal(rk[2][..., ~jm], c["jac"][..., ~jm])
-        # float64 at K9's own states (the selected candidate's, as K8
-        # stashed them): controls at the lane's step size, next states,
-        # Jacobians where taken anew, du2, and the objective of the
-        # trajectory against K8's chosen one.
-        a_sel = torch.tensor(alphas, dtype=torch.float64, device=dev)[sel]
-        fb = (KsT.double() * (rk[0][:-1].double() - c["xs"][:-1].double())).sum(1)
-        step = a_sel[None] * ksT.double()
-        u64 = (step + c["us"].double() + fb).clamp(lo, hi)
-        scale = step.abs() + c["us"].double().abs() + \
-            (KsT.double() * (rk[0][:-1].double() - c["xs"][:-1].double())).abs().sum(1)
-        err["u"] = float(((rk[1].double() - u64).abs() / scale.clamp_min(1e-30))[:, tm].max())
-        from autompc_torch.sysid.basis import term_value
-
-        z = [rk[0][:-1, i].double() for i in range(4)] + [rk[1].double()]
-        theta = torch.stack([term_value(t, z) for t in terms], dim=-1)
-        x64 = theta @ ca.double().T
-        mag = theta.abs() @ ca.double().abs().T
-        err["x"] = float(((rk[0][1:].permute(0, 2, 1).double() - x64).abs()
-                          / mag.clamp_min(1e-30))[:, tm].max())
-        err["jac"] = rel_err(rk[2][:, :, jm], K1.relin_jacobians_plain(
-            terms, rk[0][:, :, jm].double(), rk[1][:, jm].double(), ca.double()))
-        err["du2"] = rel_err(rk[3][tm], ((rk[1].double() - c["us"].double()) ** 2).sum(0)[tm])
-        qd_, rd_, fd_ = cost[:3]
-        if isinstance(qd_, torch.Tensor):
-            rows = dict(Qdiag=qd_.T, Rdiag=rd_.T, Fdiag=fd_.T)
-        else:
-            rows = {k: c["obj"].new_tensor(v).expand(Bc, len(v))
-                    for k, v in (("Qdiag", qd_), ("Rdiag", rd_), ("Fdiag", fd_))}
-        obj64 = lane_objective(rk[0].permute(2, 0, 1), rk[1].T[:, :, None], rows, dt)
-        err["obj64"] = float(((new_obj.double() - obj64).abs()
-                              / obj64.abs().clamp_min(1e-30))[tm].max())
-        # The split search against K3: the same decision on a lane, then
-        # the same trajectory, Jacobians and du2, bit for bit.
-        err["split_agree"], split_bits = split_agreement(
-            (rk[0], rk[1], new_obj, succ, fail, rk[2], rk[3]), lk, act)
-        print(f"[3] wide kernels, {tag}: K2 4D entry vs plain {err['k2_4d']:.3e}, bf16 Jacobians "
-              f"vs plain {err['k2_bf16']:.3e}, lanes within {TOL_K2} {err['k2_within']:.5f} (min "
-              f"{K2_WITHIN_MIN}); 4D entry bit for bit the 3D call: "
-              f"{same4}; K3 with a bf16 carry = K3 f32 with its rows rounded: {k3_bf16}; K8 vs "
-              f"plain within {TOL_K3} on {int(fin.sum())} candidates: objectives "
-              f"{err['k8_within']:.4f} (median {float(e8.median()):.3e}, max "
-              f"{float(e8.max()):.3e}), stashed trajectories {err['k8_stash_within']:.4f}, du2 "
-              f"{err['k8_du2_within']:.4f} (min {K8_WITHIN_MIN}); K3's objective found bit for "
-              f"bit among K8's on {err['k8_k3']:.5f} of the {int(moved.sum())} lanes it moved; K9 "
-              f"vs plain on K8's stash: xs/us/du2 bit for bit {k9_read}, jac {err['k9_jac']:.3e} "
-              f"(tol {TOL_K1}), carry select held {held}, bf16 = f32 rounded {k9_bf16}; vs float64 "
-              f"at K9's states u {err['u']:.3e}, next x {err['x']:.3e} (tol {TOL_K3_SUM}), jac "
-              f"{err['jac']:.3e} (tol {TOL_K1}), du2 {err['du2']:.3e}, objective of the trajectory "
-              f"vs K8's {err['obj64']:.3e} (tol {TOL_K3}); split vs K3: decisions agree on "
-              f"{err['split_agree']:.5f} of {int(act.sum())} active lanes (min {K3_AGREE_MIN}), "
-              f"bit for bit on those {split_bits}", flush=True)
-        if err["k2_within"] < K2_WITHIN_MIN or not same4:
-            failures.append(f"K2 wide/bf16 ({tag}) within {err['k2_within']:.5f}, 4D == 3D {same4}")
-        if not (k3_bf16 and k9_bf16 and k9_read and held and split_bits):
-            failures.append(f"bf16/read-back/select/split bits ({tag}): K3 {k3_bf16} K9 {k9_bf16} "
-                            f"read-back {k9_read} held {held} split {split_bits}")
-        if min(err["k8_within"], err["k8_stash_within"], err["k8_du2_within"]) < K8_WITHIN_MIN \
-                or err["k8_k3"] < K3_AGREE_MIN or err["split_agree"] < K3_AGREE_MIN:
-            failures.append(f"K8/split ({tag}) within {err['k8_within']:.4f} stash "
-                            f"{err['k8_stash_within']:.4f} du2 {err['k8_du2_within']:.4f} vs K3 "
-                            f"{err['k8_k3']:.5f} agree {err['split_agree']:.5f}")
-        if max(err["k9_jac"], err["jac"]) > TOL_K1 or max(err["u"], err["x"]) > TOL_K3_SUM \
-                or max(err["du2"], err["obj64"]) > TOL_K3:
-            failures.append(f"K9 ({tag}) jac vs plain {err['k9_jac']:.3e} u {err['u']:.3e} x "
-                            f"{err['x']:.3e} jac {err['jac']:.3e} du2 {err['du2']:.3e} obj "
-                            f"{err['obj64']:.3e}")
-        k2_bytes = n_bytes(c["jac"], c["xs"], c["us"], act, c["Ks"], c["ks"], *bk)
-        k2_ops = Bc * Hc * (riccati_flops(4, 1) + 16)
-        ls_bytes = n_bytes(c["x0s"], c["xs"], c["us"], KsT, ksT, ca)
-        step_ops = feature_value_flops(terms, 4) + 20
-        # K8's bound: the function it replaces (pallas_linesearch.py:1129)
-        # reads the carry and returns the (L, B) objectives; the du2 of the
-        # selected candidate only, 3 operations a lane-step. The stash and
-        # the du2 plane are scratch for K9, beside the bound as in
-        # k3_bound. K9's inputs: the old carry, the selected candidate's
-        # rows of the stash and its du2 (H (ds + 1) + 1 floats a lane),
-        # sel and the masks.
-        k8_bound = dict(
-            bound_keys(ls_bytes + n_bytes(ok),
-                       Bc * len(alphas) * Hc * (step_ops + 12) + Bc * Hc * 3),
-            scratch_bytes_ms=n_bytes(sk, dk) / HBM_BYTES_PER_S * 1e3)
-        k9_in = n_bytes(c["x0s"], c["xs"], c["us"], ca, sel, tm, jm) + 4 * Bc * (Hc * 5 + 1)
-        k9_ops = Bc * Hc * feature_jac_flops(terms, 4)
-        plain = lambda fn: time_ms(fn, reps=plain_reps)
-        split = lambda: K3.fused_line_search_wide(*ls, *tail, c["jac"])
-        return {
-            "k2_4d": dict(
-                max_abs_err=max(abs_err(a, b) for a, b in zip(b4, bp)),
-                ms=time_ms(lambda: K2.backward_quad_ll(*k2(c["jac"]), **carry, wide_io="reshape")),
-                plain_ms=plain(lambda: K2.backward_quad_ll_plain(*k2(c["jac"]), **carry)),
-                **bound_keys(k2_bytes, k2_ops)),
-            "k2_bf16": dict(
-                max_abs_err=max(abs_err(a, b) for a, b in zip(bkb, bpb)),
-                ms=time_ms(lambda: K2.backward_quad_ll(*k2(jb), **carry)),
-                plain_ms=plain(lambda: K2.backward_quad_ll_plain(*k2(jb), **carry)),
-                **bound_keys(k2_bytes - n_bytes(c["jac"]) + n_bytes(jb), k2_ops)),
-            "k3_bf16": dict(
-                max_abs_err=abs_err(lkb[0][..., twin_b], lpb[0][..., twin_b]),
-                ms=time_ms(lambda: K3.fused_line_search(*ls, *tail, jb)),
-                plain_ms=plain(lambda: K3.fused_line_search_plain(*ls, *tail, jb)),
-                **k3_bound(ls_bytes + n_bytes(*tail, jb, *lkb), Bc, Hc, terms,
-                           len(alphas))),
-            "k8": dict(
-                max_abs_err=abs_err(ok[fin], op[fin]),
-                # The whole split entry (K8 + acceptance + K9) and K3 on
-                # the same carry, a call and the kernels' device time.
-                split_entry_ms=time_ms(split), split_entry_device_ms=device_ms(split),
-                fused_k3_ms=time_ms(lambda: K3.fused_line_search(*ls, *tail, c["jac"])),
-                fused_k3_device_ms=device_ms(lambda: K3.fused_line_search(*ls, *tail, c["jac"])),
-                ms=time_ms(lambda: K3.wide_objectives(*ls)),
-                device_ms=device_ms(lambda: K3.wide_objectives(*ls)),
-                plain_ms=plain(lambda: K3.wide_objectives_plain(*ls)),
-                **k8_bound),
-            "k9": dict(
-                max_abs_err=abs_err(rk[2], rp[2]),
-                ms=time_ms(lambda: K3.wide_reroll(*rr, c["jac"])),
-                device_ms=device_ms(lambda: K3.wide_reroll(*rr, c["jac"])),
-                plain_ms=plain(lambda: K3.wide_reroll_plain(*rr, c["jac"])),
-                **bound_keys(k9_in + n_bytes(c["jac"], *rk), k9_ops)),
-            "k9_bf16": dict(
-                max_abs_err=abs_err(rkb[2], rpb[2]),
-                ms=time_ms(lambda: K3.wide_reroll(*rr, jb)),
-                device_ms=device_ms(lambda: K3.wide_reroll(*rr, jb)),
-                plain_ms=plain(lambda: K3.wide_reroll_plain(*rr, jb)),
-                **bound_keys(k9_in + n_bytes(jb, *rkb), k9_ops)),
-        }
+    check_wide = functools.partial(check_wide_ll, ctx)
 
     # K1-K3 at the main path's shape: the carry after make_carry0 at
     # B=4096, H=200, K2 and K3 under the main path's fixed cost as host
@@ -6097,6 +6643,13 @@ def main(profile=False):
     t3 = time.perf_counter()
     report += check_shape_kernels(sp, (K1, K2, K3, K4), failures)
     print(f"[3] phase 18's instances checked in {time.perf_counter() - t3:.2f} s", flush=True)
+
+    # Phase 19's instances: K4 at (12, 1), (8, 1) and (2, 1), the per-lane
+    # K1, K3, K7 at (2, 1), K2's 4D entry, K8, K9 at (2, 1), in rows of
+    # their own.
+    t3 = time.perf_counter()
+    report += check_dense_kernels(ds19, sp, (K1, K2, K3, K4), failures)
+    print(f"[3] phase 19's instances checked in {time.perf_counter() - t3:.2f} s", flush=True)
 
     def device_txt(w):
         return ((f" (device {w['device_ms']:.4f})" if "device_ms" in w else "")

@@ -5,7 +5,8 @@ at small sizes:
 - ``JointKoopmanLassoQuadCostFanout`` (trig basis, ds = 12) against the
   JAX fan-out at B = 8, H = 5, 3 closed-loop steps, with and without the
   GaussReg term (``reg_matrix``), at 1e-8; with ``backward="pallas"``
-  (on the CPU: K6's plain version at ds = 12) too; its per-lane (A, B)
+  too (on the CPU: K6's plain version at ds = 12, and with the GaussReg
+  term K4's, the dense-expansion recursion at (12, 1)); its per-lane (A, B)
   against the Koopman model trained alone with the lane's alpha;
 - the tuner: kind selection, one small round of each kind against the
   JAX tuner (costs at 1e-6, the same configurations and incumbent),
@@ -102,7 +103,7 @@ def jax_costs(setup):
 
 
 @pytest.mark.parametrize("reg, backward", [(False, "scan"), (True, "scan"),
-                                           (False, "pallas")])
+                                           (False, "pallas"), (True, "pallas")])
 def test_joint_koopman_fanout_matches_jax(setup, jax_costs, reg, backward):
     s = setup
     fan = TJoint(s["tb"].system, s["ttask"], BASIS, s["ttr"], s["tsurr"], horizon=H_FAN,

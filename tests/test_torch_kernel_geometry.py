@@ -310,7 +310,7 @@ def test_general_geometry_packs_lanes_on_a_small_card():
 def test_backward_kernels_refuse_unbuilt_shapes_by_name(which, monkeypatch):
     """The pickers and the wrappers of tensors that are not on the CPU
     raise past the kernels' stated limits (ds + 1 <= MAX_D, K2's ds <=
-    BQ_MAX_DS, obsdim <= MAX_OBS for K2 and K6; K4's built pairs), before
+    BQ_MAX_DS, obsdim <= MAX_OBS for K2 and K6; K4's ds + dc <= MAX_D), before
     any build or launch
     (device_kind and the SM count are patched, meta tensors stand in for
     the card's)."""
@@ -330,10 +330,10 @@ def test_backward_kernels_refuse_unbuilt_shapes_by_name(which, monkeypatch):
             K2.backward_quad_ll(z(2, n * (n + 1), 3), z(3, n, 3), z(2, 3), (1.0,) * n,
                                 (0.1,), (1.0,) * n, (0.0,) * n, 0.05, n, carry)
         return
-    with pytest.raises(ValueError, match="general backward kernel is built for"):
-        K4.general_geometry(5, 2, 64)
-    B, H, ds, dc = 3, 2, 5, 2
-    with pytest.raises(ValueError, match="general backward kernel is built for"):
+    with pytest.raises(ValueError, match=r"riccati_general: .*MAX_D = 24"):
+        K4.general_geometry(20, 5, 64)
+    B, H, ds, dc = 3, 2, 20, 5
+    with pytest.raises(ValueError, match=r"riccati_general: .*MAX_D = 24"):
         K4.riccati_general(z(B, H, ds, ds), z(B, H, ds, dc), z(B, H, ds, ds), z(B, H, dc, dc),
                            z(B, H, ds), z(B, H, dc), z(B, ds, ds), z(B, ds))
 

@@ -500,7 +500,7 @@ def test_every_shape_within_the_limits_fits():
     ("sindy_linesearch", 18, 7, "MAX_D = 24"),
     ("riccati_quad", 2, 2, "dc = 1"),
     ("riccati_quad", 14, 1, "ds <= 13"),
-    ("riccati_general", 2, 1, "built for"),
+    ("riccati_general", 20, 5, "MAX_D = 24"),
 ])
 def test_limits_raise_by_name(source, ds, dc, match):
     with pytest.raises(ValueError, match=match):
@@ -512,8 +512,9 @@ def test_limits_raise_by_name(source, ds, dc, match):
 def test_shapes_within_the_limits_build_at_first_use(monkeypatch):
     """A shape the main library lacks goes to its own library, built at
     first use from the same source with the shape on the command line; a
-    prebuilt shape takes the main library; per-lane coefficients stay at
-    the prebuilt shapes."""
+    prebuilt shape takes the main library; per-lane coefficients take
+    the same libraries (a shape's own library holds its per-lane
+    instances too)."""
     built = []
     monkeypatch.setattr(_build, "library", lambda: "main")
     monkeypatch.setattr(_build, "shape_library", lambda *a: built.append(a) or "shape")
@@ -521,7 +522,9 @@ def test_shapes_within_the_limits_build_at_first_use(monkeypatch):
     assert _build.kernel_library("relin", 18, 6) == "shape"
     assert _build.kernel_library("riccati_quad_bm", 12, 1) == "main"
     assert _build.kernel_library("riccati_quad_bm", 2, 1) == "shape"
-    assert built == [("relin", 18, 6), ("riccati_quad_bm", 2, 1)]
-    with pytest.raises(ValueError, match="per-lane coefficients"):
-        _build.kernel_library("sindy_linesearch", 2, 1, lane=True)
+    assert _build.kernel_library("sindy_linesearch", 2, 1) == "shape"
+    assert _build.kernel_library("riccati_general", 2, 1) == "shape"
+    assert _build.kernel_library("riccati_general", 18, 6) == "main"
+    assert built == [("relin", 18, 6), ("riccati_quad_bm", 2, 1), ("sindy_linesearch", 2, 1),
+                     ("riccati_general", 2, 1)]
     assert _build.shape_library_path("relin", 18, 6).name.startswith("librelin_18x6_")

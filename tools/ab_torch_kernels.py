@@ -50,7 +50,11 @@ that every checkout computes the same bits:
   interaction library at d = 3, fitted on the CPU from 50 x 100
   trajectories, seed 42; Q = F = diag(10, .1), R = 0.001) at B=16384 and
   4096, H=200 (its solve), B=256, H=20 (its closed loop) and B=1,024,
-  H=10 (its fan-out): K1 (both entries), K2, K3, K6 and K7; and the
+  H=10 (its fan-out): K1 (both entries), K2, K3, K6 and K7, K8, K9 and
+  K2's 4D entry at B=16384 and 4096, H=200 (its solve with ``ls_wide``
+  or the reshape IO), the per-lane K1 (both entries), K3 and K7 at
+  B=1,024, H=10 (``lane_*_2x1``, a plane over the whole 21-term
+  library); K4 at (12, 1), (8, 1) and (2, 1) (``K4_12x1`` ...); and the
   halfcheetah's (18, 6), K1's batch-major entry and K7 at B=1024, H=200
   on a model near the identity over the 48-term quadratic library. A
   tree without an instance (built before it) records ``*_skipped`` for
@@ -69,7 +73,16 @@ tree with ``bq_bm_geometry`` records the geometry each K6 call took
 (``_geometry``).
 
 ``--only`` keeps the shapes whose tag starts with one of the prefixes
-(K1, K2, K3, K4, K5, K6, K7, K8, K9, split, lane).
+(K1, K2, K3, K4, K5, K6, K7, K8, K9, split, lane), a kernel's name
+taking its per-lane shapes (``lane_K1...``) too.
+
+    python3 tools/ab_torch_kernels.py --only K1,K2,K3,K4,K7,K8,K9 _archive/_parent .
+
+holds every instance of K4, K1, K3, K7, K8, K9 and K2 (its 4D entry
+among them) of the two trees against each other, and times the shapes a
+tree built before them lacks (K4 at (12, 1), (8, 1), (2, 1); the
+per-lane K1, K3, K7, K8, K9 and K2's 4D entry at (2, 1)) in the tree
+that has them.
 
     python3 tools/ab_torch_kernels.py --only K1,K2,K3,K4,K6,K7,K8,K9,split,lane \
         _archive/_parent . . _archive/_parent
@@ -109,6 +122,11 @@ K4_SHAPES = (
     ("K4_18x6_B1024_H200", 18, 6, 1024, 200),
     ("K4_18x6_B32_H20", 18, 6, 32, 20),
     ("K4_4x1_B4096_H200", 4, 1, 4096, 200),
+    # The rule's instances, built at first use: the joint-Koopman lifts
+    # (12, 1) and (8, 1) at their fan-out's shapes, the pendulum's (2, 1).
+    ("K4_12x1_B1024_H10", 12, 1, 1024, 10),
+    ("K4_8x1_B128_H10", 8, 1, 128, 10),
+    ("K4_2x1_B1024_H20", 2, 1, 1024, 20),
 )
 # K5: (tag, widths, ds, dc, B, H)
 K5_SHAPES = (
@@ -167,7 +185,10 @@ PENDULUM_SHAPES = tuple(sorted(
        ((16384, 200), (4096, 200), (256, 20))]
     + [(f"K3_2x1_B1024_H10_lane", "K3", 1024, 10, "lane", "f32")]
     + [(f"K6_2x1_B{B}_H{H}", "K6", B, H, "lane", "f32") for B, H in ((4096, 200), (1024, 10))]
-    + [(f"K7_2x1_B{B}_H{H}", "K7", B, H, "fixed", "f32") for B, H in ((4096, 200), (1024, 10))],
+    + [(f"K7_2x1_B{B}_H{H}", "K7", B, H, "fixed", "f32") for B, H in ((4096, 200), (1024, 10))]
+    + [(f"{k}_2x1_B{B}_H200", k, B, 200, "fixed", "f32") for B in (16384, 4096)
+       for k in ("K8", "K9", "K2_4d")]
+    + [(f"lane_{k}_2x1_B1024_H10", k, 1024, 10, "coef", "f32") for k in ("K1", "K1bm", "K3", "K7")],
     key=lambda r: (r[2], r[3])))
 # The halfcheetah's (18, 6) instances: (tag, kernel, B, H).
 CHEETAH_SHAPES = (("K1_bm_18x6_B1024_H200", "K1bm", 1024, 200),
@@ -477,7 +498,7 @@ def time_one(root, only):
     out = {"root": root, "card": torch.cuda.get_device_name(0)}
 
     def wanted(tag):
-        return any(tag.startswith(p) for p in only)
+        return any(tag.startswith(p) or tag.startswith(f"lane_{p}") for p in only)
 
     def record(tag, run):
         res = run()
@@ -539,8 +560,16 @@ def time_one(root, only):
         ls, tail, jac, k2 = carry
         if kind == "K2":
             record_built(tag, lambda: K2.backward_quad_ll(*k2["args"], carry=k2["carry"]))
+        elif kind == "K2_4d":
+            record_built(tag, lambda: K2.backward_quad_ll(*k2["args"], carry=k2["carry"],
+                                                          wide_io="reshape"))
         else:
-            record_built(tag, ls_call(kind, ls[form], tail, jac[jt], K1, K2, K3))
+            try:    # K9's inputs come from K8, which a tree without it refuses
+                run = ls_call(kind, ls[form], tail, jac[jt], K1, K2, K3)
+            except ValueError as e:
+                out[f"{tag}_skipped"] = str(e)
+                continue
+            record_built(tag, run)
     carry = None
     for tag, kind, B, H in CHEETAH_SHAPES:
         if not wanted(tag):
@@ -568,7 +597,7 @@ def time_one(root, only):
         if not wanted(tag):
             continue
         args = k4_inputs(ds, dc, B, H, dev)
-        record(tag, lambda: K4.riccati_general(*args))
+        record_built(tag, lambda: K4.riccati_general(*args))
         del args
     for tag, widths, ds, dc, B, H in K5_SHAPES:
         if not wanted(tag):
@@ -604,7 +633,8 @@ def main(argv):
                           capture_output=True, text=True, check=True, timeout=60)
     print(card.stdout.strip().splitlines()[0], flush=True)
     tags = [s[0] for s in K2_SHAPES + K4_SHAPES + K5_SHAPES + LS_SHAPES + PENDULUM_SHAPES
-            + CHEETAH_SHAPES + K6_WIDE_SHAPES if any(s[0].startswith(p) for p in only)]
+            + CHEETAH_SHAPES + K6_WIDE_SHAPES
+            if any(s[0].startswith(p) or s[0].startswith(f"lane_{p}") for p in only)]
     digests = {tag: set() for tag in tags}
     for root in argv:
         run = subprocess.run([sys.executable, os.path.abspath(__file__), "--only",
@@ -617,7 +647,8 @@ def main(argv):
             keys = ([f"{tag}_sha256"] + [f"{tag}_{block}_sha256" for block, _ in BLOCKS]
                     + [f"{tag}_{name}_sha256" for name in VARIANT_NAMES])
             digests[tag] |= {out[k] for k in keys if k in out}
-    same = {kernel: all(len(d) <= 1 for tag, d in digests.items() if tag.startswith(kernel + "_"))
+    same = {kernel: all(len(d) <= 1 for tag, d in digests.items()
+                        if tag.startswith(kernel + "_") or tag.startswith(f"lane_{kernel}"))
             for kernel in only}
     differ = sorted(tag for tag, d in digests.items() if len(d) > 1)
     missing = sorted(tag for tag, d in digests.items() if not d)
