@@ -7,6 +7,7 @@ from .ilqr import (
     make_batched_ilqr_solver,
     make_ilqr_solver,
     make_scheduled_ilqr_solver,
+    make_staged_ilqr_solver,
     parse_schedule,
 )
 from .mppi import MPPI, MPPIFactory

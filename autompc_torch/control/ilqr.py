@@ -1,8 +1,8 @@
 """Iterative LQR: the batched solver with converged-lane compaction, the
 single-lane solver and the receding-horizon controller (port of
 ``autompc_tpu/control/ilqr.py``: ``make_batched_ilqr_solver``,
-``make_scheduled_ilqr_solver``, ``make_ilqr_solver``, ``IterativeLQR``
-and ``IterativeLQRFactory``).
+``make_scheduled_ilqr_solver``, ``make_staged_ilqr_solver``,
+``make_ilqr_solver``, ``IterativeLQR`` and ``IterativeLQRFactory``).
 
 Semantics are the JAX package's: dt-scaled stage expansions, the Riccati
 backward pass, ``alpha = ls_discount**i`` line search with the
@@ -41,18 +41,21 @@ us (B, H, dc), Jx (B, H, ds, ds), Ju (B, H, ds, dc), gains
 inline-expansion kernel ``ops/cuda_riccati.py::backward_quad``, else the
 dense stage expansions into the kernel of
 ``ops/cuda_riccati_general.py``; ``"scan"``: the expansions into
-``ops/riccati.py``), rolls out every step size (``feature_spec``: the
+``ops/riccati.py``'s recursion; ``"assoc"``: into its associative scan,
+O(log H) depth), rolls out every step size (``feature_spec``: the
 kernel ``ops/cuda_linesearch.py::sindy_line_search``; ``mlp_ls``: the
 kernel of ``ops/cuda_mlp_linesearch.py``; neither: a batched loop over H
 through ``pred_core``), evaluates the L objectives and applies the
 acceptance rule in tensor ops, and relinearizes the chosen trajectory
-(``feature_spec``: ``ops/cuda_relin.py``'s batch-major entry; else
-``pred_diff`` or autodiff). With ``fuse_ls`` and a ``feature_spec``
-under a diagonal quadratic cost (per lane, or a fixed one broadcast to
-per-lane planes) the line search, the acceptance rule and the
-relinearization are one kernel, K3's batch-major entry
-(``ops/cuda_linesearch.py::fused_line_search_bm``), and the body applies
-the carry select.
+(``feature_spec``: ``ops/cuda_relin.py``'s batch-major entry, unless
+``relin="xla"``; else ``pred_diff`` or autodiff; ``analytic_jac`` with
+``relin="xla"``: the library's closed-form feature Jacobian). With
+``fuse_ls`` and a ``feature_spec`` under a quadratic cost (diagonal per
+lane, a fixed diagonal one broadcast to per-lane planes, or a fixed dense
+one) the line search, the acceptance rule and the relinearization are one
+kernel, K3's batch-major entry
+(``ops/cuda_linesearch.py::fused_line_search_bm``; under ``relin="xla"``
+without its Jacobians), and the body applies the carry select.
 
 ``reg_matrix``/``reg_goal`` (with ``quad_cost_batch``, batch-major body
 only) add the GaussReg term ``regw_b (x - mu)' S (x - mu)`` to every
@@ -62,10 +65,11 @@ kernel or the plain recursion, never the inline-expansion kernel) and,
 fused, K3's batch-major entry with its GaussReg term.
 
 Both loops read the active-lane count on the host once per iteration.
+``make_staged_ilqr_solver`` drives the batch-major body in chunks and
+gathers the survivors into power-of-two buckets between them.
 ``make_ilqr_solver`` is the batch-major body at one lane, the model
 differentiated by ``torch.func.jacfwd`` unless it has a closed-form
-Jacobian. Every other option of the JAX solver raises ``ValueError``
-naming it.
+Jacobian. What the JAX solver refuses raises ``ValueError`` naming it.
 """
 
 from __future__ import annotations
@@ -84,11 +88,11 @@ from ..ops.cuda_linesearch import (
     fused_line_search_wide,
     sindy_line_search,
 )
-from ..ops.cuda_mlp_linesearch import fold_mlp_params, mlp_line_search
+from ..ops.cuda_mlp_linesearch import check_precision, fold_mlp_params, mlp_line_search
 from ..ops.cuda_relin import relin_jacobians, relin_jacobians_bm
 from ..ops.cuda_riccati import backward_quad, backward_quad_ll
 from ..ops.cuda_riccati_general import riccati_general
-from ..ops.riccati import tvlqr_backward_scan
+from ..ops.riccati import tvlqr_backward_assoc, tvlqr_backward_scan
 from ..sysid.model import model_device
 from .controller import Controller, ControllerFactory
 
@@ -179,7 +183,9 @@ def make_batched_ilqr_solver(
     ``params`` is the model's parameter dict. ``backward="pallas"``
     keeps the JAX package's name for the kernel backward pass (here a
     CUDA kernel); ``"scan"`` (batch-major body only) is the plain
-    recursion. ``return_pieces=True`` also returns ``(make_carry0,
+    recursion and ``"assoc"`` (batch-major body only) the associative
+    scan (``ops/riccati.py::tvlqr_backward_assoc``; needs Cuu
+    invertible). ``return_pieces=True`` also returns ``(make_carry0,
     cond, make_body)`` for callers that run the iteration themselves.
 
     ``quad_cost_batch=True`` gives every lane its own diagonal quadratic
@@ -208,9 +214,19 @@ def make_batched_ilqr_solver(
     ``pred_core``. ``mlp_ls`` — a dict with ``nonlin``
     (required), ``layout`` and ``precision`` — routes the line-search
     rollouts through the MLP kernel; ``params`` must then be an MLP's.
-    The kernel computes in true float32, so ``precision`` must be
-    "highest"; ``layout``, ``block_b`` and ``interpret`` are choices of
-    the TPU kernel and are ignored.
+    ``precision`` is "highest" (true float32), "default" (one bfloat16
+    pass where the TPU kernel's ``layout`` takes one: every product in
+    "feat", all but the first layer's control rows in "mxu", none in
+    "slab") or "bf16x3" (the three-pass split; ``layout="feat"`` only, as
+    in the JAX package); ``layout``, ``block_b`` and ``interpret`` are
+    otherwise choices of the TPU kernel and are ignored.
+
+    ``relin``: "auto" and "pallas" (the latter needs a ``feature_spec``)
+    relinearize a feature model with its kernel; "xla" with the JAX
+    package's other formulation: the library's closed-form feature
+    Jacobian with ``analytic_jac=True``, else ``pred_diff`` or
+    ``torch.func.jacfwd``. The lanes-last body refuses "xla" and ignores
+    ``analytic_jac``, as the JAX package's does.
 
     ``ls_wide`` (lanes-last body; the batch-major body ignores it, as the
     JAX package's does): an iteration whose batch is a multiple of 1024
@@ -220,8 +236,16 @@ def make_batched_ilqr_solver(
     (lanes-last body only) stores the Jacobian carry in bfloat16; the
     kernels compute in float32 and round at the write.
     """
-    if analytic_jac:
-        raise _unsupported("analytic_jac")
+    if relin not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown relin mode {relin!r}")
+    if relin == "pallas" and feature_spec is None:
+        raise ValueError(
+            "relin='pallas' needs feature_spec (the feature kernels' relinearization; a "
+            "model without one takes its pred_diff or the jacfwd relinearization)")
+    # The feature kernels relinearize a feature model unless relin="xla"
+    # takes the JAX package's other formulation (analytic_jac: the
+    # library's closed-form Jacobian; else pred_diff or jacfwd).
+    kernel_relin = feature_spec is not None and relin != "xla"
     if reg_matrix is not None and not quad_cost_batch:
         raise ValueError("reg_matrix requires quad_cost_batch=True")
     if reg_matrix is not None and lanes_last:
@@ -244,11 +268,11 @@ def make_batched_ilqr_solver(
                 "horizon_mask uses the plain line-search path; fuse_ls, "
                 "lanes_last and mlp_ls are unsupported with it"
             )
-        if feature_spec is not None:
+        if feature_spec is not None or analytic_jac:
             raise ValueError(
                 "horizon_mask does not compose with feature-library "
-                "kernels yet; keep horizon in the bucket key for "
-                "feature-spec solvers"
+                "kernels (feature_spec, analytic_jac) yet; keep horizon in "
+                "the bucket key for feature-spec solvers"
             )
     if jac_dtype not in ("f32", "bf16"):
         raise ValueError(f"jac_dtype must be f32/bf16, got {jac_dtype!r}")
@@ -258,10 +282,6 @@ def make_batched_ilqr_solver(
             "HBM fit) is implemented for the lanes-last packed-jac "
             "carry only"
         )
-    if relin not in ("auto", "pallas"):
-        raise _unsupported(
-            f"relin={relin!r} (the JAX package's jacfwd relinearization of a "
-            "feature model in place of its kernel)" if relin == "xla" else f"relin={relin!r}")
     if feature_mask is not None and feature_spec is None:
         raise ValueError("feature_mask needs feature_spec")
     if ubounds is not None:
@@ -412,7 +432,11 @@ def make_batched_ilqr_solver(
         if mlp_ls is not None:
             raise ValueError("mlp_ls needs the batch-major body (lanes_last=False)")
         if backward != "pallas":
-            raise _unsupported(f"backward={backward!r} with lanes_last=True")
+            raise ValueError(f"lanes_last=True requires backward='pallas' (the lanes-last "
+                             f"Riccati kernel), got backward={backward!r}")
+        if relin == "xla":
+            raise ValueError("lanes_last=True requires relin != 'xla': the fused line search "
+                             "relinearizes in the kernel")
         diag_cost = quad_cost_batch or fixed_diag is not None
         if not (fuse_ls and feature_spec is not None and diag_cost):
             raise ValueError(
@@ -525,7 +549,10 @@ def make_batched_ilqr_solver(
         # a feature_spec, or under a cost that is not quadratic, fuse_ls
         # is ignored there too. With dc > 1 the feature path is K1's
         # batch-major entry, the dense-expansion backward pass (K4) and
-        # the rollout line search (K7).
+        # the rollout line search (K7). A fixed cost whose Q, R or F is
+        # not diagonal takes K3's dense form (the TPU kernel's
+        # per_lane_diag_cost=False) and the backward pass from dense
+        # expansions.
         fused = fuse_ls and feature_spec is not None and (
             quad_cost_batch or getattr(cost, "is_quad", False))
         if fused and dc != 1:
@@ -534,18 +561,20 @@ def make_batched_ilqr_solver(
                 "fuse_ls=False runs the rollout line search)"
             )
         if fused and not quad_cost_batch and fixed_diag is None:
-            raise _unsupported(
-                "fuse_ls with lanes_last=False and a fixed cost whose Q, R or F is not "
-                "diagonal (the batch-major fused line search takes diagonal cost planes)"
-            )
-        if backward not in ("pallas", "scan"):
+            dense_cost = tuple(
+                np.asarray(M.detach().cpu().numpy(), dtype=np.float64)
+                for M in (cost._Q, cost._R, cost._F)
+            ) + (tuple(goal_q) if cost._goal is None
+                 else tuple(float(v) for v in cost._goal.detach().cpu().numpy()),)
+        else:
+            dense_cost = None
+        if backward not in ("pallas", "scan", "assoc"):
             raise _unsupported(f"backward={backward!r}")
         if mlp_ls is not None and feature_spec is None:
             if "nonlin" not in mlp_ls:
                 raise ValueError("mlp_ls needs the activation name under 'nonlin'")
-            precision = str(mlp_ls.get("precision", "highest"))
-            if precision != "highest":
-                raise _unsupported(f"mlp_ls precision={precision!r}")
+            check_precision(str(mlp_ls.get("precision", "highest")),
+                            str(mlp_ls.get("layout", "slab")))
         # The inline-expansion kernel: dc = 1 and a diagonal cost, fixed
         # (its diagonals broadcast to the batch) or per lane.
         quad_backward = (
@@ -554,17 +583,23 @@ def make_batched_ilqr_solver(
         )
         if feature_spec is not None:
             terms, active_coeffs = feature_pieces()
-        # A model with neither: every point differentiated by forward-mode
-        # autodiff, one model a lane with batch_params (JAX's default
-        # relinearization, jax.jacfwd of pred_core).
-        model_diff = pred_diff if pred_diff is not None or feature_spec is not None \
-            else jacfwd_pred_diff(pred_core, ds, batch_params=batch_params)
+        # Without the feature kernels' relinearization: a feature model's
+        # closed-form Jacobian (analytic_jac), else the model's pred_diff,
+        # else every point differentiated by forward-mode autodiff, one
+        # model a lane with batch_params (JAX's default relinearization,
+        # jax.jacfwd of pred_core).
+        if kernel_relin:
+            model_diff = pred_diff
+        elif analytic_jac and feature_spec is not None:
+            model_diff = feature_pred_diff(pred_core, feature_spec, ds, batch_params)
+        else:
+            model_diff = pred_diff or jacfwd_pred_diff(pred_core, ds, batch_params=batch_params)
 
         def relinearize(params, coeffs, xs, us):
             """Jx (B, H, ds, ds), Ju (B, H, ds, dc) at the first H points
             of xs (B, H+1, ds), us (B, H, dc); ``coeffs`` the feature
             kernels' coefficients (``active_coeffs``)."""
-            if feature_spec is None:
+            if not kernel_relin:
                 _, Jx, Ju = model_diff(params, xs[:, :H], us)
                 return Jx, Ju
             return relin_jacobians_bm(terms, xs.contiguous(), us.contiguous(), coeffs)
@@ -662,15 +697,15 @@ def make_batched_ilqr_solver(
         def make_carry0(params, x0s, uguess, cost_params=None):
             B = x0s.shape[0]
             cp = lane_costs(cost_params, x0s)
-            if feature_spec is not None or (
+            if kernel_relin or (
                     getattr(model_diff, "all_points", False) and not horizon_mask):
                 # The Jacobians at every point in one call after the
-                # rollout: the feature kernel, or an autodiff pred_diff
-                # (jacfwd_pred_diff), whose cost is a call, not a point.
+                # rollout: the feature kernel, or an autodiff or
+                # closed-form-feature pred_diff, whose cost is a call,
+                # not a point.
                 xs0 = rollout(params, x0s, uguess)
                 Jx0, Ju0 = relinearize(
-                    params, active_coeffs(params) if feature_spec is not None else None,
-                    xs0, uguess)
+                    params, active_coeffs(params) if kernel_relin else None, xs0, uguess)
             else:
                 live = stage_mask(cp, x0s) if horizon_mask else None
                 x, xs, Jx, Ju = x0s, [x0s], [], []
@@ -723,18 +758,22 @@ def make_batched_ilqr_solver(
 
             def fused_search(c, coeffs, Ks, ks, lin_red, quad_red, ks_small):
                 """K3's batch-major entry on the carry: the chosen rollout,
-                its objective and flags, its Jacobians and du2, every lane
-                (the body applies the carry select)."""
-                Qd, Rd, Fd, goal = diag_rows(c)
+                its objective and flags, its Jacobians (None with
+                relin="xla") and du2, every lane (the body applies the
+                carry select)."""
+                if dense_cost is not None:
+                    Qd, Rd, Fd, goal = dense_cost
+                else:
+                    Qd, Rd, Fd, goal = diag_rows(c)
+                    Qd, Rd, Fd = Qd.T.contiguous(), Rd.T.contiguous(), Fd.T.contiguous()
                 reg = None
                 if reg_matrix is not None:
                     reg = (reg_S, reg_mu, c["cost"]["regw"])
                 return fused_line_search_bm(
                     terms, c["x0s"], c["xs"], c["us"], Ks.contiguous(), ks.contiguous(),
-                    coeffs, alphas, float(umin[0]), float(umax[0]),
-                    Qd.T.contiguous(), Rd.T.contiguous(), Fd.T.contiguous(), goal, dt,
+                    coeffs, alphas, float(umin[0]), float(umax[0]), Qd, Rd, Fd, goal, dt,
                     c["obj"], lin_red, quad_red, ks_small, reg=reg,
-                    ls_cost_threshold=ls_cost_threshold,
+                    ls_cost_threshold=ls_cost_threshold, jac=kernel_relin,
                 )
 
             def body(c):
@@ -754,9 +793,8 @@ def make_batched_ilqr_solver(
                         c["Jx"], c["Ju"], xs, us, Qd, Rd, Fd, goal, dt, obsdim
                     )
                 else:
-                    run_backward = (
-                        riccati_general if backward == "pallas" else tvlqr_backward_scan
-                    )
+                    run_backward = {"pallas": riccati_general, "scan": tvlqr_backward_scan,
+                                    "assoc": tvlqr_backward_assoc}[backward]
                     Ks, ks, lin_red, quad_red = run_backward(
                         c["Jx"], c["Ju"], *expansions(xs, us, cp, quad_hess)
                     )
@@ -765,6 +803,8 @@ def make_batched_ilqr_solver(
                 if fused:
                     new_xs, new_us, new_obj, ls_success, failed_now, Jx_lin, Ju_lin, du2 = \
                         fused_search(c, coeffs, Ks, ks, lin_red, quad_red, ks_small)
+                    if not kernel_relin:
+                        Jx_lin, Ju_lin = relinearize(pp, coeffs, new_xs, new_us)
                     return select(c, active, new_xs, new_us, new_obj, ls_success, failed_now,
                                   Jx_lin, Ju_lin, torch.sqrt(du2), Ks, ks)
                 if feature_spec is not None:
@@ -775,6 +815,7 @@ def make_batched_ilqr_solver(
                     ls_xs, ls_us = mlp_line_search(
                         layers, mlp_ls["nonlin"], x0s, xs, us, Ks, ks, alphas,
                         umin, umax, layout=str(mlp_ls.get("layout", "slab")),
+                        precision=str(mlp_ls.get("precision", "highest")),
                     )
                 else:
                     ls_xs, ls_us = line_search_rollouts(pp, x0s, xs, us, Ks, ks, cp)
@@ -919,6 +960,89 @@ def _batch_scatter(full, front, idx, B, lanes_last=False):
     return s(full, front)
 
 
+def make_staged_ilqr_solver(
+    pred_core,
+    cost,
+    H: int,
+    ds: int,
+    dc: int,
+    obsdim: int,
+    dt: float,
+    ubounds=None,
+    chunk_iters: int = 5,
+    min_bucket: int = 1024,
+    max_iter: int = 50,
+    **kwargs,
+):
+    """Batched iLQR with host-staged converged-lane compaction.
+
+    Same contract as ``make_batched_ilqr_solver`` (batch-major body
+    only), per-lane results those of the uncompacted solve. The
+    iteration runs in chunks of ``chunk_iters``; between chunks the host
+    reads the finished mask, writes the finished lanes into the outputs
+    and gathers the survivors into the smallest power of two at least
+    their count (and at least ``min_bucket``, at most the current size),
+    padded with finished lanes, which the masks keep inert. Unlike
+    ``make_scheduled_ilqr_solver`` the buckets follow the measured
+    survivors rather than a fixed schedule.
+    """
+    if kwargs.get("lanes_last"):
+        raise ValueError(
+            "lanes_last is not supported by the staged driver; use "
+            "make_scheduled_ilqr_solver"
+        )
+    _, make_carry0, cond, make_body = make_batched_ilqr_solver(
+        pred_core, cost, H=H, ds=ds, dc=dc, obsdim=obsdim, dt=dt,
+        ubounds=ubounds, max_iter=max_iter, return_pieces=True, **kwargs,
+    )
+
+    def bucket(n_active, cur):
+        b = 1 << max(0, int(np.ceil(np.log2(max(1, n_active)))))
+        return min(cur, max(b, min_bucket))
+
+    def solve(params, x0s, uguess, cost_params=None):
+        B = x0s.shape[0]
+        body = make_body(params)
+        carry = make_carry0(params, x0s, uguess, cost_params)
+        idx = np.arange(B)          # original lane of each slot; -1: padding
+        out = dict(
+            converged=torch.zeros(B, dtype=torch.bool, device=x0s.device),
+            xs=x0s.new_zeros((B, H + 1, ds)), us=x0s.new_zeros((B, H, dc)),
+            Ks=x0s.new_zeros((B, H, dc, ds)), ks=x0s.new_zeros((B, H, dc)),
+        )
+
+        def flush(slots):
+            dst = torch.as_tensor(idx[slots], device=x0s.device)
+            src = torch.as_tensor(slots, device=x0s.device)
+            for key in out:
+                out[key][dst] = carry[key][src]
+
+        while True:
+            n = 0
+            while n < chunk_iters and cond(carry):
+                carry = body(carry)
+                n += 1
+            done = (carry["converged"] | carry["failed"]).cpu().numpy()
+            real = idx >= 0
+            active = real & ~done
+            n_active = int(active.sum())
+            if n_active == 0 or carry["itr"] >= max_iter:
+                flush(np.flatnonzero(real))
+                break
+            cur = len(idx)
+            nb = bucket(n_active, cur)
+            if nb < cur:
+                flush(np.flatnonzero(real & done))
+                act = np.flatnonzero(active)
+                pad = np.flatnonzero(done)[: nb - n_active]
+                sel = np.concatenate([act, pad])
+                carry = _batch_gather(carry, torch.as_tensor(sel, device=x0s.device), cur)
+                idx = np.concatenate([idx[act], np.full(nb - n_active, -1)])
+        return out["converged"], out["xs"], out["us"], out["Ks"], out["ks"]
+
+    return solve
+
+
 def parse_schedule(s):
     """Parse ``"cut:frac,cut:frac,..."`` (e.g. ``"20:0.5,38:0.25"``) into
     ``((cut_iter, size_frac), ...)``. Empty/None -> None."""
@@ -1039,6 +1163,32 @@ def jacfwd_pred_diff(pred_core, ds, batch_params=False):
     return pred_diff
 
 
+def feature_pred_diff(pred_core, feature_spec, ds, batch_params=False):
+    """``pred_diff(params, x (..., ds), u (..., dc)) -> (pred, Jx, Ju)``
+    of a linear-in-features model from the library's closed-form feature
+    Jacobian (``FeatureLibrary.jacobian``): ``coeffs @ dTheta/dz``, one
+    evaluation of the partials where ``jacfwd`` pushes a tangent a
+    input (the JAX solver's ``analytic_jac``). ``feature_spec = (library,
+    coeffs_key)``; with ``batch_params`` ``params[coeffs_key]`` is
+    (B, ds, F) and x, u lead with the lane axis B."""
+    library, key = feature_spec
+
+    def pred_diff(params, x, u):
+        Jth = library.jacobian(torch.cat([x, u], dim=-1))          # (..., F, d)
+        C = params[key]
+        if batch_params:
+            B = x.shape[0]
+            jac = torch.einsum("bnfd,bsf->bnsd", Jth.reshape((B, -1) + Jth.shape[-2:]), C)
+            jac = jac.reshape(x.shape[:-1] + jac.shape[-2:])
+        else:
+            jac = torch.einsum("...fd,sf->...sd", Jth, C)
+        return (pred_core(params, x, u), jac[..., :ds].contiguous(),
+                jac[..., ds:].contiguous())
+
+    pred_diff.all_points = True
+    return pred_diff
+
+
 def make_ilqr_solver(
     pred_core,
     cost,
@@ -1070,17 +1220,17 @@ def make_ilqr_solver(
     failed search that worsens the objective by at most 1e-3 is still
     taken). ``pred_diff`` is the model's closed-form Jacobian, batched
     over every leading axis; without one the model is differentiated by
-    ``jacfwd_pred_diff``. ``backward="assoc"`` (the associative-scan
-    Riccati pass) raises; ``unroll`` is a JAX scan option and is
-    ignored.
+    ``jacfwd_pred_diff``. ``backward``: "scan" (the sequential Riccati
+    recursion) or "assoc" (``ops/riccati.py::tvlqr_backward_assoc``,
+    O(log H) depth); any other value takes "scan", as in the JAX
+    package. ``unroll`` is a JAX scan option and is ignored.
     """
     del unroll
-    if backward == "assoc":
-        raise _unsupported('backward="assoc" (the associative-scan Riccati pass)')
     solve_b = make_batched_ilqr_solver(
         pred_core, cost, H=H, ds=ds, dc=dc, obsdim=obsdim, dt=dt, ubounds=ubounds,
         u_threshold=u_threshold, max_iter=max_iter, ls_max_iter=ls_max_iter,
-        ls_discount=ls_discount, ls_cost_threshold=ls_cost_threshold, backward="scan",
+        ls_discount=ls_discount, ls_cost_threshold=ls_cost_threshold,
+        backward="assoc" if backward == "assoc" else "scan",
         pred_diff=pred_diff or jacfwd_pred_diff(pred_core, ds),
     )
 
@@ -1181,6 +1331,14 @@ class IterativeLQR(Controller):
             step_count=0,
             need_recompute=True,
         )
+
+    def compute_ilqr(self, state, uguess, **kwargs):
+        """One solve from ``state`` with the control guess ``uguess``
+        (H, dc): ``(converged, states (H+1, ds), ctrls (H, dc), Ks, ks)``,
+        the reference's one-shot API."""
+        del kwargs
+        return self._solve(self._model_params, torch.as_tensor(state, device=self.device),
+                           torch.as_tensor(uguess, device=self.device))
 
     def step(self, cstate, new_obs):
         params = self._model_params

@@ -24,10 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import NotPortedError
 from ..config import ConfigurationSpace, UniformIntegerHyperparameter
 from ..costs.lane_costs import DiagQuadLanes, SharedCost
-from ..ops.trajqp import qp_backward, qp_forward
+from ..ops.trajqp import qp_backward, qp_backward_assoc, qp_forward
 from ..sysid.model import model_device
 from .controller import Controller, ControllerFactory
 from .ilqr import jacfwd_pred_diff
@@ -100,14 +99,10 @@ def make_sqp_solver(
     knot state but the first (its weight is 0), infinite entries
     inactive (replaced by -+1e9); the multipliers update every
     ``xbound_lam_every``-th iteration. ``ubounds`` None clips nothing.
-    ``backward="assoc"`` (the associative-scan factorization) raises.
+    ``backward``: "scan" (the sequential factorization) or "assoc"
+    (``qp_backward_assoc``, O(log H) depth: the long-horizon option).
     """
-    if backward == "assoc":
-        raise NotPortedError(
-            'backward="assoc" (qp_backward_assoc, the associative-scan trajectory-QP '
-            "factorization) is not ported to autompc_torch yet; use backward=\"scan\""
-        )
-    if backward != "scan":
+    if backward not in ("scan", "assoc"):
         raise ValueError(f"backward must be 'scan' or 'assoc', got {backward!r}")
     if reg_matrix is not None and not quad_cost_batch:
         raise ValueError("reg_matrix requires quad_cost_batch=True")
@@ -213,7 +208,8 @@ def make_sqp_solver(
         d_seq = defects(params, xs, us)
         Cxx, Cuu, cx, cu, Vf, vf = expansions(lc, xs, us, lam, c)
         Cux = xs.new_zeros(us.shape[:2] + (dc, ds))
-        Ks, ks, _, _ = qp_backward(A_seq, B_seq, Cxx, Cuu, Cux, cx, cu, d_seq, Vf, vf, reg)
+        factor = qp_backward_assoc if backward == "assoc" else qp_backward
+        Ks, ks, _, _ = factor(A_seq, B_seq, Cxx, Cuu, Cux, cx, cu, d_seq, Vf, vf, reg)
         merit0 = merit(params, lc, xs, us, lam, c, d_seq)
         # Every step size at once: candidates (B, L, ...).
         dxs, dus = qp_forward(A_seq, B_seq, d_seq, Ks, ks, alpha=c["alphas"])

@@ -68,9 +68,16 @@
 // length: the simple form, left for a later redesign. REG adds the
 // GaussReg term (ls_step.cuh: RegParams, S and mu shared as a kernel
 // parameter, the weight a per-lane vector regw (B,)) to every candidate's
-// stage cost. With both switches off the kernel is the lanes-last one as
-// it was; the trailing parameters (R, regw, out_ju) are read by the BM
-// and REG instances only.
+// stage cost. DENSE (batch-major only; ampc_fused_line_search_bm_dense,
+// the TPU entry's per_lane_diag_cost=False with a Q or F that is not
+// diagonal): one fixed dense cost for every lane, Q and F (obsdim x
+// obsdim, row-major, passed in place of the qdT and fdT planes) staged in
+// shared memory, R (dc = 1) in LSParams, each quadratic form summed over
+// all obsdim^2 terms (ls_dense_form). A BM launch whose out_jac is null
+// writes no Jacobians (the solver's relin="xla", whose relinearization is
+// not the kernel's). With the switches off the kernel is the lanes-last
+// one as it was; the trailing parameters (R, regw, out_ju) are read by
+// the BM and REG instances only.
 #include "ls_step.cuh"
 
 // TA: FeatTable (shared coefficients, staged in shared memory) or
@@ -79,7 +86,7 @@
 // device memory, trees of S slots). An instance with the large trees may
 // take twice the registers (one block of 256 threads an SM).
 template <int DS, bool LANE_COST, typename JT, class TA = FeatTable, bool BM = false,
-          bool REG = false>
+          bool REG = false, bool DENSE = false>
 __global__ void __launch_bounds__(
     AMPC_LS_MAX_THREADS, AmpcTableTraits<TA>::slots == AMPC_TREE_SLOTS ? 2 : 1)
     fused_ls_kernel(const __grid_constant__ TA T,
@@ -104,6 +111,16 @@ __global__ void __launch_bounds__(
   __shared__ float s_obj[AMPC_LS_MAX_THREADS];
   __shared__ float s_du2[AMPC_LS_MAX_THREADS];
   __shared__ int s_pick[AMPC_LS_MAX_THREADS];
+  __shared__ float s_dense[2 * AMPC_MAX_OBS * AMPC_MAX_OBS];
+  if constexpr (DENSE) {
+    // The fixed dense cost: Q (qdT) then F (fdT), obsdim^2 floats each.
+    const int nn = P.obsdim * P.obsdim;
+    for (int i = threadIdx.x; i < nn; i += blockDim.x) {
+      s_dense[i] = qdT[i];
+      s_dense[nn + i] = fdT[i];
+    }
+    if constexpr (LANE) __syncthreads();
+  }
   if constexpr (!LANE) ampc_load_coef(s_coef, coeffs, DS * T.n);
   const int L = P.L;
   const int NL = blockDim.x / L;
@@ -119,13 +136,13 @@ __global__ void __launch_bounds__(
   float obj = 0.f, du2 = 0.f;
   if (valid) {
     if constexpr (LANE)
-      ls_candidate_cv<DS, LANE_COST, S, BM, REG>(
+      ls_candidate_cv<DS, LANE_COST, S, BM, REG, DENSE>(
           ampc_table(T), CoefLane{coeffs + b, T.n, B}, P, x0T, xsT, usT, KsT, ksT,
-          qdT, rdT, fdT, stash, l, H, B, b, x0, obj, du2, &R, regw);
+          qdT, rdT, fdT, stash, l, H, B, b, x0, obj, du2, &R, regw, s_dense);
     else
-      ls_candidate<DS, LANE_COST, BM, REG>(T, s_coef, P, x0T, xsT, usT, KsT, ksT, qdT,
-                                           rdT, fdT, stash, l, H, B, b, x0, obj, du2,
-                                           &R, regw);
+      ls_candidate<DS, LANE_COST, BM, REG, DENSE>(T, s_coef, P, x0T, xsT, usT, KsT, ksT,
+                                                  qdT, rdT, fdT, stash, l, H, B, b, x0,
+                                                  obj, du2, &R, regw, s_dense);
   }
   s_obj[threadIdx.x] = obj;
   s_du2[threadIdx.x] = du2;
@@ -211,6 +228,7 @@ __global__ void __launch_bounds__(
 #pragma unroll
       for (int i = 0; i < DS; ++i) out_xs[(bt + b + 1) * DS + i] = row[i * LB];
       out_us[bt] = z[DS];
+      if (out_jac == nullptr) continue;  // relin="xla": no Jacobians
 #pragma unroll
       for (int dd = 0; dd < D; ++dd) {
         float col[DS];
@@ -282,7 +300,8 @@ __global__ void __launch_bounds__(
 #define AMPC_LS_MAIN_LIBRARY
 #endif
 
-template <bool LANE_COST, typename JT, class TA, bool BM = false, bool REG = false>
+template <bool LANE_COST, typename JT, class TA, bool BM = false, bool REG = false,
+          bool DENSE = false>
 static void launch(const TA& T, const LSParams* P,
                    const float* coeffs, const float* x0T, const float* xsT,
                    const float* usT, const float* KsT, const float* ksT,
@@ -298,7 +317,7 @@ static void launch(const TA& T, const LSParams* P,
   const int threads = lanes_per_block * P->L;
   const unsigned blocks = (unsigned)((B + lanes_per_block - 1) / lanes_per_block);
   const RegParams none = {};
-  fused_ls_kernel<AMPC_DS, LANE_COST, JT, TA, BM, REG><<<blocks, threads, 0, s>>>(
+  fused_ls_kernel<AMPC_DS, LANE_COST, JT, TA, BM, REG, DENSE><<<blocks, threads, 0, s>>>(
       T, *P, coeffs, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT, obj0, lin,
       quad, ks_small, act, (const JT*)old_jac, stash, out_xs, out_us, out_obj,
       out_succ, out_fail, (JT*)out_jac, out_du2, H, B, R ? *R : none, regw, out_ju);
@@ -386,9 +405,10 @@ extern "C" int ampc_fused_line_search_lane(
 
 // The batch-major entry (BM): x0 (B, ds), xs (B, H+1, ds), us (B, H),
 // Ks (B, H, ds), ks (B, H) in; out_xs (B, H+1, ds), out_us (B, H), obj,
-// success, failure, du2, out_jx (B, H, ds, ds) and out_ju (B, H, ds), no
-// carry select; per-lane cost planes qdT/fdT (obsdim, B), rdT (1, B). R
-// and regw (B,) both set: the GaussReg instance (REG), both null: none.
+// success, failure, du2, out_jx (B, H, ds, ds) and out_ju (B, H, ds) (both
+// null: no Jacobians), no carry select; per-lane cost planes qdT/fdT
+// (obsdim, B), rdT (1, B). R and regw (B,) both set: the GaussReg instance
+// (REG), both null: none.
 extern "C" int ampc_fused_line_search_bm(
     const FeatTable* T, const LSParams* P, const RegParams* R, const float* coeffs,
     const float* x0, const float* xs, const float* us, const float* Ks,
@@ -400,7 +420,8 @@ extern "C" int ampc_fused_line_search_bm(
     int lanes_per_block, int device, void* stream) {
   const int rc = fused_check(T->n, AMPC_MAX_F, P, ds, H, B, lanes_per_block, device);
   if (rc) return rc;
-  if (T->d != ds + 1 || !qdT || !rdT || !fdT || (R != nullptr) != (regw != nullptr))
+  if (T->d != ds + 1 || !qdT || !rdT || !fdT || (R != nullptr) != (regw != nullptr) ||
+      (out_jx != nullptr) != (out_ju != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define AMPC_LAUNCH(REG_)                                                      \
@@ -417,8 +438,9 @@ extern "C" int ampc_fused_line_search_bm(
 }
 
 // The batch-major entry with per-lane coefficients (a lanes-last (ds, n, B)
-// plane, the device table Tdev of n <= AMPC_MAX_F terms, trees of
-// AMPC_TREE_SLOTS slots).
+// plane, the device table Tdev of n <= AMPC_MAX_F_BIG terms: trees of
+// AMPC_TREE_SLOTS slots up to AMPC_MAX_F terms, else AMPC_TREE_SLOTS_BIG,
+// as the lanes-last entry's).
 extern "C" int ampc_fused_line_search_bm_lane(
     const FeatTableBig* Tdev, int n, const LSParams* P, const RegParams* R,
     const float* coeffs, const float* x0, const float* xs, const float* us,
@@ -428,21 +450,67 @@ extern "C" int ampc_fused_line_search_bm_lane(
     float* out_us, float* out_obj, uint8_t* out_succ, uint8_t* out_fail,
     float* out_jx, float* out_ju, float* out_du2, int ds, int H, int B,
     int lanes_per_block, int device, void* stream) {
-  const int rc = fused_check(n, AMPC_MAX_F, P, ds, H, B, lanes_per_block, device);
+  const int rc = fused_check(n, AMPC_MAX_F_BIG, P, ds, H, B, lanes_per_block, device);
   if (rc) return rc;
-  if (!qdT || !rdT || !fdT || (R != nullptr) != (regw != nullptr))
+  if (!qdT || !rdT || !fdT || (R != nullptr) != (regw != nullptr) ||
+      (out_jx != nullptr) != (out_ju != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define AMPC_LAUNCH(REG_)                                                      \
-  launch<true, float, FeatTableRef<AMPC_TREE_SLOTS>, true, REG_>(               \
-      FeatTableRef<AMPC_TREE_SLOTS>{Tdev, n}, P, coeffs, x0, xs, us, Ks, ks, qdT, \
-      rdT, fdT, obj0, lin, quad, ks_small, nullptr, nullptr, stash, out_xs,      \
-      out_us, out_obj, out_succ, out_fail, out_jx, out_du2, H, B,                \
-      lanes_per_block, s, R, regw, out_ju)
-  if (R)
-    AMPC_LAUNCH(true);
+#define AMPC_LAUNCH(S_, REG_)                                                  \
+  launch<true, float, FeatTableRef<S_>, true, REG_>(                            \
+      FeatTableRef<S_>{Tdev, n}, P, coeffs, x0, xs, us, Ks, ks, qdT, rdT, fdT,   \
+      obj0, lin, quad, ks_small, nullptr, nullptr, stash, out_xs, out_us,        \
+      out_obj, out_succ, out_fail, out_jx, out_du2, H, B, lanes_per_block, s, R, \
+      regw, out_ju)
+  if (n <= AMPC_MAX_F) {
+    if (R)
+      AMPC_LAUNCH(AMPC_TREE_SLOTS, true);
+    else
+      AMPC_LAUNCH(AMPC_TREE_SLOTS, false);
+  } else {
+    if (R)
+      AMPC_LAUNCH(AMPC_TREE_SLOTS_BIG, true);
+    else
+      AMPC_LAUNCH(AMPC_TREE_SLOTS_BIG, false);
+  }
+#undef AMPC_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// The batch-major entry under one fixed dense cost (DENSE): Q and F
+// (obsdim x obsdim, row-major, device memory) for every lane, R in P; no
+// per-lane planes and no GaussReg term. Tdev null: shared coefficients
+// and the table T by value; else per-lane coefficients, the device table
+// Tdev of n terms (trees as ampc_fused_line_search_bm_lane's).
+extern "C" int ampc_fused_line_search_bm_dense(
+    const FeatTable* T, const FeatTableBig* Tdev, int n, const LSParams* P,
+    const float* Q, const float* F, const float* coeffs, const float* x0,
+    const float* xs, const float* us, const float* Ks, const float* ks,
+    const float* obj0, const float* lin, const float* quad,
+    const uint8_t* ks_small, float* stash, float* out_xs, float* out_us,
+    float* out_obj, uint8_t* out_succ, uint8_t* out_fail, float* out_jx,
+    float* out_ju, float* out_du2, int ds, int H, int B, int lanes_per_block,
+    int device, void* stream) {
+  const bool lane = Tdev != nullptr;
+  const int rc = fused_check(lane ? n : T->n, lane ? AMPC_MAX_F_BIG : AMPC_MAX_F, P, ds,
+                             H, B, lanes_per_block, device);
+  if (rc) return rc;
+  if (!Q || !F || (!lane && T->d != ds + 1) || (out_jx != nullptr) != (out_ju != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define AMPC_LAUNCH(TA_, T_)                                                   \
+  launch<false, float, TA_, true, false, true>(                                 \
+      T_, P, coeffs, x0, xs, us, Ks, ks, Q, nullptr, F, obj0, lin, quad,         \
+      ks_small, nullptr, nullptr, stash, out_xs, out_us, out_obj, out_succ,      \
+      out_fail, out_jx, out_du2, H, B, lanes_per_block, s, nullptr, nullptr,     \
+      out_ju)
+  if (!lane)
+    AMPC_LAUNCH(FeatTable, *T);
+  else if (n <= AMPC_MAX_F)
+    AMPC_LAUNCH(FeatTableRef<AMPC_TREE_SLOTS>, (FeatTableRef<AMPC_TREE_SLOTS>{Tdev, n}));
   else
-    AMPC_LAUNCH(false);
+    AMPC_LAUNCH(FeatTableRef<AMPC_TREE_SLOTS_BIG>,
+                (FeatTableRef<AMPC_TREE_SLOTS_BIG>{Tdev, n}));
 #undef AMPC_LAUNCH
   return (int)cudaGetLastError();
 }
@@ -450,17 +518,21 @@ extern "C" int ampc_fused_line_search_bm_lane(
 #ifdef AMPC_LS_MAIN_LIBRARY
 // The batch-major instances' registers, local bytes and resident blocks
 // an SM at `threads` a block (out[0..2]): shared (lane_coef 0) or per-lane
-// (1) coefficients, without (reg 0) or with (1) the GaussReg term.
+// coefficients with the small (1) or the large (2) trees; per-lane cost
+// planes without (reg 0) or with (1) the GaussReg term, or the fixed
+// dense cost (reg 2).
 extern "C" int ampc_fused_line_search_bm_occupancy(int lane_coef, int reg, int threads,
                                                    int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   typedef FeatTableRef<AMPC_TREE_SLOTS> Ref;
-  const void* f =
-      lane_coef ? (reg ? (const void*)fused_ls_kernel<4, true, float, Ref, true, true>
-                       : (const void*)fused_ls_kernel<4, true, float, Ref, true, false>)
-                : (reg ? (const void*)fused_ls_kernel<4, true, float, FeatTable, true, true>
-                       : (const void*)fused_ls_kernel<4, true, float, FeatTable, true, false>);
+  typedef FeatTableRef<AMPC_TREE_SLOTS_BIG> RefBig;
+#define AMPC_BM(TA_)                                                          \
+  (reg == 2   ? (const void*)fused_ls_kernel<4, false, float, TA_, true, false, true> \
+   : reg == 1 ? (const void*)fused_ls_kernel<4, true, float, TA_, true, true>          \
+              : (const void*)fused_ls_kernel<4, true, float, TA_, true, false>)
+  const void* f = lane_coef == 2 ? AMPC_BM(RefBig) : lane_coef ? AMPC_BM(Ref) : AMPC_BM(FeatTable);
+#undef AMPC_BM
   cudaFuncAttributes a;
   err = cudaFuncGetAttributes(&a, f);
   if (err != cudaSuccess) return (int)err;

@@ -18,9 +18,11 @@
 //
 // The fused kernel also rolls the batch-major carry (BM: x0 (B, ds), xs
 // (B, H+1, ds), us/ks (B, H), Ks (B, H, ds), the TPU entry's
-// ll_io=False) and adds the GaussReg stage term (REG, ls_reg_form); both
-// are template switches that leave the lanes-last, no-reg instances'
-// code as it was.
+// ll_io=False), adds the GaussReg stage term (REG, ls_reg_form) and takes
+// one fixed dense cost (DENSE, ls_dense_form: the TPU entry's
+// per_lane_diag_cost=False with a Q or F that is not diagonal); all are
+// template switches that leave the lanes-last, no-reg instances' code as
+// it was.
 //
 // Orders follow autompc_tpu/ops/pallas_linesearch.py (_fused_kernel,
 // _ls_obj_kernel_wide, _ls_reroll_kernel_wide): the feedback sum and the
@@ -96,6 +98,33 @@ __device__ __forceinline__ float ls_quad_form(const LSParams& P,
   return acc.total(P.obsdim);
 }
 
+// (x - g)' M (x - g) for a dense M (obsdim x obsdim, row-major, in shared
+// memory): the terms (M_ij (x_i - g_i)) (x_j - g_j) over every (i, j) in
+// row order, each product rounded on its own, into the balanced tree (the
+// TPU kernel's quad_form of a full matrix).
+template <int DS>
+__device__ __forceinline__ float ls_dense_form(const LSParams& P,
+                                               const float (&x)[DS],
+                                               const float* M) {
+  TreeAcc acc;
+  int k = 0;
+#pragma unroll
+  for (int i = 0; i < DS; ++i) {
+    if (i < P.obsdim) {
+      const float di = x[i] - P.goal[i];
+#pragma unroll
+      for (int j = 0; j < DS; ++j) {
+        if (j < P.obsdim) {
+          const float dj = x[j] - P.goal[j];
+          acc.push(__fmul_rn(__fmul_rn(M[i * P.obsdim + j], di), dj), k);
+          ++k;
+        }
+      }
+    }
+  }
+  return acc.total(k);
+}
+
 // (x - mu)' S (x - mu) over the obs dims: the terms cS_ij (x_i - mu_i)
 // (x_j - mu_j) for i <= j in row order, each product rounded on its own,
 // into the balanced tree (the TPU kernel's reg_terms and _tree_sum).
@@ -166,8 +195,8 @@ __device__ __forceinline__ void ls_load_row_bm(const float* xs,
 // feature sum over a tree of S slots. REG adds rw times the GaussReg form
 // to the state cost, oc + rw r as the TPU kernel adds it, rounded on its
 // own: with rw = 0 the state cost, and so the objective, is the no-reg
-// instance's to the bit.
-template <int DS, int S, bool REG = false, class TT, class CV>
+// instance's to the bit. DENSE: wq is the dense Q (ls_dense_form).
+template <int DS, int S, bool REG = false, bool DENSE = false, class TT, class CV>
 __device__ __forceinline__ float ls_obj_step_cv(
     const TT& T, CV cv, const LSParams& P, float (&x)[DS],
     const float (&xbar)[DS], const float (&K)[DS], float ubar, float kk,
@@ -175,7 +204,7 @@ __device__ __forceinline__ float ls_obj_step_cv(
     const RegParams* R = nullptr, float rw = 0.f) {
   constexpr int D = DS + 1;
   const float u = ls_control<DS>(P, x, xbar, K, ubar, kk, alpha);
-  float oc = ls_quad_form<DS>(P, x, wq);
+  float oc = DENSE ? ls_dense_form<DS>(P, x, wq) : ls_quad_form<DS>(P, x, wq);
   if constexpr (REG) oc = __fadd_rn(oc, __fmul_rn(rw, ls_reg_form<DS>(P, *R, x)));
   const float cc = rd * u * u;
   obj = obj + P.dt * (oc + cc);
@@ -195,9 +224,11 @@ __device__ __forceinline__ float ls_obj_step_cv(
 // fdT (obsdim, B), LANE_COST) or P's constants; the coefficients come
 // from cv, the feature sums over trees of S slots. BM: the carry is
 // batch-major (x0T (B, DS), ls_load_row_bm); REG: the GaussReg term with
-// R and the lane's weight regw[b].
-template <int DS, bool LANE_COST, int S, bool BM = false, bool REG = false, class TT,
-          class CV>
+// R and the lane's weight regw[b]; DENSE: the fixed dense cost, Q at
+// dense[0 .. obsdim^2) and F after it (row-major, in shared memory), R in
+// P.rd.
+template <int DS, bool LANE_COST, int S, bool BM = false, bool REG = false,
+          bool DENSE = false, class TT, class CV>
 __device__ __forceinline__ void ls_candidate_cv(
     const TT& T, CV cv, const LSParams& P,
     const float* __restrict__ x0T, const float* __restrict__ xsT,
@@ -205,7 +236,8 @@ __device__ __forceinline__ void ls_candidate_cv(
     const float* __restrict__ ksT, const float* __restrict__ qdT,
     const float* __restrict__ rdT, const float* __restrict__ fdT,
     float* stash, int l, int H, int B, int b, float (&x0)[DS], float& obj,
-    float& du2, const RegParams* R = nullptr, const float* __restrict__ regw = nullptr) {
+    float& du2, const RegParams* R = nullptr, const float* __restrict__ regw = nullptr,
+    const float* dense = nullptr) {
   constexpr int D = DS + 1;
   const long long LB = (long long)P.L * B;
   float x[DS];
@@ -224,7 +256,7 @@ __device__ __forceinline__ void ls_candidate_cv(
       q_lane[i] = i < P.obsdim ? qdT[(long long)i * B + b] : 0.f;
     rd = rdT[b];
   }
-  const float* wq = LANE_COST ? q_lane : P.qd;
+  const float* wq = DENSE ? dense : (LANE_COST ? q_lane : P.qd);
   const float alpha = P.alphas[l];
   float* st = stash + (long long)l * B + b;
   for (int t = 0; t < H; ++t) {
@@ -233,8 +265,8 @@ __device__ __forceinline__ void ls_candidate_cv(
       ls_load_row_bm<DS>(xsT, usT, KsT, ksT, t, H, b, xbar, K, ubar, kk);
     else
       ls_load_row<DS>(xsT, usT, KsT, ksT, t, B, b, xbar, K, ubar, kk);
-    const float u = ls_obj_step_cv<DS, S, REG>(T, cv, P, x, xbar, K, ubar, kk, alpha,
-                                               wq, rd, obj, R, rw);
+    const float u = ls_obj_step_cv<DS, S, REG, DENSE>(T, cv, P, x, xbar, K, ubar, kk,
+                                                      alpha, wq, rd, obj, R, rw);
     const float du = u - ubar;
     du2 = du2 + du * du;
     float* row = st + (long long)t * D * LB;
@@ -249,12 +281,16 @@ __device__ __forceinline__ void ls_candidate_cv(
     for (int i = 0; i < DS; ++i)
       f_lane[i] = i < P.obsdim ? fdT[(long long)i * B + b] : 0.f;
   }
-  const float* wf = LANE_COST ? f_lane : P.fd;
-  obj = obj + ls_quad_form<DS>(P, x, wf);
+  if constexpr (DENSE) {
+    obj = obj + ls_dense_form<DS>(P, x, dense + P.obsdim * P.obsdim);
+  } else {
+    const float* wf = LANE_COST ? f_lane : P.fd;
+    obj = obj + ls_quad_form<DS>(P, x, wf);
+  }
 }
 
 // ls_candidate_cv with one shared (DS, n) coefficient plane (s_coef).
-template <int DS, bool LANE_COST, bool BM = false, bool REG = false>
+template <int DS, bool LANE_COST, bool BM = false, bool REG = false, bool DENSE = false>
 __device__ __forceinline__ void ls_candidate(
     const FeatTable& T, const float* s_coef, const LSParams& P,
     const float* __restrict__ x0T, const float* __restrict__ xsT,
@@ -262,8 +298,9 @@ __device__ __forceinline__ void ls_candidate(
     const float* __restrict__ ksT, const float* __restrict__ qdT,
     const float* __restrict__ rdT, const float* __restrict__ fdT,
     float* stash, int l, int H, int B, int b, float (&x0)[DS], float& obj,
-    float& du2, const RegParams* R = nullptr, const float* __restrict__ regw = nullptr) {
-  ls_candidate_cv<DS, LANE_COST, AMPC_TREE_SLOTS, BM, REG>(
+    float& du2, const RegParams* R = nullptr, const float* __restrict__ regw = nullptr,
+    const float* dense = nullptr) {
+  ls_candidate_cv<DS, LANE_COST, AMPC_TREE_SLOTS, BM, REG, DENSE>(
       T, CoefShared{s_coef, T.n}, P, x0T, xsT, usT, KsT, ksT, qdT, rdT, fdT,
-      stash, l, H, B, b, x0, obj, du2, R, regw);
+      stash, l, H, B, b, x0, obj, du2, R, regw, dense);
 }

@@ -3,8 +3,8 @@
 // Replaces the Pallas TPU kernels of
 // autompc_tpu/ops/pallas_mlp_linesearch.py: _mlp_ls_kernel (slab),
 // _mlp_ls_kernel_feat and _mlp_ls_kernel_mxu, which are one function in
-// three TPU data layouts, at precision "highest". For each lane b and step
-// size l, from x = x0, for t = 0 .. H-1:
+// three TPU data layouts. For each lane b and step size l, from x = x0,
+// for t = 0 .. H-1:
 //   u = clip(alpha_l k_t + ubar_t + K_t (x - xbar_t), umin, umax)
 //   x <- x + net([x; u])
 // with net a plain stack (hidden layers act(z W + b), linear head; the
@@ -17,7 +17,23 @@
 // rollout-step at 24-64-64-18, 27.8 GFLOP at B = 1024, L = 10, H = 200:
 // ~0.4 ms at the f32 FMA rate) against ~285 MB of gains in and
 // trajectories out. Products are plain f32 FMAs: TF32 or split-bf16 tensor
-// core products cost lanes their convergence. Design:
+// core products cost lanes their convergence.
+//
+// The TPU kernel's matmul precision is a template switch PREC:
+//   0 "highest"  true f32 products (the instance as it was);
+//   1 "default"  one bf16 pass: each product's operands rounded to bf16
+//                (__float2bfloat16_rn; the weights by the wrapper, the
+//                activations here) and summed in f32, but for the first
+//                layer's inputs from P.round0 on (the mxu layout's control
+//                rows, which the TPU kernel multiplies in f32; the wrapper
+//                takes the slab layout's "default" as "highest");
+//   2 "bf16x3"   _mlp_ls_kernel_feat3's split: weights hi/lo by the
+//                wrapper (a second copy of the weight block in shared
+//                memory), activations split here, hi.hi + (hi.lo + lo.hi)
+//                with each of the three sums in f32 over the inputs.
+// A product of two bf16 values is exact in f32, so the f32 FMA of the
+// rounded operands is the TPU's bf16 MXU product with f32 accumulation;
+// tensor-core mma on bf16 tiles would be the fast form. Design:
 //   - A block takes a tile of R = NL x L rollouts (NL lanes, all their step
 //     sizes, up to 40 rollouts; NL and the threads from the wrapper's
 //     mlp_geometry: at B = 1024, 20 rollouts and 160 threads a block, four
@@ -42,6 +58,7 @@
 //     the warps of one cover the barriers of another.
 //   - Step t + 1's gains, xbar, ubar and k are copied into a second shared
 //     buffer by cp.async while step t computes.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,6 +74,8 @@ struct MlpLS {
   int widths[AMPC_MLP_MAX_LAYERS + 1];
   int act;  // 0 relu, 1 tanh, 2 sigmoid, 3 selu
   int ds, dc, L;
+  int round0;  // PREC 1: the first layer's inputs rounded to bf16 (the
+               // mxu layout's ds state rows; the rest multiply in f32)
   float alphas[AMPC_MLP_MAX_L];
   float umin[AMPC_MLP_MAX_DC];
   float umax[AMPC_MLP_MAX_DC];
@@ -64,14 +83,15 @@ struct MlpLS {
 
 __host__ __device__ inline int r4(int n) { return (n + 3) & ~3; }
 
-// Shared memory of a block of nl lanes, in floats: the padded weights,
-// the activations z ((ds + dc) x RP), two hidden buffers (max width x RP)
-// and the staged step inputs (two buffers of nl x r4(nin)).
+// Shared memory of a block of nl lanes, in floats: the padded weights
+// (wtot; for bf16x3 the hi block, then the lo block at S.wlo), the
+// activations z ((ds + dc) x RP), two hidden buffers (max width x RP) and
+// the staged step inputs (two buffers of nl x r4(nin)).
 struct MlpSmem {
-  int rp, nin, w, z, h, in, total;
+  int rp, nin, w, wlo, z, h, in, total;
 };
 
-__host__ __device__ inline MlpSmem mlp_smem(const MlpLS& P, int nl) {
+__host__ __device__ inline MlpSmem mlp_smem(const MlpLS& P, int nl, int prec) {
   MlpSmem S;
   S.rp = r4(nl * P.L);
   S.nin = P.dc * P.ds + P.ds + 2 * P.dc;
@@ -81,7 +101,8 @@ __host__ __device__ inline MlpSmem mlp_smem(const MlpLS& P, int nl) {
     maxw = P.widths[li + 1] > maxw ? P.widths[li + 1] : maxw;
   }
   S.w = 0;
-  S.z = S.w + wtot;
+  S.wlo = S.w + wtot;
+  S.z = S.wlo + (prec == 2 ? wtot : 0);
   S.h = S.z + (P.ds + P.dc) * S.rp;
   S.in = S.h + 2 * maxw * S.rp;
   S.total = S.in + 2 * nl * r4(S.nin);
@@ -131,36 +152,82 @@ __device__ __forceinline__ void mlp_store(float* p, const float (&v)[N]) {
     p[0] = v[0];
 }
 
+__device__ __forceinline__ float mlp_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // One layer over the block's rollouts, out[k][r] = act(sum_c in[c][r]
 // W[c][k] + b[k]), in register tiles of TR rollouts x TU units: per input
 // c one TR-vector of activations and one TU-vector of weights feed TR x TU
 // FMAs. Each output sums c = 0 .. n_in-1 into 0, then adds the bias,
 // whatever the tile. A warp's tiles run along the rollouts, so its stores
-// of a unit's row are consecutive.
-template <int TR, int TU>
+// of a unit's row are consecutive. PREC 1 rounds inputs c < nr to bf16
+// (the wrapper rounded their weights; the rest multiply in f32); PREC 2 splits each activation into
+// bf16 hi and lo and keeps three sums, hi.Whi, lo.Whi and hi.Wlo (Wlo: the
+// lo weights, at the same offsets as Wl's), then hh + (hl + lh).
+template <int TR, int TU, int PREC>
 __device__ __forceinline__ void mlp_layer(const float* in, const float* Wl,
-                                          float* out, int n_in, int n_out,
-                                          int nop, int RP, bool last, int act,
-                                          int tid, int nt) {
+                                          const float* Wlo, float* out, int n_in,
+                                          int nr, int n_out, int nop, int RP, bool last,
+                                          int act, int tid, int nt) {
   const int nrg = RP / TR, nug = (n_out + TU - 1) / TU;
   for (int tile = tid; tile < nrg * nug; tile += nt) {
     const int ug = tile / nrg, rg = tile - ug * nrg;
     const float* ap = in + TR * rg;
     const float* wp = Wl + TU * ug;
+    const float* wq = Wlo + TU * ug;
     float acc[TR][TU];
+    float acc_hl[PREC == 2 ? TR : 1][PREC == 2 ? TU : 1];
+    float acc_lh[PREC == 2 ? TR : 1][PREC == 2 ? TU : 1];
 #pragma unroll
     for (int a = 0; a < TR; ++a)
 #pragma unroll
       for (int k = 0; k < TU; ++k) acc[a][k] = 0.f;
+    if constexpr (PREC == 2) {
+#pragma unroll
+      for (int a = 0; a < TR; ++a)
+#pragma unroll
+        for (int k = 0; k < TU; ++k) acc_hl[a][k] = acc_lh[a][k] = 0.f;
+    }
 #pragma unroll 4
     for (int c = 0; c < n_in; ++c) {
       float av[TR], wv[TU];
       mlp_load<TR>(ap + c * RP, av);
       mlp_load<TU>(wp + c * nop, wv);
+      if constexpr (PREC == 0) {
+#pragma unroll
+        for (int a = 0; a < TR; ++a)
+#pragma unroll
+          for (int k = 0; k < TU; ++k) acc[a][k] = acc[a][k] + av[a] * wv[k];
+      } else if constexpr (PREC == 1) {
+#pragma unroll
+        for (int a = 0; a < TR; ++a) {
+          const float ab = c < nr ? mlp_bf16(av[a]) : av[a];
+#pragma unroll
+          for (int k = 0; k < TU; ++k) acc[a][k] = acc[a][k] + ab * wv[k];
+        }
+      } else {
+        float wl[TU];
+        mlp_load<TU>(wq + c * nop, wl);
+#pragma unroll
+        for (int a = 0; a < TR; ++a) {
+          const float hi = mlp_bf16(av[a]);
+          const float lo = mlp_bf16(av[a] - hi);
+#pragma unroll
+          for (int k = 0; k < TU; ++k) {
+            acc[a][k] = acc[a][k] + hi * wv[k];
+            acc_hl[a][k] = acc_hl[a][k] + lo * wv[k];
+            acc_lh[a][k] = acc_lh[a][k] + hi * wl[k];
+          }
+        }
+      }
+    }
+    if constexpr (PREC == 2) {
 #pragma unroll
       for (int a = 0; a < TR; ++a)
 #pragma unroll
-        for (int k = 0; k < TU; ++k) acc[a][k] = acc[a][k] + av[a] * wv[k];
+        for (int k = 0; k < TU; ++k)
+          acc[a][k] = acc[a][k] + (acc_hl[a][k] + acc_lh[a][k]);
     }
     float bv[TU];
     mlp_load<TU>(wp + n_in * nop, bv);
@@ -179,6 +246,7 @@ __device__ __forceinline__ void mlp_layer(const float* in, const float* Wl,
   }
 }
 
+template <int PREC>
 __global__ void __launch_bounds__(AMPC_MLP_MAX_THREADS, 2) mlp_ls_kernel(
     const __grid_constant__ MlpLS P, const float* __restrict__ weights,
     const float* __restrict__ x0, const float* __restrict__ xs,
@@ -188,30 +256,35 @@ __global__ void __launch_bounds__(AMPC_MLP_MAX_THREADS, 2) mlp_ls_kernel(
   extern __shared__ __align__(16) float smem[];
   const int ds = P.ds, dc = P.dc, L = P.L;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const MlpSmem S = mlp_smem(P, nl);
+  const MlpSmem S = mlp_smem(P, nl, PREC);
   const int R = nl * L, RP = S.rp, nin = S.nin, NINP = r4(nin);
   const long long lane0 = (long long)blockIdx.x * nl;
   const long long g0 = lane0 * L, G = (long long)B * L;
   float* sW = smem + S.w;
+  float* sWlo = smem + S.wlo;
   float* z = smem + S.z;
   float* hA = smem + S.h;
   float* hB = hA + (S.in - S.h) / 2;
   float* sIn = smem + S.in;
 
   // Weights, each layer's (n_in + 1) x n_out block (bias row last) with
-  // its columns padded to r4(n_out) by zeros.
+  // its columns padded to r4(n_out) by zeros; for bf16x3 the lo parts'
+  // blocks after the hi parts' in `weights`, into sWlo.
   {
     float* dst = sW;
     const float* src = weights;
-    for (int li = 0; li < P.n_layers; ++li) {
-      const int n_in = P.widths[li], n_out = P.widths[li + 1], nop = r4(n_out);
-      const int cnt = (n_in + 1) * nop;
-      for (int i = tid; i < cnt; i += nt) {
-        const int c = i / nop, k = i - c * nop;
-        dst[i] = k < n_out ? src[c * n_out + k] : 0.f;
+    for (int part = 0; part < (PREC == 2 ? 2 : 1); ++part) {
+      for (int li = 0; li < P.n_layers; ++li) {
+        const int n_in = P.widths[li], n_out = P.widths[li + 1], nop = r4(n_out);
+        const int cnt = (n_in + 1) * nop;
+        for (int i = tid; i < cnt; i += nt) {
+          const int c = i / nop, k = i - c * nop;
+          dst[i] = k < n_out ? src[c * n_out + k] : 0.f;
+        }
+        dst += cnt;
+        src += (n_in + 1) * n_out;
       }
-      dst += cnt;
-      src += (n_in + 1) * n_out;
+      dst = sWlo;
     }
   }
   // Initial states; the controls' rows and the padded rollouts start at 0.
@@ -280,15 +353,18 @@ __global__ void __launch_bounds__(AMPC_MLP_MAX_THREADS, 2) mlp_ls_kernel(
     // The layer stack; each layer reads `in` and writes the other buffer.
     const float* in = z;
     const float* Wl = sW;
+    const float* Wlo = sWlo;
     for (int li = 0; li < P.n_layers; ++li) {
       const int n_in = P.widths[li], n_out = P.widths[li + 1];
       float* out = (li & 1) ? hB : hA;
       const bool last = li == P.n_layers - 1;
-      const int nop = r4(n_out);
+      const int nop = r4(n_out), nr = li == 0 ? P.round0 : n_in;
       // The tile that takes the fewest rounds of the block's threads, the
       // smallest of those: the shortest chain of loads and FMAs a thread.
+      // bf16x3's three sums a tile stop at 2 x 4 (its 4 x 4 would not fit
+      // the registers).
       constexpr int T = AMPC_MLP_TILE;
-      constexpr int kTR[5] = {T, 2, 2, 1, 1}, kTU[5] = {T, T, 2, 2, 1};
+      constexpr int kTR[5] = {PREC == 2 ? 2 : T, 2, 2, 1, 1}, kTU[5] = {T, T, 2, 2, 1};
       int best = 0, best_rounds = 1 << 30;
 #pragma unroll
       for (int q = 0; q < 5; ++q) {
@@ -299,16 +375,20 @@ __global__ void __launch_bounds__(AMPC_MLP_MAX_THREADS, 2) mlp_ls_kernel(
           best_rounds = rounds;
         }
       }
+#define AMPC_MLP_LAYER(TR_, TU_) \
+  mlp_layer<TR_, TU_, PREC>(in, Wl, Wlo, out, n_in, nr, n_out, nop, RP, last, P.act, tid, nt)
       switch (best) {
-        case 0: mlp_layer<T, T>(in, Wl, out, n_in, n_out, nop, RP, last, P.act, tid, nt); break;
-        case 1: mlp_layer<2, 4>(in, Wl, out, n_in, n_out, nop, RP, last, P.act, tid, nt); break;
-        case 2: mlp_layer<2, 2>(in, Wl, out, n_in, n_out, nop, RP, last, P.act, tid, nt); break;
-        case 3: mlp_layer<1, 2>(in, Wl, out, n_in, n_out, nop, RP, last, P.act, tid, nt); break;
-        default: mlp_layer<1, 1>(in, Wl, out, n_in, n_out, nop, RP, last, P.act, tid, nt);
+        case 0: AMPC_MLP_LAYER(kTR[0], T); break;
+        case 1: AMPC_MLP_LAYER(2, 4); break;
+        case 2: AMPC_MLP_LAYER(2, 2); break;
+        case 3: AMPC_MLP_LAYER(1, 2); break;
+        default: AMPC_MLP_LAYER(1, 1);
       }
+#undef AMPC_MLP_LAYER
       __syncthreads();
       in = out;
       Wl += (n_in + 1) * nop;
+      Wlo += (n_in + 1) * nop;
     }
 
     // x <- x + net([x; u]); `in` is the head's output.
@@ -327,6 +407,7 @@ static int check_params(const MlpLS* P, int lanes_per_block, int threads) {
       P->n_layers > AMPC_MLP_MAX_LAYERS || P->dc < 1 ||
       P->dc > AMPC_MLP_MAX_DC || P->act < 0 || P->act > 3 ||
       P->widths[0] != P->ds + P->dc || P->widths[P->n_layers] != P->ds ||
+      P->round0 < 0 || P->round0 > P->widths[0] ||
       lanes_per_block < 1 || threads < 32 || threads > AMPC_MLP_MAX_THREADS)
     return 1;
   for (int li = 0; li <= P->n_layers; ++li)
@@ -334,13 +415,20 @@ static int check_params(const MlpLS* P, int lanes_per_block, int threads) {
   return 0;
 }
 
+// The instance of precision prec (0 highest, 1 default, 2 bf16x3).
+static const void* mlp_kernel_of(int prec) {
+  return prec == 1 ? (const void*)mlp_ls_kernel<1>
+       : prec == 2 ? (const void*)mlp_ls_kernel<2>
+                   : (const void*)mlp_ls_kernel<0>;
+}
+
 // Dynamic shared memory of a block (bytes), with the attribute set for
 // sizes above 48 KB; 0 when the block would need more than 227 KB.
-static size_t prepare_smem(const MlpLS* P, int lanes_per_block) {
-  const size_t bytes = sizeof(float) * (size_t)mlp_smem(*P, lanes_per_block).total;
+static size_t prepare_smem(const MlpLS* P, int lanes_per_block, int prec) {
+  const size_t bytes = sizeof(float) * (size_t)mlp_smem(*P, lanes_per_block, prec).total;
   if (bytes > 227 * 1024) return 0;
   if (bytes > 48 * 1024 &&
-      cudaFuncSetAttribute(mlp_ls_kernel,
+      cudaFuncSetAttribute(mlp_kernel_of(prec),
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)bytes) != cudaSuccess)
     return 0;
@@ -348,39 +436,51 @@ static size_t prepare_smem(const MlpLS* P, int lanes_per_block) {
 }
 
 // lanes_per_block lanes (all their step sizes) and `threads` threads a
-// block (the wrapper's mlp_geometry).
+// block (the wrapper's mlp_geometry); prec the precision (0 highest, 1
+// default, 2 bf16x3: `weights` then holds the lo parts' blocks after the
+// hi parts').
 extern "C" int ampc_mlp_line_search(
     const MlpLS* P, const float* weights, const float* x0, const float* xs,
     const float* us, const float* Ks, const float* ks, float* out_xs,
-    float* out_us, int H, int B, int lanes_per_block, int threads,
+    float* out_us, int H, int B, int lanes_per_block, int threads, int prec,
     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (H < 1 || B < 1 || check_params(P, lanes_per_block, threads))
+  if (H < 1 || B < 1 || prec < 0 || prec > 2 || check_params(P, lanes_per_block, threads))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = prepare_smem(P, lanes_per_block);
+  const size_t smem = prepare_smem(P, lanes_per_block, prec);
   if (smem == 0) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((B + lanes_per_block - 1) / lanes_per_block);
-  mlp_ls_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      *P, weights, x0, xs, us, Ks, ks, out_xs, out_us, H, B, lanes_per_block);
+  cudaStream_t s = (cudaStream_t)stream;
+#define AMPC_MLP_LAUNCH(PREC_)                                              \
+  mlp_ls_kernel<PREC_><<<blocks, threads, smem, s>>>(                        \
+      *P, weights, x0, xs, us, Ks, ks, out_xs, out_us, H, B, lanes_per_block)
+  if (prec == 1)
+    AMPC_MLP_LAUNCH(1);
+  else if (prec == 2)
+    AMPC_MLP_LAUNCH(2);
+  else
+    AMPC_MLP_LAUNCH(0);
+#undef AMPC_MLP_LAUNCH
   return (int)cudaGetLastError();
 }
 
-// The kernel's registers and local (spill) bytes a thread, and its
+// The instance's registers and local (spill) bytes a thread, and its
 // resident blocks an SM at this geometry: out[0..2].
 extern "C" int ampc_mlp_line_search_occupancy(const MlpLS* P,
                                               int lanes_per_block, int threads,
-                                              int device, int* out) {
+                                              int prec, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (check_params(P, lanes_per_block, threads)) return (int)cudaErrorInvalidValue;
-  const size_t smem = prepare_smem(P, lanes_per_block);
+  if (prec < 0 || prec > 2 || check_params(P, lanes_per_block, threads))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = prepare_smem(P, lanes_per_block, prec);
   if (smem == 0) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  err = cudaFuncGetAttributes(&a, mlp_ls_kernel);
+  err = cudaFuncGetAttributes(&a, mlp_kernel_of(prec));
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mlp_ls_kernel,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mlp_kernel_of(prec),
                                                       threads, smem);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;

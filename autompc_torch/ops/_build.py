@@ -227,6 +227,7 @@ class MlpLS(ctypes.Structure):
         ("ds", ctypes.c_int),
         ("dc", ctypes.c_int),
         ("L", ctypes.c_int),
+        ("round0", ctypes.c_int),
         ("alphas", ctypes.c_float * MAX_L),
         ("umin", ctypes.c_float * MLP_MAX_DC),
         ("umax", ctypes.c_float * MLP_MAX_DC),
@@ -266,6 +267,10 @@ _SIGNATURES = {
         [_P, _I, ctypes.POINTER(LSParams), ctypes.POINTER(RegParams)]
         + [_P] * 23 + [_I] * 5 + [_P]
     ),
+    "ampc_fused_line_search_bm_dense": (
+        [ctypes.POINTER(FeatTable), _P, _I, ctypes.POINTER(LSParams)]
+        + [_P] * 21 + [_I] * 5 + [_P]
+    ),
     "ampc_fused_line_search_bm_occupancy": [_I] * 4 + [_P],
     "ampc_ls_obj_wide": (
         [ctypes.POINTER(FeatTable), ctypes.POINTER(LSParams)]
@@ -284,9 +289,9 @@ _SIGNATURES = {
     ),
     "ampc_riccati_general": [_P] * 12 + [_I] * 7 + [_P],
     "ampc_mlp_line_search": (
-        [ctypes.POINTER(MlpLS)] + [_P] * 8 + [_I] * 5 + [_P]
+        [ctypes.POINTER(MlpLS)] + [_P] * 8 + [_I] * 6 + [_P]
     ),
-    "ampc_mlp_line_search_occupancy": [ctypes.POINTER(MlpLS)] + [_I] * 3 + [_P],
+    "ampc_mlp_line_search_occupancy": [ctypes.POINTER(MlpLS)] + [_I] * 4 + [_P],
 }
 
 

@@ -54,15 +54,20 @@ planes and a float32 Jacobian carry (the joint fan-out's form); the
 split search (K8, K9) refuses per-lane coefficients.
 
 ``fused_line_search_bm`` (K3's batch-major entry, ``pallas_fused_line_search``
-with ``ll_io=False``, ``per_lane_diag_cost=True``, ``grad_terms`` and
-optionally ``reg=(S, mu, w)``): the same kernel body with its ``BM``
-switch, on the batch-major carry of the solver's batch-major body, and
-without the carry select (the TPU entry returns every lane's chosen
-rollout; the body selects). Its ``REG`` switch adds the GaussReg stage
-term ``w_b (x - mu)' S (x - mu)`` to every candidate's objective, summed
-over the upper triangle of S with the off-diagonal entries doubled, as
-the TPU kernel sums it. Shared or per-lane coefficients (up to
-``_build.MAX_F`` terms), per-lane cost planes, float32 Jacobians.
+with ``ll_io=False``, ``grad_terms`` and optionally ``reg=(S, mu, w)``):
+the same kernel body with its ``BM`` switch, on the batch-major carry of
+the solver's batch-major body, and without the carry select (the TPU
+entry returns every lane's chosen rollout; the body selects). Its cost
+is per-lane diagonal planes (``per_lane_diag_cost=True``) or, with its
+``DENSE`` switch, one fixed dense cost (``per_lane_diag_cost=False`` with
+a Q or F that is not diagonal: each quadratic form summed over all
+obsdim^2 entries, as the TPU kernel sums it). Its ``REG`` switch adds
+the GaussReg stage term ``w_b (x - mu)' S (x - mu)`` to every
+candidate's objective, summed over the upper triangle of S with the
+off-diagonal entries doubled, as the TPU kernel sums it. Shared (up to
+``_build.MAX_F`` terms) or per-lane coefficients (up to
+``_build.MAX_F_LANE``, the lanes-last per-lane entry's table and trees),
+float32 Jacobians, or none (``jac=False``, the solver's relin="xla").
 
 A CPU tensor takes the plain PyTorch version (``fused_line_search_plain``,
 ``fused_line_search_bm_plain``, ``sindy_line_search_plain``,
@@ -74,6 +79,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -164,17 +170,36 @@ def _reg_form(entries, x, mu):
     return tree_sum([c * d[i] * d[j] for i, j, c in entries])
 
 
+def _dense_form(M, x, goal):
+    """(x - g)' M (x - g) over every entry of the dense M (a list of rows
+    of scalars), each term (M_ij (x_i - g_i)) (x_j - g_j), in the
+    balanced tree (the TPU kernel's quad_form of a full matrix)."""
+    d = [x[i] - goal[i] for i in range(len(M))]
+    return tree_sum([M[i][j] * d[i] * d[j] for i in range(len(M)) for j in range(len(M))])
+
+
 def _sweep(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax, qd, rd, fd,
-           goal, dt, lane, keep, reg=None):
+           goal, dt, lane, keep, reg=None, dense=False):
     """Every candidate step size rolled from x0T: the objectives (L, B)
     and, with ``keep``, the stash (H, ds+1, L, B) (row (t, i < ds, l)
     x_{t+1}, row (t, ds, l) u_t) and du2 (L, B), else two Nones. ``reg``
     ``(S, mu, w (B,))`` adds ``w (x - mu)' S (x - mu)`` to every stage's
-    state cost."""
+    state cost. ``dense``: qd, rd, fd are one fixed dense cost's Q, R, F
+    (host arrays)."""
     H, ds = usT.shape[0], xsT.shape[1]
-    if lane is None:
-        lane = _build.lane_cost_planes(qd, rd, fd, len(goal), xsT.shape[2])
-    a_col, qdv, rdv, fdv, gl, dtv = _consts(xsT, alphas, qd, rd, fd, goal, dt, lane)
+    if dense:
+        c = lambda v: xsT.new_tensor(float(v))
+        Qm, Fm = ([[c(v) for v in row] for row in _host(M)] for M in (qd, fd))
+        a_col = xsT.new_tensor([float(a) for a in alphas])[:, None]
+        rdv, gl, dtv = c(_host(rd).reshape(-1)[0]), [c(v) for v in goal], c(dt)
+        state_cost = lambda x: _dense_form(Qm, x, gl)
+        term_cost = lambda x: _dense_form(Fm, x, gl)
+    else:
+        if lane is None:
+            lane = _build.lane_cost_planes(qd, rd, fd, len(goal), xsT.shape[2])
+        a_col, qdv, rdv, fdv, gl, dtv = _consts(xsT, alphas, qd, rd, fd, goal, dt, lane)
+        state_cost = lambda x: _quad_form(qdv, x, gl)
+        term_cost = lambda x: _quad_form(fdv, x, gl)
     if reg is not None:
         S, mu, w = reg
         entries = [(i, j, xsT.new_tensor(c)) for i, j, c in _reg_entries(S)]
@@ -189,7 +214,7 @@ def _sweep(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax, qd, rd, f
         xbar = [xsT[t, i][None, :] for i in range(ds)]
         K = [KsT[t, i][None, :] for i in range(ds)]
         u = _controls(x, xbar, K, usT[t][None, :], ksT[t][None, :], a_col, umin, umax)
-        oc = _quad_form(qdv, x, gl)
+        oc = state_cost(x)
         if reg is not None:
             oc = oc + w * _reg_form(entries, x, mu)
         cc = rdv * u * u
@@ -199,7 +224,7 @@ def _sweep(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax, qd, rd, f
             du2 = du2 + (u - usT[t][None, :]) ** 2
             stash[t, :ds] = torch.stack(x)
             stash[t, ds] = u
-    return obj + _quad_form(fdv, x, gl), stash, du2
+    return obj + term_cost(x), stash, du2
 
 
 def line_search_objectives(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
@@ -280,12 +305,12 @@ def _accept(objs, alphas, obj0, lin_red, quad_red, ks_small, ls_cost_threshold):
 
 
 def reroll_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alpha_sel, umin, umax,
-                 traj_mask, jac_mask, old_jac):
+                 traj_mask, jac_mask, old_jac, jac=True):
     """Pass 2 of the fused plain version: every lane rolled again at its
     step size ``alpha_sel`` (B,), relinearized along the roll, and the
     carry select applied (``traj_mask``, ``jac_mask`` (B,) bool). Returns
     (xs (H+1, ds, B), us (H, B), jac (H, ds*(ds+1), B) in ``old_jac``'s
-    type, du2 (B,))."""
+    type, or None with ``jac=False``, du2 (B,))."""
     H, ds = usT.shape[0], xsT.shape[1]
     out_xs, out_us = torch.empty_like(xsT), torch.empty_like(usT)
     out_jac = torch.empty_like(old_jac)
@@ -301,10 +326,11 @@ def reroll_plain(terms, x0T, xsT, usT, KsT, ksT, coeffs, alpha_sel, umin, umax,
         out_xs[t + 1] = torch.where(traj_mask, torch.stack(xn), xsT[t + 1])
         du2 = du2 + (u - usT[t]) ** 2
         out_us[t] = torch.where(traj_mask, u, usT[t])
-        rows = torch.stack(feature_jacobian_rows(terms, coeffs, z, ds))
-        out_jac[t] = torch.where(jac_mask, rows, old_jac[t].to(rows.dtype))
+        if jac:
+            rows = torch.stack(feature_jacobian_rows(terms, coeffs, z, ds))
+            out_jac[t] = torch.where(jac_mask, rows, old_jac[t].to(rows.dtype))
         x = xn
-    return out_xs, out_us, out_jac, du2
+    return out_xs, out_us, out_jac if jac else None, du2
 
 
 def fused_line_search(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas,
@@ -401,6 +427,23 @@ def _bm_planes(x0, xs, us, Ks, ks):
             ks[:, :, 0].T)
 
 
+def _bm_dense(qd, rd, fd, obsdim, B):
+    """Which cost form K3's batch-major entry was given: False for
+    per-lane planes qd/fd (obsdim, B), rd (1, B) (tensors), True for one
+    fixed dense cost Q/F (obsdim, obsdim), R (1, 1) (host arrays); any
+    other form raises."""
+    if all(isinstance(v, torch.Tensor) and v.ndim == 2 for v in (qd, rd, fd)):
+        if _build.lane_cost_planes(qd, rd, fd, obsdim, B):
+            return False
+    elif not any(isinstance(v, torch.Tensor) for v in (qd, rd, fd)):
+        shapes = tuple(np.shape(v) for v in (qd, rd, fd))
+        if shapes == ((obsdim, obsdim), (1, 1), (obsdim, obsdim)):
+            return True
+    raise ValueError("the batch-major entry takes per-lane cost planes qd/fd (obsdim, B), "
+                     "rd (1, B) (tensors), or one fixed dense cost Q/F (obsdim, obsdim), "
+                     "R (1, 1) (host arrays)")
+
+
 def _shapes_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, qd, rd, fd, goal, reg):
     B, Hp1, ds = xs.shape
     H = Hp1 - 1
@@ -416,41 +459,47 @@ def _shapes_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, qd, rd, fd, goal, reg)
     if not 1 <= obsdim <= ds:
         raise ValueError(f"goal must have length obsdim <= ds = {ds}")
     _build.check_obsdim("linesearch_fused", obsdim)
-    if not _build.lane_cost_planes(qd, rd, fd, obsdim, B):
-        raise ValueError("the batch-major entry takes per-lane cost planes qd/fd "
-                         "(obsdim, B), rd (1, B)")
+    dense = _bm_dense(qd, rd, fd, obsdim, B)
+    if coeffs.ndim == 3:
+        _build.check_table_size(len(terms), True)
     if not 1 <= len(alphas) <= _build.MAX_L:
         raise ValueError(f"1..{_build.MAX_L} step sizes supported, got {len(alphas)}")
+    if reg is not None and dense:
+        raise ValueError("reg (the GaussReg term) takes per-lane cost planes, not a dense "
+                         "fixed cost")
     if reg is not None:
         S, mu, w = reg
         if _host(S).shape != (obsdim, obsdim) or _host(mu).shape != (obsdim,) \
                 or tuple(w.shape) != (B,):
             raise ValueError(f"reg: S (obsdim, obsdim), mu (obsdim,) and w (B,) with "
                              f"obsdim = {obsdim}, B = {B}")
-    return B, H, ds
+    return B, H, ds, dense
 
 
 def fused_line_search_bm_plain(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax,
                                qd, rd, fd, goal, dt, obj0, lin_red, quad_red, ks_small,
-                               reg=None, ls_cost_threshold=0.3):
+                               reg=None, ls_cost_threshold=0.3, jac=True):
     """Plain PyTorch twin of K3's batch-major entry: the lanes-last twin's
-    sweep (with the GaussReg term), acceptance and re-roll on the
-    transposed carry, every lane's chosen rollout returned."""
-    B, H, ds = _shapes_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, qd, rd, fd, goal,
-                          reg)
+    sweep (with the GaussReg term, or under the dense fixed cost),
+    acceptance and re-roll on the transposed carry, every lane's chosen
+    rollout returned."""
+    B, H, ds, dense = _shapes_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, qd, rd, fd,
+                                 goal, reg)
     x0T, xsT, usT, KsT, ksT = _bm_planes(x0, xs, us, Ks, ks)
     objs = _sweep(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax, qd, rd,
-                  fd, goal, dt, True, keep=False, reg=reg)[0]
+                  fd, goal, dt, True, keep=False, reg=reg, dense=dense)[0]
     success, failed, a_sel, new_obj = _accept(objs, alphas, obj0, lin_red, quad_red,
                                               ks_small, ls_cost_threshold)
     every = torch.ones_like(success)
-    out_xs, out_us, jac, du2 = reroll_plain(
+    out_xs, out_us, jac_p, du2 = reroll_plain(
         terms, x0T, xsT, usT, KsT, ksT, coeffs, a_sel, umin, umax, every, every,
-        xsT.new_zeros((H, ds * (ds + 1), B)))
-    jac = jac.reshape(H, ds, ds + 1, B).permute(3, 0, 1, 2)
+        xsT.new_zeros((H, ds * (ds + 1), B)), jac=jac)
+    Jx = Ju = None
+    if jac:
+        jac_p = jac_p.reshape(H, ds, ds + 1, B).permute(3, 0, 1, 2)
+        Jx, Ju = jac_p[..., :ds].contiguous(), jac_p[..., ds:].contiguous()
     return (out_xs.permute(2, 0, 1).contiguous(), out_us.T[:, :, None].contiguous(),
-            new_obj, success, failed, jac[..., :ds].contiguous(),
-            jac[..., ds:].contiguous(), du2)
+            new_obj, success, failed, Jx, Ju, du2)
 
 
 def _reg_params(S, mu):
@@ -466,7 +515,7 @@ def _reg_params(S, mu):
 
 def fused_line_search_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax,
                          qd, rd, fd, goal, dt, obj0, lin_red, quad_red, ks_small,
-                         reg=None, ls_cost_threshold=0.3):
+                         reg=None, ls_cost_threshold=0.3, jac=True):
     """K3's batch-major entry: every step size rolled, scored and the
     reference acceptance rule applied, the chosen rollout written and
     relinearized, for every lane (no carry select).
@@ -474,25 +523,25 @@ def fused_line_search_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax,
     terms: tuple of active ``TermDesc``; x0 (B, ds); xs (B, H+1, ds);
     us (B, H, 1); Ks (B, H, 1, ds); ks (B, H, 1); coeffs (ds, len(terms))
     or per lane a lanes-last (ds, len(terms), B) plane; alphas, goal
-    (obsdim,): host sequences; qd/fd (obsdim, B), rd (1, B): per-lane
-    lanes-last cost planes; umin/umax, dt: floats; obj0/lin_red/quad_red
-    (B,); ks_small (B,) bool; ``reg``: None or ``(S (obsdim, obsdim),
-    mu (obsdim,), w (B,))``, the GaussReg term ``w (x - mu)' S (x - mu)``
-    (S and mu host arrays or tensors, w a tensor).
+    (obsdim,): host sequences; the cost either per-lane lanes-last
+    planes, qd/fd (obsdim, B), rd (1, B) tensors, or one fixed dense
+    cost, Q/F (obsdim, obsdim), R (1, 1) host arrays; umin/umax, dt:
+    floats; obj0/lin_red/quad_red (B,); ks_small (B,) bool; ``reg``
+    (per-lane planes only): None or ``(S (obsdim, obsdim), mu (obsdim,),
+    w (B,))``, the GaussReg term ``w (x - mu)' S (x - mu)`` (S and mu
+    host arrays or tensors, w a tensor); ``jac=False``: no
+    relinearization (Jx, Ju returned as None).
 
     Returns (xs (B, H+1, ds), us (B, H, 1), obj (B,), success (B,),
     failed (B,), Jx (B, H, ds, ds), Ju (B, H, ds, 1), du2 (B,)). The
     kernel's limits hold on every device."""
-    B, H, ds = _shapes_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, qd, rd, fd, goal,
-                          reg)
+    B, H, ds, dense = _shapes_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, qd, rd, fd,
+                                 goal, reg)
     lane_coef = coeffs.ndim == 3
-    if lane_coef and not 1 <= len(terms) <= _build.MAX_F:
-        raise ValueError(f"the batch-major fused line search takes 1..{_build.MAX_F} terms "
-                         f"with per-lane coefficients, got {len(terms)}")
     if _build.device_kind(xs) == "cpu":
         return fused_line_search_bm_plain(
             terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax, qd, rd, fd, goal, dt,
-            obj0, lin_red, quad_red, ks_small, reg, ls_cost_threshold)
+            obj0, lin_red, quad_red, ks_small, reg, ls_cost_threshold, jac)
     _build.check_table_size(len(terms), lane_coef)
     lib = _build.kernel_library("linesearch_fused", ds, 1)
     dev, f32, b8 = xs.device, torch.float32, torch.bool
@@ -505,8 +554,13 @@ def fused_line_search_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax,
         ("quad_red", quad_red, (B,), f32), ("ks_small", ks_small, (B,), b8),
     ):
         _build.check_cuda(name, t, shape, dt_, dev)
-    P = _ls_params(alphas, umin, umax, qd, rd, fd, goal, dt, ls_cost_threshold, True)
-    planes = _build.cost_plane_ptrs(True, qd, rd, fd, f32, dev)
+    if dense:
+        P = _ls_params(alphas, umin, umax, (0.0,) * len(goal), (float(_host(rd)[0, 0]),),
+                       (0.0,) * len(goal), goal, dt, ls_cost_threshold, False)
+        QF = _dense_on(qd, fd, dev)
+    else:
+        P = _ls_params(alphas, umin, umax, qd, rd, fd, goal, dt, ls_cost_threshold, True)
+        planes = _build.cost_plane_ptrs(True, qd, rd, fd, f32, dev)
     if reg is not None:
         _build.check_cuda("reg w", reg[2], (B,), f32, dev)
         R, regw = ctypes.byref(_reg_params(reg[0], reg[1])), _build.ptr(reg[2])
@@ -518,38 +572,75 @@ def fused_line_search_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax,
     out_obj = torch.empty((B,), dtype=f32, device=dev)
     succ = torch.empty((B,), dtype=b8, device=dev)
     fail = torch.empty((B,), dtype=b8, device=dev)
-    Jx = torch.empty((B, H, ds, ds), dtype=f32, device=dev)
-    Ju = torch.empty((B, H, ds, 1), dtype=f32, device=dev)
+    Jx = torch.empty((B, H, ds, ds), dtype=f32, device=dev) if jac else None
+    Ju = torch.empty((B, H, ds, 1), dtype=f32, device=dev) if jac else None
     du2 = torch.empty((B,), dtype=f32, device=dev)
     geom = fused_geometry(B, L, _build.sm_count(dev))
     p = _build.ptr
-    args = (R, p(coeffs), p(x0), p(xs), p(us), p(Ks), p(ks), *planes, p(obj0), p(lin_red),
-            p(quad_red), p(ks_small), regw, p(stash), p(out_xs), p(out_us), p(out_obj),
-            p(succ), p(fail), p(Jx), p(Ju), p(du2), ds, H, B, geom["lanes_per_block"],
-            dev.index or 0, _build.stream_of(xs))
-    if lane_coef:
-        table = _build.feat_table_dev(tuple(terms), dev)
-        rc = lib.ampc_fused_line_search_bm_lane(p(table), len(terms), ctypes.byref(P), *args)
+    jp = (p(Jx), p(Ju)) if jac else (None, None)
+    tail = (ds, H, B, geom["lanes_per_block"], dev.index or 0, _build.stream_of(xs))
+    if dense:
+        table = _build.feat_table_dev(tuple(terms), dev) if lane_coef else None
+        rc = lib.ampc_fused_line_search_bm_dense(
+            None if lane_coef else ctypes.byref(_build.feat_table(tuple(terms))),
+            None if table is None else p(table), len(terms), ctypes.byref(P), p(QF[0]),
+            p(QF[1]), p(coeffs), p(x0), p(xs), p(us), p(Ks), p(ks), p(obj0), p(lin_red),
+            p(quad_red), p(ks_small), p(stash), p(out_xs), p(out_us), p(out_obj), p(succ),
+            p(fail), *jp, p(du2), *tail)
     else:
-        rc = lib.ampc_fused_line_search_bm(ctypes.byref(_build.feat_table(tuple(terms))),
-                                           ctypes.byref(P), *args)
+        args = (R, p(coeffs), p(x0), p(xs), p(us), p(Ks), p(ks), *planes, p(obj0),
+                p(lin_red), p(quad_red), p(ks_small), regw, p(stash), p(out_xs), p(out_us),
+                p(out_obj), p(succ), p(fail), *jp, p(du2), *tail)
+        if lane_coef:
+            table = _build.feat_table_dev(tuple(terms), dev)
+            rc = lib.ampc_fused_line_search_bm_lane(p(table), len(terms), ctypes.byref(P),
+                                                    *args)
+        else:
+            rc = lib.ampc_fused_line_search_bm(
+                ctypes.byref(_build.feat_table(tuple(terms))), ctypes.byref(P), *args)
     _build.check_rc("fused_line_search_bm", rc)
     w = fused_line_search_bm
     w.launches += 1
     w.launches_by_B[B] = w.launches_by_B.get(B, 0) + 1
     if reg is not None:
         w.launches_reg += 1
+    if dense:
+        w.launches_dense += 1
+        w.launches_dense_lane += lane_coef
     if lane_coef:
         w.launches_lane += 1
         w.launches_lane_by_B[B] = w.launches_lane_by_B.get(B, 0) + 1
+        if len(terms) > _build.MAX_F:
+            w.launches_lane_big += 1
+    if not jac:
+        w.launches_no_jac += 1
     return out_xs, out_us, out_obj, succ, fail, Jx, Ju, du2
 
 
-fused_line_search_bm.launches = 0
-fused_line_search_bm.launches_by_B = {}
-fused_line_search_bm.launches_reg = 0
-fused_line_search_bm.launches_lane = 0
-fused_line_search_bm.launches_lane_by_B = {}
+def _dense_on(Q, F, device):
+    """The dense cost's Q and F as contiguous float32 tensors on
+    ``device`` (the kernel stages them in shared memory), copied there
+    once for each value: a host-to-device copy each call would wait for
+    the card's queue."""
+    Q, F = (np.ascontiguousarray(_host(M), np.float32) for M in (Q, F))
+    return _dense_tensors(Q.tobytes(), F.tobytes(), Q.shape[0], device)
+
+
+@functools.lru_cache(maxsize=16)
+def _dense_tensors(q, f, n, device):
+    return tuple(torch.frombuffer(bytearray(b), dtype=torch.float32).reshape(n, n).to(device)
+                 for b in (q, f))
+
+
+def reset_bm_counters():
+    """Set every launch count of ``fused_line_search_bm`` to 0."""
+    w = fused_line_search_bm
+    w.launches = w.launches_reg = w.launches_dense = w.launches_lane = 0
+    w.launches_dense_lane = w.launches_lane_big = w.launches_no_jac = 0
+    w.launches_by_B, w.launches_lane_by_B = {}, {}
+
+
+reset_bm_counters()
 
 
 # Lanes a K3 block may hold, each with its L step sizes in L threads:

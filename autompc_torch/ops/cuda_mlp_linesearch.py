@@ -8,9 +8,23 @@ For each lane b and step size l, from x = x0, for t = 0 .. H-1:
 ``x <- x + net([x; u])`` with the folded stack of ``fold_mlp_params``
 (hidden layers ``act(z W + b)``, linear head). Every x and u is
 returned. ``layout`` ("slab", "feat", "mxu") is a data-movement choice
-of the TPU kernel and is accepted and ignored; ``precision`` must be
-"highest" (true float32): the TPU's single-pass and split-bf16 matmul
-modes are not ported.
+of the TPU kernel and is accepted and ignored, but for ``precision``:
+
+* "highest": true float32 products;
+* "default": one bfloat16 pass where the TPU kernel's layout takes one:
+  both operands of a product rounded to bfloat16 (to nearest, ties to
+  even) and the sums kept in float32. The "feat" layout rounds every
+  product of the net; "mxu" every one but the first layer's control
+  rows, which the TPU kernel adds as float32 rank-1 updates; "slab"
+  none (the TPU kernel multiplies on the VPU in float32, so its
+  "default" is "highest");
+* "bf16x3": ``_mlp_ls_kernel_feat3``'s three-pass split, "feat" layout
+  only (``ValueError`` otherwise, as the JAX package): weights and
+  activations split into bfloat16 hi and lo parts, each layer
+  ``hi.hi + (hi.lo + lo.hi)`` with float32 sums.
+
+The products of rounded operands are exact in float32, so the kernel
+takes them as float32 FMAs; the control law and the biases stay float32.
 
 A CPU tensor takes the plain PyTorch version ``mlp_line_search_plain``;
 a CUDA tensor launches the kernel or raises.
@@ -27,6 +41,8 @@ from . import _build
 
 ACTIVATIONS = ("relu", "tanh", "sigmoid", "selu")
 LAYOUTS = ("slab", "feat", "mxu")
+# The kernel's template switch (mlp_linesearch.cu: PREC) is the index.
+PRECISIONS = ("highest", "default", "bf16x3")
 _ACT = {
     "relu": torch.relu,
     "tanh": torch.tanh,
@@ -76,16 +92,77 @@ def _alphas(alphas):
     return [float(a) for a in alphas]
 
 
+def check_precision(precision, layout):
+    """Raise ``ValueError`` for a precision the line search does not take,
+    and for "bf16x3" outside the "feat" layout (the JAX package's rule)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; one of {PRECISIONS}")
+    if precision == "bf16x3" and layout != "feat":
+        raise ValueError("precision='bf16x3' requires layout='feat'")
+
+
+def round_bf16(t):
+    """``t`` rounded to bfloat16 (to nearest, ties to even), in ``t``'s
+    dtype. A float64 tensor is rounded to float32 first, the value the
+    card's float32 kernel would hold."""
+    return t.to(torch.float32).to(torch.bfloat16).to(t.dtype)
+
+
+def split_bf16(t):
+    """(hi, lo): ``hi`` = ``t`` rounded to bfloat16, ``lo`` = the rest
+    rounded to bfloat16 (``_mlp_ls_kernel_feat3``'s split)."""
+    hi = round_bf16(t)
+    return hi, round_bf16(t - hi)
+
+
+def kernel_precision(precision, layout):
+    """The precision the products of ``layout`` take: the "slab" layout's
+    "default" is "highest" (the TPU's slab kernel multiplies in float32
+    whatever the precision)."""
+    return "highest" if precision == "default" and layout == "slab" else precision
+
+
+def round0(layers, layout):
+    """How many of the first layer's inputs "default" rounds to bfloat16:
+    every one, but in the "mxu" layout the ds state rows only (the TPU
+    kernel multiplies the control rows in float32)."""
+    return int(layers[-1][0].shape[1]) if layout == "mxu" else int(layers[0][0].shape[0])
+
+
+def _weights(layers, precision, r0=None):
+    """Each layer's (W, b) as the kernel multiplies: W rounded to
+    bfloat16 for "default" (the first layer's rows from ``r0`` on left
+    as they are), split into (hi, lo) for "bf16x3"."""
+    if precision == "default":
+        (W1, b1), rest = layers[0], layers[1:]
+        r0 = W1.shape[0] if r0 is None else r0
+        return (((torch.cat([round_bf16(W1[:r0]), W1[r0:]]), b1),)
+                + tuple((round_bf16(W), b) for W, b in rest))
+    if precision == "bf16x3":
+        return tuple((split_bf16(W), b) for W, b in layers)
+    return tuple(layers)
+
+
+def _product(h, W, precision, r0=None):
+    """``h @ W`` at ``precision``, W as ``_weights`` gives it; "default"
+    rounds h's inputs before ``r0`` (all without it)."""
+    if precision == "default":
+        if r0 is not None and r0 < h.shape[-1]:
+            return torch.cat([round_bf16(h[..., :r0]), h[..., r0:]], dim=-1) @ W
+        return round_bf16(h) @ W
+    if precision == "bf16x3":
+        hh, hl = split_bf16(h)
+        Wh, Wl = W
+        return hh @ Wh + (hl @ Wh + hh @ Wl)
+    return h @ W
+
+
 def _check(layers, nonlin, x0, xs, us, Ks, ks, alphas, layout, precision):
     if nonlin not in ACTIVATIONS:
         raise ValueError(f"unknown activation {nonlin!r}; one of {ACTIVATIONS}")
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")
-    if precision != "highest":
-        raise ValueError(
-            f"precision={precision!r} is not ported: the kernel computes "
-            "in true float32 ('highest') only"
-        )
+    check_precision(precision, layout)
     if xs.ndim != 3 or us.ndim != 3:
         raise ValueError("xs must be (B, H+1, ds) and us (B, H, dc)")
     B, Hp1, ds = xs.shape
@@ -114,16 +191,19 @@ def _check(layers, nonlin, x0, xs, us, Ks, ks, alphas, layout, precision):
 def mlp_line_search_plain(layers, nonlin, x0, xs, us, Ks, ks, alphas, umin,
                           umax, layout="slab", precision="highest"):
     """Plain PyTorch version of the kernel: a loop over H of batched
-    tensor ops on a (B, L, .) state."""
+    tensor ops on a (B, L, .) state, each product at ``precision`` as
+    ``layout`` takes it."""
     alphas = _alphas(alphas)
     B, H, ds, dc, _ = _check(layers, nonlin, x0, xs, us, Ks, ks, alphas,
                              layout, precision)
+    precision, r0 = kernel_precision(precision, layout), round0(layers, layout)
     L = len(alphas)
     like = dict(dtype=xs.dtype, device=xs.device)
     a = torch.tensor(alphas, **like)[None, :, None]            # (1, L, 1)
     lo = torch.tensor(_bounds(umin, dc), **like)
     hi = torch.tensor(_bounds(umax, dc), **like)
     act = _ACT[nonlin]
+    wl = _weights(layers, precision, r0)
     ls_xs = xs.new_empty((B, L, H + 1, ds))
     ls_us = xs.new_empty((B, L, H, dc))
     x = x0[:, None, :].expand(B, L, ds)
@@ -134,10 +214,10 @@ def mlp_line_search_plain(layers, nonlin, x0, xs, us, Ks, ks, alphas, umin,
         u = a * ks[:, t][:, None, :] + us[:, t][:, None, :] + fb
         u = torch.minimum(torch.maximum(u, lo), hi)
         h = torch.cat([x, u], dim=-1)
-        for W, b in layers[:-1]:
-            h = act(h @ W + b)
-        W, b = layers[-1]
-        x = x + (h @ W + b)
+        for li, (W, b) in enumerate(wl):
+            z = _product(h, W, precision, r0 if li == 0 else None) + b
+            h = z if li == len(wl) - 1 else act(z)
+        x = x + h
         ls_xs[:, :, t + 1] = x
         ls_us[:, :, t] = u
     return ls_xs, ls_us
@@ -147,20 +227,22 @@ def _r4(n):
     return (n + 3) & ~3
 
 
-def _smem_floats(widths, ds, dc, L, lanes_per_block):
+def _smem_floats(widths, ds, dc, L, lanes_per_block, precision="highest"):
     """Shared memory of a K5 block, in floats (``mlp_smem`` of the
-    source): the weights with each layer's columns padded to 4, the
-    activations (ds + dc rows) and two hidden buffers of the block's
-    rollouts padded to 4, and two buffers of each lane's staged step
-    inputs."""
+    source): the weights with each layer's columns padded to 4 (twice
+    for "bf16x3": the hi and the lo parts), the activations (ds + dc
+    rows) and two hidden buffers of the block's rollouts padded to 4,
+    and two buffers of each lane's staged step inputs."""
     rp = _r4(lanes_per_block * L)
     nin = dc * ds + ds + 2 * dc
     weights = sum((widths[i] + 1) * _r4(widths[i + 1]) for i in range(len(widths) - 1))
+    if precision == "bf16x3":
+        weights *= 2
     return (weights + (ds + dc) * rp + 2 * max(widths[1:]) * rp
             + 2 * lanes_per_block * _r4(nin))
 
 
-def mlp_geometry(widths, ds, dc, L, B, n_sm=_build.H100_SMS):
+def mlp_geometry(widths, ds, dc, L, B, n_sm=_build.H100_SMS, precision="highest"):
     """K5's launch for ``widths`` (ds + dc, hidden..., ds), L step sizes
     and B lanes: a block takes ``lanes_per_block`` lanes with all their
     step sizes, ``rollouts`` = lanes_per_block x L of them (rollout r of
@@ -189,9 +271,9 @@ def mlp_geometry(widths, ds, dc, L, B, n_sm=_build.H100_SMS):
     full = max(1, 40 // L)
     one_wave = -(-B // full) <= 2 * n_sm
     nl = max(1, full // 2) if one_wave else full
-    while nl > 1 and 4 * _smem_floats(widths, ds, dc, L, nl) > _build.MAX_SMEM_BYTES:
+    while nl > 1 and 4 * _smem_floats(widths, ds, dc, L, nl, precision) > _build.MAX_SMEM_BYTES:
         nl -= 1
-    smem = 4 * _smem_floats(widths, ds, dc, L, nl)
+    smem = 4 * _smem_floats(widths, ds, dc, L, nl, precision)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(
             f"mlp_line_search: an MLP of widths {list(widths)} needs {smem} bytes of "
@@ -209,6 +291,7 @@ def _mlp_params(widths, nonlin, ds, dc, alphas, umin, umax):
     for i, w in enumerate(widths):
         P.widths[i] = w
     P.ds, P.dc, P.L = ds, dc, len(alphas)
+    P.round0 = widths[0]
     for l, a in enumerate(alphas):
         P.alphas[l] = a
     for j, (lo, hi) in enumerate(zip(_bounds(umin, dc), _bounds(umax, dc))):
@@ -233,8 +316,9 @@ def mlp_line_search(layers, nonlin, x0, xs, us, Ks, ks, alphas, umin, umax,
     B, H, ds, dc, widths = _check(layers, nonlin, x0, xs, us, Ks, ks, alphas,
                                   layout, precision)
     on_cpu = _build.device_kind(xs) == "cpu"
+    precision, r0 = kernel_precision(precision, layout), round0(layers, layout)
     geom = mlp_geometry(widths, ds, dc, len(alphas), B,
-                        _build.H100_SMS if on_cpu else _build.sm_count(xs.device))
+                        _build.H100_SMS if on_cpu else _build.sm_count(xs.device), precision)
     if on_cpu:
         return mlp_line_search_plain(layers, nonlin, x0, xs, us, Ks, ks,
                                      alphas, umin, umax, layout, precision)
@@ -249,30 +333,42 @@ def mlp_line_search(layers, nonlin, x0, xs, us, Ks, ks, alphas, umin, umax,
                     f"{name}: {t.dtype} on {t.device}, the kernel takes "
                     f"{f32} on {dev}"
                 )
-    weights = torch.cat([t.reshape(-1) for W, b in layers for t in (W, b)])
+    # The weights the kernel multiplies, made once a call: "default"'s
+    # rounded, "bf16x3"'s hi parts, then (bf16x3) every lo part.
+    wl = _weights(layers, precision, r0)
+    if precision == "bf16x3":
+        weights = torch.cat([t.reshape(-1) for (Wp, b) in wl for t in (Wp[0], b)]
+                            + [t.reshape(-1) for (Wp, b) in wl for t in (Wp[1], b)])
+    else:
+        weights = torch.cat([t.reshape(-1) for W, b in wl for t in (W, b)])
     P = _mlp_params(widths, nonlin, ds, dc, alphas, umin, umax)
+    P.round0 = r0
+    prec = PRECISIONS.index(precision)
     ls_xs = torch.empty((B, L, H + 1, ds), dtype=f32, device=dev)
     ls_us = torch.empty((B, L, H, dc), dtype=f32, device=dev)
     p = _build.ptr
     rc = _build.library().ampc_mlp_line_search(
         ctypes.byref(P), p(weights), p(x0), p(xs), p(us), p(Ks), p(ks),
-        p(ls_xs), p(ls_us), H, B, geom["lanes_per_block"], geom["threads"],
+        p(ls_xs), p(ls_us), H, B, geom["lanes_per_block"], geom["threads"], prec,
         dev.index or 0, _build.stream_of(xs),
     )
     _build.check_rc("mlp_line_search", rc)
     mlp_line_search.launches += 1
+    mlp_line_search.launches_by_precision[precision] += 1
     return ls_xs, ls_us
 
 
-def mlp_line_search_occupancy(widths, nonlin, ds, dc, L, B, device):
+def mlp_line_search_occupancy(widths, nonlin, ds, dc, L, B, device, precision="highest"):
     """The compiled kernel's registers and local bytes a thread, its
-    resident blocks an SM and the launch geometry at this shape on the
-    CUDA ``device``."""
-    geom = mlp_geometry(widths, ds, dc, L, B, _build.sm_count(device))
+    resident blocks an SM and the launch geometry at this shape and
+    ``precision`` on the CUDA ``device``."""
+    geom = mlp_geometry(widths, ds, dc, L, B, _build.sm_count(device), precision)
     P = _mlp_params(widths, nonlin, ds, dc, (1.0,) * L, 0.0, 0.0)
     occ = _build.occupancy("ampc_mlp_line_search_occupancy", ctypes.byref(P),
-                           geom["lanes_per_block"], geom["threads"], device.index or 0)
+                           geom["lanes_per_block"], geom["threads"],
+                           PRECISIONS.index(precision), device.index or 0)
     return {**geom, **occ}
 
 
 mlp_line_search.launches = 0
+mlp_line_search.launches_by_precision = dict.fromkeys(PRECISIONS, 0)

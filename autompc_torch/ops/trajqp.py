@@ -13,16 +13,16 @@ one backward pass factors it, one forward pass recovers the step.
 
 Batch-native: every argument carries a leading lane axis B, where the
 JAX package writes a per-lane function and vmaps it; the recursions are
-Python loops over H of batched tensor ops. The associative-scan
-factorization ``qp_backward_assoc`` is refused by name (ROADMAP.md §A6).
+Python loops over H of batched tensor ops, but for ``qp_backward_assoc``,
+the associative-scan factorization (O(log H) depth,
+``ops/riccati.py::tvlqr_backward_assoc``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .. import NotPortedError
-from .riccati import solve_small
+from .riccati import solve_small, tvlqr_backward_assoc
 
 
 def qp_backward(A_seq, B_seq, Cxx, Cuu, Cux, cx, cu, d_seq, Vf, vf, reg=1e-8):
@@ -79,13 +79,14 @@ def qp_backward(A_seq, B_seq, Cxx, Cuu, Cux, cx, cu, d_seq, Vf, vf, reg=1e-8):
     return Ks, kc[..., 0], dV1, dV2
 
 
-def qp_backward_assoc(*args, **kwargs):
-    """The associative-scan (O(log H) depth) factorization: refused by
-    name until the associative Riccati family is ported."""
-    raise NotPortedError(
-        "qp_backward_assoc (the associative-scan trajectory-QP factorization) is not "
-        "ported to autompc_torch yet; use qp_backward"
-    )
+def qp_backward_assoc(A_seq, B_seq, Cxx, Cuu, Cux, cx, cu, d_seq, Vf, vf, reg=1e-8):
+    """``qp_backward`` in O(log H) depth: the associative-scan Riccati
+    with the defects in its affine part
+    (``ops/riccati.py::tvlqr_backward_assoc``). Requires Cux = 0, true
+    of the separable objectives ``make_sqp_solver`` builds; matches
+    ``qp_backward`` up to its per-step symmetrization (rounding)."""
+    del Cux  # zero by construction; the element algebra assumes it
+    return tvlqr_backward_assoc(A_seq, B_seq, Cxx, Cuu, cx, cu, Vf, vf, d_seq=d_seq, reg=reg)
 
 
 def qp_forward(A_seq, B_seq, d_seq, Ks, ks, alpha=1.0, dx0=None):

@@ -14,7 +14,9 @@ drive
 * the vectorized feature map ``FeatureLibrary.__call__`` (training and
   ``pred_core``),
 * the per-term value / sparse partial-derivative functions the kernels'
-  plain PyTorch twins use (``term_value``, ``term_partial``), and
+  plain PyTorch twins use (``term_value``, ``term_partial``), the
+  library's sparse ``grad_terms`` and its closed-form feature Jacobian
+  ``FeatureLibrary.jacobian`` (the solver's ``analytic_jac``), and
 * the kernels themselves: ``ops/_build.py`` packs the active
   descriptors into the table the CUDA code reads
   (``csrc/features.cuh``).
@@ -58,12 +60,15 @@ def poly_terms(n: int, degree: int) -> List[TermDesc]:
     return [TermDesc(f"z{i}^{degree}", _unit(n, i, degree)) for i in range(n)]
 
 
-def _compositions(total, parts):
+def compositions(total, parts):
+    """Every ordered tuple of ``parts`` positive integers summing to
+    ``total``, first part slowest: the exponent patterns of the cross
+    terms (the JAX library's enumeration)."""
     if parts == 1:
         yield (total,)
         return
     for first in range(1, total - parts + 2):
-        for rest in _compositions(total - first, parts - 1):
+        for rest in compositions(total - first, parts - 1):
             yield (first,) + rest
 
 
@@ -72,7 +77,7 @@ def cross_terms(n: int, degree: int) -> List[TermDesc]:
     ``degree`` — the JAX library's enumeration order."""
     exps_list, seen = [], set()
     for k in range(1, degree + 1):
-        for exp in _compositions(degree, k):
+        for exp in compositions(degree, k):
             if exp not in seen:
                 seen.add(exp)
                 exps_list.append(exp)
@@ -259,6 +264,43 @@ class FeatureLibrary:
     @property
     def n_features(self) -> int:
         return len(self.terms)
+
+    @property
+    def grad_terms(self):
+        """Sparse per-term analytic gradients, as the JAX library's:
+        ``grad_terms[k]`` is a tuple of ``(comp_idx, grad_fn)`` pairs,
+        one for each input component whose partial of term k is not
+        structurally zero (in the JAX library's order), ``grad_fn(z)``
+        that partial at ``z`` (indexed by component: a vector, or a
+        sequence of equally shaped tensors); a constant partial is the
+        Python float 1.0."""
+        def comps(t):
+            # The JAX library's order: the monomial's components, then
+            # the trig factor's.
+            cs = [c for c, e in enumerate(t.exps) if e]
+            return cs + ([t.trig_comp] if t.trig and t.trig_comp not in cs else [])
+
+        return tuple(
+            tuple((c, (lambda z, t=t, c=c: term_partial(t, c, z))) for c in comps(t))
+            for t in self.terms
+        )
+
+    def jacobian(self, z):
+        """Closed-form feature Jacobian: z (..., n_inputs) -> (...,
+        n_features, n_inputs), each entry ``term_partial`` (0 where
+        structurally zero): one evaluation of the partials, where
+        ``jacfwd`` pushes a tangent through the library per input."""
+        comps = [z[..., c] for c in range(self.n_inputs)]
+        zero = z.new_zeros(z.shape[:-1])
+        rows = []
+        for t in self.terms:
+            row = []
+            for c in range(self.n_inputs):
+                g = term_partial(t, c, comps)
+                row.append(zero if g is None else torch.broadcast_to(
+                    torch.as_tensor(g, dtype=z.dtype, device=z.device), zero.shape))
+            rows.append(torch.stack(row, dim=-1))
+        return torch.stack(rows, dim=-2)
 
     def __call__(self, z):
         dev, dt = z.device, z.dtype

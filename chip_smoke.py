@@ -71,7 +71,7 @@ Phases (each raises on failure, so the exit code is non-zero):
    them, one BO round of 25 candidates (instead of four) padded to 32
    lanes, the bucket pinned to 2 x relu, 20 epochs (instead of 50), every
    lane its own 256-wide masked net, the horizon-masked per-lane solve
-   (K4 at (4,1)) at H=25 for 12 closed-loop steps (instead of 199) on
+   (K4 at (4,1)) at H=25 for 6 closed-loop steps (instead of 199) on
    the surrogate and on the true dynamics; the ask, per-lane training and closed-loop
    seconds, evals/s and K4's launches by B printed, no NaN score; the
    incumbent simulated on the true dynamics from the canonical start
@@ -122,7 +122,7 @@ Phases (each raises on failure, so the exit code is non-zero):
    per-path costs within 1e-4 of the float64 CPU step's on the card's
    draws and its first control within 1e-2 umax; (b) its DT rows (20
    knots): the step latency, the receding SQP loop's per-step latency
-   (30 steps), the first solve from 256 starts against float64 on the
+   (15 steps), the first solve from 256 starts against float64 on the
    lanes that took the same step sizes; (c) ``MPPIFanout`` and
    ``DirectTranscriptionFanout`` at 256 candidates with and without the
    GaussReg term, evals/s and finite scores; (d) ``PipelineTuner.run``
@@ -220,6 +220,19 @@ Phases (each raises on failure, so the exit code is non-zero):
    data, the 48-term quadratic library, lasso) through the batch-major
    solve with its feature_spec at B=1024, H=200 (K1's batch-major entry,
    K4 and K7 at (18, 6)): solves/s, converged and finite shares, not gated;
+19. the remaining kernels at every (ds, dc) (the constants ``DS_*``);
+20. the solver's remaining options at ``SO_SMOKE`` (``SO_*``; the
+   constants' comment says what and why): (a) the main path's problem on
+   the batch-major body under ``backward`` "assoc", "pallas" (K6) and
+   "scan", solves/s, converged fractions, the agreement shares, assoc's
+   gains on the first carry against K6's; the SQP under "assoc" against
+   "scan" on phase 15's Koopman; (b) ``make_staged_ilqr_solver`` against
+   the scheduled batch-major solve; (c) ``relin="xla"`` and
+   ``analytic_jac``; (d) a fixed dense cost, fused (K3's dense form, K4)
+   against unfused (K7); (e) the GaussReg joint-SINDy fan-out on the
+   105-term library, fused (K3's per-lane batch-major entry past 64
+   terms) against unfused; (f) the cheetah row at K5's precisions
+   "highest", "default" and "bf16x3", and "default" on phase 7's MLP;
 3. kernels vs plain twins: each CUDA kernel against its plain PyTorch
    twin on the card, on inputs taken from every path that launches it,
    at that path's shape: the lanes-last kernels on the main path's carry
@@ -289,7 +302,9 @@ and (c') for K4 (``launches_gp``), phase 17 (d) for K1's batch-major
 entry, K6 and K7 (``launches_model_tuning``), phase 18 (a) for K1, K2, K3 at (2, 1)
 (solves and closed loop apart), each configuration of 18 (b) and 18 (c)
 for theirs, 18 (d) for K1's batch-major entry, K4 and K7 at (18, 6),
-each variant of phase 9 for the main
+each path of phase 20 for its own (the new modes' rows
+count K3's dense form in (d), its per-lane entry past 64 terms in (e),
+K5 by precision in (f)), each variant of phase 9 for the main
 path's kernels (``launches_bf16`` counts a wrapper's bfloat16 instances,
 ``launches_by_B`` its launches by the batch size of the call). A
 kernel that never ran on its path fails the run. Phase 3 runs after
@@ -364,10 +379,13 @@ CP_CONV_MIN = 0.1
 HCQ_ALIVE_MIN = 0.5
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
-# rate and float32 rate outside the tensor cores. ``bound_ms`` is the
-# larger of bytes / HBM_BYTES_PER_S and operations / F32_FLOPS.
+# rate, float32 rate outside the tensor cores and the dense bfloat16
+# tensor-core rate. ``bound_ms`` is the larger of bytes / HBM_BYTES_PER_S
+# and the operations over the rate of their type: float32 operations /
+# F32_FLOPS plus products of bfloat16 operands / BF16_FLOPS.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 # Kernel-vs-twin tolerances (normwise: max|kernel - twin| / max|twin|).
 # K1: float32, sinf/cosf vs torch.sin/cos (<= 2 ulp each) and FMA
@@ -456,6 +474,33 @@ TOL_K5_HEAD = 1e-5
 TOL_K5 = 1e-4
 K5_WITHIN_MIN = 0.99
 TOL_K5_SUM = 2e-5
+# K5 at precision "default" (one bfloat16 pass; K5's default rule): a
+# bfloat16 rounding that one float32 ulp flips parts a rollout from the
+# plain version's early, so a rollout that misses TOL_K5_HEAD counts as
+# within if it is no farther from the float64 rollout of the same rounding
+# than the plain float32 version is (ROADMAP hazard 9), and K5_WITHIN_MIN
+# of the rollouts must be within (a flip is as likely in the kernel as in
+# the plain version: on the first card run, 7 of 40,960 rollouts of phase
+# 20's cartpole MLP missed TOL_K5_HEAD, 4 of them no farther from float64);
+# the next-state check at the kernel's own states holds on K5_WITHIN_MIN
+# of the (rollout, step) points: a hidden input that lies within a float32
+# rounding of a bfloat16 boundary rounds one bfloat16 ulp apart in float32
+# and in float64.
+# K5 at "bf16x3": each product carries the split's relative error of
+# ~2^-16 (lo's own rounding and the dropped lo.lo term), 2^8 times
+# float32's, and a last-digit difference in an activation between kernel
+# and plain version moves lo by a bfloat16 ulp on about 1 input in 256;
+# so its rollouts are held to K5_BF16X3_SCALE times TOL_K5_HEAD and
+# TOL_K5, under the rule of "highest" otherwise (the first card run, the
+# cheetah row: the head's worst 3.7e-5, 99% of the rollouts within 1.3e-4
+# over the horizon; kernel and plain version each at most 5.8e-5 from the
+# float64 rollout of the same split).
+K5_BF16X3_SCALE = 10
+# The bf16x3 control: the median over rollouts of the bf16x3 kernel's
+# head error against the plain bf16x3 version, over the median of the
+# kernel at "highest" against the same plain version (1 for a kernel
+# that ignored the switch).
+K5_BF16X3_CONTROL = 0.25
 
 # Phase 8: the scaling harness's fixed-model fan-out, nothing cut.
 FAN_B, FAN_H, FAN_STEPS = 1024, 10, 50
@@ -516,7 +561,8 @@ OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out"
 # 1,262.5 s of 1,260 on a slow host, phase 11 113.7 s of it), 12 since
 # phase 17 was added (the command 891.0 s of its 1,200 with the other
 # cuts of phase 17's first runs, phase 11's closed loops 34.5 s of it).
-JM_TRAJS, JM_EPOCHS, JM_ITERS, JM_BATCH, JM_STEPS = 40, 20, 25, 25, 13
+# JM_STEPS: 7 since phase 20 was added [13].
+JM_TRAJS, JM_EPOCHS, JM_ITERS, JM_BATCH, JM_STEPS = 40, 20, 25, 25, 7
 JM_PIN = dict(n_hidden_layers="2", nonlintype="relu")
 JM_COMPACT = ((4, 0.5), (8, 0.25), (14, 0.125))
 # Phase 2's SINDy: the 55-term trig + interaction library.
@@ -564,7 +610,8 @@ TOL_K7_SUM = 1e-5
 # K2, K3), (b) the batch-major body the tuner takes (K1's batch-major
 # entry, K6, K7). One warm and JS_CALLS timed calls each; the two
 # configurations' first MPC-step solves must agree as phase 8's do.
-JS_B, JS_H, JS_STEPS, JS_CALLS = 1024, 10, 50, 2
+# JS_CALLS: 1 since phase 20 was added [2].
+JS_B, JS_H, JS_STEPS, JS_CALLS = 1024, 10, 50, 1
 JS_SCHEDULE = "4:0.5,8:0.25,14:0.125"
 JS_CONFIGS = {
     "a": dict(backward="pallas", use_feature_kernels=True, fuse_ls=True, lanes_last=True),
@@ -635,8 +682,8 @@ GR_CONFIGS = {
     "2": dict(backward="pallas", fuse_ls=False, lanes_last=False),
 }
 GR_JS_STEPS = 10
-# GR_TUNE_STEPS: 25 since phase 18 was added [50].
-GR_TUNE_BATCH, GR_TUNE_ITERS, GR_TUNE_STEPS, GR_SEQ_STEPS = 128, 256, 25, 50
+# GR_TUNE_STEPS: 25 since phase 18 was added, 13 since phase 20 was added [50].
+GR_TUNE_BATCH, GR_TUNE_ITERS, GR_TUNE_STEPS, GR_SEQ_STEPS = 128, 256, 13, 50
 
 # Phase 14: the MPPI and direct-transcription controllers, their receding
 # loops, their fan-outs and the tuner's kinds "mppi" and "dt" (no kernel:
@@ -687,12 +734,14 @@ CT_STEP_REPS, CT_LOOP_STEPS, CT_LOOP_REPS = 20, 200, 1
 HC_MPPI_SIGMA = HC_MPPI_LMDA = 0.5
 CT_COST_TOL, CT_DU0_TOL = 1e-4, 1e-2
 DT_HORIZON_S, DT_STEP_REPS = 1.0, 10
-DT_LOOP_KNOTS, DT_LOOP_STEPS, DT_LOOP_REPS = 20, 30, 1
+# DT_LOOP_STEPS: 15 since phase 20 was added [30].
+DT_LOOP_KNOTS, DT_LOOP_STEPS, DT_LOOP_REPS = 20, 15, 1
 DT_CHECK_B, DT_US_TOL = 256, 1e-3
 CF_B, CF_H, CF_PATHS, CF_KNOTS, CF_STEPS, CF_CALLS, CF_SEED = 256, 20, 200, 10, 50, 1, 14
 CF_DT_STEPS = 20
-CT_TUNE_BATCH, CT_TUNE_STEPS, CT_SEQ_ITERS, CT_SEQ_STEPS = 64, 100, 4, 25
-CT_DT_TUNE_STEPS, CT_DT_SEQ_STEPS = 25, 15
+# CT_TUNE_STEPS, CT_DT_TUNE_STEPS: 50 and 13 since phase 20 was added [100, 25].
+CT_TUNE_BATCH, CT_TUNE_STEPS, CT_SEQ_ITERS, CT_SEQ_STEPS = 64, 50, 4, 25
+CT_DT_TUNE_STEPS, CT_DT_SEQ_STEPS = 13, 15
 
 # Phase 15: the linear models (ARX, Koopman with its lstsq, lasso and
 # stable fits, LQR), BASELINE.json configs[0] and [3], bench_scaling.py's
@@ -757,8 +806,8 @@ LM_LASSO_ALPHA = 1e-3
 JK_B, JK_H, JK_STEPS, JK_CALLS, JK_SEED = 1024, 10, 25, 1, 15
 JK_SCHEDULE = "8:0.5,16:0.25,28:0.125,40:0.0625"
 JK_BASIS = dict(trig_basis=True, trig_freq=1)
-# LM_TUNE_STEPS: 25 since phase 18 was added [50].
-LM_TUNE_BATCH, LM_TUNE_STEPS, LM_TUNE_H, LM_SEQ_STEPS, LM_LQR_ITERS = 64, 25, 10, 25, 2
+# LM_TUNE_STEPS: 25 since phase 18 was added, 13 since phase 20 was added [50].
+LM_TUNE_BATCH, LM_TUNE_STEPS, LM_TUNE_H, LM_SEQ_STEPS, LM_LQR_ITERS = 64, 13, 10, 25, 2
 
 # Phase 16: the approximate GP (SVGP) and the pendulum. (a)
 # bench_extra.py's svgp_train_s_and_pred_throughput row uncut:
@@ -801,7 +850,8 @@ GP_A = dict(niter=5, induce_count=64, batch_size=256, seed=0)
 GP_A_TRAJS, GP_A_POINTS, GP_A_REPS, GP_PRED_TOL = 40, 4096, 10, 1e-3
 GP_B, GP_H, GP_STEPS, GP_CALLS, GP_SEED, GP_M = 512, 10, 5, 1, 0, 100
 GP_SCHEDULE = "8:0.5,16:0.25,28:0.125,40:0.0625"
-GP_DISTINCT, GP_ITERS, GP_REG_STEPS = 16, 5, 10
+# GP_REG_STEPS: 5 since phase 20 was added [10].
+GP_DISTINCT, GP_ITERS, GP_REG_STEPS = 16, 5, 5
 # GP_TUNE_STEPS: 6 since phase 18 was added [11].
 GP_TUNE_BATCH, GP_TUNE_STEPS, GP_TUNE_H, GP_SEQ_STEPS = 64, 6, 10, 25
 PEND_SEED, PEND_CHECK_N, PEND_LEN, PEND_DATA_TOL = 0, 64, 100, 1e-3
@@ -848,7 +898,8 @@ MT_AGREE_TOL = {"SINDy": 1e-3, "Koopman": 1e-3, "MLP": 5e-2}
 MT_RMSE_FLOOR = 1e-3
 # MT_SEL_ITERS: one round of 8 since phase 18 was added [16].
 MT_SEL_SEED, MT_SEL_BATCH, MT_SEL_ITERS = 17, 8, 8
-MT_TUNE_SEED, MT_TUNE_BATCH, MT_TUNE_STEPS, MT_TUNE_SURR_ITERS = 100, 128, 50, 8
+# MT_TUNE_STEPS: 25 since phase 20 was added [50].
+MT_TUNE_SEED, MT_TUNE_BATCH, MT_TUNE_STEPS, MT_TUNE_SURR_ITERS = 100, 128, 25, 8
 MT_VMAP_N, MT_VMAP_STEPS, MT_VMAP_AGREE_MIN = 8, 3, 6
 
 # Phase 18: the feature kernels off the cartpole's shape. (a) the
@@ -1028,15 +1079,16 @@ def draw_x0(rng, n, dev):
     return torch.as_tensor(x0, dtype=default_dtype(dev), device=dev)
 
 
-def bound_keys(total_bytes, total_ops):
+def bound_keys(total_bytes, total_ops, bf16_ops=0):
     """The report's ``bound_ms`` and ``bound_by``: the least time the
     card could take to move ``total_bytes`` (every input read once,
     every output written once) and to do ``total_ops`` float32
-    operations, the larger of the two (each also given on its own). No
-    single PyTorch call computes any of these kernels' functions, so
-    ``library_ms`` is None for all of them."""
+    operations and ``bf16_ops`` operations of products of bfloat16
+    operands (at the tensor cores' rate), the larger of the two (each
+    also given on its own). No single PyTorch call computes any of these
+    kernels' functions, so ``library_ms`` is None for all of them."""
     t_bytes = total_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = total_ops / F32_FLOPS * 1e3
+    t_ops = (total_ops / F32_FLOPS + bf16_ops / BF16_FLOPS) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_bytes_ms=t_bytes, bound_ops_ms=t_ops, library_ms=None)
@@ -1099,10 +1151,24 @@ def k3_bound(io_bytes, B, H, terms, L, ds=4):
     return dict(bound_keys(io_bytes, ops), scratch_bytes_ms=stash / HBM_BYTES_PER_S * 1e3)
 
 
-def mlp_rollout_flops(widths, ds, dc):
-    """Float32 operations of one rollout-step of the MLP line search:
-    the feedback law and the layer products."""
-    return 2 * dc * (ds + 2) + sum(2 * a * b + 2 * b for a, b in zip(widths[:-1], widths[1:]))
+def mlp_rollout_ops(widths, ds, dc, precision="highest", r0=None):
+    """(float32 operations, bfloat16-product operations) of one
+    rollout-step of the MLP line search. Float32: the feedback law, the
+    biases and activations, and at "highest" the layer products. At
+    "default" a layer product is one bfloat16 product an input-unit pair
+    (a multiply and an add; the first layer's inputs from ``r0`` on stay
+    float32), at "bf16x3" three, with the two partial sums' adds in
+    float32; roundings count nothing (a tensor core takes bfloat16
+    operands as they come)."""
+    pairs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    units = sum(widths[1:])
+    f32 = 2 * dc * (ds + 2) + 2 * units
+    if precision == "highest":
+        return f32 + 2 * pairs, 0
+    if precision == "default":
+        kept = (widths[0] - (widths[0] if r0 is None else r0)) * widths[1]
+        return f32 + 2 * kept, 2 * (pairs - kept)
+    return f32 + 2 * units, 6 * pairs
 
 
 def stage_expansions(cost, xs, us, H, dt):
@@ -1139,6 +1205,30 @@ def cheetah_problem(hc, trajs, seed, dev):
         ubounds=(bounds[:, 0], bounds[:, 1]), backward="pallas",
         pred_diff=model.pred_diff_core,
         mlp_ls=dict(nonlin=model.nonlintype, layout="feat", precision="highest"),
+    )
+    return model, cost, kw
+
+
+def dense_cartpole_problem(bench, trajs):
+    """Phase 7's model, cost and solver options: a cartpole MLP (5-64-64-4,
+    10 epochs) on ``trajs``, a QuadCost whose Q couples theta and omega,
+    the general Riccati kernel at (4, 1) and the MLP line search."""
+    from autompc_torch.costs import QuadCost
+    from autompc_torch.sysid import MLP
+
+    model = MLP(bench.system, n_hidden_layers=2, hidden_size=64, n_train_iters=10, n_batch=64)
+    model.train(trajs)
+    Qc = np.diag([10.0, 0.1, 0.01, 0.01])
+    Qc[0, 1] = Qc[1, 0] = 0.05          # couples theta and omega
+    cost = QuadCost(bench.system, Qc, 0.001 * np.eye(1), Qc, goal=np.zeros(4))
+    bounds = bench.task.get_ctrl_bounds()
+    kw = dict(
+        H=H, ds=4, dc=1, obsdim=4, dt=bench.system.dt,
+        ubounds=(bounds[:, 0], bounds[:, 1]), backward="pallas",
+        pred_diff=model.pred_diff_core,
+        # "mxu" names the TPU's second entry to this line search; the port
+        # has one kernel for every layout.
+        mlp_ls=dict(nonlin=model.nonlintype, layout="mxu"),
     )
     return model, cost, kw
 
@@ -1247,15 +1337,22 @@ def check_k4(tag, K4, k4_args, launches, device_time=False):
 
 
 def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
-                              n_iters=3, head_f64=False):
+                              n_iters=3, head_f64=False, k4=True, device_time=False):
     """K4 and K5 against their plain versions on the carry of the
-    batch-major solver after ``n_iters`` iterations. With ``head_f64``, a K5 rollout whose first
+    batch-major solver after ``n_iters`` iterations, K5 at the precision
+    of ``solver_kw["mlp_ls"]`` (with ``device_time`` its time under the
+    profiler too). With ``head_f64``, a K5 rollout whose first
     K5_HEAD steps miss TOL_K5_HEAD against the plain version passes if
-    it is no farther from the plain version run in float64 than the
-    plain float32 version is. Returns (report rows, failure strings)."""
+    it is no farther from the plain version run in float64 (the same
+    rounding) than the plain float32 version is; "default" always takes
+    that rule (K5's default rule, beside TOL_K5_SUM). ``k4=False``: K5
+    alone (the gains from
+    K4 unchecked). Returns (report rows, failure strings)."""
     from autompc_torch.control import make_batched_ilqr_solver
 
     H, dt = solver_kw["H"], solver_kw["dt"]
+    precision = solver_kw["mlp_ls"].get("precision", "highest")
+    layout = solver_kw["mlp_ls"].get("layout", "slab")
     B, ds = x0.shape
     dc = solver_kw["dc"]
     _, make_carry0, _, make_body = make_batched_ilqr_solver(
@@ -1268,8 +1365,12 @@ def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
     rows, failures = [], []
 
     k4_args = (c["Jx"], c["Ju"], *stage_expansions(cost, c["xs"], c["us"], H, dt))
-    row, failures, gk, ok = check_k4(tag, K4, k4_args, launches["K4"])
-    rows.append(row)
+    if k4:
+        row, failures, gk, ok = check_k4(tag, K4, k4_args, launches["K4"])
+        rows.append(row)
+    else:
+        gk = K4.riccati_general(*k4_args)
+        ok = torch.isfinite(gk[0]).all(dim=(1, 2, 3)) & torch.isfinite(gk[1]).all(dim=(1, 2))
 
     nonlin = model.nonlintype
     layers = K5.fold_mlp_params(model.params)
@@ -1280,13 +1381,17 @@ def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
     ub = solver_kw["ubounds"]
     k5_path_args = (layers, nonlin, c["x0s"], c["xs"], c["us"], gk[0], gk[1], alphas,
                     ub[0], ub[1])
+    k5_kw = dict(layout=layout, precision=precision)
     live = ok & torch.isfinite(c["xs"]).all(dim=(1, 2))
     if not live.any():
         return rows, failures + [f"K5 {tag}: no lane with finite gains and carry to compare"]
     c = {k: c[k][live].contiguous() for k in ("x0s", "xs", "us")}
     Ks, ks = gk[0][live].contiguous(), gk[1][live].contiguous()
     k5_args = (layers, nonlin, c["x0s"], c["xs"], c["us"], Ks, ks, alphas, ub[0], ub[1])
-    (kx, ku), (px, pu) = K5.mlp_line_search(*k5_args), K5.mlp_line_search_plain(*k5_args)
+    (kx, ku), (px, pu) = (K5.mlp_line_search(*k5_args, **k5_kw),
+                          K5.mlp_line_search_plain(*k5_args, **k5_kw))
+    scale = K5_BF16X3_SCALE if precision == "bf16x3" else 1
+    tol_head, tol_full = TOL_K5_HEAD * scale, TOL_K5 * scale
 
     def rollout_err(upto):
         """Per rollout, max |kernel - plain| over its first ``upto``
@@ -1296,20 +1401,44 @@ def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
 
     e_head = float(rollout_err(K5_HEAD + 1).max())
     e_full = rollout_err(H + 1).reshape(-1)
-    full_within = (e_full <= TOL_K5).float().mean().item()
+    full_within = (e_full <= tol_full).float().mean().item()
     # The plain version's rollouts in float64: how far the kernel and the
     # plain float32 version each are from them over the first K5_HEAD
     # steps, per rollout, relative to its largest float64 state there.
     rx64, _ = K5.mlp_line_search_plain(
         tuple((W.double(), b.double()) for W, b in layers), nonlin,
-        *(t.double() for t in k5_args[2:7]), *k5_args[7:])
+        *(t.double() for t in k5_args[2:7]), *k5_args[7:], **k5_kw)
     n_head = K5_HEAD + 1
     ref = rx64[:, :, :n_head].abs().amax(dim=(2, 3)).clamp_min(1e-30)
     e_k64, e_p64 = ((a[:, :, :n_head].double() - rx64[:, :, :n_head]).abs().amax(dim=(2, 3))
                     / ref for a in (kx, px))
-    head_ok = rollout_err(n_head) <= TOL_K5_HEAD
-    if head_f64:
+    head_ok = rollout_err(n_head) <= tol_head
+    # "bf16x3": the control. The kernel at "highest" on the same inputs,
+    # held against the plain bf16x3 version as the bf16x3 kernel is: a
+    # kernel that ran "highest" under the bf16x3 switch would sit as far
+    # from the plain version as this one does, so the bf16x3 kernel's
+    # median head error must be at most K5_BF16X3_CONTROL of it.
+    control = None
+    if precision == "bf16x3":
+        hx, _ = K5.mlp_line_search(*k5_args, layout=layout, precision="highest")
+        d_ctl = ((hx[:, :, :n_head].double() - px[:, :, :n_head].double()).abs()
+                 .amax(dim=(2, 3)) / px[:, :, :n_head].double().abs().amax(dim=(2, 3))
+                 .clamp_min(1e-30))
+        e_med, c_med = float(rollout_err(n_head).median()), float(d_ctl.median())
+        control = dict(head_median=e_med, highest_head_median=c_med,
+                       ratio=e_med / max(c_med, 1e-30))
+        print(f"[3] K5 {tag} control: first {K5_HEAD} steps against the plain bf16x3 "
+              f"version, median over rollouts: the bf16x3 kernel {e_med:.3e}, the kernel at "
+              f"'highest' {c_med:.3e} (worst {float(d_ctl.max()):.3e}); ratio "
+              f"{control['ratio']:.4f} (max {K5_BF16X3_CONTROL})", flush=True)
+        if not control["ratio"] <= K5_BF16X3_CONTROL:
+            failures.append(f"K5 {tag} (bf16x3): head error {e_med:.3e} is not below "
+                            f"{K5_BF16X3_CONTROL} of the 'highest' kernel's {c_med:.3e}")
+    if head_f64 or precision == "default":
         head_ok |= e_k64 <= e_p64
+    # "default": a share of the rollouts (K5's default rule).
+    head_pass = (float(head_ok.double().mean()) >= K5_WITHIN_MIN if precision == "default"
+                 else bool(head_ok.all()))
     # float64 evaluation at the kernel's own states (see TOL_K5_SUM).
     a64 = torch.tensor(alphas, dtype=torch.float64, device=x0.device)[None, :, None, None]
     dx = kx[:, :, :-1].double() - c["xs"][:, None, :-1].double()
@@ -1322,50 +1451,75 @@ def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
     e_u = float(((ku.double() - u64).abs() / scale.clamp_min(1e-30)).max())
     h = torch.cat([kx[:, :, :-1].double(), ku.double()], dim=-1)
     mag = h.abs()
-    for i, (W, b) in enumerate(layers):
-        W, b = W.double(), b.double()
-        mag = mag @ W.abs() + b.abs()
-        h = h @ W + b
-        if i < len(layers) - 1:
+    # The products at the kernel's precision: its roundings of the
+    # weights, and of each layer's input (in float64 here).
+    prec_k, r0 = K5.kernel_precision(precision, layout), K5.round0(layers, layout)
+    wl = K5._weights(tuple((W.double(), b.double()) for W, b in layers), prec_k, r0)
+    for i, (W, b) in enumerate(wl):
+        Wa = sum(w.abs() for w in W) if prec_k == "bf16x3" else W.abs()
+        mag = mag @ Wa + b.abs()
+        h = K5._product(h, W, prec_k, r0 if i == 0 else None) + b
+        if i < len(wl) - 1:
             h = getattr(torch, nonlin)(h)
             mag = mag if nonlin in ("relu", "selu") else torch.ones_like(mag)
     x64 = kx[:, :, :-1].double() + h
-    e_x = float(((kx[:, :, 1:].double() - x64).abs()
-                 / (kx[:, :, :-1].double().abs() + mag).clamp_min(1e-30)).max())
+    e_pt = ((kx[:, :, 1:].double() - x64).abs()
+            / (kx[:, :, :-1].double().abs() + mag).clamp_min(1e-30)).amax(-1)
+    e_x = float(e_pt.max())
+    # "default" rounds each hidden input to bfloat16: where the float64
+    # evaluation's input lies across a rounding boundary from the
+    # kernel's float32 one, the two round one bfloat16 ulp apart, so the
+    # next-state check is a share (K5's default rule).
+    x_within = float((e_pt <= TOL_K5_SUM).double().mean())
     widths = [ds + dc] + [int(b.shape[0]) for _, b in layers]
     weights = [t for pair in layers for t in pair]
+    prec_tag = "" if precision == "highest" else f",{precision}"
     rows.append(dict(
-        name="mlp_line_search[" + "-".join(str(w) for w in widths) + "]", route="cuda",
+        name="mlp_line_search[" + "-".join(str(w) for w in widths) + prec_tag + "]",
+        route="cuda",
         source="autompc_torch/csrc/mlp_linesearch.cu",
         replaces="autompc_tpu/ops/pallas_mlp_linesearch.py:"
                  + ("599" if solver_kw["mlp_ls"].get("layout") == "mxu" else "515"),
         launches=launches["K5"],
         max_abs_err=max(abs_err(kx, px), abs_err(ku, pu)),
-        ms=time_ms(lambda: K5.mlp_line_search(*k5_path_args)),
-        plain_ms=time_ms(lambda: K5.mlp_line_search_plain(*k5_path_args), reps=3),
+        ms=time_ms(lambda: K5.mlp_line_search(*k5_path_args, **k5_kw)),
+        plain_ms=time_ms(lambda: K5.mlp_line_search_plain(*k5_path_args, **k5_kw), reps=3),
         **bound_keys(
             n_bytes(*weights, *k5_path_args[2:7]) + n_bytes(kx, ku) * B // int(live.sum()),
-            B * len(alphas) * H * mlp_rollout_flops(widths, ds, dc),
+            *(B * len(alphas) * H * n
+              for n in mlp_rollout_ops(widths, ds, dc, prec_k, r0)),
         ),
+        **({} if precision == "highest" else dict(
+            tol_head=tol_head, tol_full=tol_full,
+            head_over_tol=int((rollout_err(n_head) > tol_head).sum()),
+            head_over_tol_f64_ok=int(((rollout_err(n_head) > tol_head)
+                                      & (e_k64 <= e_p64)).sum()),
+            rollouts=int(rollout_err(n_head).numel()), next_x_within=x_within,
+            **({} if control is None else dict(control=control)))),
+        **(dict(device_ms=device_ms(lambda: K5.mlp_line_search(*k5_path_args, **k5_kw)))
+           if device_time else {}),
     ))
     print(f"[3] K5 MLP line search {tag} widths {widths} B={B}, {int(live.sum())} live "
           f"lanes compared: per-rollout xs vs plain: first {K5_HEAD} steps worst "
-          f"{e_head:.3e} (tol {TOL_K5_HEAD}); all {H} steps median "
+          f"{e_head:.3e} (tol {tol_head:g}); all {H} steps median "
           f"{float(e_full.median()):.3e}, 99% {float(e_full.quantile(0.99)):.3e}, worst "
-          f"{float(e_full.max()):.3e}, within {TOL_K5} on {full_within:.4f} (min "
+          f"{float(e_full.max()):.3e}, within {tol_full:g} on {full_within:.4f} (min "
           f"{K5_WITHIN_MIN}); normwise xs {rel_err(kx, px):.3e}, us {rel_err(ku, pu):.3e}; "
           f"vs float64 at the kernel's states: u {e_u:.3e}, next x {e_x:.3e} of term "
-          f"magnitudes (tol {TOL_K5_SUM}); first {K5_HEAD} steps vs the float64 rollouts: "
+          f"magnitudes (tol {TOL_K5_SUM}; within it on {x_within:.6f} of the points); first "
+          f"{K5_HEAD} steps vs the float64 rollouts: "
           f"kernel worst {float(e_k64.max()):.3e}, plain float32 worst "
-          f"{float(e_p64.max()):.3e}; rollouts over {TOL_K5_HEAD} against plain "
-          f"{int((rollout_err(n_head) > TOL_K5_HEAD).sum())}"
+          f"{float(e_p64.max()):.3e}; rollouts over {tol_head:g} against plain "
+          f"{int((rollout_err(n_head) > tol_head).sum())}"
           + (f", of them no farther from float64 than plain float32 "
-             f"{int(((rollout_err(n_head) > TOL_K5_HEAD) & (e_k64 <= e_p64)).sum())}"
-             if head_f64 else ""), flush=True)
-    if not (bool(head_ok.all()) and full_within >= K5_WITHIN_MIN
-            and e_u <= TOL_K5_SUM and e_x <= TOL_K5_SUM):
-        failures.append(f"K5 {tag} head {e_head:.3e} full within {full_within:.4f} "
-                        f"u {e_u:.3e} next x {e_x:.3e}")
+             f"{int(((rollout_err(n_head) > tol_head) & (e_k64 <= e_p64)).sum())}; within "
+             f"on {float(head_ok.double().mean()):.6f} of the rollouts"
+             if head_f64 or precision == "default" else ""), flush=True)
+    x_ok = x_within >= K5_WITHIN_MIN if precision == "default" else e_x <= TOL_K5_SUM
+    if not (head_pass and full_within >= K5_WITHIN_MIN
+            and e_u <= TOL_K5_SUM and x_ok):
+        failures.append(f"K5 {tag} ({precision}) head {e_head:.3e} full within "
+                        f"{full_within:.4f} u {e_u:.3e} next x {e_x:.3e} (within {x_within:.6f})")
     return rows, failures
 
 
@@ -2762,11 +2916,13 @@ def reset_gauss_reg(wrappers):
             w.launches_reg = 0
 
 
-def first_step_agreement(tag, solves, x0, ug, cp, dt, S, mu, params):
+def first_step_agreement(tag, solves, x0, ug, cp, dt, S, mu, params, label="[13]",
+                         min_both=None):
     """The first MPC step's solves of the two configurations ``solves``
     (config -> solve) on the same candidates: accepted objectives (with
     the GaussReg term) within FAN_OBJ_TOL on FAN_AGREE_MIN of the lanes
-    converged in both, as phase 8's."""
+    converged in both (at least ``min_both`` of them; None: a quarter of
+    the batch), as phase 8's."""
     res = {cfg: solve(params, x0, ug, cp) for cfg, solve in solves.items()}
     (ka, ra), (kb, rb) = res.items()
     obj = {cfg: reg_lane_objective(o[1], o[2], cp, dt, S, mu) for cfg, o in res.items()}
@@ -2774,12 +2930,13 @@ def first_step_agreement(tag, solves, x0, ug, cp, dt, S, mu, params):
     rel = ((obj[ka] - obj[kb]).abs() / obj[kb].abs().clamp_min(1e-30))[both]
     share = float((rel <= FAN_OBJ_TOL).float().mean()) if both.any() else 0.0
     B = x0.shape[0]
-    print(f"[13] {tag} first MPC step, ({ka}) vs ({kb}): converged ({ka}) {int(ra[0].sum())}, "
+    min_both = B // 4 if min_both is None else min_both
+    print(f"{label} {tag} first MPC step, ({ka}) vs ({kb}): converged ({ka}) {int(ra[0].sum())}, "
           f"({kb}) {int(rb[0].sum())}, both {int(both.sum())} of {B}; accepted objective "
           f"relative difference on those: median {float(rel.median()):.3e}, 90% "
           f"{float(rel.quantile(0.9)):.3e}, max {float(rel.max()):.3e}; within {FAN_OBJ_TOL} "
           f"on {share:.4f} (min {FAN_AGREE_MIN})", flush=True)
-    if int(both.sum()) < B // 4 or share < FAN_AGREE_MIN:
+    if int(both.sum()) < min_both or share < FAN_AGREE_MIN:
         raise RuntimeError(f"{tag} first step: {int(both.sum())} lanes converged in both, "
                            f"objectives agree on {share:.4f}")
 
@@ -3034,7 +3191,8 @@ def k3_bm_bound(io_bytes, B, H, terms, L, reg):
     return out
 
 
-def check_k3_bm(tag, K1, K3, K4, terms, coeffs, c, S, mu, dt, alphas, bound, plain=None):
+def check_k3_bm(tag, K1, K3, K4, terms, coeffs, c, S, mu, dt, alphas, bound, plain=None,
+                device_time=None):
     """K3's batch-major entry, with and without the GaussReg term, against
     its plain twin on the batch-major carry ``c`` (after the solver's
     backward pass on it): decisions (flags, and the step size as the
@@ -3050,7 +3208,7 @@ def check_k3_bm(tag, K1, K3, K4, terms, coeffs, c, S, mu, dt, alphas, bound, pla
     (TOL_K1); no output not finite where the twin's is; and a zero weight
     gives the instance without the term bit for bit. ``plain``:
     ``time_ms``'s arguments for the plain twin (None: 3 runs, and the
-    kernel's device time is taken too). Returns ({"reg":
+    kernel's device time is taken too, as with ``device_time``). Returns ({"reg":
     measurements, "no_reg": measurements}, failure strings)."""
     from autompc_torch.ops.cuda_linesearch import _sweep
 
@@ -3117,7 +3275,7 @@ def check_k3_bm(tag, K1, K3, K4, terms, coeffs, c, S, mu, dt, alphas, bound, pla
                             f"{e_obj:.3e}, obj64 {e_obj64:.3e}, du2 {e_du2:.3e}, jac {e_jac:.3e}")
         call = lambda reg=reg: K3.fused_line_search_bm(*base, reg=reg)
         timed = dict(ms=time_ms(call))
-        if plain is None:       # the top batch: the kernel's own time too
+        if plain is None or device_time:    # the top batch: the kernel's own time too
             timed["device_ms"] = device_ms(call)
         tensors = [t for t in base if isinstance(t, torch.Tensor)]
         if reg is not None:
@@ -5064,7 +5222,8 @@ def check_shape_kernels(sp, mods, failures):
 DS_JK_STEPS = 10
 DS_JK_BASIS2 = dict(poly_basis=True, poly_degree=2)
 DS_JK2_B, DS_JK2_STEPS = 128, 5
-DS_TUNE_ITERS, DS_TUNE_STEPS = 4, 20
+# DS_TUNE_STEPS: 10 since phase 20 was added [20].
+DS_TUNE_ITERS, DS_TUNE_STEPS = 4, 10
 # The sequential checks of (b) and (c) run DS_SEQ_STEPS - 1 steps (the
 # sequential objective is a host loop of single-lane solves: at 19 steps
 # the two checks took 79.3 s of the phase's 114.2 on an NVIDIA H100 80GB
@@ -5775,6 +5934,613 @@ def check_wide_ll(ctx, tag, c, cost, plain_reps=3):
     }
 
 
+# Phase 20: the solver's remaining options through the entry points a user
+# calls, each beside its yardstick on the same draws, counts reset before
+# and read after each path. (a) the main path's problem (phase 2's model,
+# its feature mask, the fixed diagonal QuadCost, fuse_ls) on the
+# batch-major body under backward "assoc", "pallas" (K6) and "scan":
+# solves/s, converged fractions, and the share of the lanes converged in
+# both whose accepted objective agrees with "pallas" within FAN_OBJ_TOL
+# (min FAN_AGREE_MIN); the SQP under "assoc" against "scan" on phase 15's
+# Koopman (trig basis, ds = 12) and quadratic task cost, SO_DT_STEPS
+# receding steps from SO_DT_B starts on the true dynamics: each step's
+# seconds and the first step's agreement (the lanes with the same step
+# sizes at every iteration: controls within DT_US_TOL, as phase 15 (b));
+# (b) make_staged_ilqr_solver (SO_STAGED) against the scheduled solver's
+# batch-major body (SCHEDULE); (c) relin="xla" (jacfwd), and with
+# analytic_jac, against (a)'s "pallas", and each one's Jacobians on its
+# first carry against K1's; (d) (a)'s problem under a fixed
+# QuadCost whose Q couples the pole angle and its rate (SO_DENSE_Q,
+# positive definite), fuse_ls=True (K3's DENSE form, K4 at (4, 1))
+# against fuse_ls=False (K7), then with a model a lane (batch_params:
+# K3's DENSE form with per-lane coefficients against K7's per-lane
+# instance); (e) the GaussReg joint-SINDy fan-out on
+# phase 12's 105-term library (JS_BIG), fused (K3's batch-major per-lane
+# entry past 64 terms) against unfused (K7), JS_BIG_B lanes, H = JS_H:
+# evals/s and the first step's agreement; then its trained lanes under
+# (d)'s dense cost (K3's DENSE form past 64 terms); (f) the cheetah row (phase 6's
+# model and weights, B_HC, H_HC, layout "feat") at mlp_ls precisions
+# "highest", "default" and "bf16x3" one after another: solves/s and
+# converged fractions (not gated: on the TPU bf16x3 converged on 91.2% of
+# lanes, fewer than "highest"), then "default" with layout "mxu" on phase
+# 7's cartpole MLP. chip_smoke.py runs SO_SMOKE (smaller batches and
+# fewer steps); tools/torch_solver_options_phase.py runs SO_FULL.
+SO_FULL = dict(B=B_KERNEL, B_STAGED=B_SOLVE, js_steps=10, dt_steps=5, hc=True)
+SO_SMOKE = dict(B=1024, B_STAGED=B_KERNEL, js_steps=5, dt_steps=3, hc=True)
+SO_ITERS = 50
+SO_STAGED = dict(chunk_iters=5, min_bucket=1024)
+SO_DENSE_Q = np.diag([10.0, 0.1, 0.01, 0.01])
+SO_DENSE_Q[0, 1] = SO_DENSE_Q[1, 0] = 0.3     # eigenvalues > 0.09: positive definite
+SO_DT_B = 256
+SO_LANE_EPS = 0.01
+SO_PRECISIONS = ("highest", "default", "bf16x3")
+# The agreement gates. Phase 8's FAN_AGREE_MIN of the lanes within
+# FAN_OBJ_TOL holds where the two bodies compute the same float32
+# arithmetic up to a few roundings at H=10 (hazard 7), and it gates (b),
+# whose bodies are one arithmetic, and (e), a first MPC step at H=10. At
+# H=200 and up to 50 iterations two float32 bodies part on a third of the
+# lanes converged in both: on one call (NVIDIA H100 80GB HBM3, 700.00 W,
+# B=1024, the draws of (a)) scan against pallas agreed within 1e-3 on
+# 0.6325 of them, assoc against pallas on 0.6712, and each of the three
+# against a float64 solve on 0.66-0.69, which converged on fewer lanes
+# (PERF.md §6): the knife edge of hazard 1 at every one of the 50
+# acceptances, with no body closer to float64 than another. So (a), (c)
+# and (d) take as floor the share at which scan and pallas, two bodies
+# that predate them, agree in the same call, less SO_SHARE_SLACK; and
+# assoc's gains on (a)'s first carry are held against K6's normwise to
+# TOL_K2, as K2 is held against its plain version.
+SO_SHARE_SLACK = 0.05
+
+
+def so_need(ok, msg):
+    """Raise ``msg`` unless ``ok``: phase 20's gates."""
+    if not ok:
+        raise RuntimeError(f"phase 20 {msg}")
+
+
+def so_objective(cost, xs, us, dt):
+    """The fixed cost's objective of batch-major trajectories, float64."""
+    xs, us = xs.double(), us.double()
+    H = us.shape[1]
+    return (dt * (cost.eval_obs_cost(xs[:, :H]).sum(1) + cost.eval_ctrl_cost(us).sum(1))
+            + cost.eval_term_obs_cost(xs[:, H]))
+
+
+def so_agreement(tag, out, ref, cost, dt, min_both, floor=FAN_AGREE_MIN):
+    """The share of the lanes converged in both solves whose accepted
+    objectives agree within FAN_OBJ_TOL (relative), gated at ``floor``
+    with at least ``min_both`` such lanes; the converged fractions may
+    differ by SO_SHARE_SLACK at most."""
+    both = out[0] & ref[0]
+    a, b = so_objective(cost, out[1], out[2], dt), so_objective(cost, ref[1], ref[2], dt)
+    rel = ((a - b).abs() / b.abs().clamp_min(1e-30))[both]
+    share = float((rel <= FAN_OBJ_TOL).float().mean()) if both.any() else 0.0
+    conv_a, conv_b = float(out[0].float().mean()), float(ref[0].float().mean())
+    print(f"[20] {tag}: converged {conv_a:.4f} against {conv_b:.4f}, both {int(both.sum())}; "
+          f"accepted objectives within {FAN_OBJ_TOL} on {share:.4f} of those (min "
+          f"{floor:.4f}), within 1e-2 on "
+          f"{float((rel <= 1e-2).float().mean()) if both.any() else 0.0:.4f}", flush=True)
+    so_need(int(both.sum()) >= min_both and share >= floor
+            and abs(conv_a - conv_b) <= SO_SHARE_SLACK,
+            f"{tag}: {int(both.sum())} lanes converged in both, objectives agree on "
+            f"{share:.4f} (min {floor:.4f}), converged {conv_a:.4f} against {conv_b:.4f}")
+    return share
+
+
+def so_timed(solve, *args):
+    """(output, seconds) of one call, synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = solve(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def so_counters(mods):
+    K1, K2, K3, K4, K5 = mods
+    return {"K1": K1.relin_jacobians_bm, "K6": K2.backward_quad, "K3": K3.fused_line_search_bm,
+            "K4": K4.riccati_general, "K7": K3.sindy_line_search, "K5": K5.mlp_line_search}
+
+
+def so_reset(ws):
+    from autompc_torch.ops.cuda_linesearch import reset_bm_counters
+
+    reset_launches(ws.values())
+    reset_bm_counters()
+    ws["K5"].launches_by_precision = dict.fromkeys(SO_PRECISIONS, 0)
+
+
+def so_read(ws):
+    out = {k: w.launches for k, w in ws.items()}
+    k3 = ws["K3"]
+    out.update({"K3[dense]": k3.launches_dense, "K3[dense lane]": k3.launches_dense_lane,
+                "K3[no jac]": k3.launches_no_jac,
+                "K3[lane past 64]": k3.launches_lane_big, "K3[lane]": k3.launches_lane})
+    out.update({f"K5[{p}]": n for p, n in ws["K5"].launches_by_precision.items()})
+    return out
+
+
+def solver_options_phase(dev, card, mods, bench, model, trajs, hc_run, cp_run, size=SO_SMOKE):
+    """Phase 20 (a)-(f) at ``size``. ``hc_run`` = (model, cost, kw, x0, ug) of
+    phase 6's cheetah row, ``cp_run`` = (model, cost, kw, x0, ug) of phase
+    7's cartpole MLP. Returns what ``check_solver_option_kernels`` needs."""
+    from autompc_torch.control import (
+        make_batched_ilqr_solver,
+        make_scheduled_ilqr_solver,
+        make_staged_ilqr_solver,
+        parse_schedule,
+    )
+    from autompc_torch.control.nmpc import make_sqp_solver, knot_count
+    from autompc_torch.costs import QuadCost
+    from autompc_torch.parallel import JointSINDyQuadCostFanout
+    from autompc_torch.sysid import Koopman
+    from autompc_torch.tuning.pipeline_tuner import _gauss_reg_stats
+
+    t20 = time.perf_counter()
+    ws = so_counters(mods)
+    B, dt = size["B"], bench.system.dt
+    coeffs = model.coeffs.cpu().numpy()
+    active = tuple(int(k) for k in np.flatnonzero(np.any(coeffs != 0, axis=0)))
+    qd = np.diag([10.0, 0.1, 0.01, 0.01])
+    cost = QuadCost(bench.system, qd, 0.001 * np.eye(1), qd, goal=np.zeros(4))
+    bounds = bench.task.get_ctrl_bounds()
+    kw = dict(H=H, ds=4, dc=1, obsdim=4, dt=dt, ubounds=(bounds[:, 0], bounds[:, 1]),
+              feature_spec=(model.library, "coeffs"), feature_mask=active, fuse_ls=True,
+              lanes_last=False, max_iter=SO_ITERS)
+    x0 = draw_x0(np.random.default_rng(20), B, dev)
+    ug = x0.new_zeros((B, H, 1))
+    out = dict(kw=kw, cost=cost, x0=x0, active=active, counts={}, rates={}, model=model,
+               init=bench.task.get_init_obs())
+
+    def run(tag, solve, *args, n=B):
+        so_reset(ws)
+        res, sec = so_timed(solve, *args)
+        counts = so_read(ws)
+        out["counts"][tag], out["rates"][tag] = counts, n / sec
+        print(f"[20] {tag}: {sec:.3f} s -> {n / sec:.1f} solves/s on {card}; converged "
+              f"{float(res[0].float().mean()):.4f}; launches {counts}", flush=True)
+        return res
+
+    # ---- (a) backward="assoc" against "pallas" (K6) and "scan" ----
+    res = {}
+    for bk in ("pallas", "assoc", "scan"):
+        solve = make_batched_ilqr_solver(model.pred_core, cost, backward=bk, **kw)
+        if bk == "pallas":
+            solve(model.params, x0 - 0.01, ug)      # the body's first call, untimed
+        res[bk] = run(f"(a) backward={bk!r} B={B} H={H}", solve, model.params, x0, ug)
+    min_both = max(8, B // 50)
+    # scan against pallas: how far two bodies that predate this phase
+    # part here; the floor of (a), (c) and (d) (SO_SHARE_SLACK).
+    scan_share = so_agreement("(a) scan against pallas", res["scan"], res["pallas"], cost, dt,
+                              min_both, floor=0.0)
+    floor = scan_share - SO_SHARE_SLACK
+    out["agree_a"] = {"scan": scan_share, "assoc": so_agreement(
+        "(a) assoc against pallas", res["assoc"], res["pallas"], cost, dt, min_both, floor)}
+    out["floor"] = floor
+    # One backward pass on the first carry: assoc's gains against K6's,
+    # scan's beside them (the plain float32 recursion).
+    from autompc_torch.ops.riccati import tvlqr_backward_assoc, tvlqr_backward_scan
+
+    _, carry0, _, _ = make_batched_ilqr_solver(model.pred_core, cost, return_pieces=True,
+                                               backward="pallas", **kw)
+    c0 = carry0(model.params, x0, ug)
+    Qd = x0.new_tensor(np.diag(qd)).expand(B, 4).contiguous()
+    k6 = mods[1].backward_quad(c0["Jx"], c0["Ju"], c0["xs"], c0["us"], Qd,
+                               x0.new_full((B, 1), 0.001), Qd, (0.0,) * 4, dt, 4)
+    exp = stage_expansions(cost, c0["xs"], c0["us"], H, dt)
+    e_assoc = max(rel_err(a, b) for a, b in zip(tvlqr_backward_assoc(c0["Jx"], c0["Ju"], *exp),
+                                                  k6))
+    e_scan = max(rel_err(a, b) for a, b in zip(tvlqr_backward_scan(c0["Jx"], c0["Ju"], *exp),
+                                                 k6))
+    print(f"[20] (a) one backward pass on the first carry (B={B}, H={H}): assoc against K6 "
+          f"{e_assoc:.3e}, scan against K6 {e_scan:.3e} (normwise, the worst of K, k, lin, "
+          f"quad; tol {TOL_K2})", flush=True)
+    so_need(e_assoc <= TOL_K2, f"(a) assoc's gains {e_assoc:.3e} from K6's")
+    so_need(out["counts"][f"(a) backward='pallas' B={B} H={H}"]["K6"] > 0,
+            "(a): K6 never ran under backward='pallas'")
+
+    # The SQP, "assoc" against "scan": phase 15's Koopman + DT.
+    dtask = bench.task.copy()
+    dtask.set_cost(cost)
+    km = Koopman(bench.system, method="lstsq", device=dev, **JK_BASIS)
+    km.train(trajs)
+    knots = knot_count(DT_HORIZON_S, dt)
+    xd0 = torch.cat([x0[:1].new_tensor(dtask.get_init_obs())[None],
+                     draw_x0(np.random.default_rng(CF_SEED), SO_DT_B - 1, dev)])
+    sqp = {}
+    for bk in ("scan", "assoc"):
+        solve = make_sqp_solver(km.pred_core, cost, H=knots, ds=km.state_dim, dc=1, obsdim=4,
+                                dt=dt, ubounds=(bounds[:, 0], bounds[:, 1]), backward=bk)
+        x, ds_k = xd0, km.state_dim
+        xs_g, us_g = x.new_zeros((SO_DT_B, knots + 1, ds_k)), x.new_zeros((SO_DT_B, knots, 1))
+        secs, first = [], None
+        for step in range(size["dt_steps"]):
+            z = km._apply_basis(x)
+            (sx, su, st), sec = so_timed(lambda: solve(km.params, z, xs_g, us_g, steps=True))
+            secs.append(sec)
+            if first is None:
+                first = (su, st)
+            x = bench.dynamics(x, su[:, 0])
+            xs_g = torch.cat([sx[:, 1:], sx[:, -1:]], dim=1)
+            us_g = torch.cat([su[:, 1:], su[:, -1:]], dim=1)
+        if not torch.isfinite(x).all():
+            raise RuntimeError(f"phase 20 SQP ({bk}): a state is not finite")
+        sqp[bk] = (first, secs)
+        print(f"[20] (a) SQP backward={bk!r} on the Koopman model (ds={ds_k}, {knots} knots), "
+              f"{SO_DT_B} starts, {size['dt_steps']} receding steps: seconds a step "
+              f"{[round(v, 4) for v in secs]} on {card}", flush=True)
+    (ua, sa), (us_, ss) = sqp["assoc"][0], sqp["scan"][0]
+    same = (sa == ss).all(1)
+    err = (ua - us_).abs().amax((1, 2)) / us_.abs().amax((1, 2)).clamp_min(1.0)
+    bad = int((same & ~(err <= DT_US_TOL)).sum())
+    out["sqp_share"] = float(same.float().mean())
+    print(f"[20] (a) SQP first step, assoc against scan: the same step sizes at every "
+          f"iteration on {out['sqp_share']:.4f} of the lanes; their controls within "
+          f"{float(err[same].max()) if same.any() else float('nan'):.3e} (max {DT_US_TOL}), "
+          f"{bad} beyond", flush=True)
+    if not same.any() or bad:
+        raise RuntimeError(f"phase 20 SQP first step: {bad} lanes beyond {DT_US_TOL}")
+
+    # ---- (b) the staged driver against the scheduled one (batch-major) ----
+    Bs = size["B_STAGED"]
+    xs0 = draw_x0(np.random.default_rng(21), Bs, dev)
+    ugs = xs0.new_zeros((Bs, H, 1))
+    sched = make_scheduled_ilqr_solver(model.pred_core, cost, schedule=parse_schedule(SCHEDULE),
+                                       **{k: v for k, v in kw.items() if k != "max_iter"})
+    staged = make_staged_ilqr_solver(model.pred_core, cost, **SO_STAGED,
+                                     **{k: v for k, v in kw.items() if k != "max_iter"})
+    r_sched = run(f"(b) scheduled B={Bs}", sched, model.params, xs0, ugs, n=Bs)
+    r_staged = run(f"(b) staged {SO_STAGED} B={Bs}", staged, model.params, xs0, ugs, n=Bs)
+    out["agree_b"] = so_agreement("(b) staged against scheduled", r_staged, r_sched, cost, dt,
+                                  max(8, Bs // 50))
+
+    # ---- (c) relin="xla" and analytic_jac against relin="pallas" ----
+    for tag, extra in (("relin='xla'", dict(relin="xla")),
+                       ("relin='xla', analytic_jac", dict(relin="xla", analytic_jac=True))):
+        solve = make_batched_ilqr_solver(model.pred_core, cost, backward="pallas", **kw, **extra)
+        r = run(f"(c) {tag} B={B}", solve, model.params, x0, ug)
+        out.setdefault("agree_c", {})[tag] = so_agreement(f"(c) {tag} against pallas", r,
+                                                          res["pallas"], cost, dt, min_both,
+                                                          floor)
+        c_counts = out["counts"][f"(c) {tag} B={B}"]
+        so_need(c_counts["K1"] == 0 and c_counts["K3[no jac]"] > 0,
+                f"(c) {tag}: the feature kernels relinearized, or K3 wrote Jacobians: "
+                f"{c_counts}")
+        # The option's Jacobians on its first carry against K1's at the
+        # same trajectory, normwise to TOL_K1.
+        _, carry0_c, _, _ = make_batched_ilqr_solver(model.pred_core, cost, return_pieces=True,
+                                                     backward="pallas", **kw, **extra)
+        cc = carry0_c(model.params, x0, ug)
+        jk = mods[0].relin_jacobians_bm(
+            tuple(model.library.terms[k] for k in active), cc["xs"], cc["us"],
+            model.coeffs[:, list(active)].contiguous())
+        e_j = max(rel_err(cc["Jx"], jk[0]), rel_err(cc["Ju"], jk[1]))
+        j64 = mods[0].relin_jacobians_bm_plain(
+            tuple(model.library.terms[k] for k in active), cc["xs"].double(),
+            cc["us"].double(), model.coeffs[:, list(active)].double())
+        e64 = [max(rel_err(a[0], j64[0]), rel_err(a[1], j64[1]))
+               for a in ((cc["Jx"], cc["Ju"]), jk)]
+        out.setdefault("jac_c", {})[tag] = e_j
+        print(f"[20] (c) {tag}: the first carry's Jacobians against K1's at its trajectory "
+              f"(B={B}, H={H}): {e_j:.3e} normwise (tol {TOL_K1}); against float64 there "
+              f"{e64[0]:.3e}, K1's {e64[1]:.3e}", flush=True)
+        so_need(e_j <= TOL_K1, f"(c) {tag}: Jacobians {e_j:.3e} from K1's")
+
+    # ---- (d) a fixed dense cost: K3's DENSE form against K7 ----
+    dense = QuadCost(bench.system, SO_DENSE_Q, 0.001 * np.eye(1), SO_DENSE_Q, goal=np.zeros(4))
+    rd = {}
+    for fused in (True, False):
+        solve = make_batched_ilqr_solver(model.pred_core, dense, backward="pallas",
+                                         **dict(kw, fuse_ls=fused))
+        rd[fused] = run(f"(d) dense Q, fuse_ls={fused} B={B}", solve, model.params, x0, ug)
+    out["agree_d"] = so_agreement("(d) dense cost, fused against unfused", rd[True], rd[False],
+                                  dense, dt, min_both, floor)
+    cd = out["counts"][f"(d) dense Q, fuse_ls=True B={B}"]
+    so_need(cd["K3[dense]"] > 0 and cd["K4"] > 0, f"(d): K3's dense form or K4 never ran: {cd}")
+    out["dense"] = dense
+    # One model a lane (batch_params): the main path's coefficients, each
+    # lane's scaled by 1 + SO_LANE_EPS N(0, 1), fused (K3's DENSE form
+    # with per-lane coefficients) against unfused (K7's per-lane instance).
+    def lane_pred(prm, x, u):
+        return torch.einsum("b...f,bnf->b...n", model.library(torch.cat([x, u], dim=-1)),
+                            prm["coeffs"])
+
+    noise = torch.as_tensor(np.random.default_rng(22).standard_normal(
+        (B,) + tuple(model.coeffs.shape)), dtype=model.coeffs.dtype, device=dev)
+    lane_p = {"coeffs": (model.coeffs[None] * (1 + SO_LANE_EPS * noise)).contiguous()}
+    rl = {}
+    for fused in (True, False):
+        lkw = dict(kw, fuse_ls=fused, batch_params=True)
+        solve = make_batched_ilqr_solver(lane_pred, dense, backward="pallas", **lkw)
+        rl[fused] = run(f"(d) dense Q, a model a lane, fuse_ls={fused} B={B}", solve, lane_p,
+                        x0, ug)
+    out["agree_d_lane"] = so_agreement("(d) dense cost, a model a lane, fused against unfused",
+                                       rl[True], rl[False], dense, dt, min_both, floor)
+    cl = out["counts"][f"(d) dense Q, a model a lane, fuse_ls=True B={B}"]
+    so_need(cl["K3[dense lane]"] > 0, f"(d): K3's dense form with per-lane coefficients "
+                                      f"never ran: {cl}")
+    out["lane_runs"] = {"small": (lane_pred, dict(kw, batch_params=True), lane_p, x0,
+                                  tuple(model.library.terms[k] for k in active), active)}
+
+    # ---- (e) the GaussReg joint-SINDy fan-out past 64 terms ----
+    S, mu = _gauss_reg_stats(trajs)
+    jbatch = gauss_reg_candidates(dev, JS_BIG_B, seed=3, joint=True)
+    fans = {}
+    for cfg in ("1", "2"):
+        fan = JointSINDyQuadCostFanout(
+            bench.system, bench.task, JS_BIG, trajs, model, horizon=JS_H,
+            n_steps=size["js_steps"], goal=np.zeros(4), compact_schedule=JS_SCHEDULE,
+            use_feature_kernels=True, reg_matrix=S, reg_goal=mu, device=dev, **GR_CONFIGS[cfg])
+        fans[cfg] = fan
+        so_reset(ws)
+        scores, sec = so_timed(fan, jbatch)
+        counts = so_read(ws)
+        out["counts"][f"(e) fan-out {cfg}"], out["rates"][f"(e) fan-out {cfg}"] = \
+            counts, JS_BIG_B / sec
+        fin = torch.isfinite(scores)
+        print(f"[20] (e) GaussReg joint-SINDy fan-out {GR_CONFIGS[cfg]}, F={fan.n_features}, "
+              f"B={JS_BIG_B} H={JS_H} {size['js_steps']} steps: {sec:.3f} s -> "
+              f"{JS_BIG_B / sec:.1f} evals/s (per-lane training included) on {card}; scores "
+              f"finite {int(fin.sum())}; launches {counts}", flush=True)
+        if torch.isnan(scores).any():
+            raise RuntimeError(f"phase 20 (e) ({cfg}): NaN scores")
+    ce = out["counts"]["(e) fan-out 1"]
+    so_need(ce["K3[lane past 64]"] > 0,
+            f"(e): K3's per-lane entry past 64 terms never ran: {ce}")
+    coeffs_j = fans["1"].train_lanes(jbatch["reg"])
+    cpj = {k: jbatch[k] for k in ("Qdiag", "Rdiag", "Fdiag", "regw")}
+    xj = jbatch["Qdiag"].new_tensor(np.tile(bench.task.get_init_obs(), (JS_BIG_B, 1)))
+    first_step_agreement(
+        "(e) joint SINDy F=105", {c: make_scheduled_ilqr_solver(
+            fans[c]._pred_core, None, schedule=parse_schedule(JS_SCHEDULE), **fans[c].solver_kw)
+            for c in ("1", "2")},
+        xj, xj.new_zeros((JS_BIG_B, JS_H, 1)), cpj, dt, S, mu, {"coeffs": coeffs_j},
+        label="[20]", min_both=max(8, JS_BIG_B // 8))
+    out.update(fans=fans, jbatch=jbatch, S=S, mu=mu)
+    # (e)'s trained lanes (F=105, one model a lane) under (d)'s fixed dense
+    # cost: K3's DENSE form with per-lane coefficients past 64 terms
+    # against K7's per-lane instance, H = JS_H (phase 8's gate).
+    fan = fans["1"]
+    kj = dict(H=JS_H, ds=4, dc=1, obsdim=4, dt=dt, ubounds=(bounds[:, 0], bounds[:, 1]),
+              feature_spec=(fan.library, "coeffs"), batch_params=True, lanes_last=False,
+              max_iter=SO_ITERS)
+    pj = {"coeffs": coeffs_j}
+    rj = {}
+    for fused in (True, False):
+        solve = make_batched_ilqr_solver(fan._pred_core, dense, backward="pallas",
+                                         **dict(kj, fuse_ls=fused))
+        rj[fused] = run(f"(e) F={fan.n_features} dense Q, fuse_ls={fused} B={JS_BIG_B} "
+                        f"H={JS_H}", solve, pj, xj, xj.new_zeros((JS_BIG_B, JS_H, 1)),
+                        n=JS_BIG_B)
+    out["agree_e_dense"] = so_agreement(
+        f"(e) F={fan.n_features} dense cost, fused against unfused", rj[True], rj[False], dense,
+        dt, max(8, JS_BIG_B // 8))
+    cj = out["counts"][f"(e) F={fan.n_features} dense Q, fuse_ls=True B={JS_BIG_B} H={JS_H}"]
+    so_need(cj["K3[dense lane]"] > 0 and cj["K3[lane past 64]"] > 0,
+            f"(e): K3's dense form with per-lane coefficients past 64 terms never ran: {cj}")
+    out["lane_runs"]["big"] = (fan._pred_core, kj, pj, xj, tuple(fan.library.terms),
+                               tuple(range(fan.n_features)))
+
+    # ---- (f) K5's precisions ----
+    hc_model, hc_cost, hc_kw, hc_x0, hc_ug = hc_run
+    out["hc"] = {}
+    for prec in SO_PRECISIONS:
+        kwp = dict(hc_kw, mlp_ls=dict(hc_kw["mlp_ls"], precision=prec))
+        solve = cheetah_solver(hc_model, hc_cost, kwp)
+        r = run(f"(f) cheetah {prec} B={B_HC} H={H_HC}", solve, hc_model.params, hc_x0, hc_ug,
+                n=B_HC)
+        out["hc"][prec] = float(r[0].float().mean())
+        if not all(torch.isfinite(o[r[0]]).all() for o in r[1:]):
+            raise RuntimeError(f"phase 20 (f) cheetah {prec}: non-finite on a converged lane")
+        so_need(out["counts"][f"(f) cheetah {prec} B={B_HC} H={H_HC}"][f"K5[{prec}]"] > 0,
+                f"(f): K5 {prec} never ran")
+    print(f"[20] (f) cheetah converged fractions by precision {out['hc']} (not gated; on the "
+          f"TPU bf16x3 converged on 0.912 of the lanes, fewer than 'highest')", flush=True)
+    cp_model, cp_cost, cp_kw, cp_x0, cp_ug = cp_run
+    kwd = dict(cp_kw, mlp_ls=dict(cp_kw["mlp_ls"], precision="default"))
+    solve = make_batched_ilqr_solver(cp_model.pred_core, cp_cost, max_iter=50, **kwd)
+    r = run(f"(f) cartpole MLP default, layout mxu B={B_DENSE}", solve, cp_model.params, cp_x0,
+            cp_ug, n=B_DENSE)
+    if not all(torch.isfinite(o[r[0]]).all() for o in r[1:]):
+        raise RuntimeError("phase 20 (f) cartpole mxu default: non-finite on a converged lane")
+    out.update(hc_run=hc_run, cp_run=cp_run, cp_kw_default=kwd)
+    print(f"[20] phase wall {time.perf_counter() - t20:.2f} s", flush=True)
+    return out
+
+
+def check_k3_dense(tag, K1, K3, K4, terms, coeffs, c, cost, dt, alphas, bound):
+    """K3's batch-major DENSE form against its plain twin on the dense-cost
+    carry ``c`` (after the solver's backward pass on it; ``coeffs`` shared
+    (ds, n) or a lanes-last per-lane (ds, n, B) plane), with the gates
+    of check_k3_bm: decisions on K3_FAN_AGREE_MIN of the active lanes,
+    states of the lanes of equal decisions within TOL_K3 on
+    K3_FAN_WITHIN_MIN of them, the objective normwise to TOL_K3; against
+    float64 at the kernel's own trajectory: the objective under the dense
+    cost (TOL_K3), du2 (TOL_K3), the Jacobians (TOL_K1); no output not
+    finite where the twin's is; and with jac=False the same outputs bit
+    for bit. Returns (measurements, failure strings)."""
+    from autompc_torch.ops.cuda_linesearch import _sweep
+
+    failures = []
+    B, H = c["us"].shape[:2]
+    act = ~c["converged"] & ~c["failed"]
+    Ks, ks, lin, quad = K4.riccati_general(c["Jx"], c["Ju"],
+                                           *stage_expansions(cost, c["xs"], c["us"], H, dt))
+    ks_small = torch.sqrt((ks * ks).sum(dim=(1, 2))) < 1e-3
+    QRF = tuple(M.detach().cpu().numpy().astype(np.float64) for M in (cost._Q, cost._R, cost._F))
+    base = (terms, c["x0s"], c["xs"], c["us"], Ks, ks, coeffs, alphas, -bound, bound, *QRF,
+            (0.0,) * 4, dt, c["obj"], lin, quad, ks_small)
+    kk, kp = K3.fused_line_search_bm(*base), K3.fused_line_search_bm_plain(*base)
+    x0T, xsT, usT, KsT, ksT = (c["x0s"].T, c["xs"].permute(1, 2, 0), c["us"][:, :, 0].T,
+                               Ks[:, :, 0].permute(1, 2, 0), ks[:, :, 0].T)
+    objs = _sweep(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, -bound, bound, *QRF,
+                  (0.0,) * 4, dt, True, keep=False, dense=True)[0]
+
+    def lane_finite(o):
+        return torch.stack([torch.isfinite(t.float()).reshape(B, -1).all(1) for t in o]).all(0)
+
+    kernel_only = int((~lane_finite(kk) & lane_finite(kp)).sum())
+    choice = lambda o: (objs - o[None]).abs().argmin(0)
+    pick = lambda i: objs.gather(0, i[None])[0]
+    ck, cq = choice(kk[2]), choice(kp[2])
+    same_choice = (ck == cq) | ((pick(ck) - pick(cq)).abs() <= K3_TIE * pick(cq).abs())
+    same_flags = (kk[3] == kp[3]) & (kk[4] == kp[4])
+    stalled = ((kk[2] - c["obj"]).abs() <= K3_TIE * c["obj"].abs()) \
+        & ((kp[2] - c["obj"]).abs() <= K3_TIE * c["obj"].abs())
+    agree_lane = stalled | (same_flags & same_choice)
+    agree = agree_lane[act].float().mean().item() if act.any() else 1.0
+    n_differ = int((act & ~agree_lane).sum())
+    lanes = same_flags & (ck == cq)
+    dx = (kk[0][lanes].double() - kp[0][lanes].double()).abs().amax(dim=(1, 2))
+    within = (dx <= TOL_K3 * kp[0][lanes].double().abs().amax(dim=(1, 2)).clamp_min(1e-30))
+    within = within.float().mean().item() if lanes.any() else 1.0
+    e_obj = rel_err(kk[2][lanes], kp[2][lanes]) if lanes.any() else 0.0
+    fin = lane_finite(kk)
+    obj64 = so_objective(cost, kk[0], kk[1], dt)
+    e_obj64 = float(((kk[2].double() - obj64).abs() / obj64.abs().clamp_min(1e-30))[fin].max())
+    du2_64 = ((kk[1].double() - c["us"].double()) ** 2).sum(dim=(1, 2))
+    e_du2 = rel_err(kk[7][fin], du2_64[fin])
+    j64 = K1.relin_jacobians_bm_plain(terms, kk[0][fin].double(), kk[1][fin].double(),
+                                      (coeffs[..., fin] if coeffs.ndim == 3 else coeffs).double())
+    e_jac = max(rel_err(kk[5][fin], j64[0]), rel_err(kk[6][fin], j64[1]))
+    nojac = K3.fused_line_search_bm(*base, jac=False)
+    same_nojac = nojac[5] is None and all(bits_equal(a, b) for a, b in
+                                          zip(nojac[:5] + nojac[7:], kk[:5] + kk[7:]))
+    print(f"[3] K3 batch-major dense cost, {tag} B={B} H={H}: active lanes {int(act.sum())}; "
+          f"not finite only in the kernel {kernel_only}; decisions agree with the twin on "
+          f"{agree:.5f} of the active lanes ({n_differ} differ; min {K3_FAN_AGREE_MIN}); on "
+          f"the {int(lanes.sum())} lanes of equal decisions: states within {TOL_K3} on "
+          f"{within:.4f} (min {K3_FAN_WITHIN_MIN}), objective {e_obj:.3e}; vs float64 at the "
+          f"kernel's trajectories: objective {e_obj64:.3e}, du2 {e_du2:.3e} (tol {TOL_K3}), "
+          f"Jacobians {e_jac:.3e} (tol {TOL_K1}); without Jacobians bit for bit: "
+          f"{same_nojac}", flush=True)
+    if kernel_only or n_differ > max(1, int((1 - K3_FAN_AGREE_MIN) * int(act.sum()))) \
+            or within < K3_FAN_WITHIN_MIN or e_obj > TOL_K3 or max(e_obj64, e_du2) > TOL_K3 \
+            or e_jac > TOL_K1 or not same_nojac:
+        failures.append(f"K3 dense ({tag}): kernel-only non-finite {kernel_only}, agree "
+                        f"{agree:.5f}, within {within:.4f}, obj {e_obj:.3e}, obj64 "
+                        f"{e_obj64:.3e}, du2 {e_du2:.3e}, jac {e_jac:.3e}, no-jac {same_nojac}")
+    call = lambda: K3.fused_line_search_bm(*base)
+    tensors = [t for t in base if isinstance(t, torch.Tensor)]
+    meas = dict(
+        max_abs_err=abs_err(kk[0][lanes], kp[0][lanes]) if lanes.any() else 0.0,
+        ms=time_ms(call), device_ms=device_ms(call),
+        plain_ms=time_ms(lambda: K3.fused_line_search_bm_plain(*base), reps=1, warm=0),
+        # The dense forms: obsdim^2 three-factor products and their sum
+        # a stage instead of the diagonal's obsdim.
+        **k3_bound(n_bytes(*tensors, *kk), B, H, terms, len(alphas)))
+    meas.update(bound_keys(n_bytes(*tensors, *kk), meas["bound_ops_ms"] * F32_FLOPS / 1e3
+                           + B * H * len(alphas) * 3 * 12), scratch_bytes_ms=meas["scratch_bytes_ms"])
+    return meas, failures
+
+
+def check_solver_option_kernels(so, mods, failures):
+    """Phase 20's new kernel modes against their plain versions on their
+    paths' own inputs: K3's DENSE form on (d)'s carry three iterations
+    in, with per-lane coefficients on (d)'s and (e)'s lanes' carries,
+    K3's batch-major per-lane entry past 64 terms (with and without
+    the GaussReg term) on (e)'s, K5 at "bf16x3" and "default" on the
+    cheetah row's carry and "default" on the cartpole MLP's (layout
+    "mxu"). Returns report rows."""
+    from autompc_torch.control import make_batched_ilqr_solver
+
+    K1, K2, K3, K4, K5 = mods
+    rows = []
+    alphas = tuple(0.2 ** k for k in range(10))
+    model_terms = so["kw"]["feature_spec"][0].terms
+    terms = tuple(model_terms[k] for k in so["active"])
+    dev = so["x0"].device
+    # K3 DENSE on (d)'s fused carry.
+    kwd = dict(so["kw"])
+    _, carry0, _, make_body = make_batched_ilqr_solver(so["model"].pred_core, so["dense"],
+                                                       return_pieces=True, **kwd)
+    params = so["model"].params
+    ug = so["x0"].new_zeros((so["x0"].shape[0], H, 1))
+    c = carry0(params, so["x0"], ug)
+    body = make_body(params)
+    for _ in range(3):
+        c = body(c)
+    coeffs = so["model"].coeffs[:, list(so["active"])].contiguous()
+    meas, fails = check_k3_dense("(d)'s carry", K1, K3, K4, terms, coeffs, c, so["dense"],
+                                 kwd["dt"], alphas, float(kwd["ubounds"][1][0]))
+    failures += fails
+    cd = so["counts"][f"(d) dense Q, fuse_ls=True B={so['x0'].shape[0]}"]
+    rows.append(dict(name=f"fused_line_search_bm[dense,B={so['x0'].shape[0]},H={H}]",
+                     route="cuda", source="autompc_torch/csrc/linesearch_fused.cu",
+                     replaces="autompc_tpu/ops/pallas_linesearch.py:803",
+                     launches=cd["K3[dense]"], **meas))
+    # K3 DENSE with per-lane coefficients: (d)'s lanes (a model a lane)
+    # and (e)'s trained F=105 lanes under the dense cost, each on its
+    # fused carry three iterations in.
+    # (e)'s lanes have all converged three iterations in at H = JS_H, so
+    # that carry is taken after one.
+    for key, tag, count, n_it in (
+            ("small", f"(d)'s carry, a model a lane",
+             f"(d) dense Q, a model a lane, fuse_ls=True B={so['x0'].shape[0]}", 3),
+            ("big", f"(e)'s lanes F={so['fans']['1'].n_features}",
+             f"(e) F={so['fans']['1'].n_features} dense Q, fuse_ls=True B={JS_BIG_B} H={JS_H}",
+             1)):
+        pred, lkw, lp, lx0, lterms, lactive = so["lane_runs"][key]
+        _, carry0, _, make_body = make_batched_ilqr_solver(pred, so["dense"], return_pieces=True,
+                                                           **dict(lkw, fuse_ls=True))
+        cl = carry0(lp, lx0, lx0.new_zeros((lx0.shape[0], lkw["H"], 1)))
+        body = make_body(lp)
+        for _ in range(n_it):
+            cl = body(cl)
+        plane = cl["params"]["coeffs"][..., list(lactive)].permute(1, 2, 0).contiguous()
+        meas, fails = check_k3_dense(tag, K1, K3, K4, lterms, plane, cl, so["dense"],
+                                     kwd["dt"], alphas, float(kwd["ubounds"][1][0]))
+        failures += fails
+        B_l, H_l = lx0.shape[0], lkw["H"]
+        rows.append(dict(name=f"fused_line_search_bm[dense,lane,F={len(lterms)},B={B_l},"
+                              f"H={H_l}]", route="cuda",
+                         source="autompc_torch/csrc/linesearch_fused.cu",
+                         replaces="autompc_tpu/ops/pallas_linesearch.py:803",
+                         launches=so["counts"][count]["K3[dense lane]"], **meas))
+    # K3's per-lane batch-major entry past 64 terms on (e)'s fused carry.
+    fan = so["fans"]["1"]
+    _, carry0, _, make_body = make_batched_ilqr_solver(fan._pred_core, None,
+                                                       return_pieces=True, **fan.solver_kw)
+    jb = so["jbatch"]
+    pj = {"coeffs": fan.train_lanes(jb["reg"])}
+    xj = jb["Qdiag"].new_tensor(np.tile(so["init"], (JS_BIG_B, 1)))
+    cpj = {k: jb[k] for k in ("Qdiag", "Rdiag", "Fdiag", "regw")}
+    cj = carry0(pj, xj, xj.new_zeros((JS_BIG_B, JS_H, 1)), cpj)
+    body = make_body(pj)
+    for _ in range(3):
+        cj = body(cj)
+    plane = cj["params"]["coeffs"].permute(1, 2, 0).contiguous()
+    bm, fails = check_k3_bm(f"(e)'s carry, F={fan.n_features}", K1, K3, K4,
+                            tuple(fan.library.terms), plane, cj, so["S"], so["mu"],
+                            kwd["dt"], alphas, float(kwd["ubounds"][1][0]),
+                            plain=dict(reps=1, warm=0), device_time=True)
+    failures += fails
+    ce = so["counts"]["(e) fan-out 1"]
+    rows.append(dict(name=f"fused_line_search_bm_lane[F={fan.n_features},B={JS_BIG_B},"
+                          f"H={JS_H},reg]", route="cuda",
+                     source="autompc_torch/csrc/linesearch_fused.cu",
+                     replaces="autompc_tpu/ops/pallas_linesearch.py:803",
+                     launches=ce["K3[lane past 64]"], **bm["reg"], no_reg=bm["no_reg"]))
+    # K5's precisions.
+    hc_model, hc_cost, hc_kw, hc_x0, _ = so["hc_run"]
+    for prec in ("default", "bf16x3"):
+        kwp = dict(hc_kw, H=H_HC, mlp_ls=dict(hc_kw["mlp_ls"], precision=prec))
+        n = so["counts"][f"(f) cheetah {prec} B={B_HC} H={H_HC}"]
+        r5, fails = check_batch_major_kernels(f"cheetah {prec}", hc_model, hc_cost, kwp, hc_x0,
+                                              K4, K5, {"K5": n[f"K5[{prec}]"]}, k4=False,
+                                              device_time=True)
+        failures += fails
+        rows += r5
+    cp_model, cp_cost, _, cp_x0, _ = so["cp_run"]
+    n = so["counts"][f"(f) cartpole MLP default, layout mxu B={B_DENSE}"]
+    r5, fails = check_batch_major_kernels("cartpole mxu default", cp_model, cp_cost,
+                                          dict(so["cp_kw_default"], H=H), cp_x0, K4, K5,
+                                          {"K5": n["K5[default]"]}, k4=False, device_time=True)
+    failures += fails
+    rows += r5
+    return rows
+
+
 def main(profile=False):
     dev = check_device()
     from autompc_torch.benchmarks import CartpoleSwingupBenchmark, HalfcheetahBenchmark
@@ -5791,7 +6557,7 @@ def main(profile=False):
     from autompc_torch.ops import cuda_relin as K1
     from autompc_torch.ops import cuda_riccati as K2  # also K6, backward_quad
     from autompc_torch.ops import cuda_riccati_general as K4
-    from autompc_torch.sysid import MLP, SINDy
+    from autompc_torch.sysid import SINDy
 
     card = card_line()
     print(f"[0] card: {card} | torch {torch.__version__} | "
@@ -6093,20 +6859,7 @@ def main(profile=False):
     # ---- [7] dense-cost dc=1 path: K4 at (4, 1) ---------------------------
     reset_k45()
     t0 = time.perf_counter()
-    cp_model = MLP(bench.system, n_hidden_layers=2, hidden_size=64, n_train_iters=10,
-                   n_batch=64)
-    cp_model.train(trajs)
-    Qc = qd.copy()
-    Qc[0, 1] = Qc[1, 0] = 0.05          # couples theta and omega
-    cp_cost = QuadCost(bench.system, Qc, 0.001 * np.eye(1), Qc, goal=np.zeros(4))
-    cp_kw = dict(
-        H=H, ds=4, dc=1, obsdim=4, dt=bench.system.dt,
-        ubounds=(bounds[:, 0], bounds[:, 1]), backward="pallas",
-        pred_diff=cp_model.pred_diff_core,
-        # "mxu" names the TPU's second entry to this line search; the port
-        # has one kernel for every layout.
-        mlp_ls=dict(nonlin=cp_model.nonlintype, layout="mxu"),
-    )
+    cp_model, cp_cost, cp_kw = dense_cartpole_problem(bench, trajs)
     cp_solve = make_batched_ilqr_solver(cp_model.pred_core, cp_cost, max_iter=50, **cp_kw)
     cp_x0 = draw_x0(np.random.default_rng(2), B_DENSE, dev)
     out7 = cp_solve(cp_model.params, cp_x0, ug[:B_DENSE])
@@ -6205,6 +6958,11 @@ def main(profile=False):
 
     # ---- [19] the remaining kernels at every (ds, dc) ----------------------------
     ds19 = dense_shapes_phase(dev, card, (K1, K2, K3, K4), sp, bench, model, trajs)
+
+    # ---- [20] the solver's remaining options ---------------------------------------
+    so = solver_options_phase(dev, card, (K1, K2, K3, K4, K5), bench, model, trajs,
+                              (hc_model, hc_cost, hc_kw, hc_x0, hc_ug),
+                              (cp_model, cp_cost, cp_kw, cp_x0, ug[:B_DENSE]))
 
     # ---- [3] kernels vs plain twins on path inputs -----------------------
     _, make_carry0, _, _ = make_batched_ilqr_solver(
@@ -6650,6 +7408,11 @@ def main(profile=False):
     t3 = time.perf_counter()
     report += check_dense_kernels(ds19, sp, (K1, K2, K3, K4), failures)
     print(f"[3] phase 19's instances checked in {time.perf_counter() - t3:.2f} s", flush=True)
+    # Phase 20's kernel modes: K3's DENSE form and per-lane entry past 64
+    # terms, K5 at "default" and "bf16x3", in rows of their own.
+    t3 = time.perf_counter()
+    report += check_solver_option_kernels(so, (K1, K2, K3, K4, K5), failures)
+    print(f"[3] phase 20's modes checked in {time.perf_counter() - t3:.2f} s", flush=True)
 
     def device_txt(w):
         return ((f" (device {w['device_ms']:.4f})" if "device_ms" in w else "")

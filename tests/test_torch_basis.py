@@ -11,6 +11,10 @@ from autompc_torch.sysid import basis as tb
 from autompc_tpu.ops.pallas_linesearch import _tree_sum
 from autompc_tpu.sysid.basis import FeatureLibrary as JaxLibrary
 
+# The tensors here are small: one intra-op thread (six test workers with a
+# thread pool each oversubscribe the cores).
+torch.set_num_threads(1)
+
 CONFIGS = {
     "trig_interaction": dict(trig_basis=True, trig_freq=1, trig_interaction=True),
     "trig_freq2": dict(trig_basis=True, trig_freq=2, trig_interaction=True),

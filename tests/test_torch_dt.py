@@ -11,7 +11,9 @@ the CPU:
   tests/test_torch_controller_tune.py);
 - ``DirectTranscriptionFanout`` with observation bounds and the GaussReg
   term: 1e-8 (the receding SQP loop: tests/test_torch_controller_tune.py);
-- ``backward="assoc"`` and ``qp_backward_assoc`` raise ``NotPortedError``.
+- ``qp_backward_assoc`` (``backward="assoc"``, against the JAX package in
+  tests/test_torch_solver_options.py) equals ``qp_backward`` with Cux = 0
+  (1e-9), and an unknown ``backward`` raises.
 """
 
 import jax
@@ -20,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-from autompc_torch import NotPortedError
 from autompc_torch.control import DirectTranscriptionController as TDT
 from autompc_torch.control import DirectTranscriptionControllerFactory as TDTFactory
 from autompc_torch.control.nmpc import make_sqp_solver as t_sqp
@@ -248,10 +249,14 @@ def test_factory_and_refusals(setup):
     assert hps(TDTFactory(tb.system).get_configuration_space()) == \
         hps(JDTFactory(jb.system).get_configuration_space())
     _, ttask = quad_tasks(jb, tb)
-    with pytest.raises(NotPortedError, match="assoc"):
+    with pytest.raises(ValueError, match="backward"):
         t_sqp(t.pred_core, ttask.get_cost(), H=4, ds=4, dc=1, obsdim=4, dt=0.05,
-              ubounds=None, backward="assoc")
-    with pytest.raises(NotPortedError, match="qp_backward_assoc"):
-        tqp.qp_backward_assoc()
+              ubounds=None, backward="bogus")
+    # The associative-scan factorization is the sequential one's.
+    d = _qp_data(np.random.default_rng(4), 2, 5, 3, 2)
+    d["Cux"] = np.zeros_like(d["Cux"])
+    td = [torch.as_tensor(v) for v in d.values()]
+    for a, b in zip(tqp.qp_backward_assoc(*td, 1e-6), tqp.qp_backward(*td, 1e-6)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-9, atol=1e-9)
     with pytest.raises(ValueError, match="mesh"):
         TFanout(tb.system, ttask, t, t, mesh=object(), device="cpu")

@@ -323,12 +323,14 @@ def test_batch_major_fused_twin_refuses_what_the_kernel_does_not_take(setup):
         fused_line_search_bm(*fixed)
     with pytest.raises(ValueError, match="reg"):
         fused_line_search_bm(*base, reg=(np.eye(3), d["mu"], T(d["w"])))
-    # Per-lane coefficients past the shared instances' 64 terms.
+    # Per-lane coefficients past the per-lane instances' 2,048 terms (past
+    # the shared instances' 64 they run: tests/test_torch_solver_options.py).
     big = TSINDy(s["tb"].system, "lstsq", device="cpu", trig_basis=True, trig_freq=2,
                  trig_interaction=True).library
-    plane = torch.zeros((4, big.n_features, 4), dtype=torch.float64)
+    huge = tuple(big.terms) * 20
+    plane = torch.zeros((4, len(huge), 4), dtype=torch.float64)
     lane = list(base)
-    lane[0], lane[6] = tuple(big.terms), plane
+    lane[0], lane[6] = huge, plane
     with pytest.raises(ValueError, match="terms"):
         fused_line_search_bm(*lane)
 
@@ -431,15 +433,21 @@ def test_reg_matrix_refusals_as_in_jax(setup, reg_problem, kwargs, match):
 
 
 def test_fused_batch_major_body_refuses_a_non_diagonal_fixed_cost(setup):
-    """K3's batch-major entry takes diagonal cost planes: a fixed cost
-    with an off-diagonal Q on the fused batch-major body is refused by
-    name (the JAX kernel's dense fixed-cost form is not ported)."""
-    from autompc_torch import NotPortedError
-
+    """A fixed cost with an off-diagonal Q on the fused batch-major body,
+    once refused, now takes K3's dense form (the JAX kernel's
+    per_lane_diag_cost=False; against the JAX kernel in
+    tests/test_torch_solver_options.py): the solve equals the unfused
+    body's (K7, the acceptance rule in tensor ops, K1) to 1e-9."""
     s = setup
     t = s["t"]
     Q = np.eye(4) + 0.1 * np.ones((4, 4))
-    cost = TQuad(s["tb"].system, Q, np.eye(1), Q)
-    with pytest.raises(NotPortedError, match="not diagonal"):
-        tilqr.make_batched_ilqr_solver(t.pred_core, cost, H=4, ds=4, dc=1, obsdim=4, dt=0.05,
-                                       feature_spec=(t.library, "coeffs"), fuse_ls=True)
+    cost = TQuad(s["tb"].system, Q, 0.01 * np.eye(1), Q)
+    kw = dict(H=4, ds=4, dc=1, obsdim=4, dt=0.05, feature_spec=(t.library, "coeffs"),
+              ubounds=(-np.ones(1), np.ones(1)), max_iter=6)
+    x0 = torch.as_tensor(np.random.default_rng(3).uniform(-0.5, 0.5, (5, 4)))
+    ug = torch.zeros((5, 4, 1), dtype=torch.float64)
+    outs = [tilqr.make_batched_ilqr_solver(t.pred_core, cost, fuse_ls=f, **kw)(t.params, x0, ug)
+            for f in (True, False)]
+    assert torch.equal(outs[0][0], outs[1][0]) and outs[0][0].any()
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-9, atol=1e-9)

@@ -241,16 +241,19 @@ def test_receding_loop_matches_jax_at_dc6(cheetah):
     (dict(ls_wide=True, jac_dtype="bf16"), "lanes-last"),
     (dict(jac_dtype="bf16"), "bf16"),
     (dict(jac_dtype="f16"), "jac_dtype"),
-    (dict(backward="assoc"), "assoc"),
-    (dict(relin="xla"), "relin"),
-    (dict(analytic_jac=True), "analytic_jac"),
+    # backward="assoc", relin="xla", analytic_jac and the precisions
+    # "default" and "bf16x3" run (tests/test_torch_solver_options.py); what
+    # the JAX solver still refuses of them is refused by the same name.
+    (dict(backward="assoc", lanes_last=True), "assoc"),
+    (dict(relin="bogus"), "relin"),
+    (dict(analytic_jac=True, quad_cost_batch=True, horizon_mask=True), "analytic_jac"),
     # A model with neither pred_diff nor feature_spec takes the autodiff
-    # relinearization (tests/test_torch_joint_sindy.py); relin="xla", the
-    # jacfwd relinearization of a feature model, still raises.
-    (dict(pred_diff=None, relin="xla"), "jacfwd"),
+    # relinearization (tests/test_torch_joint_sindy.py); the feature
+    # kernels' relinearization, relin="pallas", needs a feature_spec.
+    (dict(pred_diff=None, relin="pallas"), "jacfwd"),
     (dict(feature_mask=(0, 1)), "feature_mask needs feature_spec"),
-    (dict(mlp_ls=dict(nonlin="relu", precision="default")), "precision"),
-    (dict(mlp_ls=dict(nonlin="relu", precision="bf16x3", layout="feat")), "precision"),
+    (dict(mlp_ls=dict(nonlin="relu", precision="fast")), "precision"),
+    (dict(mlp_ls=dict(nonlin="relu", precision="bf16x3", layout="slab")), "precision"),
     (dict(mlp_ls=dict(layout="feat")), "nonlin"),
 ])
 def test_options_that_still_raise(dense, kwargs, match):

@@ -11,6 +11,10 @@ from pathlib import Path
 import pytest
 import torch
 
+# The tensors here are small: one intra-op thread (six test workers with a
+# thread pool each oversubscribe the cores).
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 
 PORT_MODULES = [
@@ -237,7 +241,8 @@ def test_kernel_shapes_and_mlp_struct_mirror_the_sources():
     ls = (_build.CSRC_DIR / "ls_step.cuh").read_text()
     assert int(re.search(r"#define AMPC_LS_MAX_THREADS (\d+)", ls)[1]) == \
         _build.LS_MAX_THREADS
-    n_int = 1 + (_build.MLP_MAX_LAYERS + 1) + 4
+    # n_layers, widths, then act, ds, dc, L and round0.
+    n_int = 1 + (_build.MLP_MAX_LAYERS + 1) + 5
     n_float = _build.MAX_L + 2 * _build.MLP_MAX_DC
     assert ctypes.sizeof(_build.MlpLS) == 4 * (n_int + n_float)
     for name in ("ampc_riccati_general", "ampc_mlp_line_search"):

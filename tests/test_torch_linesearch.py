@@ -15,6 +15,10 @@ from autompc_tpu.benchmarks import CartpoleSwingupBenchmark
 from autompc_tpu.ops.pallas_linesearch import pallas_fused_line_search
 from autompc_tpu.sysid import SINDy
 
+# The tensors here are small: one intra-op thread (six test workers with a
+# thread pool each oversubscribe the cores).
+torch.set_num_threads(1)
+
 Q = np.diag([10.0, 0.1, 0.01, 0.01])
 R = 0.001 * np.eye(1)
 ALPHAS = tuple(0.2 ** k for k in range(10))

@@ -136,7 +136,9 @@ def test_fold_matches_pred_core(nonlin):
 
 
 @pytest.mark.parametrize("kwargs, match", [
-    (dict(precision="default"), "precision"),
+    # "default" and "bf16x3" run (tests/test_torch_solver_options.py);
+    # an unknown precision, and "bf16x3" outside the "feat" layout, raise.
+    (dict(precision="fast"), "precision"),
     (dict(precision="bf16x3"), "precision"),
     (dict(layout="rows"), "layout"),
     (dict(nonlin="gelu"), "activation"),

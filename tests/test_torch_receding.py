@@ -18,6 +18,10 @@ from autompc_tpu.control.receding import make_receding_ilqr_loop as j_loop
 from autompc_tpu.costs import QuadCost as JQuad
 from autompc_tpu.sysid import SINDy
 
+# The tensors here are small: one intra-op thread (six test workers with a
+# thread pool each oversubscribe the cores).
+torch.set_num_threads(1)
+
 QD = np.diag([10.0, 0.1, 0.01, 0.01])
 
 

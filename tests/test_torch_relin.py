@@ -20,6 +20,10 @@ from autompc_tpu.benchmarks import CartpoleSwingupBenchmark
 from autompc_tpu.ops.pallas_relin import pallas_feature_jacobians
 from autompc_tpu.sysid import SINDy
 
+# The tensors here are small: one intra-op thread (six test workers with a
+# thread pool each oversubscribe the cores).
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def model():

@@ -10,6 +10,10 @@ import torch
 from autompc_torch.ops.cuda_riccati import backward_quad_ll
 from autompc_tpu.ops.pallas_riccati import pallas_tvlqr_backward_quad_ll
 
+# The tensors here are small: one intra-op thread (six test workers with a
+# thread pool each oversubscribe the cores).
+torch.set_num_threads(1)
+
 
 def _inputs(seed, B=8, H=12, ds=4):
     rng = np.random.default_rng(seed)

@@ -467,7 +467,8 @@ def test_every_shape_within_the_limits_fits():
     src = (_build.CSRC_DIR / "linesearch_fused.cu").read_text()
     decls = re.findall(r"__shared__ (\w+) s_\w+\[([^\]]+)\];", src)
     assert decls == [("float", "DS * AMPC_MAX_F"), ("float", "AMPC_LS_MAX_THREADS"),
-                     ("float", "AMPC_LS_MAX_THREADS"), ("int", "AMPC_LS_MAX_THREADS")]
+                     ("float", "AMPC_LS_MAX_THREADS"), ("int", "AMPC_LS_MAX_THREADS"),
+                     ("float", "2 * AMPC_MAX_OBS * AMPC_MAX_OBS")]
     Bs = (16, 256, 1024, 16384, 1 << 18)
     for ds in range(1, _build.MAX_D):
         for dc in range(1, _build.MAX_D - ds + 1):
@@ -480,7 +481,8 @@ def test_every_shape_within_the_limits_fits():
         for B in Bs:
             assert K1.relin_geometry(B, 200, ds=ds)["smem"] <= K1.RELIN_STATIC_SMEM
         _build.check_shape("linesearch_fused", ds, 1)
-        assert 4 * (ds * _build.MAX_F + 3 * _build.LS_MAX_THREADS) <= 48 * 1024
+        assert 4 * (ds * _build.MAX_F + 3 * _build.LS_MAX_THREADS
+                    + 2 * _build.MAX_OBS ** 2) <= 48 * 1024
         _build.check_shape("riccati_quad_bm", ds, 1)
         for B in Bs:
             g = K2.bq_bm_geometry(B, 200, ds=ds)

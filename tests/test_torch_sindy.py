@@ -18,6 +18,10 @@ from autompc_tpu.costs import QuadCost as JQuad
 from autompc_tpu.ops import lstsq as jl
 from autompc_tpu.sysid import SINDy as JSINDy
 
+# The tensors here are small: one intra-op thread (six test workers with a
+# thread pool each oversubscribe the cores).
+torch.set_num_threads(1)
+
 SINDY_KW = dict(method="lstsq", threshold=1e-3, trig_basis=True, trig_freq=1,
                 trig_interaction=True)
 

@@ -12,6 +12,10 @@ from autompc_torch.core.trajectory import zeros
 from autompc_tpu.benchmarks import CartpoleSwingupBenchmark
 from autompc_tpu.core.trajectory import zeros as jzeros
 
+# The tensors here are small: one intra-op thread (six test workers with a
+# thread pool each oversubscribe the cores).
+torch.set_num_threads(1)
+
 
 def test_zeros_on_the_named_device_matches_the_reference():
     system = TCartpole().system

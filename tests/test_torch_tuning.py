@@ -430,7 +430,22 @@ def test_pretrain_without_surrogate_and_mesh_raise(setup):
 
 
 def test_assoc_backward_raises_by_name(setup):
+    """``backward="assoc"`` runs in the single-lane solver (against the
+    JAX package in tests/test_torch_solver_options.py: here it equals the
+    scan recursion's solve, 1e-9); the lanes-last body refuses it by
+    name, as the JAX package's does."""
+    from autompc_torch.control import make_batched_ilqr_solver
+
     t, tb = setup["t"], setup["tb"]
-    with pytest.raises(ValueError, match='backward="assoc"'):
-        t_make_ilqr_solver(t.pred_core, TQuad(tb.system, np.eye(4), np.eye(1)), H=5, ds=4,
-                           dc=1, obsdim=4, dt=0.05, backward="assoc")
+    cost = TQuad(tb.system, np.eye(4), np.eye(1))
+    kw = dict(H=5, ds=4, dc=1, obsdim=4, dt=0.05, max_iter=5)
+    x0, ug = torch.tensor([0.3, 0.0, 0.1, 0.0], dtype=torch.float64), torch.zeros((5, 1),
+                                                                              dtype=torch.float64)
+    outs = [t_make_ilqr_solver(t.pred_core, cost, backward=b, **kw)(t.params, x0, ug)
+            for b in ("assoc", "scan")]
+    assert bool(outs[0][0]) == bool(outs[1][0])
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-9, atol=1e-9)
+    with pytest.raises(ValueError, match="backward='assoc'"):
+        make_batched_ilqr_solver(t.pred_core, cost, backward="assoc", lanes_last=True,
+                                 fuse_ls=True, feature_spec=(t.library, "coeffs"), **kw)

@@ -16,7 +16,11 @@ that every checkout computes the same bits:
   dense-cost cartpole MLP 5-64-64-4 at B=4096, H=200; for a tree whose
   wrapper picks its block from the card's SM count (``mlp_geometry``),
   also the block it picks when the whole grid fits on the card at once
-  (``one_wave``) and when it does not (``many_waves``);
+  (``one_wave``) and when it does not (``many_waves``); at "highest" in
+  each of the TPU kernel's layouts (``_feat``, ``_mxu``: one kernel, the
+  same bits), and at the precisions "default" ("feat" and ``_mxu``,
+  whose first layer's control rows stay float32) and "bf16x3" (a tree
+  without them records ``*_skipped``);
 - the kernels that evaluate the feature library (``csrc/features.cuh``),
   on the main path's carry (the cartpole SINDy model fitted on the CPU
   from the smoke's data, so that every checkout gets the same
@@ -42,7 +46,14 @@ that every checkout computes the same bits:
   its last compaction stage, B=128. Each tree is driven through its
   own wrappers (the signatures of K8 and K9 differ between trees); K8's
   digest covers its objectives only, K9's its outputs (xs, us, jac,
-  du2), which every tree computes alike;
+  du2), which every tree computes alike; K3's batch-major entry
+  (``fused_line_search_bm``, ``K3bm_*``) on the same carry transposed, at
+  B=1,024, H=10 (the GaussReg fan-out's) and B=4096, H=200: per-lane cost
+  planes with shared (``lane``) or per-lane coefficients over the 55-term
+  library (``coef``, the per-lane instance up to 64 terms), each without
+  and with the GaussReg term (``+reg``, S and mu from the seed), and the
+  fixed dense cost (``dense``, a tree without the form records
+  ``*_skipped``);
 - K6 at (ds, dc) = (12, 1) (the cartpole's trig Koopman lift) at B=1,024,
   H=10 and B=4096, H=200, on a carry near the identity made from the seed;
 - the instances off the cartpole's shape (``*_2x1_*``, ``*_18x6_*``):
@@ -128,11 +139,19 @@ K4_SHAPES = (
     ("K4_8x1_B128_H10", 8, 1, 128, 10),
     ("K4_2x1_B1024_H20", 2, 1, 1024, 20),
 )
-# K5: (tag, widths, ds, dc, B, H)
-K5_SHAPES = (
-    ("K5_cheetah_B1024_H200", (24, 64, 64, 18), 18, 6, 1024, 200),
-    ("K5_cheetah_B32_H20", (24, 64, 64, 18), 18, 6, 32, 20),
-    ("K5_dense_B4096_H200", (5, 64, 64, 4), 4, 1, 4096, 200),
+# K5: (tag, widths, ds, dc, B, H, layout, precision); the blocks of
+# BLOCKS are timed for the "slab"/"highest" shapes.
+K5_SHAPES = tuple(
+    (tag + ("" if (layout, prec) == ("slab", "highest") else
+            f"_{layout}" if prec == "highest" else
+            f"_{prec}" + ("" if layout == "feat" else f"_{layout}")),
+     widths, ds, dc, B, H, layout, prec)
+    for tag, widths, ds, dc, B, H in (
+        ("K5_cheetah_B1024_H200", (24, 64, 64, 18), 18, 6, 1024, 200),
+        ("K5_cheetah_B32_H20", (24, 64, 64, 18), 18, 6, 32, 20),
+        ("K5_dense_B4096_H200", (5, 64, 64, 4), 4, 1, 4096, 200))
+    for layout, prec in (("slab", "highest"), ("feat", "highest"), ("mxu", "highest"),
+                         ("feat", "default"), ("mxu", "default"), ("feat", "bf16x3"))
 )
 # SM counts the K5 wrapper is told, so that it takes each of its two blocks.
 BLOCKS = (("one_wave", 10 ** 6), ("many_waves", 1))
@@ -170,7 +189,9 @@ LS_SHAPES = tuple(sorted(
        for B, H in ((4096, 200), (16384, 200), (1024, 20), (1024, 40)) + FAN_BH]
     + [(f"K7_B{B}_H{H}", "K7", B, H, "fixed", "f32") for B, H in ((4096, 200),) + FAN_BH]
     + [(f"lane_{k}_B{B}_H{H}", k, B, H, "coef", "f32") for B, H in ((1024, 10), (128, 10))
-       for k in ("K1", "K1bm", "K3", "K7")],
+       for k in ("K1", "K1bm", "K3", "K7")]
+    + [(f"K3bm_B{B}_H{H}_{form}", "K3bm", B, H, form, "f32") for B, H in ((1024, 10), (4096, 200))
+       for form in ("lane", "lane+reg", "coef", "coef+reg", "dense")],
     key=lambda r: (r[2], r[3])))
 # The pendulum's (2, 1) instances on its own carry: (tag, kernel, B, H,
 # cost form, Jacobian carry type), grouped by (B, H).
@@ -433,6 +454,34 @@ def ls_call(kind, ls, tail, jac, K1, K2, K3):
     return lambda: K3.wide_reroll(*args)
 
 
+def k3bm_call(ls, tail, form, K3):
+    """K3's batch-major entry on the lanes-last carry ``ls`` transposed:
+    ``form`` "lane" or "coef" (``ls``'s per-lane planes, shared or
+    per-lane coefficients), "+reg" with the GaussReg term (S, mu and the
+    weights from the seed), or "dense" (one fixed dense cost, Q coupling
+    the first two states, on the shared coefficients)."""
+    import torch
+
+    terms, x0T, xsT, usT, KsT, ksT, ca, alphas, lo, hi, qd, rd, fd, goal, dt = ls
+    obj0, lin, quad, ks_small, _ = tail
+    ds, B = x0T.shape
+    args = (terms, x0T.T.contiguous(), xsT.permute(2, 0, 1).contiguous(),
+            usT.T[:, :, None].contiguous(), KsT.permute(2, 0, 1)[:, :, None, :].contiguous(),
+            ksT.T[:, :, None].contiguous(), ca, alphas, lo, hi)
+    rest = (goal, dt, obj0, lin, quad, ks_small)
+    rng = np.random.default_rng(SEED + 1)
+    if form == "dense":
+        Q = np.diag((10.0, 0.1, 0.01, 0.01)[:ds])
+        Q[0, 1] = Q[1, 0] = 0.3
+        return lambda: K3.fused_line_search_bm(*args, Q, np.array([[0.001]]), Q, *rest)
+    reg = None
+    if form.endswith("+reg"):
+        A = rng.normal(size=(ds, ds))
+        reg = (A @ A.T + ds * np.eye(ds), rng.normal(0, 0.2, ds),
+               torch.as_tensor(10 ** rng.uniform(-3, 1, B), dtype=x0T.dtype, device=x0T.device))
+    return lambda: K3.fused_line_search_bm(*args, qd, rd, fd, *rest, reg=reg)
+
+
 def time_ms(fn, reps=20):
     """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events,
     two untimed warm-up runs first)."""
@@ -524,6 +573,10 @@ def time_one(root, only):
             torch.cuda.empty_cache()
             carry = ls_carry(*problem, B, H, dev)
         ls, tail, jac, _ = carry
+        if kind == "K3bm":
+            base = "lane" if form == "dense" else form.split("+")[0]
+            record_built(tag, k3bm_call(ls[base], tail, form, K3))
+            continue
         run = ls_call(kind, ls[form], tail, jac[jt], K1, K2, K3)
         record(tag, run)
         for name, const, value in VARIANTS.get(kind, ()):
@@ -599,12 +652,12 @@ def time_one(root, only):
         args = k4_inputs(ds, dc, B, H, dev)
         record_built(tag, lambda: K4.riccati_general(*args))
         del args
-    for tag, widths, ds, dc, B, H in K5_SHAPES:
+    for tag, widths, ds, dc, B, H, layout, prec in K5_SHAPES:
         if not wanted(tag):
             continue
         args = k5_inputs(widths, ds, dc, B, H, dev)
-        record(tag, lambda: K5.mlp_line_search(*args))
-        if not hasattr(K5, "mlp_geometry"):
+        record_built(tag, lambda: K5.mlp_line_search(*args, layout=layout, precision=prec))
+        if not hasattr(K5, "mlp_geometry") or (layout, prec) != ("slab", "highest"):
             continue
         sm_count = K5._build.sm_count
         for block, n_sm in BLOCKS:
