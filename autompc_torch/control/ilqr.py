@@ -15,7 +15,8 @@ Two bodies of the iteration are ported.
 ``lanes_last=True`` — dc = 1, a diagonal quadratic cost (one fixed
 QuadCost, or one per lane with ``quad_cost_batch``), a
 linear-in-features model (``feature_spec``; one for every lane, or one a
-lane with ``batch_params``), ``fuse_ls=True``. The carry
+lane with ``batch_params``, under either cost form: a fixed cost's
+diagonals then ride the carry as per-lane planes), ``fuse_ls=True``. The carry
 stays in the kernels' lanes-last layout for the whole solve — xs
 (H+1, ds, B), us (H, B), gains (H, ds, B)/(H, B) and the packed Jacobian
 plane jac (H, ds*(ds+1), B), float32 or, with ``jac_dtype="bf16"``,
@@ -54,8 +55,9 @@ acceptance rule in tensor ops, and relinearizes the chosen trajectory
 lane, a fixed diagonal one broadcast to per-lane planes, or a fixed dense
 one) the line search, the acceptance rule and the relinearization are one
 kernel, K3's batch-major entry
-(``ops/cuda_linesearch.py::fused_line_search_bm``; under ``relin="xla"``
-without its Jacobians), and the body applies the carry select.
+(``ops/cuda_linesearch.py::fused_line_search_bm``, at any dc, each
+control with its own bounds; under ``relin="xla"`` without its
+Jacobians), and the body applies the carry select.
 
 ``reg_matrix``/``reg_goal`` (with ``quad_cost_batch``, batch-major body
 only) add the GaussReg term ``regw_b (x - mu)' S (x - mu)`` to every
@@ -428,7 +430,21 @@ def make_batched_ilqr_solver(
 
     def lanes_last_pieces():
         if dc != 1:
-            raise _unsupported("dc > 1 with lanes_last=True")
+            # The JAX package refuses this too (a ValueError, which the
+            # tuner scores inf), with this message.
+            lib_gts = (getattr(feature_spec[0], "grad_terms", None)
+                       if feature_spec is not None else None)
+            raise ValueError(
+                "lanes_last=True requires the fully-fused dc=1 "
+                "diagonal-quadratic path: fuse_ls=True, a feature_spec "
+                "whose library has grad_terms, relin != 'xla', and a "
+                "diagonal quadratic cost (fixed QuadCost or "
+                "quad_cost_batch); got "
+                f"quad_backward={quad_cost_batch or fixed_diag is not None}, "
+                f"fuse_ls={fuse_ls}, relin_pallas={relin != 'xla'}, dc={dc}, "
+                f"grad_terms={'yes' if lib_gts is not None else 'no'}, "
+                f"mlp_ls={'set' if mlp_ls is not None else 'None'}"
+            )
         if mlp_ls is not None:
             raise ValueError("mlp_ls needs the batch-major body (lanes_last=False)")
         if backward != "pallas":
@@ -450,15 +466,21 @@ def make_batched_ilqr_solver(
                    " (a model without one takes the batch-major body, lanes_last=False, "
                    "and its jacfwd relinearization)")
             )
-        if batch_params and not quad_cost_batch:
-            raise ValueError(
-                "batch_params with lanes_last=True needs quad_cost_batch=True: the "
-                "fused line search's per-lane-coefficient instances take per-lane "
-                "cost planes"
-            )
         terms, active_coeffs = feature_pieces()
         goal = goal_q if quad_cost_batch else fixed_diag[3]
         ulo, uhi = float(umin[0]), float(umax[0])
+        # Per-lane cost planes: the lanes' own, or with batch_params a
+        # fixed cost's diagonals broadcast to lanes-last planes (the
+        # per-lane-coefficient instances of K3 take per-lane cost planes;
+        # the JAX body broadcasts them for its backward pass the same way).
+        lane_planes = quad_cost_batch or batch_params
+
+        def fixed_planes(like):
+            """A fixed diagonal cost as lanes-last planes qd/fd (obsdim, B),
+            rd (1, B), one fill a row."""
+            B = like.shape[0]
+            return {k: like.new_tensor(v)[:, None].expand(len(v), B).contiguous()
+                    for k, v in zip(("Qdiag", "Rdiag", "Fdiag"), fixed_diag[:3])}
 
         def make_carry0(params, x0s, uguess, cost_params=None):
             B = x0s.shape[0]
@@ -477,7 +499,8 @@ def make_batched_ilqr_solver(
                 **({"params": coeffs} if batch_params else {}),
                 # Lanes-last planes (obsdim, B) / (1, B): compaction
                 # gathers them with the lanes.
-                cost={k: v.T.contiguous() for k, v in cp.items()},
+                cost=({k: v.T.contiguous() for k, v in cp.items()} if quad_cost_batch
+                      else fixed_planes(x0s) if lane_planes else {}),
                 obj=eval_obj(xs0, uguess, cp),
                 Ks=x0s.new_zeros((H, ds, B)), ks=x0s.new_zeros((H, B)),
                 itr=0,
@@ -494,7 +517,7 @@ def make_batched_ilqr_solver(
             def body(c):
                 coeffs = c["params"] if batch_params else fixed_coeffs
                 active = ~c["converged"] & ~c["failed"]
-                if quad_cost_batch:
+                if lane_planes:
                     cp = c["cost"]
                     qd, rd, fd = cp["Qdiag"], cp["Rdiag"], cp["Fdiag"]
                 else:
@@ -549,17 +572,13 @@ def make_batched_ilqr_solver(
         # a feature_spec, or under a cost that is not quadratic, fuse_ls
         # is ignored there too. With dc > 1 the feature path is K1's
         # batch-major entry, the dense-expansion backward pass (K4) and
-        # the rollout line search (K7). A fixed cost whose Q, R or F is
-        # not diagonal takes K3's dense form (the TPU kernel's
-        # per_lane_diag_cost=False) and the backward pass from dense
-        # expansions.
+        # K3's multi-control instances, each control with its own bounds
+        # (the rollout line search, K7, without fuse_ls). A fixed cost
+        # whose Q, R or F is not diagonal takes K3's dense form (the TPU
+        # kernel's per_lane_diag_cost=False) and the backward pass from
+        # dense expansions.
         fused = fuse_ls and feature_spec is not None and (
             quad_cost_batch or getattr(cost, "is_quad", False))
-        if fused and dc != 1:
-            raise _unsupported(
-                "fuse_ls with dc > 1 (the batch-major fused line search, K3, takes dc = 1; "
-                "fuse_ls=False runs the rollout line search)"
-            )
         if fused and not quad_cost_batch and fixed_diag is None:
             dense_cost = tuple(
                 np.asarray(M.detach().cpu().numpy(), dtype=np.float64)
@@ -769,9 +788,11 @@ def make_batched_ilqr_solver(
                 reg = None
                 if reg_matrix is not None:
                     reg = (reg_S, reg_mu, c["cost"]["regw"])
+                # dc = 1: one pair of bounds; else each control's own.
+                lo, hi = (float(umin[0]), float(umax[0])) if dc == 1 else (umin, umax)
                 return fused_line_search_bm(
                     terms, c["x0s"], c["xs"], c["us"], Ks.contiguous(), ks.contiguous(),
-                    coeffs, alphas, float(umin[0]), float(umax[0]), Qd, Rd, Fd, goal, dt,
+                    coeffs, alphas, lo, hi, Qd, Rd, Fd, goal, dt,
                     c["obj"], lin_red, quad_red, ks_small, reg=reg,
                     ls_cost_threshold=ls_cost_threshold, jac=kernel_relin,
                 )

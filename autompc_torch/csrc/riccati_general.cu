@@ -675,3 +675,25 @@ extern "C" int ampc_riccati_general(
 #endif
   return (int)cudaErrorInvalidValue;
 }
+
+#ifndef AMPC_DS
+// K4 at dc = 1 and a state wider than the per-shape instances take
+// (ds + 1 > 24; the GaussReg joint-Koopman fan-out's lifts):
+// riccati_big.cuh's kernel on the dense expansions, ds a run-time
+// argument, one lane a block (the main library only). Cuu and cu are
+// (B, H) at dc = 1.
+#include "riccati_big.cuh"
+
+extern "C" int ampc_riccati_general_big(
+    const float* Jx, const float* Ju, const float* Cxx, const float* Cuu,
+    const float* cx, const float* cu, const float* Vn, const float* vn,
+    float* Ks, float* ks, float* lin, float* quad, int ds, int H, int B, int device,
+    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  RbArgs a = {};
+  a.Jx = Jx, a.Ju = Ju, a.Cxx = Cxx, a.Cuu = Cuu, a.xs = cx, a.us = cu, a.Vn = Vn,
+  a.vn = vn, a.Ks = Ks, a.ks = ks, a.lin = lin, a.quad = quad;
+  return rb_launch<true>(a, ds, H, B, (cudaStream_t)stream);
+}
+#endif

@@ -557,3 +557,28 @@ extern "C" int ampc_backward_quad_bm(const QuadDiag* P, const float* Jx,
   return (int)cudaGetLastError();
 #endif
 }
+
+#ifndef AMPC_DS
+// K6 at a lift wider than the per-shape instances take (ds + 1 >
+// AMPC_MAX_D): riccati_big.cuh's kernel with the inline expansions, ds
+// a run-time argument, one lane a block (the main library only).
+#include "riccati_big.cuh"
+
+extern "C" int ampc_backward_quad_bm_big(const QuadDiag* P, const float* Jx,
+                                         const float* Ju, const float* xs,
+                                         const float* us, const float* Qd,
+                                         const float* Rd, const float* Fd,
+                                         float* Ks, float* ks, float* lin,
+                                         float* quad, int ds, int H, int B,
+                                         int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (P->obsdim < 1 || P->obsdim > AMPC_MAX_OBS) return (int)cudaErrorInvalidValue;
+  RbArgs a = {};
+  a.Jx = Jx, a.Ju = Ju, a.xs = xs, a.us = us, a.Qd = Qd, a.Rd = Rd, a.Fd = Fd;
+  a.Ks = Ks, a.ks = ks, a.lin = lin, a.quad = quad;
+  a.obsdim = P->obsdim, a.two_dt = P->two_dt;
+  for (int i = 0; i < P->obsdim; ++i) a.goal[i] = P->goal[i];
+  return rb_launch<false>(a, ds, H, B, (cudaStream_t)stream);
+}
+#endif

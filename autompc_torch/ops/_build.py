@@ -99,6 +99,43 @@ BQ_MAX_DS = max(ds for ds in range(1, MAX_D)
 # (riccati_quad_bm.cu: AMPC_BQBM_RING, AMPC_BQBM_MAX_THREADS).
 BQBM_RING = 12
 BQBM_MAX_THREADS = 128
+# The backward pass past the per-shape instances (csrc/riccati_big.cuh):
+# K6 and K4 at dc = 1 and a state wider than ds + 1 <= MAX_D takes, one
+# lane a block of RB_G threads a row, the rows the state's width rounded
+# up to a warp (at most RB_MAX_THREADS threads), a ring of RB_RING steps.
+RB_RING = 2
+RB_G = 4
+RB_MAX_THREADS = 512
+
+
+def big_threads(n):
+    """Threads of the wide backward pass's block at state width n
+    (riccati_big.cuh: rb_threads)."""
+    return -(-n // 32) * 32 * RB_G
+
+
+def _up4(n):
+    return -(-n // 4) * 4
+
+
+def big_smem(n, dense):
+    """Bytes of shared memory of the wide backward pass's block at state
+    width n (riccati_big.cuh: rb_floats): V and v, Jx'V (rows at the odd
+    stride n | 1), three vectors, the ring of RB_RING slots (Jx, Ju, x_t or
+    cx, 4 scalars; with K4's ``dense`` expansions Cxx too)."""
+    ld = n | 1
+    slot = _up4(n * n) + 2 * _up4(n) + 4 + (_up4(n * n) if dense else 0)
+    return 4 * (2 * _up4(n * ld) + 4 * _up4(n) + RB_RING * slot)
+
+
+# The widest states of the two wide instances: K6 (the inline expansions)
+# and K4 at dc = 1 (dense expansions, twice the ring), the largest n whose
+# block fits MAX_SMEM_BYTES within RB_MAX_THREADS threads: 119 and 97, the
+# Koopman spaces' largest lift on the cartpole (96) within both.
+BQBM_BIG_MAX_DS = max(n for n in range(MAX_D, RB_MAX_THREADS // RB_G + 1)
+                      if big_smem(n, False) <= MAX_SMEM_BYTES)
+RG_BIG_MAX_DS = max(n for n in range(MAX_D, RB_MAX_THREADS // RB_G + 1)
+                    if big_smem(n, True) <= MAX_SMEM_BYTES)
 # Streaming multiprocessors of an H100 SXM: the geometry helpers' default
 # where no card is asked (the CPU tests).
 H100_SMS = 132
@@ -116,9 +153,9 @@ class Shapes(tuple):
     search, whose QuadDiag / LSParams hold one R). A library built at
     first use holds the per-lane-coefficient instances too."""
 
-    def __new__(cls, built, max_ds=None, dc1=False):
+    def __new__(cls, built, max_ds=None, dc1=False, mc=False):
         self = super().__new__(cls, built)
-        self.max_ds, self.dc1 = max_ds, dc1
+        self.max_ds, self.dc1, self.mc = max_ds, dc1, mc
         return self
 
 
@@ -128,7 +165,11 @@ class Shapes(tuple):
 # every ds up to it: tests/test_torch_shapes.py); K3's, K6's, K8's and
 # K9's blocks fit at every ds up to MAX_D - 1, and K4's largest block at
 # every (ds, dc) with ds + dc <= MAX_D (tests/test_torch_dense_shapes.py;
-# cuda_riccati_general.check_general_shape raises past it).
+# cuda_riccati_general.check_general_shape raises past it). K3's
+# batch-major entry at dc > 1 (the cheetah's (18, 6)) is its own source,
+# built at first use at any (ds, dc > 1) with ds + dc <= MAX_D. K6 and K4
+# at dc = 1 past MAX_D take the main library's wide instance
+# (BQBM_BIG_MAX_DS, RG_BIG_MAX_DS), not a shape's library.
 KERNEL_SHAPES = {
     "relin": Shapes(((4, 1),), MAX_D - 1),
     "riccati_quad": Shapes(((4, 1),), BQ_MAX_DS, dc1=True),
@@ -138,6 +179,7 @@ KERNEL_SHAPES = {
     "ls_reroll_wide": Shapes(((4, 1),), MAX_D - 1, dc1=True),
     "sindy_linesearch": Shapes(((4, 1),), MAX_D - 1),
     "riccati_general": Shapes(((18, 6), (4, 1)), MAX_D - 1),
+    "linesearch_fused_mc": Shapes((), MAX_D - 1, mc=True),
 }
 
 
@@ -204,6 +246,22 @@ class RegParams(ctypes.Structure):
     _fields_ = [
         ("cS", ctypes.c_float * (MAX_OBS * MAX_OBS)),
         ("mu", ctypes.c_float * MAX_OBS),
+    ]
+
+
+class LSParamsMC(ctypes.Structure):
+    """K3's constants at dc > 1 (linesearch_fused_mc.cu: LSParamsMC): the
+    step sizes, each control's bounds, the goal (up to MAX_D entries)."""
+
+    _fields_ = [
+        ("L", ctypes.c_int),
+        ("obsdim", ctypes.c_int),
+        ("alphas", ctypes.c_float * MAX_L),
+        ("umin", ctypes.c_float * MAX_D),
+        ("umax", ctypes.c_float * MAX_D),
+        ("goal", ctypes.c_float * MAX_D),
+        ("dt", ctypes.c_float),
+        ("thresh", ctypes.c_float),
     ]
 
 
@@ -288,6 +346,14 @@ _SIGNATURES = {
         [_P, _I, ctypes.POINTER(SindyLS)] + [_P] * 8 + [_I] * 7 + [_P]
     ),
     "ampc_riccati_general": [_P] * 12 + [_I] * 7 + [_P],
+    "ampc_riccati_general_big": [_P] * 12 + [_I] * 4 + [_P],
+    "ampc_backward_quad_bm_big": (
+        [ctypes.POINTER(QuadDiag)] + [_P] * 11 + [_I] * 4 + [_P]
+    ),
+    "ampc_fused_line_search_mc": (
+        [ctypes.POINTER(FeatTable), _P, _I, ctypes.POINTER(LSParamsMC), _I]
+        + [_P] * 25 + [_I] * 7 + [_P]
+    ),
     "ampc_mlp_line_search": (
         [ctypes.POINTER(MlpLS)] + [_P] * 8 + [_I] * 6 + [_P]
     ),
@@ -297,6 +363,14 @@ _SIGNATURES = {
 
 def sources():
     return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def main_sources():
+    """The .cu sources compiled into the main library: every one but a
+    source with no prebuilt shape (``KERNEL_SHAPES``: K3's multi-control
+    source), which is built only at a shape."""
+    return [p for p in sources() if p.suffix == ".cu"
+            and KERNEL_SHAPES.get(p.stem, True)]
 
 
 def source_digest() -> str:
@@ -335,9 +409,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cc, tag = nvcc(), source_digest()
     jobs = []
-    for src in sources():
-        if src.suffix != ".cu":
-            continue
+    for src in main_sources():
         obj = BUILD_DIR / f"{src.stem}_{tag}.o"
         cmd = [cc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(
@@ -372,12 +444,12 @@ def build_log() -> str:
     return p.read_text() if p.exists() else ""
 
 
-def _bind(path, every=True) -> ctypes.CDLL:
-    """Load the library at ``path`` and type its C entries (``every``:
-    all of ``_SIGNATURES``; else those the library has)."""
+def _bind(path) -> ctypes.CDLL:
+    """Load the library at ``path`` and type the C entries of
+    ``_SIGNATURES`` that it has."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
-        if not every and not hasattr(lib, name):
+        if not hasattr(lib, name):
             continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -398,7 +470,8 @@ def check_shape(source, ds, dc):
     """Raise ``ValueError`` by name unless the kernels of ``source`` take
     (ds, dc) (``KERNEL_SHAPES[source]``): a prebuilt pair, or ds + dc <=
     MAX_D, ds <= its ``max_ds`` and, for the diagonal-cost kernels, dc =
-    1. ``kernel_library`` calls it before any build or launch."""
+    1 (for K3's multi-control source dc > 1). ``kernel_library`` calls it
+    before any build or launch."""
     shapes = KERNEL_SHAPES[source]
     if (ds, dc) in shapes:
         return
@@ -414,6 +487,9 @@ def check_shape(source, ds, dc):
     if shapes.dc1 and dc != 1:
         raise ValueError(f"{source}: the diagonal-cost kernels take dc = 1, got "
                          f"(ds, dc) = {(ds, dc)}")
+    if shapes.mc and dc < 2:
+        raise ValueError(f"{source}: the multi-control instances take dc > 1 (dc = 1 "
+                         f"takes linesearch_fused), got (ds, dc) = {(ds, dc)}")
 
 
 def check_obsdim(source, obsdim):
@@ -473,7 +549,7 @@ def shape_library(source, ds, dc) -> ctypes.CDLL:
     path = shape_library_path(source, ds, dc)
     if not path.exists():
         build_shapes([(source, ds, dc)])
-    return _bind(path, every=False)
+    return _bind(path)
 
 
 def shape_build_log(source, ds, dc) -> str:

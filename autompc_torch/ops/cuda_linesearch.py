@@ -54,7 +54,9 @@ planes and a float32 Jacobian carry (the joint fan-out's form); the
 split search (K8, K9) refuses per-lane coefficients.
 
 ``fused_line_search_bm`` (K3's batch-major entry, ``pallas_fused_line_search``
-with ``ll_io=False``, ``grad_terms`` and optionally ``reg=(S, mu, w)``):
+with ``ll_io=False``, ``grad_terms`` and optionally ``reg=(S, mu, w)``; at
+dc > 1 the multi-control instances of ``csrc/linesearch_fused_mc.cu``, each
+control with its own bounds and feedback row, any obsdim <= ds):
 the same kernel body with its ``BM`` switch, on the batch-major carry of
 the solver's batch-major body, and without the carry select (the TPU
 entry returns every lane's chosen rollout; the body selects). Its cost
@@ -444,22 +446,43 @@ def _bm_dense(qd, rd, fd, obsdim, B):
                      "R (1, 1) (host arrays)")
 
 
+def _mc_dense(qd, rd, fd, obsdim, dc, B):
+    """``_bm_dense`` at dc > 1: False for per-lane planes qd/fd (obsdim, B),
+    rd (dc, B) (tensors), True for one fixed dense cost Q/F (obsdim,
+    obsdim), R (dc, dc) (host arrays); any other form raises."""
+    if all(isinstance(v, torch.Tensor) and v.ndim == 2 for v in (qd, rd, fd)):
+        if tuple(qd.shape) == tuple(fd.shape) == (obsdim, B) and tuple(rd.shape) == (dc, B):
+            return False
+    elif not any(isinstance(v, torch.Tensor) for v in (qd, rd, fd)):
+        if tuple(np.shape(v) for v in (qd, rd, fd)) == ((obsdim, obsdim), (dc, dc),
+                                                        (obsdim, obsdim)):
+            return True
+    raise ValueError(f"the batch-major entry at dc = {dc} takes per-lane cost planes qd/fd "
+                     "(obsdim, B), rd (dc, B) (tensors), or one fixed dense cost Q/F "
+                     "(obsdim, obsdim), R (dc, dc) (host arrays)")
+
+
 def _shapes_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, qd, rd, fd, goal, reg):
     B, Hp1, ds = xs.shape
     H = Hp1 - 1
-    want = {"x0": (x0, (B, ds)), "us": (us, (B, H, 1)), "Ks": (Ks, (B, H, 1, ds)),
-            "ks": (ks, (B, H, 1))}
+    dc = us.shape[-1] if us.ndim == 3 else 1
+    want = {"x0": (x0, (B, ds)), "us": (us, (B, H, dc)), "Ks": (Ks, (B, H, dc, ds)),
+            "ks": (ks, (B, H, dc))}
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     _check_coeffs(terms, coeffs, ds, B)
-    if len(terms[0].exps) != ds + 1:
-        raise ValueError(f"terms take {len(terms[0].exps)} inputs, expected ds + 1 = {ds + 1}")
+    if len(terms[0].exps) != ds + dc:
+        raise ValueError(f"terms take {len(terms[0].exps)} inputs, expected ds + dc = "
+                         f"{ds + dc}")
     obsdim = len(goal)
     if not 1 <= obsdim <= ds:
         raise ValueError(f"goal must have length obsdim <= ds = {ds}")
-    _build.check_obsdim("linesearch_fused", obsdim)
-    dense = _bm_dense(qd, rd, fd, obsdim, B)
+    if dc == 1:
+        _build.check_obsdim("linesearch_fused", obsdim)
+        dense = _bm_dense(qd, rd, fd, obsdim, B)
+    else:
+        dense = _mc_dense(qd, rd, fd, obsdim, dc, B)
     if coeffs.ndim == 3:
         _build.check_table_size(len(terms), True)
     if not 1 <= len(alphas) <= _build.MAX_L:
@@ -473,7 +496,7 @@ def _shapes_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, qd, rd, fd, goal, reg)
                 or tuple(w.shape) != (B,):
             raise ValueError(f"reg: S (obsdim, obsdim), mu (obsdim,) and w (B,) with "
                              f"obsdim = {obsdim}, B = {B}")
-    return B, H, ds, dense
+    return B, H, ds, dc, dense
 
 
 def fused_line_search_bm_plain(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax,
@@ -482,9 +505,14 @@ def fused_line_search_bm_plain(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, 
     """Plain PyTorch twin of K3's batch-major entry: the lanes-last twin's
     sweep (with the GaussReg term, or under the dense fixed cost),
     acceptance and re-roll on the transposed carry, every lane's chosen
-    rollout returned."""
-    B, H, ds, dense = _shapes_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, qd, rd, fd,
-                                 goal, reg)
+    rollout returned. At dc > 1 (``us`` (B, H, dc)) the multi-control
+    form (``_mc_plain``)."""
+    B, H, ds, dc, dense = _shapes_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, qd, rd, fd,
+                                     goal, reg)
+    if dc > 1:
+        return _mc_plain(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax, qd, rd, fd,
+                         goal, dt, obj0, lin_red, quad_red, ks_small, reg, ls_cost_threshold,
+                         jac, dense)
     x0T, xsT, usT, KsT, ksT = _bm_planes(x0, xs, us, Ks, ks)
     objs = _sweep(terms, x0T, xsT, usT, KsT, ksT, coeffs, alphas, umin, umax, qd, rd,
                   fd, goal, dt, True, keep=False, reg=reg, dense=dense)[0]
@@ -500,6 +528,106 @@ def fused_line_search_bm_plain(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, 
         Jx, Ju = jac_p[..., :ds].contiguous(), jac_p[..., ds:].contiguous()
     return (out_xs.permute(2, 0, 1).contiguous(), out_us.T[:, :, None].contiguous(),
             new_obj, success, failed, Jx, Ju, du2)
+
+
+def _mc_bounds(v, dc):
+    """Per-control bounds: a float (every control) or a sequence of dc."""
+    a = np.broadcast_to(np.asarray(_host(v), dtype=np.float64).reshape(-1), (dc,))
+    return [float(x) for x in a]
+
+
+def _mc_forms(like, qd, rd, fd, goal, dense, reg):
+    """The multi-control cost forms on (L, B) slabs, in the TPU kernel's
+    order: (state form, control form, terminal form), each a function of
+    the state (or control) list; the GaussReg term (``reg``) added to the
+    state form as ``oc + w r``."""
+    c = lambda v: like.new_tensor(float(v))
+    gl = [c(v) for v in goal]
+    o = len(goal)
+    if dense:
+        Qm, Rm, Fm = ([[c(v) for v in row] for row in _host(M)] for M in (qd, rd, fd))
+        state = lambda x: _dense_form(Qm, x, gl)
+        term = lambda x: _dense_form(Fm, x, gl)
+        ctrl = lambda u: tree_sum([Rm[j][m] * u[j] * u[m] for j in range(len(u))
+                                   for m in range(len(u))])
+    else:
+        state = lambda x: tree_sum([qd[i] * (x[i] - gl[i]) * (x[i] - gl[i]) for i in range(o)])
+        term = lambda x: tree_sum([fd[i] * (x[i] - gl[i]) * (x[i] - gl[i]) for i in range(o)])
+        ctrl = lambda u: tree_sum([rd[j] * u[j] * u[j] for j in range(len(u))])
+    if reg is not None:
+        S, mu, w = reg
+        entries = [(i, j, like.new_tensor(v)) for i, j, v in _reg_entries(S)]
+        mu = [like.new_tensor(v) for v in _host(mu)]
+        w = w.to(like.dtype)[None, :]
+        base = state
+        state = lambda x: base(x) + w * _reg_form(entries, x, mu)
+    return state, ctrl, term
+
+
+def _mc_roll(terms, x0T, xsT, usT, KsT, ksT, coeffs, alpha, lo, hi, forms, dt, record, jac):
+    """Roll every lane's candidates at ``alpha`` ((L, 1) for the L step
+    sizes, or (1, B) for one chosen step size a lane) on the multi-control
+    carry x0T (ds, B), xsT (H+1, ds, B), usT (H, dc, B), KsT (H, dc, ds, B),
+    ksT (H, dc, B): u_j = clip(alpha k_j + ubar_j + tree_i K_ji (x_i -
+    xbar_i), lo_j, hi_j), the objective (L or 1, B) and, with ``record``,
+    the states (H+1 lists of ds slabs), controls, the Jacobian rows
+    (``jac``) and du2 (the tree over j of (u_j - ubar_j)^2, folded over
+    t)."""
+    state, ctrl, term = forms
+    H, dc = usT.shape[0], usT.shape[1]
+    ds = xsT.shape[1]
+    shape = torch.broadcast_shapes(tuple(alpha.shape), (1, x0T.shape[1]))
+    x = [x0T[i][None, :].expand(shape) for i in range(ds)]
+    obj = x0T.new_zeros(shape)
+    xs_out, us_out, rows, du2 = [x], [], [], x0T.new_zeros(shape)
+    for t in range(H):
+        dx = [x[i] - xsT[t, i][None, :] for i in range(ds)]
+        u = []
+        for j in range(dc):
+            fb = tree_sum([KsT[t, j, i][None, :] * dx[i] for i in range(ds)])
+            uj = alpha * ksT[t, j][None, :] + usT[t, j][None, :] + fb
+            u.append(torch.clamp(uj, lo[j], hi[j]))
+        obj = obj + dt * (state(x) + ctrl(u))
+        z = x + u
+        x = feature_dynamics(terms, coeffs, z, ds)
+        if record:
+            du2 = du2 + tree_sum([(u[j] - usT[t, j][None, :]) ** 2 for j in range(dc)])
+            xs_out.append(x)
+            us_out.append(u)
+            if jac:
+                rows.append(feature_jacobian_rows(terms, coeffs, z, ds))
+    return obj + term(x), xs_out, us_out, rows, du2
+
+
+def _mc_plain(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax, qd, rd, fd, goal, dt,
+              obj0, lin_red, quad_red, ks_small, reg, ls_cost_threshold, jac, dense):
+    """The plain version of K3's batch-major entry at dc > 1 (the TPU
+    kernel with ll_io=False and any dc): every step size rolled and
+    scored, the reference acceptance rule, the chosen step size rolled
+    again with its Jacobians."""
+    B, H, ds = xs.shape[0], xs.shape[1] - 1, xs.shape[2]
+    dc = us.shape[-1]
+    x0T, xsT = x0.T, xs.permute(1, 2, 0)
+    usT, KsT, ksT = us.permute(1, 2, 0), Ks.permute(1, 2, 3, 0), ks.permute(1, 2, 0)
+    lo, hi = _mc_bounds(umin, dc), _mc_bounds(umax, dc)
+    forms = _mc_forms(xs, qd, rd, fd, goal, dense, reg)
+    dtv = xs.new_tensor(float(dt))
+    a_col = xs.new_tensor([float(a) for a in alphas])[:, None]
+    objs = _mc_roll(terms, x0T, xsT, usT, KsT, ksT, coeffs, a_col, lo, hi, forms, dtv,
+                    False, False)[0]
+    success, failed, a_sel, new_obj = _accept(objs, alphas, obj0, lin_red, quad_red,
+                                              ks_small, ls_cost_threshold)
+    _, xs_l, us_l, rows, du2 = _mc_roll(terms, x0T, xsT, usT, KsT, ksT, coeffs,
+                                        a_sel[None, :], lo, hi, forms, dtv, True, jac)
+    out_xs = torch.stack([torch.stack(x)[:, 0] for x in xs_l]).permute(2, 0, 1)
+    out_us = torch.stack([torch.stack(u)[:, 0] for u in us_l]).permute(2, 0, 1)
+    Jx = Ju = None
+    if jac:
+        J = torch.stack([torch.stack([r.expand(1, B)[0] for r in rw]) for rw in rows])
+        J = J.reshape(H, ds, ds + dc, B).permute(3, 0, 1, 2)
+        Jx, Ju = J[..., :ds].contiguous(), J[..., ds:].contiguous()
+    return (out_xs.contiguous(), out_us.contiguous(), new_obj, success, failed, Jx, Ju,
+            du2[0])
 
 
 def _reg_params(S, mu):
@@ -521,27 +649,34 @@ def fused_line_search_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax,
     relinearized, for every lane (no carry select).
 
     terms: tuple of active ``TermDesc``; x0 (B, ds); xs (B, H+1, ds);
-    us (B, H, 1); Ks (B, H, 1, ds); ks (B, H, 1); coeffs (ds, len(terms))
+    us (B, H, dc); Ks (B, H, dc, ds); ks (B, H, dc); coeffs (ds, len(terms))
     or per lane a lanes-last (ds, len(terms), B) plane; alphas, goal
     (obsdim,): host sequences; the cost either per-lane lanes-last
-    planes, qd/fd (obsdim, B), rd (1, B) tensors, or one fixed dense
-    cost, Q/F (obsdim, obsdim), R (1, 1) host arrays; umin/umax, dt:
-    floats; obj0/lin_red/quad_red (B,); ks_small (B,) bool; ``reg``
-    (per-lane planes only): None or ``(S (obsdim, obsdim), mu (obsdim,),
-    w (B,))``, the GaussReg term ``w (x - mu)' S (x - mu)`` (S and mu
-    host arrays or tensors, w a tensor); ``jac=False``: no
-    relinearization (Jx, Ju returned as None).
+    planes, qd/fd (obsdim, B), rd (dc, B) tensors, or one fixed dense
+    cost, Q/F (obsdim, obsdim), R (dc, dc) host arrays; umin/umax: floats,
+    or at dc > 1 a float or a sequence of dc (each control its own
+    bounds); dt a float; obj0/lin_red/quad_red (B,); ks_small (B,) bool;
+    ``reg`` (per-lane planes only): None or ``(S (obsdim, obsdim), mu
+    (obsdim,), w (B,))``, the GaussReg term ``w (x - mu)' S (x - mu)`` (S
+    and mu host arrays or tensors, w a tensor); ``jac=False``: no
+    relinearization (Jx, Ju returned as None). At dc > 1 the card runs
+    the multi-control instances (``csrc/linesearch_fused_mc.cu``, built at
+    the (ds, dc) at first use, counted in ``launches_mc`` too).
 
-    Returns (xs (B, H+1, ds), us (B, H, 1), obj (B,), success (B,),
-    failed (B,), Jx (B, H, ds, ds), Ju (B, H, ds, 1), du2 (B,)). The
+    Returns (xs (B, H+1, ds), us (B, H, dc), obj (B,), success (B,),
+    failed (B,), Jx (B, H, ds, ds), Ju (B, H, ds, dc), du2 (B,)). The
     kernel's limits hold on every device."""
-    B, H, ds, dense = _shapes_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, qd, rd, fd,
-                                 goal, reg)
+    B, H, ds, dc, dense = _shapes_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, qd, rd, fd,
+                                     goal, reg)
     lane_coef = coeffs.ndim == 3
     if _build.device_kind(xs) == "cpu":
         return fused_line_search_bm_plain(
             terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax, qd, rd, fd, goal, dt,
             obj0, lin_red, quad_red, ks_small, reg, ls_cost_threshold, jac)
+    if dc > 1:
+        return _launch_mc(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax, qd, rd, fd,
+                          goal, dt, obj0, lin_red, quad_red, ks_small, reg,
+                          ls_cost_threshold, jac, dense)
     _build.check_table_size(len(terms), lane_coef)
     lib = _build.kernel_library("linesearch_fused", ds, 1)
     dev, f32, b8 = xs.device, torch.float32, torch.bool
@@ -557,7 +692,7 @@ def fused_line_search_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax,
     if dense:
         P = _ls_params(alphas, umin, umax, (0.0,) * len(goal), (float(_host(rd)[0, 0]),),
                        (0.0,) * len(goal), goal, dt, ls_cost_threshold, False)
-        QF = _dense_on(qd, fd, dev)
+        QF = (_on(qd, dev), _on(fd, dev))
     else:
         P = _ls_params(alphas, umin, umax, qd, rd, fd, goal, dt, ls_cost_threshold, True)
         planes = _build.cost_plane_ptrs(True, qd, rd, fd, f32, dev)
@@ -617,26 +752,115 @@ def fused_line_search_bm(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax,
     return out_xs, out_us, out_obj, succ, fail, Jx, Ju, du2
 
 
-def _dense_on(Q, F, device):
-    """The dense cost's Q and F as contiguous float32 tensors on
-    ``device`` (the kernel stages them in shared memory), copied there
-    once for each value: a host-to-device copy each call would wait for
-    the card's queue."""
-    Q, F = (np.ascontiguousarray(_host(M), np.float32) for M in (Q, F))
-    return _dense_tensors(Q.tobytes(), F.tobytes(), Q.shape[0], device)
+def fused_mc_smem(ds, dc, obsdim, lane_coef, dense, reg):
+    """Bytes of dynamic shared memory of K3's multi-control block
+    (linesearch_fused_mc.cu): the shared coefficient plane (none with
+    per-lane coefficients), the dense Q, R, F or the GaussReg S and mu,
+    the objectives, du2 and picks of up to 256 threads."""
+    up4 = lambda n: -(-n // 4) * 4
+    cost = (2 * up4(obsdim ** 2) + up4(dc * dc) if dense
+            else up4(obsdim ** 2) + up4(obsdim) if reg else 0)
+    return 4 * ((0 if lane_coef else up4(ds * _build.MAX_F)) + cost
+                + 3 * _build.LS_MAX_THREADS)
 
 
-@functools.lru_cache(maxsize=16)
-def _dense_tensors(q, f, n, device):
-    return tuple(torch.frombuffer(bytearray(b), dtype=torch.float32).reshape(n, n).to(device)
-                 for b in (q, f))
+@functools.lru_cache(maxsize=32)
+def _host_on(raw, shape, device):
+    return torch.frombuffer(bytearray(raw), dtype=torch.float32).reshape(shape).to(device)
+
+
+def _on(a, device):
+    """A host array (the dense cost's Q, R, F; the GaussReg S and mu) as a
+    contiguous float32 tensor on ``device`` (the kernels stage it in
+    shared memory), copied there once for each value: a host-to-device
+    copy each call would wait for the card's queue."""
+    a = np.ascontiguousarray(_host(a), np.float32)
+    return _host_on(a.tobytes(), a.shape, device)
+
+
+def _launch_mc(terms, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax, qd, rd, fd, goal, dt,
+               obj0, lin_red, quad_red, ks_small, reg, thresh, jac, dense):
+    """K3's batch-major entry at dc > 1 on CUDA tensors
+    (``ampc_fused_line_search_mc``, the (ds, dc) library built at first
+    use). Counted as a launch of ``fused_line_search_bm``."""
+    B, H, ds = xs.shape[0], xs.shape[1] - 1, xs.shape[2]
+    dc, L, obsdim = us.shape[-1], len(alphas), len(goal)
+    lane_coef = coeffs.ndim == 3
+    _build.check_table_size(len(terms), lane_coef)
+    lib = _build.kernel_library("linesearch_fused_mc", ds, dc)
+    dev, f32, b8 = xs.device, torch.float32, torch.bool
+    for name, t, shape, dt_ in (
+        ("x0", x0, (B, ds), f32), ("xs", xs, (B, H + 1, ds), f32),
+        ("us", us, (B, H, dc), f32), ("Ks", Ks, (B, H, dc, ds), f32),
+        ("ks", ks, (B, H, dc), f32), ("coeffs", coeffs, coeffs.shape, f32),
+        ("obj0", obj0, (B,), f32), ("lin_red", lin_red, (B,), f32),
+        ("quad_red", quad_red, (B,), f32), ("ks_small", ks_small, (B,), b8),
+    ):
+        _build.check_cuda(name, t, shape, dt_, dev)
+    P = _build.LSParamsMC()
+    P.L, P.obsdim, P.dt, P.thresh = L, obsdim, float(dt), float(thresh)
+    for l, a in enumerate(alphas):
+        P.alphas[l] = float(a)
+    for j, (lo, hi) in enumerate(zip(_mc_bounds(umin, dc), _mc_bounds(umax, dc))):
+        P.umin[j], P.umax[j] = lo, hi
+    for i, g in enumerate(goal):
+        P.goal[i] = float(g)
+    if dense:
+        cost = [_on(M, dev) for M in (qd, rd, fd)]
+    else:
+        cost = [qd, rd, fd]
+        for name, v, shape in (("qd", qd, (obsdim, B)), ("rd", rd, (dc, B)),
+                               ("fd", fd, (obsdim, B))):
+            _build.check_cuda(name, v, shape, f32, dev)
+    p = _build.ptr
+    regp = (None, None, None)
+    if reg is not None:
+        _build.check_cuda("reg w", reg[2], (B,), f32, dev)
+        cS = np.zeros((obsdim, obsdim))
+        for i, j, c in _reg_entries(reg[0]):
+            cS[i, j] = c
+        regp = (p(_on(cS, dev)), p(_on(reg[1], dev)), p(reg[2]))
+    stash = torch.empty((H, ds + dc, L, B), dtype=f32, device=dev)
+    out_xs = torch.empty((B, H + 1, ds), dtype=f32, device=dev)
+    out_us = torch.empty((B, H, dc), dtype=f32, device=dev)
+    out_obj = torch.empty((B,), dtype=f32, device=dev)
+    succ = torch.empty((B,), dtype=b8, device=dev)
+    fail = torch.empty((B,), dtype=b8, device=dev)
+    Jx = torch.empty((B, H, ds, ds), dtype=f32, device=dev) if jac else None
+    Ju = torch.empty((B, H, ds, dc), dtype=f32, device=dev) if jac else None
+    du2 = torch.empty((B,), dtype=f32, device=dev)
+    geom = fused_geometry(B, L, _build.sm_count(dev))
+    smem = fused_mc_smem(ds, dc, obsdim, lane_coef, dense, reg is not None)
+    table = _build.feat_table_dev(tuple(terms), dev) if lane_coef else None
+    rc = lib.ampc_fused_line_search_mc(
+        None if lane_coef else ctypes.byref(_build.feat_table(tuple(terms))),
+        None if table is None else p(table), len(terms), ctypes.byref(P), int(dense),
+        *(p(v) for v in cost), *regp, p(coeffs), p(x0), p(xs), p(us), p(Ks), p(ks),
+        p(obj0), p(lin_red), p(quad_red), p(ks_small), p(stash), p(out_xs), p(out_us),
+        p(out_obj), p(succ), p(fail), p(Jx) if jac else None, p(Ju) if jac else None,
+        p(du2), ds, dc, H, B, geom["lanes_per_block"], smem, dev.index or 0,
+        _build.stream_of(xs))
+    _build.check_rc("fused_line_search_bm", rc)
+    w = fused_line_search_bm
+    w.launches += 1
+    w.launches_by_B[B] = w.launches_by_B.get(B, 0) + 1
+    w.launches_mc += 1
+    w.launches_reg += reg is not None
+    w.launches_dense += dense
+    w.launches_dense_lane += dense and lane_coef
+    w.launches_no_jac += not jac
+    if lane_coef:
+        w.launches_lane += 1
+        w.launches_lane_by_B[B] = w.launches_lane_by_B.get(B, 0) + 1
+        w.launches_lane_big += len(terms) > _build.MAX_F
+    return out_xs, out_us, out_obj, succ, fail, Jx, Ju, du2
 
 
 def reset_bm_counters():
     """Set every launch count of ``fused_line_search_bm`` to 0."""
     w = fused_line_search_bm
     w.launches = w.launches_reg = w.launches_dense = w.launches_lane = 0
-    w.launches_dense_lane = w.launches_lane_big = w.launches_no_jac = 0
+    w.launches_dense_lane = w.launches_lane_big = w.launches_no_jac = w.launches_mc = 0
     w.launches_by_B, w.launches_lane_by_B = {}, {}
 
 

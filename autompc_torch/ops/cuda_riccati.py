@@ -19,10 +19,14 @@ layout, so nothing is copied) and counts its own launches.
 ``backward_quad`` (K6, ``pallas_tvlqr_backward_quad``; kernel in
 ``csrc/riccati_quad_bm.cu``) works on the batch-major carry with
 per-lane cost diagonals and no carry select, prebuilt at ds = 4 (the
-cartpole state) and ds = 12 (its Koopman lift with the trig basis).
+cartpole state) and ds = 12 (its Koopman lift with the trig basis). A
+state past ds + 1 = ``_build.MAX_D`` (a wider Koopman lift, up to
+``_build.BQBM_BIG_MAX_DS``) takes the main library's wide instance
+(``csrc/riccati_big.cuh``, ds a run-time argument, one lane a block);
+wider raises ``NotPortedError``.
 
 Both take obsdim <= ``_build.MAX_OBS`` and any ds with ds + 1 <=
-``_build.MAX_D``, K2 up to ``_build.BQ_MAX_DS`` = 13 (where its
+``_build.MAX_D`` (K6 past it as above), K2 up to ``_build.BQ_MAX_DS`` = 13 (where its
 smallest block's ring still fits in shared memory): a ds the main
 library lacks (the pendulum's 2) is compiled at first use
 (``_build.kernel_library``).
@@ -48,6 +52,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import NotPortedError
 from . import _build
 
 
@@ -373,7 +378,19 @@ def bq_bm_geometry(B, H, ds=4, sm_count=None):
     of inputs in shared memory (the whole horizon where H <=
     ``_build.BQBM_RING``); ``smem`` bytes of shared memory a block
     (riccati_quad_bm.cu: bqbm_floats_per_lane, bqbm_wide_floats_per_lane).
-    Raises ``ValueError`` past the kernels' limits (``_build.check_shape``)."""
+    Raises ``ValueError`` past the kernels' limits (``_build.check_shape``).
+
+    Past ds + 1 = ``_build.MAX_D`` (the Koopman lifts, up to
+    ``_build.BQBM_BIG_MAX_DS``) the wide instance (csrc/riccati_big.cuh)
+    takes one lane a block of ``_build.RB_G`` threads a row, the ds rows
+    rounded up to a warp (``big`` True, ``group`` the block), a ring of
+    ``_build.RB_RING`` steps, and ``smem`` bytes (``_build.big_smem``);
+    past that width it raises ``NotPortedError``."""
+    if ds + 1 > _build.MAX_D:
+        check_big(ds, "riccati_quad_bm", _build.BQBM_BIG_MAX_DS)
+        threads = _build.big_threads(ds)
+        return dict(group=threads, lanes_per_block=1, threads=threads, blocks=B,
+                    ring=_build.RB_RING, smem=_build.big_smem(ds, False), big=True)
     _build.check_shape("riccati_quad_bm", ds, 1)
     sms = sm_count or _build.H100_SMS
     group = 1 << (ds - 1).bit_length()
@@ -384,13 +401,58 @@ def bq_bm_geometry(B, H, ds=4, sm_count=None):
     ring = min(H, _build.BQBM_RING)
     per_lane = ring * (ds * ds + 3 * ds + 2) + 2 * (ds * ds + ds)
     return dict(group=group, lanes_per_block=lanes, threads=threads,
-                blocks=-(-B // lanes), ring=ring, smem=lanes * per_lane * 4)
+                blocks=-(-B // lanes), ring=ring, smem=lanes * per_lane * 4, big=False)
+
+
+def check_big(ds, source, limit):
+    """Raise ``NotPortedError`` by name unless the wide backward instance
+    of ``source`` takes a state of width ds (ds + 1 > ``_build.MAX_D``):
+    up to ``limit`` states, where its block fits the shared memory."""
+    if ds > limit:
+        raise NotPortedError(
+            f"{source}: the per-shape kernels take ds + dc <= MAX_D = {_build.MAX_D} and "
+            f"the wide instance (ds, 1) up to ds = {limit}; (ds, dc) = {(ds, 1)} is not "
+            "ported to autompc_torch yet"
+        )
+
+
+def _plain_wide(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, dt, obsdim):
+    """The plain version past ds + 1 = ``_build.MAX_D`` (the wide
+    instance's): the same recursion on batched matrices, the stage and
+    terminal expansions of the diagonal cost built as ``_recursion``
+    builds them (2 dt Q_ii, 2 R dt u, 2 F), then ``tvlqr_backward_scan``
+    with the reciprocal of the scalar Quu. An elementwise recursion
+    would take ~ds^3 tensor operations a step."""
+    from .riccati import tvlqr_backward_scan
+
+    B, H, ds = Jx.shape[0], Jx.shape[1], Jx.shape[2]
+    o = obsdim
+    g = xs.new_tensor([float(v) for v in goal])
+    two_dt = 2.0 * dt
+    qdv, rd2, fd2 = Qdiag * two_dt, Rdiag * two_dt, Fdiag * 2.0
+    idx = torch.arange(o, device=xs.device)
+    Cxx = xs.new_zeros((B, H, ds, ds))
+    Cxx[:, :, idx, idx] = qdv[:, None, :]
+    cx = xs.new_zeros((B, H, ds))
+    cx[:, :, :o] = qdv[:, None, :] * (xs[:, :H, :o] - g)
+    Cuu = rd2[:, None, :, None].expand(B, H, 1, 1)
+    cu = rd2[:, None, :] * us
+    Vn = xs.new_zeros((B, ds, ds))
+    Vn[:, idx, idx] = fd2
+    vn = xs.new_zeros((B, ds))
+    vn[:, :o] = fd2 * (xs[:, H, :o] - g)
+    return tvlqr_backward_scan(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn,
+                               solve=lambda A, b: b * (1.0 / A[:, 0, 0])[:, None, None])
 
 
 def backward_quad_plain(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, dt, obsdim):
     """Plain PyTorch version of the batch-major kernel: the same
-    recursion as ``backward_quad_ll_plain`` on the batch-major rows."""
+    recursion as ``backward_quad_ll_plain`` on the batch-major rows (past
+    ds + 1 = ``_build.MAX_D``, the wide instance's, on batched matrices:
+    ``_plain_wide``)."""
     B, H, ds = _shapes_bm(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, obsdim)
+    if ds + 1 > _build.MAX_D:
+        return _plain_wide(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, dt, obsdim)
 
     def load_jac(t):
         return ([[Jx[:, t, k, j] for j in range(ds)] for k in range(ds)],
@@ -419,9 +481,13 @@ def backward_quad(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, dt, obsdim):
     if _build.device_kind(xs) == "cpu":
         return backward_quad_plain(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, dt, obsdim)
     B, H, ds = _shapes_bm(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, obsdim)
-    lib = _build.kernel_library("riccati_quad_bm", ds, 1)
     dev, f32 = xs.device, torch.float32
-    g = bq_bm_geometry(B, H, ds, _build.sm_count(dev))
+    if ds + 1 > _build.MAX_D:      # the wide instance, or NotPortedError past it
+        g = bq_bm_geometry(B, H, ds)
+        lib = _build.library()
+    else:
+        lib = _build.kernel_library("riccati_quad_bm", ds, 1)
+        g = bq_bm_geometry(B, H, ds, _build.sm_count(dev))
     if g["smem"] > _build.MAX_SMEM_BYTES:
         raise ValueError(f"backward_quad: a block of {g['lanes_per_block']} lanes at ds = "
                          f"{ds} needs {g['smem']} bytes of shared memory")
@@ -441,16 +507,23 @@ def backward_quad(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, dt, obsdim):
     lin = torch.empty((B,), dtype=f32, device=dev)
     quad = torch.empty((B,), dtype=f32, device=dev)
     p = _build.ptr
-    rc = lib.ampc_backward_quad_bm(
-        ctypes.byref(_quad_diag(obsdim, dt, goal)), p(Jx), p(Ju), p(xs), p(us),
-        p(Qdiag), p(Rdiag), p(Fdiag), p(Ks), p(ks), p(lin), p(quad),
-        ds, H, B, g["lanes_per_block"], dev.index or 0, _build.stream_of(xs),
-    )
+    args = (ctypes.byref(_quad_diag(obsdim, dt, goal)), p(Jx), p(Ju), p(xs), p(us),
+            p(Qdiag), p(Rdiag), p(Fdiag), p(Ks), p(ks), p(lin), p(quad), ds, H, B)
+    if g["big"]:
+        rc = lib.ampc_backward_quad_bm_big(*args, dev.index or 0, _build.stream_of(xs))
+    else:
+        rc = lib.ampc_backward_quad_bm(*args, g["lanes_per_block"], dev.index or 0,
+                                       _build.stream_of(xs))
     _build.check_rc("backward_quad", rc)
     backward_quad.launches += 1
     backward_quad.launches_by_B[B] = backward_quad.launches_by_B.get(B, 0) + 1
+    if g["big"]:
+        backward_quad.launches_big += 1
+        backward_quad.launches_big_by_ds[ds] = backward_quad.launches_big_by_ds.get(ds, 0) + 1
     return Ks, ks, lin, quad
 
 
 backward_quad.launches = 0
 backward_quad.launches_by_B = {}
+backward_quad.launches_big = 0
+backward_quad.launches_big_by_ds = {}

@@ -18,7 +18,11 @@ ds + dc <= ``_build.MAX_D`` is compiled at first use
 (``_build.kernel_library``) as the instance of a rule that sets the
 tiles, threads a lane, ring and block from (ds, dc) (``general_shape``);
 a shape past the limits raises ``ValueError`` before any build
-(``check_general_shape``). Its launch geometry (threads a lane, lanes a
+(``check_general_shape``). At dc = 1 a state past ds + 1 =
+``_build.MAX_D`` (the Koopman lifts, up to ``_build.RG_BIG_MAX_DS``)
+takes the main library's wide instance (``csrc/riccati_big.cuh``: ds a
+run-time argument, one lane a block; ``launch_big``); wider, or dc > 1
+past ``_build.MAX_D``, raises ``NotPortedError``. Its launch geometry (threads a lane, lanes a
 block) is chosen here, by ``general_geometry``. A CPU tensor takes the plain
 PyTorch version ``riccati_general_plain``; a CUDA tensor launches the
 kernel or raises.
@@ -31,7 +35,9 @@ import math
 
 import torch
 
+from .. import NotPortedError
 from . import _build
+from .cuda_riccati import check_big
 from .riccati import tvlqr_backward_scan
 
 
@@ -169,11 +175,29 @@ def general_lane_bytes(ds, dc, rule=False):
     return 4 * (sh["ring"] * _slot(ds, dc) + work)
 
 
+def is_big(ds, dc):
+    """True where K4 takes (ds, dc) through the main library's wide
+    instance (csrc/riccati_big.cuh): dc = 1 and ds + 1 past
+    ``_build.MAX_D``, the Koopman lifts of the GaussReg joint fan-out."""
+    return dc == 1 and ds + 1 > _build.MAX_D
+
+
 def check_general_shape(ds, dc):
     """Raise ``ValueError`` by name unless K4 takes (ds, dc): ds + dc <=
     ``_build.MAX_D`` and the largest block of the instance (its
-    ``max_lanes`` lanes) within the shared memory of a block. Called
-    before any build or launch."""
+    ``max_lanes`` lanes) within the shared memory of a block, or at dc = 1
+    the wide instance up to ``_build.RG_BIG_MAX_DS``. A wider shape (past
+    that width, or dc > 1 past ``_build.MAX_D``: the cheetah's Koopman
+    lifts) raises ``NotPortedError``. Called before any build or launch."""
+    if is_big(ds, dc):
+        check_big(ds, "riccati_general", _build.RG_BIG_MAX_DS)
+        return
+    if ds >= 1 and dc >= 1 and ds + dc > _build.MAX_D:
+        raise NotPortedError(
+            f"riccati_general: the per-shape kernels take ds + dc <= MAX_D = {_build.MAX_D} "
+            f"and the wide instance (ds, 1) up to ds = {_build.RG_BIG_MAX_DS}; (ds, dc) = "
+            f"{(ds, dc)} is not ported to autompc_torch yet"
+        )
     _build.check_shape("riccati_general", ds, dc)
     sh = general_shape(ds, dc)
     need = sh["max_lanes"] * general_lane_bytes(ds, dc)
@@ -192,9 +216,15 @@ def general_geometry(ds, dc, B, sm_count=None, rule=False):
     powers of two from one warp) that still leaves a block for every one
     of ``sm_count`` SMs (an H100's 132 when not given), so a small batch
     spreads over as many SMs as it has lanes and a large one makes fewer,
-    larger blocks. Raises ``ValueError`` past the kernel's limits
+    larger blocks. The wide instance (``is_big``) takes one lane a block
+    of ``_build.RB_G`` threads a row, the ds rows rounded up to a warp
+    (``big`` True). Raises past the kernel's limits
     (``check_general_shape``)."""
     check_general_shape(ds, dc)
+    if is_big(ds, dc):
+        threads = _build.big_threads(ds)
+        return dict(threads_per_lane=threads, lanes_per_block=1, threads=threads, blocks=B,
+                    smem=_build.big_smem(ds, True), big=True)
     sms = sm_count or _build.H100_SMS
     sh = general_shape(ds, dc, rule)
     tpl = sh["threads_per_lane"]
@@ -202,7 +232,8 @@ def general_geometry(ds, dc, B, sm_count=None, rule=False):
     while 2 * lanes <= sh["max_lanes"] and -(-B // (2 * lanes)) >= sms:
         lanes *= 2
     return dict(threads_per_lane=tpl, lanes_per_block=lanes, threads=lanes * tpl,
-                blocks=-(-B // lanes), smem=lanes * general_lane_bytes(ds, dc, rule))
+                blocks=-(-B // lanes), smem=lanes * general_lane_bytes(ds, dc, rule),
+                big=False)
 
 
 def riccati_general_plain(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):
@@ -223,8 +254,41 @@ def riccati_general(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):
         return riccati_general_plain(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn)
     ds, dc = _shapes(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn)[2:]
     check_general_shape(ds, dc)
+    if is_big(ds, dc):
+        return launch_big(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn)
     return launch(_build.kernel_library("riccati_general", ds, dc), False,
                   Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn)
+
+
+def launch_big(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):
+    """K4's wide instance (dc = 1, ds + 1 past ``_build.MAX_D``) from the
+    main library on CUDA tensors, one lane a block. Counted as a launch of
+    ``riccati_general``."""
+    B, H, ds, dc = _shapes(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn)
+    check_general_shape(ds, dc)
+    dev, f32 = Jx.device, torch.float32
+    for name, t in (("Jx", Jx), ("Ju", Ju), ("Cxx", Cxx), ("Cuu", Cuu),
+                    ("cx", cx), ("cu", cu), ("Vn", Vn), ("vn", vn)):
+        _build.check_cuda(name, t, t.shape, f32, dev)
+    Ks = torch.empty((B, H, dc, ds), dtype=f32, device=dev)
+    ks = torch.empty((B, H, dc), dtype=f32, device=dev)
+    lin = torch.empty((B,), dtype=f32, device=dev)
+    quad = torch.empty((B,), dtype=f32, device=dev)
+    p = _build.ptr
+    rc = _build.library().ampc_riccati_general_big(
+        p(Jx), p(Ju), p(Cxx), p(Cuu), p(cx), p(cu), p(Vn), p(vn),
+        p(Ks), p(ks), p(lin), p(quad), ds, H, B, dev.index or 0, _build.stream_of(Jx),
+    )
+    _build.check_rc("riccati_general", rc)
+    _count(B)
+    riccati_general.launches_big += 1
+    riccati_general.launches_big_by_ds[ds] = riccati_general.launches_big_by_ds.get(ds, 0) + 1
+    return Ks, ks, lin, quad
+
+
+def _count(B):
+    riccati_general.launches += 1
+    riccati_general.launches_by_B[B] = riccati_general.launches_by_B.get(B, 0) + 1
 
 
 def launch(lib, rule, Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):
@@ -250,10 +314,11 @@ def launch(lib, rule, Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn):
         g["threads_per_lane"], dev.index or 0, _build.stream_of(Jx),
     )
     _build.check_rc("riccati_general", rc)
-    riccati_general.launches += 1
-    riccati_general.launches_by_B[B] = riccati_general.launches_by_B.get(B, 0) + 1
+    _count(B)
     return Ks, ks, lin, quad
 
 
 riccati_general.launches = 0
 riccati_general.launches_by_B = {}
+riccati_general.launches_big = 0
+riccati_general.launches_big_by_ds = {}

@@ -526,10 +526,14 @@ class JointKoopmanLassoQuadCostFanout:
     ``reg_matrix``) and returns the task costs (B,); a candidate whose
     rollout is not finite scores ``inf``. Lanes are padded with copies of
     the last candidate to a multiple of 8. ``backward="pallas"`` takes K6
-    (``ops/cuda_riccati.py::backward_quad``, built for ds = 4 and 12) on
-    the card, the general kernel with ``reg_matrix``; a lifted dimension
-    with no instance raises by name. ``mesh`` raises. Runs on the card
-    unless ``device`` names another device.
+    (``ops/cuda_riccati.py::backward_quad``; prebuilt at ds = 4 and 12,
+    another lift to ds = 23 built at first use, a wider one up to
+    ``_build.BQBM_BIG_MAX_DS`` the wide instance) on the card, the general
+    kernel with ``reg_matrix`` (past ds = 23 its wide instance, up to
+    ``_build.RG_BIG_MAX_DS``); every lift of the cartpole's and the
+    pendulum's Koopman spaces (up to 96) is taken, a wider one raises
+    ``NotPortedError``. ``mesh`` raises. Runs on the card unless
+    ``device`` names another device.
     """
 
     def __init__(

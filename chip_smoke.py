@@ -233,6 +233,13 @@ Phases (each raises on failure, so the exit code is non-zero):
    105-term library, fused (K3's per-lane batch-major entry past 64
    terms) against unfused; (f) the cheetah row at K5's precisions
    "highest", "default" and "bf16x3", and "default" on phase 7's MLP;
+21. the Koopman lifts past 24 states and K3 at dc > 1 at ``LM_SMOKE``
+   (``LIFTS_21``' comment says what; ``tools/torch_lift_multicontrol_phase.py``
+   runs ``LM_FULL``): (a) the joint-Koopman fan-out at 28, 72 and 96
+   lifted states, backward="pallas", with and without the GaussReg term (K6's and
+   K4's wide instance); (c) phase 18 (d)'s cheetah SINDy solve with
+   fuse_ls (K3's multi-control instances, K4 at (18, 6), K1's batch-major
+   entry at solve entry); (d) ``QuadCostFanout(fuse_ls=True)`` on it;
 3. kernels vs plain twins: each CUDA kernel against its plain PyTorch
    twin on the card, on inputs taken from every path that launches it,
    at that path's shape: the lanes-last kernels on the main path's carry
@@ -284,7 +291,14 @@ Phases (each raises on failure, so the exit code is non-zero):
    H=20) and fan-out (a)'s after three iterations, K1's batch-major entry,
    K6 and K7 at (2, 1) on fan-out (b)'s and the tune's carries at every
    batch size they launched with, K1's batch-major entry and K7 at (18, 6)
-   on the cheetah SINDy solve's carry after three iterations. Within stated tolerances, timed with CUDA events (and where a
+   on the cheetah SINDy solve's carry after three iterations; phase 21's
+   (rows ``*[...,wide,...]``, ``fused_line_search_bm[18x6,...]``): K6's and
+   K4's wide instance at 28, 72 and 96 states on (a)'s first backward
+   pass where its models are finite (not at 96, whose float32 Lasso fits
+   are NaN, as JAX's) and on well-conditioned inputs at the same shape
+   (``check_backward``: each lane against float64, at TOL_K6 / TOL_K4),
+   K3's multi-control instances on (c)'s fused carry one iteration in
+   (also against float64 at the kernel's own trajectories). Within stated tolerances, timed with CUDA events (and where a
    call is shorter than its host work also as device time under
    torch.profiler), beside the least time the card could take
    (``bound_ms``).
@@ -304,7 +318,9 @@ entry, K6 and K7 (``launches_model_tuning``), phase 18 (a) for K1, K2, K3 at (2,
 for theirs, 18 (d) for K1's batch-major entry, K4 and K7 at (18, 6),
 each path of phase 20 for its own (the new modes' rows
 count K3's dense form in (d), its per-lane entry past 64 terms in (e),
-K5 by precision in (f)), each variant of phase 9 for the main
+K5 by precision in (f)), each path of phase 21 for its own (the wide
+instances' launches by lifted dimension in (a), K3's multi-control
+instances in (c)), each variant of phase 9 for the main
 path's kernels (``launches_bf16`` counts a wrapper's bfloat16 instances,
 ``launches_by_B`` its launches by the batch size of the call). A
 kernel that never ran on its path fails the run. Phase 3 runs after
@@ -335,7 +351,7 @@ import torch
 
 # The kernels' device time a call under torch.profiler, as the A/B tool
 # measures it.
-from tools.ab_torch_kernels import device_ms
+from tools.ab_torch_kernels import device_ms, k4_inputs, k6_wide_inputs
 
 B_SOLVE = 16384
 B_KERNEL = 4096
@@ -1247,24 +1263,34 @@ def cheetah_x0(dev):
     return torch.as_tensor(x0, dtype=torch.float32, device=dev)
 
 
-def check_k4(tag, K4, k4_args, launches, device_time=False):
-    """K4 against its plain version on ``k4_args`` (Jx, Ju and the dense
-    expansions a path gives it), both held against a float64 evaluation
-    (see TOL_K4). Returns (its report row, failure strings, the kernel's
-    outputs, the lanes finite in every evaluation); ``device_time`` adds
-    the kernel's device time under torch.profiler."""
-    B, H, ds, dc = k4_args[1].shape
-    dev = k4_args[0].device
+def _f64(args):
+    return tuple(a.double() if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def check_backward(tag, kernel, plain, args, tol, row, ops, n_in, device_time=False):
+    """A backward pass (K4, or K6's and K4's wide instance) against its
+    plain version on ``args`` (Jx, Ju and the expansions or trajectory a
+    path gives it; the first ``n_in`` the tensors read), both held
+    against a float64 evaluation (see TOL_K4) at the tolerance ``tol``.
+    Fills ``row``: ``max_abs_err`` against the plain version on the lanes
+    where the plain version is within tol / 10 of float64,
+    ``lanes_checked`` (the lanes finite in every evaluation), the times
+    and the bound from ``ops``; a check with no such lane fails. Returns
+    (``row``, failure strings, the kernel's outputs, the lanes finite in
+    every evaluation); ``device_time`` adds the kernel's device time
+    under torch.profiler."""
+    B = args[1].shape[0]
+    dev = args[0].device
     failures = []
-    gk, gp = K4.riccati_general(*k4_args), K4.riccati_general_plain(*k4_args)
-    g64 = K4.riccati_general_plain(*(a.double() for a in k4_args))
+    gk, gp = kernel(*args), plain(*args)
+    g64 = plain(*_f64(args))
 
     def finite(g):
-        return torch.isfinite(g[0]).all(dim=(1, 2, 3)) & torch.isfinite(g[2])
+        return torch.stack([torch.isfinite(t).reshape(B, -1).all(1) for t in g]).all(0)
 
     def lane_err(g):
-        """Per lane, the largest normwise error of Ks, ks, lin, quad
-        against the float64 evaluation."""
+        """Per lane, the largest normwise error of the outputs against
+        the float64 evaluation."""
         errs = []
         for a, r in zip(g, g64):
             a, r = a.double().reshape(B, -1), r.reshape(B, -1)
@@ -1275,10 +1301,20 @@ def check_k4(tag, K4, k4_args, launches, device_time=False):
     # plain version alike; the others are compared.
     ok = finite(gk) & finite(gp) & finite(g64)
     same_finite = (finite(gk) == finite(gp)).float().mean().item()
+    row.update(ms=time_ms(lambda: kernel(*args)), plain_ms=time_ms(lambda: plain(*args), reps=3),
+               **bound_keys(n_bytes(*args[:n_in], *gk), ops))
+    if device_time:
+        row["device_ms"] = device_ms(lambda: kernel(*args))
+    if not ok.any():
+        print(f"[3] {tag} B={B}: no lane finite in every evaluation (kernel "
+              f"{int(finite(gk).sum())}, plain {int(finite(gp).sum())}, float64 "
+              f"{int(finite(g64).sum())})", flush=True)
+        failures.append(f"{tag}: no lane finite in every evaluation")
+        return dict(row, max_abs_err=None, lanes_checked=0), failures, gk, ok
     ek, ep = lane_err(gk)[ok], lane_err(gp)[ok]
-    wc = ep <= TOL_K4 / 10
+    wc = ep <= tol / 10
     worst_well = float(ek[wc].max()) if wc.any() else 0.0
-    within = (ek <= torch.clamp(10.0 * ep, min=TOL_K4)).float().mean().item()
+    within = (ek <= torch.clamp(10.0 * ep, min=tol)).float().mean().item()
     few = int(ok.sum()) * (1 - K4_WITHIN_MIN) < 1
     lane_txt, lanes_within = "", False
     if few:
@@ -1288,52 +1324,57 @@ def check_k4(tag, K4, k4_args, launches, device_time=False):
         for _ in range(K4_WITNESS_DRAWS):
             nudged = [(a.double() * (1 + 2.0 ** -23 * (2 * torch.rand(
                 a.shape, generator=gen, dtype=torch.float64, device=a.device) - 1))).float()
-                for a in k4_args]
-            e32 = torch.maximum(e32, lane_err(K4.riccati_general_plain(*nudged))[ok]
-                                .nan_to_num(0.0))
-        lanes_within = bool((ek <= torch.clamp(10.0 * e32, min=TOL_K4)).all())
+                if isinstance(a, torch.Tensor) else a for a in args]
+            e32 = torch.maximum(e32, lane_err(plain(*nudged))[ok].nan_to_num(0.0))
+        lanes_within = bool((ek <= torch.clamp(10.0 * e32, min=tol)).all())
         # The lanes outside the share's rule, and the plain version in
         # float32 on the CPU (another summation order) there.
-        outside = (ek > torch.clamp(10.0 * ep, min=TOL_K4)).nonzero().flatten()
+        outside = (ek > torch.clamp(10.0 * ep, min=tol)).nonzero().flatten()
         ids = ok.nonzero().flatten()
-        e_cpu = lane_err(tuple(t.to(dev) for t in K4.riccati_general_plain(
-            *(a.cpu() for a in k4_args))))[ok]
+        e_cpu = lane_err(tuple(t.to(dev) for t in plain(
+            *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))))[ok]
         lane_txt = (f"; {int(ok.sum())} finite lanes, too few for the share: every lane "
-                    f"within max({TOL_K4}, 10 x its float32 error over {K4_WITNESS_DRAWS} "
-                    f"draws): {lanes_within}; lanes outside max({TOL_K4}, 10 x plain's): "
+                    f"within max({tol}, 10 x its float32 error over {K4_WITNESS_DRAWS} "
+                    f"draws): {lanes_within}; lanes outside max({tol}, 10 x plain's): "
                     + ", ".join(f"lane {int(ids[i])} kernel {float(ek[i]):.3e} plain "
                                 f"{float(ep[i]):.3e} plain on the CPU {float(e_cpu[i]):.3e} "
                                 f"float32 over the draws {float(e32[i]):.3e}" for i in outside))
     well = ok.clone()
     well[ok] = wc
-    row = dict(
-        name=f"riccati_general[{ds},{dc}]", route="cuda",
-        source="autompc_torch/csrc/riccati_general.cu",
-        replaces="autompc_tpu/ops/pallas_riccati.py:" + ("1260" if dc > 1 else "1338"),
-        launches=launches,
-        max_abs_err=max(abs_err(a[well], b[well]) for a, b in zip(gk, gp)),
-        ms=time_ms(lambda: K4.riccati_general(*k4_args)),
-        plain_ms=time_ms(lambda: K4.riccati_general_plain(*k4_args), reps=3),
-        **bound_keys(n_bytes(*k4_args, *gk), B * H * riccati_flops(ds, dc)),
-    )
-    if device_time:
-        row["device_ms"] = device_ms(lambda: K4.riccati_general(*k4_args))
-    print(f"[3] K4 general backward {tag} ({ds},{dc}) B={B}: finite lanes {int(ok.sum())} "
+    row.update(max_abs_err=(max(abs_err(a[well], b[well]) for a, b in zip(gk, gp))
+                            if well.any() else None),
+               lanes_checked=int(ok.sum()))
+    print(f"[3] {tag} B={B}: finite lanes {int(ok.sum())} "
           f"(kernel and plain agree on which: {same_finite:.4f}); per-lane error vs float64: "
           f"kernel median {float(ek.median()):.3e} max {float(ek.max()):.3e}, plain float32 "
           f"median {float(ep.median()):.3e} max {float(ep.max()):.3e}; {int(wc.sum())} "
-          f"well-conditioned lanes (plain within {TOL_K4 / 10}): kernel's worst "
-          f"{worst_well:.3e} (tol {TOL_K4}); kernel within max({TOL_K4}, 10 x plain's) on "
+          f"well-conditioned lanes (plain within {tol / 10}): kernel's worst "
+          f"{worst_well:.3e} (tol {tol}); kernel within max({tol}, 10 x plain's) on "
           f"{within:.4f} of all lanes (min {K4_WITHIN_MIN}); kernel's error over plain's: "
           f"median {float((ek / ep.clamp_min(1e-30)).median()):.2f}, 99% "
           f"{float((ek / ep.clamp_min(1e-30)).quantile(0.99)):.2f}"
           + lane_txt, flush=True)
-    if worst_well > TOL_K4 or same_finite < K4_WITHIN_MIN or not (
-            within >= K4_WITHIN_MIN or lanes_within):
-        failures.append(f"K4 {tag}: worst well-conditioned lane {worst_well:.3e}, within "
-                        f"tolerance on {within:.4f} of lanes, finite flags agree on "
-                        f"{same_finite:.4f}")
+    if worst_well > tol or same_finite < K4_WITHIN_MIN or not (
+            within >= K4_WITHIN_MIN or lanes_within) or not well.any():
+        failures.append(f"{tag}: worst well-conditioned lane {worst_well:.3e} "
+                        f"({int(wc.sum())} such lanes), within tolerance on {within:.4f} of "
+                        f"lanes, finite flags agree on {same_finite:.4f}")
     return row, failures, gk, ok
+
+
+def check_k4(tag, K4, k4_args, launches, device_time=False):
+    """K4 against its plain version on ``k4_args`` (Jx, Ju and the dense
+    expansions a path gives it): ``check_backward`` at TOL_K4. Returns
+    (its report row, failure strings, the kernel's outputs, the lanes
+    finite in every evaluation)."""
+    B, H, ds, dc = k4_args[1].shape
+    row = dict(name=f"riccati_general[{ds},{dc}]", route="cuda",
+               source="autompc_torch/csrc/riccati_general.cu",
+               replaces="autompc_tpu/ops/pallas_riccati.py:" + ("1260" if dc > 1 else "1338"),
+               launches=launches)
+    return check_backward(f"K4 general backward {tag} ({ds},{dc})", K4.riccati_general,
+                          K4.riccati_general_plain, k4_args, TOL_K4, row,
+                          B * H * riccati_flops(ds, dc), len(k4_args), device_time)
 
 
 def check_batch_major_kernels(tag, model, cost, solver_kw, x0, K4, K5, launches,
@@ -4786,7 +4827,6 @@ def shapes_phase(dev, card, mods, hc, hc_trajs):
     from autompc_torch.control import (make_receding_ilqr_loop, make_scheduled_ilqr_solver,
                                        parse_schedule)
     from autompc_torch.costs import QuadCost
-    from autompc_torch.sysid import SINDy
     from autompc_torch.utils.profiling import timeit_distinct
 
     K1, K2, K3, K4 = mods
@@ -4973,21 +5013,12 @@ def shapes_phase(dev, card, mods, hc, hc_trajs):
 
     # ---- (d) the halfcheetah's SINDy: K1's batch-major entry, K4, K7 at (18, 6)
     t0 = time.perf_counter()
-    hm = SINDy(hc.system, **HC_SINDY)
-    hm.train(hc_trajs)
-    hco = hm.coeffs.cpu().numpy()
-    h_active = tuple(int(k) for k in np.flatnonzero(np.any(hco != 0, axis=0)))
+    h = cheetah_sindy(hc, hc_trajs)
+    hm, hcost, hkw, h_active = h["hm"], h["hcost"], h["hkw"], h["h_active"]
     torch.cuda.synchronize()
     print(f"[18d] cheetah SINDy fit ({hm.library.n_features} terms, poly degree 2): "
-          f"{time.perf_counter() - t0:.2f} s; support {len(h_active)}; coefficients finite "
-          f"{bool(np.isfinite(hco).all())}", flush=True)
-    if not np.isfinite(hco).all():
-        raise RuntimeError("cheetah SINDy fit produced non-finite coefficients")
-    hcost = QuadCost(hc.system, np.eye(18), 0.01 * np.eye(6), np.eye(18), goal=np.zeros(18))
-    hb = hc.task.get_ctrl_bounds()
-    hkw = dict(ds=18, dc=6, obsdim=18, dt=hc.system.dt, ubounds=(hb[:, 0], hb[:, 1]),
-               backward="pallas", feature_spec=(hm.library, "coeffs"), feature_mask=h_active,
-               fuse_ls=False, lanes_last=False)
+          f"{time.perf_counter() - t0:.2f} s; support {len(h_active)}; coefficients finite",
+          flush=True)
     bm = (K1.relin_jacobians_bm, K4.riccati_general, K3.sindy_line_search)
     reset_launches(bm)
     hsolve = make_scheduled_ilqr_solver(hm.pred_core, hcost, H=H_HC, max_iter=50,
@@ -6541,6 +6572,520 @@ def check_solver_option_kernels(so, mods, failures):
     return rows
 
 
+# ---- Phase 21: Koopman lifts past 24 states; K3's batch-major entry at dc > 1 ----------
+# (a) the joint-Koopman fan-out (phase 15's cell, SCALE_MODE=joint_koopman)
+#     on the cartpole at each lifted dimension of ``lifts`` (LIFTS_21: the
+#     basis of each), backward="pallas" (K6's wide instance), and with the
+#     GaussReg term (phase 19's, K4's wide instance at (N, 1)); with
+#     ``scan`` also backward="scan" in the same call and the first MPC
+#     step's agreement (1e-3 on the lanes converged in both, at least
+#     FAN_AGREE_MIN as phases 15 and 19 hold H=10); (b) with ``tune``
+#     candidates, a "joint_koopman" tune over KoopmanFactory's whole space
+#     with fanout_backward="pallas": no candidate's lift is refused; (c)
+#     phase 18 (d)'s cheetah SINDy (18, 6) solve with fuse_ls (K3's
+#     multi-control instances) and, with ``hc_unfused``, without (K7) and
+#     with the scan backward pass: solves/s, converged shares, the fused
+#     body's agreement with the unfused within 1e-3 on the lanes converged
+#     in both, gated at the scan-vs-pallas share of the same call less
+#     SO_SHARE_SLACK (two float32 bodies part on a share of the lanes at
+#     H=200: ROADMAP §C hazard 7); (d) QuadCostFanout(fuse_ls=True) on the
+#     cheetah SINDy and, with ``joint_sindy``, JointSINDyQuadCostFanout
+#     (fuse_ls=True, per-lane coefficients) on the cheetah's data.
+# The shape phase 21 builds beside the main library (K3's multi-control
+# instances at the cheetah's (18, 6)); the wide K6 and K4 are the main
+# library's.
+SHAPES_21 = (("linesearch_fused_mc", 18, 6),)
+LIFTS_21 = {28: dict(trig_basis=True, trig_freq=3),
+            56: dict(poly_basis=True, poly_degree=8, trig_basis=True, trig_freq=3),
+            72: dict(poly_basis=True, poly_degree=2, trig_basis=True, trig_freq=8),
+            96: dict(poly_basis=True, poly_degree=8, trig_basis=True, trig_freq=8)}
+LM_H = 10
+# chip_smoke.py's depth (LM_SMOKE) and tools/torch_lift_multicontrol_phase.py's
+# (LM_FULL): the fan-out's batch and MPC steps, the cheetah solve's batch
+# and horizon, the cheetah fan-outs' batch and steps.
+LM_SMOKE = dict(lifts=(28, 72, 96), B=256, steps=2, scan=False, tune=0, hc_B=256, hc_H=50,
+                hc_unfused=False, fan_B=64, fan_steps=2, joint_sindy=False)
+LM_FULL = dict(lifts=(28, 56, 72, 96), B=JK_B, steps=5, scan=True, tune=8, hc_B=B_HC, hc_H=H_HC,
+               hc_unfused=True, fan_B=256, fan_steps=5, joint_sindy=True)
+LM_SEED = 21
+# (a)'s first-step agreement is gated where at least this many lanes
+# converged in both bodies. At 56 and 96 lifted states (polynomials to
+# degree 8: the cartpole's velocities to the 8th power reach ~4e12) every
+# lane's float32 Lasso fit is NaN, in the JAX package's fista_lasso as in
+# the port's (the same iteration; PERF.md §6), so no lane converges in
+# either body and the fan-out scores every candidate inf, as JAX's does;
+# lanes that did not converge are no comparison (ROADMAP §C hazard 1).
+# The lanes' finite models are counted beside it.
+LM_MIN_BOTH = 8
+LM_HC_SCHEDULE = HC_SCHEDULE
+# The cheetah fan-outs: phase 18 (d)'s library, the Lasso alphas of the
+# joint fan-out's lanes.
+LM_JS_BUCKET = dict(method="lasso", poly_basis=True, poly_degree=2)
+
+
+def cheetah_sindy(hc, hc_trajs):
+    """Phase 18 (d)'s cheetah SINDy (HC_SINDY on phase 6's data), its
+    fixed cost and its solver keywords (unfused, as phase 18 runs it):
+    the sp keys ``hm``, ``hcost``, ``hkw`` that phase 21 reads."""
+    from autompc_torch.costs import QuadCost
+    from autompc_torch.sysid import SINDy
+
+    hm = SINDy(hc.system, **HC_SINDY)
+    hm.train(hc_trajs)
+    hco = hm.coeffs.cpu().numpy()
+    if not np.isfinite(hco).all():
+        raise RuntimeError("cheetah SINDy fit produced non-finite coefficients")
+    h_active = tuple(int(k) for k in np.flatnonzero(np.any(hco != 0, axis=0)))
+    hcost = QuadCost(hc.system, np.eye(18), 0.01 * np.eye(6), np.eye(18), goal=np.zeros(18))
+    hb = hc.task.get_ctrl_bounds()
+    hkw = dict(ds=18, dc=6, obsdim=18, dt=hc.system.dt, ubounds=(hb[:, 0], hb[:, 1]),
+               backward="pallas", feature_spec=(hm.library, "coeffs"), feature_mask=h_active,
+               fuse_ls=False, lanes_last=False)
+    return dict(hm=hm, hcost=hcost, hkw=hkw, h_active=h_active)
+
+
+def cheetah_candidates(dev, n, seed=0):
+    """Cost candidates of the cheetah's fan-outs: Qdiag, Fdiag (n, 18) =
+    10**U(-1, 1), Rdiag (n, 6) = 10**U(-3, -1), reg (the Lasso alpha) =
+    10**U(-4, -2)."""
+    rng = np.random.default_rng(seed)
+    batch = {"Qdiag": 10 ** rng.uniform(-1, 1, (n, 18)), "Fdiag": 10 ** rng.uniform(-1, 1, (n, 18)),
+             "Rdiag": 10 ** rng.uniform(-3, -1, (n, 6)), "reg": 10 ** rng.uniform(-4, -2, n)}
+    return {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in batch.items()}
+
+
+def lift_counts(K4, K6):
+    """The wide instances' launches by lifted dimension, K6's and K4's."""
+    return (dict(K6.backward_quad.launches_big_by_ds), dict(K4.riccati_general.launches_big_by_ds))
+
+
+def reset_lift_counts(K4, K6):
+    for w in (K6.backward_quad, K4.riccati_general):
+        w.launches, w.launches_by_B, w.launches_big, w.launches_big_by_ds = 0, {}, 0, {}
+
+
+def lift_multicontrol_phase(dev, card, mods, bench, model, trajs, sp, hc, hc_trajs,
+                            size=LM_SMOKE):
+    """Phase 21 (a)-(d) (see LIFTS_21); ``mods`` the kernel modules (K1,
+    K2, K3, K4), ``sp`` phase 18's results (the cheetah's SINDy ``hm``,
+    its cost and solver keywords), ``hc`` the halfcheetah benchmark and
+    ``hc_trajs`` phase 6's data, the
+    cartpole's ``bench``, ``model``, ``trajs`` (phase 2). Each path's
+    kernels are counted from 0 just before it and read just after.
+    Returns what ``check_lift_multicontrol_kernels`` reads."""
+    from autompc_torch.control import make_scheduled_ilqr_solver, parse_schedule
+    from autompc_torch.parallel import (JointKoopmanLassoQuadCostFanout,
+                                        JointSINDyQuadCostFanout, QuadCostFanout)
+    from autompc_torch.sysid import Koopman
+    from autompc_torch.sysid.arx import linear_pred
+    from autompc_torch.tuning.pipeline_tuner import _gauss_reg_stats
+
+    K1, K2, K3, K4 = mods
+    t_phase = time.perf_counter()
+    system = bench.system
+    S, mu = _gauss_reg_stats(trajs)
+    batch = gauss_reg_candidates(dev, size["B"], LM_SEED)
+    batch["reg"] = batch["Qdiag"].new_tensor(10 ** np.random.default_rng(LM_SEED).uniform(
+        -6, 0, size["B"]))
+    out = dict(jk={}, rates={}, counts={})
+
+    # ---- (a) the joint-Koopman fan-out at each lift ----------------------------
+    for N in size["lifts"]:
+        basis = LIFTS_21[N]
+        for reg in (False, True):
+            kw = dict(reg_matrix=S, reg_goal=mu) if reg else {}
+            b = batch if reg else {k: v for k, v in batch.items() if k != "regw"}
+            tag = f"N={N}{', GaussReg' if reg else ''}"
+            fans, fan_scores = {}, {}
+            for backward in (("scan", "pallas") if size["scan"] else ("pallas",)):
+                fan = JointKoopmanLassoQuadCostFanout(
+                    system, bench.task, basis, trajs, model, horizon=LM_H,
+                    n_steps=size["steps"], goal=np.zeros(4), compact_schedule=JK_SCHEDULE,
+                    backward=backward, **kw)
+                if fan.state_dim != N:
+                    raise RuntimeError(f"phase 21 (a): the basis {basis} lifts to "
+                                       f"{fan.state_dim}, not {N}")
+                reset_lift_counts(K4, K2)
+                warm, per_call, scores = timed_runs(lambda: fan(b), 1)
+                k6n, k4n = lift_counts(K4, K2)
+                n_wide = (k4n if reg else k6n).get(N, 0)
+                fin = torch.isfinite(scores)
+                rate = size["B"] / per_call
+                out["rates"][f"(a) {tag} {backward}"] = rate
+                out["counts"][f"(a) {tag} {backward}"] = dict(K6=k6n, K4=k4n)
+                print(f"[21a] joint-Koopman fan-out {tag} ({basis}), backward={backward!r}: "
+                      f"B={size['B']} H={LM_H}, {size['steps']} steps: warm call {warm:.2f} s, "
+                      f"timed call {per_call:.3f} s -> {rate:.1f} evals/s on {card}; finite "
+                      f"{int(fin.sum())} / {size['B']}; {'K4' if reg else 'K6'} wide launches "
+                      f"{n_wide} (K6 {k6n}, K4 {k4n})", flush=True)
+                if tuple(scores.shape) != (size["B"],) or torch.isnan(scores).any():
+                    raise RuntimeError(f"phase 21 (a) {tag} {backward}: malformed or NaN scores")
+                if (backward == "pallas") != bool(n_wide):
+                    raise RuntimeError(f"phase 21 (a) {tag} {backward}: wide launches {n_wide}")
+                fans[backward], fan_scores[backward] = fan, scores
+            params = fans["pallas"].train_lanes(b["reg"])
+            models_finite = int((torch.isfinite(params["A"]).flatten(1).all(1)
+                                 & torch.isfinite(params["B"]).flatten(1).all(1)).sum())
+            print(f"[21a] {tag}: the lanes' float32 Lasso fits finite on {models_finite} of "
+                  f"{size['B']}", flush=True)
+            cp = {k: b[k] for k in ("Qdiag", "Rdiag", "Fdiag") + (("regw",) if reg else ())}
+            km = Koopman(system, method="lstsq", **basis)
+            z0 = km._apply_basis(b["Qdiag"].new_tensor(np.tile(bench.task.get_init_obs(),
+                                                               (size["B"], 1))))
+            if size["scan"]:
+                ug = z0.new_zeros((size["B"], LM_H, 1))
+                sols = {bk: make_scheduled_ilqr_solver(
+                    linear_pred, None, schedule=parse_schedule(JK_SCHEDULE),
+                    **fans[bk].solver_kw)(params, z0, ug, cp) for bk in fans}
+                obj = {bk: (reg_lane_objective(o[1][..., :4], o[2], cp, system.dt, S, mu) if reg
+                            else lane_objective(o[1][..., :4], o[2], cp, system.dt))
+                       for bk, o in sols.items()}
+                both = sols["scan"][0] & sols["pallas"][0]
+                rel = ((obj["scan"] - obj["pallas"]).abs()
+                       / obj["pallas"].abs().clamp_min(1e-30))[both]
+                share = float((rel <= FAN_OBJ_TOL).float().mean()) if both.any() else 0.0
+                # The fan-out's scores (task costs of the closed loops) of the
+                # two bodies, on the candidates finite in both.
+                sa, sb = fan_scores["scan"], fan_scores["pallas"]
+                fs = torch.isfinite(sa) & torch.isfinite(sb)
+                s_share = float(((sa - sb).abs() <= FAN_OBJ_TOL * sb.abs().clamp_min(1e-30))[fs]
+                                .float().mean()) if fs.any() else 0.0
+                out["rates"][f"(a) {tag} agreement"] = share
+                out["rates"][f"(a) {tag} score agreement"] = s_share
+                gated = int(both.sum()) >= LM_MIN_BOTH
+                print(f"[21a] {tag} first MPC step, scan vs pallas: converged "
+                      f"{int(sols['scan'][0].sum())}, {int(sols['pallas'][0].sum())}, both "
+                      f"{int(both.sum())} of {size['B']}; accepted objectives within "
+                      f"{FAN_OBJ_TOL} on {share:.4f} (min {FAN_AGREE_MIN}"
+                      + ("" if gated else f"; not gated: fewer than {LM_MIN_BOTH} lanes "
+                                          f"converged in both") + f"); the fan-out's scores "
+                      f"within {FAN_OBJ_TOL} on {s_share:.4f} of the {int(fs.sum())} finite in "
+                      f"both", flush=True)
+                if gated and share < FAN_AGREE_MIN:
+                    raise RuntimeError(f"phase 21 (a) {tag}: {int(both.sum())} lanes converged "
+                                       f"in both, objectives agree on {share:.4f}")
+            out["jk"][(N, reg)] = dict(fan=fans["pallas"], params=params, z0=z0, cp=cp,
+                                       launches=n_wide, models_finite=models_finite)
+
+    # ---- (b) a "joint_koopman" tune over the whole Koopman space ----------------
+    if size["tune"]:
+        from autompc_torch.control import IterativeLQRFactory
+        from autompc_torch.costs import QuadCostFactory
+        from autompc_torch.pipeline import Pipeline
+        from autompc_torch.sysid import KoopmanFactory
+        from autompc_torch.tuning import PipelineTuner
+
+        pipe = Pipeline(system, KoopmanFactory(system), QuadCostFactory(system, goal=np.zeros(4)),
+                        IterativeLQRFactory(system, horizon=LM_H))
+        task = bench.task.copy()
+        task.set_num_steps(size["steps"] + 1)
+        tuner = PipelineTuner(surrogate_mode="pretrain", eval_batch=size["tune"],
+                              use_fanout=True, fanout_backward="pallas")
+        reset_lift_counts(K4, K2)
+        t0 = time.perf_counter()
+        _, res = tuner.run(pipe, task, trajs, n_iters=size["tune"],
+                           rng=np.random.default_rng(LM_SEED), surrogate=model)
+        torch.cuda.synchronize()
+        k6n, k4n = lift_counts(K4, K2)
+        lifts = []
+        for cfg in res.cfgs:
+            d = cfg.get_dictionary()
+            p, t = d.get("_model:poly_basis") == "true", d.get("_model:trig_basis") == "true"
+            lifts.append(4 * (1 + (int(d.get("_model:poly_degree", 1)) - 1) * p
+                              + 2 * int(d.get("_model:trig_freq", 0)) * t))
+        n_inf = int(np.sum(~np.isfinite(res.costs)))
+        refused = [n for n in lifts if n > min(K2._build.BQBM_BIG_MAX_DS,
+                                               K2._build.RG_BIG_MAX_DS)]
+        out["rates"]["(b) tune evals/s"] = len(res.costs) / (time.perf_counter() - t0)
+        out["counts"]["(b) tune"] = dict(K6=k6n, K4=k4n)
+        print(f"[21b] joint_koopman tune over KoopmanFactory's space, fanout_backward='pallas': "
+              f"{len(res.costs)} candidates in {time.perf_counter() - t0:.2f} s; lifts {lifts}; "
+              f"scores not finite {n_inf} (a bad model, never a refusal: lifts past the wide "
+              f"instances {refused}); K6 wide launches {k6n}, K4 {k4n}", flush=True)
+        if refused:
+            raise RuntimeError(f"phase 21 (b): lifts {refused} past the wide instances")
+
+    # ---- (c) the cheetah SINDy (18, 6) solve, fused -----------------------------
+    hm, hcost, hkw = sp["hm"], sp["hcost"], sp["hkw"]
+    hB, hH = size["hc_B"], size["hc_H"]
+    hx0 = cheetah_x0(dev)[:hB].contiguous()
+    hug = torch.zeros((hB, hH, 6), dtype=torch.float32, device=dev)
+    bodies = {"fused": dict(hkw, fuse_ls=True)}
+    if size["hc_unfused"]:
+        bodies.update(unfused=dict(hkw, fuse_ls=False),
+                      scan=dict(hkw, fuse_ls=False, backward="scan"))
+    sols = {}
+    for name, kw in bodies.items():
+        solve = make_scheduled_ilqr_solver(hm.pred_core, hcost, H=hH, max_iter=50,
+                                           schedule=parse_schedule(LM_HC_SCHEDULE), **kw)
+        K3.reset_bm_counters()
+        for w in (K1.relin_jacobians_bm, K4.riccati_general, K3.sindy_line_search):
+            w.launches = 0
+        warm, per_call, sol = timed_runs(lambda: solve(hm.params, hx0, hug), 1)
+        n = dict(K3_mc=K3.fused_line_search_bm.launches_mc,
+                 K1=K1.relin_jacobians_bm.launches, K4=K4.riccati_general.launches,
+                 K7=K3.sindy_line_search.launches)
+        conv = sol[0].float().mean().item()
+        finite = torch.isfinite(sol[1]).all(dim=(1, 2)).float().mean().item()
+        out["rates"][f"(c) cheetah {name} solves/s"] = hB / per_call
+        out["counts"][f"(c) cheetah {name}"] = n
+        sols[name] = sol
+        print(f"[21c] cheetah SINDy (18, 6) solve, {name} (backward {kw['backward']!r}, fuse_ls "
+              f"{kw['fuse_ls']}): B={hB} H={hH}: warm {warm:.2f} s, timed {per_call:.3f} s -> "
+              f"{hB / per_call:.1f} solves/s on {card}; converged {conv:.4f}, lanes finite "
+              f"{finite:.4f}; launches {n}", flush=True)
+        if not all(torch.isfinite(o[sol[0]]).all() for o in sol[1:]):
+            raise RuntimeError(f"phase 21 (c) cheetah {name}: non-finite on a converged lane")
+        if name == "fused" and not (n["K3_mc"] and n["K1"] and n["K4"]) or \
+                name == "fused" and n["K7"]:
+            raise RuntimeError(f"phase 21 (c): the fused cheetah solve's kernels {n}")
+    if size["hc_unfused"]:
+        def share(a, b):
+            oa, ob = (so_objective(hcost, s[1], s[2], hkw["dt"]) for s in (a, b))
+            both = a[0] & b[0]
+            rel = ((oa - ob).abs() / ob.abs().clamp_min(1e-30))[both]
+            return (float((rel <= FAN_OBJ_TOL).float().mean()) if both.any() else 0.0,
+                    int(both.sum()))
+        ref, n_ref = share(sols["scan"], sols["unfused"])
+        got, n_got = share(sols["fused"], sols["unfused"])
+        out["rates"]["(c) agreement fused/unfused"] = got
+        out["rates"]["(c) agreement scan/pallas"] = ref
+        print(f"[21c] cheetah SINDy: fused vs unfused within {FAN_OBJ_TOL} on {got:.4f} of "
+              f"{n_got} lanes converged in both; scan vs pallas (unfused) {ref:.4f} of {n_ref} "
+              f"(the floor: {ref - SO_SHARE_SLACK:.4f}); fused / unfused solves/s "
+              f"{out['rates']['(c) cheetah fused solves/s'] / out['rates']['(c) cheetah unfused solves/s']:.3f}",
+              flush=True)
+        if got < ref - SO_SHARE_SLACK:
+            raise RuntimeError(f"phase 21 (c): fused vs unfused agree on {got:.4f}, under the "
+                               f"scan-vs-pallas share {ref:.4f} less {SO_SHARE_SLACK}")
+    out["hc"] = dict(hm=hm, hcost=hcost, hkw=dict(hkw, fuse_ls=True), hx0=hx0, hH=hH,
+                     launches=out["counts"]["(c) cheetah fused"]["K3_mc"])
+
+    # ---- (d) the cheetah's fan-outs with fuse_ls ---------------------------------
+    cand = cheetah_candidates(dev, size["fan_B"], LM_SEED)
+    task = hc.task.copy()
+    task.set_num_steps(size["fan_steps"] + 1)
+    h_goal = np.zeros(18)
+    fan_list = [("QuadCostFanout", lambda: QuadCostFanout(
+        hc.system, task, hm, hm, horizon=LM_H, n_steps=size["fan_steps"], goal=h_goal,
+        compact_schedule=JS_SCHEDULE, backward="pallas", feature_spec=(hm.library, "coeffs"),
+        fuse_ls=True), {k: v for k, v in cand.items() if k != "reg"})]
+    if size["joint_sindy"]:
+        fan_list.append(("JointSINDyQuadCostFanout", lambda: JointSINDyQuadCostFanout(
+            hc.system, task, LM_JS_BUCKET, hc_trajs, hm, horizon=LM_H,
+            n_steps=size["fan_steps"], goal=h_goal, compact_schedule=JS_SCHEDULE,
+            backward="pallas", use_feature_kernels=True, fuse_ls=True), cand))
+    for name, make, b in fan_list:
+        fan = make()
+        K3.reset_bm_counters()
+        warm, per_call, scores = timed_runs(lambda: fan(b), 1)
+        n = dict(K3_mc=K3.fused_line_search_bm.launches_mc,
+                 K3_mc_lane=K3.fused_line_search_bm.launches_lane)
+        fin = int(torch.isfinite(scores).sum())
+        out["rates"][f"(d) {name} evals/s"] = size["fan_B"] / per_call
+        out["counts"][f"(d) {name}"] = n
+        print(f"[21d] {name}(fuse_ls=True) on the cheetah SINDy: B={size['fan_B']} H={LM_H}, "
+              f"{size['fan_steps']} steps: warm {warm:.2f} s, timed {per_call:.3f} s -> "
+              f"{size['fan_B'] / per_call:.1f} evals/s on {card}; finite {fin} / "
+              f"{size['fan_B']}; K3 multi-control launches {n}", flush=True)
+        if torch.isnan(scores).any() or not n["K3_mc"]:
+            raise RuntimeError(f"phase 21 (d) {name}: NaN scores or K3 never ran at dc > 1")
+    print(f"[21] phase wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return out
+
+
+def k3_mc_bound(io_bytes, B, H, terms, L, ds, dc, obsdim, dense):
+    """K3's bound keys at dc > 1 (``k3_bound``'s count): L rollout-steps a
+    lane-step (the term values and coefficient products, dc feedback sums
+    of ds products, the state and control forms, du2) and one evaluation
+    of the Jacobian; its scratch (every candidate's ds + dc floats a
+    lane-step, the chosen one read back) beside it."""
+    forms = 3 * obsdim * (obsdim if dense else 1) + 3 * dc * (dc if dense else 1)
+    step = feature_value_flops(terms, ds) + dc * (2 * ds + 4) + forms + 3 * dc + 4
+    ops = B * H * (L * step + feature_jac_flops(terms, ds))
+    stash = 4 * (ds + dc) * H * B * (L + 1)
+    return dict(bound_keys(io_bytes, ops), scratch_bytes_ms=stash / HBM_BYTES_PER_S * 1e3)
+
+
+def check_lift_multicontrol_kernels(lm, mods, failures):
+    """Phase 21's kernels against their plain versions: K6's and K4's wide
+    instance at each lift on (a)'s first backward pass of its first MPC
+    step (K6 on the carry from the zero control guess, K4 on that pass's
+    dense expansions, GaussReg) and on well-conditioned inputs at the
+    same shape (``tools/ab_torch_kernels.py``'s ``k6_wide_inputs`` and
+    ``k4_inputs``: near-identity Jacobians, every lane finite), each by
+    ``check_backward`` at TOL_K6 / TOL_K4. (Later iterations' feedforward
+    terms near a converged trajectory are differences of nearly equal
+    float32 numbers: there the plain float32 version itself is 0.3-0.9 off
+    float64 per lane, no test of the kernel.) A row takes the path's
+    check where the lift's models are finite on some lane, else (the
+    float32 Lasso fits of the polynomial degree-8 lifts are NaN on every
+    lane, as the JAX package's are: PERF.md §6) the well-conditioned
+    inputs', named in ``inputs``; each kind of instance must be held on
+    some path. K3's multi-control instances on (c)'s fused carry one
+    iteration in (decisions on K3_FAN_AGREE_MIN of the active lanes,
+    states of equal decisions within TOL_K3 on K3_FAN_WITHIN_MIN of them,
+    the objective to TOL_K3, the Jacobians against the plain version's to
+    TOL_K1; at the kernel's own trajectories against float64: the
+    objective and du2 to TOL_K3, the Jacobians to TOL_K1). Returns report
+    rows."""
+    from autompc_torch.control import make_batched_ilqr_solver
+    from autompc_torch.sysid.arx import linear_pred
+
+    K1, K2, K3, K4 = mods
+    rows, on_path = [], {"K6": 0, "K4": 0}
+    for (N, reg), d in sorted(lm["jk"].items()):
+        fan, params, z0, cp = d["fan"], d["params"], d["z0"], d["cp"]
+        B = z0.shape[0]
+        if reg:
+            kind, kernel, plain, tol = "K4", K4.riccati_general, K4.riccati_general_plain, TOL_K4
+            args = capture_k4(K4, linear_pred, fan.solver_kw, params, z0, cp, n_iters=0)
+            synth = k4_inputs(N, 1, B, LM_H, z0.device)
+            ops = B * LM_H * riccati_flops(N, 1)
+        else:
+            kind, kernel, plain, tol = "K6", K2.backward_quad, K2.backward_quad_plain, TOL_K6
+            _, carry0, _, _ = make_batched_ilqr_solver(
+                linear_pred, None, return_pieces=True, **fan.solver_kw)
+            c = carry0(params, z0, z0.new_zeros((B, LM_H, 1)), cp)
+            args = (c["Jx"], c["Ju"], c["xs"], c["us"], c["cost"]["Qdiag"],
+                    c["cost"]["Rdiag"], c["cost"]["Fdiag"], (0.0,) * 4, fan.solver_kw["dt"], 4)
+            synth = k6_wide_inputs(B, LM_H, z0.device, N)
+            ops = B * LM_H * (riccati_flops(N, 1) + 4 * N)
+        n_in = 8 if reg else 7
+        name = (f"backward_quad[ds={N},wide,B={B},H={LM_H}]" if kind == "K6"
+                else f"riccati_general[{N},1,wide,B={B},H={LM_H}]")
+        head = dict(name=name, route="cuda", source="autompc_torch/csrc/riccati_big.cuh",
+                    replaces="autompc_tpu/ops/pallas_riccati.py:" + ("456" if kind == "K6"
+                                                                     else "1338"),
+                    launches=d["launches"])
+        s_row, fails, _ = check_backward(
+            f"{kind} wide instance at ({N}, 1), well-conditioned inputs H={LM_H}", kernel,
+            plain, synth, tol, dict(head, inputs="well-conditioned"), ops, n_in, True)[:3]
+        failures += fails
+        if s_row["lanes_checked"] < B:
+            failures.append(f"{kind} wide ({N}, 1): {B - s_row['lanes_checked']} lanes of the "
+                            f"well-conditioned inputs not finite")
+        if d["models_finite"]:
+            row, fails, _ = check_backward(
+                f"{kind} wide instance at ({N}, 1), (a)'s first backward pass H={LM_H} "
+                f"({d['models_finite']} lanes' models finite)", kernel, plain, args, tol,
+                dict(head, inputs="path"), ops, n_in, True)[:3]
+            failures += fails
+            on_path[kind] += 1
+            row.update(synthetic_max_abs_err=s_row["max_abs_err"])
+        else:
+            print(f"[3] {kind} wide instance at ({N}, 1): no lane's model of (a) is finite (the "
+                  f"float32 Lasso fits); the row holds the well-conditioned inputs' check",
+                  flush=True)
+            row = s_row
+        g = (K2.bq_bm_geometry(B, LM_H, N) if kind == "K6"
+             else K4.general_geometry(N, 1, B))
+        print(f"[3] {kind} wide instance at ({N}, 1) B={B} H={LM_H} ({g['threads']} threads a "
+              f"block, one lane, {g['blocks']} blocks, {g['smem']} bytes of shared memory), "
+              f"{row['inputs']} inputs: kernel {row['ms']:.4f} ms (device "
+              f"{row['device_ms']:.4f}), plain {row['plain_ms']:.3f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}); {d['launches']} launches on (a)",
+              flush=True)
+        rows.append(row)
+    for kind, n in on_path.items():
+        if not n:
+            failures.append(f"{kind}'s wide instance was held on no path's inputs")
+
+    # K3 at dc > 1 on (c)'s fused carry.
+    h = lm["hc"]
+    hm, hkw, hx0, hH = h["hm"], h["hkw"], h["hx0"], h["hH"]
+    B = hx0.shape[0]
+    active = hkw["feature_mask"]
+    terms = tuple(hm.library.terms[k] for k in active)
+    coeffs = hm.coeffs[:, list(active)].contiguous()
+    from autompc_torch.control import ilqr
+
+    _, carry0, _, make_body = make_batched_ilqr_solver(hm.pred_core, h["hcost"], H=hH,
+                                                       return_pieces=True, **hkw)
+    c = carry0(hm.params, hx0, hx0.new_zeros((B, hH, 6)))
+    body = make_body(hm.params)
+    c = body(c)
+    # The next iteration's backward pass on this carry (its inputs captured;
+    # K4's plain version gives the gains the line search takes).
+    captured, real = [], ilqr.riccati_general
+    ilqr.riccati_general = lambda *a: (captured.append(a), K4.riccati_general_plain(*a))[1]
+    try:
+        body(c)
+    finally:
+        ilqr.riccati_general = real
+    Ks, ks, lin, quad = K4.riccati_general_plain(*captured[0])
+    ks_small = torch.sqrt((ks * ks).sum(dim=(1, 2))) < 1e-3
+    ub = hkw["ubounds"]
+    planes = (c["x0s"].new_ones((18, B)), c["x0s"].new_full((6, B), 0.01),
+              c["x0s"].new_ones((18, B)))
+    alphas = tuple(0.2 ** k for k in range(10))
+    base = (terms, c["x0s"], c["xs"], c["us"], Ks.contiguous(), ks.contiguous(), coeffs, alphas,
+            np.asarray(ub[0]), np.asarray(ub[1]), *planes, (0.0,) * 18, hkw["dt"], c["obj"], lin,
+            quad, ks_small)
+    kk = K3.fused_line_search_bm(*base)
+    # The plain version takes seconds a call at this shape: the check's own
+    # call is its one timed run.
+    kp, kp_ms = plain_once(lambda: K3.fused_line_search_bm_plain(*base), dict(reps=1, warm=0))
+    act = ~c["converged"] & ~c["failed"]
+
+    def lane_finite(o):
+        return torch.stack([torch.isfinite(t.float()).reshape(B, -1).all(1) for t in o]).all(0)
+
+    kernel_only = int((~lane_finite(kk) & lane_finite(kp)).sum())
+    same_flags = (kk[3] == kp[3]) & (kk[4] == kp[4])
+    same_obj = (kk[2] - kp[2]).abs() <= K3_TIE * kp[2].abs()
+    agree_lane = same_flags & same_obj
+    agree = agree_lane[act].float().mean().item() if act.any() else 1.0
+    n_differ = int((act & ~agree_lane).sum())
+    lanes = agree_lane & lane_finite(kk) & lane_finite(kp)
+    dx = (kk[0][lanes].double() - kp[0][lanes].double()).abs().amax(dim=(1, 2))
+    within = (dx <= TOL_K3 * kp[0][lanes].double().abs().amax(dim=(1, 2)).clamp_min(1e-30))
+    within = within.float().mean().item() if lanes.any() else 1.0
+    e_obj = rel_err(kk[2][lanes], kp[2][lanes]) if lanes.any() else 0.0
+    e_jac = max(rel_err(kk[5][lanes], kp[5][lanes]), rel_err(kk[6][lanes], kp[6][lanes])) \
+        if lanes.any() else 0.0
+    # Against float64 at the kernel's own trajectories (its finite lanes):
+    # the objective under the cost planes (hcost's diagonals), du2, the
+    # Jacobians.
+    fin = lane_finite(kk)
+    if fin.any():
+        obj64 = so_objective(h["hcost"], kk[0], kk[1], hkw["dt"])
+        e_obj64 = float(((kk[2].double() - obj64).abs() / obj64.abs().clamp_min(1e-30))[fin].max())
+        du2_64 = ((kk[1].double() - c["us"].double()) ** 2).sum(dim=(1, 2))
+        e_du2 = rel_err(kk[7][fin], du2_64[fin])
+        j64 = K1.relin_jacobians_bm_plain(terms, kk[0][fin].double(), kk[1][fin].double(),
+                                          coeffs.double())
+        e_jac64 = max(rel_err(kk[5][fin], j64[0]), rel_err(kk[6][fin], j64[1]))
+    else:
+        e_obj64 = e_du2 = e_jac64 = float("inf")
+    print(f"[3] K3 batch-major at dc > 1, (c)'s cheetah carry (18, 6) B={B} H={hH}: active "
+          f"lanes {int(act.sum())}; not finite only in the kernel {kernel_only}; decisions agree "
+          f"with the plain version on {agree:.5f} of the active lanes ({n_differ} differ; min "
+          f"{K3_FAN_AGREE_MIN}); on the {int(lanes.sum())} lanes of equal decisions: states "
+          f"within {TOL_K3} on {within:.4f} (min {K3_FAN_WITHIN_MIN}), objective {e_obj:.3e}, "
+          f"Jacobians {e_jac:.3e} (tol {TOL_K1}); vs float64 at the kernel's trajectories "
+          f"({int(fin.sum())} finite lanes): objective {e_obj64:.3e}, du2 {e_du2:.3e} (tol "
+          f"{TOL_K3}), Jacobians {e_jac64:.3e} (tol {TOL_K1})", flush=True)
+    if kernel_only or n_differ > max(1, int((1 - K3_FAN_AGREE_MIN) * int(act.sum()))) \
+            or within < K3_FAN_WITHIN_MIN or e_obj > TOL_K3 or e_jac > TOL_K1 \
+            or not lanes.any() or max(e_obj64, e_du2) > TOL_K3 or e_jac64 > TOL_K1:
+        failures.append(f"K3 at dc > 1 (cheetah): kernel-only non-finite {kernel_only}, agree "
+                        f"{agree:.5f}, within {within:.4f}, obj {e_obj:.3e}, jac {e_jac:.3e}, "
+                        f"lanes of equal decisions {int(lanes.sum())}, obj64 {e_obj64:.3e}, "
+                        f"du2 {e_du2:.3e}, jac64 {e_jac64:.3e}")
+    tensors = [t for t in base if isinstance(t, torch.Tensor)]
+    rows.append(dict(
+        name=f"fused_line_search_bm[18x6,B={B},H={hH}]", route="cuda",
+        source="autompc_torch/csrc/linesearch_fused_mc.cu",
+        replaces="autompc_tpu/ops/pallas_linesearch.py:803", launches=h["launches"],
+        max_abs_err=abs_err(kk[0][lanes], kp[0][lanes]) if lanes.any() else None,
+        ms=time_ms(lambda: K3.fused_line_search_bm(*base), reps=5),
+        device_ms=device_ms(lambda: K3.fused_line_search_bm(*base)),
+        plain_ms=kp_ms,
+        **k3_mc_bound(n_bytes(*tensors, *kk), B, hH, terms, len(alphas), 18, 6, 18, False)))
+    return rows
+
+
 def main(profile=False):
     dev = check_device()
     from autompc_torch.benchmarks import CartpoleSwingupBenchmark, HalfcheetahBenchmark
@@ -6568,17 +7113,17 @@ def main(profile=False):
     # same sources), one nvcc a source or shape, all started together,
     # before any timed window.
     t0 = time.perf_counter()
-    _build.build_shapes(SHAPES_18 + SHAPES_19, main=True)
+    _build.build_shapes(SHAPES_18 + SHAPES_19 + SHAPES_21, main=True)
     print(f"[1] build/load kernels: {time.perf_counter() - t0:.2f} s "
-          f"({_build.library_path().name}, and phases 18's and 19's shapes "
-          f"{SHAPES_18 + SHAPES_19})", flush=True)
+          f"({_build.library_path().name}, and phases 18's, 19's and 21's shapes "
+          f"{SHAPES_18 + SHAPES_19 + SHAPES_21})", flush=True)
     # Registers a thread (ptxas) and resident warps an SM: K3 and K5 from
     # the CUDA occupancy query at each shape their paths launch; the other
     # kernels' 64-thread blocks bounded by registers alone.
     for name, regs, spill in ptxas_report(_build.build_log()):
         print(f"    ptxas: {name}: {regs} registers, {spill} bytes spilled, <= "
               f"{min(64, 65536 // (-(-regs // 8) * 8 * 32))} warps an SM by registers")
-    for shape in SHAPES_18 + SHAPES_19:
+    for shape in SHAPES_18 + SHAPES_19 + SHAPES_21:
         for name, regs, spill in ptxas_report(_build.shape_build_log(*shape)):
             print(f"    ptxas {shape[0]} ({shape[1]}, {shape[2]}): {name}: {regs} registers, "
                   f"{spill} bytes spilled")
@@ -6963,6 +7508,10 @@ def main(profile=False):
     so = solver_options_phase(dev, card, (K1, K2, K3, K4, K5), bench, model, trajs,
                               (hc_model, hc_cost, hc_kw, hc_x0, hc_ug),
                               (cp_model, cp_cost, cp_kw, cp_x0, ug[:B_DENSE]))
+
+    # ---- [21] Koopman lifts past 24 states; K3 at dc > 1 ----------------------------
+    lm21 = lift_multicontrol_phase(dev, card, (K1, K2, K3, K4), bench, model, trajs, sp, hc,
+                                   hc_trajs)
 
     # ---- [3] kernels vs plain twins on path inputs -----------------------
     _, make_carry0, _, _ = make_batched_ilqr_solver(
@@ -7413,6 +7962,10 @@ def main(profile=False):
     t3 = time.perf_counter()
     report += check_solver_option_kernels(so, (K1, K2, K3, K4, K5), failures)
     print(f"[3] phase 20's modes checked in {time.perf_counter() - t3:.2f} s", flush=True)
+    # Phase 21's instances: K6 and K4 wide at each lift, K3 at (18, 6).
+    t3 = time.perf_counter()
+    report += check_lift_multicontrol_kernels(lm21, (K1, K2, K3, K4), failures)
+    print(f"[3] phase 21's instances checked in {time.perf_counter() - t3:.2f} s", flush=True)
 
     def device_txt(w):
         return ((f" (device {w['device_ms']:.4f})" if "device_ms" in w else "")

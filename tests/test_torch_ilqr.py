@@ -118,7 +118,10 @@ def test_parse_schedule_matches():
     (("quad_cost_batch", "reg_matrix"), (True, np.eye(4)), "lanes_last"),
     ("horizon_mask", True, "horizon_mask"),
     ("pad_to", 64, "pad_to"),
-    ("batch_params", True, "batch_params"),
+    # Per-lane coefficients under one fixed diagonal cost: the JAX package
+    # runs them (its diagonals broadcast to per-lane planes), so does the
+    # port: B copies of the model give the shared solve.
+    pytest.param("batch_params", True, "runs", id="batch_params-True-batch_params"),
     ("feature_mask", (), "masks out every feature"),
     ("reg_matrix", np.eye(4), "reg_matrix"),
     ("mlp_ls", object(), "mlp_ls"),
@@ -126,7 +129,8 @@ def test_parse_schedule_matches():
     # (its relinearization is the fused kernel's): so does the port's.
     pytest.param("analytic_jac", True, None, id="analytic_jac-True-analytic_jac"),
     ("jac_dtype", "f16", "jac_dtype must be"),
-    ("dc", 2, "dc > 1"),
+    # dc > 1: the JAX package's ValueError (its message names dc=1).
+    pytest.param("dc", 2, "the fully-fused dc=1", id="dc-2-dc > 1"),
     ("backward", "scan", "backward"),
     ("relin", "xla", "relin"),
     ("fuse_ls", False, "fuse_ls"),
@@ -135,6 +139,23 @@ def test_unported_options_raise(setup, option, value, match):
     _, t, _, tcost, common = setup
     kw = dict(common, feature_spec=(t.library, "coeffs"))
     kw.update(zip(option, value) if isinstance(option, tuple) else [(option, value)])
+    if match == "runs":
+        x0 = torch.as_tensor(np.random.default_rng(2).uniform(-1, 1, (4, 4)))
+        ug = torch.zeros((4, 8, 1), dtype=torch.float64)
+
+        def lane_pred(prm, x, u):
+            return torch.einsum("bf,bnf->bn", t.library(torch.cat([x, u], -1)), prm["coeffs"])
+
+        lane = tilqr.make_batched_ilqr_solver(lane_pred, tcost, **kw)(
+            {"coeffs": t.coeffs[None].expand(4, -1, -1).contiguous()}, x0, ug)
+        shared = tilqr.make_batched_ilqr_solver(t.pred_core, tcost, **dict(kw, **{option: False}))(
+            t.params, x0, ug)
+        # The rollout's einsum sums the terms in another order than the
+        # shared model's product: equal to rounding.
+        assert torch.equal(lane[0], shared[0])
+        for a, b in zip(lane[1:], shared[1:]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10, atol=1e-12)
+        return
     if match is None:
         x0 = torch.as_tensor(np.random.default_rng(2).uniform(-1, 1, (4, 4)))
         ug = torch.zeros((4, 8, 1), dtype=torch.float64)

@@ -159,8 +159,9 @@ def test_build_flags_target_sm90a_without_fast_math():
     assert {"relin.cu", "riccati_quad.cu", "linesearch_fused.cu", "features.cuh",
             "riccati_general.cu", "mlp_linesearch.cu", "riccati_quad_bm.cu",
             "sindy_linesearch.cu", "riccati_quad_step.cuh", "ls_obj_wide.cu",
-            "ls_reroll_wide.cu", "ls_step.cuh", "jac_io.cuh"} <= names
-    assert sum(n.endswith(".cu") for n in names) == 9
+            "ls_reroll_wide.cu", "ls_step.cuh", "jac_io.cuh", "linesearch_fused_mc.cu",
+            "riccati_big.cuh"} <= names
+    assert sum(n.endswith(".cu") for n in names) == 10
     for p in _build.sources():
         src = p.read_text()
         assert "__sinf" not in src and "__cosf" not in src and "__expf" not in src
@@ -331,8 +332,8 @@ def test_new_kernels_raise_at_unbuilt_shapes(which, match, monkeypatch):
 
     monkeypatch.setattr(_build, "device_kind", lambda t: "cuda")
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device="meta")
-    if which == "K6 ds":
-        ds = _build.MAX_D
+    if which == "K6 ds":           # past the wide instance (ds + 1 > MAX_D) too
+        ds = _build.BQBM_BIG_MAX_DS + 1
         with pytest.raises(ValueError, match=match):
             cuda_riccati.backward_quad(z(2, 3, ds, ds), z(2, 3, ds, 1), z(2, 4, ds),
                                        z(2, 3, 1), z(2, 5), z(2, 1), z(2, 5), (0.0,) * 5,

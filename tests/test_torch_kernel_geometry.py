@@ -310,16 +310,20 @@ def test_general_geometry_packs_lanes_on_a_small_card():
 def test_backward_kernels_refuse_unbuilt_shapes_by_name(which, monkeypatch):
     """The pickers and the wrappers of tensors that are not on the CPU
     raise past the kernels' stated limits (ds + 1 <= MAX_D, K2's ds <=
-    BQ_MAX_DS, obsdim <= MAX_OBS for K2 and K6; K4's ds + dc <= MAX_D), before
-    any build or launch
+    BQ_MAX_DS, obsdim <= MAX_OBS for K2 and K6; K4's ds + dc <= MAX_D; K6
+    and K4 at dc = 1 past MAX_D up to the wide instance's width, past
+    which NotPortedError), before any build or launch
     (device_kind and the SM count are patched, meta tensors stand in for
     the card's)."""
     monkeypatch.setattr(_build, "device_kind", lambda t: "cuda")
     monkeypatch.setattr(_build, "sm_count", lambda device: _build.H100_SMS)
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device="meta")
     if which == "K6":        # its wrapper: tests/test_torch_import.py
-        with pytest.raises(ValueError, match=r"riccati_quad_bm: .*MAX_D = 24"):
-            K2.bq_bm_geometry(64, 10, ds=_build.MAX_D)
+        from autompc_torch import NotPortedError
+
+        assert K2.bq_bm_geometry(64, 10, ds=_build.MAX_D)["big"]
+        with pytest.raises(NotPortedError, match=r"riccati_quad_bm: .*MAX_D = 24"):
+            K2.bq_bm_geometry(64, 10, ds=_build.BQBM_BIG_MAX_DS + 1)
         return
     if which == "K2":
         with pytest.raises(ValueError, match=r"riccati_quad: .*MAX_D = 24"):

@@ -403,7 +403,8 @@ def test_batch_major_feature_solve_matches_jax_at_dc_above_one(ds, dc):
 
 def test_batch_major_feature_solve_runs_the_kernels_at_dc_above_one(monkeypatch):
     """At dc > 1 the batch-major feature body calls K1's batch-major
-    entry, the general Riccati kernel and K7; fuse_ls raises by name."""
+    entry, the general Riccati kernel and K7; with fuse_ls, K3's
+    batch-major entry (its multi-control instances) in place of K7."""
     ds, dc = 3, 2
     names = ([f"x{i}" for i in range(ds)], [f"u{j}" for j in range(dc)])
     tsys = TSystem(*names, dt=0.05)
@@ -411,7 +412,8 @@ def test_batch_major_feature_solve_runs_the_kernels_at_dc_above_one(monkeypatch)
     t.set_parameters({"coeffs": _coeffs(np.random.default_rng(1), ds, t.library.n_features,
                                         ds + dc)})
     calls = []
-    for name in ("relin_jacobians_bm", "riccati_general", "sindy_line_search"):
+    for name in ("relin_jacobians_bm", "riccati_general", "sindy_line_search",
+                 "fused_line_search_bm"):
         real = getattr(tilqr, name)
         monkeypatch.setattr(tilqr, name,
                             lambda *a, _r=real, _n=name, **k: (calls.append(_n), _r(*a, **k))[1])
@@ -422,10 +424,11 @@ def test_batch_major_feature_solve_runs_the_kernels_at_dc_above_one(monkeypatch)
         t.params, torch.zeros((2, ds), dtype=torch.float64) + 0.3,
         torch.zeros((2, 4, dc), dtype=torch.float64))
     assert set(calls) == {"relin_jacobians_bm", "riccati_general", "sindy_line_search"}
-    from autompc_torch import NotPortedError
-
-    with pytest.raises(NotPortedError, match="fuse_ls with dc > 1"):
-        tilqr.make_batched_ilqr_solver(t.pred_core, cost, **dict(BM, fuse_ls=True), **common)
+    calls.clear()
+    tilqr.make_batched_ilqr_solver(t.pred_core, cost, **dict(BM, fuse_ls=True), **common)(
+        t.params, torch.zeros((2, ds), dtype=torch.float64) + 0.3,
+        torch.zeros((2, 4, dc), dtype=torch.float64))
+    assert set(calls) == {"relin_jacobians_bm", "riccati_general", "fused_line_search_bm"}
 
 
 # ---- (e) the launch geometry and the limits ---------------------------------------

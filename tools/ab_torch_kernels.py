@@ -138,6 +138,10 @@ K4_SHAPES = (
     ("K4_12x1_B1024_H10", 12, 1, 1024, 10),
     ("K4_8x1_B128_H10", 8, 1, 128, 10),
     ("K4_2x1_B1024_H20", 2, 1, 1024, 20),
+    # The wide instance at dc = 1 (the Koopman lifts past ds + dc = 24) at
+    # the joint-Koopman fan-out's shape.
+    ("K4_28x1_B1024_H10", 28, 1, 1024, 10),
+    ("K4_96x1_B1024_H10", 96, 1, 1024, 10),
 )
 # K5: (tag, widths, ds, dc, B, H, layout, precision); the blocks of
 # BLOCKS are timed for the "slab"/"highest" shapes.
@@ -213,9 +217,12 @@ PENDULUM_SHAPES = tuple(sorted(
     key=lambda r: (r[2], r[3])))
 # The halfcheetah's (18, 6) instances: (tag, kernel, B, H).
 CHEETAH_SHAPES = (("K1_bm_18x6_B1024_H200", "K1bm", 1024, 200),
-                  ("K7_18x6_B1024_H200", "K7", 1024, 200))
-# K6's (12, 1) instance: (tag, B, H).
-K6_WIDE_SHAPES = (("K6_12x1_B1024_H10", 1024, 10), ("K6_12x1_B4096_H200", 4096, 200))
+                  ("K7_18x6_B1024_H200", "K7", 1024, 200),
+                  ("K3bm_18x6_B1024_H200", "K3bm", 1024, 200))
+# K6's (12, 1) instance and its wide instance (the Koopman lifts past
+# ds + 1 = 24): (tag, ds, B, H).
+K6_WIDE_SHAPES = (("K6_12x1_B1024_H10", 12, 1024, 10), ("K6_12x1_B4096_H200", 12, 4096, 200),
+                  ("K6_28x1_B1024_H10", 28, 1024, 10), ("K6_96x1_B1024_H10", 96, 1024, 10))
 ALPHAS = tuple(0.2 ** k for k in range(L))
 ALL_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "split", "lane")
 
@@ -313,12 +320,30 @@ def cheetah_inputs(B, H, dev):
             -1.0, 1.0)
 
 
-def k6_wide_inputs(B, H, dev):
-    """K6's arguments at ds = 12: Jx near the identity, Ju small, per-lane
-    cost diagonals over obsdim = 4 (the Koopman lift's first four
-    coordinates are the cartpole's state)."""
+def k3mc_inputs(B, H, dev):
+    """K3's batch-major entry at the halfcheetah's (18, 6): K7's arguments
+    (``cheetah_inputs``), per-lane cost planes Q/F (18, B) = 10**U(-1, 1),
+    R (6, B) = 10**U(-3, -1), a zero goal, and the acceptance inputs (the
+    current objective, the expected reductions, no tiny gain)."""
+    import torch
+
+    terms, x0, xs, us, Ks, ks, coeffs, alphas, lo, hi = cheetah_inputs(B, H, dev)
+    rng = np.random.default_rng(SEED + 1)
+    planes = (_tensor(10 ** rng.uniform(-1, 1, (18, B)), dev),
+              _tensor(10 ** rng.uniform(-3, -1, (6, B)), dev),
+              _tensor(10 ** rng.uniform(-1, 1, (18, B)), dev))
+    obj0 = rng.uniform(5.0, 50.0, B)
+    return (terms, x0, xs, us, Ks, ks, coeffs, alphas, lo, hi, *planes, (0.0,) * 18, 0.05,
+            _tensor(obj0, dev), _tensor(-rng.uniform(0.1, 5.0, B) * obj0 / 10, dev),
+            _tensor(-rng.uniform(0.1, 5.0, B), dev), torch.zeros(B, dtype=torch.bool, device=dev))
+
+
+def k6_wide_inputs(B, H, dev, ds=12):
+    """K6's arguments at ds (12, or past ds + 1 = 24 the wide instance's):
+    Jx near the identity, Ju small, per-lane cost diagonals over obsdim = 4
+    (the Koopman lift's first four coordinates are the cartpole's
+    state)."""
     rng = np.random.default_rng(SEED)
-    ds = 12
     Jx = np.eye(ds)[None, None] * 0.99 + rng.normal(0, 0.02, (B, H, ds, ds))
     return (_tensor(Jx, dev), _tensor(rng.normal(0, 0.1, (B, H, ds, 1)), dev),
             _tensor(rng.normal(0, 1, (B, H + 1, ds)), dev), _tensor(rng.normal(0, 1, (B, H, 1)), dev),
@@ -630,14 +655,17 @@ def time_one(root, only):
         args = cheetah_inputs(B, H, dev)
         if kind == "K1bm":
             record_built(tag, lambda: K1.relin_jacobians_bm(args[0], args[2], args[3], args[6]))
+        elif kind == "K3bm":
+            args = k3mc_inputs(B, H, dev)
+            record_built(tag, lambda: K3.fused_line_search_bm(*args))
         else:
             record_built(tag, lambda: K3.sindy_line_search(*args))
         del args
-    for tag, B, H in K6_WIDE_SHAPES:
+    for tag, ds, B, H in K6_WIDE_SHAPES:
         if not wanted(tag):
             continue
-        args = k6_wide_inputs(B, H, dev)
-        record(tag, lambda: K2.backward_quad(*args))
+        args = k6_wide_inputs(B, H, dev, ds)
+        record_built(tag, lambda: K2.backward_quad(*args))
         del args
     for tag, B, H, lane, bf16, d4 in K2_SHAPES:
         if not wanted(tag):
